@@ -1,0 +1,1124 @@
+"""TorchSolver: the PyTorch port of karpenter_tpu/solver/driver.py:TpuSolver.
+
+Routes pods between the device fast path and the host oracle:
+
+- *Tensorizable* pods (solver/encode.py:is_tensorizable) are grouped,
+  encoded to dense arrays, moved onto the device (solver/args.py) and
+  solved by one dispatch of the fused kernels (ops/solve.py): the sparse
+  feasibility tables, the grouped-FFD packing scan and the wire pack.
+- Everything else falls through to the exact host oracle
+  (scheduling/scheduler.py) in the same solve, sharing existing-node
+  capacity with the device placements.
+
+The solve runs on ``SolverConfig.device``: "cuda" (the default) launches
+the hand-written kernels, "cpu" runs their plain PyTorch versions. Asking
+for CUDA on a host without it raises; nothing falls back.
+
+Not in this slice, each raising NotImplementedError: the consolidation
+scenario axis, the class-batched scan, the relaxation pre-solver and the
+multi-GPU mesh (ROADMAP.md items A6, A8, A9, A13), and the kernel statics
+outside the ported pack scope (domain quotas, contributor counting,
+reservations, minValues, tiled tables).
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import obs
+from ..api import labels as labels_mod
+from ..api import resources as res
+from ..api.objects import NodePool, Pod
+from ..api.requirements import Operator, Requirement, Requirements
+from ..cloudprovider import types as cp
+from ..faults.guard import (
+    DecodeCommitError,
+    SolverIntegrityError,
+    check_solution,
+)
+from ..ops.packing import check_scope
+from ..scheduling.inflight import RESERVED_OFFERING_MODE_STRICT
+from ..scheduling.scheduler import Results, Scheduler
+from ..scheduling.template import NodeClaimTemplate
+from ..scheduling.topology import Topology
+from ..utils.pretty import ChangeMonitor
+from . import encode as enc
+from .args import to_device_args
+
+_LOG = logging.getLogger("karpenter_tpu_torch.solver")
+# once per pod (24h TTL), not once per batch walk: long-pending pods are
+# re-partitioned every provisioning round
+_ORACLE_ROUTE_CM = ChangeMonitor()
+
+
+class EncodeCache:
+    """Catalog-fingerprinted encode cache that outlives solver instances.
+
+    The Provisioner (and the solver sidecar) build a fresh solver per
+    solve, so the instance-type/template encode reuse (see encode.encode)
+    only pays off if the vocab + static arrays survive across solvers. The
+    fingerprint covers everything the static arrays are derived from; any
+    catalog change (new types, price/availability flips, new limits)
+    resets the cache."""
+
+    def __init__(self, owner: str = ""):
+        import threading
+
+        # multi-tenant attribution (solver/tenancy.py): the control plane
+        # this cache's warm state belongs to. Rides the ENCODE_DELTA fault
+        # ctx so chaos plans can pin corrupt-delta rules to one tenant's
+        # leases; "" for single-operator deployments.
+        self.owner = owner
+        self._fingerprint = None
+        # short content hash of the current catalog fingerprint — the
+        # encode_hash every decision audit record carries. Computed once
+        # per catalog change (repr of the full fingerprint is megabytes on
+        # an 800-type catalog; per-solve hashing would eat the <2% bench
+        # budget), read per solve.
+        self.content_hash = ""
+        self.vocab = enc.Vocab()
+        self.cache: dict = {}
+        # the persistent cluster encoding (content-keyed row banks +
+        # prior-snapshot fast path) outlives solver instances with this
+        # cache; a catalog change resets it along with the vocab
+        self.cluster = enc.ClusterEncoding(owner=owner)
+        # pure per-node scheduler model inputs (taints, daemon remainder,
+        # label requirements) keyed by object resource versions — catalog-
+        # independent, so it survives fingerprint resets. Consolidation
+        # probes and successive provisioning rounds over a stable cluster
+        # hit this instead of rebuilding every ExistingNode model.
+        self.node_models: dict = {}
+        # encode mutates the shared vocab/static arrays; concurrent solves
+        # (the gRPC sidecar) serialize the host-side encode on this lock
+        self.lock = threading.RLock()
+
+    @staticmethod
+    def _type_static_fp(it) -> tuple:
+        """The immutable per-type fingerprint part (name, capacity,
+        requirement content), memoized ON the InstanceType object: the
+        provider hands the same objects back every reconcile (ICE masking
+        builds fresh copies, which recompute), and repr(requirements)
+        over an 800-type catalog was the dominant cost of every lease —
+        a steady-state tax the warm encode path can't afford. Offering
+        price/availability is NOT memoized: it changes per solve and is
+        fingerprinted fresh below."""
+        fp = getattr(it, "_ktpu_static_fp", None)
+        if fp is None:
+            fp = (
+                it.name,
+                tuple(sorted(it.capacity.items())),
+                repr(it.requirements),
+            )
+            try:
+                object.__setattr__(it, "_ktpu_static_fp", fp)
+            except (AttributeError, TypeError):
+                pass  # slotted/frozen types just recompute per lease
+        return fp
+
+    @staticmethod
+    def _template_fp(nct) -> tuple:
+        """Content tuple for one template. repr(requirements) omits
+        min_values (Requirement.__repr__ prints key/operator/values only),
+        and the dense minValues tables (p_mvmin/t_mvoh) live in the leased
+        static cache — so the floors are fingerprinted explicitly or a
+        NodePool minValues edit would serve stale floors until an
+        unrelated catalog change."""
+        return (
+            nct.node_pool_name,
+            nct.node_pool_weight,
+            tuple(sorted(nct.labels.items())),
+            tuple((t.key, t.value, t.effect) for t in nct.taints),
+            repr(nct.requirements),
+            tuple(
+                sorted(
+                    (r.key, r.min_values)
+                    for r in nct.requirements
+                    if r.min_values is not None
+                )
+            ),
+        )
+
+    @staticmethod
+    def fingerprint(templates, its_by_pool, daemon_overhead, pool_limits):
+        tpl = tuple(EncodeCache._template_fp(nct) for nct in templates)
+        # content-addressed (NOT id()): the gRPC sidecar decodes a fresh
+        # InstanceType object per request, and the cache must still hit on
+        # an unchanged catalog
+        types = tuple(
+            (
+                pool,
+                tuple(
+                    EncodeCache._type_static_fp(it)
+                    + (tuple((o.price, o.available, o.reservation_capacity)
+                             for o in it.offerings),)
+                    for it in its
+                ),
+            )
+            for pool, its in sorted(its_by_pool.items())
+        )
+        overhead = tuple(
+            sorted(
+                (nct.node_pool_name, tuple(sorted(rl.items())))
+                for nct, rl in (daemon_overhead or {}).items()
+            )
+        )
+        limits = tuple(
+            sorted(
+                (pool, tuple(sorted(rl.items())))
+                for pool, rl in (pool_limits or {}).items()
+            )
+        )
+        return (tpl, types, overhead, limits)
+
+    def lease(self, templates, its_by_pool, daemon_overhead, pool_limits):
+        """Vocab + cache dict for this catalog; resets on fingerprint change.
+
+        An identity fast path skips the deep content fingerprint when the
+        provider hands back the SAME InstanceType objects as last lease
+        (the steady-state reconcile shape — kwok/fake return their cached
+        list; availability changes arrive as fresh masked copies via the
+        ICE cache, which breaks identity and recomputes). The per-object
+        contract: a live catalog object's content is immutable — changed
+        offerings come as new objects, never in-place flips. Strong refs
+        to the keyed objects are held so a recycled id can never alias."""
+        prekey = (
+            tuple(EncodeCache._template_fp(nct) for nct in templates),
+            tuple(
+                (pool, tuple(map(id, its)))
+                for pool, its in sorted(its_by_pool.items())
+            ),
+            tuple(
+                sorted(
+                    (nct.node_pool_name, tuple(sorted(rl.items())))
+                    for nct, rl in (daemon_overhead or {}).items()
+                )
+            ),
+            tuple(
+                sorted(
+                    (pool, tuple(sorted(rl.items())))
+                    for pool, rl in (pool_limits or {}).items()
+                )
+            ),
+        )
+        if prekey == getattr(self, "_prekey", None):
+            return self.vocab, self.cache
+        fp = self.fingerprint(templates, its_by_pool, daemon_overhead, pool_limits)
+        self._prekey = prekey
+        # keep the id()-keyed objects alive: a GC'd type whose id is
+        # recycled could otherwise satisfy the prekey with different content
+        self._prekey_refs = [list(its) for its in its_by_pool.values()]
+        if fp != self._fingerprint:
+            import hashlib
+
+            self._fingerprint = fp
+            self.content_hash = hashlib.blake2b(
+                repr(fp).encode(), digest_size=8
+            ).hexdigest()
+            self.vocab = enc.Vocab()
+            self.cache = {}
+            # the warm encoding is catalog-derived: a changed catalog
+            # invalidates it (next encode is full)
+            self.cluster.invalidate("catalog changed")
+        return self.vocab, self.cache
+
+
+def _not_in_slice(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP.md item {item})"
+    )
+
+
+@dataclass
+class SolverConfig:
+    # "cuda": the hand-written kernels on the current CUDA device (or
+    # "cuda:N"); "cpu": their plain PyTorch versions. CUDA on a host
+    # without it raises here, never falls back.
+    device: str = "cuda"
+    max_claims: Optional[int] = None  # NMAX override; default auto-estimated
+    force_oracle: bool = False  # route everything host-side (debugging)
+    # multi-tenant attribution: rides the decision audit records' attrs
+    tenant: str = ""
+    # not in this slice: set, each raises NotImplementedError
+    mesh: Optional[object] = None
+    classed: Optional[bool] = None
+    relax: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise _not_in_slice("the multi-GPU mesh (B10)", "A13")
+        if self.classed:
+            raise _not_in_slice("the class-batched scan (B5)", "A8")
+        if self.relax:
+            raise _not_in_slice("the relaxation pre-solver (B9)", "A9")
+        dev = torch.device(self.device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"SolverConfig(device={self.device!r}): CUDA is not available"
+                " on this host; pass device='cpu' for the plain versions"
+            )
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported solver device {self.device!r}")
+
+
+@dataclass
+class DecodedClaim:
+    """A claim produced by the device path; duck-types InFlightNodeClaim for
+    Results consumers (pods, instance_type_options, requirements,
+    template, reserved_offerings)."""
+
+    template: NodeClaimTemplate
+    pods: List[Pod]
+    instance_type_options: List[cp.InstanceType]
+    requirements: Requirements
+    reserved_offerings: List[cp.Offering] = field(default_factory=list)
+
+    def finalize(self) -> None:  # parity with InFlightNodeClaim
+        pass
+
+
+class TorchSolver:
+    """Drop-in Solve() accelerator at the Scheduler seam, on PyTorch."""
+
+    def __init__(
+        self,
+        node_pools: Sequence[NodePool],
+        instance_types: Dict[str, List[cp.InstanceType]],
+        topology: Topology,
+        state_nodes: Sequence = (),
+        daemonset_pods: Sequence[Pod] = (),
+        config: Optional[SolverConfig] = None,
+        encode_cache: Optional[EncodeCache] = None,
+        **scheduler_kwargs,
+    ):
+        self.config = config or SolverConfig()
+        self.device = torch.device(self.config.device)
+        # encode reuse: with a shared EncodeCache the instance-type/template
+        # side survives across solver instances
+        self._shared_cache = encode_cache or EncodeCache()
+        # the oracle scheduler provides template prefiltering, daemon
+        # overhead, existing-node models, and the fallback solve loop
+        self.oracle = Scheduler(
+            node_pools,
+            instance_types,
+            topology,
+            state_nodes=state_nodes,
+            daemonset_pods=daemonset_pods,
+            node_model_cache=self._shared_cache.node_models,
+            **scheduler_kwargs,
+        )
+        self.pool_limits = {
+            np_.name: dict(np_.spec.limits) for np_ in node_pools if np_.spec.limits
+        }
+        # per-solve audit state (obs/audit.py): which rung produced the
+        # committed answer and what the invariant guard said
+        self.last_dispatches = 0
+        self._audit_rung = "kernel"
+        self._audit_guard = "ok"
+        self.last_encode_reused = False
+        self.last_delta_rows = 0
+        # sequential-fallback telemetry: work that fell off the dense path
+        # for representability reasons (oracle-routed pods, gated routes)
+        self.fallback_solves = 0
+        self.last_fallback_reasons: List[str] = []
+        # per-solve volume routing state (prepare_volume_routing)
+        self._vol_resolved: Dict[str, list] = {}
+
+    def _note_fallback(self, reason: str) -> None:
+        self.fallback_solves += 1
+        self.last_fallback_reasons.append(reason)
+        obs.event("solver.sequential_fallback", reason=reason)
+
+    # -- solve ------------------------------------------------------------
+
+    def solve(self, pods: Sequence[Pod]) -> Results:
+        """One committed decision: the routed solve (below) inside a span,
+        followed by the decision audit record. Neither instrument touches
+        the decision itself (byte-identical-decisions contract,
+        tests/test_obs.py)."""
+        self.last_dispatches = 0
+        self._audit_rung = "kernel"
+        self._audit_guard = "ok"
+        self.last_encode_reused = False
+        self.last_delta_rows = 0
+        fault_mark = self._fault_log_mark()
+        # one duration clock captured per solve: the tracer's injected
+        # clock under tracing (replay-deterministic), the monotonic
+        # PerfClock seam otherwise — never a raw wall-clock read in the
+        # solve path (CLK10xx), and never RealClock for a DELTA (an NTP
+        # step between the two reads would record a negative duration)
+        dclk = obs.duration_clock()
+        t0 = dclk.now()
+        with obs.span("solve", pods=len(pods)) as sp:
+            results = self._solve_routed(pods)
+        self._emit_audit(
+            "solve", sp, dclk, t0, fault_mark,
+            pods=len(pods),
+            claims=len(results.new_node_claims),
+            errors=len(results.pod_errors),
+            scenario_count=0,
+            dispatches=self.last_dispatches,
+            # cost enrichment only under tracing: total_price walks every
+            # claim's options, and the untraced audit path must stay O(1)
+            cost=(
+                results.total_price() if obs.active() is not None else None
+            ),
+        )
+        return results
+
+    @staticmethod
+    def _fault_log_mark() -> int:
+        from .. import faults
+
+        inj = faults.active()
+        return len(inj.log) if inj is not None else 0
+
+    def _drain_host(self, out) -> List[np.ndarray]:
+        """The single device->host readback of the solve: the kernel's
+        outputs cross here (``.cpu()`` waits for the stream), immediately
+        ahead of the pre-decode invariant guard."""
+        return [x.cpu().numpy() for x in out]
+
+    def solve_scenarios(self, scenarios):
+        raise _not_in_slice("the consolidation scenario axis (B7)", "A6")
+
+    def _emit_audit(self, kind, sp, dclk, t0, fault_mark, **fields) -> None:
+        from .. import faults
+
+        inj = faults.active()
+        fired = (
+            sorted({s for s, _, _ in inj.log[fault_mark:]})
+            if inj is not None
+            else []
+        )
+        # per-tenant attribution on the audit trail: a constant per
+        # configured solver, so canonical replay identity is unmoved;
+        # merged into any caller-supplied attrs (scenario error details)
+        attrs = dict(fields.pop("attrs", None) or {})
+        if self.config.tenant:
+            attrs.setdefault("tenant", self.config.tenant)
+        obs.AUDIT.record(
+            kind=kind,
+            trace_id=getattr(sp, "trace_id", ""),
+            # same clock OBJECT as t0: an install/uninstall racing the
+            # solve cannot mix timebases into one delta
+            duration_ms=round((dclk.now() - t0) * 1000, 3),
+            encode_hash=self._shared_cache.content_hash,
+            rung=self._audit_rung,
+            guard=self._audit_guard,
+            fault_sites=fired,
+            encode_reused=self.last_encode_reused,
+            delta_rows=self.last_delta_rows,
+            attrs=attrs,
+            **fields,
+        )
+
+    def _solve_routed(self, pods: Sequence[Pod]) -> Results:
+        if self.config.force_oracle:
+            self._audit_rung = "oracle"
+            return self.oracle.solve(pods)
+        if (
+            self.oracle.reserved_capacity_enabled
+            and self.oracle.reserved_offering_mode
+            == RESERVED_OFFERING_MODE_STRICT
+        ):
+            # strict reservation policy raises mid-Add and blocks pool
+            # fallback (scheduler.py:244-258): inherently sequential
+            self._audit_rung = "oracle"
+            self._note_fallback("strict-reservation-mode")
+            return self.oracle.solve(pods)
+        with obs.span("solve.partition", pods=len(pods)):
+            groups, rest = enc.partition_and_group(
+                pods,
+                topology=self.oracle.topology,
+                # the merge's exactness argument needs state-independent
+                # bootstrap inputs: a reservation ledger makes offering
+                # availability evolve across scan steps
+                merge_bootstrap_affinity=not self.oracle.reserved_capacity_enabled,
+                volume_shapes=self.prepare_volume_routing(pods),
+            )
+        if rest:
+            self._note_fallback(f"oracle-routed-pods:{len(rest)}")
+
+        if rest and _LOG.isEnabledFor(logging.DEBUG):
+            for p in rest:
+                if _ORACLE_ROUTE_CM.has_changed(p.uid, "oracle-routed"):
+                    _LOG.debug(
+                        "pod %s routed to the host oracle (non-tensorizable"
+                        " constraints)",
+                        p.metadata.name,
+                    )
+        dev_claims: List[DecodedClaim] = []
+        dev_errors: Dict[str, object] = {}
+        if groups:
+            # a SolverIntegrityError (the invariant guard rejected the raw
+            # kernel outputs) or a DecodeCommitError propagates: no host
+            # re-solve hides a wrong kernel
+            dev_claims, dev_errors = self._solve_fast(groups)
+        else:
+            # nothing rode the kernel: the oracle rung made this decision
+            self._audit_rung = "oracle"
+        results = self.oracle.solve(rest) if rest else Results(
+            new_node_claims=[], existing_nodes=self.oracle.existing_nodes, pod_errors={}
+        )
+        results.new_node_claims = list(results.new_node_claims) + list(dev_claims)
+        results.pod_errors.update(dev_errors)
+        # kernel claims get the same post-solve truncation/minValues
+        # validation the oracle's claims got (scheduler.go:249-267)
+        return results.truncate_instance_types()
+
+    def prepare_volume_routing(
+        self, pods: Sequence[Pod]
+    ) -> Optional[Dict[str, tuple]]:
+        """Per-solve volume resolution for the dense attach-slot ledger.
+
+        Returns the ``volume_shapes`` map partition_and_group consumes:
+        uid -> ((shape key), {synthetic resource: request}) for every pod
+        whose volumes the kernel can ledger — resolvable, counted volumes
+        that are FRESH (not attached to any node) and UNSHARED within the
+        batch, so "one pod = len(volumes) new attach slots per driver" is
+        exact. Everything else (missing PVC, RWX sharing, re-attachment of
+        an existing volume, no resolver) routes host-side. Zonal
+        constraints were already injected as node affinity upstream
+        (VolumeTopology.inject), so only the attach accounting lives here.
+        """
+        resolver = getattr(self.oracle, "volume_resolver", None)
+        if resolver is None:
+            return None
+        candidates = [p for p in pods if p.spec.volumes]
+        if not candidates:
+            return None
+        self._vol_resolved = {}
+        seen: Dict[tuple, int] = {}
+        resolved_by_uid: Dict[str, list] = {}
+        for p in candidates:
+            resolved, err = resolver.resolve(p)
+            if err is not None:
+                continue
+            resolved_by_uid[p.uid] = resolved
+            for r in resolved:
+                if r[0]:
+                    seen[(r[0], r[1])] = seen.get((r[0], r[1]), 0) + 1
+        # attached (driver, vid) pairs across the cluster, computed ONCE:
+        # the admission loop below must stay O(volumes), not O(volumes x
+        # nodes), on the hot provisioning path
+        attached: set = set()
+        for en in self.oracle.existing_nodes:
+            if en.volume_usage is not None:
+                attached.update(en.volume_usage.attached())
+        out: Dict[str, tuple] = {}
+        for p in candidates:
+            resolved = resolved_by_uid.get(p.uid)
+            if resolved is None:
+                continue
+            counted = [(r[0], r[1]) for r in resolved if r[0]]
+            if any(seen[c] > 1 for c in counted):
+                continue  # shared volume: distinct-id dedup breaks the ledger
+            if any(c in attached for c in counted):
+                continue  # already attached somewhere: per-node dedup differs
+            per_driver: Dict[str, int] = {}
+            for d, _vid in counted:
+                per_driver[d] = per_driver.get(d, 0) + 1
+            shape = tuple(sorted(per_driver.items()))
+            reqs = {
+                enc.VOL_RES_PREFIX + d: n * res.MILLI
+                for d, n in per_driver.items()
+            }
+            out[p.uid] = (shape, reqs)
+            self._vol_resolved[p.uid] = resolved
+        return out or None
+
+    # -- fast path --------------------------------------------------------
+
+    def _solve_fast(
+        self, groups: List[enc.PodGroup]
+    ) -> Tuple[List[DecodedClaim], Dict[str, object]]:
+        templates = self.oracle.templates
+        if not templates:
+            return [], {
+                p.uid: "no nodepool matched pod"
+                for g in groups
+                for p in g.pods
+            }
+        with obs.span("solve.encode", groups=len(groups)):
+            snap, avail, nmax_hint, lease_cache, delta = self._encode_batch(
+                groups
+            )
+        self.last_encode_reused = delta.reused
+        self.last_delta_rows = delta.delta_rows
+        obs.event(
+            "encode.delta", reused=delta.reused, delta_rows=delta.delta_rows
+        )
+        a_tzc, res_cap0, a_res = avail
+        fit = self._fit_matrix(snap)
+        # adaptive sizing inside _select_nmax; undershoot is caught by the
+        # overflow-doubling retry below
+        nmax = self._select_nmax(snap, fit, nmax_hint)
+        # bucketed axis sizes: the kernels run on the padded snapshot
+        G = enc._next_pow2(len(snap.groups), floor=8)
+        N = enc._next_pow2(len(snap.existing_names), floor=1) if snap.existing_names else 0
+        statics = self._kernel_statics(snap, G)
+        # outside the ported pack scope: raise before anything launches
+        check_scope(
+            statics["has_domains"], statics["has_contrib"],
+            statics["tile_feasibility"], res_cap0.shape[0],
+            snap.p_mvmin.shape[1],
+        )
+        snap_run = snap.padded(G, N)
+        # staging: the whole argument tuple moves to the device per solve
+        with obs.span("solve.transfer"):
+            args = to_device_args(
+                snap_run.solve_args(a_tzc, res_cap0, a_res), self.device
+            )
+        # fill entries are capped at n_fit = capacity/request per claim
+        # (packing.py), so this host-side bound proves int16 safety
+        fills_dtype = (
+            torch.int16 if self._fill_bound(snap, fit) < 2**15 else torch.int32
+        )
+        from ..ops.solve import dispatch_packed
+
+        def call(nmax):
+            (c_pool, packed, n_open, overflow,
+             exist_fills, claim_fills, unplaced, c_dzone, c_dct,
+             c_resv) = self._drain_host(
+                dispatch_packed(
+                    *args, nmax=nmax, fills_dtype=fills_dtype, **statics
+                )
+            )
+            # the type mask stays bit-packed: _decode unpacks only the
+            # distinct rows it actually touches
+            return (
+                c_pool.astype(np.int32), packed, n_open, overflow,
+                exist_fills.astype(np.int32),
+                claim_fills.astype(np.int32), unplaced,
+                c_dzone.astype(np.int32), c_dct.astype(np.int32),
+                c_resv.astype(bool),
+            )
+
+        while True:
+            with obs.span("solve.dispatch", nmax=nmax):
+                outs = call(nmax)
+            self.last_dispatches += 1
+            if not outs[3]:  # overflow
+                break
+            nmax *= 2
+        (c_pool, c_tmask, n_open, overflow,
+         exist_fills, claim_fills, unplaced, c_dzone, c_dct,
+         c_resv) = outs
+        # invariant guard BEFORE decode: a violating solve is discarded
+        # with zero state mutated (faults/guard.py)
+        with obs.span("solve.guard"):
+            self._verify_solution(
+                snap, snap_run, c_pool, c_tmask, int(n_open),
+                exist_fills, claim_fills, unplaced, nmax,
+                c_dzone=c_dzone, c_dct=c_dct,
+            )
+        if self.config.max_claims is None:
+            with self._shared_cache.lock:
+                lease_cache["nmax_hint"] = max(
+                    lease_cache.get("nmax_hint", 0), int(n_open)
+                )
+        try:
+            with obs.span("solve.decode", claims=int(n_open)):
+                return self._decode(
+                    snap, c_pool, c_tmask, int(n_open), exist_fills,
+                    claim_fills, unplaced, c_dzone, c_dct, c_resv,
+                )
+        except Exception as exc:
+            # decode mutates the live existing-node models as it walks; a
+            # crash here may have HALF-committed — flag it so no caller
+            # re-solves over the polluted models
+            raise DecodeCommitError(
+                f"decode aborted mid-commit: {type(exc).__name__}: {exc}"
+            ) from exc
+
+
+    @staticmethod
+    def _vocab_bound(snap, kid: int) -> int:
+        """Valid value-id bound for a vocab key id (0 when absent)."""
+        if 0 <= kid < len(snap.vocab.values):
+            return len(snap.vocab.values[kid])
+        return 0
+
+    def _verify_solution(
+        self, snap, snap_run, c_pool, c_tmask, n_open,
+        exist_fills, claim_fills, unplaced, nmax, g_count=None,
+        c_dzone=None, c_dct=None,
+    ) -> None:
+        """Raise SolverIntegrityError if the raw kernel outputs violate a
+        post-solve invariant. Runs on every solve (a few small host
+        matmuls); the error propagates out of solve().
+        ``g_count`` overrides the run snapshot's counts for scenario
+        fan-out, where each scenario activates its own subset."""
+        violations = check_solution(
+            g_count=snap_run.g_count if g_count is None else g_count,
+            g_req=snap_run.g_req,
+            c_pool=c_pool,
+            c_tmask=c_tmask,
+            n_open=n_open,
+            exist_fills=exist_fills,
+            claim_fills=claim_fills,
+            unplaced=unplaced,
+            t_alloc=snap.t_alloc,
+            n_avail=snap.n_avail,
+            nmax=nmax,
+            P=len(snap.templates),
+            templates_pool=[
+                nct.node_pool_name for nct in snap.templates
+            ],
+            p_limit=snap.p_limit,
+            p_has_limit=snap.p_has_limit,
+            c_dzone=c_dzone,
+            c_dct=c_dct,
+            zone_vals=self._vocab_bound(snap, snap.zone_kid),
+            ct_vals=self._vocab_bound(snap, snap.ct_kid),
+        )
+        if violations:
+            raise SolverIntegrityError(violations)
+
+    def _encode_batch(self, groups: List[enc.PodGroup]):
+        """Encode ``groups`` against the shared cache. Returns
+        (snap, (a_tzc, res_cap0, a_res), nmax_hint, cache, delta) —
+        ``cache`` is the LEASED dict this encode ran against; post-solve
+        hint writes must target it (not a re-fetched
+        self._shared_cache.cache, which a concurrent lease under a changed
+        catalog may have replaced — a stale hint written into a fresh
+        catalog's dict would mis-size that catalog's first NMAX).
+        ``delta`` is the ClusterEncoding's EncodeDelta for this encode."""
+        templates = self.oracle.templates
+        its_by_pool = {
+            nct.node_pool_name: nct.instance_type_options for nct in templates
+        }
+        with self._shared_cache.lock:
+            vocab, cache = self._shared_cache.lease(
+                templates, its_by_pool, self.oracle.daemon_overhead,
+                self.pool_limits,
+            )
+            cluster = self._shared_cache.cluster
+            snap = enc.encode(
+                groups,
+                templates,
+                its_by_pool,
+                existing_nodes=self.oracle.existing_nodes,
+                daemon_overhead=self.oracle.daemon_overhead,
+                pool_limits=self.pool_limits,
+                vocab=vocab,
+                cache=cache,
+                cluster=cluster,
+            )
+            delta = cluster.last_delta
+            reserved_enabled = self.oracle.reserved_capacity_enabled
+            avail_key = ("a_tzc", reserved_enabled) + snap.vocab.padded_shape()
+            avail = cache.get(avail_key)
+            if avail is None:
+                avail = cache[avail_key] = self._offering_availability(
+                    snap, reserved_enabled
+                )
+            nmax_hint = cache.get("nmax_hint")
+        return snap, avail, nmax_hint, cache, delta
+
+    def _select_nmax(self, snap: enc.EncodedSnapshot, fit, nmax_hint) -> int:
+        """NMAX for this snapshot: config override, else the a-priori
+        estimate, tightened by the observed-claim-count hint when one has
+        been recorded for this catalog."""
+        nmax = self.config.max_claims or self._estimate_nmax(snap, fit)
+        if self.config.max_claims is None and nmax_hint:
+            # size to the observed claim count's own power-of-two bucket
+            # (+8 slack), not 1.5x it: the old headroom pushed any hint in
+            # (0.66, 1.0] of a bucket into the NEXT one, doubling every
+            # [NMAX] op in the scan (diverse-ref: 1000 claims ran at 2048).
+            # Claim-count growth past the bucket is caught by the
+            # overflow-doubling retry — one extra dispatch on the rare
+            # solve that crosses a boundary, instead of 2x kernel cost on
+            # every solve that doesn't.
+            adaptive = max(
+                enc._next_pow2(int(nmax_hint) + 8, floor=8),
+                enc._next_pow2(self._nmax_floor(snap, fit), floor=8),
+            )
+            nmax = min(nmax, adaptive)
+        return nmax
+
+    def _kernel_statics(self, snap: enc.EncodedSnapshot, G: int) -> dict:
+        """The static kernel arguments for this snapshot; ``G`` is the
+        bucketed group-axis size the kernels run at."""
+        P = len(snap.templates)
+        T = len(snap.instance_types)
+        # HBM-scaling gate (SURVEY §7.4.6): beyond ~1.5 GiB of feasibility
+        # tables the JAX scan computes per-group rows instead (not ported)
+        tiled = P * G * T * 5 > (3 << 29)
+        return dict(
+            zone_kid=snap.zone_kid,
+            ct_kid=snap.ct_kid,
+            has_domains=bool((snap.g_dmode > 0).any()),
+            has_contrib=bool(snap.g_hcontrib.any() or snap.g_dcontrib.any()),
+            tile_feasibility=tiled,
+            wf_iters=self._wf_iters(snap),
+            sparse_groups=not tiled,
+        )
+
+    def _fit_matrix(self, snap: enc.EncodedSnapshot) -> np.ndarray:
+        """[G, T] unconstrained pods-per-node fit (inf where a group has no
+        positive request). Shared by the NMAX estimate and the fill bound."""
+        alloc = snap.t_alloc[None, :, :] - np.min(snap.p_daemon, axis=0)[None, None, :]
+        req = snap.g_req[:, None, :]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            per = np.where(req > 0, np.floor(alloc / np.maximum(req, 1e-9)), np.inf)
+        return np.min(per, axis=-1)
+
+    def _fill_bound(self, snap: enc.EncodedSnapshot, fit: np.ndarray) -> int:
+        """Largest pod count one claim/node can take from one group: per
+        group, min(best type fit, group size); the max over groups bounds
+        every fill entry, proving narrow output dtypes safe."""
+        best = fit.max(axis=1)  # [G] best type fit (may be inf)
+        if snap.n_avail.shape[0]:
+            req = snap.g_req[:, None, :]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                per_n = np.where(
+                    req > 0,
+                    np.floor(snap.n_avail[None, :, :] / np.maximum(req, 1e-9)),
+                    np.inf,
+                )
+            best = np.maximum(best, np.min(per_n, axis=-1).max(axis=1))
+        # the hostname-topology caps (private and shared) bound every fill;
+        # gate-role g_hscap values are thresholds, not caps, so they only
+        # bound self-counted groups
+        shared_cap = np.where(snap.g_hself, snap.g_hscap, enc.HCAP_NONE)
+        best = np.minimum(np.minimum(best, snap.g_hcap), shared_cap)
+        capped = np.minimum(best, snap.g_count.astype(np.float64))
+        return int(capped.max()) if capped.size else 0
+
+    def _wf_iters(self, snap: enc.EncodedSnapshot) -> int:
+        """Static bisection budget for the kernel's waterfills.
+
+        Every water level the scan can ever probe is bounded by
+        (slot prior) + (slot capacity): claim slots carry at most the
+        pods-per-entity capacity (the "pods" resource column when tracked,
+        else the batch total), domain slots at most the cluster prior plus
+        one group's count. ceil(log2(bound)) + 1 trips pin the bisection;
+        32 is the int32-safe fallback."""
+        total = int(snap.g_count.sum())
+        npods_bound = total
+        if "pods" in snap.resource_names:
+            col = snap.resource_names.index("pods")
+            caps = []
+            if snap.t_cap.size:
+                caps.append(float(np.max(snap.t_cap[:, col])))
+            if snap.n_avail.size:
+                caps.append(float(np.max(snap.n_avail[:, col])))
+            if caps:
+                npods_bound = min(total, int(max(caps)))
+        prior_bound = int(snap.g_dprior.max()) if snap.g_dprior.size else 0
+        # shared-domain carries accumulate other groups' placements into D0
+        # across steps, so the domain level can reach priors + batch total
+        if (snap.g_dtg >= 0).any() or snap.g_dcontrib.any():
+            prior_bound += total
+        count_bound = int(snap.g_count.max()) if snap.g_count.size else 0
+        level_bound = max(npods_bound, prior_bound) + count_bound + 2
+        need = max(1, int(level_bound).bit_length() + 1)
+        # bucket to {8, 16, 32}: wf_iters is a static jit arg, and a raw
+        # bit_length would fork the compile cache on mere pod-count changes
+        # across solves whose bucketed G/N shapes are otherwise identical
+        for bucket in (8, 16, 32):
+            if need <= bucket:
+                return bucket
+        return 32
+
+    def _estimate_nmax(self, snap: enc.EncodedSnapshot, fit: np.ndarray) -> int:
+        """Host-side claim-count bound: pods per node by the best
+        unconstrained fit, clamped by the hostname-topology per-entity cap
+        (a maxSkew=1 hostname spread means one claim per pod). Compatibility
+        can only shrink the real fit, so this may undershoot; the overflow
+        retry doubles NMAX in that case."""
+        n_fit = np.where(np.isfinite(fit), fit, 0)
+        shared_cap = np.where(snap.g_hself, snap.g_hscap, enc.HCAP_NONE)
+        best = np.maximum(
+            np.minimum(np.minimum(n_fit.max(axis=1), snap.g_hcap), shared_cap),
+            1,
+        )
+        per_group = np.ceil(snap.g_count / best)
+        # hostname-capped groups (spread/anti) SHARE claims: each claim
+        # takes up to cap pods from EVERY such group, so their demand is
+        # the max, not the sum (summing overestimated a 20-deployment
+        # hostname-spread mix 30x, quadrupling kernel time). Resource
+        # pressure that breaks sharing is caught by the overflow retry.
+        # EXCEPT groups feeding one shared constraint slot: the cap counts
+        # their placements jointly (a cross-shape anti-affinity Deployment
+        # needs one claim per pod across ALL its shape groups), so demand
+        # within a slot sums; distinct slots still share claims.
+        capped, demand = self._capped_demand(snap, per_group)
+        base = int(per_group[~capped].sum()) + demand
+        # domain-constrained groups open claims per domain (zonal spread
+        # water-fills across zones), so each may strand partial claims
+        # beyond its ceil — at most one per extra domain, and never more
+        # than its pod count affords (a 1-pod group strands none)
+        dyn = snap.g_dmode > 0
+        if len(snap.groups):
+            dregs = snap.g_dreg.sum(axis=1)
+            extra_per = np.clip(
+                np.minimum(snap.g_count - per_group, dregs - 1), 0, None
+            )
+            extra = int(extra_per[dyn].sum())
+        else:
+            extra = 0
+        # per-group partial-claim slack: only groups with >= 2 pods can
+        # leave a partial claim beyond their ceil
+        slack = int((snap.g_count >= 2).sum())
+        return enc._next_pow2(base + slack + extra + 8, floor=8)
+
+    def _capped_demand(self, snap: enc.EncodedSnapshot, per_group):
+        """(capped mask, claim demand) of hostname-capped groups: private
+        caps share claims (max); groups on one shared slot count jointly
+        (sum within slot, max across)."""
+        shared_cap = np.where(snap.g_hself, snap.g_hscap, enc.HCAP_NONE)
+        priv_capped = (snap.g_hcap < enc.HCAP_NONE) & ~(
+            snap.g_hself & (snap.g_hstg >= 0)
+        )
+        shared_self = (shared_cap < enc.HCAP_NONE) & (snap.g_hstg >= 0)
+        capped = priv_capped | shared_self
+        demands = []
+        if priv_capped.any():
+            demands.append(per_group[priv_capped].max())
+        for slot in np.unique(snap.g_hstg[shared_self]):
+            demands.append(
+                per_group[shared_self & (snap.g_hstg == slot)].sum()
+            )
+        return capped, (int(max(demands)) if demands else 0)
+
+    def _nmax_floor(self, snap: enc.EncodedSnapshot, fit: np.ndarray) -> int:
+        """Hard lower bound on claims: total pods over the largest
+        pods-per-claim capacity, plus the hostname-capped demand (an
+        anti-affinity group needs a claim per pod regardless of capacity).
+        Keeps the adaptive hint from starting a doubling ladder far below
+        any feasible size."""
+        total = int(snap.g_count.sum())
+        cap = total
+        if "pods" in snap.resource_names and snap.t_cap.size:
+            col = snap.resource_names.index("pods")
+            cap = max(1, int(np.max(snap.t_cap[:, col])))
+        n_fit = np.where(np.isfinite(fit), fit, 0)
+        shared_cap = np.where(snap.g_hself, snap.g_hscap, enc.HCAP_NONE)
+        best = np.maximum(
+            np.minimum(np.minimum(n_fit.max(axis=1), snap.g_hcap), shared_cap),
+            1,
+        )
+        _, demand = self._capped_demand(snap, np.ceil(snap.g_count / best))
+        return max(-(-total // max(cap, 1)), demand)
+
+    def _offering_availability(
+        self, snap: enc.EncodedSnapshot, reserved_enabled: bool = False
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(A[T, Vz, Vc], res_cap0[NRES], a_res[NRES, T, Vz, Vc]).
+
+        A: type t has an available offering in (zone z, ct c). With the
+        reservation ledger active, reserved offerings are EXCLUDED from A
+        and contribute per-reservation availability in a_res instead; the
+        kernel re-admits them while their ledger capacity lasts
+        (reservationmanager.go:28-85)."""
+        T, O = snap.o_avail.shape
+        _, V1 = snap.vocab.padded_shape()
+        A = np.zeros((T, V1, V1), dtype=bool)
+        rids: Dict[str, int] = {}
+        caps: List[int] = []
+        res_cells: List[Tuple[int, int, int, int]] = []  # (rid, t, z, c)
+        for t, it in enumerate(snap.instance_types):
+            for o, off in enumerate(it.offerings):
+                if (
+                    reserved_enabled
+                    and off.capacity_type() == labels_mod.CAPACITY_TYPE_RESERVED
+                ):
+                    # the ledger tracks the least capacity seen per id over
+                    # ALL offerings, available or not (reservation.py:15-23)
+                    rid = off.reservation_id()
+                    r = rids.setdefault(rid, len(rids))
+                    if r == len(caps):
+                        caps.append(off.reservation_capacity)
+                    else:
+                        caps[r] = min(caps[r], off.reservation_capacity)
+                    if not snap.o_avail[t, o]:
+                        continue
+                    z, c = snap.o_zone[t, o], snap.o_ct[t, o]
+                    if z >= 0 and c >= 0:
+                        res_cells.append((r, t, z, c))
+                    continue
+                if not snap.o_avail[t, o]:
+                    continue
+                z, c = snap.o_zone[t, o], snap.o_ct[t, o]
+                if z >= 0 and c >= 0:
+                    A[t, z, c] = True
+                elif z >= 0:
+                    A[t, z, :] = True
+                elif c >= 0:
+                    A[t, :, c] = True
+                else:
+                    A[t, :, :] = True
+        nres = len(caps)
+        a_res = np.zeros((nres, T, V1, V1), dtype=bool)
+        for r, t, z, c in res_cells:
+            a_res[r, t, z, c] = True
+        return A, np.asarray(caps, dtype=np.int32), a_res
+
+    # -- decode -----------------------------------------------------------
+
+    def _decode(
+        self,
+        snap: enc.EncodedSnapshot,
+        c_pool: np.ndarray,  # [NMAX]
+        c_tmask: np.ndarray,  # [NMAX, T]
+        n_open: int,
+        exist_fills: np.ndarray,  # [G, N]
+        claim_fills: np.ndarray,  # [G, NMAX]
+        unplaced: np.ndarray,  # [G]
+        c_dzone: Optional[np.ndarray] = None,  # [NMAX] pinned zone value ids
+        c_dct: Optional[np.ndarray] = None,  # [NMAX] pinned capacity-type ids
+        c_resv: Optional[np.ndarray] = None,  # [NMAX] claim holds reservations
+        group_pods: Optional[List[List[Pod]]] = None,
+        existing_nodes: Optional[List] = None,
+    ) -> Tuple[List[DecodedClaim], Dict[str, object]]:
+        """``group_pods``/``existing_nodes`` override the decode targets for
+        scenario fan-out: scenario s places only its ACTIVE subset of each
+        group's pods (group members are equivalent, so any k of them decode
+        a fill of k), and commits fills onto per-scenario node clones so
+        scenarios never see each other's placements."""
+        self._cursors = {}
+        existing = (
+            existing_nodes if existing_nodes is not None
+            else self.oracle.existing_nodes
+        )
+
+        def pods_of(gi: int) -> List[Pod]:
+            return (
+                group_pods[gi] if group_pods is not None
+                else snap.groups[gi].pods
+            )
+
+        # existing-node fills: commit pods + requests onto the oracle's
+        # ExistingNode models so a subsequent oracle pass sees them.
+        # Iterate sparse nonzeros only; group-major order so pod cursors
+        # advance deterministically per group.
+        for gi, ni in zip(*np.nonzero(exist_fills)):
+            g = snap.groups[gi]
+            en = existing[ni]
+            k = int(exist_fills[gi, ni])
+            pods = pods_of(gi)[self._g_cursor(gi) : self._g_cursor(gi) + k]
+            self._advance(gi, k)
+            en.pods.extend(pods)
+            en.requests = res.merge(en.requests, *(p.spec.requests for p in pods))
+            en.requirements.add(*g.requirements.values())
+            # attach-slot ledger commit: mirror ExistingNode.add's
+            # volume_usage.add so a subsequent oracle pass (and the next
+            # encode's remaining-slot columns) see the attachments
+            if en.volume_usage is not None:
+                for p in pods:
+                    rv = self._vol_resolved.get(p.uid)
+                    if rv:
+                        en.volume_usage.add(p, rv)
+
+        claims: List[DecodedClaim] = []
+        claim_by_slot: Dict[int, DecodedClaim] = {}
+        type_ids_cache: Dict[bytes, List[cp.InstanceType]] = {}
+        resv_ledger: Optional[Dict[str, int]] = None
+        T = len(snap.instance_types)
+        packed = c_tmask.dtype == np.uint8 and c_tmask.shape[1] != T
+        for slot in range(n_open):
+            nct = snap.templates[int(c_pool[slot])]
+            row = c_tmask[slot]
+            tkey = row.tobytes()
+            options = type_ids_cache.get(tkey)
+            if options is None:
+                if packed:
+                    row = np.unpackbits(row)[:T]
+                options = [
+                    snap.instance_types[t] for t in np.nonzero(row)[0]
+                ]
+                type_ids_cache[tkey] = options
+            claim = DecodedClaim(
+                nct, [], options, Requirements(*nct.requirements.values())
+            )
+            # domain-pinned claims (zonal spread / affinity bootstrap) carry
+            # the selected domain as a concrete requirement so the created
+            # node lands there (the oracle tightens the in-flight claim the
+            # same way, topology.go:220-242)
+            for pins, key in (
+                (c_dzone, labels_mod.TOPOLOGY_ZONE),
+                (c_dct, labels_mod.CAPACITY_TYPE_LABEL_KEY),
+            ):
+                if pins is None or pins[slot] < 0:
+                    continue
+                kid = snap.vocab.key_ids[key]
+                claim.requirements.add(
+                    Requirement(
+                        key, Operator.IN, [snap.vocab.values[kid][int(pins[slot])]]
+                    )
+                )
+            if c_resv is not None and c_resv[slot]:
+                # mirror the oracle's InFlightNodeClaim surface by replaying
+                # the ledger in slot order (claims open in scan order, so
+                # this reproduces the kernel's debits): a claim holds only
+                # the compatible reserved offerings that still had capacity
+                # when it opened
+                if resv_ledger is None:
+                    resv_ledger = {}
+                    for it in snap.instance_types:
+                        for o in it.offerings:
+                            if (
+                                o.capacity_type()
+                                == labels_mod.CAPACITY_TYPE_RESERVED
+                            ):
+                                rid = o.reservation_id()
+                                resv_ledger[rid] = min(
+                                    resv_ledger.get(rid, o.reservation_capacity),
+                                    o.reservation_capacity,
+                                )
+                held = []
+                for it in options:
+                    for o in it.offerings:
+                        if (
+                            o.available
+                            and o.capacity_type()
+                            == labels_mod.CAPACITY_TYPE_RESERVED
+                            and resv_ledger.get(o.reservation_id(), 0) > 0
+                            and claim.requirements.is_compatible(
+                                o.requirements, labels_mod.WELL_KNOWN_LABELS
+                            )
+                        ):
+                            held.append(o)
+                # one slot per reservation ID per claim (a rid may back
+                # offerings on several instance types), matching the
+                # kernel's res_rem[r] -= k
+                # analysis: sanctioned[DET1101] per-rid decrements commute
+                for rid in {o.reservation_id() for o in held}:
+                    resv_ledger[rid] -= 1
+                claim.reserved_offerings = held
+            claim_by_slot[slot] = claim
+            claims.append(claim)
+        for gi, slot in zip(*np.nonzero(claim_fills)):
+            g = snap.groups[gi]
+            claim = claim_by_slot.get(int(slot))
+            if claim is None:
+                continue
+            k = int(claim_fills[gi, slot])
+            claim.pods.extend(
+                pods_of(gi)[self._g_cursor(gi) : self._g_cursor(gi) + k]
+            )
+            self._advance(gi, k)
+            claim.requirements.add(*g.requirements.values())
+
+        errors: Dict[str, object] = {}
+        for gi, g in enumerate(snap.groups):
+            n_err = int(unplaced[gi])
+            if n_err:
+                for p in pods_of(gi)[
+                    self._g_cursor(gi) : self._g_cursor(gi) + n_err
+                ]:
+                    errors[p.uid] = "no feasible instance type/template for pod group"
+        return claims, errors
+
+    def _g_cursor(self, gi: int) -> int:
+        return self._cursors.get(gi, 0)
+
+    def _advance(self, gi: int, k: int) -> None:
+        self._cursors[gi] = self._cursors.get(gi, 0) + k
