@@ -16,19 +16,33 @@ no result:
    nodes — beside its ``*_reference`` on the same CUDA tensors. Tolerance:
    exact equality of every output. Median times over repeats (CUDA
    events);
+   Phase 2 also holds B7, the consolidation dispatch (B1 shared, B2 over
+   n_tol [S, N, G], B4 one block per scenario, B6 over S rows), at the
+   consolidation path's shapes: 16 single-node scenarios over the
+   2,000-node cluster's shared encoding (N=2048, T=50);
 3. end to end: TorchSolver(device="cuda").solve on the 50k x 400 batch,
    then on the 2,000-pod batch over 32 nodes, each path with the launch
    counters zeroed just before it and read just after it (B1, B4, B6 must
    have run on the first, B1, B2, B4, B6 on the second);
    every pod placed, 0 errors, and the same decisions (by pod name) as the
    same solves with device="cpu"; solve p50 over 5 warm solves and the
-   per-phase split of one traced solve.
+   per-phase split of one traced solve;
+4. consolidation: MultiNodeConsolidation, then SingleNodeConsolidation,
+   compute_command over build_*_consolidation_env(2000) on the card, the
+   launch counters zeroed before each path and read after it: every
+   dispatch a scenario batch (the S > 1 ``pack`` launches equal the
+   method's dispatches, no single-scenario ``pack`` launch), no sequential
+   fallback, and the same command, probes and dispatches as the
+   device="cpu" run; p50 over 5 warm passes on fresh envs and the phase
+   split of one traced pass.
 
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 last line ``{"ok": true, "device": {...}}``.
 """
 
+import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -39,17 +53,31 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 N_PODS, N_TYPES = 50_000, 400
 NODE_PODS, N_NODES = 2_000, 32
+CONS_NODES, CONS_SCENARIOS = 2_000, 16  # BASELINE config[3]; one sweep chunk
 REPLACES = {
     "fresh_feasibility": "karpenter_tpu/ops/feasibility.py:141",
     "existing_feasibility": "karpenter_tpu/ops/feasibility.py:264",
     "pack": "karpenter_tpu/ops/packing.py:277",
     "wire_pack": "karpenter_tpu/ops/solve.py:267",
+    "solve_scenarios": "karpenter_tpu/ops/solve.py:357",
 }
+# B7 is the scenario-batched dispatch of these kernels; pack.cu holds its
+# scenario grid
+B7_SOURCES = ("pack", "existing_feasibility", "wire_pack", "fresh_feasibility")
 # the kernels each end-to-end path must launch: B2 only runs with nodes
 PATH_KERNELS = {
     "50k": ("fresh_feasibility", "pack", "wire_pack"),
     "nodes": ("fresh_feasibility", "existing_feasibility", "pack", "wire_pack"),
 }
+# ... and those each consolidation path must launch over a scenario batch
+CONS_KERNELS = ("existing_feasibility", "pack", "wire_pack")
+# the solve args each feasibility kernel reads, in its wrapper's order
+B1_NAMES = ("g_def", "g_neg", "g_mask", "g_req", "p_def", "p_neg", "p_mask",
+            "p_daemon", "p_tol", "p_titype_ok", "t_def", "t_mask", "t_alloc",
+            "o_avail", "o_zone", "o_ct", "well_known", "gk_g", "gk_k", "gk_w",
+            "goff_idx")
+B2_NAMES = ("g_def", "g_neg", "g_mask", "g_req", "n_def", "n_mask", "n_avail",
+            "n_base", "n_tol", "gk_g", "gk_k", "gk_w")
 
 
 class SmokeFailure(RuntimeError):
@@ -181,11 +209,7 @@ def phase_kernels(torch_solver_cls, config_cls):
     R, O, L = a["t_alloc"].shape[1], a["o_avail"].shape[1], a["gk_g"].shape[0]
 
     # ---- B1 fresh feasibility ----
-    names = ("g_def", "g_neg", "g_mask", "g_req", "p_def", "p_neg", "p_mask",
-             "p_daemon", "p_tol", "p_titype_ok", "t_def", "t_mask", "t_alloc",
-             "o_avail", "o_zone", "o_ct", "well_known", "gk_g", "gk_k", "gk_w",
-             "goff_idx")
-    b1_in = [a[n] for n in names]
+    b1_in = [a[n] for n in B1_NAMES]
     b1 = feas.fresh_claim_feasibility_sparse(*b1_in, zone_kid=zk, ct_kid=ck)
     b1_ref = feas.fresh_claim_feasibility_sparse_reference(*b1_in, zone_kid=zk, ct_kid=ck)
     torch.cuda.synchronize()
@@ -199,14 +223,8 @@ def phase_kernels(torch_solver_cls, config_cls):
     )
 
     # ---- B4 packing scan and B6 wire pack on the 50k tables ----
-    compat_pg, type_ok, n_fit = b1
     cap_ng = torch.zeros((0, G), dtype=torch.int32, device="cuda")
-    pack_in = [a[n] for n in ("g_count", "g_req", "g_def", "g_neg", "g_mask",
-                              "g_hcap", "g_haff", "g_hstg", "g_hscap", "g_hself")]
-    pack_in += [compat_pg, type_ok, n_fit, cap_ng]
-    pack_in += [a[n] for n in ("t_alloc", "t_cap", "a_tzc", "p_daemon", "p_limit",
-                               "p_has_limit", "p_tol", "n_avail", "n_base", "n_hcnt",
-                               "nh_cnt0", "well_known")]
+    pack_in = pack_args(a, *b1, cap_ng)
     st = dict(nmax=nmax, zone_kid=zk, ct_kid=ck, wf_iters=statics["wf_iters"])
     while True:
         b4 = packing_mod.pack(*pack_in, **st)
@@ -215,12 +233,8 @@ def phase_kernels(torch_solver_cls, config_cls):
         st["nmax"] *= 2
     b4_ref = packing_mod.pack_reference(*pack_in, **st)
     torch.cuda.synchronize()
-    claim_fills = b4[5].cpu()
     n_open = int(b4[2].item())
-    first = [int(torch.nonzero(claim_fills[:, s])[0, 0]) for s in range(n_open)]
-    live_claims = sum(sum(1 for f in first if f < g) for g in range(G)
-                      if int(a["g_count"][g]) > 0)
-    ops = live_claims * T * (2 * R + V1 * V1) + G * st["nmax"] * 8
+    ops = pack_ops(a["g_count"], b4[5], b4[2], T, R, V1)
     rows["pack"] = dict(
         max_abs_err=max_abs_err(b4, b4_ref),
         ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 20),
@@ -247,9 +261,7 @@ def phase_kernels(torch_solver_cls, config_cls):
                           state_nodes=example_state_nodes(N_NODES))
     args2, _, _, _ = device_snapshot(solver2, pods2)
     a2 = dict(zip(SOLVE_ARG_NAMES, args2))
-    names2 = ("g_def", "g_neg", "g_mask", "g_req", "n_def", "n_mask", "n_avail",
-              "n_base", "n_tol", "gk_g", "gk_k", "gk_w")
-    b2_in = [a2[n] for n in names2]
+    b2_in = [a2[n] for n in B2_NAMES]
     b2 = feas.existing_node_feasibility_sparse(*b2_in)
     b2_ref = feas.existing_node_feasibility_sparse_reference(*b2_in)
     torch.cuda.synchronize()
@@ -263,11 +275,154 @@ def phase_kernels(torch_solver_cls, config_cls):
         bound=bound_ms(nbytes(b2_in) + nbytes([b2]), N2 * L2 * V1 + N2 * G2 * 2 * R),
         shape=f"N={N2} G={G2} L={L2} R={R}",
     )
+    rows["solve_scenarios"] = scenario_row()
     for name, row in rows.items():
         if row["max_abs_err"] != 0.0:
             raise SmokeFailure(f"{name}: kernel disagrees with its plain version "
                                f"(max |diff| {row['max_abs_err']})")
     return rows
+
+
+def pack_ops(g_count, claim_fills, n_open, T, R, V1):
+    """Operations the scan's inputs need: per group step, each claim
+    opened at an earlier step is checked against every type (2R fits
+    compares, V1 x V1 offering cells), plus a few per claim slot. Over a
+    leading scenario axis, the sum over scenarios."""
+    import torch
+
+    g_count, claim_fills, n_open = g_count.cpu(), claim_fills.cpu(), n_open.cpu()
+    if g_count.dim() == 1:
+        g_count, claim_fills, n_open = g_count[None], claim_fills[None], n_open[None]
+    G, nmax = claim_fills.shape[1:]
+    ops = 0
+    for counts, fills, opened in zip(g_count, claim_fills, n_open):
+        first = [int(torch.nonzero(fills[:, s])[0, 0]) for s in range(int(opened))]
+        live = sum(sum(1 for f in first if f < g) for g in range(G) if int(counts[g]) > 0)
+        ops += live * T * (2 * R + V1 * V1) + G * nmax * 8
+    return ops
+
+
+def scenario_snapshot(device="cuda"):
+    """The consolidation path's B7 inputs: one single-node chunk of
+    CONS_SCENARIOS scenarios (each removes one candidate) over
+    build_consolidation_env(CONS_NODES)'s shared encoding, staged by
+    TorchSolver.submit_scenarios exactly as the search stages them."""
+    from karpenter_tpu_torch.controllers.disruption.helpers import ScenarioSimulator
+    from karpenter_tpu_torch.solver.workloads import build_consolidation_env
+
+    ctx, _, candidates, _ = build_consolidation_env(CONS_NODES, device)
+    sim = ScenarioSimulator(
+        ctx.client, ctx.cluster, ctx.cloud_provider, candidates,
+        encode_cache=ctx.encode_cache, solver_config=ctx.solver_config,
+    )
+    chunk = [[c] for c in candidates[:CONS_SCENARIOS]]
+    token = sim._solver.submit_scenarios(sim._scenarios_of(chunk))
+    if token is None:
+        raise SmokeFailure("the consolidation chunk declined the scenario batch")
+    return token
+
+
+def plain_scenarios(args, nmax, fills, zone_kid, ct_kid, wf_iters, **_):
+    """B7's plain version on the same tensors: each kernel's *_reference
+    in the dispatch's order (B1 once, B2 over n_tol [S, N, G], the scan
+    per scenario, the wire pack over S rows)."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packing as packing_mod
+    from karpenter_tpu_torch.ops import solve as solve_mod
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+
+    a = dict(zip(SOLVE_ARG_NAMES, args))
+    compat_pg, type_ok, n_fit = feas.fresh_claim_feasibility_sparse_reference(
+        *(a[n] for n in B1_NAMES), zone_kid=zone_kid, ct_kid=ct_kid)
+    cap_ng = feas.existing_node_feasibility_sparse_reference(*(a[n] for n in B2_NAMES))
+    outs = packing_mod.pack_scenarios_reference(
+        *pack_args(a, compat_pg, type_ok, n_fit, cap_ng),
+        nmax=nmax, zone_kid=zone_kid, ct_kid=ct_kid, wf_iters=wf_iters)
+    return solve_mod.wire_pack_reference(outs, fills)
+
+
+def pack_args(a, compat_pg, type_ok, n_fit, cap_ng):
+    return (
+        [a[n] for n in ("g_count", "g_req", "g_def", "g_neg", "g_mask",
+                        "g_hcap", "g_haff", "g_hstg", "g_hscap", "g_hself")]
+        + [compat_pg, type_ok, n_fit, cap_ng]
+        + [a[n] for n in ("t_alloc", "t_cap", "a_tzc", "p_daemon", "p_limit",
+                          "p_has_limit", "p_tol", "n_avail", "n_base", "n_hcnt",
+                          "nh_cnt0", "well_known")]
+    )
+
+
+def scenario_row():
+    """Phase 2's B7 row: B2[S], B4[S] and B6[S rows] each against its
+    plain version, and the whole scenario dispatch against plain_scenarios,
+    at the consolidation shapes. Tolerance: exact equality."""
+    import torch
+
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packing as packing_mod
+    from karpenter_tpu_torch.ops import solve as solve_mod
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+
+    token = scenario_snapshot()
+    args, statics = token["args"], dict(token["statics"])
+    fills = token["fills_dtype"]
+    a = dict(zip(SOLVE_ARG_NAMES, args))
+    S, G = a["g_count"].shape
+    N, R = a["n_avail"].shape
+    T, K, V1 = a["t_mask"].shape
+    P, L, O = a["p_def"].shape[0], a["gk_g"].shape[0], a["o_avail"].shape[1]
+    zk, ck = statics["zone_kid"], statics["ct_kid"]
+    st = dict(nmax=token["nmax"], zone_kid=zk, ct_kid=ck, wf_iters=statics["wf_iters"])
+
+    def dispatch():
+        return solve_mod.solve_scenarios_core_packed(
+            *args, fills_dtype=fills, batch_topo=False, **dict(statics, nmax=st["nmax"]))
+
+    while bool(dispatch()[3].any().item()):  # the search's overflow doubling
+        st["nmax"] *= 2
+    nmax = st["nmax"]
+    b1 = feas.fresh_claim_feasibility_sparse(*(a[n] for n in B1_NAMES), zone_kid=zk, ct_kid=ck)
+    b2_in = [a[n] for n in B2_NAMES]
+    b2 = feas.existing_node_feasibility_sparse(*b2_in)
+    b2_ref = feas.existing_node_feasibility_sparse_reference(*b2_in)
+    b4_in = pack_args(a, *b1, b2)
+    b4 = packing_mod.pack(*b4_in, **st)
+    b4_ref = packing_mod.pack_scenarios_reference(*b4_in, **st)
+    b6 = solve_mod.wire_pack(b4, fills)
+    b6_ref = solve_mod.wire_pack_reference(b4, fills)
+    full = dispatch()
+    full_ref = plain_scenarios(args, fills=fills, **st)
+    torch.cuda.synchronize()
+    if int(b4[4][:len(token["scenarios"])].sum()) < 1:
+        raise SmokeFailure("B7: the consolidation chunk placed no pod on a node")
+    parts = {
+        "B2[S]": max_abs_err([b2], [b2_ref]),
+        "B4[S]": max_abs_err(b4, b4_ref),
+        "B6[S]": max_abs_err(b6, b6_ref),
+        "dispatch": max_abs_err(full, full_ref),
+    }
+    part_ms = {
+        "B2[S]": cuda_ms(lambda: feas.existing_node_feasibility_sparse(*b2_in), 50),
+        "B4[S]": cuda_ms(lambda: packing_mod.pack(*b4_in, **st), 20),
+        "B6[S]": cuda_ms(lambda: solve_mod.wire_pack(b4, fills), 50),
+    }
+    # bytes: the dispatch's inputs read once, its wire outputs written once
+    used = set(B1_NAMES) | set(B2_NAMES) | {
+        "g_count", "g_hcap", "g_haff", "g_hstg", "g_hscap", "g_hself", "t_cap",
+        "a_tzc", "p_limit", "p_has_limit", "n_hcnt", "nh_cnt0"}
+    ops = (P * T * K * V1 + P * L * T * V1 + P * G * T * (2 * R + O)  # B1
+           + N * L * V1 + S * N * G * 2 * R  # B2: compat once, room per scenario
+           + pack_ops(a["g_count"], b4[5], b4[2], T, R, V1)  # B4
+           + full[1].numel() * 8 + sum(x.numel() for x in full))  # B6
+    return dict(
+        max_abs_err=max(parts.values()),
+        parts=parts,
+        part_ms=part_ms,
+        ms=cuda_ms(dispatch, 20),
+        plain_ms=cuda_ms(lambda: plain_scenarios(args, fills=fills, **st), 3),
+        bound=bound_ms(nbytes([a[n] for n in used]) + nbytes(full), ops),
+        shape=f"S={S} N={N} G={G} T={T} NMAX={nmax} claims={b4[2].tolist()}",
+    )
 
 
 def decisions(results, pods):
@@ -359,7 +514,117 @@ def phase_end_to_end(torch_solver_cls, config_cls, encode_cache_cls):
     )
 
 
+def command_signature(cmd):
+    """A consolidation Command by name: decision, disrupted candidates,
+    each replacement's options and requirements."""
+    return (
+        cmd.decision,
+        sorted(c.name for c in cmd.candidates),
+        [[it.name for it in rep.instance_type_options] for rep in cmd.replacements],
+        [repr(sorted(map(repr, rep.requirements))) for rep in cmd.replacements],
+    )
+
+
+def abandoned_prefetch(label, method, candidates, budgets):
+    """1 when the single-node sweep ended with one chunk prefetched and
+    never collected: it submits chunk n+1 while deciding chunk n, so a
+    sweep that succeeds before reaching the next chunk leaves that launch
+    behind, which is no dispatch of the search."""
+    if label != "single":
+        return 0
+    from karpenter_tpu_torch.controllers.disruption.methods import _budget_filter
+
+    swept = _budget_filter(method.sort_candidates(candidates), budgets)
+    return int(len(swept) > method.last_probes)
+
+
+def phase_consolidation():
+    """Phase 4: both consolidation methods through compute_command on the
+    card, each path counted on its own."""
+    import torch
+
+    from karpenter_tpu_torch import _build, obs
+    from karpenter_tpu_torch.solver import workloads as wl
+
+    out = {}
+    for label, build in (("multi", wl.build_consolidation_env),
+                         ("single", wl.build_single_consolidation_env)):
+        ctx, method, candidates, budgets = build(CONS_NODES, "cpu")
+        want = (command_signature(method.compute_command(candidates, budgets)),
+                method.last_probes, method.last_dispatches)
+
+        ctx, method, candidates, budgets = build(CONS_NODES, "cuda")
+        _build.reset_launches()
+        cmd = method.compute_command(candidates, budgets)
+        torch.cuda.synchronize()
+        counts, scen = dict(_build.launches), dict(_build.scenario_launches)
+        got = (command_signature(cmd), method.last_probes, method.last_dispatches)
+        solvers = [e["solver"] for e in ctx.scenario_envs._entries.values()]
+        fallbacks = sum(sv.fallback_solves for sv in solvers)
+        if not solvers or fallbacks:
+            raise SmokeFailure(f"{label}: {fallbacks} sequential fallbacks "
+                               f"({[sv.last_fallback_reasons for sv in solvers]})")
+        prefetched = abandoned_prefetch(label, method, candidates, budgets)
+        if not 1 <= scen["pack"] - prefetched == method.last_dispatches:
+            raise SmokeFailure(f"{label}: {scen['pack']} scenario-batched pack launches "
+                               f"for {method.last_dispatches} dispatches "
+                               f"+ {prefetched} prefetch")
+        if counts["pack"] != scen["pack"]:
+            raise SmokeFailure(f"{label}: {counts['pack'] - scen['pack']} single-"
+                               "scenario pack launches during the search")
+        missing = [k for k in CONS_KERNELS if scen[k] < 1]
+        if counts["fresh_feasibility"] < 1 or missing:
+            raise SmokeFailure(f"{label} path never launched {missing} "
+                               f"(counts {counts}, scenario {scen})")
+        if got != want:
+            raise SmokeFailure(f"{label}: the CUDA command {got[0][:2]} "
+                               f"({got[1]} probes, {got[2]} dispatches) differs from "
+                               f"the device='cpu' run's {want[0][:2]} ({want[1]}, {want[2]})")
+
+        # p50 over 5 warm passes, each on a fresh env (the first pass warms)
+        times = []
+        for _ in range(6):
+            ctx, method, candidates, budgets = build(CONS_NODES, "cuda")
+            gc.collect()
+            t0 = time.perf_counter()
+            method.compute_command(candidates, budgets)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ctx, method, candidates, budgets = build(CONS_NODES, "cuda")
+        tracer = obs.install(obs.Tracer(obs.PerfClock()))
+        try:
+            method.compute_command(candidates, budgets)
+            torch.cuda.synchronize()
+        finally:
+            obs.uninstall()
+        totals = tracer.phase_totals()
+        phases = {k: totals.get(k, 0.0) * 1e3
+                  for k in ("scenario.build", "solve.encode", "solve.transfer",
+                            "kernel.dispatch", "solve.dispatch", "solve.guard",
+                            "solve.decode")}
+        # the rest of the traced decision: candidate walk, pricing, audit
+        phases["other"] = totals.get(f"consolidate.{label}", 0.0) * 1e3 - sum(phases.values())
+        out[label] = dict(
+            decision=cmd.decision, disrupted=len(cmd.candidates),
+            probes=method.last_probes, dispatches=got[2],
+            launches=counts, scenario_launches=scen, prefetched=prefetched,
+            p50_ms=statistics.median(times[1:]), ms=times[1:], phase_ms=phases,
+        )
+    return out
+
+
+def pin_one_card():
+    """The smoke uses one card: expose only the first visible one, so that
+    torch.cuda.device_count() is the number of cards it used."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is None:
+        os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+    elif visible.strip():
+        os.environ["CUDA_VISIBLE_DEVICES"] = visible.split(",")[0].strip()
+
+
 def main():
+    pin_one_card()
     import torch
 
     if not torch.cuda.is_available():
@@ -386,9 +651,12 @@ def main():
             f"{name}: {ptxas_summary(text)}" for name, text in logs.items()))
 
     rows = phase_kernels(TorchSolver, SolverConfig)
+    b7 = rows["solve_scenarios"]
     log("phase 2 kernels==plain: " + "; ".join(
         f"{k} [{r['shape']}] {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
-        f"bound {r['bound'][0]:.6f} ms)" for k, r in rows.items()))
+        f"bound {r['bound'][0]:.6f} ms)" for k, r in rows.items())
+        + " | B7 parts " + " ".join(
+            f"{k}={b7['part_ms'][k]:.4f}ms(err {b7['parts'][k]})" for k in b7["part_ms"]))
 
     e2e = phase_end_to_end(TorchSolver, SolverConfig, EncodeCache)
     log(f"phase 3 end-to-end: {N_PODS} pods x {N_TYPES} types -> "
@@ -398,26 +666,48 @@ def main():
         + " ".join(f"{k}={v:.1f}ms" for k, v in e2e["phase_ms"].items())
         + "; launches " + " ".join(f"{p}={c}" for p, c in e2e["launches"].items()))
 
+    cons = phase_consolidation()
+    log("phase 4 consolidation: " + "; ".join(
+        f"{label} {c['decision']} {c['disrupted']} in {c['probes']} probes / "
+        f"{c['dispatches']} dispatches == cpu, 0 fallbacks; p50 {c['p50_ms']:.1f} ms of "
+        + "/".join(f"{t:.1f}" for t in c["ms"]) + " ms; phases "
+        + " ".join(f"{k}={v:.1f}ms" for k, v in c["phase_ms"].items())
+        + f"; launches {c['launches']} scenario {c['scenario_launches']}"
+        + f" (1 an uncollected prefetch)" * c["prefetched"]
+        for label, c in cons.items()))
+
+    # every path's own counts: the two solves, then the two searches
+    paths = dict(e2e["launches"])
+    paths.update({label: c["launches"] for label, c in cons.items()})
+    scen_paths = {label: c["scenario_launches"] for label, c in cons.items()}
     kernels = []
     for name, row in rows.items():
         bms, by = row["bound"]
+        if name == "solve_scenarios":  # B7: the S > 1 dispatches of the searches
+            by_path = {p: c["pack"] for p, c in scen_paths.items()}
+            source = "karpenter_tpu_torch/csrc/pack.cu"
+            extra = dict(sources=[f"karpenter_tpu_torch/csrc/{k}.cu" for k in B7_SOURCES],
+                         parts_ms=row["part_ms"])
+        else:
+            by_path = {p: c[name] for p, c in paths.items()}
+            source = f"karpenter_tpu_torch/csrc/{name}.cu"
+            extra = {}
         kernels.append(dict(
-            name=name, route="cuda",
-            source=f"karpenter_tpu_torch/csrc/{name}.cu",
+            name=name, route="cuda", source=source,
             replaces=REPLACES[name],
-            # both end-to-end paths, and each path's own count
-            launches=sum(c[name] for c in e2e["launches"].values()),
-            launches_by_path={p: c[name] for p, c in e2e["launches"].items()},
+            launches=sum(by_path.values()),
+            launches_by_path=by_path,
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=bms, bound_by=by, library_ms=None,
+            **extra,
         ))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": torch.cuda.device_count(),  # 1: pin_one_card
     }}))
     return 0
 

@@ -8,9 +8,11 @@ stale sources compile at once, one nvcc process each. Nothing here runs
 at import: the CPU tests import every module on a host without nvcc.
 
 Launch counts: every wrapper that launches a kernel adds one to its entry
-in ``launches``; nothing else touches them, so a caller that zeroes them
-(``reset_launches``) and reads them after a run sees which kernels the
-run went through.
+in ``launches``, and also to ``scenario_launches`` when the launch covers
+more than one consolidation scenario; nothing else touches them, so a
+caller that zeroes them (``reset_launches``) and reads them after a run
+sees which kernels the run went through, and whether a probe set ran as
+one scenario batch or as a loop of single solves.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ NVCC_FLAGS = (
 )
 
 launches: Dict[str, int] = {name: 0 for name in SOURCES}
+scenario_launches: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -54,6 +57,7 @@ class KernelLaunchError(RuntimeError):
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+        scenario_launches[name] = 0
 
 
 def nvcc_path() -> str:
@@ -153,10 +157,13 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
 NOTHING_LAUNCHED = -1  # csrc/common.cuh:kNothingLaunched (empty shapes)
 
 
-def launched(name: str, rc: int) -> None:
-    """Count one launch of kernel ``name``; raise on a CUDA error code."""
+def launched(name: str, rc: int, scenarios: int = 1) -> None:
+    """Count one launch of kernel ``name`` over ``scenarios`` scenarios;
+    raise on a CUDA error code."""
     if rc == NOTHING_LAUNCHED:
         return
     if rc != 0:
         raise KernelLaunchError(f"{name}: CUDA error {rc} at launch")
     launches[name] += 1
+    if scenarios > 1:
+        scenario_launches[name] += 1

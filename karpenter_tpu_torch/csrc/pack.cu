@@ -23,6 +23,17 @@
 // block barrier. Reductions and scans are integer (exact in any order);
 // argmin/argmax break ties at the lowest index; float32 ledgers use two
 // IEEE roundings per a*b+c (built with -fmad=false), as XLA computes them.
+//
+// Scenario grid (kernel B7, karpenter_tpu/ops/solve.py:357
+// solve_scenarios_core_packed, which vmaps this scan over consolidation
+// scenarios): block s of a <<<S, 1024>>> launch walks scenario s. The
+// batched inputs (g_count, cap_ng, and n_hcnt / nh_cnt0 when the topology
+// priors are per scenario) carry a scenario stride, 0 when shared; every
+// State and Out buffer holds S slices and each block offsets into its own.
+// The scan body is the same for every S, so scenarios walk the same groups
+// in the same order with the same ties and bisection; S = 1 is the plain
+// solve. Scenarios are independent, so blocks never synchronise with each
+// other; a batch wider than the 132 SMs queues.
 #include "common.cuh"
 
 namespace {
@@ -168,6 +179,47 @@ struct Out {
   int32_t* c_dzone; int32_t* c_dct; uint8_t* c_resv;
 };
 
+// elements between consecutive scenarios' slices of the batched inputs
+// (0: shared by every scenario)
+struct Strides {
+  long long g_count, cap_ng, n_hcnt, nh_cnt0;
+};
+
+// point every batched input, State and Out buffer at scenario s's slice
+__device__ void own_slice(const Dims& d, const Strides& sc, long long s,
+                          In& in, State& st, Out& out) {
+  const long long N = d.N, NMAX = d.NMAX, R = d.R, K = d.K, V1 = d.V1;
+  const long long JH = d.JH, P = d.P, T = d.T, G = d.G, W = d.W;
+  in.g_count += s * sc.g_count;
+  in.cap_ng += s * sc.cap_ng;
+  in.n_hcnt += s * sc.n_hcnt;
+  in.nh_cnt0 += s * sc.nh_cnt0;
+  st.exist_used += s * N * R;
+  st.c_used += s * NMAX * R;
+  st.c_npods += s * NMAX;
+  st.c_def += s * NMAX * K;
+  st.c_neg += s * NMAX * K;
+  st.c_mask += s * NMAX * K * V1;
+  st.ch_cnt += s * NMAX * JH;
+  st.nhc += s * N * JH;
+  st.pool_rem += s * P * R;
+  st.exist_cap += s * N;
+  st.claim_cap += s * NMAX;
+  st.claim_fill += s * NMAX;
+  st.avail += s * P * T;
+  st.atz += s * T * V1 * W;
+  out.c_pool += s * NMAX;
+  out.c_tmask += s * NMAX * T;
+  out.n_open += s;
+  out.overflow += s;
+  out.exist_fills += s * G * N;
+  out.claim_fills += s * G * NMAX;
+  out.unplaced += s * G;
+  out.c_dzone += s * NMAX;
+  out.c_dct += s * NMAX;
+  out.c_resv += s * NMAX;
+}
+
 // waterfill (packing.py:105): smallest level L with
 // sum(clip(L - npods, 0, cap)) >= n by bisection ((lo + hi) // 2, at most
 // `iters` trips), then the deficit layer handed out by slot index
@@ -214,7 +266,19 @@ __device__ void waterfill(const int32_t* npods, const int32_t* cap, int32_t n,
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-pack_scan(Dims d, In in, State st, Out out) {
+pack_scan(Dims d, In in0, State st0, Out out0, Strides sc) {
+  // this block's scenario slices, kept in shared memory rather than in
+  // registers, which the 1024-thread launch bound already holds to 64
+  __shared__ In in;
+  __shared__ State st;
+  __shared__ Out out;
+  if (threadIdx.x == 0) {
+    in = in0;
+    st = st0;
+    out = out0;
+    own_slice(d, sc, blockIdx.x, in, st, out);
+  }
+  __syncthreads();
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ Shared sh;
   __shared__ float s_debit[32];
@@ -590,8 +654,11 @@ pack_scan(Dims d, In in, State st, Out out) {
 }  // namespace
 
 extern "C" int kt_pack(
-    int G, int T, int P, int N, int R, int K, int V1, int NMAX, int JH,
+    int S, int G, int T, int P, int N, int R, int K, int V1, int NMAX, int JH,
     int zone_kid, int ct_kid, int wf_iters,
+    // scenario strides of the batched inputs (0: shared)
+    long long s_g_count, long long s_cap_ng, long long s_n_hcnt,
+    long long s_nh_cnt0,
     // groups (FFD order)
     const int32_t* g_count, const float* g_req, const uint8_t* g_def,
     const uint8_t* g_neg, const uint8_t* g_mask, const int32_t* g_hcap,
@@ -618,6 +685,7 @@ extern "C" int kt_pack(
     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (R > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (S == 0) return kt::kNothingLaunched;
   const int W = (V1 + 31) / 32;
   Dims d{G, T, P, N, R, K, V1, NMAX, JH, zone_kid, ct_kid, wf_iters, W};
   In in{g_count, g_req, g_def, g_neg, g_mask, g_hcap, g_haff, g_hstg, g_hscap,
@@ -628,11 +696,12 @@ extern "C" int kt_pack(
            pool_rem, exist_cap, claim_cap, claim_fill, avail, atz};
   Out out{c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills,
           unplaced, c_dzone, c_dct, c_resv};
+  Strides sc{s_g_count, s_cap_ng, s_n_hcnt, s_nh_cnt0};
   const size_t smem = sizeof(uint32_t) * (kWarps * 2 * W + 2 * W) +
                       sizeof(float) * R + static_cast<size_t>(K) * (2 + V1);
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(pack_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-  pack_scan<<<1, kThreads, smem, stream>>>(d, in, st, out);
+  pack_scan<<<S, kThreads, smem, stream>>>(d, in, st, out, sc);
   return static_cast<int>(cudaGetLastError());
 }

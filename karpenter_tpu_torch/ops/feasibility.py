@@ -184,7 +184,9 @@ def existing_node_feasibility_sparse_reference(
     """Plain version of karpenter_tpu/ops/feasibility.py:
     existing_node_feasibility_sparse: strict compatibility over the live
     pairs (a segment sum), then fits_count against n_avail - n_base, gated
-    on n_tol. Returns cap_ng [N, G] int32."""
+    on n_tol. Returns cap_ng [N, G] int32, or [S, N, G] for a scenario
+    batch's n_tol [S, N, G] (only the gate is per scenario, as under JAX's
+    vmap: the final where broadcasts)."""
     G = g_mask.shape[0]
     i32 = torch.int32
     gg, kk = gk_g.long(), gk_k.long()
@@ -237,8 +239,9 @@ def existing_node_feasibility_sparse(
     n_def, n_mask, n_avail, n_base, n_tol,
     gk_g, gk_k, gk_w,
 ):
-    """cap_ng [N, G]: the plain version for CPU tensors, kernel B2
-    (csrc/existing_feasibility.cu) for CUDA tensors."""
+    """cap_ng [N, G] (or [S, N, G] for n_tol [S, N, G]): the plain
+    version for CPU tensors, kernel B2 (csrc/existing_feasibility.cu) for
+    CUDA tensors."""
     args = (
         g_def, g_neg, g_mask, g_req,
         n_def, n_mask, n_avail, n_base, n_tol,
@@ -316,6 +319,10 @@ def _launch_existing(
     G, K, V1 = g_mask.shape
     N, R = n_avail.shape
     L = gk_g.shape[0]
+    # a scenario batch gates on n_tol [S, N, G]; the plain solve's [N, G]
+    # is one scenario without the axis
+    lead = tuple(n_tol.shape[:-2])
+    S = n_tol.shape[0] if lead else 1
     dev = g_mask.device
     b, i32, f32 = torch.bool, torch.int32, torch.float32
     for t, name, dt, shape in (
@@ -323,22 +330,22 @@ def _launch_existing(
         (g_mask, "g_mask", b, (G, K, V1)), (g_req, "g_req", f32, (G, R)),
         (n_def, "n_def", b, (N, K)), (n_mask, "n_mask", b, (N, K, V1)),
         (n_avail, "n_avail", f32, (N, R)), (n_base, "n_base", f32, (N, R)),
-        (n_tol, "n_tol", b, (N, G)),
+        (n_tol, "n_tol", b, lead + (N, G)),
         (gk_g, "gk_g", i32, (L,)), (gk_k, "gk_k", i32, (L,)),
         (gk_w, "gk_w", i32, (L,)),
     ):
         _build.check(t, name, dt, shape, dev)
-    cap_ng = torch.empty((N, G), dtype=i32, device=dev)
+    cap_ng = torch.empty(lead + (N, G), dtype=i32, device=dev)
     fn = _build.library("existing_feasibility").kt_existing_feasibility
     p = _build.ptr
     with torch.cuda.device(dev):
         rc = fn(
-            *(ctypes.c_int(int(v)) for v in (N, G, K, V1, R, L)),
+            *(ctypes.c_int(int(v)) for v in (S, N, G, K, V1, R, L)),
             p(g_def), p(g_neg), p(g_mask), p(g_req),
             p(n_def), p(n_mask), p(n_avail), p(n_base), p(n_tol),
             p(gk_g), p(gk_k), p(gk_w),
             p(cap_ng),
             _build.stream(),
         )
-    _build.launched("existing_feasibility", rc)
+    _build.launched("existing_feasibility", rc, scenarios=S)
     return cap_ng

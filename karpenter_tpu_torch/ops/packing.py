@@ -23,6 +23,12 @@ static raises NotImplementedError before anything runs.
 ``pack`` is the public wrapper: its plain version ``pack_reference`` (a
 host loop over groups, exact and slow) for CPU tensors, kernel B4
 (csrc/pack.cu, one persistent thread block per solve) for CUDA tensors.
+
+Scenario batches (consolidation's probe sets, ops/solve.py:
+solve_scenarios_core_packed): ``g_count`` [S, G] and ``cap_ng`` [S, N, G],
+with ``n_hcnt`` / ``nh_cnt0`` either shared or [S, ...]; every output
+gains a leading [S]. The plain version loops over the scenarios and
+stacks; the kernel runs one block per scenario in one launch.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ def check_scope(has_domains, has_contrib, tile_feasibility, n_res, n_mv):
         raise NotImplementedError(
             "the PyTorch pack covers has_domains=False, has_contrib=False, "
             "untiled tables, no reservations and no minValues; this batch "
-            "needs " + ", ".join(missing) + " (ROADMAP.md, next slice)"
+            "needs " + ", ".join(missing) + " (ROADMAP.md item A4)"
         )
 
 
@@ -383,6 +389,27 @@ def pack_reference(
     )
 
 
+# (position, rank with the scenario axis) of each input a scenario batch
+# may carry per scenario: g_count, cap_ng, n_hcnt, nh_cnt0
+_SCENARIO_ARGS = ((0, 2), (13, 3), (23, 3), (24, 3))
+
+
+def pack_scenarios_reference(*args, **statics):
+    """Plain version of the scenario-batched scan: ``pack_reference`` on
+    each scenario's slice of the batched inputs (``g_count`` [S, G],
+    ``cap_ng`` [S, N, G]; ``n_hcnt`` [S, N, G] and ``nh_cnt0`` [S, N, JH]
+    when they carry a scenario axis, else shared), outputs stacked on a
+    leading [S]."""
+    per = []
+    for si in range(args[0].shape[0]):
+        a = list(args)
+        for i, rank in _SCENARIO_ARGS:
+            if a[i].dim() == rank:
+                a[i] = a[i][si]
+        per.append(pack_reference(*a, **statics))
+    return tuple(torch.stack(outs) for outs in zip(*per))
+
+
 def pack(
     g_count, g_req, g_def, g_neg, g_mask,
     g_hcap, g_haff,
@@ -402,7 +429,8 @@ def pack(
     wf_iters: int = 32,
 ):
     """The grouped-FFD scan: ``pack_reference`` for CPU tensors, kernel B4
-    (csrc/pack.cu) for CUDA tensors. Same outputs either way."""
+    (csrc/pack.cu) for CUDA tensors. Same outputs either way. A 2-D
+    ``g_count`` [S, G] is a scenario batch (module docstring)."""
     args = (
         g_count, g_req, g_def, g_neg, g_mask,
         g_hcap, g_haff,
@@ -419,6 +447,8 @@ def pack(
     )
     statics = dict(nmax=nmax, zone_kid=zone_kid, ct_kid=ct_kid, wf_iters=wf_iters)
     if g_count.device.type == "cpu":
+        if g_count.dim() == 2:
+            return pack_scenarios_reference(*args, **statics)
         return pack_reference(*args, **statics)
     return _launch_pack(*args, **statics)
 
@@ -446,13 +476,23 @@ def _launch_pack(
     G, K, V1 = g_mask.shape
     P, T = type_ok_pgt.shape[0], type_ok_pgt.shape[2]
     N, R = n_avail.shape
-    JH = nh_cnt0.shape[1]
+    JH = nh_cnt0.shape[-1]
+    # scenario batch: g_count [S, G]; the plain solve is one scenario
+    # without the axis
+    lead = tuple(g_count.shape[:-1])
+    S = g_count.shape[0] if lead else 1
+    hlead = tuple(n_hcnt.shape[:-2])
+    h0lead = tuple(nh_cnt0.shape[:-2])
+    if hlead not in ((), lead) or h0lead not in ((), lead):
+        raise ValueError(
+            f"n_hcnt/nh_cnt0 scenario axes {hlead}/{h0lead} vs g_count's {lead}"
+        )
     if JH < 1 or R > 32:
         raise ValueError(f"pack kernel needs JH >= 1 and R <= 32 (JH={JH}, R={R})")
     dev = g_mask.device
     b, i32, f32 = torch.bool, torch.int32, torch.float32
     for t, name, dt, shape in (
-        (g_count, "g_count", i32, (G,)), (g_req, "g_req", f32, (G, R)),
+        (g_count, "g_count", i32, lead + (G,)), (g_req, "g_req", f32, (G, R)),
         (g_def, "g_def", b, (G, K)), (g_neg, "g_neg", b, (G, K)),
         (g_mask, "g_mask", b, (G, K, V1)), (g_hcap, "g_hcap", i32, (G,)),
         (g_haff, "g_haff", b, (G,)), (g_hstg, "g_hstg", i32, (G,)),
@@ -460,13 +500,14 @@ def _launch_pack(
         (compat_pg, "compat_pg", b, (P, G)),
         (type_ok_pgt, "type_ok_pgt", b, (P, G, T)),
         (n_fit_pgt, "n_fit_pgt", i32, (P, G, T)),
-        (cap_ng, "cap_ng", i32, (N, G)),
+        (cap_ng, "cap_ng", i32, lead + (N, G)),
         (t_alloc, "t_alloc", f32, (T, R)), (t_cap, "t_cap", f32, (T, R)),
         (a_tzc, "a_tzc", b, (T, V1, V1)),
         (p_daemon, "p_daemon", f32, (P, R)), (p_limit, "p_limit", f32, (P, R)),
         (p_has_limit, "p_has_limit", b, (P,)), (p_tol, "p_tol", b, (P, G)),
         (n_avail, "n_avail", f32, (N, R)), (n_base, "n_base", f32, (N, R)),
-        (n_hcnt, "n_hcnt", i32, (N, G)), (nh_cnt0, "nh_cnt0", i32, (N, JH)),
+        (n_hcnt, "n_hcnt", i32, hlead + (N, G)),
+        (nh_cnt0, "nh_cnt0", i32, h0lead + (N, JH)),
         (well_known, "well_known", b, (K,)),
     ):
         _build.check(t, name, dt, shape, dev)
@@ -475,25 +516,31 @@ def _launch_pack(
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    # PackState and per-step scratch (the kernel initializes all of it)
-    state = (
-        empty((N, R), f32), empty((nmax, R), f32), empty((nmax,), i32),
-        empty((nmax, K), b), empty((nmax, K), b), empty((nmax, K, V1), b),
-        empty((nmax, JH), i32), empty((N, JH), i32), empty((P, R), f32),
-        empty((N,), i32), empty((nmax,), i32), empty((nmax,), i32),
-        empty((P, T), b), empty((T, V1, W), i32),
-    )
-    outs = (
-        empty((nmax,), i32), empty((nmax, T), b), empty((), i32), empty((), b),
-        empty((G, N), i32), empty((G, nmax), i32), empty((G,), i32),
-        empty((nmax,), i32), empty((nmax,), i32), empty((nmax,), b),
+    # PackState and per-step scratch, one slice per scenario (the kernel
+    # initializes all of it)
+    state = tuple(empty((S,) + shape, dt) for shape, dt in (
+        ((N, R), f32), ((nmax, R), f32), ((nmax,), i32),
+        ((nmax, K), b), ((nmax, K), b), ((nmax, K, V1), b),
+        ((nmax, JH), i32), ((N, JH), i32), ((P, R), f32),
+        ((N,), i32), ((nmax,), i32), ((nmax,), i32),
+        ((P, T), b), ((T, V1, W), i32),
+    ))
+    outs = tuple(empty(lead + shape, dt) for shape, dt in (
+        ((nmax,), i32), ((nmax, T), b), ((), i32), ((), b),
+        ((G, N), i32), ((G, nmax), i32), ((G,), i32),
+        ((nmax,), i32), ((nmax,), i32), ((nmax,), b),
+    ))
+    strides = (
+        G if lead else 0, N * G if lead else 0,
+        N * G if hlead else 0, N * JH if h0lead else 0,
     )
     fn = _build.library("pack").kt_pack
     p = _build.ptr
     with torch.cuda.device(dev):
         rc = fn(
             *(ctypes.c_int(int(v)) for v in (
-                G, T, P, N, R, K, V1, nmax, JH, zone_kid, ct_kid, wf_iters)),
+                S, G, T, P, N, R, K, V1, nmax, JH, zone_kid, ct_kid, wf_iters)),
+            *(ctypes.c_longlong(v) for v in strides),
             p(g_count), p(g_req), p(g_def), p(g_neg), p(g_mask),
             p(g_hcap), p(g_haff), p(g_hstg), p(g_hscap), p(g_hself),
             p(compat_pg), p(type_ok_pgt), p(n_fit_pgt), p(cap_ng),
@@ -504,5 +551,5 @@ def _launch_pack(
             *(p(x) for x in outs),
             _build.stream(),
         )
-    _build.launched("pack", rc)
+    _build.launched("pack", rc, scenarios=S)
     return outs

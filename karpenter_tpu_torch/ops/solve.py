@@ -6,12 +6,20 @@ arguments live on: four kernel launches on CUDA (B1, B2 when there are
 existing nodes, B4, B6), their plain versions on the CPU. Outputs stay on
 the device until TorchSolver's single drain.
 
+The scenario axis (B7, consolidation's probe sets) is the same dispatch
+with ``g_count`` [S, G] and ``n_tol`` [S, N, G] batched (plus ``n_hcnt``
+and ``nh_cnt0`` under ``batch_topo``): B1 still launches once, since its
+inputs are shared; B2 writes [S, N, G]; B4 runs one block per scenario;
+B6 folds the scenarios into its rows. Still four launches per dispatch.
+
 Not in this slice (each raises NotImplementedError): the dense
-feasibility twins (B3) and the tiled mode, the class-batched scan (B5),
-the scenario axis (B7) and the row-delta apply (B8).
+feasibility twins (B3) and the tiled mode, the class-batched scan (B5)
+and the row-delta apply (B8).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -45,9 +53,10 @@ def _feasibility_tables(a, zone_kid: int, ct_kid: int):
             a["gk_g"], a["gk_k"], a["gk_w"],
         )
     else:
+        # no existing nodes: an empty table, with n_tol's scenario axis
         cap_ng = torch.zeros(
-            (0, a["g_count"].shape[0]), dtype=torch.int32,
-            device=a["g_count"].device,
+            tuple(a["n_tol"].shape[:-2]) + (0, a["g_mask"].shape[0]),
+            dtype=torch.int32, device=a["g_mask"].device,
         )
     return compat_pg, type_ok, n_fit, cap_ng
 
@@ -66,7 +75,8 @@ def solve_core(
     """ops/solve.py:solve_core over the positional ``solve_args`` tuple
     (encode.SOLVE_ARG_NAMES order, tensors on one device). Returns the 10
     outputs (c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills,
-    unplaced, c_dzone, c_dct, c_resv)."""
+    unplaced, c_dzone, c_dct, c_resv). Given a scenario batch (see
+    ``solve_scenarios_core_packed``) every output has a leading [S]."""
     a = dict(zip(SOLVE_ARG_NAMES, args))
     check_scope(
         has_domains, has_contrib, tile_feasibility,
@@ -105,14 +115,17 @@ _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 def wire_pack_reference(outs, fills_dtype):
     """Plain version of ops/solve.py:_wire_pack: the [NMAX, T] claim/type
     mask bit-packs 8x into uint8 rows, c_pool/c_dzone/c_dct narrow to
-    int16 and the fill matrices to ``fills_dtype``."""
+    int16 and the fill matrices to ``fills_dtype``. Leading scenario axes
+    pass through (the pack is row-wise, the rest elementwise)."""
     (c_pool, c_tmask, n_open, overflow,
      exist_fills, claim_fills, unplaced, c_dzone, c_dct, c_resv) = outs
-    n, t = c_tmask.shape
+    *lead, n, t = c_tmask.shape
     t_pad = -(-t // 8) * 8
     padded = torch.nn.functional.pad(c_tmask.to(torch.uint8), (0, t_pad - t))
     weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=c_tmask.device)
-    packed = (padded.reshape(n, t_pad // 8, 8) * weights).sum(-1).to(torch.uint8)
+    packed = (
+        padded.reshape(*lead, n, t_pad // 8, 8) * weights
+    ).sum(-1).to(torch.uint8)
     return (
         c_pool.to(torch.int16),
         packed,
@@ -142,8 +155,11 @@ def _launch_wire_pack(outs, fills_dtype):
      exist_fills, claim_fills, unplaced, c_dzone, c_dct, c_resv) = outs
     if fills_dtype not in (torch.int16, torch.int32):
         raise ValueError(f"fills_dtype {fills_dtype}: int16 or int32 only")
-    nmax, t = c_tmask.shape
-    g, n = exist_fills.shape
+    # a scenario batch's leading [S] (absent for the plain solve)
+    lead = tuple(c_tmask.shape[:-2])
+    S = math.prod(lead)
+    nmax, t = c_tmask.shape[-2:]
+    g, n = exist_fills.shape[-2:]
     dev = c_tmask.device
     i32 = torch.int32
     for x, name, dt, shape in (
@@ -152,18 +168,28 @@ def _launch_wire_pack(outs, fills_dtype):
         (claim_fills, "claim_fills", i32, (g, nmax)),
         (c_dzone, "c_dzone", i32, (nmax,)), (c_dct, "c_dct", i32, (nmax,)),
     ):
-        _build.check(x, name, dt, shape, dev)
-    pool16 = torch.empty((nmax,), dtype=torch.int16, device=dev)
-    packed = torch.empty((nmax, -(-t // 8)), dtype=torch.uint8, device=dev)
-    exist_out = torch.empty((g, n), dtype=fills_dtype, device=dev)
-    claim_out = torch.empty((g, nmax), dtype=fills_dtype, device=dev)
-    dzone16 = torch.empty((nmax,), dtype=torch.int16, device=dev)
-    dct16 = torch.empty((nmax,), dtype=torch.int16, device=dev)
+        _build.check(x, name, dt, lead + shape, dev)
+
+    def empty(shape, dtype):
+        return torch.empty(lead + shape, dtype=dtype, device=dev)
+
+    pool16 = empty((nmax,), torch.int16)
+    packed = empty((nmax, -(-t // 8)), torch.uint8)
+    exist_out = empty((g, n), fills_dtype)
+    claim_out = empty((g, nmax), fills_dtype)
+    dzone16 = empty((nmax,), torch.int16)
+    dct16 = empty((nmax,), torch.int16)
     fn = _build.library("wire_pack").kt_wire_pack
     p = _build.ptr
+    # The kernel's mask pack is row-wise and its narrowing casts are
+    # elementwise over flat buffers, so S scenarios ride one launch as
+    # S * NMAX mask rows and pool entries, with the fills counted as
+    # g x (S * n) and g x (S * NMAX) elements: the same element counts as
+    # [S, g, n] and [S, g, NMAX].
     with torch.cuda.device(dev):
         rc = fn(
-            ctypes.c_int(nmax), ctypes.c_int(t), ctypes.c_int(g), ctypes.c_int(n),
+            ctypes.c_int(S * nmax), ctypes.c_int(t), ctypes.c_int(g),
+            ctypes.c_int(S * n),
             ctypes.c_int(int(fills_dtype == torch.int16)),
             p(c_pool), p(c_tmask), p(exist_fills), p(claim_fills),
             p(c_dzone), p(c_dct),
@@ -171,7 +197,7 @@ def _launch_wire_pack(outs, fills_dtype):
             p(dzone16), p(dct16),
             _build.stream(),
         )
-    _build.launched("wire_pack", rc)
+    _build.launched("wire_pack", rc, scenarios=S)
     return (
         pool16, packed, n_open, overflow, exist_out, claim_out, unplaced,
         dzone16, dct16, c_resv,
@@ -179,6 +205,47 @@ def _launch_wire_pack(outs, fills_dtype):
 
 
 def solve_core_packed(*args, fills_dtype=torch.int32, **statics):
+    return wire_pack(solve_core(*args, **statics), fills_dtype)
+
+
+# -- scenario axis ----------------------------------------------------------
+#
+# Consolidation's replacement search solves one cluster snapshot many times,
+# varying only which candidate nodes are gone (n_tol rows zeroed: a node no
+# group tolerates receives no fills) and which of their pods are back in the
+# workload (g_count). Everything else is encoded once and shared.
+
+SCENARIO_BATCHED_ARGS = ("g_count", "n_tol")
+# topology-carrying searches additionally batch the prior arrays; g_dprior
+# and dd0 are read only under has_domains, which check_scope refuses here
+SCENARIO_TOPO_BATCHED_ARGS = SCENARIO_BATCHED_ARGS + (
+    "g_dprior", "n_hcnt", "nh_cnt0", "dd0",
+)
+# each name's rank without the scenario axis
+_UNBATCHED_RANK = {
+    "g_count": 1, "n_tol": 2, "g_dprior": 2, "n_hcnt": 2, "nh_cnt0": 2,
+    "dd0": 2,
+}
+
+
+def solve_scenarios_core_packed(
+    *args, fills_dtype=torch.int32, batch_topo: bool = False, **statics
+):
+    """ops/solve.py:solve_scenarios_core_packed: solve_core_packed over a
+    leading scenario axis on (g_count, n_tol), plus the topology prior
+    arrays when ``batch_topo``; every other arg is shared. Outputs gain a
+    leading [S] and stay wire-packed per scenario. One launch of each
+    kernel covers every scenario."""
+    batched = SCENARIO_TOPO_BATCHED_ARGS if batch_topo else SCENARIO_BATCHED_ARGS
+    a = dict(zip(SOLVE_ARG_NAMES, args))
+    S = a["g_count"].shape[0]
+    for name, rank in _UNBATCHED_RANK.items():
+        want = rank + 1 if name in batched else rank
+        if a[name].dim() != want or (name in batched and a[name].shape[0] != S):
+            raise ValueError(
+                f"{name}: shape {tuple(a[name].shape)}, expected rank {want}"
+                + (f" with {S} scenarios" if name in batched else "")
+            )
     return wire_pack(solve_core(*args, **statics), fills_dtype)
 
 
@@ -195,3 +262,10 @@ def dispatch_packed(*args, **kw):
     with obs.span("kernel.dispatch", kernel="pack"):
         out = solve_core_packed(*args, **kw)
     return faults.mutate(faults.SOLVER_OUTPUT, out, kernel="pack")
+
+
+def dispatch_scenarios_packed(*args, **kw):
+    faults.hit(faults.SOLVER_SCENARIOS, kernel="scenarios")
+    with obs.span("kernel.dispatch", kernel="scenarios"):
+        out = solve_scenarios_core_packed(*args, **kw)
+    return faults.mutate(faults.SOLVER_OUTPUT, out, kernel="scenarios")

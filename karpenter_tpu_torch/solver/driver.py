@@ -10,15 +10,20 @@ Routes pods between the device fast path and the host oracle:
   (scheduling/scheduler.py) in the same solve, sharing existing-node
   capacity with the device placements.
 
+Consolidation's probe sets ride the scenario axis (``solve_scenarios``,
+split into ``submit_scenarios`` and ``collect_scenarios``): one shared
+encoding of the whole cluster, every probe one scenario of a single
+dispatch of the same kernels (ops/solve.py:dispatch_scenarios_packed).
+
 The solve runs on ``SolverConfig.device``: "cuda" (the default) launches
 the hand-written kernels, "cpu" runs their plain PyTorch versions. Asking
 for CUDA on a host without it raises; nothing falls back.
 
-Not in this slice, each raising NotImplementedError: the consolidation
-scenario axis, the class-batched scan, the relaxation pre-solver and the
-multi-GPU mesh (ROADMAP.md items A6, A8, A9, A13), and the kernel statics
-outside the ported pack scope (domain quotas, contributor counting,
-reservations, minValues, tiled tables).
+Not in this slice, each raising NotImplementedError: the class-batched
+scan, the relaxation pre-solver and the multi-GPU mesh (ROADMAP.md items
+A8, A9, A13), and the kernel statics outside the ported pack scope
+(domain quotas, contributor counting, reservations, minValues: item A4;
+tiled tables).
 """
 
 from __future__ import annotations
@@ -87,6 +92,11 @@ class EncodeCache:
         # prior-snapshot fast path) outlives solver instances with this
         # cache; a catalog change resets it along with the vocab
         self.cluster = enc.ClusterEncoding(owner=owner)
+        # consolidation searches encode a different workload shape (the
+        # union of the candidates' pods over the full node set), so the
+        # scenario path keeps its own encoding and does not thrash the
+        # provisioning one's prior-snapshot fast path
+        self.scenario_cluster = enc.ClusterEncoding(owner=owner)
         # pure per-node scheduler model inputs (taints, daemon remainder,
         # label requirements) keyed by object resource versions — catalog-
         # independent, so it survives fingerprint resets. Consolidation
@@ -221,9 +231,10 @@ class EncodeCache:
             ).hexdigest()
             self.vocab = enc.Vocab()
             self.cache = {}
-            # the warm encoding is catalog-derived: a changed catalog
-            # invalidates it (next encode is full)
+            # the warm encodings are catalog-derived: a changed catalog
+            # invalidates them (next encode is full)
             self.cluster.invalidate("catalog changed")
+            self.scenario_cluster.invalidate("catalog changed")
         return self.vocab, self.cache
 
 
@@ -263,6 +274,31 @@ class SolverConfig:
             )
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported solver device {self.device!r}")
+
+
+def _clone_existing_node(en):
+    """A fill-isolated copy of an ExistingNode model: decode mutates pods/
+    requests/requirements, and scenario fan-out must not leak one scenario's
+    placements into another's (or into the shared oracle models)."""
+    import copy
+
+    c = copy.copy(en)
+    c.pods = list(en.pods)
+    c.requests = dict(en.requests)
+    c.requirements = Requirements(*en.requirements.values())
+    c.volume_usage = en.volume_usage.copy() if en.volume_usage else None
+    return c
+
+
+@dataclass
+class Scenario:
+    """One cluster what-if for TorchSolver.solve_scenarios: ``pods`` is the
+    scenario's workload (a subset of the union the solver encodes) and
+    ``excluded_provider_ids`` names the existing nodes absent from the
+    cluster in this scenario (consolidation candidates being removed)."""
+
+    pods: List[Pod]
+    excluded_provider_ids: frozenset = frozenset()
 
 
 @dataclass
@@ -314,6 +350,9 @@ class TorchSolver:
         self.pool_limits = {
             np_.name: dict(np_.spec.limits) for np_ in node_pools if np_.spec.limits
         }
+        # kernel dispatch count of the last solve_scenarios call (the whole
+        # probe set of a search should cost <= 2 dispatches)
+        self.last_scenario_dispatches = 0
         # per-solve audit state (obs/audit.py): which rung produced the
         # committed answer and what the invariant guard said
         self.last_dispatches = 0
@@ -383,8 +422,521 @@ class TorchSolver:
         ahead of the pre-decode invariant guard."""
         return [x.cpu().numpy() for x in out]
 
-    def solve_scenarios(self, scenarios):
-        raise _not_in_slice("the consolidation scenario axis (B7)", "A6")
+    # -- scenario axis ----------------------------------------------------
+
+    # scenario-count buckets: S pads to a power of two, at least this
+    _SCENARIO_FLOOR = 8
+
+    def solve_scenarios(
+        self, scenarios: Sequence[Scenario]
+    ) -> Optional[List[Results]]:
+        """Solve every scenario of one cluster snapshot in a single dispatch
+        of the scenario-batched kernels (ops/solve.py:
+        dispatch_scenarios_packed).
+
+        The solver must have been constructed with the FULL node set (no
+        candidates pre-removed); each scenario masks its removed nodes and
+        activates its workload subset over one shared encoding, with
+        topology priors batched as per-scenario contribution deltas
+        (_plan_scenario_topology). Returns per-scenario Results aligned
+        with ``scenarios``, or None when the batch cannot be represented
+        scenario-batched — the JAX package's decline set: oracle-routed
+        pods, strict-mode reservations, topology shapes the prior deltas
+        cannot express, force_oracle. The caller then falls back to
+        per-scenario solve()s, and the decline is counted in
+        ``fallback_solves``. Statics outside the ported kernel scope raise
+        NotImplementedError; a kernel fault raises at the drain.
+        ``last_scenario_dispatches`` records the dispatch count of the
+        last successful call.
+
+        Split into :meth:`submit_scenarios` (host prep and the launches,
+        which do not wait for the card) and :meth:`collect_scenarios`
+        (drain, guard, decode, audit): the single-node sweep submits chunk
+        n+1 while chunk n's Results become decisions."""
+        return self.collect_scenarios(self.submit_scenarios(scenarios))
+
+    def submit_scenarios(self, scenarios: Sequence[Scenario]):
+        """Stage one scenario batch and launch its dispatch, without
+        waiting for the card. Returns an opaque token for
+        collect_scenarios, or None when the batch cannot be represented
+        (same decline conditions as solve_scenarios)."""
+        self.last_scenario_dispatches = 0
+        if not scenarios:
+            return {"empty": True}
+        if self.config.force_oracle:
+            return None
+        if (
+            self.oracle.reserved_capacity_enabled
+            and self.oracle.reserved_offering_mode
+            == RESERVED_OFFERING_MODE_STRICT
+        ):
+            # strict mode raises mid-Add (see _solve_routed): sequential
+            self._note_fallback("scenario-strict-reservation")
+            return None
+        # union workload across scenarios, deduped by pod identity
+        union: List[Pod] = []
+        seen: set = set()
+        for sc in scenarios:
+            for p in sc.pods:
+                if p.uid not in seen:
+                    seen.add(p.uid)
+                    union.append(p)
+        topo = self.oracle.topology
+        if not self.oracle.templates:
+            return None
+        groups, rest = enc.partition_and_group(
+            union,
+            topology=topo,
+            merge_bootstrap_affinity=not self.oracle.reserved_capacity_enabled,
+        )
+        if rest:
+            self._note_fallback(f"scenario-oracle-routed:{len(rest)}")
+            return None
+        if not groups:
+            return {"noop": True, "scenarios": list(scenarios)}
+        # topology priors depend on which candidate nodes remain: the plan
+        # decomposes them into per-candidate contribution deltas applied
+        # to per-scenario copies of the prior arrays; shapes the deltas
+        # cannot express decline to the sequential reference
+        topo_plan = None
+        if topo.topology_groups or topo.inverse_topology_groups:
+            topo_plan = self._plan_scenario_topology(scenarios, groups, topo)
+            if topo_plan is None:
+                self._note_fallback("scenario-topology-unrepresentable")
+                return None
+
+        # the duration clock starts at submit so a prefetched batch's
+        # audit record reports wall time of the whole decision
+        dclk = obs.duration_clock()
+        t0 = dclk.now()
+        fault_mark = self._fault_log_mark()
+        with obs.span("solve.encode", groups=len(groups)):
+            snap, avail, nmax_hint, lease_cache, delta = self._encode_batch(
+                groups, scenario=True
+            )
+        a_tzc, res_cap0, a_res = avail
+        fit = self._fit_matrix(snap)
+        nmax = self._select_nmax(snap, fit, nmax_hint)
+        # pad G only to the next power of two: every padded group step
+        # runs for every scenario
+        G = enc._next_pow2(len(snap.groups), floor=1)
+        N = (
+            enc._next_pow2(len(snap.existing_names), floor=1)
+            if snap.existing_names
+            else 0
+        )
+        statics = self._kernel_statics(snap, G)
+        # outside the ported pack scope: raise before anything launches
+        check_scope(
+            statics["has_domains"], statics["has_contrib"],
+            statics["tile_feasibility"], res_cap0.shape[0],
+            snap.p_mvmin.shape[1],
+        )
+        snap_run = snap.padded(G, N)
+        args = list(snap_run.solve_args(a_tzc, res_cap0, a_res))
+
+        # per-scenario arrays over the shared encoding
+        uid_to_group: Dict[str, int] = {}
+        for gi, g in enumerate(snap.groups):
+            for p in g.pods:
+                uid_to_group[p.uid] = gi
+        pid_to_node: Dict[str, int] = {}
+        for ni, en in enumerate(self.oracle.existing_nodes):
+            pid = getattr(en.state_node, "provider_id", None)
+            if pid is not None:
+                pid_to_node[pid] = ni
+        S_real = len(scenarios)
+        S = enc._next_pow2(S_real, floor=self._SCENARIO_FLOOR)
+        Gb, Nb = len(snap_run.g_count), snap_run.n_tol.shape[0]
+        # padded scenarios keep g_count 0: they place nothing
+        g_count_s = np.zeros((S, Gb), np.int32)
+        n_tol_s = np.zeros((S, Nb, max(Gb, 1)), bool)
+        scen_group_pods: List[List[List[Pod]]] = []
+        for si, sc in enumerate(scenarios):
+            per_group: List[List[Pod]] = [[] for _ in snap.groups]
+            for p in sc.pods:
+                per_group[uid_to_group[p.uid]].append(p)
+            scen_group_pods.append(per_group)
+            for gi, pl in enumerate(per_group):
+                g_count_s[si, gi] = len(pl)
+            ntol = snap_run.n_tol
+            if sc.excluded_provider_ids:
+                ntol = ntol.copy()
+                for pid in sc.excluded_provider_ids:
+                    ni = pid_to_node.get(pid)
+                    if ni is not None:
+                        # a node no group tolerates receives no fills: the
+                        # kernel-visible form of "this node is gone"
+                        ntol[ni, :] = False
+            n_tol_s[si] = ntol
+        args[enc.SOLVE_ARG_NAMES.index("g_count")] = g_count_s
+        args[enc.SOLVE_ARG_NAMES.index("n_tol")] = n_tol_s
+        batch_topo = bool(topo_plan and topo_plan["batch"])
+        if batch_topo:
+            gp_s, nh_s, nh0_s, dd0_s = self._scenario_topo_arrays(
+                topo_plan, snap, snap_run, scenarios, S
+            )
+            args[enc.SOLVE_ARG_NAMES.index("g_dprior")] = gp_s
+            args[enc.SOLVE_ARG_NAMES.index("n_hcnt")] = nh_s
+            args[enc.SOLVE_ARG_NAMES.index("nh_cnt0")] = nh0_s
+            args[enc.SOLVE_ARG_NAMES.index("dd0")] = dd0_s
+        fills_dtype = (
+            torch.int16 if self._fill_bound(snap, fit) < 2**15 else torch.int32
+        )
+        # staging: the shared encoding and the per-scenario stacks move to
+        # the device per batch
+        with obs.span("solve.transfer"):
+            args = to_device_args(args, self.device)
+
+        token = {
+            "batch_topo": batch_topo,
+            "scenarios": list(scenarios),
+            "snap": snap,
+            "snap_run": snap_run,
+            "args": args,
+            "statics": statics,
+            "nmax": nmax,
+            "fills_dtype": fills_dtype,
+            "g_count_s": g_count_s,
+            "scen_group_pods": scen_group_pods,
+            "S_real": S_real,
+            "lease_cache": lease_cache,
+            "delta": delta,
+            "dclk": dclk,
+            "t0": t0,
+            "fault_mark": fault_mark,
+        }
+        token["out"] = self._submit_scenario_dispatch(token)
+        return token
+
+    def _submit_scenario_dispatch(self, token):
+        """Launch one scenario dispatch; its outputs stay on the device
+        (on CUDA the launches return before the card finishes)."""
+        from ..ops.solve import dispatch_scenarios_packed
+
+        return dispatch_scenarios_packed(
+            *token["args"], nmax=token["nmax"],
+            fills_dtype=token["fills_dtype"],
+            batch_topo=token["batch_topo"],
+            **token["statics"],
+        )
+
+    def _plan_scenario_topology(self, scenarios, groups, topo):
+        """Per-candidate topology-prior contribution plan for one scenario
+        batch, or None when the deltas cannot express the sequential
+        reference exactly (the caller declines to per-probe solves).
+
+        A scenario's priors differ from the shared (union) encoding only
+        by the bound pods of its INCLUDED candidates: the union topology
+        treats every candidate's reschedulable pods as pending, so for a
+        scenario keeping candidate c, c's pods must be re-counted as
+        priors. Each such pod counts toward exactly the constraints whose
+        selector matches it — its own group's self-selecting dynamic
+        state, and the shared descriptors the group owns or contributes
+        to — through four channels:
+
+          nh   n_hcnt[row, gi]     private hostname cap priors
+          nh0  nh_cnt0[row, slot]  shared hostname carry priors
+          gpr  g_dprior[gi, vid]   private domain-spread priors
+          dd0  dd0[slot, vid]      shared domain carry init
+
+        Declines (documented remnants): candidate pods owning
+        anti-affinity (the sequential path gates them through the oracle's
+        inverse machinery), candidate pods selected by affinity-type or
+        statically-folded constraints (their folds baked union counts
+        in), hostname folds over several constraints, haff pins, and
+        candidate nodes carrying out-of-catalog spread domains (their
+        registration would differ per scenario)."""
+        from ..scheduling.topology import TopologyType
+
+        cand_pids: set = set()
+        for sc in scenarios:
+            cand_pids |= set(sc.excluded_provider_ids)
+        if not cand_pids:
+            return {"by_pid": {}, "cand_pids": cand_pids, "batch": False}
+        row_by_name: Dict[str, tuple] = {}
+        for ni, en in enumerate(self.oracle.existing_nodes):
+            row_by_name[en.name] = (
+                ni, getattr(en.state_node, "provider_id", None), en
+            )
+        # candidate-bound pods of the union, aggregated per (pid, row, gi)
+        per: Dict[tuple, int] = {}
+        for gi, g in enumerate(groups):
+            for p in g.pods:
+                nn = p.spec.node_name
+                if not nn:
+                    continue
+                ent = row_by_name.get(nn)
+                if ent is None or ent[1] not in cand_pids:
+                    continue
+                if p.spec.pod_anti_affinity:
+                    return None
+                per[(ent[1], ent[0], gi)] = per.get(
+                    (ent[1], ent[0], gi), 0
+                ) + 1
+        # out-of-catalog candidate domains: removing the node would
+        # unregister the domain in the sequential path, shifting the
+        # spread min — checked on candidate NODES (registration is
+        # node-based), pods or not
+        dyn_keys = {
+            g.topo.dkey
+            for g in groups
+            if g.topo is not None
+            and g.topo.dmode
+            in (enc.DMODE_SPREAD, enc.DMODE_GATE_SPREAD)
+            and g.topo.dkey
+        }
+        if dyn_keys:
+            cand_rows = {
+                ni
+                for ni, pid, _en in row_by_name.values()
+                if pid in cand_pids
+            }
+            # the loop only ever returns None; which key trips it first is
+            # immaterial
+            for key in dyn_keys:
+                catalog = topo.domain_groups.get(key)
+                universe = catalog.domains() if catalog is not None else set()
+                for ni in cand_rows:
+                    en = self.oracle.existing_nodes[ni]
+                    dom = enc._node_single_value(en, key)
+                    if dom is not None and dom not in universe:
+                        return None
+        if not per:
+            return {"by_pid": {}, "cand_pids": cand_pids, "batch": False}
+        static_folds = list(getattr(topo, "kernel_static_folds", ()))
+        aff_tgs = [
+            tg
+            for tg in topo.topology_groups.values()
+            if tg.type is TopologyType.POD_AFFINITY
+        ]
+        h_slots, d_slots = enc.shared_slot_ids(groups)
+        by_pid: Dict[str, list] = {}
+        sel_memo: Dict[tuple, bool] = {}
+        for (pid, ni, gi), m in sorted(per.items()):
+            g = groups[gi]
+            rep = g.pods[0]
+            en = self.oracle.existing_nodes[ni]
+            for tg in static_folds + aff_tgs:
+                memo_key = (gi, id(tg))
+                hit = sel_memo.get(memo_key)
+                if hit is None:
+                    hit = sel_memo[memo_key] = tg.selects(rep)
+                if hit:
+                    return None
+            t = g.topo
+            if t is None:
+                continue  # selected by nothing admitted: no counting
+            if t.haff or t.dmode == enc.DMODE_AFFINITY:
+                return None
+            ch = by_pid.setdefault(pid, [])
+            taints = en.cached_taints
+            node_reqs = en.requirements
+            if t.host_cap is not None:
+                if len(t.src_h) != 1 or t.host_nsrc != 1:
+                    return None
+                if t.src_h[0].node_filter.matches(taints, node_reqs):
+                    ch.append(("nh", ni, gi, m))
+            desc = t.shared_h if t.h_self else None
+            if desc is not None:
+                if desc.tg is None:
+                    return None
+                if desc.tg.node_filter.matches(taints, node_reqs):
+                    ch.append(("nh0", ni, h_slots[id(desc)], m))
+            for desc in t.contrib_h:
+                if desc.tg is None:
+                    return None
+                if desc.tg.node_filter.matches(taints, node_reqs):
+                    ch.append(("nh0", ni, h_slots[id(desc)], m))
+            dom_descs = []
+            if t.dmode == enc.DMODE_SPREAD and t.shared_d is None:
+                if t.src_d is None:
+                    return None
+                dom = enc._node_single_value(en, t.dkey)
+                if (
+                    dom is not None
+                    and dom in t.dreg
+                    and t.src_d.node_filter.matches(taints, node_reqs)
+                ):
+                    axis = 0 if t.dkey == labels_mod.TOPOLOGY_ZONE else 1
+                    ch.append(("gpr", gi, axis, ni, m))
+            if t.shared_d is not None and t.dmode == enc.DMODE_SPREAD:
+                dom_descs.append(t.shared_d)
+            for desc in t.contrib_d:
+                if desc.mode != enc.DMODE_SPREAD:
+                    return None  # affinity options evolve: sequential
+                dom_descs.append(desc)
+            for desc in dom_descs:
+                if desc.tg is None:
+                    return None
+                dom = enc._node_single_value(en, desc.key)
+                if (
+                    dom is not None
+                    and dom in desc.reg
+                    and desc.tg.node_filter.matches(taints, node_reqs)
+                ):
+                    axis = 0 if desc.key == labels_mod.TOPOLOGY_ZONE else 1
+                    ch.append(("dd0", d_slots[id(desc)], axis, ni, m))
+        return {
+            "by_pid": by_pid,
+            "cand_pids": cand_pids,
+            "batch": any(by_pid.values()),
+        }
+
+    def _scenario_topo_arrays(self, plan, snap, snap_run, scenarios, S):
+        """Per-scenario copies of the topology prior arrays with each
+        scenario's included-candidate contributions applied (see
+        _plan_scenario_topology). Domain value ids come from the shared
+        encoding's node rows — the correction's domain IS the candidate
+        node's own zone/capacity-type slot."""
+        g_dprior_s = np.repeat(snap_run.g_dprior[None], S, axis=0)
+        n_hcnt_s = np.repeat(snap_run.n_hcnt[None], S, axis=0)
+        nh0_s = np.repeat(snap_run.nh_cnt0[None], S, axis=0)
+        dd0_s = np.repeat(snap_run.dd0[None], S, axis=0)
+        by_pid = plan["by_pid"]
+        cand_pids = plan["cand_pids"]
+        for si, sc in enumerate(scenarios):
+            for pid in sorted(cand_pids - set(sc.excluded_provider_ids)):
+                for chan in by_pid.get(pid, ()):
+                    kind = chan[0]
+                    if kind == "nh":
+                        _, ni, gi, m = chan
+                        n_hcnt_s[si, ni, gi] += m
+                    elif kind == "nh0":
+                        _, ni, slot, m = chan
+                        nh0_s[si, ni, slot] += m
+                    elif kind == "gpr":
+                        _, gi, axis, ni, m = chan
+                        vid = (
+                            snap.n_dzone[ni] if axis == 0 else snap.n_dct[ni]
+                        )
+                        if vid >= 0:
+                            g_dprior_s[si, gi, vid] += m
+                    else:  # dd0
+                        _, slot, axis, ni, m = chan
+                        vid = (
+                            snap.n_dzone[ni] if axis == 0 else snap.n_dct[ni]
+                        )
+                        if vid >= 0:
+                            dd0_s[si, slot, vid] += m
+        return g_dprior_s, n_hcnt_s, nh0_s, dd0_s
+
+    def collect_scenarios(self, token) -> Optional[List[Results]]:
+        """Drain, guard, decode, and audit a batch submitted by
+        submit_scenarios. Returns per-scenario Results aligned with the
+        submitted scenarios, or None on a representability decline (same
+        contract as solve_scenarios). A kernel fault raises here, at the
+        drain; a guard rejection raises SolverIntegrityError."""
+        if token is None:
+            return None
+        if token.get("empty"):
+            return []
+        if token.get("noop"):
+            return [
+                Results(
+                    new_node_claims=[],
+                    existing_nodes=self.oracle.existing_nodes,
+                    pod_errors={},
+                )
+                for _ in token["scenarios"]
+            ]
+        self._audit_rung = "batched"
+        self._audit_guard = "ok"
+        self.last_encode_reused = token["delta"].reused
+        self.last_delta_rows = token["delta"].delta_rows
+        scenarios = token["scenarios"]
+        with obs.span("scenarios", scenarios=len(scenarios)) as sp:
+            results = self._collect_scenarios_impl(token)
+        self._emit_audit(
+            "scenarios", sp, token["dclk"], token["t0"],
+            token["fault_mark"],
+            pods=sum(len(s.pods) for s in scenarios),
+            claims=sum(len(r.new_node_claims) for r in results),
+            errors=sum(len(r.pod_errors) for r in results),
+            scenario_count=len(scenarios),
+            dispatches=self.last_scenario_dispatches,
+            cost=(
+                sum(r.total_price() for r in results)
+                if obs.active() is not None
+                else None
+            ),
+        )
+        return results
+
+    def _collect_scenarios_impl(self, token) -> List[Results]:
+        snap, snap_run = token["snap"], token["snap_run"]
+        g_count_s = token["g_count_s"]
+        scen_group_pods = token["scen_group_pods"]
+        S_real = token["S_real"]
+        nmax = token["nmax"]
+        out = token["out"]
+        dispatches = 0
+        # a kernel fault raises out of the drain, a guard rejection out of
+        # the guard: nothing is decoded or committed, nothing re-solves
+        while True:
+            with obs.span("solve.dispatch", nmax=nmax, scenarios=S_real):
+                (c_pool, packed, n_open, overflow,
+                 exist_fills, claim_fills, unplaced, c_dzone, c_dct,
+                 c_resv) = self._drain_host(out)
+            dispatches += 1
+            if not overflow.any():
+                break
+            # any scenario overflowed: the whole batch goes again
+            nmax *= 2
+            token["nmax"] = nmax
+            out = self._submit_scenario_dispatch(token)
+        self.last_scenario_dispatches = dispatches
+        # invariant guard per scenario, still pre-decode: one corrupt
+        # scenario poisons the whole batch (they share one dispatch)
+        with obs.span("solve.guard", scenarios=S_real):
+            for si in range(S_real):
+                self._verify_solution(
+                    snap, snap_run, c_pool[si], packed[si],
+                    int(n_open[si]),
+                    exist_fills[si], claim_fills[si], unplaced[si], nmax,
+                    g_count=g_count_s[si],
+                    c_dzone=c_dzone[si], c_dct=c_dct[si],
+                )
+        if self.config.max_claims is None and S_real:
+            lease_cache = token["lease_cache"]
+            with self._shared_cache.lock:
+                lease_cache["nmax_hint"] = max(
+                    lease_cache.get("nmax_hint", 0),
+                    int(n_open[:S_real].max()),
+                )
+
+        results: List[Results] = []
+        with obs.span("solve.decode", scenarios=S_real):
+            for si in range(S_real):
+                # fills commit onto per-scenario node clones so scenarios
+                # never observe each other's placements (only touched nodes
+                # clone; the rest share the untouched oracle models)
+                nodes = list(self.oracle.existing_nodes)
+                for ni in np.nonzero(exist_fills[si].any(axis=0))[0]:
+                    if ni < len(nodes):
+                        nodes[ni] = _clone_existing_node(nodes[ni])
+                claims, errors = self._decode(
+                    snap,
+                    c_pool[si].astype(np.int32),
+                    packed[si],
+                    int(n_open[si]),
+                    exist_fills[si].astype(np.int32),
+                    claim_fills[si].astype(np.int32),
+                    unplaced[si],
+                    c_dzone[si].astype(np.int32),
+                    c_dct[si].astype(np.int32),
+                    c_resv[si].astype(bool),
+                    group_pods=scen_group_pods[si],
+                    existing_nodes=nodes,
+                )
+                results.append(
+                    Results(
+                        new_node_claims=claims,
+                        existing_nodes=nodes,
+                        pod_errors=errors,
+                    ).truncate_instance_types()
+                )
+        return results
 
     def _emit_audit(self, kind, sp, dclk, t0, fault_mark, **fields) -> None:
         from .. import faults
@@ -680,7 +1232,7 @@ class TorchSolver:
         if violations:
             raise SolverIntegrityError(violations)
 
-    def _encode_batch(self, groups: List[enc.PodGroup]):
+    def _encode_batch(self, groups: List[enc.PodGroup], scenario: bool = False):
         """Encode ``groups`` against the shared cache. Returns
         (snap, (a_tzc, res_cap0, a_res), nmax_hint, cache, delta) —
         ``cache`` is the LEASED dict this encode ran against; post-solve
@@ -688,7 +1240,9 @@ class TorchSolver:
         self._shared_cache.cache, which a concurrent lease under a changed
         catalog may have replaced — a stale hint written into a fresh
         catalog's dict would mis-size that catalog's first NMAX).
-        ``delta`` is the ClusterEncoding's EncodeDelta for this encode."""
+        ``delta`` is the ClusterEncoding's EncodeDelta for this encode.
+        ``scenario`` selects the scenario-side ClusterEncoding so
+        consolidation searches warm independently of provisioning."""
         templates = self.oracle.templates
         its_by_pool = {
             nct.node_pool_name: nct.instance_type_options for nct in templates
@@ -698,7 +1252,11 @@ class TorchSolver:
                 templates, its_by_pool, self.oracle.daemon_overhead,
                 self.pool_limits,
             )
-            cluster = self._shared_cache.cluster
+            cluster = (
+                self._shared_cache.scenario_cluster
+                if scenario
+                else self._shared_cache.cluster
+            )
             snap = enc.encode(
                 groups,
                 templates,

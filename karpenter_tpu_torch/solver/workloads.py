@@ -1,4 +1,4 @@
-# Copied from karpenter_tpu/solver/workloads.py, pod and pool builders only.
+# Copied from karpenter_tpu/solver/workloads.py, without diverse_reference_mix; the consolidation envs take a device.
 """Benchmark workload generators (BASELINE.json configs).
 
 Deterministic (seeded) pod/cluster builders mirroring the reference's
@@ -11,7 +11,7 @@ sidecar can regenerate identical workloads.
 from __future__ import annotations
 
 import random
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 from ..api import labels as labels_mod
 from ..api import resources as res
@@ -166,3 +166,133 @@ def spot_od_pools():
         pool("spot", labels_mod.CAPACITY_TYPE_SPOT, 80, "3000"),
         pool("on-demand", labels_mod.CAPACITY_TYPE_ON_DEMAND, 20, "100000"),
     ]
+
+
+def build_single_consolidation_env(n_nodes: int, device: str = "cuda") -> Tuple:
+    """A single-node-consolidation variant of the consolidation env: same
+    underutilized cluster, method = SingleNodeConsolidation (the
+    per-candidate sweep the scenario batch evaluates in chunks). Returns
+    (ctx, SingleNodeConsolidation, candidates, budgets)."""
+    from ..controllers.disruption.methods import SingleNodeConsolidation
+
+    ctx, _multi, candidates, budgets = build_consolidation_env(n_nodes, device)
+    method = SingleNodeConsolidation(ctx)
+    return ctx, method, candidates, budgets
+
+
+def build_consolidation_env(n_nodes: int, device: str = "cuda") -> Tuple:
+    """BASELINE config[3]: an underutilized cluster of ``n_nodes`` ready for
+    multi-node consolidation.
+
+    State is fabricated directly (Initialized NodeClaims + Nodes + one
+    half-utilizing bound pod each) — the watch-fed Cluster ingests it
+    exactly as live informer events would — so the benchmark times the
+    consolidation search itself, not cluster bring-up. Every simulation
+    solve runs on ``device`` ("cuda": the kernels; "cpu": their plain
+    versions). Returns (ctx, MultiNodeConsolidation, candidates, budgets)."""
+    from ..api.objects import (
+        COND_CONSOLIDATABLE, COND_INITIALIZED, COND_LAUNCHED, COND_REGISTERED,
+        Node, NodeClaim, NodeClaimSpec, NodePool, NodePoolSpec,
+        NodeClaimTemplate as NodeClaimTemplateSpec,
+    )
+    from ..cloudprovider import corpus
+    from ..cloudprovider.kwok import KwokCloudProvider
+    from ..controllers.disruption.controller import DisruptionContext
+    from ..controllers.disruption.helpers import (
+        build_budget_mapping, get_candidates,
+    )
+    from ..controllers.disruption.methods import MultiNodeConsolidation
+    from ..controllers.state import Cluster
+    from ..events.recorder import Recorder
+    from ..kube import Client, TestClock
+    from .driver import SolverConfig
+
+    clock = TestClock()
+    clock.step(3600.0)
+    client = Client(clock)
+    its = corpus.generate(50)
+    provider = KwokCloudProvider(client, its)
+    cluster = Cluster(client)
+
+    pool = NodePool(
+        metadata=ObjectMeta(name="default"),
+        spec=NodePoolSpec(template=NodeClaimTemplateSpec(spec=NodeClaimSpec())),
+    )
+    pool.spec.disruption.consolidate_after = 10.0
+    client.create(pool)
+
+    # a deliberately oversized node type: the filler pod uses <40% of it,
+    # so consolidation can re-pack fillers onto fewer, cheaper nodes
+    def fits(it):
+        return (
+            it.capacity.get(res.CPU, 0) >= 4000
+            and it.capacity.get(res.MEMORY, 0) >= 8 * 1024 * _MI
+        )
+
+    candidates_it = sorted(
+        (it for it in its if fits(it)),
+        key=lambda it: min(
+            (o.price for o in it.offerings if o.available), default=1e9
+        ),
+    )
+    it = candidates_it[len(candidates_it) // 2]  # mid-priced: room to go cheaper
+    offering = min(
+        (o for o in it.offerings if o.available), key=lambda o: o.price
+    )
+
+    for i in range(n_nodes):
+        name = f"bench-{i}"
+        pid = f"bench://{i}"
+        node_labels = {
+            labels_mod.HOSTNAME: name,
+            labels_mod.INSTANCE_TYPE: it.name,
+            labels_mod.TOPOLOGY_ZONE: offering.zone(),
+            labels_mod.CAPACITY_TYPE_LABEL_KEY: offering.capacity_type(),
+            labels_mod.NODEPOOL_LABEL_KEY: pool.name,
+        }
+        claim = NodeClaim(
+            metadata=ObjectMeta(name=name, labels=dict(node_labels)),
+            spec=NodeClaimSpec(),
+        )
+        claim.status.provider_id = pid
+        claim.status.capacity = dict(it.capacity)
+        claim.status.allocatable = dict(it.allocatable())
+        now = clock.now()
+        for cond in (COND_LAUNCHED, COND_REGISTERED, COND_INITIALIZED,
+                     COND_CONSOLIDATABLE):
+            claim.conds().set(cond, "True", now=now)
+        node = Node(
+            metadata=ObjectMeta(name=name, labels=node_labels),
+            provider_id=pid,
+        )
+        node.status.capacity = dict(it.capacity)
+        node.status.allocatable = dict(it.allocatable())
+        node.status.ready = True
+        filler = _pod(f"fill-{i}", 750, 1024)
+        filler.spec.node_name = name
+        filler.status.phase = "Running"
+        client.create(claim)
+        client.create(node)
+        client.create(filler)
+
+    ctx = DisruptionContext(
+        client=client,
+        cluster=cluster,
+        cloud_provider=provider,
+        clock=clock,
+        recorder=Recorder(clock),
+        spot_to_spot_enabled=True,
+        solver_config=SolverConfig(device=device),
+    )
+    method = MultiNodeConsolidation(ctx)
+    candidates = [
+        c
+        for c in get_candidates(
+            ctx.client, ctx.cluster, ctx.cloud_provider, clock
+        )
+        if method.should_disrupt(c)
+    ]
+    budgets = build_budget_mapping(
+        ctx.client, ctx.cluster, method.reason, clock.now()
+    )
+    return ctx, method, candidates, budgets

@@ -6,7 +6,10 @@ CUDA tensors — kernels B1, B2, B4, B6 — and on CPU tensors — their plain
 versions — and requires exact equality of every output. The cases reach
 the pack kernel's paths the chip smoke's mixed batch does not: hostname
 caps and affinity, shared hostname slots, existing nodes, the NodePool
-limit ledger over weighted templates, and overflow.
+limit ledger over weighted templates, and overflow. The scenario cases run
+the consolidation dispatch (ops/solve.py:solve_scenarios_core_packed):
+B2 over n_tol [S, N, G], B4 one block per scenario, B6 over S rows, with
+padded scenarios and per-scenario topology priors.
 
 Marked ``cuda``: they skip where there is no card. On the card, from the
 repo root: ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
@@ -31,7 +34,11 @@ from karpenter_tpu_torch.api.objects import (
 )
 from karpenter_tpu_torch.cloudprovider import corpus
 from karpenter_tpu_torch.kube import Client, TestClock
-from karpenter_tpu_torch.ops.solve import solve_core, wire_pack
+from karpenter_tpu_torch.ops.solve import (
+    solve_core,
+    solve_scenarios_core_packed,
+    wire_pack,
+)
 from karpenter_tpu_torch.scheduling.topology import Topology
 from karpenter_tpu_torch.solver import encode as enc
 from karpenter_tpu_torch.solver.args import to_device_args
@@ -215,3 +222,152 @@ def test_solver_decisions_match_cpu(cuda):
         )
 
     assert solve("cuda") == solve("cpu")
+
+
+def _scenario_args(args, S, real, seed, batch_topo=False):
+    """``args`` with a scenario axis: per real scenario a seeded subset of
+    each group and a seeded set of removed nodes (n_tol rows zeroed);
+    scenarios past ``real`` stay padded (g_count 0, no node). Under
+    ``batch_topo`` the prior arrays gain the axis too, with seeded extra
+    hostname priors."""
+    rng = np.random.default_rng(seed)
+    a = dict(zip(enc.SOLVE_ARG_NAMES, (np.asarray(x) for x in args)))
+    N, G = a["n_tol"].shape
+    g_count = np.zeros((S, G), np.int32)
+    n_tol = np.zeros((S, N, G), bool)
+    for si in range(real):
+        g_count[si] = rng.integers(0, a["g_count"] + 1)
+        n_tol[si] = a["n_tol"] & (rng.random(N) < 0.7)[:, None]
+    a["g_count"], a["n_tol"] = g_count, n_tol
+    if batch_topo:
+        for name in ("g_dprior", "n_hcnt", "nh_cnt0", "dd0"):
+            a[name] = np.repeat(a[name][None], S, axis=0)
+        a["n_hcnt"] = a["n_hcnt"] + rng.integers(0, 2, a["n_hcnt"].shape, dtype=np.int32)
+        a["nh_cnt0"] = a["nh_cnt0"] + rng.integers(0, 2, a["nh_cnt0"].shape, dtype=np.int32)
+    return [a[n] for n in enc.SOLVE_ARG_NAMES]
+
+
+def _scenarios_equal_plain(args, statics, cuda, batch_topo=False):
+    from karpenter_tpu_torch import _build
+
+    for fills in (torch.int16, torch.int32):
+        kw = dict(statics, fills_dtype=fills, batch_topo=batch_topo)
+        plain = solve_scenarios_core_packed(*to_device_args(args, "cpu"), **kw)
+        _build.reset_launches()
+        kern = solve_scenarios_core_packed(*to_device_args(args, cuda), **kw)
+        torch.cuda.synchronize()
+        # one launch each: B1 shared, B2/B4/B6 over every scenario
+        assert _build.scenario_launches["pack"] == 1
+        assert _build.scenario_launches["wire_pack"] == 1
+        assert _build.launches["fresh_feasibility"] == 1
+        assert _build.scenario_launches["fresh_feasibility"] == 0
+        for i, (k, p) in enumerate(zip(kern, plain)):
+            assert k.dtype == p.dtype and k.shape == p.shape, i
+            np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=f"output {i}")
+    return plain
+
+
+@pytest.mark.parametrize("S,real", [(8, 5), (16, 16), (16, 1)])
+def test_scenario_batch(cuda, S, real):
+    args, statics = _snapshot(mixed_pods(1500), n_types=30, n_nodes=33)
+    out = _scenarios_equal_plain(_scenario_args(args, S, real, seed=S + real), statics, cuda)
+    assert int(out[4].sum()) > 0 and int(out[2].max()) > 0  # nodes and claims
+    assert (out[2][real:] == 0).all() and not out[4][real:].any()  # padded
+
+
+def test_scenario_batch_topology_priors(cuda):
+    """batch_topo: n_hcnt / nh_cnt0 carry the scenario axis (a nonzero
+    stride in the kernel), over hostname caps and shared slots."""
+    pods = (
+        _pods(4, 1000, "x", anti=True) + _pods(5, 1000, "y", spread=True)
+        + _pods(12, 500, "z", spread=True) + _pods(30, 250)
+    )
+    args, statics = _snapshot(pods, n_types=12, n_nodes=6)
+    _scenarios_equal_plain(
+        _scenario_args(args, 8, 6, seed=3, batch_topo=True), statics, cuda,
+        batch_topo=True,
+    )
+
+
+def test_scenario_batch_no_nodes_and_overflow(cuda):
+    """No existing nodes (B2 launches nothing) and an NMAX too small for
+    some scenarios: the overflow flags are per scenario."""
+    args, statics = example_snapshot_arrays(200, 40, 8)
+    out = _scenarios_equal_plain(
+        _scenario_args(args, 8, 7, seed=1), dict(statics, nmax=4, sparse_groups=True), cuda)
+    assert out[3].any()
+
+
+def _single_sweep_env(device):
+    """A single-node sweep that walks past its first chunk: 40 nodes of
+    31.58 CPU each holding three 10-CPU pods, so no candidate consolidates
+    and the sweep prefetches every chunk after the first."""
+    from test_torch_scenarios import _candidates, _env
+
+    from karpenter_tpu_torch.controllers.disruption.methods import (
+        SingleNodeConsolidation,
+    )
+
+    ctx = _env("karpenter_tpu_torch", 40, seed=5, pods_per_node=(3,),
+               pod_cpus=(10000,), pod_mems=(2048,), device=device)
+    candidates = _candidates("karpenter_tpu_torch", ctx)
+    return SingleNodeConsolidation(ctx), candidates, {"default": len(candidates)}
+
+
+def test_prefetch_error_reraises_inline(cuda):
+    """A submit error in the sweep's prefetch is swallowed there, and the
+    same error raises at the chunk's inline solve: never a silent fallback
+    to per-candidate solves."""
+    from karpenter_tpu_torch import faults
+
+    method, candidates, budgets = _single_sweep_env("cuda")
+    assert len(candidates) > 16
+    inj = faults.install(faults.FaultInjector(
+        [faults.FaultRule(site=faults.SOLVER_SCENARIOS, after=1)]))
+    try:
+        with pytest.raises(faults.InjectedFault):
+            method.compute_command(candidates, budgets)
+    finally:
+        faults.uninstall()
+    assert inj.fired(faults.SOLVER_SCENARIOS) == 2  # the prefetch, then inline
+
+
+_DRAIN_FAULT = """
+import ctypes, torch
+from karpenter_tpu_torch import _build
+from karpenter_tpu_torch.controllers.disruption.helpers import ScenarioSimulator
+from karpenter_tpu_torch.solver.workloads import build_consolidation_env
+
+ctx, method, candidates, budgets = build_consolidation_env(64, "cuda")
+sim = ScenarioSimulator(ctx.client, ctx.cluster, ctx.cloud_provider, candidates,
+                        encode_cache=ctx.encode_cache, solver_config=ctx.solver_config)
+_build.library("pack"); _build.library("wire_pack"); _build.library("existing_feasibility")
+ptr = _build.ptr
+def bad(t):  # the scenario g_count [S, G]: an unmapped address for B4
+    if t.dtype == torch.int32 and t.dim() == 2 and t.shape[0] == 8 and t.shape[1] == 1:
+        return ctypes.c_void_p(16)
+    return ptr(t)
+_build.ptr = bad
+try:
+    sim.solve([candidates[:k] for k in (1, 2, 3)])
+except Exception as exc:
+    print("RAISED", type(exc).__name__, exc)
+else:
+    print("NOT RAISED")
+"""
+
+
+def test_kernel_fault_raises_by_the_drain(cuda):
+    """A device fault inside a scenario dispatch (B4 reading an unmapped
+    address) raises out of the solve, at the latest at collect_scenarios'
+    drain. In a child process: the fault ends its CUDA context."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-c", _DRAIN_FAULT], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert "RAISED" in proc.stdout and "NOT RAISED" not in proc.stdout, (
+        proc.stdout[-2000:] + proc.stderr[-2000:])
+    assert "illegal" in proc.stdout.lower() or "CUDA error" in proc.stdout

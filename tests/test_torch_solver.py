@@ -182,9 +182,14 @@ class TestConfig:
             SolverConfig(device="cpu", **kw)
 
     def test_scenarios_raise(self):
-        solver, _ = _build("karpenter_tpu_torch", "mixed_pods", 10, 4)
-        with pytest.raises(NotImplementedError, match="A6"):
-            solver.solve_scenarios([])
+        """The scenario axis is ported (tests/test_torch_scenarios.py); a
+        batch outside the kernel scope (zonal spread) still raises."""
+        from karpenter_tpu_torch.solver.driver import Scenario
+
+        solver, pods = _build("karpenter_tpu_torch", "constrained_mix", 60, 8)
+        assert solver.solve_scenarios([]) == []
+        with pytest.raises(NotImplementedError, match="A4"):
+            solver.solve_scenarios([Scenario(pods=pods)])
 
     def test_to_device_args_keeps_dtypes(self):
         from karpenter_tpu_torch.solver.args import to_device_args
