@@ -12,7 +12,9 @@ in ``launches``, and also to ``scenario_launches`` when the launch covers
 more than one consolidation scenario; nothing else touches them, so a
 caller that zeroes them (``reset_launches``) and reads them after a run
 sees which kernels the run went through, and whether a probe set ran as
-one scenario batch or as a loop of single solves.
+one scenario batch or as a loop of single solves. A kernel's variant
+(``VARIANTS``: the pack scan over a domain batch) counts in its own entry
+as well as in the kernel's.
 """
 
 from __future__ import annotations
@@ -29,7 +31,11 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("fresh_feasibility", "existing_feasibility", "pack", "wire_pack")
+SOURCES = ("fresh_feasibility", "existing_feasibility", "pack", "wire_pack",
+           "apply_rows")
+# launches of a kernel's variant, counted besides the kernel's own: pack
+# over a domain batch (has_domains) runs its domain machinery
+VARIANTS = ("pack_domains",)
 _HEADER = os.path.join(CSRC, "common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -39,8 +45,8 @@ NVCC_FLAGS = (
     "-fmad=false",
 )
 
-launches: Dict[str, int] = {name: 0 for name in SOURCES}
-scenario_launches: Dict[str, int] = {name: 0 for name in SOURCES}
+launches: Dict[str, int] = {name: 0 for name in SOURCES + VARIANTS}
+scenario_launches: Dict[str, int] = {name: 0 for name in SOURCES + VARIANTS}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -157,13 +163,14 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
 NOTHING_LAUNCHED = -1  # csrc/common.cuh:kNothingLaunched (empty shapes)
 
 
-def launched(name: str, rc: int, scenarios: int = 1) -> None:
-    """Count one launch of kernel ``name`` over ``scenarios`` scenarios;
-    raise on a CUDA error code."""
+def launched(name: str, rc: int, scenarios: int = 1, variant=None) -> None:
+    """Count one launch of kernel ``name`` (and of its ``variant``, if
+    any) over ``scenarios`` scenarios; raise on a CUDA error code."""
     if rc == NOTHING_LAUNCHED:
         return
     if rc != 0:
         raise KernelLaunchError(f"{name}: CUDA error {rc} at launch")
-    launches[name] += 1
-    if scenarios > 1:
-        scenario_launches[name] += 1
+    for key in (name,) if variant is None else (name, variant):
+        launches[key] += 1
+        if scenarios > 1:
+            scenario_launches[key] += 1

@@ -7,14 +7,20 @@ existing nodes, B4, B6), their plain versions on the CPU. Outputs stay on
 the device until TorchSolver's single drain.
 
 The scenario axis (B7, consolidation's probe sets) is the same dispatch
-with ``g_count`` [S, G] and ``n_tol`` [S, N, G] batched (plus ``n_hcnt``
-and ``nh_cnt0`` under ``batch_topo``): B1 still launches once, since its
+with ``g_count`` [S, G] and ``n_tol`` [S, N, G] batched (plus the prior
+arrays ``n_hcnt``, ``nh_cnt0``, ``g_dprior`` and ``dd0`` under
+``batch_topo``): B1 still launches once, since its
 inputs are shared; B2 writes [S, N, G]; B4 runs one block per scenario;
 B6 folds the scenarios into its rows. Still four launches per dispatch.
 
+The row-delta apply (B8, ``delta_apply_rows``) keeps the solve's
+arguments resident on the card between solves (solver/residency.py):
+churn moves only the changed rows, scattered into a copy of the resident
+buffer by csrc/apply_rows.cu.
+
 Not in this slice (each raises NotImplementedError): the dense
-feasibility twins (B3) and the tiled mode, the class-batched scan (B5)
-and the row-delta apply (B8).
+feasibility twins (B3) and the tiled mode, and the class-batched scan
+(B5).
 """
 
 from __future__ import annotations
@@ -79,8 +85,7 @@ def solve_core(
     ``solve_scenarios_core_packed``) every output has a leading [S]."""
     a = dict(zip(SOLVE_ARG_NAMES, args))
     check_scope(
-        has_domains, has_contrib, tile_feasibility,
-        a["res_cap0"].shape[0], a["p_mvmin"].shape[1],
+        has_contrib, tile_feasibility, a["res_cap0"].shape[0], a["p_mvmin"].shape[1],
     )
     if not sparse_groups:
         raise NotImplementedError(
@@ -89,22 +94,32 @@ def solve_core(
         )
     compat_pg, type_ok, n_fit, cap_ng = _feasibility_tables(a, zone_kid, ct_kid)
     return pack(
-        a["g_count"], a["g_req"], a["g_def"], a["g_neg"], a["g_mask"],
-        a["g_hcap"], a["g_haff"],
-        a["g_hstg"], a["g_hscap"], a["g_hself"],
-        compat_pg, type_ok, n_fit,
-        cap_ng,
-        a["t_alloc"], a["t_cap"],
-        a["a_tzc"],
-        a["p_daemon"], a["p_limit"], a["p_has_limit"], a["p_tol"],
-        a["n_avail"], a["n_base"],
-        a["n_hcnt"],
-        a["nh_cnt0"],
-        a["well_known"],
+        *pack_args(a, compat_pg, type_ok, n_fit, cap_ng),
         nmax=nmax,
         zone_kid=zone_kid,
         ct_kid=ct_kid,
+        has_domains=has_domains,
         wf_iters=wf_iters,
+    )
+
+
+# the solve args the packing scan reads, in its positional order around the
+# four feasibility tables (ops/packing.py:pack_reference)
+PACK_HEAD = ("g_count", "g_req", "g_def", "g_neg", "g_mask", "g_hcap",
+             "g_haff", "g_hstg", "g_hscap", "g_hself")
+PACK_TAIL = ("t_alloc", "t_cap", "a_tzc", "p_daemon", "p_limit",
+             "p_has_limit", "p_tol", "n_avail", "n_base", "n_hcnt", "nh_cnt0",
+             "well_known", "g_dmode", "g_dkey", "g_dskew", "g_dmin0",
+             "g_dprior", "g_dreg", "g_drank", "g_dtg", "p_mask", "n_dzone",
+             "n_dct", "dd0")
+
+
+def pack_args(a, compat_pg, type_ok, n_fit, cap_ng):
+    """The packing scan's positional inputs from the named solve args
+    ``a`` and the feasibility tables."""
+    return (
+        [a[n] for n in PACK_HEAD] + [compat_pg, type_ok, n_fit, cap_ng]
+        + [a[n] for n in PACK_TAIL]
     )
 
 
@@ -216,8 +231,8 @@ def solve_core_packed(*args, fills_dtype=torch.int32, **statics):
 # workload (g_count). Everything else is encoded once and shared.
 
 SCENARIO_BATCHED_ARGS = ("g_count", "n_tol")
-# topology-carrying searches additionally batch the prior arrays; g_dprior
-# and dd0 are read only under has_domains, which check_scope refuses here
+# topology-carrying searches additionally batch the prior arrays (g_dprior
+# and dd0 are read by the scan's domain machinery, under has_domains)
 SCENARIO_TOPO_BATCHED_ARGS = SCENARIO_BATCHED_ARGS + (
     "g_dprior", "n_hcnt", "nh_cnt0", "dd0",
 )
@@ -247,6 +262,80 @@ def solve_scenarios_core_packed(
                 + (f" with {S} scenarios" if name in batched else "")
             )
     return wire_pack(solve_core(*args, **statics), fills_dtype)
+
+
+# -- device-resident delta apply (B8) ----------------------------------------
+#
+# The residency store (solver/residency.py) keeps the encoded cluster on the
+# device between solves; churn arrives as row deltas. The apply returns a
+# fresh buffer and leaves the old one valid: a launched dispatch (a
+# consolidation prefetch, an overflow resubmit) may still read it.
+
+_APPLY_DTYPES = {torch.bool: 1, torch.int32: 4, torch.float32: 4}
+
+
+def _rows_on(arr, idx, rows):
+    """``idx`` (int32) and ``rows`` (arr's dtype) as tensors on arr's
+    device; numpy inputs are copied there."""
+    import numpy as np
+
+    if not isinstance(idx, torch.Tensor):
+        idx = torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int32))
+    if not isinstance(rows, torch.Tensor):
+        rows = torch.from_numpy(np.ascontiguousarray(rows))
+    idx = idx.to(arr.device, torch.int32).contiguous()
+    rows = rows.to(arr.device).contiguous()
+    if rows.dtype != arr.dtype or tuple(rows.shape) != (idx.shape[0],) + tuple(arr.shape[1:]):
+        raise ValueError(
+            f"rows {rows.dtype}{tuple(rows.shape)} do not fit {idx.shape[0]} rows of "
+            f"{arr.dtype}{tuple(arr.shape)}"
+        )
+    return idx, rows
+
+
+def delta_apply_rows_reference(arr, idx, rows):
+    """Plain version of ops/solve.py:_apply_rows_core: ``arr`` with
+    ``arr[idx] = rows`` as a new tensor (``index_copy`` on a clone). A
+    negative index counts from the end; one outside the rows is dropped."""
+    n = arr.shape[0]
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    keep = (idx >= 0) & (idx < n)
+    return arr.clone().index_copy_(0, idx[keep], rows[keep])
+
+
+def delta_apply_rows(arr, idx, rows):
+    """Row update of a device-resident buffer: ``arr[idx] = rows``, as a new
+    tensor; ``arr`` itself is left as it was. ``arr`` is bool,
+    int32 or float32 with any trailing shape; ``idx`` [n] int32 and
+    ``rows`` [n, ...] may be numpy arrays. The plain version for a CPU
+    ``arr``, kernel B8 (csrc/apply_rows.cu) for a CUDA one."""
+    if not len(idx):
+        return arr
+    idx, rows = _rows_on(arr, idx, rows)
+    if arr.device.type == "cpu":
+        return delta_apply_rows_reference(arr, idx, rows)
+    return _launch_apply_rows(arr, idx, rows)
+
+
+def _launch_apply_rows(arr, idx, rows):
+    import ctypes
+
+    if arr.dtype not in _APPLY_DTYPES:
+        raise ValueError(f"delta_apply_rows: dtype {arr.dtype} (bool, int32, float32 only)")
+    if not arr.is_contiguous():
+        raise ValueError("delta_apply_rows: the resident buffer is not contiguous")
+    out = arr.clone()
+    row_elems = math.prod(arr.shape[1:])
+    fn = _build.library("apply_rows").kt_apply_rows
+    with torch.cuda.device(arr.device):
+        rc = fn(
+            ctypes.c_longlong(arr.shape[0]), ctypes.c_longlong(idx.shape[0]),
+            ctypes.c_longlong(row_elems), ctypes.c_int(_APPLY_DTYPES[arr.dtype]),
+            _build.ptr(idx), _build.ptr(rows), _build.ptr(out), _build.stream(),
+        )
+    _build.launched("apply_rows", rc)
+    return out
 
 
 # -- fault seam -------------------------------------------------------------

@@ -20,16 +20,20 @@ from .encode import SOLVE_ARG_NAMES
 _DTYPES = (np.dtype(bool), np.dtype(np.int32), np.dtype(np.float32))
 
 
+def put(name: str, host, device) -> torch.Tensor:
+    """An owned copy of the solve arg ``host`` on ``device`` (never a view
+    of the host array, whose encoder may reuse it; on CUDA the copy from
+    pageable memory completes before this returns)."""
+    host = np.asarray(host)
+    if host.dtype not in _DTYPES:
+        raise TypeError(f"solve arg {name}: unsupported dtype {host.dtype}")
+    return torch.from_numpy(np.ascontiguousarray(host)).to(device, copy=True)
+
+
 def to_device_args(solve_args: Sequence[np.ndarray], device) -> List[torch.Tensor]:
     """Each array of ``solve_args`` as a contiguous tensor on ``device``."""
     if len(solve_args) != len(SOLVE_ARG_NAMES):
         raise ValueError(
             f"solve_args has {len(solve_args)} entries, expected {len(SOLVE_ARG_NAMES)}"
         )
-    out = []
-    for name, arr in zip(SOLVE_ARG_NAMES, solve_args):
-        arr = np.asarray(arr)
-        if arr.dtype not in _DTYPES:
-            raise TypeError(f"solve arg {name}: unsupported dtype {arr.dtype}")
-        out.append(torch.from_numpy(np.ascontiguousarray(arr)).to(device))
-    return out
+    return [put(name, arr, device) for name, arr in zip(SOLVE_ARG_NAMES, solve_args)]

@@ -3,9 +3,11 @@
 Routes pods between the device fast path and the host oracle:
 
 - *Tensorizable* pods (solver/encode.py:is_tensorizable) are grouped,
-  encoded to dense arrays, moved onto the device (solver/args.py) and
-  solved by one dispatch of the fused kernels (ops/solve.py): the sparse
-  feasibility tables, the grouped-FFD packing scan and the wire pack.
+  encoded to dense arrays, staged on the device (solver/residency.py: the
+  buffers stay resident between solves and churn moves only changed rows,
+  kernel B8) and solved by one dispatch of the fused kernels
+  (ops/solve.py): the sparse feasibility tables, the grouped-FFD packing
+  scan and the wire pack.
 - Everything else falls through to the exact host oracle
   (scheduling/scheduler.py) in the same solve, sharing existing-node
   capacity with the device placements.
@@ -19,11 +21,14 @@ The solve runs on ``SolverConfig.device``: "cuda" (the default) launches
 the hand-written kernels, "cpu" runs their plain PyTorch versions. Asking
 for CUDA on a host without it raises; nothing falls back.
 
+A guard rejection of a solve that ran on a warm (reused or row-delta)
+encoding sheds the warm state and re-solves once from a full re-encode,
+on the same device (``_delta_fallback``); a second rejection propagates.
+
 Not in this slice, each raising NotImplementedError: the class-batched
 scan, the relaxation pre-solver and the multi-GPU mesh (ROADMAP.md items
 A8, A9, A13), and the kernel statics outside the ported pack scope
-(domain quotas, contributor counting, reservations, minValues: item A4;
-tiled tables).
+(contributor counting, reservations, minValues, tiled tables: item A4b).
 """
 
 from __future__ import annotations
@@ -53,7 +58,8 @@ from ..scheduling.template import NodeClaimTemplate
 from ..scheduling.topology import Topology
 from ..utils.pretty import ChangeMonitor
 from . import encode as enc
-from .args import to_device_args
+from .args import put
+from .residency import DeviceResidentArgs
 
 _LOG = logging.getLogger("karpenter_tpu_torch.solver")
 # once per pod (24h TTL), not once per batch walk: long-pending pods are
@@ -97,6 +103,10 @@ class EncodeCache:
         # scenario path keeps its own encoding and does not thrash the
         # provisioning one's prior-snapshot fast path
         self.scenario_cluster = enc.ClusterEncoding(owner=owner)
+        # device-resident solve arguments (solver/residency.py), one store
+        # per encoding, created on first use
+        self.device_store = None
+        self.scenario_device_store = None
         # pure per-node scheduler model inputs (taints, daemon remainder,
         # label requirements) keyed by object resource versions — catalog-
         # independent, so it survives fingerprint resets. Consolidation
@@ -231,11 +241,27 @@ class EncodeCache:
             ).hexdigest()
             self.vocab = enc.Vocab()
             self.cache = {}
-            # the warm encodings are catalog-derived: a changed catalog
-            # invalidates them (next encode is full)
+            # the warm encodings and device buffers are catalog-derived: a
+            # changed catalog invalidates both (next encode is full)
             self.cluster.invalidate("catalog changed")
             self.scenario_cluster.invalidate("catalog changed")
+            for store in (self.device_store, self.scenario_device_store):
+                if store is not None:
+                    store.reset()
         return self.vocab, self.cache
+
+    def lease_device_store(self, scenario: bool = False):
+        """The device-resident argument store; ``scenario`` selects the
+        scenario-side store (paired with ``scenario_cluster``) so
+        consolidation searches don't evict the provisioning path's buffers
+        and vice versa."""
+        if scenario:
+            if self.scenario_device_store is None:
+                self.scenario_device_store = DeviceResidentArgs(owner=self.owner)
+            return self.scenario_device_store
+        if self.device_store is None:
+            self.device_store = DeviceResidentArgs(owner=self.owner)
+        return self.device_store
 
 
 def _not_in_slice(what: str, item: str):
@@ -360,6 +386,9 @@ class TorchSolver:
         self._audit_guard = "ok"
         self.last_encode_reused = False
         self.last_delta_rows = 0
+        # whether the last staged solve ran on reused / row-delta buffers
+        # (the corrupt-delta fallback's trigger)
+        self._last_incremental = False
         # sequential-fallback telemetry: work that fell off the dense path
         # for representability reasons (oracle-routed pods, gated routes)
         self.fallback_solves = 0
@@ -384,6 +413,7 @@ class TorchSolver:
         self._audit_guard = "ok"
         self.last_encode_reused = False
         self.last_delta_rows = 0
+        self._last_incremental = False
         fault_mark = self._fault_log_mark()
         # one duration clock captured per solve: the tracer's injected
         # clock under tracing (replay-deterministic), the monotonic
@@ -528,9 +558,8 @@ class TorchSolver:
         statics = self._kernel_statics(snap, G)
         # outside the ported pack scope: raise before anything launches
         check_scope(
-            statics["has_domains"], statics["has_contrib"],
-            statics["tile_feasibility"], res_cap0.shape[0],
-            snap.p_mvmin.shape[1],
+            statics["has_contrib"], statics["tile_feasibility"],
+            res_cap0.shape[0], snap.p_mvmin.shape[1],
         )
         snap_run = snap.padded(G, N)
         args = list(snap_run.solve_args(a_tzc, res_cap0, a_res))
@@ -583,10 +612,26 @@ class TorchSolver:
         fills_dtype = (
             torch.int16 if self._fill_bound(snap, fit) < 2**15 else torch.int32
         )
-        # staging: the shared encoding and the per-scenario stacks move to
-        # the device per batch
-        with obs.span("solve.transfer"):
-            args = to_device_args(args, self.device)
+        # device residency over the SHARED encoding; the per-scenario stacks
+        # (g_count, n_tol, plus the topology prior arrays when the plan
+        # carries corrections) are rebuilt per call and copied per batch
+        skip = {"g_count", "n_tol"}
+        if batch_topo:
+            skip |= {"g_dprior", "n_hcnt", "nh_cnt0", "dd0"}
+        store = self._shared_cache.lease_device_store(scenario=True)
+        with obs.span(
+            "solve.transfer",
+            reused=bool(delta.reused),
+            delta_rows=int(delta.delta_rows),
+        ):
+            args = store.stage(
+                enc.SOLVE_ARG_NAMES, args, delta, self.device,
+                skip=frozenset(skip),
+            )
+            for i, name in enumerate(enc.SOLVE_ARG_NAMES):
+                if name in skip:
+                    args[i] = put(name, args[i], self.device)
+            self._sync_if_traced()
 
         token = {
             "batch_topo": batch_topo,
@@ -602,6 +647,8 @@ class TorchSolver:
             "S_real": S_real,
             "lease_cache": lease_cache,
             "delta": delta,
+            "incremental": store.last_incremental or delta.reused,
+            "retry_ok": True,
             "dclk": dclk,
             "t0": t0,
             "fault_mark": fault_mark,
@@ -844,6 +891,7 @@ class TorchSolver:
         self._audit_guard = "ok"
         self.last_encode_reused = token["delta"].reused
         self.last_delta_rows = token["delta"].delta_rows
+        self._last_incremental = token["incremental"]
         scenarios = token["scenarios"]
         with obs.span("scenarios", scenarios=len(scenarios)) as sp:
             results = self._collect_scenarios_impl(token)
@@ -888,15 +936,33 @@ class TorchSolver:
         self.last_scenario_dispatches = dispatches
         # invariant guard per scenario, still pre-decode: one corrupt
         # scenario poisons the whole batch (they share one dispatch)
-        with obs.span("solve.guard", scenarios=S_real):
-            for si in range(S_real):
-                self._verify_solution(
-                    snap, snap_run, c_pool[si], packed[si],
-                    int(n_open[si]),
-                    exist_fills[si], claim_fills[si], unplaced[si], nmax,
-                    g_count=g_count_s[si],
-                    c_dzone=c_dzone[si], c_dct=c_dct[si],
-                )
+        try:
+            with obs.span("solve.guard", scenarios=S_real):
+                for si in range(S_real):
+                    self._verify_solution(
+                        snap, snap_run, c_pool[si], packed[si],
+                        int(n_open[si]),
+                        exist_fills[si], claim_fills[si], unplaced[si], nmax,
+                        g_count=g_count_s[si],
+                        c_dzone=c_dzone[si], c_dct=c_dct[si],
+                    )
+        except SolverIntegrityError as exc:
+            if not (token["retry_ok"] and self._last_incremental):
+                raise
+            # the violating batch ran on an incremental encoding: shed the
+            # warm state and run the whole batch once more from a full
+            # re-encode, on the same device
+            self._delta_fallback(str(exc))
+            retry = self.submit_scenarios(token["scenarios"])
+            if retry is None or "out" not in retry:
+                raise
+            retry["retry_ok"] = False
+            self._last_incremental = retry["incremental"]
+            # the audit provenance describes the encode that produced the
+            # committed answer, not the discarded incremental attempt
+            self.last_encode_reused = retry["delta"].reused
+            self.last_delta_rows = retry["delta"].delta_rows
+            return self._collect_scenarios_impl(retry)
         if self.config.max_claims is None and S_real:
             lease_cache = token["lease_cache"]
             with self._shared_cache.lock:
@@ -937,6 +1003,28 @@ class TorchSolver:
                     ).truncate_instance_types()
                 )
         return results
+
+    def _delta_fallback(self, reason: str) -> None:
+        """Corrupt-delta half-step: invalidate the warm cluster encodings
+        and the device-resident buffers so the retry re-encodes and
+        re-transfers from scratch. With no degradation ladder in the port,
+        the ``solver.delta_fallback`` event is its whole record."""
+        self._shared_cache.cluster.invalidate(reason)
+        self._shared_cache.scenario_cluster.invalidate(reason)
+        for store in (
+            self._shared_cache.device_store,
+            self._shared_cache.scenario_device_store,
+        ):
+            if store is not None:
+                store.reset()
+        obs.event("solver.delta_fallback", reason=reason[:200])
+
+    def _sync_if_traced(self) -> None:
+        """Traced runs wait for the staging's copies and row applies, so
+        the transfer span holds their time apart from the kernels';
+        untraced runs let them overlap with host work."""
+        if obs.active() is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _emit_audit(self, kind, sp, dclk, t0, fault_mark, **fields) -> None:
         from .. import faults
@@ -1010,7 +1098,18 @@ class TorchSolver:
             # a SolverIntegrityError (the invariant guard rejected the raw
             # kernel outputs) or a DecodeCommitError propagates: no host
             # re-solve hides a wrong kernel
-            dev_claims, dev_errors = self._solve_fast(groups)
+            try:
+                dev_claims, dev_errors = self._solve_fast(groups)
+            except SolverIntegrityError as exc:
+                if not self._last_incremental:
+                    raise
+                # the violating solve ran on a reused / row-delta encoding:
+                # drop the warm state (banks, prior snapshot, device
+                # buffers) and solve ONCE more, on the card, from a full
+                # re-encode; a corrupt delta never commits (the guard ran
+                # before decode)
+                self._delta_fallback(str(exc))
+                dev_claims, dev_errors = self._solve_fast(groups)
         else:
             # nothing rode the kernel: the oracle rung made this decision
             self._audit_rung = "oracle"
@@ -1116,16 +1215,27 @@ class TorchSolver:
         statics = self._kernel_statics(snap, G)
         # outside the ported pack scope: raise before anything launches
         check_scope(
-            statics["has_domains"], statics["has_contrib"],
-            statics["tile_feasibility"], res_cap0.shape[0],
-            snap.p_mvmin.shape[1],
+            statics["has_contrib"], statics["tile_feasibility"],
+            res_cap0.shape[0], snap.p_mvmin.shape[1],
         )
         snap_run = snap.padded(G, N)
-        # staging: the whole argument tuple moves to the device per solve
-        with obs.span("solve.transfer"):
-            args = to_device_args(
-                snap_run.solve_args(a_tzc, res_cap0, a_res), self.device
+        # device residency: the encoded cluster stays on the device between
+        # solves (buffers keyed by the encode delta's class versions,
+        # solver/residency.py), so this stage moves only the changed rows,
+        # or nothing on the content-hash fast path
+        store = self._shared_cache.lease_device_store()
+        with obs.span(
+            "solve.transfer",
+            reused=bool(delta.reused),
+            delta_rows=int(delta.delta_rows),
+        ):
+            args = store.stage(
+                enc.SOLVE_ARG_NAMES,
+                list(snap_run.solve_args(a_tzc, res_cap0, a_res)),
+                delta, self.device,
             )
+            self._sync_if_traced()
+        self._last_incremental = store.last_incremental or delta.reused
         # fill entries are capped at n_fit = capacity/request per claim
         # (packing.py), so this host-side bound proves int16 safety
         fills_dtype = (

@@ -1,4 +1,4 @@
-# Copied from karpenter_tpu/solver/workloads.py, without diverse_reference_mix; the consolidation envs take a device.
+# Copied from karpenter_tpu/solver/workloads.py, without diverse_reference_mix; the consolidation envs take a device; adds churn_tick.
 """Benchmark workload generators (BASELINE.json configs).
 
 Deterministic (seeded) pod/cluster builders mirroring the reference's
@@ -135,6 +135,28 @@ def constrained_mix(count: int, seed: int = 11) -> List[Pod]:
     deployments(n_zspread, labels_mod.TOPOLOGY_ZONE, "zs")
     deployments(n_hspread, labels_mod.HOSTNAME, "hs")
     return pods
+
+
+# the constrained-churn protocol's tick seed (bench.py:run_constraint_churn)
+CHURN_SEED = 7
+
+
+def churn_tick(pods: List[Pod], mix, rng: random.Random) -> List[Pod]:
+    """One reconcile tick of bench.py's constrained-churn protocol: k =
+    len(pods) // 100 pods (at least one) swapped for pods of a same-seed
+    regeneration ``mix(len(pods))``, positions and picks drawn from
+    ``rng`` (``random.Random(CHURN_SEED)`` for the protocol). The shape
+    pool stays that of the mix; group counts shift, and now and then the
+    label-keyed group set."""
+    n = len(pods)
+    k = max(1, n // 100)
+    regen = mix(n)
+    idx = rng.sample(range(n), k)
+    jdx = rng.sample(range(len(regen)), k)
+    out = list(pods)
+    for i, j in zip(idx, jdx):
+        out[i] = regen[j]
+    return out
 
 
 def spot_od_pools():

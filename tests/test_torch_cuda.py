@@ -9,7 +9,12 @@ caps and affinity, shared hostname slots, existing nodes, the NodePool
 limit ledger over weighted templates, and overflow. The scenario cases run
 the consolidation dispatch (ops/solve.py:solve_scenarios_core_packed):
 B2 over n_tol [S, N, G], B4 one block per scenario, B6 over S rows, with
-padded scenarios and per-scenario topology priors.
+padded scenarios and per-scenario topology priors. The domain cases run
+B4's domain machinery (zonal and capacity-type spread, affinity, a gate
+owner, priors on zoned nodes; one block and the scenario grid with
+per-scenario domain priors), and the B8 cases the row-delta apply
+(every dtype, a duplicate index, negative and dropped indices, the old
+tensor untouched).
 
 Marked ``cuda``: they skip where there is no card. On the card, from the
 repo root: ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
@@ -48,7 +53,7 @@ from karpenter_tpu_torch.solver.example import (
     example_snapshot_arrays,
     example_state_nodes,
 )
-from karpenter_tpu_torch.solver.workloads import mixed_pods, spot_od_pools
+from karpenter_tpu_torch.solver.workloads import constrained_mix, mixed_pods, spot_od_pools
 
 pytestmark = pytest.mark.cuda
 
@@ -371,3 +376,195 @@ def test_kernel_fault_raises_by_the_drain(cuda):
     assert "RAISED" in proc.stdout and "NOT RAISED" not in proc.stdout, (
         proc.stdout[-2000:] + proc.stderr[-2000:])
     assert "illegal" in proc.stdout.lower() or "CUDA error" in proc.stdout
+
+
+# -- B4 with domains ------------------------------------------------------------
+
+
+def _spread_pods(n, cpu_m, app, key=labels.TOPOLOGY_ZONE, skew=1, gate_on=None):
+    """Pods labelled ``app`` spreading over ``key``; with ``gate_on`` the
+    constraint selects that app instead (a gate owner of its constraint)."""
+    sel = LabelSelector(match_labels={"app": gate_on or app})
+    return [
+        Pod(
+            metadata=ObjectMeta(name=f"{app}-{cpu_m}-{i}", labels={"app": app}),
+            spec=PodSpec(
+                requests={res.CPU: cpu_m, res.MEMORY: 2**30 * res.MILLI},
+                topology_spread_constraints=[TopologySpreadConstraint(
+                    max_skew=skew, topology_key=key,
+                    when_unsatisfiable="DoNotSchedule", label_selector=sel)],
+            ),
+        )
+        for i in range(n)
+    ]
+
+
+def _zone_affinity_pods(n, cpu_m, app):
+    sel = LabelSelector(match_labels={"app": app})
+    return [
+        Pod(metadata=ObjectMeta(name=f"{app}-{i}", labels={"app": app}),
+            spec=PodSpec(requests={res.CPU: cpu_m, res.MEMORY: 2**30 * res.MILLI},
+                         pod_affinity=[PodAffinityTerm(topology_key=labels.TOPOLOGY_ZONE,
+                                                       label_selector=sel)]))
+        for i in range(n)
+    ]
+
+
+def _domain_snapshot(pods, n_types=30, n_nodes=0, prior_app=None):
+    """``_snapshot`` with zoned state nodes whose every other node runs a
+    pod labelled ``prior_app`` (topology priors)."""
+    pools = [example_nodepool()]
+    its = {pools[0].name: corpus.generate(n_types)}
+    nodes = example_state_nodes(n_nodes)
+    client = Client(TestClock())
+    for i, sn in enumerate(nodes):
+        client.create(sn.node)
+        if prior_app and i % 2 == 0:
+            pod = Pod(metadata=ObjectMeta(name=f"prior-{i}", labels={"app": prior_app}),
+                      spec=PodSpec(requests={res.CPU: 100}, node_name=sn.node.metadata.name))
+            pod.status.phase = "Running"
+            client.create(pod)
+            sn.update_pod(pod, is_daemon=False)
+    topo = Topology(client, nodes, pools, its, pods)
+    solver = TorchSolver(pools, its, topo, state_nodes=nodes,
+                         config=SolverConfig(device="cpu"))
+    groups, rest = enc.partition_and_group(pods, topology=topo)
+    assert not rest
+    snap, avail, *_ = solver._encode_batch(groups)
+    statics = solver._kernel_statics(snap, len(snap.groups))
+    statics["nmax"] = solver._estimate_nmax(snap, solver._fit_matrix(snap))
+    assert statics["has_domains"]
+    return snap.solve_args(*avail), statics
+
+
+_DOMAIN_CASES = {
+    "zonal-spread": lambda: _domain_snapshot(
+        _spread_pods(40, 1000, "zs") + _spread_pods(13, 2000, "zs2", skew=2)
+        + _pods(30, 500)),
+    "capacity-type-spread": lambda: _domain_snapshot(
+        _spread_pods(17, 1000, "cs", key=labels.CAPACITY_TYPE_LABEL_KEY)),
+    "zonal-affinity": lambda: _domain_snapshot(
+        _zone_affinity_pods(9, 1000, "za") + _pods(12, 2000)),
+    "gate-owner": lambda: _domain_snapshot(
+        _spread_pods(9, 1000, "g") + _spread_pods(7, 2000, "other", gate_on="g")),
+    "priors-on-zoned-nodes": lambda: _domain_snapshot(
+        _spread_pods(120, 1000, "zp"), n_nodes=9, prior_app="zp"),
+    "affinity-over-nodes": lambda: _domain_snapshot(
+        _zone_affinity_pods(6, 1000, "zn"), n_nodes=5, prior_app=None),
+    "constrained-mix": lambda: _domain_snapshot(constrained_mix(3000), n_types=60,
+                                                n_nodes=12),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_DOMAIN_CASES))
+def test_domain_batches(cuda, case):
+    """B4's domain machinery, one block, against pack_reference; the launch
+    counts as a domain pack."""
+    from karpenter_tpu_torch import _build
+
+    args, statics = _DOMAIN_CASES[case]()
+    _build.reset_launches()
+    out = _kernels_equal_plain(args, statics, cuda)
+    assert _build.launches["pack_domains"] == 1
+    assert int(out[2]) > 0 or int(out[4].sum()) > 0
+
+
+def test_domain_scenario_batch(cuda):
+    """The scenario grid over a domain batch: g_dprior [S, G, V1] and dd0
+    [S, JD, V1] carry seeded per-scenario priors (nonzero strides)."""
+    args, statics = _DOMAIN_CASES["priors-on-zoned-nodes"]()
+    a = _scenario_args(args, 8, 6, seed=5, batch_topo=True)
+    rng = np.random.default_rng(5)
+    i = enc.SOLVE_ARG_NAMES.index("g_dprior")
+    a[i] = a[i] + rng.integers(0, 3, a[i].shape, dtype=np.int32)
+    i = enc.SOLVE_ARG_NAMES.index("dd0")
+    a[i] = a[i] + rng.integers(0, 2, a[i].shape, dtype=np.int32)
+    _scenarios_equal_plain(a, statics, cuda, batch_topo=True)
+
+
+# -- B8: the row-delta apply ------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32, torch.float32])
+@pytest.mark.parametrize("shape", [(5000,), (1024, 3), (256, 16, 4)])
+def test_apply_rows(cuda, dtype, shape):
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops.solve import delta_apply_rows, delta_apply_rows_reference
+
+    g = torch.Generator().manual_seed(len(shape))
+    if dtype == torch.bool:
+        arr = torch.rand(shape, generator=g) < 0.5
+        rows = torch.rand((70,) + shape[1:], generator=g) < 0.5
+    else:
+        arr = torch.randint(-99, 99, shape, generator=g).to(dtype)
+        rows = torch.randint(-99, 99, (70,) + shape[1:], generator=g).to(dtype)
+    idx = torch.randperm(shape[0], generator=g)[:69].to(torch.int32)
+    idx = torch.cat([idx, idx[3:4]])  # a duplicate carrying the same row
+    rows[69] = rows[3]
+    plain = delta_apply_rows_reference(arr, idx, rows)
+    old = arr.to(cuda)
+    _build.reset_launches()
+    kern = delta_apply_rows(old, idx.to(cuda), rows.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.launches["apply_rows"] == 1
+    assert kern.dtype == dtype and kern.data_ptr() != old.data_ptr()
+    np.testing.assert_array_equal(kern.cpu().numpy(), plain.numpy())
+    np.testing.assert_array_equal(old.cpu().numpy(), arr.numpy())  # untouched
+
+
+def test_apply_rows_numpy_and_edge_indices(cuda):
+    """numpy idx/rows are copied onto the card; a negative index counts
+    from the end and one outside the rows is dropped, as in the plain
+    version; the resident buffer is never written."""
+    from karpenter_tpu_torch.ops.solve import delta_apply_rows, delta_apply_rows_reference
+
+    arr = torch.arange(4000, dtype=torch.int32).reshape(1000, 4)
+    idx = np.array([7, -1, 0, 1000, -1001], np.int32)
+    rows = np.arange(-20, 0, dtype=np.int32).reshape(5, 4)
+    want = delta_apply_rows_reference(arr, torch.from_numpy(idx), torch.from_numpy(rows))
+    buf = arr.to(cuda)
+    out = delta_apply_rows(buf, idx, rows)
+    torch.cuda.synchronize()
+    assert out.data_ptr() != buf.data_ptr()
+    np.testing.assert_array_equal(out.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(buf.cpu().numpy(), arr.numpy())
+
+
+def test_warm_churn_on_the_card(cuda):
+    """Churn ticks of the constrained mix on the card ride row deltas
+    through B8 and decide as the same ticks on the CPU."""
+    import random
+
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.solver.driver import EncodeCache
+    from karpenter_tpu_torch.solver.workloads import CHURN_SEED, churn_tick
+
+    pools = [example_nodepool()]
+    its = {pools[0].name: corpus.generate(60)}
+
+    def solve(pods, device, cache):
+        topo = Topology(Client(TestClock()), [], pools, its, pods)
+        s = TorchSolver(pools, its, topo, config=SolverConfig(device=device),
+                        encode_cache=cache)
+        r = s.solve(pods)
+        sig = sorted((tuple(sorted(p.uid for p in c.pods)),
+                      tuple(it.name for it in c.instance_type_options))
+                     for c in r.new_node_claims)
+        return sig, s
+
+    caches = {d: EncodeCache() for d in ("cuda", "cpu")}
+    rng = random.Random(CHURN_SEED)
+    pods = constrained_mix(2000)
+    for device, cache in caches.items():
+        solve(pods, device, cache)
+        solve(pods, device, cache)
+    b8 = 0
+    for _ in range(3):
+        pods = churn_tick(pods, constrained_mix, rng)
+        _build.reset_launches()
+        warm, s = solve(pods, "cuda", caches["cuda"])
+        assert s.last_delta_rows > 0 and s.fallback_solves == 0
+        assert _build.launches["pack_domains"] == 1
+        b8 += _build.launches["apply_rows"]
+        assert warm == solve(pods, "cpu", caches["cpu"])[0]
+    assert b8 >= 3

@@ -149,9 +149,16 @@ class TestSolveCore:
 
     @pytest.mark.parametrize("flag", ["has_domains", "has_contrib", "tile_feasibility"])
     def test_out_of_scope_statics_raise(self, flag):
+        """has_contrib and the tiled tables raise, naming ROADMAP item A4b.
+        has_domains is ported: forced on a domain-free batch it changes
+        only the tier-3 bulk split (even, bulk_takes) and equals JAX's."""
+        if flag == "has_domains":
+            args, statics = example_snapshot_arrays(200, 40, 8)
+            _parity(args, dict(statics, has_domains=True))
+            return
         args, statics = example_snapshot_arrays(16, 4, 1)
         st = dict(statics, sparse_groups=True, **{flag: True})
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="A4b"):
             solve_core(*to_device_args(args, "cpu"), **st)
 
     def test_dense_tables_raise(self):

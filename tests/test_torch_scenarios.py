@@ -14,8 +14,8 @@ name (the two packages mint uids from separate counters):
 (c) Multi- and SingleNodeConsolidation decide as the JAX methods do at
     BASELINE config[3]'s shape cut to 200 nodes, in as many probes and
     dispatches, with no sequential fallback;
-(d) a scenario batch outside the ported kernel scope raises, naming its
-    ROADMAP item.
+(d) a zonal-spread scenario batch decides as JAX's does; one outside the
+    ported kernel scope raises, naming its ROADMAP item.
 """
 
 import importlib
@@ -490,13 +490,23 @@ def test_sequential_path_equals_batched():
 
 
 def test_domain_scenario_batch_raises():
-    """A zonal-spread workload (has_domains) is ROADMAP item A4's work: the
-    scenario batch raises before anything launches, never declines."""
-    from karpenter_tpu_torch.solver.driver import Scenario
-
+    """A zonal-spread workload (has_domains) is ported: the scenario batch
+    decides as TpuSolver's does, scenario by scenario. Over a minValues
+    pool (ROADMAP item A4b) it raises before anything launches, never
+    declines."""
     from test_torch_solver import _build
 
-    solver, pods = _build("karpenter_tpu_torch", "constrained_mix", 200, 20)
-    with pytest.raises(NotImplementedError, match="has_domains.*A4"):
+    got = {}
+    for pkg in PKGS:
+        Scenario = _mod(pkg, "solver.driver").Scenario
+        solver, pods = _build(pkg, "constrained_mix", 200, 20)
+        results = solver.solve_scenarios([Scenario(pods=pods), Scenario(pods=pods[:50])])
+        assert results is not None and solver.fallback_solves == 0
+        got[pkg] = [_results_by_name(r, pkg, None) for r in results]
+    assert got["karpenter_tpu_torch"] == got["karpenter_tpu"]
+    Scenario = _mod("karpenter_tpu_torch", "solver.driver").Scenario
+    solver, pods = _build("karpenter_tpu_torch", "constrained_mix", 200, 20,
+                          pools="minvalues")
+    with pytest.raises(NotImplementedError, match="minValues.*A4b"):
         solver.solve_scenarios([Scenario(pods=pods), Scenario(pods=pods[:50])])
     assert solver.fallback_solves == 0

@@ -69,7 +69,19 @@ def _build(pkg, workload, n_pods, n_types, pools="default", n_nodes=0):
     ex = _mod(pkg, "solver.example")
     drv = _mod(pkg, "solver.driver")
     pods = getattr(wl, workload)(n_pods)
-    node_pools = wl.spot_od_pools() if pools == "spot" else [ex.example_nodepool()]
+    if pools == "spot":
+        node_pools = wl.spot_od_pools()
+    elif pools == "minvalues":
+        # a pool with a minValues floor (MV > 0): outside the ported scope
+        objs = _mod(pkg, "api.objects")
+        node_pools = [objs.NodePool(
+            metadata=objs.ObjectMeta(name="default"),
+            spec=objs.NodePoolSpec(template=objs.NodeClaimTemplate(spec=objs.NodeClaimSpec(
+                requirements=[objs.NodeSelectorRequirement(
+                    corpus.INSTANCE_FAMILY_LABEL, "Exists", (), min_values=2)]))),
+        )]
+    else:
+        node_pools = [ex.example_nodepool()]
     its = corpus.generate(n_types)
     its_by_pool = {p.name: list(its) for p in node_pools}
     nodes = _state_nodes(pkg, n_nodes)
@@ -137,10 +149,15 @@ class TestDecisionParity:
         assert {c[0] for c in jd[0]} <= {"spot", "on-demand"}
 
     def test_domain_batch_raises(self):
-        """constrained_mix carries zonal spread (has_domains): the next
-        slice's work, refused before anything runs."""
-        solver, pods = _build("karpenter_tpu_torch", "constrained_mix", 200, 20)
-        with pytest.raises(NotImplementedError, match="has_domains"):
+        """constrained_mix carries zonal spread (has_domains): ported, its
+        decisions equal TpuSolver's. Over a minValues pool the same batch
+        still raises before anything runs, naming ROADMAP item A4b."""
+        jd, td = _solve_both("constrained_mix", 200, 20)
+        assert td == jd
+        assert jd[0] and not jd[2]
+        solver, pods = _build("karpenter_tpu_torch", "constrained_mix", 200, 20,
+                              pools="minvalues")
+        with pytest.raises(NotImplementedError, match="minValues.*A4b"):
             solver.solve(pods)
 
 
@@ -183,12 +200,13 @@ class TestConfig:
 
     def test_scenarios_raise(self):
         """The scenario axis is ported (tests/test_torch_scenarios.py); a
-        batch outside the kernel scope (zonal spread) still raises."""
+        batch outside the kernel scope (a minValues pool) still raises."""
         from karpenter_tpu_torch.solver.driver import Scenario
 
-        solver, pods = _build("karpenter_tpu_torch", "constrained_mix", 60, 8)
+        solver, pods = _build("karpenter_tpu_torch", "constrained_mix", 60, 20,
+                              pools="minvalues")
         assert solver.solve_scenarios([]) == []
-        with pytest.raises(NotImplementedError, match="A4"):
+        with pytest.raises(NotImplementedError, match="A4b"):
             solver.solve_scenarios([Scenario(pods=pods)])
 
     def test_to_device_args_keeps_dtypes(self):
