@@ -52,10 +52,25 @@ no result:
    solve hits REUSE with zero full puts; no sequential fallback anywhere.
    Tick p50, and the traced tick's span split beside the traced cold
    solve's.
+6. the reference's diverse 5-class mix (bench.py:_build("diverse-ref"):
+   diverse_reference_mix(5,000) x 400 types), whose ~1,900 groups share
+   ~30 feasibility classes, so the driver routes it to the class-batched
+   scan: the same loop as phase 5 (cold solve == cpu, 1,000 claims and 0
+   errors, cold p50 over 5 fresh EncodeCaches and a traced split; bench's
+   diverse-churn protocol, 50 pods swapped per tick, each tick == a full
+   re-encode over the same vocab, row deltas through B8, REUSE on the
+   repeat, 0 fallbacks), every solve counted: one B5 (pack_classed) launch
+   per dispatch and no B4 (pack) launch; then the same batch once with
+   SolverConfig(classed=False), counted: B4 with contributor counting,
+   deciding as the classed solve.
 
-Then one JSON line of per-kernel numbers (B1, B2, B4, B4 over domains,
-B6, B7, B8), the nvidia-smi line, and the last line ``{"ok": true,
-"device": {...}}``.
+Phase 2 also holds B5 against pack_classed_reference (every output and
+the final state) and B4 with contributor counting (the same batch with
+the classed route off) against pack_reference, on the diverse batch.
+
+Then one JSON line of per-kernel numbers (B1, B2, B4, B4 over domains, B4
+with contributor counting, B5, B6, B7, B8), the nvidia-smi line, and the
+last line ``{"ok": true, "device": {...}}``.
 """
 
 import gc
@@ -73,6 +88,9 @@ N_PODS, N_TYPES = 50_000, 400
 N_TYPES_C = 800  # BASELINE config[2]: 50k constrained pods x 800 types
 N_TICKS = 4
 NODE_PODS, N_NODES = 2_000, 32
+# bench.py:_build("diverse-ref"): diverse_reference_mix(5,000) x 400 types,
+# which the JAX package solves into 1,000 claims with no pod error
+N_DIVERSE, DIVERSE_CLAIMS = 5_000, 1_000
 CONS_NODES, CONS_SCENARIOS = 2_000, 16  # BASELINE config[3]; one sweep chunk
 REPLACES = {
     "fresh_feasibility": "karpenter_tpu/ops/feasibility.py:141",
@@ -81,10 +99,13 @@ REPLACES = {
     "wire_pack": "karpenter_tpu/ops/solve.py:267",
     "solve_scenarios": "karpenter_tpu/ops/solve.py:357",
     "pack_domains": "karpenter_tpu/ops/packing.py:277",
+    "pack_contrib": "karpenter_tpu/ops/packing.py:1153",
+    "pack_classed": "karpenter_tpu/ops/packing.py:1230",
     "apply_rows": "karpenter_tpu/ops/solve.py:400",
 }
-# the source of each kernel row (B4 with domains is pack.cu's domain path)
-SOURCES = {"pack_domains": "pack", "solve_scenarios": "pack"}
+# the source of each kernel row (B4 with domains and with contributor
+# counting are pack.cu's domain and contributor paths)
+SOURCES = {"pack_domains": "pack", "pack_contrib": "pack", "solve_scenarios": "pack"}
 # the one PyTorch call that computes a kernel's function, timed beside it
 LIBRARY = {"apply_rows": "Tensor.index_copy"}
 # B7 is the scenario-batched dispatch of these kernels; pack.cu holds its
@@ -96,7 +117,15 @@ PATH_KERNELS = {
     "nodes": ("fresh_feasibility", "existing_feasibility", "pack", "wire_pack"),
     "constrained": ("fresh_feasibility", "pack", "pack_domains", "wire_pack"),
     "ticks": ("fresh_feasibility", "pack", "pack_domains", "wire_pack", "apply_rows"),
+    "diverse": ("fresh_feasibility", "pack_classed", "wire_pack"),
+    "diverse_ticks": ("fresh_feasibility", "pack_classed", "wire_pack", "apply_rows"),
+    # the same batch with the classed route off: B4 with contributor counting
+    "diverse_per_group": ("fresh_feasibility", "pack", "pack_domains", "pack_contrib",
+                          "wire_pack"),
 }
+# ... and those it must not launch: the classed route replaces B4
+PATH_ABSENT = {"diverse": ("pack",), "diverse_ticks": ("pack",),
+               "diverse_per_group": ("pack_classed",)}
 # ... and those each consolidation path must launch over a scenario batch
 CONS_KERNELS = ("existing_feasibility", "pack", "wire_pack")
 # the solve args each feasibility kernel reads, in its wrapper's order
@@ -313,6 +342,7 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
     )
     rows["solve_scenarios"] = scenario_row()
     rows.update(constrained_rows(torch_solver_cls, config_cls, encode_cache_cls))
+    rows.update(diverse_rows(torch_solver_cls, config_cls))
     for name, row in rows.items():
         if row["max_abs_err"] != 0.0:
             raise SmokeFailure(f"{name}: kernel disagrees with its plain version "
@@ -320,14 +350,17 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
     return rows
 
 
-def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1):
+def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None):
     """Operations the scan's inputs need: per group step, each claim
     opened at an earlier step is checked against every type (2R fits
     compares, V1 x V1 offering cells), plus a few per claim slot. A
     dynamic group's step (``dyn`` [G] bool: g_dmode > 0) adds the per-domain
     offering cells of each claim and template type (V1 x V1 each) and a
     per-domain claim pass. Over a leading scenario axis, the sum over
-    scenarios."""
+    scenarios. With ``classes`` (class_start, class_len, class_dyn: the
+    class-batched scan) the per-type work runs once per class head, over
+    the claims opened before the class, and each member step costs only
+    its per-claim summaries."""
     import torch
 
     g_count, claim_fills, n_open = g_count.cpu(), claim_fills.cpu(), n_open.cpu()
@@ -338,6 +371,18 @@ def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1):
     ops = 0
     for counts, fills, opened in zip(g_count, claim_fills, n_open):
         first = [int(torch.nonzero(fills[:, s])[0, 0]) for s in range(int(opened))]
+        if classes is not None:
+            for cs, cl, cdyn in zip(*(x.cpu().tolist() for x in classes)):
+                if cl <= 0:
+                    continue
+                live = sum(1 for f in first if f < cs)
+                ops += live * T * (2 * R + V1 * V1)
+                if cdyn:
+                    ops += (live + P) * T * V1 * V1
+                for g in range(cs, cs + cl):
+                    if int(counts[g]) > 0:
+                        ops += nmax * 8 + (nmax * V1 * 8 if dyn[g] else 0)
+            continue
         for g in range(G):
             if int(counts[g]) <= 0:
                 continue
@@ -556,6 +601,95 @@ def constrained_rows(torch_solver_cls, config_cls, encode_cache_cls):
     return rows
 
 
+def diverse_rows(torch_solver_cls, config_cls):
+    """Phase 2's rows for the diverse mix's kernels (diverse_reference_mix(
+    5,000) x 400 types, the batch phase 6 solves): B5, the class-batched
+    scan, over the driver's class partition against
+    pack_classed_reference (every output and every field of the final
+    state), and B4 with contributor counting on the same inputs (the
+    classed route off) against pack_reference. Tolerance: exact
+    equality."""
+    import torch
+
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packing as packing_mod
+    from karpenter_tpu_torch.ops import solve as solve_mod
+    from karpenter_tpu_torch.solver import encode as enc
+    from karpenter_tpu_torch.solver.args import put, to_device_args
+    from karpenter_tpu_torch.solver.driver import _CLASS_ARG_NAMES
+    from karpenter_tpu_torch.solver.workloads import diverse_reference_mix
+
+    pods = diverse_reference_mix(N_DIVERSE)
+    solver = build_batch(torch_solver_cls, config_cls, pods, N_TYPES)
+    groups, rest = enc.partition_and_group(pods, topology=solver.oracle.topology)
+    if rest:
+        raise SmokeFailure(f"diverse: {len(rest)} pods left the dense path")
+    snap, avail, _, _, _ = solver._encode_batch(groups)
+    G = enc._next_pow2(len(snap.groups), floor=8)
+    run = snap.padded(G, 0)
+    statics = solver._kernel_statics(snap, G)
+    if not (statics["has_domains"] and statics["has_contrib"]):
+        raise SmokeFailure(f"diverse: statics {statics}")
+    partition = solver._classed_partition(run, avail[1])
+    if partition is None:
+        raise SmokeFailure("diverse: the driver does not route the batch to the classed scan")
+    cls_host, lmax = partition
+    cls = [put(n, x, "cuda") for n, x in zip(_CLASS_ARG_NAMES, cls_host)]
+    a = dict(zip(enc.SOLVE_ARG_NAMES, to_device_args(run.solve_args(*avail), "cuda")))
+    zk, ck = statics["zone_kid"], statics["ct_kid"]
+    P, T = a["p_titype_ok"].shape
+    K, V1 = a["g_mask"].shape[1:]
+    R = a["t_alloc"].shape[1]
+    b1 = feas.fresh_claim_feasibility_sparse(*(a[n] for n in B1_NAMES), zone_kid=zk, ct_kid=ck)
+    cap_ng = torch.zeros((0, G), dtype=torch.int32, device="cuda")
+    pack_in = solve_mod.pack_args(a, *b1, cap_ng)
+    st = dict(nmax=solver._select_nmax(snap, solver._fit_matrix(snap), None), zone_kid=zk,
+              ct_kid=ck, wf_iters=statics["wf_iters"], has_domains=True, has_contrib=True)
+
+    def b5():
+        return packing_mod.pack_classed(*pack_in, *cls, lmax=lmax, **st)
+
+    def b5_ref():
+        return packing_mod.pack_classed_reference(*pack_in, *cls, lmax=lmax, **st)
+
+    while True:  # the driver's overflow doubling
+        out5 = b5()
+        if not bool(out5[0].overflow.item()):
+            break
+        st["nmax"] *= 2
+    ref5 = b5_ref()
+    out4 = packing_mod.pack(*pack_in, **st)
+    ref4 = packing_mod.pack_reference(*pack_in, **st)
+    torch.cuda.synchronize()
+    state, fills = list(out5[0]), list(out5[1:])
+    ref_state, ref_fills = list(ref5[0]), list(ref5[1:])
+    n_open = out5[0].n_open
+    dyn = a["g_dmode"] > 0
+    shape = (f"G={G} ({len(snap.groups)} real, {int(dyn.sum())} dynamic) "
+             f"classes={int((cls_host[1] > 0).sum())} lmax={lmax} T={T} P={P} K={K} V1={V1} "
+             f"JH={a['nh_cnt0'].shape[1]} JD={a['dd0'].shape[0]} NMAX={st['nmax']} "
+             f"claims={int(n_open)} wf_iters={st['wf_iters']}")
+    classes = (cls[0], cls[1], cls[2])
+    return {
+        "pack_classed": dict(
+            max_abs_err=max_abs_err(state + fills, ref_state + ref_fills),
+            ms=cuda_ms(b5, 5), plain_ms=cuda_ms(b5_ref, 1),
+            bound=bound_ms(nbytes(pack_in) + nbytes(cls) + nbytes(state + fills),
+                           pack_ops(a["g_count"], fills[1], n_open, T, R, V1, dyn=dyn,
+                                    P=P, classes=classes)),
+            shape=shape,
+        ),
+        "pack_contrib": dict(
+            max_abs_err=max_abs_err(out4, ref4),
+            ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 3),
+            plain_ms=cuda_ms(lambda: packing_mod.pack_reference(*pack_in, **st), 1),
+            bound=bound_ms(nbytes(pack_in) + nbytes(out4),
+                           pack_ops(a["g_count"], out4[5], out4[2], T, R, V1, dyn=dyn, P=P)),
+            shape=shape + ", classed route off",
+        ),
+    }
+
+
 def decisions(results, pods):
     name = {p.uid: p.metadata.name for p in pods}
     claims = sorted(
@@ -747,6 +881,71 @@ def phase_consolidation():
 def phase_constrained(torch_solver_cls, config_cls, encode_cache_cls):
     """Phase 5: the constrained provisioning loop, cold and warm, on the
     card (BASELINE config[2]; bench.py's constrained-churn protocol)."""
+    from karpenter_tpu_torch.solver.workloads import constrained_mix
+
+    return provisioning_loop(torch_solver_cls, config_cls, encode_cache_cls, constrained_mix,
+                             N_PODS, N_TYPES_C, "constrained", "ticks")
+
+
+def phase_diverse(torch_solver_cls, config_cls, encode_cache_cls):
+    """Phase 6: the reference's diverse 5-class mix, cold and warm, on the
+    card (bench.py's diverse-ref batch and diverse-churn protocol), every
+    solve through the class-batched scan (B5)."""
+    from karpenter_tpu_torch.solver.workloads import diverse_reference_mix
+
+    out = provisioning_loop(torch_solver_cls, config_cls, encode_cache_cls,
+                            diverse_reference_mix, N_DIVERSE, N_TYPES, "diverse",
+                            "diverse_ticks")
+    if out["claims"] != DIVERSE_CLAIMS or out["errors"] or out["placed"] != N_DIVERSE:
+        raise SmokeFailure(f"diverse: {out['claims']} claims, {out['placed']} placed, "
+                           f"{out['errors']} errors (want {DIVERSE_CLAIMS}, {N_DIVERSE}, 0)")
+    # the same batch through SolverConfig(classed=False): B4 with its
+    # contributor counting, deciding as the classed route does
+    import torch
+
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.cloudprovider import corpus
+    from karpenter_tpu_torch.kube import Client, TestClock
+    from karpenter_tpu_torch.scheduling.topology import Topology
+    from karpenter_tpu_torch.solver.example import example_nodepool
+
+    pods = diverse_reference_mix(N_DIVERSE)
+    pools = [example_nodepool()]
+    its = {pools[0].name: corpus.generate(N_TYPES)}
+    runs = {}
+    for classed in (True, False):
+        topo = Topology(Client(TestClock()), [], pools, its, pods)
+        solver = torch_solver_cls(pools, its, topo, encode_cache=encode_cache_cls(),
+                                  config=config_cls(device="cuda", classed=classed))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = solver.solve(pods)
+        torch.cuda.synchronize()
+        runs[classed] = (decisions(res, pods), dict(_build.launches),
+                         (time.perf_counter() - t0) * 1e3)
+    counts = runs[False][1]
+    missing = [k for k in PATH_KERNELS["diverse_per_group"] if counts[k] < 1]
+    extra = [k for k in PATH_ABSENT["diverse_per_group"] if counts[k]]
+    if missing or extra:
+        raise SmokeFailure(f"diverse_per_group path: missing {missing}, launched {extra} "
+                           f"(counts {counts})")
+    if runs[False][0] != runs[True][0]:
+        raise SmokeFailure("diverse: the per-group scan (B4) decides otherwise than B5")
+    out["launches"]["diverse_per_group"] = counts
+    out["per_group_ms"], out["classed_ms"] = runs[False][2], runs[True][2]
+    return out
+
+
+def provisioning_loop(torch_solver_cls, config_cls, encode_cache_cls, mix, n_pods, n_types,
+                      cold_label, tick_label):
+    """A provisioning loop on the card over ``mix(n_pods)`` x ``n_types``
+    types: a cold solve counted as ``cold_label`` with the decisions and
+    placed/error counts of device="cpu"; cold p50 over 5 fresh
+    EncodeCaches and one traced cold solve; two warm-ups and N_TICKS churn
+    ticks (workloads.churn_tick) counted as ``tick_label``, each riding row
+    deltas through B8 and equal to a full re-encode over the same vocab,
+    plus one traced tick; an unchanged repeat hitting REUSE; no sequential
+    fallback anywhere."""
     import random
 
     import torch
@@ -756,11 +955,11 @@ def phase_constrained(torch_solver_cls, config_cls, encode_cache_cls):
     from karpenter_tpu_torch.kube import Client, TestClock
     from karpenter_tpu_torch.scheduling.topology import Topology
     from karpenter_tpu_torch.solver.example import example_nodepool
-    from karpenter_tpu_torch.solver.workloads import CHURN_SEED, churn_tick, constrained_mix
+    from karpenter_tpu_torch.solver.workloads import CHURN_SEED, churn_tick
 
     # one catalog for the whole loop, as a provisioner holds it
     pools = [example_nodepool()]
-    its = {pools[0].name: corpus.generate(N_TYPES_C)}
+    its = {pools[0].name: corpus.generate(n_types)}
 
     def solver_for(pods, cache, device="cuda"):
         topo = Topology(Client(TestClock()), [], pools, its, pods)
@@ -769,7 +968,8 @@ def phase_constrained(torch_solver_cls, config_cls, encode_cache_cls):
 
     def counted(label, solver, pods):
         """One solve with the launch counts zeroed just before and read just
-        after; each kernel of PATH_KERNELS[label] must have run."""
+        after; each kernel of PATH_KERNELS[label] must have run, none of
+        PATH_ABSENT[label], and B5 (on its paths) once per dispatch."""
         _build.reset_launches()
         t0 = time.perf_counter()
         res = solver.solve(pods)
@@ -779,6 +979,12 @@ def phase_constrained(torch_solver_cls, config_cls, encode_cache_cls):
         missing = [k for k in PATH_KERNELS[label] if counts[k] < 1]
         if missing:
             raise SmokeFailure(f"{label} path never launched {missing} (counts {counts})")
+        extra = [k for k in PATH_ABSENT.get(label, ()) if counts[k]]
+        if extra:
+            raise SmokeFailure(f"{label} path launched {extra} (counts {counts})")
+        if "pack_classed" in PATH_KERNELS[label] and counts["pack_classed"] != solver.last_dispatches:
+            raise SmokeFailure(f"{label}: {counts['pack_classed']} B5 launches for "
+                               f"{solver.last_dispatches} dispatches")
         if solver.fallback_solves:
             raise SmokeFailure(f"{label}: sequential fallbacks {solver.last_fallback_reasons}")
         return res, counts, ms
@@ -807,16 +1013,17 @@ def phase_constrained(torch_solver_cls, config_cls, encode_cache_cls):
         phases["audit"] = ms - totals.get("solve", 0.0) * 1e3
         return ms, phases
 
-    pods = constrained_mix(N_PODS)
+    pods = mix(n_pods)
     # cold, counted, against the plain versions on the CPU
-    res, cold_counts, _ = counted("constrained", solver_for(pods, encode_cache_cls()), pods)
+    res, cold_counts, _ = counted(cold_label, solver_for(pods, encode_cache_cls()), pods)
     cpu = solver_for(pods, encode_cache_cls(), "cpu").solve(pods)
     if decisions(res, pods) != decisions(cpu, pods):
-        raise SmokeFailure("constrained: CUDA decisions differ from the device='cpu' solve")
+        raise SmokeFailure(f"{cold_label}: CUDA decisions differ from the device='cpu' solve")
     if placed_errors(res, pods) != placed_errors(cpu, pods):
-        raise SmokeFailure(f"constrained: placed/errors {placed_errors(res, pods)} vs cpu "
+        raise SmokeFailure(f"{cold_label}: placed/errors {placed_errors(res, pods)} vs cpu "
                            f"{placed_errors(cpu, pods)}")
     placed, errors = placed_errors(res, pods)
+    claims = len(res.new_node_claims)
     # cold p50: every solve from a fresh EncodeCache (full encode, full staging)
     cold_ms = []
     for _ in range(5):
@@ -839,12 +1046,12 @@ def phase_constrained(torch_solver_cls, config_cls, encode_cache_cls):
     # tracer waits on the staging and prices the claims for the audit, so
     # traced and untraced times do not compare)
     for i in range(N_TICKS + 1):
-        pods = churn_tick(pods, constrained_mix, rng)
+        pods = churn_tick(pods, mix, rng)
         s = solver_for(pods, cache)
         gc.collect()
         tracer = obs.install(obs.Tracer(obs.PerfClock())) if i == N_TICKS else None
         try:
-            res, counts, ms = counted("ticks", s, pods)
+            res, counts, ms = counted(tick_label, s, pods)
         finally:
             if tracer is not None:
                 obs.uninstall()
@@ -890,8 +1097,8 @@ def phase_constrained(torch_solver_cls, config_cls, encode_cache_cls):
         raise SmokeFailure(f"repeat: reused {s.last_encode_reused}, full puts "
                            f"{store.last_full_puts}, fallbacks {s.fallback_solves}")
     return dict(
-        claims=len(res.new_node_claims), placed=placed, errors=errors,
-        launches={"constrained": cold_counts, "ticks": tick_counts},
+        claims=claims, placed=placed, errors=errors,
+        launches={cold_label: cold_counts, tick_label: tick_counts},
         cold_p50_ms=statistics.median(cold_ms), cold_ms=cold_ms,
         cold_traced_ms=cold_traced_ms, cold_phases=cold_phases,
         tick_p50_ms=statistics.median(t["ms"] for t in ticks), ticks=ticks,
@@ -980,10 +1187,30 @@ def main():
         + "; repeat REUSE, 0 full puts, 0 fallbacks; launches "
         + " ".join(f"{p}={c}" for p, c in con["launches"].items()))
 
-    # every path's own counts: the solves, the searches, the constrained loop
+    div = phase_diverse(TorchSolver, SolverConfig, EncodeCache)
+    log(f"phase 6 diverse loop: {N_DIVERSE} pods x {N_TYPES} types (classed route) -> "
+        f"{div['claims']} claims, {div['placed']} placed, {div['errors']} errors, decisions "
+        f"== cpu; cold p50 {div['cold_p50_ms']:.1f} ms of "
+        + "/".join(f"{t:.1f}" for t in div["cold_ms"])
+        + f" ms; traced cold {div['cold_traced_ms']:.1f} ms: "
+        + " ".join(f"{k}={v:.1f}ms" for k, v in div["cold_phases"].items())
+        + f"; {N_TICKS} ticks (each == a full re-encode, row deltas, B8, no full "
+        f"re-encode) p50 {div['tick_p50_ms']:.1f} ms: " + "; ".join(
+            f"{t['ms']:.1f} ms (encode delta rows {t['encode_delta_rows']}, device delta "
+            f"rows {t['device_delta_rows']}, full puts {t['full_puts']}, B8 {t['b8']})"
+            for t in div["ticks"])
+        + f"; traced tick {div['traced_tick']['ms']:.1f} ms: " + " ".join(
+            f"{k}={v:.2f}ms" for k, v in div["traced_tick"]["phases"].items())
+        + "; repeat REUSE, 0 full puts, 0 fallbacks; classed=False solve (B4 with "
+        f"contributor counting) == classed solve, {div['per_group_ms']:.1f} ms vs "
+        f"{div['classed_ms']:.1f} ms; launches "
+        + " ".join(f"{p}={c}" for p, c in div["launches"].items()))
+
+    # every path's own counts: the solves, the searches, the two loops
     paths = dict(e2e["launches"])
     paths.update({label: c["launches"] for label, c in cons.items()})
     paths.update(con["launches"])
+    paths.update(div["launches"])
     scen_paths = {label: c["scenario_launches"] for label, c in cons.items()}
     kernels = []
     for name, row in rows.items():

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` compiles with nvcc into its own shared library
 with a plain C interface, ``build/kernels/lib<name>.so`` beside the
 package, and is loaded with ctypes. A library is built at first use and
-rebuilt when its source (or the shared ``common.cuh``) is newer; all
+rebuilt when its source (or a shared ``*.cuh`` header) is newer; all
 stale sources compile at once, one nvcc process each. Nothing here runs
 at import: the CPU tests import every module on a host without nvcc.
 
@@ -13,8 +13,8 @@ more than one consolidation scenario; nothing else touches them, so a
 caller that zeroes them (``reset_launches``) and reads them after a run
 sees which kernels the run went through, and whether a probe set ran as
 one scenario batch or as a loop of single solves. A kernel's variant
-(``VARIANTS``: the pack scan over a domain batch) counts in its own entry
-as well as in the kernel's.
+(``VARIANTS``: the pack scan over a domain batch, or over a batch with
+contributor rows) counts in its own entry as well as in the kernel's.
 """
 
 from __future__ import annotations
@@ -31,12 +31,12 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("fresh_feasibility", "existing_feasibility", "pack", "wire_pack",
-           "apply_rows")
+SOURCES = ("fresh_feasibility", "existing_feasibility", "pack", "pack_classed",
+           "wire_pack", "apply_rows")
 # launches of a kernel's variant, counted besides the kernel's own: pack
-# over a domain batch (has_domains) runs its domain machinery
-VARIANTS = ("pack_domains",)
-_HEADER = os.path.join(CSRC, "common.cuh")
+# over a domain batch (has_domains) runs its domain machinery, over a
+# batch with contributor rows (has_contrib) its contributor counting
+VARIANTS = ("pack_domains", "pack_contrib")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -86,7 +86,8 @@ def _stale(name: str) -> bool:
     if not os.path.exists(lib):
         return True
     src = os.path.join(CSRC, f"{name}.cu")
-    newest = max(os.path.getmtime(src), os.path.getmtime(_HEADER))
+    headers = [os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith(".cuh")]
+    newest = max(os.path.getmtime(f) for f in [src] + headers)
     return os.path.getmtime(lib) < newest
 
 
@@ -163,14 +164,15 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
 NOTHING_LAUNCHED = -1  # csrc/common.cuh:kNothingLaunched (empty shapes)
 
 
-def launched(name: str, rc: int, scenarios: int = 1, variant=None) -> None:
-    """Count one launch of kernel ``name`` (and of its ``variant``, if
-    any) over ``scenarios`` scenarios; raise on a CUDA error code."""
+def launched(name: str, rc: int, scenarios: int = 1, variants=()) -> None:
+    """Count one launch of kernel ``name`` (and of each of its
+    ``variants``) over ``scenarios`` scenarios; raise on a CUDA error
+    code."""
     if rc == NOTHING_LAUNCHED:
         return
     if rc != 0:
         raise KernelLaunchError(f"{name}: CUDA error {rc} at launch")
-    for key in (name,) if variant is None else (name, variant):
+    for key in (name,) + tuple(variants):
         launches[key] += 1
         if scenarios > 1:
             scenario_launches[key] += 1

@@ -23,14 +23,24 @@ domain per open claim (``spread_domain_choice``), domain-pinned bulks of
 fresh claims split evenly (``bulk_takes``). Shared domain constraints
 carry their counts across steps (``dd0`` -> the ``ddc`` carry).
 
-Scope of this port: what ``pack`` traces with has_contrib=False,
-tile_feasibility=False, no reservations (NRES=0) and no minValues (MV=0),
-with has_domains either way. Any other static raises NotImplementedError
+Contributor counting (``has_contrib``): a group whose pods are selected by
+a shared hostname or domain constraint it does not own adds its
+placements to that constraint's carried counts (``nhc``, ``ch_cnt``,
+``ddc``) after its step.
+
+Scope of this port: what ``pack`` traces with tile_feasibility=False, no
+reservations (NRES=0) and no minValues (MV=0), with has_domains and
+has_contrib either way. Any other static raises NotImplementedError
 before anything runs (ROADMAP.md item A4b).
 
 ``pack`` is the public wrapper: its plain version ``pack_reference`` (a
 host loop over groups, exact and slow) for CPU tensors, kernel B4
 (csrc/pack.cu, one persistent thread block per solve) for CUDA tensors.
+
+``pack_classed`` is the same scan restructured over feasibility classes
+(packing.py:pack_classed, the route the driver takes for batches of many
+small groups that share few classes): ``pack_classed_reference`` for CPU
+tensors, kernel B5 (csrc/pack_classed.cu) for CUDA tensors.
 
 Scenario batches (consolidation's probe sets, ops/solve.py:
 solve_scenarios_core_packed): ``g_count`` [S, G] and ``cap_ng`` [S, N, G],
@@ -41,6 +51,8 @@ launch.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -56,13 +68,12 @@ DMODE_GATE_SPREAD = 3
 DMODE_GATE_AFF = 4
 
 
-def check_scope(has_contrib, tile_feasibility, n_res, n_mv):
+def check_scope(tile_feasibility, n_res, n_mv):
     """Raise NotImplementedError for the statics this slice does not port
-    (has_domains is ported, either way)."""
+    (has_domains and has_contrib are ported, either way)."""
     missing = [
         name
         for name, on in (
-            ("has_contrib (contributor counting)", has_contrib),
             ("tile_feasibility (tiled tables)", tile_feasibility),
             ("reservations (NRES > 0)", n_res > 0),
             ("minValues (MV > 0)", n_mv > 0),
@@ -71,9 +82,9 @@ def check_scope(has_contrib, tile_feasibility, n_res, n_mv):
     ]
     if missing:
         raise NotImplementedError(
-            "the PyTorch pack covers has_contrib=False, untiled tables, no "
-            "reservations and no minValues; this batch needs "
-            + ", ".join(missing) + " (ROADMAP.md item A4b)"
+            "the PyTorch pack covers untiled tables, no reservations and no "
+            "minValues; this batch needs " + ", ".join(missing)
+            + " (ROADMAP.md item A4b)"
         )
 
 
@@ -130,6 +141,21 @@ def waterfill(npods, cap, n, iters: int = 32):
     elig = (base < cap) & (npods <= level - 1)
     rank = _cumsum32(elig.to(torch.int32))
     return base + (elig & (rank <= deficit)).to(torch.int32)
+
+
+def waterfill1(npods, cap, n, iters: int = 32):
+    """``waterfill`` with the closed form for n <= 1 (packing.py:
+    waterfill1): the one pod lands on the first least-loaded slot with
+    capacity, no bisection trips. The class-batched scan's quota and
+    domain-free tier 2 use it."""
+    if int(n) <= 1:
+        elig = cap > 0
+        fills = torch.zeros_like(cap)
+        if int(n) >= 1 and bool(elig.any()):
+            big = torch.full_like(npods, _BIGI)
+            fills[int(torch.argmin(torch.where(elig, npods, big)))] = 1
+        return fills
+    return waterfill(npods, cap, n, iters=iters)
 
 
 def spread_domain_choice(adm, qrem_v, mode: int, V1: int, DEAD: int):
@@ -192,6 +218,70 @@ def _domain_avail(dkey, cz, cc, pzm, pcm, a_f):
     return nt, pt
 
 
+def _h_allow(has_h: bool, hself: bool, scap_h):
+    """Per-entity allowance under a group's shared hostname constraint:
+    self owners are capped at scap_h - count, gate owners blocked where
+    the count already exceeds scap_h, other groups unbounded."""
+    def allow(cnt):
+        if not has_h:
+            return torch.full_like(cnt, _BIGI)
+        if hself:
+            return torch.clamp_min(scap_h - cnt, 0)
+        return torch.where(cnt > scap_h, torch.zeros_like(cnt), torch.full_like(cnt, _BIGI))
+    return allow
+
+
+def _haff_pin_nodes(cap, prior_col):
+    """Hostname-affinity single-entity pin over the node caps: with
+    priors (``prior_col`` > 0) the prior-holding nodes, without, the first
+    node with room hosts everyone. Returns (caps, served)."""
+    zero = torch.zeros_like(cap)
+    prior_nodes = prior_col > 0
+    if bool(prior_nodes.any()):
+        return torch.where(prior_nodes, cap, zero), True
+    free = cap >= 1
+    if bool(free.any()):
+        pin = int(torch.argmax(free.to(torch.int32)))
+        keep = torch.arange(cap.shape[0], device=cap.device) == pin
+        return torch.where(keep, cap, zero), True
+    return zero, False
+
+
+def _domain_sums(fill, dom, V1):
+    """[V1] sums of ``fill`` by domain id ``dom`` (ids outside [0, V1)
+    count nowhere, as jax.nn.one_hot drops them)."""
+    ok = (dom >= 0) & (dom < V1)
+    out = torch.zeros((V1 + 1,), dtype=torch.int32, device=fill.device)
+    out.index_add_(0, torch.where(ok, dom, torch.full_like(dom, V1)).long(), fill)
+    return out[:V1]
+
+
+def _contrib_add(hrow, drow, exist_fill, claim_fill, c_mask, n_dzone, n_dct,
+                 dtg_key, nhc, ch_cnt, ddc, zone_kid, ct_kid):
+    """Contributor counting, in place (packing.py:1153, the oracle's
+    record() rule): a group counts toward the shared hostname slots of
+    ``hrow`` [JH] on every node and claim it filled, and toward the shared
+    domain slots of ``drow`` [JD] by domain: existing-node fills by the
+    node's zone / capacity type, claim fills only where the claim's zone
+    (capacity-type) mask row is single-valued, as ``dtg_key`` picks the
+    axis of each slot. Integer adds, exact in any order."""
+    i32 = torch.int32
+    V1 = c_mask.shape[2]
+    hrow, drow = hrow.to(i32), drow.to(i32)
+    if nhc.shape[0]:
+        nhc += exist_fill[:, None] * hrow[None, :]
+    ch_cnt += claim_fill[:, None] * hrow[None, :]
+    zrow = c_mask[:, zone_kid].to(i32)  # [NMAX, V1]
+    crow = c_mask[:, ct_kid].to(i32)
+    zero = torch.zeros_like(claim_fill)
+    zc = (torch.where(zrow.sum(1) == 1, claim_fill, zero)[:, None] * zrow).sum(0, dtype=i32)
+    cc = (torch.where(crow.sum(1) == 1, claim_fill, zero)[:, None] * crow).sum(0, dtype=i32)
+    ze = _domain_sums(exist_fill, n_dzone, V1)
+    ce = _domain_sums(exist_fill, n_dct, V1)
+    per_slot = torch.where((dtg_key == 0)[:, None], (ze + zc)[None, :], (ce + cc)[None, :])
+    ddc += drow[:, None] * per_slot
+
+
 def pack_reference(
     g_count, g_req, g_def, g_neg, g_mask,
     g_hcap, g_haff,
@@ -207,11 +297,13 @@ def pack_reference(
     well_known,
     g_dmode, g_dkey, g_dskew, g_dmin0, g_dprior, g_dreg, g_drank, g_dtg,
     p_mask, n_dzone, n_dct, dd0,
+    g_hcontrib, g_dcontrib, dtg_key,
     *,
     nmax: int,
     zone_kid: int,
     ct_kid: int,
     has_domains: bool,
+    has_contrib: bool = False,
     wf_iters: int = 32,
 ):
     """Plain version of the grouped-FFD scan (the JAX step body, line for
@@ -280,12 +372,7 @@ def pack_reference(
         counted = has_h and hself  # jh_oh is one-hot at jhc iff counted
         scap_h = g_hscap[gi]
 
-        def h_allow(cnt):
-            if not has_h:
-                return torch.full_like(cnt, _BIGI)
-            if hself:
-                return torch.clamp_min(scap_h - cnt, 0)
-            return torch.where(cnt > scap_h, torch.zeros_like(cnt), bigi)
+        h_allow = _h_allow(has_h, hself, scap_h)
 
         # domain-constraint descriptors; the machinery runs for dynamic
         # groups of a has_domains batch only
@@ -348,20 +435,7 @@ def pack_reference(
         if N:
             exist_cap = torch.minimum(exist_cap, h_allow(nhc[:, jhc]))
             if haff:
-                # hostname-affinity single-entity pin: with priors the
-                # prior-holding nodes; without, the first node with room
-                prior_nodes = n_hcnt[:, gi] > 0
-                has_prior = bool(prior_nodes.any())
-                free = exist_cap >= 1
-                has_free = bool(free.any())
-                if has_prior:
-                    exist_cap = torch.where(prior_nodes, exist_cap, zero_n)
-                elif has_free:
-                    pin = int(torch.argmax(free.to(i32)))
-                    exist_cap = torch.where(slots[:N] == pin, exist_cap, zero_n)
-                else:
-                    exist_cap = zero_n
-                haff_exist_served = has_prior or has_free
+                exist_cap, haff_exist_served = _haff_pin_nodes(exist_cap, n_hcnt[:, gi])
 
         qd = torch.zeros((NSLOT,), dtype=i32, device=dev)
         if dyn:
@@ -568,6 +642,11 @@ def pack_reference(
         # the next sharing group's counts (gate modes never count)
         if dyn and has_d and mode < DMODE_GATE_SPREAD:
             ddc[jd] += qd[:V1] - qrem[:V1]
+        if has_contrib:
+            _contrib_add(
+                g_hcontrib[gi], g_dcontrib[gi], exist_fill, claim_fill, c_mask,
+                n_dzone, n_dct, dtg_key, nhc, ch_cnt, ddc, zone_kid, ct_kid,
+            )
         exist_fills[gi] = exist_fill
         claim_fills[gi] = claim_fill
         unplaced[gi] = count - _sum32(exist_fill) - _sum32(claim_fill)
@@ -584,7 +663,7 @@ def pack_reference(
 def _domain_quota(
     mode, count, D0, reg, drank, skew, min0, exist_cap, nd_raw, nd_slot,
     nd_oh, type_ok_row, toff_pt, percap, claim_live, c_npods, hcap,
-    h_allow_c, pin_axis, V1, wf_iters,
+    h_allow_c, pin_axis, V1, wf_iters, wf=None,
 ):
     """The dynamic group's quota over its V1 domain slots (packing.py
     step, "domain quota qd"): self-selecting spread water-fills domains
@@ -593,7 +672,8 @@ def _domain_quota(
     within skew of the static min (gate-spread) or currently nonempty
     (gate-affinity); affinity puts the whole group on one domain, chosen
     follower -> first fitting node -> least-loaded pinned claim -> lowest
-    rank fresh domain."""
+    rank fresh domain. ``wf`` is the water-fill (``waterfill``; the
+    class-batched scan passes ``waterfill1``)."""
     i32 = torch.int32
     dev = D0.device
     bigi = _i32(_BIGI, dev)
@@ -648,7 +728,488 @@ def _domain_quota(
         )
     else:
         return zero_v.clone()
-    return waterfill(torch.where(reg, D0, big_v), caps, count, iters=wf_iters)
+    wf = wf or waterfill
+    return wf(torch.where(reg, D0, big_v), caps, count, iters=wf_iters)
+
+
+class PackState(NamedTuple):
+    """The scan's final state (packing.py:PackState): what the class-batched
+    scan returns beside its fills. ``res_rem`` is empty (no reservation
+    ledger in this port)."""
+    exist_used: torch.Tensor  # [N, R] float32
+    c_used: torch.Tensor  # [NMAX, R] float32
+    c_npods: torch.Tensor  # [NMAX] int32
+    c_active: torch.Tensor  # [NMAX] bool
+    c_pool: torch.Tensor  # [NMAX] int32
+    c_tmask: torch.Tensor  # [NMAX, T] bool
+    c_def: torch.Tensor  # [NMAX, K] bool
+    c_neg: torch.Tensor  # [NMAX, K] bool
+    c_mask: torch.Tensor  # [NMAX, K, V1] bool
+    c_dzone: torch.Tensor  # [NMAX] int32
+    c_dct: torch.Tensor  # [NMAX] int32
+    ch_cnt: torch.Tensor  # [NMAX, JH] int32
+    nhc: torch.Tensor  # [N, JH] int32
+    ddc: torch.Tensor  # [JD, V1] int32
+    res_rem: torch.Tensor  # [0] int32
+    c_resv: torch.Tensor  # [NMAX] bool
+    pool_rem: torch.Tensor  # [P, R] float32
+    n_open: torch.Tensor  # [] int32
+    overflow: torch.Tensor  # [] bool
+
+
+def classed_results(state, exist_fills, claim_fills, unplaced):
+    """The 10 outputs of ops/solve.py:solve_core from the class-batched
+    scan's (state, fills, unplaced)."""
+    return (
+        state.c_pool, state.c_tmask, state.n_open, state.overflow,
+        exist_fills, claim_fills, unplaced, state.c_dzone, state.c_dct,
+        state.c_resv,
+    )
+
+
+def pack_classed_reference(
+    g_count, g_req, g_def, g_neg, g_mask,
+    g_hcap, g_haff,
+    g_hstg, g_hscap, g_hself,
+    compat_pg, type_ok_pgt, n_fit_pgt,
+    cap_ng,
+    t_alloc, t_cap,
+    a_tzc,
+    p_daemon, p_limit, p_has_limit, p_tol,
+    n_avail, n_base,
+    n_hcnt,
+    nh_cnt0,
+    well_known,
+    g_dmode, g_dkey, g_dskew, g_dmin0, g_dprior, g_dreg, g_drank, g_dtg,
+    p_mask, n_dzone, n_dct, dd0,
+    g_hcontrib, g_dcontrib, dtg_key,
+    class_start, class_len, class_dyn, class_dkey, inv_idx,
+    *,
+    nmax: int,
+    lmax: int,
+    zone_kid: int,
+    ct_kid: int,
+    has_domains: bool,
+    has_contrib: bool = False,
+    wf_iters: int = 32,
+):
+    """Plain version of the class-batched scan (packing.py:pack_classed,
+    kernel B5), structure for structure: one step per feasibility class
+    (``class_start``/``class_len``: a contiguous run of FFD-sorted groups
+    with identical requests, masks and tolerations; ``class_dyn``/
+    ``class_dkey``: whether a member is domain-dynamic, and on which axis).
+
+    The class head builds the class-invariant tables once: the claims'
+    offering rows ``off0`` and, for a dynamic class, their per-domain
+    table ``toff_nt0`` [NMAX, T, V1], the templates' ``toff_pt`` and the
+    group-mask rows ``off_grp``/``toff_grp`` a claim opened in the class
+    carries; the fit counts ``add_fit0`` and the per-claim capacity
+    summaries ``capv`` [NMAX] / ``percapv`` [NMAX, V1]. Each member then
+    places its group reading only the summaries, which it maintains by
+    exact integer decrements (every member requests the same vector, so
+    a fill of k lowers every fit count by exactly k); claims pinned or
+    opened mid-class take their rows from the head tables. The claims'
+    type masks settle once at the end of the class, against the final
+    pins and the class's total fills. Outputs go through [C, lmax] member
+    buffers and back to the group axis by ``inv_idx``.
+
+    Returns (PackState, exist_fills [G, N], claim_fills [G, NMAX],
+    unplaced [G]), as pack_classed does."""
+    dev = g_count.device
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    P, T = type_ok_pgt.shape[0], type_ok_pgt.shape[2]
+    N = n_avail.shape[0]
+    R = t_alloc.shape[1]
+    K, V1 = g_mask.shape[1], g_mask.shape[2]
+    JH = nh_cnt0.shape[1]
+    JD = dd0.shape[0]
+    C = class_start.shape[0]
+    NSLOT, ANY, DEAD = V1 + 2, V1, V1 + 1
+    a_tzc_f = a_tzc.to(f32)
+
+    exist_used = n_base.clone()
+    c_used = torch.zeros((nmax, R), dtype=f32, device=dev)
+    c_npods = torch.zeros((nmax,), dtype=i32, device=dev)
+    c_active = torch.zeros((nmax,), dtype=b, device=dev)
+    c_pool = torch.zeros((nmax,), dtype=i32, device=dev)
+    c_tmask = torch.zeros((nmax, T), dtype=b, device=dev)
+    c_def = torch.zeros((nmax, K), dtype=b, device=dev)
+    c_neg = torch.zeros((nmax, K), dtype=b, device=dev)
+    c_mask = torch.ones((nmax, K, V1), dtype=b, device=dev)
+    c_dzone = torch.full((nmax,), -1, dtype=i32, device=dev)
+    c_dct = torch.full((nmax,), -1, dtype=i32, device=dev)
+    ch_cnt = torch.zeros((nmax, JH), dtype=i32, device=dev)
+    nhc = nh_cnt0.to(i32).clone()
+    ddc = dd0.to(i32).clone()
+    pool_rem = p_limit.clone()
+    n_open = 0
+    overflow = False
+
+    ebuf = torch.zeros((C, lmax, N), dtype=i32, device=dev)
+    cbuf = torch.zeros((C, lmax, nmax), dtype=i32, device=dev)
+    ubuf = torch.zeros((C, lmax), dtype=i32, device=dev)
+    slots = torch.arange(nmax, dtype=i32, device=dev)
+    bigi = _i32(_BIGI, dev)
+    zero_n = torch.zeros((N,), dtype=i32, device=dev)
+    zero_c = torch.zeros((nmax,), dtype=i32, device=dev)
+
+    for ci in range(C):
+        cs, cl = int(class_start[ci]), int(class_len[ci])
+        if cl <= 0:
+            continue  # a class of padding groups: skipped whole
+        cdyn = bool(class_dyn[ci])
+        cdk = int(class_dkey[ci])
+        # ---- class-invariant head tables ----
+        gih = cs
+        req = g_req[gih]
+        gdef, gneg, gmask = g_def[gih], g_neg[gih], g_mask[gih]
+        compat_row = compat_pg[:, gih]  # [P]
+        type_ok_row = type_ok_pgt[:, gih, :]  # [P, T]
+        n_fit_row = n_fit_pgt[:, gih, :]  # [P, T]
+        cap_row = cap_ng[:, gih]  # [N]
+        gz, gc = gmask[zone_kid], gmask[ct_kid]
+        # every touch within the class merges the same gmask, so these
+        # claim rows hold for all members
+        cz0 = c_mask[:, zone_kid] & gz[None, :]  # [NMAX, V1]
+        cc0 = c_mask[:, ct_kid] & gc[None, :]
+        pzm = p_mask[:, zone_kid, :] & gz[None, :]  # [P, V1]
+        pcm = p_mask[:, ct_kid, :] & gc[None, :]
+        off0 = torch.einsum("nz,tzc,nc->nt", cz0.to(f32), a_tzc_f, cc0.to(f32)) > 0
+        # the row every claim opened in this class carries (its mask is gmask)
+        off_grp = torch.einsum("z,tzc,c->t", gz.to(f32), a_tzc_f, gc.to(f32)) > 0
+        if has_domains:
+            if cdyn:
+                toff_nt0, toff_pt = _domain_avail(cdk, cz0, cc0, pzm, pcm, a_tzc_f)
+                if cdk == 0:
+                    toff_grp = (torch.einsum("c,tzc->tz", gc.to(f32), a_tzc_f) > 0) & gz[None, :]
+                else:
+                    toff_grp = (torch.einsum("z,tzc->tc", gz.to(f32), a_tzc_f) > 0) & gc[None, :]
+            else:
+                toff_nt0 = torch.zeros((nmax, T, V1), dtype=b, device=dev)
+                toff_pt = torch.zeros((P, T, V1), dtype=b, device=dev)
+                toff_grp = torch.zeros((T, V1), dtype=b, device=dev)
+        exist_cap = (
+            torch.where(cap_row > 0, fits_count(n_avail, exist_used, req[None, :]), zero_n)
+            if N else zero_n
+        )
+        add_fit0 = fits_count(t_alloc[None], c_used[:, None, :], req[None, None, :])
+        overlap = (c_mask & gmask[None]).any(-1)  # [NMAX, K]
+        exempt = c_neg & gneg[None, :]
+        key_ok = overlap | exempt | ~(c_def & gdef[None, :])
+        custom_ok = (~gdef[None, :] | well_known[None, :] | c_def | gneg[None, :]).all(-1)
+        cp = c_pool.long()
+        # c_active is applied per member (opens flip it mid-class)
+        live = key_ok.all(-1) & custom_ok & p_tol[cp, gih] & compat_row[cp]
+        tor = type_ok_row[cp]  # [NMAX, T]
+        # per-claim capacity summaries, the only claim-side state a member
+        # reads: a fill of k <= capv keeps the max-fit type alive, so capv
+        # (and each percapv lane) drops by exactly k; a pin collapses capv
+        # to the pinned lane
+        tm0 = c_tmask & tor & off0
+        capv = torch.where(tm0, add_fit0, 0).amax(-1)  # [NMAX]
+        if has_domains:
+            percapv = torch.where(
+                tm0[:, :, None] & toff_nt0, add_fit0[:, :, None], 0
+            ).amax(1)  # [NMAX, V1]
+        af0 = add_fit0.clone()
+        cfills = zero_c.clone()
+        n_open0 = n_open
+        pin0_rel = (c_dzone if cdk == 0 else c_dct).clone()
+        kid_sel = zone_kid if cdk == 0 else ct_kid
+
+        for j in range(cl):
+            gi = cs + j
+            count = g_count[gi]
+            if int(count) <= 0:
+                continue
+            hcap = g_hcap[gi]
+            haff = bool(g_haff[gi])
+            jh = int(g_hstg[gi])
+            has_h = jh >= 0
+            hself = bool(g_hself[gi])
+            jhc = min(max(jh, 0), JH - 1)
+            counted = has_h and hself
+            scap_h = g_hscap[gi]
+
+            h_allow = _h_allow(has_h, hself, scap_h)
+
+            mode = int(g_dmode[gi])
+            dyn = has_domains and mode > 0
+            jd = int(g_dtg[gi])
+            has_d = jd >= 0
+
+            # ---- 1. existing nodes ----
+            e_cap = torch.minimum(exist_cap, torch.clamp_min(hcap - n_hcnt[:, gi], 0))
+            haff_exist_served = False
+            if N:
+                e_cap = torch.minimum(e_cap, h_allow(nhc[:, jhc]))
+                if haff:
+                    e_cap, haff_exist_served = _haff_pin_nodes(e_cap, n_hcnt[:, gi])
+            claim_live = c_active & live
+            qd = torch.zeros((NSLOT,), dtype=i32, device=dev)
+            if dyn:
+                D0 = g_dprior[gi] + (ddc[min(jd, JD - 1)] if has_d else 0)
+                reg = g_dreg[gi]
+                nd_raw = n_dzone if cdk == 0 else n_dct
+                nd_ok = (nd_raw >= 0) & reg[nd_raw.clamp(0, V1 - 1).long()]
+                nd_slot = torch.where(nd_ok, nd_raw, torch.full_like(nd_raw, DEAD))
+                nd_oh = torch.nn.functional.one_hot(nd_slot.long(), NSLOT).to(i32)
+                qd[:V1] = _domain_quota(
+                    mode, count, D0, reg, g_drank[gi], g_dskew[gi], bool(g_dmin0[gi]),
+                    e_cap, nd_raw, nd_slot, nd_oh, type_ok_row, toff_pt, percapv,
+                    claim_live, c_npods, hcap, h_allow(ch_cnt[:, jhc]),
+                    c_dzone if cdk == 0 else c_dct, V1,
+                    wf_iters, wf=waterfill1,
+                )
+                slot_cap = e_cap[:, None] * nd_oh
+                pre_own = ((_cumsum32(slot_cap) - slot_cap) * nd_oh).sum(1, dtype=i32)
+                exist_fill = _clip(qd[nd_slot.long()] - pre_own, zero_n, e_cap)
+                qrem = qd - (exist_fill[:, None] * nd_oh).sum(0, dtype=i32)
+            else:
+                qd[ANY] = count
+                exist_fill = greedy_prefix_fill(e_cap, count)
+                qrem = qd.clone()
+                qrem[ANY] -= _sum32(exist_fill)
+            if haff_exist_served:
+                qrem = torch.zeros_like(qrem)
+            exist_used = exist_used + exist_fill[:, None].to(f32) * req[None, :]
+            if counted:
+                nhc[:, jhc] += exist_fill
+            exist_cap = exist_cap - exist_fill  # same-request decrement: exact
+
+            # ---- 2. open claims, from the maintained summaries ----
+            def clamp(cap):
+                cap = torch.minimum(cap, hcap)
+                cap = torch.minimum(cap, count)
+                return torch.minimum(cap, h_allow(ch_cnt[:, jhc]))
+
+            c_slot = torch.full((nmax,), ANY, dtype=i32, device=dev)
+            if dyn:
+                percap = torch.where(claim_live[:, None], percapv, 0)
+                adm = claim_live[:, None] & (percap >= 1) & (qrem[:V1] > 0)[None, :]
+                c_slot, _ = spread_domain_choice(adm, qrem[:V1], mode, V1, DEAD)
+                cap_dom = percap.gather(1, c_slot.clamp(0, V1 - 1).long()[:, None])[:, 0]
+                claim_cap = clamp(torch.where(c_slot < V1, cap_dom, zero_c))
+                if int(count) <= 1:
+                    # at most one slot carries quota: one least-loaded pick
+                    s_star = int(torch.argmax(qrem))
+                    elig = (c_slot == s_star) & (claim_cap >= 1)
+                    tstar = int(torch.argmin(torch.where(elig, c_npods, bigi)))
+                    take = int(int(qrem[s_star]) >= 1 and bool(elig.any()))
+                    claim_fill = torch.where(slots == tstar, take, 0).to(i32)
+                    qrem = qrem.clone()
+                    qrem[s_star] -= take
+                else:
+                    claim_fill = zero_c
+                    placed_sd = torch.zeros((NSLOT,), dtype=i32, device=dev)
+                    for sl in range(NSLOT):
+                        m = c_slot == sl
+                        cap_s = torch.where(m, claim_cap, zero_c)
+                        if not bool((cap_s > 0).any()):
+                            continue  # every cap 0: the waterfill hands out nothing
+                        f = waterfill(
+                            torch.where(m, c_npods, bigi), cap_s, qrem[sl], iters=wf_iters
+                        )
+                        claim_fill = claim_fill + f
+                        placed_sd[sl] = _sum32(f)
+                    qrem = qrem - placed_sd
+            else:
+                claim_cap = clamp(torch.where(claim_live, capv, zero_c))
+                haff_any_claim = False
+                if haff:
+                    elig = claim_cap >= 1
+                    haff_any_claim = bool(elig.any())
+                    if haff_any_claim:
+                        tstar = int(torch.argmin(torch.where(elig, c_npods, bigi)))
+                        claim_cap = torch.where(slots == tstar, claim_cap, zero_c)
+                    else:
+                        claim_cap = zero_c
+                claim_fill = waterfill1(c_npods, claim_cap, qrem[ANY], iters=wf_iters)
+                qrem = qrem.clone()
+                qrem[ANY] -= _sum32(claim_fill)
+                if haff_any_claim:
+                    qrem = torch.zeros_like(qrem)
+
+            got = claim_fill > 0
+            c_used = c_used + claim_fill[:, None].to(f32) * req[None, :]
+            c_npods = c_npods + claim_fill
+            if counted:
+                ch_cnt[:, jhc] += claim_fill
+            c_def = c_def | (got[:, None] & gdef[None, :])
+            c_neg = torch.where(got[:, None], c_neg & gneg[None, :], c_neg)
+            merged_mask = c_mask & gmask[None]
+            if has_domains:
+                tighten = got & (c_slot < V1) if dyn else torch.zeros_like(got)
+                pin = c_slot.clamp(0, V1 - 1)
+                d_oh = torch.nn.functional.one_hot(pin.long(), V1).bool()
+                krow = torch.zeros((K,), dtype=b, device=dev)
+                krow[kid_sel] = True
+                tight_mask = merged_mask & (~krow[None, :, None] | d_oh[:, None, :])
+                new_mask = torch.where(tighten[:, None, None], tight_mask, merged_mask)
+                c_mask = torch.where(got[:, None, None], new_mask, c_mask)
+                if cdk == 0:
+                    c_dzone = torch.where(tighten, pin, c_dzone)
+                else:
+                    c_dct = torch.where(tighten, pin, c_dct)
+                # exact decrements; a pin zeroes the other lanes
+                percapv = torch.clamp_min(percapv - claim_fill[:, None], 0)
+                percapv = torch.where(tighten[:, None], percapv * d_oh, percapv)
+                capv = torch.where(
+                    tighten, percapv.gather(1, pin.long()[:, None])[:, 0], capv - claim_fill
+                )
+            else:
+                c_mask = torch.where(got[:, None, None], merged_mask, c_mask)
+                capv = capv - claim_fill
+            cfills = cfills + claim_fill
+
+            # ---- 3. fresh claims ----
+            ddead = torch.zeros((NSLOT,), dtype=b, device=dev)
+            ddead[DEAD] = True
+            while bool(((qrem > 0) & ~ddead).any()) and not overflow:
+                d_sel = int(torch.argmax(torch.where(ddead, torch.full_like(qrem, -1), qrem)))
+                rem_d = qrem[d_sel]
+                is_any = d_sel == ANY
+                within = torch.where(
+                    p_has_limit[:, None],
+                    (t_cap[None, :, :] <= pool_rem[:, None, :]).all(-1),
+                    torch.ones((P, T), dtype=b, device=dev),
+                )
+                avail = type_ok_row & within
+                if has_domains and not is_any:
+                    avail = avail & toff_pt[:, :, d_sel]
+                feas_p = avail.any(-1)
+                any_feasible = bool(feas_p.any())
+                p_star = int(torch.argmax(feas_p.to(i32)))
+                n_fit_max = torch.where(avail[p_star], n_fit_row[p_star], 0).amax()
+                n_per = torch.minimum(n_fit_max, hcap)
+                n_per = torch.minimum(n_per, scap_h if counted else bigi)
+                debit = torch.where(
+                    avail[p_star][:, None], t_cap, torch.zeros_like(t_cap)
+                ).amax(0)
+                if bool(p_has_limit[p_star]):
+                    eps = torch.tensor(1e-9, dtype=f32, device=dev)
+                    per = torch.where(
+                        debit > 0,
+                        torch.floor(pool_rem[p_star] / torch.maximum(debit, eps)),
+                        torch.tensor(float("inf"), dtype=f32, device=dev),
+                    )
+                    k_limit = per.amin()
+                else:
+                    k_limit = torch.tensor(float("inf"), dtype=f32, device=dev)
+                k_need = f32_to_i32(
+                    torch.ceil(rem_d.to(f32) / torch.clamp_min(n_per, 1).to(f32))
+                )
+                k_cap = f32_to_i32(
+                    torch.where(torch.isinf(k_limit), torch.full_like(k_limit, 2.0**30), k_limit)
+                )
+                k_want = int(torch.minimum(k_need, k_cap))
+                slot = n_open
+                k_slots = max(nmax - slot, 0)
+                if haff:
+                    k_want = min(k_want, 1)
+                k = min(k_want, k_slots)
+                n_per_v = int(n_per)
+                ok = any_feasible and k > 0 and n_per_v > 0
+                k = k if ok else 0
+                takes, _ = bulk_takes(
+                    rem_d, _i32(k, dev), n_per, slots, slot, is_any, has_domains
+                )
+                placed = _sum32(takes)
+                d_pin = d_sel if dyn and not is_any else -1
+                if k:
+                    sl = slice(slot, slot + k)
+                    tk = takes[sl]
+                    c_used[sl] = p_daemon[p_star][None, :] + tk[:, None].to(f32) * req[None, :]
+                    c_npods[sl] = tk
+                    c_active[sl] = True
+                    c_pool[sl] = p_star
+                    c_tmask[sl] = avail[p_star][None, :] & (n_fit_row[p_star][None, :] >= tk[:, None])
+                    c_def[sl] = gdef[None, :]
+                    c_neg[sl] = gneg[None, :]
+                    c_mask[sl] = gmask[None]
+                    if d_pin >= 0:
+                        # claims opened for a dynamic group are pinned at birth
+                        c_mask[sl, kid_sel] = False
+                        c_mask[sl, kid_sel, d_pin] = gmask[kid_sel, d_pin]
+                    c_dzone[sl] = d_pin if cdk == 0 else -1
+                    c_dct[sl] = d_pin if cdk == 1 else -1
+                    ch_cnt[sl] = 0
+                    if counted:
+                        ch_cnt[sl, jhc] = tk
+                    # the opened claims' summaries: takes <= the best
+                    # available fit, so capv is n_fit_max - takes; the
+                    # per-domain maxima reduce over the group-mask row
+                    capv[sl] = n_fit_max - tk
+                    if has_domains:
+                        pmax = torch.where(
+                            avail[p_star][:, None] & toff_grp, n_fit_row[p_star][:, None], 0
+                        ).amax(0)  # [V1]
+                        prow = torch.clamp_min(pmax[None, :] - tk[:, None], 0)
+                        if d_pin >= 0:
+                            prow = prow * (torch.arange(V1, device=dev) == d_pin).to(i32)[None, :]
+                        percapv[sl] = prow
+                    af0[sl] = n_fit_row[p_star][None, :] - tk[:, None]
+                    cfills[sl] = 0
+                    live[sl] = True
+                    tor[sl] = type_ok_row[p_star][None, :]
+                if ok and bool(p_has_limit[p_star]):
+                    pool_rem[p_star] = pool_rem[p_star] + (-debit) * float(k)
+                n_open = slot + k
+                overflow = overflow or (any_feasible and n_per_v > 0 and k_want > k_slots)
+                claim_fill = claim_fill + takes
+                qrem = qrem.clone()
+                qrem[d_sel] -= placed
+                if int(placed) == 0 or haff:
+                    ddead[d_sel] = True
+
+            # shared domain carry, then contributor counting
+            if dyn and has_d and mode < DMODE_GATE_SPREAD:
+                ddc[jd] += qd[:V1] - qrem[:V1]
+            if has_contrib:
+                _contrib_add(
+                    g_hcontrib[gi], g_dcontrib[gi], exist_fill, claim_fill, c_mask,
+                    n_dzone, n_dct, dtg_key, nhc, ch_cnt, ddc, zone_kid, ct_kid,
+                )
+            ebuf[ci, j] = exist_fill
+            cbuf[ci, j] = claim_fill
+            ubuf[ci, j] = count - _sum32(exist_fill) - _sum32(claim_fill)
+
+        # ---- end-of-class type-mask settlement ----
+        # one intersection with the final pins and the class-total fills
+        # equals the per-member updates pack makes
+        is_new = slots >= n_open0
+        pin_rel = c_dzone if cdk == 0 else c_dct
+        if has_domains:
+            pinc = pin_rel.clamp(0, V1 - 1).long()
+            newpin = (pin_rel >= 0) & (pin_rel != pin0_rel) & ~is_new
+            toff_at_pin = toff_nt0.gather(2, pinc[:, None, None].expand(nmax, T, 1))[..., 0]
+            grp_at_pin = toff_grp.t()[pinc]  # [NMAX, T]
+            off_new = torch.where((pin_rel >= 0)[:, None], grp_at_pin, off_grp[None, :])
+            off_fin = torch.where(
+                is_new[:, None], off_new, torch.where(newpin[:, None], toff_at_pin, off0)
+            )
+        else:
+            off_fin = torch.where(is_new[:, None], off_grp[None, :], off0)
+        touched = cfills > 0
+        surv = tor & off_fin & (af0 >= cfills[:, None])
+        c_tmask = torch.where(touched[:, None], c_tmask & surv, c_tmask)
+
+    state = PackState(
+        exist_used=exist_used, c_used=c_used, c_npods=c_npods, c_active=c_active,
+        c_pool=c_pool, c_tmask=c_tmask, c_def=c_def, c_neg=c_neg, c_mask=c_mask,
+        c_dzone=c_dzone, c_dct=c_dct, ch_cnt=ch_cnt, nhc=nhc, ddc=ddc,
+        res_rem=torch.zeros((0,), dtype=i32, device=dev),
+        c_resv=torch.zeros((nmax,), dtype=b, device=dev), pool_rem=pool_rem,
+        n_open=torch.tensor(n_open, dtype=i32, device=dev),
+        overflow=torch.tensor(overflow, dtype=b, device=dev),
+    )
+    inv = inv_idx.long()
+    return (
+        state,
+        ebuf.reshape(C * lmax, N)[inv],
+        cbuf.reshape(C * lmax, nmax)[inv],
+        ubuf.reshape(C * lmax)[inv],
+    )
 
 
 # (position, rank with the scenario axis) of each input a scenario batch
@@ -673,13 +1234,14 @@ def pack_scenarios_reference(*args, **statics):
 
 
 def pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool,
-         wf_iters: int = 32):
+         has_contrib: bool = False, wf_iters: int = 32):
     """The grouped-FFD scan over ``pack_reference``'s positional inputs:
     ``pack_reference`` for CPU tensors, kernel B4 (csrc/pack.cu) for CUDA
     tensors. Same outputs either way. A 2-D ``g_count`` [S, G] is a
     scenario batch (module docstring)."""
     statics = dict(nmax=nmax, zone_kid=zone_kid, ct_kid=ct_kid,
-                   has_domains=has_domains, wf_iters=wf_iters)
+                   has_domains=has_domains, has_contrib=has_contrib,
+                   wf_iters=wf_iters)
     if args[0].device.type == "cpu":
         if args[0].dim() == 2:
             return pack_scenarios_reference(*args, **statics)
@@ -687,30 +1249,36 @@ def pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool,
     return _launch_pack(*args, **statics)
 
 
-def _launch_pack(
-    g_count, g_req, g_def, g_neg, g_mask,
-    g_hcap, g_haff,
-    g_hstg, g_hscap, g_hself,
-    compat_pg, type_ok_pgt, n_fit_pgt,
-    cap_ng,
-    t_alloc, t_cap,
-    a_tzc,
-    p_daemon, p_limit, p_has_limit, p_tol,
-    n_avail, n_base,
-    n_hcnt,
-    nh_cnt0,
-    well_known,
-    g_dmode, g_dkey, g_dskew, g_dmin0, g_dprior, g_dreg, g_drank, g_dtg,
-    p_mask, n_dzone, n_dct, dd0,
-    *,
-    nmax: int,
-    zone_kid: int,
-    ct_kid: int,
-    has_domains: bool,
-    wf_iters: int = 32,
-):
-    import ctypes
+def pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int,
+                 has_domains: bool, has_contrib: bool = False, wf_iters: int = 32):
+    """The class-batched scan over ``pack_classed_reference``'s positional
+    inputs (``pack_reference``'s, then the class arrays):
+    ``pack_classed_reference`` for CPU tensors, kernel B5
+    (csrc/pack_classed.cu) for CUDA tensors. Returns (PackState,
+    exist_fills, claim_fills, unplaced) either way."""
+    statics = dict(nmax=nmax, lmax=lmax, zone_kid=zone_kid, ct_kid=ct_kid,
+                   has_domains=has_domains, has_contrib=has_contrib,
+                   wf_iters=wf_iters)
+    if args[0].device.type == "cpu":
+        return pack_classed_reference(*args, **statics)
+    return _launch_pack_classed(*args, **statics)
 
+
+# the number of the scan's positional inputs (pack_reference's order,
+# which is also the kernels' C order); B5 takes the class arrays after them
+_SCAN_INPUTS = 41
+
+
+def _check_scan_inputs(args):
+    """Shapes, dtypes and device of the scan's positional inputs (a
+    scenario batch's leading [S] on g_count and cap_ng, and on n_hcnt,
+    nh_cnt0, g_dprior, dd0 when batched); raises on what the kernels do
+    not take. Returns (dims dict, S, batched-axis strides)."""
+    (g_count, g_req, g_def, g_neg, g_mask, g_hcap, g_haff, g_hstg, g_hscap,
+     g_hself, compat_pg, type_ok_pgt, n_fit_pgt, cap_ng, t_alloc, t_cap, a_tzc,
+     p_daemon, p_limit, p_has_limit, p_tol, n_avail, n_base, n_hcnt, nh_cnt0,
+     well_known, g_dmode, g_dkey, g_dskew, g_dmin0, g_dprior, g_dreg, g_drank,
+     g_dtg, p_mask, n_dzone, n_dct, dd0, g_hcontrib, g_dcontrib, dtg_key) = args
     G, K, V1 = g_mask.shape
     P, T = type_ok_pgt.shape[0], type_ok_pgt.shape[2]
     N, R = n_avail.shape
@@ -728,7 +1296,7 @@ def _launch_pack(
             raise ValueError(f"{name} scenario axes {ld} vs g_count's {lead}")
     if JH < 1 or JD < 1 or R > 32:
         raise ValueError(
-            f"pack kernel needs JH >= 1, JD >= 1 and R <= 32 (JH={JH}, JD={JD}, R={R})")
+            f"the scan kernels need JH >= 1, JD >= 1 and R <= 32 (JH={JH}, JD={JD}, R={R})")
     dev = g_mask.device
     b, i32, f32 = torch.bool, torch.int32, torch.float32
     for t, name, dt, shape in (
@@ -756,17 +1324,31 @@ def _launch_pack(
         (g_dtg, "g_dtg", i32, (G,)), (p_mask, "p_mask", b, (P, K, V1)),
         (n_dzone, "n_dzone", i32, (N,)), (n_dct, "n_dct", i32, (N,)),
         (dd0, "dd0", i32, leads["dd0"] + (JD, V1)),
+        (g_hcontrib, "g_hcontrib", b, (G, JH)), (g_dcontrib, "g_dcontrib", b, (G, JD)),
+        (dtg_key, "dtg_key", i32, (JD,)),
     ):
         _build.check(t, name, dt, shape, dev)
+    dims = dict(G=G, T=T, P=P, N=N, R=R, K=K, V1=V1, JH=JH, JD=JD)
+    strides = (
+        G if lead else 0, N * G if lead else 0,
+        N * G if leads["n_hcnt"] else 0, N * JH if leads["nh_cnt0"] else 0,
+        G * V1 if leads["g_dprior"] else 0, JD * V1 if leads["dd0"] else 0,
+    )
+    return dims, S, strides
+
+
+def _scan_buffers(dims, S, nmax, has_domains, dev, lead=()):
+    """The scan's PackState and per-step scratch, one slice per scenario
+    (the kernels initialize all of it; the domain scratch is empty
+    without domains), and its 10 outputs with ``lead``."""
+    G, T, P, N, R, K, V1, JH, JD = (dims[k] for k in "G T P N R K V1 JH JD".split())
     W = (V1 + 31) // 32
-    dyn = bool(has_domains)
+    b, i32, f32 = torch.bool, torch.int32, torch.float32
 
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    # PackState and per-step scratch, one slice per scenario (the kernel
-    # initializes all of it); the domain scratch is empty without domains
-    dom = (lambda n: n) if dyn else (lambda n: 0)
+    dom = (lambda n: n) if has_domains else (lambda n: 0)
     state = tuple(empty((S,) + shape, dt) for shape, dt in (
         ((N, R), f32), ((nmax, R), f32), ((nmax,), i32),
         ((nmax, K), b), ((nmax, K), b), ((nmax, K, V1), b),
@@ -783,33 +1365,96 @@ def _launch_pack(
         ((G, N), i32), ((G, nmax), i32), ((G,), i32),
         ((nmax,), i32), ((nmax,), i32), ((nmax,), b),
     ))
-    strides = (
-        G if lead else 0, N * G if lead else 0,
-        N * G if leads["n_hcnt"] else 0, N * JH if leads["nh_cnt0"] else 0,
-        G * V1 if leads["g_dprior"] else 0, JD * V1 if leads["dd0"] else 0,
-    )
+    return state, outs
+
+
+def _launch_pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool,
+                 has_contrib: bool = False, wf_iters: int = 32):
+    import ctypes
+
+    dims, S, strides = _check_scan_inputs(args)
+    dev = args[0].device
+    dyn = bool(has_domains)
+    state, outs = _scan_buffers(dims, S, nmax, dyn, dev, lead=tuple(args[0].shape[:-1]))
     fn = _build.library("pack").kt_pack
     p = _build.ptr
     with torch.cuda.device(dev):
         rc = fn(
             *(ctypes.c_int(int(v)) for v in (
-                S, G, T, P, N, R, K, V1, nmax, JH, JD, zone_kid, ct_kid,
-                wf_iters, int(dyn))),
+                S, dims["G"], dims["T"], dims["P"], dims["N"], dims["R"], dims["K"],
+                dims["V1"], nmax, dims["JH"], dims["JD"], zone_kid, ct_kid,
+                wf_iters, int(dyn), int(bool(has_contrib)))),
             *(ctypes.c_longlong(v) for v in strides),
-            p(g_count), p(g_req), p(g_def), p(g_neg), p(g_mask),
-            p(g_hcap), p(g_haff), p(g_hstg), p(g_hscap), p(g_hself),
-            p(compat_pg), p(type_ok_pgt), p(n_fit_pgt), p(cap_ng),
-            p(t_alloc), p(t_cap), p(a_tzc),
-            p(p_daemon), p(p_limit), p(p_has_limit), p(p_tol),
-            p(n_avail), p(n_base), p(n_hcnt), p(nh_cnt0), p(well_known),
-            p(g_dmode), p(g_dkey), p(g_dskew), p(g_dmin0), p(g_dprior),
-            p(g_dreg), p(g_drank), p(g_dtg), p(p_mask), p(n_dzone),
-            p(n_dct), p(dd0),
+            *(p(x) for x in args),
             *(p(x) for x in state),
             *(p(x) for x in outs),
             _build.stream(),
         )
-    # a domain batch runs the scan's domain machinery: counted on its own
-    _build.launched("pack", rc, scenarios=S,
-                    variant="pack_domains" if dyn else None)
+    # a domain batch runs the scan's domain machinery, a contributor batch
+    # its contributor counting: each counted on its own as well
+    _build.launched("pack", rc, scenarios=S, variants=(
+        ("pack_domains",) * dyn + ("pack_contrib",) * bool(has_contrib)))
     return outs
+
+
+def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int,
+                         has_domains: bool, has_contrib: bool = False, wf_iters: int = 32):
+    import ctypes
+
+    scan, classes = args[:_SCAN_INPUTS], args[_SCAN_INPUTS:]
+    dims, S, _ = _check_scan_inputs(scan)
+    if S != 1 or scan[0].dim() != 1:
+        raise ValueError("the class-batched scan takes no scenario axis")
+    G, T, N, V1 = dims["G"], dims["T"], dims["N"], dims["V1"]
+    dev = scan[0].device
+    b, i32 = torch.bool, torch.int32
+    class_start, class_len, class_dyn, class_dkey, inv_idx = classes
+    C = class_start.shape[0]
+    for t, name, dt, shape in (
+        (class_start, "class_start", i32, (C,)), (class_len, "class_len", i32, (C,)),
+        (class_dyn, "class_dyn", b, (C,)), (class_dkey, "class_dkey", i32, (C,)),
+        (inv_idx, "inv_idx", i32, (G,)),
+    ):
+        _build.check(t, name, dt, shape, dev)
+    dyn = bool(has_domains)
+    state, outs = _scan_buffers(dims, 1, nmax, dyn, dev)
+    state = tuple(x[0] for x in state)
+    dom = (lambda n: n) if dyn else (lambda n: 0)
+    # the class head tables and per-claim summaries: capv, percapv, af0,
+    # off0, toff_nt0, live, cfills, pin0, off_grp, toff_grp, e_cap
+    head = tuple(torch.empty(shape, dtype=dt, device=dev) for shape, dt in (
+        ((nmax,), i32), ((dom(nmax), V1), i32), ((nmax, T), i32),
+        ((nmax, T), b), ((dom(nmax), T, V1), b), ((nmax,), b),
+        ((nmax,), i32), ((nmax,), i32), ((T,), b), ((dom(T), V1), b),
+        ((N,), i32),
+    ))
+    fn = _build.library("pack_classed").kt_pack_classed
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        rc = fn(
+            *(ctypes.c_int(int(v)) for v in (
+                G, T, dims["P"], N, dims["R"], dims["K"], V1, nmax, dims["JH"],
+                dims["JD"], C, zone_kid, ct_kid, wf_iters, int(dyn),
+                int(bool(has_contrib)))),
+            *(p(x) for x in scan),
+            # inv_idx is not passed: fills go straight to the group rows
+            *(p(x) for x in classes[:4]),
+            *(p(x) for x in state),
+            *(p(x) for x in head),
+            *(p(x) for x in outs),
+            _build.stream(),
+        )
+    _build.launched("pack_classed", rc)
+    (c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills, unplaced,
+     c_dzone, c_dct, c_resv) = outs
+    (exist_used, c_used, c_npods, c_def, c_neg, c_mask, ch_cnt, nhc, pool_rem,
+     *_scratch, ddc) = state
+    pack_state = PackState(
+        exist_used=exist_used, c_used=c_used, c_npods=c_npods,
+        c_active=torch.arange(nmax, device=dev) < n_open, c_pool=c_pool,
+        c_tmask=c_tmask, c_def=c_def, c_neg=c_neg, c_mask=c_mask,
+        c_dzone=c_dzone, c_dct=c_dct, ch_cnt=ch_cnt, nhc=nhc, ddc=ddc,
+        res_rem=torch.zeros((0,), dtype=i32, device=dev), c_resv=c_resv,
+        pool_rem=pool_rem, n_open=n_open, overflow=overflow,
+    )
+    return pack_state, exist_fills, claim_fills, unplaced

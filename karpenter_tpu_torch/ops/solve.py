@@ -18,9 +18,12 @@ arguments resident on the card between solves (solver/residency.py):
 churn moves only the changed rows, scattered into a copy of the resident
 buffer by csrc/apply_rows.cu.
 
+The class-batched variant (``solve_core_classed``, B5 in place of B4)
+runs the same dispatch over the driver's class partition: batches of many
+small groups sharing few feasibility classes.
+
 Not in this slice (each raises NotImplementedError): the dense
-feasibility twins (B3) and the tiled mode, and the class-batched scan
-(B5).
+feasibility twins (B3) and the tiled mode.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from .feasibility import (
     existing_node_feasibility_sparse,
     fresh_claim_feasibility_sparse,
 )
-from .packing import check_scope, pack
+from .packing import check_scope, classed_results, pack, pack_classed
 
 
 def _feasibility_tables(a, zone_kid: int, ct_kid: int):
@@ -84,23 +87,64 @@ def solve_core(
     unplaced, c_dzone, c_dct, c_resv). Given a scenario batch (see
     ``solve_scenarios_core_packed``) every output has a leading [S]."""
     a = dict(zip(SOLVE_ARG_NAMES, args))
-    check_scope(
-        has_contrib, tile_feasibility, a["res_cap0"].shape[0], a["p_mvmin"].shape[1],
+    return pack(
+        *_scan_inputs(a, zone_kid, ct_kid, tile_feasibility, sparse_groups),
+        nmax=nmax,
+        zone_kid=zone_kid,
+        ct_kid=ct_kid,
+        has_domains=has_domains,
+        has_contrib=has_contrib,
+        wf_iters=wf_iters,
     )
+
+
+def _scan_inputs(a, zone_kid, ct_kid, tile_feasibility, sparse_groups):
+    """The scan's positional inputs from the named solve args ``a``: the
+    scope check, then the feasibility tables (B1, and B2 when there are
+    existing nodes)."""
+    check_scope(tile_feasibility, a["res_cap0"].shape[0], a["p_mvmin"].shape[1])
     if not sparse_groups:
         raise NotImplementedError(
             "the dense feasibility twins (B3) are not ported; pass "
             "sparse_groups=True (bit-exact with the dense tables)"
         )
-    compat_pg, type_ok, n_fit, cap_ng = _feasibility_tables(a, zone_kid, ct_kid)
-    return pack(
-        *pack_args(a, compat_pg, type_ok, n_fit, cap_ng),
+    return pack_args(a, *_feasibility_tables(a, zone_kid, ct_kid))
+
+
+def solve_core_classed(
+    *args,
+    nmax: int,
+    lmax: int,
+    zone_kid: int,
+    ct_kid: int,
+    has_domains: bool = True,
+    has_contrib: bool = False,
+    tile_feasibility: bool = False,
+    wf_iters: int = 32,
+    sparse_groups: bool = False,
+):
+    """ops/solve.py:solve_core_classed: ``solve_core`` over the
+    class-batched scan (B5). Trailing positional args after the solve
+    args: class_start, class_len, class_dyn, class_dkey, inv_idx (the
+    driver's class partition, staged per solve); ``lmax`` the member
+    bucket. The same 10 outputs as ``solve_core``, decision for decision.
+    Like pack_classed, it takes no reservation ledger (NRES > 0 raises)."""
+    n = len(SOLVE_ARG_NAMES)
+    a = dict(zip(SOLVE_ARG_NAMES, args[:n]))
+    classes = args[n:]
+    if len(classes) != 5:
+        raise ValueError(f"expected the 5 class arrays after the solve args, got {len(classes)}")
+    return classed_results(*pack_classed(
+        *_scan_inputs(a, zone_kid, ct_kid, tile_feasibility, sparse_groups),
+        *classes,
         nmax=nmax,
+        lmax=lmax,
         zone_kid=zone_kid,
         ct_kid=ct_kid,
         has_domains=has_domains,
+        has_contrib=has_contrib,
         wf_iters=wf_iters,
-    )
+    ))
 
 
 # the solve args the packing scan reads, in its positional order around the
@@ -111,7 +155,7 @@ PACK_TAIL = ("t_alloc", "t_cap", "a_tzc", "p_daemon", "p_limit",
              "p_has_limit", "p_tol", "n_avail", "n_base", "n_hcnt", "nh_cnt0",
              "well_known", "g_dmode", "g_dkey", "g_dskew", "g_dmin0",
              "g_dprior", "g_dreg", "g_drank", "g_dtg", "p_mask", "n_dzone",
-             "n_dct", "dd0")
+             "n_dct", "dd0", "g_hcontrib", "g_dcontrib", "dtg_key")
 
 
 def pack_args(a, compat_pg, type_ok, n_fit, cap_ng):
@@ -221,6 +265,10 @@ def _launch_wire_pack(outs, fills_dtype):
 
 def solve_core_packed(*args, fills_dtype=torch.int32, **statics):
     return wire_pack(solve_core(*args, **statics), fills_dtype)
+
+
+def solve_core_classed_packed(*args, fills_dtype=torch.int32, **statics):
+    return wire_pack(solve_core_classed(*args, **statics), fills_dtype)
 
 
 # -- scenario axis ----------------------------------------------------------
@@ -351,6 +399,13 @@ def dispatch_packed(*args, **kw):
     with obs.span("kernel.dispatch", kernel="pack"):
         out = solve_core_packed(*args, **kw)
     return faults.mutate(faults.SOLVER_OUTPUT, out, kernel="pack")
+
+
+def dispatch_classed_packed(*args, **kw):
+    faults.hit(faults.SOLVER_DISPATCH, kernel="pack_classed")
+    with obs.span("kernel.dispatch", kernel="pack_classed"):
+        out = solve_core_classed_packed(*args, **kw)
+    return faults.mutate(faults.SOLVER_OUTPUT, out, kernel="pack_classed")
 
 
 def dispatch_scenarios_packed(*args, **kw):

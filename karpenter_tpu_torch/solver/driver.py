@@ -25,10 +25,14 @@ A guard rejection of a solve that ran on a warm (reused or row-delta)
 encoding sheds the warm state and re-solves once from a full re-encode,
 on the same device (``_delta_fallback``); a second rejection propagates.
 
-Not in this slice, each raising NotImplementedError: the class-batched
-scan, the relaxation pre-solver and the multi-GPU mesh (ROADMAP.md items
-A8, A9, A13), and the kernel statics outside the ported pack scope
-(contributor counting, reservations, minValues, tiled tables: item A4b).
+Batches of many small groups that share few feasibility classes (the
+reference's diverse mix) take the class-batched scan (B5 in place of B4),
+routed exactly as the JAX package routes them (``_classed_partition``).
+
+Not in this slice, each raising NotImplementedError: the relaxation
+pre-solver and the multi-GPU mesh (ROADMAP.md items A9, A13), and the
+kernel statics outside the ported pack scope (reservations, minValues,
+tiled tables: item A4b).
 """
 
 from __future__ import annotations
@@ -264,6 +268,10 @@ class EncodeCache:
         return self.device_store
 
 
+# the class partition's arrays, in dispatch_classed_packed's order
+_CLASS_ARG_NAMES = ("class_start", "class_len", "class_dyn", "class_dkey", "inv_idx")
+
+
 def _not_in_slice(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP.md item {item})"
@@ -280,16 +288,17 @@ class SolverConfig:
     force_oracle: bool = False  # route everything host-side (debugging)
     # multi-tenant attribution: rides the decision audit records' attrs
     tenant: str = ""
+    # class-batched scan (ops/packing.py:pack_classed, kernel B5): True
+    # forces it, False forces the per-group scan, None routes by mean class
+    # size (TorchSolver._classed_partition), as the JAX package does
+    classed: Optional[bool] = None
     # not in this slice: set, each raises NotImplementedError
     mesh: Optional[object] = None
-    classed: Optional[bool] = None
     relax: Optional[bool] = None
 
     def __post_init__(self):
         if self.mesh is not None:
             raise _not_in_slice("the multi-GPU mesh (B10)", "A13")
-        if self.classed:
-            raise _not_in_slice("the class-batched scan (B5)", "A8")
         if self.relax:
             raise _not_in_slice("the relaxation pre-solver (B9)", "A9")
         dev = torch.device(self.device)
@@ -558,8 +567,7 @@ class TorchSolver:
         statics = self._kernel_statics(snap, G)
         # outside the ported pack scope: raise before anything launches
         check_scope(
-            statics["has_contrib"], statics["tile_feasibility"],
-            res_cap0.shape[0], snap.p_mvmin.shape[1],
+            statics["tile_feasibility"], res_cap0.shape[0], snap.p_mvmin.shape[1],
         )
         snap_run = snap.padded(G, N)
         args = list(snap_run.solve_args(a_tzc, res_cap0, a_res))
@@ -1215,8 +1223,7 @@ class TorchSolver:
         statics = self._kernel_statics(snap, G)
         # outside the ported pack scope: raise before anything launches
         check_scope(
-            statics["has_contrib"], statics["tile_feasibility"],
-            res_cap0.shape[0], snap.p_mvmin.shape[1],
+            statics["tile_feasibility"], res_cap0.shape[0], snap.p_mvmin.shape[1],
         )
         snap_run = snap.padded(G, N)
         # device residency: the encoded cluster stays on the device between
@@ -1241,16 +1248,31 @@ class TorchSolver:
         fills_dtype = (
             torch.int16 if self._fill_bound(snap, fit) < 2**15 else torch.int32
         )
-        from ..ops.solve import dispatch_packed
+        from ..ops.solve import dispatch_classed_packed, dispatch_packed
+
+        # the class-batched scan where the JAX router takes it; its class
+        # arrays are per solve, staged beside the resident args
+        classed_args = self._classed_partition(snap_run, res_cap0)
+        if classed_args is not None:
+            cls_host, lmax = classed_args
+            cls_arrays = [
+                put(name, arr, self.device)
+                for name, arr in zip(_CLASS_ARG_NAMES, cls_host)
+            ]
 
         def call(nmax):
-            (c_pool, packed, n_open, overflow,
-             exist_fills, claim_fills, unplaced, c_dzone, c_dct,
-             c_resv) = self._drain_host(
-                dispatch_packed(
+            if classed_args is not None:
+                out = dispatch_classed_packed(
+                    *args, *cls_arrays, nmax=nmax, lmax=lmax,
+                    fills_dtype=fills_dtype, **statics,
+                )
+            else:
+                out = dispatch_packed(
                     *args, nmax=nmax, fills_dtype=fills_dtype, **statics
                 )
-            )
+            (c_pool, packed, n_open, overflow,
+             exist_fills, claim_fills, unplaced, c_dzone, c_dct,
+             c_resv) = self._drain_host(out)
             # the type mask stays bit-packed: _decode unpacks only the
             # distinct rows it actually touches
             return (
@@ -1427,6 +1449,44 @@ class TorchSolver:
             wf_iters=self._wf_iters(snap),
             sparse_groups=not tiled,
         )
+
+    # below this mean (real groups per feasibility class), per-class head
+    # amortization cannot beat the per-group scan's simpler carry
+    _CLASSED_MIN_MEAN_SIZE = 4.0
+
+    def _classed_partition(self, snap_run, res_cap0):
+        """Class arrays for the class-batched scan, or None for the
+        per-group scan (driver.py:_classed_partition, without its
+        environment override: ``SolverConfig.classed`` is the only
+        switch). Auto mode routes by mean class size: batches like the
+        diverse mix (~63 groups per class) take the classed scan; batches
+        where every group is its own class stay on pack(). A reservation
+        ledger (NRES > 0) always uses pack(); so do minValues batches with
+        domain-dynamic groups unless the classed scan is forced."""
+        cfg = self.config.classed
+        if cfg is False or res_cap0.shape[0] != 0:
+            return None
+        if (
+            cfg is not True
+            and snap_run.p_mvmin.shape[1]
+            and bool((snap_run.g_dmode > 0).any())
+        ):
+            return None
+        out = enc.class_partition(
+            snap_run,
+            min_mean_size=0.0 if cfg is True else self._CLASSED_MIN_MEAN_SIZE,
+        )
+        if out is None:
+            return None
+        cs, cl, cdyn, cdk, inv, lmax = out
+        if cfg is not True:
+            n_classes = int((cl > 0).sum())
+            if (
+                n_classes == 0
+                or len(snap_run.groups) / n_classes < self._CLASSED_MIN_MEAN_SIZE
+            ):
+                return None
+        return (cs, cl, cdyn, cdk, inv), lmax
 
     def _fit_matrix(self, snap: enc.EncodedSnapshot) -> np.ndarray:
         """[G, T] unconstrained pods-per-node fit (inf where a group has no

@@ -1,4 +1,4 @@
-# Copied from karpenter_tpu/solver/workloads.py, without diverse_reference_mix; the consolidation envs take a device; adds churn_tick.
+# Copied from karpenter_tpu/solver/workloads.py, the consolidation envs take a device; adds churn_tick.
 """Benchmark workload generators (BASELINE.json configs).
 
 Deterministic (seeded) pod/cluster builders mirroring the reference's
@@ -21,6 +21,7 @@ from ..api.objects import (
     ObjectMeta,
     NodeAffinity,
     Pod,
+    PodAffinityTerm,
     PodSpec,
     TopologySpreadConstraint,
 )
@@ -134,6 +135,80 @@ def constrained_mix(count: int, seed: int = 11) -> List[Pod]:
 
     deployments(n_zspread, labels_mod.TOPOLOGY_ZONE, "zs")
     deployments(n_hspread, labels_mod.HOSTNAME, "hs")
+    return pods
+
+
+def diverse_reference_mix(count: int, seed: int = 13) -> List[Pod]:
+    """The reference's literal 5-class diverse mix
+    (scheduling_benchmark_test.go:236-249): equal parts generic, zonal
+    spread, hostname spread, zonal self-affinity, hostname anti-affinity —
+    with the reference's independently-random spread selectors (which
+    select across groups and therefore serialize via the host oracle)."""
+    rng = random.Random(seed)
+    per = count // 5
+    pods: List[Pod] = []
+
+    def rand_req():
+        return rng.choice(_CPUS_M), rng.choice(_MEM_MI)
+
+    for i in range(per + count - 5 * per):  # generic fills the remainder
+        cpu, mem = rand_req()
+        pods.append(
+            _pod(f"dgen-{i}", cpu, mem,
+                 labels={"my-label": rng.choice(_LABEL_VALUES)})
+        )
+    for key, prefix in (
+        (labels_mod.TOPOLOGY_ZONE, "dzs"),
+        (labels_mod.HOSTNAME, "dhs"),
+    ):
+        for i in range(per):
+            cpu, mem = rand_req()
+            pods.append(
+                _pod(
+                    f"{prefix}-{i}", cpu, mem,
+                    labels={"my-label": rng.choice(_LABEL_VALUES)},
+                    topology_spread_constraints=[
+                        TopologySpreadConstraint(
+                            max_skew=1,
+                            topology_key=key,
+                            when_unsatisfiable="DoNotSchedule",
+                            label_selector=LabelSelector(
+                                match_labels={
+                                    "my-label": rng.choice(_LABEL_VALUES)
+                                }
+                            ),
+                        )
+                    ],
+                )
+            )
+    for i in range(per):  # zonal self-affinity
+        cpu, mem = rand_req()
+        lbl = {"my-affininity": rng.choice(_LABEL_VALUES)}
+        pods.append(
+            _pod(
+                f"daff-{i}", cpu, mem, labels=lbl,
+                pod_affinity=[
+                    PodAffinityTerm(
+                        topology_key=labels_mod.TOPOLOGY_ZONE,
+                        label_selector=LabelSelector(match_labels=lbl),
+                    )
+                ],
+            )
+        )
+    anti_lbl = {"app": "nginx"}
+    for i in range(per):  # hostname anti-affinity (one node per pod)
+        cpu, mem = rand_req()
+        pods.append(
+            _pod(
+                f"danti-{i}", cpu, mem, labels=anti_lbl,
+                pod_anti_affinity=[
+                    PodAffinityTerm(
+                        topology_key=labels_mod.HOSTNAME,
+                        label_selector=LabelSelector(match_labels=anti_lbl),
+                    )
+                ],
+            )
+        )
     return pods
 
 

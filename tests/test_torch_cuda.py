@@ -12,9 +12,13 @@ B2 over n_tol [S, N, G], B4 one block per scenario, B6 over S rows, with
 padded scenarios and per-scenario topology priors. The domain cases run
 B4's domain machinery (zonal and capacity-type spread, affinity, a gate
 owner, priors on zoned nodes; one block and the scenario grid with
-per-scenario domain priors), and the B8 cases the row-delta apply
+per-scenario domain priors), the B8 cases the row-delta apply
 (every dtype, a duplicate index, negative and dropped indices, the old
-tensor untouched).
+tensor untouched), and the last section B5, the class-batched scan, on
+class batches (both domain axes, contributor rows, existing nodes,
+overflow, a domain-free batch: every field of the final state), B4's
+contributor counting (one block and the scenario grid), and the diverse
+1,000 x 400 solve on the card against the CPU.
 
 Marked ``cuda``: they skip where there is no card. On the card, from the
 repo root: ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
@@ -568,3 +572,159 @@ def test_warm_churn_on_the_card(cuda):
         b8 += _build.launches["apply_rows"]
         assert warm == solve(pods, "cpu", caches["cpu"])[0]
     assert b8 >= 3
+
+
+# -- B5, the class-batched scan, and B4's contributor counting --------------------
+
+
+def _classed_snapshot(pods, n_types=30, n_nodes=0, nmax=None):
+    """The padded solve args (G to the next power of two, as the driver
+    pads them: padding classes), statics and class partition of ``pods``
+    over ``n_nodes`` zoned state nodes, encoded by the port."""
+    pools = [example_nodepool()]
+    its = {pools[0].name: corpus.generate(n_types)}
+    nodes = example_state_nodes(n_nodes)
+    topo = Topology(Client(TestClock()), nodes, pools, its, pods)
+    solver = TorchSolver(pools, its, topo, state_nodes=nodes,
+                         config=SolverConfig(device="cpu"))
+    groups, rest = enc.partition_and_group(pods, topology=topo)
+    assert not rest
+    snap, avail, *_ = solver._encode_batch(groups)
+    G = enc._next_pow2(len(snap.groups), floor=8)
+    N = enc._next_pow2(len(snap.existing_names), floor=1) if snap.existing_names else 0
+    run = snap.padded(G, N)
+    statics = solver._kernel_statics(snap, G)
+    statics["nmax"] = nmax or solver._estimate_nmax(snap, solver._fit_matrix(snap))
+    return run.solve_args(*avail), statics, enc.class_partition(run)
+
+
+def _classed_equal_plain(args, statics, classes, cuda):
+    """B5 against pack_classed_reference: every PackState field, the fills
+    and unplaced; then the wire-packed classed solve. One B5 launch, no
+    B4 launch."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops import packing as tp
+    from karpenter_tpu_torch.ops.solve import (
+        _feasibility_tables, pack_args, solve_core_classed,
+    )
+
+    *arrs, lmax = classes
+    st = dict(nmax=statics["nmax"], zone_kid=statics["zone_kid"], ct_kid=statics["ct_kid"],
+              has_domains=statics["has_domains"], has_contrib=statics["has_contrib"],
+              wf_iters=statics["wf_iters"])
+    outs = []
+    for dev in ("cpu", cuda):
+        a = dict(zip(enc.SOLVE_ARG_NAMES, to_device_args(args, dev)))
+        cls = [torch.from_numpy(np.asarray(x)).to(dev) for x in arrs]
+        _build.reset_launches()
+        scan = tp.pack_classed(
+            *pack_args(a, *_feasibility_tables(a, st["zone_kid"], st["ct_kid"])),
+            *cls, lmax=lmax, **st)
+        full = solve_core_classed(*a.values(), *cls, lmax=lmax, **dict(
+            statics, sparse_groups=True))
+        outs.append((scan, wire_pack(full, torch.int32)))
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+            assert _build.launches["pack_classed"] == 2 and _build.launches["pack"] == 0
+    ((ps, *pf), pw), ((ks, *kf), kw) = outs
+    for f in tp.PackState._fields:
+        np.testing.assert_array_equal(getattr(ks, f).cpu().numpy(), getattr(ps, f).numpy(),
+                                      err_msg=f)
+    for i, (k, p) in enumerate(zip(kf, pf)):
+        np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=f"fills {i}")
+    for i, (k, p) in enumerate(zip(kw, pw)):
+        np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=f"wire {i}")
+    return ps, pf
+
+
+def _zoned_nodes_classes():
+    from karpenter_tpu_torch.solver.workloads import diverse_reference_mix
+
+    return _classed_snapshot(diverse_reference_mix(300), n_nodes=9)
+
+
+_CLASSED_CASES = {
+    # zone-dynamic classes, hostname and domain contributor rows, padding
+    "diverse-600": lambda: _classed_snapshot(_diverse(600), n_types=40),
+    "diverse-nodes": _zoned_nodes_classes,
+    "diverse-overflow": lambda: _classed_snapshot(_diverse(300), nmax=8),
+    # a zone-dynamic class and a capacity-type-dynamic class
+    "mixed-axes": lambda: _classed_snapshot(
+        _spread_pods(20, 500, "za") + _spread_pods(20, 500, "cb",
+                                                   key=labels.CAPACITY_TYPE_LABEL_KEY)),
+    # one shared hostname target across classes
+    "anti-affinity": lambda: _classed_snapshot(
+        _pods(12, 100, "anti", anti=True) + _pods(12, 200, "anti", anti=True)
+        + _pods(12, 300, "anti", anti=True)),
+    "zonal-affinity": lambda: _classed_snapshot(
+        _zone_affinity_pods(10, 100, "za") + _zone_affinity_pods(10, 200, "za")),
+    "domain-free": lambda: _classed_snapshot(mixed_pods(1000), n_nodes=5),
+}
+
+
+def _diverse(n):
+    from karpenter_tpu_torch.solver.workloads import diverse_reference_mix
+
+    return diverse_reference_mix(n)
+
+
+@pytest.mark.parametrize("case", sorted(_CLASSED_CASES))
+def test_classed_batches(cuda, case):
+    """B5 equals its plain version on class batches: domains on each axis,
+    contributors, existing nodes, overflow, a domain-free batch."""
+    args, statics, classes = _CLASSED_CASES[case]()
+    ps, _ = _classed_equal_plain(args, statics, classes, cuda)
+    if case == "diverse-overflow":
+        assert bool(ps.overflow)
+    if case.startswith("diverse"):
+        assert statics["has_contrib"] and statics["has_domains"]
+        assert (classes[1] == 0).any()
+    if case == "mixed-axes":
+        cl = classes[1]
+        assert sorted(classes[3][cl > 0].tolist()) == [0, 1]
+    assert int(ps.n_open) > 0
+
+
+@pytest.mark.parametrize("n_nodes", [0, 9])
+def test_pack_contrib(cuda, n_nodes):
+    """B4 with contributor counting (classed off) against pack_reference,
+    one block; counted as a contributor pack."""
+    from karpenter_tpu_torch import _build
+
+    args, statics, _ = _classed_snapshot(_diverse(300), n_nodes=n_nodes)
+    assert statics["has_contrib"]
+    _build.reset_launches()
+    _kernels_equal_plain(args, statics, cuda)
+    assert _build.launches["pack_contrib"] == 1 and _build.launches["pack_classed"] == 0
+
+
+def test_pack_contrib_scenario_grid(cuda):
+    """The scenario grid over a contributor batch: nhc, ch_cnt and ddc per
+    scenario, with per-scenario priors."""
+    args, statics, _ = _classed_snapshot(_diverse(200), n_nodes=9)
+    assert statics["has_contrib"]
+    _scenarios_equal_plain(_scenario_args(args, 8, 6, seed=9, batch_topo=True), statics,
+                           cuda, batch_topo=True)
+
+
+def test_diverse_solve_matches_cpu(cuda):
+    """diverse_reference_mix(1000) x 400 through TorchSolver: the classed
+    route on the card decides as on the CPU; one B5 launch per solve."""
+    from karpenter_tpu_torch import _build
+
+    pods = _diverse(1000)
+    pools = [example_nodepool()]
+    its = {pools[0].name: corpus.generate(400)}
+
+    def solve(device):
+        topo = Topology(Client(TestClock()), [], pools, its, pods)
+        s = TorchSolver(pools, its, topo, config=SolverConfig(device=device))
+        r = s.solve(pods)
+        return (sorted((tuple(sorted(p.metadata.name for p in c.pods)),
+                        tuple(it.name for it in c.instance_type_options))
+                       for c in r.new_node_claims), sorted(r.pod_errors))
+
+    _build.reset_launches()
+    got = solve("cuda")
+    assert _build.launches["pack_classed"] >= 1 and _build.launches["pack"] == 0
+    assert got == solve("cpu") and got[0]

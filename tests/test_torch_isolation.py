@@ -2,7 +2,8 @@
 
 Nothing under karpenter_tpu_torch/ nor chip_smoke.py imports jax or the
 JAX package (the card's machine has no JAX); every verbatim copy of a host
-module still equals its source; and chip_smoke.py refuses to report a
+module, and each function copied into a module that is not one, still
+equals its source; and chip_smoke.py refuses to report a
 result where there is no card, or no repo around it.
 """
 
@@ -63,6 +64,28 @@ def test_copies_name_their_source(path, first):
         n = int(first.split(", ")[1].split()[0])
         diff = difflib.ndiff(src.read_text().splitlines(), body.splitlines())
         assert sum(line.startswith("- ") for line in diff) <= n
+
+
+# functions copied verbatim into a module that is not a verbatim copy
+COPIED_FUNCTIONS = (
+    ("solver/workloads.py", "mixed_pods"),
+    ("solver/workloads.py", "constrained_mix"),
+    ("solver/workloads.py", "diverse_reference_mix"),
+)
+
+
+def _function_source(path, name):
+    text = path.read_text()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.get_source_segment(text, node)
+    raise AssertionError(f"{path.relative_to(ROOT)} has no function {name}")
+
+
+@pytest.mark.parametrize("rel,name", COPIED_FUNCTIONS, ids=lambda x: x)
+def test_copied_functions_equal_their_source(rel, name):
+    assert _function_source(PORT / rel, name) == _function_source(
+        ROOT / "karpenter_tpu" / rel, name)
 
 
 def _run_smoke(cwd):

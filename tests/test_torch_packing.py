@@ -149,12 +149,13 @@ class TestSolveCore:
 
     @pytest.mark.parametrize("flag", ["has_domains", "has_contrib", "tile_feasibility"])
     def test_out_of_scope_statics_raise(self, flag):
-        """has_contrib and the tiled tables raise, naming ROADMAP item A4b.
-        has_domains is ported: forced on a domain-free batch it changes
-        only the tier-3 bulk split (even, bulk_takes) and equals JAX's."""
-        if flag == "has_domains":
+        """The tiled tables raise, naming ROADMAP item A4b. has_domains and
+        has_contrib are ported: forced on a batch without domain groups
+        or contributor rows they equal JAX's (has_domains changes only the
+        tier-3 bulk split: even, bulk_takes; has_contrib adds nothing)."""
+        if flag in ("has_domains", "has_contrib"):
             args, statics = example_snapshot_arrays(200, 40, 8)
-            _parity(args, dict(statics, has_domains=True))
+            _parity(args, dict(statics, **{flag: True}))
             return
         args, statics = example_snapshot_arrays(16, 4, 1)
         st = dict(statics, sparse_groups=True, **{flag: True})

@@ -193,8 +193,20 @@ class TestConfig:
         ({"mesh": "auto"}, "A13"), ({"classed": True}, "A8"), ({"relax": True}, "A9"),
     ])
     def test_unported_options_raise(self, kw, item):
+        """The mesh (A13) and relax (A9) options raise. The class-batched
+        scan (A8) is ported: classed=True solves, deciding as TpuSolver
+        does (tests/test_torch_classed.py holds it case by case)."""
         from karpenter_tpu_torch.solver.driver import SolverConfig
 
+        if item == "A8":
+            got = []
+            for pkg in PKGS:
+                solver, pods = _build(pkg, "diverse_reference_mix", 150, 20)
+                solver.config.classed = True
+                got.append(decisions(solver.solve(pods), pods))
+            assert SolverConfig(device="cpu", **kw).classed is True
+            assert got[0] == got[1] and got[1][0]
+            return
         with pytest.raises(NotImplementedError, match=item):
             SolverConfig(device="cpu", **kw)
 
