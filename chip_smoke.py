@@ -30,7 +30,10 @@ no result:
    have run on the first, B1, B2, B4, B6 on the second);
    every pod placed, 0 errors, and the same decisions (by pod name) as the
    same solves with device="cpu"; solve p50 over 5 warm solves and the
-   per-phase split of one traced solve;
+   per-phase split of one traced solve; and the ops dense route
+   (dispatch_packed with sparse_groups=False on the 32-node batch: B3's
+   fresh and existing entries in place of B1 and B2, counted) equal to
+   the sparse route's dispatch;
 4. consolidation: MultiNodeConsolidation, then SingleNodeConsolidation,
    compute_command over build_*_consolidation_env(2000) on the card, the
    launch counters zeroed before each path and read after it: every
@@ -64,13 +67,37 @@ no result:
    SolverConfig(classed=False), counted: B4 with contributor counting,
    deciding as the classed solve.
 
+7. the relax loop (TorchSolver's default route through the relaxation
+   bulk pre-solver, kernels B3 and B9), every solve counted: (a) BASELINE
+   config[0] (identical_pods(500) x 10 types): 500 pods routed to the
+   bulk, 34 claims, the CPU run's claims in slot order; (b) identical
+   50k x 400 (identical_pods(50,000): a 50,000-replica Deployment
+   scaling up): 50,000 routed, 532 claims == the CPU run in slot order,
+   B3 fresh and B9 launched once per solve and B1/B4/B6 once on the
+   zeroed counts; cold p50 over 5 fresh EncodeCaches, one traced solve's
+   span split (``relax`` included), 4 churn ticks (workloads.churn_tick
+   over identical_pods), each relax-routed, incremental (REUSE or row
+   deltas) and equal to a same-vocab re-encode, 0 full re-encodes, REUSE
+   on the repeat; (c) the zonal partial mix (48,000 zonal Deployment pods
+   of three sizes over zones a/b/c beside 400 zone-b pods of a
+   one-per-node service, 48,400 x 400): 32,000 routed, 339 bulk + 400
+   exact claims == the CPU run in slot order, and the relax-off solve's
+   slot order beside it; (d) the same batch with a RELAX_OUTPUT fault
+   that zeroes the bulk's fills: relax_rejects == 1, and the decisions of
+   the relax-off solve. Phases 3, 5 and 6 report ``relax_pods`` (0: the
+   planner routes nothing there, as in the JAX package).
+
 Phase 2 also holds B5 against pack_classed_reference (every output and
 the final state) and B4 with contributor counting (the same batch with
-the classed route off) against pack_reference, on the diverse batch.
+the classed route off) against pack_reference, on the diverse batch; B3's
+fresh entry on the mixed 50k snapshot against its plain version and B1's
+tables, its existing entry on B2's 32-node snapshot against its plain
+version and B2's table, and B9 on the bulk inputs of the identical 50k
+batch against its plain version.
 
-Then one JSON line of per-kernel numbers (B1, B2, B4, B4 over domains, B4
-with contributor counting, B5, B6, B7, B8), the nvidia-smi line, and the
-last line ``{"ok": true, "device": {...}}``.
+Then one JSON line of per-kernel numbers (B1, B2, B3 fresh and existing,
+B4, B4 over domains, B4 with contributor counting, B5, B6, B7, B8, B9),
+the nvidia-smi line, and the last line ``{"ok": true, "device": {...}}``.
 """
 
 import gc
@@ -92,6 +119,12 @@ NODE_PODS, N_NODES = 2_000, 32
 # which the JAX package solves into 1,000 claims with no pod error
 N_DIVERSE, DIVERSE_CLAIMS = 5_000, 1_000
 CONS_NODES, CONS_SCENARIOS = 2_000, 16  # BASELINE config[3]; one sweep chunk
+# the relax loop's batches, with the JAX package's routing and claim
+# counts on the CPU: BASELINE config[0]; identical_pods(50,000) x 400
+# (one run, one head); the zonal partial mix (two of its three easy runs)
+CONFIG0_PODS, CONFIG0_TYPES, CONFIG0_CLAIMS = 500, 10, 34
+N_IDENT, IDENT_CLAIMS = 50_000, 532
+N_ZONAL, N_SOLO, ZONAL_ROUTED, ZONAL_BULK_CLAIMS = 48_000, 400, 32_000, 339
 REPLACES = {
     "fresh_feasibility": "karpenter_tpu/ops/feasibility.py:141",
     "existing_feasibility": "karpenter_tpu/ops/feasibility.py:264",
@@ -102,19 +135,29 @@ REPLACES = {
     "pack_contrib": "karpenter_tpu/ops/packing.py:1153",
     "pack_classed": "karpenter_tpu/ops/packing.py:1230",
     "apply_rows": "karpenter_tpu/ops/solve.py:400",
+    "dense_fresh": "karpenter_tpu/ops/feasibility.py:84",
+    "dense_existing": "karpenter_tpu/ops/feasibility.py:298",
+    "relax_fill": "karpenter_tpu/ops/relax.py:244",
 }
 # the source of each kernel row (B4 with domains and with contributor
-# counting are pack.cu's domain and contributor paths)
-SOURCES = {"pack_domains": "pack", "pack_contrib": "pack", "solve_scenarios": "pack"}
+# counting are pack.cu's domain and contributor paths; B3's two entries
+# share dense_feasibility.cu)
+SOURCES = {"pack_domains": "pack", "pack_contrib": "pack", "solve_scenarios": "pack",
+           "dense_fresh": "dense_feasibility", "dense_existing": "dense_feasibility"}
 # the one PyTorch call that computes a kernel's function, timed beside it
 LIBRARY = {"apply_rows": "Tensor.index_copy"}
 # B7 is the scenario-batched dispatch of these kernels; pack.cu holds its
 # scenario grid
 B7_SOURCES = ("pack", "existing_feasibility", "wire_pack", "fresh_feasibility")
+RELAX_KERNELS = ("fresh_feasibility", "pack", "wire_pack", "dense_feasibility",
+                 "dense_fresh", "relax_fill")
 # the kernels each end-to-end path must launch: B2 only runs with nodes
 PATH_KERNELS = {
     "50k": ("fresh_feasibility", "pack", "wire_pack"),
     "nodes": ("fresh_feasibility", "existing_feasibility", "pack", "wire_pack"),
+    # the same batch through the ops dense route: B3's two entries
+    "dense_route": ("dense_feasibility", "dense_fresh", "dense_existing", "pack",
+                    "wire_pack"),
     "constrained": ("fresh_feasibility", "pack", "pack_domains", "wire_pack"),
     "ticks": ("fresh_feasibility", "pack", "pack_domains", "wire_pack", "apply_rows"),
     "diverse": ("fresh_feasibility", "pack_classed", "wire_pack"),
@@ -122,10 +165,19 @@ PATH_KERNELS = {
     # the same batch with the classed route off: B4 with contributor counting
     "diverse_per_group": ("fresh_feasibility", "pack", "pack_domains", "pack_contrib",
                           "wire_pack"),
+    # the relax loop: the exact dispatch (B1, B4, B6, on zeroed counts
+    # when every pod routes), then B3's fresh entry and B9
+    "config0": RELAX_KERNELS,
+    "ident": RELAX_KERNELS,
+    "ident_ticks": RELAX_KERNELS,
+    "zonal": RELAX_KERNELS,
+    "zonal_reject": RELAX_KERNELS,
 }
-# ... and those it must not launch: the classed route replaces B4
+# ... and those it must not launch: the classed route replaces B4, the
+# dense route B1 and B2
 PATH_ABSENT = {"diverse": ("pack",), "diverse_ticks": ("pack",),
-               "diverse_per_group": ("pack_classed",)}
+               "diverse_per_group": ("pack_classed",),
+               "dense_route": ("fresh_feasibility", "existing_feasibility")}
 # ... and those each consolidation path must launch over a scenario batch
 CONS_KERNELS = ("existing_feasibility", "pack", "wire_pack")
 # the solve args each feasibility kernel reads, in its wrapper's order
@@ -135,6 +187,9 @@ B1_NAMES = ("g_def", "g_neg", "g_mask", "g_req", "p_def", "p_neg", "p_mask",
             "goff_idx")
 B2_NAMES = ("g_def", "g_neg", "g_mask", "g_req", "n_def", "n_mask", "n_avail",
             "n_base", "n_tol", "gk_g", "gk_k", "gk_w")
+# B3's two entries: B1's and B2's inputs without the live-pair index
+B3_NAMES = B1_NAMES[:17]
+B3E_NAMES = B2_NAMES[:9] + ("well_known",)
 
 
 class SmokeFailure(RuntimeError):
@@ -286,6 +341,25 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
         shape=f"P={P} G={G} T={T} K={K} V1={V1} R={R} O={O} L={L}",
     )
 
+    # ---- B3 fresh, the dense twin, on the same snapshot: == plain, == B1 ----
+    b3_in = [a[n] for n in B3_NAMES]
+    b3 = feas.fresh_claim_feasibility(*b3_in, zone_kid=zk, ct_kid=ck)
+    b3_ref = feas.fresh_claim_feasibility_reference(*b3_in, zone_kid=zk, ct_kid=ck)
+    torch.cuda.synchronize()
+    if max_abs_err(b3, b1):
+        raise SmokeFailure("B3 fresh: the dense tables differ from B1's")
+    rows["dense_fresh"] = dict(
+        max_abs_err=max_abs_err(b3, b3_ref),
+        ms=cuda_ms(lambda: feas.fresh_claim_feasibility(*b3_in, zone_kid=zk, ct_kid=ck), 50),
+        plain_ms=cuda_ms(lambda: feas.fresh_claim_feasibility_reference(
+            *b3_in, zone_kid=zk, ct_kid=ck), 10),
+        # compat per (p, g), then per cell the merged K x V1 join, the
+        # offerings and fits_count
+        bound=bound_ms(nbytes(b3_in) + nbytes(b3),
+                       P * G * K * V1 + P * G * T * (K * V1 + O + 2 * R)),
+        shape=f"P={P} G={G} T={T} K={K} V1={V1} R={R} O={O}, == B1",
+    )
+
     # ---- B4 packing scan and B6 wire pack on the 50k tables ----
     cap_ng = torch.zeros((0, G), dtype=torch.int32, device="cuda")
     pack_in = solve_mod.pack_args(a, *b1, cap_ng)
@@ -340,6 +414,22 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
         bound=bound_ms(nbytes(b2_in) + nbytes([b2]), N2 * L2 * V1 + N2 * G2 * 2 * R),
         shape=f"N={N2} G={G2} L={L2} R={R}",
     )
+    # ---- B3 existing, the dense twin, on the same snapshot: == plain, == B2 ----
+    b3e_in = [a2[n] for n in B3E_NAMES]
+    (K2, V12), R2 = a2["g_mask"].shape[1:], a2["n_avail"].shape[1]
+    b3e = feas.existing_node_feasibility(*b3e_in)
+    b3e_ref = feas.existing_node_feasibility_reference(*b3e_in)
+    torch.cuda.synchronize()
+    if max_abs_err([b3e], [b2]):
+        raise SmokeFailure("B3 existing: the dense table differs from B2's")
+    rows["dense_existing"] = dict(
+        max_abs_err=max_abs_err([b3e], [b3e_ref]),
+        ms=cuda_ms(lambda: feas.existing_node_feasibility(*b3e_in), 50),
+        plain_ms=cuda_ms(lambda: feas.existing_node_feasibility_reference(*b3e_in), 20),
+        bound=bound_ms(nbytes(b3e_in) + nbytes([b3e]), N2 * G2 * (K2 * V12 + 2 * R2)),
+        shape=f"N={N2} G={G2} K={K2} V1={V12} R={R2}, == B2",
+    )
+    rows["relax_fill"] = relax_row(torch_solver_cls, config_cls)
     rows["solve_scenarios"] = scenario_row()
     rows.update(constrained_rows(torch_solver_cls, config_cls, encode_cache_cls))
     rows.update(diverse_rows(torch_solver_cls, config_cls))
@@ -348,6 +438,60 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
             raise SmokeFailure(f"{name}: kernel disagrees with its plain version "
                                f"(max |diff| {row['max_abs_err']})")
     return rows
+
+
+def relax_plan(solver, pods):
+    """The padded run snapshot of ``solver``'s batch and the relaxation
+    plan TorchSolver._solve_fast makes for it."""
+    from karpenter_tpu_torch.ops import relax as relax_mod
+    from karpenter_tpu_torch.solver import encode as enc
+
+    groups, rest = enc.partition_and_group(pods, topology=solver.oracle.topology)
+    if rest:
+        raise SmokeFailure(f"{len(rest)} pods left the dense path")
+    snap, (_, res_cap0, _), _, _, _ = solver._encode_batch(groups)
+    run = snap.padded(enc._next_pow2(len(snap.groups), floor=8), 0)
+    return run, relax_mod.plan_bulk(run, res_cap0=res_cap0, n_exist=len(snap.existing_names))
+
+
+def relax_row(torch_solver_cls, config_cls):
+    """Phase 2's B9 row: relax_fill on the bulk inputs of the identical 50k
+    x 400 batch (B3's head tables on the card, then the host's claim
+    sizes, as ops/relax.py:solve_bulk builds them) against its plain
+    version. Tolerance: exact equality."""
+    import torch
+
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import relax as relax_mod
+    from karpenter_tpu_torch.solver.args import put
+    from karpenter_tpu_torch.solver.workloads import identical_pods
+
+    pods = identical_pods(N_IDENT)
+    run, plan = relax_plan(build_batch(torch_solver_cls, config_cls, pods, N_TYPES), pods)
+    if plan is None or plan.easy_pods != N_IDENT:
+        raise SmokeFailure(f"B9: the identical batch does not route ({plan})")
+    head = [put(n, x, "cuda") for n, x in
+            zip(relax_mod.HEAD_ARG_NAMES, relax_mod.head_args(plan, run))]
+    _, type_ok, n_fit = feas.fresh_claim_feasibility(
+        *head, zone_kid=run.zone_kid, ct_kid=run.ct_kid)
+    n_r, host_in = relax_mod.fill_args(plan, type_ok.cpu().numpy(), n_fit.cpu().numpy())
+    b9_in = [put(n, x, "cuda") for n, x in zip(relax_mod.FILL_ARG_NAMES, host_in)]
+    b9 = relax_mod.relax_fill(*b9_in)
+    b9_ref = relax_mod.relax_fill_reference(*b9_in)
+    torch.cuda.synchronize()
+    if n_r != IDENT_CLAIMS or int(b9[0][:, :n_r].sum()) != N_IDENT:
+        raise SmokeFailure(f"B9: {n_r} claims holding {int(b9[0][:, :n_r].sum())} pods")
+    GE, NR = b9[0].shape
+    T = b9[1].shape[1]
+    return dict(
+        max_abs_err=max_abs_err(b9, b9_ref),
+        ms=cuda_ms(lambda: relax_mod.relax_fill(*b9_in), 50),
+        plain_ms=cuda_ms(lambda: relax_mod.relax_fill_reference(*b9_in), 20),
+        # per fill cell the window arithmetic (~12 integer ops), per mask
+        # cell a compare and an AND
+        bound=bound_ms(nbytes(b9_in) + nbytes(b9), GE * NR * 12 + NR * T * 2),
+        shape=f"GE={GE} NR={NR} T={T} claims={n_r}",
+    )
 
 
 def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None):
@@ -703,12 +847,35 @@ def decisions(results, pods):
 
 
 def phase_end_to_end(torch_solver_cls, config_cls, encode_cache_cls):
-    """Phase 3: the main path through TorchSolver.solve, counted."""
+    """Phase 3: the main path through TorchSolver.solve, counted, and the
+    ops dense route on the same nodes batch."""
     import torch
 
     from karpenter_tpu_torch import _build, obs
+    from karpenter_tpu_torch.ops import solve as solve_mod
     from karpenter_tpu_torch.solver.example import example_state_nodes
     from karpenter_tpu_torch.solver.workloads import mixed_pods
+
+    def dense_route():
+        """ops/solve.py:dispatch_packed with sparse_groups=False on the
+        2,000-pod batch over 32 nodes (B3's two entries in place of B1 and
+        B2), counted, deciding as the sparse route's dispatch."""
+        solver, pods = make("cuda", NODE_PODS, N_NODES)
+        args, statics, nmax, fills = device_snapshot(solver, pods)
+        kw = dict(statics, nmax=nmax, fills_dtype=fills)
+        sparse = solve_mod.dispatch_packed(*args, **kw)
+        _build.reset_launches()
+        dense = solve_mod.dispatch_packed(*args, **dict(kw, sparse_groups=False))
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        missing = [k for k in PATH_KERNELS["dense_route"] if counts[k] < 1]
+        extra = [k for k in PATH_ABSENT["dense_route"] if counts[k]]
+        if missing or extra:
+            raise SmokeFailure(f"dense_route: missing {missing}, launched {extra} ({counts})")
+        if max_abs_err(dense, sparse) or not int(dense[4].sum()):
+            raise SmokeFailure("dense_route: the dense tables' dispatch differs from the "
+                               "sparse route's, or places nothing on a node")
+        return counts
 
     def make(device, n_pods, n_nodes=0, cache=None):
         pods = mixed_pods(n_pods)
@@ -731,11 +898,15 @@ def phase_end_to_end(torch_solver_cls, config_cls, encode_cache_cls):
         missing = [k for k in PATH_KERNELS[label] if counts[k] < 1]
         if missing:
             raise SmokeFailure(f"{label} path never launched {missing} (counts {counts})")
+        relax_pods[label] = solver.last_relax_pods
+        if solver.last_relax_pods:  # the JAX package routes none of these
+            raise SmokeFailure(f"{label}: {solver.last_relax_pods} pods relax-routed")
         return res, pods, counts
 
+    relax_pods = {}
     res_a, pods_a, launches_a = counted("50k", N_PODS)
     res_b, pods_b, launches_b = counted("nodes", NODE_PODS, N_NODES)
-    launches = {"50k": launches_a, "nodes": launches_b}
+    launches = {"50k": launches_a, "nodes": launches_b, "dense_route": dense_route()}
     for res, pods, label in ((res_a, pods_a, "50k"), (res_b, pods_b, "nodes")):
         uids = {p.uid for p in pods}
         placed = sum(len(c.pods) for c in res.new_node_claims) + sum(
@@ -771,6 +942,7 @@ def phase_end_to_end(torch_solver_cls, config_cls, encode_cache_cls):
     phases["other"] = totals.get("solve", 0.0) * 1e3 - sum(phases.values())
     return dict(
         launches=launches,
+        relax_pods=relax_pods,
         claims_50k=len(res_a.new_node_claims),
         claims_nodes=len(res_b.new_node_claims),
         solve_p50_ms=statistics.median(times),
@@ -987,7 +1159,12 @@ def provisioning_loop(torch_solver_cls, config_cls, encode_cache_cls, mix, n_pod
                                f"{solver.last_dispatches} dispatches")
         if solver.fallback_solves:
             raise SmokeFailure(f"{label}: sequential fallbacks {solver.last_fallback_reasons}")
+        relax_pods.append(solver.last_relax_pods)
+        if solver.last_relax_pods:  # the JAX package routes none of these
+            raise SmokeFailure(f"{label}: {solver.last_relax_pods} pods relax-routed")
         return res, counts, ms
+
+    relax_pods = []
 
     def placed_errors(res, pods):
         uids = {p.uid for p in pods}
@@ -1097,13 +1274,217 @@ def provisioning_loop(torch_solver_cls, config_cls, encode_cache_cls, mix, n_pod
         raise SmokeFailure(f"repeat: reused {s.last_encode_reused}, full puts "
                            f"{store.last_full_puts}, fallbacks {s.fallback_solves}")
     return dict(
-        claims=claims, placed=placed, errors=errors,
+        claims=claims, placed=placed, errors=errors, relax_pods=sum(relax_pods),
         launches={cold_label: cold_counts, tick_label: tick_counts},
         cold_p50_ms=statistics.median(cold_ms), cold_ms=cold_ms,
         cold_traced_ms=cold_traced_ms, cold_phases=cold_phases,
         tick_p50_ms=statistics.median(t["ms"] for t in ticks), ticks=ticks,
         traced_tick=traced_tick,
     )
+
+
+def zonal_partial_mix(n_zonal, n_solo):
+    """The zonal partial mix (the shape of tests/test_relax.py's partial
+    batch at scale): pod i of ``n_zonal`` requests (1 + i % 3) x 500m CPU
+    and 1 GiB and selects zone test-zone-a/b/c[i % 3] (three zonal
+    Deployments), beside ``n_solo`` zone-b pods of 700m with hostname
+    anti-affinity on their own label (a one-per-node service)."""
+    from karpenter_tpu_torch.api import labels
+    from karpenter_tpu_torch.api import resources as res
+    from karpenter_tpu_torch.api.objects import (
+        LabelSelector,
+        ObjectMeta,
+        Pod,
+        PodAffinityTerm,
+        PodSpec,
+    )
+
+    zones = ("test-zone-a", "test-zone-b", "test-zone-c")
+    own = {"app": "solo"}
+    anti = [PodAffinityTerm(topology_key=labels.HOSTNAME,
+                            label_selector=LabelSelector(match_labels=own))]
+
+    def pod(name, cpu_m, zone, solo=False):
+        return Pod(
+            metadata=ObjectMeta(name=name, labels=dict(own) if solo else {}),
+            spec=PodSpec(requests={res.CPU: cpu_m, res.MEMORY: 2**30 * res.MILLI},
+                         node_selector={labels.TOPOLOGY_ZONE: zone},
+                         pod_anti_affinity=list(anti) if solo else None),
+        )
+
+    return ([pod(f"zonal-{i}", (1 + i % 3) * 500, zones[i % 3]) for i in range(n_zonal)]
+            + [pod(f"solo-{i}", 700, zones[1], solo=True) for i in range(n_solo)])
+
+
+def slot_order(results):
+    """The claims in slot order (pool, sorted pod names, type names), and
+    the erroring pods' names: decode mints claim identities from it."""
+    claims = [(c.template.node_pool_name, tuple(sorted(p.metadata.name for p in c.pods)),
+               tuple(it.name for it in c.instance_type_options))
+              for c in results.new_node_claims]
+    return claims, sorted(results.pod_errors)
+
+
+def phase_relax(torch_solver_cls, config_cls, encode_cache_cls):
+    """Phase 7: the relax loop, TorchSolver's default route, on the card."""
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch import _build, faults, obs
+    from karpenter_tpu_torch.cloudprovider import corpus
+    from karpenter_tpu_torch.kube import Client, TestClock
+    from karpenter_tpu_torch.scheduling.topology import Topology
+    from karpenter_tpu_torch.solver.example import example_nodepool
+    from karpenter_tpu_torch.solver.workloads import CHURN_SEED, churn_tick, identical_pods
+
+    pools = [example_nodepool()]
+    catalogs = {n: {pools[0].name: corpus.generate(n)} for n in (CONFIG0_TYPES, N_TYPES)}
+
+    def solver_for(pods, n_types, cache=None, device="cuda", relax=None):
+        its = catalogs[n_types]
+        topo = Topology(Client(TestClock()), [], pools, its, pods)
+        return torch_solver_cls(pools, its, topo, encode_cache=cache or encode_cache_cls(),
+                                config=config_cls(device=device, relax=relax))
+
+    def counted(label, solver, pods, rejects=0):
+        """One solve with the launch counts zeroed just before and read just
+        after: PATH_KERNELS[label] all ran, B3's fresh entry and B9 once,
+        B1/B4/B6 once per exact dispatch; ``rejects`` relax rejections."""
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = solver.solve(pods)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(_build.launches)
+        missing = [k for k in PATH_KERNELS[label] if counts[k] < 1]
+        per_dispatch = [k for k in ("fresh_feasibility", "pack", "wire_pack")
+                        if counts[k] != solver.last_dispatches]
+        if (missing or per_dispatch or counts["dense_fresh"] != 1 or counts["relax_fill"] != 1
+                or counts["dense_existing"]):
+            raise SmokeFailure(f"{label}: launches {counts} for {solver.last_dispatches} "
+                               f"dispatches (missing {missing})")
+        if solver.relax_rejects != rejects or solver.fallback_solves:
+            raise SmokeFailure(f"{label}: {solver.relax_rejects} relax rejects, fallbacks "
+                               f"{solver.last_fallback_reasons}")
+        return res, counts, ms
+
+    def against_cpu(label, res, pods, n_types, routed, claims):
+        solver = solver_for(pods, n_types, device="cpu")
+        cpu = slot_order(solver.solve(pods))
+        got = slot_order(res)
+        if got != cpu:
+            raise SmokeFailure(f"{label}: the claims differ from the CPU run's in slot order")
+        if solver.last_relax_pods != routed or len(got[0]) != claims or got[1]:
+            raise SmokeFailure(f"{label}: {solver.last_relax_pods} routed, {len(got[0])} claims, "
+                               f"{len(got[1])} errors (want {routed}, {claims}, 0)")
+
+    out = {"launches": {}}
+    # (a) BASELINE config[0]
+    pods = identical_pods(CONFIG0_PODS)
+    s = solver_for(pods, CONFIG0_TYPES)
+    res, out["launches"]["config0"], out["config0_ms"] = counted("config0", s, pods)
+    if s.last_relax_pods != CONFIG0_PODS or s.last_relax_claims != CONFIG0_CLAIMS:
+        raise SmokeFailure(f"config0: {s.last_relax_pods} routed, {s.last_relax_claims} claims")
+    against_cpu("config0", res, pods, CONFIG0_TYPES, CONFIG0_PODS, CONFIG0_CLAIMS)
+
+    # (b) identical 50k x 400: cold, traced, then churn ticks
+    pods = identical_pods(N_IDENT)
+    s = solver_for(pods, N_TYPES)
+    res, out["launches"]["ident"], _ = counted("ident", s, pods)
+    if s.last_relax_pods != N_IDENT or s.last_relax_claims != IDENT_CLAIMS:
+        raise SmokeFailure(f"ident: {s.last_relax_pods} routed, {s.last_relax_claims} claims")
+    against_cpu("ident", res, pods, N_TYPES, N_IDENT, IDENT_CLAIMS)
+    cold_ms = []
+    for _ in range(5):
+        s = solver_for(pods, N_TYPES)
+        gc.collect()
+        t0 = time.perf_counter()
+        s.solve(pods)
+        torch.cuda.synchronize()
+        cold_ms.append((time.perf_counter() - t0) * 1e3)
+    s = solver_for(pods, N_TYPES)
+    tracer = obs.install(obs.Tracer(obs.PerfClock()))
+    try:
+        t0 = time.perf_counter()
+        s.solve(pods)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        obs.uninstall()
+    totals = tracer.phase_totals()
+    phases = {k: totals.get(f"solve.{k}", 0.0) * 1e3
+              for k in ("partition", "encode", "transfer", "dispatch", "relax", "guard",
+                        "decode")}
+    phases["other"] = totals.get("solve", 0.0) * 1e3 - sum(phases.values())
+    phases["audit"] = traced_ms - totals.get("solve", 0.0) * 1e3
+    out.update(ident_cold_ms=cold_ms, ident_traced_ms=traced_ms, ident_phases=phases)
+
+    cache = encode_cache_cls()
+    rng = random.Random(CHURN_SEED)
+    solver_for(pods, N_TYPES, cache).solve(pods)
+    solver_for(pods, N_TYPES, cache).solve(pods)
+    ticks, tick_counts = [], {}
+    for i in range(N_TICKS):
+        pods = churn_tick(pods, identical_pods, rng)
+        s = solver_for(pods, N_TYPES, cache)
+        gc.collect()
+        res, counts, ms = counted("ident_ticks", s, pods)
+        store = cache.device_store
+        if (s.last_relax_pods != N_IDENT or not s._last_incremental
+                or (not s.last_encode_reused and s.last_delta_rows == 0)):
+            raise SmokeFailure(f"tick {i + 1}: {s.last_relax_pods} routed, incremental "
+                               f"{s._last_incremental}, reused {s.last_encode_reused}, delta rows "
+                               f"{s.last_delta_rows}")
+        tick = dict(ms=ms, reused=s.last_encode_reused, encode_delta_rows=s.last_delta_rows,
+                    device_delta_rows=store.last_delta_rows, full_puts=store.last_full_puts)
+        # the same pods fully re-encoded and restaged over the same vocab
+        cache.cluster.invalidate("full re-encode check")
+        store.reset()
+        if slot_order(solver_for(pods, N_TYPES, cache).solve(pods)) != slot_order(res):
+            raise SmokeFailure(f"tick {i + 1}: the claims differ from a full re-encode's")
+        for k, v in counts.items():
+            tick_counts[k] = tick_counts.get(k, 0) + v
+        ticks.append(tick)
+    s = solver_for(pods, N_TYPES, cache)
+    s.solve(pods)
+    if not s.last_encode_reused or cache.device_store.last_full_puts or s.last_relax_pods != N_IDENT:
+        raise SmokeFailure(f"repeat: reused {s.last_encode_reused}, full puts "
+                           f"{cache.device_store.last_full_puts}, routed {s.last_relax_pods}")
+    out["launches"]["ident_ticks"] = tick_counts
+    out["ticks"] = ticks
+
+    # (c) the zonal partial mix: two easy runs routed, the rest exact
+    pods = zonal_partial_mix(N_ZONAL, N_SOLO)
+    s = solver_for(pods, N_TYPES)
+    res, out["launches"]["zonal"], out["zonal_ms"] = counted("zonal", s, pods)
+    if s.last_relax_pods != ZONAL_ROUTED or s.last_relax_claims != ZONAL_BULK_CLAIMS:
+        raise SmokeFailure(f"zonal: {s.last_relax_pods} routed, {s.last_relax_claims} bulk claims")
+    zonal = slot_order(res)
+    n_claims = len(zonal[0])
+    against_cpu("zonal", res, pods, N_TYPES, ZONAL_ROUTED, n_claims)
+    off = slot_order(solver_for(pods, N_TYPES, relax=False).solve(pods))
+    if sorted(zonal[0]) != sorted(off[0]) or zonal[1] != off[1]:
+        raise SmokeFailure("zonal: relax on and off decide differently")
+    out.update(zonal_claims=n_claims, zonal_exact_claims=n_claims - ZONAL_BULK_CLAIMS,
+               zonal_order_differs=zonal != off)
+
+    # (d) a corrupt bulk sheds to the full exact dispatch
+    def zero_fills(bulk):
+        n_r, r_pool, r_tmask, r_fills, r_unplaced = bulk
+        return (n_r, r_pool, r_tmask, r_fills * 0, r_unplaced)
+
+    inj = faults.install(faults.FaultInjector(
+        [faults.FaultRule(faults.RELAX_OUTPUT, mutate=zero_fills)]))
+    try:
+        s = solver_for(pods, N_TYPES)
+        res, out["launches"]["zonal_reject"], _ = counted("zonal_reject", s, pods, rejects=1)
+    finally:
+        faults.uninstall()
+    if inj.fired(faults.RELAX_OUTPUT) != 1 or s.last_relax_pods or slot_order(res) != off:
+        raise SmokeFailure(f"zonal_reject: fired {inj.fired(faults.RELAX_OUTPUT)}, routed "
+                           f"{s.last_relax_pods}, decisions == relax off {slot_order(res) == off}")
+    return out
 
 
 def pin_one_card():
@@ -1159,6 +1540,7 @@ def main():
         f"p50 {e2e['solve_p50_ms']:.1f} ms of "
         + "/".join(f"{t:.1f}" for t in e2e["solve_ms"]) + " ms; phases "
         + " ".join(f"{k}={v:.1f}ms" for k, v in e2e["phase_ms"].items())
+        + f"; relax_pods {e2e['relax_pods']}"
         + "; launches " + " ".join(f"{p}={c}" for p, c in e2e["launches"].items()))
 
     cons = phase_consolidation()
@@ -1184,7 +1566,7 @@ def main():
             for t in con["ticks"])
         + f"; traced tick {con['traced_tick']['ms']:.1f} ms: " + " ".join(
             f"{k}={v:.2f}ms" for k, v in con["traced_tick"]["phases"].items())
-        + "; repeat REUSE, 0 full puts, 0 fallbacks; launches "
+        + f"; repeat REUSE, 0 full puts, 0 fallbacks; relax_pods {con['relax_pods']}; launches "
         + " ".join(f"{p}={c}" for p, c in con["launches"].items()))
 
     div = phase_diverse(TorchSolver, SolverConfig, EncodeCache)
@@ -1203,14 +1585,35 @@ def main():
             f"{k}={v:.2f}ms" for k, v in div["traced_tick"]["phases"].items())
         + "; repeat REUSE, 0 full puts, 0 fallbacks; classed=False solve (B4 with "
         f"contributor counting) == classed solve, {div['per_group_ms']:.1f} ms vs "
-        f"{div['classed_ms']:.1f} ms; launches "
+        f"{div['classed_ms']:.1f} ms; relax_pods {div['relax_pods']}; launches "
         + " ".join(f"{p}={c}" for p, c in div["launches"].items()))
 
-    # every path's own counts: the solves, the searches, the two loops
+    rel = phase_relax(TorchSolver, SolverConfig, EncodeCache)
+    log(f"phase 7 relax loop: (a) config[0] {CONFIG0_PODS} x {CONFIG0_TYPES}: "
+        f"{CONFIG0_PODS} routed, {CONFIG0_CLAIMS} claims == cpu in slot order, "
+        f"{rel['config0_ms']:.1f} ms; (b) identical {N_IDENT} x {N_TYPES}: {N_IDENT} routed, "
+        f"{IDENT_CLAIMS} claims == cpu in slot order, B3 fresh and B9 once per solve, "
+        f"B1/B4/B6 once on zeroed counts; cold p50 {statistics.median(rel['ident_cold_ms']):.1f} "
+        "ms of " + "/".join(f"{t:.1f}" for t in rel["ident_cold_ms"])
+        + f" ms; traced {rel['ident_traced_ms']:.1f} ms: "
+        + " ".join(f"{k}={v:.2f}ms" for k, v in rel["ident_phases"].items())
+        + f"; {N_TICKS} ticks (each relax-routed, incremental, == a same-vocab re-encode) p50 "
+        f"{statistics.median(t['ms'] for t in rel['ticks']):.1f} ms: " + "; ".join(
+            f"{t['ms']:.1f} ms (reused {t['reused']}, encode delta rows "
+            f"{t['encode_delta_rows']}, device delta rows {t['device_delta_rows']}, full puts "
+            f"{t['full_puts']})" for t in rel["ticks"])
+        + f"; repeat REUSE; (c) zonal partial {N_ZONAL + N_SOLO} x {N_TYPES}: {ZONAL_ROUTED} "
+        f"routed, {ZONAL_BULK_CLAIMS} bulk + {rel['zonal_exact_claims']} exact claims == cpu in "
+        f"slot order, {rel['zonal_ms']:.1f} ms; slot order differs from relax off: "
+        f"{rel['zonal_order_differs']}; (d) corrupt bulk: relax_rejects 1, == relax off; "
+        "launches " + " ".join(f"{p}={c}" for p, c in rel["launches"].items()))
+
+    # every path's own counts: the solves, the searches, the three loops
     paths = dict(e2e["launches"])
     paths.update({label: c["launches"] for label, c in cons.items()})
     paths.update(con["launches"])
     paths.update(div["launches"])
+    paths.update(rel["launches"])
     scen_paths = {label: c["scenario_launches"] for label, c in cons.items()}
     kernels = []
     for name, row in rows.items():

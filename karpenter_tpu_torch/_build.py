@@ -14,7 +14,8 @@ caller that zeroes them (``reset_launches``) and reads them after a run
 sees which kernels the run went through, and whether a probe set ran as
 one scenario batch or as a loop of single solves. A kernel's variant
 (``VARIANTS``: the pack scan over a domain batch, or over a batch with
-contributor rows) counts in its own entry as well as in the kernel's.
+contributor rows; B3's fresh or existing entry) counts in its own entry
+as well as in the kernel's.
 """
 
 from __future__ import annotations
@@ -31,12 +32,15 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("fresh_feasibility", "existing_feasibility", "pack", "pack_classed",
-           "wire_pack", "apply_rows")
+SOURCES = ("fresh_feasibility", "existing_feasibility", "dense_feasibility",
+           "pack", "pack_classed", "wire_pack", "apply_rows", "relax_fill")
 # launches of a kernel's variant, counted besides the kernel's own: pack
 # over a domain batch (has_domains) runs its domain machinery, over a
-# batch with contributor rows (has_contrib) its contributor counting
-VARIANTS = ("pack_domains", "pack_contrib")
+# batch with contributor rows (has_contrib) its contributor counting;
+# dense_feasibility's two entries count as dense_fresh and dense_existing
+VARIANTS = ("pack_domains", "pack_contrib", "dense_fresh", "dense_existing")
+# a library's C entry points, where they are not the one kt_<name>
+ENTRY_POINTS = {"dense_feasibility": ("kt_dense_fresh", "kt_dense_existing")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -132,7 +136,8 @@ def library(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = ctypes.CDLL(_lib_path(name))
                 # every entry point returns cudaGetLastError() after launching
-                getattr(lib, f"kt_{name}").restype = ctypes.c_int
+                for entry in ENTRY_POINTS.get(name, (f"kt_{name}",)):
+                    getattr(lib, entry).restype = ctypes.c_int
                 _libs[name] = lib
     return lib
 

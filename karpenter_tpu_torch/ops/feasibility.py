@@ -6,11 +6,16 @@ the per-instance-type scan in filterInstanceTypesByRequirements
 (nodeclaim.go:363-426) — become masked AND/ANY reductions over
 (entities x keys x value-slots) boolean tensors.
 
-Two device kernels live here, each as a public wrapper beside its plain
+Four device kernels live here, each as a public wrapper beside its plain
 PyTorch version (``*_reference``):
 
-- ``fresh_claim_feasibility_sparse`` (kernel ``csrc/fresh_feasibility.cu``)
-- ``existing_node_feasibility_sparse`` (kernel ``csrc/existing_feasibility.cu``)
+- ``fresh_claim_feasibility_sparse`` (kernel B1, ``csrc/fresh_feasibility.cu``)
+- ``existing_node_feasibility_sparse`` (kernel B2, ``csrc/existing_feasibility.cu``)
+- ``fresh_claim_feasibility`` and ``existing_node_feasibility``, the dense
+  twins (kernel B3, ``csrc/dense_feasibility.cu``): the same tables by the
+  full requirement join, with no live-pair index. The relaxation
+  pre-solver (ops/relax.py) runs the fresh one over its run heads, and
+  ``ops/solve.py`` takes both when ``sparse_groups`` is False.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the hand-written kernel, or raises. The plain versions mirror
@@ -206,6 +211,81 @@ def existing_node_feasibility_sparse_reference(
     return torch.where(compat & n_tol, cap, torch.zeros_like(cap))
 
 
+def fresh_claim_feasibility_reference(
+    g_def, g_neg, g_mask, g_req,
+    p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
+    t_def, t_mask, t_alloc,
+    o_avail, o_zone, o_ct,
+    well_known,
+    zone_kid: int,
+    ct_kid: int,
+):
+    """Plain version of karpenter_tpu/ops/feasibility.py:
+    fresh_claim_feasibility — for every (template P, group G): can a fresh
+    claim from P host pods of G, and on which instance types, by the full
+    [P, G, T, K, V1] requirement join.
+
+    Returns compat_pg [P, G] bool, type_ok [P, G, T] bool,
+    n_fit [P, G, T] int32."""
+    # claim requirements = template ∪ group
+    c_def, c_neg, c_mask = merge_requirements(
+        p_def[:, None, :], p_neg[:, None, :], p_mask[:, None, :, :],
+        g_def[None, :, :], g_neg[None, :, :], g_mask[None, :, :, :],
+    )  # [P, G, K(,V1)]
+
+    compat_pg = p_tol & requirements_compatible(
+        p_def[:, None, :], p_neg[:, None, :], p_mask[:, None, :, :],
+        g_def[None, :, :], g_neg[None, :, :], g_mask[None, :, :, :],
+        well_known,
+    )  # [P, G]
+
+    # instance-type compatibility vs merged claim requirements
+    # (compatible() in nodeclaim.go:428-430 is Intersects only)
+    t_neg = torch.zeros_like(t_def)
+    type_compat = requirements_intersect(
+        t_def[None, None, :, :], t_neg[None, None, :, :], t_mask[None, None, :, :, :],
+        c_def[:, :, None, :], c_neg[:, :, None, :], c_mask[:, :, None, :, :],
+    )  # [P, G, T]
+
+    # offerings vs merged zone/capacity-type masks
+    off = offering_ok(
+        c_mask[:, :, zone_kid, :], c_mask[:, :, ct_kid, :], o_avail, o_zone, o_ct
+    )  # [P, G, T]
+
+    n_fit = fits_count(
+        t_alloc[None, None, :, :], p_daemon[:, None, None, :], g_req[None, :, None, :]
+    )  # [P, G, T]
+
+    type_ok = (
+        type_compat & off & (n_fit >= 1) & p_titype_ok[:, None, :] & compat_pg[:, :, None]
+    )
+    return compat_pg, type_ok, n_fit
+
+
+def existing_node_feasibility_reference(
+    g_def, g_neg, g_mask, g_req,
+    n_def, n_mask, n_avail, n_base, n_tol,
+    well_known,
+):
+    """Plain version of karpenter_tpu/ops/feasibility.py:
+    existing_node_feasibility — for every (existing node N, group G): room
+    for pods of G. Existing nodes have concrete labels, so compatibility
+    is the strict direction (no well-known allowance, existingnode.go:96).
+
+    Returns cap_ng [N, G] int32, or [S, N, G] for a scenario batch's
+    n_tol [S, N, G] (only the gate is per scenario)."""
+    n_neg = torch.zeros_like(n_def)
+    compat = requirements_compatible(
+        n_def[:, None, :], n_neg[:, None, :], n_mask[:, None, :, :],
+        g_def[None, :, :], g_neg[None, :, :], g_mask[None, :, :, :],
+        torch.zeros_like(well_known),
+    )  # [N, G]
+    cap = fits_count(
+        n_avail[:, None, :], n_base[:, None, :], g_req[None, :, :]
+    )  # [N, G]
+    return torch.where(compat & n_tol, cap, torch.zeros_like(cap))
+
+
 def fresh_claim_feasibility_sparse(
     g_def, g_neg, g_mask, g_req,
     p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
@@ -250,6 +330,48 @@ def existing_node_feasibility_sparse(
     if g_mask.device.type == "cpu":
         return existing_node_feasibility_sparse_reference(*args)
     return _launch_existing(*args)
+
+
+def fresh_claim_feasibility(
+    g_def, g_neg, g_mask, g_req,
+    p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
+    t_def, t_mask, t_alloc,
+    o_avail, o_zone, o_ct,
+    well_known,
+    zone_kid: int,
+    ct_kid: int,
+):
+    """compat_pg [P, G], type_ok [P, G, T], n_fit [P, G, T] by the dense
+    join: the plain version for CPU tensors, kernel B3's fresh entry
+    (csrc/dense_feasibility.cu) for CUDA tensors."""
+    args = (
+        g_def, g_neg, g_mask, g_req,
+        p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
+        t_def, t_mask, t_alloc,
+        o_avail, o_zone, o_ct,
+        well_known,
+    )
+    if g_mask.device.type == "cpu":
+        return fresh_claim_feasibility_reference(*args, zone_kid=zone_kid, ct_kid=ct_kid)
+    return _launch_dense_fresh(*args, zone_kid=zone_kid, ct_kid=ct_kid)
+
+
+def existing_node_feasibility(
+    g_def, g_neg, g_mask, g_req,
+    n_def, n_mask, n_avail, n_base, n_tol,
+    well_known,
+):
+    """cap_ng [N, G] (or [S, N, G] for n_tol [S, N, G]) by the dense join:
+    the plain version for CPU tensors, kernel B3's existing entry
+    (csrc/dense_feasibility.cu) for CUDA tensors."""
+    args = (
+        g_def, g_neg, g_mask, g_req,
+        n_def, n_mask, n_avail, n_base, n_tol,
+        well_known,
+    )
+    if g_mask.device.type == "cpu":
+        return existing_node_feasibility_reference(*args)
+    return _launch_dense_existing(*args)
 
 
 def _launch_fresh(
@@ -348,4 +470,93 @@ def _launch_existing(
             _build.stream(),
         )
     _build.launched("existing_feasibility", rc, scenarios=S)
+    return cap_ng
+
+
+def _launch_dense_fresh(
+    g_def, g_neg, g_mask, g_req,
+    p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
+    t_def, t_mask, t_alloc,
+    o_avail, o_zone, o_ct,
+    well_known,
+    zone_kid: int,
+    ct_kid: int,
+):
+    import ctypes
+
+    G, K, V1 = g_mask.shape
+    P, R = p_daemon.shape
+    T, O = o_avail.shape
+    dev = g_mask.device
+    b, i32, f32 = torch.bool, torch.int32, torch.float32
+    for t, name, dt, shape in (
+        (g_def, "g_def", b, (G, K)), (g_neg, "g_neg", b, (G, K)),
+        (g_mask, "g_mask", b, (G, K, V1)), (g_req, "g_req", f32, (G, R)),
+        (p_def, "p_def", b, (P, K)), (p_neg, "p_neg", b, (P, K)),
+        (p_mask, "p_mask", b, (P, K, V1)), (p_daemon, "p_daemon", f32, (P, R)),
+        (p_tol, "p_tol", b, (P, G)), (p_titype_ok, "p_titype_ok", b, (P, T)),
+        (t_def, "t_def", b, (T, K)), (t_mask, "t_mask", b, (T, K, V1)),
+        (t_alloc, "t_alloc", f32, (T, R)),
+        (o_avail, "o_avail", b, (T, O)), (o_zone, "o_zone", i32, (T, O)),
+        (o_ct, "o_ct", i32, (T, O)), (well_known, "well_known", b, (K,)),
+    ):
+        _build.check(t, name, dt, shape, dev)
+    if not (0 <= zone_kid < K and 0 <= ct_kid < K):
+        raise ValueError(f"zone_kid {zone_kid} / ct_kid {ct_kid} outside K={K}")
+    compat_pg = torch.empty((P, G), dtype=b, device=dev)
+    type_ok = torch.empty((P, G, T), dtype=b, device=dev)
+    n_fit = torch.empty((P, G, T), dtype=i32, device=dev)
+    fn = _build.library("dense_feasibility").kt_dense_fresh
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        rc = fn(
+            *(ctypes.c_int(int(v)) for v in (
+                P, G, T, K, V1, R, O, zone_kid, ct_kid)),
+            p(g_def), p(g_neg), p(g_mask), p(g_req),
+            p(p_def), p(p_neg), p(p_mask), p(p_daemon), p(p_tol),
+            p(p_titype_ok),
+            p(t_def), p(t_mask), p(t_alloc),
+            p(o_avail), p(o_zone), p(o_ct),
+            p(well_known),
+            p(compat_pg), p(type_ok), p(n_fit),
+            _build.stream(),
+        )
+    _build.launched("dense_feasibility", rc, variants=("dense_fresh",))
+    return compat_pg, type_ok, n_fit
+
+
+def _launch_dense_existing(
+    g_def, g_neg, g_mask, g_req,
+    n_def, n_mask, n_avail, n_base, n_tol,
+    well_known,
+):
+    import ctypes
+
+    G, K, V1 = g_mask.shape
+    N, R = n_avail.shape
+    # a scenario batch gates on n_tol [S, N, G], as for B2
+    lead = tuple(n_tol.shape[:-2])
+    S = n_tol.shape[0] if lead else 1
+    dev = g_mask.device
+    b, f32 = torch.bool, torch.float32
+    for t, name, dt, shape in (
+        (g_def, "g_def", b, (G, K)), (g_neg, "g_neg", b, (G, K)),
+        (g_mask, "g_mask", b, (G, K, V1)), (g_req, "g_req", f32, (G, R)),
+        (n_def, "n_def", b, (N, K)), (n_mask, "n_mask", b, (N, K, V1)),
+        (n_avail, "n_avail", f32, (N, R)), (n_base, "n_base", f32, (N, R)),
+        (n_tol, "n_tol", b, lead + (N, G)), (well_known, "well_known", b, (K,)),
+    ):
+        _build.check(t, name, dt, shape, dev)
+    cap_ng = torch.empty(lead + (N, G), dtype=torch.int32, device=dev)
+    fn = _build.library("dense_feasibility").kt_dense_existing
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        rc = fn(
+            *(ctypes.c_int(int(v)) for v in (S, N, G, K, V1, R)),
+            p(g_def), p(g_neg), p(g_mask), p(g_req),
+            p(n_def), p(n_mask), p(n_avail), p(n_base), p(n_tol),
+            p(cap_ng),
+            _build.stream(),
+        )
+    _build.launched("dense_feasibility", rc, scenarios=S, variants=("dense_existing",))
     return cap_ng

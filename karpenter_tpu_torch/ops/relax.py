@@ -1,0 +1,438 @@
+"""Convex-relaxation bulk pre-solver for separable easy mass: the PyTorch
+port of karpenter_tpu/ops/relax.py.
+
+The easy bulk of a batch is its set of **separable plain runs**:
+FFD-contiguous signature runs of groups that carry no topology state (no
+domain mode, no hostname cap or affinity, no shared-constraint slots, no
+contributor rows) in a batch with no existing nodes, no reservation
+ledger, no minValues floors and no pool limits, and whose claims provably
+cannot exchange pods with any other run's claims. For such a run the
+exact scan has a closed form: all of its claims but the last hold
+``n_per`` pods, so member j's fills are the overlap of its cumulative pod
+interval with the claim grid (the JAX module's docstring gives the
+argument, PARITY.md "Relaxation pre-solver" the routing conditions).
+
+- ``BulkPlan`` and ``plan_bulk``, the host-side separability wall, are
+  copied verbatim from the JAX module (``tests/test_torch_isolation.py``
+  holds ``plan_bulk`` equal to its source).
+- ``solve_bulk`` places the planned bulk on a torch device: kernel B3's
+  fresh table (ops/feasibility.py:fresh_claim_feasibility) over the
+  pow2-padded run heads, one readback, the host's per-run claim sizes
+  and claim-slot arrays exactly as JAX computes them, then one
+  ``relax_fill`` launch and its readback.
+- ``relax_fill`` is kernel B9 (csrc/relax_fill.cu) for CUDA tensors and
+  its plain version ``relax_fill_reference`` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..solver import encode as enc
+from ..solver.args import put
+from .feasibility import fresh_claim_feasibility
+
+# block edge for the pairwise join wall's [P, Bx, By, K] temporaries:
+# 256x256 blocks keep the per-block einsum under ~32 MB at P=4, K=32
+_JOIN_BLOCK = 256
+
+
+@dataclass
+class BulkPlan:
+    """Host-side routing plan for one batch (all arrays numpy)."""
+
+    easy_gids: np.ndarray  # [Ge] group ids (into the padded snapshot)
+    ge_run: np.ndarray  # [Ge] run index per easy group
+    run_head: np.ndarray  # [CRr] head group id per easy run
+    ge_count: np.ndarray  # [Ge] pod counts
+    ge_a: np.ndarray  # [Ge] cumulative pod offset within the run
+    run_total: np.ndarray  # [CRr] total pods per run
+    easy_pods: int = 0
+
+
+def plan_bulk(
+    snap_run,
+    *,
+    res_cap0: np.ndarray,
+    n_exist: int,
+) -> Optional[BulkPlan]:
+    """The separability wall. Returns a BulkPlan naming the easy runs, or
+    None when nothing can be proven separable.
+
+    Routing conditions (each is load-bearing for the closed form —
+    PARITY.md "Relaxation pre-solver"):
+
+    - batch level: no existing nodes, empty reservation ledger, no
+      minValues floors, no pool limits (limit debits couple bulks across
+      groups through the shared ledger);
+    - group level (every member of a routed run): positive count, no
+      domain mode, unbounded per-entity cap, no hostname affinity, no
+      shared-constraint slot, no contributor rows (contributions feed
+      carries that *other* groups' quotas read mid-scan);
+    - pair level: no group of any other run may ever join a routed run's
+      claims, and no routed group may join anyone else's — checked
+      against the most permissive claim state either side could reach
+      (single-group merge for the intersect term, maximal defined set
+      for the custom-label allowance, so multi-merged claims are covered
+      a fortiori).
+    """
+    if n_exist:
+        return None
+    if res_cap0.shape[0]:
+        return None
+    if snap_run.p_mvmin.shape[1]:
+        return None
+    if np.asarray(snap_run.p_has_limit).any():
+        return None
+    g_count = np.asarray(snap_run.g_count)
+    G = len(g_count)
+    if not G:
+        return None
+    easy_g = (
+        (g_count > 0)
+        & (np.asarray(snap_run.g_dmode) == 0)
+        & (np.asarray(snap_run.g_hcap) >= enc.HCAP_NONE)
+        & (~np.asarray(snap_run.g_haff))
+        & (np.asarray(snap_run.g_hstg) < 0)
+        & (np.asarray(snap_run.g_dtg) < 0)
+        & (~np.asarray(snap_run.g_hcontrib).any(axis=1))
+        & (~np.asarray(snap_run.g_dcontrib).any(axis=1))
+    )
+    if not easy_g.any():
+        return None
+
+    # signature runs (the class_partition adjacency, minus n_tol: N == 0)
+    same = np.zeros((G,), bool)
+    if G > 1:
+        same[1:] = (
+            (snap_run.g_req[1:] == snap_run.g_req[:-1]).all(axis=1)
+            & (snap_run.g_def[1:] == snap_run.g_def[:-1]).all(axis=1)
+            & (snap_run.g_neg[1:] == snap_run.g_neg[:-1]).all(axis=1)
+            & (snap_run.g_mask[1:] == snap_run.g_mask[:-1]).all(axis=(1, 2))
+            & (snap_run.p_tol[:, 1:] == snap_run.p_tol[:, :-1]).all(axis=0)
+        )
+    run_of = np.cumsum(~same) - 1  # [G]
+    n_runs = int(run_of[-1]) + 1
+    run_start = np.flatnonzero(~same)
+    # a run is easy only when EVERY member is (mixed runs interleave easy
+    # members with topology members inside one claim-sharing class)
+    run_easy = np.ones((n_runs,), bool)
+    np.minimum.at(run_easy, run_of, easy_g)
+    run_pods = np.bincount(run_of, weights=g_count)[:n_runs] > 0
+    run_easy &= run_pods
+
+    if not run_easy.any():
+        return None
+
+    # ---- pairwise join wall --------------------------------------------
+    # join_ok[x, y]: could a group of run y EVER join a claim opened for
+    # run x (under any template)? Computed against the most permissive
+    # claim state (see docstring). Bail any easy run out of the plan when
+    # it can exchange pods with any other run, either direction. Only
+    # pairs with an easy side are computed, so fragmented batches pay
+    # O(easy_runs x runs), never O(runs^2).
+    heads = run_start  # [n_runs] head group id per run
+    hd = snap_run.g_def[heads]  # [Rn, K]
+    hn = snap_run.g_neg[heads]
+    hm = snap_run.g_mask[heads]  # [Rn, K, V1]
+    p_def = snap_run.p_def  # [P, K]
+    p_neg = snap_run.p_neg
+    p_mask = snap_run.p_mask
+    wk = snap_run.well_known  # [K]
+    # custom-label allowance against the maximal defined set any claim
+    # could accumulate (multi-merged claims only grow c_def)
+    c_def_max = p_def | hd.any(axis=0)[None, :]  # [P, K]
+    custom_ok = (
+        ~hd[None, :, :] | wk[None, None, :] | c_def_max[:, None, :]
+        | hn[None, :, :]
+    ).all(axis=2)  # [P, Ry]
+
+    def _join(xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
+        """[Rx', Ry'] — some template's run-x claim admits run-y pods.
+
+        Blocked over both run axes: the [P, Rx', Ry', K] overlap
+        temporary would otherwise spike to hundreds of MB on exactly the
+        many-small-deployment shapes this pre-solver targets."""
+        out = np.zeros((len(xs), len(ys)), bool)
+        for i in range(0, len(xs), _JOIN_BLOCK):
+            xb = xs[i:i + _JOIN_BLOCK]
+            # claim of run x under template p: c_def = p_def | hd[x],
+            # c_neg = p_neg & hn[x], c_mask = p_mask & hm[x]
+            c_def = p_def[:, None, :] | hd[None, xb, :]  # [P, Bx, K]
+            c_neg = p_neg[:, None, :] & hn[None, xb, :]
+            c_mask = p_mask[:, None, :, :] & hm[None, xb, :, :]
+            c_mask_i = c_mask.astype(np.int32)
+            for j in range(0, len(ys), _JOIN_BLOCK):
+                yb = ys[j:j + _JOIN_BLOCK]
+                # int32 accumulator: an int8 einsum wraps past 127
+                # overlapping value slots (wide complement masks on a
+                # V1 >= 128 vocab) and a wrapped-negative sum would
+                # silently report "no overlap", letting a joinable run
+                # into the plan
+                overlap = np.einsum(
+                    "prkv,ykv->pryk",
+                    c_mask_i, hm[yb].astype(np.int32),
+                ) > 0  # [P, Bx, By, K]
+                key_ok = (
+                    overlap
+                    | (c_neg[:, :, None, :] & hn[None, None, yb, :])
+                    | ~(c_def[:, :, None, :] & hd[None, None, yb, :])
+                )
+                join_ok = key_ok.all(axis=3) & custom_ok[:, None, yb]
+                out[i:i + _JOIN_BLOCK, j:j + _JOIN_BLOCK] = join_ok.any(axis=0)
+        return out
+
+    easy_ids = np.flatnonzero(run_easy)
+    # only runs with pods can exchange them: padding runs (all counts 0)
+    # and emptied runs never open claims and never place, so they are no
+    # coupling partner (the kernel cond-skips their every member)
+    other_ids = np.flatnonzero(run_pods)
+    fwd = _join(easy_ids, other_ids)  # easy claims admitting anyone
+    bwd = _join(other_ids, easy_ids)  # anyone's claims admitting easy pods
+    self_x = np.searchsorted(other_ids, easy_ids)
+    fwd[np.arange(len(easy_ids)), self_x] = False  # within-run = closed form
+    bwd[self_x, np.arange(len(easy_ids))] = False
+    coupled = fwd.any(axis=1) | bwd.any(axis=0)
+    run_easy[easy_ids[coupled]] = False
+    if not run_easy.any():
+        return None
+
+    easy_runs = np.flatnonzero(run_easy)
+    run_index = np.full((n_runs,), -1, np.int64)
+    run_index[easy_runs] = np.arange(len(easy_runs))
+    gids = np.flatnonzero(run_easy[run_of] & (g_count > 0))
+    ge_run = run_index[run_of[gids]].astype(np.int32)
+    ge_count = g_count[gids].astype(np.int64)
+    # cumulative pod offset within each run (groups are run-contiguous in
+    # FFD order, so a plain segmented cumsum over the gathered axis works)
+    cum = np.cumsum(ge_count) - ge_count
+    run_base = np.zeros((len(easy_runs),), np.int64)
+    first = np.unique(ge_run, return_index=True)[1]
+    run_base[ge_run[first]] = cum[first]
+    ge_a = cum - run_base[ge_run]
+    run_total = np.bincount(
+        ge_run, weights=ge_count, minlength=len(easy_runs)
+    ).astype(np.int64)
+    return BulkPlan(
+        easy_gids=gids.astype(np.int32),
+        ge_run=ge_run,
+        run_head=heads[easy_runs].astype(np.int32),
+        ge_count=ge_count,
+        ge_a=ge_a,
+        run_total=run_total,
+        easy_pods=int(ge_count.sum()),
+    )
+
+
+def _wrap32(x):
+    """int64 values as int32 arithmetic leaves them: two's-complement
+    wraparound, as XLA's int32 ops wrap."""
+    return torch.remainder(x + 2**31, 2**32) - 2**31
+
+
+def relax_fill_reference(
+    ge_count,  # [GE] int32 (0 on padding)
+    ge_a,  # [GE] int32 within-run pod offset
+    ge_off,  # [GE] int32 first claim slot of the group's run
+    ge_nper,  # [GE] int32 pods per claim of the run (0 = infeasible)
+    ge_kc,  # [GE] int32 claim count of the run
+    cl_run_pool,  # [NR] int32 template id per claim slot
+    cl_fill,  # [NR] int32 total pods per claim slot
+    cl_avail,  # [NR, T] bool p_star availability row per claim slot
+    cl_nfit,  # [NR, T] int32 n_fit row per claim slot
+):
+    """Plain version of karpenter_tpu/ops/relax.py:relax_fill (inside
+    _jit_relax_fill): the interval-arithmetic rounding of the relaxed
+    bulk. claim_fills[i, j] is the overlap of group i's cumulative pod
+    interval with claim j's capacity window; the claim type masks keep the
+    types whose fit survives the claim's total fill. The window arithmetic
+    runs in int64 and wraps to int32 after every operation XLA does in
+    int32, so every lane, masked or kept, equals JAX's.
+
+    Returns claim_fills [GE, NR] int32, c_tmask [NR, T] bool, c_pool [NR]
+    int32 (``cl_run_pool``) and unplaced [GE] int32."""
+    i64, i32 = torch.int64, torch.int32
+    NR = cl_fill.shape[0]
+    slots = torch.arange(NR, dtype=i64, device=cl_fill.device)
+    rel = _wrap32(slots[None, :] - ge_off.to(i64)[:, None])  # [GE, NR]
+    nper = ge_nper.to(i64).clamp(min=1)[:, None]
+    lo = ge_a.to(i64)[:, None]
+    hi = _wrap32(ge_a.to(i64) + ge_count.to(i64))[:, None]
+    win_lo = _wrap32(rel * nper)
+    win_hi = _wrap32(win_lo + nper)
+    fill = _wrap32(torch.minimum(hi, win_hi) - torch.maximum(lo, win_lo))
+    fill = torch.minimum(fill.clamp(min=0), nper)
+    in_run = (rel >= 0) & (rel < ge_kc.to(i64)[:, None]) & (ge_nper[:, None] > 0)
+    claim_fills = torch.where(in_run, fill, torch.zeros_like(fill)).to(i32)
+    c_tmask = cl_avail & (cl_nfit >= cl_fill[:, None])
+    unplaced = torch.where(ge_nper > 0, torch.zeros_like(ge_count), ge_count).to(i32)
+    return claim_fills, c_tmask, cl_run_pool, unplaced
+
+
+def relax_fill(
+    ge_count, ge_a, ge_off, ge_nper, ge_kc, cl_run_pool, cl_fill, cl_avail, cl_nfit,
+):
+    """claim_fills [GE, NR], c_tmask [NR, T], c_pool [NR], unplaced [GE]:
+    the plain version for CPU tensors, kernel B9 (csrc/relax_fill.cu) for
+    CUDA tensors."""
+    args = (ge_count, ge_a, ge_off, ge_nper, ge_kc, cl_run_pool, cl_fill, cl_avail, cl_nfit)
+    if cl_fill.device.type == "cpu":
+        return relax_fill_reference(*args)
+    return _launch_relax_fill(*args)
+
+
+def _launch_relax_fill(
+    ge_count, ge_a, ge_off, ge_nper, ge_kc, cl_run_pool, cl_fill, cl_avail, cl_nfit,
+):
+    import ctypes
+
+    GE, (NR, T) = ge_count.shape[0], cl_avail.shape
+    dev = cl_fill.device
+    i32 = torch.int32
+    for t, name, dt, shape in (
+        (ge_count, "ge_count", i32, (GE,)), (ge_a, "ge_a", i32, (GE,)),
+        (ge_off, "ge_off", i32, (GE,)), (ge_nper, "ge_nper", i32, (GE,)),
+        (ge_kc, "ge_kc", i32, (GE,)), (cl_run_pool, "cl_run_pool", i32, (NR,)),
+        (cl_fill, "cl_fill", i32, (NR,)), (cl_avail, "cl_avail", torch.bool, (NR, T)),
+        (cl_nfit, "cl_nfit", i32, (NR, T)),
+    ):
+        _build.check(t, name, dt, shape, dev)
+    claim_fills = torch.empty((GE, NR), dtype=i32, device=dev)
+    c_tmask = torch.empty((NR, T), dtype=torch.bool, device=dev)
+    c_pool = torch.empty((NR,), dtype=i32, device=dev)
+    unplaced = torch.empty((GE,), dtype=i32, device=dev)
+    fn = _build.library("relax_fill").kt_relax_fill
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        rc = fn(
+            ctypes.c_int(GE), ctypes.c_int(NR), ctypes.c_int(T),
+            p(ge_count), p(ge_a), p(ge_off), p(ge_nper), p(ge_kc),
+            p(cl_run_pool), p(cl_fill), p(cl_avail), p(cl_nfit),
+            p(claim_fills), p(c_tmask), p(c_pool), p(unplaced),
+            _build.stream(),
+        )
+    _build.launched("relax_fill", rc)
+    return claim_fills, c_tmask, c_pool, unplaced
+
+
+# B3's inputs, in fresh_claim_feasibility's order; the group rows and the
+# p_tol columns are gathered at the padded run heads
+HEAD_ARG_NAMES = (
+    "g_def", "g_neg", "g_mask", "g_req",
+    "p_def", "p_neg", "p_mask", "p_daemon", "p_tol", "p_titype_ok",
+    "t_def", "t_mask", "t_alloc", "o_avail", "o_zone", "o_ct", "well_known",
+)
+# B9's inputs, in relax_fill's order
+FILL_ARG_NAMES = ("ge_count", "ge_a", "ge_off", "ge_nper", "ge_kc", "cl_run_pool",
+                  "cl_fill", "cl_avail", "cl_nfit")
+
+
+def head_args(plan: BulkPlan, snap_run):
+    """B3's inputs (host arrays, HEAD_ARG_NAMES order) over the easy runs'
+    head groups. The head axis is pow2-bucketed as in JAX (the jitted
+    table compiles per bucket there); pad rows repeat group 0 and are
+    sliced off before any of their results are read."""
+    heads = plan.run_head
+    CRp = enc._next_pow2(len(heads), floor=1)
+    hpad = np.zeros((CRp,), heads.dtype)
+    hpad[:len(heads)] = heads
+    return (
+        snap_run.g_def[hpad], snap_run.g_neg[hpad],
+        snap_run.g_mask[hpad], snap_run.g_req[hpad],
+        snap_run.p_def, snap_run.p_neg, snap_run.p_mask,
+        snap_run.p_daemon, snap_run.p_tol[:, hpad], snap_run.p_titype_ok,
+        snap_run.t_def, snap_run.t_mask, snap_run.t_alloc,
+        snap_run.o_avail, snap_run.o_zone, snap_run.o_ct,
+        snap_run.well_known,
+    )
+
+
+def fill_args(plan: BulkPlan, type_ok: np.ndarray, n_fit: np.ndarray):
+    """(n_r, B9's inputs as host arrays in FILL_ARG_NAMES order) from the
+    head tables [P, CRp, T]: each run's first feasible template p_star,
+    its pods per claim n_per and claim count kc, the claim-slot offsets,
+    and the per-slot arrays padded to a pow2 NR — exactly as
+    karpenter_tpu/ops/relax.py:solve_bulk computes them."""
+    CRr = len(plan.run_head)
+    type_ok = type_ok[:, :CRr]
+    n_fit = n_fit[:, :CRr]
+    feas_p = type_ok.any(axis=2)  # [P, CRr]
+    any_feas = feas_p.any(axis=0)
+    p_star = np.argmax(feas_p, axis=0)  # first feasible template (weight order)
+    avail = type_ok[p_star, np.arange(CRr)]  # [CRr, T]
+    nf = n_fit[p_star, np.arange(CRr)]  # [CRr, T]
+    n_per = np.where(avail, nf, 0).max(axis=1)  # [CRr]
+    n_per = np.where(any_feas, n_per, 0).astype(np.int64)
+    kc = np.zeros((CRr,), np.int64)
+    live = n_per > 0
+    kc[live] = -(-plan.run_total[live] // n_per[live])
+    off = np.cumsum(kc) - kc  # claim slot offset per run
+    n_r = int(kc.sum())
+
+    GE = enc._next_pow2(len(plan.easy_gids), floor=1)
+    NR = enc._next_pow2(max(n_r, 1), floor=1)
+
+    def padg(a, fill=0):
+        out = np.full((GE,), fill, a.dtype)
+        out[: len(a)] = a
+        return out
+
+    # per-claim-slot run attributes
+    cl_run = np.zeros((NR,), np.int64)
+    if n_r:
+        cl_run[:n_r] = np.repeat(np.arange(CRr), kc)
+    cl_rel = np.arange(NR, dtype=np.int64) - off[cl_run]
+    last = cl_rel == kc[cl_run] - 1
+    fill_full = n_per[cl_run]
+    fill_last = plan.run_total[cl_run] - (kc[cl_run] - 1) * n_per[cl_run]
+    cl_fill = np.where(last, fill_last, fill_full)
+    cl_fill[n_r:] = 0
+    cl_avail = avail[cl_run]
+    cl_avail[n_r:] = False
+    cl_nfit = nf[cl_run]
+    cl_pool = p_star[cl_run].astype(np.int32)
+    return n_r, (
+        padg(plan.ge_count.astype(np.int32)),
+        padg(plan.ge_a.astype(np.int32)),
+        padg(off[plan.ge_run].astype(np.int32)),
+        padg(n_per[plan.ge_run].astype(np.int32)),
+        padg(kc[plan.ge_run].astype(np.int32)),
+        cl_pool,
+        cl_fill.astype(np.int32),
+        cl_avail,
+        cl_nfit.astype(np.int32),
+    )
+
+
+def solve_bulk(plan: BulkPlan, snap_run, device):
+    """Solve the planned easy bulk on ``device``. Returns (n_r, c_pool,
+    c_tmask_bool, claim_fills_ge, unplaced_ge) as numpy arrays — claim
+    slots on a fresh axis the driver appends after the exact kernel's,
+    rows aligned with plan.easy_gids — as the JAX solve_bulk does.
+
+    Two launches and two readbacks: B3's fresh table over the run heads
+    (a handful of rows), then one B9 launch for the heavy fill and type
+    mask arrays."""
+    _, type_ok, n_fit = fresh_claim_feasibility(
+        *(put(n, x, device) for n, x in zip(HEAD_ARG_NAMES, head_args(plan, snap_run))),
+        zone_kid=snap_run.zone_kid, ct_kid=snap_run.ct_kid,
+    )
+    type_ok, n_fit = (x.cpu().numpy() for x in (type_ok, n_fit))
+    n_r, fill_in = fill_args(plan, type_ok, n_fit)
+    claim_fills, c_tmask, c_pool, unplaced = (
+        x.cpu().numpy() for x in relax_fill(
+            *(put(n, x, device) for n, x in zip(FILL_ARG_NAMES, fill_in)))
+    )
+    ge = len(plan.easy_gids)
+    return (
+        n_r,
+        c_pool[:n_r],
+        c_tmask[:n_r],
+        claim_fills[:ge, :n_r],
+        unplaced[:ge],
+    )

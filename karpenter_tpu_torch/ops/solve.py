@@ -4,7 +4,9 @@ One dispatch runs the feasibility tables (ops/feasibility.py), the
 packing scan (ops/packing.py) and the wire pack on the device the
 arguments live on: four kernel launches on CUDA (B1, B2 when there are
 existing nodes, B4, B6), their plain versions on the CPU. Outputs stay on
-the device until TorchSolver's single drain.
+the device until TorchSolver's single drain. With ``sparse_groups``
+False the tables come from the dense twins (B3's two entries) in place
+of B1 and B2, as in the JAX package; the driver passes True.
 
 The scenario axis (B7, consolidation's probe sets) is the same dispatch
 with ``g_count`` [S, G] and ``n_tol`` [S, N, G] batched (plus the prior
@@ -22,8 +24,7 @@ The class-batched variant (``solve_core_classed``, B5 in place of B4)
 runs the same dispatch over the driver's class partition: batches of many
 small groups sharing few feasibility classes.
 
-Not in this slice (each raises NotImplementedError): the dense
-feasibility twins (B3) and the tiled mode.
+Not in this slice (raises NotImplementedError): the tiled mode.
 """
 
 from __future__ import annotations
@@ -35,32 +36,46 @@ import torch
 from .. import _build, faults, obs
 from ..solver.encode import SOLVE_ARG_NAMES
 from .feasibility import (
+    existing_node_feasibility,
     existing_node_feasibility_sparse,
+    fresh_claim_feasibility,
     fresh_claim_feasibility_sparse,
 )
 from .packing import check_scope, classed_results, pack, pack_classed
 
 
-def _feasibility_tables(a, zone_kid: int, ct_kid: int):
-    """The [P,G(,T)] / [N,G] tables the scan consumes, from the sparse
-    (segment-contraction) twins over the encoder's live-pair index."""
-    compat_pg, type_ok, n_fit = fresh_claim_feasibility_sparse(
-        a["g_def"], a["g_neg"], a["g_mask"], a["g_req"],
-        a["p_def"], a["p_neg"], a["p_mask"], a["p_daemon"], a["p_tol"],
-        a["p_titype_ok"],
-        a["t_def"], a["t_mask"], a["t_alloc"],
-        a["o_avail"], a["o_zone"], a["o_ct"],
-        a["well_known"],
-        a["gk_g"], a["gk_k"], a["gk_w"], a["goff_idx"],
-        zone_kid=zone_kid,
-        ct_kid=ct_kid,
-    )
-    if a["n_avail"].shape[0]:
-        cap_ng = existing_node_feasibility_sparse(
-            a["g_def"], a["g_neg"], a["g_mask"], a["g_req"],
-            a["n_def"], a["n_mask"], a["n_avail"], a["n_base"], a["n_tol"],
-            a["gk_g"], a["gk_k"], a["gk_w"],
+_FRESH_ARGS = ("g_def", "g_neg", "g_mask", "g_req",
+               "p_def", "p_neg", "p_mask", "p_daemon", "p_tol", "p_titype_ok",
+               "t_def", "t_mask", "t_alloc", "o_avail", "o_zone", "o_ct",
+               "well_known")
+_EXIST_ARGS = ("g_def", "g_neg", "g_mask", "g_req",
+               "n_def", "n_mask", "n_avail", "n_base", "n_tol")
+_SPARSE_INDEX = ("gk_g", "gk_k", "gk_w")
+
+
+def _feasibility_tables(a, zone_kid: int, ct_kid: int, sparse_groups: bool = True):
+    """The [P,G(,T)] / [N,G] tables the scan consumes: from the sparse
+    (segment-contraction) twins over the encoder's live-pair index (B1,
+    B2) when ``sparse_groups``, else from the dense twins (B3). The tables
+    are bit-exact either way."""
+    fresh = [a[n] for n in _FRESH_ARGS]
+    if sparse_groups:
+        compat_pg, type_ok, n_fit = fresh_claim_feasibility_sparse(
+            *fresh, *(a[n] for n in _SPARSE_INDEX), a["goff_idx"],
+            zone_kid=zone_kid, ct_kid=ct_kid,
         )
+    else:
+        compat_pg, type_ok, n_fit = fresh_claim_feasibility(
+            *fresh, zone_kid=zone_kid, ct_kid=ct_kid,
+        )
+    if a["n_avail"].shape[0]:
+        exist = [a[n] for n in _EXIST_ARGS]
+        if sparse_groups:
+            cap_ng = existing_node_feasibility_sparse(
+                *exist, *(a[n] for n in _SPARSE_INDEX)
+            )
+        else:
+            cap_ng = existing_node_feasibility(*exist, a["well_known"])
     else:
         # no existing nodes: an empty table, with n_tol's scenario axis
         cap_ng = torch.zeros(
@@ -101,14 +116,9 @@ def solve_core(
 def _scan_inputs(a, zone_kid, ct_kid, tile_feasibility, sparse_groups):
     """The scan's positional inputs from the named solve args ``a``: the
     scope check, then the feasibility tables (B1, and B2 when there are
-    existing nodes)."""
+    existing nodes; B3 in their place without ``sparse_groups``)."""
     check_scope(tile_feasibility, a["res_cap0"].shape[0], a["p_mvmin"].shape[1])
-    if not sparse_groups:
-        raise NotImplementedError(
-            "the dense feasibility twins (B3) are not ported; pass "
-            "sparse_groups=True (bit-exact with the dense tables)"
-        )
-    return pack_args(a, *_feasibility_tables(a, zone_kid, ct_kid))
+    return pack_args(a, *_feasibility_tables(a, zone_kid, ct_kid, sparse_groups))
 
 
 def solve_core_classed(

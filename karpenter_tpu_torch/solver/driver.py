@@ -29,10 +29,19 @@ Batches of many small groups that share few feasibility classes (the
 reference's diverse mix) take the class-batched scan (B5 in place of B4),
 routed exactly as the JAX package routes them (``_classed_partition``).
 
-Not in this slice, each raising NotImplementedError: the relaxation
-pre-solver and the multi-GPU mesh (ROADMAP.md items A9, A13), and the
-kernel statics outside the ported pack scope (reservations, minValues,
-tiled tables: item A4b).
+Every solve first plans a relaxation bulk (ops/relax.py:plan_bulk, the
+JAX default): the separable easy runs of the batch have their counts
+zeroed in a fresh ``g_count`` for the exact dispatch, and are placed by
+``solve_bulk`` (kernel B3's fresh table over the run heads, then kernel
+B9), their claims appended after the exact ones (``_merge_relax``) and the
+combined solve guarded against the true counts; a rejected bulk sheds to
+a full exact re-dispatch (``relax_rejects``). The dispatch drains once;
+a routed solve adds the relax path's two readbacks (B3's head tables,
+then B9's outputs). ``SolverConfig(relax=False)`` turns the path off.
+
+Not in this slice, each raising NotImplementedError: the multi-GPU mesh
+(ROADMAP.md item A13), and the kernel statics outside the ported pack
+scope (reservations, minValues, tiled tables: item A4b).
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import obs
+from .. import faults, obs
 from ..api import labels as labels_mod
 from ..api import resources as res
 from ..api.objects import NodePool, Pod
@@ -55,6 +64,7 @@ from ..faults.guard import (
     SolverIntegrityError,
     check_solution,
 )
+from ..ops import relax as relax_mod
 from ..ops.packing import check_scope
 from ..scheduling.inflight import RESERVED_OFFERING_MODE_STRICT
 from ..scheduling.scheduler import Results, Scheduler
@@ -292,15 +302,18 @@ class SolverConfig:
     # forces it, False forces the per-group scan, None routes by mean class
     # size (TorchSolver._classed_partition), as the JAX package does
     classed: Optional[bool] = None
-    # not in this slice: set, each raises NotImplementedError
-    mesh: Optional[object] = None
+    # convex-relaxation bulk pre-solver (ops/relax.py, kernels B3 and B9):
+    # the separable easy mass of a batch is placed in closed form, the
+    # residual rides the exact dispatch. None (the default) and True turn
+    # it on, False off, as in the JAX package (without its KTPU_RELAX
+    # environment switch). The scenario axis never plans a bulk.
     relax: Optional[bool] = None
+    # not in this slice: set, it raises NotImplementedError
+    mesh: Optional[object] = None
 
     def __post_init__(self):
         if self.mesh is not None:
             raise _not_in_slice("the multi-GPU mesh (B10)", "A13")
-        if self.relax:
-            raise _not_in_slice("the relaxation pre-solver (B9)", "A9")
         dev = torch.device(self.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -402,6 +415,14 @@ class TorchSolver:
         # for representability reasons (oracle-routed pods, gated routes)
         self.fallback_solves = 0
         self.last_fallback_reasons: List[str] = []
+        # relaxation pre-solver telemetry of the last solve: pods the bulk
+        # pre-solver placed, claims it opened, the pods left to the exact
+        # dispatch, and guard rejections (over the solver's life) that
+        # shed the combined solve back to the full exact dispatch
+        self.last_relax_pods = 0
+        self.last_relax_claims = 0
+        self.last_relax_residual_pods = 0
+        self.relax_rejects = 0
         # per-solve volume routing state (prepare_volume_routing)
         self._vol_resolved: Dict[str, list] = {}
 
@@ -1260,6 +1281,25 @@ class TorchSolver:
                 for name, arr in zip(_CLASS_ARG_NAMES, cls_host)
             ]
 
+        # relaxation bulk pre-solver (ops/relax.py): when the planner
+        # proves part of the batch is separable easy mass, its counts are
+        # zeroed for the exact dispatch and the bulk is placed by the
+        # closed-form relaxed solve, merged before guard/decode. Only the
+        # dispatch's g_count ARG is replaced, by a fresh tensor: the
+        # resident buffers keep the true encode, so warm REUSE/row-delta
+        # staging is untouched.
+        relax_plan = None
+        if self.config.relax is not False:
+            relax_plan = relax_mod.plan_bulk(
+                snap_run, res_cap0=res_cap0, n_exist=len(snap.existing_names),
+            )
+        args = list(args)
+        true_g_count = args[0]
+        if relax_plan is not None:
+            g_count_res = np.asarray(snap_run.g_count).copy()
+            g_count_res[relax_plan.easy_gids] = 0
+            args[0] = put("g_count", g_count_res, self.device)
+
         def call(nmax):
             if classed_args is not None:
                 out = dispatch_classed_packed(
@@ -1283,28 +1323,85 @@ class TorchSolver:
                 c_resv.astype(bool),
             )
 
-        while True:
-            with obs.span("solve.dispatch", nmax=nmax):
-                outs = call(nmax)
-            self.last_dispatches += 1
-            if not outs[3]:  # overflow
-                break
-            nmax *= 2
+        def run_dispatch():
+            nonlocal nmax
+            while True:
+                with obs.span("solve.dispatch", nmax=nmax):
+                    outs = call(nmax)
+                self.last_dispatches += 1
+                if not outs[3]:  # overflow
+                    return outs
+                nmax *= 2
+
+        outs = run_dispatch()
+        self.last_relax_pods = 0
+        self.last_relax_claims = 0
+        self.last_relax_residual_pods = 0
+        total_nmax = nmax
+        if relax_plan is not None:
+            try:
+                with obs.span("solve.relax", pods=relax_plan.easy_pods):
+                    bulk = relax_mod.solve_bulk(relax_plan, snap_run, self.device)
+                # chaos seam: a corrupt bulk must trip the combined guard
+                # below and shed to the full exact solve, never commit
+                bulk = faults.mutate(faults.RELAX_OUTPUT, bulk)
+                outs_c, total_nmax = self._merge_relax(
+                    outs, relax_plan, bulk, nmax
+                )
+                # invariant guard over the COMBINED solve (exact residual
+                # + relaxed bulk), against the TRUE group counts
+                with obs.span("solve.guard"):
+                    self._verify_solution(
+                        snap, snap_run, outs_c[0], outs_c[1],
+                        int(outs_c[2]), outs_c[4], outs_c[5], outs_c[6],
+                        total_nmax, c_dzone=outs_c[7], c_dct=outs_c[8],
+                    )
+                outs = outs_c
+                self.last_relax_pods = relax_plan.easy_pods
+                self.last_relax_claims = int(bulk[0])
+                self.last_relax_residual_pods = int(
+                    np.asarray(snap_run.g_count).sum()
+                ) - relax_plan.easy_pods
+                obs.event(
+                    "solve.relax",
+                    pods=relax_plan.easy_pods,
+                    claims=int(bulk[0]),
+                    runs=len(relax_plan.run_head),
+                )
+            except SolverIntegrityError:
+                # rejected rounding: shed the whole batch to the full
+                # exact solve, against the true (resident) counts; the
+                # normal guard below checks it. Caught here, so only the
+                # exact re-solve's rejection reaches _solve_routed's
+                # delta fallback.
+                self.relax_rejects += 1
+                obs.event("solve.relax_rejected")
+                args[0] = true_g_count
+                relax_plan = None
+                outs = run_dispatch()
+                total_nmax = nmax
         (c_pool, c_tmask, n_open, overflow,
          exist_fills, claim_fills, unplaced, c_dzone, c_dct,
          c_resv) = outs
         # invariant guard BEFORE decode: a violating solve is discarded
-        # with zero state mutated (faults/guard.py)
+        # with zero state mutated (faults/guard.py). (Relax-combined
+        # solves were already guarded above; re-checking the merged arrays
+        # is a few host matmuls.)
         with obs.span("solve.guard"):
             self._verify_solution(
                 snap, snap_run, c_pool, c_tmask, int(n_open),
-                exist_fills, claim_fills, unplaced, nmax,
+                exist_fills, claim_fills, unplaced, total_nmax,
                 c_dzone=c_dzone, c_dct=c_dct,
             )
         if self.config.max_claims is None:
+            # the hint sizes the EXACT kernel's NMAX bucket, so bulk
+            # claims the relaxation placed are excluded; a relax-reject
+            # re-solve that needs the full count is covered by the
+            # overflow-doubling retry
             with self._shared_cache.lock:
                 lease_cache["nmax_hint"] = max(
-                    lease_cache.get("nmax_hint", 0), int(n_open)
+                    lease_cache.get("nmax_hint", 0),
+                    int(n_open) - self.last_relax_claims,
                 )
         try:
             with obs.span("solve.decode", claims=int(n_open)):
@@ -1320,6 +1417,65 @@ class TorchSolver:
                 f"decode aborted mid-commit: {type(exc).__name__}: {exc}"
             ) from exc
 
+    # Copied from karpenter_tpu/solver/driver.py:TpuSolver._merge_relax,
+    # with its comment on the packed layout reworded for the port's one
+    # solve path.
+    @staticmethod
+    def _merge_relax(outs, plan, bulk, nmax):
+        """Append the relaxed bulk's claims after the exact residual's.
+
+        Claim slot NUMBERING differs from a pure-exact interleaved solve
+        (slots are anonymous — decode mints claim identities from slot
+        order), but the decisions — which pods land on which claims of
+        which template with which surviving type sets — are identical by
+        the separability proof in ops/relax.py (pinned by
+        tests/test_relax.py). Returns (combined outs, combined nmax)."""
+        (c_pool, packed, n_open, overflow, exist_fills, claim_fills,
+         unplaced, c_dzone, c_dct, c_resv) = outs
+        n_open = int(n_open)
+        n_r, r_pool, r_tmask, r_fills, r_unplaced = bulk
+        c_pool = np.asarray(c_pool)
+        packed = np.asarray(packed)
+        claim_fills = np.asarray(claim_fills)
+        G = claim_fills.shape[0]
+        # bit-pack the bulk's type masks exactly like ops/solve._wire_pack
+        # (MSB-first uint8 rows) so decode's lazy unpack sees one layout.
+        # The port's solve path always drains wire-packed outputs, so no
+        # raw-bool layout can reach this merge.
+        assert packed.dtype == np.uint8, "relax merge requires packed masks"
+        r_tmask = np.asarray(r_tmask)
+        T = r_tmask.shape[1]
+        pad = (-T) % 8
+        r_packed = np.packbits(
+            np.pad(r_tmask, ((0, 0), (0, pad))), axis=1
+        )
+        c_pool_c = np.concatenate(
+            [c_pool[:n_open], np.asarray(r_pool).astype(c_pool.dtype)]
+        )
+        packed_c = np.concatenate([packed[:n_open], r_packed], axis=0)
+        fills_r = np.zeros((G, int(n_r)), claim_fills.dtype)
+        fills_r[plan.easy_gids] = np.asarray(r_fills)
+        claim_fills_c = np.concatenate(
+            [claim_fills[:, :n_open], fills_r], axis=1
+        )
+        unplaced_c = np.asarray(unplaced).copy()
+        unplaced_c[plan.easy_gids] += np.asarray(r_unplaced)
+        c_dzone_c = np.concatenate(
+            [np.asarray(c_dzone)[:n_open],
+             np.full((int(n_r),), -1, np.asarray(c_dzone).dtype)]
+        )
+        c_dct_c = np.concatenate(
+            [np.asarray(c_dct)[:n_open],
+             np.full((int(n_r),), -1, np.asarray(c_dct).dtype)]
+        )
+        c_resv_c = np.concatenate(
+            [np.asarray(c_resv)[:n_open], np.zeros((int(n_r),), bool)]
+        )
+        return (
+            (c_pool_c, packed_c, n_open + int(n_r), overflow, exist_fills,
+             claim_fills_c, unplaced_c, c_dzone_c, c_dct_c, c_resv_c),
+            nmax + int(n_r),
+        )
 
     @staticmethod
     def _vocab_bound(snap, kid: int) -> int:

@@ -18,7 +18,12 @@ tensor untouched), and the last section B5, the class-batched scan, on
 class batches (both domain axes, contributor rows, existing nodes,
 overflow, a domain-free batch: every field of the final state), B4's
 contributor counting (one block and the scenario grid), and the diverse
-1,000 x 400 solve on the card against the CPU.
+1,000 x 400 solve on the card against the CPU. The relax section holds
+B3's two entries against their plain versions and B1's/B2's tables (at
+the example shapes, over nodes, at G = 1), the ops dense route against
+the sparse one, B9 against its plain version on every lane (infeasible
+rows, padding, n_per = 2**30, T = 0), and TorchSolver's default route
+on the zonal partial mix against the CPU in claim slot order.
 
 Marked ``cuda``: they skip where there is no card. On the card, from the
 repo root: ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
@@ -728,3 +733,151 @@ def test_diverse_solve_matches_cpu(cuda):
     got = solve("cuda")
     assert _build.launches["pack_classed"] >= 1 and _build.launches["pack"] == 0
     assert got == solve("cpu") and got[0]
+
+
+# -- B3, the dense tables, and B9, the relaxation bulk's rounding ---------------
+
+_B3 = _B1[:17]  # the dense fresh table takes no live-pair index
+_B3E = _B2[:9] + ("well_known",)
+
+
+@pytest.mark.parametrize("case", ["example-64", "example-1000", "nodes-5", "one-group"])
+def test_dense_tables(cuda, case):
+    """B3's fresh and existing entries against their plain versions and
+    against B1's / B2's tables on the same inputs, each entry counted on
+    its own; at the example shapes, over existing nodes, and at G = 1."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    if case.startswith("example"):
+        n = int(case.split("-")[1])
+        args, statics = example_snapshot_arrays(n, 16 if n < 100 else 60, 4 if n < 100 else 25)
+    elif case == "nodes-5":
+        args, statics = _snapshot(mixed_pods(300), n_types=30, n_nodes=5)
+    else:
+        args, statics = _snapshot(_pods(40, 500), n_types=30, n_nodes=3)
+    a = dict(zip(enc.SOLVE_ARG_NAMES, to_device_args(args, cuda)))
+    c = dict(zip(enc.SOLVE_ARG_NAMES, to_device_args(args, "cpu")))
+    if case == "one-group":
+        assert a["g_mask"].shape[0] == 1
+    kw = dict(zone_kid=statics["zone_kid"], ct_kid=statics["ct_kid"])
+    _build.reset_launches()
+    kern = feas.fresh_claim_feasibility(*(a[n] for n in _B3), **kw)
+    assert _build.launches["dense_fresh"] == 1 and _build.launches["dense_existing"] == 0
+    plain = feas.fresh_claim_feasibility_reference(*(c[n] for n in _B3), **kw)
+    b1 = feas.fresh_claim_feasibility_sparse(*(a[n] for n in _B1), **kw)
+    for i, (k, p, s) in enumerate(zip(kern, plain, b1)):
+        assert k.dtype == p.dtype == s.dtype and k.shape == p.shape == s.shape, i
+        np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=f"output {i}")
+        np.testing.assert_array_equal(k.cpu().numpy(), s.cpu().numpy(), err_msg=f"B1 {i}")
+    assert plain[1].any()
+    if a["n_avail"].shape[0]:
+        cap = feas.existing_node_feasibility(*(a[n] for n in _B3E))
+        assert _build.launches["dense_existing"] == 1
+        np.testing.assert_array_equal(
+            cap.cpu().numpy(), feas.existing_node_feasibility_reference(*(c[n] for n in _B3E)).numpy())
+        np.testing.assert_array_equal(
+            cap.cpu().numpy(), feas.existing_node_feasibility_sparse(*(a[n] for n in _B2)).cpu().numpy())
+        assert int(cap.max()) > 0
+
+
+def test_dense_route_solve_core(cuda):
+    """solve_core(sparse_groups=False) on the card: B3 in place of B1/B2,
+    equal to the plain dense route and to the sparse route."""
+    args, statics = _snapshot(mixed_pods(400), n_types=30, n_nodes=8)
+    dense = _kernels_equal_plain(args, dict(statics, sparse_groups=False), cuda)
+    sparse = _kernels_equal_plain(args, dict(statics, sparse_groups=True), cuda)
+    for i, (d, s) in enumerate(zip(dense, sparse)):
+        np.testing.assert_array_equal(d.numpy(), s.numpy(), err_msg=f"output {i}")
+
+
+def _fill_inputs(seed, GE, NR, T):
+    """Seeded relax_fill inputs: infeasible rows (n_per 0), padding groups
+    and slots, n_per = 2**30 and a window past int32."""
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    ge_count = rng.integers(0, 60, GE).astype(i32)
+    ge_a = rng.integers(0, 200, GE).astype(i32)
+    ge_off = rng.integers(0, max(NR, 1), GE).astype(i32)
+    ge_nper = rng.integers(1, 40, GE).astype(i32)
+    ge_kc = rng.integers(0, 6, GE).astype(i32)
+    if GE >= 8:
+        ge_count[-2:] = 0
+        ge_a[3] = 2**31 - 20
+        ge_nper[[1, 5]] = 0
+        ge_nper[[2, 6, 7]] = 2**30
+        ge_kc[6] = 3
+    cl_run_pool = rng.integers(0, 3, NR).astype(i32)
+    cl_fill = rng.integers(0, 50, NR).astype(i32)
+    cl_avail = rng.random((NR, T)) < 0.7
+    cl_nfit = rng.integers(0, 60, (NR, T)).astype(i32)
+    if NR >= 8:
+        cl_fill[-5:] = 0
+        cl_avail[-5:] = False
+    return (ge_count, ge_a, ge_off, ge_nper, ge_kc, cl_run_pool, cl_fill, cl_avail, cl_nfit)
+
+
+@pytest.mark.parametrize("GE,NR,T", [(12, 64, 20), (1, 1024, 400), (1, 1, 1), (16, 8, 0)])
+def test_relax_fill(cuda, GE, NR, T):
+    """B9 against its plain version on every lane, edge rows included."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops.relax import relax_fill, relax_fill_reference
+
+    host = _fill_inputs(GE + NR, GE, NR, T)
+    _build.reset_launches()
+    kern = relax_fill(*(torch.from_numpy(x).to(cuda) for x in host))
+    torch.cuda.synchronize()
+    assert _build.launches["relax_fill"] == 1
+    plain = relax_fill_reference(*(torch.from_numpy(x) for x in host))
+    for i, (k, p) in enumerate(zip(kern, plain)):
+        assert k.dtype == p.dtype and k.shape == p.shape, i
+        np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=f"output {i}")
+
+
+def _zonal_partial(n_easy, n_solo):
+    """chip_smoke phase 7c's zonal partial mix at a small size."""
+    zones = ("test-zone-a", "test-zone-b", "test-zone-c")
+    lbl = {"app": "solo"}
+    sel = LabelSelector(match_labels=lbl)
+
+    def pod(name, cpu_m, zone, own=None):
+        return Pod(
+            metadata=ObjectMeta(name=name, labels=own or {}),
+            spec=PodSpec(
+                requests={res.CPU: cpu_m, res.MEMORY: 2**30 * res.MILLI},
+                node_selector={labels.TOPOLOGY_ZONE: zone},
+                pod_anti_affinity=[PodAffinityTerm(topology_key=labels.HOSTNAME,
+                                                   label_selector=sel)] if own else None,
+            ),
+        )
+
+    pods = [pod(f"z-{i}", (1 + i % 3) * 500, zones[i % 3]) for i in range(n_easy)]
+    pods += [pod(f"solo-{i}", 700, zones[1], own=lbl) for i in range(n_solo)]
+    return pods
+
+
+def test_relax_solve_matches_cpu(cuda):
+    """TorchSolver's default route on the card: the zonal partial mix
+    relax-routed through B3 and B9, the claims equal to the CPU run's in
+    slot order, with equal relax telemetry."""
+    from karpenter_tpu_torch import _build
+
+    pods = _zonal_partial(1200, 40)
+    pools = [example_nodepool()]
+    its = {pools[0].name: corpus.generate(60)}
+
+    def solve(device):
+        topo = Topology(Client(TestClock()), [], pools, its, pods)
+        s = TorchSolver(pools, its, topo, config=SolverConfig(device=device))
+        r = s.solve(pods)
+        return ([(tuple(sorted(p.metadata.name for p in c.pods)),
+                  tuple(it.name for it in c.instance_type_options))
+                 for c in r.new_node_claims], sorted(r.pod_errors),
+                (s.last_relax_pods, s.last_relax_claims, s.last_relax_residual_pods,
+                 s.relax_rejects))
+
+    _build.reset_launches()
+    got = solve("cuda")
+    assert _build.launches["dense_fresh"] == 1 and _build.launches["relax_fill"] == 1
+    assert got == solve("cpu")
+    assert got[2][0] == 800 and got[2][3] == 0

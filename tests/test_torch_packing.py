@@ -162,10 +162,24 @@ class TestSolveCore:
         with pytest.raises(NotImplementedError, match="A4b"):
             solve_core(*to_device_args(args, "cpu"), **st)
 
-    def test_dense_tables_raise(self):
-        args, statics = example_snapshot_arrays(16, 4, 1)
-        with pytest.raises(NotImplementedError, match="B3"):
-            solve_core(*to_device_args(args, "cpu"), **dict(statics, sparse_groups=False))
+    @pytest.mark.parametrize("n_nodes", [0, 5])
+    def test_dense_tables_raise(self, n_nodes):
+        """The dense route (B3's plain versions in place of B1/B2) is
+        ported: solve_core(..., sparse_groups=False) equals JAX's on every
+        output, and the dense tables give the sparse route's outputs."""
+        import jax
+
+        from karpenter_tpu.solver.workloads import mixed_pods
+
+        nodes = [make_state_node(name=f"dn-{i}", cpu="4", memory="16Gi")
+                 for i in range(n_nodes)]
+        args, statics = snapshot_args(mixed_pods(200), n_types=20, state_nodes=nodes)
+        st = dict(statics, sparse_groups=False)
+        j_out = [np.asarray(x) for x in jax.device_get(solve_all(*args, **st))]
+        t_out = solve_core(*to_device_args(args, "cpu"), **st)
+        _assert_outputs_equal(j_out, t_out)
+        _assert_outputs_equal(j_out, _solve_both(args, statics)[1])
+        assert int(j_out[2]) > 0
 
 
 class TestWirePack:

@@ -193,19 +193,31 @@ class TestConfig:
         ({"mesh": "auto"}, "A13"), ({"classed": True}, "A8"), ({"relax": True}, "A9"),
     ])
     def test_unported_options_raise(self, kw, item):
-        """The mesh (A13) and relax (A9) options raise. The class-batched
-        scan (A8) is ported: classed=True solves, deciding as TpuSolver
-        does (tests/test_torch_classed.py holds it case by case)."""
+        """The mesh option (A13) raises. The class-batched scan (A8) and
+        the relaxation pre-solver (A9) are ported: classed=True and
+        relax=True solve, deciding as TpuSolver does with the same option
+        (tests/test_torch_classed.py and tests/test_torch_relax.py hold
+        them case by case); relax=True routes identical pods to the bulk
+        and keeps the claims' slot order."""
         from karpenter_tpu_torch.solver.driver import SolverConfig
 
-        if item == "A8":
+        if item in ("A8", "A9"):
+            workload = "diverse_reference_mix" if item == "A8" else "identical_pods"
             got = []
             for pkg in PKGS:
-                solver, pods = _build(pkg, "diverse_reference_mix", 150, 20)
-                solver.config.classed = True
-                got.append(decisions(solver.solve(pods), pods))
-            assert SolverConfig(device="cpu", **kw).classed is True
+                solver, pods = _build(pkg, workload, 150, 20)
+                for k, v in kw.items():
+                    setattr(solver.config, k, v)
+                res = solver.solve(pods)
+                got.append(decisions(res, pods) + (
+                    [tuple(sorted(p.metadata.name for p in c.pods))
+                     for c in res.new_node_claims],
+                    getattr(solver, "last_relax_pods", None)))
+            for k, v in kw.items():
+                assert getattr(SolverConfig(device="cpu", **kw), k) is v
             assert got[0] == got[1] and got[1][0]
+            if item == "A9":
+                assert got[1][-1] == 150
             return
         with pytest.raises(NotImplementedError, match=item):
             SolverConfig(device="cpu", **kw)
