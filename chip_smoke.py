@@ -87,17 +87,41 @@ no result:
    the relax-off solve. Phases 3, 5 and 6 report ``relax_pods`` (0: the
    planner routes nothing there, as in the JAX package).
 
+8. the A4b loop: NodePools with minValues floors and offerings with
+   capacity reservations, every solve counted, each cell's cold solve
+   equal to the device="cpu" solve in slot order (and in the reservations
+   each claim holds), no relax routing, no sequential fallback, cold p50
+   over 5 solves from fresh EncodeCaches: (a) minvalues-50k,
+   mixed_pods(50,000, gpu_fraction=0) x 400 over one NodePool whose only
+   requirement is instance-family Exists with minValues 2 (B4 with floors);
+   (b) reserved-50k, the same pods over the default pool and a catalog
+   with one reserved offering (test-zone-a, capacity 20) on every 25th
+   type, reserved capacity on in the default mode (B4 with the ledger;
+   1..320 claims hold reservations); (c) constrained-minvalues, BASELINE
+   config[2]'s constrained_mix(50,000) x 800 over the minValues pool (B4
+   with domains and floors); (d) diverse-minvalues,
+   diverse_reference_mix(5,000) x 400 over the minValues pool with
+   classed=True (B5 with floors), then once on the auto route (B4 with
+   contributors and floors); (e) MultiNodeConsolidation at 2,000 nodes
+   with the env's NodePool carrying the same floor (B7 with floors), its
+   command equal to the device="cpu" run's.
+
 Phase 2 also holds B5 against pack_classed_reference (every output and
 the final state) and B4 with contributor counting (the same batch with
 the classed route off) against pack_reference, on the diverse batch; B3's
 fresh entry on the mixed 50k snapshot against its plain version and B1's
 tables, its existing entry on B2's 32-node snapshot against its plain
-version and B2's table, and B9 on the bulk inputs of the identical 50k
-batch against its plain version.
+version and B2's table, B9 on the bulk inputs of the identical 50k
+batch against its plain version, and the A4b variants at phase 8's
+cells: B4 with floors (minvalues-50k), B4 with the ledger (reserved-50k),
+B5 with floors (diverse-minvalues) and B7 with floors (the consolidation
+chunk over the minValues pool).
 
 Then one JSON line of per-kernel numbers (B1, B2, B3 fresh and existing,
-B4, B4 over domains, B4 with contributor counting, B5, B6, B7, B8, B9),
-the nvidia-smi line, and the last line ``{"ok": true, "device": {...}}``.
+B4, B4 over domains, B4 with contributor counting, B4 with minValues
+floors, B4 with the reservation ledger, B5, B5 with floors, B6, B7, B7
+with floors, B8, B9), the nvidia-smi line, and the last line
+``{"ok": true, "device": {...}}``.
 """
 
 import gc
@@ -125,6 +149,11 @@ CONS_NODES, CONS_SCENARIOS = 2_000, 16  # BASELINE config[3]; one sweep chunk
 CONFIG0_PODS, CONFIG0_TYPES, CONFIG0_CLAIMS = 500, 10, 34
 N_IDENT, IDENT_CLAIMS = 50_000, 532
 N_ZONAL, N_SOLO, ZONAL_ROUTED, ZONAL_BULK_CLAIMS = 48_000, 400, 32_000, 339
+# phase 8, the A4b loop: reserved-50k's catalog carries one reserved
+# offering (test-zone-a, capacity 20) on every 25th of its 400 types:
+# 16 reservations, at most 320 claims holding one
+RESV_EVERY, RESV_CAP = 25, 20
+RESV_MAX_CLAIMS = N_TYPES // RESV_EVERY * RESV_CAP
 REPLACES = {
     "fresh_feasibility": "karpenter_tpu/ops/feasibility.py:141",
     "existing_feasibility": "karpenter_tpu/ops/feasibility.py:264",
@@ -138,12 +167,18 @@ REPLACES = {
     "dense_fresh": "karpenter_tpu/ops/feasibility.py:84",
     "dense_existing": "karpenter_tpu/ops/feasibility.py:298",
     "relax_fill": "karpenter_tpu/ops/relax.py:244",
+    "pack_minvalues": "karpenter_tpu/ops/packing.py:601",
+    "pack_resv": "karpenter_tpu/ops/packing.py:485",
+    "pack_classed_minvalues": "karpenter_tpu/ops/packing.py:1531",
+    "scenarios_minvalues": "karpenter_tpu/ops/solve.py:357",
 }
 # the source of each kernel row (B4 with domains and with contributor
 # counting are pack.cu's domain and contributor paths; B3's two entries
 # share dense_feasibility.cu)
 SOURCES = {"pack_domains": "pack", "pack_contrib": "pack", "solve_scenarios": "pack",
-           "dense_fresh": "dense_feasibility", "dense_existing": "dense_feasibility"}
+           "dense_fresh": "dense_feasibility", "dense_existing": "dense_feasibility",
+           "pack_minvalues": "pack", "pack_resv": "pack", "scenarios_minvalues": "pack",
+           "pack_classed_minvalues": "pack_classed"}
 # the one PyTorch call that computes a kernel's function, timed beside it
 LIBRARY = {"apply_rows": "Tensor.index_copy"}
 # B7 is the scenario-batched dispatch of these kernels; pack.cu holds its
@@ -172,14 +207,31 @@ PATH_KERNELS = {
     "ident_ticks": RELAX_KERNELS,
     "zonal": RELAX_KERNELS,
     "zonal_reject": RELAX_KERNELS,
+    # the A4b loop: B4 with minValues floors, with the reservation ledger,
+    # with domains and floors; B5 with floors; the auto route of the
+    # diverse mix over floors (B4 with contributors and floors)
+    "minvalues": ("fresh_feasibility", "pack", "pack_minvalues", "wire_pack"),
+    "reserved": ("fresh_feasibility", "pack", "pack_resv", "wire_pack"),
+    "constrained_minvalues": ("fresh_feasibility", "pack", "pack_domains", "pack_minvalues",
+                              "wire_pack"),
+    "diverse_minvalues": ("fresh_feasibility", "pack_classed", "pack_classed_minvalues",
+                          "wire_pack"),
+    "diverse_minvalues_auto": ("fresh_feasibility", "pack", "pack_contrib", "pack_minvalues",
+                               "wire_pack"),
 }
 # ... and those it must not launch: the classed route replaces B4, the
 # dense route B1 and B2
 PATH_ABSENT = {"diverse": ("pack",), "diverse_ticks": ("pack",),
                "diverse_per_group": ("pack_classed",),
-               "dense_route": ("fresh_feasibility", "existing_feasibility")}
+               "dense_route": ("fresh_feasibility", "existing_feasibility"),
+               "minvalues": ("pack_classed", "pack_resv"),
+               "reserved": ("pack_classed", "pack_minvalues"),
+               "constrained_minvalues": ("pack_classed", "pack_resv"),
+               "diverse_minvalues": ("pack",),
+               "diverse_minvalues_auto": ("pack_classed",)}
 # ... and those each consolidation path must launch over a scenario batch
 CONS_KERNELS = ("existing_feasibility", "pack", "wire_pack")
+CONS_MV_KERNELS = CONS_KERNELS + ("pack_minvalues",)
 # the solve args each feasibility kernel reads, in its wrapper's order
 B1_NAMES = ("g_def", "g_neg", "g_mask", "g_req", "p_def", "p_neg", "p_mask",
             "p_daemon", "p_tol", "p_titype_ok", "t_def", "t_mask", "t_alloc",
@@ -235,6 +287,22 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
+def timed(fn):
+    """``fn()``'s result and its milliseconds over that one call (CUDA
+    events): the plain scans, seconds long at the cells' shapes, run once
+    where the kernels run many times."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -259,19 +327,22 @@ def max_abs_err(kernel_out, ref_out):
 
 
 def build_batch(torch_solver_cls, config_cls, pods, n_types, state_nodes=(),
-                device="cuda", cache=None):
+                device="cuda", cache=None, pools=None, its=None, classed=None, **solver_kw):
+    """A TorchSolver over ``pods``: the default NodePool (or ``pools``) over
+    corpus.generate(n_types) (or the catalog ``its``); ``solver_kw`` go to
+    the scheduler (reserved_capacity_enabled)."""
     from karpenter_tpu_torch.cloudprovider import corpus
     from karpenter_tpu_torch.kube import Client, TestClock
     from karpenter_tpu_torch.scheduling.topology import Topology
     from karpenter_tpu_torch.solver.example import example_nodepool
 
-    pools = [example_nodepool()]
-    its = corpus.generate(n_types)
+    pools = pools or [example_nodepool()]
+    its = corpus.generate(n_types) if its is None else its
     its_by_pool = {p.name: list(its) for p in pools}
     topo = Topology(Client(TestClock()), list(state_nodes), pools, its_by_pool, pods)
     return torch_solver_cls(
         pools, its_by_pool, topo, state_nodes=list(state_nodes),
-        config=config_cls(device=device), encode_cache=cache,
+        config=config_cls(device=device, classed=classed), encode_cache=cache, **solver_kw,
     )
 
 
@@ -281,7 +352,9 @@ def host_snapshot(solver, pods):
     TorchSolver._solve_fast builds them."""
     from karpenter_tpu_torch.solver import encode as enc
 
-    groups, rest = enc.partition_and_group(pods, topology=solver.oracle.topology)
+    groups, rest = enc.partition_and_group(
+        pods, topology=solver.oracle.topology,
+        merge_bootstrap_affinity=not solver.oracle.reserved_capacity_enabled)
     if rest:
         raise SmokeFailure(f"{len(rest)} pods left the dense path")
     snap, (a_tzc, res_cap0, a_res), _, _, delta = solver._encode_batch(groups)
@@ -433,6 +506,7 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
     rows["solve_scenarios"] = scenario_row()
     rows.update(constrained_rows(torch_solver_cls, config_cls, encode_cache_cls))
     rows.update(diverse_rows(torch_solver_cls, config_cls))
+    rows.update(a4b_rows(torch_solver_cls, config_cls))
     for name, row in rows.items():
         if row["max_abs_err"] != 0.0:
             raise SmokeFailure(f"{name}: kernel disagrees with its plain version "
@@ -494,17 +568,23 @@ def relax_row(torch_solver_cls, config_cls):
     )
 
 
-def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None):
+def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None, mv=0,
+             nres=0):
     """Operations the scan's inputs need: per group step, each claim
     opened at an earlier step is checked against every type (2R fits
     compares, V1 x V1 offering cells), plus a few per claim slot. A
     dynamic group's step (``dyn`` [G] bool: g_dmode > 0) adds the per-domain
     offering cells of each claim and template type (V1 x V1 each) and a
-    per-domain claim pass. Over a leading scenario axis, the sum over
-    scenarios. With ``classes`` (class_start, class_len, class_dyn: the
-    class-batched scan) the per-type work runs once per class head, over
-    the claims opened before the class, and each member step costs only
-    its per-claim summaries."""
+    per-domain claim pass. ``mv`` floored minValues keys add, per step,
+    each claim's per-value pass over its types for each key and one pass
+    over each template's types (its bulk cap); ``nres`` reservations add,
+    per step, the compatible-reservation cells of one bulk (V1 x V1 per
+    reservation and type) and the ledger re-gate of each template's
+    types. Over a leading scenario axis, the sum over scenarios. With
+    ``classes`` (class_start, class_len, class_dyn: the class-batched
+    scan) the per-type work runs once per class head, over the claims
+    opened before the class, and each member step costs only its
+    per-claim summaries (and, with ``mv``, one template pass)."""
     import torch
 
     g_count, claim_fills, n_open = g_count.cpu(), claim_fills.cpu(), n_open.cpu()
@@ -520,32 +600,49 @@ def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None
                 if cl <= 0:
                     continue
                 live = sum(1 for f in first if f < cs)
-                ops += live * T * (2 * R + V1 * V1)
+                ops += live * T * (2 * R + V1 * V1) * (1 + mv)
                 if cdyn:
                     ops += (live + P) * T * V1 * V1
                 for g in range(cs, cs + cl):
                     if int(counts[g]) > 0:
-                        ops += nmax * 8 + (nmax * V1 * 8 if dyn[g] else 0)
+                        ops += nmax * 8 + (nmax * V1 * 8 if dyn[g] else 0) + P * T * mv
             continue
         for g in range(G):
             if int(counts[g]) <= 0:
                 continue
             live = sum(1 for f in first if f < g)
-            ops += live * T * (2 * R + V1 * V1) + nmax * 8
+            ops += live * T * (2 * R + V1 * V1) * (1 + mv) + nmax * 8
+            ops += P * T * mv + (nres + P) * T * V1 * V1 * bool(nres)
             if dyn[g]:
                 ops += (live + P) * T * V1 * V1 + nmax * V1 * 8
     return ops
 
 
-def scenario_snapshot(device="cuda"):
+def minvalues_consolidation_env(n_nodes, device):
+    """build_consolidation_env(n_nodes) with its NodePool carrying the
+    minValues pool's requirement (instance-family Exists, minValues 2),
+    set before any probe is solved."""
+    from karpenter_tpu_torch.api.objects import NodePool
+    from karpenter_tpu_torch.solver.example import minvalues_nodepool
+    from karpenter_tpu_torch.solver.workloads import build_consolidation_env
+
+    ctx, method, candidates, budgets = build_consolidation_env(n_nodes, device)
+    pool = ctx.client.list(NodePool)[0]
+    pool.spec.template.spec.requirements = list(
+        minvalues_nodepool().spec.template.spec.requirements)
+    return ctx, method, candidates, budgets
+
+
+def scenario_snapshot(device="cuda", build=None):
     """The consolidation path's B7 inputs: one single-node chunk of
     CONS_SCENARIOS scenarios (each removes one candidate) over
-    build_consolidation_env(CONS_NODES)'s shared encoding, staged by
-    TorchSolver.submit_scenarios exactly as the search stages them."""
+    ``build``(CONS_NODES)'s shared encoding (build_consolidation_env by
+    default), staged by TorchSolver.submit_scenarios exactly as the search
+    stages them."""
     from karpenter_tpu_torch.controllers.disruption.helpers import ScenarioSimulator
     from karpenter_tpu_torch.solver.workloads import build_consolidation_env
 
-    ctx, _, candidates, _ = build_consolidation_env(CONS_NODES, device)
+    ctx, _, candidates, _ = (build or build_consolidation_env)(CONS_NODES, device)
     sim = ScenarioSimulator(
         ctx.client, ctx.cluster, ctx.cloud_provider, candidates,
         encode_cache=ctx.encode_cache, solver_config=ctx.solver_config,
@@ -557,7 +654,8 @@ def scenario_snapshot(device="cuda"):
     return token
 
 
-def plain_scenarios(args, nmax, fills, zone_kid, ct_kid, wf_iters, has_domains, **_):
+def plain_scenarios(args, nmax, fills, zone_kid, ct_kid, wf_iters, has_domains,
+                    has_contrib=False, **_):
     """B7's plain version on the same tensors: each kernel's *_reference
     in the dispatch's order (B1 once, B2 over n_tol [S, N, G], the scan
     per scenario, the wire pack over S rows)."""
@@ -573,14 +671,15 @@ def plain_scenarios(args, nmax, fills, zone_kid, ct_kid, wf_iters, has_domains, 
     outs = packing_mod.pack_scenarios_reference(
         *solve_mod.pack_args(a, compat_pg, type_ok, n_fit, cap_ng),
         nmax=nmax, zone_kid=zone_kid, ct_kid=ct_kid, has_domains=has_domains,
-        wf_iters=wf_iters)
+        has_contrib=has_contrib, wf_iters=wf_iters)
     return solve_mod.wire_pack_reference(outs, fills)
 
 
-def scenario_row():
+def scenario_row(build=None):
     """Phase 2's B7 row: B2[S], B4[S] and B6[S rows] each against its
     plain version, and the whole scenario dispatch against plain_scenarios,
-    at the consolidation shapes. Tolerance: exact equality."""
+    at the consolidation shapes (``build``'s cluster: the default pool, or
+    the minValues pool's). Tolerance: exact equality."""
     import torch
 
     from karpenter_tpu_torch.ops import feasibility as feas
@@ -588,7 +687,7 @@ def scenario_row():
     from karpenter_tpu_torch.ops import solve as solve_mod
     from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
 
-    token = scenario_snapshot()
+    token = scenario_snapshot(build=build)
     args, statics = token["args"], dict(token["statics"])
     fills = token["fills_dtype"]
     a = dict(zip(SOLVE_ARG_NAMES, args))
@@ -598,7 +697,8 @@ def scenario_row():
     P, L, O = a["p_def"].shape[0], a["gk_g"].shape[0], a["o_avail"].shape[1]
     zk, ck = statics["zone_kid"], statics["ct_kid"]
     st = dict(nmax=token["nmax"], zone_kid=zk, ct_kid=ck, wf_iters=statics["wf_iters"],
-              has_domains=statics["has_domains"])
+              has_domains=statics["has_domains"], has_contrib=statics["has_contrib"])
+    MV = a["p_mvmin"].shape[1]
 
     def dispatch():
         return solve_mod.solve_scenarios_core_packed(
@@ -635,10 +735,10 @@ def scenario_row():
     # bytes: the dispatch's inputs read once, its wire outputs written once
     used = set(B1_NAMES) | set(B2_NAMES) | {
         "g_count", "g_hcap", "g_haff", "g_hstg", "g_hscap", "g_hself", "t_cap",
-        "a_tzc", "p_limit", "p_has_limit", "n_hcnt", "nh_cnt0"}
+        "a_tzc", "p_limit", "p_has_limit", "n_hcnt", "nh_cnt0", "p_mvmin", "t_mvoh"}
     ops = (P * T * K * V1 + P * L * T * V1 + P * G * T * (2 * R + O)  # B1
            + N * L * V1 + S * N * G * 2 * R  # B2: compat once, room per scenario
-           + pack_ops(a["g_count"], b4[5], b4[2], T, R, V1)  # B4
+           + pack_ops(a["g_count"], b4[5], b4[2], T, R, V1, P=P, mv=MV)  # B4
            + full[1].numel() * 8 + sum(x.numel() for x in full))  # B6
     return dict(
         max_abs_err=max(parts.values()),
@@ -647,7 +747,7 @@ def scenario_row():
         ms=cuda_ms(dispatch, 20),
         plain_ms=cuda_ms(lambda: plain_scenarios(args, fills=fills, **st), 3),
         bound=bound_ms(nbytes([a[n] for n in used]) + nbytes(full), ops),
-        shape=f"S={S} N={N} G={G} T={T} NMAX={nmax} claims={b4[2].tolist()}",
+        shape=f"S={S} N={N} G={G} T={T} MV={MV} NMAX={nmax} claims={b4[2].tolist()}",
     )
 
 
@@ -694,14 +794,13 @@ def constrained_rows(torch_solver_cls, config_cls, encode_cache_cls):
         if not bool(b4[3].item()):
             break
         st["nmax"] *= 2
-    b4_ref = packing_mod.pack_reference(*pack_in, **st)
-    torch.cuda.synchronize()
+    b4_ref, ref_ms = timed(lambda: packing_mod.pack_reference(*pack_in, **st))
     dyn = a["g_dmode"] > 0
     ops = pack_ops(a["g_count"], b4[5], b4[2], T, R, V1, dyn=dyn, P=P)
     rows["pack_domains"] = dict(
         max_abs_err=max_abs_err(b4, b4_ref),
         ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 5),
-        plain_ms=cuda_ms(lambda: packing_mod.pack_reference(*pack_in, **st), 1),
+        plain_ms=ref_ms,
         bound=bound_ms(nbytes(pack_in) + nbytes(b4), ops),
         shape=(f"G={G} ({int((a['g_count'] > 0).sum())} real, {int(dyn.sum())} dynamic) "
                f"T={T} P={P} K={K} V1={V1} NMAX={st['nmax']} claims={int(b4[2])} "
@@ -801,10 +900,9 @@ def diverse_rows(torch_solver_cls, config_cls):
         if not bool(out5[0].overflow.item()):
             break
         st["nmax"] *= 2
-    ref5 = b5_ref()
+    ref5, ref5_ms = timed(b5_ref)
     out4 = packing_mod.pack(*pack_in, **st)
-    ref4 = packing_mod.pack_reference(*pack_in, **st)
-    torch.cuda.synchronize()
+    ref4, ref4_ms = timed(lambda: packing_mod.pack_reference(*pack_in, **st))
     state, fills = list(out5[0]), list(out5[1:])
     ref_state, ref_fills = list(ref5[0]), list(ref5[1:])
     n_open = out5[0].n_open
@@ -817,7 +915,7 @@ def diverse_rows(torch_solver_cls, config_cls):
     return {
         "pack_classed": dict(
             max_abs_err=max_abs_err(state + fills, ref_state + ref_fills),
-            ms=cuda_ms(b5, 5), plain_ms=cuda_ms(b5_ref, 1),
+            ms=cuda_ms(b5, 5), plain_ms=ref5_ms,
             bound=bound_ms(nbytes(pack_in) + nbytes(cls) + nbytes(state + fills),
                            pack_ops(a["g_count"], fills[1], n_open, T, R, V1, dyn=dyn,
                                     P=P, classes=classes)),
@@ -826,7 +924,7 @@ def diverse_rows(torch_solver_cls, config_cls):
         "pack_contrib": dict(
             max_abs_err=max_abs_err(out4, ref4),
             ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 3),
-            plain_ms=cuda_ms(lambda: packing_mod.pack_reference(*pack_in, **st), 1),
+            plain_ms=ref4_ms,
             bound=bound_ms(nbytes(pack_in) + nbytes(out4),
                            pack_ops(a["g_count"], out4[5], out4[2], T, R, V1, dyn=dyn, P=P)),
             shape=shape + ", classed route off",
@@ -834,13 +932,125 @@ def diverse_rows(torch_solver_cls, config_cls):
     }
 
 
+def a4b_rows(torch_solver_cls, config_cls):
+    """Phase 2's rows for the A4b loop's kernel variants, at phase 8's
+    cells: B4 with minValues floors (minvalues-50k: mixed_pods(50,000,
+    gpu_fraction=0) x 400 over the minValues pool), B4 with the
+    reservation ledger (reserved-50k: the same pods over the reserved
+    catalog, NRES 16), B5 with floors (diverse-minvalues: the diverse mix
+    over the minValues pool, classed) and B4[S] with floors (the
+    consolidation chunk over the minValues pool), each against its plain
+    version on the same CUDA tensors. Tolerance: exact equality."""
+    import torch
+
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packing as packing_mod
+    from karpenter_tpu_torch.ops import solve as solve_mod
+    from karpenter_tpu_torch.solver.args import put
+    from karpenter_tpu_torch.solver.driver import _CLASS_ARG_NAMES
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+    from karpenter_tpu_torch.solver.example import minvalues_nodepool, reserved_catalog
+    from karpenter_tpu_torch.solver.workloads import diverse_reference_mix, mixed_pods
+
+    def scan_inputs(solver, pods):
+        args, statics, nmax, _ = device_snapshot(solver, pods)
+        a = dict(zip(SOLVE_ARG_NAMES, args))
+        zk, ck = statics["zone_kid"], statics["ct_kid"]
+        b1 = feas.fresh_claim_feasibility_sparse(*(a[n] for n in B1_NAMES), zone_kid=zk,
+                                                 ct_kid=ck)
+        cap_ng = torch.zeros((0, a["g_count"].shape[0]), dtype=torch.int32, device="cuda")
+        st = dict(nmax=nmax, zone_kid=zk, ct_kid=ck, wf_iters=statics["wf_iters"],
+                  has_domains=statics["has_domains"], has_contrib=statics["has_contrib"])
+        return a, solve_mod.pack_args(a, *b1, cap_ng), st
+
+    def dims(a):
+        return (a["p_titype_ok"].shape[0], a["t_alloc"].shape[0], a["t_alloc"].shape[1],
+                a["g_mask"].shape[2], a["p_mvmin"].shape[1], a["res_cap0"].shape[0])
+
+    def b4_row(solver, pods, label):
+        a, pack_in, st = scan_inputs(solver, pods)
+        while True:  # the driver's overflow doubling
+            out = packing_mod.pack(*pack_in, **st)
+            if not bool(out[3].item()):
+                break
+            st["nmax"] *= 2
+        ref, ref_ms = timed(lambda: packing_mod.pack_reference(*pack_in, **st))
+        P, T, R, V1, MV, NRES = dims(a)
+        G = a["g_count"].shape[0]
+        return dict(
+            max_abs_err=max_abs_err(out, ref),
+            ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 10),
+            plain_ms=ref_ms,
+            bound=bound_ms(nbytes(pack_in) + nbytes(out),
+                           pack_ops(a["g_count"], out[5], out[2], T, R, V1, P=P, mv=MV,
+                                    nres=NRES)),
+            shape=(f"{label}: G={G} T={T} P={P} MV={MV} NRES={NRES} NMAX={st['nmax']} "
+                   f"claims={int(out[2])} reserved={int(out[9].sum())}"),
+        )
+
+    rows = {}
+    pods = mixed_pods(N_PODS, gpu_fraction=0.0)
+    rows["pack_minvalues"] = b4_row(
+        build_batch(torch_solver_cls, config_cls, pods, N_TYPES, pools=[minvalues_nodepool()]),
+        pods, "minvalues-50k")
+    rows["pack_resv"] = b4_row(
+        build_batch(torch_solver_cls, config_cls, pods, N_TYPES,
+                    its=reserved_catalog(N_TYPES, RESV_EVERY, RESV_CAP),
+                    reserved_capacity_enabled=True),
+        pods, "reserved-50k")
+
+    # B5 with floors on the diverse mix over the minValues pool (classed)
+    pods = diverse_reference_mix(N_DIVERSE)
+    solver = build_batch(torch_solver_cls, config_cls, pods, N_TYPES,
+                         pools=[minvalues_nodepool()], classed=True)
+    host, snap, statics, _ = host_snapshot(solver, pods)
+    from karpenter_tpu_torch.solver import encode as enc
+
+    run = snap.padded(enc._next_pow2(len(snap.groups), floor=8), 0)
+    partition = solver._classed_partition(run, host[SOLVE_ARG_NAMES.index("res_cap0")])
+    if partition is None:
+        raise SmokeFailure("diverse-minvalues: classed=True declined the class-batched scan")
+    cls_host, lmax = partition
+    cls = [put(n, x, "cuda") for n, x in zip(_CLASS_ARG_NAMES, cls_host)]
+    a, pack_in, st = scan_inputs(solver, pods)
+
+    def b5():
+        return packing_mod.pack_classed(*pack_in, *cls, lmax=lmax, **st)
+
+    while True:
+        out5 = b5()
+        if not bool(out5[0].overflow.item()):
+            break
+        st["nmax"] *= 2
+    ref5, ref5_ms = timed(lambda: packing_mod.pack_classed_reference(
+        *pack_in, *cls, lmax=lmax, **st))
+    P, T, R, V1, MV, _ = dims(a)
+    fills = list(out5[1:])
+    rows["pack_classed_minvalues"] = dict(
+        max_abs_err=max_abs_err(list(out5[0]) + fills, list(ref5[0]) + list(ref5[1:])),
+        ms=cuda_ms(b5, 3),
+        plain_ms=ref5_ms,
+        bound=bound_ms(nbytes(pack_in) + nbytes(cls) + nbytes(list(out5[0]) + fills),
+                       pack_ops(a["g_count"], fills[1], out5[0].n_open, T, R, V1,
+                                dyn=a["g_dmode"] > 0, P=P, classes=tuple(cls[:3]), mv=MV)),
+        shape=(f"diverse-minvalues: G={a['g_count'].shape[0]} "
+               f"classes={int((cls_host[1] > 0).sum())} lmax={lmax} T={T} MV={MV} "
+               f"NMAX={st['nmax']} claims={int(out5[0].n_open)}"),
+    )
+    # B4[S] with floors: the consolidation chunk over the minValues pool
+    rows["scenarios_minvalues"] = scenario_row(build=minvalues_consolidation_env)
+    return rows
+
+
 def decisions(results, pods):
+    """Claims in slot order, each with its options in their own order;
+    existing-node placements and pod errors by name."""
     name = {p.uid: p.metadata.name for p in pods}
-    claims = sorted(
+    claims = [
         (c.template.node_pool_name, tuple(sorted(p.metadata.name for p in c.pods)),
          tuple(it.name for it in c.instance_type_options))
         for c in results.new_node_claims
-    )
+    ]
     existing = sorted((en.name, tuple(sorted(p.metadata.name for p in en.pods)))
                       for en in results.existing_nodes)
     return claims, existing, sorted(name[u] for u in results.pod_errors)
@@ -1487,6 +1697,130 @@ def phase_relax(torch_solver_cls, config_cls, encode_cache_cls):
     return out
 
 
+def phase_a4b(torch_solver_cls, config_cls, encode_cache_cls):
+    """Phase 8: the A4b loop on the card, NodePools with minValues floors
+    and offerings with capacity reservations, every solve counted: each
+    cell's cold solve == the device="cpu" solve in slot order (and in the
+    reservations each claim holds), no relax routing and no sequential
+    fallback, cold p50 over 5 solves from fresh EncodeCaches; then
+    MultiNodeConsolidation over the minValues pool at 2,000 nodes."""
+    import torch
+
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.cloudprovider import corpus
+    from karpenter_tpu_torch.solver.example import (
+        example_nodepool, minvalues_nodepool, reserved_catalog,
+    )
+    from karpenter_tpu_torch.solver.workloads import (
+        constrained_mix, diverse_reference_mix, mixed_pods,
+    )
+
+    def held(res):
+        return [sorted(o.reservation_id() for o in c.reserved_offerings)
+                for c in res.new_node_claims]
+
+    def cell(label, pods, pools, catalog, reps=5, classed=None, **solver_kw):
+        """One cell: ``catalog()`` builds a fresh instance-type list per
+        solver (reservation capacities are per catalog)."""
+        def solver_for(device):
+            return build_batch(torch_solver_cls, config_cls, pods, 0, device=device,
+                               cache=encode_cache_cls(), pools=pools(), its=catalog(),
+                               classed=classed, **solver_kw)
+
+        s = solver_for("cuda")
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = s.solve(pods)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(_build.launches)
+        missing = [k for k in PATH_KERNELS[label] if counts[k] < 1]
+        extra = [k for k in PATH_ABSENT.get(label, ()) if counts[k]]
+        if missing or extra:
+            raise SmokeFailure(f"{label}: missing {missing}, launched {extra} ({counts})")
+        if s.fallback_solves or s.last_relax_pods:
+            raise SmokeFailure(f"{label}: fallbacks {s.last_fallback_reasons}, "
+                               f"{s.last_relax_pods} pods relax-routed")
+        cpu = solver_for("cpu").solve(pods)
+        if decisions(res, pods) != decisions(cpu, pods) or held(res) != held(cpu):
+            raise SmokeFailure(f"{label}: CUDA decisions differ from the device='cpu' solve "
+                               "in slot order")
+        times = []
+        for _ in range(reps):
+            s = solver_for("cuda")
+            gc.collect()
+            t0 = time.perf_counter()
+            s.solve(pods)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return dict(claims=len(res.new_node_claims), errors=len(res.pod_errors),
+                    reserved=sum(1 for h in held(res) if h), launches=counts,
+                    first_ms=first_ms, cold_ms=times,
+                    p50_ms=statistics.median(times) if times else first_ms)
+
+    def plain(n):
+        return lambda: corpus.generate(n)
+
+    mv_pools, default_pools = (lambda: [minvalues_nodepool()]), (lambda: [example_nodepool()])
+    out = {}
+    pods = mixed_pods(N_PODS, gpu_fraction=0.0)
+    out["minvalues"] = cell("minvalues", pods, mv_pools, plain(N_TYPES))
+    out["reserved"] = cell("reserved", pods, default_pools,
+                           lambda: reserved_catalog(N_TYPES, RESV_EVERY, RESV_CAP),
+                           reserved_capacity_enabled=True)
+    r = out["reserved"]
+    if not 1 <= r["reserved"] <= RESV_MAX_CLAIMS:
+        raise SmokeFailure(f"reserved: {r['reserved']} claims hold reservations "
+                           f"(want 1..{RESV_MAX_CLAIMS})")
+    out["constrained_minvalues"] = cell("constrained_minvalues", constrained_mix(N_PODS),
+                                        mv_pools, plain(N_TYPES_C))
+    pods = diverse_reference_mix(N_DIVERSE)
+    out["diverse_minvalues"] = cell("diverse_minvalues", pods, mv_pools, plain(N_TYPES),
+                                    classed=True)
+    # the auto route sends floors with domain-dynamic groups to B4 (with
+    # its contributor counting); B4-contrib is ~1.5 s a solve: one solve
+    out["diverse_minvalues_auto"] = cell("diverse_minvalues_auto", pods, mv_pools,
+                                         plain(N_TYPES), reps=0)
+
+    # MultiNodeConsolidation over the minValues pool: B7 with floors
+    ctx, method, candidates, budgets = minvalues_consolidation_env(CONS_NODES, "cpu")
+    want = (command_signature(method.compute_command(candidates, budgets)),
+            method.last_probes, method.last_dispatches)
+    ctx, method, candidates, budgets = minvalues_consolidation_env(CONS_NODES, "cuda")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cmd = method.compute_command(candidates, budgets)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts, scen = dict(_build.launches), dict(_build.scenario_launches)
+    got = (command_signature(cmd), method.last_probes, method.last_dispatches)
+    solvers = [e["solver"] for e in ctx.scenario_envs._entries.values()]
+    if not solvers or sum(sv.fallback_solves for sv in solvers):
+        raise SmokeFailure("cons_minvalues: sequential fallbacks "
+                           f"{[sv.last_fallback_reasons for sv in solvers]}")
+    if not all(sv.oracle.templates[0].requirements.has_min_values() for sv in solvers):
+        raise SmokeFailure("cons_minvalues: the scenario solvers lost the minValues floor")
+    missing = [k for k in CONS_MV_KERNELS if scen[k] < 1]
+    if missing or counts["pack"] != scen["pack"] or scen["pack"] != method.last_dispatches:
+        raise SmokeFailure(f"cons_minvalues: missing {missing}, {scen['pack']} scenario packs "
+                           f"of {counts['pack']} for {method.last_dispatches} dispatches")
+    if got != want:
+        raise SmokeFailure(f"cons_minvalues: the CUDA command {got[0][:2]} ({got[1]} probes, "
+                           f"{got[2]} dispatches) differs from the device='cpu' run's "
+                           f"{want[0][:2]} ({want[1]}, {want[2]})")
+    out["cons_minvalues"] = dict(decision=cmd.decision, disrupted=len(cmd.candidates),
+                                 probes=got[1], dispatches=got[2], ms=ms, launches=counts,
+                                 scenario_launches=scen)
+    return out
+
+
+def timed_phase(fn):
+    """``fn()``'s result and its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
 def pin_one_card():
     """The smoke uses one card: expose only the first visible one, so that
     torch.cuda.device_count() is the number of cards it used."""
@@ -1524,9 +1858,9 @@ def main():
         f"{build_s:.2f} s | " + "; ".join(
             f"{name}: {ptxas_summary(text)}" for name, text in logs.items()))
 
-    rows = phase_kernels(TorchSolver, SolverConfig, EncodeCache)
+    rows, secs = timed_phase(lambda: phase_kernels(TorchSolver, SolverConfig, EncodeCache))
     b7 = rows["solve_scenarios"]
-    log("phase 2 kernels==plain: " + "; ".join(
+    log(f"phase 2 kernels==plain ({secs:.0f} s): " + "; ".join(
         f"{k} [{r['shape']}] {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
         f"bound {r['bound'][0]:.6f} ms"
         + (f", {LIBRARY[k]} {r['library_ms']:.4f} ms" if k in LIBRARY else "") + ")"
@@ -1534,8 +1868,8 @@ def main():
         + " | B7 parts " + " ".join(
             f"{k}={b7['part_ms'][k]:.4f}ms(err {b7['parts'][k]})" for k in b7["part_ms"]))
 
-    e2e = phase_end_to_end(TorchSolver, SolverConfig, EncodeCache)
-    log(f"phase 3 end-to-end: {N_PODS} pods x {N_TYPES} types -> "
+    e2e, secs = timed_phase(lambda: phase_end_to_end(TorchSolver, SolverConfig, EncodeCache))
+    log(f"phase 3 end-to-end ({secs:.0f} s): {N_PODS} pods x {N_TYPES} types -> "
         f"{e2e['claims_50k']} claims, 0 errors, decisions == cpu; "
         f"p50 {e2e['solve_p50_ms']:.1f} ms of "
         + "/".join(f"{t:.1f}" for t in e2e["solve_ms"]) + " ms; phases "
@@ -1543,8 +1877,8 @@ def main():
         + f"; relax_pods {e2e['relax_pods']}"
         + "; launches " + " ".join(f"{p}={c}" for p, c in e2e["launches"].items()))
 
-    cons = phase_consolidation()
-    log("phase 4 consolidation: " + "; ".join(
+    cons, secs = timed_phase(lambda: phase_consolidation())
+    log(f"phase 4 consolidation ({secs:.0f} s): " + "; ".join(
         f"{label} {c['decision']} {c['disrupted']} in {c['probes']} probes / "
         f"{c['dispatches']} dispatches == cpu, 0 fallbacks; p50 {c['p50_ms']:.1f} ms of "
         + "/".join(f"{t:.1f}" for t in c["ms"]) + " ms; phases "
@@ -1553,8 +1887,9 @@ def main():
         + f" (1 an uncollected prefetch)" * c["prefetched"]
         for label, c in cons.items()))
 
-    con = phase_constrained(TorchSolver, SolverConfig, EncodeCache)
-    log(f"phase 5 constrained loop: {N_PODS} pods x {N_TYPES_C} types -> {con['claims']} "
+    con, secs = timed_phase(lambda: phase_constrained(TorchSolver, SolverConfig, EncodeCache))
+    log(f"phase 5 constrained loop ({secs:.0f} s): {N_PODS} pods x {N_TYPES_C} types -> "
+        f"{con['claims']} "
         f"claims, {con['placed']} placed, {con['errors']} errors, decisions == cpu; "
         f"cold p50 {con['cold_p50_ms']:.1f} ms of " + "/".join(f"{t:.1f}" for t in con["cold_ms"])
         + f" ms; traced cold {con['cold_traced_ms']:.1f} ms: "
@@ -1569,8 +1904,8 @@ def main():
         + f"; repeat REUSE, 0 full puts, 0 fallbacks; relax_pods {con['relax_pods']}; launches "
         + " ".join(f"{p}={c}" for p, c in con["launches"].items()))
 
-    div = phase_diverse(TorchSolver, SolverConfig, EncodeCache)
-    log(f"phase 6 diverse loop: {N_DIVERSE} pods x {N_TYPES} types (classed route) -> "
+    div, secs = timed_phase(lambda: phase_diverse(TorchSolver, SolverConfig, EncodeCache))
+    log(f"phase 6 diverse loop ({secs:.0f} s): {N_DIVERSE} pods x {N_TYPES} types (classed route) -> "
         f"{div['claims']} claims, {div['placed']} placed, {div['errors']} errors, decisions "
         f"== cpu; cold p50 {div['cold_p50_ms']:.1f} ms of "
         + "/".join(f"{t:.1f}" for t in div["cold_ms"])
@@ -1588,8 +1923,8 @@ def main():
         f"{div['classed_ms']:.1f} ms; relax_pods {div['relax_pods']}; launches "
         + " ".join(f"{p}={c}" for p, c in div["launches"].items()))
 
-    rel = phase_relax(TorchSolver, SolverConfig, EncodeCache)
-    log(f"phase 7 relax loop: (a) config[0] {CONFIG0_PODS} x {CONFIG0_TYPES}: "
+    rel, secs = timed_phase(lambda: phase_relax(TorchSolver, SolverConfig, EncodeCache))
+    log(f"phase 7 relax loop ({secs:.0f} s): (a) config[0] {CONFIG0_PODS} x {CONFIG0_TYPES}: "
         f"{CONFIG0_PODS} routed, {CONFIG0_CLAIMS} claims == cpu in slot order, "
         f"{rel['config0_ms']:.1f} ms; (b) identical {N_IDENT} x {N_TYPES}: {N_IDENT} routed, "
         f"{IDENT_CLAIMS} claims == cpu in slot order, B3 fresh and B9 once per solve, "
@@ -1608,18 +1943,44 @@ def main():
         f"{rel['zonal_order_differs']}; (d) corrupt bulk: relax_rejects 1, == relax off; "
         "launches " + " ".join(f"{p}={c}" for p, c in rel["launches"].items()))
 
-    # every path's own counts: the solves, the searches, the three loops
+    a4b, secs = timed_phase(lambda: phase_a4b(TorchSolver, SolverConfig, EncodeCache))
+    cells = {k: v for k, v in a4b.items() if k != "cons_minvalues"}
+    cm = a4b["cons_minvalues"]
+    log(f"phase 8 A4b loop (== cpu in slot order, 0 fallbacks, relax_pods 0) ({secs:.0f} s): " + "; ".join(
+        f"{label} -> {c['claims']} claims, {c['errors']} errors"
+        + (f", {c['reserved']} holding reservations (<= {RESV_MAX_CLAIMS})"
+           if label == "reserved" else "")
+        + f", first {c['first_ms']:.1f} ms"
+        + (f", cold p50 {c['p50_ms']:.1f} ms of " + "/".join(f"{t:.1f}" for t in c["cold_ms"])
+           + " ms" if c["cold_ms"] else "")
+        + ", variants " + " ".join(
+            f"{k}={c['launches'][k]}" for k in ("pack", "pack_minvalues", "pack_resv",
+                                                "pack_domains", "pack_contrib", "pack_classed",
+                                                "pack_classed_minvalues") if c["launches"][k])
+        for label, c in cells.items())
+        + f"; cons_minvalues multi {cm['decision']} {cm['disrupted']} in {cm['probes']} probes / "
+        f"{cm['dispatches']} dispatches == cpu, {cm['ms']:.1f} ms, scenario launches "
+        + " ".join(f"{k}={v}" for k, v in cm["scenario_launches"].items() if v))
+
+    # every path's own counts: the solves, the searches, the four loops
     paths = dict(e2e["launches"])
     paths.update({label: c["launches"] for label, c in cons.items()})
     paths.update(con["launches"])
     paths.update(div["launches"])
     paths.update(rel["launches"])
+    paths.update({label: c["launches"] for label, c in cells.items()})
+    paths["cons_minvalues"] = cm["launches"]
     scen_paths = {label: c["scenario_launches"] for label, c in cons.items()}
     kernels = []
     for name, row in rows.items():
         bms, by = row["bound"]
         if name == "solve_scenarios":  # B7: the S > 1 dispatches of the searches
             by_path = {p: c["pack"] for p, c in scen_paths.items()}
+            source = "karpenter_tpu_torch/csrc/pack.cu"
+            extra = dict(sources=[f"karpenter_tpu_torch/csrc/{k}.cu" for k in B7_SOURCES],
+                         parts_ms=row["part_ms"])
+        elif name == "scenarios_minvalues":  # B7 over floors: phase 8's search
+            by_path = {"cons_minvalues": cm["scenario_launches"]["pack_minvalues"]}
             source = "karpenter_tpu_torch/csrc/pack.cu"
             extra = dict(sources=[f"karpenter_tpu_torch/csrc/{k}.cu" for k in B7_SOURCES],
                          parts_ms=row["part_ms"])

@@ -13,9 +13,10 @@ more than one consolidation scenario; nothing else touches them, so a
 caller that zeroes them (``reset_launches``) and reads them after a run
 sees which kernels the run went through, and whether a probe set ran as
 one scenario batch or as a loop of single solves. A kernel's variant
-(``VARIANTS``: the pack scan over a domain batch, or over a batch with
-contributor rows; B3's fresh or existing entry) counts in its own entry
-as well as in the kernel's.
+(``VARIANTS``: the pack scan over a domain batch, a batch with
+contributor rows, minValues floors or a reservation ledger; the
+class-batched scan over minValues floors; B3's fresh or existing entry)
+counts in its own entry as well as in the kernel's.
 """
 
 from __future__ import annotations
@@ -36,9 +37,13 @@ SOURCES = ("fresh_feasibility", "existing_feasibility", "dense_feasibility",
            "pack", "pack_classed", "wire_pack", "apply_rows", "relax_fill")
 # launches of a kernel's variant, counted besides the kernel's own: pack
 # over a domain batch (has_domains) runs its domain machinery, over a
-# batch with contributor rows (has_contrib) its contributor counting;
-# dense_feasibility's two entries count as dense_fresh and dense_existing
-VARIANTS = ("pack_domains", "pack_contrib", "dense_fresh", "dense_existing")
+# batch with contributor rows (has_contrib) its contributor counting, over
+# minValues floors (MV > 0) its minValues caps and over a reservation
+# ledger (NRES > 0) the ledger; pack_classed over minValues floors its
+# maintained minValues headroom; dense_feasibility's two entries count as
+# dense_fresh and dense_existing
+VARIANTS = ("pack_domains", "pack_contrib", "pack_minvalues", "pack_resv",
+            "pack_classed_minvalues", "dense_fresh", "dense_existing")
 # a library's C entry points, where they are not the one kt_<name>
 ENTRY_POINTS = {"dense_feasibility": ("kt_dense_fresh", "kt_dense_existing")}
 NVCC_FLAGS = (

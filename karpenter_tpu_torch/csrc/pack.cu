@@ -2,9 +2,9 @@
 //
 // Replaces karpenter_tpu/ops/packing.py:pack (a lax.scan over groups on
 // the TPU, step body packing.py:425) in the scope the PyTorch port
-// covers: untiled tables, no reservations, no minValues, with or without
-// the domain machinery (has_domains) and contributor counting
-// (has_contrib). Its sequential twin is
+// covers: untiled tables, with or without the domain machinery
+// (has_domains), contributor counting (has_contrib), minValues floors
+// (MV > 0) and the reservation ledger (NRES > 0). Its sequential twin is
 // karpenter_tpu/native/solve_core.cc:kt_solve; the phases carry the same
 // names. The phases themselves live in pack_common.cuh, shared with
 // kernel B5 (pack_classed.cu).
@@ -50,13 +50,32 @@
 // mask row on that axis is single-valued. Integer atomics into four [V1]
 // shared-memory sums, exact in any order.
 //
+// minValues (MV > 0; packing.py:596, :805, :969-982): each step caps a
+// live claim's tier-2 join at its minValues cap, computed per claim by
+// one warp from the claim's masked types (warp_minvalues: per-value best
+// fits in shared memory, the floor-th largest selected by counting); a
+// bulk's templates each get their cap over their available types, and a
+// template below 1 opens nothing.
+//
+// The reservation ledger (NRES > 0; packing.py:352, :485-517, :583-591,
+// :940-1036, :1100-1104): st.atz / st.atc hold the current ledger's
+// offering words (a_tzc plus the reserved offerings whose reservation has
+// capacity left), rebuilt only when a reservation drains; claims holding
+// reservations read the held words instead. A bulk re-gates its avail set
+// on the current words, counts the compatible reservations over each
+// reservation's words (an OR over zone and capacity-type bits, no float
+// sums), is bounded by the smallest remaining one, marks its claims
+// c_resv and debits the ledger. A static pass (static_words) builds the
+// word tables before the scan.
+//
 // Scenario grid (kernel B7, karpenter_tpu/ops/solve.py:357
 // solve_scenarios_core_packed, which vmaps this scan over consolidation
 // scenarios): block s of a <<<S, 1024>>> launch walks scenario s. The
 // batched inputs (g_count, cap_ng, and n_hcnt / nh_cnt0 / g_dprior / dd0
 // when the topology priors are per scenario) carry a scenario stride, 0
 // when shared; every State and Out buffer holds S slices and each block
-// offsets into its own. The scan body is the same for every S, so
+// offsets into its own (each scenario replays the ledger from res_cap0);
+// the static word tables are shared. The scan body is the same for every S, so
 // scenarios walk the same groups in the same order with the same ties and
 // bisection; S = 1 is the plain solve. Scenarios are independent, so
 // blocks never synchronise with each other; a batch wider than the 132
@@ -102,6 +121,8 @@ __device__ void own_slice(const Dims& d, const Strides& sc, long long s,
   st.percap += s * dom * NMAX * V1;
   st.c_slot += s * dom * NMAX;
   st.ddc += s * JD * V1;
+  st.res_rem += s * d.NRES;
+  st.mvcap += s * (d.MV ? NMAX : 0);
   out.c_pool += s * NMAX;
   out.c_tmask += s * NMAX * T;
   out.n_open += s;
@@ -153,44 +174,57 @@ pack_scan(Dims d, In in0, State st0, Out out0, Strides sc) {
     if (tid == 0) load_group(d, in, gi, gi, in.g_dkey[gi], g);
     load_rows(d, in, gi, m);
     __syncthreads();
+    if (g.dyn || d.NRES) template_words(d, in, m, gi);
     if (g.dyn) {
       const bool has_d = g.has_d;
       for (int v = tid; v < V1; v += kThreads)
         m.D0[v] = wrap_add(in.g_dprior[static_cast<size_t>(gi) * V1 + v],
                            has_d ? st.ddc[static_cast<size_t>(min(g.jd, d.JD - 1)) * V1 + v] : 0);
-      template_domains(d, in, st, m, gi, gi, g.dkey);
+      template_domains(d, in, st, m, gi, g.dkey);
     }
 
-    // ---- claim-side feasibility: cap_any, clamped to claim_cap; per
-    // domain percap for dynamic groups (0 on claims that are not live) ----
+    // ---- claim-side feasibility: cap_any and the minValues cap cap_mv,
+    // clamped to claim_cap; per domain percap for dynamic groups (0 on
+    // claims that are not live) ----
     for (int s = wid; s < NMAX; s += kWarps) {
-      int32_t cap_any = 0;
+      int32_t cap_any = 0, cap_mv = kBigDom;
       bool live = false;
       int32_t* wpc = m.pcap + wid * V1;
       if (s < n_open && warp_claim_compat(d, in, st, out, m, s, gi)) {  // c_active
         live = true;
         const uint32_t* wcz = warp_claim_words(d, st, m, s);
         const uint32_t* wcc = wcz + W;
+        const uint32_t* az = claim_atz(d, st, out, s);
+        const uint32_t* ac = claim_atc(d, st, out, s);
         if (g.dyn)
           for (int v = lane; v < V1; v += 32) wpc[v] = 0;
         __syncwarp();
         const int pp = out.c_pool[s];
         const uint8_t* tok = in.type_ok + (static_cast<size_t>(pp) * G + gi) * T;
+        const uint8_t* tms = out.c_tmask + static_cast<size_t>(s) * T;
+        const float* used = st.c_used + static_cast<size_t>(s) * R;
         int32_t best = 0;
         for (int t = lane; t < T; t += 32) {
-          if (!out.c_tmask[static_cast<size_t>(s) * T + t] || !tok[t]) continue;
-          const int32_t af = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
-                                        st.c_used + static_cast<size_t>(s) * R, m.req, R);
-          if (af < 1 || !offer(st.atz, t, V1, W, wcz, wcc)) continue;
+          if (!tms[t] || !tok[t]) continue;
+          const int32_t af = fits_count(in.t_alloc + static_cast<size_t>(t) * R, used, m.req, R);
+          if (af < 1 || !offer(az, t, V1, W, wcz, wcc)) continue;
           best = max(best, af);
           if (g.dyn)
             for (int v = 0; v < V1; ++v)
-              if (offer_in(st.atz, st.atc, g.dkey, t, v, V1, W, wcz, wcc))
-                atomicMax(&wpc[v], af);
+              if (offer_in(az, ac, g.dkey, t, v, V1, W, wcz, wcc)) atomicMax(&wpc[v], af);
         }
         for (int o = 16; o; o >>= 1) best = max(best, __shfl_xor_sync(kFull, best, o));
         cap_any = best;
         __syncwarp();
+        // a claim with no capacity takes nothing whatever its cap
+        if (d.MV && best >= 1)
+          cap_mv = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(pp) * d.MV,
+                                  [&](int t, int32_t& fit) {
+                                    if (!tms[t] || !tok[t]) return false;
+                                    fit = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
+                                                     used, m.req, R);
+                                    return fit >= 1 && offer(az, t, V1, W, wcz, wcc);
+                                  });
       }
       if (g.dyn)
         for (int v = lane; v < V1; v += 32)
@@ -199,8 +233,10 @@ pack_scan(Dims d, In in0, State st0, Out out0, Strides sc) {
       if (lane == 0) {
         int32_t c = min(cap_any, g.hcap);  // open claims carry no prior
         c = min(c, g.count);
+        c = min(c, cap_mv);
         c = min(c, h_allow(g, st.ch_cnt[s * JH + g.jhc]));
         st.claim_cap[s] = c;
+        if (d.MV) st.mvcap[s] = cap_mv;
       }
     }
 
@@ -244,7 +280,8 @@ pack_scan(Dims d, In in0, State st0, Out out0, Strides sc) {
 
 extern "C" int kt_pack(
     int S, int G, int T, int P, int N, int R, int K, int V1, int NMAX, int JH,
-    int JD, int zone_kid, int ct_kid, int wf_iters, int has_domains, int has_contrib,
+    int JD, int MV, int MW, int NRES, int zone_kid, int ct_kid, int wf_iters,
+    int has_domains, int has_contrib,
     // scenario strides of the batched inputs (0: shared)
     long long s_g_count, long long s_cap_ng, long long s_n_hcnt,
     long long s_nh_cnt0, long long s_g_dprior, long long s_dd0,
@@ -269,37 +306,49 @@ extern "C" int kt_pack(
     const int32_t* n_dzone, const int32_t* n_dct, const int32_t* dd0,
     // contributor rows and each shared domain slot's axis
     const uint8_t* g_hcontrib, const uint8_t* g_dcontrib, const int32_t* dtg_key,
+    // minValues tables, the reservation ledger
+    const int32_t* p_mvmin, const uint8_t* t_mvoh, const int32_t* res_cap0,
+    const uint8_t* a_res,
     // state + scratch
     float* exist_used, float* c_used, int32_t* c_npods, uint8_t* c_def,
     uint8_t* c_neg, uint8_t* c_mask, int32_t* ch_cnt, int32_t* nhc,
     float* pool_rem, int32_t* exist_cap, int32_t* claim_cap,
     int32_t* claim_fill, uint8_t* avail, uint32_t* atz,
     uint32_t* atc, uint8_t* toff_pt, int32_t* percap, int32_t* c_slot,
-    int32_t* ddc,
+    int32_t* ddc, int32_t* res_rem, int32_t* mvcap,
+    // word tables shared by the scenarios
+    uint32_t* mvw, uint32_t* ares_z, uint32_t* aheld_z, uint32_t* aheld_c,
     // outputs
     int32_t* c_pool, uint8_t* c_tmask, int32_t* n_open, uint8_t* overflow,
     int32_t* exist_fills, int32_t* claim_fills, int32_t* unplaced,
     int32_t* c_dzone, int32_t* c_dct, uint8_t* c_resv,
     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (R > 32 || JH < 1 || JD < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (R > 32 || JH < 1 || JD < 1 || (MV && (MW < 1 || MW > kMaxMvW)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return kt::kNothingLaunched;
   const int W = (V1 + 31) / 32;
   Dims d{G, T, P, N, R, K, V1, NMAX, JH, JD, zone_kid, ct_kid, wf_iters, W,
-         has_domains != 0, has_contrib != 0};
+         has_domains != 0, has_contrib != 0, MV, MW, (MW + 31) / 32, NRES};
   In in{g_count, g_req, g_def, g_neg, g_mask, g_hcap, g_haff, g_hstg, g_hscap,
         g_hself, compat_pg, type_ok, n_fit, cap_ng, t_alloc, t_cap, a_tzc,
         p_daemon, p_limit, p_has_limit, p_tol, n_avail, n_base, n_hcnt,
         nh_cnt0, well_known, g_dmode, g_dkey, g_dskew, g_dmin0, g_dprior,
         g_dreg, g_drank, g_dtg, p_mask, n_dzone, n_dct, dd0,
-        g_hcontrib, g_dcontrib, dtg_key};
+        g_hcontrib, g_dcontrib, dtg_key, p_mvmin, t_mvoh, res_cap0, a_res};
   State st{exist_used, c_used, c_npods, c_def, c_neg, c_mask, ch_cnt, nhc,
            pool_rem, exist_cap, claim_cap, claim_fill, avail, atz,
-           atc, toff_pt, percap, c_slot, ddc};
+           atc, toff_pt, percap, c_slot, ddc, res_rem, mvcap,
+           mvw, ares_z, aheld_z, aheld_c};
   Out out{c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills,
           unplaced, c_dzone, c_dct, c_resv};
   Strides sc{s_g_count, s_cap_ng, s_n_hcnt, s_nh_cnt0, s_g_dprior, s_dd0};
-  const size_t smem = smem_bytes(P, W, V1, K, R);
+  if (MV || NRES) {
+    static_words<<<132, 256, 0, stream>>>(d, in, st);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const size_t smem = smem_bytes(d);
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(pack_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));

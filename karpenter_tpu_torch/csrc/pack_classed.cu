@@ -2,8 +2,9 @@
 //
 // Replaces karpenter_tpu/ops/packing.py:pack_classed (a lax.scan over
 // feasibility classes on the TPU, class body packing.py:1342) in the
-// scope the PyTorch port covers: untiled tables, no reservations, no
-// minValues, with or without domains and contributor counting. The
+// scope the PyTorch port covers: untiled tables, with or without domains,
+// contributor counting and minValues floors; no reservation ledger, which
+// pack_classed never takes (the driver routes such batches to B4). The
 // driver routes a batch here when its groups share few feasibility
 // classes (the reference's diverse mix: ~1,900 groups in ~30 classes).
 //
@@ -22,6 +23,11 @@
 // k lowers every fit count by exactly k: quantized requests are
 // integer-valued float32 below 2^24); claims opened in the class take
 // their summaries in closed form, pinned claims collapse to their lane.
+// minValues (MV > 0; packing.py:1526-1536, :1728, :1861, :1891-1903,
+// :2021-2026) rides the same discipline: the head computes each live
+// claim's minValues headroom (warp_minvalues over its masked types, into
+// st.mvcap), a member's fill lowers it by exactly the fill, and a claim
+// opened in the class starts at its bulk template's cap less its take.
 // The claims' type masks settle once per class against the final pins and
 // the class-total fills. Every phase a member runs (existing nodes, the
 // domain quota, tier 2, the fresh-claim bulks, the carries, contributor
@@ -55,8 +61,9 @@ struct Head {
 struct ClassedBulkHook {
   const Head* h;  // the kernel's shared copy
   int32_t* pmax;  // [V1] shared: the bulk template's best fit per domain
+  int32_t* mvcap;  // [NMAX] the maintained minValues headroom
   int T, V1;
-  bool has_domains, cdyn;
+  bool has_domains, cdyn, mv;
   __device__ void trip(const uint8_t* av, const int32_t* nf, int, Shared& sh) const {
     if (!has_domains) return;
     for (int v = 0; v < V1; ++v) {
@@ -69,8 +76,9 @@ struct ClassedBulkHook {
     }
     __syncthreads();
   }
-  __device__ void open(int s, int32_t take, int32_t n_fit_max, int d_pin) const {
+  __device__ void open(int s, int32_t take, int32_t n_fit_max, int d_pin, int32_t mv_open) const {
     h->capv[s] = wrap_sub(n_fit_max, take);
+    if (mv) mvcap[s] = wrap_sub(mv_open, take);
     if (has_domains)
       for (int v = 0; v < V1; ++v) {
         const int32_t p = max(wrap_sub(pmax[v], take), 0);
@@ -129,7 +137,10 @@ pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
           hd.toff_grp[static_cast<size_t>(t) * V1 + v] =
               offer_in(st.atz, st.atc, cdk, t, v, V1, W, m.gz, m.gc);
     }
-    if (cdyn) template_domains(d, in, st, m, cs, cs, cdk);
+    if (cdyn) {
+      template_words(d, in, m, cs);
+      template_domains(d, in, st, m, cs, cdk);
+    }
     for (int n = tid; n < N; n += kThreads)
       st.exist_cap[n] = in.cap_ng[static_cast<size_t>(n) * G + cs] > 0
                             ? fits_count(in.n_avail + static_cast<size_t>(n) * R,
@@ -146,6 +157,7 @@ pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
           hd.live[s] = 0;
           hd.cfills[s] = 0;
           hd.pin0[s] = pin;
+          if (d.MV) st.mvcap[s] = 0;
         }
         if (d.has_domains)
           for (int v = lane; v < V1; v += 32) hd.percapv[static_cast<size_t>(s) * V1 + v] = 0;
@@ -178,7 +190,20 @@ pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
       }
       for (int o = 16; o; o >>= 1) best = max(best, __shfl_xor_sync(kFull, best, o));
       __syncwarp();
+      // the minValues headroom mvcapv0 over the head's masked types (a
+      // claim that is not live, or has no capacity, never takes a pod
+      // this class, so its headroom is never read)
+      int32_t mvc = 0;
+      if (d.MV && live0 && best >= 1) {
+        const size_t row = static_cast<size_t>(s) * T;
+        mvc = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(out.c_pool[s]) * d.MV,
+                             [&](int t, int32_t& fit) {
+                               fit = hd.af0[row + t];
+                               return out.c_tmask[row + t] && tok[t] && hd.off0[row + t];
+                             });
+      }
       if (lane == 0) {
+        if (d.MV) st.mvcap[s] = mvc;
         hd.capv[s] = best;
         hd.live[s] = live0;
         hd.cfills[s] = 0;
@@ -233,6 +258,7 @@ pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
           int32_t c = (s < n_open && hd.live[s]) ? hd.capv[s] : 0;
           c = min(c, g.hcap);
           c = min(c, g.count);
+          if (d.MV) c = min(c, st.mvcap[s]);
           st.claim_cap[s] = min(c, h_allow(g, st.ch_cnt[s * JH + g.jhc]));
         }
         __syncthreads();
@@ -240,11 +266,13 @@ pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
       }
       commit_claims(d, in, st, out, m, g, false);
       // summary maintenance: exact decrements, then a pin zeroes the
-      // other lanes and collapses capv to the pinned one
+      // other lanes and collapses capv to the pinned one; the minValues
+      // headroom drops by the fill
       for (int s = tid; s < NMAX; s += kThreads) {
         const int32_t f = st.claim_fill[s];
         if (f == 0) continue;
         hd.cfills[s] = wrap_add(hd.cfills[s], f);
+        if (d.MV) st.mvcap[s] = max(wrap_sub(st.mvcap[s], f), 0);
         if (d.has_domains) {
           const int c_s = st.c_slot[s];
           const bool tighten = g.dyn && f > 0 && c_s < V1;
@@ -262,7 +290,8 @@ pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
 
       // ---- 3. fresh claims ----
       fresh_claims(d, in, st, out, m, g, n_open, overflow,
-                   ClassedBulkHook{&hd, m.pmax, T, V1, d.has_domains, cdyn}, sh, s_debit);
+                   ClassedBulkHook{&hd, m.pmax, st.mvcap, T, V1, d.has_domains, cdyn, d.MV > 0},
+                   sh, s_debit);
       spread_carry(d, st, m, g);
       __syncthreads();
       if (d.has_contrib) contrib_counts(d, in, st, out, m, g);
@@ -308,7 +337,8 @@ pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
 
 extern "C" int kt_pack_classed(
     int G, int T, int P, int N, int R, int K, int V1, int NMAX, int JH, int JD,
-    int C, int zone_kid, int ct_kid, int wf_iters, int has_domains, int has_contrib,
+    int MV, int MW, int C, int zone_kid, int ct_kid, int wf_iters, int has_domains,
+    int has_contrib,
     // groups (FFD order)
     const int32_t* g_count, const float* g_req, const uint8_t* g_def,
     const uint8_t* g_neg, const uint8_t* g_mask, const int32_t* g_hcap,
@@ -330,6 +360,9 @@ extern "C" int kt_pack_classed(
     const int32_t* n_dzone, const int32_t* n_dct, const int32_t* dd0,
     // contributor rows and each shared domain slot's axis
     const uint8_t* g_hcontrib, const uint8_t* g_dcontrib, const int32_t* dtg_key,
+    // minValues tables; the (empty) reservation ledger
+    const int32_t* p_mvmin, const uint8_t* t_mvoh, const int32_t* res_cap0,
+    const uint8_t* a_res,
     // the class partition
     const int32_t* class_start, const int32_t* class_len, const uint8_t* class_dyn,
     const int32_t* class_dkey,
@@ -339,7 +372,9 @@ extern "C" int kt_pack_classed(
     float* pool_rem, int32_t* exist_cap, int32_t* claim_cap,
     int32_t* claim_fill, uint8_t* avail, uint32_t* atz,
     uint32_t* atc, uint8_t* toff_pt, int32_t* percap, int32_t* c_slot,
-    int32_t* ddc,
+    int32_t* ddc, int32_t* res_rem, int32_t* mvcap,
+    // each type's minValues values per key, as words
+    uint32_t* mvw,
     // class head tables and per-claim summaries
     int32_t* capv, int32_t* percapv, int32_t* af0, uint8_t* off0, uint8_t* toff_nt0,
     uint8_t* live, int32_t* cfills, int32_t* pin0, uint8_t* off_grp, uint8_t* toff_grp,
@@ -350,28 +385,36 @@ extern "C" int kt_pack_classed(
     int32_t* c_dzone, int32_t* c_dct, uint8_t* c_resv,
     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (R > 32 || JH < 1 || JD < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (R > 32 || JH < 1 || JD < 1 || (MV && (MW < 1 || MW > kMaxMvW)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int W = (V1 + 31) / 32;
   // rows of skipped classes and of count-0 members stay zero
   cudaMemsetAsync(exist_fills, 0, sizeof(int32_t) * static_cast<size_t>(G) * N, stream);
   cudaMemsetAsync(claim_fills, 0, sizeof(int32_t) * static_cast<size_t>(G) * NMAX, stream);
   cudaMemsetAsync(unplaced, 0, sizeof(int32_t) * static_cast<size_t>(G), stream);
+  // no reservation ledger here (NRES = 0)
   Dims d{G, T, P, N, R, K, V1, NMAX, JH, JD, zone_kid, ct_kid, wf_iters, W,
-         has_domains != 0, has_contrib != 0};
+         has_domains != 0, has_contrib != 0, MV, MW, (MW + 31) / 32, 0};
   In in{g_count, g_req, g_def, g_neg, g_mask, g_hcap, g_haff, g_hstg, g_hscap,
         g_hself, compat_pg, type_ok, n_fit, cap_ng, t_alloc, t_cap, a_tzc,
         p_daemon, p_limit, p_has_limit, p_tol, n_avail, n_base, n_hcnt,
         nh_cnt0, well_known, g_dmode, g_dkey, g_dskew, g_dmin0, g_dprior,
         g_dreg, g_drank, g_dtg, p_mask, n_dzone, n_dct, dd0,
-        g_hcontrib, g_dcontrib, dtg_key};
+        g_hcontrib, g_dcontrib, dtg_key, p_mvmin, t_mvoh, res_cap0, a_res};
   State st{exist_used, c_used, c_npods, c_def, c_neg, c_mask, ch_cnt, nhc,
            pool_rem, exist_cap, claim_cap, claim_fill, avail, atz,
-           atc, toff_pt, percap, c_slot, ddc};
+           atc, toff_pt, percap, c_slot, ddc, res_rem, mvcap,
+           mvw, nullptr, nullptr, nullptr};
   Out out{c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills,
           unplaced, c_dzone, c_dct, c_resv};
   Classes cls{class_start, class_len, class_dyn, class_dkey, C};
   Head hd{capv, percapv, af0, off0, toff_nt0, live, cfills, pin0, off_grp, toff_grp, e_cap};
-  const size_t smem = smem_bytes(P, W, V1, K, R);
+  if (MV) {
+    static_words<<<132, 256, 0, stream>>>(d, in, st);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const size_t smem = smem_bytes(d);
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(pack_classed_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));

@@ -26,6 +26,10 @@ using kt::wrap_sub;
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
+// the minValues value axis (t_mvoh's W) the scans take: one int32 per
+// value per warp in shared memory (128 KB at the bound); the wrapper
+// raises on a wider catalog (ops/packing.py:MV_MAX_W)
+constexpr int kMaxMvW = 1024;
 // domain-constraint modes (solver/encode.py:DMODE_*)
 constexpr int kSpread = 1, kAffinity = 2, kGateSpread = 3, kGateAff = 4;
 
@@ -164,6 +168,8 @@ __device__ __forceinline__ bool offer_in(const uint32_t* atz, const uint32_t* at
 struct Dims {
   int G, T, P, N, R, K, V1, NMAX, JH, JD, zone_kid, ct_kid, wf_iters, W;
   bool has_domains, has_contrib;
+  // minValues keys, values per key and their words; reservations
+  int MV, MW, MWW, NRES;
 };
 
 struct In {
@@ -185,6 +191,11 @@ struct In {
   // contributor counting: shared hostname / domain slots each group
   // counts toward, and each domain slot's axis
   const uint8_t* g_hcontrib; const uint8_t* g_dcontrib; const int32_t* dtg_key;
+  // minValues floors [P, MV] and value one-hots [T, MV, MW]; the
+  // reservation ledger's capacities [NRES] and availability
+  // [NRES, T, V1, V1]
+  const int32_t* p_mvmin; const uint8_t* t_mvoh; const int32_t* res_cap0;
+  const uint8_t* a_res;
 };
 
 struct State {  // PackState in device memory (plus per-step scratch)
@@ -197,6 +208,14 @@ struct State {  // PackState in device memory (plus per-step scratch)
   // the shared-domain carry
   uint32_t* atc; uint8_t* toff_pt; int32_t* percap; int32_t* c_slot;
   int32_t* ddc;
+  // the reservation ledger res_rem [NRES]; per-claim minValues caps
+  // [NMAX] (B4: this step's cap_mv; B5: the maintained headroom mvcapv)
+  int32_t* res_rem; int32_t* mvcap;
+  // word tables shared by every scenario (static_words): each type's
+  // minValues values per key [T, MV, MWW]; each reservation's
+  // a_res[r, t, z, :] over capacity types [NRES, T, V1, W]; the held
+  // availability (a_tzc or any reservation) on both axes [T, V1, W]
+  uint32_t* mvw; uint32_t* ares_z; uint32_t* aheld_z; uint32_t* aheld_c;
 };
 
 struct Out {
@@ -225,17 +244,25 @@ struct Smem {
   int32_t* pcap;    // [kWarps][V1] per-warp per-domain claim capacity
   int32_t* dsum;    // [4][V1] contributor sums: node zone, node ct, claim zone, claim ct
   int32_t* pmax;    // [V1] per-domain best fit of a bulk's template
+  int32_t* mvf;     // [kWarps][MW] per-warp per-value fits (minValues)
+  int32_t* mvp;     // [P] each template's minValues cap for a bulk
+  uint32_t* pze;    // [W] a bulk template's zone words (in the pinned domain)
+  uint32_t* pce;    // [W] ... capacity-type words
+  int32_t* rflag;   // [NRES] reservations compatible with a bulk
+  int32_t* flags;   // [1] the ledger crossed zero: rebuild the step words
   float* req;       // [R]
   uint8_t* gdef;    // [K]
   uint8_t* gneg;    // [K]
   uint8_t* gmask;   // [K * V1]
 };
 
-inline size_t smem_bytes(int P, int W, int V1, int K, int R) {
-  const int NSLOT = V1 + 2;
-  const size_t words = static_cast<size_t>(kWarps) * 2 * W + 2 * W + 2 * static_cast<size_t>(P) * W +
-                       W + 4 * NSLOT + 5 * V1 + static_cast<size_t>(kWarps) * V1 + 5 * V1 + R;
-  return sizeof(uint32_t) * words + static_cast<size_t>(K) * (2 + V1);
+inline size_t smem_bytes(const Dims& d) {
+  const int NSLOT = d.V1 + 2, W = d.W, V1 = d.V1;
+  const size_t words = static_cast<size_t>(kWarps) * 2 * W + 2 * W + 2 * static_cast<size_t>(d.P) * W +
+                       W + 4 * NSLOT + 5 * V1 + static_cast<size_t>(kWarps) * V1 + 5 * V1 +
+                       (d.MV ? static_cast<size_t>(kWarps) * d.MW : 0) + d.P + 2 * W + d.NRES + 1 +
+                       d.R;
+  return sizeof(uint32_t) * words + static_cast<size_t>(d.K) * (2 + V1);
 }
 
 __device__ void carve(unsigned char* dyn, const Dims& d, Smem& m) {
@@ -258,7 +285,13 @@ __device__ void carve(unsigned char* dyn, const Dims& d, Smem& m) {
   m.pcap = reinterpret_cast<int32_t*>(m.cumf + V1);
   m.dsum = m.pcap + kWarps * V1;
   m.pmax = m.dsum + 4 * V1;
-  m.req = reinterpret_cast<float*>(m.pmax + V1);
+  m.mvf = m.pmax + V1;
+  m.mvp = m.mvf + (d.MV ? kWarps * d.MW : 0);
+  m.pze = reinterpret_cast<uint32_t*>(m.mvp + P);
+  m.pce = m.pze + W;
+  m.rflag = reinterpret_cast<int32_t*>(m.pce + W);
+  m.flags = m.rflag + d.NRES;
+  m.req = reinterpret_cast<float*>(m.flags + 1);
   m.gdef = reinterpret_cast<uint8_t*>(m.req + d.R);
   m.gneg = m.gdef + d.K;
   m.gmask = m.gneg + d.K;
@@ -314,6 +347,146 @@ __device__ __forceinline__ int nd_slot(const Dims& d, const In& in, const Grp& g
   return (raw >= 0 && raw < d.V1 && reg[raw]) ? raw : d.V1 + 1;
 }
 
+// an offering of type t in zone z and capacity type c under the current
+// ledger (packing.py's a_step): in a_tzc, or reserved in a reservation
+// with capacity left
+__device__ __forceinline__ bool step_avail(const Dims& d, const In& in, const State& st, int t,
+                                           int z, int c) {
+  const size_t cell = (static_cast<size_t>(t) * d.V1 + z) * d.V1 + c;
+  if (in.a_tzc[cell]) return true;
+  for (int r = 0; r < d.NRES; ++r)
+    if (st.res_rem[r] > 0 && in.a_res[static_cast<size_t>(r) * d.T * d.V1 * d.V1 + cell])
+      return true;
+  return false;
+}
+
+// The offering bit words of the current ledger: st.atz [T, V1(z), W] over
+// capacity types and, with domains, st.atc [T, V1(c), W] over zones. Built
+// at init and again whenever a reservation's remaining capacity reaches
+// zero (it never rises). Call after a barrier that published st.res_rem;
+// ends in one.
+__device__ void step_words(const Dims& d, const In& in, const State& st) {
+  const int tid = threadIdx.x, T = d.T, V1 = d.V1, W = d.W;
+  for (int i = tid; i < T * V1 * W; i += kThreads) {
+    const int t = i / (V1 * W), z = (i / W) % V1, w = i % W;
+    uint32_t bits = 0;
+    for (int c = w * 32; c < V1 && c < w * 32 + 32; ++c)
+      bits |= static_cast<uint32_t>(step_avail(d, in, st, t, z, c)) << (c - w * 32);
+    st.atz[i] = bits;
+  }
+  if (d.has_domains)
+    for (int i = tid; i < T * V1 * W; i += kThreads) {
+      const int t = i / (V1 * W), c = (i / W) % V1, w = i % W;
+      uint32_t bits = 0;
+      for (int z = w * 32; z < V1 && z < w * 32 + 32; ++z)
+        bits |= static_cast<uint32_t>(step_avail(d, in, st, t, z, c)) << (z - w * 32);
+      st.atc[i] = bits;
+    }
+  __syncthreads();
+}
+
+// The word tables every scenario shares (State::mvw, ares_z, aheld_z,
+// aheld_c), one grid-stride pass before the scan kernel: t_mvoh's values
+// as words; each reservation's a_res[r, t, z, :]; the held availability
+// a_tzc | any_r a_res[r] (packing.py's a_held) on both axes.
+__global__ void static_words(Dims d, In in, State st) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long i0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int T = d.T, V1 = d.V1, W = d.W, MW = d.MW, MWW = d.MWW, NRES = d.NRES;
+  for (long long i = i0; i < static_cast<long long>(T) * d.MV * MWW; i += step) {
+    const long long tj = i / MWW;
+    const int ww = static_cast<int>(i % MWW);
+    uint32_t bits = 0;
+    for (int c = 0; c < 32 && ww * 32 + c < MW; ++c)
+      bits |= static_cast<uint32_t>(in.t_mvoh[tj * MW + ww * 32 + c] != 0) << c;
+    st.mvw[i] = bits;
+  }
+  const long long cells = static_cast<long long>(T) * V1 * W;
+  for (long long i = i0; i < NRES * cells; i += step)
+    st.ares_z[i] = mask_word(in.a_res + (i / W) * V1, V1, static_cast<int>(i % W));
+  if (!NRES) return;
+  for (long long i = i0; i < cells; i += step) {
+    const int t = static_cast<int>(i / (V1 * W)), v = static_cast<int>((i / W) % V1);
+    const int w = static_cast<int>(i % W);
+    const size_t tv = static_cast<size_t>(t) * V1 + v;
+    uint32_t bz = mask_word(in.a_tzc + tv * V1, V1, w);
+    for (int r = 0; r < NRES; ++r)
+      bz |= mask_word(in.a_res + (static_cast<size_t>(r) * T * V1 + tv) * V1, V1, w);
+    st.aheld_z[i] = bz;
+    if (d.has_domains) {
+      uint32_t bc = 0;
+      for (int z = w * 32; z < V1 && z < w * 32 + 32; ++z) {
+        const size_t cell = (static_cast<size_t>(t) * V1 + z) * V1 + v;
+        bool on = in.a_tzc[cell];
+        for (int r = 0; r < NRES && !on; ++r)
+          on = in.a_res[static_cast<size_t>(r) * T * V1 * V1 + cell];
+        bc |= static_cast<uint32_t>(on) << (z - w * 32);
+      }
+      st.aheld_c[i] = bc;
+    }
+  }
+}
+
+// the offering words claim s sees on each axis: what it holds once it
+// holds reservations (packing.py's off_held / a_held), else the current
+// ledger's
+__device__ __forceinline__ const uint32_t* claim_atz(const Dims& d, const State& st,
+                                                     const Out& out, int s) {
+  return (d.NRES && out.c_resv[s]) ? st.aheld_z : st.atz;
+}
+
+__device__ __forceinline__ const uint32_t* claim_atc(const Dims& d, const State& st,
+                                                     const Out& out, int s) {
+  return (d.NRES && out.c_resv[s]) ? st.aheld_c : st.atc;
+}
+
+// parity: phase min-values
+// minvalues_cap (packing.py:153) for one entity, by one whole warp. For
+// each key j with a floor, f[w] is the largest fit over the entity's
+// masked types offering catalog value w (``cell(t, fit)`` says whether
+// type t is masked and gives its fit), and the key's cap is the floor-th
+// largest f[w]: the largest x with #{w : f[w] >= x} >= floor, selected by
+// counting, bit by bit from the top (int32 fits; only the k-th value
+// matters, so nothing is sorted). A floor of 0 imposes no cap (kBigDom),
+// one above MW gives 0; the cap is the min over keys. fits_count is never
+// negative, so f starting at 0 equals the reference's max over
+// where(mask, fit, 0). Ends in __syncwarp.
+template <class Cell>
+__device__ int32_t warp_minvalues(const Dims& d, const State& st, const Smem& m,
+                                  const int32_t* floors, Cell cell) {
+  const int lane = threadIdx.x & 31;
+  int32_t* f = m.mvf + (threadIdx.x >> 5) * d.MW;
+  int32_t cap = kBigDom;
+  for (int j = 0; j < d.MV; ++j) {
+    const int32_t fl = floors[j];
+    if (fl <= 0) continue;
+    if (fl > d.MW) {
+      cap = 0;
+      continue;
+    }
+    for (int w = lane; w < d.MW; w += 32) f[w] = 0;
+    __syncwarp();
+    for (int t = lane; t < d.T; t += 32) {
+      int32_t fit;
+      if (!cell(t, fit)) continue;
+      const uint32_t* words = st.mvw + (static_cast<size_t>(t) * d.MV + j) * d.MWW;
+      for (int ww = 0; ww < d.MWW; ++ww)
+        for (uint32_t b = words[ww]; b; b &= b - 1) atomicMax(&f[ww * 32 + __ffs(b) - 1], fit);
+    }
+    __syncwarp();
+    int32_t x = 0;
+    for (int bitpos = 30; bitpos >= 0; --bitpos) {
+      const int32_t cand = x | (1 << bitpos);
+      unsigned cnt = 0;
+      for (int w = lane; w < d.MW; w += 32) cnt += f[w] >= cand ? 1u : 0u;
+      if (static_cast<int32_t>(__reduce_add_sync(kFull, cnt)) >= fl) x = cand;
+    }
+    cap = min(cap, x);
+    __syncwarp();
+  }
+  return cap;
+}
+
 // ---- pack state init (PackState, packing.py:357) ----
 // parity: state exist_used, c_used, c_npods, c_active, c_pool, c_tmask
 // parity: state c_def, c_neg, c_mask, c_dzone, c_dct, ch_cnt, nhc
@@ -343,21 +516,9 @@ __device__ void init_state(const Dims& d, const In& in, const State& st, const O
   for (int i = tid; i < N * d.JH; i += kThreads) st.nhc[i] = in.nh_cnt0[i];
   for (int i = tid; i < d.JD * V1; i += kThreads) st.ddc[i] = in.dd0[i];
   for (int i = tid; i < d.P * R; i += kThreads) st.pool_rem[i] = in.p_limit[i];
-  // a_tzc[t, z, :] as bit words over the capacity-type axis
-  for (int i = tid; i < T * V1 * W; i += kThreads)
-    st.atz[i] = mask_word(in.a_tzc + static_cast<size_t>(i / W) * V1, V1, i % W);
-  if (d.has_domains) {
-    // ... and a_tzc[t, :, c] as bit words over the zone axis
-    for (int i = tid; i < T * V1 * W; i += kThreads) {
-      const int t = i / (V1 * W), c = (i / W) % V1, w = i % W;
-      uint32_t bits = 0;
-      for (int z = w * 32; z < V1 && z < w * 32 + 32; ++z)
-        bits |= static_cast<uint32_t>(in.a_tzc[(static_cast<size_t>(t) * V1 + z) * V1 + c] != 0)
-                << (z - w * 32);
-      st.atc[i] = bits;
-    }
-  }
+  for (int r = tid; r < d.NRES; r += kThreads) st.res_rem[r] = in.res_cap0[r];
   __syncthreads();
+  step_words(d, in, st);
 }
 
 // The group's request and requirement rows (row ``gi`` of the group
@@ -377,20 +538,28 @@ __device__ void load_rows(const Dims& d, const In& in, int gi, const Smem& m) {
   }
 }
 
-// The templates' per-domain offering table toff_pt [P, T, V1] on axis
-// ``dkey``, and fresh_ok_d (some type a template may open for the group
-// in table column ``ti`` has an offering in the domain), for the group
-// requirement rows of ``gi``. Two barriers; ends in one.
-__device__ void template_domains(const Dims& d, const In& in, const State& st, const Smem& m,
-                                 int gi, int ti, int dkey) {
-  const int tid = threadIdx.x, P = d.P, T = d.T, V1 = d.V1, W = d.W, K = d.K;
-  for (int i = tid; i < W; i += kThreads) m.fresh[i] = 0;
+// The templates' zone / capacity-type words merged with the group
+// requirement rows of ``gi`` (packing.py's pzm / pcm) into m.pz / m.pc.
+// Ends in a barrier.
+__device__ void template_words(const Dims& d, const In& in, const Smem& m, int gi) {
+  const int tid = threadIdx.x, V1 = d.V1, W = d.W, K = d.K;
   const uint8_t* gm = in.g_mask + static_cast<size_t>(gi) * K * V1;
-  for (int i = tid; i < P * W; i += kThreads) {
+  for (int i = tid; i < d.P * W; i += kThreads) {
     const uint8_t* pm = in.p_mask + static_cast<size_t>(i / W) * K * V1;
     m.pz[i] = mask_word(pm + d.zone_kid * V1, V1, i % W) & mask_word(gm + d.zone_kid * V1, V1, i % W);
     m.pc[i] = mask_word(pm + d.ct_kid * V1, V1, i % W) & mask_word(gm + d.ct_kid * V1, V1, i % W);
   }
+  __syncthreads();
+}
+
+// The templates' per-domain offering table toff_pt [P, T, V1] on axis
+// ``dkey`` under the current ledger, and fresh_ok_d (some type a template
+// may open for the group in table column ``ti`` has an offering in the
+// domain). Needs template_words; ends in a barrier.
+__device__ void template_domains(const Dims& d, const In& in, const State& st, const Smem& m,
+                                 int ti, int dkey) {
+  const int tid = threadIdx.x, P = d.P, T = d.T, V1 = d.V1, W = d.W;
+  for (int i = tid; i < W; i += kThreads) m.fresh[i] = 0;
   __syncthreads();
   for (long long i = tid; i < static_cast<long long>(P) * T * V1; i += kThreads) {
     const int p = static_cast<int>(i / (static_cast<long long>(T) * V1));
@@ -793,7 +962,7 @@ __device__ void tier2_any(const Dims& d, const State& st, const Smem& m, const G
 // ---- 2. open claims: a dynamic group ----
 // One domain per claim (spread_domain_choice): admissible domains have
 // capacity on the claim (st.percap, 0 on claims that are not live) and
-// remaining quota; claims rank in slot order for the quota-proportional
+// remaining quota; a claim's cap also takes its minValues cap st.mvcap; claims rank in slot order for the quota-proportional
 // pick. Then one water-fill per domain slot with claims (a slot whose
 // every cap is 0 hands out nothing); ``single`` (B5, count <= 1): at most
 // one slot carries quota, so one least-loaded pick in the slot with the
@@ -855,6 +1024,7 @@ __device__ void tier2_domains(const Dims& d, const State& st, const Smem& m, con
       cs = (prop_ok && g.mode == kSpread) ? d_prop : d_greedy;
       int32_t c = min(pc[cs], g.hcap);
       c = min(c, g.count);
+      if (d.MV) c = min(c, st.mvcap[s]);
       c = min(c, h_allow(g, st.ch_cnt[s * JH + g.jhc]));
       st.claim_cap[s] = c;
       if (c > 0) m.sflag[cs] = 1;
@@ -923,6 +1093,8 @@ __device__ void commit_claims(const Dims& d, const In& in, const State& st, cons
       if (tmask) {
         const uint32_t* wcz = warp_claim_words(d, st, m, s);
         const uint32_t* wcc = wcz + W;
+        const uint32_t* az = claim_atz(d, st, out, s);
+        const uint32_t* ac = claim_atc(d, st, out, s);
         const int pp = out.c_pool[s];
         const uint8_t* tok = in.type_ok + (static_cast<size_t>(pp) * d.G + g.ti) * T;
         for (int t = lane; t < T; t += 32) {
@@ -930,8 +1102,8 @@ __device__ void commit_claims(const Dims& d, const In& in, const State& st, cons
           if (!*cell) continue;
           const int32_t af = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
                                         st.c_used + static_cast<size_t>(s) * R, m.req, R);
-          bool keep = tok[t] && offer(st.atz, t, V1, W, wcz, wcc) && af >= fill;
-          if (keep && tighten) keep = offer_in(st.atz, st.atc, g.dkey, t, cs, V1, W, wcz, wcc);
+          bool keep = tok[t] && offer(az, t, V1, W, wcz, wcc) && af >= fill;
+          if (keep && tighten) keep = offer_in(az, ac, g.dkey, t, cs, V1, W, wcz, wcc);
           if (!keep) *cell = 0;
         }
       }
@@ -957,11 +1129,12 @@ __device__ void commit_claims(const Dims& d, const In& in, const State& st, cons
 
 // What a fresh-claim bulk tells B5's maintained claim summaries; B4 keeps
 // none. ``trip`` runs block-wide once the bulk's template is chosen,
-// ``open`` for each slot opened (by the thread that opens it), ``cell``
+// ``open`` for each slot opened (by the thread that opens it; with the
+// bulk template's minValues cap), ``cell``
 // for each (slot, type) of the opened claims.
 struct NoBulkHook {
   __device__ void trip(const uint8_t*, const int32_t*, int, Shared&) const {}
-  __device__ void open(int, int32_t, int32_t, int) const {}
+  __device__ void open(int, int32_t, int32_t, int, int32_t) const {}
   __device__ void cell(int, int, int32_t, int32_t) const {}
 };
 
@@ -969,14 +1142,22 @@ struct NoBulkHook {
 // ---- 3. new claims from the highest-weight feasible template ----
 // Each trip serves the slot with the largest remaining quota and opens
 // one BULK of k identical claims of one template against a frozen avail
-// set; a no-progress trip retires the slot. Adds the takes to
-// st.claim_fill. Call after a barrier; ends in one.
+// set; a no-progress trip retires the slot. With minValues floors a
+// template whose available set misses them is infeasible and the
+// per-claim fill is capped (m.mvp); with a reservation ledger the avail
+// set is re-gated on what the current ledger offers, the bulk is bounded
+// by the smallest compatible reservation, its claims hold reservations
+// (c_resv) and debit each compatible one a slot, and a reservation that
+// drains rebuilds the step words. Adds the takes to st.claim_fill. Needs
+// m.pz / m.pc (template_words) when a ledger is on. Call after a barrier;
+// ends in one.
 // parity: tiebreak argmax
 template <class Hook>
 __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const Out& out,
                              const Smem& m, const Grp& g, int32_t& n_open, bool& overflow,
                              const Hook& hook, Shared& sh, float* s_debit) {
-  const int tid = threadIdx.x, T = d.T, P = d.P, R = d.R, K = d.K, V1 = d.V1;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int T = d.T, P = d.P, R = d.R, K = d.K, V1 = d.V1, W = d.W, NRES = d.NRES;
   const int NMAX = d.NMAX, JH = d.JH, G = d.G, NSLOT = V1 + 2, ANY = V1, DEAD = V1 + 1;
   if (tid == 0)
     for (int sl = 0; sl < NSLOT; ++sl) m.ddead[sl] = sl == DEAD;
@@ -1001,8 +1182,31 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
         for (int r = 0; r < R && ok; ++r)
           ok = in.t_cap[static_cast<size_t>(t) * R + r] <= st.pool_rem[p * R + r];
       if (ok && pinned) ok = st.toff_pt[static_cast<size_t>(i) * V1 + d_sel];
+      // the ledger re-gate: what the current ledger still offers, overall
+      // or in the selected domain
+      if (ok && NRES)
+        ok = pinned ? offer_in(st.atz, st.atc, g.dkey, t, d_sel, V1, W, m.pz + p * W, m.pc + p * W)
+                    : offer(st.atz, t, V1, W, m.pz + p * W, m.pc + p * W);
       st.avail[i] = ok;
-      if (ok) p_min = min(p_min, p);
+      if (ok && !d.MV) p_min = min(p_min, p);
+    }
+    if (d.MV) {
+      // each template's minValues cap over its available types (one warp
+      // per template); a template below 1 opens nothing
+      __syncthreads();
+      for (int p = wid; p < P; p += kWarps) {
+        const uint8_t* avp = st.avail + static_cast<size_t>(p) * T;
+        const int32_t* nfp = in.n_fit + (static_cast<size_t>(p) * G + g.ti) * T;
+        const int32_t c = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(p) * d.MV,
+                                         [&](int t, int32_t& fit) {
+                                           fit = nfp[t];
+                                           return avp[t] != 0;
+                                         });
+        if (lane == 0) m.mvp[p] = c;
+      }
+      __syncthreads();
+      for (int i = tid; i < P * T; i += kThreads)
+        if (st.avail[i] && m.mvp[i / T] >= 1) p_min = min(p_min, i / T);
     }
     p_min = block_min(p_min, sh);  // first feasible template in weight order
     const bool any_feasible = p_min < P;
@@ -1013,6 +1217,8 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
     for (int t = tid; t < T; t += kThreads) best = max(best, av[t] ? nf[t] : 0);
     const int32_t n_fit_max = block_max(best, sh);
     int32_t n_per = min(n_fit_max, g.hcap);
+    const int32_t mv_open = d.MV ? m.mvp[p_star] : kBigDom;
+    n_per = min(n_per, mv_open);
     n_per = min(n_per, g.counted ? g.scap_h : kBigDom);
     // pessimistic limit debit: max capacity over the claim's options
     for (int r = 0; r < R; ++r) {
@@ -1033,6 +1239,38 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
         __fdiv_rn(static_cast<float>(rem_d), static_cast<float>(max(n_per, 1)))));
     const int32_t k_cap = isinf(k_limit) ? (1 << 30) : __float2int_rz(k_limit);
     int32_t k_want = min(k_need, k_cap);
+    bool any_resv = false;
+    if (NRES) {
+      // every claim of the bulk holds one slot of each compatible
+      // reservation (one with remaining capacity that offers a type of
+      // the bulk's template, in the pinned domain for a pinned bulk): the
+      // smallest remaining one bounds the bulk
+      for (int w = tid; w < W; w += kThreads) {
+        uint32_t z = m.pz[p_star * W + w], c = m.pc[p_star * W + w];
+        if (pinned) {
+          const uint32_t oh = (d_sel >> 5) == w ? 1u << (d_sel & 31) : 0u;
+          if (g.dkey == 0) z &= oh; else c &= oh;
+        }
+        m.pze[w] = z;
+        m.pce[w] = c;
+      }
+      for (int r = tid; r < NRES; r += kThreads) m.rflag[r] = 0;
+      __syncthreads();
+      const size_t rstride = static_cast<size_t>(T) * V1 * W;
+      for (long long i = tid; i < static_cast<long long>(NRES) * T; i += kThreads) {
+        const int r = static_cast<int>(i / T), t = static_cast<int>(i % T);
+        if (av[t] && st.res_rem[r] > 0 && offer(st.ares_z + r * rstride, t, V1, W, m.pze, m.pce))
+          m.rflag[r] = 1;
+      }
+      __syncthreads();
+      int32_t k_resv = 1 << 30;
+      for (int r = 0; r < NRES; ++r)
+        if (m.rflag[r]) {
+          any_resv = true;
+          k_resv = min(k_resv, st.res_rem[r]);
+        }
+      k_want = min(k_want, k_resv);
+    }
     const int32_t slot = n_open;
     const int32_t k_slots = max(NMAX - slot, 0);
     if (g.haff) k_want = min(k_want, 1);
@@ -1073,7 +1311,8 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
       for (int j = 0; j < JH; ++j)
         st.ch_cnt[s * JH + j] = (g.counted && j == g.jhc) ? take : 0;
       st.claim_fill[s] = wrap_add(st.claim_fill[s], take);
-      hook.open(s, take, n_fit_max, d_pin);
+      out.c_resv[s] = any_resv;
+      hook.open(s, take, n_fit_max, d_pin, mv_open);
       local = wrap_add(local, take);
     }
     for (long long i = tid; i < static_cast<long long>(k) * T; i += kThreads) {
@@ -1093,8 +1332,19 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
       m.qrem[d_sel] = wrap_sub(m.qrem[d_sel], placed);
       // haff groups retire after ONE trip (a second opens a second entity)
       if (placed == 0 || g.haff) m.ddead[d_sel] = 1;
+      // the ledger debit: a slot of each compatible reservation per claim
+      int32_t drained = 0;
+      if (k > 0)
+        for (int r = 0; r < NRES; ++r)
+          if (m.rflag[r]) {
+            st.res_rem[r] = wrap_sub(st.res_rem[r], k);
+            drained |= st.res_rem[r] <= 0;
+          }
+      m.flags[0] = drained;
     }
     __syncthreads();
+    // a reservation ran out: its offerings leave the step's availability
+    if (NRES && m.flags[0]) step_words(d, in, st);
   }
 }
 

@@ -28,10 +28,23 @@ a shared hostname or domain constraint it does not own adds its
 placements to that constraint's carried counts (``nhc``, ``ch_cnt``,
 ``ddc``) after its step.
 
-Scope of this port: what ``pack`` traces with tile_feasibility=False, no
-reservations (NRES=0) and no minValues (MV=0), with has_domains and
-has_contrib either way. Any other static raises NotImplementedError
-before anything runs (ROADMAP.md item A4b).
+minValues (``p_mvmin`` [P, MV] floors over ``t_mvoh`` [T, MV, W] value
+one-hots, MV > 0): a claim's tier-2 join and a fresh bulk's per-claim
+fill are capped by ``minvalues_cap`` so every floored key keeps enough
+distinct values among the claim's surviving types; a template whose
+available set misses its floors opens nothing.
+
+The reservation ledger (``res_cap0`` [NRES], ``a_res`` [NRES, T, Vz, Vc],
+NRES > 0): reserved offerings are available while their reservation has
+capacity left (``res_rem``); a bulk of claims holding reservations
+(``c_resv``) debits one slot per claim from every compatible reservation
+and is bounded by the smallest remaining one; claims holding reservations
+keep seeing them (``a_held``).
+
+Scope of this port: what ``pack`` traces with tile_feasibility=False;
+has_domains, has_contrib, minValues and the ledger either way. The tiled
+tables raise NotImplementedError before anything runs (ROADMAP.md item
+A4b).
 
 ``pack`` is the public wrapper: its plain version ``pack_reference`` (a
 host loop over groups, exact and slow) for CPU tensors, kernel B4
@@ -68,23 +81,14 @@ DMODE_GATE_SPREAD = 3
 DMODE_GATE_AFF = 4
 
 
-def check_scope(tile_feasibility, n_res, n_mv):
-    """Raise NotImplementedError for the statics this slice does not port
-    (has_domains and has_contrib are ported, either way)."""
-    missing = [
-        name
-        for name, on in (
-            ("tile_feasibility (tiled tables)", tile_feasibility),
-            ("reservations (NRES > 0)", n_res > 0),
-            ("minValues (MV > 0)", n_mv > 0),
-        )
-        if on
-    ]
-    if missing:
+def check_scope(tile_feasibility):
+    """Raise NotImplementedError for the static this slice does not port:
+    the tiled tables (has_domains, has_contrib, minValues and the
+    reservation ledger are ported, either way)."""
+    if tile_feasibility:
         raise NotImplementedError(
-            "the PyTorch pack covers untiled tables, no reservations and no "
-            "minValues; this batch needs " + ", ".join(missing)
-            + " (ROADMAP.md item A4b)"
+            "the PyTorch pack covers untiled tables; this batch needs "
+            "tile_feasibility (tiled tables) (ROADMAP.md item A4b)"
         )
 
 
@@ -158,6 +162,40 @@ def waterfill1(npods, cap, n, iters: int = 32):
     return waterfill(npods, cap, n, iters=iters)
 
 
+def minvalues_cap(tmask, fit, floors, t_mvoh):
+    """The largest fill k that keeps every minValues floor satisfied once
+    the fill narrows the options to {t : tmask_t and fit_t >= k}
+    (packing.py:minvalues_cap): for key j and catalog value w, f_w is the
+    largest fit over masked types offering w, and the cap is the
+    floor_j-th largest f_w, min over the keys with a floor. A floor of 0
+    imposes no cap (_BIGI); one above W (the value axis) gives 0.
+    tmask [..., T] bool, fit [..., T] int32, floors [..., MV] int32,
+    t_mvoh [T, MV, W] bool; returns [...] int32."""
+    f = torch.where(
+        tmask[..., :, None, None] & t_mvoh, fit[..., :, None, None],
+        torch.zeros((), dtype=fit.dtype, device=fit.device),
+    ).amax(-3)  # [..., MV, W]
+    fs = torch.sort(f, dim=-1, descending=True).values
+    W = fs.shape[-1]
+    idx = torch.clamp(floors - 1, 0, W - 1)
+    kth = fs.gather(-1, idx.long()[..., None])[..., 0]
+    kth = torch.where(floors > W, torch.zeros_like(kth), kth)
+    return torch.where(floors > 0, kth, torch.full_like(kth, _BIGI)).amin(-1)
+
+
+def _live_minvalues_cap(need, tmask, fit, floors, t_mvoh, fill=_BIGI):
+    """``minvalues_cap`` on the claims of ``need`` [NMAX] (the live claims
+    with capacity), ``fill`` elsewhere: a claim outside it takes no pod
+    whatever its cap (its tier-2 cap is 0), so its cap is never read. The
+    same outputs as the cap over every slot, at the cost of the claims
+    that can take pods (NMAX may be 8x the claims opened)."""
+    out = torch.full(need.shape, fill, dtype=torch.int32, device=need.device)
+    idx = need.nonzero()[:, 0]
+    if idx.numel():
+        out[idx] = minvalues_cap(tmask[idx], fit[idx], floors[idx], t_mvoh)
+    return out
+
+
 def spread_domain_choice(adm, qrem_v, mode: int, V1: int, DEAD: int):
     """Tier-2 domain of each open claim (packing.py:spread_domain_choice):
     the admissible domain with the largest remaining quota (ties by lowest
@@ -202,20 +240,26 @@ def bulk_takes(rem_d, k, n_per, slots, slot, is_any, has_domains: bool):
     return torch.where(in_bulk, takes, torch.zeros_like(takes)), in_bulk
 
 
-def _domain_avail(dkey, cz, cc, pzm, pcm, a_f):
+def _domain_avail(dkey, cz, cc, pzm, pcm, a_f, held=None):
     """Per-domain offering availability on the constrained axis
     (packing.py:_domain_avail): toff_nt [NMAX, T, V1] for the claims and
     toff_pt [P, T, V1] for the templates — an offering in domain slot d
-    under the entity's mask on the OTHER axis. The float32 contractions
-    sum 0/1 products, so ``> 0`` is an exact OR of ANDs."""
+    under the entity's mask on the OTHER axis. ``held`` (a_held_f, c_resv)
+    gives claims holding reservations their held availability. The
+    float32 contractions sum 0/1 products, so ``> 0`` is an exact OR of
+    ANDs."""
     f32 = torch.float32
     if dkey == 0:
-        nt = (torch.einsum("nc,tzc->ntz", cc.to(f32), a_f) > 0) & cz[:, None, :]
-        pt = (torch.einsum("pc,tzc->ptz", pcm.to(f32), a_f) > 0) & pzm[:, None, :]
+        n_spec, p_spec, n_con, n_and, p_con, p_and = "nc,tzc->ntz", "pc,tzc->ptz", cc, cz, pcm, pzm
     else:
-        nt = (torch.einsum("nz,tzc->ntc", cz.to(f32), a_f) > 0) & cc[:, None, :]
-        pt = (torch.einsum("pz,tzc->ptc", pzm.to(f32), a_f) > 0) & pcm[:, None, :]
-    return nt, pt
+        n_spec, p_spec, n_con, n_and, p_con, p_and = "nz,tzc->ntc", "pz,tzc->ptc", cz, cc, pzm, pcm
+    nt = torch.einsum(n_spec, n_con.to(f32), a_f) > 0
+    if held is not None:
+        a_held_f, c_resv = held
+        nt_held = torch.einsum(n_spec, n_con.to(f32), a_held_f) > 0
+        nt = torch.where(c_resv[:, None, None], nt_held, nt)
+    pt = (torch.einsum(p_spec, p_con.to(f32), a_f) > 0) & p_and[:, None, :]
+    return nt & n_and[:, None, :], pt
 
 
 def _h_allow(has_h: bool, hself: bool, scap_h):
@@ -298,6 +342,7 @@ def pack_reference(
     g_dmode, g_dkey, g_dskew, g_dmin0, g_dprior, g_dreg, g_drank, g_dtg,
     p_mask, n_dzone, n_dct, dd0,
     g_hcontrib, g_dcontrib, dtg_key,
+    p_mvmin, t_mvoh, res_cap0, a_res,
     *,
     nmax: int,
     zone_kid: int,
@@ -323,7 +368,17 @@ def pack_reference(
     JH = nh_cnt0.shape[1]
     JD = dd0.shape[0]
     NSLOT, ANY, DEAD = V1 + 2, V1, V1 + 1
+    MV = p_mvmin.shape[1]
+    NRES = res_cap0.shape[0]
     a_tzc_f = a_tzc.to(f32)
+    if NRES:
+        # reserved offerings are available while their reservation has
+        # capacity left; claims holding reservations keep seeing them
+        a_held_f = (a_tzc | a_res.any(0)).to(f32)
+        a_res_f = a_res.to(f32)
+
+    def ledger_avail(rem):
+        return (a_tzc | (a_res & (rem > 0)[:, None, None, None]).any(0)).to(f32)
 
     exist_used = n_base.clone()
     c_used = torch.zeros((nmax, R), dtype=f32, device=dev)
@@ -340,6 +395,8 @@ def pack_reference(
     nhc = nh_cnt0.to(i32).clone()
     ddc = dd0.to(i32).clone()
     pool_rem = p_limit.clone()
+    res_rem = res_cap0.to(i32).clone()
+    c_resv = torch.zeros((nmax,), dtype=torch.bool, device=dev)
     n_open = 0
     overflow = False
 
@@ -383,6 +440,11 @@ def pack_reference(
 
         cz = c_mask[:, zone_kid] & gmask[zone_kid][None, :]  # [NMAX, V1]
         cc = c_mask[:, ct_kid] & gmask[ct_kid][None, :]
+        # the ledger's availability at the step's start
+        a_step_f = ledger_avail(res_rem) if NRES else a_tzc_f
+        if dyn or NRES:
+            pzm = p_mask[:, zone_kid, :] & gmask[zone_kid][None, :]  # [P, V1]
+            pcm = p_mask[:, ct_kid, :] & gmask[ct_kid][None, :]
         if dyn:
             jd = int(g_dtg[gi])
             has_d = jd >= 0
@@ -391,9 +453,10 @@ def pack_reference(
             D0 = g_dprior[gi] + (ddc[min(max(jd, 0), JD - 1)] if has_d else 0)
             reg = g_dreg[gi]  # [V1]
             drank = g_drank[gi]  # [V1]
-            pzm = p_mask[:, zone_kid, :] & gmask[zone_kid][None, :]  # [P, V1]
-            pcm = p_mask[:, ct_kid, :] & gmask[ct_kid][None, :]
-            toff_nt, toff_pt = _domain_avail(dkey, cz, cc, pzm, pcm, a_tzc_f)
+            toff_nt, toff_pt = _domain_avail(
+                dkey, cz, cc, pzm, pcm, a_step_f,
+                held=(a_held_f, c_resv) if NRES else None,
+            )
 
         # claim-level compatibility with the group
         overlap = (c_mask & gmask[None]).any(-1)  # [NMAX, K]
@@ -412,11 +475,18 @@ def pack_reference(
         merged_mask = c_mask & gmask[None]
         tm = c_tmask & type_ok_row[cp]
         add_fit = fits_count(t_alloc[None], c_used[:, None, :], req[None, None, :])
-        off = torch.einsum("nz,tzc,nc->nt", cz.to(f32), a_tzc_f, cc.to(f32)) > 0
+        off = torch.einsum("nz,tzc,nc->nt", cz.to(f32), a_step_f, cc.to(f32)) > 0
+        if NRES:
+            off_held = torch.einsum("nz,tzc,nc->nt", cz.to(f32), a_held_f, cc.to(f32)) > 0
+            off = torch.where(c_resv[:, None], off_held, off)
         tm = tm & off & (add_fit >= 1)
         cap_any = torch.where(
             claim_live, torch.where(tm, add_fit, 0).amax(-1), zero_c
         )
+        if MV:
+            # a join narrows the claim's options by still-fits: cap it so
+            # every floored key keeps its distinct values
+            cap_mv = _live_minvalues_cap(cap_any >= 1, tm, add_fit, p_mvmin[cp], t_mvoh)
         if dyn:
             # per-claim per-domain capacity, shared by the affinity
             # bootstrap's claim anchor and tier 2
@@ -473,6 +543,8 @@ def pack_reference(
         def clamp(cap):
             cap = torch.minimum(cap, hcap)  # open claims carry no prior
             cap = torch.minimum(cap, count)  # keeps int32 waterfill sums safe
+            if MV:
+                cap = torch.minimum(cap, cap_mv)
             return torch.minimum(cap, h_allow(ch_cnt[:, jhc]))
 
         if dyn:
@@ -562,12 +634,37 @@ def pack_reference(
             avail = type_ok_row & within  # [P, T]
             if dyn and not is_any:
                 avail = avail & toff_pt[:, :, d_sel]
+            if NRES:
+                # the static tables saw the whole catalog: re-gate on what
+                # the CURRENT ledger still offers, overall or in the
+                # selected domain (a bulk may just have drained the only
+                # reservation behind it)
+                a_b_f = ledger_avail(res_rem)
+                if is_any:
+                    eff = torch.einsum("pz,tzc,pc->pt", pzm.to(f32), a_b_f, pcm.to(f32)) > 0
+                else:
+                    d_c = min(max(d_sel, 0), V1 - 1)
+                    if dkey == 0:
+                        eff = torch.einsum("pc,tc->pt", pcm.to(f32), a_b_f[:, d_c, :]) > 0
+                        eff = eff & pzm[:, d_c][:, None]
+                    else:
+                        eff = torch.einsum("pz,tz->pt", pzm.to(f32), a_b_f[:, :, d_c]) > 0
+                        eff = eff & pcm[:, d_c][:, None]
+                avail = avail & eff
             feas_p = avail.any(-1)
+            if MV:
+                # a template whose available set misses its floors opens
+                # nothing; the per-claim fill keeps the narrowed set
+                # satisfying
+                mv_cap_p = minvalues_cap(avail, n_fit_row, p_mvmin, t_mvoh)  # [P]
+                feas_p = feas_p & (mv_cap_p >= 1)
             any_feasible = bool(feas_p.any())
             p_star = int(torch.argmax(feas_p.to(i32)))  # first in weight order
             n_per = torch.minimum(
                 torch.where(avail[p_star], n_fit_row[p_star], 0).amax(), hcap
             )
+            if MV:
+                n_per = torch.minimum(n_per, mv_cap_p[p_star])
             n_per = torch.minimum(
                 n_per, scap_h if counted else bigi
             )
@@ -592,6 +689,25 @@ def pack_reference(
                 torch.where(torch.isinf(k_limit), torch.full_like(k_limit, 2.0**30), k_limit)
             )
             k_want = int(torch.minimum(k_need, k_cap))
+            any_resv = False
+            if NRES:
+                # each claim of the bulk holds one slot of every compatible
+                # reservation (usable in the pinned domain for a pinned
+                # bulk): the smallest remaining one bounds the bulk
+                pz_eff, pc_eff = pzm[p_star], pcm[p_star]
+                if not is_any:
+                    d_oh_sel = torch.arange(V1, device=dev) == min(max(d_sel, 0), V1 - 1)
+                    if dkey == 0:
+                        pz_eff = pz_eff & d_oh_sel
+                    else:
+                        pc_eff = pc_eff & d_oh_sel
+                r_has = torch.einsum(
+                    "z,rtzc,c->rt", pz_eff.to(f32), a_res_f, pc_eff.to(f32)
+                ) > 0  # [NRES, T]
+                r_compat = (r_has & avail[p_star][None, :]).any(1) & (res_rem > 0)
+                any_resv = bool(r_compat.any())
+                if any_resv:
+                    k_want = min(k_want, int(torch.where(r_compat, res_rem, 2**30).amin()))
             slot = n_open
             k_slots = max(nmax - slot, 0)
             if haff:
@@ -626,6 +742,9 @@ def pack_reference(
                 ch_cnt[sl] = 0
                 if counted:
                     ch_cnt[sl, jhc] = tk
+                c_resv[sl] = any_resv
+            if NRES:
+                res_rem = res_rem - torch.where(r_compat, k, 0).to(i32)
             if ok and bool(p_has_limit[p_star]):
                 pool_rem[p_star] = pool_rem[p_star] + (-debit) * float(k)
             n_open = slot + k
@@ -651,7 +770,6 @@ def pack_reference(
         claim_fills[gi] = claim_fill
         unplaced[gi] = count - _sum32(exist_fill) - _sum32(claim_fill)
 
-    c_resv = torch.zeros((nmax,), dtype=torch.bool, device=dev)
     return (
         c_pool, c_tmask,
         torch.tensor(n_open, dtype=i32, device=dev),
@@ -734,8 +852,8 @@ def _domain_quota(
 
 class PackState(NamedTuple):
     """The scan's final state (packing.py:PackState): what the class-batched
-    scan returns beside its fills. ``res_rem`` is empty (no reservation
-    ledger in this port)."""
+    scan returns beside its fills. ``res_rem`` is empty there (that scan
+    takes no reservation ledger)."""
     exist_used: torch.Tensor  # [N, R] float32
     c_used: torch.Tensor  # [NMAX, R] float32
     c_npods: torch.Tensor  # [NMAX] int32
@@ -750,7 +868,7 @@ class PackState(NamedTuple):
     ch_cnt: torch.Tensor  # [NMAX, JH] int32
     nhc: torch.Tensor  # [N, JH] int32
     ddc: torch.Tensor  # [JD, V1] int32
-    res_rem: torch.Tensor  # [0] int32
+    res_rem: torch.Tensor  # [NRES] int32
     c_resv: torch.Tensor  # [NMAX] bool
     pool_rem: torch.Tensor  # [P, R] float32
     n_open: torch.Tensor  # [] int32
@@ -783,6 +901,7 @@ def pack_classed_reference(
     g_dmode, g_dkey, g_dskew, g_dmin0, g_dprior, g_dreg, g_drank, g_dtg,
     p_mask, n_dzone, n_dct, dd0,
     g_hcontrib, g_dcontrib, dtg_key,
+    p_mvmin, t_mvoh, res_cap0, a_res,
     class_start, class_len, class_dyn, class_dkey, inv_idx,
     *,
     nmax: int,
@@ -813,6 +932,11 @@ def pack_classed_reference(
     pins and the class's total fills. Outputs go through [C, lmax] member
     buffers and back to the group axis by ``inv_idx``.
 
+    minValues rides the same discipline: the per-claim headroom
+    ``mvcapv`` (``minvalues_cap`` at the head) drops by exactly each fill.
+    It takes no reservation ledger (NRES > 0 raises ValueError, as
+    pack_classed asserts): the driver routes such batches to ``pack``.
+
     Returns (PackState, exist_fills [G, N], claim_fills [G, NMAX],
     unplaced [G]), as pack_classed does."""
     dev = g_count.device
@@ -825,6 +949,9 @@ def pack_classed_reference(
     JD = dd0.shape[0]
     C = class_start.shape[0]
     NSLOT, ANY, DEAD = V1 + 2, V1, V1 + 1
+    MV = p_mvmin.shape[1]
+    if res_cap0.shape[0]:
+        raise ValueError("the class-batched scan takes no reservation ledger (NRES > 0)")
     a_tzc_f = a_tzc.to(f32)
 
     exist_used = n_base.clone()
@@ -911,6 +1038,11 @@ def pack_classed_reference(
             percapv = torch.where(
                 tm0[:, :, None] & toff_nt0, add_fit0[:, :, None], 0
             ).amax(1)  # [NMAX, V1]
+        # minValues headroom, maintained like capv: a uniform fill of k
+        # lowers every per-value fit by k, so the k-th largest drops by k
+        if MV:
+            mvcapv = _live_minvalues_cap(c_active & live & (capv >= 1), tm0, add_fit0,
+                                         p_mvmin[cp], t_mvoh, fill=0)
         af0 = add_fit0.clone()
         cfills = zero_c.clone()
         n_open0 = n_open
@@ -981,6 +1113,8 @@ def pack_classed_reference(
             def clamp(cap):
                 cap = torch.minimum(cap, hcap)
                 cap = torch.minimum(cap, count)
+                if MV:
+                    cap = torch.minimum(cap, mvcapv)
                 return torch.minimum(cap, h_allow(ch_cnt[:, jhc]))
 
             c_slot = torch.full((nmax,), ANY, dtype=i32, device=dev)
@@ -1060,6 +1194,8 @@ def pack_classed_reference(
             else:
                 c_mask = torch.where(got[:, None, None], merged_mask, c_mask)
                 capv = capv - claim_fill
+            if MV:
+                mvcapv = torch.clamp_min(mvcapv - claim_fill, 0)
             cfills = cfills + claim_fill
 
             # ---- 3. fresh claims ----
@@ -1078,10 +1214,15 @@ def pack_classed_reference(
                 if has_domains and not is_any:
                     avail = avail & toff_pt[:, :, d_sel]
                 feas_p = avail.any(-1)
+                if MV:
+                    mv_cap_p = minvalues_cap(avail, n_fit_row, p_mvmin, t_mvoh)  # [P]
+                    feas_p = feas_p & (mv_cap_p >= 1)
                 any_feasible = bool(feas_p.any())
                 p_star = int(torch.argmax(feas_p.to(i32)))
                 n_fit_max = torch.where(avail[p_star], n_fit_row[p_star], 0).amax()
                 n_per = torch.minimum(n_fit_max, hcap)
+                if MV:
+                    n_per = torch.minimum(n_per, mv_cap_p[p_star])
                 n_per = torch.minimum(n_per, scap_h if counted else bigi)
                 debit = torch.where(
                     avail[p_star][:, None], t_cap, torch.zeros_like(t_cap)
@@ -1148,6 +1289,8 @@ def pack_classed_reference(
                         if d_pin >= 0:
                             prow = prow * (torch.arange(V1, device=dev) == d_pin).to(i32)[None, :]
                         percapv[sl] = prow
+                    if MV:
+                        mvcapv[sl] = mv_cap_p[p_star] - tk
                     af0[sl] = n_fit_row[p_star][None, :] - tk[:, None]
                     cfills[sl] = 0
                     live[sl] = True
@@ -1198,7 +1341,7 @@ def pack_classed_reference(
         exist_used=exist_used, c_used=c_used, c_npods=c_npods, c_active=c_active,
         c_pool=c_pool, c_tmask=c_tmask, c_def=c_def, c_neg=c_neg, c_mask=c_mask,
         c_dzone=c_dzone, c_dct=c_dct, ch_cnt=ch_cnt, nhc=nhc, ddc=ddc,
-        res_rem=torch.zeros((0,), dtype=i32, device=dev),
+        res_rem=res_cap0.to(i32).clone(),
         c_resv=torch.zeros((nmax,), dtype=b, device=dev), pool_rem=pool_rem,
         n_open=torch.tensor(n_open, dtype=i32, device=dev),
         overflow=torch.tensor(overflow, dtype=b, device=dev),
@@ -1266,7 +1409,11 @@ def pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int,
 
 # the number of the scan's positional inputs (pack_reference's order,
 # which is also the kernels' C order); B5 takes the class arrays after them
-_SCAN_INPUTS = 41
+_SCAN_INPUTS = 45
+# the kernels' compile-time bound on the minValues value axis (t_mvoh's W,
+# csrc/pack_common.cuh:kMaxMvW): one int32 per value per warp in shared
+# memory. A wider catalog raises before any launch.
+MV_MAX_W = 1024
 
 
 def _check_scan_inputs(args):
@@ -1278,12 +1425,15 @@ def _check_scan_inputs(args):
      g_hself, compat_pg, type_ok_pgt, n_fit_pgt, cap_ng, t_alloc, t_cap, a_tzc,
      p_daemon, p_limit, p_has_limit, p_tol, n_avail, n_base, n_hcnt, nh_cnt0,
      well_known, g_dmode, g_dkey, g_dskew, g_dmin0, g_dprior, g_dreg, g_drank,
-     g_dtg, p_mask, n_dzone, n_dct, dd0, g_hcontrib, g_dcontrib, dtg_key) = args
+     g_dtg, p_mask, n_dzone, n_dct, dd0, g_hcontrib, g_dcontrib, dtg_key,
+     p_mvmin, t_mvoh, res_cap0, a_res) = args
     G, K, V1 = g_mask.shape
     P, T = type_ok_pgt.shape[0], type_ok_pgt.shape[2]
     N, R = n_avail.shape
     JH = nh_cnt0.shape[-1]
     JD = dd0.shape[-2]
+    MV, MW = t_mvoh.shape[1:] if t_mvoh.dim() == 3 else (0, 0)
+    NRES = res_cap0.shape[0]
     # scenario batch: g_count [S, G]; the plain solve is one scenario
     # without the axis
     lead = tuple(g_count.shape[:-1])
@@ -1297,6 +1447,10 @@ def _check_scan_inputs(args):
     if JH < 1 or JD < 1 or R > 32:
         raise ValueError(
             f"the scan kernels need JH >= 1, JD >= 1 and R <= 32 (JH={JH}, JD={JD}, R={R})")
+    if MV and MW > MV_MAX_W:
+        raise ValueError(
+            f"the scan kernels take at most {MV_MAX_W} minValues catalog values per key "
+            f"(t_mvoh has W={MW})")
     dev = g_mask.device
     b, i32, f32 = torch.bool, torch.int32, torch.float32
     for t, name, dt, shape in (
@@ -1326,9 +1480,12 @@ def _check_scan_inputs(args):
         (dd0, "dd0", i32, leads["dd0"] + (JD, V1)),
         (g_hcontrib, "g_hcontrib", b, (G, JH)), (g_dcontrib, "g_dcontrib", b, (G, JD)),
         (dtg_key, "dtg_key", i32, (JD,)),
+        (p_mvmin, "p_mvmin", i32, (P, MV)), (t_mvoh, "t_mvoh", b, (T, MV, MW)),
+        (res_cap0, "res_cap0", i32, (NRES,)), (a_res, "a_res", b, (NRES, T, V1, V1)),
     ):
         _build.check(t, name, dt, shape, dev)
-    dims = dict(G=G, T=T, P=P, N=N, R=R, K=K, V1=V1, JH=JH, JD=JD)
+    dims = dict(G=G, T=T, P=P, N=N, R=R, K=K, V1=V1, JH=JH, JD=JD, MV=MV, MW=MW,
+                NRES=NRES)
     strides = (
         G if lead else 0, N * G if lead else 0,
         N * G if leads["n_hcnt"] else 0, N * JH if leads["nh_cnt0"] else 0,
@@ -1340,8 +1497,10 @@ def _check_scan_inputs(args):
 def _scan_buffers(dims, S, nmax, has_domains, dev, lead=()):
     """The scan's PackState and per-step scratch, one slice per scenario
     (the kernels initialize all of it; the domain scratch is empty
-    without domains), and its 10 outputs with ``lead``."""
+    without domains), the word tables every scenario shares, and its 10
+    outputs with ``lead``."""
     G, T, P, N, R, K, V1, JH, JD = (dims[k] for k in "G T P N R K V1 JH JD".split())
+    MV, MW, NRES = dims["MV"], dims["MW"], dims["NRES"]
     W = (V1 + 31) // 32
     b, i32, f32 = torch.bool, torch.int32, torch.float32
 
@@ -1359,13 +1518,23 @@ def _scan_buffers(dims, S, nmax, has_domains, dev, lead=()):
         # capacity, claim domain slot, the ddc carry
         ((dom(T), V1, W), i32), ((dom(P), T, V1), b),
         ((dom(nmax), V1), i32), ((dom(nmax),), i32), ((JD, V1), i32),
+        # the reservation ledger res_rem; per-claim minValues caps
+        ((NRES,), i32), ((nmax if MV else 0,), i32),
+    ))
+    # shared word tables: each type's minValues values per key, each
+    # reservation's a_res[r, t, z, :] words, the held availability (a_tzc
+    # or any reservation) on both axes
+    res = NRES > 0
+    words = tuple(empty(shape, i32) for shape in (
+        (T, MV, (MW + 31) // 32), (NRES, T, V1, W),
+        (T if res else 0, V1, W), (T if res and has_domains else 0, V1, W),
     ))
     outs = tuple(empty(lead + shape, dt) for shape, dt in (
         ((nmax,), i32), ((nmax, T), b), ((), i32), ((), b),
         ((G, N), i32), ((G, nmax), i32), ((G,), i32),
         ((nmax,), i32), ((nmax,), i32), ((nmax,), b),
     ))
-    return state, outs
+    return state, words, outs
 
 
 def _launch_pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool,
@@ -1375,25 +1544,29 @@ def _launch_pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool
     dims, S, strides = _check_scan_inputs(args)
     dev = args[0].device
     dyn = bool(has_domains)
-    state, outs = _scan_buffers(dims, S, nmax, dyn, dev, lead=tuple(args[0].shape[:-1]))
+    state, words, outs = _scan_buffers(dims, S, nmax, dyn, dev,
+                                       lead=tuple(args[0].shape[:-1]))
     fn = _build.library("pack").kt_pack
     p = _build.ptr
     with torch.cuda.device(dev):
         rc = fn(
             *(ctypes.c_int(int(v)) for v in (
                 S, dims["G"], dims["T"], dims["P"], dims["N"], dims["R"], dims["K"],
-                dims["V1"], nmax, dims["JH"], dims["JD"], zone_kid, ct_kid,
-                wf_iters, int(dyn), int(bool(has_contrib)))),
+                dims["V1"], nmax, dims["JH"], dims["JD"], dims["MV"], dims["MW"],
+                dims["NRES"], zone_kid, ct_kid, wf_iters, int(dyn), int(bool(has_contrib)))),
             *(ctypes.c_longlong(v) for v in strides),
             *(p(x) for x in args),
             *(p(x) for x in state),
+            *(p(x) for x in words),
             *(p(x) for x in outs),
             _build.stream(),
         )
     # a domain batch runs the scan's domain machinery, a contributor batch
-    # its contributor counting: each counted on its own as well
+    # its contributor counting, minValues floors their caps, a reservation
+    # ledger the ledger: each counted on its own as well
     _build.launched("pack", rc, scenarios=S, variants=(
-        ("pack_domains",) * dyn + ("pack_contrib",) * bool(has_contrib)))
+        ("pack_domains",) * dyn + ("pack_contrib",) * bool(has_contrib)
+        + ("pack_minvalues",) * bool(dims["MV"]) + ("pack_resv",) * bool(dims["NRES"])))
     return outs
 
 
@@ -1405,6 +1578,8 @@ def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int
     dims, S, _ = _check_scan_inputs(scan)
     if S != 1 or scan[0].dim() != 1:
         raise ValueError("the class-batched scan takes no scenario axis")
+    if dims["NRES"]:
+        raise ValueError("the class-batched scan takes no reservation ledger (NRES > 0)")
     G, T, N, V1 = dims["G"], dims["T"], dims["N"], dims["V1"]
     dev = scan[0].device
     b, i32 = torch.bool, torch.int32
@@ -1417,7 +1592,7 @@ def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int
     ):
         _build.check(t, name, dt, shape, dev)
     dyn = bool(has_domains)
-    state, outs = _scan_buffers(dims, 1, nmax, dyn, dev)
+    state, words, outs = _scan_buffers(dims, 1, nmax, dyn, dev)
     state = tuple(x[0] for x in state)
     dom = (lambda n: n) if dyn else (lambda n: 0)
     # the class head tables and per-claim summaries: capv, percapv, af0,
@@ -1434,27 +1609,29 @@ def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int
         rc = fn(
             *(ctypes.c_int(int(v)) for v in (
                 G, T, dims["P"], N, dims["R"], dims["K"], V1, nmax, dims["JH"],
-                dims["JD"], C, zone_kid, ct_kid, wf_iters, int(dyn),
-                int(bool(has_contrib)))),
+                dims["JD"], dims["MV"], dims["MW"], C, zone_kid, ct_kid, wf_iters,
+                int(dyn), int(bool(has_contrib)))),
             *(p(x) for x in scan),
             # inv_idx is not passed: fills go straight to the group rows
             *(p(x) for x in classes[:4]),
             *(p(x) for x in state),
+            *(p(x) for x in words[:1]),
             *(p(x) for x in head),
             *(p(x) for x in outs),
             _build.stream(),
         )
-    _build.launched("pack_classed", rc)
+    _build.launched("pack_classed", rc, variants=(
+        ("pack_classed_minvalues",) * bool(dims["MV"])))
     (c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills, unplaced,
      c_dzone, c_dct, c_resv) = outs
     (exist_used, c_used, c_npods, c_def, c_neg, c_mask, ch_cnt, nhc, pool_rem,
-     *_scratch, ddc) = state
+     *_scratch, ddc, res_rem, _mvcap) = state
     pack_state = PackState(
         exist_used=exist_used, c_used=c_used, c_npods=c_npods,
         c_active=torch.arange(nmax, device=dev) < n_open, c_pool=c_pool,
         c_tmask=c_tmask, c_def=c_def, c_neg=c_neg, c_mask=c_mask,
         c_dzone=c_dzone, c_dct=c_dct, ch_cnt=ch_cnt, nhc=nhc, ddc=ddc,
-        res_rem=torch.zeros((0,), dtype=i32, device=dev), c_resv=c_resv,
+        res_rem=res_rem, c_resv=c_resv,
         pool_rem=pool_rem, n_open=n_open, overflow=overflow,
     )
     return pack_state, exist_fills, claim_fills, unplaced

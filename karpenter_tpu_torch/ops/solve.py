@@ -24,7 +24,9 @@ The class-batched variant (``solve_core_classed``, B5 in place of B4)
 runs the same dispatch over the driver's class partition: batches of many
 small groups sharing few feasibility classes.
 
-Not in this slice (raises NotImplementedError): the tiled mode.
+minValues floors and the reservation ledger ride the same dispatch
+(B4, and B5 for minValues). Not in this slice (raises
+NotImplementedError): the tiled mode.
 """
 
 from __future__ import annotations
@@ -117,7 +119,7 @@ def _scan_inputs(a, zone_kid, ct_kid, tile_feasibility, sparse_groups):
     """The scan's positional inputs from the named solve args ``a``: the
     scope check, then the feasibility tables (B1, and B2 when there are
     existing nodes; B3 in their place without ``sparse_groups``)."""
-    check_scope(tile_feasibility, a["res_cap0"].shape[0], a["p_mvmin"].shape[1])
+    check_scope(tile_feasibility)
     return pack_args(a, *_feasibility_tables(a, zone_kid, ct_kid, sparse_groups))
 
 
@@ -138,7 +140,8 @@ def solve_core_classed(
     args: class_start, class_len, class_dyn, class_dkey, inv_idx (the
     driver's class partition, staged per solve); ``lmax`` the member
     bucket. The same 10 outputs as ``solve_core``, decision for decision.
-    Like pack_classed, it takes no reservation ledger (NRES > 0 raises)."""
+    Like pack_classed, it takes no reservation ledger (NRES > 0 raises
+    ValueError; the driver routes such batches to ``solve_core``)."""
     n = len(SOLVE_ARG_NAMES)
     a = dict(zip(SOLVE_ARG_NAMES, args[:n]))
     classes = args[n:]
@@ -165,7 +168,8 @@ PACK_TAIL = ("t_alloc", "t_cap", "a_tzc", "p_daemon", "p_limit",
              "p_has_limit", "p_tol", "n_avail", "n_base", "n_hcnt", "nh_cnt0",
              "well_known", "g_dmode", "g_dkey", "g_dskew", "g_dmin0",
              "g_dprior", "g_dreg", "g_drank", "g_dtg", "p_mask", "n_dzone",
-             "n_dct", "dd0", "g_hcontrib", "g_dcontrib", "dtg_key")
+             "n_dct", "dd0", "g_hcontrib", "g_dcontrib", "dtg_key",
+             "p_mvmin", "t_mvoh", "res_cap0", "a_res")
 
 
 def pack_args(a, compat_pg, type_ok, n_fit, cap_ng):

@@ -39,9 +39,15 @@ a full exact re-dispatch (``relax_rejects``). The dispatch drains once;
 a routed solve adds the relax path's two readbacks (B3's head tables,
 then B9's outputs). ``SolverConfig(relax=False)`` turns the path off.
 
+NodePools with minValues floors and offerings with capacity reservations
+(the default reservation mode) ride the same kernels: the encoder's
+``p_mvmin``/``t_mvoh`` tables and ``_offering_availability``'s ledger
+(``res_cap0``, ``a_res``) go into the scan, whose ``c_resv`` decodes into
+each claim's ``reserved_offerings``. The strict reservation mode goes to
+the host oracle before anything is encoded, as the JAX package's does.
+
 Not in this slice, each raising NotImplementedError: the multi-GPU mesh
-(ROADMAP.md item A13), and the kernel statics outside the ported pack
-scope (reservations, minValues, tiled tables: item A4b).
+(ROADMAP.md item A13), and the tiled feasibility tables (item A4b).
 """
 
 from __future__ import annotations
@@ -587,9 +593,7 @@ class TorchSolver:
         )
         statics = self._kernel_statics(snap, G)
         # outside the ported pack scope: raise before anything launches
-        check_scope(
-            statics["tile_feasibility"], res_cap0.shape[0], snap.p_mvmin.shape[1],
-        )
+        check_scope(statics["tile_feasibility"])
         snap_run = snap.padded(G, N)
         args = list(snap_run.solve_args(a_tzc, res_cap0, a_res))
 
@@ -1243,9 +1247,7 @@ class TorchSolver:
         N = enc._next_pow2(len(snap.existing_names), floor=1) if snap.existing_names else 0
         statics = self._kernel_statics(snap, G)
         # outside the ported pack scope: raise before anything launches
-        check_scope(
-            statics["tile_feasibility"], res_cap0.shape[0], snap.p_mvmin.shape[1],
-        )
+        check_scope(statics["tile_feasibility"])
         snap_run = snap.padded(G, N)
         # device residency: the encoded cluster stays on the device between
         # solves (buffers keyed by the encode delta's class versions,

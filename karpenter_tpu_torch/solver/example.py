@@ -1,4 +1,4 @@
-# Copied from karpenter_tpu/solver/example.py, building TorchSolvers; example_state_nodes is new.
+# Copied from karpenter_tpu/solver/example.py, building TorchSolvers; example_state_nodes, minvalues_nodepool and reserved_catalog are new.
 """Self-contained example snapshot builders (no test fixtures needed).
 
 Used by chip_smoke.py and the port's parity tests.
@@ -145,3 +145,41 @@ def example_state_nodes(count: int, cpu_cores: int = 16, mem_gib: int = 64):
             sn.update_pod(pod, is_daemon=False)
         out.append(sn)
     return out
+
+
+def minvalues_nodepool(name: str = "default", min_values: int = 2) -> NodePool:
+    """A NodePool whose one requirement is instance-family Exists with a
+    minValues floor: every claim keeps at least ``min_values`` families
+    among its instance-type options."""
+    from ..api.objects import NodeClaimSpec, NodeClaimTemplate, NodeSelectorRequirement
+
+    return NodePool(metadata=ObjectMeta(name=name), spec=NodePoolSpec(
+        template=NodeClaimTemplate(spec=NodeClaimSpec(requirements=[
+            NodeSelectorRequirement(corpus.INSTANCE_FAMILY_LABEL, "Exists", (),
+                                    min_values=min_values)]))))
+
+
+def reserved_catalog(n_types: int, every: int = 25, capacity: int = 20,
+                     zones=("test-zone-a",)):
+    """corpus.generate(n_types) with one reserved offering (capacity type
+    reserved, price 0.001, reservation id ``res-<type>-<zone>``,
+    ``capacity``) in each of ``zones`` on every ``every``-th type: on-demand
+    capacity reservations, which a solver with
+    ``reserved_capacity_enabled`` carries as a reservation ledger."""
+    from ..api import labels as labels_mod
+    from ..api.requirements import Operator, Requirement, Requirements
+    from ..cloudprovider import types as cp
+
+    its = corpus.generate(n_types)
+    for it in its[every - 1::every]:
+        for zone in zones:
+            it.offerings.append(cp.Offering(
+                requirements=Requirements(
+                    Requirement(labels_mod.CAPACITY_TYPE_LABEL_KEY, Operator.IN,
+                                [labels_mod.CAPACITY_TYPE_RESERVED]),
+                    Requirement(labels_mod.TOPOLOGY_ZONE, Operator.IN, [zone]),
+                    Requirement(cp.RESERVATION_ID_LABEL, Operator.IN, [f"res-{it.name}-{zone}"]),
+                ),
+                price=0.001, available=True, reservation_capacity=capacity,
+            ))
+    return its

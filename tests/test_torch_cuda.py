@@ -74,6 +74,14 @@ def cuda():
     return torch.device("cuda")
 
 
+def slots(results):
+    """The claims in slot order (sorted pod names, options in their own
+    order): decode mints claim identities from it."""
+    return [(tuple(sorted(p.metadata.name for p in c.pods)),
+             tuple(it.name for it in c.instance_type_options))
+            for c in results.new_node_claims]
+
+
 def _pods(n, cpu_m, app=None, anti=False, spread=False, co=False):
     terms = {}
     sel = LabelSelector(match_labels={"app": app}) if app else None
@@ -227,9 +235,7 @@ def test_solver_decisions_match_cpu(cuda):
                              config=SolverConfig(device=device))
         r = solver.solve(pods)
         return (
-            sorted((tuple(sorted(p.metadata.name for p in c.pods)),
-                    tuple(it.name for it in c.instance_type_options))
-                   for c in r.new_node_claims),
+            slots(r),
             sorted((en.name, tuple(sorted(p.metadata.name for p in en.pods)))
                    for en in r.existing_nodes),
             len(r.pod_errors),
@@ -556,9 +562,9 @@ def test_warm_churn_on_the_card(cuda):
         s = TorchSolver(pools, its, topo, config=SolverConfig(device=device),
                         encode_cache=cache)
         r = s.solve(pods)
-        sig = sorted((tuple(sorted(p.uid for p in c.pods)),
-                      tuple(it.name for it in c.instance_type_options))
-                     for c in r.new_node_claims)
+        sig = [(tuple(sorted(p.uid for p in c.pods)),
+                 tuple(it.name for it in c.instance_type_options))
+                for c in r.new_node_claims]
         return sig, s
 
     caches = {d: EncodeCache() for d in ("cuda", "cpu")}
@@ -582,17 +588,16 @@ def test_warm_churn_on_the_card(cuda):
 # -- B5, the class-batched scan, and B4's contributor counting --------------------
 
 
-def _classed_snapshot(pods, n_types=30, n_nodes=0, nmax=None):
-    """The padded solve args (G to the next power of two, as the driver
-    pads them: padding classes), statics and class partition of ``pods``
-    over ``n_nodes`` zoned state nodes, encoded by the port."""
-    pools = [example_nodepool()]
-    its = {pools[0].name: corpus.generate(n_types)}
+def _scan_snapshot(pods, pools, its, n_nodes=0, nmax=None, **solver_kw):
+    """The padded solve args, statics and class partition of ``pods`` over
+    ``pools`` and the catalog ``its``, encoded by the port."""
+    its = {p.name: list(its) for p in pools}
     nodes = example_state_nodes(n_nodes)
     topo = Topology(Client(TestClock()), nodes, pools, its, pods)
     solver = TorchSolver(pools, its, topo, state_nodes=nodes,
-                         config=SolverConfig(device="cpu"))
-    groups, rest = enc.partition_and_group(pods, topology=topo)
+                         config=SolverConfig(device="cpu"), **solver_kw)
+    groups, rest = enc.partition_and_group(
+        pods, topology=topo, merge_bootstrap_affinity=not solver.oracle.reserved_capacity_enabled)
     assert not rest
     snap, avail, *_ = solver._encode_batch(groups)
     G = enc._next_pow2(len(snap.groups), floor=8)
@@ -601,6 +606,13 @@ def _classed_snapshot(pods, n_types=30, n_nodes=0, nmax=None):
     statics = solver._kernel_statics(snap, G)
     statics["nmax"] = nmax or solver._estimate_nmax(snap, solver._fit_matrix(snap))
     return run.solve_args(*avail), statics, enc.class_partition(run)
+
+
+def _classed_snapshot(pods, n_types=30, n_nodes=0, nmax=None):
+    """The padded solve args (G to the next power of two, as the driver
+    pads them: padding classes), statics and class partition of ``pods``
+    over ``n_nodes`` zoned state nodes, encoded by the port."""
+    return _scan_snapshot(pods, [example_nodepool()], corpus.generate(n_types), n_nodes, nmax)
 
 
 def _classed_equal_plain(args, statics, classes, cuda):
@@ -725,9 +737,7 @@ def test_diverse_solve_matches_cpu(cuda):
         topo = Topology(Client(TestClock()), [], pools, its, pods)
         s = TorchSolver(pools, its, topo, config=SolverConfig(device=device))
         r = s.solve(pods)
-        return (sorted((tuple(sorted(p.metadata.name for p in c.pods)),
-                        tuple(it.name for it in c.instance_type_options))
-                       for c in r.new_node_claims), sorted(r.pod_errors))
+        return slots(r), sorted(r.pod_errors)
 
     _build.reset_launches()
     got = solve("cuda")
@@ -881,3 +891,138 @@ def test_relax_solve_matches_cpu(cuda):
     assert _build.launches["dense_fresh"] == 1 and _build.launches["relax_fill"] == 1
     assert got == solve("cpu")
     assert got[2][0] == 800 and got[2][3] == 0
+
+
+# -- minValues floors and the reservation ledger (B4, B5, B7) --------------------
+
+
+def _mv_pools():
+    from karpenter_tpu_torch.solver.example import minvalues_nodepool
+
+    return [minvalues_nodepool()]
+
+
+_MV_CASES = {
+    "mixed": lambda: (mixed_pods(1500, gpu_fraction=0.0), 30, 0),
+    "cap-binds": lambda: (_pods(200, 250), 20, 0),
+    "constrained": lambda: (constrained_mix(1000), 30, 0),
+    "constrained-nodes": lambda: (constrained_mix(600), 30, 9),
+    "nodes": lambda: (mixed_pods(800, gpu_fraction=0.0), 30, 12),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MV_CASES))
+def test_pack_minvalues(cuda, case):
+    """B4 with minValues floors (instance-family Exists, minValues 2)
+    against pack_reference, one block; counted as a minValues pack."""
+    from karpenter_tpu_torch import _build
+
+    pods, n_types, n_nodes = _MV_CASES[case]()
+    args, statics, _ = _scan_snapshot(pods, _mv_pools(), corpus.generate(n_types), n_nodes)
+    assert np.asarray(args[enc.SOLVE_ARG_NAMES.index("p_mvmin")]).any()
+    _build.reset_launches()
+    out = _kernels_equal_plain(args, statics, cuda)
+    assert _build.launches["pack_minvalues"] == 1 and _build.launches["pack_resv"] == 0
+    assert int(out[2]) > 0
+
+
+def _reserved(n_types, every, capacity, zones=("test-zone-a",)):
+    from karpenter_tpu_torch.solver.example import reserved_catalog
+
+    return reserved_catalog(n_types, every=every, capacity=capacity, zones=zones)
+
+
+_RESV_CASES = {
+    # one reservation of capacity 1: the first bulk drains it
+    "drain": lambda: (_pods(8, 1000), [example_nodepool()], _reserved(4, 4, 1), 0),
+    "mixed": lambda: (mixed_pods(1500, gpu_fraction=0.0), [example_nodepool()],
+                      _reserved(40, 5, 3), 0),
+    "pinned": lambda: (constrained_mix(1000), [example_nodepool()],
+                       _reserved(30, 4, 2, ("test-zone-a", "test-zone-c")), 0),
+    "nodes": lambda: (mixed_pods(800, gpu_fraction=0.0), [example_nodepool()],
+                      _reserved(30, 3, 4), 12),
+    "with-minvalues": lambda: (mixed_pods(800, gpu_fraction=0.0), _mv_pools(),
+                               _reserved(30, 4, 2), 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_RESV_CASES))
+def test_pack_reservations(cuda, case):
+    """B4 with a reservation ledger against pack_reference, one block:
+    c_resv among the outputs; counted as a ledger pack."""
+    from karpenter_tpu_torch import _build
+
+    pods, pools, its, n_nodes = _RESV_CASES[case]()
+    args, statics, _ = _scan_snapshot(pods, pools, its, n_nodes, reserved_capacity_enabled=True)
+    assert np.asarray(args[enc.SOLVE_ARG_NAMES.index("res_cap0")]).shape[0] > 0
+    _build.reset_launches()
+    out = _kernels_equal_plain(args, statics, cuda)
+    assert _build.launches["pack_resv"] == 1
+    assert _build.launches["pack_minvalues"] == (case == "with-minvalues")
+    assert out[9].any()
+
+
+@pytest.mark.parametrize("case", ["minvalues", "reservations"])
+def test_scenario_grid_minvalues_reservations(cuda, case):
+    """The scenario grid (B7) over minValues floors and over a reservation
+    ledger: every scenario replays res_cap0 from the start."""
+    if case == "minvalues":
+        args, statics, _ = _scan_snapshot(mixed_pods(800, gpu_fraction=0.0), _mv_pools(),
+                                          corpus.generate(30), 9)
+    else:
+        args, statics, _ = _scan_snapshot(mixed_pods(800, gpu_fraction=0.0),
+                                          [example_nodepool()], _reserved(30, 3, 3), 9,
+                                          reserved_capacity_enabled=True)
+    out = _scenarios_equal_plain(_scenario_args(args, 8, 6, seed=11), statics, cuda)
+    assert int(out[2].max()) > 0
+
+
+_CLASSED_MV_CASES = {
+    "diverse": lambda: (_diverse(300), 30, 0, None),
+    "diverse-nodes": lambda: (_diverse(200), 30, 6, None),
+    "diverse-overflow": lambda: (_diverse(200), 30, 0, 8),
+    "mixed-domain-free": lambda: (mixed_pods(600, gpu_fraction=0.0), 30, 0, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CLASSED_MV_CASES))
+def test_classed_minvalues(cuda, case):
+    """B5 with minValues floors against pack_classed_reference: every
+    PackState field, the fills, the wire-packed solve; counted as a
+    minValues class-batched scan."""
+    from karpenter_tpu_torch import _build
+
+    pods, n_types, n_nodes, nmax = _CLASSED_MV_CASES[case]()
+    args, statics, classes = _scan_snapshot(pods, _mv_pools(), corpus.generate(n_types),
+                                            n_nodes, nmax=nmax)
+    _classed_equal_plain(args, statics, classes, cuda)
+    assert _build.launches["pack_classed_minvalues"] == 2
+
+
+def test_minvalues_and_reservations_solve_match_cpu(cuda):
+    """TorchSolver on the card against the CPU: mixed 3,000 x 60 over the
+    minValues pool, then over a reservation catalog (default mode): the
+    claims in slot order and the reservations each claim holds."""
+    from karpenter_tpu_torch import _build
+
+    def solve(device, pools, its, **kw):
+        its = {p.name: list(its) for p in pools}
+        pods = mixed_pods(3000, gpu_fraction=0.0)
+        topo = Topology(Client(TestClock()), [], pools, its, pods)
+        s = TorchSolver(pools, its, topo, config=SolverConfig(device=device), **kw)
+        r = s.solve(pods)
+        return (slots(r), sorted(r.pod_errors),
+                [sorted(o.reservation_id() for o in c.reserved_offerings)
+                 for c in r.new_node_claims])
+
+    _build.reset_launches()
+    got = solve("cuda", _mv_pools(), corpus.generate(60))
+    assert _build.launches["pack_minvalues"] >= 1
+    assert got == solve("cpu", _mv_pools(), corpus.generate(60)) and got[0]
+    its = _reserved(60, 5, 10)
+    _build.reset_launches()
+    got = solve("cuda", [example_nodepool()], its, reserved_capacity_enabled=True)
+    assert _build.launches["pack_resv"] >= 1
+    assert got == solve("cpu", [example_nodepool()], _reserved(60, 5, 10),
+                        reserved_capacity_enabled=True)
+    assert any(got[2])

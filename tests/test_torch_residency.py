@@ -77,18 +77,19 @@ def port_state_node(sn):
 
 
 def signature(results):
-    """Decisions by pod uid: claims (pool, pods, options, requirements),
-    existing-node placements, pod errors."""
+    """Decisions by pod uid: claims (pool, pods, options, requirements) in
+    slot order, each claim's options in their own order; existing-node
+    placements, pod errors."""
     return (
-        sorted(
+        [
             (
                 c.template.node_pool_name,
                 tuple(sorted(p.uid for p in c.pods)),
-                tuple(sorted(it.name for it in c.instance_type_options)),
+                tuple(it.name for it in c.instance_type_options),
                 repr(sorted(map(repr, c.requirements))),
             )
             for c in results.new_node_claims
-        ),
+        ],
         sorted(
             (en.name, tuple(sorted(p.uid for p in en.pods)))
             for en in results.existing_nodes

@@ -14,8 +14,8 @@ name (the two packages mint uids from separate counters):
 (c) Multi- and SingleNodeConsolidation decide as the JAX methods do at
     BASELINE config[3]'s shape cut to 200 nodes, in as many probes and
     dispatches, with no sequential fallback;
-(d) a zonal-spread scenario batch decides as JAX's does; one outside the
-    ported kernel scope raises, naming its ROADMAP item.
+(d) a zonal-spread scenario batch decides as JAX's does, over the
+    default pool and over a minValues pool.
 """
 
 import importlib
@@ -142,13 +142,14 @@ def _simulator(pkg, ctx, candidates):
 
 
 def _results_by_name(results, pkg, ctx):
-    """A scenario's Results by name: claims (pool, pods, options), the
-    pods each existing node took, pod errors (``ctx`` None: their count)."""
-    claims = sorted(
+    """A scenario's Results by name: claims (pool, pods, options) in slot
+    order, the pods each existing node took, pod errors (``ctx`` None:
+    their count)."""
+    claims = [
         (c.template.node_pool_name, tuple(sorted(p.metadata.name for p in c.pods)),
          tuple(it.name for it in c.instance_type_options))
         for c in results.new_node_claims
-    )
+    ]
     existing = sorted(
         (en.name, tuple(sorted(p.metadata.name for p in en.pods)))
         for en in results.existing_nodes if en.pods
@@ -491,22 +492,17 @@ def test_sequential_path_equals_batched():
 
 def test_domain_scenario_batch_raises():
     """A zonal-spread workload (has_domains) is ported: the scenario batch
-    decides as TpuSolver's does, scenario by scenario. Over a minValues
-    pool (ROADMAP item A4b) it raises before anything launches, never
-    declines."""
+    decides as TpuSolver's does, scenario by scenario. So is the same
+    batch over a minValues pool (ROADMAP item A4b's first part): it rides
+    the batch, never declines, and decides as JAX's does."""
     from test_torch_solver import _build
 
-    got = {}
-    for pkg in PKGS:
-        Scenario = _mod(pkg, "solver.driver").Scenario
-        solver, pods = _build(pkg, "constrained_mix", 200, 20)
-        results = solver.solve_scenarios([Scenario(pods=pods), Scenario(pods=pods[:50])])
-        assert results is not None and solver.fallback_solves == 0
-        got[pkg] = [_results_by_name(r, pkg, None) for r in results]
-    assert got["karpenter_tpu_torch"] == got["karpenter_tpu"]
-    Scenario = _mod("karpenter_tpu_torch", "solver.driver").Scenario
-    solver, pods = _build("karpenter_tpu_torch", "constrained_mix", 200, 20,
-                          pools="minvalues")
-    with pytest.raises(NotImplementedError, match="minValues.*A4b"):
-        solver.solve_scenarios([Scenario(pods=pods), Scenario(pods=pods[:50])])
-    assert solver.fallback_solves == 0
+    for pools in ("default", "minvalues"):
+        got = {}
+        for pkg in PKGS:
+            Scenario = _mod(pkg, "solver.driver").Scenario
+            solver, pods = _build(pkg, "constrained_mix", 200, 20, pools=pools)
+            results = solver.solve_scenarios([Scenario(pods=pods), Scenario(pods=pods[:50])])
+            assert results is not None and solver.fallback_solves == 0
+            got[pkg] = [_results_by_name(r, pkg, None) for r in results]
+        assert got["karpenter_tpu_torch"] == got["karpenter_tpu"], pools

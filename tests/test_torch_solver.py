@@ -4,9 +4,9 @@ Both packages build the same pods, pools and nodes from their own object
 models, and both solve; decisions are compared by pod NAME (the two
 packages mint pod uids from separate counters, api/objects.py:23):
 claims (pool, pods, instance-type options, requirements), existing-node
-placements and pod errors must be identical. Also pinned here: the port's
-encoder is byte-identical to the JAX one, and the options this slice does
-not port raise NotImplementedError.
+placements and pod errors must be identical, claims in slot order. Also
+pinned here: the port's encoder is byte-identical to the JAX one, and the
+options the port does not cover raise NotImplementedError.
 """
 
 import importlib
@@ -72,7 +72,7 @@ def _build(pkg, workload, n_pods, n_types, pools="default", n_nodes=0):
     if pools == "spot":
         node_pools = wl.spot_od_pools()
     elif pools == "minvalues":
-        # a pool with a minValues floor (MV > 0): outside the ported scope
+        # a pool with a minValues floor (MV > 0)
         objs = _mod(pkg, "api.objects")
         node_pools = [objs.NodePool(
             metadata=objs.ObjectMeta(name="default"),
@@ -95,8 +95,11 @@ def _build(pkg, workload, n_pods, n_types, pools="default", n_nodes=0):
 
 
 def decisions(results, pods):
+    """Claims in slot order (decode mints claim identities from it), each
+    with its instance-type options in their own order; existing-node
+    placements and pod errors by name."""
     name = {p.uid: p.metadata.name for p in pods}
-    claims = sorted(
+    claims = [
         (
             c.template.node_pool_name,
             tuple(sorted(p.metadata.name for p in c.pods)),
@@ -104,7 +107,7 @@ def decisions(results, pods):
             repr(sorted(map(repr, c.requirements))),
         )
         for c in results.new_node_claims
-    )
+    ]
     existing = sorted(
         (en.name, tuple(sorted(p.metadata.name for p in en.pods)))
         for en in results.existing_nodes
@@ -150,15 +153,15 @@ class TestDecisionParity:
 
     def test_domain_batch_raises(self):
         """constrained_mix carries zonal spread (has_domains): ported, its
-        decisions equal TpuSolver's. Over a minValues pool the same batch
-        still raises before anything runs, naming ROADMAP item A4b."""
+        decisions equal TpuSolver's. Over a minValues pool (ported too:
+        domains and minValues floors in one scan) the same batch decides
+        as TpuSolver's does, claims in slot order."""
         jd, td = _solve_both("constrained_mix", 200, 20)
         assert td == jd
         assert jd[0] and not jd[2]
-        solver, pods = _build("karpenter_tpu_torch", "constrained_mix", 200, 20,
-                              pools="minvalues")
-        with pytest.raises(NotImplementedError, match="minValues.*A4b"):
-            solver.solve(pods)
+        jd, td = _solve_both("constrained_mix", 200, 20, pools="minvalues")
+        assert td == jd
+        assert jd[0]
 
 
 class TestEncodeParity:
@@ -223,15 +226,18 @@ class TestConfig:
             SolverConfig(device="cpu", **kw)
 
     def test_scenarios_raise(self):
-        """The scenario axis is ported (tests/test_torch_scenarios.py); a
-        batch outside the kernel scope (a minValues pool) still raises."""
-        from karpenter_tpu_torch.solver.driver import Scenario
-
-        solver, pods = _build("karpenter_tpu_torch", "constrained_mix", 60, 20,
-                              pools="minvalues")
-        assert solver.solve_scenarios([]) == []
-        with pytest.raises(NotImplementedError, match="A4b"):
-            solver.solve_scenarios([Scenario(pods=pods)])
+        """The scenario axis is ported (tests/test_torch_scenarios.py), and
+        so are minValues floors: over a minValues pool the scenario batch
+        decides as TpuSolver's does, scenario by scenario."""
+        got = []
+        for pkg in PKGS:
+            Scenario = _mod(pkg, "solver.driver").Scenario
+            solver, pods = _build(pkg, "constrained_mix", 60, 20, pools="minvalues")
+            assert solver.solve_scenarios([]) == []
+            results = solver.solve_scenarios([Scenario(pods=pods), Scenario(pods=pods[:20])])
+            assert results is not None and solver.fallback_solves == 0
+            got.append([decisions(r, pods) for r in results])
+        assert got[0] == got[1] and got[1][0][0]
 
     def test_to_device_args_keeps_dtypes(self):
         from karpenter_tpu_torch.solver.args import to_device_args
