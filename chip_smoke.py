@@ -87,7 +87,7 @@ no result:
    the relax-off solve. Phases 3, 5 and 6 report ``relax_pods`` (0: the
    planner routes nothing there, as in the JAX package).
 
-8. the A4b loop: NodePools with minValues floors and offerings with
+8. the floors-and-ledger loop: NodePools with minValues floors and offerings with
    capacity reservations, every solve counted, each cell's cold solve
    equal to the device="cpu" solve in slot order (and in the reservations
    each claim holds), no relax routing, no sequential fallback, cold p50
@@ -104,7 +104,30 @@ no result:
    classed=True (B5 with floors), then once on the auto route (B4 with
    contributors and floors); (e) MultiNodeConsolidation at 2,000 nodes
    with the env's NodePool carrying the same floor (B7 with floors), its
-   command equal to the device="cpu" run's.
+   command equal to the device="cpu" run's. The diverse cells' comparisons
+   with device="cpu" run at 1,000 pods (a card solve and a CPU solve of
+   diverse_reference_mix(1,000)); their counted and timed card solves at
+   5,000.
+
+9. the tenant cell (the tiled mode, ROADMAP item A4b): 64 NodePools
+   tenant-00..63, each tainted tenant=tNN:NoSchedule and capped at 4,000
+   CPUs, over corpus.generate(800), and 6,000 Deployments
+   (example.tenant_pods: VPA-sized requests, 1-16 replicas, round-robin
+   over the tenants; 50,816 pods, 6,000 groups, G 8192): the tables would
+   take P * G * T * 5 = 2,097,152,000 B, past the 1,610,612,736 B gate,
+   so the driver picks the tiled mode by itself. (a) a cold solve,
+   counted: B4 tiled and no B1/B2/B3 launch, relax_pods 0, no fallback;
+   cold p50 over 3 fresh EncodeCaches when a solve passes 10 s (else 5)
+   and one traced solve's span split; (b) the same device args through
+   dispatch_packed tiled and untiled (B1 and the untiled B4): the ten
+   outputs identical, the scans timed alone (the row build by
+   difference), and the solve's Results equal to a solve forced untiled,
+   claims in slot order; (c) two churn ticks that swap 60 Deployments,
+   each on row deltas through B8 and equal to a same-vocab re-encode,
+   then a REUSE repeat; (d) the classed route forced (B5 tiled) deciding
+   as B4; (e) TorchSolver.solve_scenarios over the cell and the cell less
+   the first tick's removed Deployments (B7's grid tiled), each scenario
+   equal to a solve of its pods, claims in slot order.
 
 Phase 2 also holds B5 against pack_classed_reference (every output and
 the final state) and B4 with contributor counting (the same batch with
@@ -112,15 +135,21 @@ the classed route off) against pack_reference, on the diverse batch; B3's
 fresh entry on the mixed 50k snapshot against its plain version and B1's
 tables, its existing entry on B2's 32-node snapshot against its plain
 version and B2's table, B9 on the bulk inputs of the identical 50k
-batch against its plain version, and the A4b variants at phase 8's
+batch against its plain version, and the floors-and-ledger variants at phase 8's
 cells: B4 with floors (minvalues-50k), B4 with the ledger (reserved-50k),
 B5 with floors (diverse-minvalues) and B7 with floors (the consolidation
-chunk over the minValues pool).
+chunk over the minValues pool); and the tiled mode forced at the ops
+level (tiled_rows): B4 tiled on B2's snapshot, constrained 50k x 800,
+reserved-50k and the tenant shape at 600 Deployments, B5 tiled on
+diverse-ref and diverse-minvalues, B7's grid tiled on the consolidation
+chunk, each equal to the untiled kernel and to its plain tiled version
+on the card.
 
 Then one JSON line of per-kernel numbers (B1, B2, B3 fresh and existing,
 B4, B4 over domains, B4 with contributor counting, B4 with minValues
 floors, B4 with the reservation ledger, B5, B5 with floors, B6, B7, B7
-with floors, B8, B9), the nvidia-smi line, and the last line
+with floors, B8, B9, and B4, B5 and B7 in the tiled mode), the
+nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -149,11 +178,25 @@ CONS_NODES, CONS_SCENARIOS = 2_000, 16  # BASELINE config[3]; one sweep chunk
 CONFIG0_PODS, CONFIG0_TYPES, CONFIG0_CLAIMS = 500, 10, 34
 N_IDENT, IDENT_CLAIMS = 50_000, 532
 N_ZONAL, N_SOLO, ZONAL_ROUTED, ZONAL_BULK_CLAIMS = 48_000, 400, 32_000, 339
-# phase 8, the A4b loop: reserved-50k's catalog carries one reserved
+# phase 8, the floors-and-ledger loop: reserved-50k's catalog carries one reserved
 # offering (test-zone-a, capacity 20) on every 25th of its 400 types:
 # 16 reservations, at most 320 claims holding one
 RESV_EVERY, RESV_CAP = 25, 20
 RESV_MAX_CLAIMS = N_TYPES // RESV_EVERY * RESV_CAP
+# phase 8 holds its diverse-minvalues solves against device="cpu" at this
+# depth (the card's counted and timed solves stay at N_DIVERSE)
+N_DIVERSE_CPU = 1_000
+# phase 9, the tenant cell: 64 tainted NodePools capped at 4,000 CPUs
+# each (one per tenant team) over 800 types, 6,000 VPA-sized Deployments
+# (50,816 pods, 6,000 groups: G 8192) whose tables would take
+# P * G * T * 5 = 2,097,152,000 B, past the driver's 1,610,612,736 B gate;
+# each churn tick swaps 60 Deployments
+N_TENANTS, N_DEPLOY, TENANT_PODS, TENANT_TYPES = 64, 6_000, 50_816, 800
+TENANT_BYTES, TILE_GATE = 2_097_152_000, 3 << 29
+TENANT_SWAP, TENANT_TICKS, TENANT_TICK_SEED = 60, 2, 7
+# phase 2's plain comparison of B4 tiled at the tenant shape (P x T =
+# 64 x 800), cut in depth: the plain scan runs a step in tens of ms
+N_DEPLOY_PLAIN = 600
 REPLACES = {
     "fresh_feasibility": "karpenter_tpu/ops/feasibility.py:141",
     "existing_feasibility": "karpenter_tpu/ops/feasibility.py:264",
@@ -171,6 +214,9 @@ REPLACES = {
     "pack_resv": "karpenter_tpu/ops/packing.py:485",
     "pack_classed_minvalues": "karpenter_tpu/ops/packing.py:1531",
     "scenarios_minvalues": "karpenter_tpu/ops/solve.py:357",
+    "pack_tiled": "karpenter_tpu/ops/packing.py:382",
+    "pack_classed_tiled": "karpenter_tpu/ops/packing.py:1347",
+    "scenarios_tiled": "karpenter_tpu/ops/solve.py:357",
 }
 # the source of each kernel row (B4 with domains and with contributor
 # counting are pack.cu's domain and contributor paths; B3's two entries
@@ -178,7 +224,8 @@ REPLACES = {
 SOURCES = {"pack_domains": "pack", "pack_contrib": "pack", "solve_scenarios": "pack",
            "dense_fresh": "dense_feasibility", "dense_existing": "dense_feasibility",
            "pack_minvalues": "pack", "pack_resv": "pack", "scenarios_minvalues": "pack",
-           "pack_classed_minvalues": "pack_classed"}
+           "pack_classed_minvalues": "pack_classed", "pack_tiled": "pack",
+           "pack_classed_tiled": "pack_classed", "scenarios_tiled": "pack"}
 # the one PyTorch call that computes a kernel's function, timed beside it
 LIBRARY = {"apply_rows": "Tensor.index_copy"}
 # B7 is the scenario-batched dispatch of these kernels; pack.cu holds its
@@ -207,7 +254,7 @@ PATH_KERNELS = {
     "ident_ticks": RELAX_KERNELS,
     "zonal": RELAX_KERNELS,
     "zonal_reject": RELAX_KERNELS,
-    # the A4b loop: B4 with minValues floors, with the reservation ledger,
+    # the floors-and-ledger loop: B4 with minValues floors, with the reservation ledger,
     # with domains and floors; B5 with floors; the auto route of the
     # diverse mix over floors (B4 with contributors and floors)
     "minvalues": ("fresh_feasibility", "pack", "pack_minvalues", "wire_pack"),
@@ -218,7 +265,15 @@ PATH_KERNELS = {
                           "wire_pack"),
     "diverse_minvalues_auto": ("fresh_feasibility", "pack", "pack_contrib", "pack_minvalues",
                                "wire_pack"),
+    # the tenant cell: the tiled mode, chosen by the driver's gate (no
+    # table kernel); its churn ticks; the classed route forced (B5
+    # tiled); a scenario batch (B7's grid tiled)
+    "tenant": ("pack", "pack_tiled", "wire_pack"),
+    "tenant_ticks": ("pack", "pack_tiled", "wire_pack", "apply_rows"),
+    "tenant_classed": ("pack_classed", "pack_classed_tiled", "wire_pack"),
+    "tenant_scenarios": ("pack", "pack_tiled", "wire_pack"),
 }
+TABLE_KERNELS = ("fresh_feasibility", "existing_feasibility", "dense_feasibility")
 # ... and those it must not launch: the classed route replaces B4, the
 # dense route B1 and B2
 PATH_ABSENT = {"diverse": ("pack",), "diverse_ticks": ("pack",),
@@ -228,7 +283,11 @@ PATH_ABSENT = {"diverse": ("pack",), "diverse_ticks": ("pack",),
                "reserved": ("pack_classed", "pack_minvalues"),
                "constrained_minvalues": ("pack_classed", "pack_resv"),
                "diverse_minvalues": ("pack",),
-               "diverse_minvalues_auto": ("pack_classed",)}
+               "diverse_minvalues_auto": ("pack_classed",),
+               "tenant": TABLE_KERNELS + ("pack_classed",),
+               "tenant_ticks": TABLE_KERNELS + ("pack_classed",),
+               "tenant_classed": TABLE_KERNELS + ("pack",),
+               "tenant_scenarios": TABLE_KERNELS + ("pack_classed",)}
 # ... and those each consolidation path must launch over a scenario batch
 CONS_KERNELS = ("existing_feasibility", "pack", "wire_pack")
 CONS_MV_KERNELS = CONS_KERNELS + ("pack_minvalues",)
@@ -304,7 +363,10 @@ def timed(fn):
 
 
 def nbytes(tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
+    """Bytes of ``tensors``; a tuple among them (the scan's TileInputs)
+    counts by its members."""
+    return sum(nbytes(t) if isinstance(t, tuple) else t.numel() * t.element_size()
+               for t in tensors)
 
 
 def bound_ms(read_write_bytes, ops):
@@ -416,6 +478,7 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
 
     # ---- B3 fresh, the dense twin, on the same snapshot: == plain, == B1 ----
     b3_in = [a[n] for n in B3_NAMES]
+    W3 = (V1 + 31) // 32
     b3 = feas.fresh_claim_feasibility(*b3_in, zone_kid=zk, ct_kid=ck)
     b3_ref = feas.fresh_claim_feasibility_reference(*b3_in, zone_kid=zk, ct_kid=ck)
     torch.cuda.synchronize()
@@ -426,10 +489,12 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
         ms=cuda_ms(lambda: feas.fresh_claim_feasibility(*b3_in, zone_kid=zk, ct_kid=ck), 50),
         plain_ms=cuda_ms(lambda: feas.fresh_claim_feasibility_reference(
             *b3_in, zone_kid=zk, ct_kid=ck), 10),
-        # compat per (p, g), then per cell the merged K x V1 join, the
-        # offerings and fits_count
+        # the mask rows' bit words (W = ceil(V1 / 32) per key), compat
+        # per (p, g), then per cell the merged K x W join, the offerings
+        # and fits_count
         bound=bound_ms(nbytes(b3_in) + nbytes(b3),
-                       P * G * K * V1 + P * G * T * (K * V1 + O + 2 * R)),
+                       (G + P + T) * K * V1 + P * G * K * W3
+                       + P * G * T * (K * W3 + O + 2 * R)),
         shape=f"P={P} G={G} T={T} K={K} V1={V1} R={R} O={O}, == B1",
     )
 
@@ -499,14 +564,16 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
         max_abs_err=max_abs_err([b3e], [b3e_ref]),
         ms=cuda_ms(lambda: feas.existing_node_feasibility(*b3e_in), 50),
         plain_ms=cuda_ms(lambda: feas.existing_node_feasibility_reference(*b3e_in), 20),
-        bound=bound_ms(nbytes(b3e_in) + nbytes([b3e]), N2 * G2 * (K2 * V12 + 2 * R2)),
+        bound=bound_ms(nbytes(b3e_in) + nbytes([b3e]), (G2 + N2) * K2 * V12
+                       + N2 * G2 * (K2 * ((V12 + 31) // 32) + 2 * R2)),
         shape=f"N={N2} G={G2} K={K2} V1={V12} R={R2}, == B2",
     )
     rows["relax_fill"] = relax_row(torch_solver_cls, config_cls)
     rows["solve_scenarios"] = scenario_row()
     rows.update(constrained_rows(torch_solver_cls, config_cls, encode_cache_cls))
     rows.update(diverse_rows(torch_solver_cls, config_cls))
-    rows.update(a4b_rows(torch_solver_cls, config_cls))
+    rows.update(floors_rows(torch_solver_cls, config_cls))
+    rows.update(tiled_rows(torch_solver_cls, config_cls))
     for name, row in rows.items():
         if row["max_abs_err"] != 0.0:
             raise SmokeFailure(f"{name}: kernel disagrees with its plain version "
@@ -572,15 +639,17 @@ def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None
              nres=0):
     """Operations the scan's inputs need: per group step, each claim
     opened at an earlier step is checked against every type (2R fits
-    compares, V1 x V1 offering cells), plus a few per claim slot. A
-    dynamic group's step (``dyn`` [G] bool: g_dmode > 0) adds the per-domain
-    offering cells of each claim and template type (V1 x V1 each) and a
-    per-domain claim pass. ``mv`` floored minValues keys add, per step,
-    each claim's per-value pass over its types for each key and one pass
-    over each template's types (its bulk cap); ``nres`` reservations add,
-    per step, the compatible-reservation cells of one bulk (V1 x V1 per
-    reservation and type) and the ledger re-gate of each template's
-    types. Over a leading scenario axis, the sum over scenarios. With
+    compares, and the offering test: the type's [V1, V1] zone x
+    capacity-type table as V1 x W bit words, W = ceil(V1 / 32), each
+    ANDed with the claim's words), plus a few per claim slot. A dynamic
+    group's step (``dyn`` [G] bool: g_dmode > 0) adds the per-domain
+    offering words of each claim and template type (V1 x W each, every
+    domain at once) and a per-domain claim pass. ``mv`` floored minValues
+    keys add, per step, each claim's per-value pass over its types for
+    each key and one pass over each template's types (its bulk cap);
+    ``nres`` reservations add, per step, the compatible-reservation words
+    of one bulk (V1 x W per reservation and type) and the ledger re-gate
+    of each template's types. Over a leading scenario axis, the sum over scenarios. With
     ``classes`` (class_start, class_len, class_dyn: the class-batched
     scan) the per-type work runs once per class head, over the claims
     opened before the class, and each member step costs only its
@@ -591,6 +660,7 @@ def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None
     if g_count.dim() == 1:
         g_count, claim_fills, n_open = g_count[None], claim_fills[None], n_open[None]
     G, nmax = claim_fills.shape[1:]
+    VW = V1 * ((V1 + 31) // 32)  # one type's offering table in words
     dyn = [False] * G if dyn is None else [bool(x) for x in dyn.cpu()]
     ops = 0
     for counts, fills, opened in zip(g_count, claim_fills, n_open):
@@ -600,9 +670,9 @@ def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None
                 if cl <= 0:
                     continue
                 live = sum(1 for f in first if f < cs)
-                ops += live * T * (2 * R + V1 * V1) * (1 + mv)
+                ops += live * T * (2 * R + VW) * (1 + mv)
                 if cdyn:
-                    ops += (live + P) * T * V1 * V1
+                    ops += (live + P) * T * VW
                 for g in range(cs, cs + cl):
                     if int(counts[g]) > 0:
                         ops += nmax * 8 + (nmax * V1 * 8 if dyn[g] else 0) + P * T * mv
@@ -611,10 +681,10 @@ def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None
             if int(counts[g]) <= 0:
                 continue
             live = sum(1 for f in first if f < g)
-            ops += live * T * (2 * R + V1 * V1) * (1 + mv) + nmax * 8
-            ops += P * T * mv + (nres + P) * T * V1 * V1 * bool(nres)
+            ops += live * T * (2 * R + VW) * (1 + mv) + nmax * 8
+            ops += P * T * mv + (nres + P) * T * VW * bool(nres)
             if dyn[g]:
-                ops += (live + P) * T * V1 * V1 + nmax * V1 * 8
+                ops += (live + P) * T * VW + nmax * V1 * 8
     return ops
 
 
@@ -932,8 +1002,8 @@ def diverse_rows(torch_solver_cls, config_cls):
     }
 
 
-def a4b_rows(torch_solver_cls, config_cls):
-    """Phase 2's rows for the A4b loop's kernel variants, at phase 8's
+def floors_rows(torch_solver_cls, config_cls):
+    """Phase 2's rows for the floors-and-ledger loop's kernel variants, at phase 8's
     cells: B4 with minValues floors (minvalues-50k: mixed_pods(50,000,
     gpu_fraction=0) x 400 over the minValues pool), B4 with the
     reservation ledger (reserved-50k: the same pods over the reserved
@@ -1039,6 +1109,207 @@ def a4b_rows(torch_solver_cls, config_cls):
     )
     # B4[S] with floors: the consolidation chunk over the minValues pool
     rows["scenarios_minvalues"] = scenario_row(build=minvalues_consolidation_env)
+    return rows
+
+
+def tiled_ops(pack_ops_n, real_steps, P, T, K, V1, N, O, R):
+    """The tiled mode's operations: the scan's own (``pack_ops_n``) plus
+    the row build of each real step (each class head in B5) over bit
+    words (W = ceil(V1 / 32) per key): each of the P x T cells intersects
+    K x W words, tests O offerings and divides R requests; each template
+    row's compatibility is K x W words; each of the N node cells K x W
+    words and R divisions."""
+    KW = K * ((V1 + 31) // 32)
+    return pack_ops_n + real_steps * (P * T * (KW + O + R) + P * KW + N * (KW + R))
+
+
+def tiled_rows(torch_solver_cls, config_cls):
+    """Phase 2's rows for the tiled mode, forced at the ops level
+    (tile_feasibility=True, zero-G placeholder tables): each kernel in the
+    tiled mode against the untiled kernel on the same CUDA tensors and
+    against its plain tiled version (pack_reference,
+    pack_classed_reference, pack_scenarios_reference with
+    tile_feasibility, on the card). Tolerance: exact equality.
+
+    - pack_tiled (B4): on B2's snapshot (mixed 2,000 x 400 over 32
+      StateNodes: the cap row), constrained 50k x 800 (domains),
+      reserved-50k (the ledger) and the tenant shape cut in depth
+      (N_DEPLOY_PLAIN Deployments over the 64 tenant pools x 800 types:
+      the row build's P x T); the row's ms, plain ms and bound are the
+      tenant shape's (phase 9 times the kernel at full depth);
+    - pack_classed_tiled (B5): diverse-ref 5,000 x 400 (the row's
+      numbers) and diverse-minvalues;
+    - scenarios_tiled (B7's grid): the 2,000-node consolidation chunk,
+      S=16 scenarios each with its own n_tol."""
+    import torch
+
+    from karpenter_tpu_torch.ops import packing as packing_mod
+    from karpenter_tpu_torch.ops import solve as solve_mod
+    from karpenter_tpu_torch.solver import encode as enc
+    from karpenter_tpu_torch.solver.args import put
+    from karpenter_tpu_torch.solver.driver import _CLASS_ARG_NAMES
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+    from karpenter_tpu_torch.solver.example import (
+        example_state_nodes, minvalues_nodepool, reserved_catalog, tenant_pods, tenant_pools,
+    )
+    from karpenter_tpu_torch.solver.workloads import (
+        constrained_mix, diverse_reference_mix, mixed_pods,
+    )
+
+    def inputs(solver, pods):
+        """The scan's tiled and untiled inputs (B1, and B2 with nodes) and
+        the statics of ``solver``'s batch."""
+        args, statics, nmax, fills = device_snapshot(solver, pods)
+        a = dict(zip(SOLVE_ARG_NAMES, args))
+        zk, ck = statics["zone_kid"], statics["ct_kid"]
+        st = dict(nmax=nmax, zone_kid=zk, ct_kid=ck, wf_iters=statics["wf_iters"],
+                  has_domains=statics["has_domains"], has_contrib=statics["has_contrib"])
+        untiled = solve_mod.pack_args(a, *solve_mod._feasibility_tables(a, zk, ck, True))
+        tiled = solve_mod.pack_args(a, *solve_mod._feasibility_tables(
+            a, zk, ck, tile_feasibility=True))
+        return a, tiled, untiled, st, fills
+
+    def dims(a):
+        return (a["p_titype_ok"].shape[0], a["t_alloc"].shape[0], a["t_alloc"].shape[1],
+                a["g_mask"].shape[1], a["g_mask"].shape[2], a["n_avail"].shape[0],
+                a["o_avail"].shape[1])
+
+    def b4_cell(label, solver, pods, reps):
+        a, tiled, untiled, st, _ = inputs(solver, pods)
+        while True:  # the driver's overflow doubling
+            out = packing_mod.pack(*tiled, **st, tile_feasibility=True)
+            if not bool(out[3].item()):
+                break
+            st["nmax"] *= 2
+        ref, ref_ms = timed(lambda: packing_mod.pack_reference(
+            *tiled, **st, tile_feasibility=True))
+        err = max(max_abs_err(out, packing_mod.pack(*untiled, **st)), max_abs_err(out, ref))
+        P, T, R, K, V1, N, O = dims(a)
+        steps = int((a["g_count"] > 0).sum())
+        ops = pack_ops(a["g_count"], out[5], out[2], T, R, V1,
+                       dyn=(a["g_dmode"] > 0) if st["has_domains"] else None, P=P,
+                       mv=a["p_mvmin"].shape[1], nres=a["res_cap0"].shape[0])
+        return dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: packing_mod.pack(*tiled, **st, tile_feasibility=True), reps),
+            plain_ms=ref_ms,
+            bound=bound_ms(nbytes(tiled) + nbytes(out),
+                           tiled_ops(ops, steps, P, T, K, V1, N, O, R)),
+            shape=(f"{label}: G={a['g_count'].shape[0]} ({steps} real) P={P} T={T} N={N} "
+                   f"K={K} V1={V1} NMAX={st['nmax']} claims={int(out[2])}"),
+        )
+
+    cells = {}
+    pods = mixed_pods(NODE_PODS)
+    cells["nodes"] = b4_cell("B2 snapshot", build_batch(
+        torch_solver_cls, config_cls, pods, N_TYPES,
+        state_nodes=example_state_nodes(N_NODES)), pods, 10)
+    pods = constrained_mix(N_PODS)
+    cells["constrained"] = b4_cell("constrained 50k", build_batch(
+        torch_solver_cls, config_cls, pods, N_TYPES_C), pods, 3)
+    pods = mixed_pods(N_PODS, gpu_fraction=0.0)
+    cells["reserved"] = b4_cell("reserved-50k", build_batch(
+        torch_solver_cls, config_cls, pods, N_TYPES,
+        its=reserved_catalog(N_TYPES, RESV_EVERY, RESV_CAP),
+        reserved_capacity_enabled=True), pods, 5)
+    pods = tenant_pods(N_DEPLOY_PLAIN, N_TENANTS)
+    cells["tenant"] = b4_cell(f"tenant {N_DEPLOY_PLAIN} Deployments", build_batch(
+        torch_solver_cls, config_cls, pods, TENANT_TYPES,
+        pools=tenant_pools(N_TENANTS)), pods, 3)
+    rows = {"pack_tiled": dict(cells["tenant"], cells={
+        k: dict(err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"], shape=c["shape"])
+        for k, c in cells.items()})}
+    rows["pack_tiled"]["max_abs_err"] = max(c["max_abs_err"] for c in cells.values())
+
+    def b5_cell(label, pools, reps):
+        pods = diverse_reference_mix(N_DIVERSE)
+        solver = build_batch(torch_solver_cls, config_cls, pods, N_TYPES, pools=pools,
+                             classed=True)
+        host, snap, _, _ = host_snapshot(solver, pods)
+        run = snap.padded(enc._next_pow2(len(snap.groups), floor=8), 0)
+        partition = solver._classed_partition(run, host[SOLVE_ARG_NAMES.index("res_cap0")])
+        if partition is None:
+            raise SmokeFailure(f"{label}: classed=True declined the class-batched scan")
+        cls_host, lmax = partition
+        cls = [put(n, x, "cuda") for n, x in zip(_CLASS_ARG_NAMES, cls_host)]
+        a, tiled, untiled, st, _ = inputs(solver, pods)
+
+        def b5(args, tile):
+            return packing_mod.pack_classed(*args, *cls, lmax=lmax, **st, tile_feasibility=tile)
+
+        while True:
+            out = b5(tiled, True)
+            if not bool(out[0].overflow.item()):
+                break
+            st["nmax"] *= 2
+        ref, ref_ms = timed(lambda: packing_mod.pack_classed_reference(
+            *tiled, *cls, lmax=lmax, **st, tile_feasibility=True))
+        un = b5(untiled, False)
+        flat = list(out[0]) + list(out[1:])
+        err = max(max_abs_err(flat, list(ref[0]) + list(ref[1:])),
+                  max_abs_err(flat, list(un[0]) + list(un[1:])))
+        P, T, R, K, V1, N, O = dims(a)
+        heads = int((cls_host[1] > 0).sum())
+        ops = pack_ops(a["g_count"], out[2], out[0].n_open, T, R, V1, dyn=a["g_dmode"] > 0,
+                       P=P, classes=tuple(cls[:3]), mv=a["p_mvmin"].shape[1])
+        return dict(
+            max_abs_err=err, ms=cuda_ms(lambda: b5(tiled, True), reps), plain_ms=ref_ms,
+            bound=bound_ms(nbytes(tiled) + nbytes(cls) + nbytes(flat),
+                           tiled_ops(ops, heads, P, T, K, V1, N, O, R)),
+            shape=(f"{label}: G={a['g_count'].shape[0]} classes={heads} lmax={lmax} T={T} "
+                   f"NMAX={st['nmax']} claims={int(out[0].n_open)}"),
+        )
+
+    div = b5_cell("diverse-ref", None, 3)
+    divmv = b5_cell("diverse-minvalues", [minvalues_nodepool()], 3)
+    rows["pack_classed_tiled"] = dict(div, max_abs_err=max(div["max_abs_err"],
+                                                           divmv["max_abs_err"]),
+                                      cells={k: dict(err=c["max_abs_err"], ms=c["ms"],
+                                                     plain_ms=c["plain_ms"], shape=c["shape"])
+                                             for k, c in (("diverse", div),
+                                                          ("diverse_minvalues", divmv))})
+
+    # B7's grid tiled: the consolidation chunk, each scenario its own n_tol
+    token = scenario_snapshot()
+    args, statics, fills = token["args"], dict(token["statics"]), token["fills_dtype"]
+    a = dict(zip(SOLVE_ARG_NAMES, args))
+    zk, ck = statics["zone_kid"], statics["ct_kid"]
+    kw = dict(fills_dtype=fills, batch_topo=token["batch_topo"])
+    tiled_st = dict(statics, nmax=token["nmax"], tile_feasibility=True, sparse_groups=False)
+
+    def dispatch(st):
+        return solve_mod.solve_scenarios_core_packed(*args, **kw, **st)
+
+    while bool(dispatch(tiled_st)[3].any().item()):  # the search's overflow doubling
+        tiled_st["nmax"] *= 2
+    st = dict(nmax=tiled_st["nmax"], zone_kid=zk, ct_kid=ck, wf_iters=statics["wf_iters"],
+              has_domains=statics["has_domains"], has_contrib=statics["has_contrib"])
+    tiled_in = solve_mod.pack_args(a, *solve_mod._feasibility_tables(
+        a, zk, ck, tile_feasibility=True))
+
+    def plain():
+        return solve_mod.wire_pack_reference(packing_mod.pack_scenarios_reference(
+            *tiled_in, **st, tile_feasibility=True), fills)
+
+    full = dispatch(tiled_st)
+    untiled = dispatch(dict(tiled_st, tile_feasibility=False, sparse_groups=True))
+    ref, ref_ms = timed(plain)
+    S, G = a["g_count"].shape
+    N, R = a["n_avail"].shape
+    P, T, K, V1 = a["p_def"].shape[0], a["t_alloc"].shape[0], a["g_mask"].shape[1], \
+        a["g_mask"].shape[2]
+    O = a["o_avail"].shape[1]
+    scan = packing_mod.pack(*tiled_in, **st, tile_feasibility=True)
+    steps = int((a["g_count"] > 0).sum())  # real steps over every scenario
+    ops = tiled_ops(pack_ops(a["g_count"], scan[5], scan[2], T, R, V1, P=P), steps, P, T, K,
+                    V1, N, O, R) + full[1].numel() * 8 + sum(x.numel() for x in full)
+    rows["scenarios_tiled"] = dict(
+        max_abs_err=max(max_abs_err(full, ref), max_abs_err(full, untiled)),
+        ms=cuda_ms(lambda: dispatch(tiled_st), 20),
+        plain_ms=ref_ms,
+        bound=bound_ms(nbytes(tiled_in) + nbytes(full), ops),
+        shape=f"S={S} N={N} G={G} T={T} NMAX={tiled_st['nmax']} claims={scan[2].tolist()}",
+    )
     return rows
 
 
@@ -1697,8 +1968,8 @@ def phase_relax(torch_solver_cls, config_cls, encode_cache_cls):
     return out
 
 
-def phase_a4b(torch_solver_cls, config_cls, encode_cache_cls):
-    """Phase 8: the A4b loop on the card, NodePools with minValues floors
+def phase_floors(torch_solver_cls, config_cls, encode_cache_cls):
+    """Phase 8: the floors-and-ledger loop on the card, NodePools with minValues floors
     and offerings with capacity reservations, every solve counted: each
     cell's cold solve == the device="cpu" solve in slot order (and in the
     reservations each claim holds), no relax routing and no sequential
@@ -1719,11 +1990,14 @@ def phase_a4b(torch_solver_cls, config_cls, encode_cache_cls):
         return [sorted(o.reservation_id() for o in c.reserved_offerings)
                 for c in res.new_node_claims]
 
-    def cell(label, pods, pools, catalog, reps=5, classed=None, **solver_kw):
+    def cell(label, pods, pools, catalog, reps=5, classed=None, cpu_pods=None, **solver_kw):
         """One cell: ``catalog()`` builds a fresh instance-type list per
-        solver (reservation capacities are per catalog)."""
-        def solver_for(device):
-            return build_batch(torch_solver_cls, config_cls, pods, 0, device=device,
+        solver (reservation capacities are per catalog). With ``cpu_pods``
+        the comparison with device="cpu" runs on that smaller batch (a
+        card solve and a CPU solve of it); the counted and timed card
+        solves stay on ``pods``."""
+        def solver_for(device, batch=pods):
+            return build_batch(torch_solver_cls, config_cls, batch, 0, device=device,
                                cache=encode_cache_cls(), pools=pools(), its=catalog(),
                                classed=classed, **solver_kw)
 
@@ -1741,10 +2015,14 @@ def phase_a4b(torch_solver_cls, config_cls, encode_cache_cls):
         if s.fallback_solves or s.last_relax_pods:
             raise SmokeFailure(f"{label}: fallbacks {s.last_fallback_reasons}, "
                                f"{s.last_relax_pods} pods relax-routed")
-        cpu = solver_for("cpu").solve(pods)
-        if decisions(res, pods) != decisions(cpu, pods) or held(res) != held(cpu):
+        batch, card = pods, res
+        if cpu_pods is not None:
+            batch = cpu_pods
+            card = solver_for("cuda", batch).solve(batch)
+        cpu = solver_for("cpu", batch).solve(batch)
+        if decisions(card, batch) != decisions(cpu, batch) or held(card) != held(cpu):
             raise SmokeFailure(f"{label}: CUDA decisions differ from the device='cpu' solve "
-                               "in slot order")
+                               f"in slot order ({len(batch)} pods)")
         times = []
         for _ in range(reps):
             s = solver_for("cuda")
@@ -1775,12 +2053,15 @@ def phase_a4b(torch_solver_cls, config_cls, encode_cache_cls):
     out["constrained_minvalues"] = cell("constrained_minvalues", constrained_mix(N_PODS),
                                         mv_pools, plain(N_TYPES_C))
     pods = diverse_reference_mix(N_DIVERSE)
+    # the diverse cells' CPU comparisons at N_DIVERSE_CPU pods: the CPU's
+    # plain scans of the 5,000-pod batch took most of this phase
+    small = diverse_reference_mix(N_DIVERSE_CPU)
     out["diverse_minvalues"] = cell("diverse_minvalues", pods, mv_pools, plain(N_TYPES),
-                                    classed=True)
+                                    classed=True, cpu_pods=small)
     # the auto route sends floors with domain-dynamic groups to B4 (with
     # its contributor counting); B4-contrib is ~1.5 s a solve: one solve
     out["diverse_minvalues_auto"] = cell("diverse_minvalues_auto", pods, mv_pools,
-                                         plain(N_TYPES), reps=0)
+                                         plain(N_TYPES), reps=0, cpu_pods=small)
 
     # MultiNodeConsolidation over the minValues pool: B7 with floors
     ctx, method, candidates, budgets = minvalues_consolidation_env(CONS_NODES, "cpu")
@@ -1811,6 +2092,249 @@ def phase_a4b(torch_solver_cls, config_cls, encode_cache_cls):
     out["cons_minvalues"] = dict(decision=cmd.decision, disrupted=len(cmd.candidates),
                                  probes=got[1], dispatches=got[2], ms=ms, launches=counts,
                                  scenario_launches=scen)
+    return out
+
+
+def tenant_tick(pods, k, rng):
+    """Churn tick ``k`` of the tenant cell: TENANT_SWAP Deployments, drawn
+    by ``rng``, scale away and as many new ones (tenant_pods numbered on
+    from the last, seeded per tick) arrive."""
+    from karpenter_tpu_torch.solver.example import tenant_pods
+
+    apps = sorted({p.metadata.labels["app"] for p in pods}, key=lambda a: int(a[1:]))
+    gone = set(rng.sample(apps, TENANT_SWAP))
+    new = tenant_pods(TENANT_SWAP, N_TENANTS, seed=17 + k,
+                      first=N_DEPLOY + TENANT_SWAP * (k - 1))
+    return [p for p in pods if p.metadata.labels["app"] not in gone] + new
+
+
+def record_statics(solver, untiled=False):
+    """Wrap ``solver._kernel_statics`` so each dispatch's statics and table
+    bytes (P * G * T * 5) are recorded; with ``untiled`` the wrapper also
+    turns the tiled mode off (tables through B1, the untiled scan), as a
+    yardstick for the driver's own choice."""
+    seen = []
+    own = solver._kernel_statics
+
+    def statics(snap, G):
+        st = own(snap, G)
+        seen.append((dict(st), len(snap.templates) * G * len(snap.instance_types) * 5))
+        if untiled:
+            st = dict(st, tile_feasibility=False, sparse_groups=True)
+        return st
+
+    solver._kernel_statics = statics
+    return seen
+
+
+def phase_tenant(torch_solver_cls, config_cls, encode_cache_cls):
+    """Phase 9: the tenant cell on the card, every solve counted. 64
+    tainted NodePools capped at 4,000 CPUs over 800 types and 6,000
+    VPA-sized Deployments (50,816 pods): the driver's gate picks the tiled
+    mode by itself. (a) a cold TorchSolver.solve: B4 tiled, no table
+    kernel, no relax routing, no fallback; cold p50 over 3 or 5 fresh
+    EncodeCaches (3 when a solve passes 10 s) and one traced solve; (b)
+    the same device args through dispatch_packed tiled and untiled (B1
+    and the untiled B4): the ten outputs identical, and the solve's
+    Results equal to those of a solve forced onto the untiled dispatch,
+    claims in slot order; (c) two churn ticks of 60 Deployments, each on
+    row deltas through B8 and equal to a same-vocab re-encode, then a
+    REUSE repeat; (d) the classed route forced (B5 tiled), deciding as
+    (a); (e) a scenario batch (B7's grid tiled: the cell, and the cell
+    without one tick's Deployments), each scenario equal to a solve of
+    its pods, claims in slot order."""
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch import _build, obs
+    from karpenter_tpu_torch.cloudprovider import corpus
+    from karpenter_tpu_torch.kube import Client, TestClock
+    from karpenter_tpu_torch.ops import packing as packing_mod
+    from karpenter_tpu_torch.ops import solve as solve_mod
+    from karpenter_tpu_torch.scheduling.topology import Topology
+    from karpenter_tpu_torch.solver.driver import Scenario
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+    from karpenter_tpu_torch.solver.example import tenant_pods, tenant_pools
+
+    pools = tenant_pools(N_TENANTS)
+    catalog = corpus.generate(TENANT_TYPES)
+    its = {p.name: list(catalog) for p in pools}
+
+    def solver_for(pods, cache=None, classed=None):
+        topo = Topology(Client(TestClock()), [], pools, its, pods)
+        return torch_solver_cls(pools, its, topo, encode_cache=cache or encode_cache_cls(),
+                                config=config_cls(device="cuda", classed=classed))
+
+    def counted(label, solver, pods, scenarios=None):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = solver.solve_scenarios(scenarios) if scenarios else solver.solve(pods)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(_build.launches)
+        missing = [k for k in PATH_KERNELS[label] if counts[k] < 1]
+        extra = [k for k in PATH_ABSENT.get(label, ()) if counts[k]]
+        if missing or extra:
+            raise SmokeFailure(f"{label}: missing {missing}, launched {extra} ({counts})")
+        if solver.fallback_solves or solver.last_relax_pods:
+            raise SmokeFailure(f"{label}: fallbacks {solver.last_fallback_reasons}, "
+                               f"{solver.last_relax_pods} pods relax-routed")
+        return res, counts, ms
+
+    out = {"launches": {}}
+    pods = tenant_pods(N_DEPLOY, N_TENANTS)
+    if len(pods) != TENANT_PODS:
+        raise SmokeFailure(f"tenant: {len(pods)} pods, want {TENANT_PODS}")
+
+    # (a) cold, the driver's own choice of mode
+    s = solver_for(pods)
+    seen = record_statics(s)
+    res, counts, first_ms = counted("tenant", s, pods)
+    st, table_bytes = seen[-1]
+    if not (st["tile_feasibility"] and not st["sparse_groups"]
+            and table_bytes == TENANT_BYTES > TILE_GATE):
+        raise SmokeFailure(f"tenant: statics {st}, tables {table_bytes} B (gate {TILE_GATE} B)")
+    out["launches"]["tenant"] = counts
+    uids = {p.uid for p in pods}
+    out.update(statics=st, table_bytes=table_bytes, first_ms=first_ms,
+               claims=len(res.new_node_claims), errors=len(res.pod_errors),
+               placed=sum(sum(p.uid in uids for p in c.pods) for c in res.new_node_claims),
+               relax_pods=s.last_relax_pods, dispatches=s.last_dispatches)
+    reps = 3 if first_ms > 10_000 else 5
+    cold = []
+    for _ in range(reps):
+        sv = solver_for(pods)
+        gc.collect()
+        t0 = time.perf_counter()
+        sv.solve(pods)
+        torch.cuda.synchronize()
+        cold.append((time.perf_counter() - t0) * 1e3)
+    out["cold_ms"], out["cold_p50_ms"] = cold, statistics.median(cold)
+    tracer = obs.install(obs.Tracer(obs.PerfClock()))
+    try:
+        t0 = time.perf_counter()
+        solver_for(pods).solve(pods)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        obs.uninstall()
+    totals = tracer.phase_totals()
+    phases = {k: totals.get(f"solve.{k}", 0.0) * 1e3
+              for k in ("partition", "encode", "transfer", "dispatch", "guard", "decode")}
+    phases["other"] = totals.get("solve", 0.0) * 1e3 - sum(phases.values())
+    phases["audit"] = traced_ms - totals.get("solve", 0.0) * 1e3
+    out["traced_ms"], out["phases"] = traced_ms, phases
+
+    # (b) the same device args, tiled and untiled; the untiled solve's Results
+    args, dst, nmax, fills = device_snapshot(solver_for(pods), pods)
+    kw = dict(dst, nmax=nmax, fills_dtype=fills)
+    tiled = solve_mod.dispatch_packed(*args, **kw)
+    torch.cuda.synchronize()
+    untiled, untiled_ms = timed(lambda: solve_mod.dispatch_packed(
+        *args, **dict(kw, tile_feasibility=False, sparse_groups=True)))
+    tiled_again, tiled_ms = timed(lambda: solve_mod.dispatch_packed(*args, **kw))
+    out["dispatch_err"] = max(max_abs_err(tiled, untiled), max_abs_err(tiled, tiled_again))
+    if out["dispatch_err"]:
+        raise SmokeFailure(f"tenant: tiled and untiled dispatches differ "
+                           f"(max |diff| {out['dispatch_err']})")
+    out["dispatch_ms"] = dict(tiled=tiled_ms, untiled=untiled_ms)
+    del tiled, untiled, tiled_again
+    # the two scans alone on the same inputs: the tiled scan's time, and
+    # its excess over the untiled one (the row build, by difference)
+    a = dict(zip(SOLVE_ARG_NAMES, args))
+    zk, ck = dst["zone_kid"], dst["ct_kid"]
+    pst = dict(nmax=nmax, zone_kid=zk, ct_kid=ck, wf_iters=dst["wf_iters"],
+               has_domains=dst["has_domains"], has_contrib=dst["has_contrib"])
+    tin = solve_mod.pack_args(a, *solve_mod._feasibility_tables(a, zk, ck, tile_feasibility=True))
+    uin = solve_mod.pack_args(a, *solve_mod._feasibility_tables(a, zk, ck, True))
+    scan_t, out["scan_tiled_ms"] = timed(lambda: packing_mod.pack(*tin, **pst,
+                                                                  tile_feasibility=True))
+    scan_u, out["scan_untiled_ms"] = timed(lambda: packing_mod.pack(*uin, **pst))
+    if max_abs_err(scan_t, scan_u):
+        raise SmokeFailure("tenant: the tiled scan's outputs differ from the untiled scan's")
+    out["scan_shape"] = (f"G={a['g_count'].shape[0]} ({int((a['g_count'] > 0).sum())} real) "
+                         f"P={a['p_def'].shape[0]} T={a['t_alloc'].shape[0]} NMAX={nmax} "
+                         f"claims={int(scan_t[2])}")
+    del scan_t, scan_u, uin, args, a
+    gc.collect()
+    torch.cuda.empty_cache()
+    su = solver_for(pods)
+    seen_u = record_statics(su, untiled=True)
+    _build.reset_launches()
+    res_u = su.solve(pods)
+    torch.cuda.synchronize()
+    if not (seen_u and _build.launches["fresh_feasibility"] and not _build.launches["pack_tiled"]):
+        raise SmokeFailure(f"tenant: the untiled yardstick did not run untiled ({_build.launches})")
+    if decisions(res, pods) != decisions(res_u, pods):
+        raise SmokeFailure("tenant: the tiled solve decides otherwise than the untiled one")
+    del res_u, su
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) churn ticks on one EncodeCache: row deltas, == a same-vocab
+    # re-encode; then REUSE
+    cache = encode_cache_cls()
+    solver_for(pods, cache).solve(pods)
+    solver_for(pods, cache).solve(pods)
+    rng = random.Random(TENANT_TICK_SEED)
+    ticks, tick_counts, tick_pods = [], {}, pods
+    for k in range(1, TENANT_TICKS + 1):
+        tick_pods = tenant_tick(tick_pods, k, rng)
+        sv = solver_for(tick_pods, cache)
+        gc.collect()
+        tres, tcounts, tms = counted("tenant_ticks", sv, tick_pods)
+        store = cache.device_store
+        full = not sv.last_encode_reused and sv.last_delta_rows == 0
+        if full or store.last_delta_rows < 1 or tcounts["apply_rows"] < 1:
+            raise SmokeFailure(f"tenant tick {k}: full re-encode {full}, device delta rows "
+                               f"{store.last_delta_rows}, B8 {tcounts['apply_rows']}")
+        ticks.append(dict(ms=tms, encode_delta_rows=sv.last_delta_rows,
+                          device_delta_rows=store.last_delta_rows,
+                          full_puts=store.last_full_puts, b8=tcounts["apply_rows"]))
+        cache.cluster.invalidate("full re-encode check")
+        store.reset()
+        if decisions(tres, tick_pods) != decisions(
+                solver_for(tick_pods, cache).solve(tick_pods), tick_pods):
+            raise SmokeFailure(f"tenant tick {k}: decisions differ from a same-vocab re-encode")
+        for key, v in tcounts.items():
+            tick_counts[key] = tick_counts.get(key, 0) + v
+    sv = solver_for(tick_pods, cache)
+    sv.solve(tick_pods)
+    if not sv.last_encode_reused or cache.device_store.last_full_puts or sv.fallback_solves:
+        raise SmokeFailure(f"tenant repeat: reused {sv.last_encode_reused}, full puts "
+                           f"{cache.device_store.last_full_puts}")
+    out["ticks"], out["launches"]["tenant_ticks"] = ticks, tick_counts
+
+    # (d) the classed route forced: B5 tiled
+    res_c, counts_c, out["classed_ms"] = counted("tenant_classed", solver_for(pods, classed=True),
+                                                 pods)
+    if decisions(res_c, pods) != decisions(res, pods):
+        raise SmokeFailure("tenant: the class-batched scan (B5 tiled) decides otherwise than B4")
+    out["launches"]["tenant_classed"] = counts_c
+    del res_c
+
+    # (e) a scenario batch: the cell, and the cell without the first
+    # tick's removed Deployments; B7's grid tiled
+    apps = {p.metadata.labels["app"] for p in tick_pods}
+    less = [p for p in pods if p.metadata.labels["app"] in apps]
+    sv = solver_for(pods)
+    seen_s = record_statics(sv)
+    results, counts_s, out["scenarios_ms"] = counted(
+        "tenant_scenarios", sv, pods, scenarios=[Scenario(pods=pods), Scenario(pods=less)])
+    if not results or _build.scenario_launches["pack_tiled"] < 1 or not seen_s[-1][0][
+            "tile_feasibility"]:
+        raise SmokeFailure(f"tenant scenarios: {_build.scenario_launches}")
+    # the batch encodes the union of its scenarios' pods (here the cell's
+    # own), and a scenario's groups keep their order in it, so each
+    # scenario mints the claims of a solve of its pods, in slot order
+    want = [decisions(res, pods), decisions(solver_for(less).solve(less), less)]
+    if [decisions(r, ps) for r, ps in zip(results, (pods, less))] != want:
+        raise SmokeFailure("tenant scenarios: a scenario decides otherwise than a solve of "
+                           "its pods (claims in slot order)")
+    out["launches"]["tenant_scenarios"] = counts_s
+    out["scenario_launches"] = dict(_build.scenario_launches)
+    out["scenario_pods"] = [len(pods), len(less)]
     return out
 
 
@@ -1943,10 +2467,10 @@ def main():
         f"{rel['zonal_order_differs']}; (d) corrupt bulk: relax_rejects 1, == relax off; "
         "launches " + " ".join(f"{p}={c}" for p, c in rel["launches"].items()))
 
-    a4b, secs = timed_phase(lambda: phase_a4b(TorchSolver, SolverConfig, EncodeCache))
-    cells = {k: v for k, v in a4b.items() if k != "cons_minvalues"}
-    cm = a4b["cons_minvalues"]
-    log(f"phase 8 A4b loop (== cpu in slot order, 0 fallbacks, relax_pods 0) ({secs:.0f} s): " + "; ".join(
+    floors, secs = timed_phase(lambda: phase_floors(TorchSolver, SolverConfig, EncodeCache))
+    cells = {k: v for k, v in floors.items() if k != "cons_minvalues"}
+    cm = floors["cons_minvalues"]
+    log(f"phase 8 floors-and-ledger loop (== cpu in slot order, 0 fallbacks, relax_pods 0) ({secs:.0f} s): " + "; ".join(
         f"{label} -> {c['claims']} claims, {c['errors']} errors"
         + (f", {c['reserved']} holding reservations (<= {RESV_MAX_CLAIMS})"
            if label == "reserved" else "")
@@ -1962,7 +2486,32 @@ def main():
         f"{cm['dispatches']} dispatches == cpu, {cm['ms']:.1f} ms, scenario launches "
         + " ".join(f"{k}={v}" for k, v in cm["scenario_launches"].items() if v))
 
-    # every path's own counts: the solves, the searches, the four loops
+    ten, secs = timed_phase(lambda: phase_tenant(TorchSolver, SolverConfig, EncodeCache))
+    log(f"phase 9 tenant cell ({secs:.0f} s): {TENANT_PODS} pods ({N_DEPLOY} Deployments) x "
+        f"{TENANT_TYPES} types over {N_TENANTS} tainted pools capped at 4,000 CPUs; statics "
+        f"{ten['statics']}, tables {ten['table_bytes']} B > gate {TILE_GATE} B -> tiled; "
+        f"{ten['claims']} claims, {ten['placed']} placed, {ten['errors']} errors, relax_pods "
+        f"{ten['relax_pods']}, 0 fallbacks, {ten['dispatches']} dispatch(es); first "
+        f"{ten['first_ms']:.1f} ms, cold p50 {ten['cold_p50_ms']:.1f} ms of "
+        + "/".join(f"{t:.1f}" for t in ten["cold_ms"])
+        + f" ms ({len(ten['cold_ms'])} fresh EncodeCaches); traced {ten['traced_ms']:.1f} ms: "
+        + " ".join(f"{k}={v:.1f}ms" for k, v in ten["phases"].items())
+        + f"; (b) dispatch tiled == untiled (max |diff| {ten['dispatch_err']}; tiled "
+        f"{ten['dispatch_ms']['tiled']:.1f} ms, untiled {ten['dispatch_ms']['untiled']:.1f} ms), "
+        f"scan alone [{ten['scan_shape']}] tiled {ten['scan_tiled_ms']:.1f} ms, untiled "
+        f"{ten['scan_untiled_ms']:.1f} ms (row build by difference "
+        f"{ten['scan_tiled_ms'] - ten['scan_untiled_ms']:.1f} ms), Results == the untiled "
+        f"solve's in slot order; (c) {TENANT_TICKS} ticks of {TENANT_SWAP} Deployments (each == "
+        "a same-vocab re-encode, row deltas, B8): " + "; ".join(
+            f"{t['ms']:.1f} ms (encode delta rows {t['encode_delta_rows']}, device delta rows "
+            f"{t['device_delta_rows']}, full puts {t['full_puts']}, B8 {t['b8']})"
+            for t in ten["ticks"])
+        + f"; repeat REUSE; (d) classed=True (B5 tiled) == B4, {ten['classed_ms']:.1f} ms; "
+        f"(e) scenario batch of {ten['scenario_pods']} pods (B7 tiled) == solves of its pods, "
+        f"{ten['scenarios_ms']:.1f} ms; launches "
+        + " ".join(f"{p}={c}" for p, c in ten["launches"].items()))
+
+    # every path's own counts: the solves, the searches, the five loops
     paths = dict(e2e["launches"])
     paths.update({label: c["launches"] for label, c in cons.items()})
     paths.update(con["launches"])
@@ -1970,6 +2519,7 @@ def main():
     paths.update(rel["launches"])
     paths.update({label: c["launches"] for label, c in cells.items()})
     paths["cons_minvalues"] = cm["launches"]
+    paths.update(ten["launches"])
     scen_paths = {label: c["scenario_launches"] for label, c in cons.items()}
     kernels = []
     for name, row in rows.items():
@@ -1984,10 +2534,19 @@ def main():
             source = "karpenter_tpu_torch/csrc/pack.cu"
             extra = dict(sources=[f"karpenter_tpu_torch/csrc/{k}.cu" for k in B7_SOURCES],
                          parts_ms=row["part_ms"])
+        elif name == "scenarios_tiled":  # B7's grid tiled: phase 9's scenario batch
+            by_path = {"tenant_scenarios": ten["scenario_launches"]["pack_tiled"]}
+            source = "karpenter_tpu_torch/csrc/pack.cu"
+            extra = dict(sources=["karpenter_tpu_torch/csrc/pack.cu",
+                                  "karpenter_tpu_torch/csrc/wire_pack.cu"])
         else:
             by_path = {p: c[name] for p, c in paths.items()}
             source = f"karpenter_tpu_torch/csrc/{SOURCES.get(name, name)}.cu"
             extra = {"library": LIBRARY[name]} if name in LIBRARY else {}
+        if "cells" in row:  # the tiled rows' cells
+            extra["cells"] = row["cells"]
+        if name == "pack_tiled":  # the scan alone at the tenant cell's full depth
+            extra["tenant_cell_ms"] = ten["scan_tiled_ms"]
         kernels.append(dict(
             name=name, route="cuda", source=source,
             replaces=REPLACES[name],

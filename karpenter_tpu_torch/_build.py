@@ -14,9 +14,10 @@ caller that zeroes them (``reset_launches``) and reads them after a run
 sees which kernels the run went through, and whether a probe set ran as
 one scenario batch or as a loop of single solves. A kernel's variant
 (``VARIANTS``: the pack scan over a domain batch, a batch with
-contributor rows, minValues floors or a reservation ledger; the
-class-batched scan over minValues floors; B3's fresh or existing entry)
-counts in its own entry as well as in the kernel's.
+contributor rows, minValues floors, a reservation ledger or in the tiled
+mode; the class-batched scan over minValues floors or in the tiled mode;
+B3's fresh or existing entry) counts in its own entry as well as in the
+kernel's.
 """
 
 from __future__ import annotations
@@ -38,12 +39,14 @@ SOURCES = ("fresh_feasibility", "existing_feasibility", "dense_feasibility",
 # launches of a kernel's variant, counted besides the kernel's own: pack
 # over a domain batch (has_domains) runs its domain machinery, over a
 # batch with contributor rows (has_contrib) its contributor counting, over
-# minValues floors (MV > 0) its minValues caps and over a reservation
-# ledger (NRES > 0) the ledger; pack_classed over minValues floors its
-# maintained minValues headroom; dense_feasibility's two entries count as
-# dense_fresh and dense_existing
-VARIANTS = ("pack_domains", "pack_contrib", "pack_minvalues", "pack_resv",
-            "pack_classed_minvalues", "dense_fresh", "dense_existing")
+# minValues floors (MV > 0) its minValues caps, over a reservation ledger
+# (NRES > 0) the ledger and in the tiled mode (tile_feasibility) its
+# per-step rows; pack_classed over minValues floors its maintained
+# minValues headroom and in the tiled mode its per-class rows;
+# dense_feasibility's two entries count as dense_fresh and dense_existing
+VARIANTS = ("pack_domains", "pack_contrib", "pack_minvalues", "pack_resv", "pack_tiled",
+            "pack_classed_minvalues", "pack_classed_tiled", "dense_fresh",
+            "dense_existing")
 # a library's C entry points, where they are not the one kt_<name>
 ENTRY_POINTS = {"dense_feasibility": ("kt_dense_fresh", "kt_dense_existing")}
 NVCC_FLAGS = (

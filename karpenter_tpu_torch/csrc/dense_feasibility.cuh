@@ -1,41 +1,75 @@
 // Device functions of kernel B3, the dense feasibility tables: one table
 // cell from the full requirement join of its rows, with no live-pair
-// index. csrc/dense_feasibility.cu launches them over whole tables; a
-// scan that builds one group's table row per step (the tiled mode of
-// karpenter_tpu/ops/packing.py:_tile_rows, one B3 row per group) can call
-// them on its own rows.
+// index. csrc/dense_feasibility.cu launches them over whole tables, the
+// scans' tiled mode (pack_common.cuh:tile_rows) over one group's row per
+// step.
 //
-// Rows are byte masks as torch.bool stores them: def/neg [K], mask
-// [K, V1]. Every function is exact against its plain PyTorch version in
-// ops/feasibility.py (boolean algebra, and common.cuh's bit-exact
-// fits_count).
+// Rows are bit words: def/neg stay byte masks [K] as torch.bool stores
+// them, and each key's value mask [V1] is W = ceil(V1 / 32) words, built
+// from the byte masks by mask_words before the cells run (bits past V1
+// are 0 in every row). A key's overlap is then W word ANDs rather than a
+// walk over V1 bytes. Every function is exact against its plain PyTorch
+// version in ops/feasibility.py (boolean algebra, and common.cuh's
+// bit-exact fits_count).
 #pragma once
 
 #include "common.cuh"
 
 namespace kt {
 
+// word w of a [V1] byte mask row: bit c is value slot 32 w + c
+__device__ __forceinline__ uint32_t mask_word(const uint8_t* row, int V1, int w) {
+  uint32_t bits = 0;
+  for (int c = 0; c < 32 && w * 32 + c < V1; ++c)
+    bits |= static_cast<uint32_t>(row[w * 32 + c] != 0) << c;
+  return bits;
+}
+
+__device__ __forceinline__ bool bit(const uint32_t* words, int v) {
+  return (words[v >> 5] >> (v & 31)) & 1u;
+}
+
+// the words of ``rows`` [., V1] byte mask rows into ``out`` [rows, W],
+// word i taken by thread i0 + k * step
+__device__ __forceinline__ void mask_words(const uint8_t* mask, long long rows, int V1, int W,
+                                           uint32_t* out, long long i0, long long step) {
+  for (long long i = i0; i < rows * W; i += step)
+    out[i] = mask_word(mask + (i / W) * V1, V1, static_cast<int>(i % W));
+}
+
+// some value slot set in every row of one key: (a & b (& c)).any(-1)
+__device__ __forceinline__ bool words_meet(const uint32_t* a, const uint32_t* b, int W) {
+  for (int w = 0; w < W; ++w)
+    if (a[w] & b[w]) return true;
+  return false;
+}
+
+__device__ __forceinline__ bool words_meet3(const uint32_t* a, const uint32_t* b,
+                                            const uint32_t* c, int W) {
+  for (int w = 0; w < W; ++w)
+    if (a[w] & b[w] & c[w]) return true;
+  return false;
+}
+
 // Requirements.Compatible of a pod row g against a template row p, with
 // the well-known allowance (requirements.go:177-196): every key K passes
 // the intersect term (overlapping values, both negated, or not defined on
 // both sides) and the custom-label term (a positively constrained key is
-// well known or defined template-side). well_known == nullptr is the
-// strict direction (no allowance).
+// well known or defined template-side). p_neg == nullptr and well_known
+// == nullptr is the strict direction of existing nodes (a node's labels
+// are never negated and get no allowance). p_w / g_w are [K, W] words.
 __device__ __forceinline__ bool dense_compatible(
-    const uint8_t* p_def, const uint8_t* p_neg, const uint8_t* p_mask,
-    const uint8_t* g_def, const uint8_t* g_neg, const uint8_t* g_mask,
-    const uint8_t* well_known, int K, int V1) {
+    const uint8_t* p_def, const uint8_t* p_neg, const uint32_t* p_w,
+    const uint8_t* g_def, const uint8_t* g_neg, const uint32_t* g_w,
+    const uint8_t* well_known, int K, int W) {
   for (int k = 0; k < K; ++k) {
     const bool pdef = p_def[k], gdef = g_def[k];
     const bool pneg = p_neg != nullptr && p_neg[k];
     const bool gneg = g_neg[k];
     const bool wk = well_known != nullptr && well_known[k];
     if (!(!gdef || wk || pdef || gneg)) return false;
-    bool overlap = false;
-    const uint8_t* pm = p_mask + static_cast<size_t>(k) * V1;
-    const uint8_t* gm = g_mask + static_cast<size_t>(k) * V1;
-    for (int v = 0; v < V1 && !overlap; ++v) overlap = pm[v] && gm[v];
-    if (!(overlap || (pneg && gneg) || !(pdef && gdef))) return false;
+    if (!(pneg && gneg) && pdef && gdef && !words_meet(p_w + k * W, g_w + k * W, W))
+      return false;
   }
   return true;
 }
@@ -44,32 +78,27 @@ __device__ __forceinline__ bool dense_compatible(
 // (merge_requirements: masks AND, defined OR). A type's requirements are
 // never negated, so the double-negation exemption never applies.
 __device__ __forceinline__ bool dense_type_compat(
-    const uint8_t* t_def, const uint8_t* t_mask,
-    const uint8_t* p_def, const uint8_t* p_mask,
-    const uint8_t* g_def, const uint8_t* g_mask, int K, int V1) {
+    const uint8_t* t_def, const uint32_t* t_w, const uint8_t* p_def, const uint32_t* p_w,
+    const uint8_t* g_def, const uint32_t* g_w, int K, int W) {
   for (int k = 0; k < K; ++k) {
-    const size_t row = static_cast<size_t>(k) * V1;
-    bool overlap = false;
-    for (int v = 0; v < V1 && !overlap; ++v)
-      overlap = t_mask[row + v] && p_mask[row + v] && g_mask[row + v];
-    if (!(overlap || !(t_def[k] && (p_def[k] || g_def[k])))) return false;
+    if (!(t_def[k] && (p_def[k] || g_def[k]))) continue;
+    if (!words_meet3(t_w + k * W, p_w + k * W, g_w + k * W, W)) return false;
   }
   return true;
 }
 
-// offering_ok of type t's offerings against the claim p ∪ g: any
+// offering_ok of type t's O offerings against the claim p ∪ g: any
 // available offering whose zone and capacity-type values the merged masks
-// admit (a negative id admits any value). pz/pc/gz/gc are the [V1] zone
-// and capacity-type mask rows of template and group.
+// admit (a negative id admits any value). pz/pc/gz/gc are the [W] zone
+// and capacity-type words of template and group.
 __device__ __forceinline__ bool dense_offering_ok(
-    const uint8_t* pz, const uint8_t* pc, const uint8_t* gz, const uint8_t* gc,
+    const uint32_t* pz, const uint32_t* pc, const uint32_t* gz, const uint32_t* gc,
     const uint8_t* o_avail, const int32_t* o_zone, const int32_t* o_ct, int O) {
   for (int o = 0; o < O; ++o) {
     if (!o_avail[o]) continue;
     const int32_t z = o_zone[o], c = o_ct[o];
-    const int zi = max(z, 0), ci = max(c, 0);
-    const bool z_ok = (z < 0) || (pz[zi] && gz[zi]);
-    const bool c_ok = (c < 0) || (pc[ci] && gc[ci]);
+    const bool z_ok = z < 0 || (bit(pz, z) && bit(gz, z));
+    const bool c_ok = c < 0 || (bit(pc, c) && bit(gc, c));
     if (z_ok && c_ok) return true;
   }
   return false;

@@ -1,10 +1,10 @@
 // Kernel B4: the grouped first-fit-decreasing packing scan.
 //
 // Replaces karpenter_tpu/ops/packing.py:pack (a lax.scan over groups on
-// the TPU, step body packing.py:425) in the scope the PyTorch port
-// covers: untiled tables, with or without the domain machinery
-// (has_domains), contributor counting (has_contrib), minValues floors
-// (MV > 0) and the reservation ledger (NRES > 0). Its sequential twin is
+// the TPU, step body packing.py:425): tables or the tiled mode, with or
+// without the domain machinery (has_domains), contributor counting
+// (has_contrib), minValues floors (MV > 0) and the reservation ledger
+// (NRES > 0). Its sequential twin is
 // karpenter_tpu/native/solve_core.cc:kt_solve; the phases carry the same
 // names. The phases themselves live in pack_common.cuh, shared with
 // kernel B5 (pack_classed.cu).
@@ -68,12 +68,21 @@
 // c_resv and debits the ledger. A static pass (static_words) builds the
 // word tables before the scan.
 //
+// The tiled mode (tiled; packing.py:382 _tile_rows, used at :429): no
+// [P, G, T] tables. After load_group each real step builds its group's
+// rows into the block's Rows scratch (tile_rows, pack_common.cuh: two
+// more barriers per step, P x T cells of B3's cell functions over bit
+// words: the types', templates' and nodes' built once per launch by
+// tile_words, the group's by load_rows) and reads them where it read the
+// tables' column; an empty step builds nothing.
+//
 // Scenario grid (kernel B7, karpenter_tpu/ops/solve.py:357
 // solve_scenarios_core_packed, which vmaps this scan over consolidation
 // scenarios): block s of a <<<S, 1024>>> launch walks scenario s. The
-// batched inputs (g_count, cap_ng, and n_hcnt / nh_cnt0 / g_dprior / dd0
-// when the topology priors are per scenario) carry a scenario stride, 0
-// when shared; every State and Out buffer holds S slices and each block
+// batched inputs (g_count, cap_ng or, tiled, n_tol, and n_hcnt / nh_cnt0 /
+// g_dprior / dd0 when the topology priors are per scenario) carry a
+// scenario stride, 0 when shared; every State, Rows and Out buffer holds
+// S slices and each block
 // offsets into its own (each scenario replays the ledger from res_cap0);
 // the static word tables are shared. The scan body is the same for every S, so
 // scenarios walk the same groups in the same order with the same ties and
@@ -87,12 +96,13 @@ namespace {
 // elements between consecutive scenarios' slices of the batched inputs
 // (0: shared by every scenario)
 struct Strides {
-  long long g_count, cap_ng, n_hcnt, nh_cnt0, g_dprior, dd0;
+  long long g_count, cap_ng, n_hcnt, nh_cnt0, g_dprior, dd0, n_tol;
 };
 
-// point every batched input, State and Out buffer at scenario s's slice
+// point every batched input, State, Rows and Out buffer at scenario s's
+// slice
 __device__ void own_slice(const Dims& d, const Strides& sc, long long s,
-                          In& in, State& st, Out& out) {
+                          In& in, State& st, Rows& rw, Out& out) {
   const long long N = d.N, NMAX = d.NMAX, R = d.R, K = d.K, V1 = d.V1;
   const long long JH = d.JH, JD = d.JD, P = d.P, T = d.T, G = d.G, W = d.W;
   const long long dom = d.has_domains ? 1 : 0;
@@ -102,6 +112,12 @@ __device__ void own_slice(const Dims& d, const Strides& sc, long long s,
   in.nh_cnt0 += s * sc.nh_cnt0;
   in.g_dprior += s * sc.g_dprior;
   in.dd0 += s * sc.dd0;
+  in.n_tol += s * sc.n_tol;
+  const long long tiled = d.tiled ? 1 : 0;
+  rw.compat += s * tiled * P;
+  rw.tok += s * tiled * P * T;
+  rw.nfit += s * tiled * P * T;
+  rw.cap += s * tiled * N;
   st.exist_used += s * N * R;
   st.c_used += s * NMAX * R;
   st.c_npods += s * NMAX;
@@ -136,11 +152,12 @@ __device__ void own_slice(const Dims& d, const Strides& sc, long long s,
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-pack_scan(Dims d, In in0, State st0, Out out0, Strides sc) {
+pack_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Strides sc) {
   // this block's scenario slices, kept in shared memory rather than in
   // registers, which the 1024-thread launch bound already holds to 64
   __shared__ In in;
   __shared__ State st;
+  __shared__ Rows rw;
   __shared__ Out out;
   __shared__ Smem m;
   __shared__ Grp g;
@@ -150,8 +167,10 @@ pack_scan(Dims d, In in0, State st0, Out out0, Strides sc) {
   if (threadIdx.x == 0) {
     in = in0;
     st = st0;
+    rw = rw0;
     out = out0;
-    own_slice(d, sc, blockIdx.x, in, st, out);
+    own_slice(d, sc, blockIdx.x, in, st, rw, out);
+    use_rows(d, in, rw);
     carve(dyn, d, m);
   }
   __syncthreads();
@@ -174,6 +193,7 @@ pack_scan(Dims d, In in0, State st0, Out out0, Strides sc) {
     if (tid == 0) load_group(d, in, gi, gi, in.g_dkey[gi], g);
     load_rows(d, in, gi, m);
     __syncthreads();
+    if (d.tiled) tile_rows(d, in, rw, m, gi);
     if (g.dyn || d.NRES) template_words(d, in, m, gi);
     if (g.dyn) {
       const bool has_d = g.has_d;
@@ -200,7 +220,7 @@ pack_scan(Dims d, In in0, State st0, Out out0, Strides sc) {
           for (int v = lane; v < V1; v += 32) wpc[v] = 0;
         __syncwarp();
         const int pp = out.c_pool[s];
-        const uint8_t* tok = in.type_ok + (static_cast<size_t>(pp) * G + gi) * T;
+        const uint8_t* tok = in.type_ok + trow(d, pp, gi) * T;
         const uint8_t* tms = out.c_tmask + static_cast<size_t>(s) * T;
         const float* used = st.c_used + static_cast<size_t>(s) * R;
         int32_t best = 0;
@@ -242,7 +262,7 @@ pack_scan(Dims d, In in0, State st0, Out out0, Strides sc) {
 
     // node caps at the current load, the group's per-entity caps
     for (int n = tid; n < N; n += kThreads) {
-      int32_t ec = in.cap_ng[static_cast<size_t>(n) * G + gi] > 0
+      int32_t ec = in.cap_ng[tcap(d, n, gi)] > 0
                        ? fits_count(in.n_avail + static_cast<size_t>(n) * R,
                                     st.exist_used + static_cast<size_t>(n) * R, m.req, R)
                        : 0;
@@ -280,11 +300,11 @@ pack_scan(Dims d, In in0, State st0, Out out0, Strides sc) {
 
 extern "C" int kt_pack(
     int S, int G, int T, int P, int N, int R, int K, int V1, int NMAX, int JH,
-    int JD, int MV, int MW, int NRES, int zone_kid, int ct_kid, int wf_iters,
-    int has_domains, int has_contrib,
+    int JD, int MV, int MW, int NRES, int O, int zone_kid, int ct_kid, int wf_iters,
+    int has_domains, int has_contrib, int tiled,
     // scenario strides of the batched inputs (0: shared)
     long long s_g_count, long long s_cap_ng, long long s_n_hcnt,
-    long long s_nh_cnt0, long long s_g_dprior, long long s_dd0,
+    long long s_nh_cnt0, long long s_g_dprior, long long s_dd0, long long s_n_tol,
     // groups (FFD order)
     const int32_t* g_count, const float* g_req, const uint8_t* g_def,
     const uint8_t* g_neg, const uint8_t* g_mask, const int32_t* g_hcap,
@@ -309,6 +329,11 @@ extern "C" int kt_pack(
     // minValues tables, the reservation ledger
     const int32_t* p_mvmin, const uint8_t* t_mvoh, const int32_t* res_cap0,
     const uint8_t* a_res,
+    // the tiled mode's row inputs
+    const uint8_t* p_def, const uint8_t* p_neg, const uint8_t* p_titype_ok,
+    const uint8_t* t_def, const uint8_t* t_mask, const uint8_t* o_avail,
+    const int32_t* o_zone, const int32_t* o_ct, const uint8_t* n_def,
+    const uint8_t* n_mask, const uint8_t* n_tol,
     // state + scratch
     float* exist_used, float* c_used, int32_t* c_npods, uint8_t* c_def,
     uint8_t* c_neg, uint8_t* c_mask, int32_t* ch_cnt, int32_t* nhc,
@@ -318,6 +343,10 @@ extern "C" int kt_pack(
     int32_t* ddc, int32_t* res_rem, int32_t* mvcap,
     // word tables shared by the scenarios
     uint32_t* mvw, uint32_t* ares_z, uint32_t* aheld_z, uint32_t* aheld_c,
+    // the tiled rows, S slices, and the shared mask words
+    // (empty untiled)
+    uint8_t* r_compat, uint8_t* r_tok, int32_t* r_nfit, int32_t* r_cap,
+    uint32_t* tw, uint32_t* pw, uint32_t* nw,
     // outputs
     int32_t* c_pool, uint8_t* c_tmask, int32_t* n_open, uint8_t* overflow,
     int32_t* exist_fills, int32_t* claim_fills, int32_t* unplaced,
@@ -329,22 +358,31 @@ extern "C" int kt_pack(
   if (S == 0) return kt::kNothingLaunched;
   const int W = (V1 + 31) / 32;
   Dims d{G, T, P, N, R, K, V1, NMAX, JH, JD, zone_kid, ct_kid, wf_iters, W,
-         has_domains != 0, has_contrib != 0, MV, MW, (MW + 31) / 32, NRES};
+         has_domains != 0, has_contrib != 0, MV, MW, (MW + 31) / 32, NRES,
+         O, tiled != 0};
   In in{g_count, g_req, g_def, g_neg, g_mask, g_hcap, g_haff, g_hstg, g_hscap,
         g_hself, compat_pg, type_ok, n_fit, cap_ng, t_alloc, t_cap, a_tzc,
         p_daemon, p_limit, p_has_limit, p_tol, n_avail, n_base, n_hcnt,
         nh_cnt0, well_known, g_dmode, g_dkey, g_dskew, g_dmin0, g_dprior,
         g_dreg, g_drank, g_dtg, p_mask, n_dzone, n_dct, dd0,
-        g_hcontrib, g_dcontrib, dtg_key, p_mvmin, t_mvoh, res_cap0, a_res};
+        g_hcontrib, g_dcontrib, dtg_key, p_mvmin, t_mvoh, res_cap0, a_res,
+        p_def, p_neg, p_titype_ok, t_def, t_mask, o_avail, o_zone, o_ct,
+        n_def, n_mask, n_tol};
+  Rows rw{r_compat, r_tok, r_nfit, r_cap, tw, pw, nw};
   State st{exist_used, c_used, c_npods, c_def, c_neg, c_mask, ch_cnt, nhc,
            pool_rem, exist_cap, claim_cap, claim_fill, avail, atz,
            atc, toff_pt, percap, c_slot, ddc, res_rem, mvcap,
            mvw, ares_z, aheld_z, aheld_c};
   Out out{c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills,
           unplaced, c_dzone, c_dct, c_resv};
-  Strides sc{s_g_count, s_cap_ng, s_n_hcnt, s_nh_cnt0, s_g_dprior, s_dd0};
+  Strides sc{s_g_count, s_cap_ng, s_n_hcnt, s_nh_cnt0, s_g_dprior, s_dd0, s_n_tol};
   if (MV || NRES) {
     static_words<<<132, 256, 0, stream>>>(d, in, st);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (tiled) {
+    tile_words<<<132, 256, 0, stream>>>(d, in, rw);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -352,6 +390,6 @@ extern "C" int kt_pack(
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(pack_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-  pack_scan<<<S, kThreads, smem, stream>>>(d, in, st, out, sc);
+  pack_scan<<<S, kThreads, smem, stream>>>(d, in, st, rw, out, sc);
   return static_cast<int>(cudaGetLastError());
 }

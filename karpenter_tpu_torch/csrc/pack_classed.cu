@@ -1,10 +1,10 @@
 // Kernel B5: the class-batched packing scan.
 //
 // Replaces karpenter_tpu/ops/packing.py:pack_classed (a lax.scan over
-// feasibility classes on the TPU, class body packing.py:1342) in the
-// scope the PyTorch port covers: untiled tables, with or without domains,
-// contributor counting and minValues floors; no reservation ledger, which
-// pack_classed never takes (the driver routes such batches to B4). The
+// feasibility classes on the TPU, class body packing.py:1342): tables or
+// the tiled mode, with or without domains, contributor counting and
+// minValues floors; no reservation ledger, which pack_classed never
+// takes (the driver routes such batches to B4). The
 // driver routes a batch here when its groups share few feasibility
 // classes (the reference's diverse mix: ~1,900 groups in ~30 classes).
 //
@@ -38,6 +38,11 @@
 // lmax] member buffers and their inv_idx gather are a layout, not part of
 // the function); rows of groups that place nothing stay as the entry's
 // memset leaves them: zero.
+//
+// The tiled mode (tiled; packing.py:1335, :1347-1385): the class head
+// builds the class's feasibility rows once (tile_rows, pack_common.cuh)
+// into the Rows scratch, and every member and the end-of-class settlement
+// read them, as JAX computes them once per class.
 #include "pack_common.cuh"
 
 namespace {
@@ -93,9 +98,10 @@ struct ClassedBulkHook {
 };
 
 __global__ void __launch_bounds__(kThreads, 1)
-pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
+pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, Head hd0) {
   __shared__ In in;
   __shared__ State st;
+  __shared__ Rows rw;
   __shared__ Out out;
   __shared__ Classes cls;
   __shared__ Head hd;
@@ -107,6 +113,8 @@ pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
   if (threadIdx.x == 0) {
     in = in0;
     st = st0;
+    rw = rw0;
+    use_rows(d, in, rw);
     out = out0;
     cls = cls0;
     hd = hd0;
@@ -130,6 +138,7 @@ pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
     // ---- class-invariant head tables (packing.py:1343-1541) ----
     load_rows(d, in, cs, m);
     __syncthreads();
+    if (d.tiled) tile_rows(d, in, rw, m, cs);
     for (int t = tid; t < T; t += kThreads) {
       hd.off_grp[t] = offer(st.atz, t, V1, W, m.gz, m.gc);
       if (cdyn)
@@ -142,7 +151,7 @@ pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
       template_domains(d, in, st, m, cs, cdk);
     }
     for (int n = tid; n < N; n += kThreads)
-      st.exist_cap[n] = in.cap_ng[static_cast<size_t>(n) * G + cs] > 0
+      st.exist_cap[n] = in.cap_ng[tcap(d, n, cs)] > 0
                             ? fits_count(in.n_avail + static_cast<size_t>(n) * R,
                                          st.exist_used + static_cast<size_t>(n) * R, m.req, R)
                             : 0;
@@ -170,7 +179,7 @@ pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
       if (cdyn)
         for (int v = lane; v < V1; v += 32) wpc[v] = 0;
       __syncwarp();
-      const uint8_t* tok = in.type_ok + (static_cast<size_t>(out.c_pool[s]) * G + cs) * T;
+      const uint8_t* tok = in.type_ok + trow(d, out.c_pool[s], cs) * T;
       int32_t best = 0;
       for (int t = lane; t < T; t += 32) {
         const size_t st_i = static_cast<size_t>(s) * T + t;
@@ -310,7 +319,7 @@ pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
       const int32_t pin_rel = (cdk == 0 ? out.c_dzone : out.c_dct)[s];
       const int pinc = min(max(pin_rel, 0), V1 - 1);
       const bool newpin = pin_rel >= 0 && pin_rel != hd.pin0[s] && !is_new;
-      const uint8_t* tok = in.type_ok + (static_cast<size_t>(out.c_pool[s]) * G + cs) * T;
+      const uint8_t* tok = in.type_ok + trow(d, out.c_pool[s], cs) * T;
       for (int t = lane; t < T; t += 32) {
         const size_t st_i = static_cast<size_t>(s) * T + t;
         bool off;
@@ -337,8 +346,8 @@ pack_classed_scan(Dims d, In in0, State st0, Out out0, Classes cls0, Head hd0) {
 
 extern "C" int kt_pack_classed(
     int G, int T, int P, int N, int R, int K, int V1, int NMAX, int JH, int JD,
-    int MV, int MW, int C, int zone_kid, int ct_kid, int wf_iters, int has_domains,
-    int has_contrib,
+    int MV, int MW, int O, int C, int zone_kid, int ct_kid, int wf_iters, int has_domains,
+    int has_contrib, int tiled,
     // groups (FFD order)
     const int32_t* g_count, const float* g_req, const uint8_t* g_def,
     const uint8_t* g_neg, const uint8_t* g_mask, const int32_t* g_hcap,
@@ -363,6 +372,11 @@ extern "C" int kt_pack_classed(
     // minValues tables; the (empty) reservation ledger
     const int32_t* p_mvmin, const uint8_t* t_mvoh, const int32_t* res_cap0,
     const uint8_t* a_res,
+    // the tiled mode's row inputs
+    const uint8_t* p_def, const uint8_t* p_neg, const uint8_t* p_titype_ok,
+    const uint8_t* t_def, const uint8_t* t_mask, const uint8_t* o_avail,
+    const int32_t* o_zone, const int32_t* o_ct, const uint8_t* n_def,
+    const uint8_t* n_mask, const uint8_t* n_tol,
     // the class partition
     const int32_t* class_start, const int32_t* class_len, const uint8_t* class_dyn,
     const int32_t* class_dkey,
@@ -375,6 +389,9 @@ extern "C" int kt_pack_classed(
     int32_t* ddc, int32_t* res_rem, int32_t* mvcap,
     // each type's minValues values per key, as words
     uint32_t* mvw,
+    // the tiled rows and the shared mask words (empty untiled)
+    uint8_t* r_compat, uint8_t* r_tok, int32_t* r_nfit, int32_t* r_cap,
+    uint32_t* tw, uint32_t* pw, uint32_t* nw,
     // class head tables and per-claim summaries
     int32_t* capv, int32_t* percapv, int32_t* af0, uint8_t* off0, uint8_t* toff_nt0,
     uint8_t* live, int32_t* cfills, int32_t* pin0, uint8_t* off_grp, uint8_t* toff_grp,
@@ -394,13 +411,16 @@ extern "C" int kt_pack_classed(
   cudaMemsetAsync(unplaced, 0, sizeof(int32_t) * static_cast<size_t>(G), stream);
   // no reservation ledger here (NRES = 0)
   Dims d{G, T, P, N, R, K, V1, NMAX, JH, JD, zone_kid, ct_kid, wf_iters, W,
-         has_domains != 0, has_contrib != 0, MV, MW, (MW + 31) / 32, 0};
+         has_domains != 0, has_contrib != 0, MV, MW, (MW + 31) / 32, 0, O, tiled != 0};
   In in{g_count, g_req, g_def, g_neg, g_mask, g_hcap, g_haff, g_hstg, g_hscap,
         g_hself, compat_pg, type_ok, n_fit, cap_ng, t_alloc, t_cap, a_tzc,
         p_daemon, p_limit, p_has_limit, p_tol, n_avail, n_base, n_hcnt,
         nh_cnt0, well_known, g_dmode, g_dkey, g_dskew, g_dmin0, g_dprior,
         g_dreg, g_drank, g_dtg, p_mask, n_dzone, n_dct, dd0,
-        g_hcontrib, g_dcontrib, dtg_key, p_mvmin, t_mvoh, res_cap0, a_res};
+        g_hcontrib, g_dcontrib, dtg_key, p_mvmin, t_mvoh, res_cap0, a_res,
+        p_def, p_neg, p_titype_ok, t_def, t_mask, o_avail, o_zone, o_ct,
+        n_def, n_mask, n_tol};
+  Rows rw{r_compat, r_tok, r_nfit, r_cap, tw, pw, nw};
   State st{exist_used, c_used, c_npods, c_def, c_neg, c_mask, ch_cnt, nhc,
            pool_rem, exist_cap, claim_cap, claim_fill, avail, atz,
            atc, toff_pt, percap, c_slot, ddc, res_rem, mvcap,
@@ -414,10 +434,15 @@ extern "C" int kt_pack_classed(
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  if (tiled) {
+    tile_words<<<132, 256, 0, stream>>>(d, in, rw);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const size_t smem = smem_bytes(d);
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(pack_classed_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-  pack_classed_scan<<<1, kThreads, smem, stream>>>(d, in, st, out, cls, hd);
+  pack_classed_scan<<<1, kThreads, smem, stream>>>(d, in, st, rw, out, cls, hd);
   return static_cast<int>(cudaGetLastError());
 }

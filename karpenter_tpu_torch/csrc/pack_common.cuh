@@ -10,16 +10,30 @@
 // integer (exact in any order); argmin/argmax break ties at the lowest
 // index; float32 ledgers use two IEEE roundings per a*b+c (built with
 // -fmad=false), as XLA computes them.
+//
+// The tiled mode (Dims::tiled; packing.py:_tile_rows, the HBM-scaling
+// route): the four feasibility tables are never materialised. At the head
+// of each real step (B4) or class (B5) tile_rows builds that group's rows
+// (compat_row [P], type_ok_row and n_fit_row [P, T], cap_row [N]) into the
+// block's own scratch in device memory (Rows: P*T bytes + P*T int32 + P +
+// N int32 per scenario, 256 KB at 64 pools x 800 types, past an SM's
+// shared memory), with kernel B3's cell functions (dense_feasibility.cuh)
+// and common.cuh's fits_count; the block's In then points its table
+// pointers at that scratch, and every reader indexes through trow / tcap,
+// which read column ``hi`` of a [P, G(, T)] table, or the step's one row.
 #pragma once
 
 #include "common.cuh"
+#include "dense_feasibility.cuh"
 
 namespace {
 
+using kt::bit;
 using kt::clip;
 using kt::fits_count;
 using kt::kBigDom;
 using kt::kFull;
+using kt::mask_word;
 using kt::wrap_add;
 using kt::wrap_mul;
 using kt::wrap_sub;
@@ -125,18 +139,6 @@ __device__ __forceinline__ int32_t floordiv(int32_t a, int32_t b) {
   return q;
 }
 
-// bit c of word w of a value-slot mask row: the claim/template masks
-__device__ __forceinline__ uint32_t mask_word(const uint8_t* row, int V1, int w) {
-  uint32_t bits = 0;
-  for (int c = 0; c < 32 && w * 32 + c < V1; ++c)
-    bits |= static_cast<uint32_t>(row[w * 32 + c] != 0) << c;
-  return bits;
-}
-
-__device__ __forceinline__ bool bit(const uint32_t* words, int v) {
-  return (words[v >> 5] >> (v & 31)) & 1u;
-}
-
 // any (z, c) with zone bit z, capacity-type bit c and a_tzc[t, z, c]
 __device__ __forceinline__ bool offer(const uint32_t* atz, int t, int V1, int W,
                                       const uint32_t* cz, const uint32_t* cc) {
@@ -170,6 +172,9 @@ struct Dims {
   bool has_domains, has_contrib;
   // minValues keys, values per key and their words; reservations
   int MV, MW, MWW, NRES;
+  // offerings per type; the tiled mode (per-step rows, no tables)
+  int O;
+  bool tiled;
 };
 
 struct In {
@@ -196,7 +201,56 @@ struct In {
   // [NRES, T, V1, V1]
   const int32_t* p_mvmin; const uint8_t* t_mvoh; const int32_t* res_cap0;
   const uint8_t* a_res;
+  // the tiled mode's row inputs (packing.py:TileInputs): template and
+  // type requirement rows, the types' offerings [T, O], the node
+  // requirement rows and tolerations [N, G]
+  const uint8_t* p_def; const uint8_t* p_neg; const uint8_t* p_titype_ok;
+  const uint8_t* t_def; const uint8_t* t_mask; const uint8_t* o_avail;
+  const int32_t* o_zone; const int32_t* o_ct; const uint8_t* n_def;
+  const uint8_t* n_mask; const uint8_t* n_tol;
 };
+
+// The tiled mode's scratch (device memory): one scenario's rows for the
+// step, compat_row [P], type_ok_row [P, T], n_fit_row [P, T] and cap_row
+// [N]; and the mask words every scenario shares, built once per launch
+// (tile_words): types' tw [T, K, W], templates' pw [P, K, W], nodes' nw
+// [N, K, W].
+struct Rows {
+  uint8_t* compat; uint8_t* tok; int32_t* nfit; int32_t* cap;
+  uint32_t* tw; uint32_t* pw; uint32_t* nw;
+};
+
+// offset of template p's row for group (or class head) ``hi`` in the
+// compat / type_ok / n_fit tables ([P, G(, T)]; times T for the last two),
+// or of its row in the step's tiled rows ([P(, T)])
+__device__ __forceinline__ size_t trow(const Dims& d, int p, int hi) {
+  return d.tiled ? static_cast<size_t>(p) : static_cast<size_t>(p) * d.G + hi;
+}
+
+// offset of node n's cap for ``hi`` in cap_ng [N, G], or in the cap row
+__device__ __forceinline__ size_t tcap(const Dims& d, int n, int hi) {
+  return d.tiled ? static_cast<size_t>(n) : static_cast<size_t>(n) * d.G + hi;
+}
+
+// point the block's table pointers at its tiled rows (thread 0, before
+// the first barrier of the kernel)
+__device__ void use_rows(const Dims& d, In& in, const Rows& rw) {
+  if (!d.tiled) return;
+  in.compat_pg = rw.compat;
+  in.type_ok = rw.tok;
+  in.n_fit = rw.nfit;
+  in.cap_ng = rw.cap;
+}
+
+// The mask words every scenario's row build shares (Rows::tw, pw, nw), one
+// grid-stride pass before the scan kernel.
+__global__ void tile_words(Dims d, In in, Rows rw) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long i0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  kt::mask_words(in.t_mask, static_cast<long long>(d.T) * d.K, d.V1, d.W, rw.tw, i0, step);
+  kt::mask_words(in.p_mask, static_cast<long long>(d.P) * d.K, d.V1, d.W, rw.pw, i0, step);
+  kt::mask_words(in.n_mask, static_cast<long long>(d.N) * d.K, d.V1, d.W, rw.nw, i0, step);
+}
 
 struct State {  // PackState in device memory (plus per-step scratch)
   float* exist_used; float* c_used; int32_t* c_npods; uint8_t* c_def;
@@ -227,8 +281,9 @@ struct Out {
 // per-step shared memory, carved from the dynamic allocation
 struct Smem {
   uint32_t* cz;     // [kWarps][2][W] per-warp claim zone / capacity-type words
-  uint32_t* gz;     // [W] the group's zone words
-  uint32_t* gc;     // [W] ... capacity-type words
+  uint32_t* gw;     // [K][W] the group's requirement mask words
+  uint32_t* gz;     // the zone key's row of gw
+  uint32_t* gc;     // ... the capacity-type key's
   uint32_t* pz;     // [P][W] template ∧ group zone words
   uint32_t* pc;     // [P][W]
   uint32_t* fresh;  // [W] fresh_ok_d bits
@@ -258,7 +313,8 @@ struct Smem {
 
 inline size_t smem_bytes(const Dims& d) {
   const int NSLOT = d.V1 + 2, W = d.W, V1 = d.V1;
-  const size_t words = static_cast<size_t>(kWarps) * 2 * W + 2 * W + 2 * static_cast<size_t>(d.P) * W +
+  const size_t words = static_cast<size_t>(kWarps) * 2 * W + static_cast<size_t>(d.K) * W +
+                       2 * static_cast<size_t>(d.P) * W +
                        W + 4 * NSLOT + 5 * V1 + static_cast<size_t>(kWarps) * V1 + 5 * V1 +
                        (d.MV ? static_cast<size_t>(kWarps) * d.MW : 0) + d.P + 2 * W + d.NRES + 1 +
                        d.R;
@@ -268,9 +324,10 @@ inline size_t smem_bytes(const Dims& d) {
 __device__ void carve(unsigned char* dyn, const Dims& d, Smem& m) {
   const int W = d.W, P = d.P, V1 = d.V1, NSLOT = d.V1 + 2;
   m.cz = reinterpret_cast<uint32_t*>(dyn);
-  m.gz = m.cz + kWarps * 2 * W;
-  m.gc = m.gz + W;
-  m.pz = m.gc + W;
+  m.gw = m.cz + kWarps * 2 * W;
+  m.gz = m.gw + d.zone_kid * W;
+  m.gc = m.gw + d.ct_kid * W;
+  m.pz = m.gw + d.K * W;
   m.pc = m.pz + P * W;
   m.fresh = m.pc + P * W;
   m.qd = reinterpret_cast<int32_t*>(m.fresh + W);
@@ -522,7 +579,7 @@ __device__ void init_state(const Dims& d, const In& in, const State& st, const O
 }
 
 // The group's request and requirement rows (row ``gi`` of the group
-// inputs) into shared memory. No barrier.
+// inputs) and its mask words into shared memory. No barrier.
 __device__ void load_rows(const Dims& d, const In& in, int gi, const Smem& m) {
   const int tid = threadIdx.x, K = d.K, V1 = d.V1;
   for (int i = tid; i < d.R; i += kThreads) m.req[i] = in.g_req[static_cast<size_t>(gi) * d.R + i];
@@ -532,11 +589,75 @@ __device__ void load_rows(const Dims& d, const In& in, int gi, const Smem& m) {
   }
   for (int i = tid; i < K * V1; i += kThreads)
     m.gmask[i] = in.g_mask[static_cast<size_t>(gi) * K * V1 + i];
-  for (int i = tid; i < d.W; i += kThreads) {
-    m.gz[i] = mask_word(in.g_mask + (static_cast<size_t>(gi) * K + d.zone_kid) * V1, V1, i);
-    m.gc[i] = mask_word(in.g_mask + (static_cast<size_t>(gi) * K + d.ct_kid) * V1, V1, i);
-  }
+  kt::mask_words(in.g_mask + static_cast<size_t>(gi) * K * V1, K, V1, d.W, m.gw, tid, kThreads);
 }
+
+// parity: phase tile-rows
+// packing.py:_tile_rows for group (or class head) ``hi``: compat_row =
+// p_tol ∧ Compatible(template, group) with the well-known allowance;
+// type_ok_row = the type ∩ (template ∪ group) intersect ∧ an offering
+// under the merged zone / capacity-type masks ∧ n_fit >= 1 ∧
+// p_titype_ok ∧ compat_row; n_fit_row = fits_count(t_alloc, p_daemon,
+// g_req) (written as zeros on a row whose compat_row is false, a row the
+// scan never reads); cap_row = strict node compatibility (no allowance) ∧
+// n_tol, times fits_count(n_avail, n_base, g_req). B3's cell functions
+// over the mask words (the group's from load_rows, in shared memory), and
+// the bit-exact fits_count. Needs tile_words and load_rows(hi); call
+// after a barrier; ends in one. Kept out of line: inlined into the scan it
+// slowed every step of the tenant cell's scan by ~16%, untiled steps too,
+// with the row build's own time unchanged (tenant_scan.py, H100).
+__device__ __noinline__ void tile_rows(const Dims& d, const In& in, const Rows& rw, const Smem& m, int hi) {
+  const int tid = threadIdx.x, P = d.P, T = d.T, K = d.K, R = d.R, O = d.O, W = d.W;
+  const size_t KW = static_cast<size_t>(K) * W;
+  for (int p = tid; p < P; p += kThreads)
+    rw.compat[p] = in.p_tol[static_cast<size_t>(p) * d.G + hi] &&
+                   kt::dense_compatible(in.p_def + static_cast<size_t>(p) * K,
+                                        in.p_neg + static_cast<size_t>(p) * K, rw.pw + p * KW,
+                                        m.gdef, m.gneg, m.gw, in.well_known, K, W);
+  for (int n = tid; n < d.N; n += kThreads) {
+    // a node's labels are never negated and get no well-known allowance
+    const bool ok = in.n_tol[static_cast<size_t>(n) * d.G + hi] &&
+                    kt::dense_compatible(in.n_def + static_cast<size_t>(n) * K, nullptr,
+                                         rw.nw + n * KW, m.gdef, m.gneg, m.gw, nullptr, K, W);
+    rw.cap[n] = ok ? fits_count(in.n_avail + static_cast<size_t>(n) * R,
+                                in.n_base + static_cast<size_t>(n) * R, m.req, R)
+                   : 0;
+  }
+  __syncthreads();
+  // one template row at a time, threads over types. A template the group
+  // is not compatible with has no type_ok cell, and then its n_fit row is
+  // never read (the scan reads n_fit only where type_ok holds: the avail
+  // cells, and the bulk template p_star's row, which has one), so its row
+  // is written as zeros without a fits_count: under a tenant taint that
+  // is every template but the group's own
+  for (int p = 0; p < P; ++p) {
+    const bool cp = rw.compat[p];
+    const uint32_t* pw = rw.pw + p * KW;
+    const size_t row = static_cast<size_t>(p) * T;
+    for (int t = tid; t < T; t += kThreads) {
+      if (!cp) {
+        rw.nfit[row + t] = 0;
+        rw.tok[row + t] = 0;
+        continue;
+      }
+      const int32_t nf = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
+                                    in.p_daemon + static_cast<size_t>(p) * R, m.req, R);
+      const bool ok =
+          nf >= 1 && in.p_titype_ok[row + t] &&
+          kt::dense_type_compat(in.t_def + static_cast<size_t>(t) * K, rw.tw + t * KW,
+                                in.p_def + static_cast<size_t>(p) * K, pw, m.gdef, m.gw, K, W) &&
+          kt::dense_offering_ok(pw + static_cast<size_t>(d.zone_kid) * W,
+                                pw + static_cast<size_t>(d.ct_kid) * W, m.gz, m.gc,
+                                in.o_avail + static_cast<size_t>(t) * O,
+                                in.o_zone + static_cast<size_t>(t) * O,
+                                in.o_ct + static_cast<size_t>(t) * O, O);
+      rw.nfit[row + t] = nf;
+      rw.tok[row + t] = ok;
+    }
+  }
+  __syncthreads();
+}
+
 
 // The templates' zone / capacity-type words merged with the group
 // requirement rows of ``gi`` (packing.py's pzm / pcm) into m.pz / m.pc.
@@ -566,7 +687,7 @@ __device__ void template_domains(const Dims& d, const In& in, const State& st, c
     const int t = static_cast<int>((i / V1) % T), v = static_cast<int>(i % V1);
     const bool ok = offer_in(st.atz, st.atc, dkey, t, v, V1, W, m.pz + p * W, m.pc + p * W);
     st.toff_pt[i] = ok;
-    if (ok && in.type_ok[(static_cast<size_t>(p) * d.G + ti) * T + t])
+    if (ok && in.type_ok[trow(d, p, ti) * T + t])
       atomicOr(&m.fresh[v >> 5], 1u << (v & 31));
   }
   __syncthreads();
@@ -590,7 +711,7 @@ __device__ bool warp_claim_compat(const Dims& d, const In& in, const State& st, 
   }
   ok = __all_sync(kFull, ok);
   const int pp = out.c_pool[s];
-  return ok && in.p_tol[pp * d.G + ti] && in.compat_pg[pp * d.G + ti];
+  return ok && in.p_tol[pp * d.G + ti] && in.compat_pg[trow(d, pp, ti)];
 }
 
 // The warp's claim zone / capacity-type words, merged with the group's.
@@ -1096,7 +1217,7 @@ __device__ void commit_claims(const Dims& d, const In& in, const State& st, cons
         const uint32_t* az = claim_atz(d, st, out, s);
         const uint32_t* ac = claim_atc(d, st, out, s);
         const int pp = out.c_pool[s];
-        const uint8_t* tok = in.type_ok + (static_cast<size_t>(pp) * d.G + g.ti) * T;
+        const uint8_t* tok = in.type_ok + trow(d, pp, g.ti) * T;
         for (int t = lane; t < T; t += 32) {
           uint8_t* cell = out.c_tmask + static_cast<size_t>(s) * T + t;
           if (!*cell) continue;
@@ -1158,7 +1279,7 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
                              const Hook& hook, Shared& sh, float* s_debit) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const int T = d.T, P = d.P, R = d.R, K = d.K, V1 = d.V1, W = d.W, NRES = d.NRES;
-  const int NMAX = d.NMAX, JH = d.JH, G = d.G, NSLOT = V1 + 2, ANY = V1, DEAD = V1 + 1;
+  const int NMAX = d.NMAX, JH = d.JH, NSLOT = V1 + 2, ANY = V1, DEAD = V1 + 1;
   if (tid == 0)
     for (int sl = 0; sl < NSLOT; ++sl) m.ddead[sl] = sl == DEAD;
   __syncthreads();
@@ -1177,7 +1298,7 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
     int32_t p_min = P;
     for (int i = tid; i < P * T; i += kThreads) {
       const int p = i / T, t = i % T;
-      bool ok = in.type_ok[(static_cast<size_t>(p) * G + g.ti) * T + t];
+      bool ok = in.type_ok[trow(d, p, g.ti) * T + t];
       if (ok && in.p_has_limit[p])
         for (int r = 0; r < R && ok; ++r)
           ok = in.t_cap[static_cast<size_t>(t) * R + r] <= st.pool_rem[p * R + r];
@@ -1196,7 +1317,7 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
       __syncthreads();
       for (int p = wid; p < P; p += kWarps) {
         const uint8_t* avp = st.avail + static_cast<size_t>(p) * T;
-        const int32_t* nfp = in.n_fit + (static_cast<size_t>(p) * G + g.ti) * T;
+        const int32_t* nfp = in.n_fit + trow(d, p, g.ti) * T;
         const int32_t c = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(p) * d.MV,
                                          [&](int t, int32_t& fit) {
                                            fit = nfp[t];
@@ -1212,7 +1333,7 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
     const bool any_feasible = p_min < P;
     const int p_star = any_feasible ? p_min : 0;
     const uint8_t* av = st.avail + static_cast<size_t>(p_star) * T;
-    const int32_t* nf = in.n_fit + (static_cast<size_t>(p_star) * G + g.ti) * T;
+    const int32_t* nf = in.n_fit + trow(d, p_star, g.ti) * T;
     int32_t best = INT_MIN;
     for (int t = tid; t < T; t += kThreads) best = max(best, av[t] ? nf[t] : 0);
     const int32_t n_fit_max = block_max(best, sh);

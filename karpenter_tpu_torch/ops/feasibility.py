@@ -506,6 +506,8 @@ def _launch_dense_fresh(
     compat_pg = torch.empty((P, G), dtype=b, device=dev)
     type_ok = torch.empty((P, G, T), dtype=b, device=dev)
     n_fit = torch.empty((P, G, T), dtype=i32, device=dev)
+    # the mask words of groups, templates and types (the kernel's scratch)
+    words = torch.empty(((G + P + T) * K * ((V1 + 31) // 32),), dtype=i32, device=dev)
     fn = _build.library("dense_feasibility").kt_dense_fresh
     p = _build.ptr
     with torch.cuda.device(dev):
@@ -517,7 +519,7 @@ def _launch_dense_fresh(
             p(p_titype_ok),
             p(t_def), p(t_mask), p(t_alloc),
             p(o_avail), p(o_zone), p(o_ct),
-            p(well_known),
+            p(well_known), p(words),
             p(compat_pg), p(type_ok), p(n_fit),
             _build.stream(),
         )
@@ -548,13 +550,15 @@ def _launch_dense_existing(
     ):
         _build.check(t, name, dt, shape, dev)
     cap_ng = torch.empty(lead + (N, G), dtype=torch.int32, device=dev)
+    # the mask words of groups and nodes (the kernel's scratch)
+    words = torch.empty(((G + N) * K * ((V1 + 31) // 32),), dtype=torch.int32, device=dev)
     fn = _build.library("dense_feasibility").kt_dense_existing
     p = _build.ptr
     with torch.cuda.device(dev):
         rc = fn(
             *(ctypes.c_int(int(v)) for v in (S, N, G, K, V1, R)),
             p(g_def), p(g_neg), p(g_mask), p(g_req),
-            p(n_def), p(n_mask), p(n_avail), p(n_base), p(n_tol),
+            p(n_def), p(n_mask), p(n_avail), p(n_base), p(n_tol), p(words),
             p(cap_ng),
             _build.stream(),
         )

@@ -41,10 +41,15 @@ capacity left (``res_rem``); a bulk of claims holding reservations
 and is bounded by the smallest remaining one; claims holding reservations
 keep seeing them (``a_held``).
 
-Scope of this port: what ``pack`` traces with tile_feasibility=False;
-has_domains, has_contrib, minValues and the ledger either way. The tiled
-tables raise NotImplementedError before anything runs (ROADMAP.md item
-A4b).
+The tiled mode (``tile_feasibility``, packing.py:_tile_rows, the
+HBM-scaling route): the four feasibility tables arrive as zero-G
+placeholders ([P, 0], [P, 0, T], [P, 0, T], [N, 0]) and each step (each
+class head in the class-batched scan) builds its own rows from the mask
+arrays of the scan's last input, one ``TileInputs`` (``p_def`` ... ``n_tol``):
+``_tile_rows_reference`` in the plain versions, the same rows in device
+scratch in the kernels (csrc/pack_common.cuh:tile_rows; the n_fit cells
+of a template the group is incompatible with are left 0 there, a row the
+scan never reads). It changes no output.
 
 ``pack`` is the public wrapper: its plain version ``pack_reference`` (a
 host loop over groups, exact and slow) for CPU tensors, kernel B4
@@ -56,8 +61,8 @@ small groups that share few classes): ``pack_classed_reference`` for CPU
 tensors, kernel B5 (csrc/pack_classed.cu) for CUDA tensors.
 
 Scenario batches (consolidation's probe sets, ops/solve.py:
-solve_scenarios_core_packed): ``g_count`` [S, G] and ``cap_ng`` [S, N, G],
-with ``n_hcnt`` / ``nh_cnt0`` / ``g_dprior`` / ``dd0`` either shared or
+solve_scenarios_core_packed): ``g_count`` [S, G], ``cap_ng`` [S, N, G] and
+``n_tol`` [S, N, G], with ``n_hcnt`` / ``nh_cnt0`` / ``g_dprior`` / ``dd0`` either shared or
 [S, ...]; every output gains a leading [S]. The plain version loops over
 the scenarios and stacks; the kernel runs one block per scenario in one
 launch.
@@ -70,7 +75,14 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .feasibility import f32_to_i32, fits_count
+from .feasibility import (
+    f32_to_i32,
+    fits_count,
+    merge_requirements,
+    offering_ok,
+    requirements_compatible,
+    requirements_intersect,
+)
 
 _BIGI = 2**28  # "unbounded" slot capacity; keeps int32 bisection safe
 
@@ -79,17 +91,6 @@ DMODE_SPREAD = 1
 DMODE_AFFINITY = 2
 DMODE_GATE_SPREAD = 3
 DMODE_GATE_AFF = 4
-
-
-def check_scope(tile_feasibility):
-    """Raise NotImplementedError for the static this slice does not port:
-    the tiled tables (has_domains, has_contrib, minValues and the
-    reservation ledger are ported, either way)."""
-    if tile_feasibility:
-        raise NotImplementedError(
-            "the PyTorch pack covers untiled tables; this batch needs "
-            "tile_feasibility (tiled tables) (ROADMAP.md item A4b)"
-        )
 
 
 def _sum32(x):
@@ -326,6 +327,79 @@ def _contrib_add(hrow, drow, exist_fill, claim_fill, c_mask, n_dzone, n_dct,
     ddc += drow[:, None] * per_slot
 
 
+class TileInputs(NamedTuple):
+    """The mask arrays the tiled mode builds its rows from (the scan's
+    last positional input, one value; the kernels take them in this
+    order)."""
+    p_def: torch.Tensor  # [P, K] bool
+    p_neg: torch.Tensor  # [P, K] bool
+    p_titype_ok: torch.Tensor  # [P, T] bool
+    t_def: torch.Tensor  # [T, K] bool
+    t_mask: torch.Tensor  # [T, K, V1] bool
+    o_avail: torch.Tensor  # [T, O] bool
+    o_zone: torch.Tensor  # [T, O] int32
+    o_ct: torch.Tensor  # [T, O] int32
+    n_def: torch.Tensor  # [N, K] bool
+    n_mask: torch.Tensor  # [N, K, V1] bool
+    n_tol: torch.Tensor  # [N, G] bool (a scenario's slice)
+
+
+# The scan's positional inputs, in pack_reference's order (also the
+# kernels' C order, TileInputs flattened last): the solve args PACK_HEAD,
+# the four feasibility tables, the solve args PACK_TAIL, one TileInputs.
+# pack_classed_reference takes the five class arrays after them.
+PACK_HEAD = ("g_count", "g_req", "g_def", "g_neg", "g_mask", "g_hcap",
+             "g_haff", "g_hstg", "g_hscap", "g_hself")
+PACK_TABLES = ("compat_pg", "type_ok", "n_fit", "cap_ng")
+PACK_TAIL = ("t_alloc", "t_cap", "a_tzc", "p_daemon", "p_limit",
+             "p_has_limit", "p_tol", "n_avail", "n_base", "n_hcnt", "nh_cnt0",
+             "well_known", "g_dmode", "g_dkey", "g_dskew", "g_dmin0",
+             "g_dprior", "g_dreg", "g_drank", "g_dtg", "p_mask", "n_dzone",
+             "n_dct", "dd0", "g_hcontrib", "g_dcontrib", "dtg_key",
+             "p_mvmin", "t_mvoh", "res_cap0", "a_res")
+SCAN_NAMES = PACK_HEAD + PACK_TABLES + PACK_TAIL + ("tiles",)
+
+
+def _tile_rows_reference(gi, tiles, g_def, g_neg, g_mask, g_req, p_mask, p_daemon,
+                         p_tol, t_alloc, n_avail, n_base, well_known, zone_kid, ct_kid):
+    """The tiled mode's feasibility rows of group ``gi`` (packing.py:
+    _tile_rows, line for line): fresh_claim_feasibility and
+    existing_node_feasibility over one group. Returns compat_row [P],
+    type_ok_row [P, T], n_fit_row [P, T] and cap_row [N]."""
+    gd, gn, gm = g_def[gi], g_neg[gi], g_mask[gi]
+    greq = g_req[gi]
+    p_def, p_neg = tiles.p_def, tiles.p_neg
+    c_def, c_neg, c_mask = merge_requirements(
+        p_def, p_neg, p_mask, gd[None, :], gn[None, :], gm[None, :, :]
+    )  # [P, K(,V1)]
+    compat_row = p_tol[:, gi] & requirements_compatible(
+        p_def, p_neg, p_mask, gd[None, :], gn[None, :], gm[None, :, :], well_known
+    )  # [P]
+    t_def = tiles.t_def
+    type_compat = requirements_intersect(
+        t_def[None, :, :], torch.zeros_like(t_def)[None, :, :], tiles.t_mask[None, :, :, :],
+        c_def[:, None, :], c_neg[:, None, :], c_mask[:, None, :, :],
+    )  # [P, T]
+    off_row = offering_ok(
+        c_mask[:, zone_kid, :], c_mask[:, ct_kid, :], tiles.o_avail, tiles.o_zone, tiles.o_ct,
+    )  # [P, T]
+    n_fit_row = fits_count(t_alloc[None, :, :], p_daemon[:, None, :], greq[None, None, :])
+    type_ok_row = (
+        type_compat & off_row & (n_fit_row >= 1) & tiles.p_titype_ok & compat_row[:, None]
+    )
+    if n_avail.shape[0]:
+        n_def = tiles.n_def
+        ncompat = requirements_compatible(
+            n_def, torch.zeros_like(n_def), tiles.n_mask, gd[None, :], gn[None, :],
+            gm[None, :, :], torch.zeros_like(well_known),
+        )  # [N]
+        ncap = fits_count(n_avail, n_base, greq[None, :])
+        cap_row = torch.where(ncompat & tiles.n_tol[:, gi], ncap, torch.zeros_like(ncap))
+    else:
+        cap_row = torch.zeros((0,), dtype=torch.int32, device=g_req.device)
+    return compat_row, type_ok_row, n_fit_row, cap_row
+
+
 def pack_reference(
     g_count, g_req, g_def, g_neg, g_mask,
     g_hcap, g_haff,
@@ -343,12 +417,14 @@ def pack_reference(
     p_mask, n_dzone, n_dct, dd0,
     g_hcontrib, g_dcontrib, dtg_key,
     p_mvmin, t_mvoh, res_cap0, a_res,
+    tiles,
     *,
     nmax: int,
     zone_kid: int,
     ct_kid: int,
     has_domains: bool,
     has_contrib: bool = False,
+    tile_feasibility: bool = False,
     wf_iters: int = 32,
 ):
     """Plain version of the grouped-FFD scan (the JAX step body, line for
@@ -357,7 +433,9 @@ def pack_reference(
     (g_dmode > 0) of a ``has_domains`` batch, like the JAX ``lax.cond``s.
     Returns (c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills,
     unplaced, c_dzone, c_dct, c_resv), the outputs of
-    ops/solve.py:solve_core."""
+    ops/solve.py:solve_core. ``tiles`` is a ``TileInputs``; with
+    ``tile_feasibility`` each step builds its rows from it
+    (``_tile_rows_reference``) and the tables are zero-G placeholders."""
     dev = g_count.device
     i32, f32 = torch.int32, torch.float32
     G = g_count.shape[0]
@@ -414,10 +492,15 @@ def pack_reference(
             continue  # padded / empty groups place nothing, mutate nothing
         req = g_req[gi]
         gdef, gneg, gmask = g_def[gi], g_neg[gi], g_mask[gi]
-        compat_row = compat_pg[:, gi]  # [P]
-        type_ok_row = type_ok_pgt[:, gi, :]  # [P, T]
-        n_fit_row = n_fit_pgt[:, gi, :]  # [P, T]
-        cap_row = cap_ng[:, gi]  # [N]
+        if tile_feasibility:
+            compat_row, type_ok_row, n_fit_row, cap_row = _tile_rows_reference(
+                gi, tiles, g_def, g_neg, g_mask, g_req, p_mask, p_daemon, p_tol,
+                t_alloc, n_avail, n_base, well_known, zone_kid, ct_kid)
+        else:
+            compat_row = compat_pg[:, gi]  # [P]
+            type_ok_row = type_ok_pgt[:, gi, :]  # [P, T]
+            n_fit_row = n_fit_pgt[:, gi, :]  # [P, T]
+            cap_row = cap_ng[:, gi]  # [N]
         hcap = g_hcap[gi]
         haff = bool(g_haff[gi])
         # shared hostname constraint: self owners capped at scap_h - count
@@ -902,6 +985,7 @@ def pack_classed_reference(
     p_mask, n_dzone, n_dct, dd0,
     g_hcontrib, g_dcontrib, dtg_key,
     p_mvmin, t_mvoh, res_cap0, a_res,
+    tiles,
     class_start, class_len, class_dyn, class_dkey, inv_idx,
     *,
     nmax: int,
@@ -910,6 +994,7 @@ def pack_classed_reference(
     ct_kid: int,
     has_domains: bool,
     has_contrib: bool = False,
+    tile_feasibility: bool = False,
     wf_iters: int = 32,
 ):
     """Plain version of the class-batched scan (packing.py:pack_classed,
@@ -936,6 +1021,11 @@ def pack_classed_reference(
     ``mvcapv`` (``minvalues_cap`` at the head) drops by exactly each fill.
     It takes no reservation ledger (NRES > 0 raises ValueError, as
     pack_classed asserts): the driver routes such batches to ``pack``.
+
+    ``tiles`` is a ``TileInputs``. With ``tile_feasibility`` the class
+    head builds its rows once
+    (``_tile_rows_reference``), as pack_classed does, and every member
+    reads them.
 
     Returns (PackState, exist_fills [G, N], claim_fills [G, NMAX],
     unplaced [G]), as pack_classed does."""
@@ -990,10 +1080,16 @@ def pack_classed_reference(
         gih = cs
         req = g_req[gih]
         gdef, gneg, gmask = g_def[gih], g_neg[gih], g_mask[gih]
-        compat_row = compat_pg[:, gih]  # [P]
-        type_ok_row = type_ok_pgt[:, gih, :]  # [P, T]
-        n_fit_row = n_fit_pgt[:, gih, :]  # [P, T]
-        cap_row = cap_ng[:, gih]  # [N]
+        if tile_feasibility:
+            # one row computation per class, not per group
+            compat_row, type_ok_row, n_fit_row, cap_row = _tile_rows_reference(
+                gih, tiles, g_def, g_neg, g_mask, g_req, p_mask, p_daemon, p_tol,
+                t_alloc, n_avail, n_base, well_known, zone_kid, ct_kid)
+        else:
+            compat_row = compat_pg[:, gih]  # [P]
+            type_ok_row = type_ok_pgt[:, gih, :]  # [P, T]
+            n_fit_row = n_fit_pgt[:, gih, :]  # [P, T]
+            cap_row = cap_ng[:, gih]  # [N]
         gz, gc = gmask[zone_kid], gmask[ct_kid]
         # every touch within the class merges the same gmask, so these
         # claim rows hold for all members
@@ -1355,36 +1451,41 @@ def pack_classed_reference(
     )
 
 
-# (position, rank with the scenario axis) of each input a scenario batch
-# may carry per scenario: g_count, cap_ng, n_hcnt, nh_cnt0, g_dprior, dd0
-_SCENARIO_ARGS = ((0, 2), (13, 3), (23, 3), (24, 3), (30, 3), (37, 3))
+# (position, rank with the scenario axis) of each scan input a scenario
+# batch may carry per scenario; the TileInputs' n_tol is the other
+_SCENARIO_ARGS = tuple((SCAN_NAMES.index(n), rank) for n, rank in (
+    ("g_count", 2), ("cap_ng", 3), ("n_hcnt", 3), ("nh_cnt0", 3), ("g_dprior", 3),
+    ("dd0", 3)))
 
 
 def pack_scenarios_reference(*args, **statics):
     """Plain version of the scenario-batched scan: ``pack_reference`` on
     each scenario's slice of the batched inputs (``g_count`` [S, G],
-    ``cap_ng`` [S, N, G]; ``n_hcnt``, ``nh_cnt0``, ``g_dprior`` and ``dd0``
-    when they carry a scenario axis, else shared), outputs stacked on a
-    leading [S]."""
+    ``cap_ng`` [S, N, G], ``n_tol`` [S, N, G]; ``n_hcnt``, ``nh_cnt0``,
+    ``g_dprior`` and ``dd0`` when they carry a scenario axis, else
+    shared), outputs stacked on a leading [S]. In the tiled mode each
+    scenario's cap row reads its own ``n_tol``."""
     per = []
     for si in range(args[0].shape[0]):
         a = list(args)
         for i, rank in _SCENARIO_ARGS:
             if a[i].dim() == rank:
                 a[i] = a[i][si]
+        if a[-1].n_tol.dim() == 3:
+            a[-1] = a[-1]._replace(n_tol=a[-1].n_tol[si])
         per.append(pack_reference(*a, **statics))
     return tuple(torch.stack(outs) for outs in zip(*per))
 
 
 def pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool,
-         has_contrib: bool = False, wf_iters: int = 32):
+         has_contrib: bool = False, tile_feasibility: bool = False, wf_iters: int = 32):
     """The grouped-FFD scan over ``pack_reference``'s positional inputs:
     ``pack_reference`` for CPU tensors, kernel B4 (csrc/pack.cu) for CUDA
     tensors. Same outputs either way. A 2-D ``g_count`` [S, G] is a
     scenario batch (module docstring)."""
     statics = dict(nmax=nmax, zone_kid=zone_kid, ct_kid=ct_kid,
                    has_domains=has_domains, has_contrib=has_contrib,
-                   wf_iters=wf_iters)
+                   tile_feasibility=tile_feasibility, wf_iters=wf_iters)
     if args[0].device.type == "cpu":
         if args[0].dim() == 2:
             return pack_scenarios_reference(*args, **statics)
@@ -1393,7 +1494,8 @@ def pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool,
 
 
 def pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int,
-                 has_domains: bool, has_contrib: bool = False, wf_iters: int = 32):
+                 has_domains: bool, has_contrib: bool = False,
+                 tile_feasibility: bool = False, wf_iters: int = 32):
     """The class-batched scan over ``pack_classed_reference``'s positional
     inputs (``pack_reference``'s, then the class arrays):
     ``pack_classed_reference`` for CPU tensors, kernel B5
@@ -1401,46 +1503,54 @@ def pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int,
     exist_fills, claim_fills, unplaced) either way."""
     statics = dict(nmax=nmax, lmax=lmax, zone_kid=zone_kid, ct_kid=ct_kid,
                    has_domains=has_domains, has_contrib=has_contrib,
-                   wf_iters=wf_iters)
+                   tile_feasibility=tile_feasibility, wf_iters=wf_iters)
     if args[0].device.type == "cpu":
         return pack_classed_reference(*args, **statics)
     return _launch_pack_classed(*args, **statics)
 
 
-# the number of the scan's positional inputs (pack_reference's order,
-# which is also the kernels' C order); B5 takes the class arrays after them
-_SCAN_INPUTS = 45
+# the number of the scan's positional inputs; B5 takes the class arrays
+# after them
+_SCAN_INPUTS = len(SCAN_NAMES)
 # the kernels' compile-time bound on the minValues value axis (t_mvoh's W,
 # csrc/pack_common.cuh:kMaxMvW): one int32 per value per warp in shared
 # memory. A wider catalog raises before any launch.
 MV_MAX_W = 1024
 
 
-def _check_scan_inputs(args):
+def _check_scan_inputs(args, tiled):
     """Shapes, dtypes and device of the scan's positional inputs (a
     scenario batch's leading [S] on g_count and cap_ng, and on n_hcnt,
-    nh_cnt0, g_dprior, dd0 when batched); raises on what the kernels do
-    not take. Returns (dims dict, S, batched-axis strides)."""
+    nh_cnt0, g_dprior, dd0 and n_tol when batched); the four tables are
+    zero-G placeholders when ``tiled``. Raises on what the kernels do not
+    take. Returns (dims dict, S, batched-axis strides)."""
+    if len(args) != _SCAN_INPUTS:
+        raise ValueError(f"expected {_SCAN_INPUTS} scan inputs, got {len(args)}")
     (g_count, g_req, g_def, g_neg, g_mask, g_hcap, g_haff, g_hstg, g_hscap,
      g_hself, compat_pg, type_ok_pgt, n_fit_pgt, cap_ng, t_alloc, t_cap, a_tzc,
      p_daemon, p_limit, p_has_limit, p_tol, n_avail, n_base, n_hcnt, nh_cnt0,
      well_known, g_dmode, g_dkey, g_dskew, g_dmin0, g_dprior, g_dreg, g_drank,
      g_dtg, p_mask, n_dzone, n_dct, dd0, g_hcontrib, g_dcontrib, dtg_key,
-     p_mvmin, t_mvoh, res_cap0, a_res) = args
+     p_mvmin, t_mvoh, res_cap0, a_res, tiles) = args
+    if not isinstance(tiles, TileInputs):
+        raise ValueError(f"the scan's last input must be a TileInputs, got {type(tiles)}")
     G, K, V1 = g_mask.shape
-    P, T = type_ok_pgt.shape[0], type_ok_pgt.shape[2]
+    P, T = tiles.p_titype_ok.shape
     N, R = n_avail.shape
+    O = tiles.o_avail.shape[1]
     JH = nh_cnt0.shape[-1]
     JD = dd0.shape[-2]
     MV, MW = t_mvoh.shape[1:] if t_mvoh.dim() == 3 else (0, 0)
     NRES = res_cap0.shape[0]
+    # the tables' group axis: G, or none in the tiled mode
+    TG = 0 if tiled else G
     # scenario batch: g_count [S, G]; the plain solve is one scenario
     # without the axis
     lead = tuple(g_count.shape[:-1])
     S = g_count.shape[0] if lead else 1
     leads = {name: tuple(x.shape[:-2]) for name, x in (
         ("n_hcnt", n_hcnt), ("nh_cnt0", nh_cnt0), ("g_dprior", g_dprior),
-        ("dd0", dd0))}
+        ("dd0", dd0), ("n_tol", tiles.n_tol))}
     for name, ld in leads.items():
         if ld not in ((), lead):
             raise ValueError(f"{name} scenario axes {ld} vs g_count's {lead}")
@@ -1459,10 +1569,10 @@ def _check_scan_inputs(args):
         (g_mask, "g_mask", b, (G, K, V1)), (g_hcap, "g_hcap", i32, (G,)),
         (g_haff, "g_haff", b, (G,)), (g_hstg, "g_hstg", i32, (G,)),
         (g_hscap, "g_hscap", i32, (G,)), (g_hself, "g_hself", b, (G,)),
-        (compat_pg, "compat_pg", b, (P, G)),
-        (type_ok_pgt, "type_ok_pgt", b, (P, G, T)),
-        (n_fit_pgt, "n_fit_pgt", i32, (P, G, T)),
-        (cap_ng, "cap_ng", i32, lead + (N, G)),
+        (compat_pg, "compat_pg", b, (P, TG)),
+        (type_ok_pgt, "type_ok_pgt", b, (P, TG, T)),
+        (n_fit_pgt, "n_fit_pgt", i32, (P, TG, T)),
+        (cap_ng, "cap_ng", i32, lead + (N, TG)),
         (t_alloc, "t_alloc", f32, (T, R)), (t_cap, "t_cap", f32, (T, R)),
         (a_tzc, "a_tzc", b, (T, V1, V1)),
         (p_daemon, "p_daemon", f32, (P, R)), (p_limit, "p_limit", f32, (P, R)),
@@ -1482,23 +1592,32 @@ def _check_scan_inputs(args):
         (dtg_key, "dtg_key", i32, (JD,)),
         (p_mvmin, "p_mvmin", i32, (P, MV)), (t_mvoh, "t_mvoh", b, (T, MV, MW)),
         (res_cap0, "res_cap0", i32, (NRES,)), (a_res, "a_res", b, (NRES, T, V1, V1)),
+        (tiles.p_def, "p_def", b, (P, K)), (tiles.p_neg, "p_neg", b, (P, K)),
+        (tiles.p_titype_ok, "p_titype_ok", b, (P, T)),
+        (tiles.t_def, "t_def", b, (T, K)), (tiles.t_mask, "t_mask", b, (T, K, V1)),
+        (tiles.o_avail, "o_avail", b, (T, O)), (tiles.o_zone, "o_zone", i32, (T, O)),
+        (tiles.o_ct, "o_ct", i32, (T, O)),
+        (tiles.n_def, "n_def", b, (N, K)), (tiles.n_mask, "n_mask", b, (N, K, V1)),
+        (tiles.n_tol, "n_tol", b, leads["n_tol"] + (N, G)),
     ):
         _build.check(t, name, dt, shape, dev)
     dims = dict(G=G, T=T, P=P, N=N, R=R, K=K, V1=V1, JH=JH, JD=JD, MV=MV, MW=MW,
-                NRES=NRES)
+                NRES=NRES, O=O)
     strides = (
-        G if lead else 0, N * G if lead else 0,
+        G if lead else 0, N * TG if lead else 0,
         N * G if leads["n_hcnt"] else 0, N * JH if leads["nh_cnt0"] else 0,
         G * V1 if leads["g_dprior"] else 0, JD * V1 if leads["dd0"] else 0,
+        N * G if leads["n_tol"] else 0,
     )
     return dims, S, strides
 
 
-def _scan_buffers(dims, S, nmax, has_domains, dev, lead=()):
+def _scan_buffers(dims, S, nmax, has_domains, tiled, dev, lead=()):
     """The scan's PackState and per-step scratch, one slice per scenario
     (the kernels initialize all of it; the domain scratch is empty
-    without domains), the word tables every scenario shares, and its 10
-    outputs with ``lead``."""
+    without domains), the word tables every scenario shares, the tiled
+    mode's row scratch (one set of rows per scenario, empty untiled) and
+    its 10 outputs with ``lead``."""
     G, T, P, N, R, K, V1, JH, JD = (dims[k] for k in "G T P N R K V1 JH JD".split())
     MV, MW, NRES = dims["MV"], dims["MW"], dims["NRES"]
     W = (V1 + 31) // 32
@@ -1529,23 +1648,32 @@ def _scan_buffers(dims, S, nmax, has_domains, dev, lead=()):
         (T, MV, (MW + 31) // 32), (NRES, T, V1, W),
         (T if res else 0, V1, W), (T if res and has_domains else 0, V1, W),
     ))
+    # the tiled rows: compat_row [P], type_ok_row and n_fit_row [P, T] and
+    # cap_row [N], written and read only by the scenario's own block; then
+    # the mask words of types, templates and nodes [., K, W], shared
+    # (csrc/pack_common.cuh:Rows)
+    rows = tuple(empty((S if tiled else 0,) + shape, dt) for shape, dt in (
+        ((P,), b), ((P, T), b), ((P, T), i32), ((N,), i32),
+    )) + tuple(empty((n if tiled else 0, K, W), i32) for n in (T, P, N))
     outs = tuple(empty(lead + shape, dt) for shape, dt in (
         ((nmax,), i32), ((nmax, T), b), ((), i32), ((), b),
         ((G, N), i32), ((G, nmax), i32), ((G,), i32),
         ((nmax,), i32), ((nmax,), i32), ((nmax,), b),
     ))
-    return state, words, outs
+    return state, words, rows, outs
 
 
 def _launch_pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool,
-                 has_contrib: bool = False, wf_iters: int = 32):
+                 has_contrib: bool = False, tile_feasibility: bool = False,
+                 wf_iters: int = 32):
     import ctypes
 
-    dims, S, strides = _check_scan_inputs(args)
+    tiled = bool(tile_feasibility)
+    dims, S, strides = _check_scan_inputs(args, tiled)
     dev = args[0].device
     dyn = bool(has_domains)
-    state, words, outs = _scan_buffers(dims, S, nmax, dyn, dev,
-                                       lead=tuple(args[0].shape[:-1]))
+    state, words, rows, outs = _scan_buffers(dims, S, nmax, dyn, tiled, dev,
+                                             lead=tuple(args[0].shape[:-1]))
     fn = _build.library("pack").kt_pack
     p = _build.ptr
     with torch.cuda.device(dev):
@@ -1553,29 +1681,36 @@ def _launch_pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool
             *(ctypes.c_int(int(v)) for v in (
                 S, dims["G"], dims["T"], dims["P"], dims["N"], dims["R"], dims["K"],
                 dims["V1"], nmax, dims["JH"], dims["JD"], dims["MV"], dims["MW"],
-                dims["NRES"], zone_kid, ct_kid, wf_iters, int(dyn), int(bool(has_contrib)))),
+                dims["NRES"], dims["O"], zone_kid, ct_kid, wf_iters, int(dyn),
+                int(bool(has_contrib)), int(tiled))),
             *(ctypes.c_longlong(v) for v in strides),
-            *(p(x) for x in args),
+            *(p(x) for x in args[:-1]),
+            *(p(x) for x in args[-1]),
             *(p(x) for x in state),
             *(p(x) for x in words),
+            *(p(x) for x in rows),
             *(p(x) for x in outs),
             _build.stream(),
         )
     # a domain batch runs the scan's domain machinery, a contributor batch
     # its contributor counting, minValues floors their caps, a reservation
-    # ledger the ledger: each counted on its own as well
+    # ledger the ledger, the tiled mode its per-step rows: each counted on
+    # its own as well
     _build.launched("pack", rc, scenarios=S, variants=(
         ("pack_domains",) * dyn + ("pack_contrib",) * bool(has_contrib)
-        + ("pack_minvalues",) * bool(dims["MV"]) + ("pack_resv",) * bool(dims["NRES"])))
+        + ("pack_minvalues",) * bool(dims["MV"]) + ("pack_resv",) * bool(dims["NRES"])
+        + ("pack_tiled",) * tiled))
     return outs
 
 
 def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int,
-                         has_domains: bool, has_contrib: bool = False, wf_iters: int = 32):
+                         has_domains: bool, has_contrib: bool = False,
+                         tile_feasibility: bool = False, wf_iters: int = 32):
     import ctypes
 
+    tiled = bool(tile_feasibility)
     scan, classes = args[:_SCAN_INPUTS], args[_SCAN_INPUTS:]
-    dims, S, _ = _check_scan_inputs(scan)
+    dims, S, _ = _check_scan_inputs(scan, tiled)
     if S != 1 or scan[0].dim() != 1:
         raise ValueError("the class-batched scan takes no scenario axis")
     if dims["NRES"]:
@@ -1583,6 +1718,8 @@ def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int
     G, T, N, V1 = dims["G"], dims["T"], dims["N"], dims["V1"]
     dev = scan[0].device
     b, i32 = torch.bool, torch.int32
+    if len(classes) != 5:
+        raise ValueError(f"expected the 5 class arrays after the scan inputs, got {len(classes)}")
     class_start, class_len, class_dyn, class_dkey, inv_idx = classes
     C = class_start.shape[0]
     for t, name, dt, shape in (
@@ -1592,7 +1729,7 @@ def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int
     ):
         _build.check(t, name, dt, shape, dev)
     dyn = bool(has_domains)
-    state, words, outs = _scan_buffers(dims, 1, nmax, dyn, dev)
+    state, words, rows, outs = _scan_buffers(dims, 1, nmax, dyn, tiled, dev)
     state = tuple(x[0] for x in state)
     dom = (lambda n: n) if dyn else (lambda n: 0)
     # the class head tables and per-claim summaries: capv, percapv, af0,
@@ -1609,19 +1746,21 @@ def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int
         rc = fn(
             *(ctypes.c_int(int(v)) for v in (
                 G, T, dims["P"], N, dims["R"], dims["K"], V1, nmax, dims["JH"],
-                dims["JD"], dims["MV"], dims["MW"], C, zone_kid, ct_kid, wf_iters,
-                int(dyn), int(bool(has_contrib)))),
-            *(p(x) for x in scan),
+                dims["JD"], dims["MV"], dims["MW"], dims["O"], C, zone_kid, ct_kid,
+                wf_iters, int(dyn), int(bool(has_contrib)), int(tiled))),
+            *(p(x) for x in scan[:-1]),
+            *(p(x) for x in scan[-1]),
             # inv_idx is not passed: fills go straight to the group rows
             *(p(x) for x in classes[:4]),
             *(p(x) for x in state),
             *(p(x) for x in words[:1]),
+            *(p(x) for x in rows),
             *(p(x) for x in head),
             *(p(x) for x in outs),
             _build.stream(),
         )
     _build.launched("pack_classed", rc, variants=(
-        ("pack_classed_minvalues",) * bool(dims["MV"])))
+        ("pack_classed_minvalues",) * bool(dims["MV"]) + ("pack_classed_tiled",) * tiled))
     (c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills, unplaced,
      c_dzone, c_dct, c_resv) = outs
     (exist_used, c_used, c_npods, c_def, c_neg, c_mask, ch_cnt, nhc, pool_rem,

@@ -25,8 +25,10 @@ runs the same dispatch over the driver's class partition: batches of many
 small groups sharing few feasibility classes.
 
 minValues floors and the reservation ledger ride the same dispatch
-(B4, and B5 for minValues). Not in this slice (raises
-NotImplementedError): the tiled mode.
+(B4, and B5 for minValues). So does the tiled mode
+(``tile_feasibility``, the HBM-scaling route the driver takes when the
+tables would pass 1.5 GiB): no table launch at all, zero-G placeholders,
+and the scan (B4, B5 or B7's grid) builds each step's rows itself.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from .feasibility import (
     fresh_claim_feasibility,
     fresh_claim_feasibility_sparse,
 )
-from .packing import check_scope, classed_results, pack, pack_classed
+from .packing import PACK_HEAD, PACK_TAIL, TileInputs, classed_results, pack, pack_classed
 
 
 _FRESH_ARGS = ("g_def", "g_neg", "g_mask", "g_req",
@@ -55,11 +57,24 @@ _EXIST_ARGS = ("g_def", "g_neg", "g_mask", "g_req",
 _SPARSE_INDEX = ("gk_g", "gk_k", "gk_w")
 
 
-def _feasibility_tables(a, zone_kid: int, ct_kid: int, sparse_groups: bool = True):
+def _feasibility_tables(a, zone_kid: int, ct_kid: int, sparse_groups: bool = True,
+                        tile_feasibility: bool = False):
     """The [P,G(,T)] / [N,G] tables the scan consumes: from the sparse
     (segment-contraction) twins over the encoder's live-pair index (B1,
     B2) when ``sparse_groups``, else from the dense twins (B3). The tables
-    are bit-exact either way."""
+    are bit-exact either way. In the tiled mode, zero-G placeholders
+    ([P,0], [P,0,T], [P,0,T], [N,0] with n_tol's scenario axis) and no
+    launch: the scan builds its own rows."""
+    if tile_feasibility:
+        P, T = a["p_titype_ok"].shape
+        dev = a["p_titype_ok"].device
+        lead = tuple(a["n_tol"].shape[:-2])
+        return (
+            torch.zeros((P, 0), dtype=torch.bool, device=dev),
+            torch.zeros((P, 0, T), dtype=torch.bool, device=dev),
+            torch.zeros((P, 0, T), dtype=torch.int32, device=dev),
+            torch.zeros(lead + (a["n_avail"].shape[0], 0), dtype=torch.int32, device=dev),
+        )
     fresh = [a[n] for n in _FRESH_ARGS]
     if sparse_groups:
         compat_pg, type_ok, n_fit = fresh_claim_feasibility_sparse(
@@ -111,16 +126,18 @@ def solve_core(
         ct_kid=ct_kid,
         has_domains=has_domains,
         has_contrib=has_contrib,
+        tile_feasibility=tile_feasibility,
         wf_iters=wf_iters,
     )
 
 
 def _scan_inputs(a, zone_kid, ct_kid, tile_feasibility, sparse_groups):
     """The scan's positional inputs from the named solve args ``a``: the
-    scope check, then the feasibility tables (B1, and B2 when there are
-    existing nodes; B3 in their place without ``sparse_groups``)."""
-    check_scope(tile_feasibility)
-    return pack_args(a, *_feasibility_tables(a, zone_kid, ct_kid, sparse_groups))
+    feasibility tables (B1, and B2 when there are existing nodes; B3 in
+    their place without ``sparse_groups``; placeholders in the tiled
+    mode, where ``sparse_groups`` is not read)."""
+    return pack_args(a, *_feasibility_tables(
+        a, zone_kid, ct_kid, sparse_groups, tile_feasibility))
 
 
 def solve_core_classed(
@@ -156,20 +173,9 @@ def solve_core_classed(
         ct_kid=ct_kid,
         has_domains=has_domains,
         has_contrib=has_contrib,
+        tile_feasibility=tile_feasibility,
         wf_iters=wf_iters,
     ))
-
-
-# the solve args the packing scan reads, in its positional order around the
-# four feasibility tables (ops/packing.py:pack_reference)
-PACK_HEAD = ("g_count", "g_req", "g_def", "g_neg", "g_mask", "g_hcap",
-             "g_haff", "g_hstg", "g_hscap", "g_hself")
-PACK_TAIL = ("t_alloc", "t_cap", "a_tzc", "p_daemon", "p_limit",
-             "p_has_limit", "p_tol", "n_avail", "n_base", "n_hcnt", "nh_cnt0",
-             "well_known", "g_dmode", "g_dkey", "g_dskew", "g_dmin0",
-             "g_dprior", "g_dreg", "g_drank", "g_dtg", "p_mask", "n_dzone",
-             "n_dct", "dd0", "g_hcontrib", "g_dcontrib", "dtg_key",
-             "p_mvmin", "t_mvoh", "res_cap0", "a_res")
 
 
 def pack_args(a, compat_pg, type_ok, n_fit, cap_ng):
@@ -177,7 +183,7 @@ def pack_args(a, compat_pg, type_ok, n_fit, cap_ng):
     ``a`` and the feasibility tables."""
     return (
         [a[n] for n in PACK_HEAD] + [compat_pg, type_ok, n_fit, cap_ng]
-        + [a[n] for n in PACK_TAIL]
+        + [a[n] for n in PACK_TAIL] + [TileInputs(*(a[n] for n in TileInputs._fields))]
     )
 
 

@@ -46,8 +46,12 @@ NodePools with minValues floors and offerings with capacity reservations
 each claim's ``reserved_offerings``. The strict reservation mode goes to
 the host oracle before anything is encoded, as the JAX package's does.
 
-Not in this slice, each raising NotImplementedError: the multi-GPU mesh
-(ROADMAP.md item A13), and the tiled feasibility tables (item A4b).
+A batch whose feasibility tables would pass 1.5 GiB (``P * G * T * 5``
+bytes, the JAX package's gate) takes the tiled mode on either path: no
+table launch, and the scan builds each step's rows itself.
+
+Not in this slice, raising NotImplementedError: the multi-GPU mesh
+(ROADMAP.md item A13).
 """
 
 from __future__ import annotations
@@ -71,7 +75,6 @@ from ..faults.guard import (
     check_solution,
 )
 from ..ops import relax as relax_mod
-from ..ops.packing import check_scope
 from ..scheduling.inflight import RESERVED_OFFERING_MODE_STRICT
 from ..scheduling.scheduler import Results, Scheduler
 from ..scheduling.template import NodeClaimTemplate
@@ -510,8 +513,7 @@ class TorchSolver:
         pods, strict-mode reservations, topology shapes the prior deltas
         cannot express, force_oracle. The caller then falls back to
         per-scenario solve()s, and the decline is counted in
-        ``fallback_solves``. Statics outside the ported kernel scope raise
-        NotImplementedError; a kernel fault raises at the drain.
+        ``fallback_solves``. A kernel fault raises at the drain.
         ``last_scenario_dispatches`` records the dispatch count of the
         last successful call.
 
@@ -592,8 +594,6 @@ class TorchSolver:
             else 0
         )
         statics = self._kernel_statics(snap, G)
-        # outside the ported pack scope: raise before anything launches
-        check_scope(statics["tile_feasibility"])
         snap_run = snap.padded(G, N)
         args = list(snap_run.solve_args(a_tzc, res_cap0, a_res))
 
@@ -1246,8 +1246,6 @@ class TorchSolver:
         G = enc._next_pow2(len(snap.groups), floor=8)
         N = enc._next_pow2(len(snap.existing_names), floor=1) if snap.existing_names else 0
         statics = self._kernel_statics(snap, G)
-        # outside the ported pack scope: raise before anything launches
-        check_scope(statics["tile_feasibility"])
         snap_run = snap.padded(G, N)
         # device residency: the encoded cluster stays on the device between
         # solves (buffers keyed by the encode delta's class versions,
@@ -1596,7 +1594,8 @@ class TorchSolver:
         P = len(snap.templates)
         T = len(snap.instance_types)
         # HBM-scaling gate (SURVEY §7.4.6): beyond ~1.5 GiB of feasibility
-        # tables the JAX scan computes per-group rows instead (not ported)
+        # tables the scan computes per-group rows instead. sparse_groups
+        # stays its inverse (the placeholders have no group axis)
         tiled = P * G * T * 5 > (3 << 29)
         return dict(
             zone_kid=snap.zone_kid,

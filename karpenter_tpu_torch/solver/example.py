@@ -1,4 +1,4 @@
-# Copied from karpenter_tpu/solver/example.py, building TorchSolvers; example_state_nodes, minvalues_nodepool and reserved_catalog are new.
+# Copied from karpenter_tpu/solver/example.py, building TorchSolvers; example_state_nodes, minvalues_nodepool, reserved_catalog, tenant_pools and tenant_pods are new.
 """Self-contained example snapshot builders (no test fixtures needed).
 
 Used by chip_smoke.py and the port's parity tests.
@@ -183,3 +183,50 @@ def reserved_catalog(n_types: int, every: int = 25, capacity: int = 20,
                 price=0.001, available=True, reservation_capacity=capacity,
             ))
     return its
+
+
+def tenant_pools(n: int, cpu_limit: int = 4000) -> List[NodePool]:
+    """``n`` NodePools ``tenant-00`` ... one per tenant team of a shared
+    cluster: each template carries the taint ``tenant=tNN:NoSchedule``
+    (only that tenant's pods land there) and each pool is capped by
+    ``spec.limits`` at ``cpu_limit`` CPUs, a team quota."""
+    from ..api.objects import NodeClaimSpec, NodeClaimTemplate, Taint
+
+    return [
+        NodePool(metadata=ObjectMeta(name=f"tenant-{i:02d}"), spec=NodePoolSpec(
+            template=NodeClaimTemplate(spec=NodeClaimSpec(
+                taints=[Taint(key="tenant", value=f"t{i:02d}", effect="NoSchedule")])),
+            limits={res.CPU: cpu_limit * res.MILLI}))
+        for i in range(n)
+    ]
+
+
+def tenant_pods(n_deployments: int, n_tenants: int, seed: int = 17,
+                replicas: Optional[int] = None, first: int = 0) -> List[Pod]:
+    """Deployments ``first`` ... ``first + n_deployments - 1``, deployment d
+    of tenant d % ``n_tenants``, each with its own requests
+    (VPA-rightsized: cpu 50..4000m in steps of 10, memory 64..16384 Mi in
+    steps of 16) and 1..16 replicas (or ``replicas``), drawn in order from
+    ``random.Random(seed)``; every pod tolerates its tenant's taint
+    (``tenant_pools``) and carries the label ``app=d<N>``."""
+    import random
+
+    from ..api.objects import Toleration
+
+    rng = random.Random(seed)
+    pods = []
+    for d in range(first, first + n_deployments):
+        cpu_m = rng.randrange(50, 4001, 10)
+        mem_mi = rng.randrange(64, 16385, 16)
+        count = rng.randint(1, 16) if replicas is None else replicas
+        tol = Toleration(key="tenant", operator="Equal", value=f"t{d % n_tenants:02d}",
+                         effect="NoSchedule")
+        for r in range(count):
+            pods.append(Pod(
+                metadata=ObjectMeta(name=f"d{d}-{r}", labels={"app": f"d{d}"}),
+                spec=PodSpec(
+                    requests={res.CPU: cpu_m, res.MEMORY: mem_mi * 2**20 * res.MILLI},
+                    tolerations=[tol],
+                ),
+            ))
+    return pods

@@ -23,7 +23,13 @@ B3's two entries against their plain versions and B1's/B2's tables (at
 the example shapes, over nodes, at G = 1), the ops dense route against
 the sparse one, B9 against its plain version on every lane (infeasible
 rows, padding, n_per = 2**30, T = 0), and TorchSolver's default route
-on the zonal partial mix against the CPU in claim slot order.
+on the zonal partial mix against the CPU in claim slot order. The tiled
+section runs the scans in the tiled mode (tile_feasibility: no table
+launch, each step's rows built in the scan): B4 over plain, limited,
+domain, minValues and ledger batches and over existing nodes (the cap
+row), B5 over the diverse mix with and without nodes, and B7's grid with
+per-scenario n_tol, each against its plain tiled version and against
+the untiled kernel.
 
 Marked ``cuda``: they skip where there is no card. On the card, from the
 repo root: ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
@@ -59,6 +65,7 @@ from karpenter_tpu_torch.solver.args import to_device_args
 from karpenter_tpu_torch.solver.driver import SolverConfig, TorchSolver
 from karpenter_tpu_torch.solver.example import (
     example_nodepool,
+    example_pods,
     example_snapshot_arrays,
     example_state_nodes,
 )
@@ -1026,3 +1033,104 @@ def test_minvalues_and_reservations_solve_match_cpu(cuda):
     assert got == solve("cpu", [example_nodepool()], _reserved(60, 5, 10),
                         reserved_capacity_enabled=True)
     assert any(got[2])
+
+
+# -- the tiled mode (tile_feasibility): per-step rows in B4, B5 and B7 ------------
+
+
+def _tiled(statics):
+    return dict(statics, tile_feasibility=True, sparse_groups=False)
+
+
+def _tiled_equal_plain(args, statics, cuda):
+    """The tiled solve on the card against its plain version (pack_reference
+    with tile_feasibility) and against the untiled kernels: every output.
+    One tiled B4 launch and no table launch (B1, B2, B3)."""
+    from karpenter_tpu_torch import _build
+
+    _build.reset_launches()
+    out = _kernels_equal_plain(args, _tiled(statics), cuda)
+    assert _build.launches["pack_tiled"] == 1 and _build.launches["pack"] == 1
+    assert not any(_build.launches[k] for k in (
+        "fresh_feasibility", "existing_feasibility", "dense_feasibility"))
+    untiled = solve_core(*to_device_args(args, cuda), **dict(statics, sparse_groups=True))
+    for i, (u, p) in enumerate(zip(untiled, out)):
+        np.testing.assert_array_equal(u.cpu().numpy(), p.numpy(), err_msg=f"untiled {i}")
+    return out
+
+
+_TILED_CASES = {
+    "example-200": lambda: _snapshot(example_pods(200, 8), n_types=40),
+    # N > 0: the cap row (strict node compatibility, n_tol)
+    "nodes-9": lambda: _snapshot(mixed_pods(600), n_types=30, n_nodes=9),
+    "limits": lambda: _snapshot(mixed_pods(800), pools=[_pool("heavy", 80, "12"),
+                                                         _pool("light", 20)], n_types=30),
+    "domains": lambda: _DOMAIN_CASES["priors-on-zoned-nodes"](),
+    "minvalues": lambda: _scan_snapshot(mixed_pods(400, gpu_fraction=0.0), _mv_pools(),
+                                        corpus.generate(30))[:2],
+    "ledger": lambda: _scan_snapshot(mixed_pods(400, gpu_fraction=0.0), [example_nodepool()],
+                                     _reserved(40, 5, 3), reserved_capacity_enabled=True)[:2],
+}
+
+
+@pytest.mark.parametrize("case", sorted(_TILED_CASES))
+def test_tiled_pack(cuda, case):
+    """B4 in the tiled mode: == its plain version and == the untiled B4."""
+    args, statics = _TILED_CASES[case]()
+    out = _tiled_equal_plain(args, statics, cuda)
+    assert int(out[2]) > 0 or int(out[4].sum()) > 0
+
+
+@pytest.mark.parametrize("n_nodes", [0, 9])
+def test_tiled_classed(cuda, n_nodes):
+    """B5 in the tiled mode (one row build per class head): every field of
+    the final state and the fills == pack_classed_reference tiled, and the
+    wire-packed solve == the untiled B5's."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops.solve import solve_core_classed
+    from karpenter_tpu_torch.solver.workloads import diverse_reference_mix
+
+    args, statics, classes = _classed_snapshot(diverse_reference_mix(300), n_nodes=n_nodes)
+    *arrs, lmax = classes
+    outs = []
+    for dev, st in (("cpu", _tiled(statics)), (cuda, _tiled(statics)),
+                    (cuda, dict(statics, sparse_groups=True))):
+        a = to_device_args(args, dev)
+        cls = [torch.from_numpy(np.asarray(x)).to(dev) for x in arrs]
+        _build.reset_launches()
+        outs.append(wire_pack(solve_core_classed(*a, *cls, lmax=lmax, **st), torch.int32))
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+            tiled = st["tile_feasibility"]
+            assert _build.launches["pack_classed"] == 1
+            assert _build.launches["pack_classed_tiled"] == int(tiled)
+            assert _build.launches["fresh_feasibility"] == int(not tiled)
+    plain, kern, untiled = outs
+    for i, (k, p, u) in enumerate(zip(kern, plain, untiled)):
+        np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=f"output {i}")
+        np.testing.assert_array_equal(u.cpu().numpy(), p.numpy(), err_msg=f"untiled {i}")
+    assert int(plain[2]) > 0
+
+
+@pytest.mark.parametrize("S,real", [(8, 5), (16, 11)])
+def test_tiled_scenario_grid(cuda, S, real):
+    """B7 in the tiled mode: S blocks, each building its rows with its own
+    n_tol slice (seeded removed nodes), == the plain scenario solve tiled
+    and == the untiled grid."""
+    from karpenter_tpu_torch import _build
+
+    args, statics = _snapshot(mixed_pods(1500), n_types=30, n_nodes=33)
+    a = _scenario_args(args, S, real, seed=S + real)
+    kw = dict(_tiled(statics), fills_dtype=torch.int32, batch_topo=False)
+    plain = solve_scenarios_core_packed(*to_device_args(a, "cpu"), **kw)
+    _build.reset_launches()
+    kern = solve_scenarios_core_packed(*to_device_args(a, cuda), **kw)
+    torch.cuda.synchronize()
+    assert _build.scenario_launches["pack_tiled"] == 1
+    assert _build.launches["existing_feasibility"] == _build.launches["fresh_feasibility"] == 0
+    untiled = solve_scenarios_core_packed(*to_device_args(a, cuda), **dict(
+        kw, tile_feasibility=False, sparse_groups=True))
+    for i, (k, p, u) in enumerate(zip(kern, plain, untiled)):
+        np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=f"output {i}")
+        np.testing.assert_array_equal(u.cpu().numpy(), p.numpy(), err_msg=f"untiled {i}")
+    assert int(plain[4].sum()) > 0 and int(plain[2].max()) > 0

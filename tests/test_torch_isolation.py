@@ -1,10 +1,10 @@
 """The PyTorch port stands alone.
 
-Nothing under karpenter_tpu_torch/ nor chip_smoke.py imports jax or the
-JAX package (the card's machine has no JAX); every verbatim copy of a host
-module, and each function copied into a module that is not one, still
-equals its source; and chip_smoke.py refuses to report a
-result where there is no card, or no repo around it.
+Nothing under karpenter_tpu_torch/, chip_smoke.py nor tenant_scan.py
+imports jax or the JAX package (the card's machine has no JAX); every
+verbatim copy of a host module, and each function copied into a module
+that is not one, still equals its source; and chip_smoke.py refuses to
+report a result where there is no card, or no repo around it.
 """
 
 import ast
@@ -18,7 +18,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "karpenter_tpu_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tenant_scan.py"]
 
 
 def _imported_modules(path):

@@ -148,19 +148,16 @@ class TestSolveCore:
         assert bool(out[3])
 
     @pytest.mark.parametrize("flag", ["has_domains", "has_contrib", "tile_feasibility"])
-    def test_out_of_scope_statics_raise(self, flag):
-        """The tiled tables raise, naming ROADMAP item A4b. has_domains and
-        has_contrib are ported: forced on a batch without domain groups
-        or contributor rows they equal JAX's (has_domains changes only the
-        tier-3 bulk split: even, bulk_takes; has_contrib adds nothing)."""
-        if flag in ("has_domains", "has_contrib"):
-            args, statics = example_snapshot_arrays(200, 40, 8)
-            _parity(args, dict(statics, **{flag: True}))
-            return
-        args, statics = example_snapshot_arrays(16, 4, 1)
-        st = dict(statics, sparse_groups=True, **{flag: True})
-        with pytest.raises(NotImplementedError, match="A4b"):
-            solve_core(*to_device_args(args, "cpu"), **st)
+    def test_forced_statics_match_jax(self, flag):
+        """Each static forced on a batch that does not need it equals JAX's
+        solve with the same static: has_domains changes only the tier-3
+        bulk split (even, bulk_takes), has_contrib adds nothing, and
+        tile_feasibility (the tiled mode: zero-G placeholder tables, rows
+        built per step) changes no output at all."""
+        args, statics = example_snapshot_arrays(200, 40, 8)
+        out = _parity(args, dict(statics, **{flag: True}))
+        if flag == "tile_feasibility":
+            _assert_outputs_equal(out, _solve_both(args, statics)[1])
 
     @pytest.mark.parametrize("n_nodes", [0, 5])
     def test_dense_tables_raise(self, n_nodes):

@@ -45,24 +45,33 @@ def to_port(obj, memo=None):
     same names (dataclasses field by field; containers element-wise).
     ``memo`` maps id(source) -> (source, copy) and keeps the source alive,
     so a recycled id can never alias."""
-    memo = {} if memo is None else memo
+    return _rebuild(obj, "karpenter_tpu", "karpenter_tpu_torch", {} if memo is None else memo)
+
+
+def to_jax(obj, memo=None):
+    """``to_port``'s inverse: a karpenter_tpu_torch object graph rebuilt
+    from the JAX package's classes of the same names."""
+    return _rebuild(obj, "karpenter_tpu_torch", "karpenter_tpu", {} if memo is None else memo)
+
+
+def _rebuild(obj, src, dst, memo):
     hit = memo.get(id(obj))
     if hit is not None:
         return hit[1]
     if isinstance(obj, (list, tuple, set, frozenset)):
-        out = type(obj)(to_port(x, memo) for x in obj)
+        out = type(obj)(_rebuild(x, src, dst, memo) for x in obj)
     elif isinstance(obj, dict):
-        out = {to_port(k, memo): to_port(v, memo) for k, v in obj.items()}
+        out = {_rebuild(k, src, dst, memo): _rebuild(v, src, dst, memo) for k, v in obj.items()}
     elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         mod = type(obj).__module__
-        assert mod.startswith("karpenter_tpu."), mod
-        cls = getattr(importlib.import_module("karpenter_tpu_torch" + mod[len("karpenter_tpu"):]),
-                      type(obj).__name__)
+        assert mod.split(".")[0] == src, mod
+        cls = getattr(importlib.import_module(dst + mod[len(src):]), type(obj).__name__)
         fields = dataclasses.fields(obj)
-        out = cls(**{f.name: to_port(getattr(obj, f.name), memo) for f in fields if f.init})
+        out = cls(**{f.name: _rebuild(getattr(obj, f.name), src, dst, memo)
+                     for f in fields if f.init})
         for f in fields:
             if not f.init:
-                object.__setattr__(out, f.name, to_port(getattr(obj, f.name), memo))
+                object.__setattr__(out, f.name, _rebuild(getattr(obj, f.name), src, dst, memo))
     else:
         out = obj
     memo[id(obj)] = (obj, out)
