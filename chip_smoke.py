@@ -17,13 +17,16 @@ no result:
    exact equality of every output. Median times over repeats (CUDA
    events);
    Phase 2 also holds B7, the consolidation dispatch (B1 shared, B2 over
-   n_tol [S, N, G], B4 one block per scenario, B6 over S rows), at the
+   n_tol [S, N, G], B4 one cluster per scenario, B6 over S rows; B4 also
+   on the device alone, torch.profiler), at the
    consolidation path's shapes: 16 single-node scenarios over the
    2,000-node cluster's shared encoding (N=2048, T=50); and B4 over a
    domain batch (the scan's domain machinery: BASELINE config[2], 50,000
    constrained pods x 800 types) and B8, the row-delta apply, at the
    largest row delta of a real churn tick of that batch (also against
-   ``Tensor.index_copy``);
+   ``Tensor.index_copy``, through the wrapper and on the device alone:
+   torch.profiler's device time over 100 calls, which must show B8's one
+   kernel a call and no copy beside it);
 3. end to end: TorchSolver(device="cuda").solve on the 50k x 400 batch,
    then on the 2,000-pod batch over 32 nodes, each path with the launch
    counters zeroed just before it and read just after it (B1, B4, B6 must
@@ -104,7 +107,8 @@ no result:
    classed=True (B5 with floors), then once on the auto route (B4 with
    contributors and floors); (e) MultiNodeConsolidation at 2,000 nodes
    with the env's NodePool carrying the same floor (B7 with floors), its
-   command equal to the device="cpu" run's. The diverse cells' comparisons
+   command equal to the device="cpu" run's, p50 over 5 warm passes on
+   fresh envs as phase 4. The diverse cells' comparisons
    with device="cpu" run at 1,000 pods (a card solve and a CPU solve of
    diverse_reference_mix(1,000)); their counted and timed card solves at
    5,000.
@@ -122,9 +126,10 @@ no result:
    dispatch_packed tiled and untiled (B1 and the untiled B4): the ten
    outputs identical, the scans timed alone (the row build by
    difference), and the solve's Results equal to a solve forced untiled,
-   claims in slot order; (c) two churn ticks that swap 60 Deployments,
-   each on row deltas through B8 and equal to a same-vocab re-encode,
-   then a REUSE repeat; (d) the classed route forced (B5 tiled) deciding
+   claims in slot order; B8 at the largest row delta of the first tick
+   (as phase 2 measures it); (c) two churn ticks that swap 60
+   Deployments, each on row deltas through B8 and equal to a same-vocab
+   re-encode, then a REUSE repeat; (d) the classed route forced (B5 tiled) deciding
    as B4; (e) TorchSolver.solve_scenarios over the cell and the cell less
    the first tick's removed Deployments (B7's grid tiled), each scenario
    equal to a solve of its pods, claims in slot order.
@@ -148,8 +153,11 @@ on the card.
 Then one JSON line of per-kernel numbers (B1, B2, B3 fresh and existing,
 B4, B4 over domains, B4 with contributor counting, B4 with minValues
 floors, B4 with the reservation ledger, B5, B5 with floors, B6, B7, B7
-with floors, B8, B9, and B4, B5 and B7 in the tiled mode), the
-nvidia-smi line, and the last line
+with floors, B8, B9, and B4, B5 and B7 in the tiled mode; B8's row
+carries its device-only times and the tenant tick's delta, B7's its
+scan on the device alone), a log line with the cluster each scenario
+count's B4 launches took (csrc/pack.cu:pick_cluster), the nvidia-smi
+line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -802,6 +810,9 @@ def scenario_row(build=None):
         "B4[S]": cuda_ms(lambda: packing_mod.pack(*b4_in, **st), 20),
         "B6[S]": cuda_ms(lambda: solve_mod.wire_pack(b4, fills), 50),
     }
+    # B4[S] on the device alone: the wrapper's zeroing and word passes and
+    # the scan, each activity once a call
+    b4_device = device_ms(lambda: packing_mod.pack(*b4_in, **st), 20)
     # bytes: the dispatch's inputs read once, its wire outputs written once
     used = set(B1_NAMES) | set(B2_NAMES) | {
         "g_count", "g_hcap", "g_haff", "g_hstg", "g_hscap", "g_hself", "t_cap",
@@ -814,6 +825,8 @@ def scenario_row(build=None):
         max_abs_err=max(parts.values()),
         parts=parts,
         part_ms=part_ms,
+        part_device_ms={"B4[S]": b4_device[0]},
+        part_device_per_call={"B4[S]": b4_device[1]},
         ms=cuda_ms(dispatch, 20),
         plain_ms=cuda_ms(lambda: plain_scenarios(args, fills=fills, **st), 3),
         bound=bound_ms(nbytes([a[n] for n in used]) + nbytes(full), ops),
@@ -829,15 +842,13 @@ def constrained_rows(torch_solver_cls, config_cls, encode_cache_cls):
     version and against Tensor.index_copy. Tolerance: exact equality."""
     import random
 
-    import numpy as np
     import torch
 
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.ops import packing as packing_mod
     from karpenter_tpu_torch.ops import solve as solve_mod
-    from karpenter_tpu_torch.solver.args import put, to_device_args
+    from karpenter_tpu_torch.solver.args import to_device_args
     from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
-    from karpenter_tpu_torch.solver.residency import DeviceResidentArgs
     from karpenter_tpu_torch.solver.workloads import CHURN_SEED, churn_tick, constrained_mix
 
     rows = {}
@@ -882,7 +893,62 @@ def constrained_rows(torch_solver_cls, config_cls, encode_cache_cls):
     tick_pods = churn_tick(pods, constrained_mix, random.Random(CHURN_SEED))
     solver_b = build_batch(torch_solver_cls, config_cls, tick_pods, N_TYPES_C, device="cuda",
                            cache=cache)
-    host_b, _, _, delta = host_snapshot(solver_b, tick_pods)
+    rows["apply_rows"] = b8_row(host_a, *host_snapshot(solver_b, tick_pods)[::3])
+    return rows
+
+
+def device_ms(fn, reps=100):
+    """Device milliseconds per call of ``fn`` and the device activities
+    (kernels, copies) it ran per call: torch.profiler's device time over
+    ``reps`` back-to-back calls (key_averages, self device time), each
+    activity's mean time per record times its records per call, rounded
+    (the tracer may drop records of a run this short). Where the profiler
+    records no device time: CUDA events around the ``reps`` calls, and no
+    activity count (None)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, per_call = 0.0, {}
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA") or not ev.count:  # host ops, API calls
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        t = getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
+        per_call[ev.key] = max(1, round(ev.count / reps))
+        us += t / ev.count * per_call[ev.key] * reps
+    if us > 0:
+        return us / 1e3 / reps, per_call, "torch.profiler"
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, None, "CUDA events"
+
+
+def b8_row(host_a, host_b, delta):
+    """B8's row at the largest row delta (bytes) of a churn tick whose
+    encode ``host_b`` (and ``delta``) follows ``host_a``'s on one cache:
+    the kernel against its plain version, the tick's encode and
+    ``Tensor.index_copy``, timed through the wrapper (CUDA events) and on
+    the device alone (device_ms); one device kernel a call, no copy of the
+    buffer beside it."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.ops import solve as solve_mod
+    from karpenter_tpu_torch.solver.args import put
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+    from karpenter_tpu_torch.solver.residency import DeviceResidentArgs
+
     best = None
     for name, ha, hb in zip(SOLVE_ARG_NAMES, host_a, host_b):
         _, idx = DeviceResidentArgs._class_of(name, delta)
@@ -903,15 +969,20 @@ def constrained_rows(torch_solver_cls, config_cls, encode_cache_cls):
     torch.cuda.synchronize()
     if not torch.equal(b8.cpu(), torch.from_numpy(np.ascontiguousarray(hb))):
         raise SmokeFailure(f"B8: {name} after the row delta differs from the tick's encode")
-    rows["apply_rows"] = dict(
+    dev_ms, dev_acts, how = device_ms(lambda: solve_mod.delta_apply_rows(arr, idx, vals))
+    lib_dev_ms, lib_acts, _ = device_ms(lambda: arr.index_copy(0, idx64, vals))
+    if dev_acts is not None and list(dev_acts.values()) != [1]:
+        raise SmokeFailure(f"B8: {dev_acts} on the device per call, want its one kernel")
+    return dict(
         max_abs_err=max_abs_err([b8], [b8_ref]),
         ms=cuda_ms(lambda: solve_mod.delta_apply_rows(arr, idx, vals), 50),
         plain_ms=cuda_ms(lambda: solve_mod.delta_apply_rows_reference(arr, idx, vals), 20),
         library_ms=cuda_ms(lambda: arr.index_copy(0, idx64, vals), 50),
+        device_ms=dev_ms, library_device_ms=lib_dev_ms, device_timing=how,
+        device_per_call=dev_acts, library_device_per_call=lib_acts,
         bound=bound_ms(2 * nbytes([arr]) + nbytes([idx, vals]), vals.numel()),
         shape=f"{name} {tuple(arr.shape)} {arr.dtype}, {len(idx_np)} rows",
     )
-    return rows
 
 
 def diverse_rows(torch_solver_cls, config_cls):
@@ -2069,10 +2140,8 @@ def phase_floors(torch_solver_cls, config_cls, encode_cache_cls):
             method.last_probes, method.last_dispatches)
     ctx, method, candidates, budgets = minvalues_consolidation_env(CONS_NODES, "cuda")
     _build.reset_launches()
-    t0 = time.perf_counter()
     cmd = method.compute_command(candidates, budgets)
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
     counts, scen = dict(_build.launches), dict(_build.scenario_launches)
     got = (command_signature(cmd), method.last_probes, method.last_dispatches)
     solvers = [e["solver"] for e in ctx.scenario_envs._entries.values()]
@@ -2089,9 +2158,19 @@ def phase_floors(torch_solver_cls, config_cls, encode_cache_cls):
         raise SmokeFailure(f"cons_minvalues: the CUDA command {got[0][:2]} ({got[1]} probes, "
                            f"{got[2]} dispatches) differs from the device='cpu' run's "
                            f"{want[0][:2]} ({want[1]}, {want[2]})")
+    # p50 over 5 warm passes, each on a fresh env, as phase 4's
+    times = []
+    for _ in range(6):
+        ctx, method, candidates, budgets = minvalues_consolidation_env(CONS_NODES, "cuda")
+        gc.collect()
+        t0 = time.perf_counter()
+        method.compute_command(candidates, budgets)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     out["cons_minvalues"] = dict(decision=cmd.decision, disrupted=len(cmd.candidates),
-                                 probes=got[1], dispatches=got[2], ms=ms, launches=counts,
-                                 scenario_launches=scen)
+                                 probes=got[1], dispatches=got[2],
+                                 p50_ms=statistics.median(times[1:]), ms=times[1:],
+                                 launches=counts, scenario_launches=scen)
     return out
 
 
@@ -2272,6 +2351,17 @@ def phase_tenant(torch_solver_cls, config_cls, encode_cache_cls):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # B8 at the largest row delta of (c)'s first tick, on a cache of its own
+    bcache = encode_cache_cls()
+    host_a = host_snapshot(solver_for(pods, bcache), pods)[0]
+    first = tenant_tick(pods, 1, random.Random(TENANT_TICK_SEED))
+    out["b8_tick"] = b8_row(host_a, *host_snapshot(solver_for(first, bcache), first)[::3])
+    if out["b8_tick"]["max_abs_err"]:
+        raise SmokeFailure(f"tenant tick: B8 differs from its plain version "
+                           f"({out['b8_tick']['max_abs_err']})")
+    del bcache, host_a, first
+    gc.collect()
+
     # (c) churn ticks on one EncodeCache: row deltas, == a same-vocab
     # re-encode; then REUSE
     cache = encode_cache_cls()
@@ -2364,6 +2454,7 @@ def main():
         return 2
     try:
         from karpenter_tpu_torch import _build
+        from karpenter_tpu_torch.ops import packing as packing_mod
         from karpenter_tpu_torch.solver.driver import (
             EncodeCache,
             SolverConfig,
@@ -2387,10 +2478,14 @@ def main():
     log(f"phase 2 kernels==plain ({secs:.0f} s): " + "; ".join(
         f"{k} [{r['shape']}] {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
         f"bound {r['bound'][0]:.6f} ms"
-        + (f", {LIBRARY[k]} {r['library_ms']:.4f} ms" if k in LIBRARY else "") + ")"
+        + (f", {LIBRARY[k]} {r['library_ms']:.4f} ms" if k in LIBRARY else "")
+        + (f"; device alone {r['device_ms']:.4f} ms vs {r['library_device_ms']:.4f} ms "
+           f"({r['device_timing']})" if "device_ms" in r else "") + ")"
         for k, r in rows.items())
         + " | B7 parts " + " ".join(
-            f"{k}={b7['part_ms'][k]:.4f}ms(err {b7['parts'][k]})" for k in b7["part_ms"]))
+            f"{k}={b7['part_ms'][k]:.4f}ms(err {b7['parts'][k]})" for k in b7["part_ms"])
+        + f", B4[S] on the device alone {b7['part_device_ms']['B4[S]']:.4f} ms "
+        f"({b7['part_device_per_call']['B4[S]']})")
 
     e2e, secs = timed_phase(lambda: phase_end_to_end(TorchSolver, SolverConfig, EncodeCache))
     log(f"phase 3 end-to-end ({secs:.0f} s): {N_PODS} pods x {N_TYPES} types -> "
@@ -2483,7 +2578,8 @@ def main():
                                                 "pack_classed_minvalues") if c["launches"][k])
         for label, c in cells.items())
         + f"; cons_minvalues multi {cm['decision']} {cm['disrupted']} in {cm['probes']} probes / "
-        f"{cm['dispatches']} dispatches == cpu, {cm['ms']:.1f} ms, scenario launches "
+        f"{cm['dispatches']} dispatches == cpu, p50 {cm['p50_ms']:.1f} ms of "
+        + "/".join(f"{t:.1f}" for t in cm["ms"]) + " ms, scenario launches "
         + " ".join(f"{k}={v}" for k, v in cm["scenario_launches"].items() if v))
 
     ten, secs = timed_phase(lambda: phase_tenant(TorchSolver, SolverConfig, EncodeCache))
@@ -2506,7 +2602,11 @@ def main():
             f"{t['ms']:.1f} ms (encode delta rows {t['encode_delta_rows']}, device delta rows "
             f"{t['device_delta_rows']}, full puts {t['full_puts']}, B8 {t['b8']})"
             for t in ten["ticks"])
-        + f"; repeat REUSE; (d) classed=True (B5 tiled) == B4, {ten['classed_ms']:.1f} ms; "
+        + f"; B8 at the first tick's largest delta [{ten['b8_tick']['shape']}] "
+        f"{ten['b8_tick']['ms']:.4f} ms ({LIBRARY['apply_rows']} "
+        f"{ten['b8_tick']['library_ms']:.4f} ms), device alone "
+        f"{ten['b8_tick']['device_ms']:.4f} ms vs {ten['b8_tick']['library_device_ms']:.4f} ms"
+        f"; repeat REUSE; (d) classed=True (B5 tiled) == B4, {ten['classed_ms']:.1f} ms; "
         f"(e) scenario batch of {ten['scenario_pods']} pods (B7 tiled) == solves of its pods, "
         f"{ten['scenarios_ms']:.1f} ms; launches "
         + " ".join(f"{p}={c}" for p, c in ten["launches"].items()))
@@ -2528,12 +2628,12 @@ def main():
             by_path = {p: c["pack"] for p, c in scen_paths.items()}
             source = "karpenter_tpu_torch/csrc/pack.cu"
             extra = dict(sources=[f"karpenter_tpu_torch/csrc/{k}.cu" for k in B7_SOURCES],
-                         parts_ms=row["part_ms"])
+                         parts_ms=row["part_ms"], parts_device_ms=row["part_device_ms"])
         elif name == "scenarios_minvalues":  # B7 over floors: phase 8's search
             by_path = {"cons_minvalues": cm["scenario_launches"]["pack_minvalues"]}
             source = "karpenter_tpu_torch/csrc/pack.cu"
             extra = dict(sources=[f"karpenter_tpu_torch/csrc/{k}.cu" for k in B7_SOURCES],
-                         parts_ms=row["part_ms"])
+                         parts_ms=row["part_ms"], parts_device_ms=row["part_device_ms"])
         elif name == "scenarios_tiled":  # B7's grid tiled: phase 9's scenario batch
             by_path = {"tenant_scenarios": ten["scenario_launches"]["pack_tiled"]}
             source = "karpenter_tpu_torch/csrc/pack.cu"
@@ -2545,6 +2645,11 @@ def main():
             extra = {"library": LIBRARY[name]} if name in LIBRARY else {}
         if "cells" in row:  # the tiled rows' cells
             extra["cells"] = row["cells"]
+        if name == "apply_rows":  # device-only times; the tenant tick's delta
+            extra.update({k: row[k] for k in (
+                "device_ms", "library_device_ms", "device_timing", "device_per_call",
+                "library_device_per_call")}, tenant_tick={k: v for k, v in ten["b8_tick"].items()
+                                                          if k != "bound"})
         if name == "pack_tiled":  # the scan alone at the tenant cell's full depth
             extra["tenant_cell_ms"] = ten["scan_tiled_ms"]
         kernels.append(dict(
@@ -2557,6 +2662,11 @@ def main():
             bound_ms=bms, bound_by=by, library_ms=row.get("library_ms"),
             **extra,
         ))
+    # the cluster each scenario count's B4 launches took in this run, as
+    # csrc/pack.cu:pick_cluster reported them (B5 launches one block)
+    log("B4/B7 clusters: " + ", ".join(
+        f"S={n}: {c} blocks ({fit} such clusters fit at once, {fit8} of 8 blocks)"
+        for n, (c, fit, fit8) in sorted(packing_mod.clusters.items())))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

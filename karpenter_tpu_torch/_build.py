@@ -47,8 +47,14 @@ SOURCES = ("fresh_feasibility", "existing_feasibility", "dense_feasibility",
 VARIANTS = ("pack_domains", "pack_contrib", "pack_minvalues", "pack_resv", "pack_tiled",
             "pack_classed_minvalues", "pack_classed_tiled", "dense_fresh",
             "dense_existing")
+# measurement-only libraries, never in SOURCES (the solver and
+# chip_smoke.py never build or load them; tenant_scan.py does): name ->
+# (the source they compile, extra nvcc flags). pack_clocks is B4 with its
+# phase clocks.
+MEASURE_BUILDS = {"pack_clocks": ("pack", ("-DKT_PHASE_CLOCKS",))}
 # a library's C entry points, where they are not the one kt_<name>
-ENTRY_POINTS = {"dense_feasibility": ("kt_dense_fresh", "kt_dense_existing")}
+ENTRY_POINTS = {"dense_feasibility": ("kt_dense_fresh", "kt_dense_existing"),
+                "pack_clocks": ("kt_pack", "kt_pack_phase_clocks")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -93,11 +99,15 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def _source(name: str) -> str:
+    return os.path.join(CSRC, MEASURE_BUILDS.get(name, (name,))[0] + ".cu")
+
+
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
     if not os.path.exists(lib):
         return True
-    src = os.path.join(CSRC, f"{name}.cu")
+    src = _source(name)
     headers = [os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith(".cuh")]
     newest = max(os.path.getmtime(f) for f in [src] + headers)
     return os.path.getmtime(lib) < newest
@@ -114,11 +124,10 @@ def build(names=SOURCES, force: bool = False, verbose: bool = False) -> Dict[str
         nvcc = nvcc_path()
         procs = {}
         for name in todo:
-            cmd = [nvcc, *NVCC_FLAGS]
+            cmd = [nvcc, *NVCC_FLAGS, *MEASURE_BUILDS.get(name, (None, ()))[1]]
             if verbose:
                 cmd += ["-Xptxas", "-v"]
-            cmd += ["-I", CSRC, "-o", _lib_path(name) + ".tmp",
-                    os.path.join(CSRC, f"{name}.cu")]
+            cmd += ["-I", CSRC, "-o", _lib_path(name) + ".tmp", _source(name)]
             procs[name] = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )
@@ -175,6 +184,7 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
 
 
 NOTHING_LAUNCHED = -1  # csrc/common.cuh:kNothingLaunched (empty shapes)
+CLUSTER_UNPLACED = -2  # csrc/common.cuh:kClusterUnplaced
 
 
 def launched(name: str, rc: int, scenarios: int = 1, variants=()) -> None:
@@ -183,6 +193,10 @@ def launched(name: str, rc: int, scenarios: int = 1, variants=()) -> None:
     code."""
     if rc == NOTHING_LAUNCHED:
         return
+    if rc == CLUSTER_UNPLACED:
+        raise KernelLaunchError(
+            f"{name}: the card cannot place one thread-block cluster of 8 blocks "
+            "(cudaOccupancyMaxActiveClusters is 0 with the kernel's shared memory)")
     if rc != 0:
         raise KernelLaunchError(f"{name}: CUDA error {rc} at launch")
     for key in (name,) + tuple(variants):

@@ -1,55 +1,140 @@
-// Kernel B8: the row-delta apply, out[idx[i]] = rows[i].
+// Kernel B8: the row-delta apply, out = arr with out[idx[i]] = rows[i].
 //
 // Replaces karpenter_tpu/ops/solve.py:_apply_rows_core / delta_apply_rows
 // (arr.at[idx].set(rows), an XLA scatter on the TPU): the residency store
 // (solver/residency.py) keeps the solve's arguments on the card between
-// solves, and a churn tick rewrites only the rows its encode changed.
+// solves, and a churn tick rewrites only the rows its encode changed. The
+// apply is out of place: arr is left as it was (a launch still holding it
+// may read it).
 //
-// Bound on the H100: bytes. The wrapper copies the resident buffer first
-// (the default keeps the old buffer valid for a launch still holding it),
-// then this kernel moves n x row bytes: one thread per (delta row,
-// element), coalesced along the row. Indices are int32; a negative index
-// counts from the end and an index outside the rows is dropped, as XLA's
-// scatter does. Duplicate indices carry identical rows, so the order of
-// their writes does not matter. Elements of 1 byte (bool) and 4 bytes
-// (int32, float32) move as raw bits.
+// Bound on the H100: bytes (arr read and out written once, the delta rows
+// and their indices read once); at the main path's sizes (tens of KB to
+// tens of MB) the launch and the host enqueue come first.
+//
+// Design: ONE launch writes out whole, so no separate copy of arr runs
+// before it. Block b owns a contiguous range of rows: it copies them from
+// arr with 16-byte moves wherever source and destination share their
+// alignment (4- or 1-byte moves otherwise, and at a ragged edge), then,
+// after a barrier, overwrites the delta rows that fall in its range. It
+// finds them by reading idx once, in chunks staged through shared memory:
+// a negative index counts from the end and one outside the rows is
+// dropped, as XLA's scatter does. Duplicate indices carry identical rows,
+// so the order of their writes does not matter. Rows move as raw bytes,
+// whatever their element type.
 #include "common.cuh"
 
 namespace {
 
-template <typename E>
-__global__ void apply_rows(const int32_t* idx, const E* rows, E* out,
-                           long long n_delta, long long row_elems, long long n_rows) {
-  const long long total = n_delta * row_elems;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long r = i / row_elems, j = i % row_elems;
-    long long dst = idx[r];
-    if (dst < 0) dst += n_rows;
-    if (dst < 0 || dst >= n_rows) continue;
-    out[dst * row_elems + j] = rows[i];
+constexpr int kBlock = 256;
+// delta indices staged in shared memory per pass
+constexpr int kChunk = 1024;
+// bytes of arr a block copies, and at most this many blocks (4 per SM)
+constexpr long long kBlockBytes = 64 * 1024;
+constexpr long long kMaxBlocks = 4 * 132;
+
+template <typename V>
+__device__ void copy_as(const uint8_t* src, uint8_t* dst, long long n) {
+  const V* s = reinterpret_cast<const V*>(src);
+  V* d = reinterpret_cast<V*>(dst);
+  for (long long i = threadIdx.x; i < n; i += kBlock) d[i] = s[i];
+}
+
+// bytes [0, n) of src into dst by the whole block: the widest move that
+// both addresses allow after a head of single bytes, then a byte tail
+__device__ void block_copy(const uint8_t* src, uint8_t* dst, long long n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src), b = reinterpret_cast<uintptr_t>(dst);
+  const int vec = ((a ^ b) & 15) == 0 ? 16 : ((a ^ b) & 3) == 0 ? 4 : 1;
+  const long long head = min(static_cast<long long>((vec - (a & (vec - 1))) & (vec - 1)), n);
+  copy_as<uint8_t>(src, dst, head);
+  const long long body = (n - head) / vec;
+  if (vec == 16)
+    copy_as<uint4>(src + head, dst + head, body);
+  else if (vec == 4)
+    copy_as<uint32_t>(src + head, dst + head, body);
+  else
+    copy_as<uint8_t>(src + head, dst + head, body);
+  const long long done = head + body * vec;
+  copy_as<uint8_t>(src + done, dst + done, n - done);
+}
+
+// the delta's rows of [r0, r1): ``vec`` divides row_bytes and both bases'
+// alignment, so every row moves as row_bytes / vec words of V
+template <typename V>
+__device__ void overwrite(const int32_t* s_src, const int32_t* s_dst, int n,
+                          const uint8_t* rows, uint8_t* out, long long row_bytes) {
+  const long long per = row_bytes / static_cast<long long>(sizeof(V));
+  auto word = [&](int k, long long w) {
+    reinterpret_cast<V*>(out + s_dst[k] * row_bytes)[w] =
+        reinterpret_cast<const V*>(rows + s_src[k] * row_bytes)[w];
+  };
+  if (per >= kBlock) {  // a row per pass, threads along it
+    for (int k = 0; k < n; ++k)
+      for (long long w = threadIdx.x; w < per; w += kBlock) word(k, w);
+    return;
+  }
+  const int p = static_cast<int>(per);  // n * p < kChunk * kBlock
+  for (int j = threadIdx.x; j < n * p; j += kBlock) {
+    const int k = j / p;
+    word(k, j - k * p);
+  }
+}
+
+__global__ void __launch_bounds__(kBlock) apply_rows(const uint8_t* arr, uint8_t* out,
+                                                     const int32_t* idx, const uint8_t* rows,
+                                                     long long n_rows, long long row_bytes,
+                                                     int n_delta, long long rows_per_block,
+                                                     int vec) {
+  __shared__ int32_t s_src[kChunk];  // delta rows that land in this block's range
+  __shared__ int32_t s_dst[kChunk];  // ... and their destination rows
+  __shared__ int s_n;
+  const long long r0 = blockIdx.x * rows_per_block;
+  const long long r1 = min(r0 + rows_per_block, n_rows);
+  block_copy(arr + r0 * row_bytes, out + r0 * row_bytes, (r1 - r0) * row_bytes);
+  for (int base = 0; base < n_delta; base += kChunk) {
+    if (threadIdx.x == 0) s_n = 0;
+    // orders the copy (first pass) or the last pass's writes before these
+    __syncthreads();
+    for (int i = base + threadIdx.x; i < n_delta && i < base + kChunk; i += kBlock) {
+      long long dst = idx[i];
+      if (dst < 0) dst += n_rows;
+      if (dst >= r0 && dst < r1) {
+        const int k = atomicAdd(&s_n, 1);
+        s_src[k] = i;
+        s_dst[k] = static_cast<int32_t>(dst);
+      }
+    }
+    __syncthreads();
+    const int n = s_n;
+    if (vec == 16)
+      overwrite<uint4>(s_src, s_dst, n, rows, out, row_bytes);
+    else if (vec == 4)
+      overwrite<uint32_t>(s_src, s_dst, n, rows, out, row_bytes);
+    else
+      overwrite<uint8_t>(s_src, s_dst, n, rows, out, row_bytes);
+    __syncthreads();
   }
 }
 
 }  // namespace
 
-extern "C" int kt_apply_rows(long long n_rows, long long n_delta, long long row_elems,
-                             int elem_bytes, const int32_t* idx, const void* rows,
+// out [n_rows, row_bytes] = arr with the n_delta rows of ``rows`` at idx
+// (int32); arr and out are distinct buffers of the same size.
+extern "C" int kt_apply_rows(long long n_rows, long long row_bytes, int n_delta,
+                             const void* arr, const int32_t* idx, const void* rows,
                              void* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (elem_bytes != 1 && elem_bytes != 4) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = n_delta * row_elems;
-  if (total == 0) return kt::kNothingLaunched;
-  constexpr int kBlock = 256;
-  const long long want = (total + kBlock - 1) / kBlock;
-  const int grid = static_cast<int>(want < 65535 ? want : 65535);
-  if (elem_bytes == 1)
-    apply_rows<uint8_t><<<grid, kBlock, 0, stream>>>(
-        idx, static_cast<const uint8_t*>(rows), static_cast<uint8_t*>(out), n_delta,
-        row_elems, n_rows);
-  else
-    apply_rows<uint32_t><<<grid, kBlock, 0, stream>>>(
-        idx, static_cast<const uint32_t*>(rows), static_cast<uint32_t*>(out), n_delta,
-        row_elems, n_rows);
+  if (n_rows <= 0 || row_bytes <= 0 || n_delta < 0) return kt::kNothingLaunched;
+  const long long total = n_rows * row_bytes;
+  long long blocks = (total + kBlockBytes - 1) / kBlockBytes;
+  blocks = blocks < kMaxBlocks ? blocks : kMaxBlocks;
+  const long long rows_per_block = (n_rows + blocks - 1) / blocks;
+  blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(rows) | reinterpret_cast<uintptr_t>(out);
+  const int vec = (row_bytes % 16 == 0 && bases % 16 == 0) ? 16
+                  : (row_bytes % 4 == 0 && bases % 4 == 0) ? 4
+                                                           : 1;
+  apply_rows<<<static_cast<int>(blocks), kBlock, 0, stream>>>(
+      static_cast<const uint8_t*>(arr), static_cast<uint8_t*>(out), idx,
+      static_cast<const uint8_t*>(rows), n_rows, row_bytes, n_delta, rows_per_block, vec);
   return static_cast<int>(cudaGetLastError());
 }

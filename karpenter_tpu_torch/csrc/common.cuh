@@ -20,6 +20,9 @@ constexpr unsigned kFull = 0xffffffffu;
 // an entry point's return when its shapes are empty and nothing launched
 // (CUDA error codes are >= 0); the wrapper then counts no launch
 constexpr int kNothingLaunched = -1;
+// ... and when its thread-block cluster cannot be placed on the card
+// (cudaOccupancyMaxActiveClusters is 0); the wrapper raises with the reason
+constexpr int kClusterUnplaced = -2;
 
 // fits_count (karpenter_tpu/ops/feasibility.py:68): float32
 // floor(headroom / max(req, 1e-9)) per positive request, min over R, +inf

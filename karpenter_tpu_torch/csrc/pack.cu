@@ -12,19 +12,30 @@
 // Bound on the H100: latency, not bytes or operations. The scan is
 // sequential over groups; each step is a chain of dependent block-wide
 // reductions (claim caps, a prefix scan over existing nodes, up to
-// wf_iters bisection trips per water-fill, bulk openings), each a few
-// microseconds of barrier latency over at most NMAX x T cells.
+// wf_iters bisection trips per water-fill, bulk openings), each a barrier
+// over the open claims x T cells.
 //
-// Design: ONE persistent thread block of 1024 threads walks every group in
-// FFD order — no launch per scan step, which would cost more than the
-// step. The carried state (PackState) lives in device memory the wrapper
-// allocates (c_tmask alone is 400 KB at the 50k x 400 cell, beyond the
-// 227 KB of shared memory; the 50 MB L2 holds all of it); per-step group
-// rows live in shared memory. Per-claim work (compatibility, per-type fit,
-// survival) runs one warp per claim with lanes over types, so it needs no
-// block barrier. Reductions and scans are integer (exact in any order);
-// argmin/argmax break ties at the lowest index; float32 ledgers use two
-// IEEE roundings per a*b+c (built with -fmad=false), as XLA computes them.
+// Design: ONE persistent thread-block cluster of up to 8 blocks of 1024
+// threads (pick_cluster) walks every group in FFD order — no launch per scan step, which
+// would cost more than the step. The carried state (PackState) lives in
+// device memory the wrapper allocates (c_tmask alone is 13 MB at the
+// tenant cell, beyond the 227 KB of shared memory; the 50 MB L2 holds
+// it); per-step group rows live in each block's shared memory. The claim
+// axis runs to the open claims (n_open), never NMAX (pack_common.cuh: the
+// live extent). The three phases whose work is per claim or per cell fan
+// out over the cluster's blocks, each rank a contiguous share of the
+// live claims (of the types, for tile_rows): the claim-side feasibility
+// and commit_claims, one warp per claim with lanes over types, and the
+// tiled row build. Every other phase (node caps, quota, tier 1, tier 2,
+// the fresh-claim bulks, contributor counting, the outputs) runs on rank
+// 0 as on one block while the other ranks wait at the cluster barrier,
+// whose release / acquire order the State one rank writes before another
+// reads it; each rank loads the step's group rows into its own shared
+// memory (no wait on rank 0), and reads rank 0's claim count after each
+// step through distributed shared memory. Reductions and scans are
+// integer (exact in any order) and cost one barrier each; argmin/argmax
+// break ties at the lowest index; float32 ledgers use two IEEE roundings
+// per a*b+c (built with -fmad=false), as XLA computes them.
 //
 // Domains (has_domains; packing.py:496-1152): a dynamic group (g_dmode >
 // 0) gets a quota qd over its V1 domain slots plus ANY and DEAD. Per step
@@ -78,7 +89,7 @@
 //
 // Scenario grid (kernel B7, karpenter_tpu/ops/solve.py:357
 // solve_scenarios_core_packed, which vmaps this scan over consolidation
-// scenarios): block s of a <<<S, 1024>>> launch walks scenario s. The
+// scenarios): cluster s of a launch of S clusters walks scenario s. The
 // batched inputs (g_count, cap_ng or, tiled, n_tol, and n_hcnt / nh_cnt0 /
 // g_dprior / dd0 when the topology priors are per scenario) carry a
 // scenario stride, 0 when shared; every State, Rows and Out buffer holds
@@ -87,11 +98,66 @@
 // the static word tables are shared. The scan body is the same for every S, so
 // scenarios walk the same groups in the same order with the same ties and
 // bisection; S = 1 is the plain solve. Scenarios are independent, so
-// blocks never synchronise with each other; a batch wider than the 132
-// SMs queues.
+// clusters never synchronise with each other. The card holds only so many
+// clusters at once (1 block per SM, clusters within a GPC), so the launch
+// narrows the cluster until all S fit (pick_cluster); past the SMs, single
+// blocks queue.
+#include <cooperative_groups.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include "pack_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+// The most blocks in the thread-block cluster that walks one scenario: 8,
+// the portable maximum, was fastest at every shape of the A/B over 1, 2,
+// 4 and 8 (PERF.md §6). A launch of S scenarios takes the largest cluster
+// of 8, 4 or 2 blocks of which the card holds S at once (pick_cluster), so
+// a scenario batch never queues a second wave behind a wider cluster;
+// single blocks where not even clusters of 2 fit. A card that cannot
+// place a cluster of 8 with the scan's shared memory at all refuses the
+// launch (kClusterUnplaced), never runs it smaller.
+constexpr int kMaxCluster = 8;
+
+// Phase clocks (measurement only; tenant_scan.py builds this file once
+// more with -DKT_PHASE_CLOCKS as libpack_clocks.so, which neither the
+// solver nor chip_smoke.py loads): at the end of each phase the block
+// meets at a barrier and thread 0 of block 0 adds the %globaltimer
+// nanoseconds since the last mark to its phase's total. The marks' extra
+// barriers are the build's own cost.
+enum Phase {
+  kPhInit, kPhLoad, kPhTile, kPhClaims, kPhExist, kPhQuota, kPhTier1, kPhTier2,
+  kPhCommit, kPhFresh, kPhContrib, kPhOutputs, kPhases
+};
+#ifdef KT_PHASE_CLOCKS
+__device__ unsigned long long phase_ns[kPhases];
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define PHASE_MARK(k)                                     \
+  do {                                                    \
+    __syncthreads();                                      \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {            \
+      const unsigned long long now_ = globaltimer();      \
+      phase_ns[k] += now_ - clock_at;                     \
+      clock_at = now_;                                    \
+    }                                                     \
+  } while (0)
+#define PHASE_START unsigned long long clock_at = threadIdx.x == 0 ? globaltimer() : 0
+#else
+#define PHASE_MARK(k) \
+  do {                \
+  } while (0)
+#define PHASE_START
+#endif
 
 // elements between consecutive scenarios' slices of the batched inputs
 // (0: shared by every scenario)
@@ -151,8 +217,134 @@ __device__ void own_slice(const Dims& d, const Strides& sc, long long s,
   out.c_resv += s * NMAX;
 }
 
+// the cluster's barrier (release / acquire at cluster scope: the State
+// one rank wrote before it is what the others read after it); the block's
+// own with no cluster
+__device__ __forceinline__ void cluster_sync(int ranks) {
+  if (ranks > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// A claim's caps for the step: cap_any, its best fit over its masked
+// types, and the minValues cap cap_mv, clamped to claim_cap; per domain
+// percap for dynamic groups (0 on claims that are not compatible).
+__device__ __forceinline__ void settle_caps(const Dims& d, const State& st, const Grp& g, int s,
+                                            int32_t cap_any, int32_t cap_mv) {
+  int32_t c = min(cap_any, g.hcap);  // open claims carry no prior
+  c = min(c, g.count);
+  c = min(c, cap_mv);
+  c = min(c, h_allow(g, st.ch_cnt[s * d.JH + g.jhc]));
+  st.claim_cap[s] = c;
+  if (d.MV) st.mvcap[s] = cap_mv;
+}
+
+// The claim-side feasibility of the open claims [lo, hi) for group gi
+// (c_active, packing.py's claim caps), a window of 1024 slots at a time:
+// one thread per slot settles the claims whose template cannot take the
+// group, one warp per remaining slot checks the group's keys, and the
+// compatible claims are sized kWarps at a time, warp j working out claim
+// j's words, the block's threads sharing the chunk's (claim, type) cells
+// (the best fit by shared atomicMax into m.cbest, per domain into m.pcap),
+// warp j then taking its minValues cap and writing the claim's caps. The
+// maxima do not depend on the gathering order. Call after a barrier; ends
+// in one.
+__device__ void claim_caps(const Dims& d, const In& in, const State& st, const Out& out,
+                           const Smem& m, const Grp& g, int gi, int lo, int hi) {
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int T = d.T, R = d.R, V1 = d.V1, W = d.W;
+  auto no_domains = [&](int s, int from, int step) {
+    if (g.dyn)
+      for (int v = from; v < V1; v += step) st.percap[static_cast<size_t>(s) * V1 + v] = 0;
+  };
+  for (int base = lo; base < hi; base += kThreads) {
+    if (tid == 0) m.nlist[0] = m.nlist[1] = 0;
+    __syncthreads();
+    const int s0 = base + tid;
+    if (s0 < hi) {
+      const int pp = out.c_pool[s0];
+      if (in.p_tol[pp * d.G + gi] && in.compat_pg[trow(d, pp, gi)]) {
+        m.cand[atomicAdd(m.nlist + 1, 1)] = s0;
+      } else {
+        no_domains(s0, 0, 1);
+        settle_caps(d, st, g, s0, 0, kBigDom);
+      }
+    }
+    __syncthreads();
+    for (int i = wid; i < m.nlist[1]; i += kWarps) {
+      const int s = m.cand[i];
+      if (warp_claim_compat(d, in, st, out, m, s, gi)) {
+        if (lane == 0) m.list[atomicAdd(m.nlist, 1)] = s;
+      } else {
+        no_domains(s, lane, 32);
+        if (lane == 0) settle_caps(d, st, g, s, 0, kBigDom);
+      }
+    }
+    __syncthreads();
+    const int n = m.nlist[0];
+    for (int c0 = 0; c0 < n; c0 += kWarps) {
+      const int nc = min(kWarps, n - c0);
+      const int32_t* cl = m.list + c0;
+      if (wid < nc) {
+        warp_claim_words(d, st, m, cl[wid]);
+        if (g.dyn)
+          for (int v = lane; v < V1; v += 32) m.pcap[wid * V1 + v] = 0;
+        if (lane == 0) m.cbest[wid] = 0;
+      }
+      __syncthreads();
+      for (int i = tid; i < nc * T; i += kThreads) {
+        const int j = i / T, t = i - j * T, s = cl[j];
+        if (!out.c_tmask[static_cast<size_t>(s) * T + t] ||
+            !in.type_ok[trow(d, out.c_pool[s], gi) * T + t])
+          continue;
+        const int32_t af = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
+                                      st.c_used + static_cast<size_t>(s) * R, m.req, R);
+        const uint32_t* wcz = m.cz + j * 2 * W;
+        const uint32_t* wcc = wcz + W;
+        const uint32_t* az = claim_atz(d, st, out, s);
+        if (af < 1 || !offer(az, t, V1, W, wcz, wcc)) continue;
+        atomicMax(&m.cbest[j], af);
+        if (g.dyn) {
+          const uint32_t* ac = claim_atc(d, st, out, s);
+          for (int v = 0; v < V1; ++v)
+            if (offer_in(az, ac, g.dkey, t, v, V1, W, wcz, wcc)) atomicMax(&m.pcap[j * V1 + v], af);
+        }
+      }
+      __syncthreads();
+      if (wid < nc) {
+        const int s = cl[wid];
+        const int32_t best = m.cbest[wid];
+        int32_t cap_mv = kBigDom;
+        // a claim with no capacity takes nothing whatever its cap
+        if (d.MV && best >= 1) {
+          const int pp = out.c_pool[s];
+          const uint8_t* tok = in.type_ok + trow(d, pp, gi) * T;
+          const uint8_t* tms = out.c_tmask + static_cast<size_t>(s) * T;
+          const float* used = st.c_used + static_cast<size_t>(s) * R;
+          const uint32_t* wcz = m.cz + wid * 2 * W;
+          const uint32_t* wcc = wcz + W;
+          const uint32_t* az = claim_atz(d, st, out, s);
+          cap_mv = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(pp) * d.MV,
+                                  [&](int t, int32_t& fit) {
+                                    if (!tms[t] || !tok[t]) return false;
+                                    fit = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
+                                                     used, m.req, R);
+                                    return fit >= 1 && offer(az, t, V1, W, wcz, wcc);
+                                  });
+        }
+        if (g.dyn)
+          for (int v = lane; v < V1; v += 32)
+            st.percap[static_cast<size_t>(s) * V1 + v] = m.pcap[wid * V1 + v];
+        if (lane == 0) settle_caps(d, st, g, s, best, cap_mv);
+      }
+      __syncthreads();
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
-pack_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Strides sc) {
+pack_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Strides sc, int ranks) {
   // this block's scenario slices, kept in shared memory rather than in
   // registers, which the 1024-thread launch bound already holds to 64
   __shared__ In in;
@@ -161,139 +353,178 @@ pack_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Strides sc) {
   __shared__ Out out;
   __shared__ Smem m;
   __shared__ Grp g;
-  __shared__ Shared sh;
+  __shared__ RedBufs red;
   __shared__ float s_debit[32];
+  // rank 0's open claims after each step, read by the other ranks
+  __shared__ int32_t s_open;
   extern __shared__ __align__(16) unsigned char dyn[];
+  PHASE_START;
+  // ranks: the blocks of this launch's clusters, uniform over the grid
+  const int rank = ranks > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const bool lead = rank == 0;
   if (threadIdx.x == 0) {
     in = in0;
     st = st0;
     rw = rw0;
     out = out0;
-    own_slice(d, sc, blockIdx.x, in, st, rw, out);
+    own_slice(d, sc, blockIdx.x / ranks, in, st, rw, out);
     use_rows(d, in, rw);
     carve(dyn, d, m);
   }
   __syncthreads();
-  const int G = d.G, T = d.T, N = d.N, R = d.R, V1 = d.V1, NMAX = d.NMAX, JH = d.JH, W = d.W;
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  Shared sh{&red, 0};
+  const int G = d.G, N = d.N, R = d.R, V1 = d.V1, JH = d.JH;
+  const int tid = threadIdx.x;
 
-  init_state(d, in, st, out);
+  if (lead) init_state(d, in, st, out);
   int32_t n_open = 0;
   bool overflow = false;
+  cluster_sync(ranks);
+  PHASE_MARK(kPhInit);
 
   for (int gi = 0; gi < G; ++gi) {
-    if (in.g_count[gi] <= 0) {
-      // padded / empty groups place nothing and mutate nothing
-      for (int n = tid; n < N; n += kThreads) out.exist_fills[gi * N + n] = 0;
-      for (int s = tid; s < NMAX; s += kThreads)
-        out.claim_fills[static_cast<size_t>(gi) * NMAX + s] = 0;
-      if (tid == 0) out.unplaced[gi] = 0;
-      continue;
-    }
+    // padded / empty groups place nothing and mutate nothing; their
+    // output rows keep the wrapper's zeros
+    if (in.g_count[gi] <= 0) continue;
     if (tid == 0) load_group(d, in, gi, gi, in.g_dkey[gi], g);
     load_rows(d, in, gi, m);
     __syncthreads();
-    if (d.tiled) tile_rows(d, in, rw, m, gi);
-    if (g.dyn || d.NRES) template_words(d, in, m, gi);
-    if (g.dyn) {
-      const bool has_d = g.has_d;
-      for (int v = tid; v < V1; v += kThreads)
-        m.D0[v] = wrap_add(in.g_dprior[static_cast<size_t>(gi) * V1 + v],
-                           has_d ? st.ddc[static_cast<size_t>(min(g.jd, d.JD - 1)) * V1 + v] : 0);
-      template_domains(d, in, st, m, gi, g.dkey);
+    PHASE_MARK(kPhLoad);
+    if (d.tiled) {
+      tile_rows(d, in, rw, m, gi, rank, ranks);
+      cluster_sync(ranks);
     }
-
-    // ---- claim-side feasibility: cap_any and the minValues cap cap_mv,
-    // clamped to claim_cap; per domain percap for dynamic groups (0 on
-    // claims that are not live) ----
-    for (int s = wid; s < NMAX; s += kWarps) {
-      int32_t cap_any = 0, cap_mv = kBigDom;
-      bool live = false;
-      int32_t* wpc = m.pcap + wid * V1;
-      if (s < n_open && warp_claim_compat(d, in, st, out, m, s, gi)) {  // c_active
-        live = true;
-        const uint32_t* wcz = warp_claim_words(d, st, m, s);
-        const uint32_t* wcc = wcz + W;
-        const uint32_t* az = claim_atz(d, st, out, s);
-        const uint32_t* ac = claim_atc(d, st, out, s);
-        if (g.dyn)
-          for (int v = lane; v < V1; v += 32) wpc[v] = 0;
-        __syncwarp();
-        const int pp = out.c_pool[s];
-        const uint8_t* tok = in.type_ok + trow(d, pp, gi) * T;
-        const uint8_t* tms = out.c_tmask + static_cast<size_t>(s) * T;
-        const float* used = st.c_used + static_cast<size_t>(s) * R;
-        int32_t best = 0;
-        for (int t = lane; t < T; t += 32) {
-          if (!tms[t] || !tok[t]) continue;
-          const int32_t af = fits_count(in.t_alloc + static_cast<size_t>(t) * R, used, m.req, R);
-          if (af < 1 || !offer(az, t, V1, W, wcz, wcc)) continue;
-          best = max(best, af);
-          if (g.dyn)
-            for (int v = 0; v < V1; ++v)
-              if (offer_in(az, ac, g.dkey, t, v, V1, W, wcz, wcc)) atomicMax(&wpc[v], af);
-        }
-        for (int o = 16; o; o >>= 1) best = max(best, __shfl_xor_sync(kFull, best, o));
-        cap_any = best;
-        __syncwarp();
-        // a claim with no capacity takes nothing whatever its cap
-        if (d.MV && best >= 1)
-          cap_mv = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(pp) * d.MV,
-                                  [&](int t, int32_t& fit) {
-                                    if (!tms[t] || !tok[t]) return false;
-                                    fit = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
-                                                     used, m.req, R);
-                                    return fit >= 1 && offer(az, t, V1, W, wcz, wcc);
-                                  });
+    PHASE_MARK(kPhTile);
+    if (lead) {
+      if (g.dyn || d.NRES) template_words(d, in, m, gi);
+      if (g.dyn) {
+        const bool has_d = g.has_d;
+        for (int v = tid; v < V1; v += kThreads)
+          m.D0[v] = wrap_add(in.g_dprior[static_cast<size_t>(gi) * V1 + v],
+                             has_d ? st.ddc[static_cast<size_t>(min(g.jd, d.JD - 1)) * V1 + v] : 0);
+        template_domains(d, in, st, m, gi, g.dkey);
       }
+    }
+    PHASE_MARK(kPhQuota);
+
+    // ---- claim-side feasibility over this rank's share of the live
+    // claims (slots past n_open keep init_state's) ----
+    int lo, hi;
+    rank_share(n_open, rank, ranks, lo, hi);
+    claim_caps(d, in, st, out, m, g, gi, lo, hi);
+    cluster_sync(ranks);
+    PHASE_MARK(kPhClaims);
+
+    int32_t placed_exist = 0;
+    if (lead) {
+      // node caps at the current load, the group's per-entity caps
+      for (int n = tid; n < N; n += kThreads) {
+        int32_t ec = in.cap_ng[tcap(d, n, gi)] > 0
+                         ? fits_count(in.n_avail + static_cast<size_t>(n) * R,
+                                      st.exist_used + static_cast<size_t>(n) * R, m.req, R)
+                         : 0;
+        ec = min(ec, max(wrap_sub(g.hcap, in.n_hcnt[static_cast<size_t>(n) * G + gi]), 0));
+        ec = min(ec, h_allow(g, st.nhc[n * JH + g.jhc]));
+        st.exist_cap[n] = ec;
+      }
+      __syncthreads();
+      const bool haff_exist_served = haff_pin_nodes(d, in, g, st.exist_cap, sh);
+      PHASE_MARK(kPhExist);
       if (g.dyn)
-        for (int v = lane; v < V1; v += 32)
-          st.percap[static_cast<size_t>(s) * V1 + v] = live ? wpc[v] : 0;
-      __syncwarp();
-      if (lane == 0) {
-        int32_t c = min(cap_any, g.hcap);  // open claims carry no prior
-        c = min(c, g.count);
-        c = min(c, cap_mv);
-        c = min(c, h_allow(g, st.ch_cnt[s * JH + g.jhc]));
-        st.claim_cap[s] = c;
-        if (d.MV) st.mvcap[s] = cap_mv;
-      }
+        domain_quota(d, in, st, out, m, g, st.exist_cap, false, n_open, sh);
+      else
+        any_quota(d, m, g.count);
+      PHASE_MARK(kPhQuota);
+      placed_exist = tier1_fill(d, in, st, out, m, g, st.exist_cap, haff_exist_served, sh);
+      PHASE_MARK(kPhTier1);
+      if (g.dyn)
+        tier2_domains(d, st, m, g, false, n_open, sh);
+      else
+        tier2_any(d, st, m, g, false, n_open, sh);
     }
-
-    // node caps at the current load, the group's per-entity caps
-    for (int n = tid; n < N; n += kThreads) {
-      int32_t ec = in.cap_ng[tcap(d, n, gi)] > 0
-                       ? fits_count(in.n_avail + static_cast<size_t>(n) * R,
-                                    st.exist_used + static_cast<size_t>(n) * R, m.req, R)
-                       : 0;
-      ec = min(ec, max(wrap_sub(g.hcap, in.n_hcnt[static_cast<size_t>(n) * G + gi]), 0));
-      ec = min(ec, h_allow(g, st.nhc[n * JH + g.jhc]));
-      st.exist_cap[n] = ec;
+    cluster_sync(ranks);
+    PHASE_MARK(kPhTier2);
+    commit_claims(d, in, st, out, m, g, true, lo, hi);
+    cluster_sync(ranks);
+    PHASE_MARK(kPhCommit);
+    if (lead) {
+      fresh_claims(d, in, st, out, m, g, n_open, overflow, NoBulkHook{}, sh, s_debit);
+      spread_carry(d, st, m, g);
+      __syncthreads();
+      PHASE_MARK(kPhFresh);
+      if (d.has_contrib) contrib_counts(d, in, st, out, m, g, n_open);
+      PHASE_MARK(kPhContrib);
+      group_outputs(d, st, out, g, placed_exist, n_open, sh);
+      if (tid == 0) s_open = n_open;
     }
-    __syncthreads();
-    const bool haff_exist_served = haff_pin_nodes(d, in, g, st.exist_cap, sh);
-
-    if (g.dyn)
-      domain_quota(d, in, st, out, m, g, st.exist_cap, false, sh);
-    else
-      any_quota(d, m, g.count);
-    const int32_t placed_exist = tier1_fill(d, in, st, out, m, g, st.exist_cap,
-                                            haff_exist_served, sh);
-    if (g.dyn)
-      tier2_domains(d, st, m, g, false, sh);
-    else
-      tier2_any(d, st, m, g, false, sh);
-    commit_claims(d, in, st, out, m, g, true);
-    fresh_claims(d, in, st, out, m, g, n_open, overflow, NoBulkHook{}, sh, s_debit);
-    spread_carry(d, st, m, g);
-    __syncthreads();
-    if (d.has_contrib) contrib_counts(d, in, st, out, m, g);
-    group_outputs(d, st, out, g, placed_exist, sh);
+    // the step's state, and rank 0's open claims, before the next step
+    cluster_sync(ranks);
+    if (ranks > 1 && !lead) n_open = *cg::this_cluster().map_shared_rank(&s_open, 0);
+    PHASE_MARK(kPhOutputs);
   }
-  if (tid == 0) {
+  if (lead && tid == 0) {
     out.n_open[0] = n_open;
     out.overflow[0] = overflow;
   }
+  // rank 0's shared memory outlives the other ranks' last read of it
+  if (ranks > 1) cg::this_cluster().sync();
+}
+
+// The clusters of ``c`` blocks the card holds at once with ``cfg``'s
+// shared memory (for c = 1, blocks), asked of the runtime once per device,
+// size and shared memory, not per launch.
+int max_active(int c, cudaLaunchConfig_t cfg, int& n) {
+  static std::mutex mu;
+  static std::map<std::pair<std::pair<int, int>, size_t>, int> known;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto key = std::make_pair(std::make_pair(dev, c), cfg.dynamicSmemBytes);
+  std::lock_guard<std::mutex> hold(mu);
+  const auto hit = known.find(key);
+  if (hit != known.end()) {
+    n = hit->second;
+    return 0;
+  }
+  if (c == 1) {
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pack_scan, kThreads,
+                                                      cfg.dynamicSmemBytes);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    n = per_sm * sms;
+  } else {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(c);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaOccupancyMaxActiveClusters(&n, pack_scan, &cfg);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  known[key] = n;
+  return 0;
+}
+
+// The cluster for a launch of S scenarios: the largest of 8, 4 and 2
+// blocks of which the card holds S clusters at once, else 1. Writes the
+// blocks, the clusters of that size the card holds and those of 8 to
+// ``c``, ``fit`` and ``fit8``; returns kClusterUnplaced when not one
+// cluster of 8 fits.
+int pick_cluster(int S, const cudaLaunchConfig_t& cfg, int& c, int& fit, int& fit8) {
+  int rc = max_active(kMaxCluster, cfg, fit8);
+  if (rc) return rc;
+  if (fit8 < 1) return kt::kClusterUnplaced;
+  c = kMaxCluster;
+  fit = fit8;
+  while (c > 1 && fit < S) {
+    c /= 2;
+    rc = max_active(c, cfg, fit);
+    if (rc) return rc;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -351,6 +582,10 @@ extern "C" int kt_pack(
     int32_t* c_pool, uint8_t* c_tmask, int32_t* n_open, uint8_t* overflow,
     int32_t* exist_fills, int32_t* claim_fills, int32_t* unplaced,
     int32_t* c_dzone, int32_t* c_dct, uint8_t* c_resv,
+    // out (host, may be null): the cluster's blocks, how many clusters of
+    // that size and of 8 blocks the card holds at once with the scan's
+    // shared memory
+    int* cluster,
     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (R > 32 || JH < 1 || JD < 1 || (MV && (MW < 1 || MW > kMaxMvW)))
@@ -390,6 +625,40 @@ extern "C" int kt_pack(
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(pack_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-  pack_scan<<<S, kThreads, smem, stream>>>(d, in, st, rw, out, sc);
+  // one cluster of c blocks per scenario (pick_cluster)
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  int c = 1, fit = 0, fit8 = 0;
+  const int rc = pick_cluster(S, cfg, c, fit, fit8);
+  if (rc) return rc;
+  if (cluster) {
+    cluster[0] = c;
+    cluster[1] = fit;
+    cluster[2] = fit8;
+  }
+  cfg.gridDim = dim3(static_cast<unsigned>(S) * c);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  if (c > 1) {
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  cudaLaunchKernelEx(&cfg, pack_scan, d, in, st, rw, out, sc, c);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef KT_PHASE_CLOCKS
+// The phase clocks' totals in nanoseconds ([kPhases], in Phase order) into
+// ``host``, then zeroed; synchronous. Returns cudaGetLastError().
+extern "C" int kt_pack_phase_clocks(unsigned long long* host) {
+  cudaMemcpyFromSymbol(host, phase_ns, sizeof(phase_ns));
+  const unsigned long long zero[kPhases] = {};
+  cudaMemcpyToSymbol(phase_ns, zero, sizeof(phase_ns));
+  return static_cast<int>(cudaGetLastError());
+}
+#endif

@@ -36,8 +36,9 @@
 //
 // Fills go straight into the group rows class_start + m (the TPU's [C,
 // lmax] member buffers and their inv_idx gather are a layout, not part of
-// the function); rows of groups that place nothing stay as the entry's
-// memset leaves them: zero.
+// the function); rows of groups that place nothing, and the columns past
+// the live claims (the shared phases walk slots [0, n_open)), keep the
+// wrapper's zeros.
 //
 // The tiled mode (tiled; packing.py:1335, :1347-1385): the class head
 // builds the class's feasibility rows once (tile_rows, pack_common.cuh)
@@ -107,7 +108,7 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
   __shared__ Head hd;
   __shared__ Smem m;
   __shared__ Grp g;
-  __shared__ Shared sh;
+  __shared__ RedBufs red;
   __shared__ float s_debit[32];
   extern __shared__ __align__(16) unsigned char dyn[];
   if (threadIdx.x == 0) {
@@ -121,6 +122,7 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
     carve(dyn, d, m);
   }
   __syncthreads();
+  Shared sh{&red, 0};
   const int G = d.G, T = d.T, N = d.N, R = d.R, V1 = d.V1, NMAX = d.NMAX, JH = d.JH, W = d.W;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
 
@@ -138,7 +140,7 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
     // ---- class-invariant head tables (packing.py:1343-1541) ----
     load_rows(d, in, cs, m);
     __syncthreads();
-    if (d.tiled) tile_rows(d, in, rw, m, cs);
+    if (d.tiled) tile_rows(d, in, rw, m, cs, 0, 1);
     for (int t = tid; t < T; t += kThreads) {
       hd.off_grp[t] = offer(st.atz, t, V1, W, m.gz, m.gc);
       if (cdyn)
@@ -250,7 +252,7 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
       __syncthreads();
       const bool haff_exist_served = haff_pin_nodes(d, in, g, hd.e_cap, sh);
       if (g.dyn)
-        domain_quota(d, in, st, out, m, g, hd.e_cap, true, sh);
+        domain_quota(d, in, st, out, m, g, hd.e_cap, true, n_open, sh);
       else
         any_quota(d, m, g.count);
       const int32_t placed_exist = tier1_fill(d, in, st, out, m, g, hd.e_cap,
@@ -261,7 +263,7 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
 
       // ---- 2. open claims, from the maintained summaries ----
       if (g.dyn) {
-        tier2_domains(d, st, m, g, g.count <= 1, sh);
+        tier2_domains(d, st, m, g, g.count <= 1, n_open, sh);
       } else {
         for (int s = tid; s < NMAX; s += kThreads) {
           int32_t c = (s < n_open && hd.live[s]) ? hd.capv[s] : 0;
@@ -271,9 +273,9 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
           st.claim_cap[s] = min(c, h_allow(g, st.ch_cnt[s * JH + g.jhc]));
         }
         __syncthreads();
-        tier2_any(d, st, m, g, true, sh);
+        tier2_any(d, st, m, g, true, n_open, sh);
       }
-      commit_claims(d, in, st, out, m, g, false);
+      commit_claims(d, in, st, out, m, g, false, 0, n_open);
       // summary maintenance: exact decrements, then a pin zeroes the
       // other lanes and collapses capv to the pinned one; the minValues
       // headroom drops by the fill
@@ -303,8 +305,8 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
                    sh, s_debit);
       spread_carry(d, st, m, g);
       __syncthreads();
-      if (d.has_contrib) contrib_counts(d, in, st, out, m, g);
-      group_outputs(d, st, out, g, placed_exist, sh);
+      if (d.has_contrib) contrib_counts(d, in, st, out, m, g, n_open);
+      group_outputs(d, st, out, g, placed_exist, n_open, sh);
     }
 
     // ---- end-of-class type-mask settlement (packing.py:2160-2191) ----
@@ -405,10 +407,6 @@ extern "C" int kt_pack_classed(
   if (R > 32 || JH < 1 || JD < 1 || (MV && (MW < 1 || MW > kMaxMvW)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int W = (V1 + 31) / 32;
-  // rows of skipped classes and of count-0 members stay zero
-  cudaMemsetAsync(exist_fills, 0, sizeof(int32_t) * static_cast<size_t>(G) * N, stream);
-  cudaMemsetAsync(claim_fills, 0, sizeof(int32_t) * static_cast<size_t>(G) * NMAX, stream);
-  cudaMemsetAsync(unplaced, 0, sizeof(int32_t) * static_cast<size_t>(G), stream);
   // no reservation ledger here (NRES = 0)
   Dims d{G, T, P, N, R, K, V1, NMAX, JH, JD, zone_kid, ct_kid, wf_iters, W,
          has_domains != 0, has_contrib != 0, MV, MW, (MW + 31) / 32, 0, O, tiled != 0};

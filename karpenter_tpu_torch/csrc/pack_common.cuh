@@ -5,11 +5,14 @@
 // kernels call the same functions, so the two scans place a group the
 // same way, bit for bit.
 //
-// Every function here is called by all threads of one 1024-thread block;
-// those that end in a block barrier say so. Reductions and scans are
-// integer (exact in any order); argmin/argmax break ties at the lowest
-// index; float32 ledgers use two IEEE roundings per a*b+c (built with
-// -fmad=false), as XLA computes them.
+// Every function here is called by all threads of one 1024-thread block
+// (in B4, the block of a cluster's rank that runs the phase); those that
+// end in a block barrier say so. The claim-axis phases take the live
+// extent (the open claims) as an argument and never walk to NMAX.
+// Reductions and scans are integer (exact in any order) and cost one
+// barrier each; argmin/argmax break ties at the lowest index; float32
+// ledgers use two IEEE roundings per a*b+c (built with -fmad=false), as
+// XLA computes them.
 //
 // The tiled mode (Dims::tiled; packing.py:_tile_rows, the HBM-scaling
 // route): the four feasibility tables are never materialised. At the head
@@ -40,6 +43,7 @@ using kt::wrap_sub;
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
+static_assert(kWarps == 32, "the block reductions read one warp total per lane");
 // the minValues value axis (t_mvoh's W) the scans take: one int32 per
 // value per warp in shared memory (128 KB at the bound); the wrapper
 // raises on a wider catalog (ops/packing.py:MV_MAX_W)
@@ -47,40 +51,56 @@ constexpr int kMaxMvW = 1024;
 // domain-constraint modes (solver/encode.py:DMODE_*)
 constexpr int kSpread = 1, kAffinity = 2, kGateSpread = 3, kGateAff = 4;
 
-struct Shared {
-  int32_t i32[kWarps];
-  unsigned long long u64[kWarps];
-  float f32[kWarps];
+// The block reductions' scratch: two slots of each kind, used in turn by
+// every reduction and scan, so each costs ONE barrier: a reduction writes
+// the slots the last one did not use, and the one after it writes these
+// again only once every thread has passed the next barrier, after its
+// reads.
+struct RedBufs {
+  int32_t i32[2][kWarps];
+  unsigned long long u64[2][kWarps];
+  float f32[2][kWarps];
 };
+
+// Each thread's handle on the block's RedBufs: which slot comes next (the
+// same on every thread: all of them run every reduction, in order).
+struct Shared {
+  RedBufs* b;
+  int par;
+  __device__ int next() {
+    const int p = par;
+    par ^= 1;
+    return p;
+  }
+};
+
+// the warp totals of one reduction: lane w of every warp gets warp w's
+__device__ __forceinline__ int32_t warp_totals_i32(int32_t v, Shared& sh) {
+  int32_t* slot = sh.b->i32[sh.next()];
+  if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return slot[threadIdx.x & 31];
+}
 
 __device__ int32_t block_sum(int32_t v, Shared& sh) {
   for (int o = 16; o; o >>= 1) v = wrap_add(v, __shfl_xor_sync(kFull, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh.i32[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int32_t s = 0;
-  for (int w = 0; w < kWarps; ++w) s = wrap_add(s, sh.i32[w]);
-  return s;
+  v = warp_totals_i32(v, sh);
+  for (int o = 16; o; o >>= 1) v = wrap_add(v, __shfl_xor_sync(kFull, v, o));
+  return v;
 }
 
 __device__ int32_t block_max(int32_t v, Shared& sh) {
   for (int o = 16; o; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh.i32[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int32_t s = sh.i32[0];
-  for (int w = 1; w < kWarps; ++w) s = max(s, sh.i32[w]);
-  return s;
+  v = warp_totals_i32(v, sh);
+  for (int o = 16; o; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
+  return v;
 }
 
 __device__ int32_t block_min(int32_t v, Shared& sh) {
   for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh.i32[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int32_t s = sh.i32[0];
-  for (int w = 1; w < kWarps; ++w) s = min(s, sh.i32[w]);
-  return s;
+  v = warp_totals_i32(v, sh);
+  for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
+  return v;
 }
 
 __device__ unsigned long long block_min_u64(unsigned long long v, Shared& sh) {
@@ -88,21 +108,26 @@ __device__ unsigned long long block_min_u64(unsigned long long v, Shared& sh) {
     const unsigned long long u = __shfl_xor_sync(kFull, v, o);
     v = u < v ? u : v;
   }
+  unsigned long long* slot = sh.b->u64[sh.next()];
+  if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
   __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh.u64[threadIdx.x >> 5] = v;
-  __syncthreads();
-  unsigned long long s = sh.u64[0];
-  for (int w = 1; w < kWarps; ++w) s = sh.u64[w] < s ? sh.u64[w] : s;
-  return s;
+  v = slot[threadIdx.x & 31];
+  for (int o = 16; o; o >>= 1) {
+    const unsigned long long u = __shfl_xor_sync(kFull, v, o);
+    v = u < v ? u : v;
+  }
+  return v;
 }
 
+// float max over the warps in index order, as before the one-barrier
+// form (the limit debit's maxima reach the pool ledger)
 __device__ float block_max_f(float v, Shared& sh) {
   for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  float* slot = sh.b->f32[sh.next()];
+  if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
   __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh.f32[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = sh.f32[0];
-  for (int w = 1; w < kWarps; ++w) s = fmaxf(s, sh.f32[w]);
+  float s = slot[0];
+  for (int w = 1; w < kWarps; ++w) s = fmaxf(s, slot[w]);
   return s;
 }
 
@@ -114,16 +139,19 @@ __device__ int32_t block_scan(int32_t x, Shared& sh, int32_t* total) {
     const int32_t y = __shfl_up_sync(kFull, x, o);
     if (lane >= o) x = wrap_add(x, y);
   }
+  int32_t* slot = sh.b->i32[sh.next()];
+  if (lane == 31) slot[wid] = x;
   __syncthreads();
-  if (lane == 31) sh.i32[wid] = x;
-  __syncthreads();
-  int32_t pre = 0, tot = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    if (w < wid) pre = wrap_add(pre, sh.i32[w]);
-    tot = wrap_add(tot, sh.i32[w]);
+  // lane w scans the warp totals: its inclusive prefix over warps 0..w
+  int32_t t = slot[lane];
+  for (int o = 1; o < 32; o <<= 1) {
+    const int32_t y = __shfl_up_sync(kFull, t, o);
+    if (lane >= o) t = wrap_add(t, y);
   }
-  *total = tot;
-  return wrap_add(pre, x);
+  *total = __shfl_sync(kFull, t, 31);
+  const int32_t upto = __shfl_sync(kFull, t, wid);  // warps 0..wid
+  const int32_t mine = __shfl_sync(kFull, x, 31);   // this warp's total
+  return wrap_add(wrap_sub(upto, mine), x);
 }
 
 // the (npods, index) key of the least-loaded slot, ties to the lowest index
@@ -139,15 +167,17 @@ __device__ __forceinline__ int32_t floordiv(int32_t a, int32_t b) {
   return q;
 }
 
-// any (z, c) with zone bit z, capacity-type bit c and a_tzc[t, z, c]
+// any (z, c) with zone bit z, capacity-type bit c and a_tzc[t, z, c]: an
+// OR over the set zone bits only (mask_word sets none past V1)
 __device__ __forceinline__ bool offer(const uint32_t* atz, int t, int V1, int W,
                                       const uint32_t* cz, const uint32_t* cc) {
-  for (int z = 0; z < V1; ++z) {
-    if (!bit(cz, z)) continue;
-    const uint32_t* row = atz + (static_cast<size_t>(t) * V1 + z) * W;
-    for (int w = 0; w < W; ++w)
-      if (row[w] & cc[w]) return true;
-  }
+  for (int wz = 0; wz < W; ++wz)
+    for (uint32_t b = cz[wz]; b; b &= b - 1) {
+      const int z = wz * 32 + __ffs(b) - 1;
+      const uint32_t* row = atz + (static_cast<size_t>(t) * V1 + z) * W;
+      for (int w = 0; w < W; ++w)
+        if (row[w] & cc[w]) return true;
+    }
   return false;
 }
 
@@ -301,6 +331,11 @@ struct Smem {
   int32_t* pmax;    // [V1] per-domain best fit of a bulk's template
   int32_t* mvf;     // [kWarps][MW] per-warp per-value fits (minValues)
   int32_t* mvp;     // [P] each template's minValues cap for a bulk
+  uint8_t* pcompat; // [P] the step's compat_row (tile_rows; fresh_claims)
+  int32_t* list;    // [kThreads] claims gathered for a chunked phase
+  int32_t* cand;    // [kThreads] ... and its candidates (B4's claim caps)
+  int32_t* nlist;   // [2] the two lists' lengths
+  int32_t* cbest;   // [kWarps] a chunk's claims' best fits (B4's claim caps)
   uint32_t* pze;    // [W] a bulk template's zone words (in the pinned domain)
   uint32_t* pce;    // [W] ... capacity-type words
   int32_t* rflag;   // [NRES] reservations compatible with a bulk
@@ -317,8 +352,8 @@ inline size_t smem_bytes(const Dims& d) {
                        2 * static_cast<size_t>(d.P) * W +
                        W + 4 * NSLOT + 5 * V1 + static_cast<size_t>(kWarps) * V1 + 5 * V1 +
                        (d.MV ? static_cast<size_t>(kWarps) * d.MW : 0) + d.P + 2 * W + d.NRES + 1 +
-                       d.R;
-  return sizeof(uint32_t) * words + static_cast<size_t>(d.K) * (2 + V1);
+                       2 * kThreads + 2 + kWarps + d.R;
+  return sizeof(uint32_t) * words + static_cast<size_t>(d.K) * (2 + V1) + d.P;
 }
 
 __device__ void carve(unsigned char* dyn, const Dims& d, Smem& m) {
@@ -348,10 +383,15 @@ __device__ void carve(unsigned char* dyn, const Dims& d, Smem& m) {
   m.pce = m.pze + W;
   m.rflag = reinterpret_cast<int32_t*>(m.pce + W);
   m.flags = m.rflag + d.NRES;
-  m.req = reinterpret_cast<float*>(m.flags + 1);
+  m.list = m.flags + 1;
+  m.cand = m.list + kThreads;
+  m.nlist = m.cand + kThreads;
+  m.cbest = m.nlist + 2;
+  m.req = reinterpret_cast<float*>(m.cbest + kWarps);
   m.gdef = reinterpret_cast<uint8_t*>(m.req + d.R);
   m.gneg = m.gdef + d.K;
   m.gmask = m.gneg + d.K;
+  m.pcompat = m.gmask + d.K * V1;
 }
 
 // The group being placed: thread 0 fills it in shared memory, every
@@ -554,13 +594,21 @@ __device__ void init_state(const Dims& d, const In& in, const State& st, const O
   const int T = d.T, N = d.N, R = d.R, K = d.K, V1 = d.V1, NMAX = d.NMAX, W = d.W;
   for (int i = tid; i < N * R; i += kThreads) st.exist_used[i] = in.n_base[i];
   for (int i = tid; i < NMAX * R; i += kThreads) st.c_used[i] = 0.0f;
+  // the per-step claim state too: the live extent never rewrites a slot
+  // past n_open, so each holds these until a bulk opens it
   for (int i = tid; i < NMAX; i += kThreads) {
     st.c_npods[i] = 0;
     out.c_pool[i] = 0;
     out.c_dzone[i] = -1;
     out.c_dct[i] = -1;
     out.c_resv[i] = 0;
+    st.claim_cap[i] = 0;
+    st.claim_fill[i] = 0;
+    if (d.has_domains) st.c_slot[i] = V1 + 1;  // DEAD
+    if (d.MV) st.mvcap[i] = 0;
   }
+  if (d.has_domains)
+    for (long long i = tid; i < static_cast<long long>(NMAX) * V1; i += kThreads) st.percap[i] = 0;
   for (long long i = tid; i < static_cast<long long>(NMAX) * T; i += kThreads)
     out.c_tmask[i] = 0;
   for (int i = tid; i < NMAX * K; i += kThreads) {
@@ -592,6 +640,13 @@ __device__ void load_rows(const Dims& d, const In& in, int gi, const Smem& m) {
   kt::mask_words(in.g_mask + static_cast<size_t>(gi) * K * V1, K, V1, d.W, m.gw, tid, kThreads);
 }
 
+// block ``rank``'s share [lo, hi) of [0, n) among ``ranks`` blocks of a
+// cluster: contiguous, in rank order
+__device__ __forceinline__ void rank_share(int n, int rank, int ranks, int& lo, int& hi) {
+  lo = static_cast<int>(static_cast<long long>(n) * rank / ranks);
+  hi = static_cast<int>(static_cast<long long>(n) * (rank + 1) / ranks);
+}
+
 // parity: phase tile-rows
 // packing.py:_tile_rows for group (or class head) ``hi``: compat_row =
 // p_tol ∧ Compatible(template, group) with the well-known allowance;
@@ -602,19 +657,32 @@ __device__ void load_rows(const Dims& d, const In& in, int gi, const Smem& m) {
 // scan never reads); cap_row = strict node compatibility (no allowance) ∧
 // n_tol, times fits_count(n_avail, n_base, g_req). B3's cell functions
 // over the mask words (the group's from load_rows, in shared memory), and
-// the bit-exact fits_count. Needs tile_words and load_rows(hi); call
-// after a barrier; ends in one. Kept out of line: inlined into the scan it
-// slowed every step of the tenant cell's scan by ~16%, untiled steps too,
-// with the row build's own time unchanged (tenant_scan.py, H100).
-__device__ __noinline__ void tile_rows(const Dims& d, const In& in, const Rows& rw, const Smem& m, int hi) {
+// the bit-exact fits_count. Block ``rank`` of a cluster of ``ranks``
+// builds its share: the templates' compat_row and the nodes' cap_row of
+// its share of P and N, and the cells of its share of the types, for
+// every template (each block works out every compat_row for itself, in
+// m.pcompat). Needs tile_words and load_rows(hi); call after a barrier;
+// ends in one (a block barrier: the cluster's ranks then meet at theirs).
+// Kept out of line: inlined into the scan it slowed every step of the
+// tenant cell's scan by ~16%, untiled steps too, with the row build's own
+// time unchanged (tenant_scan.py, H100).
+__device__ __noinline__ void tile_rows(const Dims& d, const In& in, const Rows& rw,
+                                       const Smem& m, int hi, int rank, int ranks) {
   const int tid = threadIdx.x, P = d.P, T = d.T, K = d.K, R = d.R, O = d.O, W = d.W;
   const size_t KW = static_cast<size_t>(K) * W;
-  for (int p = tid; p < P; p += kThreads)
-    rw.compat[p] = in.p_tol[static_cast<size_t>(p) * d.G + hi] &&
-                   kt::dense_compatible(in.p_def + static_cast<size_t>(p) * K,
-                                        in.p_neg + static_cast<size_t>(p) * K, rw.pw + p * KW,
-                                        m.gdef, m.gneg, m.gw, in.well_known, K, W);
-  for (int n = tid; n < d.N; n += kThreads) {
+  int p_lo, p_hi, n_lo, n_hi, t_lo, t_hi;
+  rank_share(P, rank, ranks, p_lo, p_hi);
+  rank_share(d.N, rank, ranks, n_lo, n_hi);
+  rank_share(T, rank, ranks, t_lo, t_hi);
+  for (int p = tid; p < P; p += kThreads) {
+    const bool ok = in.p_tol[static_cast<size_t>(p) * d.G + hi] &&
+                    kt::dense_compatible(in.p_def + static_cast<size_t>(p) * K,
+                                         in.p_neg + static_cast<size_t>(p) * K, rw.pw + p * KW,
+                                         m.gdef, m.gneg, m.gw, in.well_known, K, W);
+    m.pcompat[p] = ok;
+    if (p >= p_lo && p < p_hi) rw.compat[p] = ok;
+  }
+  for (int n = n_lo + tid; n < n_hi; n += kThreads) {
     // a node's labels are never negated and get no well-known allowance
     const bool ok = in.n_tol[static_cast<size_t>(n) * d.G + hi] &&
                     kt::dense_compatible(in.n_def + static_cast<size_t>(n) * K, nullptr,
@@ -624,36 +692,35 @@ __device__ __noinline__ void tile_rows(const Dims& d, const In& in, const Rows& 
                    : 0;
   }
   __syncthreads();
-  // one template row at a time, threads over types. A template the group
-  // is not compatible with has no type_ok cell, and then its n_fit row is
-  // never read (the scan reads n_fit only where type_ok holds: the avail
-  // cells, and the bulk template p_star's row, which has one), so its row
-  // is written as zeros without a fits_count: under a tenant taint that
-  // is every template but the group's own
-  for (int p = 0; p < P; ++p) {
-    const bool cp = rw.compat[p];
-    const uint32_t* pw = rw.pw + p * KW;
-    const size_t row = static_cast<size_t>(p) * T;
-    for (int t = tid; t < T; t += kThreads) {
-      if (!cp) {
-        rw.nfit[row + t] = 0;
-        rw.tok[row + t] = 0;
-        continue;
-      }
-      const int32_t nf = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
-                                    in.p_daemon + static_cast<size_t>(p) * R, m.req, R);
-      const bool ok =
-          nf >= 1 && in.p_titype_ok[row + t] &&
-          kt::dense_type_compat(in.t_def + static_cast<size_t>(t) * K, rw.tw + t * KW,
-                                in.p_def + static_cast<size_t>(p) * K, pw, m.gdef, m.gw, K, W) &&
-          kt::dense_offering_ok(pw + static_cast<size_t>(d.zone_kid) * W,
-                                pw + static_cast<size_t>(d.ct_kid) * W, m.gz, m.gc,
-                                in.o_avail + static_cast<size_t>(t) * O,
-                                in.o_zone + static_cast<size_t>(t) * O,
-                                in.o_ct + static_cast<size_t>(t) * O, O);
-      rw.nfit[row + t] = nf;
-      rw.tok[row + t] = ok;
+  // the (template, type) cells of the share, templates outer. A template
+  // the group is not compatible with has no type_ok cell, and then its
+  // n_fit row is never read (the scan reads n_fit only where type_ok
+  // holds: the avail cells, and the bulk template p_star's row, which has
+  // one), so its row is written as zeros without a fits_count: under a
+  // tenant taint that is every template but the group's own
+  const int TS = t_hi - t_lo;
+  for (int i = tid; i < P * TS; i += kThreads) {
+    const int p = i / TS, t = t_lo + (i - p * TS);
+    const size_t cell = static_cast<size_t>(p) * T + t;
+    if (!m.pcompat[p]) {
+      rw.nfit[cell] = 0;
+      rw.tok[cell] = 0;
+      continue;
     }
+    const uint32_t* pw = rw.pw + p * KW;
+    const int32_t nf = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
+                                  in.p_daemon + static_cast<size_t>(p) * R, m.req, R);
+    const bool ok =
+        nf >= 1 && in.p_titype_ok[cell] &&
+        kt::dense_type_compat(in.t_def + static_cast<size_t>(t) * K, rw.tw + t * KW,
+                              in.p_def + static_cast<size_t>(p) * K, pw, m.gdef, m.gw, K, W) &&
+        kt::dense_offering_ok(pw + static_cast<size_t>(d.zone_kid) * W,
+                              pw + static_cast<size_t>(d.ct_kid) * W, m.gz, m.gc,
+                              in.o_avail + static_cast<size_t>(t) * O,
+                              in.o_zone + static_cast<size_t>(t) * O,
+                              in.o_ct + static_cast<size_t>(t) * O, O);
+    rw.nfit[cell] = nf;
+    rw.tok[cell] = ok;
   }
   __syncthreads();
 }
@@ -699,6 +766,10 @@ __device__ void template_domains(const Dims& d, const In& in, const State& st, c
 __device__ bool warp_claim_compat(const Dims& d, const In& in, const State& st, const Out& out,
                                   const Smem& m, int s, int ti) {
   const int lane = threadIdx.x & 31, K = d.K, V1 = d.V1;
+  // the claim's template first: one read answers for most claims of a
+  // batch over several pools (the same on every lane)
+  const int pp = out.c_pool[s];
+  if (!(in.p_tol[pp * d.G + ti] && in.compat_pg[trow(d, pp, ti)])) return false;
   bool ok = true;
   for (int k = lane; k < K; k += 32) {
     const uint8_t* sm = st.c_mask + (static_cast<size_t>(s) * K + k) * V1;
@@ -709,9 +780,7 @@ __device__ bool warp_claim_compat(const Dims& d, const In& in, const State& st, 
     const bool custom = !m.gdef[k] || in.well_known[k] || sd || m.gneg[k];
     ok = ok && key_ok && custom;
   }
-  ok = __all_sync(kFull, ok);
-  const int pp = out.c_pool[s];
-  return ok && in.p_tol[pp * d.G + ti] && in.compat_pg[trow(d, pp, ti)];
+  return __all_sync(kFull, ok);
 }
 
 // The warp's claim zone / capacity-type words, merged with the group's.
@@ -755,30 +824,68 @@ __device__ bool haff_pin_nodes(const Dims& d, const In& in, const Grp& g, int32_
   return served;
 }
 
+// The live extent: the claim-axis phases walk slots [0, ns), ns the open
+// claims (n_open), never NMAX. Every slot at or past n_open holds its
+// initial state (init_state: no pods, no capacity, no fill, no domain, no
+// pin, a clear type mask), so it adds nothing to a sum, a max, a scan or
+// a water-fill, and no slot past it is ever written but by the bulk that
+// opens it. g_hcap >= 0 (HCAP_NONE or a topology cap), so the caps the
+// full walk gave those slots were 0.
+
+// slots a thread keeps in registers for the water-fill's bisection trips
+// (live extents up to kWfRegs x 1024; past that the trips read the slots)
+constexpr int kWfRegs = 2;
+
 // waterfill (packing.py:105): smallest level L with
 // sum(clip(L - npods, 0, cap)) >= n by bisection ((lo + hi) // 2, at most
-// `iters` trips), then the deficit layer handed out by slot index. With
-// `slot_of`, only slots s with slot_of[s] == sl take part: the others act
-// as (npods _BIGI, cap 0), which contribute nothing and are never filled,
-// and their `fill` entries are left untouched. Ends in a barrier.
+// `iters` trips), then the deficit layer handed out by slot index, over
+// the live slots [0, ns). With `slot_of`, only slots s with slot_of[s] ==
+// sl take part: the others act as (npods _BIGI, cap 0), which contribute
+// nothing and are never filled, and their `fill` entries are left
+// untouched. Each thread's slots stay in registers across the trips when
+// ns <= kWfRegs x 1024. Ends in a barrier.
 __device__ void waterfill(const int32_t* npods, const int32_t* cap, int32_t n,
-                          int iters, int32_t* fill, int NMAX, Shared& sh,
+                          int iters, int32_t* fill, int ns, Shared& sh,
                           const int32_t* slot_of = nullptr, int sl = 0) {
   const int tid = threadIdx.x;
-  auto member = [&](int s) { return slot_of == nullptr || slot_of[s] == sl; };
-  int32_t tot = 0, hmax = INT_MIN;
-  for (int s = tid; s < NMAX; s += kThreads) {
-    const int32_t c = member(s) ? cap[s] : 0;
-    tot = wrap_add(tot, c);
-    hmax = max(hmax, c > 0 ? npods[s] + c : 0);
+  auto member = [&](int s) { return s < ns && (slot_of == nullptr || slot_of[s] == sl); };
+  const bool cached = ns <= kWfRegs * kThreads;  // block-uniform
+  int32_t rnp[kWfRegs], rcap[kWfRegs];
+  bool rin[kWfRegs];
+#pragma unroll
+  for (int j = 0; j < kWfRegs; ++j) {
+    const int s = tid + j * kThreads;
+    rin[j] = cached && member(s);
+    rnp[j] = rin[j] ? npods[s] : 0;
+    rcap[j] = rin[j] ? cap[s] : 0;  // cap 0 adds nothing anywhere below
+  }
+  // the empty and the non-member slots of the full walk added hmax 0
+  int32_t tot = 0, hmax = 0;
+  if (cached) {
+#pragma unroll
+    for (int j = 0; j < kWfRegs; ++j) {
+      tot = wrap_add(tot, rcap[j]);
+      hmax = max(hmax, rcap[j] > 0 ? rnp[j] + rcap[j] : 0);
+    }
+  } else {
+    for (int s = tid; s < ns; s += kThreads) {
+      const int32_t c = member(s) ? cap[s] : 0;
+      tot = wrap_add(tot, c);
+      hmax = max(hmax, c > 0 ? npods[s] + c : 0);
+    }
   }
   n = min(n, block_sum(tot, sh));
   int32_t lo = 0, hi = block_max(hmax, sh) + 1;
   for (int i = 0; hi - lo > 1 && i < iters; ++i) {
     const int32_t mid = (lo + hi) / 2;
     int32_t f = 0;
-    for (int s = tid; s < NMAX; s += kThreads)
-      if (member(s)) f = wrap_add(f, clip(mid - npods[s], 0, cap[s]));
+    if (cached) {
+#pragma unroll
+      for (int j = 0; j < kWfRegs; ++j) f = wrap_add(f, clip(mid - rnp[j], 0, rcap[j]));
+    } else {
+      for (int s = tid; s < ns; s += kThreads)
+        if (member(s)) f = wrap_add(f, clip(mid - npods[s], 0, cap[s]));
+    }
     if (block_sum(f, sh) >= n)
       hi = mid;
     else
@@ -786,44 +893,61 @@ __device__ void waterfill(const int32_t* npods, const int32_t* cap, int32_t n,
   }
   const int32_t level = hi;
   int32_t bsum = 0;
-  for (int s = tid; s < NMAX; s += kThreads)
-    if (member(s)) bsum = wrap_add(bsum, clip(level - 1 - npods[s], 0, cap[s]));
+  if (cached) {
+#pragma unroll
+    for (int j = 0; j < kWfRegs; ++j)
+      bsum = wrap_add(bsum, clip(level - 1 - rnp[j], 0, rcap[j]));
+  } else {
+    for (int s = tid; s < ns; s += kThreads)
+      if (member(s)) bsum = wrap_add(bsum, clip(level - 1 - npods[s], 0, cap[s]));
+  }
   const int32_t deficit = wrap_sub(n, block_sum(bsum, sh));
-  int32_t carry = 0;
-  for (int base = 0; base < NMAX; base += kThreads) {
-    const int s = base + tid;
+  // the deficit layer by slot index: one block scan per 1024 slots
+  auto layer = [&](int s, bool m, int32_t np, int32_t c, int32_t& carry) {
     int32_t b = 0;
     bool elig = false;
-    const bool m = s < NMAX && member(s);
     if (m) {
-      b = clip(level - 1 - npods[s], 0, cap[s]);
-      elig = (b < cap[s]) && (npods[s] <= level - 1);
+      b = clip(level - 1 - np, 0, c);
+      elig = (b < c) && (np <= level - 1);
     }
     int32_t chunk;
     const int32_t rank = wrap_add(carry, block_scan(elig ? 1 : 0, sh, &chunk));
     if (m) fill[s] = b + ((elig && rank <= deficit) ? 1 : 0);
     carry = wrap_add(carry, chunk);
+  };
+  int32_t carry = 0;
+  if (cached) {
+#pragma unroll
+    for (int j = 0; j < kWfRegs; ++j)
+      if (j * kThreads < ns) layer(tid + j * kThreads, rin[j], rnp[j], rcap[j], carry);
+  } else {
+    for (int base = 0; base < ns; base += kThreads) {
+      const int s = base + tid;
+      const bool m = member(s);
+      layer(s, m, m ? npods[s] : 0, m ? cap[s] : 0, carry);
+    }
   }
   __syncthreads();
 }
 
 // waterfill1 (packing.py:82): for n <= 1 the pod lands on the first
-// least-loaded slot with capacity, no bisection. Ends in a barrier.
+// least-loaded slot with capacity, no bisection; over the live slots [0,
+// ns). Ends in a barrier.
 __device__ void waterfill1(const int32_t* npods, const int32_t* cap, int32_t n, int iters,
-                           int32_t* fill, int NMAX, Shared& sh) {
+                           int32_t* fill, int ns, Shared& sh) {
   if (n > 1) {
-    waterfill(npods, cap, n, iters, fill, NMAX, sh);
+    waterfill(npods, cap, n, iters, fill, ns, sh);
     return;
   }
   unsigned long long key = ~0ull;
-  for (int s = threadIdx.x; s < NMAX; s += kThreads)
+  for (int s = threadIdx.x; s < ns; s += kThreads)
     if (cap[s] > 0) {
       const unsigned long long k2 = load_key(npods[s], s);
       key = k2 < key ? k2 : key;
     }
   key = block_min_u64(key, sh);
   const int tstar = (n >= 1 && key != ~0ull) ? static_cast<int>(key & 0xffffffffu) : -1;
-  for (int s = threadIdx.x; s < NMAX; s += kThreads) fill[s] = s == tstar ? 1 : 0;
+  for (int s = threadIdx.x; s < ns; s += kThreads) fill[s] = s == tstar ? 1 : 0;
   __syncthreads();
 }
 
@@ -874,13 +998,14 @@ __device__ void waterfill_serial(const int32_t* npods, const int32_t* cap, int32
 
 // ---- domain quota qd[NSLOT] (packing.py "domain quota qd") ----
 // For a dynamic group over the node caps ``cap`` [N] and the per-claim
-// per-domain capacity st.percap (0 on claims that are not live). Needs
-// m.D0 and m.fresh; ``wf1``: the quota water-fill is waterfill1 (B5).
+// per-domain capacity st.percap (0 on claims that are not live) of the
+// live slots [0, ns). Needs m.D0 and m.fresh; ``wf1``: the quota
+// water-fill is waterfill1 (B5).
 // Call after a barrier; ends in one.
 __device__ void domain_quota(const Dims& d, const In& in, const State& st, const Out& out,
                              const Smem& m, const Grp& g, const int32_t* cap, bool wf1,
-                             Shared& sh) {
-  const int tid = threadIdx.x, N = d.N, NMAX = d.NMAX, V1 = d.V1, JH = d.JH;
+                             int ns, Shared& sh) {
+  const int tid = threadIdx.x, N = d.N, V1 = d.V1, JH = d.JH;
   const int NSLOT = V1 + 2;
   for (int v = tid; v < V1; v += kThreads) m.czcap[v] = 0;
   __syncthreads();
@@ -897,7 +1022,7 @@ __device__ void domain_quota(const Dims& d, const In& in, const State& st, const
       if (cap[n] >= 1 && nd_slot(d, in, g, n) < V1) first_n = min(first_n, n);
     first_n = block_min(first_n, sh);
     const int32_t* pin_axis = g.dkey == 0 ? out.c_dzone : out.c_dct;
-    for (int s = tid; s < NMAX; s += kThreads) {
+    for (int s = tid; s < ns; s += kThreads) {
       int32_t pmax = 0;
       for (int v = 0; v < V1; ++v) pmax = max(pmax, st.percap[static_cast<size_t>(s) * V1 + v]);
       int32_t ccap = min(pmax, g.hcap);
@@ -1002,7 +1127,13 @@ __device__ int32_t tier1_fill(const Dims& d, const In& in, const State& st, cons
   const int tid = threadIdx.x, N = d.N, R = d.R, JH = d.JH;
   int32_t placed_exist = 0;
   int32_t* fills = out.exist_fills + static_cast<size_t>(g.gi) * N;
-  for (int sl = 0; sl < d.V1 + 2; ++sl) {
+  // a domain-free group has every node in ANY and quota nowhere else: the
+  // other slots place nothing and keep nothing (any_quota)
+  const int sl0 = g.dyn ? 0 : d.V1, sl1 = g.dyn ? d.V1 + 2 : d.V1 + 1;
+  if (!g.dyn)
+    for (int sl = tid; sl < d.V1 + 2; sl += kThreads)
+      if (sl != d.V1) m.qrem[sl] = 0;
+  for (int sl = sl0; sl < sl1; ++sl) {
     const int32_t budget = m.qd[sl];
     int32_t local = 0;
     if (budget > 0 && N) {
@@ -1042,17 +1173,17 @@ __device__ int32_t tier1_fill(const Dims& d, const In& in, const State& st, cons
 
 // parity: phase open-claims
 // ---- 2. open claims, least-loaded first: a domain-free group ----
-// Over st.claim_cap (already clamped); hostname affinity restricts it to
-// the least-loaded eligible claim. ``wf1``: the water-fill is waterfill1
+// Over st.claim_cap (already clamped) of the live slots [0, ns); hostname
+// affinity restricts it to the least-loaded eligible claim. ``wf1``: the water-fill is waterfill1
 // (B5). Writes st.claim_fill. Call after a barrier; ends in one.
 __device__ void tier2_any(const Dims& d, const State& st, const Smem& m, const Grp& g, bool wf1,
-                          Shared& sh) {
-  const int tid = threadIdx.x, NMAX = d.NMAX, ANY = d.V1;
+                          int ns, Shared& sh) {
+  const int tid = threadIdx.x, ANY = d.V1;
   bool haff_any_claim = false;
   if (g.haff) {
     // parity: tiebreak argmin
     unsigned long long key = ~0ull;
-    for (int s = tid; s < NMAX; s += kThreads)
+    for (int s = tid; s < ns; s += kThreads)
       if (st.claim_cap[s] >= 1) {
         const unsigned long long k2 = load_key(st.c_npods[s], s);
         key = k2 < key ? k2 : key;
@@ -1060,16 +1191,16 @@ __device__ void tier2_any(const Dims& d, const State& st, const Smem& m, const G
     key = block_min_u64(key, sh);
     haff_any_claim = key != ~0ull;
     const int tstar = static_cast<int>(key & 0xffffffffu);
-    for (int s = tid; s < NMAX; s += kThreads)
+    for (int s = tid; s < ns; s += kThreads)
       if (!(haff_any_claim && s == tstar)) st.claim_cap[s] = 0;
   }
   __syncthreads();
   if (wf1)
-    waterfill1(st.c_npods, st.claim_cap, m.qrem[ANY], d.wf_iters, st.claim_fill, NMAX, sh);
+    waterfill1(st.c_npods, st.claim_cap, m.qrem[ANY], d.wf_iters, st.claim_fill, ns, sh);
   else
-    waterfill(st.c_npods, st.claim_cap, m.qrem[ANY], d.wf_iters, st.claim_fill, NMAX, sh);
+    waterfill(st.c_npods, st.claim_cap, m.qrem[ANY], d.wf_iters, st.claim_fill, ns, sh);
   int32_t local = 0;
-  for (int s = tid; s < NMAX; s += kThreads) local = wrap_add(local, st.claim_fill[s]);
+  for (int s = tid; s < ns; s += kThreads) local = wrap_add(local, st.claim_fill[s]);
   const int32_t placed = block_sum(local, sh);
   if (tid == 0) {
     m.qrem[ANY] = wrap_sub(m.qrem[ANY], placed);
@@ -1081,7 +1212,7 @@ __device__ void tier2_any(const Dims& d, const State& st, const Smem& m, const G
 }
 
 // ---- 2. open claims: a dynamic group ----
-// One domain per claim (spread_domain_choice): admissible domains have
+// Over the live slots [0, ns). One domain per claim (spread_domain_choice): admissible domains have
 // capacity on the claim (st.percap, 0 on claims that are not live) and
 // remaining quota; a claim's cap also takes its minValues cap st.mvcap; claims rank in slot order for the quota-proportional
 // pick. Then one water-fill per domain slot with claims (a slot whose
@@ -1090,19 +1221,19 @@ __device__ void tier2_any(const Dims& d, const State& st, const Smem& m, const G
 // largest quota. Writes st.c_slot, st.claim_cap, st.claim_fill. Call
 // after a barrier; ends in one.
 __device__ void tier2_domains(const Dims& d, const State& st, const Smem& m, const Grp& g,
-                              bool single, Shared& sh) {
-  const int tid = threadIdx.x, NMAX = d.NMAX, V1 = d.V1, JH = d.JH;
+                              bool single, int ns, Shared& sh) {
+  const int tid = threadIdx.x, V1 = d.V1, JH = d.JH;
   const int NSLOT = V1 + 2, DEAD = V1 + 1;
   int32_t carry = 0;
-  for (int base = 0; base < NMAX; base += kThreads) {
+  for (int base = 0; base < ns; base += kThreads) {
     const int s = base + tid;
     bool adm = false;
-    if (s < NMAX)
+    if (s < ns)
       for (int v = 0; v < V1 && !adm; ++v)
         adm = st.percap[static_cast<size_t>(s) * V1 + v] >= 1 && m.qrem[v] > 0;
     int32_t chunk;
     const int32_t incl = block_scan(adm ? 1 : 0, sh, &chunk);
-    if (s < NMAX) st.c_slot[s] = adm ? wrap_sub(wrap_add(carry, incl), 1) : -1;  // rank
+    if (s < ns) st.c_slot[s] = adm ? wrap_sub(wrap_add(carry, incl), 1) : -1;  // rank
     carry = wrap_add(carry, chunk);
   }
   const int32_t n_adm = carry;
@@ -1120,7 +1251,7 @@ __device__ void tier2_domains(const Dims& d, const State& st, const Smem& m, con
   }
   __syncthreads();
   const float n_f = __int2float_rn(max(n_adm, 1));
-  for (int s = tid; s < NMAX; s += kThreads) {
+  for (int s = tid; s < ns; s += kThreads) {
     const int32_t rank = st.c_slot[s];
     int cs = DEAD;
     if (rank >= 0) {
@@ -1162,7 +1293,7 @@ __device__ void tier2_domains(const Dims& d, const State& st, const Smem& m, con
     for (int sl = 1; sl < NSLOT; ++sl)
       if (m.qrem[sl] > m.qrem[s_star]) s_star = sl;
     unsigned long long key = ~0ull;
-    for (int s = tid; s < NMAX; s += kThreads)
+    for (int s = tid; s < ns; s += kThreads)
       if (st.c_slot[s] == s_star && st.claim_cap[s] >= 1) {
         const unsigned long long k2 = load_key(st.c_npods[s], s);
         key = k2 < key ? k2 : key;
@@ -1170,7 +1301,7 @@ __device__ void tier2_domains(const Dims& d, const State& st, const Smem& m, con
     key = block_min_u64(key, sh);
     const bool take = m.qrem[s_star] >= 1 && key != ~0ull;
     if (take)
-      for (int s = tid; s < NMAX; s += kThreads)
+      for (int s = tid; s < ns; s += kThreads)
         if (s == static_cast<int>(key & 0xffffffffu)) st.claim_fill[s] = 1;
     __syncthreads();
     if (tid == 0 && take) m.qrem[s_star] = wrap_sub(m.qrem[s_star], 1);
@@ -1179,10 +1310,10 @@ __device__ void tier2_domains(const Dims& d, const State& st, const Smem& m, con
   }
   for (int sl = 0; sl < V1; ++sl) {
     if (!m.sflag[sl]) continue;
-    waterfill(st.c_npods, st.claim_cap, m.qrem[sl], d.wf_iters, st.claim_fill, NMAX, sh,
+    waterfill(st.c_npods, st.claim_cap, m.qrem[sl], d.wf_iters, st.claim_fill, ns, sh,
               st.c_slot, sl);
     int32_t local = 0;
-    for (int s = tid; s < NMAX; s += kThreads)
+    for (int s = tid; s < ns; s += kThreads)
       if (st.c_slot[s] == sl) local = wrap_add(local, st.claim_fill[s]);
     const int32_t placed = block_sum(local, sh);
     if (tid == 0) m.qrem[sl] = wrap_sub(m.qrem[sl], placed);
@@ -1191,61 +1322,87 @@ __device__ void tier2_domains(const Dims& d, const State& st, const Smem& m, con
   __syncthreads();
 }
 
-// Commit of the claims that got pods (one warp per claim): their
-// requirement rows merge the group's, a dynamic group's claim is pinned
-// to its domain (the constrained-axis mask row narrows to it), and load,
-// pod count and the counted hostname column grow by the fill. With
-// ``tmask`` (B4) the claim's type mask also drops the types that no
-// longer survive: add_fit saw the pre-fill load, so "still fits" is
-// add_fit >= fill, and a pinned claim's types need an offering there (B5
-// settles type masks once per class instead). Call after a barrier; ends
-// in one.
+// Commit of the claims in [lo, hi) that got pods: their requirement rows
+// merge the group's, a dynamic group's claim is pinned to its domain (the
+// constrained-axis mask row narrows to it), and load, pod count and the
+// counted hostname column grow by the fill. With ``tmask`` (B4) the
+// claim's type mask also drops the types that no longer survive: add_fit
+// saw the pre-fill load, so "still fits" is add_fit >= fill, and a pinned
+// claim's types need an offering there (B5 settles type masks once per
+// class instead). The claims with a fill are gathered (m.list, a window
+// of 1024 slots at a time) and committed kWarps at a time, warp j working
+// out claim j's words and the block's threads sharing the chunk's
+// (claim, type) and (claim, key, value) cells: a step that fills a few
+// claims does not wait on one warp's walk over each claim's types. Each
+// claim's updates are its own, so the gathering order does not matter.
+// Call after a barrier; ends in one (a block barrier: a cluster's ranks
+// meet at their own).
 __device__ void commit_claims(const Dims& d, const In& in, const State& st, const Out& out,
-                              const Smem& m, const Grp& g, bool tmask) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int T = d.T, R = d.R, K = d.K, V1 = d.V1, W = d.W, JH = d.JH;
-  for (int s = wid; s < d.NMAX; s += kWarps) {
-    const int32_t fill = st.claim_fill[s];
-    if (fill == 0) continue;
-    if (fill > 0) {
-      const int cs = g.dyn ? st.c_slot[s] : V1;
-      const bool tighten = g.dyn && cs < V1;
-      uint8_t* row = st.c_mask + static_cast<size_t>(s) * K * V1;
-      if (tmask) {
-        const uint32_t* wcz = warp_claim_words(d, st, m, s);
-        const uint32_t* wcc = wcz + W;
-        const uint32_t* az = claim_atz(d, st, out, s);
-        const uint32_t* ac = claim_atc(d, st, out, s);
-        const int pp = out.c_pool[s];
-        const uint8_t* tok = in.type_ok + trow(d, pp, g.ti) * T;
-        for (int t = lane; t < T; t += 32) {
+                              const Smem& m, const Grp& g, bool tmask, int lo, int hi) {
+  const int tid = threadIdx.x, wid = tid >> 5;
+  const int T = d.T, R = d.R, K = d.K, V1 = d.V1, W = d.W, JH = d.JH, KV = K * V1;
+  for (int base = lo; base < hi; base += kThreads) {
+    if (tid == 0) m.nlist[0] = 0;
+    __syncthreads();
+    if (base + tid < hi && st.claim_fill[base + tid] != 0)
+      m.list[atomicAdd(m.nlist, 1)] = base + tid;
+    __syncthreads();
+    const int n = m.nlist[0];
+    for (int c0 = 0; c0 < n; c0 += kWarps) {
+      const int nc = min(kWarps, n - c0);
+      const int32_t* cl = m.list + c0;
+      // a pinned claim narrows to its slot's domain (c_slot: tier 2's)
+      auto pin = [&](int s) { return g.dyn && st.c_slot[s] < V1 ? st.c_slot[s] : -1; };
+      if (tmask && wid < nc && st.claim_fill[cl[wid]] > 0) warp_claim_words(d, st, m, cl[wid]);
+      __syncthreads();
+      if (tmask)
+        for (int i = tid; i < nc * T; i += kThreads) {
+          const int j = i / T, t = i - j * T, s = cl[j];
+          const int32_t fill = st.claim_fill[s];
           uint8_t* cell = out.c_tmask + static_cast<size_t>(s) * T + t;
-          if (!*cell) continue;
+          if (fill <= 0 || !*cell) continue;
+          const uint32_t* wcz = m.cz + j * 2 * W;
+          const uint32_t* wcc = wcz + W;
+          const uint32_t* az = claim_atz(d, st, out, s);
           const int32_t af = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
                                         st.c_used + static_cast<size_t>(s) * R, m.req, R);
-          bool keep = tok[t] && offer(az, t, V1, W, wcz, wcc) && af >= fill;
-          if (keep && tighten) keep = offer_in(az, ac, g.dkey, t, cs, V1, W, wcz, wcc);
+          bool keep = in.type_ok[trow(d, out.c_pool[s], g.ti) * T + t] &&
+                      offer(az, t, V1, W, wcz, wcc) && af >= fill;
+          const int cs = pin(s);
+          if (keep && cs >= 0)
+            keep = offer_in(az, claim_atc(d, st, out, s), g.dkey, t, cs, V1, W, wcz, wcc);
           if (!keep) *cell = 0;
         }
+      for (long long i = tid; i < static_cast<long long>(nc) * KV; i += kThreads) {
+        const int j = static_cast<int>(i / KV), c = static_cast<int>(i % KV), s = cl[j];
+        if (st.claim_fill[s] <= 0) continue;
+        const int cs = pin(s);
+        uint8_t* row = st.c_mask + static_cast<size_t>(s) * KV;
+        row[c] = row[c] && m.gmask[c] && !(cs >= 0 && c / V1 == g.kid_sel && c % V1 != cs);
       }
-      for (int k = lane; k < K; k += 32) {
+      for (int i = tid; i < nc * K; i += kThreads) {
+        const int s = cl[i / K], k = i % K;
+        if (st.claim_fill[s] <= 0) continue;
         st.c_def[s * K + k] = st.c_def[s * K + k] || m.gdef[k];
         st.c_neg[s * K + k] = st.c_neg[s * K + k] && m.gneg[k];
-        for (int v = 0; v < V1; ++v)
-          row[k * V1 + v] = row[k * V1 + v] && m.gmask[k * V1 + v] &&
-                            !(tighten && k == g.kid_sel && v != cs);
       }
-      if (tighten && lane == 0) (g.dkey == 0 ? out.c_dzone : out.c_dct)[s] = cs;
-      __syncwarp();
-    }
-    for (int r = lane; r < R; r += 32)
-      st.c_used[static_cast<size_t>(s) * R + r] += static_cast<float>(fill) * m.req[r];
-    if (lane == 0) {
-      st.c_npods[s] = wrap_add(st.c_npods[s], fill);
-      if (g.counted) st.ch_cnt[s * JH + g.jhc] = wrap_add(st.ch_cnt[s * JH + g.jhc], fill);
+      for (int j = tid; j < nc; j += kThreads) {
+        const int s = cl[j];
+        const int32_t fill = st.claim_fill[s];
+        const int cs = fill > 0 ? pin(s) : -1;
+        if (cs >= 0) (g.dkey == 0 ? out.c_dzone : out.c_dct)[s] = cs;
+        st.c_npods[s] = wrap_add(st.c_npods[s], fill);
+        if (g.counted) st.ch_cnt[s * JH + g.jhc] = wrap_add(st.ch_cnt[s * JH + g.jhc], fill);
+      }
+      __syncthreads();  // the type cells read the pre-fill load
+      for (int i = tid; i < nc * R; i += kThreads) {
+        const int s = cl[i / R], r = i % R;
+        st.c_used[static_cast<size_t>(s) * R + r] +=
+            static_cast<float>(st.claim_fill[s]) * m.req[r];
+      }
+      __syncthreads();
     }
   }
-  __syncthreads();
 }
 
 // What a fresh-claim bulk tells B5's maintained claim summaries; B4 keeps
@@ -1282,6 +1439,10 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
   const int NMAX = d.NMAX, JH = d.JH, NSLOT = V1 + 2, ANY = V1, DEAD = V1 + 1;
   if (tid == 0)
     for (int sl = 0; sl < NSLOT; ++sl) m.ddead[sl] = sl == DEAD;
+  // the templates compatible with the group: type_ok holds only where
+  // compat_pg does (B1's and B3's tables and tile_rows fold it in), so the
+  // avail cells of the others are false without a read of type_ok
+  for (int p = tid; p < P; p += kThreads) m.pcompat[p] = in.compat_pg[trow(d, p, g.ti)];
   __syncthreads();
   while (!overflow) {
     int d_sel = 0;
@@ -1298,7 +1459,7 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
     int32_t p_min = P;
     for (int i = tid; i < P * T; i += kThreads) {
       const int p = i / T, t = i % T;
-      bool ok = in.type_ok[trow(d, p, g.ti) * T + t];
+      bool ok = m.pcompat[p] && in.type_ok[trow(d, p, g.ti) * T + t];
       if (ok && in.p_has_limit[p])
         for (int r = 0; r < R && ok; ++r)
           ok = in.t_cap[static_cast<size_t>(t) * R + r] <= st.pool_rem[p * R + r];
@@ -1420,22 +1581,27 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
             in.p_daemon[p_star * R + r] + static_cast<float>(take) * m.req[r];
       st.c_npods[s] = take;
       out.c_pool[s] = p_star;
-      for (int kk = 0; kk < K; ++kk) {
-        st.c_def[s * K + kk] = m.gdef[kk];
-        st.c_neg[s * K + kk] = m.gneg[kk];
-      }
-      // claims opened for a dynamic group are domain-pinned from birth
-      for (int i = 0; i < K * V1; ++i)
-        st.c_mask[static_cast<size_t>(s) * K * V1 + i] =
-            m.gmask[i] && !(pinned && i / V1 == g.kid_sel && i % V1 != d_sel);
       if (pinned) (g.dkey == 0 ? out.c_dzone : out.c_dct)[s] = d_sel;
-      for (int j = 0; j < JH; ++j)
-        st.ch_cnt[s * JH + j] = (g.counted && j == g.jhc) ? take : 0;
       st.claim_fill[s] = wrap_add(st.claim_fill[s], take);
       out.c_resv[s] = any_resv;
       hook.open(s, take, n_fit_max, d_pin, mv_open);
       local = wrap_add(local, take);
     }
+    // the new claims' requirement rows and hostname counts, cell by cell
+    // over the block; claims opened for a dynamic group are domain-pinned
+    // from birth
+    const int KV = K * V1;
+    for (long long i = tid; i < static_cast<long long>(k) * KV; i += kThreads) {
+      const int c = static_cast<int>(i % KV);
+      st.c_mask[static_cast<size_t>(slot) * KV + i] =
+          m.gmask[c] && !(pinned && c / V1 == g.kid_sel && c % V1 != d_sel);
+    }
+    for (int i = tid; i < k * K; i += kThreads) {
+      st.c_def[slot * K + i] = m.gdef[i % K];
+      st.c_neg[slot * K + i] = m.gneg[i % K];
+    }
+    for (int i = tid; i < k * JH; i += kThreads)
+      st.ch_cnt[slot * JH + i] = (g.counted && i % JH == g.jhc) ? take_of(slot + i / JH) : 0;
     for (long long i = tid; i < static_cast<long long>(k) * T; i += kThreads) {
       const int s = slot + static_cast<int>(i / T), t = static_cast<int>(i % T);
       const int32_t take = take_of(s);
@@ -1485,10 +1651,11 @@ __device__ void spread_carry(const Dims& d, const State& st, const Smem& m, cons
 // every node and claim it filled, and toward the shared domain slots of
 // its g_dcontrib row by domain: existing-node fills by the node's zone /
 // capacity type, claim fills only where the claim's zone (capacity-type)
-// mask row is single-valued, dtg_key choosing each slot's axis. Integer
-// adds, exact in any order. Call after a barrier; ends in one.
+// mask row is single-valued, dtg_key choosing each slot's axis; claims
+// over the live slots [0, ns), the bulks' included. Integer adds, exact in
+// any order. Call after a barrier; ends in one.
 __device__ void contrib_counts(const Dims& d, const In& in, const State& st, const Out& out,
-                               const Smem& m, const Grp& g) {
+                               const Smem& m, const Grp& g, int ns) {
   const int tid = threadIdx.x, N = d.N, V1 = d.V1, JH = d.JH, JD = d.JD, K = d.K;
   const uint8_t* hrow = in.g_hcontrib + static_cast<size_t>(g.gi) * JH;
   const uint8_t* drow = in.g_dcontrib + static_cast<size_t>(g.gi) * JD;
@@ -1508,7 +1675,7 @@ __device__ void contrib_counts(const Dims& d, const In& in, const State& st, con
     for (int j = 0; j < JH; ++j)
       if (hrow[j]) st.nhc[n * JH + j] = wrap_add(st.nhc[n * JH + j], f);
   }
-  for (int s = tid; s < d.NMAX; s += kThreads) {
+  for (int s = tid; s < ns; s += kThreads) {
     const int32_t f = st.claim_fill[s];
     if (f == 0) continue;
     const uint8_t* row = st.c_mask + static_cast<size_t>(s) * K * V1;
@@ -1532,12 +1699,13 @@ __device__ void contrib_counts(const Dims& d, const In& in, const State& st, con
   __syncthreads();
 }
 
-// The group's claim_fills row (from st.claim_fill) and its unplaced
-// count. Call after a barrier; ends in one.
+// The group's claim_fills row over the live slots [0, ns), the bulks'
+// included (from st.claim_fill; the wrapper zeroes the rest once), and its
+// unplaced count. Call after a barrier; ends in one.
 __device__ void group_outputs(const Dims& d, const State& st, const Out& out, const Grp& g,
-                              int32_t placed_exist, Shared& sh) {
+                              int32_t placed_exist, int ns, Shared& sh) {
   int32_t local = 0;
-  for (int s = threadIdx.x; s < d.NMAX; s += kThreads) {
+  for (int s = threadIdx.x; s < ns; s += kThreads) {
     const int32_t f = st.claim_fill[s];
     out.claim_fills[static_cast<size_t>(g.gi) * d.NMAX + s] = f;
     local = wrap_add(local, f);

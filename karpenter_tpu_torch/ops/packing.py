@@ -70,7 +70,7 @@ launch.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -1617,7 +1617,7 @@ def _scan_buffers(dims, S, nmax, has_domains, tiled, dev, lead=()):
     (the kernels initialize all of it; the domain scratch is empty
     without domains), the word tables every scenario shares, the tiled
     mode's row scratch (one set of rows per scenario, empty untiled) and
-    its 10 outputs with ``lead``."""
+    its 10 outputs with ``lead`` (the fills and unplaced zeroed)."""
     G, T, P, N, R, K, V1, JH, JD = (dims[k] for k in "G T P N R K V1 JH JD".split())
     MV, MW, NRES = dims["MV"], dims["MW"], dims["NRES"]
     W = (V1 + 31) // 32
@@ -1660,12 +1660,25 @@ def _scan_buffers(dims, S, nmax, has_domains, tiled, dev, lead=()):
         ((G, N), i32), ((G, nmax), i32), ((G,), i32),
         ((nmax,), i32), ((nmax,), i32), ((nmax,), b),
     ))
+    # the fills and unplaced start at zero: an empty group writes nothing,
+    # and a step writes only the claim columns below its n_open
+    for zeroed in outs[4:7]:
+        zeroed.zero_()
     return state, words, rows, outs
+
+
+# the cluster B4's launches took, by their scenario count S: S -> (blocks
+# per cluster, clusters of that size and clusters of 8 blocks the card
+# holds at once with the scan's shared memory), as
+# csrc/pack.cu:pick_cluster reports them
+clusters: Dict[int, Tuple[int, int, int]] = {}
 
 
 def _launch_pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool,
                  has_contrib: bool = False, tile_feasibility: bool = False,
-                 wf_iters: int = 32):
+                 wf_iters: int = 32, library: str = "pack"):
+    """Kernel B4 from ``library``: "pack", or tenant_scan.py's phase-clock
+    build "pack_clocks" (the same scan, _build.MEASURE_BUILDS)."""
     import ctypes
 
     tiled = bool(tile_feasibility)
@@ -1674,8 +1687,9 @@ def _launch_pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool
     dyn = bool(has_domains)
     state, words, rows, outs = _scan_buffers(dims, S, nmax, dyn, tiled, dev,
                                              lead=tuple(args[0].shape[:-1]))
-    fn = _build.library("pack").kt_pack
+    fn = _build.library(library).kt_pack
     p = _build.ptr
+    cluster = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         rc = fn(
             *(ctypes.c_int(int(v)) for v in (
@@ -1690,8 +1704,11 @@ def _launch_pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool
             *(p(x) for x in words),
             *(p(x) for x in rows),
             *(p(x) for x in outs),
+            cluster,
             _build.stream(),
         )
+    if rc == 0:
+        clusters[S] = tuple(cluster)
     # a domain batch runs the scan's domain machinery, a contributor batch
     # its contributor counting, minValues floors their caps, a reservation
     # ledger the ledger, the tiled mode its per-step rows: each counted on

@@ -339,14 +339,17 @@ def solve_scenarios_core_packed(
 # fresh buffer and leaves the old one valid: a launched dispatch (a
 # consolidation prefetch, an overflow resubmit) may still read it.
 
-_APPLY_DTYPES = {torch.bool: 1, torch.int32: 4, torch.float32: 4}
-
-
 def _rows_on(arr, idx, rows):
     """``idx`` (int32) and ``rows`` (arr's dtype) as tensors on arr's
     device; numpy inputs are copied there."""
     import numpy as np
 
+    dev = arr.device
+    if (isinstance(idx, torch.Tensor) and isinstance(rows, torch.Tensor)
+            and idx.device == dev == rows.device and idx.dtype == torch.int32
+            and rows.dtype == arr.dtype and idx.is_contiguous() and rows.is_contiguous()
+            and rows.shape[1:] == arr.shape[1:] and rows.shape[0] == idx.shape[0]):
+        return idx, rows  # already in place: no dispatcher round trips
     if not isinstance(idx, torch.Tensor):
         idx = torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int32))
     if not isinstance(rows, torch.Tensor):
@@ -374,34 +377,45 @@ def delta_apply_rows_reference(arr, idx, rows):
 
 def delta_apply_rows(arr, idx, rows):
     """Row update of a device-resident buffer: ``arr[idx] = rows``, as a new
-    tensor; ``arr`` itself is left as it was. ``arr`` is bool,
-    int32 or float32 with any trailing shape; ``idx`` [n] int32 and
+    tensor; ``arr`` itself is left as it was. ``arr`` has any dtype and
+    trailing shape (the kernel moves rows as bytes); ``idx`` [n] int32 and
     ``rows`` [n, ...] may be numpy arrays. The plain version for a CPU
-    ``arr``, kernel B8 (csrc/apply_rows.cu) for a CUDA one."""
+    ``arr``, kernel B8 (csrc/apply_rows.cu, one launch) for a CUDA one."""
     if not len(idx):
         return arr
-    idx, rows = _rows_on(arr, idx, rows)
     if arr.device.type == "cpu":
-        return delta_apply_rows_reference(arr, idx, rows)
-    return _launch_apply_rows(arr, idx, rows)
+        return delta_apply_rows_reference(arr, *_rows_on(arr, idx, rows))
+    return _launch_apply_rows(arr, *_rows_on(arr, idx, rows))
+
+
+_apply_rows_entry = None
+
+
+def _apply_rows_fn():
+    """kt_apply_rows with its argument types, set once."""
+    global _apply_rows_entry
+    if _apply_rows_entry is None:
+        import ctypes
+
+        fn = _build.library("apply_rows").kt_apply_rows
+        fn.argtypes = (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int) + (ctypes.c_void_p,) * 5
+        _apply_rows_entry = fn
+    return _apply_rows_entry
 
 
 def _launch_apply_rows(arr, idx, rows):
-    import ctypes
-
-    if arr.dtype not in _APPLY_DTYPES:
-        raise ValueError(f"delta_apply_rows: dtype {arr.dtype} (bool, int32, float32 only)")
     if not arr.is_contiguous():
         raise ValueError("delta_apply_rows: the resident buffer is not contiguous")
-    out = arr.clone()
-    row_elems = math.prod(arr.shape[1:])
-    fn = _build.library("apply_rows").kt_apply_rows
-    with torch.cuda.device(arr.device):
-        rc = fn(
-            ctypes.c_longlong(arr.shape[0]), ctypes.c_longlong(idx.shape[0]),
-            ctypes.c_longlong(row_elems), ctypes.c_int(_APPLY_DTYPES[arr.dtype]),
-            _build.ptr(idx), _build.ptr(rows), _build.ptr(out), _build.stream(),
-        )
+    if arr.get_device() != torch.cuda.current_device():
+        with torch.cuda.device(arr.device):
+            return _launch_apply_rows(arr, idx, rows)
+    out = torch.empty_like(arr)
+    rc = _apply_rows_fn()(
+        arr.shape[0], math.prod(arr.shape[1:]) * arr.element_size(), idx.shape[0],
+        arr.data_ptr(), idx.data_ptr(), rows.data_ptr(), out.data_ptr(),
+        # the current stream's handle, without building a Stream object
+        torch._C._cuda_getCurrentRawStream(arr.get_device()),
+    )
     _build.launched("apply_rows", rc)
     return out
 

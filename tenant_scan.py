@@ -1,33 +1,241 @@
-"""Time kernel B4 over the tenant cell's scan, tiled and untiled, on one card.
+"""Time kernel B4, the packing scan, on one card, and split it by phase.
 
-The tenant cell of chip_smoke.py's phase 9 (tenant-pools-50k: 64 tainted
-NodePools capped at 4,000 CPUs over 800 types, 6,000 VPA-sized
-Deployments, 50,816 pods) is encoded and staged on the card once, as the
-driver stages it; then the scan (ops/packing.py:pack) runs over those
-args in the tiled mode (each real step builds its feasibility rows) and
-untiled (over B1's tables), alternating, REPS times each after a warm-up,
-each call timed with CUDA events. The two modes' outputs must be
-identical. Prints the card's name and power limit, then one JSON line:
-every time, the medians, and the row build by difference (tiled median -
-untiled median).
+    python3 tenant_scan.py                  # all six shapes, phase clocks on
+    python3 tenant_scan.py --no-clocks      # times only (a checkout without
+                                            # the phase-clock build)
+    python3 tenant_scan.py --shapes tenant  # a subset
 
-Two checkouts are compared only within one call on one card: run this
-from each in turn, in the order A, B, B, A
-(``cd <checkout> && python3 tenant_scan.py``).
+Four solve shapes, each encoded and staged on the card once, as the
+driver stages it (chip_smoke.py's batches):
+
+- ``tenant``: the tenant cell of chip_smoke.py's phase 9 (64 tainted
+  NodePools capped at 4,000 CPUs over 800 types, 6,000 VPA-sized
+  Deployments, 50,816 pods; NMAX 16384), whose scan the driver runs in the
+  tiled mode (each real step builds its feasibility rows); it also runs
+  untiled over B1's tables, the two modes alternating, and the row build
+  is their difference;
+- ``mixed``: mixed_pods(50,000) x 400 types (NMAX 1024, domain-free);
+- ``constrained``: constrained_mix(50,000) x 800 types (the domain
+  machinery);
+- ``diverse_contrib``: diverse_reference_mix(5,000) x 400 types through B4
+  (the classed route off: contributor counting).
+
+Each scan runs REPS times after a warm-up (NMAX doubled while it
+overflows, as the driver does), timed with CUDA events. With the clocks
+on, the same scan then runs once from the phase-clock build of
+csrc/pack.cu (``-DKT_PHASE_CLOCKS``, library ``pack_clocks``, built here
+only): thread 0 of the block adds %globaltimer nanoseconds per phase
+(init, load, tile, claims, exist, quota, tier1, tier2, commit, fresh,
+contrib, outputs), and its outputs must equal the timed scan's. The
+clock build's barriers at each mark make its total larger than the timed
+scan's.
+
+Two consolidation shapes, B4 over a scenario grid (kernel B7):
+
+- ``cons``: MultiNodeConsolidation at 2,000 nodes (chip_smoke.py's phase
+  4), ``cons_minvalues``: the same over the minValues floor (phase 8).
+  Each times ``compute_command`` on a fresh environment CONS_PASSES times
+  (the first pass apart; host clock after a garbage collection, ending in
+  a device sync), then B4
+  over the search's 16-scenario chunk through the wrapper (CUDA events)
+  and on the device alone (torch.profiler: the scan kernel's time a
+  call, and every device activity's), with the cluster the launches took
+  (ops/packing.py:clusters, where the checkout has it).
+
+Prints the card's name and power limit, then one JSON line. Two
+checkouts are compared only within one call on one card: run this from
+each in turn, in the order A, B, B, A
+(``cd <checkout> && python3 tenant_scan.py --no-clocks``).
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
+import gc
 import json
 import statistics
 import sys
+import time
 
 import chip_smoke as cs
 
 REPS = 3
+CONS_PASSES = 6  # the first warms, as chip_smoke.py's phase 4
+SCAN_SHAPES = ("tenant", "mixed", "constrained", "diverse_contrib")
+CONS_SHAPES = ("cons", "cons_minvalues")
+SHAPES = SCAN_SHAPES + CONS_SHAPES
+PHASES = ("init", "load", "tile", "claims", "exist", "quota", "tier1", "tier2", "commit",
+          "fresh", "contrib", "outputs")
+
+
+def shape_inputs(shape):
+    """(pods, n_types, pools) of one shape."""
+    from karpenter_tpu_torch.solver import example, workloads
+
+    if shape == "tenant":
+        return (example.tenant_pods(cs.N_DEPLOY, cs.N_TENANTS), cs.TENANT_TYPES,
+                example.tenant_pools(cs.N_TENANTS))
+    if shape == "mixed":
+        return workloads.mixed_pods(cs.N_PODS), cs.N_TYPES, None
+    if shape == "constrained":
+        return workloads.constrained_mix(cs.N_PODS), cs.N_TYPES_C, None
+    return workloads.diverse_reference_mix(cs.N_DIVERSE), cs.N_TYPES, None
+
+
+def phase_clocks(fn, n_phases):
+    """The phase-clock build's per-phase milliseconds over one ``fn()``."""
+    import torch
+
+    from karpenter_tpu_torch import _build
+
+    read = _build.library("pack_clocks").kt_pack_phase_clocks
+    buf = (ctypes.c_ulonglong * n_phases)()
+    torch.cuda.synchronize()
+    if read(buf):  # zeroes the totals
+        raise RuntimeError("reading the phase clocks failed")
+    out = fn()
+    torch.cuda.synchronize()
+    if read(buf):
+        raise RuntimeError("reading the phase clocks failed")
+    return out, [ns / 1e6 for ns in buf]
+
+
+def run_shape(shape, clocks):
+    import torch
+
+    from karpenter_tpu_torch.ops import packing, solve
+    from karpenter_tpu_torch.solver.driver import SolverConfig, TorchSolver
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+
+    pods, n_types, pools = shape_inputs(shape)
+    solver = cs.build_batch(TorchSolver, SolverConfig, pods, n_types, pools=pools)
+    args, statics, nmax, _ = cs.device_snapshot(solver, pods)
+    tiled = bool(statics["tile_feasibility"])
+    if tiled != (shape == "tenant"):
+        raise RuntimeError(f"{shape}: the driver chose tile_feasibility={tiled}")
+    a = dict(zip(SOLVE_ARG_NAMES, args))
+    zk, ck = statics["zone_kid"], statics["ct_kid"]
+    st = dict(nmax=nmax, zone_kid=zk, ct_kid=ck, wf_iters=statics["wf_iters"],
+              has_domains=statics["has_domains"], has_contrib=statics["has_contrib"])
+    uin = solve.pack_args(a, *solve._feasibility_tables(a, zk, ck, True))
+    modes = {"untiled": (uin, {})}
+    if tiled:
+        tin = solve.pack_args(a, *solve._feasibility_tables(a, zk, ck, tile_feasibility=True))
+        modes = {"tiled": (tin, dict(tile_feasibility=True)), **modes}
+    while True:  # the driver's overflow doubling
+        outs = {m: cs.timed(lambda: packing.pack(*x, **st, **kw))[0]
+                for m, (x, kw) in modes.items()}
+        if not any(bool(o[3]) for o in outs.values()):
+            break
+        st["nmax"] *= 2
+    main = next(iter(modes))
+    if tiled:
+        err = cs.max_abs_err(outs["tiled"], outs["untiled"])
+        if err:
+            raise RuntimeError(f"{shape}: max |tiled - untiled| {err}")
+    ms = {m: [] for m in modes}
+    for _ in range(REPS):
+        for m, (x, kw) in modes.items():
+            ms[m].append(cs.timed(lambda: packing.pack(*x, **st, **kw))[1])
+    p50 = {m: statistics.median(t) for m, t in ms.items()}
+    row = dict(ms=ms, p50_ms=p50, nmax=st["nmax"], claims=int(outs[main][2]),
+               real_steps=int((a["g_count"] > 0).sum()), dims=dict(
+                   G=int(a["g_count"].shape[0]), T=int(a["t_alloc"].shape[0]),
+                   P=int(a["p_titype_ok"].shape[0]), N=int(a["n_avail"].shape[0])),
+               has_domains=bool(st["has_domains"]), has_contrib=bool(st["has_contrib"]))
+    if tiled:
+        row["row_build_ms"] = p50["tiled"] - p50["untiled"]
+    if clocks:
+        x, kw = modes[main]
+        out, split = phase_clocks(
+            lambda: packing._launch_pack(*x, **st, **kw, library="pack_clocks"), len(PHASES))
+        err = cs.max_abs_err(out, outs[main])
+        if err:
+            raise RuntimeError(f"{shape}: the phase-clock build differs by {err}")
+        row["phase_ms"] = dict(zip(PHASES, split))
+        row["phase_total_ms"] = sum(split)
+    del outs
+    torch.cuda.empty_cache()
+    return row
+
+
+def scan_device_ms(fn, reps=20):
+    """torch.profiler's device milliseconds a call of ``fn`` over ``reps``
+    back-to-back calls: the scan kernel's (pack_scan) and every device
+    activity's (the wrapper's zeroing and word passes too)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    scan = total = 0.0
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA") or not ev.count:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        t = getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
+        total += t
+        if "pack_scan" in ev.key:
+            scan += t
+    return scan / 1e3 / reps, total / 1e3 / reps
+
+
+def run_consolidation(shape):
+    import torch
+
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packing, solve
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+    from karpenter_tpu_torch.solver.workloads import build_consolidation_env
+
+    build = (cs.minvalues_consolidation_env if shape == "cons_minvalues"
+             else build_consolidation_env)
+    passes, commands = [], set()
+    for _ in range(CONS_PASSES):
+        ctx, method, candidates, budgets = build(cs.CONS_NODES, "cuda")
+        torch.cuda.synchronize()
+        gc.collect()  # as chip_smoke.py's passes: no collection inside the timing
+        t0 = time.perf_counter()
+        cmd = method.compute_command(candidates, budgets)
+        torch.cuda.synchronize()
+        passes.append((time.perf_counter() - t0) * 1e3)
+        commands.add(repr((cs.command_signature(cmd), method.last_probes,
+                           method.last_dispatches)))
+    if len(commands) != 1:
+        raise RuntimeError(f"{shape}: the passes disagree: {commands}")
+    token = cs.scenario_snapshot(build=build)
+    statics = dict(token["statics"])
+    a = dict(zip(SOLVE_ARG_NAMES, token["args"]))
+    zk, ck = statics["zone_kid"], statics["ct_kid"]
+    st = dict(nmax=token["nmax"], zone_kid=zk, ct_kid=ck, wf_iters=statics["wf_iters"],
+              has_domains=statics["has_domains"], has_contrib=statics["has_contrib"])
+    b1 = feas.fresh_claim_feasibility_sparse(*(a[n] for n in cs.B1_NAMES),
+                                             zone_kid=zk, ct_kid=ck)
+    b2 = feas.existing_node_feasibility_sparse(*(a[n] for n in cs.B2_NAMES))
+    b4_in = solve.pack_args(a, *b1, b2)
+    while bool(packing.pack(*b4_in, **st)[3].any().item()):  # overflow doubling
+        st["nmax"] *= 2
+    out, _ = cs.timed(lambda: packing.pack(*b4_in, **st))
+    ms = [cs.timed(lambda: packing.pack(*b4_in, **st))[1] for _ in range(50)]
+    scan_ms, device_ms = scan_device_ms(lambda: packing.pack(*b4_in, **st))
+    return dict(pass_first_ms=passes[0], pass_ms=passes[1:],
+                pass_p50_ms=statistics.median(passes[1:]), command=commands.pop(),
+                S=int(a["g_count"].shape[0]), nmax=st["nmax"], claims=out[2].tolist(),
+                b4_p50_ms=statistics.median(ms), b4_scan_device_ms=scan_ms,
+                b4_device_ms=device_ms,
+                clusters={str(k): v for k, v in getattr(packing, "clusters", {}).items()})
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--no-clocks", action="store_true", help="times only")
+    ap.add_argument("--shapes", nargs="+", choices=SHAPES, default=list(SHAPES))
+    opts = ap.parse_args()
     cs.pin_one_card()
     import torch
 
@@ -35,42 +243,21 @@ def main():
         print("tenant_scan: CUDA is not available", file=sys.stderr)
         return 2
     from karpenter_tpu_torch import _build
-    from karpenter_tpu_torch.ops import packing, solve
-    from karpenter_tpu_torch.solver.driver import SolverConfig, TorchSolver
-    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
-    from karpenter_tpu_torch.solver.example import tenant_pods, tenant_pools
 
-    _build.build(names=("fresh_feasibility", "pack"), force=True)
-    pods = tenant_pods(cs.N_DEPLOY, cs.N_TENANTS)
-    solver = cs.build_batch(TorchSolver, SolverConfig, pods, cs.TENANT_TYPES,
-                            pools=tenant_pools(cs.N_TENANTS))
-    args, statics, nmax, _ = cs.device_snapshot(solver, pods)
-    if not statics["tile_feasibility"]:
-        print("tenant_scan: the driver did not choose the tiled mode", file=sys.stderr)
-        return 1
-    a = dict(zip(SOLVE_ARG_NAMES, args))
-    zk, ck = statics["zone_kid"], statics["ct_kid"]
-    st = dict(nmax=nmax, zone_kid=zk, ct_kid=ck, wf_iters=statics["wf_iters"],
-              has_domains=statics["has_domains"], has_contrib=statics["has_contrib"])
-    tin = solve.pack_args(a, *solve._feasibility_tables(a, zk, ck, tile_feasibility=True))
-    uin = solve.pack_args(a, *solve._feasibility_tables(a, zk, ck, True))
-    modes = {"tiled": lambda: packing.pack(*tin, **st, tile_feasibility=True),
-             "untiled": lambda: packing.pack(*uin, **st)}
-    outs = {mode: cs.timed(fn)[0] for mode, fn in modes.items()}  # warm-up
-    err = cs.max_abs_err(outs["tiled"], outs["untiled"])
-    if err or bool(outs["tiled"][3]):
-        print(f"tenant_scan: max |tiled - untiled| {err}, overflow {bool(outs['tiled'][3])}",
-              file=sys.stderr)
-        return 1
-    ms = {mode: [] for mode in modes}
-    for _ in range(REPS):
-        for mode, fn in modes.items():
-            ms[mode].append(cs.timed(fn)[1])
-    p50 = {mode: statistics.median(t) for mode, t in ms.items()}
+    clocks = not opts.no_clocks
+    names = ("fresh_feasibility", "existing_feasibility", "wire_pack", "pack",
+             *(("pack_clocks",) if clocks else ()))
+    logs = _build.build(names=names, force=True, verbose=True)
+    rows = {"ptxas": {name: cs.ptxas_summary(text) for name, text in logs.items()}}
+    for shape in opts.shapes:
+        try:
+            rows[shape] = (run_consolidation(shape) if shape in CONS_SHAPES
+                           else run_shape(shape, clocks))
+        except RuntimeError as exc:
+            print(f"tenant_scan: {exc}", file=sys.stderr)
+            return 1
     print(cs.nvidia_smi_line())
-    print(json.dumps(dict(
-        ms=ms, p50_ms=p50, row_build_ms=p50["tiled"] - p50["untiled"], nmax=nmax,
-        real_steps=int((a["g_count"] > 0).sum()), claims=int(outs["tiled"][2]))))
+    print(json.dumps(rows))
     return 0
 
 

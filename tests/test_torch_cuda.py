@@ -29,7 +29,12 @@ launch, each step's rows built in the scan): B4 over plain, limited,
 domain, minValues and ledger batches and over existing nodes (the cap
 row), B5 over the diverse mix with and without nodes, and B7's grid with
 per-scenario n_tol, each against its plain tiled version and against
-the untiled kernel.
+the untiled kernel. The last section holds B4's live extent and cluster
+(NMAX at least 8x the claims on each path, the overflow boundary and the
+driver's doubling retry, B7's grid of clusters against each scenario
+solved alone) and B8 in one launch on its edge cases (rows of 15 bytes,
+rows the blocks' share does not divide, every row, aliased and dropped
+indices, an empty delta).
 
 Marked ``cuda``: they skip where there is no card. On the card, from the
 repo root: ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
@@ -1134,3 +1139,154 @@ def test_tiled_scenario_grid(cuda, S, real):
         np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=f"output {i}")
         np.testing.assert_array_equal(u.cpu().numpy(), p.numpy(), err_msg=f"untiled {i}")
     assert int(plain[4].sum()) > 0 and int(plain[2].max()) > 0
+
+
+# -- B4's live extent and thread-block cluster, B7's grid of clusters -------------
+
+
+_WIDE_CASES = {
+    "free": lambda: _snapshot(mixed_pods(400), n_types=30, n_nodes=3),
+    "domains": lambda: _DOMAIN_CASES["priors-on-zoned-nodes"](),
+    "contrib": lambda: _classed_snapshot(_diverse(300))[:2],
+    "minvalues": lambda: _scan_snapshot(mixed_pods(400, gpu_fraction=0.0), _mv_pools(),
+                                        corpus.generate(30))[:2],
+    "ledger": lambda: _scan_snapshot(mixed_pods(400, gpu_fraction=0.0), [example_nodepool()],
+                                     _reserved(40, 5, 3), reserved_capacity_enabled=True)[:2],
+    "tiled": lambda: (lambda a, st: (a, _tiled(st)))(
+        *_snapshot(mixed_pods(400), n_types=30, n_nodes=3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_WIDE_CASES))
+def test_pack_nmax_far_past_the_claims(cuda, case):
+    """B4 with NMAX at least 8x the claims it opens, on each of its paths:
+    the claim-axis phases walk only the open claims, and every output,
+    the columns past them included, equals pack_reference."""
+    args, statics = _WIDE_CASES[case]()
+    n_open = int(solve_core(*to_device_args(args, "cpu"), **statics)[2])
+    assert n_open > 0
+    nmax = 1 << (8 * n_open - 1).bit_length()
+    out = _kernels_equal_plain(args, dict(statics, nmax=nmax), cuda)
+    assert int(out[2]) == n_open and not bool(out[3])
+
+
+def test_pack_overflow_boundary(cuda):
+    """B4 at the overflow boundary: NMAX one below the claims the batch
+    opens overflows and NMAX at the claims does not, each equal to
+    pack_reference; through the driver, the doubling retry (fresh zeroed
+    outputs) decides as the CPU."""
+    args, statics = _snapshot(mixed_pods(400), n_types=30)
+    n_open = int(solve_core(*to_device_args(args, "cpu"), **statics)[2])
+    assert bool(_kernels_equal_plain(args, dict(statics, nmax=n_open - 1), cuda)[3])
+    assert not bool(_kernels_equal_plain(args, dict(statics, nmax=n_open), cuda)[3])
+
+    def solve(device):
+        pods = mixed_pods(400)
+        pools = [example_nodepool()]
+        its = {pools[0].name: corpus.generate(30)}
+        topo = Topology(Client(TestClock()), [], pools, its, pods)
+        solver = TorchSolver(pools, its, topo, config=SolverConfig(
+            device=device, max_claims=n_open - 1, relax=False))
+        return slots(solver.solve(pods)), solver.last_dispatches
+
+    got = solve("cuda")
+    assert got == solve("cpu") and got[1] == 2
+
+
+def test_scenario_grid_of_clusters(cuda):
+    """B7 at S=16, one cluster per scenario: every scenario of the grid
+    equals that scenario solved alone on the card, and the plain
+    scenario solve."""
+    from karpenter_tpu_torch.ops.solve import solve_core_packed
+
+    args, statics = _snapshot(mixed_pods(1500), n_types=30, n_nodes=33)
+    a = _scenario_args(args, 16, 16, seed=29)
+    _scenarios_equal_plain(a, statics, cuda)
+    grid = solve_scenarios_core_packed(*to_device_args(a, cuda), **dict(
+        statics, fills_dtype=torch.int32, batch_topo=False))
+    gi, ti = enc.SOLVE_ARG_NAMES.index("g_count"), enc.SOLVE_ARG_NAMES.index("n_tol")
+    for si in range(16):
+        one = list(a)
+        one[gi], one[ti] = a[gi][si], a[ti][si]
+        alone = solve_core_packed(*to_device_args(one, cuda), **dict(
+            statics, fills_dtype=torch.int32))
+        for i, (g, s) in enumerate(zip(grid, alone)):
+            np.testing.assert_array_equal(g[si].cpu().numpy(), s.cpu().numpy(),
+                                          err_msg=f"scenario {si} output {i}")
+
+
+@pytest.mark.parametrize("S", [64, 160])
+def test_scenario_grid_narrows_its_cluster(cuda, S):
+    """B7 over more scenarios than the card holds clusters of 8: the
+    launch takes a cluster of which all S fit at once (single blocks past
+    the SMs), and the grid equals the plain scenario solve; a single
+    solve keeps the cluster of 8."""
+    from karpenter_tpu_torch.ops import packing
+    from karpenter_tpu_torch.ops.solve import solve_core_packed
+
+    args, statics = _snapshot(mixed_pods(300), n_types=30, n_nodes=9)
+    packing.clusters.clear()
+    _scenarios_equal_plain(_scenario_args(args, S, S, seed=31), statics, cuda)
+    c, fit, fit8 = packing.clusters[S]
+    assert c in (1, 2, 4, 8) and fit8 >= 1
+    assert fit >= S or c == 1
+    assert c == 8 or fit8 < S
+    solve_core_packed(*to_device_args(args, cuda), **dict(statics, fills_dtype=torch.int32))
+    assert packing.clusters[1][0] == 8
+
+
+# -- B8 in one launch, on its edge cases ------------------------------------------
+
+
+def b8_case(case, rng):
+    """(arr, idx int32, rows) numpy arrays of one edge case of the row
+    apply (also held against JAX in tests/test_torch_live_extent.py)."""
+    if case == "ragged-rows":  # 15-byte rows: block ranges off 16-byte alignment
+        arr, rows = rng.random((9001, 3, 5)) < 0.5, rng.random((400, 3, 5)) < 0.5
+        idx = rng.choice(9001, 400, replace=False)
+    elif case == "uneven-blocks":  # rows that the blocks' share does not divide
+        arr = rng.integers(-99, 99, (5003, 7)).astype(np.int32)
+        rows = rng.integers(-99, 99, (333, 7)).astype(np.int32)
+        idx = rng.choice(5003, 333, replace=False)
+    elif case == "every-row":  # n_delta == n_rows, past one chunk of indices
+        arr = rng.random((4099, 16)).astype(np.float32)
+        rows = rng.random((4099, 16)).astype(np.float32)
+        idx = rng.permutation(4099)
+    else:  # duplicates, negatives and indices outside the rows
+        arr = rng.integers(-99, 99, (64, 4)).astype(np.int32)
+        rows = rng.integers(-99, 99, (9, 4)).astype(np.int32)
+        idx = np.array([5, 5, -1, -64, 64, -65, 1000, 0, 63])
+        # a duplicate carries its row twice: 5 and 5, -64 and 0, -1 and 63
+        rows[1], rows[7], rows[8] = rows[0], rows[3], rows[2]
+    return arr, idx.astype(np.int32), rows
+
+
+@pytest.mark.parametrize("case", ["ragged-rows", "uneven-blocks", "every-row", "edge-indices"])
+def test_apply_rows_one_launch(cuda, case):
+    """B8 writes the whole output in one launch (no copy of the buffer
+    before it), equal to delta_apply_rows_reference; the resident buffer
+    is left as it was."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops.solve import delta_apply_rows, delta_apply_rows_reference
+
+    arr, idx, rows = b8_case(case, np.random.default_rng(len(case)))
+    want = delta_apply_rows_reference(torch.from_numpy(arr), torch.from_numpy(idx),
+                                      torch.from_numpy(rows))
+    buf = torch.from_numpy(arr).to(cuda)
+    _build.reset_launches()
+    out = delta_apply_rows(buf, torch.from_numpy(idx).to(cuda), torch.from_numpy(rows).to(cuda))
+    torch.cuda.synchronize()
+    assert _build.launches["apply_rows"] == 1
+    np.testing.assert_array_equal(out.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(buf.cpu().numpy(), arr)
+
+
+def test_apply_rows_empty_delta(cuda):
+    """An empty delta returns the buffer itself and launches nothing."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops.solve import delta_apply_rows
+
+    buf = torch.arange(12, dtype=torch.int32, device=cuda).reshape(4, 3)
+    _build.reset_launches()
+    assert delta_apply_rows(buf, np.zeros(0, np.int32), np.zeros((0, 3), np.int32)) is buf
+    assert _build.launches["apply_rows"] == 0
