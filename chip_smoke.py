@@ -153,11 +153,13 @@ on the card.
 Then one JSON line of per-kernel numbers (B1, B2, B3 fresh and existing,
 B4, B4 over domains, B4 with contributor counting, B4 with minValues
 floors, B4 with the reservation ledger, B5, B5 with floors, B6, B7, B7
-with floors, B8, B9, and B4, B5 and B7 in the tiled mode; B8's row
-carries its device-only times and the tenant tick's delta, B7's its
-scan on the device alone), a log line with the cluster each scenario
-count's B4 launches took (csrc/pack.cu:pick_cluster), the nvidia-smi
-line, and the last line
+with floors, B8, B9, and B4, B5 and B7 in the tiled mode; every row
+carries its device-only time, torch.profiler over repeated calls of the
+wrapper, beside the wrapper's CUDA-event time; B8's row also the
+library call's and the tenant tick's delta, B7's its scan on the device
+alone), a log line with the cluster each scenario count's B4 launches
+and B5's launches took (csrc/pack_common.cuh:pick_cluster; phases 2 and
+9(d) log B5's too), the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -476,13 +478,13 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
     b1_ref = feas.fresh_claim_feasibility_sparse_reference(*b1_in, zone_kid=zk, ct_kid=ck)
     torch.cuda.synchronize()
     ops = P * T * K * V1 + P * L * T * V1 + P * G * T * (2 * R + O)
-    rows["fresh_feasibility"] = dict(
+    rows["fresh_feasibility"] = with_device(dict(
         max_abs_err=max_abs_err(b1, b1_ref),
         ms=cuda_ms(lambda: feas.fresh_claim_feasibility_sparse(*b1_in, zone_kid=zk, ct_kid=ck), 50),
         plain_ms=cuda_ms(lambda: feas.fresh_claim_feasibility_sparse_reference(*b1_in, zone_kid=zk, ct_kid=ck), 10),
         bound=bound_ms(nbytes(b1_in) + nbytes(b1), ops),
         shape=f"P={P} G={G} T={T} K={K} V1={V1} R={R} O={O} L={L}",
-    )
+    ), lambda: feas.fresh_claim_feasibility_sparse(*b1_in, zone_kid=zk, ct_kid=ck), 100)
 
     # ---- B3 fresh, the dense twin, on the same snapshot: == plain, == B1 ----
     b3_in = [a[n] for n in B3_NAMES]
@@ -492,7 +494,7 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
     torch.cuda.synchronize()
     if max_abs_err(b3, b1):
         raise SmokeFailure("B3 fresh: the dense tables differ from B1's")
-    rows["dense_fresh"] = dict(
+    rows["dense_fresh"] = with_device(dict(
         max_abs_err=max_abs_err(b3, b3_ref),
         ms=cuda_ms(lambda: feas.fresh_claim_feasibility(*b3_in, zone_kid=zk, ct_kid=ck), 50),
         plain_ms=cuda_ms(lambda: feas.fresh_claim_feasibility_reference(
@@ -504,7 +506,7 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
                        (G + P + T) * K * V1 + P * G * K * W3
                        + P * G * T * (K * W3 + O + 2 * R)),
         shape=f"P={P} G={G} T={T} K={K} V1={V1} R={R} O={O}, == B1",
-    )
+    ), lambda: feas.fresh_claim_feasibility(*b3_in, zone_kid=zk, ct_kid=ck), 100)
 
     # ---- B4 packing scan and B6 wire pack on the 50k tables ----
     cap_ng = torch.zeros((0, G), dtype=torch.int32, device="cuda")
@@ -520,25 +522,25 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
     torch.cuda.synchronize()
     n_open = int(b4[2].item())
     ops = pack_ops(a["g_count"], b4[5], b4[2], T, R, V1)
-    rows["pack"] = dict(
+    rows["pack"] = with_device(dict(
         max_abs_err=max_abs_err(b4, b4_ref),
         ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 20),
         plain_ms=cuda_ms(lambda: packing_mod.pack_reference(*pack_in, **st), 3),
         bound=bound_ms(nbytes(pack_in) + nbytes(b4), ops),
         shape=f"G={G} T={T} NMAX={st['nmax']} claims={n_open} wf_iters={st['wf_iters']}",
-    )
+    ), lambda: packing_mod.pack(*pack_in, **st), 20)
     b6 = solve_mod.wire_pack(b4, fills)
     b6_ref = solve_mod.wire_pack_reference(b4, fills)
     torch.cuda.synchronize()
     b6_in = [b4[i] for i in (0, 1, 4, 5, 7, 8)]
     b6_out = [b6[i] for i in (0, 1, 4, 5, 7, 8)]
-    rows["wire_pack"] = dict(
+    rows["wire_pack"] = with_device(dict(
         max_abs_err=max_abs_err(b6, b6_ref),
         ms=cuda_ms(lambda: solve_mod.wire_pack(b4, fills), 50),
         plain_ms=cuda_ms(lambda: solve_mod.wire_pack_reference(b4, fills), 20),
         bound=bound_ms(nbytes(b6_in) + nbytes(b6_out), b4[1].numel() + sum(x.numel() for x in b6_out)),
         shape=f"NMAX={st['nmax']} T={T} fills={fills}",
-    )
+    ), lambda: solve_mod.wire_pack(b4, fills), 100)
 
     # ---- B2 existing-node caps on the state-node snapshot ----
     pods2 = mixed_pods(NODE_PODS)
@@ -553,13 +555,13 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
     if not int(b2.max()):
         raise SmokeFailure("B2: no node has room for any group")
     N2, G2, L2 = a2["n_avail"].shape[0], a2["g_count"].shape[0], a2["gk_g"].shape[0]
-    rows["existing_feasibility"] = dict(
+    rows["existing_feasibility"] = with_device(dict(
         max_abs_err=max_abs_err([b2], [b2_ref]),
         ms=cuda_ms(lambda: feas.existing_node_feasibility_sparse(*b2_in), 50),
         plain_ms=cuda_ms(lambda: feas.existing_node_feasibility_sparse_reference(*b2_in), 20),
         bound=bound_ms(nbytes(b2_in) + nbytes([b2]), N2 * L2 * V1 + N2 * G2 * 2 * R),
         shape=f"N={N2} G={G2} L={L2} R={R}",
-    )
+    ), lambda: feas.existing_node_feasibility_sparse(*b2_in), 100)
     # ---- B3 existing, the dense twin, on the same snapshot: == plain, == B2 ----
     b3e_in = [a2[n] for n in B3E_NAMES]
     (K2, V12), R2 = a2["g_mask"].shape[1:], a2["n_avail"].shape[1]
@@ -568,14 +570,14 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
     torch.cuda.synchronize()
     if max_abs_err([b3e], [b2]):
         raise SmokeFailure("B3 existing: the dense table differs from B2's")
-    rows["dense_existing"] = dict(
+    rows["dense_existing"] = with_device(dict(
         max_abs_err=max_abs_err([b3e], [b3e_ref]),
         ms=cuda_ms(lambda: feas.existing_node_feasibility(*b3e_in), 50),
         plain_ms=cuda_ms(lambda: feas.existing_node_feasibility_reference(*b3e_in), 20),
         bound=bound_ms(nbytes(b3e_in) + nbytes([b3e]), (G2 + N2) * K2 * V12
                        + N2 * G2 * (K2 * ((V12 + 31) // 32) + 2 * R2)),
         shape=f"N={N2} G={G2} K={K2} V1={V12} R={R2}, == B2",
-    )
+    ), lambda: feas.existing_node_feasibility(*b3e_in), 100)
     rows["relax_fill"] = relax_row(torch_solver_cls, config_cls)
     rows["solve_scenarios"] = scenario_row()
     rows.update(constrained_rows(torch_solver_cls, config_cls, encode_cache_cls))
@@ -632,7 +634,7 @@ def relax_row(torch_solver_cls, config_cls):
         raise SmokeFailure(f"B9: {n_r} claims holding {int(b9[0][:, :n_r].sum())} pods")
     GE, NR = b9[0].shape
     T = b9[1].shape[1]
-    return dict(
+    return with_device(dict(
         max_abs_err=max_abs_err(b9, b9_ref),
         ms=cuda_ms(lambda: relax_mod.relax_fill(*b9_in), 50),
         plain_ms=cuda_ms(lambda: relax_mod.relax_fill_reference(*b9_in), 20),
@@ -640,7 +642,7 @@ def relax_row(torch_solver_cls, config_cls):
         # cell a compare and an AND
         bound=bound_ms(nbytes(b9_in) + nbytes(b9), GE * NR * 12 + NR * T * 2),
         shape=f"GE={GE} NR={NR} T={T} claims={n_r}",
-    )
+    ), lambda: relax_mod.relax_fill(*b9_in), 100)
 
 
 def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None, mv=0,
@@ -649,10 +651,11 @@ def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None
     opened at an earlier step is checked against every type (2R fits
     compares, and the offering test: the type's [V1, V1] zone x
     capacity-type table as V1 x W bit words, W = ceil(V1 / 32), each
-    ANDed with the claim's words), plus a few per claim slot. A dynamic
-    group's step (``dyn`` [G] bool: g_dmode > 0) adds the per-domain
-    offering words of each claim and template type (V1 x W each, every
-    domain at once) and a per-domain claim pass. ``mv`` floored minValues
+    ANDed with the claim's words), plus a few per claim open at the step
+    (the scans walk the open claims, never NMAX). A dynamic group's step
+    (``dyn`` [G] bool: g_dmode > 0) adds the per-domain offering words of
+    each claim and template type (V1 x W each, every domain at once) and a
+    per-domain pass over the open claims. ``mv`` floored minValues
     keys add, per step, each claim's per-value pass over its types for
     each key and one pass over each template's types (its bulk cap);
     ``nres`` reservations add, per step, the compatible-reservation words
@@ -667,7 +670,7 @@ def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None
     g_count, claim_fills, n_open = g_count.cpu(), claim_fills.cpu(), n_open.cpu()
     if g_count.dim() == 1:
         g_count, claim_fills, n_open = g_count[None], claim_fills[None], n_open[None]
-    G, nmax = claim_fills.shape[1:]
+    G = claim_fills.shape[1]
     VW = V1 * ((V1 + 31) // 32)  # one type's offering table in words
     dyn = [False] * G if dyn is None else [bool(x) for x in dyn.cpu()]
     ops = 0
@@ -683,16 +686,17 @@ def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None
                     ops += (live + P) * T * VW
                 for g in range(cs, cs + cl):
                     if int(counts[g]) > 0:
-                        ops += nmax * 8 + (nmax * V1 * 8 if dyn[g] else 0) + P * T * mv
+                        open_g = sum(1 for f in first if f < g)
+                        ops += open_g * 8 + (open_g * V1 * 8 if dyn[g] else 0) + P * T * mv
             continue
         for g in range(G):
             if int(counts[g]) <= 0:
                 continue
             live = sum(1 for f in first if f < g)
-            ops += live * T * (2 * R + VW) * (1 + mv) + nmax * 8
+            ops += live * T * (2 * R + VW) * (1 + mv) + live * 8
             ops += P * T * mv + (nres + P) * T * VW * bool(nres)
             if dyn[g]:
-                ops += (live + P) * T * VW + nmax * V1 * 8
+                ops += (live + P) * T * VW + live * V1 * 8
     return ops
 
 
@@ -821,7 +825,7 @@ def scenario_row(build=None):
            + N * L * V1 + S * N * G * 2 * R  # B2: compat once, room per scenario
            + pack_ops(a["g_count"], b4[5], b4[2], T, R, V1, P=P, mv=MV)  # B4
            + full[1].numel() * 8 + sum(x.numel() for x in full))  # B6
-    return dict(
+    return with_device(dict(
         max_abs_err=max(parts.values()),
         parts=parts,
         part_ms=part_ms,
@@ -831,7 +835,7 @@ def scenario_row(build=None):
         plain_ms=cuda_ms(lambda: plain_scenarios(args, fills=fills, **st), 3),
         bound=bound_ms(nbytes([a[n] for n in used]) + nbytes(full), ops),
         shape=f"S={S} N={N} G={G} T={T} MV={MV} NMAX={nmax} claims={b4[2].tolist()}",
-    )
+    ), dispatch, 20)
 
 
 def constrained_rows(torch_solver_cls, config_cls, encode_cache_cls):
@@ -878,7 +882,7 @@ def constrained_rows(torch_solver_cls, config_cls, encode_cache_cls):
     b4_ref, ref_ms = timed(lambda: packing_mod.pack_reference(*pack_in, **st))
     dyn = a["g_dmode"] > 0
     ops = pack_ops(a["g_count"], b4[5], b4[2], T, R, V1, dyn=dyn, P=P)
-    rows["pack_domains"] = dict(
+    rows["pack_domains"] = with_device(dict(
         max_abs_err=max_abs_err(b4, b4_ref),
         ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 5),
         plain_ms=ref_ms,
@@ -886,7 +890,7 @@ def constrained_rows(torch_solver_cls, config_cls, encode_cache_cls):
         shape=(f"G={G} ({int((a['g_count'] > 0).sum())} real, {int(dyn.sum())} dynamic) "
                f"T={T} P={P} K={K} V1={V1} NMAX={st['nmax']} claims={int(b4[2])} "
                f"wf_iters={st['wf_iters']}"),
-    )
+    ), lambda: packing_mod.pack(*pack_in, **st), 5)
 
     # the first churn tick's encode against the same cache: its delta names
     # the changed rows of each argument class, as the residency store sees them
@@ -920,8 +924,11 @@ def device_ms(fn, reps=100):
             continue
         t = getattr(ev, "self_device_time_total", None)
         t = getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
-        per_call[ev.key] = max(1, round(ev.count / reps))
-        us += t / ev.count * per_call[ev.key] * reps
+        # the activity by its name without the parameter list
+        name = ev.key.replace("(anonymous namespace)::", "").split("(")[0].strip()
+        n = max(1, round(ev.count / reps))
+        per_call[name] = per_call.get(name, 0) + n
+        us += t / ev.count * n * reps
     if us > 0:
         return us / 1e3 / reps, per_call, "torch.profiler"
     start = torch.cuda.Event(enable_timing=True)
@@ -932,6 +939,13 @@ def device_ms(fn, reps=100):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, None, "CUDA events"
+
+
+def with_device(row, fn, reps):
+    """``row`` with its device-only time: device_ms over ``reps`` calls of
+    ``fn``, the kernel's wrapper (its zeroing and word passes included)."""
+    ms, per_call, how = device_ms(fn, reps)
+    return dict(row, device_ms=ms, device_per_call=per_call, device_timing=how)
 
 
 def b8_row(host_a, host_b, delta):
@@ -1054,22 +1068,22 @@ def diverse_rows(torch_solver_cls, config_cls):
              f"claims={int(n_open)} wf_iters={st['wf_iters']}")
     classes = (cls[0], cls[1], cls[2])
     return {
-        "pack_classed": dict(
+        "pack_classed": with_device(dict(
             max_abs_err=max_abs_err(state + fills, ref_state + ref_fills),
             ms=cuda_ms(b5, 5), plain_ms=ref5_ms,
             bound=bound_ms(nbytes(pack_in) + nbytes(cls) + nbytes(state + fills),
                            pack_ops(a["g_count"], fills[1], n_open, T, R, V1, dyn=dyn,
                                     P=P, classes=classes)),
             shape=shape,
-        ),
-        "pack_contrib": dict(
+        ), b5, 5),
+        "pack_contrib": with_device(dict(
             max_abs_err=max_abs_err(out4, ref4),
             ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 3),
             plain_ms=ref4_ms,
             bound=bound_ms(nbytes(pack_in) + nbytes(out4),
                            pack_ops(a["g_count"], out4[5], out4[2], T, R, V1, dyn=dyn, P=P)),
             shape=shape + ", classed route off",
-        ),
+        ), lambda: packing_mod.pack(*pack_in, **st), 3),
     }
 
 
@@ -1118,7 +1132,7 @@ def floors_rows(torch_solver_cls, config_cls):
         ref, ref_ms = timed(lambda: packing_mod.pack_reference(*pack_in, **st))
         P, T, R, V1, MV, NRES = dims(a)
         G = a["g_count"].shape[0]
-        return dict(
+        return with_device(dict(
             max_abs_err=max_abs_err(out, ref),
             ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 10),
             plain_ms=ref_ms,
@@ -1127,7 +1141,7 @@ def floors_rows(torch_solver_cls, config_cls):
                                     nres=NRES)),
             shape=(f"{label}: G={G} T={T} P={P} MV={MV} NRES={NRES} NMAX={st['nmax']} "
                    f"claims={int(out[2])} reserved={int(out[9].sum())}"),
-        )
+        ), lambda: packing_mod.pack(*pack_in, **st), 10)
 
     rows = {}
     pods = mixed_pods(N_PODS, gpu_fraction=0.0)
@@ -1167,7 +1181,7 @@ def floors_rows(torch_solver_cls, config_cls):
         *pack_in, *cls, lmax=lmax, **st))
     P, T, R, V1, MV, _ = dims(a)
     fills = list(out5[1:])
-    rows["pack_classed_minvalues"] = dict(
+    rows["pack_classed_minvalues"] = with_device(dict(
         max_abs_err=max_abs_err(list(out5[0]) + fills, list(ref5[0]) + list(ref5[1:])),
         ms=cuda_ms(b5, 3),
         plain_ms=ref5_ms,
@@ -1177,7 +1191,7 @@ def floors_rows(torch_solver_cls, config_cls):
         shape=(f"diverse-minvalues: G={a['g_count'].shape[0]} "
                f"classes={int((cls_host[1] > 0).sum())} lmax={lmax} T={T} MV={MV} "
                f"NMAX={st['nmax']} claims={int(out5[0].n_open)}"),
-    )
+    ), b5, 3)
     # B4[S] with floors: the consolidation chunk over the minValues pool
     rows["scenarios_minvalues"] = scenario_row(build=minvalues_consolidation_env)
     return rows
@@ -1260,7 +1274,7 @@ def tiled_rows(torch_solver_cls, config_cls):
         ops = pack_ops(a["g_count"], out[5], out[2], T, R, V1,
                        dyn=(a["g_dmode"] > 0) if st["has_domains"] else None, P=P,
                        mv=a["p_mvmin"].shape[1], nres=a["res_cap0"].shape[0])
-        return dict(
+        return with_device(dict(
             max_abs_err=err,
             ms=cuda_ms(lambda: packing_mod.pack(*tiled, **st, tile_feasibility=True), reps),
             plain_ms=ref_ms,
@@ -1268,7 +1282,7 @@ def tiled_rows(torch_solver_cls, config_cls):
                            tiled_ops(ops, steps, P, T, K, V1, N, O, R)),
             shape=(f"{label}: G={a['g_count'].shape[0]} ({steps} real) P={P} T={T} N={N} "
                    f"K={K} V1={V1} NMAX={st['nmax']} claims={int(out[2])}"),
-        )
+        ), lambda: packing_mod.pack(*tiled, **st, tile_feasibility=True), reps)
 
     cells = {}
     pods = mixed_pods(NODE_PODS)
@@ -1323,13 +1337,13 @@ def tiled_rows(torch_solver_cls, config_cls):
         heads = int((cls_host[1] > 0).sum())
         ops = pack_ops(a["g_count"], out[2], out[0].n_open, T, R, V1, dyn=a["g_dmode"] > 0,
                        P=P, classes=tuple(cls[:3]), mv=a["p_mvmin"].shape[1])
-        return dict(
+        return with_device(dict(
             max_abs_err=err, ms=cuda_ms(lambda: b5(tiled, True), reps), plain_ms=ref_ms,
             bound=bound_ms(nbytes(tiled) + nbytes(cls) + nbytes(flat),
                            tiled_ops(ops, heads, P, T, K, V1, N, O, R)),
             shape=(f"{label}: G={a['g_count'].shape[0]} classes={heads} lmax={lmax} T={T} "
                    f"NMAX={st['nmax']} claims={int(out[0].n_open)}"),
-        )
+        ), lambda: b5(tiled, True), reps)
 
     div = b5_cell("diverse-ref", None, 3)
     divmv = b5_cell("diverse-minvalues", [minvalues_nodepool()], 3)
@@ -1374,13 +1388,13 @@ def tiled_rows(torch_solver_cls, config_cls):
     steps = int((a["g_count"] > 0).sum())  # real steps over every scenario
     ops = tiled_ops(pack_ops(a["g_count"], scan[5], scan[2], T, R, V1, P=P), steps, P, T, K,
                     V1, N, O, R) + full[1].numel() * 8 + sum(x.numel() for x in full)
-    rows["scenarios_tiled"] = dict(
+    rows["scenarios_tiled"] = with_device(dict(
         max_abs_err=max(max_abs_err(full, ref), max_abs_err(full, untiled)),
         ms=cuda_ms(lambda: dispatch(tiled_st), 20),
         plain_ms=ref_ms,
         bound=bound_ms(nbytes(tiled_in) + nbytes(full), ops),
         shape=f"S={S} N={N} G={G} T={T} NMAX={tiled_st['nmax']} claims={scan[2].tolist()}",
-    )
+    ), lambda: dispatch(tiled_st), 20)
     return rows
 
 
@@ -2397,8 +2411,10 @@ def phase_tenant(torch_solver_cls, config_cls, encode_cache_cls):
     out["ticks"], out["launches"]["tenant_ticks"] = ticks, tick_counts
 
     # (d) the classed route forced: B5 tiled
+    packing_mod.classed_clusters.clear()
     res_c, counts_c, out["classed_ms"] = counted("tenant_classed", solver_for(pods, classed=True),
                                                  pods)
+    out["classed_cluster"] = packing_mod.classed_clusters["pack_classed"]
     if decisions(res_c, pods) != decisions(res, pods):
         raise SmokeFailure("tenant: the class-batched scan (B5 tiled) decides otherwise than B4")
     out["launches"]["tenant_classed"] = counts_c
@@ -2426,6 +2442,14 @@ def phase_tenant(torch_solver_cls, config_cls, encode_cache_cls):
     out["scenario_launches"] = dict(_build.scenario_launches)
     out["scenario_pods"] = [len(pods), len(less)]
     return out
+
+
+def cluster_text(cluster):
+    """A scan launch's cluster as csrc/pack_common.cuh:pick_cluster reports
+    it: (blocks, such clusters the card holds at once, clusters of the
+    kernel's widest)."""
+    c, fit, widest = cluster
+    return f"{c} blocks ({fit} such clusters fit at once, {widest} of the widest)"
 
 
 def timed_phase(fn):
@@ -2479,13 +2503,15 @@ def main():
         f"{k} [{r['shape']}] {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
         f"bound {r['bound'][0]:.6f} ms"
         + (f", {LIBRARY[k]} {r['library_ms']:.4f} ms" if k in LIBRARY else "")
-        + (f"; device alone {r['device_ms']:.4f} ms vs {r['library_device_ms']:.4f} ms "
-           f"({r['device_timing']})" if "device_ms" in r else "") + ")"
+        + (f"; device alone {r['device_ms']:.4f} ms ({r['device_timing']})"
+           if "device_ms" in r else "")
+        + (f" vs {r['library_device_ms']:.4f} ms" if "library_device_ms" in r else "") + ")"
         for k, r in rows.items())
         + " | B7 parts " + " ".join(
             f"{k}={b7['part_ms'][k]:.4f}ms(err {b7['parts'][k]})" for k in b7["part_ms"])
         + f", B4[S] on the device alone {b7['part_device_ms']['B4[S]']:.4f} ms "
-        f"({b7['part_device_per_call']['B4[S]']})")
+        f"({b7['part_device_per_call']['B4[S]']}) | B5 cluster "
+        + cluster_text(packing_mod.classed_clusters["pack_classed"]))
 
     e2e, secs = timed_phase(lambda: phase_end_to_end(TorchSolver, SolverConfig, EncodeCache))
     log(f"phase 3 end-to-end ({secs:.0f} s): {N_PODS} pods x {N_TYPES} types -> "
@@ -2606,7 +2632,8 @@ def main():
         f"{ten['b8_tick']['ms']:.4f} ms ({LIBRARY['apply_rows']} "
         f"{ten['b8_tick']['library_ms']:.4f} ms), device alone "
         f"{ten['b8_tick']['device_ms']:.4f} ms vs {ten['b8_tick']['library_device_ms']:.4f} ms"
-        f"; repeat REUSE; (d) classed=True (B5 tiled) == B4, {ten['classed_ms']:.1f} ms; "
+        f"; repeat REUSE; (d) classed=True (B5 tiled) == B4, {ten['classed_ms']:.1f} ms, "
+        f"B5 cluster {cluster_text(ten['classed_cluster'])}; "
         f"(e) scenario batch of {ten['scenario_pods']} pods (B7 tiled) == solves of its pods, "
         f"{ten['scenarios_ms']:.1f} ms; launches "
         + " ".join(f"{p}={c}" for p, c in ten["launches"].items()))
@@ -2645,11 +2672,9 @@ def main():
             extra = {"library": LIBRARY[name]} if name in LIBRARY else {}
         if "cells" in row:  # the tiled rows' cells
             extra["cells"] = row["cells"]
-        if name == "apply_rows":  # device-only times; the tenant tick's delta
-            extra.update({k: row[k] for k in (
-                "device_ms", "library_device_ms", "device_timing", "device_per_call",
-                "library_device_per_call")}, tenant_tick={k: v for k, v in ten["b8_tick"].items()
-                                                          if k != "bound"})
+        if name == "apply_rows":  # the library's device-only time; the tenant tick's delta
+            extra.update({k: row[k] for k in ("library_device_ms", "library_device_per_call")},
+                         tenant_tick={k: v for k, v in ten["b8_tick"].items() if k != "bound"})
         if name == "pack_tiled":  # the scan alone at the tenant cell's full depth
             extra["tenant_cell_ms"] = ten["scan_tiled_ms"]
         kernels.append(dict(
@@ -2660,13 +2685,15 @@ def main():
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=bms, bound_by=by, library_ms=row.get("library_ms"),
+            device_ms=row["device_ms"], device_timing=row["device_timing"],
+            device_per_call=row["device_per_call"],
             **extra,
         ))
-    # the cluster each scenario count's B4 launches took in this run, as
-    # csrc/pack.cu:pick_cluster reported them (B5 launches one block)
+    # the cluster each scenario count's B4 launches took in this run, and
+    # B5's, as csrc/pack_common.cuh:pick_cluster reported them
     log("B4/B7 clusters: " + ", ".join(
-        f"S={n}: {c} blocks ({fit} such clusters fit at once, {fit8} of 8 blocks)"
-        for n, (c, fit, fit8) in sorted(packing_mod.clusters.items())))
+        f"S={n}: {cluster_text(c)}" for n, c in sorted(packing_mod.clusters.items()))
+        + "; B5: " + cluster_text(packing_mod.classed_clusters["pack_classed"]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

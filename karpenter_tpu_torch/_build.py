@@ -49,12 +49,20 @@ VARIANTS = ("pack_domains", "pack_contrib", "pack_minvalues", "pack_resv", "pack
             "dense_existing")
 # measurement-only libraries, never in SOURCES (the solver and
 # chip_smoke.py never build or load them; tenant_scan.py does): name ->
-# (the source they compile, extra nvcc flags). pack_clocks is B4 with its
-# phase clocks.
-MEASURE_BUILDS = {"pack_clocks": ("pack", ("-DKT_PHASE_CLOCKS",))}
-# a library's C entry points, where they are not the one kt_<name>
-ENTRY_POINTS = {"dense_feasibility": ("kt_dense_fresh", "kt_dense_existing"),
-                "pack_clocks": ("kt_pack", "kt_pack_phase_clocks")}
+# (the source they compile, extra nvcc flags). pack_clocks and
+# pack_classed_clocks are B4 and B5 with their phase clocks (the latter
+# also at one block, pack_classed_clocks_c1); pack_classed_c<C> is B5 with
+# clusters of at most C blocks, for the A/B that chose its width (8, the
+# solver's own library).
+MEASURE_BUILDS = {
+    "pack_clocks": ("pack", ("-DKT_PHASE_CLOCKS",)),
+    "pack_classed_clocks": ("pack_classed", ("-DKT_PHASE_CLOCKS",)),
+    "pack_classed_clocks_c1": ("pack_classed", ("-DKT_PHASE_CLOCKS", "-DKT_MAX_CLUSTER=1")),
+    **{f"pack_classed_c{c}": ("pack_classed", (f"-DKT_MAX_CLUSTER={c}",)) for c in (1, 2, 4)},
+}
+# a source's C entry points, where they are not the one kt_<source>; a
+# phase-clock build adds kt_<source>_phase_clocks
+ENTRY_POINTS = {"dense_feasibility": ("kt_dense_fresh", "kt_dense_existing")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -101,6 +109,12 @@ def _lib_path(name: str) -> str:
 
 def _source(name: str) -> str:
     return os.path.join(CSRC, MEASURE_BUILDS.get(name, (name,))[0] + ".cu")
+
+
+def _entries(name: str):
+    src, flags = MEASURE_BUILDS.get(name, (name, ()))
+    clocks = (f"kt_{src}_phase_clocks",) if "-DKT_PHASE_CLOCKS" in flags else ()
+    return ENTRY_POINTS.get(src, (f"kt_{src}",)) + clocks
 
 
 def _stale(name: str) -> bool:
@@ -153,7 +167,7 @@ def library(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = ctypes.CDLL(_lib_path(name))
                 # every entry point returns cudaGetLastError() after launching
-                for entry in ENTRY_POINTS.get(name, (f"kt_{name}",)):
+                for entry in _entries(name):
                     getattr(lib, entry).restype = ctypes.c_int
                 _libs[name] = lib
     return lib
@@ -195,7 +209,7 @@ def launched(name: str, rc: int, scenarios: int = 1, variants=()) -> None:
         return
     if rc == CLUSTER_UNPLACED:
         raise KernelLaunchError(
-            f"{name}: the card cannot place one thread-block cluster of 8 blocks "
+            f"{name}: the card cannot place one thread-block cluster of the kernel's width "
             "(cudaOccupancyMaxActiveClusters is 0 with the kernel's shared memory)")
     if rc != 0:
         raise KernelLaunchError(f"{name}: CUDA error {rc} at launch")

@@ -102,15 +102,7 @@
 // clusters at once (1 block per SM, clusters within a GPC), so the launch
 // narrows the cluster until all S fit (pick_cluster); past the SMs, single
 // blocks queue.
-#include <cooperative_groups.h>
-
-#include <map>
-#include <mutex>
-#include <utility>
-
 #include "pack_common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -124,40 +116,12 @@ namespace {
 // launch (kClusterUnplaced), never runs it smaller.
 constexpr int kMaxCluster = 8;
 
-// Phase clocks (measurement only; tenant_scan.py builds this file once
-// more with -DKT_PHASE_CLOCKS as libpack_clocks.so, which neither the
-// solver nor chip_smoke.py loads): at the end of each phase the block
-// meets at a barrier and thread 0 of block 0 adds the %globaltimer
-// nanoseconds since the last mark to its phase's total. The marks' extra
-// barriers are the build's own cost.
+// the phase clocks' slots (pack_common.cuh: KT_PHASE_CLOCKS)
 enum Phase {
   kPhInit, kPhLoad, kPhTile, kPhClaims, kPhExist, kPhQuota, kPhTier1, kPhTier2,
   kPhCommit, kPhFresh, kPhContrib, kPhOutputs, kPhases
 };
-#ifdef KT_PHASE_CLOCKS
-__device__ unsigned long long phase_ns[kPhases];
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#define PHASE_MARK(k)                                     \
-  do {                                                    \
-    __syncthreads();                                      \
-    if (blockIdx.x == 0 && threadIdx.x == 0) {            \
-      const unsigned long long now_ = globaltimer();      \
-      phase_ns[k] += now_ - clock_at;                     \
-      clock_at = now_;                                    \
-    }                                                     \
-  } while (0)
-#define PHASE_START unsigned long long clock_at = threadIdx.x == 0 ? globaltimer() : 0
-#else
-#define PHASE_MARK(k) \
-  do {                \
-  } while (0)
-#define PHASE_START
-#endif
+static_assert(kPhases <= kMaxPhases, "one clock slot per phase");
 
 // elements between consecutive scenarios' slices of the batched inputs
 // (0: shared by every scenario)
@@ -215,16 +179,6 @@ __device__ void own_slice(const Dims& d, const Strides& sc, long long s,
   out.c_dzone += s * NMAX;
   out.c_dct += s * NMAX;
   out.c_resv += s * NMAX;
-}
-
-// the cluster's barrier (release / acquire at cluster scope: the State
-// one rank wrote before it is what the others read after it); the block's
-// own with no cluster
-__device__ __forceinline__ void cluster_sync(int ranks) {
-  if (ranks > 1)
-    cg::this_cluster().sync();
-  else
-    __syncthreads();
 }
 
 // A claim's caps for the step: cap_any, its best fit over its masked
@@ -470,63 +424,6 @@ pack_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Strides sc, int ranks) 
   if (ranks > 1) cg::this_cluster().sync();
 }
 
-// The clusters of ``c`` blocks the card holds at once with ``cfg``'s
-// shared memory (for c = 1, blocks), asked of the runtime once per device,
-// size and shared memory, not per launch.
-int max_active(int c, cudaLaunchConfig_t cfg, int& n) {
-  static std::mutex mu;
-  static std::map<std::pair<std::pair<int, int>, size_t>, int> known;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const auto key = std::make_pair(std::make_pair(dev, c), cfg.dynamicSmemBytes);
-  std::lock_guard<std::mutex> hold(mu);
-  const auto hit = known.find(key);
-  if (hit != known.end()) {
-    n = hit->second;
-    return 0;
-  }
-  if (c == 1) {
-    int per_sm = 0, sms = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pack_scan, kThreads,
-                                                      cfg.dynamicSmemBytes);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    n = per_sm * sms;
-  } else {
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = c;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(c);
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    e = cudaOccupancyMaxActiveClusters(&n, pack_scan, &cfg);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  known[key] = n;
-  return 0;
-}
-
-// The cluster for a launch of S scenarios: the largest of 8, 4 and 2
-// blocks of which the card holds S clusters at once, else 1. Writes the
-// blocks, the clusters of that size the card holds and those of 8 to
-// ``c``, ``fit`` and ``fit8``; returns kClusterUnplaced when not one
-// cluster of 8 fits.
-int pick_cluster(int S, const cudaLaunchConfig_t& cfg, int& c, int& fit, int& fit8) {
-  int rc = max_active(kMaxCluster, cfg, fit8);
-  if (rc) return rc;
-  if (fit8 < 1) return kt::kClusterUnplaced;
-  c = kMaxCluster;
-  fit = fit8;
-  while (c > 1 && fit < S) {
-    c /= 2;
-    rc = max_active(c, cfg, fit);
-    if (rc) return rc;
-  }
-  return 0;
-}
-
 }  // namespace
 
 extern "C" int kt_pack(
@@ -621,44 +518,15 @@ extern "C" int kt_pack(
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const size_t smem = smem_bytes(d);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(pack_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
   // one cluster of c blocks per scenario (pick_cluster)
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  int c = 1, fit = 0, fit8 = 0;
-  const int rc = pick_cluster(S, cfg, c, fit, fit8);
-  if (rc) return rc;
-  if (cluster) {
-    cluster[0] = c;
-    cluster[1] = fit;
-    cluster[2] = fit8;
-  }
-  cfg.gridDim = dim3(static_cast<unsigned>(S) * c);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = c;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  if (c > 1) {
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-  cudaLaunchKernelEx(&cfg, pack_scan, d, in, st, rw, out, sc, c);
-  return static_cast<int>(cudaGetLastError());
+  return launch_clusters(pack_scan, kMaxCluster, S, smem_bytes(d), stream, cluster, d, in, st,
+                         rw, out, sc);
 }
 
 #ifdef KT_PHASE_CLOCKS
-// The phase clocks' totals in nanoseconds ([kPhases], in Phase order) into
+// The first ``n`` phase clocks' totals in nanoseconds (Phase order) into
 // ``host``, then zeroed; synchronous. Returns cudaGetLastError().
-extern "C" int kt_pack_phase_clocks(unsigned long long* host) {
-  cudaMemcpyFromSymbol(host, phase_ns, sizeof(phase_ns));
-  const unsigned long long zero[kPhases] = {};
-  cudaMemcpyToSymbol(phase_ns, zero, sizeof(phase_ns));
-  return static_cast<int>(cudaGetLastError());
+extern "C" int kt_pack_phase_clocks(unsigned long long* host, int n) {
+  return read_phase_clocks(host, n);
 }
 #endif

@@ -8,37 +8,58 @@
 // driver routes a batch here when its groups share few feasibility
 // classes (the reference's diverse mix: ~1,900 groups in ~30 classes).
 //
-// Bound on the H100: latency, as B4's. One persistent block of 1024
-// threads walks the classes in order (a class step depends on the last
-// one) and, inside each, its member groups in order. What batching buys
-// is the class head: the tables that depend only on the class (requests,
-// masks and tolerations are identical across its members) are built once
-// into device scratch the wrapper allocates: the claims' fit counts af0
-// [NMAX, T], offering rows off0 [NMAX, T] and, for a dynamic class, their
-// per-domain offering table toff_nt0 [NMAX, T, V1]; the templates' toff_pt
-// [P, T, V1]; the group-mask rows off_grp [T] / toff_grp [T, V1] that a
-// claim opened in the class carries. A member then reads only per-claim
-// summaries (capv [NMAX], percapv [NMAX, V1]) and maintains them by exact
-// integer decrements (every member requests the same vector, so a fill of
-// k lowers every fit count by exactly k: quantized requests are
-// integer-valued float32 below 2^24); claims opened in the class take
-// their summaries in closed form, pinned claims collapse to their lane.
-// minValues (MV > 0; packing.py:1526-1536, :1728, :1861, :1891-1903,
-// :2021-2026) rides the same discipline: the head computes each live
-// claim's minValues headroom (warp_minvalues over its masked types, into
-// st.mvcap), a member's fill lowers it by exactly the fill, and a claim
-// opened in the class starts at its bulk template's cap less its take.
-// The claims' type masks settle once per class against the final pins and
-// the class-total fills. Every phase a member runs (existing nodes, the
-// domain quota, tier 2, the fresh-claim bulks, the carries, contributor
-// counting) is pack_common.cuh's, shared with kernel B4, with
+// Bound on the H100: latency, as B4's. One persistent thread-block cluster
+// of up to kMaxCluster blocks of 1024 threads walks the classes in order (a
+// class step depends on the last one) and, inside each, its member groups
+// in order. What batching buys is the class head: the tables that depend
+// only on the class (requests, masks and tolerations are identical across
+// its members) are built once into device scratch the wrapper allocates:
+// the claims' fit counts af0 [NMAX, T], offering rows off0 [NMAX, T] and,
+// for a dynamic class, their per-domain offering table toff_nt0 [NMAX, T,
+// V1]; the templates' toff_pt [P, T, V1]; the group-mask rows off_grp [T] /
+// toff_grp [T, V1] that a claim opened in the class carries. A member then
+// reads only per-claim summaries (capv [NMAX], and per domain State's
+// percap [NMAX, V1], which tier 2 and the quota read as they are) and
+// maintains them by exact integer decrements (every member requests the
+// same vector, so a fill of k lowers every fit count by exactly k:
+// quantized requests are integer-valued float32 below 2^24); claims opened
+// in the class take their summaries in closed form, pinned claims collapse
+// to their lane. minValues (MV > 0; packing.py:1526-1536, :1728, :1861,
+// :1891-1903, :2021-2026) rides the same discipline: the head computes each
+// live claim's minValues headroom (warp_minvalues over its masked types,
+// into st.mvcap), a member's fill lowers it by exactly the fill, and a
+// claim opened in the class starts at its bulk template's cap less its
+// take. The claims' type masks settle once per class against the final
+// pins and the class-total fills. Every phase a member runs (existing
+// nodes, the domain quota, tier 2, the fresh-claim bulks, the carries,
+// contributor counting) is pack_common.cuh's, shared with kernel B4, with
 // pack_classed's waterfill1 where it uses one.
+//
+// The claim axis runs to the open claims (n_open), never NMAX
+// (pack_common.cuh: the live extent): the head, the claim caps, the
+// summary maintenance and the settlement walk [0, n_open). The head works
+// only for the claims that can take the class (head_claims): the others
+// get zero summaries and no type walk; the live ones are gathered and
+// their (claim, type) cells spread over the block, each claim's best fits
+// kept by integer atomicMax (exact in any order). The cluster shares the
+// per-claim work as B4's does: each rank takes a contiguous share of the
+// open claims for the head, commit_claims, the summary maintenance and the
+// settlement, and of the types for the class rows (tile_rows, off_grp);
+// the existing nodes, the quota, tier 1, tier 2, the fresh-claim bulks,
+// contributor counting and the outputs run on rank 0 while the others wait
+// at the cluster barrier, whose release / acquire order the state one rank
+// writes before another reads it. A member costs two such barriers: after
+// tier 2, and after the commits, the summaries and rank 0's bulks (which
+// touch only the slots they open); rank 0 then counts contributors and
+// writes the member's outputs while the others go on to the next member's
+// first barrier or to the settlement, which read none of it. Each rank
+// loads the class's rows into its own shared memory, and reads rank 0's
+// claim count after each member through distributed shared memory.
 //
 // Fills go straight into the group rows class_start + m (the TPU's [C,
 // lmax] member buffers and their inv_idx gather are a layout, not part of
 // the function); rows of groups that place nothing, and the columns past
-// the live claims (the shared phases walk slots [0, n_open)), keep the
-// wrapper's zeros.
+// the live claims, keep the wrapper's zeros.
 //
 // The tiled mode (tiled; packing.py:1335, :1347-1385): the class head
 // builds the class's feasibility rows once (tile_rows, pack_common.cuh)
@@ -48,25 +69,44 @@
 
 namespace {
 
+// The most blocks in the cluster that walks the classes: 8, the portable
+// maximum, was fastest at all three shapes of the A/B over 1, 2, 4 and 8
+// (PERF.md §6). With S = 1 pick_cluster takes it whenever one such
+// cluster fits, and refuses the launch with kClusterUnplaced when none
+// does. tenant_scan.py's A/B builds set it with -DKT_MAX_CLUSTER.
+#ifdef KT_MAX_CLUSTER
+constexpr int kMaxCluster = KT_MAX_CLUSTER;
+#else
+constexpr int kMaxCluster = 8;
+#endif
+
+// the phase clocks' slots (pack_common.cuh: KT_PHASE_CLOCKS)
+enum Phase {
+  kPhInit, kPhHead, kPhExist, kPhQuota, kPhTier1, kPhTier2, kPhCommit, kPhSummaries,
+  kPhFresh, kPhContrib, kPhOutputs, kPhSettle, kPhases
+};
+static_assert(kPhases <= kMaxPhases, "one clock slot per phase");
+
 struct Classes {
   const int32_t* start; const int32_t* len; const uint8_t* dyn; const int32_t* dkey;
   int C;
 };
 
-// the class head tables and per-claim summaries (device scratch)
+// the class head tables and per-claim summaries (device scratch; the
+// per-domain summaries are State's percap)
 struct Head {
-  int32_t* capv; int32_t* percapv; int32_t* af0; uint8_t* off0; uint8_t* toff_nt0;
-  uint8_t* live; int32_t* cfills; int32_t* pin0; uint8_t* off_grp; uint8_t* toff_grp;
-  int32_t* e_cap;
+  int32_t* capv; int32_t* af0; uint8_t* off0; uint8_t* toff_nt0; int32_t* cfills;
+  int32_t* pin0; uint8_t* off_grp; uint8_t* toff_grp; int32_t* e_cap;
 };
 
 // a fresh-claim bulk's effect on the maintained summaries of the claims
-// it opens (packing.py:1997-2030): capv = n_fit_max - take; percapv from
+// it opens (packing.py:1997-2030): capv = n_fit_max - take; percap from
 // the group-mask availability toff_grp, pinned bulks to their lane; af0 =
-// n_fit - take; cfills 0; live
+// n_fit - take; cfills 0
 struct ClassedBulkHook {
   const Head* h;  // the kernel's shared copy
   int32_t* pmax;  // [V1] shared: the bulk template's best fit per domain
+  int32_t* percap;  // [NMAX, V1] the maintained per-domain summaries
   int32_t* mvcap;  // [NMAX] the maintained minValues headroom
   int T, V1;
   bool has_domains, cdyn, mv;
@@ -88,18 +128,193 @@ struct ClassedBulkHook {
     if (has_domains)
       for (int v = 0; v < V1; ++v) {
         const int32_t p = max(wrap_sub(pmax[v], take), 0);
-        h->percapv[static_cast<size_t>(s) * V1 + v] = (d_pin >= 0 && v != d_pin) ? 0 : p;
+        percap[static_cast<size_t>(s) * V1 + v] = (d_pin >= 0 && v != d_pin) ? 0 : p;
       }
     h->cfills[s] = 0;
-    h->live[s] = 1;
   }
   __device__ void cell(int s, int t, int32_t take, int32_t nf_t) const {
     h->af0[static_cast<size_t>(s) * T + t] = wrap_sub(nf_t, take);
   }
 };
 
+// The class head for the open claims [lo, hi) (packing.py:1343-1541),
+// class ``cs`` (the head's table column) on axis ``cdk``: each claim's
+// compatibility with the class and, for a compatible ("live") claim, its
+// fit counts af0 and offering rows off0 (toff_nt0 per domain for a dynamic
+// class ``cdyn``) over the T types, and its summaries: its best fit over
+// its masked types (type mask ∧ type_ok ∧ offering) in capv, per domain in
+// st.percap, its minValues headroom in st.mvcap, cfills 0 and its pin on
+// the axis at the head, pin0.
+//
+// A claim the class cannot take skips the type walk; it gets zero
+// summaries only: capv 0, percap 0, cfills 0, mvcap 0 and pin0. That is
+// exact: with capv 0 (domain-free members) and percap 0 (dynamic members)
+// its tier-2 cap is 0 in every member of the class, so it takes no fill
+// (a water-fill hands nothing to a slot of cap 0; the hostname-affinity
+// and single-pod picks, and the affinity anchor, need a cap >= 1); it is
+// never committed, so its requirements never change and it cannot become
+// compatible later in the class; its cfills stay 0 and the settlement
+// skips it at cf <= 0. Its af0 / off0 / toff_nt0 rows are read only by
+// the settlement and by a live claim's minValues headroom, never for it,
+// and stay unwritten. (The walk it skips gave it its best fits, which
+// every reader masked to 0 by its liveness: the zeros are that masking.)
+//
+// A window of 1024 slots at a time: one thread per slot settles the
+// claims whose template cannot take the class (under a tenant taint,
+// every claim of another tenant), one warp per remaining slot checks the
+// class's keys, and the live claims are sized kWarps at a time, warp j
+// working out claim j's words, the block's threads sharing the chunk's
+// (claim, type) cells (the best fit by shared atomicMax into m.cbest, per
+// domain into m.pcap), warp j then taking its minValues headroom and
+// writing the claim's summaries. Call after a barrier; ends in one.
+__device__ void head_claims(const Dims& d, const In& in, const State& st, const Out& out,
+                            const Smem& m, const Head& hd, int cs, int cdk, bool cdyn, int lo,
+                            int hi) {
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int T = d.T, R = d.R, V1 = d.V1, W = d.W;
+  const int32_t* pin_axis = cdk == 0 ? out.c_dzone : out.c_dct;
+  // a claim the class cannot take: its summaries (the lanes of the
+  // caller from ``from`` by ``step``; the scalars by the one at 0)
+  auto dead = [&](int s, int from, int step) {
+    if (d.has_domains)
+      for (int v = from; v < V1; v += step) st.percap[static_cast<size_t>(s) * V1 + v] = 0;
+    if (from == 0) {
+      hd.capv[s] = 0;
+      hd.cfills[s] = 0;
+      hd.pin0[s] = pin_axis[s];
+      if (d.MV) st.mvcap[s] = 0;
+    }
+  };
+  for (int base = lo; base < hi; base += kThreads) {
+    if (tid == 0) m.nlist[0] = m.nlist[1] = 0;
+    __syncthreads();
+    const int s0 = base + tid;
+    if (s0 < hi) {
+      const int pp = out.c_pool[s0];
+      if (in.p_tol[pp * d.G + cs] && in.compat_pg[trow(d, pp, cs)])
+        m.cand[atomicAdd(m.nlist + 1, 1)] = s0;
+      else
+        dead(s0, 0, 1);
+    }
+    __syncthreads();
+    for (int i = wid; i < m.nlist[1]; i += kWarps) {
+      const int s = m.cand[i];
+      if (warp_claim_compat(d, in, st, out, m, s, cs)) {
+        if (lane == 0) m.list[atomicAdd(m.nlist, 1)] = s;
+      } else {
+        dead(s, lane, 32);
+      }
+    }
+    __syncthreads();
+    const int n = m.nlist[0];
+    for (int c0 = 0; c0 < n; c0 += kWarps) {
+      const int nc = min(kWarps, n - c0);
+      const int32_t* cl = m.list + c0;
+      if (wid < nc) {
+        warp_claim_words(d, st, m, cl[wid]);
+        if (cdyn)
+          for (int v = lane; v < V1; v += 32) m.pcap[wid * V1 + v] = 0;
+        if (lane == 0) m.cbest[wid] = 0;
+      }
+      __syncthreads();
+      for (int i = tid; i < nc * T; i += kThreads) {
+        const int j = i / T, t = i - j * T, s = cl[j];
+        const size_t st_i = static_cast<size_t>(s) * T + t;
+        const uint32_t* wcz = m.cz + j * 2 * W;
+        const uint32_t* wcc = wcz + W;
+        const int32_t af = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
+                                      st.c_used + static_cast<size_t>(s) * R, m.req, R);
+        const bool o = offer(st.atz, t, V1, W, wcz, wcc);
+        hd.af0[st_i] = af;
+        hd.off0[st_i] = o;
+        const bool tm = out.c_tmask[st_i] && in.type_ok[trow(d, out.c_pool[s], cs) * T + t] && o;
+        if (tm) atomicMax(&m.cbest[j], af);
+        if (cdyn)
+          for (int v = 0; v < V1; ++v) {
+            const bool od = offer_in(st.atz, st.atc, cdk, t, v, V1, W, wcz, wcc);
+            hd.toff_nt0[st_i * V1 + v] = od;
+            if (tm && od) atomicMax(&m.pcap[j * V1 + v], af);
+          }
+      }
+      __syncthreads();
+      if (wid < nc) {
+        const int s = cl[wid];
+        const int32_t best = m.cbest[wid];
+        // the minValues headroom mvcapv0 over the head's masked types (a
+        // claim with no capacity never takes a pod this class, so its
+        // headroom is never read)
+        int32_t mvc = 0;
+        if (d.MV && best >= 1) {
+          const size_t row = static_cast<size_t>(s) * T;
+          const uint8_t* tok = in.type_ok + trow(d, out.c_pool[s], cs) * T;
+          mvc = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(out.c_pool[s]) * d.MV,
+                               [&](int t, int32_t& fit) {
+                                 fit = hd.af0[row + t];
+                                 return out.c_tmask[row + t] && tok[t] && hd.off0[row + t];
+                               });
+        }
+        if (d.has_domains)
+          for (int v = lane; v < V1; v += 32)
+            st.percap[static_cast<size_t>(s) * V1 + v] = cdyn ? m.pcap[wid * V1 + v] : 0;
+        if (lane == 0) {
+          if (d.MV) st.mvcap[s] = mvc;
+          hd.capv[s] = best;
+          hd.cfills[s] = 0;
+          hd.pin0[s] = pin_axis[s];
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The end-of-class type-mask settlement (packing.py:2160-2191) of the
+// open claims [lo, hi): one intersection with the final pins and the
+// class-total fills, for each claim the class filled (cfills > 0; claims
+// opened before the class at or past ``n_open0`` are new): type_ok of the
+// claim's template ∧ its offering row (head row; at a pin taken in the
+// class, the head's per-domain row; for a claim opened in the class, the
+// group-mask row) ∧ fit >= class fills. The filled claims are gathered a
+// window of 1024 slots at a time and their (claim, type) cells spread
+// over the block. Call after a barrier; ends in one.
+__device__ void settle_class(const Dims& d, const In& in, const Out& out, const Smem& m,
+                             const Head& hd, int cs, int cdk, bool cdyn, int n_open0, int lo,
+                             int hi) {
+  const int tid = threadIdx.x, T = d.T, V1 = d.V1;
+  const int32_t* pin_axis = cdk == 0 ? out.c_dzone : out.c_dct;
+  for (int base = lo; base < hi; base += kThreads) {
+    if (tid == 0) m.nlist[0] = 0;
+    __syncthreads();
+    if (base + tid < hi && hd.cfills[base + tid] > 0) m.list[atomicAdd(m.nlist, 1)] = base + tid;
+    __syncthreads();
+    const long long cells = static_cast<long long>(m.nlist[0]) * T;
+    for (long long i = tid; i < cells; i += kThreads) {
+      const int s = m.list[i / T], t = static_cast<int>(i % T);
+      const int32_t cf = hd.cfills[s];
+      const bool is_new = s >= n_open0;
+      const int32_t pin_rel = pin_axis[s];
+      const int pinc = min(max(pin_rel, 0), V1 - 1);
+      const bool newpin = pin_rel >= 0 && pin_rel != hd.pin0[s] && !is_new;
+      const size_t st_i = static_cast<size_t>(s) * T + t;
+      bool off;
+      if (is_new)
+        off = (d.has_domains && pin_rel >= 0)
+                  ? (cdyn && hd.toff_grp[static_cast<size_t>(t) * V1 + pinc])
+                  : hd.off_grp[t];
+      else if (d.has_domains && newpin)
+        off = cdyn && hd.toff_nt0[st_i * V1 + pinc];
+      else
+        off = hd.off0[st_i];
+      if (!(in.type_ok[trow(d, out.c_pool[s], cs) * T + t] && off && hd.af0[st_i] >= cf))
+        out.c_tmask[st_i] = 0;
+    }
+    __syncthreads();
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
-pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, Head hd0) {
+pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, Head hd0,
+                  int ranks) {
   __shared__ In in;
   __shared__ State st;
   __shared__ Rows rw;
@@ -110,7 +325,13 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
   __shared__ Grp g;
   __shared__ RedBufs red;
   __shared__ float s_debit[32];
+  // rank 0's open claims after each member, read by the other ranks
+  __shared__ int32_t s_open;
   extern __shared__ __align__(16) unsigned char dyn[];
+  PHASE_START;
+  // ranks: the blocks of the cluster
+  const int rank = ranks > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const bool lead = rank == 0;
   if (threadIdx.x == 0) {
     in = in0;
     st = st0;
@@ -123,12 +344,14 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
   }
   __syncthreads();
   Shared sh{&red, 0};
-  const int G = d.G, T = d.T, N = d.N, R = d.R, V1 = d.V1, NMAX = d.NMAX, JH = d.JH, W = d.W;
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int G = d.G, T = d.T, N = d.N, R = d.R, V1 = d.V1, JH = d.JH, W = d.W;
+  const int tid = threadIdx.x;
 
-  init_state(d, in, st, out);
+  if (lead) init_state(d, in, st, out);
   int32_t n_open = 0;
   bool overflow = false;
+  cluster_sync(ranks);
+  PHASE_MARK(kPhInit);
 
   for (int ci = 0; ci < cls.C; ++ci) {
     const int cl = cls.len[ci];
@@ -138,95 +361,43 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
     const int cdk = cls.dkey[ci];
 
     // ---- class-invariant head tables (packing.py:1343-1541) ----
+    // each rank: the class's rows in its own shared memory, its share of
+    // the tiled rows and of the group-mask rows
     load_rows(d, in, cs, m);
     __syncthreads();
-    if (d.tiled) tile_rows(d, in, rw, m, cs, 0, 1);
-    for (int t = tid; t < T; t += kThreads) {
+    if (d.tiled) {
+      tile_rows(d, in, rw, m, cs, rank, ranks);
+      cluster_sync(ranks);
+    }
+    int lo, hi;
+    rank_share(T, rank, ranks, lo, hi);
+    for (int t = lo + tid; t < hi; t += kThreads) {
       hd.off_grp[t] = offer(st.atz, t, V1, W, m.gz, m.gc);
       if (cdyn)
         for (int v = 0; v < V1; ++v)
           hd.toff_grp[static_cast<size_t>(t) * V1 + v] =
               offer_in(st.atz, st.atc, cdk, t, v, V1, W, m.gz, m.gc);
     }
-    if (cdyn) {
-      template_words(d, in, m, cs);
-      template_domains(d, in, st, m, cs, cdk);
+    // rank 0's own tables: the templates' per-domain offerings (the bulks
+    // and the quota), the existing nodes' caps
+    if (lead) {
+      if (cdyn) {
+        template_words(d, in, m, cs);
+        template_domains(d, in, st, m, cs, cdk);
+      }
+      for (int n = tid; n < N; n += kThreads)
+        st.exist_cap[n] = in.cap_ng[tcap(d, n, cs)] > 0
+                              ? fits_count(in.n_avail + static_cast<size_t>(n) * R,
+                                           st.exist_used + static_cast<size_t>(n) * R, m.req, R)
+                              : 0;
     }
-    for (int n = tid; n < N; n += kThreads)
-      st.exist_cap[n] = in.cap_ng[tcap(d, n, cs)] > 0
-                            ? fits_count(in.n_avail + static_cast<size_t>(n) * R,
-                                         st.exist_used + static_cast<size_t>(n) * R, m.req, R)
-                            : 0;
-    // every open claim's compatibility, fit counts, offering rows and
-    // capacity summaries at the head (one warp per claim)
-    for (int s = wid; s < NMAX; s += kWarps) {
-      const int32_t pin = (cdk == 0 ? out.c_dzone : out.c_dct)[s];
-      if (s >= n_open) {
-        // not open yet: nothing to read until a bulk opens it
-        if (lane == 0) {
-          hd.capv[s] = 0;
-          hd.live[s] = 0;
-          hd.cfills[s] = 0;
-          hd.pin0[s] = pin;
-          if (d.MV) st.mvcap[s] = 0;
-        }
-        if (d.has_domains)
-          for (int v = lane; v < V1; v += 32) hd.percapv[static_cast<size_t>(s) * V1 + v] = 0;
-        continue;
-      }
-      const bool live0 = warp_claim_compat(d, in, st, out, m, s, cs);
-      const uint32_t* wcz = warp_claim_words(d, st, m, s);
-      const uint32_t* wcc = wcz + W;
-      int32_t* wpc = m.pcap + wid * V1;
-      if (cdyn)
-        for (int v = lane; v < V1; v += 32) wpc[v] = 0;
-      __syncwarp();
-      const uint8_t* tok = in.type_ok + trow(d, out.c_pool[s], cs) * T;
-      int32_t best = 0;
-      for (int t = lane; t < T; t += 32) {
-        const size_t st_i = static_cast<size_t>(s) * T + t;
-        const int32_t af = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
-                                      st.c_used + static_cast<size_t>(s) * R, m.req, R);
-        const bool o = offer(st.atz, t, V1, W, wcz, wcc);
-        hd.af0[st_i] = af;
-        hd.off0[st_i] = o;
-        const bool tm = out.c_tmask[st_i] && tok[t] && o;
-        if (tm) best = max(best, af);
-        if (cdyn)
-          for (int v = 0; v < V1; ++v) {
-            const bool od = offer_in(st.atz, st.atc, cdk, t, v, V1, W, wcz, wcc);
-            hd.toff_nt0[st_i * V1 + v] = od;
-            if (tm && od) atomicMax(&wpc[v], af);
-          }
-      }
-      for (int o = 16; o; o >>= 1) best = max(best, __shfl_xor_sync(kFull, best, o));
-      __syncwarp();
-      // the minValues headroom mvcapv0 over the head's masked types (a
-      // claim that is not live, or has no capacity, never takes a pod
-      // this class, so its headroom is never read)
-      int32_t mvc = 0;
-      if (d.MV && live0 && best >= 1) {
-        const size_t row = static_cast<size_t>(s) * T;
-        mvc = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(out.c_pool[s]) * d.MV,
-                             [&](int t, int32_t& fit) {
-                               fit = hd.af0[row + t];
-                               return out.c_tmask[row + t] && tok[t] && hd.off0[row + t];
-                             });
-      }
-      if (lane == 0) {
-        if (d.MV) st.mvcap[s] = mvc;
-        hd.capv[s] = best;
-        hd.live[s] = live0;
-        hd.cfills[s] = 0;
-        hd.pin0[s] = pin;
-      }
-      if (d.has_domains)
-        for (int v = lane; v < V1; v += 32)
-          hd.percapv[static_cast<size_t>(s) * V1 + v] = cdyn ? wpc[v] : 0;
-      __syncwarp();
-    }
+    // each rank's share of the open claims: compatibility, fit counts,
+    // offering rows and capacity summaries
+    rank_share(n_open, rank, ranks, lo, hi);
+    head_claims(d, in, st, out, m, hd, cs, cdk, cdyn, lo, hi);
     const int32_t n_open0 = n_open;
-    __syncthreads();
+    cluster_sync(ranks);
+    PHASE_MARK(kPhHead);
 
     // ---- the member groups, in FFD order (packing.py:1543) ----
     for (int j = 0; j < cl; ++j) {
@@ -234,52 +405,62 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
       if (in.g_count[gi] <= 0) continue;
       if (tid == 0) load_group(d, in, gi, cs, cdk, g);
       __syncthreads();
-      if (g.dyn)
-        for (int v = tid; v < V1; v += kThreads)
-          m.D0[v] = wrap_add(in.g_dprior[static_cast<size_t>(gi) * V1 + v],
-                             g.has_d ? st.ddc[static_cast<size_t>(min(g.jd, d.JD - 1)) * V1 + v] : 0);
-      for (int n = tid; n < N; n += kThreads) {
-        int32_t ec = min(st.exist_cap[n],
-                         max(wrap_sub(g.hcap, in.n_hcnt[static_cast<size_t>(n) * G + gi]), 0));
-        hd.e_cap[n] = min(ec, h_allow(g, st.nhc[n * JH + g.jhc]));
-      }
-      // tier 2 and the affinity anchor read the summaries of live claims
-      if (g.dyn)
-        for (int i = tid; i < NMAX * V1; i += kThreads) {
-          const int s = i / V1;
-          st.percap[i] = (s < n_open && hd.live[s]) ? hd.percapv[i] : 0;
-        }
-      __syncthreads();
-      const bool haff_exist_served = haff_pin_nodes(d, in, g, hd.e_cap, sh);
-      if (g.dyn)
-        domain_quota(d, in, st, out, m, g, hd.e_cap, true, n_open, sh);
-      else
-        any_quota(d, m, g.count);
-      const int32_t placed_exist = tier1_fill(d, in, st, out, m, g, hd.e_cap,
-                                              haff_exist_served, sh);
-      // same-request decrement: exact
-      for (int n = tid; n < N; n += kThreads)
-        st.exist_cap[n] = wrap_sub(st.exist_cap[n], out.exist_fills[static_cast<size_t>(gi) * N + n]);
-
-      // ---- 2. open claims, from the maintained summaries ----
-      if (g.dyn) {
-        tier2_domains(d, st, m, g, g.count <= 1, n_open, sh);
-      } else {
-        for (int s = tid; s < NMAX; s += kThreads) {
-          int32_t c = (s < n_open && hd.live[s]) ? hd.capv[s] : 0;
-          c = min(c, g.hcap);
-          c = min(c, g.count);
-          if (d.MV) c = min(c, st.mvcap[s]);
-          st.claim_cap[s] = min(c, h_allow(g, st.ch_cnt[s * JH + g.jhc]));
+      int32_t placed_exist = 0;
+      if (lead) {
+        if (g.dyn)
+          for (int v = tid; v < V1; v += kThreads)
+            m.D0[v] = wrap_add(in.g_dprior[static_cast<size_t>(gi) * V1 + v],
+                               g.has_d ? st.ddc[static_cast<size_t>(min(g.jd, d.JD - 1)) * V1 + v] : 0);
+        for (int n = tid; n < N; n += kThreads) {
+          int32_t ec = min(st.exist_cap[n],
+                           max(wrap_sub(g.hcap, in.n_hcnt[static_cast<size_t>(n) * G + gi]), 0));
+          hd.e_cap[n] = min(ec, h_allow(g, st.nhc[n * JH + g.jhc]));
         }
         __syncthreads();
-        tier2_any(d, st, m, g, true, n_open, sh);
+        const bool haff_exist_served = haff_pin_nodes(d, in, g, hd.e_cap, sh);
+        PHASE_MARK(kPhExist);
+        // the quota and tier 2 read the maintained summaries as they are:
+        // st.percap is 0 on claims the class cannot take
+        if (g.dyn)
+          domain_quota(d, in, st, out, m, g, hd.e_cap, true, n_open, sh);
+        else
+          any_quota(d, m, g.count);
+        PHASE_MARK(kPhQuota);
+        placed_exist = tier1_fill(d, in, st, out, m, g, hd.e_cap, haff_exist_served, sh);
+        // same-request decrement: exact
+        for (int n = tid; n < N; n += kThreads)
+          st.exist_cap[n] =
+              wrap_sub(st.exist_cap[n], out.exist_fills[static_cast<size_t>(gi) * N + n]);
+        PHASE_MARK(kPhTier1);
+
+        // ---- 2. open claims, from the maintained summaries ----
+        if (g.dyn) {
+          tier2_domains(d, st, m, g, g.count <= 1, n_open, sh);
+        } else {
+          // capv is 0 on claims the class cannot take
+          for (int s = tid; s < n_open; s += kThreads) {
+            int32_t c = min(hd.capv[s], g.hcap);
+            c = min(c, g.count);
+            if (d.MV) c = min(c, st.mvcap[s]);
+            st.claim_cap[s] = min(c, h_allow(g, st.ch_cnt[s * JH + g.jhc]));
+          }
+          __syncthreads();
+          tier2_any(d, st, m, g, true, n_open, sh);
+        }
       }
-      commit_claims(d, in, st, out, m, g, false, 0, n_open);
-      // summary maintenance: exact decrements, then a pin zeroes the
-      // other lanes and collapses capv to the pinned one; the minValues
-      // headroom drops by the fill
-      for (int s = tid; s < NMAX; s += kThreads) {
+      // the fills and domain slots of tier 2
+      cluster_sync(ranks);
+      PHASE_MARK(kPhTier2);
+      // each rank's share of the claims tier 2 filled; rank 0 then opens
+      // the bulks, whose slots lie past every share (the claims opened
+      // before them are not read or written there)
+      rank_share(n_open, rank, ranks, lo, hi);
+      commit_claims(d, in, st, out, m, g, false, lo, hi);
+      PHASE_MARK(kPhCommit);
+      // summary maintenance: exact decrements, then a pin zeroes the other
+      // lanes and collapses capv to the pinned one; the minValues headroom
+      // drops by the fill
+      for (int s = lo + tid; s < hi; s += kThreads) {
         const int32_t f = st.claim_fill[s];
         if (f == 0) continue;
         hd.cfills[s] = wrap_add(hd.cfills[s], f);
@@ -287,7 +468,7 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
         if (d.has_domains) {
           const int c_s = st.c_slot[s];
           const bool tighten = g.dyn && f > 0 && c_s < V1;
-          int32_t* pv = hd.percapv + static_cast<size_t>(s) * V1;
+          int32_t* pv = st.percap + static_cast<size_t>(s) * V1;
           for (int v = 0; v < V1; ++v) {
             const int32_t x = max(wrap_sub(pv[v], f), 0);
             pv[v] = (tighten && v != c_s) ? 0 : x;
@@ -297,51 +478,47 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
           hd.capv[s] = wrap_sub(hd.capv[s], f);
         }
       }
-      __syncthreads();
+      PHASE_MARK(kPhSummaries);
 
-      // ---- 3. fresh claims ----
-      fresh_claims(d, in, st, out, m, g, n_open, overflow,
-                   ClassedBulkHook{&hd, m.pmax, st.mvcap, T, V1, d.has_domains, cdyn, d.MV > 0},
-                   sh, s_debit);
-      spread_carry(d, st, m, g);
-      __syncthreads();
-      if (d.has_contrib) contrib_counts(d, in, st, out, m, g, n_open);
-      group_outputs(d, st, out, g, placed_exist, n_open, sh);
-    }
-
-    // ---- end-of-class type-mask settlement (packing.py:2160-2191) ----
-    // one intersection with the final pins and the class-total fills:
-    // type_ok of the claim's template ∧ its offering row (head row; at a
-    // pin taken in the class, the head's per-domain row; for a claim
-    // opened in the class, the group-mask row) ∧ fit >= class fills
-    for (int s = wid; s < n_open; s += kWarps) {
-      const int32_t cf = hd.cfills[s];
-      if (cf <= 0) continue;
-      const bool is_new = s >= n_open0;
-      const int32_t pin_rel = (cdk == 0 ? out.c_dzone : out.c_dct)[s];
-      const int pinc = min(max(pin_rel, 0), V1 - 1);
-      const bool newpin = pin_rel >= 0 && pin_rel != hd.pin0[s] && !is_new;
-      const uint8_t* tok = in.type_ok + trow(d, out.c_pool[s], cs) * T;
-      for (int t = lane; t < T; t += 32) {
-        const size_t st_i = static_cast<size_t>(s) * T + t;
-        bool off;
-        if (is_new)
-          off = (d.has_domains && pin_rel >= 0)
-                    ? (cdyn && hd.toff_grp[static_cast<size_t>(t) * V1 + pinc])
-                    : hd.off_grp[t];
-        else if (d.has_domains && newpin)
-          off = cdyn && hd.toff_nt0[st_i * V1 + pinc];
-        else
-          off = hd.off0[st_i];
-        if (!(tok[t] && off && hd.af0[st_i] >= cf)) out.c_tmask[st_i] = 0;
+      // ---- 3. fresh claims: rank 0 ----
+      if (lead) {
+        __syncthreads();
+        fresh_claims(d, in, st, out, m, g, n_open, overflow,
+                     ClassedBulkHook{&hd, m.pmax, st.percap, st.mvcap, T, V1, d.has_domains,
+                                     cdyn, d.MV > 0},
+                     sh, s_debit);
+        spread_carry(d, st, m, g);
+        __syncthreads();
+        PHASE_MARK(kPhFresh);
+        if (tid == 0) s_open = n_open;
+      }
+      // the commits, the summaries and the bulks' claims, and rank 0's open
+      // claims: the other ranks go on to the next member (to its tier-2
+      // barrier) or to the settlement, neither of which reads what rank 0
+      // writes next
+      cluster_sync(ranks);
+      if (ranks > 1 && !lead) n_open = *cg::this_cluster().map_shared_rank(&s_open, 0);
+      // ---- contributor counts and the member's outputs: rank 0 ----
+      if (lead) {
+        if (d.has_contrib) contrib_counts(d, in, st, out, m, g, n_open);
+        PHASE_MARK(kPhContrib);
+        group_outputs(d, st, out, g, placed_exist, n_open, sh);
+        PHASE_MARK(kPhOutputs);
       }
     }
-    __syncthreads();
+
+    // ---- end-of-class type-mask settlement, each rank's share ----
+    rank_share(n_open, rank, ranks, lo, hi);
+    settle_class(d, in, out, m, hd, cs, cdk, cdyn, n_open0, lo, hi);
+    cluster_sync(ranks);
+    PHASE_MARK(kPhSettle);
   }
-  if (tid == 0) {
+  if (lead && tid == 0) {
     out.n_open[0] = n_open;
     out.overflow[0] = overflow;
   }
+  // rank 0's shared memory outlives the other ranks' last read of it
+  if (ranks > 1) cg::this_cluster().sync();
 }
 
 }  // namespace
@@ -394,14 +571,18 @@ extern "C" int kt_pack_classed(
     // the tiled rows and the shared mask words (empty untiled)
     uint8_t* r_compat, uint8_t* r_tok, int32_t* r_nfit, int32_t* r_cap,
     uint32_t* tw, uint32_t* pw, uint32_t* nw,
-    // class head tables and per-claim summaries
-    int32_t* capv, int32_t* percapv, int32_t* af0, uint8_t* off0, uint8_t* toff_nt0,
-    uint8_t* live, int32_t* cfills, int32_t* pin0, uint8_t* off_grp, uint8_t* toff_grp,
-    int32_t* e_cap,
+    // class head tables and per-claim summaries (the per-domain ones are
+    // percap above)
+    int32_t* capv, int32_t* af0, uint8_t* off0, uint8_t* toff_nt0, int32_t* cfills,
+    int32_t* pin0, uint8_t* off_grp, uint8_t* toff_grp, int32_t* e_cap,
     // outputs
     int32_t* c_pool, uint8_t* c_tmask, int32_t* n_open, uint8_t* overflow,
     int32_t* exist_fills, int32_t* claim_fills, int32_t* unplaced,
     int32_t* c_dzone, int32_t* c_dct, uint8_t* c_resv,
+    // out (host, may be null): the cluster's blocks, how many clusters of
+    // that size and of kMaxCluster blocks the card holds at once with the
+    // scan's shared memory
+    int* cluster,
     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (R > 32 || JH < 1 || JD < 1 || (MV && (MW < 1 || MW > kMaxMvW)))
@@ -426,7 +607,7 @@ extern "C" int kt_pack_classed(
   Out out{c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills,
           unplaced, c_dzone, c_dct, c_resv};
   Classes cls{class_start, class_len, class_dyn, class_dkey, C};
-  Head hd{capv, percapv, af0, off0, toff_nt0, live, cfills, pin0, off_grp, toff_grp, e_cap};
+  Head hd{capv, af0, off0, toff_nt0, cfills, pin0, off_grp, toff_grp, e_cap};
   if (MV) {
     static_words<<<132, 256, 0, stream>>>(d, in, st);
     const cudaError_t e = cudaGetLastError();
@@ -437,10 +618,15 @@ extern "C" int kt_pack_classed(
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const size_t smem = smem_bytes(d);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(pack_classed_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  pack_classed_scan<<<1, kThreads, smem, stream>>>(d, in, st, rw, out, cls, hd);
-  return static_cast<int>(cudaGetLastError());
+  // one cluster (pick_cluster with S = 1)
+  return launch_clusters(pack_classed_scan, kMaxCluster, 1, smem_bytes(d), stream, cluster, d,
+                         in, st, rw, out, cls, hd);
 }
+
+#ifdef KT_PHASE_CLOCKS
+// The first ``n`` phase clocks' totals in nanoseconds (Phase order) into
+// ``host``, then zeroed; synchronous. Returns cudaGetLastError().
+extern "C" int kt_pack_classed_phase_clocks(unsigned long long* host, int n) {
+  return read_phase_clocks(host, n);
+}
+#endif

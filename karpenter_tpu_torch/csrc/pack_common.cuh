@@ -24,12 +24,24 @@
 // and common.cuh's fits_count; the block's In then points its table
 // pointers at that scratch, and every reader indexes through trow / tcap,
 // which read column ``hi`` of a [P, G(, T)] table, or the step's one row.
+//
+// Both scans run as thread-block clusters (launch_clusters, cluster_sync)
+// and carry the same phase clocks (KT_PHASE_CLOCKS), each over its own
+// phase enum.
 #pragma once
+
+#include <cooperative_groups.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "common.cuh"
 #include "dense_feasibility.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using kt::bit;
 using kt::clip;
@@ -50,6 +62,158 @@ static_assert(kWarps == 32, "the block reductions read one warp total per lane")
 constexpr int kMaxMvW = 1024;
 // domain-constraint modes (solver/encode.py:DMODE_*)
 constexpr int kSpread = 1, kAffinity = 2, kGateSpread = 3, kGateAff = 4;
+
+// Phase clocks (measurement only; tenant_scan.py builds pack.cu and
+// pack_classed.cu once more with -DKT_PHASE_CLOCKS, libraries that
+// neither the solver nor chip_smoke.py loads): at the end of each phase
+// the block meets at a barrier and thread 0 of block 0 adds the
+// %globaltimer nanoseconds since the last mark to its phase's total, one
+// slot per phase of the kernel's own enum. The marks' extra barriers are
+// the build's own cost.
+constexpr int kMaxPhases = 16;
+#ifdef KT_PHASE_CLOCKS
+__device__ unsigned long long phase_ns[kMaxPhases];
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define PHASE_MARK(k)                                     \
+  do {                                                    \
+    __syncthreads();                                      \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {            \
+      const unsigned long long now_ = globaltimer();      \
+      phase_ns[k] += now_ - clock_at;                     \
+      clock_at = now_;                                    \
+    }                                                     \
+  } while (0)
+#define PHASE_START unsigned long long clock_at = threadIdx.x == 0 ? globaltimer() : 0
+
+// The first ``n`` phase totals in nanoseconds into ``host``, then every
+// total zeroed; synchronous. Returns cudaGetLastError().
+inline int read_phase_clocks(unsigned long long* host, int n) {
+  if (n < 0 || n > kMaxPhases) return static_cast<int>(cudaErrorInvalidValue);
+  cudaMemcpyFromSymbol(host, phase_ns, sizeof(unsigned long long) * n);
+  const unsigned long long zero[kMaxPhases] = {};
+  cudaMemcpyToSymbol(phase_ns, zero, sizeof(zero));
+  return static_cast<int>(cudaGetLastError());
+}
+#else
+#define PHASE_MARK(k) \
+  do {                \
+  } while (0)
+#define PHASE_START
+#endif
+
+// The cluster's barrier (release / acquire at cluster scope: the state
+// one rank wrote before it is what the others read after it); the
+// block's own with no cluster.
+__device__ __forceinline__ void cluster_sync(int ranks) {
+  if (ranks > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// The clusters of ``c`` blocks of ``kernel`` the card holds at once with
+// ``cfg``'s shared memory (for c = 1, blocks), asked of the runtime once
+// per kernel, device, size and shared memory, not per launch.
+template <class Kernel>
+int max_active(Kernel kernel, int c, cudaLaunchConfig_t cfg, int& n) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, size_t>, int> known;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), dev, c,
+                                   cfg.dynamicSmemBytes);
+  std::lock_guard<std::mutex> hold(mu);
+  const auto hit = known.find(key);
+  if (hit != known.end()) {
+    n = hit->second;
+    return 0;
+  }
+  if (c == 1) {
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                      cfg.dynamicSmemBytes);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    n = per_sm * sms;
+  } else {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(c);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  known[key] = n;
+  return 0;
+}
+
+// The cluster for a launch of S scenarios: the largest of max_c, max_c /
+// 2, ... 2 blocks of which the card holds S clusters at once, else 1.
+// Writes the blocks, the clusters of that size the card holds and those
+// of max_c blocks to ``c``, ``fit`` and ``fit_max``; returns
+// kClusterUnplaced when not one cluster of max_c fits.
+template <class Kernel>
+int pick_cluster(Kernel kernel, int max_c, int S, const cudaLaunchConfig_t& cfg, int& c,
+                 int& fit, int& fit_max) {
+  int rc = max_active(kernel, max_c, cfg, fit_max);
+  if (rc) return rc;
+  if (fit_max < 1) return kt::kClusterUnplaced;
+  c = max_c;
+  fit = fit_max;
+  while (c > 1 && fit < S) {
+    c /= 2;
+    rc = max_active(kernel, c, cfg, fit);
+    if (rc) return rc;
+  }
+  return 0;
+}
+
+// Launch ``kernel`` (kThreads threads a block, ``smem`` bytes of dynamic
+// shared memory, on ``stream``) as S clusters, one per scenario, of the
+// width pick_cluster chooses; the kernel's last parameter receives that
+// width. Writes it, how many clusters of it and of max_c blocks the card
+// holds at once to ``cluster`` (may be null). Returns cudaGetLastError()
+// or kClusterUnplaced.
+template <class... Params, class... Args>
+int launch_clusters(void (*kernel)(Params...), int max_c, int S, size_t smem,
+                    cudaStream_t stream, int* cluster, Args... args) {
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  int c = 1, fit = 0, fit_max = 0;
+  const int rc = pick_cluster(kernel, max_c, S, cfg, c, fit, fit_max);
+  if (rc) return rc;
+  if (cluster) {
+    cluster[0] = c;
+    cluster[1] = fit;
+    cluster[2] = fit_max;
+  }
+  cfg.gridDim = dim3(static_cast<unsigned>(S) * c);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  if (c > 1) {
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  cudaLaunchKernelEx(&cfg, kernel, args..., c);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The block reductions' scratch: two slots of each kind, used in turn by
 // every reduction and scan, so each costs ONE barrier: a reduction writes

@@ -1670,8 +1670,12 @@ def _scan_buffers(dims, S, nmax, has_domains, tiled, dev, lead=()):
 # the cluster B4's launches took, by their scenario count S: S -> (blocks
 # per cluster, clusters of that size and clusters of 8 blocks the card
 # holds at once with the scan's shared memory), as
-# csrc/pack.cu:pick_cluster reports them
+# csrc/pack_common.cuh:pick_cluster reports them
 clusters: Dict[int, Tuple[int, int, int]] = {}
+# ... and B5's, by the library that launched it (the solver's
+# "pack_classed", or a measurement build): (blocks, clusters of that size
+# and of the kernel's widest the card holds at once)
+classed_clusters: Dict[str, Tuple[int, int, int]] = {}
 
 
 def _launch_pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool,
@@ -1722,7 +1726,11 @@ def _launch_pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool
 
 def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int,
                          has_domains: bool, has_contrib: bool = False,
-                         tile_feasibility: bool = False, wf_iters: int = 32):
+                         tile_feasibility: bool = False, wf_iters: int = 32,
+                         library: str = "pack_classed"):
+    """Kernel B5 from ``library``: "pack_classed", or one of tenant_scan.py's
+    measurement builds of the same scan (_build.MEASURE_BUILDS: its phase
+    clocks, or another cluster width)."""
     import ctypes
 
     tiled = bool(tile_feasibility)
@@ -1749,16 +1757,20 @@ def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int
     state, words, rows, outs = _scan_buffers(dims, 1, nmax, dyn, tiled, dev)
     state = tuple(x[0] for x in state)
     dom = (lambda n: n) if dyn else (lambda n: 0)
-    # the class head tables and per-claim summaries: capv, percapv, af0,
-    # off0, toff_nt0, live, cfills, pin0, off_grp, toff_grp, e_cap
+    # the class head tables and per-claim summaries: capv, af0, off0,
+    # toff_nt0, cfills, pin0, off_grp, toff_grp, e_cap (the per-domain
+    # summaries are the state's percap). None is zeroed: the kernel writes
+    # each class's head rows and summaries for the open claims before any
+    # read, a claim opened in the class gets them from its bulk, and no
+    # reader looks past the open claims or at the rows of a claim the
+    # class cannot take (csrc/pack_classed.cu:head_claims)
     head = tuple(torch.empty(shape, dtype=dt, device=dev) for shape, dt in (
-        ((nmax,), i32), ((dom(nmax), V1), i32), ((nmax, T), i32),
-        ((nmax, T), b), ((dom(nmax), T, V1), b), ((nmax,), b),
-        ((nmax,), i32), ((nmax,), i32), ((T,), b), ((dom(T), V1), b),
-        ((N,), i32),
+        ((nmax,), i32), ((nmax, T), i32), ((nmax, T), b), ((dom(nmax), T, V1), b),
+        ((nmax,), i32), ((nmax,), i32), ((T,), b), ((dom(T), V1), b), ((N,), i32),
     ))
-    fn = _build.library("pack_classed").kt_pack_classed
+    fn = _build.library(library).kt_pack_classed
     p = _build.ptr
+    cluster = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         rc = fn(
             *(ctypes.c_int(int(v)) for v in (
@@ -1774,8 +1786,11 @@ def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int
             *(p(x) for x in rows),
             *(p(x) for x in head),
             *(p(x) for x in outs),
+            cluster,
             _build.stream(),
         )
+    if rc == 0:
+        classed_clusters[library] = tuple(cluster)
     _build.launched("pack_classed", rc, variants=(
         ("pack_classed_minvalues",) * bool(dims["MV"]) + ("pack_classed_tiled",) * tiled))
     (c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills, unplaced,

@@ -1,9 +1,13 @@
-"""Time kernel B4, the packing scan, on one card, and split it by phase.
+"""Time kernels B4 and B5, the packing scans, on one card, split by phase.
 
-    python3 tenant_scan.py                  # all six shapes, phase clocks on
+    python3 tenant_scan.py                  # all nine shapes, phase clocks on
     python3 tenant_scan.py --no-clocks      # times only (a checkout without
-                                            # the phase-clock build)
+                                            # the phase-clock builds)
     python3 tenant_scan.py --shapes tenant  # a subset
+    python3 tenant_scan.py --shapes diverse_classed --clusters 1 2 4 \
+        --classed-clocks pack_classed_clocks pack_classed_clocks_c1
+                                            # B5 at each cluster width, and
+                                            # its split at two widths
 
 Four solve shapes, each encoded and staged on the card once, as the
 driver stages it (chip_smoke.py's batches):
@@ -29,6 +33,29 @@ only): thread 0 of the block adds %globaltimer nanoseconds per phase
 contrib, outputs), and its outputs must equal the timed scan's. The
 clock build's barriers at each mark make its total larger than the timed
 scan's.
+
+Three shapes of B5, the class-batched scan, each over the driver's class
+partition with the classed route forced (SolverConfig(classed=True)), as
+chip_smoke.py's phase 2 and phase 9(d) run it:
+
+- ``diverse_classed``: diverse_reference_mix(5,000) x 400 types
+  (diverse-ref, NMAX 8192);
+- ``diverse_minvalues``: the same pods over the minValues NodePool (B5's
+  minValues headroom);
+- ``tenant_classed``: the tenant cell, which the driver tiles (B5 builds
+  each class head's rows; ~6,000 one-Deployment classes).
+
+Each runs REPS times after a warm-up (CUDA events; NMAX doubled while it
+overflows), from the solver's library and, with ``--clusters``, from each
+measurement build ``pack_classed_c<C>`` (clusters of at most C blocks;
+the solver's library takes 8), in turns, every build's outputs equal to the solver library's. With the
+clocks on, once from each library of ``--classed-clocks`` (default
+``pack_classed_clocks``, B5's phase-clock build; ``pack_classed_clocks_c1``
+the same at one block), split into init, head (the class rows and the
+per-claim head), exist, quota, tier1, tier2 (the claim caps included),
+commit, summaries, fresh, contrib, outputs and settle, its outputs equal
+to the timed scan's. Each row also carries the cluster its launches took
+(ops/packing.py:classed_clusters, where the checkout has it).
 
 Two consolidation shapes, B4 over a scenario grid (kernel B7):
 
@@ -63,10 +90,13 @@ import chip_smoke as cs
 REPS = 3
 CONS_PASSES = 6  # the first warms, as chip_smoke.py's phase 4
 SCAN_SHAPES = ("tenant", "mixed", "constrained", "diverse_contrib")
+CLASSED_SHAPES = ("diverse_classed", "diverse_minvalues", "tenant_classed")
 CONS_SHAPES = ("cons", "cons_minvalues")
-SHAPES = SCAN_SHAPES + CONS_SHAPES
+SHAPES = SCAN_SHAPES + CLASSED_SHAPES + CONS_SHAPES
 PHASES = ("init", "load", "tile", "claims", "exist", "quota", "tier1", "tier2", "commit",
           "fresh", "contrib", "outputs")
+CLASSED_PHASES = ("init", "head", "exist", "quota", "tier1", "tier2", "commit", "summaries",
+                  "fresh", "contrib", "outputs", "settle")
 
 
 def shape_inputs(shape):
@@ -83,20 +113,21 @@ def shape_inputs(shape):
     return workloads.diverse_reference_mix(cs.N_DIVERSE), cs.N_TYPES, None
 
 
-def phase_clocks(fn, n_phases):
-    """The phase-clock build's per-phase milliseconds over one ``fn()``."""
+def phase_clocks(fn, library, n_phases):
+    """The per-phase milliseconds of phase-clock build ``library`` over one
+    ``fn()``."""
     import torch
 
     from karpenter_tpu_torch import _build
 
-    read = _build.library("pack_clocks").kt_pack_phase_clocks
+    read = getattr(_build.library(library), _build._entries(library)[-1])
     buf = (ctypes.c_ulonglong * n_phases)()
     torch.cuda.synchronize()
-    if read(buf):  # zeroes the totals
+    if read(buf, n_phases):  # zeroes the totals
         raise RuntimeError("reading the phase clocks failed")
     out = fn()
     torch.cuda.synchronize()
-    if read(buf):
+    if read(buf, n_phases):
         raise RuntimeError("reading the phase clocks failed")
     return out, [ns / 1e6 for ns in buf]
 
@@ -149,13 +180,103 @@ def run_shape(shape, clocks):
     if clocks:
         x, kw = modes[main]
         out, split = phase_clocks(
-            lambda: packing._launch_pack(*x, **st, **kw, library="pack_clocks"), len(PHASES))
+            lambda: packing._launch_pack(*x, **st, **kw, library="pack_clocks"), "pack_clocks",
+            len(PHASES))
         err = cs.max_abs_err(out, outs[main])
         if err:
             raise RuntimeError(f"{shape}: the phase-clock build differs by {err}")
         row["phase_ms"] = dict(zip(PHASES, split))
         row["phase_total_ms"] = sum(split)
     del outs
+    torch.cuda.empty_cache()
+    return row
+
+
+def classed_inputs(shape):
+    """B5's inputs for one classed shape, as the driver stages them with
+    the classed route forced: (scan inputs, class arrays on the card,
+    statics, named solve args, host class arrays)."""
+    from karpenter_tpu_torch.ops import solve
+    from karpenter_tpu_torch.solver import encode as enc
+    from karpenter_tpu_torch.solver.args import put
+    from karpenter_tpu_torch.solver.driver import _CLASS_ARG_NAMES, SolverConfig, TorchSolver
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+    from karpenter_tpu_torch.solver.example import minvalues_nodepool
+
+    tenant = shape == "tenant_classed"
+    pods, n_types, pools = shape_inputs("tenant" if tenant else "diverse_contrib")
+    if shape == "diverse_minvalues":
+        pools = [minvalues_nodepool()]
+    solver = cs.build_batch(TorchSolver, SolverConfig, pods, n_types, pools=pools, classed=True)
+    host, snap, _, _ = cs.host_snapshot(solver, pods)
+    run = snap.padded(enc._next_pow2(len(snap.groups), floor=8), 0)
+    partition = solver._classed_partition(run, host[SOLVE_ARG_NAMES.index("res_cap0")])
+    if partition is None:
+        raise RuntimeError(f"{shape}: classed=True declined the class-batched scan")
+    cls_host, lmax = partition
+    cls = [put(n, x, "cuda") for n, x in zip(_CLASS_ARG_NAMES, cls_host)]
+    args, statics, nmax, _ = cs.device_snapshot(solver, pods)
+    tiled = bool(statics["tile_feasibility"])
+    if tiled != tenant:
+        raise RuntimeError(f"{shape}: the driver chose tile_feasibility={tiled}")
+    a = dict(zip(SOLVE_ARG_NAMES, args))
+    zk, ck = statics["zone_kid"], statics["ct_kid"]
+    scan_in = solve.pack_args(a, *solve._feasibility_tables(a, zk, ck, True,
+                                                            tile_feasibility=tiled))
+    st = dict(nmax=nmax, lmax=lmax, zone_kid=zk, ct_kid=ck, wf_iters=statics["wf_iters"],
+              has_domains=statics["has_domains"], has_contrib=statics["has_contrib"],
+              tile_feasibility=tiled)
+    return scan_in, cls, st, a, cls_host
+
+
+def run_classed(shape, clock_libs, widths):
+    """B5 at one classed shape: p50s of the solver's library and of each
+    cluster-width build (``widths``), in turns; each phase-clock build's
+    split (``clock_libs``)."""
+    import torch
+
+    from karpenter_tpu_torch.ops import packing
+
+    scan_in, cls, st, a, cls_host = classed_inputs(shape)
+
+    def b5(library):
+        """B5's final state and fills, flat."""
+        out = packing._launch_pack_classed(*scan_in, *cls, **st, library=library)
+        return list(out[0]) + list(out[1:])
+
+    while True:  # the driver's overflow doubling
+        state = packing._launch_pack_classed(*scan_in, *cls, **st)[0]
+        if not bool(state.overflow):
+            break
+        st["nmax"] *= 2
+    base, _ = cs.timed(lambda: b5("pack_classed"))
+    n_open = int(state.n_open)
+    del state
+    libs = ["pack_classed"] + [f"pack_classed_c{c}" for c in widths]
+    for lib in libs[1:]:  # each build's warm-up, equal to the solver's
+        err = cs.max_abs_err(cs.timed(lambda: b5(lib))[0], base)
+        if err:
+            raise RuntimeError(f"{shape}: {lib} differs by {err}")
+    ms = {lib: [] for lib in libs}
+    for _ in range(REPS):
+        for lib in libs:
+            ms[lib].append(cs.timed(lambda: b5(lib))[1])
+    row = dict(ms=ms, p50_ms={lib: statistics.median(t) for lib, t in ms.items()},
+               nmax=st["nmax"], claims=n_open, classes=int((cls_host[1] > 0).sum()),
+               lmax=st["lmax"], real_groups=int((a["g_count"] > 0).sum()), dims=dict(
+                   G=int(a["g_count"].shape[0]), T=int(a["t_alloc"].shape[0]),
+                   P=int(a["p_titype_ok"].shape[0]), V1=int(a["g_mask"].shape[2]),
+                   MV=int(a["p_mvmin"].shape[1])),
+               tiled=st["tile_feasibility"], has_domains=bool(st["has_domains"]),
+               clusters=dict(getattr(packing, "classed_clusters", {})))
+    for lib in clock_libs:
+        out, split = phase_clocks(lambda: b5(lib), lib, len(CLASSED_PHASES))
+        err = cs.max_abs_err(out, base)
+        if err:
+            raise RuntimeError(f"{shape}: the phase-clock build {lib} differs by {err}")
+        row.setdefault("phase_ms", {})[lib] = dict(zip(CLASSED_PHASES, split))
+        row.setdefault("phase_total_ms", {})[lib] = sum(split)
+    del base
     torch.cuda.empty_cache()
     return row
 
@@ -235,6 +356,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-clocks", action="store_true", help="times only")
     ap.add_argument("--shapes", nargs="+", choices=SHAPES, default=list(SHAPES))
+    ap.add_argument("--clusters", nargs="+", type=int, default=[], choices=(1, 2, 4),
+                    help="B5 also from its build with clusters of at most C blocks (the "
+                    "solver's library takes 8)")
+    ap.add_argument("--classed-clocks", nargs="+", default=["pack_classed_clocks"],
+                    choices=("pack_classed_clocks", "pack_classed_clocks_c1"),
+                    help="B5's phase-clock builds")
     opts = ap.parse_args()
     cs.pin_one_card()
     import torch
@@ -245,14 +372,22 @@ def main():
     from karpenter_tpu_torch import _build
 
     clocks = not opts.no_clocks
+    classed = any(s in CLASSED_SHAPES for s in opts.shapes)
+    clock_libs = opts.classed_clocks if clocks else []
+    widths = [f"pack_classed_c{c}" for c in opts.clusters]
     names = ("fresh_feasibility", "existing_feasibility", "wire_pack", "pack",
-             *(("pack_clocks",) if clocks else ()))
+             *(("pack_clocks",) if clocks else ()),
+             *(("pack_classed", *clock_libs, *widths) if classed else ()))
     logs = _build.build(names=names, force=True, verbose=True)
     rows = {"ptxas": {name: cs.ptxas_summary(text) for name, text in logs.items()}}
     for shape in opts.shapes:
         try:
-            rows[shape] = (run_consolidation(shape) if shape in CONS_SHAPES
-                           else run_shape(shape, clocks))
+            if shape in CONS_SHAPES:
+                rows[shape] = run_consolidation(shape)
+            elif shape in CLASSED_SHAPES:
+                rows[shape] = run_classed(shape, clock_libs, opts.clusters)
+            else:
+                rows[shape] = run_shape(shape, clocks)
         except RuntimeError as exc:
             print(f"tenant_scan: {exc}", file=sys.stderr)
             return 1

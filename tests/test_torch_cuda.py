@@ -29,10 +29,14 @@ launch, each step's rows built in the scan): B4 over plain, limited,
 domain, minValues and ledger batches and over existing nodes (the cap
 row), B5 over the diverse mix with and without nodes, and B7's grid with
 per-scenario n_tol, each against its plain tiled version and against
-the untiled kernel. The last section holds B4's live extent and cluster
+the untiled kernel. The last sections hold B4's live extent and cluster
 (NMAX at least 8x the claims on each path, the overflow boundary and the
 driver's doubling retry, B7's grid of clusters against each scenario
-solved alone) and B8 in one launch on its edge cases (rows of 15 bytes,
+solved alone), B5's (8 tainted tenant pools whose class heads see claims
+of other pools, untiled and tiled; a class head that finds no claim it
+can take, by pool or by a zone clash; overflow and doubling; launches
+back to back, and over junk-filled scratch) and B8 in one launch on its
+edge cases (rows of 15 bytes,
 rows the blocks' share does not divide, every row, aliased and dropped
 indices, an empty delta).
 
@@ -1233,6 +1237,139 @@ def test_scenario_grid_narrows_its_cluster(cuda, S):
     assert c == 8 or fit8 < S
     solve_core_packed(*to_device_args(args, cuda), **dict(statics, fills_dtype=torch.int32))
     assert packing.clusters[1][0] == 8
+
+
+# -- B5's live extent, its class head and its cluster ----------------------------
+
+
+def _tenant_classes(n_tenants, n_deployments, n_types=24, nmax=None):
+    """Tenant Deployments over tainted, limited NodePools (the tenant
+    cell's shape: solver/example.py), encoded by the port with the class
+    partition forced."""
+    from karpenter_tpu_torch.solver.example import tenant_pods, tenant_pools
+
+    return _scan_snapshot(tenant_pods(n_deployments, n_tenants), tenant_pools(n_tenants),
+                          corpus.generate(n_types), nmax=nmax)
+
+
+def _zone_pods(n, cpu_m, zone):
+    return [Pod(metadata=ObjectMeta(name=f"{zone}-{cpu_m}-{i}"),
+                spec=PodSpec(requests={res.CPU: cpu_m, res.MEMORY: 2**30 * res.MILLI},
+                             node_selector={labels.TOPOLOGY_ZONE: zone}))
+            for i in range(n)]
+
+
+def _b5_equal_plain(args, statics, classes, cuda, tiled=False, launches=1):
+    """B5 on the card ``launches`` times back to back at one NMAX against
+    pack_classed_reference on the same inputs (``tiled``: both building
+    each class head's rows): every PackState field and the fills, each
+    launch. Returns the plain outputs and the cluster the launches took
+    (ops/packing.py:classed_clusters)."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops import packing as tp
+    from karpenter_tpu_torch.ops.solve import _feasibility_tables, pack_args
+
+    *arrs, lmax = classes
+    st = dict(nmax=statics["nmax"], lmax=lmax, zone_kid=statics["zone_kid"],
+              ct_kid=statics["ct_kid"], has_domains=statics["has_domains"],
+              has_contrib=statics["has_contrib"], wf_iters=statics["wf_iters"],
+              tile_feasibility=tiled)
+
+    def inputs(dev):
+        a = dict(zip(enc.SOLVE_ARG_NAMES, to_device_args(args, dev)))
+        cls = [torch.from_numpy(np.asarray(x)).to(dev) for x in arrs]
+        return pack_args(a, *_feasibility_tables(a, st["zone_kid"], st["ct_kid"],
+                                                 tile_feasibility=tiled)) + cls
+
+    ps, *pf = plain = tp.pack_classed(*inputs("cpu"), **st)
+    x = inputs(cuda)
+    tp.classed_clusters.clear()
+    _build.reset_launches()
+    for k in range(launches):
+        ks, *kf = tp.pack_classed(*x, **st)
+        torch.cuda.synchronize()
+        for f in tp.PackState._fields:
+            np.testing.assert_array_equal(getattr(ks, f).cpu().numpy(), getattr(ps, f).numpy(),
+                                          err_msg=f"launch {k}: {f}")
+        for i, (kk, p) in enumerate(zip(kf, pf)):
+            np.testing.assert_array_equal(kk.cpu().numpy(), p.numpy(),
+                                          err_msg=f"launch {k}: fills {i}")
+        del ks, kf
+    assert _build.launches["pack_classed"] == launches
+    assert _build.launches["pack_classed_tiled"] == launches * int(tiled)
+    return plain, tp.classed_clusters["pack_classed"]
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["untiled", "tiled"])
+def test_classed_tenant_pools(cuda, tiled):
+    """B5 over 8 tainted tenant pools x 80 VPA-sized Deployments, each its
+    own class, so every class head sees the claims of 7 pools that cannot
+    take it (no type walk for them): == its plain version, untiled and
+    tiled, launched as one cluster of the kernel's width."""
+    args, statics, classes = _tenant_classes(8, 80)
+    (ps, *_), cluster = _b5_equal_plain(args, statics, classes, cuda, tiled=tiled)
+    n = int(ps.n_open)
+    assert n > 0 and len(set(ps.c_pool[:n].tolist())) == 8
+    assert cluster[0] == 8 and cluster[2] >= 1
+
+
+@pytest.mark.parametrize("case", ["other-pool", "zone-clash"])
+def test_classed_head_finds_no_claim(cuda, case):
+    """A class whose head finds no open claim it can take: the second
+    tenant's Deployment after the first's claims (their template does not
+    tolerate it), or a zone-b class after zone-a claims (their zone keys
+    clash). == its plain version; the class opens claims of its own."""
+    if case == "other-pool":
+        args, statics, classes = _tenant_classes(2, 2)
+    else:
+        args, statics, classes = _scan_snapshot(
+            _zone_pods(12, 2000, "test-zone-a") + _zone_pods(12, 1000, "test-zone-b"),
+            [example_nodepool()], corpus.generate(30))
+    assert int((classes[1] > 0).sum()) == 2
+    (ps, *_), _ = _b5_equal_plain(args, statics, classes, cuda)
+    n = int(ps.n_open)
+    if case == "other-pool":
+        assert sorted(set(ps.c_pool[:n].tolist())) == [0, 1]
+    else:
+        zone_kid = statics["zone_kid"]
+        zones = ps.c_mask[:n, zone_kid].numpy()
+        assert (zones.sum(1) == 1).all() and len({z.argmax() for z in zones}) == 2
+
+
+def test_classed_overflow_doubled(cuda):
+    """The multi-pool batch at an NMAX it overflows, then at each doubling
+    until it does not (the driver's retry): each launch == its plain
+    version at that NMAX."""
+    args, statics, classes = _tenant_classes(8, 80, nmax=8)
+    while True:
+        (ps, *_), _ = _b5_equal_plain(args, statics, classes, cuda)
+        if not bool(ps.overflow):
+            break
+        statics = dict(statics, nmax=statics["nmax"] * 2)
+    assert statics["nmax"] > 8 and int(ps.n_open) > 8
+
+
+def test_classed_back_to_back_dirty_scratch(cuda, monkeypatch):
+    """Two B5 launches back to back at one NMAX (the caching allocator
+    hands the second the first's head scratch), then two more with every
+    CUDA buffer torch.empty allocates filled with junk first: each == its
+    plain version. No reader looks past the open claims, or at the head
+    rows of a claim the class cannot take."""
+    args, statics, classes = _tenant_classes(8, 80)
+    for tiled in (False, True):
+        _b5_equal_plain(args, statics, classes, cuda, tiled=tiled, launches=2)
+    empty = torch.empty
+
+    def junk(*a, **kw):
+        t = empty(*a, **kw)
+        if t.is_cuda and t.numel():
+            t.fill_(True if t.dtype == torch.bool else float("nan") if t.is_floating_point()
+                    else torch.iinfo(t.dtype).max // 2 + 7)
+        return t
+
+    monkeypatch.setattr(torch, "empty", junk)
+    for tiled in (False, True):
+        _b5_equal_plain(args, statics, classes, cuda, tiled=tiled, launches=2)
 
 
 # -- B8 in one launch, on its edge cases ------------------------------------------

@@ -17,6 +17,13 @@ test_torch_tiled.py:
 - a run with NMAX doubled gives the same outputs on ``[:n_open]`` (and the
   same exist_fills, unplaced, n_open).
 
+B5's class head works only for the claims that can take the class (a
+claim of another tainted pool, or one whose keys clash, gets zero
+summaries and no type walk): the tenant cases hold B5's plain version to
+JAX ``pack_classed`` on a cluster of 8 tainted tenant pools, where each
+class head sees mostly claims of other pools, untiled and tiled, at NMAX
+and doubled NMAX.
+
 JAX ``pack`` / ``pack_classed`` / ``solve_all`` run on the CPU as the
 parity files run them; the port's ``pack_reference`` /
 ``pack_classed_reference`` / ``solve_core`` on CPU tensors. Also B8's plain
@@ -191,6 +198,81 @@ def test_pack_classed_live_extent(case):
         _check_state(state, n, what)
         _check_doubled(base, outs[128][k][1], n, what)
         _check_state(outs[128][k][0], n, what + " doubled")
+
+
+def _tenant_classed(n_tenants, n_deployments, n_types):
+    """JAX encoding of ``n_deployments`` tenant Deployments over
+    ``n_tenants`` tainted, limited pools (solver/example.py, the tenant
+    cell's shape) with the class partition forced."""
+    from test_torch_minvalues import snapshot
+    from test_torch_tiled import _tenant_objects
+
+    pools, pods, its = _tenant_objects(n_tenants, n_deployments, n_types)
+    return snapshot(pods, pools, its=its)
+
+
+def _classed_solve_both(a, statics, classes, nmax, tiled):
+    """JAX solve_core_classed and the port's (pack_classed_reference) on the
+    same arrays at ``nmax``, untiled or tiled: their 10 outputs, each
+    equal."""
+    import jax
+    from karpenter_tpu.ops.solve import solve_core_classed as jax_classed
+    from karpenter_tpu_torch.ops.solve import solve_core_classed
+    from karpenter_tpu_torch.solver.args import to_device_args
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+
+    *arrs, lmax = classes
+    st = {k: v for k, v in statics.items() if k not in ("tile_feasibility", "sparse_groups")}
+    st.update(nmax=nmax, lmax=lmax, tile_feasibility=tiled, sparse_groups=not tiled)
+    args = [np.asarray(a[n]) for n in SOLVE_ARG_NAMES]
+    want = _named(jax.device_get(jax.jit(jax_classed, static_argnames=tuple(st))(
+        *args, *arrs, **st)))
+    got = _named(solve_core_classed(*to_device_args(args, "cpu"),
+                                    *(torch.from_numpy(np.asarray(x)) for x in arrs), **st))
+    for name in OUT_NAMES:
+        np.testing.assert_array_equal(got[name].astype(want[name].dtype), want[name],
+                                      err_msg=name)
+    return want, got
+
+
+def _zone_selectors():
+    """Three zone-pinned classes and one free class on one pool: the head
+    of each pinned class sees the claims pinned to the other zones, whose
+    zone keys clash with it."""
+    from helpers import make_pods
+    from karpenter_tpu.cloudprovider import corpus
+
+    pods = []
+    for i, zone in enumerate(corpus.DEFAULT_ZONES[:3]):
+        pods += make_pods(12, cpu=f"{1 + i}", memory="2Gi",
+                          node_selector={"topology.kubernetes.io/zone": zone})
+    return pods + make_pods(10, cpu="1", memory="1Gi")
+
+
+@pytest.mark.parametrize("case,tiled", [("tenant", False), ("tenant", True),
+                                        ("zone-selectors", False)],
+                         ids=["tenant-untiled", "tenant-tiled", "zone-selectors"])
+def test_pack_classed_heads_skip_claims_live_extent(case, tiled):
+    """Class heads that see claims which cannot take the class: 8 tainted
+    tenant pools x 80 VPA-sized Deployments, each its own class (every
+    head sees the claims of the other 7 pools), untiled and tiled; and
+    zone-pinned classes whose heads see claims pinned elsewhere. JAX
+    pack_classed == B5's plain version at NMAX and doubled NMAX, the dead
+    slots at their initial values."""
+    if case == "tenant":
+        a, statics, classes = _tenant_classed(8, 80, 24)
+        real = a["g_count"] > 0
+        assert (a["p_tol"].sum(0)[real] == 1).all(), "each group tolerates one pool"
+        assert int((classes[1] > 0).sum()) == 80
+    else:
+        a, statics, classes = _snapshot(_zone_selectors(), n_types=24)
+        assert int((classes[1] > 0).sum()) == 4
+    outs = {m: _classed_solve_both(a, statics, classes, m, tiled) for m in (256, 512)}
+    for k, what in enumerate(("jax", "port")):
+        n = _check_dead_slots(outs[256][k], what)
+        _check_doubled(outs[256][k], outs[512][k], n, what)
+        if case == "tenant":
+            assert len(set(outs[256][k]["c_pool"][:n].tolist())) == 8, "claims of every pool"
 
 
 # -- B8's plain version on the kernel's edge cases --------------------------------
