@@ -134,6 +134,12 @@ no result:
    the first tick's removed Deployments (B7's grid tiled), each scenario
    equal to a solve of its pods, claims in slot order.
 
+Phase 2 holds B1 and B2 also at the other shapes of their paths:
+B1 at diverse-ref (G=2048) and constrained 50k x 800 (G=256, the only
+cell with live pairs), B2 at the consolidation chunk (S=16, N=2048);
+each B1/B2 row is also exact over its index reordered (shuffled, weight-0
+pads interleaved, goff_idx with a repeat), and torch.profiler must see
+one kernel per call (no memset).
 Phase 2 also holds B5 against pack_classed_reference (every output and
 the final state) and B4 with contributor counting (the same batch with
 the classed route off) against pack_reference, on the diverse batch; B3's
@@ -150,7 +156,8 @@ diverse-ref and diverse-minvalues, B7's grid tiled on the consolidation
 chunk, each equal to the untiled kernel and to its plain tiled version
 on the card.
 
-Then one JSON line of per-kernel numbers (B1, B2, B3 fresh and existing,
+Then one JSON line of per-kernel numbers (B1, B1 at diverse-ref and at
+constrained, B2, B2 at the consolidation chunk, B3 fresh and existing,
 B4, B4 over domains, B4 with contributor counting, B4 with minValues
 floors, B4 with the reservation ledger, B5, B5 with floors, B6, B7, B7
 with floors, B8, B9, and B4, B5 and B7 in the tiled mode; every row
@@ -209,7 +216,10 @@ TENANT_SWAP, TENANT_TICKS, TENANT_TICK_SEED = 60, 2, 7
 N_DEPLOY_PLAIN = 600
 REPLACES = {
     "fresh_feasibility": "karpenter_tpu/ops/feasibility.py:141",
+    "fresh_feasibility_diverse": "karpenter_tpu/ops/feasibility.py:141",
+    "fresh_feasibility_constrained": "karpenter_tpu/ops/feasibility.py:141",
     "existing_feasibility": "karpenter_tpu/ops/feasibility.py:264",
+    "existing_feasibility_scenarios": "karpenter_tpu/ops/feasibility.py:264",
     "pack": "karpenter_tpu/ops/packing.py:277",
     "wire_pack": "karpenter_tpu/ops/solve.py:267",
     "solve_scenarios": "karpenter_tpu/ops/solve.py:357",
@@ -236,6 +246,17 @@ SOURCES = {"pack_domains": "pack", "pack_contrib": "pack", "solve_scenarios": "p
            "pack_minvalues": "pack", "pack_resv": "pack", "scenarios_minvalues": "pack",
            "pack_classed_minvalues": "pack_classed", "pack_tiled": "pack",
            "pack_classed_tiled": "pack_classed", "scenarios_tiled": "pack"}
+# B1's and B2's rows at the other shapes of their paths: (the kernel, the
+# paths whose launches run at that shape; a part of the kernel's own row)
+SHAPE_ROWS = {
+    "fresh_feasibility_diverse": ("fresh_feasibility", (
+        "diverse", "diverse_ticks", "diverse_per_group", "diverse_minvalues",
+        "diverse_minvalues_auto")),
+    "fresh_feasibility_constrained": ("fresh_feasibility", (
+        "constrained", "ticks", "constrained_minvalues")),
+    "existing_feasibility_scenarios": ("existing_feasibility", (
+        "multi", "single", "cons_minvalues")),
+}
 # the one PyTorch call that computes a kernel's function, timed beside it
 LIBRARY = {"apply_rows": "Tensor.index_copy"}
 # B7 is the scenario-batched dispatch of these kernels; pack.cu holds its
@@ -398,6 +419,169 @@ def max_abs_err(kernel_out, ref_out):
     return err
 
 
+def b1_ops(a):
+    """B1's least work on solve args ``a`` (by name): per (p, t) the base's
+    K x W word ANDs (W = ceil(V1 / 32)) and the template's O offerings, per
+    live pair (nonzero weight) and type W more, per group goff_idx lists
+    and type O offerings, per cell R subtractions and R divisions."""
+    P, K, V1 = a["p_mask"].shape
+    G, T = a["g_mask"].shape[0], a["t_mask"].shape[0]
+    R, O, W = a["t_alloc"].shape[1], a["o_avail"].shape[1], (V1 + 31) // 32
+    live = int((a["gk_w"] != 0).sum())
+    listed = int(a["goff_idx"].unique().numel())
+    return P * T * (K * W + O) + P * live * T * W + P * listed * T * O + P * G * T * 2 * R
+
+
+def b2_ops(a):
+    """B2's least work: per (node, live pair) W word ANDs, per (node, group)
+    R subtractions and R divisions, per scenario cell one gated write."""
+    N, R = a["n_avail"].shape
+    G, V1 = a["g_mask"].shape[0], a["g_mask"].shape[2]
+    live = int((a["gk_w"] != 0).sum())
+    return N * live * ((V1 + 31) // 32) + N * G * 2 * R + a["n_tol"].numel()
+
+
+def _live_index(a):
+    """The live entries (nonzero weight) of the pair index: their count,
+    their distinct (group, key) pairs and their distinct keys."""
+    w = a["gk_w"].cpu().numpy() != 0
+    pairs = set(zip(a["gk_g"].cpu().numpy()[w].tolist(), a["gk_k"].cpu().numpy()[w].tolist()))
+    return int(w.sum()), pairs, {k for _, k in pairs}
+
+
+def b1_reads(a, zk, ck):
+    """B1's least reads, bytes by input name: the group-independent rows
+    (types, offerings, the templates' masks, definitions, daemons, toleration
+    and type rows, the groups' requests) whole; the groups' mask rows only
+    for live pairs and for the zone and capacity-type keys of the groups
+    goff_idx lists, their definition and negation bytes, p_neg and
+    well_known only for live pairs' keys; the index's weights and goff_idx
+    whole, its groups and keys only at live entries."""
+    P, K, V1 = a["p_mask"].shape
+    G = a["g_mask"].shape[0]
+    n_live, pairs, keys = _live_index(a)
+    listed = {g for g in a["goff_idx"].cpu().tolist() if 0 <= g < G}
+    rows = pairs | {(g, k) for g in listed for k in (zk, ck)}
+    reads = {n: nbytes([a[n]]) for n in (
+        "g_req", "p_def", "p_mask", "p_daemon", "p_tol", "p_titype_ok", "t_def", "t_mask",
+        "t_alloc", "o_avail", "o_zone", "o_ct", "gk_w", "goff_idx")}
+    reads.update(g_mask=len(rows) * V1, g_def=len(pairs), g_neg=len(pairs),
+                 p_neg=P * len(keys), well_known=len(keys), gk_g=4 * n_live, gk_k=4 * n_live)
+    return reads
+
+
+def b2_reads(a):
+    """B2's least reads, bytes by input name: the nodes' room rows, the
+    groups' requests, n_tol and the index's weights whole; the nodes' mask
+    and definition rows only for live pairs' keys; the groups' mask,
+    definition and negation rows only for live pairs; the index's groups
+    and keys only at live entries."""
+    N = a["n_avail"].shape[0]
+    V1 = a["g_mask"].shape[2]
+    n_live, pairs, keys = _live_index(a)
+    reads = {n: nbytes([a[n]]) for n in ("n_avail", "n_base", "n_tol", "g_req", "gk_w")}
+    reads.update(n_mask=N * len(keys) * V1, n_def=N * len(keys), g_mask=len(pairs) * V1,
+                 g_def=len(pairs), g_neg=len(pairs), gk_g=4 * n_live, gk_k=4 * n_live)
+    return reads
+
+
+def one_kernel(name, per_call):
+    """Raise unless torch.profiler saw one device activity a call of the
+    wrapper (the kernel: no memset, no copy beside it)."""
+    if per_call is not None and list(per_call.values()) != [1]:
+        raise SmokeFailure(f"{name}: {per_call} on the device per call, want its one kernel")
+
+
+def shuffled_index(a, seed):
+    """Solve args ``a`` (by name) with the live-pair index in another order:
+    its entries shuffled, half as many weight-0 pads (group 0, key 0)
+    interleaved, and goff_idx shuffled with its first entry repeated. B1's
+    and B2's tables must not change (JAX's segment_sum and scatter do not
+    depend on the order)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    gk = np.stack([a[n].cpu().numpy() for n in ("gk_g", "gk_k", "gk_w")])
+    gk = np.concatenate([gk, np.zeros((3, gk.shape[1] // 2 + 1), np.int32)], axis=1)
+    gk = gk[:, rng.permutation(gk.shape[1])]
+    goff = a["goff_idx"].cpu().numpy()
+    goff = rng.permutation(np.concatenate([goff, goff[:1]]))
+    out = dict(a)
+    for n, x in zip(("gk_g", "gk_k", "gk_w", "goff_idx"), (*gk, goff)):
+        out[n] = torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(a[n].device)
+    return out
+
+
+def b1_row(a, zk, ck, label, reps=50):
+    """B1's row at solve args ``a`` (by name, on the card): the kernel
+    against its plain version, also over shuffled_index(a) (max |diff| over
+    both), wrapper ms (CUDA events), device ms (one kernel a call) and the
+    bound from b1_reads and b1_ops."""
+    import torch
+
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    b1_in = [a[n] for n in B1_NAMES]
+    shuffled = [shuffled_index(a, 10)[n] for n in B1_NAMES]
+
+    def b1():
+        return feas.fresh_claim_feasibility_sparse(*b1_in, zone_kid=zk, ct_kid=ck)
+
+    def plain():
+        return feas.fresh_claim_feasibility_sparse_reference(*b1_in, zone_kid=zk, ct_kid=ck)
+
+    out, ref = b1(), plain()
+    out_s = feas.fresh_claim_feasibility_sparse(*shuffled, zone_kid=zk, ct_kid=ck)
+    torch.cuda.synchronize()
+    P, G, T = out[1].shape
+    row = with_device(dict(
+        max_abs_err=max(max_abs_err(out, ref), max_abs_err(out_s, ref)),
+        ms=cuda_ms(b1, reps), plain_ms=cuda_ms(plain, 10),
+        bound=bound_ms(sum(b1_reads(a, zk, ck).values()) + nbytes(out), b1_ops(a)),
+        shape=(f"{label}: P={P} G={G} T={T} K={a['g_mask'].shape[1]} "
+               f"V1={a['g_mask'].shape[2]} R={a['t_alloc'].shape[1]} "
+               f"O={a['o_avail'].shape[1]} L={a['gk_g'].shape[0]} "
+               f"({int((a['gk_w'] != 0).sum())} live) LZ={a['goff_idx'].shape[0]}; "
+               "== plain over a shuffled index"),
+    ), b1, 100)
+    one_kernel(f"B1 {label}", row["device_per_call"])
+    return row
+
+
+def b2_row(a, label, reps=50):
+    """B2's row at solve args ``a``, as b1_row's."""
+    import torch
+
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    b2_in = [a[n] for n in B2_NAMES]
+    shuffled = [shuffled_index(a, 11)[n] for n in B2_NAMES]
+
+    def b2():
+        return feas.existing_node_feasibility_sparse(*b2_in)
+
+    def plain():
+        return feas.existing_node_feasibility_sparse_reference(*b2_in)
+
+    out, ref = b2(), plain()
+    out_s = feas.existing_node_feasibility_sparse(*shuffled)
+    torch.cuda.synchronize()
+    if not int(out.max()):
+        raise SmokeFailure(f"B2 {label}: no node has room for any group")
+    row = with_device(dict(
+        max_abs_err=max(max_abs_err([out], [ref]), max_abs_err([out_s], [ref])),
+        ms=cuda_ms(b2, reps), plain_ms=cuda_ms(plain, 20),
+        bound=bound_ms(sum(b2_reads(a).values()) + nbytes([out]), b2_ops(a)),
+        shape=(f"{label}: S={out.shape[0] if out.dim() == 3 else 1} "
+               f"N={a['n_avail'].shape[0]} G={a['g_mask'].shape[0]} "
+               f"L={a['gk_g'].shape[0]} ({int((a['gk_w'] != 0).sum())} live) "
+               f"R={a['n_avail'].shape[1]}; == plain over a shuffled index"),
+    ), b2, 100)
+    one_kernel(f"B2 {label}", row["device_per_call"])
+    return row
+
+
 def build_batch(torch_solver_cls, config_cls, pods, n_types, state_nodes=(),
                 device="cuda", cache=None, pools=None, its=None, classed=None, **solver_kw):
     """A TorchSolver over ``pods``: the default NodePool (or ``pools``) over
@@ -470,21 +654,11 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
     zk, ck = statics["zone_kid"], statics["ct_kid"]
     P, G, T = a["p_titype_ok"].shape[0], a["g_count"].shape[0], a["t_alloc"].shape[0]
     K, V1 = a["g_mask"].shape[1:]
-    R, O, L = a["t_alloc"].shape[1], a["o_avail"].shape[1], a["gk_g"].shape[0]
+    R, O = a["t_alloc"].shape[1], a["o_avail"].shape[1]
 
     # ---- B1 fresh feasibility ----
-    b1_in = [a[n] for n in B1_NAMES]
-    b1 = feas.fresh_claim_feasibility_sparse(*b1_in, zone_kid=zk, ct_kid=ck)
-    b1_ref = feas.fresh_claim_feasibility_sparse_reference(*b1_in, zone_kid=zk, ct_kid=ck)
-    torch.cuda.synchronize()
-    ops = P * T * K * V1 + P * L * T * V1 + P * G * T * (2 * R + O)
-    rows["fresh_feasibility"] = with_device(dict(
-        max_abs_err=max_abs_err(b1, b1_ref),
-        ms=cuda_ms(lambda: feas.fresh_claim_feasibility_sparse(*b1_in, zone_kid=zk, ct_kid=ck), 50),
-        plain_ms=cuda_ms(lambda: feas.fresh_claim_feasibility_sparse_reference(*b1_in, zone_kid=zk, ct_kid=ck), 10),
-        bound=bound_ms(nbytes(b1_in) + nbytes(b1), ops),
-        shape=f"P={P} G={G} T={T} K={K} V1={V1} R={R} O={O} L={L}",
-    ), lambda: feas.fresh_claim_feasibility_sparse(*b1_in, zone_kid=zk, ct_kid=ck), 100)
+    rows["fresh_feasibility"] = b1_row(a, zk, ck, "mixed 50k")
+    b1 = feas.fresh_claim_feasibility_sparse(*(a[n] for n in B1_NAMES), zone_kid=zk, ct_kid=ck)
 
     # ---- B3 fresh, the dense twin, on the same snapshot: == plain, == B1 ----
     b3_in = [a[n] for n in B3_NAMES]
@@ -548,20 +722,9 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
                           state_nodes=example_state_nodes(N_NODES))
     args2, _, _, _ = device_snapshot(solver2, pods2)
     a2 = dict(zip(SOLVE_ARG_NAMES, args2))
-    b2_in = [a2[n] for n in B2_NAMES]
-    b2 = feas.existing_node_feasibility_sparse(*b2_in)
-    b2_ref = feas.existing_node_feasibility_sparse_reference(*b2_in)
-    torch.cuda.synchronize()
-    if not int(b2.max()):
-        raise SmokeFailure("B2: no node has room for any group")
-    N2, G2, L2 = a2["n_avail"].shape[0], a2["g_count"].shape[0], a2["gk_g"].shape[0]
-    rows["existing_feasibility"] = with_device(dict(
-        max_abs_err=max_abs_err([b2], [b2_ref]),
-        ms=cuda_ms(lambda: feas.existing_node_feasibility_sparse(*b2_in), 50),
-        plain_ms=cuda_ms(lambda: feas.existing_node_feasibility_sparse_reference(*b2_in), 20),
-        bound=bound_ms(nbytes(b2_in) + nbytes([b2]), N2 * L2 * V1 + N2 * G2 * 2 * R),
-        shape=f"N={N2} G={G2} L={L2} R={R}",
-    ), lambda: feas.existing_node_feasibility_sparse(*b2_in), 100)
+    rows["existing_feasibility"] = b2_row(a2, "32 nodes")
+    b2 = feas.existing_node_feasibility_sparse(*(a2[n] for n in B2_NAMES))
+    N2, G2 = a2["n_avail"].shape[0], a2["g_count"].shape[0]
     # ---- B3 existing, the dense twin, on the same snapshot: == plain, == B2 ----
     b3e_in = [a2[n] for n in B3E_NAMES]
     (K2, V12), R2 = a2["g_mask"].shape[1:], a2["n_avail"].shape[1]
@@ -580,6 +743,7 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
     ), lambda: feas.existing_node_feasibility(*b3e_in), 100)
     rows["relax_fill"] = relax_row(torch_solver_cls, config_cls)
     rows["solve_scenarios"] = scenario_row()
+    rows["existing_feasibility_scenarios"] = rows["solve_scenarios"].pop("b2_row")
     rows.update(constrained_rows(torch_solver_cls, config_cls, encode_cache_cls))
     rows.update(diverse_rows(torch_solver_cls, config_cls))
     rows.update(floors_rows(torch_solver_cls, config_cls))
@@ -757,11 +921,12 @@ def plain_scenarios(args, nmax, fills, zone_kid, ct_kid, wf_iters, has_domains,
     return solve_mod.wire_pack_reference(outs, fills)
 
 
-def scenario_row(build=None):
+def scenario_row(build=None, with_b2=True):
     """Phase 2's B7 row: B2[S], B4[S] and B6[S rows] each against its
     plain version, and the whole scenario dispatch against plain_scenarios,
     at the consolidation shapes (``build``'s cluster: the default pool, or
-    the minValues pool's). Tolerance: exact equality."""
+    the minValues pool's). Tolerance: exact equality. With ``with_b2``, also
+    B2's own row at the scenario axis (b2_row), under "b2_row"."""
     import torch
 
     from karpenter_tpu_torch.ops import feasibility as feas
@@ -775,8 +940,8 @@ def scenario_row(build=None):
     a = dict(zip(SOLVE_ARG_NAMES, args))
     S, G = a["g_count"].shape
     N, R = a["n_avail"].shape
-    T, K, V1 = a["t_mask"].shape
-    P, L, O = a["p_def"].shape[0], a["gk_g"].shape[0], a["o_avail"].shape[1]
+    T, V1 = a["t_mask"].shape[0], a["t_mask"].shape[2]
+    P = a["p_def"].shape[0]
     zk, ck = statics["zone_kid"], statics["ct_kid"]
     st = dict(nmax=token["nmax"], zone_kid=zk, ct_kid=ck, wf_iters=statics["wf_iters"],
               has_domains=statics["has_domains"], has_contrib=statics["has_contrib"])
@@ -817,15 +982,19 @@ def scenario_row(build=None):
     # B4[S] on the device alone: the wrapper's zeroing and word passes and
     # the scan, each activity once a call
     b4_device = device_ms(lambda: packing_mod.pack(*b4_in, **st), 20)
-    # bytes: the dispatch's inputs read once, its wire outputs written once
-    used = set(B1_NAMES) | set(B2_NAMES) | {
+    # bytes: the dispatch's inputs read once (B1's and B2's least reads,
+    # the larger of the two where both read an input), its wire outputs
+    # written once
+    reads = b1_reads(a, zk, ck)
+    for n, b in b2_reads(a).items():
+        reads[n] = max(reads.get(n, 0), b)
+    reads.update((n, nbytes([a[n]])) for n in (
         "g_count", "g_hcap", "g_haff", "g_hstg", "g_hscap", "g_hself", "t_cap",
-        "a_tzc", "p_limit", "p_has_limit", "n_hcnt", "nh_cnt0", "p_mvmin", "t_mvoh"}
-    ops = (P * T * K * V1 + P * L * T * V1 + P * G * T * (2 * R + O)  # B1
-           + N * L * V1 + S * N * G * 2 * R  # B2: compat once, room per scenario
+        "a_tzc", "p_limit", "p_has_limit", "n_hcnt", "nh_cnt0", "p_mvmin", "t_mvoh"))
+    ops = (b1_ops(a) + b2_ops(a)
            + pack_ops(a["g_count"], b4[5], b4[2], T, R, V1, P=P, mv=MV)  # B4
            + full[1].numel() * 8 + sum(x.numel() for x in full))  # B6
-    return with_device(dict(
+    row = with_device(dict(
         max_abs_err=max(parts.values()),
         parts=parts,
         part_ms=part_ms,
@@ -833,9 +1002,12 @@ def scenario_row(build=None):
         part_device_per_call={"B4[S]": b4_device[1]},
         ms=cuda_ms(dispatch, 20),
         plain_ms=cuda_ms(lambda: plain_scenarios(args, fills=fills, **st), 3),
-        bound=bound_ms(nbytes([a[n] for n in used]) + nbytes(full), ops),
+        bound=bound_ms(sum(reads.values()) + nbytes(full), ops),
         shape=f"S={S} N={N} G={G} T={T} MV={MV} NMAX={nmax} claims={b4[2].tolist()}",
     ), dispatch, 20)
+    if with_b2:
+        row["b2_row"] = b2_row(a, f"consolidation chunk ({CONS_NODES} nodes)")
+    return row
 
 
 def constrained_rows(torch_solver_cls, config_cls, encode_cache_cls):
@@ -869,6 +1041,9 @@ def constrained_rows(torch_solver_cls, config_cls, encode_cache_cls):
     P, G, T = a["p_titype_ok"].shape[0], a["g_count"].shape[0], a["t_alloc"].shape[0]
     K, V1 = a["g_mask"].shape[1:]
     R = a["t_alloc"].shape[1]
+    if not int((a["gk_w"] != 0).sum()):
+        raise SmokeFailure("the constrained batch carries no live (group, key) pair")
+    rows["fresh_feasibility_constrained"] = b1_row(a, zk, ck, "constrained 50k")
     b1 = feas.fresh_claim_feasibility_sparse(*(a[n] for n in B1_NAMES), zone_kid=zk, ct_kid=ck)
     cap_ng = torch.zeros((0, G), dtype=torch.int32, device="cuda")
     pack_in = solve_mod.pack_args(a, *b1, cap_ng)
@@ -985,8 +1160,7 @@ def b8_row(host_a, host_b, delta):
         raise SmokeFailure(f"B8: {name} after the row delta differs from the tick's encode")
     dev_ms, dev_acts, how = device_ms(lambda: solve_mod.delta_apply_rows(arr, idx, vals))
     lib_dev_ms, lib_acts, _ = device_ms(lambda: arr.index_copy(0, idx64, vals))
-    if dev_acts is not None and list(dev_acts.values()) != [1]:
-        raise SmokeFailure(f"B8: {dev_acts} on the device per call, want its one kernel")
+    one_kernel("B8", dev_acts)
     return dict(
         max_abs_err=max_abs_err([b8], [b8_ref]),
         ms=cuda_ms(lambda: solve_mod.delta_apply_rows(arr, idx, vals), 50),
@@ -1039,6 +1213,7 @@ def diverse_rows(torch_solver_cls, config_cls):
     K, V1 = a["g_mask"].shape[1:]
     R = a["t_alloc"].shape[1]
     b1 = feas.fresh_claim_feasibility_sparse(*(a[n] for n in B1_NAMES), zone_kid=zk, ct_kid=ck)
+    rows = {"fresh_feasibility_diverse": b1_row(a, zk, ck, "diverse-ref")}
     cap_ng = torch.zeros((0, G), dtype=torch.int32, device="cuda")
     pack_in = solve_mod.pack_args(a, *b1, cap_ng)
     st = dict(nmax=solver._select_nmax(snap, solver._fit_matrix(snap), None), zone_kid=zk,
@@ -1068,6 +1243,7 @@ def diverse_rows(torch_solver_cls, config_cls):
              f"claims={int(n_open)} wf_iters={st['wf_iters']}")
     classes = (cls[0], cls[1], cls[2])
     return {
+        **rows,
         "pack_classed": with_device(dict(
             max_abs_err=max_abs_err(state + fills, ref_state + ref_fills),
             ms=cuda_ms(b5, 5), plain_ms=ref5_ms,
@@ -1193,7 +1369,7 @@ def floors_rows(torch_solver_cls, config_cls):
                f"NMAX={st['nmax']} claims={int(out5[0].n_open)}"),
     ), b5, 3)
     # B4[S] with floors: the consolidation chunk over the minValues pool
-    rows["scenarios_minvalues"] = scenario_row(build=minvalues_consolidation_env)
+    rows["scenarios_minvalues"] = scenario_row(build=minvalues_consolidation_env, with_b2=False)
     return rows
 
 
@@ -2661,6 +2837,11 @@ def main():
             source = "karpenter_tpu_torch/csrc/pack.cu"
             extra = dict(sources=[f"karpenter_tpu_torch/csrc/{k}.cu" for k in B7_SOURCES],
                          parts_ms=row["part_ms"], parts_device_ms=row["part_device_ms"])
+        elif name in SHAPE_ROWS:  # B1/B2 at another shape of their paths
+            kernel, at = SHAPE_ROWS[name]
+            by_path = {p: paths[p][kernel] for p in at}
+            source = f"karpenter_tpu_torch/csrc/{kernel}.cu"
+            extra = {"kernel": kernel}
         elif name == "scenarios_tiled":  # B7's grid tiled: phase 9's scenario batch
             by_path = {"tenant_scenarios": ten["scenario_launches"]["pack_tiled"]}
             source = "karpenter_tpu_torch/csrc/pack.cu"

@@ -22,6 +22,7 @@ kernel's.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -53,8 +54,10 @@ VARIANTS = ("pack_domains", "pack_contrib", "pack_minvalues", "pack_resv", "pack
 # pack_classed_clocks are B4 and B5 with their phase clocks (the latter
 # also at one block, pack_classed_clocks_c1); pack_classed_c<C> is B5 with
 # clusters of at most C blocks, for the A/B that chose its width (8, the
-# solver's own library).
+# solver's own library); fresh_feasibility_clocks is B1 with its phase
+# clocks.
 MEASURE_BUILDS = {
+    "fresh_feasibility_clocks": ("fresh_feasibility", ("-DKT_PHASE_CLOCKS",)),
     "pack_clocks": ("pack", ("-DKT_PHASE_CLOCKS",)),
     "pack_classed_clocks": ("pack_classed", ("-DKT_PHASE_CLOCKS",)),
     "pack_classed_clocks_c1": ("pack_classed", ("-DKT_PHASE_CLOCKS", "-DKT_MAX_CLUSTER=1")),
@@ -173,6 +176,22 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+_bound: Dict[tuple, object] = {}
+
+
+def bind(name: str, entry: str, argtypes):
+    """C entry point ``entry`` of library ``name`` with its argument types
+    set once: ctypes then converts each Python int by them, and a caller
+    passes raw pointers (``Tensor.data_ptr()``) and ints without building
+    ctypes objects."""
+    fn = _bound.get((name, entry))
+    if fn is None:
+        fn = getattr(library(name), entry)
+        fn.argtypes = tuple(argtypes)
+        _bound[(name, entry)] = fn
+    return fn
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t.numel() == 0 else t.data_ptr())
 
@@ -181,10 +200,33 @@ def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def raw_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current stream, without building a
+    Stream object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def device_scope(device: torch.device):
+    """A context under which CUDA ``device`` is the current device (a
+    launch goes to the current device): a device switch only where it is
+    not already the current one."""
+    if device.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(device)
+
+
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
           device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``
-    on the CUDA ``device``."""
+    on the CUDA ``device``. One pass of cheap tests first; the detailed
+    ones, for their message, only where one of them fails."""
+    if (type(t) is torch.Tensor and t.dtype is dtype and t.shape == shape
+            and t.get_device() == device.index and device.type == "cuda"
+            and t.is_contiguous()):
+        return
     if device.type != "cuda":
         raise ValueError(f"{name}: kernels take CUDA tensors, got {device}")
     if not isinstance(t, torch.Tensor) or t.device != device:

@@ -61,9 +61,84 @@ __device__ __forceinline__ int32_t clip(int32_t x, int32_t lo, int32_t hi) {
   return min(max(x, lo), hi);
 }
 
+// 4-byte asynchronous copy from global to shared memory (cp.async, sm_80
+// and later): both addresses 4-byte aligned; the bytes are there after
+// cp_async_wait_all and a barrier
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// n bytes from global ``src`` to shared ``dst`` by the block's threads:
+// 4-byte cp.async for the body where the two addresses agree mod 4, plain
+// byte copies for the head and tail (and for all of it where they do not)
+__device__ __forceinline__ void stage_bytes(uint8_t* dst, const uint8_t* src, int n, int tid,
+                                            int nthreads) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src), b = reinterpret_cast<uintptr_t>(dst);
+  const int head = ((a ^ b) & 3) ? n : min(n, static_cast<int>((4 - (a & 3)) & 3));
+  const int body = (n - head) & ~3;
+#pragma unroll 1
+  for (int i = tid; i < body / 4; i += nthreads) cp_async4(dst + head + 4 * i, src + head + 4 * i);
+#pragma unroll 1
+  for (int i = tid; i < n - body; i += nthreads) {
+    const int j = i < head ? i : body + i;
+    dst[j] = src[j];
+  }
+}
+
 inline int grid_for(long long n, int block) {
   long long g = (n + block - 1) / block;
   return static_cast<int>(g < 1 ? 1 : g);
 }
 
 }  // namespace kt
+
+// Phase clocks (measurement only; tenant_scan.py builds pack.cu,
+// pack_classed.cu and fresh_feasibility.cu once more with
+// -DKT_PHASE_CLOCKS, libraries that neither the solver nor chip_smoke.py
+// loads): at the end of each phase the block meets at a barrier and
+// thread 0 of block (0, 0, 0) adds the %globaltimer nanoseconds since the
+// last mark to its phase's total, one slot per phase of the kernel's own
+// enum. The marks' extra barriers are the build's own cost.
+constexpr int kMaxPhases = 16;
+#ifdef KT_PHASE_CLOCKS
+__device__ unsigned long long phase_ns[kMaxPhases];
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define PHASE_MARK(k)                                     \
+  do {                                                    \
+    __syncthreads();                                      \
+    if (blockIdx.x + blockIdx.y + blockIdx.z == 0 &&       \
+        threadIdx.x == 0) {                               \
+      const unsigned long long now_ = globaltimer();      \
+      phase_ns[k] += now_ - clock_at;                     \
+      clock_at = now_;                                    \
+    }                                                     \
+  } while (0)
+#define PHASE_START unsigned long long clock_at = threadIdx.x == 0 ? globaltimer() : 0
+
+// The first ``n`` phase totals in nanoseconds into ``host``, then every
+// total zeroed; synchronous. Returns cudaGetLastError().
+inline int read_phase_clocks(unsigned long long* host, int n) {
+  if (n < 0 || n > kMaxPhases) return static_cast<int>(cudaErrorInvalidValue);
+  cudaMemcpyFromSymbol(host, phase_ns, sizeof(unsigned long long) * n);
+  const unsigned long long zero[kMaxPhases] = {};
+  cudaMemcpyToSymbol(phase_ns, zero, sizeof(zero));
+  return static_cast<int>(cudaGetLastError());
+}
+#else
+#define PHASE_MARK(k) \
+  do {                \
+  } while (0)
+#define PHASE_START
+#endif

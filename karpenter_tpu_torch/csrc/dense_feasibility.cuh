@@ -25,6 +25,30 @@ __device__ __forceinline__ uint32_t mask_word(const uint8_t* row, int V1, int w)
   return bits;
 }
 
+// mask_word through 4-byte loads, all issued at once (global or shared
+// memory): ``row`` 4-byte aligned and V1 % 4 == 0 (the caller checks)
+__device__ __forceinline__ uint32_t mask_word_x4(const uint8_t* row, int V1, int w) {
+  const uint32_t* r = reinterpret_cast<const uint32_t*>(row) + w * 8;
+  const int n = (V1 - 32 * w) >> 2;
+  uint32_t bits = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (c < n) {
+      const uint32_t x = r[c];
+      bits |= (static_cast<uint32_t>((x & 0xffu) != 0) |
+               static_cast<uint32_t>((x & 0xff00u) != 0) << 1 |
+               static_cast<uint32_t>((x & 0xff0000u) != 0) << 2 |
+               static_cast<uint32_t>((x & 0xff000000u) != 0) << 3) << (4 * c);
+    }
+  }
+  return bits;
+}
+
+// word w of a byte mask row, by mask_word_x4 where ``x4`` says it may
+__device__ __forceinline__ uint32_t row_word(const uint8_t* row, int V1, int w, bool x4) {
+  return x4 ? mask_word_x4(row, V1, w) : mask_word(row, V1, w);
+}
+
 __device__ __forceinline__ bool bit(const uint32_t* words, int v) {
   return (words[v >> 5] >> (v & 31)) & 1u;
 }

@@ -10,20 +10,42 @@
 // is [S, N, G], and so is cap_ng.
 //
 // Bound on the H100: launch latency. N x G cells (32 x 64 on the
-// state-node smoke snapshot, 2048 x 1 on the consolidation one) each read a
-// few hundred bytes of masks.
+// state-node smoke snapshot, 2048 x G at the consolidation chunk) each
+// read a few dozen bytes and write S int32.
 //
-// Design: one thread per (n, g), looping over the L live pairs and keeping
-// those of its own group — the segment sum of the JAX form, summed in
-// one thread, so the integer total is exact. No shared memory, no atomics.
-// Compatibility and room do not depend on the scenario, so each thread
+// Design: one launch. A block owns a tile of TN nodes x TG groups (TG the
+// power of two >= G up to 32, TN = 256 / TG, halved while the grid has
+// fewer than 132 blocks or the node words pass 32 KB: 32 nodes x 64
+// groups take TG 32, TN 1, 64 blocks; the consolidation chunk's 2048 x 1,
+// TG 1, TN 8, 256 blocks) and keeps in shared memory its nodes' mask rows
+// as bit words (dense_feasibility.cuh), built in the launch, and a [TN, TG]
+// failure count. The live pairs (nonzero weight) of its groups are
+// gathered from the index in chunks of 256, in any order, and each
+// (pair, node) adds its weight onto its (node, group) count by a
+// shared-memory integer atomic (int32 wraps; exact in any order): work
+// O(N x L + N x G x R), each cell seeing only its own group's pairs.
+// Compatibility and room do not depend on the scenario, so each cell
 // computes them once and writes its S gated values.
-#include "common.cuh"
+#include "dense_feasibility.cuh"
 
 namespace {
 
-__global__ void node_caps(
-    int S, int N, int G, int K, int V1, int R, int L,
+using kt::row_word;
+
+constexpr int kBlock = 256;
+constexpr int kChunk = kBlock;  // live pairs gathered per pass
+constexpr int kDefBit = 1 << 30, kNegBit = 1 << 29;  // a gathered pair's key | flags
+constexpr size_t kNodeWords = 32 * 1024;
+
+__host__ __device__ inline size_t smem_bytes(int K, int W, int TN, int TG) {
+  // node words [TN, K, W], pair words [kChunk, W], fail counts [TN, TG],
+  // pair group/key/weight [kChunk] each, node defs [TN, K]
+  return 4u * (static_cast<size_t>(TN) * K * W + kChunk * W + TN * TG + 3 * kChunk) +
+         static_cast<size_t>(TN) * K;
+}
+
+__global__ void __launch_bounds__(kBlock) node_caps(
+    int S, int N, int G, int K, int V1, int W, int R, int L, int TN, int TG, bool x4,
     const uint8_t* __restrict__ g_def, const uint8_t* __restrict__ g_neg,
     const uint8_t* __restrict__ g_mask, const float* __restrict__ g_req,
     const uint8_t* __restrict__ n_def, const uint8_t* __restrict__ n_mask,
@@ -31,31 +53,76 @@ __global__ void node_caps(
     const uint8_t* __restrict__ n_tol,
     const int32_t* __restrict__ gk_g, const int32_t* __restrict__ gk_k,
     const int32_t* __restrict__ gk_w, int32_t* __restrict__ cap_ng) {
-  const long long total = static_cast<long long>(N) * G;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int g = static_cast<int>(i % G);
-    const int n = static_cast<int>(i / G);
-    int32_t fail = 0;
-    for (int l = 0; l < L; ++l) {
-      if (gk_g[l] != g) continue;
-      const int k = gk_k[l];
-      const uint8_t* nm = n_mask + (static_cast<size_t>(n) * K + k) * V1;
-      const uint8_t* gm = g_mask + (static_cast<size_t>(g) * K + k) * V1;
-      bool ov = false;
-      for (int v = 0; v < V1 && !ov; ++v) ov = nm[v] && gm[v];
-      const bool ndef = n_def[n * K + k], gdef = g_def[g * K + k];
-      const bool term = ov || !(ndef && gdef);
-      const bool custom = !gdef || ndef || g_neg[g * K + k];
-      if (!(term && custom)) fail = kt::wrap_add(fail, gk_w[l]);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int n_pairs;
+  uint32_t* nw = reinterpret_cast<uint32_t*>(smem_raw);  // [TN, K, W]
+  uint32_t* pair_w = nw + static_cast<size_t>(TN) * K * W;  // [kChunk, W]
+  int32_t* nfail = reinterpret_cast<int32_t*>(pair_w + kChunk * W);  // [TN, TG]
+  int32_t* pair_g = nfail + TN * TG;
+  int32_t* pair_k = pair_g + kChunk;
+  int32_t* pair_wt = pair_k + kChunk;
+  uint8_t* ndef = reinterpret_cast<uint8_t*>(pair_wt + kChunk);  // [TN, K]
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * TN, g0 = blockIdx.y * TG;
+  const int nn = min(TN, N - n0), ng = min(TG, G - g0);
+  const int KW = K * W;
+
+#pragma unroll 1
+  for (int i = tid; i < nn * KW; i += kBlock)
+    nw[i] = row_word(n_mask + (static_cast<size_t>(n0) * K + i / W) * V1, V1, i % W, x4);
+#pragma unroll 1
+  for (int i = tid; i < nn * K; i += kBlock) ndef[i] = n_def[static_cast<size_t>(n0) * K + i];
+#pragma unroll 1
+  for (int i = tid; i < TN * TG; i += kBlock) nfail[i] = 0;
+
+#pragma unroll 1
+  for (int c0 = 0; c0 < L; c0 += kChunk) {
+    if (tid == 0) n_pairs = 0;
+    __syncthreads();
+    const int l = c0 + tid;
+    if (l < L) {
+      const int32_t w = gk_w[l];
+      const int g = gk_g[l];
+      if (w != 0 && g >= g0 && g < g0 + ng) {
+        const int k = gk_k[l];
+        const int j = atomicAdd(&n_pairs, 1);
+        const size_t gk = static_cast<size_t>(g) * K + k;
+        for (int v = 0; v < W; ++v) pair_w[j * W + v] = row_word(g_mask + gk * V1, V1, v, x4);
+        pair_g[j] = g - g0;
+        pair_k[j] = k | (g_def[gk] ? kDefBit : 0) | (g_neg[gk] ? kNegBit : 0);
+        pair_wt[j] = w;
+      }
     }
+    __syncthreads();
+    const int np = n_pairs;
+#pragma unroll 1
+    for (int i = tid; i < np * nn; i += kBlock) {
+      const int j = i / nn, nl = i % nn;
+      const int k = pair_k[j] & (kNegBit - 1);
+      const bool gdef = pair_k[j] & kDefBit, gneg = pair_k[j] & kNegBit;
+      const bool nd = ndef[nl * K + k];
+      const bool term = kt::words_meet(nw + nl * KW + k * W, pair_w + j * W, W) || !(nd && gdef);
+      const bool custom = !gdef || nd || gneg;
+      if (!(term && custom)) atomicAdd(&nfail[nl * TG + pair_g[j]], pair_wt[j]);
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+
+  const long long cells = static_cast<long long>(N) * G;
+#pragma unroll 1
+  for (int i = tid; i < nn * TG; i += kBlock) {
+    const int nl = i / TG, gl = i % TG;
+    if (gl >= ng) continue;
+    const int n = n0 + nl, g = g0 + gl;
     const int32_t cap =
-        fail == 0 ? kt::fits_count(n_avail + static_cast<size_t>(n) * R,
-                                   n_base + static_cast<size_t>(n) * R,
-                                   g_req + static_cast<size_t>(g) * R, R)
-                  : 0;
-    for (int s = 0; s < S; ++s)
-      cap_ng[s * total + i] = n_tol[s * total + i] ? cap : 0;
+        nfail[i] == 0 ? kt::fits_count(n_avail + static_cast<size_t>(n) * R,
+                                       n_base + static_cast<size_t>(n) * R,
+                                       g_req + static_cast<size_t>(g) * R, R)
+                      : 0;
+    const long long at = static_cast<long long>(n) * G + g;
+#pragma unroll 4
+    for (int s = 0; s < S; ++s) cap_ng[s * cells + at] = n_tol[s * cells + at] ? cap : 0;
   }
 }
 
@@ -69,12 +136,29 @@ extern "C" int kt_existing_feasibility(
     const float* n_base, const uint8_t* n_tol,
     const int32_t* gk_g, const int32_t* gk_k, const int32_t* gk_w,
     int32_t* cap_ng, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long cells = static_cast<long long>(N) * G;
-  if (cells == 0 || S == 0) return kt::kNothingLaunched;
-  constexpr int kBlock = 128;
-  node_caps<<<kt::grid_for(cells, kBlock), kBlock, 0, stream>>>(
-      S, N, G, K, V1, R, L, g_def, g_neg, g_mask, g_req, n_def, n_mask,
+  if (static_cast<long long>(N) * G == 0 || S == 0) return kt::kNothingLaunched;
+  const int W = (V1 + 31) / 32;
+  int TG = 1;
+  while (TG < G && TG < 32) TG <<= 1;
+  // TN nodes a block: 256 / TG, halved while the grid has fewer than 132
+  // blocks (a block's loads are its latency) or the node words pass 32 KB
+  int TN = kBlock / TG;
+  const long long g_tiles = (G + TG - 1) / TG;
+  while (TN > 1 && (g_tiles * ((N + TN - 1) / TN) < 132 ||
+                    4u * static_cast<size_t>(TN) * K * W > kNodeWords))
+    TN >>= 1;
+  const bool x4 = V1 % 4 == 0 && reinterpret_cast<uintptr_t>(n_mask) % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(g_mask) % 4 == 0;
+  const size_t smem = smem_bytes(K, W, TN, TG);
+  if (smem > 48 * 1024) {  // node and pair words past 48 KB: very wide masks; set on
+    // each such call, as the attribute is the current device's
+    const cudaError_t e = cudaFuncSetAttribute(
+        node_caps, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((N + TN - 1) / TN, (G + TG - 1) / TG);
+  node_caps<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
+      S, N, G, K, V1, W, R, L, TN, TG, x4, g_def, g_neg, g_mask, g_req, n_def, n_mask,
       n_avail, n_base, n_tol, gk_g, gk_k, gk_w, cap_ng);
   return static_cast<int>(cudaGetLastError());
 }

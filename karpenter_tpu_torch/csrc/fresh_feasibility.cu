@@ -4,138 +4,391 @@
 // (an XLA program on the TPU). For every template p, pod group g and
 // instance type t: compat_pg[p,g], type_ok[p,g,t], n_fit[p,g,t].
 //
-// Bound on the H100: memory and launch latency. At the mixed 50k x 400
-// cell (P=1, G=64, T=400, K=16, V1=4) it reads ~150 KB of masks and
-// writes ~130 KB of tables; every term is a few byte loads and ANDs, and
-// the only float work is R divisions per (p,g,t) in fits_count.
+// Bound on the H100: memory and launch latency. At diverse-ref (P=1,
+// G=2048, T=400) it writes 4.1 MB of tables and reads ~40 KB of masks;
+// per cell the work is a few shared-memory loads, R float divisions in
+// fits_count and one offering test for the groups goff_idx lists.
 //
-// Design: three launches on one stream, no host sync.
-//  1. zero the [P,G,T] correction and [P,G] compat-failure counters;
-//  2. one thread per (p, live pair l, t) (plus t == T for the pod-vs-
-//     template term): the exact merged term minus the group-independent
-//     base term, times the pair weight, added onto group gk_g[l] with an
-//     integer atomicAdd — integer sums are exact in any order, so the
-//     result is the JAX segment_sum whatever the interleaving;
-//  3. one thread per (p,g,t): base failures over K (value-slot overlap as
-//     a byte AND loop, no float matmul), plus the corrections, the
-//     offering row (merged with the group's zone/ct row only for groups
-//     listed in goff_idx, exactly as the JAX scatter), fits_count and the
-//     fused type_ok AND.
-#include "common.cuh"
+// Design: one launch, no global scratch, no global atomics. A block owns
+// one template p, a tile of TG groups and a tile of TT types
+// (grid TT-tiles x TG-tiles x P, 256 threads). At these shapes a block's
+// time is the latency of its chain of phases, so no phase waits on
+// memory more than once and each spreads its work over the block:
+//  1. the tile's rows staged in shared memory by asynchronous copies
+//     (cp.async), all in flight at once: its types' mask, defined-key and
+//     offering rows, offering ids and allocatable rows; p's mask,
+//     defined-key and daemon rows; its groups' requests, p_tol and zone/
+//     capacity-type rows; meanwhile the sums and flags go to zero and the
+//     first chunk of the pair index and of goff_idx load into registers.
+//     Then the bit words (dense_feasibility.cuh, 4 bytes at a time where
+//     the rows allow) from the staged rows, and goff_idx's groups of the
+//     tile flagged (repeats are idempotent);
+//  2. once per (p, t) of the tile, spread over (type, key) and (type,
+//     offering): the group-independent base failures (shared-memory
+//     integer adds) and the template-only offering row;
+//  3. the live pairs (nonzero weight) of the tile's groups, gathered from
+//     the index in chunks of 256 whatever their order: each pair's
+//     compatibility failure added onto its group, and its (exact merged
+//     term - base term) x weight onto each (group, type) cell, by
+//     shared-memory integer atomics. Integer sums wrap as int32 and are
+//     exact in any order, so padding anywhere and a pair listed twice are
+//     the JAX segment_sum;
+//  4. a cell a thread: base + correction, the offering row (merged with
+//     the group's rows for listed groups, as the JAX scatter), fits_count
+//     and the fused type_ok AND; where
+//     T % 4 == 0 each quad of lanes writes its four types as one 4-byte
+//     and one 16-byte store. compat_pg is written once per (p, g), by the
+//     blocks of the first type tile.
+//
+// A block runs each phase's code once, so the code's size is latency
+// too (instruction fetches): the block-strided loops stay rolled, the
+// staging runs out of line and the bit words come from one call site
+// (the phase clocks, -DKT_PHASE_CLOCKS, split a block's time by phase).
+//
+// Tiling (kt_fresh_feasibility): 32 types x 8 groups (a cell a thread),
+// the groups doubled up to 64 while the grid has more than 4 x 132 blocks,
+// types narrowed while the block's shared memory passes 48 KB (wide
+// masks). At the main path's shapes (K = 16, V1 = 4, R = 5, O = 8):
+//   mixed 50k x 400 (G=64, T=400):   TG 8,  104 blocks, 13,632 B;
+//   diverse-ref     (G=2048, T=400): TG 64, 416 blocks, 23,208 B;
+//   constrained     (G=256, T=800):  TG 16, 400 blocks, 15,000 B.
+// At K = 16 a block fits the card's 227 KB up to about 1,600 values a key
+// (about 840 with 64-group tiles); past that the launch fails and the
+// wrapper raises.
+#include "dense_feasibility.cuh"
 
 namespace {
 
-using kt::fits_count;
+using kt::bit;
+using kt::row_word;
+using kt::words_meet;
+using kt::words_meet3;
 
-__device__ __forceinline__ bool any_and(const uint8_t* a, const uint8_t* b, int V1) {
-  for (int v = 0; v < V1; ++v)
-    if (a[v] && b[v]) return true;
-  return false;
-}
+constexpr int kBlock = 256;
+constexpr int kChunk = kBlock;  // live pairs gathered per pass
+constexpr int kDefBit = 1 << 30;  // a gathered pair's key | (g_def << 30)
+constexpr size_t kSmemDefault = 48 * 1024, kSmemMax = 227 * 1024;
 
-__global__ void pair_corrections(
-    int P, int G, int T, int K, int V1, int L,
-    const uint8_t* __restrict__ g_def, const uint8_t* __restrict__ g_neg,
-    const uint8_t* __restrict__ g_mask,
-    const uint8_t* __restrict__ p_def, const uint8_t* __restrict__ p_neg,
-    const uint8_t* __restrict__ p_mask,
-    const uint8_t* __restrict__ t_def, const uint8_t* __restrict__ t_mask,
-    const uint8_t* __restrict__ well_known,
-    const int32_t* __restrict__ gk_g, const int32_t* __restrict__ gk_k,
-    const int32_t* __restrict__ gk_w,
-    int32_t* __restrict__ adj, int32_t* __restrict__ cfail) {
-  const long long total = static_cast<long long>(P) * L * (T + 1);
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int t = static_cast<int>(i % (T + 1));
-    const int l = static_cast<int>((i / (T + 1)) % L);
-    const int p = static_cast<int>(i / (static_cast<long long>(T + 1) * L));
-    const int32_t w = gk_w[l];
-    if (w == 0) continue;
-    const int g = gk_g[l], k = gk_k[l];
-    const uint8_t* gm = g_mask + (static_cast<size_t>(g) * K + k) * V1;
-    const uint8_t* pm = p_mask + (static_cast<size_t>(p) * K + k) * V1;
-    const bool gdef = g_def[g * K + k], pdef = p_def[p * K + k];
-    if (t < T) {
-      const uint8_t* tm = t_mask + (static_cast<size_t>(t) * K + k) * V1;
-      bool ov3 = false, ovb = false;
-      for (int v = 0; v < V1; ++v) {
-        ov3 = ov3 || (tm[v] && gm[v] && pm[v]);
-        ovb = ovb || (tm[v] && pm[v]);
-      }
-      const bool tdef = t_def[t * K + k];
-      const int pair_fail = !(ov3 || !(tdef && (pdef || gdef)));
-      const int base_fail = !(ovb || !(tdef && pdef));
-      const int32_t delta = kt::wrap_mul(pair_fail - base_fail, w);
-      if (delta != 0)
-        atomicAdd(adj + (static_cast<size_t>(p) * G + g) * T + t, delta);
-    } else {
-      const bool gneg = g_neg[g * K + k], pneg = p_neg[p * K + k];
-      const bool term = any_and(pm, gm, V1) || (pneg && gneg) || !(pdef && gdef);
-      const bool custom = !gdef || well_known[k] || pdef || gneg;
-      if (!(term && custom)) atomicAdd(cfail + static_cast<size_t>(p) * G + g, w);
-    }
+__host__ __device__ inline int words_of(int n) { return (n + 31) / 32; }
+
+// the phase clocks' slots (common.cuh: KT_PHASE_CLOCKS)
+enum Phase { kPhStage, kPhWords, kPhBase, kPhPairs, kPhCompat, kPhCells, kPhases };
+static_assert(kPhases <= kMaxPhases, "one clock slot per phase");
+
+// The block's shared memory: the staged raw rows (byte masks as torch
+// stores them, offering ids, allocatable rows, requests), the bit words
+// built from them, and the block's sums and flags. Every array starts
+// 4-byte aligned; the host sizes it with the same constructor.
+struct Smem {
+  uint32_t *pw, *pdw, *tw, *tdw, *aw, *gzw, *gcw, *pair_w;
+  int32_t *oz, *oc, *adj, *base, *cfail, *pair_g, *pair_k, *pair_wt;
+  float *alloc, *daemon, *req;
+  uint8_t *raw_t, *raw_td, *raw_oa, *raw_p, *raw_pd, *raw_gz, *raw_gc;
+  uint8_t *tok, *ptol, *toff, *listed, *compat;
+  size_t bytes;
+
+  __host__ __device__ Smem(void* at, int K, int V1, int R, int O, int TG, int TT) {
+    char* c = static_cast<char*>(at);
+    auto take = [&c](size_t n) { char* p = c; c += (n + 3) & ~size_t{3}; return p; };
+    const size_t W = words_of(V1), KD = words_of(K), OW = words_of(O), V1r = (V1 + 3) & ~3;
+    pw = reinterpret_cast<uint32_t*>(take(4 * K * W));           // [K, W] p's masks
+    pdw = reinterpret_cast<uint32_t*>(take(4 * KD));             // [KD] p's defined keys
+    tw = reinterpret_cast<uint32_t*>(take(4 * TT * K * W));      // [TT, K, W]
+    tdw = reinterpret_cast<uint32_t*>(take(4 * TT * KD));        // [TT, KD]
+    aw = reinterpret_cast<uint32_t*>(take(4 * TT * OW));         // [TT, OW] o_avail
+    gzw = reinterpret_cast<uint32_t*>(take(4 * TG * W));         // [TG, W]
+    gcw = reinterpret_cast<uint32_t*>(take(4 * TG * W));         // [TG, W]
+    pair_w = reinterpret_cast<uint32_t*>(take(4 * kChunk * W));  // [kChunk, W]
+    oz = reinterpret_cast<int32_t*>(take(4 * TT * O));           // [TT, O]
+    oc = reinterpret_cast<int32_t*>(take(4 * TT * O));           // [TT, O]
+    adj = reinterpret_cast<int32_t*>(take(4 * TG * TT));         // [TG, TT]
+    base = reinterpret_cast<int32_t*>(take(4 * TT));
+    cfail = reinterpret_cast<int32_t*>(take(4 * TG));
+    pair_g = reinterpret_cast<int32_t*>(take(4 * kChunk));
+    pair_k = reinterpret_cast<int32_t*>(take(4 * kChunk));
+    pair_wt = reinterpret_cast<int32_t*>(take(4 * kChunk));
+    alloc = reinterpret_cast<float*>(take(4 * TT * R));          // [TT, R]
+    daemon = reinterpret_cast<float*>(take(4 * R));
+    req = reinterpret_cast<float*>(take(4 * TG * R));            // [TG, R]
+    raw_t = reinterpret_cast<uint8_t*>(take(size_t{1} * TT * K * V1));  // [TT, K, V1]
+    raw_td = reinterpret_cast<uint8_t*>(take(size_t{1} * TT * K));      // [TT, K]
+    raw_oa = reinterpret_cast<uint8_t*>(take(size_t{1} * TT * O));      // [TT, O]
+    raw_p = reinterpret_cast<uint8_t*>(take(size_t{1} * K * V1));       // [K, V1]
+    raw_pd = reinterpret_cast<uint8_t*>(take(K));
+    raw_gz = reinterpret_cast<uint8_t*>(take(TG * V1r));                // [TG, V1r]
+    raw_gc = reinterpret_cast<uint8_t*>(take(TG * V1r));
+    tok = reinterpret_cast<uint8_t*>(take(TT));
+    ptol = reinterpret_cast<uint8_t*>(take(TG));
+    toff = reinterpret_cast<uint8_t*>(take(TT));
+    listed = reinterpret_cast<uint8_t*>(take(TG));
+    compat = reinterpret_cast<uint8_t*>(take(TG));
+    bytes = static_cast<size_t>(c - static_cast<char*>(at));
   }
+};
+
+// kt::stage_bytes by the whole block, out of line: one copy of its code
+// for the dozen rows a block stages (a block runs its code once, so
+// its size is latency)
+__device__ __noinline__ void stage(void* dst, const void* src, int n) {
+  kt::stage_bytes(static_cast<uint8_t*>(dst), static_cast<const uint8_t*>(src), n, threadIdx.x,
+                  kBlock);
 }
 
-__global__ void tables(
-    int P, int G, int T, int K, int V1, int R, int O, int LZ,
-    int zone_kid, int ct_kid,
+// fits_count of a cell, its R loop unrolled where R is 5 (the encoder's
+// cpu, memory, pods, ephemeral storage and one extended resource) so that
+// the R divisions overlap: one more copy of its code; any other R by the
+// loop
+__device__ __forceinline__ int32_t cell_fits(const float* alloc, const float* base,
+                                             const float* req, int R) {
+  return R == 5 ? kt::fits_count(alloc, base, req, 5) : kt::fits_count(alloc, base, req, R);
+}
+
+// at most 64 registers, so that four blocks share an SM: diverse-ref's
+// 416 blocks are one wave on the 132 SMs
+__global__ void __launch_bounds__(kBlock, 4) fresh_tables(
+    int G, int T, int K, int V1, int R, int O, int L, int LZ, int TG, int TT,
+    int zone_kid, int ct_kid, bool wide,
+    const uint8_t* __restrict__ g_def, const uint8_t* __restrict__ g_neg,
     const uint8_t* __restrict__ g_mask, const float* __restrict__ g_req,
-    const uint8_t* __restrict__ p_def, const uint8_t* __restrict__ p_mask,
-    const float* __restrict__ p_daemon, const uint8_t* __restrict__ p_tol,
-    const uint8_t* __restrict__ p_titype_ok,
+    const uint8_t* __restrict__ p_def, const uint8_t* __restrict__ p_neg,
+    const uint8_t* __restrict__ p_mask, const float* __restrict__ p_daemon,
+    const uint8_t* __restrict__ p_tol, const uint8_t* __restrict__ p_titype_ok,
     const uint8_t* __restrict__ t_def, const uint8_t* __restrict__ t_mask,
     const float* __restrict__ t_alloc,
     const uint8_t* __restrict__ o_avail, const int32_t* __restrict__ o_zone,
-    const int32_t* __restrict__ o_ct,
-    const int32_t* __restrict__ goff_idx,
-    const int32_t* __restrict__ adj, const int32_t* __restrict__ cfail,
+    const int32_t* __restrict__ o_ct, const uint8_t* __restrict__ well_known,
+    const int32_t* __restrict__ gk_g, const int32_t* __restrict__ gk_k,
+    const int32_t* __restrict__ gk_w, const int32_t* __restrict__ goff_idx,
     uint8_t* __restrict__ compat_pg, uint8_t* __restrict__ type_ok,
     int32_t* __restrict__ n_fit) {
-  // with T == 0 one thread per (p,g) still writes compat_pg
-  const int TT = T > 0 ? T : 1;
-  const long long total = static_cast<long long>(P) * G * TT;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int t = static_cast<int>(i % TT);
-    const int g = static_cast<int>((i / TT) % G);
-    const int p = static_cast<int>(i / (static_cast<long long>(TT) * G));
-    const size_t pg = static_cast<size_t>(p) * G + g;
-    const bool compat = p_tol[pg] && cfail[pg] == 0;
-    if (t == 0) compat_pg[pg] = compat;
-    if (T == 0) continue;
-    // group-independent base: template vs type, all K keys
-    int32_t fails = 0;
-    for (int k = 0; k < K; ++k) {
-      const bool ov = any_and(t_mask + (static_cast<size_t>(t) * K + k) * V1,
-                              p_mask + (static_cast<size_t>(p) * K + k) * V1, V1);
-      fails += !(ov || !(t_def[t * K + k] && p_def[p * K + k]));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int n_pairs;
+  const Smem s(smem_raw, K, V1, R, O, TG, TT);
+  const int W = words_of(V1), KD = words_of(K), OW = words_of(O), KW = K * W;
+  const int V1r = (V1 + 3) & ~3;
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * TT, g0 = blockIdx.y * TG, p = blockIdx.z;
+  const int nt = max(0, min(TT, T - t0)), ng = min(TG, G - g0);
+  PHASE_START;
+
+  // 1. the tile's rows into shared memory as asynchronous copies, all in
+  //    flight at once (a block pays about one round trip to memory, not
+  //    one a row); meanwhile the sums and flags go to zero and the first
+  //    chunk of the pair index and of goff_idx load into registers
+  stage(s.raw_t, t_mask + static_cast<size_t>(t0) * K * V1, nt * K * V1);
+  stage(s.raw_td, t_def + static_cast<size_t>(t0) * K, nt * K);
+  stage(s.raw_oa, o_avail + static_cast<size_t>(t0) * O, nt * O);
+  stage(s.oz, o_zone + static_cast<size_t>(t0) * O, 4 * nt * O);
+  stage(s.oc, o_ct + static_cast<size_t>(t0) * O, 4 * nt * O);
+  stage(s.alloc, t_alloc + static_cast<size_t>(t0) * R, 4 * nt * R);
+  stage(s.raw_p, p_mask + static_cast<size_t>(p) * K * V1, K * V1);
+  stage(s.raw_pd, p_def + static_cast<size_t>(p) * K, K);
+  stage(s.daemon, p_daemon + static_cast<size_t>(p) * R, 4 * R);
+  stage(s.req, g_req + static_cast<size_t>(g0) * R, 4 * ng * R);
+  stage(s.tok, p_titype_ok + static_cast<size_t>(p) * T + t0, nt);
+  stage(s.ptol, p_tol + static_cast<size_t>(p) * G + g0, ng);
+  // the groups' zone and capacity-type rows: one range each
+  if (V1 % 4 == 0 && reinterpret_cast<uintptr_t>(g_mask) % 4 == 0) {
+    const int C = V1 / 4;
+#pragma unroll 1
+    for (int i = tid; i < ng * C; i += kBlock) {
+      const uint8_t* row = g_mask + static_cast<size_t>(g0 + i / C) * K * V1 + 4 * (i % C);
+      uint8_t* at = s.raw_gz + (i / C) * V1r + 4 * (i % C);
+      kt::cp_async4(at, row + static_cast<size_t>(zone_kid) * V1);
+      kt::cp_async4(at + (s.raw_gc - s.raw_gz), row + static_cast<size_t>(ct_kid) * V1);
     }
-    const bool tc = kt::wrap_add(fails, adj[pg * T + t]) == 0;
-    // offering row: merged with the group's zone/ct rows for listed groups
-    bool merged = false;
-    for (int j = 0; j < LZ && !merged; ++j) merged = goff_idx[j] == g;
-    const uint8_t* pz = p_mask + (static_cast<size_t>(p) * K + zone_kid) * V1;
-    const uint8_t* pc = p_mask + (static_cast<size_t>(p) * K + ct_kid) * V1;
-    const uint8_t* gz = g_mask + (static_cast<size_t>(g) * K + zone_kid) * V1;
-    const uint8_t* gc = g_mask + (static_cast<size_t>(g) * K + ct_kid) * V1;
-    bool off = false;
-    for (int o = 0; o < O && !off; ++o) {
-      if (!o_avail[t * O + o]) continue;
-      const int32_t z = o_zone[t * O + o], c = o_ct[t * O + o];
-      const int zi = max(z, 0), ci = max(c, 0);
-      const bool z_ok = (z < 0) || (pz[zi] && (!merged || gz[zi]));
-      const bool c_ok = (c < 0) || (pc[ci] && (!merged || gc[ci]));
-      off = z_ok && c_ok;
+  } else {
+#pragma unroll 1
+    for (int i = tid; i < ng * V1; i += kBlock) {
+      const uint8_t* row = g_mask + static_cast<size_t>(g0 + i / V1) * K * V1 + i % V1;
+      s.raw_gz[(i / V1) * V1r + i % V1] = row[static_cast<size_t>(zone_kid) * V1];
+      s.raw_gc[(i / V1) * V1r + i % V1] = row[static_cast<size_t>(ct_kid) * V1];
     }
-    const int32_t nf = fits_count(t_alloc + static_cast<size_t>(t) * R,
-                                  p_daemon + static_cast<size_t>(p) * R,
-                                  g_req + static_cast<size_t>(g) * R, R);
-    n_fit[pg * T + t] = nf;
-    type_ok[pg * T + t] =
-        tc && off && nf >= 1 && p_titype_ok[static_cast<size_t>(p) * T + t] && compat;
   }
+#pragma unroll 1
+  for (int i = tid; i < TG * TT; i += kBlock) s.adj[i] = 0;
+#pragma unroll 1
+  for (int i = tid; i < TT; i += kBlock) {
+    s.base[i] = 0;
+    s.toff[i] = 0;
+  }
+#pragma unroll 1
+  for (int i = tid; i < TG; i += kBlock) {
+    s.cfail[i] = 0;
+    s.listed[i] = 0;
+  }
+  const bool have = tid < L;  // this thread's pair of the first chunk
+  int32_t my_g = 0, my_k = 0, my_w = 0, my_goff = -1;
+  if (have) {
+    my_w = gk_w[tid];
+    my_g = gk_g[tid];
+    my_k = gk_k[tid];
+  }
+  if (tid < LZ) my_goff = goff_idx[tid];
+  kt::cp_async_wait_all();
+  __syncthreads();
+  PHASE_MARK(kPhStage);
+
+  // the bit words of the staged rows, all from one call site (one copy
+  // of row_word's code): types' masks, defined keys and offering
+  // availability, p's masks and defined keys, groups' zone and
+  // capacity-type rows; goff_idx's groups of the tile flagged (repeats
+  // are idempotent)
+  {
+    const int e0 = nt * KW, e1 = e0 + nt * KD, e2 = e1 + nt * OW, e3 = e2 + KW, e4 = e3 + KD,
+              e5 = e4 + ng * W, e6 = e5 + ng * W;
+#pragma unroll 1
+    for (int i = tid; i < e6; i += kBlock) {
+      const uint8_t* row;
+      uint32_t* dst;
+      int len, w;
+      if (i < e0) {
+        row = s.raw_t + static_cast<size_t>(i / W) * V1, len = V1, w = i % W, dst = s.tw + i;
+      } else if (i < e1) {
+        row = s.raw_td + ((i - e0) / KD) * K, len = K, w = (i - e0) % KD, dst = s.tdw + i - e0;
+      } else if (i < e2) {
+        row = s.raw_oa + ((i - e1) / OW) * O, len = O, w = (i - e1) % OW, dst = s.aw + i - e1;
+      } else if (i < e3) {
+        row = s.raw_p + ((i - e2) / W) * V1, len = V1, w = (i - e2) % W, dst = s.pw + i - e2;
+      } else if (i < e4) {
+        row = s.raw_pd, len = K, w = i - e3, dst = s.pdw + i - e3;
+      } else if (i < e5) {
+        row = s.raw_gz + ((i - e4) / W) * V1r, len = V1, w = (i - e4) % W, dst = s.gzw + i - e4;
+      } else {
+        row = s.raw_gc + ((i - e5) / W) * V1r, len = V1, w = (i - e5) % W, dst = s.gcw + i - e5;
+      }
+      // every staged row starts 4-byte aligned where its length is a multiple of 4
+      *dst = row_word(row, len, w, len % 4 == 0);
+    }
+  }
+  if (my_goff >= g0 && my_goff < g0 + ng) s.listed[my_goff - g0] = 1;
+#pragma unroll 1
+  for (int i = tid + kBlock; i < LZ; i += kBlock) {
+    const int g = goff_idx[i];
+    if (g >= g0 && g < g0 + ng) s.listed[g - g0] = 1;
+  }
+  __syncthreads();
+  PHASE_MARK(kPhWords);
+
+  // 2. once per (p, t), spread over (type, key) and (type, offering):
+  //    the group-independent base failures and the template-only
+  //    offering row
+  const uint32_t* pz = s.pw + zone_kid * W;
+  const uint32_t* pc = s.pw + ct_kid * W;
+  auto offer = [&](int t, int o, const uint32_t* gz, const uint32_t* gc) {
+    if (!bit(s.aw + t * OW, o)) return false;
+    const int32_t z = s.oz[t * O + o], c = s.oc[t * O + o];
+    return (z < 0 || (bit(pz, z) && bit(gz, z))) && (c < 0 || (bit(pc, c) && bit(gc, c)));
+  };
+#pragma unroll 1
+  for (int i = tid; i < nt * K; i += kBlock) {
+    const int t = i / K, k = i % K;
+    if (!(words_meet(s.tw + t * KW + k * W, s.pw + k * W, W) ||
+          !(bit(s.tdw + t * KD, k) && bit(s.pdw, k))))
+      atomicAdd(&s.base[t], 1);
+  }
+#pragma unroll 1
+  for (int i = tid; i < nt * O; i += kBlock)
+    if (offer(i / O, i % O, pz, pc)) s.toff[i / O] = 1;
+  PHASE_MARK(kPhBase);
+
+  // 3. the tile's live pairs, chunk by chunk, in any order
+#pragma unroll 1
+  for (int c0 = 0; c0 < L; c0 += kChunk) {
+    if (tid == 0) n_pairs = 0;
+    __syncthreads();
+    const int l = c0 + tid;
+    int32_t w = 0, g = -1, k = 0;
+    if (c0 == 0) {
+      if (have) w = my_w, g = my_g, k = my_k;
+    } else if (l < L) {
+      w = gk_w[l], g = gk_g[l], k = gk_k[l];
+    }
+    if (w != 0 && g >= g0 && g < g0 + ng) {
+      const int j = atomicAdd(&n_pairs, 1);
+      const size_t gk = static_cast<size_t>(g) * K + k;
+      uint32_t* gm = s.pair_w + j * W;
+      const bool gx4 = V1 % 4 == 0 && reinterpret_cast<uintptr_t>(g_mask) % 4 == 0;
+#pragma unroll 1
+      for (int v = 0; v < W; ++v) gm[v] = row_word(g_mask + gk * V1, V1, v, gx4);
+      const bool gdef = g_def[gk], gneg = g_neg[gk];
+      const bool pdef = bit(s.pdw, k), pneg = p_neg[static_cast<size_t>(p) * K + k];
+      s.pair_g[j] = g - g0;
+      s.pair_k[j] = k | (gdef ? kDefBit : 0);
+      s.pair_wt[j] = w;
+      // pod-vs-template compatibility (with the well-known allowance)
+      const bool term = words_meet(s.pw + k * W, gm, W) || (pneg && gneg) || !(pdef && gdef);
+      const bool custom = !gdef || well_known[k] || pdef || gneg;
+      if (!(term && custom)) atomicAdd(&s.cfail[g - g0], w);
+    }
+    __syncthreads();
+    const int np = n_pairs;
+#pragma unroll 1
+    for (int i = tid; i < np * nt; i += kBlock) {
+      const int j = i / nt, t = i % nt;
+      const int kj = s.pair_k[j] & (kDefBit - 1);
+      const bool gdef = s.pair_k[j] & kDefBit;
+      const uint32_t* tk = s.tw + t * KW + kj * W;
+      const uint32_t* pk = s.pw + kj * W;
+      const bool tdef = bit(s.tdw + t * KD, kj), pdef = bit(s.pdw, kj);
+      const int pair_fail =
+          !(words_meet3(tk, s.pair_w + j * W, pk, W) || !(tdef && (pdef || gdef)));
+      const int base_fail = !(words_meet(tk, pk, W) || !(tdef && pdef));
+      const int32_t delta = kt::wrap_mul(pair_fail - base_fail, s.pair_wt[j]);
+      if (delta != 0) atomicAdd(&s.adj[s.pair_g[j] * TT + t], delta);
+    }
+    __syncthreads();  // the chunk applied before the next one is gathered
+  }
+  __syncthreads();
+  PHASE_MARK(kPhPairs);
+#pragma unroll 1
+  for (int gl = tid; gl < ng; gl += kBlock) {
+    s.compat[gl] = s.ptol[gl] && s.cfail[gl] == 0;
+    if (blockIdx.x == 0) compat_pg[static_cast<size_t>(p) * G + g0 + gl] = s.compat[gl];
+  }
+  __syncthreads();
+  PHASE_MARK(kPhCompat);
+
+  // 4. the cells, one a thread: base + correction, the offering row
+  //    (merged with the group's rows for listed groups), fits_count, the
+  //    fused AND. Where T % 4 == 0 each quad of lanes (four types of one
+  //    row) writes its cells as one 4-byte and one 16-byte store.
+  const int cells = ng * TT;
+#pragma unroll 1
+  for (int i0 = 0; i0 < cells; i0 += kBlock) {  // the same trip count in every thread
+    const int i = i0 + tid, gl = i / TT, t = i % TT;
+    const bool live = i < cells && t < nt;
+    int32_t nf = 0;
+    uint32_t ok = 0;
+    if (live) {
+      nf = cell_fits(s.alloc + t * R, s.daemon, s.req + gl * R, R);
+      if (nf >= 1 && s.tok[t] && s.compat[gl] &&
+          kt::wrap_add(s.base[t], s.adj[gl * TT + t]) == 0) {
+        if (!s.listed[gl]) {
+          ok = s.toff[t];
+        } else {
+          for (int o = 0; o < O && !ok; ++o) ok = offer(t, o, s.gzw + gl * W, s.gcw + gl * W);
+        }
+      }
+    }
+    const size_t at = (static_cast<size_t>(p) * G + g0 + gl) * T + t0 + t;
+    if (wide) {
+      const int32_t n1 = __shfl_down_sync(kt::kFull, nf, 1);
+      const int32_t n2 = __shfl_down_sync(kt::kFull, nf, 2);
+      const int32_t n3 = __shfl_down_sync(kt::kFull, nf, 3);
+      const uint32_t okq = ok | __shfl_down_sync(kt::kFull, ok, 1) << 8 |
+                           __shfl_down_sync(kt::kFull, ok, 2) << 16 |
+                           __shfl_down_sync(kt::kFull, ok, 3) << 24;
+      if (live && (t & 3) == 0) {
+        *reinterpret_cast<uint32_t*>(type_ok + at) = okq;
+        *reinterpret_cast<int4*>(n_fit + at) = make_int4(nf, n1, n2, n3);
+      }
+    } else if (live) {
+      type_ok[at] = ok;
+      n_fit[at] = nf;
+    }
+  }
+  PHASE_MARK(kPhCells);
 }
 
 }  // namespace
@@ -152,24 +405,41 @@ extern "C" int kt_fresh_feasibility(
     const uint8_t* well_known,
     const int32_t* gk_g, const int32_t* gk_k, const int32_t* gk_w,
     const int32_t* goff_idx,
-    int32_t* adj, int32_t* cfail,
     uint8_t* compat_pg, uint8_t* type_ok, int32_t* n_fit,
     void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long cells = static_cast<long long>(P) * G * T;
   if (static_cast<long long>(P) * G == 0) return kt::kNothingLaunched;
-  if (cells > 0) cudaMemsetAsync(adj, 0, sizeof(int32_t) * cells, stream);
-  cudaMemsetAsync(cfail, 0, sizeof(int32_t) * P * G, stream);
-  constexpr int kBlock = 256;
-  const long long pairs = static_cast<long long>(P) * L * (T + 1);
-  if (pairs > 0) {
-    pair_corrections<<<kt::grid_for(pairs, kBlock), kBlock, 0, stream>>>(
-        P, G, T, K, V1, L, g_def, g_neg, g_mask, p_def, p_neg, p_mask, t_def,
-        t_mask, well_known, gk_g, gk_k, gk_w, adj, cfail);
+  // tiles: 32 types x 8 groups (a cell a thread), the groups doubled up
+  // to 64 while the grid has more than 4 x 132 blocks; types narrowed to
+  // 16 while the block's shared memory passes 48 KB (wide masks), then
+  // further only past the card's 227 KB
+  int TT = 32, TG = 8;
+  auto blocks = [&] {
+    return static_cast<long long>(P) * ((G + TG - 1) / TG) * (T > 0 ? (T + TT - 1) / TT : 1);
+  };
+  while (blocks() > 4 * 132 && TG < 64) TG <<= 1;
+  while (TT > 16 && Smem(nullptr, K, V1, R, O, TG, TT).bytes > kSmemDefault) TT >>= 1;
+  while (TT > 4 && Smem(nullptr, K, V1, R, O, TG, TT).bytes > kSmemMax) TT >>= 1;
+  const size_t smem = Smem(nullptr, K, V1, R, O, TG, TT).bytes;
+  if (smem > kSmemDefault) {  // wide masks: past 48 KB at 16 types; set on each
+    // such call, as the attribute is the current device's
+    const cudaError_t e = cudaFuncSetAttribute(
+        fresh_tables, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  tables<<<kt::grid_for(cells > 0 ? cells : P * G, kBlock), kBlock, 0, stream>>>(
-      P, G, T, K, V1, R, O, LZ, zone_kid, ct_kid, g_mask, g_req, p_def, p_mask,
-      p_daemon, p_tol, p_titype_ok, t_def, t_mask, t_alloc, o_avail, o_zone,
-      o_ct, goff_idx, adj, cfail, compat_pg, type_ok, n_fit);
+  const bool wide = T % 4 == 0 && reinterpret_cast<uintptr_t>(type_ok) % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(n_fit) % 16 == 0;
+  const dim3 grid(T > 0 ? (T + TT - 1) / TT : 1, (G + TG - 1) / TG, P);
+  fresh_tables<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
+      G, T, K, V1, R, O, L, LZ, TG, TT, zone_kid, ct_kid, wide, g_def, g_neg, g_mask,
+      g_req, p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok, t_def, t_mask, t_alloc,
+      o_avail, o_zone, o_ct, well_known, gk_g, gk_k, gk_w, goff_idx, compat_pg, type_ok, n_fit);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef KT_PHASE_CLOCKS
+// The first ``n`` phase clocks' totals in nanoseconds (Phase order) into
+// ``host``, then zeroed; synchronous. Returns cudaGetLastError().
+extern "C" int kt_fresh_feasibility_phase_clocks(unsigned long long* host, int n) {
+  return read_phase_clocks(host, n);
+}
+#endif

@@ -63,48 +63,8 @@ constexpr int kMaxMvW = 1024;
 // domain-constraint modes (solver/encode.py:DMODE_*)
 constexpr int kSpread = 1, kAffinity = 2, kGateSpread = 3, kGateAff = 4;
 
-// Phase clocks (measurement only; tenant_scan.py builds pack.cu and
-// pack_classed.cu once more with -DKT_PHASE_CLOCKS, libraries that
-// neither the solver nor chip_smoke.py loads): at the end of each phase
-// the block meets at a barrier and thread 0 of block 0 adds the
-// %globaltimer nanoseconds since the last mark to its phase's total, one
-// slot per phase of the kernel's own enum. The marks' extra barriers are
-// the build's own cost.
-constexpr int kMaxPhases = 16;
-#ifdef KT_PHASE_CLOCKS
-__device__ unsigned long long phase_ns[kMaxPhases];
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#define PHASE_MARK(k)                                     \
-  do {                                                    \
-    __syncthreads();                                      \
-    if (blockIdx.x == 0 && threadIdx.x == 0) {            \
-      const unsigned long long now_ = globaltimer();      \
-      phase_ns[k] += now_ - clock_at;                     \
-      clock_at = now_;                                    \
-    }                                                     \
-  } while (0)
-#define PHASE_START unsigned long long clock_at = threadIdx.x == 0 ? globaltimer() : 0
-
-// The first ``n`` phase totals in nanoseconds into ``host``, then every
-// total zeroed; synchronous. Returns cudaGetLastError().
-inline int read_phase_clocks(unsigned long long* host, int n) {
-  if (n < 0 || n > kMaxPhases) return static_cast<int>(cudaErrorInvalidValue);
-  cudaMemcpyFromSymbol(host, phase_ns, sizeof(unsigned long long) * n);
-  const unsigned long long zero[kMaxPhases] = {};
-  cudaMemcpyToSymbol(phase_ns, zero, sizeof(zero));
-  return static_cast<int>(cudaGetLastError());
-}
-#else
-#define PHASE_MARK(k) \
-  do {                \
-  } while (0)
-#define PHASE_START
-#endif
+// Phase clocks: common.cuh (KT_PHASE_CLOCKS), one slot per phase of each
+// scan's own enum.
 
 // The cluster's barrier (release / acquire at cluster scope: the state
 // one rank wrote before it is what the others read after it); the

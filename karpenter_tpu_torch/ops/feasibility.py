@@ -25,6 +25,8 @@ the JAX functions line for line and are bit-exact with them
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
@@ -374,6 +376,20 @@ def existing_node_feasibility(
     return _launch_dense_existing(*args)
 
 
+def _fresh_entry():
+    """kt_fresh_feasibility with its argument types: 11 ints, then the 21
+    inputs, the 3 outputs and the stream as pointers."""
+    return _build.bind("fresh_feasibility", "kt_fresh_feasibility",
+                       (ctypes.c_int,) * 11 + (ctypes.c_void_p,) * 25)
+
+
+def _existing_entry():
+    """kt_existing_feasibility with its argument types: 7 ints, then the 12
+    inputs, the output and the stream as pointers."""
+    return _build.bind("existing_feasibility", "kt_existing_feasibility",
+                       (ctypes.c_int,) * 7 + (ctypes.c_void_p,) * 14)
+
+
 def _launch_fresh(
     g_def, g_neg, g_mask, g_req,
     p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
@@ -384,51 +400,45 @@ def _launch_fresh(
     zone_kid: int,
     ct_kid: int,
 ):
-    import ctypes
-
     G, K, V1 = g_mask.shape
     P, R = p_daemon.shape
     T, O = o_avail.shape
     L, LZ = gk_g.shape[0], goff_idx.shape[0]
     dev = g_mask.device
-    b, i32, f32 = torch.bool, torch.int32, torch.float32
-    for t, name, dt, shape in (
-        (g_def, "g_def", b, (G, K)), (g_neg, "g_neg", b, (G, K)),
-        (g_mask, "g_mask", b, (G, K, V1)), (g_req, "g_req", f32, (G, R)),
-        (p_def, "p_def", b, (P, K)), (p_neg, "p_neg", b, (P, K)),
-        (p_mask, "p_mask", b, (P, K, V1)), (p_daemon, "p_daemon", f32, (P, R)),
-        (p_tol, "p_tol", b, (P, G)), (p_titype_ok, "p_titype_ok", b, (P, T)),
-        (t_def, "t_def", b, (T, K)), (t_mask, "t_mask", b, (T, K, V1)),
-        (t_alloc, "t_alloc", f32, (T, R)),
-        (o_avail, "o_avail", b, (T, O)), (o_zone, "o_zone", i32, (T, O)),
-        (o_ct, "o_ct", i32, (T, O)), (well_known, "well_known", b, (K,)),
-        (gk_g, "gk_g", i32, (L,)), (gk_k, "gk_k", i32, (L,)),
-        (gk_w, "gk_w", i32, (L,)), (goff_idx, "goff_idx", i32, (LZ,)),
-    ):
-        _build.check(t, name, dt, shape, dev)
-    adj = torch.empty((P, G, T), dtype=i32, device=dev)
-    cfail = torch.empty((P, G), dtype=i32, device=dev)
-    compat_pg = torch.empty((P, G), dtype=b, device=dev)
-    type_ok = torch.empty((P, G, T), dtype=b, device=dev)
-    n_fit = torch.empty((P, G, T), dtype=i32, device=dev)
-    fn = _build.library("fresh_feasibility").kt_fresh_feasibility
-    p = _build.ptr
-    with torch.cuda.device(dev):
-        rc = fn(
-            *(ctypes.c_int(int(v)) for v in (
-                P, G, T, K, V1, R, O, L, LZ, zone_kid, ct_kid)),
-            p(g_def), p(g_neg), p(g_mask), p(g_req),
-            p(p_def), p(p_neg), p(p_mask), p(p_daemon), p(p_tol),
-            p(p_titype_ok),
-            p(t_def), p(t_mask), p(t_alloc),
-            p(o_avail), p(o_zone), p(o_ct),
-            p(well_known),
-            p(gk_g), p(gk_k), p(gk_w), p(goff_idx),
-            p(adj), p(cfail), p(compat_pg), p(type_ok), p(n_fit),
-            _build.stream(),
+    ins = (g_def, g_neg, g_mask, g_req, p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
+           t_def, t_mask, t_alloc, o_avail, o_zone, o_ct, well_known,
+           gk_g, gk_k, gk_w, goff_idx)
+    for t, name, dtype, shape in zip(ins, _FRESH_NAMES, _FRESH_DTYPES, (
+            (G, K), (G, K), (G, K, V1), (G, R), (P, K), (P, K), (P, K, V1), (P, R), (P, G),
+            (P, T), (T, K), (T, K, V1), (T, R), (T, O), (T, O), (T, O), (K,),
+            (L,), (L,), (L,), (LZ,))):
+        _build.check(t, name, dtype, shape, dev)
+    if not (0 <= zone_kid < K and 0 <= ct_kid < K):
+        raise ValueError(f"zone_kid {zone_kid} / ct_kid {ct_kid} outside K={K}")
+    compat_pg = torch.empty((P, G), dtype=torch.bool, device=dev)
+    type_ok = torch.empty((P, G, T), dtype=torch.bool, device=dev)
+    n_fit = torch.empty((P, G, T), dtype=torch.int32, device=dev)
+    with _build.device_scope(dev):
+        rc = _fresh_entry()(
+            P, G, T, K, V1, R, O, L, LZ, zone_kid, ct_kid,
+            *(t.data_ptr() for t in ins),
+            compat_pg.data_ptr(), type_ok.data_ptr(), n_fit.data_ptr(),
+            _build.raw_stream(dev),
         )
     _build.launched("fresh_feasibility", rc)
     return compat_pg, type_ok, n_fit
+
+
+_FRESH_NAMES = ("g_def", "g_neg", "g_mask", "g_req", "p_def", "p_neg", "p_mask", "p_daemon",
+                "p_tol", "p_titype_ok", "t_def", "t_mask", "t_alloc", "o_avail", "o_zone",
+                "o_ct", "well_known", "gk_g", "gk_k", "gk_w", "goff_idx")
+_FRESH_DTYPES = ((torch.bool,) * 3 + (torch.float32,) + (torch.bool,) * 3 + (torch.float32,)
+                 + (torch.bool,) * 4 + (torch.float32, torch.bool, torch.int32, torch.int32,
+                                        torch.bool) + (torch.int32,) * 4)
+_EXIST_NAMES = ("g_def", "g_neg", "g_mask", "g_req", "n_def", "n_mask", "n_avail", "n_base",
+                "n_tol", "gk_g", "gk_k", "gk_w")
+_EXIST_DTYPES = ((torch.bool,) * 3 + (torch.float32,) + (torch.bool,) * 2
+                 + (torch.float32,) * 2 + (torch.bool,) + (torch.int32,) * 3)
 
 
 def _launch_existing(
@@ -436,8 +446,6 @@ def _launch_existing(
     n_def, n_mask, n_avail, n_base, n_tol,
     gk_g, gk_k, gk_w,
 ):
-    import ctypes
-
     G, K, V1 = g_mask.shape
     N, R = n_avail.shape
     L = gk_g.shape[0]
@@ -446,28 +454,18 @@ def _launch_existing(
     lead = tuple(n_tol.shape[:-2])
     S = n_tol.shape[0] if lead else 1
     dev = g_mask.device
-    b, i32, f32 = torch.bool, torch.int32, torch.float32
-    for t, name, dt, shape in (
-        (g_def, "g_def", b, (G, K)), (g_neg, "g_neg", b, (G, K)),
-        (g_mask, "g_mask", b, (G, K, V1)), (g_req, "g_req", f32, (G, R)),
-        (n_def, "n_def", b, (N, K)), (n_mask, "n_mask", b, (N, K, V1)),
-        (n_avail, "n_avail", f32, (N, R)), (n_base, "n_base", f32, (N, R)),
-        (n_tol, "n_tol", b, lead + (N, G)),
-        (gk_g, "gk_g", i32, (L,)), (gk_k, "gk_k", i32, (L,)),
-        (gk_w, "gk_w", i32, (L,)),
-    ):
-        _build.check(t, name, dt, shape, dev)
-    cap_ng = torch.empty(lead + (N, G), dtype=i32, device=dev)
-    fn = _build.library("existing_feasibility").kt_existing_feasibility
-    p = _build.ptr
-    with torch.cuda.device(dev):
-        rc = fn(
-            *(ctypes.c_int(int(v)) for v in (S, N, G, K, V1, R, L)),
-            p(g_def), p(g_neg), p(g_mask), p(g_req),
-            p(n_def), p(n_mask), p(n_avail), p(n_base), p(n_tol),
-            p(gk_g), p(gk_k), p(gk_w),
-            p(cap_ng),
-            _build.stream(),
+    ins = (g_def, g_neg, g_mask, g_req, n_def, n_mask, n_avail, n_base, n_tol, gk_g, gk_k, gk_w)
+    for t, name, dtype, shape in zip(ins, _EXIST_NAMES, _EXIST_DTYPES, (
+            (G, K), (G, K), (G, K, V1), (G, R), (N, K), (N, K, V1), (N, R), (N, R),
+            lead + (N, G), (L,), (L,), (L,))):
+        _build.check(t, name, dtype, shape, dev)
+    cap_ng = torch.empty(lead + (N, G), dtype=torch.int32, device=dev)
+    with _build.device_scope(dev):
+        rc = _existing_entry()(
+            S, N, G, K, V1, R, L,
+            *(t.data_ptr() for t in ins),
+            cap_ng.data_ptr(),
+            _build.raw_stream(dev),
         )
     _build.launched("existing_feasibility", rc, scenarios=S)
     return cap_ng

@@ -33,6 +33,7 @@ and the scan (B4, B5 or B7's grid) builds each step's rows itself.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -388,34 +389,23 @@ def delta_apply_rows(arr, idx, rows):
     return _launch_apply_rows(arr, *_rows_on(arr, idx, rows))
 
 
-_apply_rows_entry = None
-
-
 def _apply_rows_fn():
     """kt_apply_rows with its argument types, set once."""
-    global _apply_rows_entry
-    if _apply_rows_entry is None:
-        import ctypes
-
-        fn = _build.library("apply_rows").kt_apply_rows
-        fn.argtypes = (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int) + (ctypes.c_void_p,) * 5
-        _apply_rows_entry = fn
-    return _apply_rows_entry
+    return _build.bind("apply_rows", "kt_apply_rows",
+                       (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int) + (ctypes.c_void_p,) * 5)
 
 
 def _launch_apply_rows(arr, idx, rows):
     if not arr.is_contiguous():
         raise ValueError("delta_apply_rows: the resident buffer is not contiguous")
-    if arr.get_device() != torch.cuda.current_device():
-        with torch.cuda.device(arr.device):
-            return _launch_apply_rows(arr, idx, rows)
+    dev = arr.device
     out = torch.empty_like(arr)
-    rc = _apply_rows_fn()(
-        arr.shape[0], math.prod(arr.shape[1:]) * arr.element_size(), idx.shape[0],
-        arr.data_ptr(), idx.data_ptr(), rows.data_ptr(), out.data_ptr(),
-        # the current stream's handle, without building a Stream object
-        torch._C._cuda_getCurrentRawStream(arr.get_device()),
-    )
+    with _build.device_scope(dev):
+        rc = _apply_rows_fn()(
+            arr.shape[0], math.prod(arr.shape[1:]) * arr.element_size(), idx.shape[0],
+            arr.data_ptr(), idx.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            _build.raw_stream(dev),
+        )
     _build.launched("apply_rows", rc)
     return out
 

@@ -1,6 +1,7 @@
-"""Time kernels B4 and B5, the packing scans, on one card, split by phase.
+"""Time kernels B4 and B5, the packing scans, on one card, split by phase;
+and B1 and B2, the sparse feasibility tables.
 
-    python3 tenant_scan.py                  # all nine shapes, phase clocks on
+    python3 tenant_scan.py                  # every shape, phase clocks on
     python3 tenant_scan.py --no-clocks      # times only (a checkout without
                                             # the phase-clock builds)
     python3 tenant_scan.py --shapes tenant  # a subset
@@ -8,6 +9,9 @@
         --classed-clocks pack_classed_clocks pack_classed_clocks_c1
                                             # B5 at each cluster width, and
                                             # its split at two widths
+    python3 tenant_scan.py --no-clocks --shapes feas_mixed feas_diverse \
+        feas_constrained feas_nodes feas_cons
+                                            # B1, B2 and B7's dispatch
 
 Four solve shapes, each encoded and staged on the card once, as the
 driver stages it (chip_smoke.py's batches):
@@ -69,6 +73,27 @@ Two consolidation shapes, B4 over a scenario grid (kernel B7):
   call, and every device activity's), with the cluster the launches took
   (ops/packing.py:clusters, where the checkout has it).
 
+Five shapes of B1 and B2, the sparse feasibility tables that start every
+dispatch (``--shapes feas_mixed ...``), each staged as chip_smoke.py's
+phase 2 stages it, the kernel's outputs equal to its plain version's:
+
+- ``feas_mixed``: B1 at mixed 50k x 400 (G=64, T=400);
+- ``feas_diverse``: B1 at diverse-ref 5,000 x 400 (G=2048);
+- ``feas_constrained``: B1 at constrained 50k x 800 (G=256, T=800, the
+  only cell with live pairs);
+- ``feas_nodes``: B2 at mixed 2,000 x 400 over 32 StateNodes;
+- ``feas_cons``: B1 and B2[S] at the consolidation chunk (S=16, N=2048),
+  and the whole scenario dispatch (kernel B7) over them.
+
+Each kernel is timed through its wrapper (CUDA events, the median of
+FEAS_REPS calls) and on the device alone (torch.profiler over repeated
+wrapper calls: every device activity a call, by name); with the clocks
+on, B1 also from its phase-clock build (``fresh_feasibility_clocks``),
+split into stage, words, base, pairs, compat and cells; at feas_mixed (B1)
+and feas_nodes (B2), where the checkout binds the C entries once, its
+launch path is split on the host clock: the whole wrapper, the C entry
+alone (ctypes and the launch) and the output allocations.
+
 Prints the card's name and power limit, then one JSON line. Two
 checkouts are compared only within one call on one card: run this from
 each in turn, in the order A, B, B, A
@@ -92,7 +117,11 @@ CONS_PASSES = 6  # the first warms, as chip_smoke.py's phase 4
 SCAN_SHAPES = ("tenant", "mixed", "constrained", "diverse_contrib")
 CLASSED_SHAPES = ("diverse_classed", "diverse_minvalues", "tenant_classed")
 CONS_SHAPES = ("cons", "cons_minvalues")
-SHAPES = SCAN_SHAPES + CLASSED_SHAPES + CONS_SHAPES
+FEAS_SHAPES = ("feas_mixed", "feas_diverse", "feas_constrained", "feas_nodes", "feas_cons")
+SHAPES = SCAN_SHAPES + CLASSED_SHAPES + CONS_SHAPES + FEAS_SHAPES
+FEAS_REPS = 200
+HOST_REPS = 2000
+FEAS_PHASES = ("stage", "words", "base", "pairs", "compat", "cells")
 PHASES = ("init", "load", "tile", "claims", "exist", "quota", "tier1", "tier2", "commit",
           "fresh", "contrib", "outputs")
 CLASSED_PHASES = ("init", "head", "exist", "quota", "tier1", "tier2", "commit", "summaries",
@@ -352,6 +381,168 @@ def run_consolidation(shape):
                 clusters={str(k): v for k, v in getattr(packing, "clusters", {}).items()})
 
 
+def feas_inputs(shape):
+    """The solve args (on the card, by name) and statics of one B1/B2
+    shape, staged as chip_smoke.py stages them; NMAX and the fills dtype
+    for the consolidation chunk (None elsewhere)."""
+    from karpenter_tpu_torch.solver.driver import SolverConfig, TorchSolver
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+    from karpenter_tpu_torch.solver.example import example_state_nodes
+    from karpenter_tpu_torch.solver import workloads
+
+    if shape == "feas_cons":
+        token = cs.scenario_snapshot()
+        return (dict(zip(SOLVE_ARG_NAMES, token["args"])), dict(token["statics"]),
+                token["nmax"], token["fills_dtype"])
+    nodes = ()
+    if shape == "feas_mixed":
+        pods, n_types = workloads.mixed_pods(cs.N_PODS), cs.N_TYPES
+    elif shape == "feas_diverse":
+        pods, n_types = workloads.diverse_reference_mix(cs.N_DIVERSE), cs.N_TYPES
+    elif shape == "feas_constrained":
+        pods, n_types = workloads.constrained_mix(cs.N_PODS), cs.N_TYPES_C
+    else:
+        pods, n_types = workloads.mixed_pods(cs.NODE_PODS), cs.N_TYPES
+        nodes = example_state_nodes(cs.N_NODES)
+    solver = cs.build_batch(TorchSolver, SolverConfig, pods, n_types, state_nodes=nodes)
+    args, statics, _, _ = cs.device_snapshot(solver, pods)
+    return dict(zip(SOLVE_ARG_NAMES, args)), statics, None, None
+
+
+def feas_time(fn, plain):
+    """One kernel's row: max |diff| against ``plain()``, wrapper ms (CUDA
+    events) and device ms with the activities a call (torch.profiler)."""
+    out, ref = fn(), plain()
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    dev_ms, per_call, how = cs.device_ms(fn, 100)
+    return dict(err=cs.max_abs_err(out, ref), ms=cs.cuda_ms(fn, FEAS_REPS), device_ms=dev_ms,
+                device_per_call=per_call, device_timing=how)
+
+
+def host_split(wrapper, entry, args, outs):
+    """Host microseconds a call of a B1/B2 wrapper (``wrapper()``), of its C
+    entry alone with the same arguments (``entry(*args)``: the ctypes
+    conversion and the launch) and of its output allocations
+    (``outs()``): perf_counter over HOST_REPS calls each, one device sync
+    after each run. The wrapper's checks and the rest are the difference."""
+    import torch
+
+    split = {}
+    for name, fn in (("wrapper", wrapper), ("entry", lambda: entry(*args)), ("outputs", outs)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_REPS):
+            fn()
+        split[name + "_us"] = (time.perf_counter() - t0) / HOST_REPS * 1e6
+        torch.cuda.synchronize()
+    split["checks_and_rest_us"] = split["wrapper_us"] - split["entry_us"] - split["outputs_us"]
+    return split
+
+
+def b1_entry_args(a, b1_in, out, zk, ck):
+    """kt_fresh_feasibility's arguments for the inputs ``b1_in`` (solve args
+    ``a``) and the outputs ``out``, on the current stream."""
+    import torch
+
+    P, G, T = out[1].shape
+    return (P, G, T, a["g_mask"].shape[1], a["g_mask"].shape[2], a["t_alloc"].shape[1],
+            a["o_avail"].shape[1], a["gk_g"].shape[0], a["goff_idx"].shape[0], zk, ck,
+            *(t.data_ptr() for t in b1_in), *(t.data_ptr() for t in out),
+            torch.cuda.current_stream().cuda_stream)
+
+
+def b1_phases(a, b1_in, zk, ck, reps=20):
+    """B1's per-phase milliseconds a call (FEAS_PHASES, thread 0 of block
+    (0, 0, 0)) from its phase-clock build, over ``reps`` launches; the
+    build's tables must equal the solver library's."""
+    import torch
+
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    want = feas.fresh_claim_feasibility_sparse(*b1_in, zone_kid=zk, ct_kid=ck)
+    out = [torch.empty_like(t) for t in want]
+    entry = _build.bind("fresh_feasibility_clocks", "kt_fresh_feasibility",
+                        feas._fresh_entry().argtypes)
+    args = b1_entry_args(a, b1_in, out, zk, ck)
+
+    def run():
+        for _ in range(reps):
+            if entry(*args):
+                raise RuntimeError("the phase-clock build of B1 failed to launch")
+
+    _, ms = phase_clocks(run, "fresh_feasibility_clocks", len(FEAS_PHASES))
+    if cs.max_abs_err(out, want):
+        raise RuntimeError("B1's phase-clock build disagrees with the solver library")
+    return dict(zip(FEAS_PHASES, (m / reps for m in ms)))
+
+
+def run_feasibility(shape, clocks=False):
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import solve
+
+    a, statics, nmax, fills = feas_inputs(shape)
+    zk, ck = statics["zone_kid"], statics["ct_kid"]
+    b1_in = [a[n] for n in cs.B1_NAMES]
+    b2_in = [a[n] for n in cs.B2_NAMES]
+    row = dict(P=a["p_def"].shape[0], G=a["g_mask"].shape[0], T=a["t_alloc"].shape[0],
+               N=a["n_avail"].shape[0], L=a["gk_g"].shape[0],
+               live=int((a["gk_w"] != 0).sum()), LZ=a["goff_idx"].shape[0])
+    if shape != "feas_nodes":
+        row["b1"] = feas_time(
+            lambda: feas.fresh_claim_feasibility_sparse(*b1_in, zone_kid=zk, ct_kid=ck),
+            lambda: feas.fresh_claim_feasibility_sparse_reference(*b1_in, zone_kid=zk,
+                                                                  ct_kid=ck))
+    if row["N"]:
+        row["S"] = a["n_tol"].shape[0] if a["n_tol"].dim() == 3 else 1
+        row["b2"] = feas_time(lambda: feas.existing_node_feasibility_sparse(*b2_in),
+                              lambda: feas.existing_node_feasibility_sparse_reference(*b2_in))
+    if shape == "feas_cons":  # B7: the whole scenario dispatch
+
+        def dispatch():
+            return solve.solve_scenarios_core_packed(
+                *a.values(), fills_dtype=fills, batch_topo=False,
+                **dict(statics, nmax=nmax))
+
+        while bool(dispatch()[3].any().item()):  # the search's overflow doubling
+            nmax *= 2
+        dev_ms, per_call, how = cs.device_ms(dispatch, 20)
+        row["b7"] = dict(ms=cs.cuda_ms(dispatch, 50), device_ms=dev_ms,
+                         device_per_call=per_call, device_timing=how, nmax=nmax)
+    # the launch path's host split, where the checkout binds its entries
+    # once (feasibility._fresh_entry / _existing_entry)
+    if shape == "feas_mixed" and hasattr(feas, "_fresh_entry"):
+        import torch
+
+        P, G, T = row["P"], row["G"], row["T"]
+        out = feas.fresh_claim_feasibility_sparse(*b1_in, zone_kid=zk, ct_kid=ck)
+        row["b1"]["host"] = host_split(
+            lambda: feas.fresh_claim_feasibility_sparse(*b1_in, zone_kid=zk, ct_kid=ck),
+            feas._fresh_entry(), b1_entry_args(a, b1_in, out, zk, ck),
+            lambda: (torch.empty((P, G), dtype=torch.bool, device="cuda"),
+                     torch.empty((P, G, T), dtype=torch.bool, device="cuda"),
+                     torch.empty((P, G, T), dtype=torch.int32, device="cuda")))
+    if shape == "feas_nodes" and hasattr(feas, "_existing_entry"):
+        import torch
+
+        N, G = row["N"], row["G"]
+        out = feas.existing_node_feasibility_sparse(*b2_in)
+        dims = (1, N, G, a["g_mask"].shape[1], a["g_mask"].shape[2], a["n_avail"].shape[1],
+                row["L"])
+        stream = torch.cuda.current_stream().cuda_stream
+        row["b2"]["host"] = host_split(
+            lambda: feas.existing_node_feasibility_sparse(*b2_in), feas._existing_entry(),
+            (*dims, *(t.data_ptr() for t in b2_in), out.data_ptr(), stream),
+            lambda: torch.empty((N, G), dtype=torch.int32, device="cuda"))
+    if clocks and "b1" in row:
+        row["b1"]["phases_ms"] = b1_phases(a, b1_in, zk, ck)
+    if max(row[k]["err"] for k in ("b1", "b2") if k in row):
+        raise RuntimeError(f"{shape}: a kernel disagrees with its plain version: {row}")
+    return row
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-clocks", action="store_true", help="times only")
@@ -375,14 +566,19 @@ def main():
     classed = any(s in CLASSED_SHAPES for s in opts.shapes)
     clock_libs = opts.classed_clocks if clocks else []
     widths = [f"pack_classed_c{c}" for c in opts.clusters]
+    feas_only = all(s in FEAS_SHAPES for s in opts.shapes)
     names = ("fresh_feasibility", "existing_feasibility", "wire_pack", "pack",
-             *(("pack_clocks",) if clocks else ()),
+             *(("fresh_feasibility_clocks",)
+               if clocks and any(s in FEAS_SHAPES for s in opts.shapes) else ()),
+             *(("pack_clocks",) if clocks and not feas_only else ()),
              *(("pack_classed", *clock_libs, *widths) if classed else ()))
     logs = _build.build(names=names, force=True, verbose=True)
     rows = {"ptxas": {name: cs.ptxas_summary(text) for name, text in logs.items()}}
     for shape in opts.shapes:
         try:
-            if shape in CONS_SHAPES:
+            if shape in FEAS_SHAPES:
+                rows[shape] = run_feasibility(shape, clocks)
+            elif shape in CONS_SHAPES:
                 rows[shape] = run_consolidation(shape)
             elif shape in CLASSED_SHAPES:
                 rows[shape] = run_classed(shape, clock_libs, opts.clusters)

@@ -38,7 +38,13 @@ can take, by pool or by a zone clash; overflow and doubling; launches
 back to back, and over junk-filled scratch) and B8 in one launch on its
 edge cases (rows of 15 bytes,
 rows the blocks' share does not divide, every row, aliased and dropped
-indices, an empty delta).
+indices, an empty delta). The last section holds B1 and B2 over any
+order of the live-pair index (shuffled, weight-0 padding interleaved, a
+pair repeated, goff_idx repeated, P = 2, two mask words a key, the
+scenario axis) with junk-filled outputs, at the main path's shapes
+(mixed 50k, diverse-ref, constrained 50k also reordered, 32 nodes with
+16 scenarios), one kernel a call under torch.profiler, and every
+malformed input raising through the wrappers.
 
 Marked ``cuda``: they skip where there is no card. On the card, from the
 repo root: ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
@@ -1358,16 +1364,7 @@ def test_classed_back_to_back_dirty_scratch(cuda, monkeypatch):
     args, statics, classes = _tenant_classes(8, 80)
     for tiled in (False, True):
         _b5_equal_plain(args, statics, classes, cuda, tiled=tiled, launches=2)
-    empty = torch.empty
-
-    def junk(*a, **kw):
-        t = empty(*a, **kw)
-        if t.is_cuda and t.numel():
-            t.fill_(True if t.dtype == torch.bool else float("nan") if t.is_floating_point()
-                    else torch.iinfo(t.dtype).max // 2 + 7)
-        return t
-
-    monkeypatch.setattr(torch, "empty", junk)
+    _junk_empty(monkeypatch)
     for tiled in (False, True):
         _b5_equal_plain(args, statics, classes, cuda, tiled=tiled, launches=2)
 
@@ -1427,3 +1424,272 @@ def test_apply_rows_empty_delta(cuda):
     _build.reset_launches()
     assert delta_apply_rows(buf, np.zeros(0, np.int32), np.zeros((0, 3), np.int32)) is buf
     assert _build.launches["apply_rows"] == 0
+
+
+# -- B1 and B2 over any order of the live-pair index ---------------------------------
+#
+# The generators below make the inputs of both kernels from a numpy seed;
+# tests/test_torch_feasibility_index.py holds the plain versions against
+# JAX on the same cases.
+
+B1_NAMES = _B1
+B2_NAMES = _B2
+INDEX_CASES = ("shuffled", "padding-interleaved", "pair-repeated", "goff-repeats",
+               "two-templates", "wide-masks", "scenario-axis", "vocabulary-masks",
+               "huge-masks")
+
+
+def random_tables(rng, P, G, T, N, K, V1, R, O, S=0):
+    """B1's and B2's inputs but the live-pair index, by solve-arg name
+    (numpy): random requirement rows (definitions, negations, masks),
+    requests, offerings (ids -1 admit any value), tolerations; n_tol
+    [S, N, G] where S > 0."""
+    def reqs(n, p_def):
+        return (rng.random((n, K)) < p_def, rng.random((n, K)) < 0.2,
+                rng.random((n, K, V1)) < 0.7)
+
+    a = {}
+    a["g_def"], a["g_neg"], a["g_mask"] = reqs(G, 0.5)
+    a["p_def"], a["p_neg"], a["p_mask"] = reqs(P, 0.3)
+    a["t_def"], _, a["t_mask"] = reqs(T, 0.6)
+    a["n_def"], _, a["n_mask"] = reqs(N, 0.8)
+    f32 = np.float32
+    a["g_req"] = rng.choice(np.array([0, 250, 1000, 4e3], f32), (G, R))
+    a["p_daemon"] = rng.uniform(0, 500, (P, R)).astype(f32)
+    a["t_alloc"] = rng.uniform(0, 2e4, (T, R)).astype(f32)
+    a["n_avail"] = rng.uniform(0, 2e4, (N, R)).astype(f32)
+    a["n_base"] = rng.uniform(0, 1e4, (N, R)).astype(f32)
+    a["p_tol"] = rng.random((P, G)) < 0.9
+    a["p_titype_ok"] = rng.random((P, T)) < 0.9
+    a["o_avail"] = rng.random((T, O)) < 0.7
+    a["o_zone"] = rng.integers(-1, V1, (T, O)).astype(np.int32)
+    a["o_ct"] = rng.integers(-1, V1, (T, O)).astype(np.int32)
+    a["well_known"] = rng.random(K) < 0.5
+    a["n_tol"] = rng.random(((S,) if S else ()) + (N, G)) < 0.8
+    return a
+
+
+def reorder_index(rng, gk_g, gk_k, gk_w, goff_idx, n_pad=0, repeats=0, goff_twice=False):
+    """A live-pair index in another order: its first ``repeats`` pairs
+    listed once more, ``n_pad`` weight-0 pads of random (group, key)
+    interleaved, the whole shuffled; goff_idx shuffled (with each entry
+    twice under ``goff_twice``). Returns gk_g, gk_k, gk_w, goff_idx
+    (int32)."""
+    G = int(max(gk_g.max(initial=0), goff_idx.max(initial=0))) + 1
+    K = int(gk_k.max(initial=0)) + 1
+    g = np.concatenate([gk_g, gk_g[:repeats], rng.integers(0, G, n_pad)])
+    k = np.concatenate([gk_k, gk_k[:repeats], rng.integers(0, K, n_pad)])
+    w = np.concatenate([gk_w, gk_w[:repeats], np.zeros(n_pad, np.int64)])
+    order = rng.permutation(len(g))
+    goff = np.concatenate([goff_idx, goff_idx]) if goff_twice else goff_idx
+    return (g[order].astype(np.int32), k[order].astype(np.int32), w[order].astype(np.int32),
+            rng.permutation(goff).astype(np.int32))
+
+
+def sparse_index_case(case, seed=0):
+    """One case of INDEX_CASES: (inputs by solve-arg name, zone_kid,
+    ct_kid). L distinct live (group, key) pairs of weight 1 or 2 and LZ
+    listed groups, then the index reordered as the case says; T = 37 in
+    "two-templates" (no four-type stores), V1 = 40 in "wide-masks" (two
+    bit words a key), n_tol [16, N, G] in "scenario-axis", K = 16 and
+    V1 = 128 in "vocabulary-masks" (B1's block past 48 KB of shared
+    memory), K = 4 and V1 = 2048 in "huge-masks" (B2's block past it
+    too)."""
+    rng = np.random.default_rng([seed, INDEX_CASES.index(case)])
+    P = 2 if case == "two-templates" else 1
+    T = 37 if case == "two-templates" else 36
+    V1 = {"wide-masks": 40, "vocabulary-masks": 128, "huge-masks": 2048}.get(case, 5)
+    S = 16 if case == "scenario-axis" else 0
+    G, N, K, R, O, L, LZ = 40, 9, 6, 3, 4, 70, 12
+    K = {"vocabulary-masks": 16, "huge-masks": 4}.get(case, K)
+    a = random_tables(rng, P, G, T, N, K, V1, R, O, S)
+    cells = rng.choice(G * K, L, replace=False)
+    cells.sort()  # the encoder's order: by group, then key
+    gk = (cells // K, cells % K, rng.choice([1, 2], L), rng.choice(G, LZ, replace=False))
+    if case in ("shuffled", "wide-masks", "vocabulary-masks", "huge-masks"):
+        idx = reorder_index(rng, *gk)
+    elif case == "padding-interleaved":
+        idx = reorder_index(rng, *gk, n_pad=40)
+    elif case == "pair-repeated":
+        idx = reorder_index(rng, *gk, n_pad=5, repeats=7)
+    elif case == "goff-repeats":
+        idx = reorder_index(rng, *gk, goff_twice=True)
+    else:  # two-templates, scenario-axis: every reordering at once
+        idx = reorder_index(rng, *gk, n_pad=20, repeats=5, goff_twice=True)
+    a.update(zip(("gk_g", "gk_k", "gk_w", "goff_idx"), idx))
+    return a, 1, 2
+
+
+def _on(a, names, device):
+    return [torch.from_numpy(np.ascontiguousarray(a[n])).to(device) for n in names]
+
+
+def _junk_empty(monkeypatch):
+    """Every CUDA buffer torch.empty allocates comes back filled with junk."""
+    empty = torch.empty
+
+    def junk(*args, **kw):
+        t = empty(*args, **kw)
+        if t.is_cuda and t.numel():
+            t.fill_(True if t.dtype == torch.bool else float("nan") if t.is_floating_point()
+                    else torch.iinfo(t.dtype).max // 2 + 7)
+        return t
+
+    monkeypatch.setattr(torch, "empty", junk)
+
+
+def _device_kernels(fn):
+    """The device activities torch.profiler sees in one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _tables_equal_plain(a, zk, ck, cuda, kernels=True):
+    """B1 and B2 (where N > 0) on the card against their plain versions
+    on the CPU, one launch each."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    _build.reset_launches()
+    got = feas.fresh_claim_feasibility_sparse(*_on(a, B1_NAMES, cuda), zone_kid=zk, ct_kid=ck)
+    want = feas.fresh_claim_feasibility_sparse_reference(*_on(a, B1_NAMES, "cpu"),
+                                                         zone_kid=zk, ct_kid=ck)
+    assert _build.launches["fresh_feasibility"] == 1
+    for name, k, p in zip(("compat_pg", "type_ok", "n_fit"), got, want):
+        assert k.dtype == p.dtype and k.shape == p.shape, name
+        np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=name)
+    if not a["n_avail"].shape[0]:
+        return want
+    got = feas.existing_node_feasibility_sparse(*_on(a, B2_NAMES, cuda))
+    want2 = feas.existing_node_feasibility_sparse_reference(*_on(a, B2_NAMES, "cpu"))
+    assert _build.launches["existing_feasibility"] == 1
+    assert got.dtype == want2.dtype and got.shape == want2.shape
+    np.testing.assert_array_equal(got.cpu().numpy(), want2.numpy(), err_msg="cap_ng")
+    return want
+
+
+@pytest.mark.parametrize("case", INDEX_CASES)
+def test_sparse_tables_any_index_order(cuda, case, monkeypatch):
+    """B1 and B2 over a reordered live-pair index (shuffled, weight-0
+    padding interleaved, pairs repeated, goff_idx repeated, P = 2, two
+    mask words a key, the scenario axis) equal their plain versions, with
+    every output buffer junk-filled first: each cell is written."""
+    a, zk, ck = sparse_index_case(case)
+    _junk_empty(monkeypatch)
+    compat_pg, type_ok, _ = _tables_equal_plain(a, zk, ck, cuda)
+    assert type_ok.any() and not type_ok.all() and compat_pg.any()
+
+
+def _path_args(pods, n_types, n_nodes=0):
+    """The solve args (numpy, by name) and statics of a batch, padded as
+    TorchSolver pads them (G to a power of two, at least 8)."""
+    pools = [example_nodepool()]
+    its = {pools[0].name: corpus.generate(n_types)}
+    nodes = example_state_nodes(n_nodes)
+    topo = Topology(Client(TestClock()), nodes, pools, its, pods)
+    solver = TorchSolver(pools, its, topo, state_nodes=nodes, config=SolverConfig(device="cpu"))
+    groups, rest = enc.partition_and_group(pods, topology=topo)
+    assert not rest
+    snap, avail, *_ = solver._encode_batch(groups)
+    G = enc._next_pow2(len(snap.groups), floor=8)
+    N = enc._next_pow2(n_nodes, floor=1) if n_nodes else 0
+    statics = solver._kernel_statics(snap, G)
+    args = snap.padded(G, N).solve_args(*avail)
+    return dict(zip(enc.SOLVE_ARG_NAMES, (np.asarray(x) for x in args))), statics
+
+
+@pytest.mark.parametrize("shape", ["mixed-50k", "diverse-ref", "constrained-50k",
+                                   "constrained-50k-shuffled", "nodes-32-scenarios"])
+def test_sparse_tables_path_shapes(cuda, shape):
+    """B1 (and B2 over nodes) at the main path's shapes: mixed 50k x 400
+    (G=64), diverse-ref 5,000 x 400 (G=2048), constrained 50k x 800
+    (G=256, the live pairs), the latter over its index reordered, and the
+    2,000-pod batch over 32 nodes with a scenario axis of 16."""
+    from karpenter_tpu_torch.solver.workloads import diverse_reference_mix
+
+    if shape == "mixed-50k":
+        a, st = _path_args(mixed_pods(50_000), 400)
+    elif shape == "diverse-ref":
+        a, st = _path_args(diverse_reference_mix(5_000), 400)
+    elif shape.startswith("constrained"):
+        a, st = _path_args(constrained_mix(50_000), 800)
+        assert (a["gk_w"] != 0).sum() > 0
+        if shape.endswith("shuffled"):
+            idx = reorder_index(np.random.default_rng(5), a["gk_g"], a["gk_k"], a["gk_w"],
+                                a["goff_idx"], n_pad=64, repeats=9, goff_twice=True)
+            a.update(zip(("gk_g", "gk_k", "gk_w", "goff_idx"), idx))
+    else:
+        a, st = _path_args(mixed_pods(2_000), 400, n_nodes=32)
+        rng = np.random.default_rng(3)
+        a["n_tol"] = a["n_tol"][None] & (rng.random((16,) + a["n_tol"].shape) < 0.7)
+    _, type_ok, _ = _tables_equal_plain(a, st["zone_kid"], st["ct_kid"], cuda)
+    assert type_ok.any()
+
+
+def test_sparse_tables_one_kernel_each(cuda):
+    """torch.profiler sees one kernel per call of each wrapper: no memset,
+    no copy, no second pass."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    a, zk, ck = sparse_index_case("scenario-axis")
+    b1_in, b2_in = _on(a, B1_NAMES, cuda), _on(a, B2_NAMES, cuda)
+    b1 = _device_kernels(lambda: feas.fresh_claim_feasibility_sparse(
+        *b1_in, zone_kid=zk, ct_kid=ck))
+    b2 = _device_kernels(lambda: feas.existing_node_feasibility_sparse(*b2_in))
+    assert len(b1) == 1 and "fresh_tables" in b1[0], b1
+    assert len(b2) == 1 and "node_caps" in b2[0], b2
+
+
+_MALFORMED = {
+    "dtype": lambda x: x.to(torch.float64) if x.is_floating_point() else x.to(torch.int64),
+    "shape": lambda x: x[:-1],
+    "device": lambda x: x.cpu(),
+    "contiguity": lambda x: torch.stack([x, x], -1)[..., 0],
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_MALFORMED))
+@pytest.mark.parametrize("kernel", ["fresh", "existing"])
+def test_sparse_wrappers_raise_on_malformed_inputs(cuda, kernel, fault):
+    """Each wrapper raises ValueError on a malformed input (a wrong dtype,
+    shape, device or layout, in each position) and launches nothing; B1
+    also on a zone or capacity-type key outside K."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    a, zk, ck = sparse_index_case("shuffled")
+    names = B1_NAMES if kernel == "fresh" else B2_NAMES
+    good = _on(a, names, cuda)
+
+    def call(ins, **kw):
+        if kernel == "fresh":
+            return feas.fresh_claim_feasibility_sparse(*ins, **dict(dict(zone_kid=zk, ct_kid=ck),
+                                                                    **kw))
+        return feas.existing_node_feasibility_sparse(*ins)
+
+    _build.reset_launches()
+    # g_mask decides the route (a CPU g_mask is the plain version's), so it
+    # stays on the card for the device fault
+    for i in range(len(names)):
+        if fault == "device" and names[i] == "g_mask":
+            continue
+        if fault == "shape" and names[i] == "goff_idx":  # any length LZ is well formed
+            continue
+        bad = list(good)
+        bad[i] = _MALFORMED[fault](good[i])
+        with pytest.raises(ValueError):
+            call(bad)
+    if kernel == "fresh":
+        for kw in (dict(zone_kid=a["g_mask"].shape[1]), dict(ct_kid=-1)):
+            with pytest.raises(ValueError):
+                call(good, **kw)
+    assert not any(_build.launches.values())
+    call(good)
+    assert _build.launches[f"{kernel}_feasibility"] == 1
