@@ -134,6 +134,23 @@ no result:
    the first tick's removed Deployments (B7's grid tiled), each scenario
    equal to a solve of its pods, claims in slot order.
 
+10. the wide value vocabularies (ROADMAP item C1: the kernels must take any
+   width of the padded value axis V1 and of the minValues catalog MW, as
+   the reference does): (a) one NodePool whose one requirement is
+   example.com/team Exists over corpus.generate(400) and 1,100 pods of
+   500m / 1 GiB, pod i selecting team-i (K 16, V1 2048, every pod routed
+   to the relax bulk, the exact dispatch still launched); (b) the same
+   pool listing team-0..team-1099 with 40 such pods; (c) minValues 2 on
+   the instance type over corpus.generate(1100) at mixed_pods(2000) (MW
+   2048); (d) a pool listing 600 of corpus.generate(800)'s types at mixed
+   50k (V1 1024). Each cold card solve, counted, returns Results with no
+   fallback and decides as the device="cpu" solve of the same input in
+   slot order ((d) at 2,000 pods); (d)'s cold p50 over 5 fresh
+   EncodeCaches beside mixed 50k x 400's (phase 3). Logs each input's K,
+   V1, MW and the layout each kernel took (B1's mode, tiles and shared
+   memory; B3's where relax ran; each scan's shared memory and spilled
+   bytes).
+
 Phase 2 holds B1 and B2 also at the other shapes of their paths:
 B1 at diverse-ref (G=2048) and constrained 50k x 800 (G=256, the only
 cell with live pairs), B2 at the consolidation chunk (S=16, N=2048);
@@ -149,15 +166,20 @@ version and B2's table, B9 on the bulk inputs of the identical 50k
 batch against its plain version, and the floors-and-ledger variants at phase 8's
 cells: B4 with floors (minvalues-50k), B4 with the ledger (reserved-50k),
 B5 with floors (diverse-minvalues) and B7 with floors (the consolidation
-chunk over the minValues pool); and the tiled mode forced at the ops
+chunk over the minValues pool); B3's fresh entry also at the relax
+path's shape (the identical batch's run heads, 1 x 400); B1 and B4 at
+phase 10's team-In input (K 16, V1 2048: B1's words built straight from
+device memory, B4's per-step arrays spilled to device memory); and the
+tiled mode forced at the ops
 level (tiled_rows): B4 tiled on B2's snapshot, constrained 50k x 800,
 reserved-50k and the tenant shape at 600 Deployments, B5 tiled on
 diverse-ref and diverse-minvalues, B7's grid tiled on the consolidation
 chunk, each equal to the untiled kernel and to its plain tiled version
 on the card.
 
-Then one JSON line of per-kernel numbers (B1, B1 at diverse-ref and at
-constrained, B2, B2 at the consolidation chunk, B3 fresh and existing,
+Then one JSON line of per-kernel numbers (B1, B1 at diverse-ref, at
+constrained and at V1 2048, B2, B2 at the consolidation chunk, B3 fresh
+(also at the relax shape) and existing, B4 at V1 2048,
 B4, B4 over domains, B4 with contributor counting, B4 with minValues
 floors, B4 with the reservation ledger, B5, B5 with floors, B6, B7, B7
 with floors, B8, B9, and B4, B5 and B7 in the tiled mode; every row
@@ -214,6 +236,20 @@ TENANT_SWAP, TENANT_TICKS, TENANT_TICK_SEED = 60, 2, 7
 # phase 2's plain comparison of B4 tiled at the tenant shape (P x T =
 # 64 x 800), cut in depth: the plain scan runs a step in tens of ms
 N_DEPLOY_PLAIN = 600
+# phase 10, the wide value vocabularies (ROADMAP §C1): a per-team label
+# with 1,100 teams (K 16, V1 2048), its In list with 40 pods, minValues 2
+# on the instance type over 1,100 types (MW 2048), and a pool listing 600
+# of 800 types at mixed 50k (V1 1024)
+TEAM_KEY = "example.com/team"
+N_TEAMS, N_TEAM_IN_PODS = 1_100, 40
+MV_TYPES, MV_PODS = 1_100, 2_000
+N_LISTED, LISTED_TYPES = 600, 800
+# ... whose 50k batch is held to device="cpu" at this depth (the CPU's
+# plain scans of the 50k batch at V1 1024 take minutes); the per-team
+# input's device="cpu" solve runs in a child process beside phase 10's
+# card solves, waited on for at most WIDE_CPU_WAIT_S after them
+WIDE_CPU_PODS = 2_000
+WIDE_CPU_WAIT_S = 900
 REPLACES = {
     "fresh_feasibility": "karpenter_tpu/ops/feasibility.py:141",
     "fresh_feasibility_diverse": "karpenter_tpu/ops/feasibility.py:141",
@@ -229,6 +265,9 @@ REPLACES = {
     "apply_rows": "karpenter_tpu/ops/solve.py:400",
     "dense_fresh": "karpenter_tpu/ops/feasibility.py:84",
     "dense_existing": "karpenter_tpu/ops/feasibility.py:298",
+    "dense_fresh_relax": "karpenter_tpu/ops/feasibility.py:84",
+    "fresh_feasibility_wide": "karpenter_tpu/ops/feasibility.py:141",
+    "pack_wide": "karpenter_tpu/ops/packing.py:277",
     "relax_fill": "karpenter_tpu/ops/relax.py:244",
     "pack_minvalues": "karpenter_tpu/ops/packing.py:601",
     "pack_resv": "karpenter_tpu/ops/packing.py:485",
@@ -256,6 +295,12 @@ SHAPE_ROWS = {
         "constrained", "ticks", "constrained_minvalues")),
     "existing_feasibility_scenarios": ("existing_feasibility", (
         "multi", "single", "cons_minvalues")),
+    # B3's fresh entry at the relax path's shape, B1 and B4 at the wide
+    # value vocabularies of phase 10
+    "dense_fresh_relax": ("dense_fresh", ("config0", "ident", "ident_ticks", "zonal",
+                                          "zonal_reject")),
+    "fresh_feasibility_wide": ("fresh_feasibility", ("team_exists", "team_in", "mv_types")),
+    "pack_wide": ("pack", ("team_exists", "team_in", "mv_types")),
 }
 # the one PyTorch call that computes a kernel's function, timed beside it
 LIBRARY = {"apply_rows": "Tensor.index_copy"}
@@ -602,6 +647,69 @@ def build_batch(torch_solver_cls, config_cls, pods, n_types, state_nodes=(),
     )
 
 
+def team_pool(values=None):
+    """A NodePool whose one requirement is ``example.com/team``: Exists, or
+    In ``values`` (a per-team label with one value a team)."""
+    from karpenter_tpu_torch.api.objects import (
+        NodeClaimSpec, NodeClaimTemplate, NodePool, NodePoolSpec, NodeSelectorRequirement,
+        ObjectMeta,
+    )
+
+    req = (NodeSelectorRequirement(TEAM_KEY, "Exists", ()) if values is None
+           else NodeSelectorRequirement(TEAM_KEY, "In", tuple(values)))
+    return NodePool(metadata=ObjectMeta(name="default"), spec=NodePoolSpec(
+        template=NodeClaimTemplate(spec=NodeClaimSpec(requirements=[req]))))
+
+
+def type_pool(names=None, min_values=None):
+    """A NodePool whose one requirement is the instance type: Exists (with
+    ``min_values``), or In ``names`` (a pool that lists its types)."""
+    from karpenter_tpu_torch.api import labels as labels_mod
+    from karpenter_tpu_torch.api.objects import (
+        NodeClaimSpec, NodeClaimTemplate, NodePool, NodePoolSpec, NodeSelectorRequirement,
+        ObjectMeta,
+    )
+
+    req = (NodeSelectorRequirement(labels_mod.INSTANCE_TYPE, "Exists", (), min_values=min_values)
+           if names is None else
+           NodeSelectorRequirement(labels_mod.INSTANCE_TYPE, "In", tuple(names)))
+    return NodePool(metadata=ObjectMeta(name="default"), spec=NodePoolSpec(
+        template=NodeClaimTemplate(spec=NodeClaimSpec(requirements=[req]))))
+
+
+def team_pods(n):
+    """``n`` pods of 500m / 1 GiB, pod i selecting ``example.com/team: team-i``."""
+    from karpenter_tpu_torch.solver.workloads import _pod
+
+    return [_pod(f"team-{i}", 500, 1024, node_selector={TEAM_KEY: f"team-{i}"})
+            for i in range(n)]
+
+
+def wide_inputs(full=True):
+    """The wide value vocabularies of ROADMAP §C1, each (label, pools(),
+    catalog(), pods): a per-team label with 1,100 teams over Exists (K 16,
+    V1 2048; ``full=False`` leaves it out), the same label's In list of
+    1,100 teams with 40 pods, minValues 2 on the instance type over 1,100
+    types (MW 2048), and a pool listing 600 of 800 types at mixed 50k (V1
+    1024)."""
+    from karpenter_tpu_torch.cloudprovider import corpus
+    from karpenter_tpu_torch.solver.workloads import mixed_pods
+
+    teams = [f"team-{i}" for i in range(N_TEAMS)]
+    out = []
+    if full:
+        out.append(("team_exists", lambda: [team_pool()], lambda: corpus.generate(N_TYPES),
+                    team_pods(N_TEAMS)))
+    out.append(("team_in", lambda: [team_pool(teams)], lambda: corpus.generate(N_TYPES),
+                team_pods(N_TEAM_IN_PODS)))
+    out.append(("mv_types", lambda: [type_pool(min_values=2)],
+                lambda: corpus.generate(MV_TYPES), mixed_pods(MV_PODS)))
+    listed = [it.name for it in corpus.generate(LISTED_TYPES)[:N_LISTED]]
+    out.append(("listed_types", lambda: [type_pool(listed)],
+                lambda: corpus.generate(LISTED_TYPES), mixed_pods(N_PODS)))
+    return out
+
+
 def host_snapshot(solver, pods):
     """The main path's padded solve_args (numpy), snapshot, statics and the
     encode delta for ``solver``'s batch, built exactly as
@@ -662,25 +770,11 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
 
     # ---- B3 fresh, the dense twin, on the same snapshot: == plain, == B1 ----
     b3_in = [a[n] for n in B3_NAMES]
-    W3 = (V1 + 31) // 32
     b3 = feas.fresh_claim_feasibility(*b3_in, zone_kid=zk, ct_kid=ck)
-    b3_ref = feas.fresh_claim_feasibility_reference(*b3_in, zone_kid=zk, ct_kid=ck)
     torch.cuda.synchronize()
     if max_abs_err(b3, b1):
         raise SmokeFailure("B3 fresh: the dense tables differ from B1's")
-    rows["dense_fresh"] = with_device(dict(
-        max_abs_err=max_abs_err(b3, b3_ref),
-        ms=cuda_ms(lambda: feas.fresh_claim_feasibility(*b3_in, zone_kid=zk, ct_kid=ck), 50),
-        plain_ms=cuda_ms(lambda: feas.fresh_claim_feasibility_reference(
-            *b3_in, zone_kid=zk, ct_kid=ck), 10),
-        # the mask rows' bit words (W = ceil(V1 / 32) per key), compat
-        # per (p, g), then per cell the merged K x W join, the offerings
-        # and fits_count
-        bound=bound_ms(nbytes(b3_in) + nbytes(b3),
-                       (G + P + T) * K * V1 + P * G * K * W3
-                       + P * G * T * (K * W3 + O + 2 * R)),
-        shape=f"P={P} G={G} T={T} K={K} V1={V1} R={R} O={O}, == B1",
-    ), lambda: feas.fresh_claim_feasibility(*b3_in, zone_kid=zk, ct_kid=ck), 100)
+    rows["dense_fresh"] = dense_fresh_row(b3_in, zk, ck, "mixed 50k, == B1")
 
     # ---- B4 packing scan and B6 wire pack on the 50k tables ----
     cap_ng = torch.zeros((0, G), dtype=torch.int32, device="cuda")
@@ -741,7 +835,8 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
                        + N2 * G2 * (K2 * ((V12 + 31) // 32) + 2 * R2)),
         shape=f"N={N2} G={G2} K={K2} V1={V12} R={R2}, == B2",
     ), lambda: feas.existing_node_feasibility(*b3e_in), 100)
-    rows["relax_fill"] = relax_row(torch_solver_cls, config_cls)
+    rows["dense_fresh_relax"], rows["relax_fill"] = relax_row(torch_solver_cls, config_cls)
+    rows.update(wide_rows(torch_solver_cls, config_cls))
     rows["solve_scenarios"] = scenario_row()
     rows["existing_feasibility_scenarios"] = rows["solve_scenarios"].pop("b2_row")
     rows.update(constrained_rows(torch_solver_cls, config_cls, encode_cache_cls))
@@ -753,6 +848,88 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
             raise SmokeFailure(f"{name}: kernel disagrees with its plain version "
                                f"(max |diff| {row['max_abs_err']})")
     return rows
+
+
+def wide_rows(torch_solver_cls, config_cls):
+    """Phase 2's rows at a wide value vocabulary (phase 10's team-In input:
+    40 pods over a pool listing 1,100 teams, K 16, V1 2048): B1 (its mask
+    words built straight from device memory) and B4 (its per-step arrays
+    spilled to device memory), each against its plain version. Tolerance:
+    exact equality."""
+    import torch
+
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packing as packing_mod
+    from karpenter_tpu_torch.ops import solve as solve_mod
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+
+    label, pools, catalog, pods = [w for w in wide_inputs(full=False) if w[0] == "team_in"][0]
+    solver = build_batch(torch_solver_cls, config_cls, pods, 0, pools=pools(), its=catalog())
+    args, statics, nmax, _ = device_snapshot(solver, pods)
+    a = dict(zip(SOLVE_ARG_NAMES, args))
+    zk, ck = statics["zone_kid"], statics["ct_kid"]
+    P, G, T = a["p_titype_ok"].shape[0], a["g_count"].shape[0], a["t_alloc"].shape[0]
+    K, V1 = a["g_mask"].shape[1:]
+    R, O = a["t_alloc"].shape[1], a["o_avail"].shape[1]
+    if (K, V1) != (16, 2048):
+        raise SmokeFailure(f"wide rows: K, V1 = {K}, {V1} (want 16, 2048)")
+    rows = {}
+    lay = feas.fresh_layout(P, G, T, K, V1, R, O)
+    rows["fresh_feasibility_wide"] = b1_row(
+        a, zk, ck, f"team-in V1 2048, {lay['mode']}, tiles {lay['TT']} x {lay['TG']}, "
+        f"pair chunk {lay['PC']}, {lay['smem']} B")
+    b1 = feas.fresh_claim_feasibility_sparse(*(a[n] for n in B1_NAMES), zone_kid=zk, ct_kid=ck)
+    cap_ng = torch.zeros((0, G), dtype=torch.int32, device="cuda")
+    pack_in = solve_mod.pack_args(a, *b1, cap_ng)
+    st = dict(nmax=nmax, zone_kid=zk, ct_kid=ck, wf_iters=statics["wf_iters"],
+              has_domains=statics["has_domains"])
+    packing_mod.layouts.clear()
+    while True:
+        b4 = packing_mod.pack(*pack_in, **st)
+        if not bool(b4[3].item()):
+            break
+        st["nmax"] *= 2
+    b4_ref, ref_ms = timed(lambda: packing_mod.pack_reference(*pack_in, **st))
+    torch.cuda.synchronize()
+    smem, spill = next(iter(packing_mod.layouts.values()))
+    rows["pack_wide"] = with_device(dict(
+        max_abs_err=max_abs_err(b4, b4_ref),
+        ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 10),
+        plain_ms=ref_ms,
+        bound=bound_ms(nbytes(pack_in) + nbytes(b4),
+                       pack_ops(a["g_count"], b4[5], b4[2], T, R, V1)),
+        shape=(f"team-in V1 2048: G={G} T={T} NMAX={st['nmax']} claims={int(b4[2])}; "
+               f"{smem} B shared, {spill} B spilled"),
+    ), lambda: packing_mod.pack(*pack_in, **st), 10)
+    return rows
+
+
+def dense_fresh_row(b3_in, zk, ck, label):
+    """B3's fresh entry on ``b3_in`` (its 17 inputs on the card) against
+    its plain version: wrapper and device times, the bound. Tolerance:
+    exact equality."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    b3 = feas.fresh_claim_feasibility(*b3_in, zone_kid=zk, ct_kid=ck)
+    b3_ref = feas.fresh_claim_feasibility_reference(*b3_in, zone_kid=zk, ct_kid=ck)
+    P, G = b3_in[8].shape
+    T, K, V1 = b3_in[11].shape
+    R, O = b3_in[12].shape[1], b3_in[13].shape[1]
+    W = (V1 + 31) // 32
+    lay = feas.dense_layout(P, -1, G, T, K, V1, R, O)
+    return with_device(dict(
+        max_abs_err=max_abs_err(b3, b3_ref),
+        ms=cuda_ms(lambda: feas.fresh_claim_feasibility(*b3_in, zone_kid=zk, ct_kid=ck), 50),
+        plain_ms=cuda_ms(lambda: feas.fresh_claim_feasibility_reference(
+            *b3_in, zone_kid=zk, ct_kid=ck), 10),
+        # the mask rows' bit words (W = ceil(V1 / 32) per key), compat
+        # per (p, g), then per cell the merged K x W join, the offerings
+        # and fits_count
+        bound=bound_ms(nbytes(b3_in) + nbytes(b3),
+                       (G + P + T) * K * V1 + P * G * K * W + P * G * T * (K * W + O + 2 * R)),
+        shape=(f"{label}: P={P} G={G} T={T} K={K} V1={V1} R={R} O={O}; {lay['mode']}, "
+               f"tiles {lay['tiles'][0]} x {lay['tiles'][1]}, {lay['smem']} B"),
+    ), lambda: feas.fresh_claim_feasibility(*b3_in, zone_kid=zk, ct_kid=ck), 100)
 
 
 def relax_plan(solver, pods):
@@ -770,10 +947,11 @@ def relax_plan(solver, pods):
 
 
 def relax_row(torch_solver_cls, config_cls):
-    """Phase 2's B9 row: relax_fill on the bulk inputs of the identical 50k
-    x 400 batch (B3's head tables on the card, then the host's claim
-    sizes, as ops/relax.py:solve_bulk builds them) against its plain
-    version. Tolerance: exact equality."""
+    """Phase 2's B3 row at the relax path's shape (the fresh entry over the
+    identical 50k x 400 batch's run heads: 1 x 400) and B9's row:
+    relax_fill on the bulk inputs (B3's head tables on the card, then the
+    host's claim sizes, as ops/relax.py:solve_bulk builds them), each
+    against its plain version. Tolerance: exact equality."""
     import torch
 
     from karpenter_tpu_torch.ops import feasibility as feas
@@ -798,7 +976,7 @@ def relax_row(torch_solver_cls, config_cls):
         raise SmokeFailure(f"B9: {n_r} claims holding {int(b9[0][:, :n_r].sum())} pods")
     GE, NR = b9[0].shape
     T = b9[1].shape[1]
-    return with_device(dict(
+    return dense_fresh_row(head, run.zone_kid, run.ct_kid, "relax heads"), with_device(dict(
         max_abs_err=max_abs_err(b9, b9_ref),
         ms=cuda_ms(lambda: relax_mod.relax_fill(*b9_in), 50),
         plain_ms=cuda_ms(lambda: relax_mod.relax_fill_reference(*b9_in), 20),
@@ -2620,6 +2798,161 @@ def phase_tenant(torch_solver_cls, config_cls, encode_cache_cls):
     return out
 
 
+def wide_cpu_worker(label, conn):
+    """A child process's work: the device="cpu" decisions of the wide input
+    ``label``, sent on ``conn``."""
+    from karpenter_tpu_torch.solver.driver import EncodeCache, SolverConfig, TorchSolver
+
+    _, pools, catalog, pods = [w for w in wide_inputs() if w[0] == label][0]
+    s = build_batch(TorchSolver, SolverConfig, pods, 0, device="cpu", cache=EncodeCache(),
+                    pools=pools(), its=catalog())
+    conn.send(decisions(s.solve(pods), pods))
+    conn.close()
+
+
+def start_wide_cpu(label):
+    """Start the device="cpu" solve of wide input ``label`` in a child
+    process (spawned: the parent holds the card); returns the process and
+    the end of the pipe its decisions arrive on."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=wide_cpu_worker, args=(label, send), daemon=True)
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def phase_wide(torch_solver_cls, config_cls, encode_cache_cls):
+    """Phase 10: the wide value vocabularies (ROADMAP §C1) on the card,
+    every solve counted: a per-team label with 1,100 teams over Exists
+    (1,100 pods, K 16, V1 2048), its In list with 40 pods, minValues 2 on
+    the instance type over 1,100 types (mixed_pods(2000), MW 2048), and a
+    pool listing 600 of 800 types at mixed 50k (V1 1024). Each cold card
+    solve returns Results (no raise, no fallback) equal in slot order to
+    the device="cpu" solve of the same input: the per-team input's in a
+    child process beside the phase's card solves (its relax plan is a
+    minute of host work in either process), the listed pool's at
+    WIDE_CPU_PODS pods (the CPU's plain scans of the 50k batch take
+    minutes). Then, with the child gone, the listed pool's p50 over 5
+    solves on a warm catalog cache, as phase 3 times mixed 50k, and one
+    traced solve's span split. Reports each input's K, V1, MW and the
+    layout each kernel took: B1's mode, tiles and shared memory
+    (feasibility.fresh_layout), B3's where relax ran (dense_layout), the
+    scans' shared memory and spill scratch (packing.layouts)."""
+    out, inputs = {}, {}
+    proc, recv = start_wide_cpu("team_exists")
+    try:
+        for label, pools, catalog, pods in wide_inputs():
+            def solver_for(device, batch=pods, cache=None, pools=pools, catalog=catalog):
+                return build_batch(torch_solver_cls, config_cls, batch, 0, device=device,
+                                   cache=cache or encode_cache_cls(), pools=pools(),
+                                   its=catalog())
+
+            inputs[label] = (solver_for, pods)
+            out[label] = wide_card_solve(label, solver_for, pods)
+        if not recv.poll(WIDE_CPU_WAIT_S):
+            raise SmokeFailure(f"wide team_exists: no device='cpu' decisions in "
+                               f"{WIDE_CPU_WAIT_S} s")
+        try:
+            cpu_dec = recv.recv()
+        except EOFError:
+            raise SmokeFailure(f"wide team_exists: the device='cpu' solve failed (exit code "
+                               f"{proc.exitcode})") from None
+        if out["team_exists"].pop("card_decisions") != cpu_dec:
+            raise SmokeFailure("wide team_exists: CUDA decisions differ from the device='cpu' "
+                               "solve in slot order")
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+        proc.join(30)
+    out["listed_types"].update(wide_timings(*inputs["listed_types"], encode_cache_cls))
+    return out
+
+
+def wide_card_solve(label, solver_for, pods):
+    """One wide input's counted cold card solve, its layouts and, but for
+    the per-team input (whose CPU run is the child's), its comparison with
+    device="cpu"; returns phase 10's row for it."""
+    import torch
+
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packing as packing_mod
+    from karpenter_tpu_torch.solver.workloads import mixed_pods
+
+    s = solver_for("cuda")
+    snaps = []  # each dispatch's snapshot and bucketed G
+    own = s._kernel_statics
+    s._kernel_statics = lambda snap, G: (snaps.append((snap, G)), own(snap, G))[1]
+    packing_mod.layouts.clear()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = s.solve(pods)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(_build.launches)
+    if counts["fresh_feasibility"] < 1 or counts["pack"] + counts["pack_classed"] < 1:
+        raise SmokeFailure(f"wide {label}: the dispatch did not run B1 and a scan ({counts})")
+    if s.fallback_solves:
+        raise SmokeFailure(f"wide {label}: fallbacks {s.last_fallback_reasons}")
+    snap, G = snaps[-1]
+    K, V1 = snap.vocab.padded_shape()
+    MW = snap.t_mvoh.shape[-1] if snap.p_mvmin.any() else 0  # the floors' catalog width
+    P, T = len(snap.templates), len(snap.instance_types)
+    R, O = snap.g_req.shape[1], snap.o_avail.shape[1]
+    lay = dict(b1=feas.fresh_layout(P, G, T, K, V1, R, O),
+               scans={k[0]: dict(smem=v[0], spill=v[1]) for k, v in packing_mod.layouts.items()})
+    if counts["dense_fresh"]:
+        lay["b3"] = feas.dense_layout(1, -1, 1, T, K, V1, R, O)
+    row = dict(K=K, V1=V1, MW=MW, G=G, T=T, claims=len(res.new_node_claims),
+               errors=len(res.pod_errors), relax_pods=s.last_relax_pods, first_ms=first_ms,
+               cpu_pods=len(pods), layout=lay, launches=counts)
+    if label == "team_exists":
+        row["card_decisions"] = decisions(res, pods)
+        return row
+    batch, card = pods, res
+    if label == "listed_types":
+        batch = mixed_pods(WIDE_CPU_PODS)
+        card = solver_for("cuda", batch).solve(batch)
+        row["cpu_pods"] = WIDE_CPU_PODS
+    if decisions(card, batch) != decisions(solver_for("cpu", batch).solve(batch), batch):
+        raise SmokeFailure(f"wide {label}: CUDA decisions differ from the device='cpu' solve "
+                           f"in slot order ({len(batch)} pods)")
+    return row
+
+
+def wide_timings(solver_for, pods, encode_cache_cls):
+    """The listed pool's solve at 50k: p50 over 5 solves on a warm catalog
+    cache (as phase 3 times mixed 50k) and one traced solve's span split."""
+    import torch
+
+    from karpenter_tpu_torch import obs
+
+    cache = encode_cache_cls()
+    solver_for("cuda", cache=cache).solve(pods)  # warm the catalog encode
+    times = []
+    for _ in range(5):
+        s = solver_for("cuda", cache=cache)
+        gc.collect()
+        t0 = time.perf_counter()
+        s.solve(pods)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    s = solver_for("cuda", cache=cache)
+    tracer = obs.install(obs.Tracer(obs.PerfClock()))
+    try:
+        s.solve(pods)
+    finally:
+        obs.uninstall()
+    totals = tracer.phase_totals()
+    spans = {k: totals.get(f"solve.{k}", 0.0) * 1e3
+             for k in ("partition", "encode", "transfer", "dispatch", "guard", "decode")}
+    spans["other"] = totals.get("solve", 0.0) * 1e3 - sum(spans.values())
+    return dict(ms=times, p50_ms=statistics.median(times), spans=spans)
+
+
 def cluster_text(cluster):
     """A scan launch's cluster as csrc/pack_common.cuh:pick_cluster reports
     it: (blocks, such clusters the card holds at once, clusters of the
@@ -2814,6 +3147,23 @@ def main():
         f"{ten['scenarios_ms']:.1f} ms; launches "
         + " ".join(f"{p}={c}" for p, c in ten["launches"].items()))
 
+    wide, secs = timed_phase(lambda: phase_wide(TorchSolver, SolverConfig, EncodeCache))
+    log(f"phase 10 wide value vocabularies (each cold card solve returns Results, == cpu in slot "
+        f"order, 0 fallbacks) ({secs:.0f} s): " + "; ".join(
+            f"{label} K={w['K']} V1={w['V1']} MW={w['MW']} G={w['G']} T={w['T']} -> "
+            f"{w['claims']} claims, {w['errors']} errors, relax_pods {w['relax_pods']}, first "
+            f"{w['first_ms']:.1f} ms"
+            + (f", p50 {w['p50_ms']:.1f} ms of " + "/".join(f"{t:.1f}" for t in w["ms"])
+               + f" ms (mixed 50k x {N_TYPES}, phase 3: {e2e['solve_p50_ms']:.1f} ms); traced "
+               + " ".join(f"{k}={v:.1f}ms" for k, v in w["spans"].items())
+               if "p50_ms" in w else "")
+            + f", == cpu at {w['cpu_pods']} pods; B1 {w['layout']['b1']}"
+            + (f"; B3 {w['layout']['b3']}" if "b3" in w["layout"] else "")
+            + "; scans " + " ".join(f"{k}: {v['smem']} B shared, {v['spill']} B spilled"
+                                    for k, v in w["layout"]["scans"].items())
+            + "; launches " + " ".join(f"{k}={v}" for k, v in w["launches"].items() if v)
+            for label, w in wide.items()))
+
     # every path's own counts: the solves, the searches, the five loops
     paths = dict(e2e["launches"])
     paths.update({label: c["launches"] for label, c in cons.items()})
@@ -2823,6 +3173,7 @@ def main():
     paths.update({label: c["launches"] for label, c in cells.items()})
     paths["cons_minvalues"] = cm["launches"]
     paths.update(ten["launches"])
+    paths.update({label: w["launches"] for label, w in wide.items()})
     scen_paths = {label: c["scenario_launches"] for label, c in cons.items()}
     kernels = []
     for name, row in rows.items():
@@ -2840,7 +3191,7 @@ def main():
         elif name in SHAPE_ROWS:  # B1/B2 at another shape of their paths
             kernel, at = SHAPE_ROWS[name]
             by_path = {p: paths[p][kernel] for p in at}
-            source = f"karpenter_tpu_torch/csrc/{kernel}.cu"
+            source = f"karpenter_tpu_torch/csrc/{SOURCES.get(kernel, kernel)}.cu"
             extra = {"kernel": kernel}
         elif name == "scenarios_tiled":  # B7's grid tiled: phase 9's scenario batch
             by_path = {"tenant_scenarios": ten["scenario_launches"]["pack_tiled"]}

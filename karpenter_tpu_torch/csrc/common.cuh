@@ -92,6 +92,20 @@ __device__ __forceinline__ void stage_bytes(uint8_t* dst, const uint8_t* src, in
   }
 }
 
+// Let ``kernel`` take ``smem`` bytes of dynamic shared memory (past 48 KB
+// the runtime asks for it; the attribute is the current device's, so it
+// is set on each such call). Returns the runtime's error code; a refusal
+// is also cleared from the runtime's last error, so that the next launch
+// in the process does not report it as its own.
+template <class Kernel>
+inline int allow_dynamic_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(e);
+}
+
 inline int grid_for(long long n, int block) {
   long long g = (n + block - 1) / block;
   return static_cast<int>(g < 1 ? 1 : g);

@@ -49,9 +49,21 @@ __device__ __forceinline__ uint32_t row_word(const uint8_t* row, int V1, int w, 
   return x4 ? mask_word_x4(row, V1, w) : mask_word(row, V1, w);
 }
 
+// The W words of one [V1] byte mask row read straight from memory, for a
+// caller with no room to keep them: word w is row_word(row, V1, w, x4),
+// and it indexes, offsets and tests bits like a word array.
+struct RowWords {
+  const uint8_t* row;
+  int V1;
+  bool x4;
+  __device__ __forceinline__ uint32_t operator[](int w) const { return row_word(row, V1, w, x4); }
+};
+
 __device__ __forceinline__ bool bit(const uint32_t* words, int v) {
   return (words[v >> 5] >> (v & 31)) & 1u;
 }
+
+__device__ __forceinline__ bool bit(const RowWords& r, int v) { return r.row[v] != 0; }
 
 // the words of ``rows`` [., V1] byte mask rows into ``out`` [rows, W],
 // word i taken by thread i0 + k * step
@@ -61,15 +73,17 @@ __device__ __forceinline__ void mask_words(const uint8_t* mask, long long rows, 
     out[i] = mask_word(mask + (i / W) * V1, V1, static_cast<int>(i % W));
 }
 
-// some value slot set in every row of one key: (a & b (& c)).any(-1)
-__device__ __forceinline__ bool words_meet(const uint32_t* a, const uint32_t* b, int W) {
+// some value slot set in every row of one key: (a & b (& c)).any(-1);
+// each of a, b, c a word array or RowWords
+template <class A, class B>
+__device__ __forceinline__ bool words_meet(const A& a, const B& b, int W) {
   for (int w = 0; w < W; ++w)
     if (a[w] & b[w]) return true;
   return false;
 }
 
-__device__ __forceinline__ bool words_meet3(const uint32_t* a, const uint32_t* b,
-                                            const uint32_t* c, int W) {
+template <class A, class B, class C>
+__device__ __forceinline__ bool words_meet3(const A& a, const B& b, const C& c, int W) {
   for (int w = 0; w < W; ++w)
     if (a[w] & b[w] & c[w]) return true;
   return false;
@@ -81,51 +95,79 @@ __device__ __forceinline__ bool words_meet3(const uint32_t* a, const uint32_t* b
 // both sides) and the custom-label term (a positively constrained key is
 // well known or defined template-side). p_neg == nullptr and well_known
 // == nullptr is the strict direction of existing nodes (a node's labels
-// are never negated and get no allowance). p_w / g_w are [K, W] words.
-__device__ __forceinline__ bool dense_compatible(
-    const uint8_t* p_def, const uint8_t* p_neg, const uint32_t* p_w,
-    const uint8_t* g_def, const uint8_t* g_neg, const uint32_t* g_w,
-    const uint8_t* well_known, int K, int W) {
+// are never negated and get no allowance). ``meet(k)``: whether key k's
+// masks of the two sides share a value slot.
+template <class Meet>
+__device__ __forceinline__ bool compatible_by(const uint8_t* p_def, const uint8_t* p_neg,
+                                              const uint8_t* g_def, const uint8_t* g_neg,
+                                              const uint8_t* well_known, int K, const Meet& meet) {
   for (int k = 0; k < K; ++k) {
     const bool pdef = p_def[k], gdef = g_def[k];
     const bool pneg = p_neg != nullptr && p_neg[k];
     const bool gneg = g_neg[k];
     const bool wk = well_known != nullptr && well_known[k];
     if (!(!gdef || wk || pdef || gneg)) return false;
-    if (!(pneg && gneg) && pdef && gdef && !words_meet(p_w + k * W, g_w + k * W, W))
-      return false;
+    if (!(pneg && gneg) && pdef && gdef && !meet(k)) return false;
   }
   return true;
+}
+
+// compatible_by over [K, W] word rows p_w / g_w
+__device__ __forceinline__ bool dense_compatible(
+    const uint8_t* p_def, const uint8_t* p_neg, const uint32_t* p_w,
+    const uint8_t* g_def, const uint8_t* g_neg, const uint32_t* g_w,
+    const uint8_t* well_known, int K, int W) {
+  return compatible_by(p_def, p_neg, g_def, g_neg, well_known, K,
+                       [&](int k) { return words_meet(p_w + k * W, g_w + k * W, W); });
 }
 
 // Requirements.Intersects of type row t against the claim p ∪ g
 // (merge_requirements: masks AND, defined OR). A type's requirements are
 // never negated, so the double-negation exemption never applies.
-__device__ __forceinline__ bool dense_type_compat(
-    const uint8_t* t_def, const uint32_t* t_w, const uint8_t* p_def, const uint32_t* p_w,
-    const uint8_t* g_def, const uint32_t* g_w, int K, int W) {
+// ``meet(k)``: whether key k's masks of t, p and g share a value slot.
+template <class Meet>
+__device__ __forceinline__ bool type_compat_by(const uint8_t* t_def, const uint8_t* p_def,
+                                               const uint8_t* g_def, int K, const Meet& meet) {
   for (int k = 0; k < K; ++k) {
     if (!(t_def[k] && (p_def[k] || g_def[k]))) continue;
-    if (!words_meet3(t_w + k * W, p_w + k * W, g_w + k * W, W)) return false;
+    if (!meet(k)) return false;
   }
   return true;
 }
 
+// type_compat_by over [K, W] word rows
+__device__ __forceinline__ bool dense_type_compat(
+    const uint8_t* t_def, const uint32_t* t_w, const uint8_t* p_def, const uint32_t* p_w,
+    const uint8_t* g_def, const uint32_t* g_w, int K, int W) {
+  return type_compat_by(t_def, p_def, g_def, K, [&](int k) {
+    return words_meet3(t_w + k * W, p_w + k * W, g_w + k * W, W);
+  });
+}
+
 // offering_ok of type t's O offerings against the claim p ∪ g: any
 // available offering whose zone and capacity-type values the merged masks
-// admit (a negative id admits any value). pz/pc/gz/gc are the [W] zone
-// and capacity-type words of template and group.
-__device__ __forceinline__ bool dense_offering_ok(
-    const uint32_t* pz, const uint32_t* pc, const uint32_t* gz, const uint32_t* gc,
-    const uint8_t* o_avail, const int32_t* o_zone, const int32_t* o_ct, int O) {
+// admit (a negative id admits any value). ``z_ok(z)`` / ``c_ok(c)``: the
+// merged zone / capacity-type masks admit value slot z / c.
+template <class ZOk, class COk>
+__device__ __forceinline__ bool offering_ok_by(const uint8_t* o_avail, const int32_t* o_zone,
+                                               const int32_t* o_ct, int O, const ZOk& z_ok,
+                                               const COk& c_ok) {
   for (int o = 0; o < O; ++o) {
     if (!o_avail[o]) continue;
     const int32_t z = o_zone[o], c = o_ct[o];
-    const bool z_ok = z < 0 || (bit(pz, z) && bit(gz, z));
-    const bool c_ok = c < 0 || (bit(pc, c) && bit(gc, c));
-    if (z_ok && c_ok) return true;
+    if ((z < 0 || z_ok(z)) && (c < 0 || c_ok(c))) return true;
   }
   return false;
+}
+
+// offering_ok_by over the [W] zone and capacity-type words of template
+// and group (pz/pc/gz/gc)
+__device__ __forceinline__ bool dense_offering_ok(
+    const uint32_t* pz, const uint32_t* pc, const uint32_t* gz, const uint32_t* gc,
+    const uint8_t* o_avail, const int32_t* o_zone, const int32_t* o_ct, int O) {
+  return offering_ok_by(o_avail, o_zone, o_ct, O,
+                        [&](int z) { return bit(pz, z) && bit(gz, z); },
+                        [&](int c) { return bit(pc, c) && bit(gc, c); });
 }
 
 }  // namespace kt

@@ -25,27 +25,40 @@
 // shared-memory integer atomic (int32 wraps; exact in any order): work
 // O(N x L + N x G x R), each cell seeing only its own group's pairs.
 // Compatibility and room do not depend on the scenario, so each cell
-// computes them once and writes its S gated values.
+// computes them once and writes its S gated values. A wide value
+// vocabulary (the words of the nodes and of a chunk of 256 pairs past the
+// card's 227 KB: at K = 16 from V1 = 8,192) narrows the nodes, then the
+// pair chunk, to 1; past even that (at K = 16, V1 = 131,072) the block
+// keeps no words and reads each from the byte rows in device memory where
+// it needs it. Every layout computes the same table.
 #include "dense_feasibility.cuh"
 
 namespace {
 
 using kt::row_word;
+using kt::RowWords;
 
 constexpr int kBlock = 256;
-constexpr int kChunk = kBlock;  // live pairs gathered per pass
 constexpr int kDefBit = 1 << 30, kNegBit = 1 << 29;  // a gathered pair's key | flags
 constexpr size_t kNodeWords = 32 * 1024;
+// the card's 227 KB a block, less a margin for the static n_pairs
+constexpr size_t kSmemMax = 227 * 1024 - 16;
 
-__host__ __device__ inline size_t smem_bytes(int K, int W, int TN, int TG) {
-  // node words [TN, K, W], pair words [kChunk, W], fail counts [TN, TG],
-  // pair group/key/weight [kChunk] each, node defs [TN, K]
-  return 4u * (static_cast<size_t>(TN) * K * W + kChunk * W + TN * TG + 3 * kChunk) +
+__host__ __device__ inline size_t smem_bytes(int K, int W, int TN, int TG, int PC) {
+  // node words [TN, K, W], pair words [PC, W], fail counts [TN, TG],
+  // pair group/key/weight [PC] each, node defs [TN, K]
+  return 4u * (static_cast<size_t>(TN) * K * W + static_cast<size_t>(PC) * W + TN * TG +
+               3 * PC) +
          static_cast<size_t>(TN) * K;
 }
 
+// ``kRows``: the block keeps no mask words (a value vocabulary too wide
+// for even one node's and one pair's words), every word read from the
+// byte rows in device memory where it is needed; ``PC`` live pairs a
+// gathering pass.
+template <bool kRows>
 __global__ void __launch_bounds__(kBlock) node_caps(
-    int S, int N, int G, int K, int V1, int W, int R, int L, int TN, int TG, bool x4,
+    int S, int N, int G, int K, int V1, int R, int L, int TN, int TG, int PC, bool x4,
     const uint8_t* __restrict__ g_def, const uint8_t* __restrict__ g_neg,
     const uint8_t* __restrict__ g_mask, const float* __restrict__ g_req,
     const uint8_t* __restrict__ n_def, const uint8_t* __restrict__ n_mask,
@@ -55,39 +68,54 @@ __global__ void __launch_bounds__(kBlock) node_caps(
     const int32_t* __restrict__ gk_w, int32_t* __restrict__ cap_ng) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int n_pairs;
+  const int W = (V1 + 31) / 32, Ws = kRows ? 0 : W;
   uint32_t* nw = reinterpret_cast<uint32_t*>(smem_raw);  // [TN, K, W]
-  uint32_t* pair_w = nw + static_cast<size_t>(TN) * K * W;  // [kChunk, W]
-  int32_t* nfail = reinterpret_cast<int32_t*>(pair_w + kChunk * W);  // [TN, TG]
+  uint32_t* pair_w = nw + static_cast<size_t>(TN) * K * Ws;  // [PC, W]
+  int32_t* nfail = reinterpret_cast<int32_t*>(pair_w + PC * Ws);  // [TN, TG]
   int32_t* pair_g = nfail + TN * TG;
-  int32_t* pair_k = pair_g + kChunk;
-  int32_t* pair_wt = pair_k + kChunk;
-  uint8_t* ndef = reinterpret_cast<uint8_t*>(pair_wt + kChunk);  // [TN, K]
+  int32_t* pair_k = pair_g + PC;
+  int32_t* pair_wt = pair_k + PC;
+  uint8_t* ndef = reinterpret_cast<uint8_t*>(pair_wt + PC);  // [TN, K]
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * TN, g0 = blockIdx.y * TG;
   const int nn = min(TN, N - n0), ng = min(TG, G - g0);
   const int KW = K * W;
+  auto row = [&](const uint8_t* mask, size_t r) { return RowWords{mask + r * V1, V1, x4}; };
+  // key k's words of the tile's node nl, and the gathered pair j's
+  auto n_words = [&](int nl, int k) {
+    if constexpr (kRows) return row(n_mask, static_cast<size_t>(n0 + nl) * K + k);
+    else return static_cast<const uint32_t*>(nw + nl * KW + k * W);
+  };
+  auto pair_words = [&](int j) {
+    if constexpr (kRows)
+      return row(g_mask, static_cast<size_t>(g0 + pair_g[j]) * K + (pair_k[j] & (kNegBit - 1)));
+    else return static_cast<const uint32_t*>(pair_w + j * W);
+  };
 
+  if constexpr (!kRows) {
 #pragma unroll 1
-  for (int i = tid; i < nn * KW; i += kBlock)
-    nw[i] = row_word(n_mask + (static_cast<size_t>(n0) * K + i / W) * V1, V1, i % W, x4);
+    for (int i = tid; i < nn * KW; i += kBlock)
+      nw[i] = row_word(n_mask + (static_cast<size_t>(n0) * K + i / W) * V1, V1, i % W, x4);
+  }
 #pragma unroll 1
   for (int i = tid; i < nn * K; i += kBlock) ndef[i] = n_def[static_cast<size_t>(n0) * K + i];
 #pragma unroll 1
   for (int i = tid; i < TN * TG; i += kBlock) nfail[i] = 0;
 
 #pragma unroll 1
-  for (int c0 = 0; c0 < L; c0 += kChunk) {
+  for (int c0 = 0; c0 < L; c0 += PC) {
     if (tid == 0) n_pairs = 0;
     __syncthreads();
     const int l = c0 + tid;
-    if (l < L) {
+    if (tid < PC && l < L) {
       const int32_t w = gk_w[l];
       const int g = gk_g[l];
       if (w != 0 && g >= g0 && g < g0 + ng) {
         const int k = gk_k[l];
         const int j = atomicAdd(&n_pairs, 1);
         const size_t gk = static_cast<size_t>(g) * K + k;
-        for (int v = 0; v < W; ++v) pair_w[j * W + v] = row_word(g_mask + gk * V1, V1, v, x4);
+        if constexpr (!kRows)
+          for (int v = 0; v < W; ++v) pair_w[j * W + v] = row_word(g_mask + gk * V1, V1, v, x4);
         pair_g[j] = g - g0;
         pair_k[j] = k | (g_def[gk] ? kDefBit : 0) | (g_neg[gk] ? kNegBit : 0);
         pair_wt[j] = w;
@@ -101,7 +129,7 @@ __global__ void __launch_bounds__(kBlock) node_caps(
       const int k = pair_k[j] & (kNegBit - 1);
       const bool gdef = pair_k[j] & kDefBit, gneg = pair_k[j] & kNegBit;
       const bool nd = ndef[nl * K + k];
-      const bool term = kt::words_meet(nw + nl * KW + k * W, pair_w + j * W, W) || !(nd && gdef);
+      const bool term = kt::words_meet(n_words(nl, k), pair_words(j), W) || !(nd && gdef);
       const bool custom = !gdef || nd || gneg;
       if (!(term && custom)) atomicAdd(&nfail[nl * TG + pair_g[j]], pair_wt[j]);
     }
@@ -147,18 +175,24 @@ extern "C" int kt_existing_feasibility(
   while (TN > 1 && (g_tiles * ((N + TN - 1) / TN) < 132 ||
                     4u * static_cast<size_t>(TN) * K * W > kNodeWords))
     TN >>= 1;
+  // past the card's 227 KB (a wide value vocabulary): the nodes, then the
+  // pair chunk, narrowed to 1; past that no words kept (kRows)
+  int PC = kBlock;
+  while (smem_bytes(K, W, TN, TG, PC) > kSmemMax && (TN > 1 || PC > 1)) {
+    if (TN > 1) TN >>= 1;
+    else PC >>= 1;
+  }
+  const bool rows = smem_bytes(K, W, TN, TG, PC) > kSmemMax;
+  if (rows) PC = kBlock;
+  const size_t smem = smem_bytes(K, rows ? 0 : W, TN, TG, PC);
+  auto kernel = rows ? node_caps<true> : node_caps<false>;
+  const int rc = kt::allow_dynamic_smem(kernel, smem);  // very wide masks: past 48 KB
+  if (rc) return rc;
   const bool x4 = V1 % 4 == 0 && reinterpret_cast<uintptr_t>(n_mask) % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(g_mask) % 4 == 0;
-  const size_t smem = smem_bytes(K, W, TN, TG);
-  if (smem > 48 * 1024) {  // node and pair words past 48 KB: very wide masks; set on
-    // each such call, as the attribute is the current device's
-    const cudaError_t e = cudaFuncSetAttribute(
-        node_caps, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   const dim3 grid((N + TN - 1) / TN, (G + TG - 1) / TG);
-  node_caps<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
-      S, N, G, K, V1, W, R, L, TN, TG, x4, g_def, g_neg, g_mask, g_req, n_def, n_mask,
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
+      S, N, G, K, V1, R, L, TN, TG, PC, x4, g_def, g_neg, g_mask, g_req, n_def, n_mask,
       n_avail, n_base, n_tol, gk_g, gk_k, gk_w, cap_ng);
   return static_cast<int>(cudaGetLastError());
 }

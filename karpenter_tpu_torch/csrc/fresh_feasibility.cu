@@ -52,22 +52,32 @@
 //   mixed 50k x 400 (G=64, T=400):   TG 8,  104 blocks, 13,632 B;
 //   diverse-ref     (G=2048, T=400): TG 64, 416 blocks, 23,208 B;
 //   constrained     (G=256, T=800):  TG 16, 400 blocks, 15,000 B.
-// At K = 16 a block fits the card's 227 KB up to about 1,600 values a key
-// (about 840 with 64-group tiles); past that the launch fails and the
-// wrapper raises.
+// Wide value vocabularies: the staged byte rows grow with V1 (a block
+// stages [TT, K, V1] + [K, V1] + 2 [TG, V1] bytes), so where they do not
+// fit the card's 227 KB with the types narrowed to 4 (at K = 16 from V1 =
+// 1024 with 64-group tiles, V1 = 2048 at any tile) the block stages no
+// mask bytes and builds its words straight from device memory (Mode::
+// kDirect): shared memory then grows with V1 only through the bit words,
+// [TT, K, W] + [K, W] + 2 [TG, W] + [PC, W] (W = V1 / 32), and the types,
+// then the groups, then the gathered-pair chunk PC narrow until they fit.
+// Past the widest V1 at which even one type, one group and one pair fit
+// (at K = 16: V1 = 32,768 fits, V1 = 65,536 does not), the block keeps
+// no words at all and reads every word from the byte rows in device memory
+// where it needs it (Mode::kRows). Every mode computes the same tables.
 #include "dense_feasibility.cuh"
 
 namespace {
 
 using kt::bit;
 using kt::row_word;
+using kt::RowWords;
 using kt::words_meet;
 using kt::words_meet3;
 
 constexpr int kBlock = 256;
-constexpr int kChunk = kBlock;  // live pairs gathered per pass
 constexpr int kDefBit = 1 << 30;  // a gathered pair's key | (g_def << 30)
-constexpr size_t kSmemDefault = 48 * 1024, kSmemMax = 227 * 1024;
+// the card's 227 KB a block, less a margin for the static n_pairs
+constexpr size_t kSmemDefault = 48 * 1024, kSmemMax = 227 * 1024 - 16;
 
 __host__ __device__ inline int words_of(int n) { return (n + 31) / 32; }
 
@@ -75,10 +85,18 @@ __host__ __device__ inline int words_of(int n) { return (n + 31) / 32; }
 enum Phase { kPhStage, kPhWords, kPhBase, kPhPairs, kPhCompat, kPhCells, kPhases };
 static_assert(kPhases <= kMaxPhases, "one clock slot per phase");
 
+// How a block holds its mask rows: staged as bytes and turned into bit
+// words in shared memory (kStaged); bit words built straight from device
+// memory (kDirect); or none, every word read from the byte rows in device
+// memory where it is needed (kRows).
+enum Mode { kStaged, kDirect, kRows };
+
 // The block's shared memory: the staged raw rows (byte masks as torch
 // stores them, offering ids, allocatable rows, requests), the bit words
 // built from them, and the block's sums and flags. Every array starts
-// 4-byte aligned; the host sizes it with the same constructor.
+// 4-byte aligned; the host sizes it with the same constructor. The mask
+// rows' bytes are staged only in kStaged, their words kept only outside
+// kRows.
 struct Smem {
   uint32_t *pw, *pdw, *tw, *tdw, *aw, *gzw, *gcw, *pair_w;
   int32_t *oz, *oc, *adj, *base, *cfail, *pair_g, *pair_k, *pair_wt;
@@ -87,10 +105,12 @@ struct Smem {
   uint8_t *tok, *ptol, *toff, *listed, *compat;
   size_t bytes;
 
-  __host__ __device__ Smem(void* at, int K, int V1, int R, int O, int TG, int TT) {
+  __host__ __device__ Smem(void* at, int K, int V1, int R, int O, int TG, int TT, int PC,
+                           Mode mode) {
     char* c = static_cast<char*>(at);
     auto take = [&c](size_t n) { char* p = c; c += (n + 3) & ~size_t{3}; return p; };
-    const size_t W = words_of(V1), KD = words_of(K), OW = words_of(O), V1r = (V1 + 3) & ~3;
+    const size_t W = mode == kRows ? 0 : words_of(V1), KD = words_of(K), OW = words_of(O);
+    const size_t V1s = mode == kStaged ? V1 : 0, V1r = mode == kStaged ? (V1 + 3) & ~3 : 0;
     pw = reinterpret_cast<uint32_t*>(take(4 * K * W));           // [K, W] p's masks
     pdw = reinterpret_cast<uint32_t*>(take(4 * KD));             // [KD] p's defined keys
     tw = reinterpret_cast<uint32_t*>(take(4 * TT * K * W));      // [TT, K, W]
@@ -98,22 +118,22 @@ struct Smem {
     aw = reinterpret_cast<uint32_t*>(take(4 * TT * OW));         // [TT, OW] o_avail
     gzw = reinterpret_cast<uint32_t*>(take(4 * TG * W));         // [TG, W]
     gcw = reinterpret_cast<uint32_t*>(take(4 * TG * W));         // [TG, W]
-    pair_w = reinterpret_cast<uint32_t*>(take(4 * kChunk * W));  // [kChunk, W]
+    pair_w = reinterpret_cast<uint32_t*>(take(4 * PC * W));      // [PC, W]
     oz = reinterpret_cast<int32_t*>(take(4 * TT * O));           // [TT, O]
     oc = reinterpret_cast<int32_t*>(take(4 * TT * O));           // [TT, O]
     adj = reinterpret_cast<int32_t*>(take(4 * TG * TT));         // [TG, TT]
     base = reinterpret_cast<int32_t*>(take(4 * TT));
     cfail = reinterpret_cast<int32_t*>(take(4 * TG));
-    pair_g = reinterpret_cast<int32_t*>(take(4 * kChunk));
-    pair_k = reinterpret_cast<int32_t*>(take(4 * kChunk));
-    pair_wt = reinterpret_cast<int32_t*>(take(4 * kChunk));
+    pair_g = reinterpret_cast<int32_t*>(take(4 * PC));
+    pair_k = reinterpret_cast<int32_t*>(take(4 * PC));
+    pair_wt = reinterpret_cast<int32_t*>(take(4 * PC));
     alloc = reinterpret_cast<float*>(take(4 * TT * R));          // [TT, R]
     daemon = reinterpret_cast<float*>(take(4 * R));
     req = reinterpret_cast<float*>(take(4 * TG * R));            // [TG, R]
-    raw_t = reinterpret_cast<uint8_t*>(take(size_t{1} * TT * K * V1));  // [TT, K, V1]
+    raw_t = reinterpret_cast<uint8_t*>(take(size_t{1} * TT * K * V1s));  // [TT, K, V1]
     raw_td = reinterpret_cast<uint8_t*>(take(size_t{1} * TT * K));      // [TT, K]
     raw_oa = reinterpret_cast<uint8_t*>(take(size_t{1} * TT * O));      // [TT, O]
-    raw_p = reinterpret_cast<uint8_t*>(take(size_t{1} * K * V1));       // [K, V1]
+    raw_p = reinterpret_cast<uint8_t*>(take(size_t{1} * K * V1s));      // [K, V1]
     raw_pd = reinterpret_cast<uint8_t*>(take(K));
     raw_gz = reinterpret_cast<uint8_t*>(take(TG * V1r));                // [TG, V1r]
     raw_gc = reinterpret_cast<uint8_t*>(take(TG * V1r));
@@ -143,11 +163,47 @@ __device__ __forceinline__ int32_t cell_fits(const float* alloc, const float* ba
   return R == 5 ? kt::fits_count(alloc, base, req, 5) : kt::fits_count(alloc, base, req, R);
 }
 
+// The block's tiles and mode: 32 types x 8 groups (a cell a thread), the
+// groups doubled up to 64 while the grid has more than 4 x 132 blocks;
+// staged with the types narrowed to 16 while the block passes 48 KB and
+// to 4 while it passes the card's 227 KB; past that kDirect, narrowing the
+// types to 4, the groups to 1, the pair chunk to 32, then the types and
+// the chunk to 1; past that kRows.
+void fresh_tiling(int P, int G, int T, int K, int V1, int R, int O, int& TT, int& TG, int& PC,
+                  Mode& mode) {
+  TT = 32, TG = 8, PC = kBlock;
+  auto blocks = [&] {
+    return static_cast<long long>(P) * ((G + TG - 1) / TG) * (T > 0 ? (T + TT - 1) / TT : 1);
+  };
+  while (blocks() > 4 * 132 && TG < 64) TG <<= 1;
+  auto bytes = [&](Mode m) { return Smem(nullptr, K, V1, R, O, TG, TT, PC, m).bytes; };
+  mode = kStaged;
+  while (TT > 16 && bytes(kStaged) > kSmemDefault) TT >>= 1;
+  while (TT > 4 && bytes(kStaged) > kSmemMax) TT >>= 1;
+  if (bytes(kStaged) <= kSmemMax) return;
+  mode = kDirect;
+  while (bytes(kDirect) > kSmemMax) {
+    if (TT > 4) TT >>= 1;
+    else if (TG > 1) TG >>= 1;
+    else if (PC > 32) PC >>= 1;
+    else if (TT > 1) TT >>= 1;
+    else if (PC > 1) PC >>= 1;
+    else break;
+  }
+  if (bytes(kDirect) <= kSmemMax) return;
+  mode = kRows, TT = 32, TG = 8, PC = kBlock;
+  while (blocks() > 4 * 132 && TG < 64) TG <<= 1;
+  while (TT > 4 && bytes(kRows) > kSmemMax) TT >>= 1;
+}
+
 // at most 64 registers, so that four blocks share an SM: diverse-ref's
-// 416 blocks are one wave on the 132 SMs
+// 416 blocks are one wave on the 132 SMs. ``M`` is how the block holds
+// its mask rows (Mode); ``x4``: the mask rows in device memory take 4-byte
+// loads (V1 % 4 == 0 and 4-byte aligned bases).
+template <Mode M>
 __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
-    int G, int T, int K, int V1, int R, int O, int L, int LZ, int TG, int TT,
-    int zone_kid, int ct_kid, bool wide,
+    int G, int T, int K, int V1, int R, int O, int L, int LZ, int TG, int TT, int PC,
+    int zone_kid, int ct_kid, bool wide, bool x4,
     const uint8_t* __restrict__ g_def, const uint8_t* __restrict__ g_neg,
     const uint8_t* __restrict__ g_mask, const float* __restrict__ g_req,
     const uint8_t* __restrict__ p_def, const uint8_t* __restrict__ p_neg,
@@ -163,46 +219,76 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
     int32_t* __restrict__ n_fit) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int n_pairs;
-  const Smem s(smem_raw, K, V1, R, O, TG, TT);
+  const Smem s(smem_raw, K, V1, R, O, TG, TT, PC, M);
   const int W = words_of(V1), KD = words_of(K), OW = words_of(O), KW = K * W;
   const int V1r = (V1 + 3) & ~3;
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * TT, g0 = blockIdx.y * TG, p = blockIdx.z;
   const int nt = max(0, min(TT, T - t0)), ng = min(TG, G - g0);
   PHASE_START;
+  // key k's words of the tile's type t, of p, and of the gathered pair j;
+  // the tile's groups' zone and capacity-type words: in shared memory, or
+  // (kRows) read from the byte rows in device memory
+  auto row = [&](const uint8_t* mask, size_t r) { return RowWords{mask + r * V1, V1, x4}; };
+  auto t_words = [&](int t, int k) {
+    if constexpr (M == kRows) return row(t_mask, static_cast<size_t>(t0 + t) * K + k);
+    else return static_cast<const uint32_t*>(s.tw + t * KW + k * W);
+  };
+  auto p_words = [&](int k) {
+    if constexpr (M == kRows) return row(p_mask, static_cast<size_t>(p) * K + k);
+    else return static_cast<const uint32_t*>(s.pw + k * W);
+  };
+  auto pair_words = [&](int j) {
+    if constexpr (M == kRows)
+      return row(g_mask, static_cast<size_t>(g0 + s.pair_g[j]) * K + (s.pair_k[j] & (kDefBit - 1)));
+    else return static_cast<const uint32_t*>(s.pair_w + j * W);
+  };
+  auto gz_words = [&](int gl) {
+    if constexpr (M == kRows) return row(g_mask, static_cast<size_t>(g0 + gl) * K + zone_kid);
+    else return static_cast<const uint32_t*>(s.gzw + gl * W);
+  };
+  auto gc_words = [&](int gl) {
+    if constexpr (M == kRows) return row(g_mask, static_cast<size_t>(g0 + gl) * K + ct_kid);
+    else return static_cast<const uint32_t*>(s.gcw + gl * W);
+  };
 
   // 1. the tile's rows into shared memory as asynchronous copies, all in
   //    flight at once (a block pays about one round trip to memory, not
   //    one a row); meanwhile the sums and flags go to zero and the first
-  //    chunk of the pair index and of goff_idx load into registers
-  stage(s.raw_t, t_mask + static_cast<size_t>(t0) * K * V1, nt * K * V1);
+  //    chunk of the pair index and of goff_idx load into registers. The
+  //    mask rows' bytes only in kStaged.
+  if constexpr (M == kStaged) {
+    stage(s.raw_t, t_mask + static_cast<size_t>(t0) * K * V1, nt * K * V1);
+    stage(s.raw_p, p_mask + static_cast<size_t>(p) * K * V1, K * V1);
+  }
   stage(s.raw_td, t_def + static_cast<size_t>(t0) * K, nt * K);
   stage(s.raw_oa, o_avail + static_cast<size_t>(t0) * O, nt * O);
   stage(s.oz, o_zone + static_cast<size_t>(t0) * O, 4 * nt * O);
   stage(s.oc, o_ct + static_cast<size_t>(t0) * O, 4 * nt * O);
   stage(s.alloc, t_alloc + static_cast<size_t>(t0) * R, 4 * nt * R);
-  stage(s.raw_p, p_mask + static_cast<size_t>(p) * K * V1, K * V1);
   stage(s.raw_pd, p_def + static_cast<size_t>(p) * K, K);
   stage(s.daemon, p_daemon + static_cast<size_t>(p) * R, 4 * R);
   stage(s.req, g_req + static_cast<size_t>(g0) * R, 4 * ng * R);
   stage(s.tok, p_titype_ok + static_cast<size_t>(p) * T + t0, nt);
   stage(s.ptol, p_tol + static_cast<size_t>(p) * G + g0, ng);
   // the groups' zone and capacity-type rows: one range each
-  if (V1 % 4 == 0 && reinterpret_cast<uintptr_t>(g_mask) % 4 == 0) {
-    const int C = V1 / 4;
+  if constexpr (M == kStaged) {
+    if (V1 % 4 == 0 && reinterpret_cast<uintptr_t>(g_mask) % 4 == 0) {
+      const int C = V1 / 4;
 #pragma unroll 1
-    for (int i = tid; i < ng * C; i += kBlock) {
-      const uint8_t* row = g_mask + static_cast<size_t>(g0 + i / C) * K * V1 + 4 * (i % C);
-      uint8_t* at = s.raw_gz + (i / C) * V1r + 4 * (i % C);
-      kt::cp_async4(at, row + static_cast<size_t>(zone_kid) * V1);
-      kt::cp_async4(at + (s.raw_gc - s.raw_gz), row + static_cast<size_t>(ct_kid) * V1);
-    }
-  } else {
+      for (int i = tid; i < ng * C; i += kBlock) {
+        const uint8_t* r = g_mask + static_cast<size_t>(g0 + i / C) * K * V1 + 4 * (i % C);
+        uint8_t* at = s.raw_gz + (i / C) * V1r + 4 * (i % C);
+        kt::cp_async4(at, r + static_cast<size_t>(zone_kid) * V1);
+        kt::cp_async4(at + (s.raw_gc - s.raw_gz), r + static_cast<size_t>(ct_kid) * V1);
+      }
+    } else {
 #pragma unroll 1
-    for (int i = tid; i < ng * V1; i += kBlock) {
-      const uint8_t* row = g_mask + static_cast<size_t>(g0 + i / V1) * K * V1 + i % V1;
-      s.raw_gz[(i / V1) * V1r + i % V1] = row[static_cast<size_t>(zone_kid) * V1];
-      s.raw_gc[(i / V1) * V1r + i % V1] = row[static_cast<size_t>(ct_kid) * V1];
+      for (int i = tid; i < ng * V1; i += kBlock) {
+        const uint8_t* r = g_mask + static_cast<size_t>(g0 + i / V1) * K * V1 + i % V1;
+        s.raw_gz[(i / V1) * V1r + i % V1] = r[static_cast<size_t>(zone_kid) * V1];
+        s.raw_gc[(i / V1) * V1r + i % V1] = r[static_cast<size_t>(ct_kid) * V1];
+      }
     }
   }
 #pragma unroll 1
@@ -217,7 +303,7 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
     s.cfail[i] = 0;
     s.listed[i] = 0;
   }
-  const bool have = tid < L;  // this thread's pair of the first chunk
+  const bool have = tid < L && tid < PC;  // this thread's pair of the first chunk
   int32_t my_g = 0, my_k = 0, my_w = 0, my_goff = -1;
   if (have) {
     my_w = gk_w[tid];
@@ -229,36 +315,48 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
   __syncthreads();
   PHASE_MARK(kPhStage);
 
-  // the bit words of the staged rows, all from one call site (one copy
-  // of row_word's code): types' masks, defined keys and offering
+  // the bit words of the rows, all from one call site (one copy of
+  // row_word's code): types' masks, defined keys and offering
   // availability, p's masks and defined keys, groups' zone and
-  // capacity-type rows; goff_idx's groups of the tile flagged (repeats
-  // are idempotent)
+  // capacity-type rows, from the staged rows (kStaged) or straight from
+  // device memory (kDirect; kRows keeps no mask words); goff_idx's groups
+  // of the tile flagged (repeats are idempotent)
   {
-    const int e0 = nt * KW, e1 = e0 + nt * KD, e2 = e1 + nt * OW, e3 = e2 + KW, e4 = e3 + KD,
-              e5 = e4 + ng * W, e6 = e5 + ng * W;
+    const int KWs = M == kRows ? 0 : KW, Ws = M == kRows ? 0 : W;
+    const int e0 = nt * KWs, e1 = e0 + nt * KD, e2 = e1 + nt * OW, e3 = e2 + KWs, e4 = e3 + KD,
+              e5 = e4 + ng * Ws, e6 = e5 + ng * Ws;
+    constexpr bool kSt = M == kStaged;
 #pragma unroll 1
     for (int i = tid; i < e6; i += kBlock) {
-      const uint8_t* row;
+      const uint8_t* r;
       uint32_t* dst;
       int len, w;
+      bool rx4 = true;  // a staged row starts 4-byte aligned
       if (i < e0) {
-        row = s.raw_t + static_cast<size_t>(i / W) * V1, len = V1, w = i % W, dst = s.tw + i;
+        r = kSt ? s.raw_t + static_cast<size_t>(i / W) * V1
+                : t_mask + (static_cast<size_t>(t0) * K + i / W) * V1;
+        len = V1, w = i % W, dst = s.tw + i, rx4 = kSt || x4;
       } else if (i < e1) {
-        row = s.raw_td + ((i - e0) / KD) * K, len = K, w = (i - e0) % KD, dst = s.tdw + i - e0;
+        r = s.raw_td + ((i - e0) / KD) * K, len = K, w = (i - e0) % KD, dst = s.tdw + i - e0;
       } else if (i < e2) {
-        row = s.raw_oa + ((i - e1) / OW) * O, len = O, w = (i - e1) % OW, dst = s.aw + i - e1;
+        r = s.raw_oa + ((i - e1) / OW) * O, len = O, w = (i - e1) % OW, dst = s.aw + i - e1;
       } else if (i < e3) {
-        row = s.raw_p + ((i - e2) / W) * V1, len = V1, w = (i - e2) % W, dst = s.pw + i - e2;
+        r = kSt ? s.raw_p + ((i - e2) / W) * V1
+                : p_mask + (static_cast<size_t>(p) * K + (i - e2) / W) * V1;
+        len = V1, w = (i - e2) % W, dst = s.pw + i - e2, rx4 = kSt || x4;
       } else if (i < e4) {
-        row = s.raw_pd, len = K, w = i - e3, dst = s.pdw + i - e3;
+        r = s.raw_pd, len = K, w = i - e3, dst = s.pdw + i - e3;
       } else if (i < e5) {
-        row = s.raw_gz + ((i - e4) / W) * V1r, len = V1, w = (i - e4) % W, dst = s.gzw + i - e4;
+        r = kSt ? s.raw_gz + ((i - e4) / W) * V1r
+                : g_mask + (static_cast<size_t>(g0 + (i - e4) / W) * K + zone_kid) * V1;
+        len = V1, w = (i - e4) % W, dst = s.gzw + i - e4, rx4 = kSt || x4;
       } else {
-        row = s.raw_gc + ((i - e5) / W) * V1r, len = V1, w = (i - e5) % W, dst = s.gcw + i - e5;
+        r = kSt ? s.raw_gc + ((i - e5) / W) * V1r
+                : g_mask + (static_cast<size_t>(g0 + (i - e5) / W) * K + ct_kid) * V1;
+        len = V1, w = (i - e5) % W, dst = s.gcw + i - e5, rx4 = kSt || x4;
       }
       // every staged row starts 4-byte aligned where its length is a multiple of 4
-      *dst = row_word(row, len, w, len % 4 == 0);
+      *dst = row_word(r, len, w, rx4 && len % 4 == 0);
     }
   }
   if (my_goff >= g0 && my_goff < g0 + ng) s.listed[my_goff - g0] = 1;
@@ -273,9 +371,9 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
   // 2. once per (p, t), spread over (type, key) and (type, offering):
   //    the group-independent base failures and the template-only
   //    offering row
-  const uint32_t* pz = s.pw + zone_kid * W;
-  const uint32_t* pc = s.pw + ct_kid * W;
-  auto offer = [&](int t, int o, const uint32_t* gz, const uint32_t* gc) {
+  const auto pz = p_words(zone_kid);
+  const auto pc = p_words(ct_kid);
+  auto offer = [&](int t, int o, const auto& gz, const auto& gc) {
     if (!bit(s.aw + t * OW, o)) return false;
     const int32_t z = s.oz[t * O + o], c = s.oc[t * O + o];
     return (z < 0 || (bit(pz, z) && bit(gz, z))) && (c < 0 || (bit(pc, c) && bit(gc, c)));
@@ -283,7 +381,7 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
 #pragma unroll 1
   for (int i = tid; i < nt * K; i += kBlock) {
     const int t = i / K, k = i % K;
-    if (!(words_meet(s.tw + t * KW + k * W, s.pw + k * W, W) ||
+    if (!(words_meet(t_words(t, k), p_words(k), W) ||
           !(bit(s.tdw + t * KD, k) && bit(s.pdw, k))))
       atomicAdd(&s.base[t], 1);
   }
@@ -292,32 +390,38 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
     if (offer(i / O, i % O, pz, pc)) s.toff[i / O] = 1;
   PHASE_MARK(kPhBase);
 
-  // 3. the tile's live pairs, chunk by chunk, in any order
+  // 3. the tile's live pairs, chunk by chunk (PC a chunk), in any order
 #pragma unroll 1
-  for (int c0 = 0; c0 < L; c0 += kChunk) {
+  for (int c0 = 0; c0 < L; c0 += PC) {
     if (tid == 0) n_pairs = 0;
     __syncthreads();
     const int l = c0 + tid;
     int32_t w = 0, g = -1, k = 0;
     if (c0 == 0) {
       if (have) w = my_w, g = my_g, k = my_k;
-    } else if (l < L) {
+    } else if (tid < PC && l < L) {
       w = gk_w[l], g = gk_g[l], k = gk_k[l];
     }
     if (w != 0 && g >= g0 && g < g0 + ng) {
       const int j = atomicAdd(&n_pairs, 1);
       const size_t gk = static_cast<size_t>(g) * K + k;
-      uint32_t* gm = s.pair_w + j * W;
-      const bool gx4 = V1 % 4 == 0 && reinterpret_cast<uintptr_t>(g_mask) % 4 == 0;
+      const RowWords gr = row(g_mask, gk);
+      bool meet;
+      if constexpr (M == kRows) {
+        meet = words_meet(p_words(k), gr, W);
+      } else {
+        uint32_t* gm = s.pair_w + j * W;
 #pragma unroll 1
-      for (int v = 0; v < W; ++v) gm[v] = row_word(g_mask + gk * V1, V1, v, gx4);
+        for (int v = 0; v < W; ++v) gm[v] = gr[v];
+        meet = words_meet(p_words(k), static_cast<const uint32_t*>(gm), W);
+      }
       const bool gdef = g_def[gk], gneg = g_neg[gk];
       const bool pdef = bit(s.pdw, k), pneg = p_neg[static_cast<size_t>(p) * K + k];
       s.pair_g[j] = g - g0;
       s.pair_k[j] = k | (gdef ? kDefBit : 0);
       s.pair_wt[j] = w;
       // pod-vs-template compatibility (with the well-known allowance)
-      const bool term = words_meet(s.pw + k * W, gm, W) || (pneg && gneg) || !(pdef && gdef);
+      const bool term = meet || (pneg && gneg) || !(pdef && gdef);
       const bool custom = !gdef || well_known[k] || pdef || gneg;
       if (!(term && custom)) atomicAdd(&s.cfail[g - g0], w);
     }
@@ -328,11 +432,11 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
       const int j = i / nt, t = i % nt;
       const int kj = s.pair_k[j] & (kDefBit - 1);
       const bool gdef = s.pair_k[j] & kDefBit;
-      const uint32_t* tk = s.tw + t * KW + kj * W;
-      const uint32_t* pk = s.pw + kj * W;
+      const auto tk = t_words(t, kj);
+      const auto pk = p_words(kj);
       const bool tdef = bit(s.tdw + t * KD, kj), pdef = bit(s.pdw, kj);
       const int pair_fail =
-          !(words_meet3(tk, s.pair_w + j * W, pk, W) || !(tdef && (pdef || gdef)));
+          !(words_meet3(tk, pair_words(j), pk, W) || !(tdef && (pdef || gdef)));
       const int base_fail = !(words_meet(tk, pk, W) || !(tdef && pdef));
       const int32_t delta = kt::wrap_mul(pair_fail - base_fail, s.pair_wt[j]);
       if (delta != 0) atomicAdd(&s.adj[s.pair_g[j] * TT + t], delta);
@@ -367,7 +471,9 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
         if (!s.listed[gl]) {
           ok = s.toff[t];
         } else {
-          for (int o = 0; o < O && !ok; ++o) ok = offer(t, o, s.gzw + gl * W, s.gcw + gl * W);
+          const auto gz = gz_words(gl);
+          const auto gc = gc_words(gl);
+          for (int o = 0; o < O && !ok; ++o) ok = offer(t, o, gz, gc);
         }
       }
     }
@@ -408,32 +514,38 @@ extern "C" int kt_fresh_feasibility(
     uint8_t* compat_pg, uint8_t* type_ok, int32_t* n_fit,
     void* stream_ptr) {
   if (static_cast<long long>(P) * G == 0) return kt::kNothingLaunched;
-  // tiles: 32 types x 8 groups (a cell a thread), the groups doubled up
-  // to 64 while the grid has more than 4 x 132 blocks; types narrowed to
-  // 16 while the block's shared memory passes 48 KB (wide masks), then
-  // further only past the card's 227 KB
-  int TT = 32, TG = 8;
-  auto blocks = [&] {
-    return static_cast<long long>(P) * ((G + TG - 1) / TG) * (T > 0 ? (T + TT - 1) / TT : 1);
-  };
-  while (blocks() > 4 * 132 && TG < 64) TG <<= 1;
-  while (TT > 16 && Smem(nullptr, K, V1, R, O, TG, TT).bytes > kSmemDefault) TT >>= 1;
-  while (TT > 4 && Smem(nullptr, K, V1, R, O, TG, TT).bytes > kSmemMax) TT >>= 1;
-  const size_t smem = Smem(nullptr, K, V1, R, O, TG, TT).bytes;
-  if (smem > kSmemDefault) {  // wide masks: past 48 KB at 16 types; set on each
-    // such call, as the attribute is the current device's
-    const cudaError_t e = cudaFuncSetAttribute(
-        fresh_tables, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const bool wide = T % 4 == 0 && reinterpret_cast<uintptr_t>(type_ok) % 4 == 0 &&
+  int TT, TG, PC;
+  Mode mode;
+  fresh_tiling(P, G, T, K, V1, R, O, TT, TG, PC, mode);
+  const size_t smem = Smem(nullptr, K, V1, R, O, TG, TT, PC, mode).bytes;
+  auto kernel = mode == kStaged ? fresh_tables<kStaged>
+                                : mode == kDirect ? fresh_tables<kDirect> : fresh_tables<kRows>;
+  const int rc = kt::allow_dynamic_smem(kernel, smem);  // wide masks: past 48 KB
+  if (rc) return rc;
+  const bool wide = TT % 4 == 0 && T % 4 == 0 && reinterpret_cast<uintptr_t>(type_ok) % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(n_fit) % 16 == 0;
+  const bool x4 = V1 % 4 == 0 && (reinterpret_cast<uintptr_t>(g_mask) |
+                                  reinterpret_cast<uintptr_t>(p_mask) |
+                                  reinterpret_cast<uintptr_t>(t_mask)) % 4 == 0;
   const dim3 grid(T > 0 ? (T + TT - 1) / TT : 1, (G + TG - 1) / TG, P);
-  fresh_tables<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
-      G, T, K, V1, R, O, L, LZ, TG, TT, zone_kid, ct_kid, wide, g_def, g_neg, g_mask,
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
+      G, T, K, V1, R, O, L, LZ, TG, TT, PC, zone_kid, ct_kid, wide, x4, g_def, g_neg, g_mask,
       g_req, p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok, t_def, t_mask, t_alloc,
       o_avail, o_zone, o_ct, well_known, gk_g, gk_k, gk_w, goff_idx, compat_pg, type_ok, n_fit);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tiling and mode kt_fresh_feasibility takes at these shapes, for the
+// wrapper's telemetry: writes TT, TG, PC, the mode (0 staged, 1 direct,
+// 2 rows) and the block's shared memory bytes to ``out`` [5].
+extern "C" int kt_fresh_feasibility_layout(int P, int G, int T, int K, int V1, int R, int O,
+                                           long long* out) {
+  int TT, TG, PC;
+  Mode mode;
+  fresh_tiling(P, G, T, K, V1, R, O, TT, TG, PC, mode);
+  out[0] = TT, out[1] = TG, out[2] = PC, out[3] = mode;
+  out[4] = static_cast<long long>(Smem(nullptr, K, V1, R, O, TG, TT, PC, mode).bytes);
+  return 0;
 }
 
 #ifdef KT_PHASE_CLOCKS

@@ -323,7 +323,7 @@ pack_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Strides sc, int ranks) 
     out = out0;
     own_slice(d, sc, blockIdx.x / ranks, in, st, rw, out);
     use_rows(d, in, rw);
-    carve(dyn, d, m);
+    carve(dyn, d, m, st0.spill);
   }
   __syncthreads();
   Shared sh{&red, 0};
@@ -479,13 +479,16 @@ extern "C" int kt_pack(
     int32_t* c_pool, uint8_t* c_tmask, int32_t* n_open, uint8_t* overflow,
     int32_t* exist_fills, int32_t* claim_fills, int32_t* unplaced,
     int32_t* c_dzone, int32_t* c_dct, uint8_t* c_resv,
+    // the spill scratch (csrc/pack_common.cuh:layout_info; empty where
+    // Smem fits shared memory) and its bytes
+    unsigned char* spill, long long spill_n,
     // out (host, may be null): the cluster's blocks, how many clusters of
     // that size and of 8 blocks the card holds at once with the scan's
     // shared memory
     int* cluster,
     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (R > 32 || JH < 1 || JD < 1 || (MV && (MW < 1 || MW > kMaxMvW)))
+  if (R > 32 || JH < 1 || JD < 1 || (MV && MW < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return kt::kNothingLaunched;
   const int W = (V1 + 31) / 32;
@@ -508,6 +511,10 @@ extern "C" int kt_pack(
   Out out{c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills,
           unplaced, c_dzone, c_dct, c_resv};
   Strides sc{s_g_count, s_cap_ng, s_n_hcnt, s_nh_cnt0, s_g_dprior, s_dd0, s_n_tol};
+  // Smem's layout, before anything launches
+  size_t smem = 0;
+  const int rc = scan_smem(pack_scan, d, st, S, kMaxCluster, spill, spill_n, smem);
+  if (rc) return rc;
   if (MV || NRES) {
     static_words<<<132, 256, 0, stream>>>(d, in, st);
     const cudaError_t e = cudaGetLastError();
@@ -519,8 +526,18 @@ extern "C" int kt_pack(
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   // one cluster of c blocks per scenario (pick_cluster)
-  return launch_clusters(pack_scan, kMaxCluster, S, smem_bytes(d), stream, cluster, d, in, st,
-                         rw, out, sc);
+  return launch_clusters(pack_scan, kMaxCluster, S, smem, stream, cluster, d, in, st, rw, out,
+                         sc);
+}
+
+// kt_pack's layout at these shapes (pack_common.cuh:layout_info): its
+// dynamic shared memory and spill scratch bytes into ``out`` [2].
+extern "C" int kt_pack_layout(int S, int P, int R, int K, int V1, int MV, int MW, int NRES,
+                              long long* out) {
+  Dims d{};
+  d.P = P, d.R = R, d.K = K, d.V1 = V1, d.W = (V1 + 31) / 32, d.MV = MV, d.MW = MW;
+  d.NRES = NRES;
+  return layout_info(pack_scan, d, S, kMaxCluster, out);
 }
 
 #ifdef KT_PHASE_CLOCKS

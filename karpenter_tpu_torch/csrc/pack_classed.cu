@@ -340,7 +340,7 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
     out = out0;
     cls = cls0;
     hd = hd0;
-    carve(dyn, d, m);
+    carve(dyn, d, m, st0.spill);
   }
   __syncthreads();
   Shared sh{&red, 0};
@@ -579,13 +579,16 @@ extern "C" int kt_pack_classed(
     int32_t* c_pool, uint8_t* c_tmask, int32_t* n_open, uint8_t* overflow,
     int32_t* exist_fills, int32_t* claim_fills, int32_t* unplaced,
     int32_t* c_dzone, int32_t* c_dct, uint8_t* c_resv,
+    // the spill scratch (csrc/pack_common.cuh:layout_info; empty where
+    // Smem fits shared memory) and its bytes
+    unsigned char* spill, long long spill_n,
     // out (host, may be null): the cluster's blocks, how many clusters of
     // that size and of kMaxCluster blocks the card holds at once with the
     // scan's shared memory
     int* cluster,
     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (R > 32 || JH < 1 || JD < 1 || (MV && (MW < 1 || MW > kMaxMvW)))
+  if (R > 32 || JH < 1 || JD < 1 || (MV && MW < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int W = (V1 + 31) / 32;
   // no reservation ledger here (NRES = 0)
@@ -608,6 +611,10 @@ extern "C" int kt_pack_classed(
           unplaced, c_dzone, c_dct, c_resv};
   Classes cls{class_start, class_len, class_dyn, class_dkey, C};
   Head hd{capv, af0, off0, toff_nt0, cfills, pin0, off_grp, toff_grp, e_cap};
+  // Smem's layout, before anything launches
+  size_t smem = 0;
+  const int rc = scan_smem(pack_classed_scan, d, st, 1, kMaxCluster, spill, spill_n, smem);
+  if (rc) return rc;
   if (MV) {
     static_words<<<132, 256, 0, stream>>>(d, in, st);
     const cudaError_t e = cudaGetLastError();
@@ -619,8 +626,18 @@ extern "C" int kt_pack_classed(
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   // one cluster (pick_cluster with S = 1)
-  return launch_clusters(pack_classed_scan, kMaxCluster, 1, smem_bytes(d), stream, cluster, d,
-                         in, st, rw, out, cls, hd);
+  return launch_clusters(pack_classed_scan, kMaxCluster, 1, smem, stream, cluster, d, in, st, rw,
+                         out, cls, hd);
+}
+
+// kt_pack_classed's layout at these shapes (pack_common.cuh:
+// layout_info): its dynamic shared memory and spill scratch bytes into
+// ``out`` [2].
+extern "C" int kt_pack_classed_layout(int P, int R, int K, int V1, int MV, int MW,
+                                      long long* out) {
+  Dims d{};
+  d.P = P, d.R = R, d.K = K, d.V1 = V1, d.W = (V1 + 31) / 32, d.MV = MV, d.MW = MW;
+  return layout_info(pack_classed_scan, d, 1, kMaxCluster, out);
 }
 
 #ifdef KT_PHASE_CLOCKS

@@ -35,6 +35,7 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <utility>
 
 #include "common.cuh"
 #include "dense_feasibility.cuh"
@@ -56,10 +57,6 @@ using kt::wrap_sub;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 static_assert(kWarps == 32, "the block reductions read one warp total per lane");
-// the minValues value axis (t_mvoh's W) the scans take: one int32 per
-// value per warp in shared memory (128 KB at the bound); the wrapper
-// raises on a wider catalog (ops/packing.py:MV_MAX_W)
-constexpr int kMaxMvW = 1024;
 // domain-constraint modes (solver/encode.py:DMODE_*)
 constexpr int kSpread = 1, kAffinity = 2, kGateSpread = 3, kGateAff = 4;
 
@@ -146,9 +143,9 @@ int pick_cluster(Kernel kernel, int max_c, int S, const cudaLaunchConfig_t& cfg,
 template <class... Params, class... Args>
 int launch_clusters(void (*kernel)(Params...), int max_c, int S, size_t smem,
                     cudaStream_t stream, int* cluster, Args... args) {
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+  // a layout the card refuses names its own error, not kClusterUnplaced
+  const int rc0 = kt::allow_dynamic_smem(kernel, smem);
+  if (rc0) return rc0;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
@@ -329,6 +326,8 @@ struct Dims {
   // offerings per type; the tiled mode (per-step rows, no tables)
   int O;
   bool tiled;
+  // the launch's wide part of Smem lies in device memory (scan_layout)
+  bool spill;
 };
 
 struct In {
@@ -424,6 +423,9 @@ struct State {  // PackState in device memory (plus per-step scratch)
   // a_res[r, t, z, :] over capacity types [NRES, T, V1, W]; the held
   // availability (a_tzc or any reservation) on both axes [T, V1, W]
   uint32_t* mvw; uint32_t* ares_z; uint32_t* aheld_z; uint32_t* aheld_c;
+  // the wide part of Smem where the launch spills it: one slice of
+  // spill_stride bytes per block of the grid (scan_layout)
+  unsigned char* spill;
 };
 
 struct Out {
@@ -432,8 +434,11 @@ struct Out {
   int32_t* c_dzone; int32_t* c_dct; uint8_t* c_resv;
 };
 
-// per-step shared memory, carved from the dynamic allocation
+// per-step shared memory, carved from the dynamic allocation (the wide
+// part from device memory where the launch spills: carve)
 struct Smem {
+  // the wide part: grows with the value axis (V1, its words W) and the
+  // minValues axis (MW)
   uint32_t* cz;     // [kWarps][2][W] per-warp claim zone / capacity-type words
   uint32_t* gw;     // [K][W] the group's requirement mask words
   uint32_t* gz;     // the zone key's row of gw
@@ -454,35 +459,116 @@ struct Smem {
   int32_t* dsum;    // [4][V1] contributor sums: node zone, node ct, claim zone, claim ct
   int32_t* pmax;    // [V1] per-domain best fit of a bulk's template
   int32_t* mvf;     // [kWarps][MW] per-warp per-value fits (minValues)
+  uint32_t* pze;    // [W] a bulk template's zone words (in the pinned domain)
+  uint32_t* pce;    // [W] ... capacity-type words
+  // the core part: bounded by the templates, the reservations, the
+  // resources and the keys
   int32_t* mvp;     // [P] each template's minValues cap for a bulk
-  uint8_t* pcompat; // [P] the step's compat_row (tile_rows; fresh_claims)
+  int32_t* rflag;   // [NRES] reservations compatible with a bulk
+  int32_t* flags;   // [1] the ledger crossed zero: rebuild the step words
   int32_t* list;    // [kThreads] claims gathered for a chunked phase
   int32_t* cand;    // [kThreads] ... and its candidates (B4's claim caps)
   int32_t* nlist;   // [2] the two lists' lengths
   int32_t* cbest;   // [kWarps] a chunk's claims' best fits (B4's claim caps)
-  uint32_t* pze;    // [W] a bulk template's zone words (in the pinned domain)
-  uint32_t* pce;    // [W] ... capacity-type words
-  int32_t* rflag;   // [NRES] reservations compatible with a bulk
-  int32_t* flags;   // [1] the ledger crossed zero: rebuild the step words
   float* req;       // [R]
   uint8_t* gdef;    // [K]
   uint8_t* gneg;    // [K]
-  uint8_t* gmask;   // [K * V1]
+  uint8_t* pcompat; // [P] the step's compat_row (tile_rows; fresh_claims)
 };
 
-inline size_t smem_bytes(const Dims& d) {
-  const int NSLOT = d.V1 + 2, W = d.W, V1 = d.V1;
-  const size_t words = static_cast<size_t>(kWarps) * 2 * W + static_cast<size_t>(d.K) * W +
-                       2 * static_cast<size_t>(d.P) * W +
-                       W + 4 * NSLOT + 5 * V1 + static_cast<size_t>(kWarps) * V1 + 5 * V1 +
-                       (d.MV ? static_cast<size_t>(kWarps) * d.MW : 0) + d.P + 2 * W + d.NRES + 1 +
-                       2 * kThreads + 2 + kWarps + d.R;
-  return sizeof(uint32_t) * words + static_cast<size_t>(d.K) * (2 + V1) + d.P;
+// Bytes of Smem's wide and core parts. Where both fit a block's shared
+// memory the launch carves both from it; past that (a value vocabulary of
+// about a thousand values a key, or a wide minValues catalog) the wide
+// part moves to the launch's spill scratch in device memory and only the
+// core part stays shared: the same arrays at the same indices, so the
+// scan decides the same at any width, only slower there.
+__host__ __device__ inline size_t wide_bytes(const Dims& d) {
+  const size_t NSLOT = d.V1 + 2, W = d.W, V1 = d.V1;
+  return sizeof(uint32_t) * (kWarps * 2 * W + d.K * W + 2 * static_cast<size_t>(d.P) * W + W +
+                             4 * NSLOT + 5 * V1 + kWarps * V1 + 5 * V1 +
+                             (d.MV ? static_cast<size_t>(kWarps) * d.MW : 0) + 2 * W);
 }
 
-__device__ void carve(unsigned char* dyn, const Dims& d, Smem& m) {
+__host__ __device__ inline size_t core_bytes(const Dims& d) {
+  return sizeof(uint32_t) * (d.P + d.NRES + 1 + 2 * kThreads + 2 + kWarps + d.R) +
+         2 * static_cast<size_t>(d.K) + d.P;
+}
+
+// one block's slice of the spill scratch (16-byte aligned)
+__host__ __device__ inline size_t spill_stride(const Dims& d) {
+  return (wide_bytes(d) + 15) & ~size_t{15};
+}
+
+// Set d.spill for a launch of ``kernel`` and write the dynamic shared
+// memory it asks for: both parts of Smem where they fit the block beside
+// the kernel's static shared memory, else the core part alone.
+template <class Kernel>
+int scan_layout(Kernel kernel, Dims& d, size_t& smem) {
+  // the dynamic shared memory a block of ``kernel`` may have on the
+  // current device, asked of the runtime once per kernel and device
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> caps;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto key = std::make_pair(reinterpret_cast<const void*>(kernel), dev);
+  size_t cap;
+  {
+    std::lock_guard<std::mutex> hold(mu);
+    const auto hit = caps.find(key);
+    if (hit != caps.end()) {
+      cap = hit->second;
+    } else {
+      int optin = 0;
+      cudaFuncAttributes fa;
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      cap = caps[key] = static_cast<size_t>(optin) - fa.sharedSizeBytes;
+    }
+  }
+  d.spill = wide_bytes(d) + core_bytes(d) > cap;
+  smem = d.spill ? core_bytes(d) : wide_bytes(d) + core_bytes(d);
+  return 0;
+}
+
+// A launch of ``kernel`` over S scenarios, in clusters of at most max_c
+// blocks, at these dims: writes the dynamic shared memory a block asks
+// for and the spill scratch the wrapper allocates (0 where Smem fits
+// shared memory, else one slice per block of the widest grid) to
+// ``out`` [2]. Returns a CUDA error code, 0 on success.
+template <class Kernel>
+int layout_info(Kernel kernel, Dims d, int S, int max_c, long long* out) {
+  size_t smem = 0;
+  const int rc = scan_layout(kernel, d, smem);
+  if (rc) return rc;
+  out[0] = static_cast<long long>(smem);
+  out[1] = d.spill ? static_cast<long long>(S) * max_c * static_cast<long long>(spill_stride(d)) : 0;
+  return 0;
+}
+
+// A launch's Smem layout (scan_layout) with its spill scratch checked:
+// returns cudaErrorInvalidValue when the wide part spills and ``spill_n``
+// bytes at ``spill`` are fewer than layout_info asks.
+template <class Kernel>
+int scan_smem(Kernel kernel, Dims& d, State& st, int S, int max_c, unsigned char* spill,
+              long long spill_n, size_t& smem) {
+  const int rc = scan_layout(kernel, d, smem);
+  if (rc) return rc;
+  if (d.spill &&
+      (spill == nullptr || spill_n < static_cast<long long>(S) * max_c *
+                                         static_cast<long long>(spill_stride(d))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  st.spill = spill;
+  return 0;
+}
+
+// The block's Smem: the wide part from the block's slice of the spill
+// scratch ``spill`` where the launch spills, else from the head of
+// ``dyn``; the core part from ``dyn`` after it.
+__device__ void carve(unsigned char* dyn, const Dims& d, Smem& m, unsigned char* spill) {
   const int W = d.W, P = d.P, V1 = d.V1, NSLOT = d.V1 + 2;
-  m.cz = reinterpret_cast<uint32_t*>(dyn);
+  m.cz = reinterpret_cast<uint32_t*>(d.spill ? spill + blockIdx.x * spill_stride(d) : dyn);
   m.gw = m.cz + kWarps * 2 * W;
   m.gz = m.gw + d.zone_kid * W;
   m.gc = m.gw + d.ct_kid * W;
@@ -502,10 +588,10 @@ __device__ void carve(unsigned char* dyn, const Dims& d, Smem& m) {
   m.dsum = m.pcap + kWarps * V1;
   m.pmax = m.dsum + 4 * V1;
   m.mvf = m.pmax + V1;
-  m.mvp = m.mvf + (d.MV ? kWarps * d.MW : 0);
-  m.pze = reinterpret_cast<uint32_t*>(m.mvp + P);
+  m.pze = reinterpret_cast<uint32_t*>(m.mvf + (d.MV ? kWarps * d.MW : 0));
   m.pce = m.pze + W;
-  m.rflag = reinterpret_cast<int32_t*>(m.pce + W);
+  m.mvp = reinterpret_cast<int32_t*>(d.spill ? dyn : reinterpret_cast<unsigned char*>(m.pce + W));
+  m.rflag = m.mvp + P;
   m.flags = m.rflag + d.NRES;
   m.list = m.flags + 1;
   m.cand = m.list + kThreads;
@@ -514,8 +600,7 @@ __device__ void carve(unsigned char* dyn, const Dims& d, Smem& m) {
   m.req = reinterpret_cast<float*>(m.cbest + kWarps);
   m.gdef = reinterpret_cast<uint8_t*>(m.req + d.R);
   m.gneg = m.gdef + d.K;
-  m.gmask = m.gneg + d.K;
-  m.pcompat = m.gmask + d.K * V1;
+  m.pcompat = m.gneg + d.K;
 }
 
 // The group being placed: thread 0 fills it in shared memory, every
@@ -751,7 +836,7 @@ __device__ void init_state(const Dims& d, const In& in, const State& st, const O
 }
 
 // The group's request and requirement rows (row ``gi`` of the group
-// inputs) and its mask words into shared memory. No barrier.
+// inputs) and its mask words into Smem. No barrier.
 __device__ void load_rows(const Dims& d, const In& in, int gi, const Smem& m) {
   const int tid = threadIdx.x, K = d.K, V1 = d.V1;
   for (int i = tid; i < d.R; i += kThreads) m.req[i] = in.g_req[static_cast<size_t>(gi) * d.R + i];
@@ -759,8 +844,6 @@ __device__ void load_rows(const Dims& d, const In& in, int gi, const Smem& m) {
     m.gdef[i] = in.g_def[gi * K + i];
     m.gneg[i] = in.g_neg[gi * K + i];
   }
-  for (int i = tid; i < K * V1; i += kThreads)
-    m.gmask[i] = in.g_mask[static_cast<size_t>(gi) * K * V1 + i];
   kt::mask_words(in.g_mask + static_cast<size_t>(gi) * K * V1, K, V1, d.W, m.gw, tid, kThreads);
 }
 
@@ -898,7 +981,7 @@ __device__ bool warp_claim_compat(const Dims& d, const In& in, const State& st, 
   for (int k = lane; k < K; k += 32) {
     const uint8_t* sm = st.c_mask + (static_cast<size_t>(s) * K + k) * V1;
     bool ov = false;
-    for (int v = 0; v < V1 && !ov; ++v) ov = sm[v] && m.gmask[k * V1 + v];
+    for (int v = 0; v < V1 && !ov; ++v) ov = sm[v] && bit(m.gw + k * d.W, v);
     const bool sd = st.c_def[s * K + k], sn = st.c_neg[s * K + k];
     const bool key_ok = ov || (sn && m.gneg[k]) || !(sd && m.gdef[k]);
     const bool custom = !m.gdef[k] || in.well_known[k] || sd || m.gneg[k];
@@ -1502,7 +1585,8 @@ __device__ void commit_claims(const Dims& d, const In& in, const State& st, cons
         if (st.claim_fill[s] <= 0) continue;
         const int cs = pin(s);
         uint8_t* row = st.c_mask + static_cast<size_t>(s) * KV;
-        row[c] = row[c] && m.gmask[c] && !(cs >= 0 && c / V1 == g.kid_sel && c % V1 != cs);
+        row[c] = row[c] && bit(m.gw + (c / V1) * W, c % V1) &&
+                 !(cs >= 0 && c / V1 == g.kid_sel && c % V1 != cs);
       }
       for (int i = tid; i < nc * K; i += kThreads) {
         const int s = cl[i / K], k = i % K;
@@ -1718,7 +1802,8 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
     for (long long i = tid; i < static_cast<long long>(k) * KV; i += kThreads) {
       const int c = static_cast<int>(i % KV);
       st.c_mask[static_cast<size_t>(slot) * KV + i] =
-          m.gmask[c] && !(pinned && c / V1 == g.kid_sel && c % V1 != d_sel);
+          bit(m.gw + (c / V1) * W, c % V1) &&
+          !(pinned && c / V1 == g.kid_sel && c % V1 != d_sel);
     }
     for (int i = tid; i < k * K; i += kThreads) {
       st.c_def[slot * K + i] = m.gdef[i % K];

@@ -471,6 +471,24 @@ def _launch_existing(
     return cap_ng
 
 
+def _dense_fresh_entry():
+    """kt_dense_fresh with its argument types: 9 ints, then the 17 inputs,
+    the 3 outputs and the stream as pointers."""
+    return _build.bind("dense_feasibility", "kt_dense_fresh",
+                       (ctypes.c_int,) * 9 + (ctypes.c_void_p,) * 21)
+
+
+def _dense_existing_entry():
+    """kt_dense_existing with its argument types: 6 ints, then the 9
+    inputs, the output and the stream as pointers."""
+    return _build.bind("dense_feasibility", "kt_dense_existing",
+                       (ctypes.c_int,) * 6 + (ctypes.c_void_p,) * 11)
+
+
+_DENSE_NAMES = _FRESH_NAMES[:17]
+_DENSE_DTYPES = _FRESH_DTYPES[:17]
+
+
 def _launch_dense_fresh(
     g_def, g_neg, g_mask, g_req,
     p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
@@ -480,46 +498,27 @@ def _launch_dense_fresh(
     zone_kid: int,
     ct_kid: int,
 ):
-    import ctypes
-
     G, K, V1 = g_mask.shape
     P, R = p_daemon.shape
     T, O = o_avail.shape
     dev = g_mask.device
-    b, i32, f32 = torch.bool, torch.int32, torch.float32
-    for t, name, dt, shape in (
-        (g_def, "g_def", b, (G, K)), (g_neg, "g_neg", b, (G, K)),
-        (g_mask, "g_mask", b, (G, K, V1)), (g_req, "g_req", f32, (G, R)),
-        (p_def, "p_def", b, (P, K)), (p_neg, "p_neg", b, (P, K)),
-        (p_mask, "p_mask", b, (P, K, V1)), (p_daemon, "p_daemon", f32, (P, R)),
-        (p_tol, "p_tol", b, (P, G)), (p_titype_ok, "p_titype_ok", b, (P, T)),
-        (t_def, "t_def", b, (T, K)), (t_mask, "t_mask", b, (T, K, V1)),
-        (t_alloc, "t_alloc", f32, (T, R)),
-        (o_avail, "o_avail", b, (T, O)), (o_zone, "o_zone", i32, (T, O)),
-        (o_ct, "o_ct", i32, (T, O)), (well_known, "well_known", b, (K,)),
-    ):
-        _build.check(t, name, dt, shape, dev)
+    ins = (g_def, g_neg, g_mask, g_req, p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
+           t_def, t_mask, t_alloc, o_avail, o_zone, o_ct, well_known)
+    for t, name, dtype, shape in zip(ins, _DENSE_NAMES, _DENSE_DTYPES, (
+            (G, K), (G, K), (G, K, V1), (G, R), (P, K), (P, K), (P, K, V1), (P, R), (P, G),
+            (P, T), (T, K), (T, K, V1), (T, R), (T, O), (T, O), (T, O), (K,))):
+        _build.check(t, name, dtype, shape, dev)
     if not (0 <= zone_kid < K and 0 <= ct_kid < K):
         raise ValueError(f"zone_kid {zone_kid} / ct_kid {ct_kid} outside K={K}")
-    compat_pg = torch.empty((P, G), dtype=b, device=dev)
-    type_ok = torch.empty((P, G, T), dtype=b, device=dev)
-    n_fit = torch.empty((P, G, T), dtype=i32, device=dev)
-    # the mask words of groups, templates and types (the kernel's scratch)
-    words = torch.empty(((G + P + T) * K * ((V1 + 31) // 32),), dtype=i32, device=dev)
-    fn = _build.library("dense_feasibility").kt_dense_fresh
-    p = _build.ptr
-    with torch.cuda.device(dev):
-        rc = fn(
-            *(ctypes.c_int(int(v)) for v in (
-                P, G, T, K, V1, R, O, zone_kid, ct_kid)),
-            p(g_def), p(g_neg), p(g_mask), p(g_req),
-            p(p_def), p(p_neg), p(p_mask), p(p_daemon), p(p_tol),
-            p(p_titype_ok),
-            p(t_def), p(t_mask), p(t_alloc),
-            p(o_avail), p(o_zone), p(o_ct),
-            p(well_known), p(words),
-            p(compat_pg), p(type_ok), p(n_fit),
-            _build.stream(),
+    compat_pg = torch.empty((P, G), dtype=torch.bool, device=dev)
+    type_ok = torch.empty((P, G, T), dtype=torch.bool, device=dev)
+    n_fit = torch.empty((P, G, T), dtype=torch.int32, device=dev)
+    with _build.device_scope(dev):
+        rc = _dense_fresh_entry()(
+            P, G, T, K, V1, R, O, zone_kid, ct_kid,
+            *(t.data_ptr() for t in ins),
+            compat_pg.data_ptr(), type_ok.data_ptr(), n_fit.data_ptr(),
+            _build.raw_stream(dev),
         )
     _build.launched("dense_feasibility", rc, variants=("dense_fresh",))
     return compat_pg, type_ok, n_fit
@@ -530,35 +529,53 @@ def _launch_dense_existing(
     n_def, n_mask, n_avail, n_base, n_tol,
     well_known,
 ):
-    import ctypes
-
     G, K, V1 = g_mask.shape
     N, R = n_avail.shape
     # a scenario batch gates on n_tol [S, N, G], as for B2
     lead = tuple(n_tol.shape[:-2])
     S = n_tol.shape[0] if lead else 1
     dev = g_mask.device
-    b, f32 = torch.bool, torch.float32
-    for t, name, dt, shape in (
-        (g_def, "g_def", b, (G, K)), (g_neg, "g_neg", b, (G, K)),
-        (g_mask, "g_mask", b, (G, K, V1)), (g_req, "g_req", f32, (G, R)),
-        (n_def, "n_def", b, (N, K)), (n_mask, "n_mask", b, (N, K, V1)),
-        (n_avail, "n_avail", f32, (N, R)), (n_base, "n_base", f32, (N, R)),
-        (n_tol, "n_tol", b, lead + (N, G)), (well_known, "well_known", b, (K,)),
-    ):
-        _build.check(t, name, dt, shape, dev)
+    ins = (g_def, g_neg, g_mask, g_req, n_def, n_mask, n_avail, n_base, n_tol)
+    for t, name, dtype, shape in zip(ins, _EXIST_NAMES, _EXIST_DTYPES, (
+            (G, K), (G, K), (G, K, V1), (G, R), (N, K), (N, K, V1), (N, R), (N, R),
+            lead + (N, G))):
+        _build.check(t, name, dtype, shape, dev)
+    # existing nodes get no well-known allowance: checked, not passed
+    _build.check(well_known, "well_known", torch.bool, (K,), dev)
     cap_ng = torch.empty(lead + (N, G), dtype=torch.int32, device=dev)
-    # the mask words of groups and nodes (the kernel's scratch)
-    words = torch.empty(((G + N) * K * ((V1 + 31) // 32),), dtype=torch.int32, device=dev)
-    fn = _build.library("dense_feasibility").kt_dense_existing
-    p = _build.ptr
-    with torch.cuda.device(dev):
-        rc = fn(
-            *(ctypes.c_int(int(v)) for v in (S, N, G, K, V1, R)),
-            p(g_def), p(g_neg), p(g_mask), p(g_req),
-            p(n_def), p(n_mask), p(n_avail), p(n_base), p(n_tol), p(words),
-            p(cap_ng),
-            _build.stream(),
+    with _build.device_scope(dev):
+        rc = _dense_existing_entry()(
+            S, N, G, K, V1, R,
+            *(t.data_ptr() for t in ins),
+            cap_ng.data_ptr(),
+            _build.raw_stream(dev),
         )
     _build.launched("dense_feasibility", rc, scenarios=S, variants=("dense_existing",))
     return cap_ng
+
+
+def fresh_layout(P: int, G: int, T: int, K: int, V1: int, R: int, O: int) -> dict:
+    """The tiles, mode and shared memory B1 (csrc/fresh_feasibility.cu)
+    takes at these shapes: TT, TG, the pair chunk PC, the mode ("staged":
+    mask bytes staged in shared memory; "direct": bit words built straight
+    from device memory; "rows": no words kept, each read from the byte
+    rows) and the block's bytes. Loads the library; no launch."""
+    out = (ctypes.c_longlong * 5)()
+    _build.bind("fresh_feasibility", "kt_fresh_feasibility_layout",
+                (ctypes.c_int,) * 7 + (ctypes.c_void_p,))(
+        P, G, T, K, V1, R, O, ctypes.addressof(out))
+    return dict(TT=out[0], TG=out[1], PC=out[2], mode=("staged", "direct", "rows")[out[3]],
+                smem=out[4])
+
+
+def dense_layout(P: int, N: int, G: int, T: int, K: int, V1: int, R: int, O: int) -> dict:
+    """The tiles, mode and shared memory of B3's fresh entry (``N`` < 0)
+    or existing entry (N nodes) at these shapes: the two tiles (fresh TT
+    and TG, existing TN and TG), the mode ("words": bit words built
+    straight from device memory; "rows": none kept, each read from the
+    byte rows) and the block's bytes. Loads the library; no launch."""
+    out = (ctypes.c_longlong * 4)()
+    _build.bind("dense_feasibility", "kt_dense_layout",
+                (ctypes.c_int,) * 8 + (ctypes.c_void_p,))(
+        P, N, G, T, K, V1, R, O, ctypes.addressof(out))
+    return dict(tiles=(out[0], out[1]), mode=("words", "rows")[out[2]], smem=out[3])

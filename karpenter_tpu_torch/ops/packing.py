@@ -1512,10 +1512,6 @@ def pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int,
 # the number of the scan's positional inputs; B5 takes the class arrays
 # after them
 _SCAN_INPUTS = len(SCAN_NAMES)
-# the kernels' compile-time bound on the minValues value axis (t_mvoh's W,
-# csrc/pack_common.cuh:kMaxMvW): one int32 per value per warp in shared
-# memory. A wider catalog raises before any launch.
-MV_MAX_W = 1024
 
 
 def _check_scan_inputs(args, tiled):
@@ -1557,10 +1553,6 @@ def _check_scan_inputs(args, tiled):
     if JH < 1 or JD < 1 or R > 32:
         raise ValueError(
             f"the scan kernels need JH >= 1, JD >= 1 and R <= 32 (JH={JH}, JD={JD}, R={R})")
-    if MV and MW > MV_MAX_W:
-        raise ValueError(
-            f"the scan kernels take at most {MV_MAX_W} minValues catalog values per key "
-            f"(t_mvoh has W={MW})")
     dev = g_mask.device
     b, i32, f32 = torch.bool, torch.int32, torch.float32
     for t, name, dt, shape in (
@@ -1667,6 +1659,35 @@ def _scan_buffers(dims, S, nmax, has_domains, tiled, dev, lead=()):
     return state, words, rows, outs
 
 
+# each scan library's layout at its launches' shapes, by (library,
+# device, S, P, R, K, V1, MV, MW, NRES): (the dynamic shared memory a
+# block asks for, the spill scratch bytes: 0 where the scan's per-step
+# arrays fit a block's shared memory; csrc/pack_common.cuh:layout_info)
+layouts: Dict[tuple, Tuple[int, int]] = {}
+
+
+def _spill(library: str, entry: str, dev, dims, S: int = None) -> torch.Tensor:
+    """The scratch in device memory that ``library``'s scan takes for its
+    per-step arrays where they pass a block's shared memory (a wide value
+    vocabulary or minValues catalog); empty where they fit."""
+    import ctypes
+
+    shape = tuple(dims[k] for k in ("P", "R", "K", "V1", "MV", "MW"))
+    if S is not None:
+        shape = (S,) + shape + (dims["NRES"],)
+    key = (library, dev.index) + shape
+    got = layouts.get(key)
+    if got is None:
+        out = (ctypes.c_longlong * 2)()
+        fn = _build.bind(library, entry, (ctypes.c_int,) * len(shape) + (ctypes.c_void_p,))
+        with _build.device_scope(dev):
+            rc = fn(*shape, ctypes.addressof(out))
+        if rc != 0:
+            raise _build.KernelLaunchError(f"{library}: CUDA error {rc} sizing the scan")
+        got = layouts[key] = (out[0], out[1])
+    return torch.empty((got[1],), dtype=torch.uint8, device=dev)
+
+
 # the cluster B4's launches took, by their scenario count S: S -> (blocks
 # per cluster, clusters of that size and clusters of 8 blocks the card
 # holds at once with the scan's shared memory), as
@@ -1691,6 +1712,7 @@ def _launch_pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool
     dyn = bool(has_domains)
     state, words, rows, outs = _scan_buffers(dims, S, nmax, dyn, tiled, dev,
                                              lead=tuple(args[0].shape[:-1]))
+    spill = _spill(library, "kt_pack_layout", dev, dims, S)
     fn = _build.library(library).kt_pack
     p = _build.ptr
     cluster = (ctypes.c_int * 3)()
@@ -1708,6 +1730,7 @@ def _launch_pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool
             *(p(x) for x in words),
             *(p(x) for x in rows),
             *(p(x) for x in outs),
+            p(spill), ctypes.c_longlong(spill.numel()),
             cluster,
             _build.stream(),
         )
@@ -1768,6 +1791,7 @@ def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int
         ((nmax,), i32), ((nmax, T), i32), ((nmax, T), b), ((dom(nmax), T, V1), b),
         ((nmax,), i32), ((nmax,), i32), ((T,), b), ((dom(T), V1), b), ((N,), i32),
     ))
+    spill = _spill(library, "kt_pack_classed_layout", dev, dims)
     fn = _build.library(library).kt_pack_classed
     p = _build.ptr
     cluster = (ctypes.c_int * 3)()
@@ -1786,6 +1810,7 @@ def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int
             *(p(x) for x in rows),
             *(p(x) for x in head),
             *(p(x) for x in outs),
+            p(spill), ctypes.c_longlong(spill.numel()),
             cluster,
             _build.stream(),
         )

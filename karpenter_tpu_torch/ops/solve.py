@@ -228,15 +228,19 @@ def wire_pack(outs, fills_dtype):
     return _launch_wire_pack(outs, fills_dtype)
 
 
-def _launch_wire_pack(outs, fills_dtype):
-    import ctypes
+def _wire_pack_entry():
+    """kt_wire_pack with its argument types: 5 ints, then the 6 inputs,
+    the 6 outputs and the stream as pointers."""
+    return _build.bind("wire_pack", "kt_wire_pack", (ctypes.c_int,) * 5 + (ctypes.c_void_p,) * 13)
 
+
+def _launch_wire_pack(outs, fills_dtype):
     (c_pool, c_tmask, n_open, overflow,
      exist_fills, claim_fills, unplaced, c_dzone, c_dct, c_resv) = outs
-    if fills_dtype not in (torch.int16, torch.int32):
+    if fills_dtype is not torch.int16 and fills_dtype is not torch.int32:
         raise ValueError(f"fills_dtype {fills_dtype}: int16 or int32 only")
     # a scenario batch's leading [S] (absent for the plain solve)
-    lead = tuple(c_tmask.shape[:-2])
+    lead = c_tmask.shape[:-2]
     S = math.prod(lead)
     nmax, t = c_tmask.shape[-2:]
     g, n = exist_fills.shape[-2:]
@@ -249,33 +253,26 @@ def _launch_wire_pack(outs, fills_dtype):
         (c_dzone, "c_dzone", i32, (nmax,)), (c_dct, "c_dct", i32, (nmax,)),
     ):
         _build.check(x, name, dt, lead + shape, dev)
-
-    def empty(shape, dtype):
-        return torch.empty(lead + shape, dtype=dtype, device=dev)
-
-    pool16 = empty((nmax,), torch.int16)
-    packed = empty((nmax, -(-t // 8)), torch.uint8)
-    exist_out = empty((g, n), fills_dtype)
-    claim_out = empty((g, nmax), fills_dtype)
-    dzone16 = empty((nmax,), torch.int16)
-    dct16 = empty((nmax,), torch.int16)
-    fn = _build.library("wire_pack").kt_wire_pack
-    p = _build.ptr
+    i16 = torch.int16
+    pool16 = torch.empty(lead + (nmax,), dtype=i16, device=dev)
+    packed = torch.empty(lead + (nmax, -(-t // 8)), dtype=torch.uint8, device=dev)
+    exist_out = torch.empty(lead + (g, n), dtype=fills_dtype, device=dev)
+    claim_out = torch.empty(lead + (g, nmax), dtype=fills_dtype, device=dev)
+    dzone16 = torch.empty(lead + (nmax,), dtype=i16, device=dev)
+    dct16 = torch.empty(lead + (nmax,), dtype=i16, device=dev)
     # The kernel's mask pack is row-wise and its narrowing casts are
     # elementwise over flat buffers, so S scenarios ride one launch as
     # S * NMAX mask rows and pool entries, with the fills counted as
     # g x (S * n) and g x (S * NMAX) elements: the same element counts as
     # [S, g, n] and [S, g, NMAX].
-    with torch.cuda.device(dev):
-        rc = fn(
-            ctypes.c_int(S * nmax), ctypes.c_int(t), ctypes.c_int(g),
-            ctypes.c_int(S * n),
-            ctypes.c_int(int(fills_dtype == torch.int16)),
-            p(c_pool), p(c_tmask), p(exist_fills), p(claim_fills),
-            p(c_dzone), p(c_dct),
-            p(pool16), p(packed), p(exist_out), p(claim_out),
-            p(dzone16), p(dct16),
-            _build.stream(),
+    with _build.device_scope(dev):
+        rc = _wire_pack_entry()(
+            S * nmax, t, g, S * n, int(fills_dtype is i16),
+            c_pool.data_ptr(), c_tmask.data_ptr(), exist_fills.data_ptr(),
+            claim_fills.data_ptr(), c_dzone.data_ptr(), c_dct.data_ptr(),
+            pool16.data_ptr(), packed.data_ptr(), exist_out.data_ptr(), claim_out.data_ptr(),
+            dzone16.data_ptr(), dct16.data_ptr(),
+            _build.raw_stream(dev),
         )
     _build.launched("wire_pack", rc, scenarios=S)
     return (

@@ -1,5 +1,5 @@
 """Time kernels B4 and B5, the packing scans, on one card, split by phase;
-and B1 and B2, the sparse feasibility tables.
+B1 and B2, the sparse feasibility tables; B3, the dense ones; and B6.
 
     python3 tenant_scan.py                  # every shape, phase clocks on
     python3 tenant_scan.py --no-clocks      # times only (a checkout without
@@ -9,6 +9,7 @@ and B1 and B2, the sparse feasibility tables.
         --classed-clocks pack_classed_clocks pack_classed_clocks_c1
                                             # B5 at each cluster width, and
                                             # its split at two widths
+    python3 tenant_scan.py --no-clocks --shapes dense_relax wire_mixed  # B3, B6
     python3 tenant_scan.py --no-clocks --shapes feas_mixed feas_diverse \
         feas_constrained feas_nodes feas_cons
                                             # B1, B2 and B7's dispatch
@@ -94,6 +95,21 @@ and feas_nodes (B2), where the checkout binds the C entries once, its
 launch path is split on the host clock: the whole wrapper, the C entry
 alone (ctypes and the launch) and the output allocations.
 
+Three shapes of B3, the dense tables (``--shapes dense_relax dense_route
+dense_nodes``): its fresh entry at the relax path's run heads of identical
+50k x 400 (1 x 400) and at the dense route's mixed 50k x 400 (G=64), its
+existing entry at the state-node snapshot (32 nodes, G=64); and two of B6,
+the wire pack (``wire_mixed``: the mixed 50k solve's scan outputs,
+``wire_cons``: the consolidation chunk's, S = 16). Each is timed through
+its wrapper and on the device alone, as B1 and B2 are, its outputs equal
+to its plain version's; these use only the public wrappers, so the script
+runs in a checkout of the parent tree as well.
+
+``wide``: each of chip_smoke.py's wide value vocabularies (ROADMAP §C1)
+through one cold ``TorchSolver(device="cuda").solve``, its claims and
+seconds or what it raised and where (in a parent checkout with this
+chip_smoke.py beside it, the record of what raised before C1's repair).
+
 Prints the card's name and power limit, then one JSON line. Two
 checkouts are compared only within one call on one card: run this from
 each in turn, in the order A, B, B, A
@@ -118,7 +134,10 @@ SCAN_SHAPES = ("tenant", "mixed", "constrained", "diverse_contrib")
 CLASSED_SHAPES = ("diverse_classed", "diverse_minvalues", "tenant_classed")
 CONS_SHAPES = ("cons", "cons_minvalues")
 FEAS_SHAPES = ("feas_mixed", "feas_diverse", "feas_constrained", "feas_nodes", "feas_cons")
-SHAPES = SCAN_SHAPES + CLASSED_SHAPES + CONS_SHAPES + FEAS_SHAPES
+DENSE_SHAPES = ("dense_relax", "dense_route", "dense_nodes")
+WIRE_SHAPES = ("wire_mixed", "wire_cons")
+SHAPES = (SCAN_SHAPES + CLASSED_SHAPES + CONS_SHAPES + FEAS_SHAPES + DENSE_SHAPES + WIRE_SHAPES
+          + ("wide",))
 FEAS_REPS = 200
 HOST_REPS = 2000
 FEAS_PHASES = ("stage", "words", "base", "pairs", "compat", "cells")
@@ -543,6 +562,123 @@ def run_feasibility(shape, clocks=False):
     return row
 
 
+def dense_inputs(shape):
+    """B3's inputs at one of its paths' shapes, on the card: the relax
+    path's run heads of identical 50k x 400 (1 x 400, as
+    chip_smoke.py:relax_row stages them), the dense route's mixed 50k x
+    400 (G=64) and the state-node snapshot (32 nodes, G=64). Returns the
+    entry ("fresh" or "existing"), its inputs and (zone_kid, ct_kid)."""
+    if shape == "dense_relax":
+        from karpenter_tpu_torch.ops import relax as relax_mod
+        from karpenter_tpu_torch.solver.args import put
+        from karpenter_tpu_torch.solver.driver import SolverConfig, TorchSolver
+        from karpenter_tpu_torch.solver.workloads import identical_pods
+
+        pods = identical_pods(cs.N_IDENT)
+        run, plan = cs.relax_plan(cs.build_batch(TorchSolver, SolverConfig, pods, cs.N_TYPES),
+                                  pods)
+        head = [put(n, x, "cuda") for n, x in
+                zip(relax_mod.HEAD_ARG_NAMES, relax_mod.head_args(plan, run))]
+        return "fresh", head, (run.zone_kid, run.ct_kid)
+    a, statics, _, _ = feas_inputs("feas_mixed" if shape == "dense_route" else "feas_nodes")
+    zc = (statics["zone_kid"], statics["ct_kid"])
+    if shape == "dense_route":
+        return "fresh", [a[n] for n in cs.B3_NAMES], zc
+    return "existing", [a[n] for n in cs.B3E_NAMES], zc
+
+
+def run_dense(shape):
+    """B3 at one shape: the wrapper (CUDA events) and the device alone
+    (torch.profiler), against its plain version."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    entry, ins, (zk, ck) = dense_inputs(shape)
+    if entry == "fresh":
+        row = feas_time(lambda: feas.fresh_claim_feasibility(*ins, zone_kid=zk, ct_kid=ck),
+                        lambda: feas.fresh_claim_feasibility_reference(*ins, zone_kid=zk,
+                                                                       ct_kid=ck))
+        row["shape"] = "P, G, T = " + ", ".join(map(str, ins[8].shape + ins[9].shape[1:]))
+    else:
+        row = feas_time(lambda: feas.existing_node_feasibility(*ins),
+                        lambda: feas.existing_node_feasibility_reference(*ins))
+        row["shape"] = "N, G = " + ", ".join(map(str, ins[8].shape))
+    if row["err"]:
+        raise RuntimeError(f"{shape}: B3 disagrees with its plain version: {row}")
+    return row
+
+
+def run_wire(shape):
+    """B6 at one shape: the mixed 50k x 400 solve's scan outputs (NMAX
+    1024) and the consolidation chunk's (S = 16), as chip_smoke.py's phase
+    2 makes them; the wrapper (CUDA events) and the device alone
+    (torch.profiler), against its plain version."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packing
+    from karpenter_tpu_torch.ops import solve
+
+    if shape == "wire_mixed":
+        a, statics, _, _ = feas_inputs("feas_mixed")
+        from karpenter_tpu_torch.solver.driver import SolverConfig, TorchSolver
+        from karpenter_tpu_torch.solver import workloads
+
+        pods = workloads.mixed_pods(cs.N_PODS)
+        solver = cs.build_batch(TorchSolver, SolverConfig, pods, cs.N_TYPES)
+        _, _, nmax, fills = cs.device_snapshot(solver, pods)
+        cap_ng = None
+    else:
+        a, statics, nmax, fills = feas_inputs("feas_cons")
+    zk, ck = statics["zone_kid"], statics["ct_kid"]
+    b1 = feas.fresh_claim_feasibility_sparse(*(a[n] for n in cs.B1_NAMES), zone_kid=zk,
+                                             ct_kid=ck)
+    if shape == "wire_mixed":
+        import torch
+
+        cap_ng = torch.zeros((0, a["g_count"].shape[0]), dtype=torch.int32, device="cuda")
+    else:
+        cap_ng = feas.existing_node_feasibility_sparse(*(a[n] for n in cs.B2_NAMES))
+    st = dict(nmax=nmax, zone_kid=zk, ct_kid=ck, wf_iters=statics["wf_iters"],
+              has_domains=statics["has_domains"])
+    pack_in = solve.pack_args(a, *b1, cap_ng)
+    while True:
+        outs = packing.pack(*pack_in, **st)
+        if not bool(outs[3].any().item()):
+            break
+        st["nmax"] *= 2
+    row = feas_time(lambda: solve.wire_pack(outs, fills),
+                    lambda: solve.wire_pack_reference(outs, fills))
+    row["shape"] = f"{tuple(outs[1].shape)} mask, fills {fills}"
+    if row["err"]:
+        raise RuntimeError(f"{shape}: B6 disagrees with its plain version: {row}")
+    return row
+
+
+def run_wide():
+    """Each of chip_smoke.py's wide value vocabularies (wide_inputs) through
+    one cold TorchSolver(device="cuda").solve: its claims, pod errors and
+    seconds, or the exception it raised and the last frames it passed."""
+    import traceback
+
+    import torch
+
+    from karpenter_tpu_torch.solver.driver import EncodeCache, SolverConfig, TorchSolver
+
+    out = {}
+    for label, pools, catalog, pods in cs.wide_inputs():
+        s = cs.build_batch(TorchSolver, SolverConfig, pods, 0, cache=EncodeCache(),
+                           pools=pools(), its=catalog())
+        t0 = time.perf_counter()
+        try:
+            res = s.solve(pods)
+            torch.cuda.synchronize()
+            out[label] = dict(claims=len(res.new_node_claims), errors=len(res.pod_errors),
+                              s=time.perf_counter() - t0)
+        except Exception as exc:  # the record of what raises is the result here
+            frames = traceback.extract_tb(exc.__traceback__)[-4:]
+            out[label] = dict(error=f"{type(exc).__name__}: {exc}", s=time.perf_counter() - t0,
+                              where=[f"{f.filename.rsplit('/', 2)[-1]}:{f.lineno}" for f in frames])
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-clocks", action="store_true", help="times only")
@@ -566,8 +702,8 @@ def main():
     classed = any(s in CLASSED_SHAPES for s in opts.shapes)
     clock_libs = opts.classed_clocks if clocks else []
     widths = [f"pack_classed_c{c}" for c in opts.clusters]
-    feas_only = all(s in FEAS_SHAPES for s in opts.shapes)
-    names = ("fresh_feasibility", "existing_feasibility", "wire_pack", "pack",
+    feas_only = all(s in FEAS_SHAPES + DENSE_SHAPES + WIRE_SHAPES for s in opts.shapes)
+    names = ("fresh_feasibility", "existing_feasibility", "dense_feasibility", "wire_pack", "pack",
              *(("fresh_feasibility_clocks",)
                if clocks and any(s in FEAS_SHAPES for s in opts.shapes) else ()),
              *(("pack_clocks",) if clocks and not feas_only else ()),
@@ -578,6 +714,12 @@ def main():
         try:
             if shape in FEAS_SHAPES:
                 rows[shape] = run_feasibility(shape, clocks)
+            elif shape in DENSE_SHAPES:
+                rows[shape] = run_dense(shape)
+            elif shape in WIRE_SHAPES:
+                rows[shape] = run_wire(shape)
+            elif shape == "wide":
+                rows[shape] = run_wide()
             elif shape in CONS_SHAPES:
                 rows[shape] = run_consolidation(shape)
             elif shape in CLASSED_SHAPES:

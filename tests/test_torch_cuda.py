@@ -44,7 +44,12 @@ pair repeated, goff_idx repeated, P = 2, two mask words a key, the
 scenario axis) with junk-filled outputs, at the main path's shapes
 (mixed 50k, diverse-ref, constrained 50k also reordered, 32 nodes with
 16 scenarios), one kernel a call under torch.profiler, and every
-malformed input raising through the wrappers.
+malformed input raising through the wrappers. The wide-vocabulary section
+(ROADMAP C1) holds B1 and B2 at K = 16, V1 = 2,048 and 65,536 (B1's
+layouts by width), B4 with domains and B5 at V1 = 2,048 (their per-step
+arrays spilled), the minValues scans at MW = 2,048, two wide solves
+against device="cpu", and B3 and B6, one launch a call, at their paths'
+shapes and at wide masks.
 
 Marked ``cuda``: they skip where there is no card. On the card, from the
 repo root: ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
@@ -610,11 +615,12 @@ def test_warm_churn_on_the_card(cuda):
 # -- B5, the class-batched scan, and B4's contributor counting --------------------
 
 
-def _scan_snapshot(pods, pools, its, n_nodes=0, nmax=None, **solver_kw):
+def _scan_snapshot(pods, pools, its, n_nodes=0, nmax=None, nodes=None, **solver_kw):
     """The padded solve args, statics and class partition of ``pods`` over
-    ``pools`` and the catalog ``its``, encoded by the port."""
+    ``pools`` and the catalog ``its`` (and ``n_nodes`` example state nodes,
+    or ``nodes``), encoded by the port."""
     its = {p.name: list(its) for p in pools}
-    nodes = example_state_nodes(n_nodes)
+    nodes = example_state_nodes(n_nodes) if nodes is None else nodes
     topo = Topology(Client(TestClock()), nodes, pools, its, pods)
     solver = TorchSolver(pools, its, topo, state_nodes=nodes,
                          config=SolverConfig(device="cpu"), **solver_kw)
@@ -1436,7 +1442,7 @@ B1_NAMES = _B1
 B2_NAMES = _B2
 INDEX_CASES = ("shuffled", "padding-interleaved", "pair-repeated", "goff-repeats",
                "two-templates", "wide-masks", "scenario-axis", "vocabulary-masks",
-               "huge-masks")
+               "huge-masks", "vocab-2048", "vocab-rows")
 
 
 def random_tables(rng, P, G, T, N, K, V1, R, O, S=0):
@@ -1494,19 +1500,27 @@ def sparse_index_case(case, seed=0):
     bit words a key), n_tol [16, N, G] in "scenario-axis", K = 16 and
     V1 = 128 in "vocabulary-masks" (B1's block past 48 KB of shared
     memory), K = 4 and V1 = 2048 in "huge-masks" (B2's block past it
-    too)."""
+    too), K = 16 and V1 = 2048 in "vocab-2048" (a value vocabulary of
+    1,024+ values: B1's mask bytes past the card's shared memory, its
+    words built straight from device memory) and V1 = 65,536 in
+    "vocab-rows" (G = 16, T = 8, N = 4: past even B1's words, every word
+    read from the byte rows)."""
     rng = np.random.default_rng([seed, INDEX_CASES.index(case)])
     P = 2 if case == "two-templates" else 1
-    T = 37 if case == "two-templates" else 36
-    V1 = {"wide-masks": 40, "vocabulary-masks": 128, "huge-masks": 2048}.get(case, 5)
+    T = {"two-templates": 37, "vocab-rows": 8}.get(case, 36)
+    V1 = {"wide-masks": 40, "vocabulary-masks": 128, "huge-masks": 2048, "vocab-2048": 2048,
+          "vocab-rows": 65536}.get(case, 5)
     S = 16 if case == "scenario-axis" else 0
     G, N, K, R, O, L, LZ = 40, 9, 6, 3, 4, 70, 12
-    K = {"vocabulary-masks": 16, "huge-masks": 4}.get(case, K)
+    if case == "vocab-rows":
+        G, N = 16, 4
+    K = {"vocabulary-masks": 16, "huge-masks": 4, "vocab-2048": 16, "vocab-rows": 16}.get(case, K)
     a = random_tables(rng, P, G, T, N, K, V1, R, O, S)
     cells = rng.choice(G * K, L, replace=False)
     cells.sort()  # the encoder's order: by group, then key
     gk = (cells // K, cells % K, rng.choice([1, 2], L), rng.choice(G, LZ, replace=False))
-    if case in ("shuffled", "wide-masks", "vocabulary-masks", "huge-masks"):
+    if case in ("shuffled", "wide-masks", "vocabulary-masks", "huge-masks", "vocab-2048",
+                "vocab-rows"):
         idx = reorder_index(rng, *gk)
     elif case == "padding-interleaved":
         idx = reorder_index(rng, *gk, n_pad=40)
@@ -1538,17 +1552,24 @@ def _junk_empty(monkeypatch):
     monkeypatch.setattr(torch, "empty", junk)
 
 
-def _device_kernels(fn):
-    """The device activities torch.profiler sees in one call of ``fn``."""
+def _device_kernels(fn, reps=20):
+    """The device activities torch.profiler sees a call of ``fn``, by name:
+    over ``reps`` calls, host and device traced (as chip_smoke.py's
+    device_ms), each activity's records per call rounded (the tracer may
+    drop a record of a call this short)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    per_call = []
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA") and ev.count:
+            per_call += [ev.key] * round(ev.count / reps)
+    return per_call
 
 
 def _tables_equal_plain(a, zk, ck, cuda, kernels=True):
@@ -1693,3 +1714,235 @@ def test_sparse_wrappers_raise_on_malformed_inputs(cuda, kernel, fault):
     assert not any(_build.launches.values())
     call(good)
     assert _build.launches[f"{kernel}_feasibility"] == 1
+
+
+# -- wide value vocabularies (ROADMAP C1), and B3 and B6 redesigned --------------
+#
+# V1 = pow2(most values of one key + 1): a per-team label of 1,100 values
+# takes it to 2,048, past the mask bytes B1 stages and the per-step
+# arrays B4 and B5 keep in shared memory. The kernels must return what
+# the plain versions (and the JAX reference, tests/test_torch_wide_vocab.py)
+# return at any width.
+
+N_TEAMS = 1_100
+
+
+def _wide_domain_batch():
+    """tests/test_torch_wide_vocab.py's domain batch in the port's objects:
+    zonal self-spread pods, pods of three teams, one pod pinned to a zone
+    no type offers and one excluded from every offered zone, over a pool
+    listing 1,100 teams (V1 2048), with nodes in zone a, zone b and the
+    outside zone."""
+    from chip_smoke import TEAM_KEY, team_pool
+    from karpenter_tpu_torch.api.objects import NodeAffinity, NodeSelectorRequirement
+    from karpenter_tpu_torch.solver.workloads import _pod
+
+    def zone_req(op, values):
+        return NodeAffinity(required=[(NodeSelectorRequirement(labels.TOPOLOGY_ZONE, op,
+                                                               tuple(values)),)])
+
+    sel = LabelSelector(match_labels={"app": "zs"})
+    pods = [_pod(f"zs-{i}", 500, 512, labels={"app": "zs"},
+                 topology_spread_constraints=[TopologySpreadConstraint(
+                     max_skew=1, topology_key=labels.TOPOLOGY_ZONE,
+                     when_unsatisfiable="DoNotSchedule", label_selector=sel)])
+            for i in range(9)]
+    pods += [_pod(f"team-{i}", 250 * (1 + i % 3), 1024, node_selector={TEAM_KEY: f"team-{i % 3}"})
+             for i in range(12)]
+    pods.append(_pod("outside-in", 500, 1024, node_affinity=zone_req("In", ("zone-outside",))))
+    pods.append(_pod("outside-notin", 500, 1024, node_affinity=zone_req(
+        "NotIn", ("test-zone-a", "test-zone-b", "test-zone-c"))))
+    nodes = example_state_nodes(3)
+    for sn, zone in zip(nodes, ("test-zone-a", "test-zone-b", "zone-outside")):
+        sn.node.metadata.labels[labels.TOPOLOGY_ZONE] = zone
+    return pods, [team_pool([f"team-{i}" for i in range(N_TEAMS)])], nodes
+
+
+def _spilled(library, V1):
+    """The spill scratch the last launches of ``library`` at V1 took
+    (ops/packing.py:layouts): > 0 where the scan's per-step arrays passed
+    a block's shared memory."""
+    from karpenter_tpu_torch.ops import packing as tp
+
+    at = 6 if library == "pack" else 5  # the key's V1: (library, device, [S,] P, R, K, V1, ...)
+    got = [v[1] for k, v in tp.layouts.items() if k[0] == library and k[at] == V1]
+    assert got, (library, V1, list(tp.layouts))
+    return max(got)
+
+
+@pytest.mark.parametrize("case,mode", [("vocab-2048", "direct"), ("vocab-rows", "rows")])
+def test_sparse_tables_wide_vocab(cuda, case, mode):
+    """B1 and B2 at K = 16, V1 = 2,048 (B1's mask bytes past the card's
+    shared memory: its words built straight from device memory) and V1 =
+    65,536 (past even B1's words: every word read from the byte rows, B1's
+    global path), exact against their plain versions."""
+    from karpenter_tpu_torch.ops.feasibility import fresh_layout
+
+    a, zk, ck = sparse_index_case(case)
+    P, G, T = a["p_tol"].shape + a["p_titype_ok"].shape[1:]
+    K, V1 = a["g_mask"].shape[1:]
+    lay = fresh_layout(P, G, T, K, V1, a["g_req"].shape[1], a["o_avail"].shape[1])
+    assert lay["mode"] == mode and lay["smem"] <= 227 * 1024, lay
+    _, type_ok, _ = _tables_equal_plain(a, zk, ck, cuda)
+    assert type_ok.any() and not type_ok.all()
+
+
+def test_pack_domains_and_classed_wide_vocab(cuda):
+    """B4 over the domain batch at V1 = 2,048 (its per-step arrays spilled
+    to device memory) against pack_reference, and B5 on the same batch
+    against pack_classed_reference: every output, the claims' domains
+    included."""
+    from karpenter_tpu_torch import _build
+
+    pods, pools, nodes = _wide_domain_batch()
+    args, statics, classes = _scan_snapshot(pods, pools, corpus.generate(20), nodes=nodes)
+    assert np.asarray(args[enc.SOLVE_ARG_NAMES.index("g_mask")]).shape[2] == 2048
+    assert statics["has_domains"]
+    _build.reset_launches()
+    out = _kernels_equal_plain(args, statics, cuda)
+    assert _build.launches["pack_domains"] == 1 and int(out[2]) > 0
+    assert _spilled("pack", 2048) > 0
+    _classed_equal_plain(args, statics, classes, cuda)
+    assert _spilled("pack_classed", 2048) > 0
+
+
+def test_pack_minvalues_wide_catalog(cuda):
+    """minValues 2 on the instance type over 1,100 types (MW 2048, past the
+    1,024 the scans took before): B4 with floors against pack_reference and
+    B5 with floors against pack_classed_reference."""
+    from chip_smoke import type_pool
+    from karpenter_tpu_torch import _build
+
+    args, statics, classes = _scan_snapshot(mixed_pods(600, gpu_fraction=0.0),
+                                            [type_pool(min_values=2)], corpus.generate(1100))
+    assert np.asarray(args[enc.SOLVE_ARG_NAMES.index("t_mvoh")]).shape[-1] == 2048
+    _build.reset_launches()
+    out = _kernels_equal_plain(args, statics, cuda)
+    assert _build.launches["pack_minvalues"] == 1 and int(out[2]) > 0
+    _classed_equal_plain(args, statics, classes, cuda)
+
+
+@pytest.mark.parametrize("case", ["team-in", "minvalues-types"])
+def test_wide_vocab_solve_matches_cpu(cuda, case):
+    """TorchSolver(device="cuda") against device="cpu" on two of ROADMAP
+    C1's inputs, claims in slot order: a pool listing 1,100 teams with 40
+    pods (K 16, V1 2048) and minValues 2 on the instance type over 1,100
+    types at mixed_pods(2000) (MW 2048)."""
+    from chip_smoke import team_pods, team_pool, type_pool
+
+    if case == "team-in":
+        pods = team_pods(40)
+        pools, its = [team_pool([f"team-{i}" for i in range(N_TEAMS)])], corpus.generate(400)
+    else:
+        pods, pools, its = mixed_pods(2000), [type_pool(min_values=2)], corpus.generate(1100)
+    got = {}
+    for device in ("cpu", "cuda"):
+        by_pool = {p.name: list(its) for p in pools}
+        topo = Topology(Client(TestClock()), [], pools, by_pool, pods)
+        s = TorchSolver(pools, by_pool, topo, config=SolverConfig(device=device))
+        res = s.solve(pods)
+        got[device] = (slots(res), sorted(res.pod_errors))
+    assert got["cuda"] == got["cpu"] and got["cpu"][0] and not got["cpu"][1]
+
+
+def _dense_case(case):
+    """B3's inputs (numpy, by solve-arg name) and (zone_kid, ct_kid): the
+    dense route's shape (mixed 50k x 400, G 64), the relax path's (its
+    first group alone: 1 x 400), the state-node snapshot (32 nodes x 64
+    groups), and random rows at K = 16, V1 = 2,048 and 65,536."""
+    if case in ("dense-64x400", "relax-1x400"):
+        a, st = _path_args(mixed_pods(50_000), 400)
+        if case == "relax-1x400":
+            for n in ("g_def", "g_neg", "g_mask", "g_req"):
+                a[n] = a[n][:1]
+            a["p_tol"] = a["p_tol"][:, :1]
+            a["n_tol"] = a["n_tol"][:, :1]
+        return a, st["zone_kid"], st["ct_kid"]
+    if case == "nodes-32x64":
+        a, st = _path_args(mixed_pods(2_000), 400, n_nodes=32)
+        return a, st["zone_kid"], st["ct_kid"]
+    V1 = {"vocab-2048": 2048, "vocab-rows": 65536}[case]
+    rng = np.random.default_rng([21, V1])
+    return random_tables(rng, 2, 12, 20, 6, 16, V1, 3, 4), 1, 2
+
+
+@pytest.mark.parametrize("case,mode", [
+    ("dense-64x400", "words"), ("relax-1x400", "words"), ("nodes-32x64", "words"),
+    ("vocab-2048", "words"), ("vocab-rows", "rows")])
+def test_dense_tables_one_launch(cuda, case, mode):
+    """B3's fresh and existing entries at their paths' shapes and at K =
+    16, V1 = 2,048 and 65,536: exact against their plain versions, one
+    kernel a call under torch.profiler (no word pass, no memset), the
+    layout each takes."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    a, zk, ck = _dense_case(case)
+    fresh_in, exist_in = _on(a, _B3, cuda), _on(a, _B3E, cuda)
+    kw = dict(zone_kid=zk, ct_kid=ck)
+    got = feas.fresh_claim_feasibility(*fresh_in, **kw)
+    want = feas.fresh_claim_feasibility_reference(*_on(a, _B3, "cpu"), **kw)
+    for name, k, p in zip(("compat_pg", "type_ok", "n_fit"), got, want):
+        assert k.dtype == p.dtype and k.shape == p.shape, name
+        np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=name)
+    assert want[1].any()
+    P, G = a["p_tol"].shape
+    T, K, V1 = a["t_mask"].shape
+    R, O = a["g_req"].shape[1], a["o_avail"].shape[1]
+    assert feas.dense_layout(P, -1, G, T, K, V1, R, O)["mode"] == mode
+    fresh = _device_kernels(lambda: feas.fresh_claim_feasibility(*fresh_in, **kw))
+    assert len(fresh) == 1 and "dense_fresh" in fresh[0], fresh
+    N = a["n_avail"].shape[0]
+    if N:
+        cap = feas.existing_node_feasibility(*exist_in)
+        want = feas.existing_node_feasibility_reference(*_on(a, _B3E, "cpu"))
+        np.testing.assert_array_equal(cap.cpu().numpy(), want.numpy(), err_msg="cap_ng")
+        assert int(want.max()) > 0
+        assert feas.dense_layout(P, N, G, T, K, V1, R, O)["mode"] == mode
+        exist = _device_kernels(lambda: feas.existing_node_feasibility(*exist_in))
+        assert len(exist) == 1 and "dense_existing" in exist[0], exist
+
+
+def _wire_outs(rng, lead, nmax, T, G, N, device):
+    """Random outputs of the scan (the ten of solve_core) with ``lead``
+    scenario axes: masks half set, fills and per-claim ids past int16 so
+    the narrowing wraps, on ``device``."""
+    i32 = np.int32
+    big = rng.integers(-(2**31), 2**31 - 1, size=lead + (nmax,), dtype=np.int64).astype(i32)
+    outs = (
+        np.where(rng.random(lead + (nmax,)) < 0.5, rng.integers(0, 64, lead + (nmax,)), big),
+        rng.random(lead + (nmax, T)) < 0.5,
+        rng.integers(0, nmax, lead).astype(i32), rng.random(lead) < 0.5,
+        rng.integers(-(2**20), 2**20, lead + (G, N)),
+        rng.integers(-(2**20), 2**20, lead + (G, nmax)),
+        rng.integers(0, 9, lead + (G,)),
+        rng.integers(-1, 40000, lead + (nmax,)), rng.integers(-1, 3, lead + (nmax,)),
+        rng.random(lead + (nmax,)) < 0.1,
+    )
+    return tuple(torch.from_numpy(np.ascontiguousarray(
+        x.astype(i32) if x.dtype != np.bool_ else x)).to(device) for x in outs)
+
+
+@pytest.mark.parametrize("case", ["mixed-50k", "scenarios-16", "odd-widths", "no-nodes"])
+def test_wire_pack_one_launch(cuda, case):
+    """B6 at the solve's shape (NMAX 1024, T 400, G 64), the consolidation
+    chunk's (S = 16, NMAX 64, T 50, G 1, N 2048), odd widths (T 37, fills
+    not a multiple of 8: the unaligned mask rows and the tails) and no
+    nodes: exact against wire_pack_reference for both fill dtypes, the
+    narrowing wrapping as XLA's convert, one kernel a call."""
+    from karpenter_tpu_torch.ops.solve import wire_pack_reference
+
+    lead, nmax, T, G, N = {"mixed-50k": ((), 1024, 400, 64, 0),
+                           "scenarios-16": ((16,), 64, 50, 1, 2048),
+                           "odd-widths": ((3,), 29, 37, 5, 7),
+                           "no-nodes": ((), 100, 400, 13, 0)}[case]
+    rng = np.random.default_rng(len(case))
+    kern = _wire_outs(rng, lead, nmax, T, G, N, cuda)
+    plain = tuple(x.cpu() for x in kern)
+    for dtype in (torch.int16, torch.int32):
+        got = wire_pack(kern, dtype)
+        want = wire_pack_reference(plain, dtype)
+        for i, (k, p) in enumerate(zip(got, want)):
+            assert k.dtype == p.dtype and k.shape == p.shape, i
+            np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=f"wire {i}")
+    names = _device_kernels(lambda: wire_pack(kern, torch.int16))
+    assert len(names) == 1 and "wire_pack" in names[0], names
