@@ -250,6 +250,11 @@ N_LISTED, LISTED_TYPES = 600, 800
 # card solves, waited on for at most WIDE_CPU_WAIT_S after them
 WIDE_CPU_PODS = 2_000
 WIDE_CPU_WAIT_S = 900
+# phase 11, the degradation ladder (the only phase that passes a
+# SolverConfig.health): mixed 2,000 x 400 and the consolidation env at 200
+# nodes; the breaker trips at the first failure and cools down in 60 s of
+# an injected clock
+LADDER_PODS, LADDER_NODES, LADDER_COOLDOWN = 2_000, 200, 60.0
 REPLACES = {
     "fresh_feasibility": "karpenter_tpu/ops/feasibility.py:141",
     "fresh_feasibility_diverse": "karpenter_tpu/ops/feasibility.py:141",
@@ -348,6 +353,8 @@ PATH_KERNELS = {
     "tenant_ticks": ("pack", "pack_tiled", "wire_pack", "apply_rows"),
     "tenant_classed": ("pack_classed", "pack_classed_tiled", "wire_pack"),
     "tenant_scenarios": ("pack", "pack_tiled", "wire_pack"),
+    # the ladder phase's kernel-rung solve after the cool-down
+    "ladder": ("fresh_feasibility", "pack", "wire_pack"),
 }
 TABLE_KERNELS = ("fresh_feasibility", "existing_feasibility", "dense_feasibility")
 # ... and those it must not launch: the classed route replaces B4, the
@@ -628,9 +635,11 @@ def b2_row(a, label, reps=50):
 
 
 def build_batch(torch_solver_cls, config_cls, pods, n_types, state_nodes=(),
-                device="cuda", cache=None, pools=None, its=None, classed=None, **solver_kw):
+                device="cuda", cache=None, pools=None, its=None, classed=None, config_kw=None,
+                **solver_kw):
     """A TorchSolver over ``pods``: the default NodePool (or ``pools``) over
-    corpus.generate(n_types) (or the catalog ``its``); ``solver_kw`` go to
+    corpus.generate(n_types) (or the catalog ``its``); ``config_kw`` go to
+    the SolverConfig beside ``device`` and ``classed``, ``solver_kw`` to
     the scheduler (reserved_capacity_enabled)."""
     from karpenter_tpu_torch.cloudprovider import corpus
     from karpenter_tpu_torch.kube import Client, TestClock
@@ -643,7 +652,8 @@ def build_batch(torch_solver_cls, config_cls, pods, n_types, state_nodes=(),
     topo = Topology(Client(TestClock()), list(state_nodes), pools, its_by_pool, pods)
     return torch_solver_cls(
         pools, its_by_pool, topo, state_nodes=list(state_nodes),
-        config=config_cls(device=device, classed=classed), encode_cache=cache, **solver_kw,
+        config=config_cls(device=device, classed=classed, **(config_kw or {})),
+        encode_cache=cache, **solver_kw,
     )
 
 
@@ -949,11 +959,18 @@ def relax_plan(solver, pods):
 def relax_row(torch_solver_cls, config_cls):
     """Phase 2's B3 row at the relax path's shape (the fresh entry over the
     identical 50k x 400 batch's run heads: 1 x 400) and B9's row:
-    relax_fill on the bulk inputs (B3's head tables on the card, then the
-    host's claim sizes, as ops/relax.py:solve_bulk builds them), each
-    against its plain version. Tolerance: exact equality."""
+    relax_fill on the bulk inputs (B3's head tables on the card, which B9
+    reads its rows from, and the host's claim sizes, as
+    ops/relax.py:solve_bulk builds them), each against its plain version,
+    B9 with one launch a call (its launch count and torch.profiler's
+    device activities). B9's bound counts the bytes the entry must move
+    once: its slot vectors, the table rows its live slots name and its
+    outputs; ``bound_old_formula`` is the same rule over the earlier
+    two-kernel entry, which took the [NR, T] rows gathered on the host.
+    Tolerance: exact equality."""
     import torch
 
+    from karpenter_tpu_torch import _build
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.ops import relax as relax_mod
     from karpenter_tpu_torch.solver.args import put
@@ -967,24 +984,35 @@ def relax_row(torch_solver_cls, config_cls):
             zip(relax_mod.HEAD_ARG_NAMES, relax_mod.head_args(plan, run))]
     _, type_ok, n_fit = feas.fresh_claim_feasibility(
         *head, zone_kid=run.zone_kid, ct_kid=run.ct_kid)
-    n_r, host_in = relax_mod.fill_args(plan, type_ok.cpu().numpy(), n_fit.cpu().numpy())
-    b9_in = [put(n, x, "cuda") for n, x in zip(relax_mod.FILL_ARG_NAMES, host_in)]
+    n_r, ge, cl = relax_mod.fill_args(plan, type_ok.cpu().numpy(), n_fit.cpu().numpy())
+    b9_in = (*relax_mod.fill_inputs(ge, cl, "cuda"), type_ok, n_fit, n_r)
+    _build.reset_launches()
     b9 = relax_mod.relax_fill(*b9_in)
+    if _build.launches["relax_fill"] != 1:
+        raise SmokeFailure(f"B9: {_build.launches['relax_fill']} launches a call, want 1")
     b9_ref = relax_mod.relax_fill_reference(*b9_in)
     torch.cuda.synchronize()
     if n_r != IDENT_CLAIMS or int(b9[0][:, :n_r].sum()) != N_IDENT:
         raise SmokeFailure(f"B9: {n_r} claims holding {int(b9[0][:, :n_r].sum())} pods")
     GE, NR = b9[0].shape
-    T = b9[1].shape[1]
-    return dense_fresh_row(head, run.zone_kid, run.ct_kid, "relax heads"), with_device(dict(
+    P, CRp, T = type_ok.shape
+    rows_read = len({(int(p), int(r)) for p, r in zip(cl[0, :n_r], cl[2, :n_r])})
+    out_bytes = nbytes(b9)
+    # per fill cell the window arithmetic (~12 integer ops), per mask
+    # cell a compare and an AND
+    ops = GE * NR * 12 + NR * T * 2
+    row = with_device(dict(
         max_abs_err=max_abs_err(b9, b9_ref),
         ms=cuda_ms(lambda: relax_mod.relax_fill(*b9_in), 50),
         plain_ms=cuda_ms(lambda: relax_mod.relax_fill_reference(*b9_in), 20),
-        # per fill cell the window arithmetic (~12 integer ops), per mask
-        # cell a compare and an AND
-        bound=bound_ms(nbytes(b9_in) + nbytes(b9), GE * NR * 12 + NR * T * 2),
-        shape=f"GE={GE} NR={NR} T={T} claims={n_r}",
+        bound=bound_ms(ge.nbytes + cl.nbytes + rows_read * T * 5 + out_bytes, ops),
+        # the earlier entry read ge's five [GE] vectors, the slots' pool and
+        # fill, and the gathered [NR, T] bool and int32 rows
+        bound_old_formula=bound_ms(ge.nbytes + 8 * NR + NR * T * 5 + out_bytes, ops)[0],
+        shape=f"GE={GE} NR={NR} T={T} P={P} CRp={CRp} claims={n_r} table rows read {rows_read}",
     ), lambda: relax_mod.relax_fill(*b9_in), 100)
+    one_kernel("B9", row["device_per_call"])
+    return dense_fresh_row(head, run.zone_kid, run.ct_kid, "relax heads"), row
 
 
 def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None, mv=0,
@@ -2798,6 +2826,204 @@ def phase_tenant(torch_solver_cls, config_cls, encode_cache_cls):
     return out
 
 
+def phase_ladder(torch_solver_cls, config_cls, device="cuda"):
+    """Phase 11: the degradation ladder on the card, the one phase that
+    passes ``SolverConfig.health`` (a ``SolverHealth`` on an injected clock,
+    the breaker tripping at the first failure). On mixed 2,000 x 400:
+    (a) a SOLVER_DISPATCH fault: the Results equal a force_oracle run's,
+    audit rung "oracle", the breaker open; (b) the next solve while it is
+    open stays on the oracle rung; (c) past the cool-down the solve is on
+    the kernel rung again and equals the plain health=None card solve in
+    slot order; (d) a SOLVER_OUTPUT corruption (claim fills negative, the
+    exact route pinned by relax=False) is quarantined by the guard before
+    decode: the Results are the oracle's, never the corrupt ones; (e)
+    backend="native" equals the card's exact-route Results in slot order.
+    On the consolidation env at 200 nodes: (f) a SOLVER_SCENARIOS fault
+    declines the batch: the search replays per probe and its command
+    equals the batched search's, the batched rung down, the kernel rung
+    up; (g) without a ladder the same fault raises. A fault of the card
+    itself, not injected, propagates with the ladder set and leaves it
+    untouched: (h) a launch error of the solve, (i) a guard rejection of
+    the card's outputs, (j) a launch error of the search's batch. Launch
+    counts: the recovered solve (c) and the batched search (f), each
+    from 0."""
+    import contextlib
+
+    import torch
+
+    from karpenter_tpu_torch import _build, faults, obs
+    from karpenter_tpu_torch.faults.breaker import SolverHealth
+    from karpenter_tpu_torch.kube import TestClock
+    from karpenter_tpu_torch.solver import workloads as wl
+
+    cuda = device == "cuda"
+    pods = wl.mixed_pods(LADDER_PODS)
+
+    def solve(**config_kw):
+        results = build_batch(torch_solver_cls, config_cls, pods, N_TYPES, device=device,
+                              config_kw=config_kw).solve(pods)
+        if cuda:
+            torch.cuda.synchronize()
+        rec = obs.AUDIT.last()
+        return slot_order(results), (rec.rung, rec.guard.split(":")[0])
+
+    def fault(site, **rule):
+        faults.install(faults.FaultInjector([faults.FaultRule(site, **rule)]))
+
+    def state(h):
+        return dict(kernel=h.allow_kernel(), batched=h.allow_batched(),
+                    quarantines=h.quarantines, level=h.level())
+
+    def check(label, ok, detail):
+        if not ok:
+            raise SmokeFailure(f"ladder ({label}): {detail}")
+
+    @contextlib.contextmanager
+    def card_fault(kind):
+        """A fault of the card's own, with no injector installed:
+        "launch", each launch check raising after its kernel ran (the
+        context stays sound), or "guard", the invariant guard rejecting
+        the card's outputs."""
+        from karpenter_tpu_torch.faults.guard import SolverIntegrityError
+
+        real_launched, real_verify = _build.launched, torch_solver_cls._verify_solution
+
+        def launched(name, rc, *a, **k):
+            real_launched(name, rc, *a, **k)
+            raise _build.KernelLaunchError(f"{name}: launch error (not injected)")
+
+        def verify(self, *a, **k):
+            raise SolverIntegrityError(["claim fills negative (not injected)"])
+
+        if kind == "launch":
+            _build.launched = launched
+        else:
+            torch_solver_cls._verify_solution = verify
+        try:
+            yield
+        finally:
+            _build.launched, torch_solver_cls._verify_solution = real_launched, real_verify
+
+    def propagates(kind, run):
+        """The exception type ``run(health)`` raised under a card fault of
+        ``kind``, and the ladder's state afterwards."""
+        health = SolverHealth(TestClock(), failure_threshold=1, cooldown=LADDER_COOLDOWN)
+        raised = None
+        with card_fault(kind):
+            try:
+                run(health)
+            except RuntimeError as exc:
+                raised = type(exc).__name__
+        return raised, state(health)
+
+    untouched = dict(kernel=True, batched=True, quarantines=0, level=0)
+
+    out = {}
+    t0 = time.perf_counter()
+    plain, _ = solve()
+    oracle, rung = solve(force_oracle=True)
+    check("oracle reference", rung[0] == "oracle" and not oracle[1], f"{rung}, errors {oracle[1]}")
+    clock = TestClock()
+    health = SolverHealth(clock, failure_threshold=1, cooldown=LADDER_COOLDOWN)
+    fault(faults.SOLVER_DISPATCH)
+    try:
+        got, rung = solve(health=health)
+    finally:
+        faults.uninstall()
+    check("a", got == oracle and rung == ("oracle", "ok") and not health.allow_kernel(),
+          f"{rung}, == force_oracle {got == oracle}, health {state(health)}")
+    out["dispatch_fault"] = dict(rung=rung[0], health=state(health))
+    got, rung = solve(health=health)
+    check("b", got == oracle and rung == ("oracle", "ok"), f"{rung} while the breaker is open")
+    clock.step(LADDER_COOLDOWN)
+    _build.reset_launches()
+    got, rung = solve(health=health)
+    out["launches"] = {"ladder": dict(_build.launches)}
+    check("c", got == plain and rung == ("kernel", "ok") and health.level() == 0,
+          f"{rung}, == plain card solve {got == plain}, health {state(health)}")
+    out["recovered"] = dict(rung=rung[0], health=state(health), claims=len(got[0]))
+    exact, _ = solve(relax=False)
+    health_q = SolverHealth(TestClock(), cooldown=LADDER_COOLDOWN)
+
+    def corrupt(outs):
+        outs = list(outs)
+        outs[5] = outs[5] - 7  # claim fills negative
+        return tuple(outs)
+
+    fault(faults.SOLVER_OUTPUT, mutate=corrupt)
+    try:
+        got, rung = solve(health=health_q, relax=False)
+    finally:
+        faults.uninstall()
+    check("d", got == oracle and rung == ("oracle", "quarantined")
+          and health_q.quarantines == 1 and not health_q.allow_kernel(),
+          f"{rung}, == force_oracle {got == oracle}, health {state(health_q)}")
+    out["corrupt_output"] = dict(rung=rung[0], guard=rung[1], health=state(health_q))
+    native, rung = solve(backend="native")
+    check("e", native == exact and rung == ("kernel", "ok"),
+          f"{rung}, == the card's exact route {native == exact}")
+    out["native_claims"] = len(native[0])
+    # a fault of the card's own exists only on the card
+    card = {}
+    for label, kind, want in (("h", "launch", "KernelLaunchError"),
+                              ("i", "guard", "SolverIntegrityError")) if cuda else ():
+        raised, after = propagates(kind, lambda h: solve(health=h, relax=False))
+        check(label, raised == want and after == untouched,
+              f"a {kind} fault of the card gave {raised}, health {after}")
+        card[kind] = raised
+    out["solves_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+
+    def search(health=None):
+        ctx, method, candidates, budgets = wl.build_consolidation_env(LADDER_NODES, device)
+        ctx.solver_config = config_cls(device=device, health=health)
+        cmd = method.compute_command(candidates, budgets)
+        if cuda:
+            torch.cuda.synchronize()
+        return command_signature(cmd), method.last_probes, method.last_dispatches
+
+    health_b = SolverHealth(TestClock(), failure_threshold=1, cooldown=LADDER_COOLDOWN)
+    _build.reset_launches()
+    batched = search(health_b)
+    out["launches"]["ladder_scenarios"] = dict(_build.launches)
+    out["scenario_launches"] = dict(_build.scenario_launches)
+    check("f batched", batched[2] >= 1 and state(health_b)["level"] == 0,
+          f"{batched[2]} dispatches, health {state(health_b)}")
+    health_s = SolverHealth(TestClock(), failure_threshold=1, cooldown=LADDER_COOLDOWN)
+    fault(faults.SOLVER_SCENARIOS)
+    try:
+        per_probe = search(health_s)
+        raised = None
+        try:
+            search()
+        except faults.InjectedFault as exc:
+            raised = type(exc).__name__
+    finally:
+        faults.uninstall()
+    check("f", per_probe[0] == batched[0] and not health_s.allow_batched()
+          and health_s.allow_kernel(),
+          f"command == batched {per_probe[0] == batched[0]}, health {state(health_s)}")
+    check("g", raised == "InjectedFault", f"without a ladder the fault gave {raised}")
+    if cuda:
+        raised, after = propagates("launch", search)
+        check("j", raised == "KernelLaunchError" and after == untouched,
+              f"a launch fault of the card's batch gave {raised}, health {after}")
+        card["search_launch"] = raised
+    out["card_faults"] = card
+    out["scenarios"] = dict(decision=batched[0][0], disrupted=len(batched[0][1]),
+                            probes=batched[1], dispatches=batched[2],
+                            per_probe=per_probe[1], per_probe_dispatches=per_probe[2],
+                            health=state(health_s))
+    out["search_s"] = time.perf_counter() - t0
+    if cuda:
+        for path, need in (("ladder", PATH_KERNELS["ladder"]),
+                           ("ladder_scenarios", CONS_KERNELS)):
+            missing = [k for k in need if out["launches"][path][k] < 1]
+            check(path, not missing, f"never launched {missing}")
+    return out
+
+
 def wide_cpu_worker(label, conn):
     """A child process's work: the device="cpu" decisions of the wide input
     ``label``, sent on ``conn``."""
@@ -3011,6 +3237,8 @@ def main():
     log(f"phase 2 kernels==plain ({secs:.0f} s): " + "; ".join(
         f"{k} [{r['shape']}] {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
         f"bound {r['bound'][0]:.6f} ms"
+        + (f", by the earlier entry's formula {r['bound_old_formula']:.6f} ms"
+           if "bound_old_formula" in r else "")
         + (f", {LIBRARY[k]} {r['library_ms']:.4f} ms" if k in LIBRARY else "")
         + (f"; device alone {r['device_ms']:.4f} ms ({r['device_timing']})"
            if "device_ms" in r else "")
@@ -3164,7 +3392,31 @@ def main():
             + "; launches " + " ".join(f"{k}={v}" for k, v in w["launches"].items() if v)
             for label, w in wide.items()))
 
-    # every path's own counts: the solves, the searches, the five loops
+    lad, secs = timed_phase(lambda: phase_ladder(TorchSolver, SolverConfig))
+    sc = lad["scenarios"]
+    log(f"phase 11 degradation ladder ({secs:.0f} s; SolverHealth(failure_threshold=1, cooldown="
+        f"{LADDER_COOLDOWN:.0f} s) on an injected clock): mixed {LADDER_PODS} x {N_TYPES} "
+        f"({lad['solves_s']:.1f} s): (a) SOLVER_DISPATCH fault -> rung "
+        f"{lad['dispatch_fault']['rung']}, == force_oracle, health {lad['dispatch_fault']['health']}; "
+        f"(b) breaker open -> oracle; (c) after the cool-down rung {lad['recovered']['rung']}, == "
+        f"the health=None card solve in slot order ({lad['recovered']['claims']} claims), health "
+        f"{lad['recovered']['health']}; (d) SOLVER_OUTPUT corruption -> rung "
+        f"{lad['corrupt_output']['rung']}, guard {lad['corrupt_output']['guard']}, == force_oracle, "
+        f"health {lad['corrupt_output']['health']}; (e) backend=native == the card's exact route "
+        f"({lad['native_claims']} claims); consolidation at {LADDER_NODES} nodes "
+        f"({lad['search_s']:.1f} s): (f) batched {sc['decision']} {sc['disrupted']} in "
+        f"{sc['probes']} probes / {sc['dispatches']} dispatches; SOLVER_SCENARIOS fault -> per-probe "
+        f"replay ({sc['per_probe']} probes, {sc['per_probe_dispatches']} single dispatches), == the "
+        f"batched command, health {sc['health']}; "
+        f"(g) without health the fault raises; a fault of the card, not injected, propagates "
+        f"with the ladder untouched: (h) launch {lad['card_faults']['launch']}, (i) guard "
+        f"{lad['card_faults']['guard']}, (j) the batch's launch "
+        f"{lad['card_faults']['search_launch']}; launches " + "; ".join(
+            f"{p}: " + " ".join(f"{k}={v}" for k, v in c.items() if v)
+            for p, c in lad["launches"].items()))
+
+    # every path's own counts: the solves, the searches, the five loops,
+    # the ladder
     paths = dict(e2e["launches"])
     paths.update({label: c["launches"] for label, c in cons.items()})
     paths.update(con["launches"])
@@ -3174,7 +3426,9 @@ def main():
     paths["cons_minvalues"] = cm["launches"]
     paths.update(ten["launches"])
     paths.update({label: w["launches"] for label, w in wide.items()})
+    paths.update(lad["launches"])
     scen_paths = {label: c["scenario_launches"] for label, c in cons.items()}
+    scen_paths["ladder_scenarios"] = lad["scenario_launches"]
     kernels = []
     for name, row in rows.items():
         bms, by = row["bound"]
@@ -3209,6 +3463,8 @@ def main():
                          tenant_tick={k: v for k, v in ten["b8_tick"].items() if k != "bound"})
         if name == "pack_tiled":  # the scan alone at the tenant cell's full depth
             extra["tenant_cell_ms"] = ten["scan_tiled_ms"]
+        if name == "relax_fill":  # the bound by the earlier entry's formula
+            extra["bound_ms_old_formula"] = row["bound_old_formula"]
         kernels.append(dict(
             name=name, route="cuda", source=source,
             replaces=REPLACES[name],

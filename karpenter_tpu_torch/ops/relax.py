@@ -18,14 +18,17 @@ argument, PARITY.md "Relaxation pre-solver" the routing conditions).
 - ``solve_bulk`` places the planned bulk on a torch device: kernel B3's
   fresh table (ops/feasibility.py:fresh_claim_feasibility) over the
   pow2-padded run heads, one readback, the host's per-run claim sizes
-  and claim-slot arrays exactly as JAX computes them, then one
-  ``relax_fill`` launch and its readback.
+  and claim-slot vectors exactly as JAX computes them (one copy to the
+  device), then one ``relax_fill`` launch, which reads each slot's
+  availability and fit row straight from B3's tables on the device, and
+  its readback.
 - ``relax_fill`` is kernel B9 (csrc/relax_fill.cu) for CUDA tensors and
   its plain version ``relax_fill_reference`` for CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Optional
 
@@ -235,86 +238,88 @@ def _wrap32(x):
     return torch.remainder(x + 2**31, 2**32) - 2**31
 
 
-def relax_fill_reference(
-    ge_count,  # [GE] int32 (0 on padding)
-    ge_a,  # [GE] int32 within-run pod offset
-    ge_off,  # [GE] int32 first claim slot of the group's run
-    ge_nper,  # [GE] int32 pods per claim of the run (0 = infeasible)
-    ge_kc,  # [GE] int32 claim count of the run
-    cl_run_pool,  # [NR] int32 template id per claim slot
-    cl_fill,  # [NR] int32 total pods per claim slot
-    cl_avail,  # [NR, T] bool p_star availability row per claim slot
-    cl_nfit,  # [NR, T] int32 n_fit row per claim slot
-):
+def relax_fill_reference(ge, cl, type_ok, n_fit, n_r: int):
     """Plain version of karpenter_tpu/ops/relax.py:relax_fill (inside
-    _jit_relax_fill): the interval-arithmetic rounding of the relaxed
-    bulk. claim_fills[i, j] is the overlap of group i's cumulative pod
-    interval with claim j's capacity window; the claim type masks keep the
-    types whose fit survives the claim's total fill. The window arithmetic
-    runs in int64 and wraps to int32 after every operation XLA does in
-    int32, so every lane, masked or kept, equals JAX's.
+    _jit_relax_fill) composed with the host gather of its [NR, T] rows
+    that the JAX solve_bulk does before it.
+
+    ``ge`` [5, GE] int32 holds per easy group (0 on padding) its pod count,
+    its pod offset within its run, its run's first claim slot, pods per
+    claim n_per (0: no feasible template) and claim count kc. ``cl``
+    [3, NR] int32 holds per claim slot its template p_star, its total
+    pods and its run. ``type_ok`` [P, CRp, T] bool and ``n_fit``
+    [P, CRp, T] int32 are B3's head tables; slot j reads their row
+    (pool[j], run[j]), which every slot below ``n_r`` must name, and the
+    slots at or past ``n_r`` are unavailable.
+
+    claim_fills[i, j] is the overlap of group i's cumulative pod interval
+    with claim j's capacity window; the claim type masks keep the types
+    whose fit survives the claim's total fill. The window arithmetic runs
+    in int64 and wraps to int32 after every operation XLA does in int32,
+    so every lane, masked or kept, equals JAX's.
 
     Returns claim_fills [GE, NR] int32, c_tmask [NR, T] bool, c_pool [NR]
-    int32 (``cl_run_pool``) and unplaced [GE] int32."""
+    int32 (the slots' templates) and unplaced [GE] int32."""
     i64, i32 = torch.int64, torch.int32
-    NR = cl_fill.shape[0]
-    slots = torch.arange(NR, dtype=i64, device=cl_fill.device)
-    rel = _wrap32(slots[None, :] - ge_off.to(i64)[:, None])  # [GE, NR]
-    nper = ge_nper.to(i64).clamp(min=1)[:, None]
-    lo = ge_a.to(i64)[:, None]
-    hi = _wrap32(ge_a.to(i64) + ge_count.to(i64))[:, None]
+    ge_count, ge_a, ge_off, ge_nper, ge_kc = ge.to(i64)
+    cl_pool, cl_fill, cl_run = cl.long()
+    NR = cl.shape[1]
+    slots = torch.arange(NR, dtype=i64, device=cl.device)
+    rel = _wrap32(slots[None, :] - ge_off[:, None])  # [GE, NR]
+    nper = ge_nper.clamp(min=1)[:, None]
+    lo = ge_a[:, None]
+    hi = _wrap32(ge_a + ge_count)[:, None]
     win_lo = _wrap32(rel * nper)
     win_hi = _wrap32(win_lo + nper)
     fill = _wrap32(torch.minimum(hi, win_hi) - torch.maximum(lo, win_lo))
     fill = torch.minimum(fill.clamp(min=0), nper)
-    in_run = (rel >= 0) & (rel < ge_kc.to(i64)[:, None]) & (ge_nper[:, None] > 0)
+    in_run = (rel >= 0) & (rel < ge_kc[:, None]) & (ge_nper[:, None] > 0)
     claim_fills = torch.where(in_run, fill, torch.zeros_like(fill)).to(i32)
+    # the gather: each slot's availability and fit row of its run under
+    # its template; the slots past n_r are padding
+    cl_avail = type_ok[cl_pool, cl_run] & (slots < n_r)[:, None]  # [NR, T]
+    cl_nfit = n_fit[cl_pool, cl_run]
     c_tmask = cl_avail & (cl_nfit >= cl_fill[:, None])
     unplaced = torch.where(ge_nper > 0, torch.zeros_like(ge_count), ge_count).to(i32)
-    return claim_fills, c_tmask, cl_run_pool, unplaced
+    return claim_fills, c_tmask, cl[0].clone(), unplaced
 
 
-def relax_fill(
-    ge_count, ge_a, ge_off, ge_nper, ge_kc, cl_run_pool, cl_fill, cl_avail, cl_nfit,
-):
-    """claim_fills [GE, NR], c_tmask [NR, T], c_pool [NR], unplaced [GE]:
-    the plain version for CPU tensors, kernel B9 (csrc/relax_fill.cu) for
-    CUDA tensors."""
-    args = (ge_count, ge_a, ge_off, ge_nper, ge_kc, cl_run_pool, cl_fill, cl_avail, cl_nfit)
-    if cl_fill.device.type == "cpu":
-        return relax_fill_reference(*args)
-    return _launch_relax_fill(*args)
+def relax_fill(ge, cl, type_ok, n_fit, n_r: int):
+    """claim_fills [GE, NR], c_tmask [NR, T], c_pool [NR], unplaced [GE]
+    (inputs as ``relax_fill_reference`` takes them): the plain version for
+    CPU tensors, kernel B9 (csrc/relax_fill.cu) for CUDA tensors."""
+    if type_ok.device.type == "cpu":
+        return relax_fill_reference(ge, cl, type_ok, n_fit, n_r)
+    return _launch_relax_fill(ge, cl, type_ok, n_fit, n_r)
 
 
-def _launch_relax_fill(
-    ge_count, ge_a, ge_off, ge_nper, ge_kc, cl_run_pool, cl_fill, cl_avail, cl_nfit,
-):
-    import ctypes
+def _relax_fill_entry():
+    """kt_relax_fill with its argument types: 5 ints, then the 4 inputs,
+    the 4 outputs and the stream as pointers."""
+    return _build.bind("relax_fill", "kt_relax_fill",
+                       (ctypes.c_int,) * 5 + (ctypes.c_void_p,) * 9)
 
-    GE, (NR, T) = ge_count.shape[0], cl_avail.shape
-    dev = cl_fill.device
+
+def _launch_relax_fill(ge, cl, type_ok, n_fit, n_r: int):
+    GE, NR = ge.shape[-1], cl.shape[-1]
+    P, CRp, T = type_ok.shape
+    dev = type_ok.device
     i32 = torch.int32
     for t, name, dt, shape in (
-        (ge_count, "ge_count", i32, (GE,)), (ge_a, "ge_a", i32, (GE,)),
-        (ge_off, "ge_off", i32, (GE,)), (ge_nper, "ge_nper", i32, (GE,)),
-        (ge_kc, "ge_kc", i32, (GE,)), (cl_run_pool, "cl_run_pool", i32, (NR,)),
-        (cl_fill, "cl_fill", i32, (NR,)), (cl_avail, "cl_avail", torch.bool, (NR, T)),
-        (cl_nfit, "cl_nfit", i32, (NR, T)),
+        (ge, "ge", i32, (5, GE)), (cl, "cl", i32, (3, NR)),
+        (type_ok, "type_ok", torch.bool, (P, CRp, T)), (n_fit, "n_fit", i32, (P, CRp, T)),
     ):
         _build.check(t, name, dt, shape, dev)
     claim_fills = torch.empty((GE, NR), dtype=i32, device=dev)
     c_tmask = torch.empty((NR, T), dtype=torch.bool, device=dev)
     c_pool = torch.empty((NR,), dtype=i32, device=dev)
     unplaced = torch.empty((GE,), dtype=i32, device=dev)
-    fn = _build.library("relax_fill").kt_relax_fill
-    p = _build.ptr
-    with torch.cuda.device(dev):
-        rc = fn(
-            ctypes.c_int(GE), ctypes.c_int(NR), ctypes.c_int(T),
-            p(ge_count), p(ge_a), p(ge_off), p(ge_nper), p(ge_kc),
-            p(cl_run_pool), p(cl_fill), p(cl_avail), p(cl_nfit),
-            p(claim_fills), p(c_tmask), p(c_pool), p(unplaced),
-            _build.stream(),
+    with _build.device_scope(dev):
+        rc = _relax_fill_entry()(
+            GE, NR, T, CRp, n_r,
+            ge.data_ptr(), cl.data_ptr(), type_ok.data_ptr(), n_fit.data_ptr(),
+            claim_fills.data_ptr(), c_tmask.data_ptr(), c_pool.data_ptr(),
+            unplaced.data_ptr(), _build.raw_stream(dev),
         )
     _build.launched("relax_fill", rc)
     return claim_fills, c_tmask, c_pool, unplaced
@@ -327,9 +332,6 @@ HEAD_ARG_NAMES = (
     "p_def", "p_neg", "p_mask", "p_daemon", "p_tol", "p_titype_ok",
     "t_def", "t_mask", "t_alloc", "o_avail", "o_zone", "o_ct", "well_known",
 )
-# B9's inputs, in relax_fill's order
-FILL_ARG_NAMES = ("ge_count", "ge_a", "ge_off", "ge_nper", "ge_kc", "cl_run_pool",
-                  "cl_fill", "cl_avail", "cl_nfit")
 
 
 def head_args(plan: BulkPlan, snap_run):
@@ -353,11 +355,13 @@ def head_args(plan: BulkPlan, snap_run):
 
 
 def fill_args(plan: BulkPlan, type_ok: np.ndarray, n_fit: np.ndarray):
-    """(n_r, B9's inputs as host arrays in FILL_ARG_NAMES order) from the
-    head tables [P, CRp, T]: each run's first feasible template p_star,
-    its pods per claim n_per and claim count kc, the claim-slot offsets,
-    and the per-slot arrays padded to a pow2 NR — exactly as
-    karpenter_tpu/ops/relax.py:solve_bulk computes them."""
+    """(n_r, ge [5, GE], cl [3, NR]): B9's host inputs (int32, as
+    ``relax_fill_reference`` takes them) from the head tables [P, CRp, T]
+    read back: each run's first feasible template p_star, its pods per
+    claim n_per and claim count kc, the claim-slot offsets, and the
+    per-slot template, total fill and run, padded to a pow2 NR, exactly
+    as karpenter_tpu/ops/relax.py:solve_bulk computes them. The [NR, T]
+    rows are not gathered here: B9 reads them from the tables."""
     CRr = len(plan.run_head)
     type_ok = type_ok[:, :CRr]
     n_fit = n_fit[:, :CRr]
@@ -392,21 +396,19 @@ def fill_args(plan: BulkPlan, type_ok: np.ndarray, n_fit: np.ndarray):
     fill_last = plan.run_total[cl_run] - (kc[cl_run] - 1) * n_per[cl_run]
     cl_fill = np.where(last, fill_last, fill_full)
     cl_fill[n_r:] = 0
-    cl_avail = avail[cl_run]
-    cl_avail[n_r:] = False
-    cl_nfit = nf[cl_run]
-    cl_pool = p_star[cl_run].astype(np.int32)
-    return n_r, (
-        padg(plan.ge_count.astype(np.int32)),
-        padg(plan.ge_a.astype(np.int32)),
-        padg(off[plan.ge_run].astype(np.int32)),
-        padg(n_per[plan.ge_run].astype(np.int32)),
-        padg(kc[plan.ge_run].astype(np.int32)),
-        cl_pool,
-        cl_fill.astype(np.int32),
-        cl_avail,
-        cl_nfit.astype(np.int32),
-    )
+    ge = np.stack([
+        padg(plan.ge_count), padg(plan.ge_a), padg(off[plan.ge_run]),
+        padg(n_per[plan.ge_run]), padg(kc[plan.ge_run]),
+    ]).astype(np.int32)
+    cl = np.stack([p_star[cl_run], cl_fill, cl_run]).astype(np.int32)
+    return n_r, ge, cl
+
+
+def fill_inputs(ge: np.ndarray, cl: np.ndarray, device):
+    """``ge`` and ``cl`` on ``device`` by one copy: views [5, GE] and
+    [3, NR] of one int32 buffer."""
+    buf = put("relax_fill", np.concatenate([ge.ravel(), cl.ravel()]), device)
+    return buf[:ge.size].view(ge.shape), buf[ge.size:].view(cl.shape)
 
 
 def solve_bulk(plan: BulkPlan, snap_run, device):
@@ -416,17 +418,17 @@ def solve_bulk(plan: BulkPlan, snap_run, device):
     rows aligned with plan.easy_gids — as the JAX solve_bulk does.
 
     Two launches and two readbacks: B3's fresh table over the run heads
-    (a handful of rows), then one B9 launch for the heavy fill and type
-    mask arrays."""
+    (a handful of rows), read back for the claim sizes, then one B9 launch
+    for the heavy fill and type mask arrays, reading its rows from B3's
+    tables where they lie."""
     _, type_ok, n_fit = fresh_claim_feasibility(
         *(put(n, x, device) for n, x in zip(HEAD_ARG_NAMES, head_args(plan, snap_run))),
         zone_kid=snap_run.zone_kid, ct_kid=snap_run.ct_kid,
     )
-    type_ok, n_fit = (x.cpu().numpy() for x in (type_ok, n_fit))
-    n_r, fill_in = fill_args(plan, type_ok, n_fit)
+    n_r, ge, cl = fill_args(plan, type_ok.cpu().numpy(), n_fit.cpu().numpy())
     claim_fills, c_tmask, c_pool, unplaced = (
         x.cpu().numpy() for x in relax_fill(
-            *(put(n, x, device) for n, x in zip(FILL_ARG_NAMES, fill_in)))
+            *fill_inputs(ge, cl, device), type_ok, n_fit, n_r)
     )
     ge = len(plan.easy_gids)
     return (

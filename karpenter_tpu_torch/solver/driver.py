@@ -19,11 +19,29 @@ dispatch of the same kernels (ops/solve.py:dispatch_scenarios_packed).
 
 The solve runs on ``SolverConfig.device``: "cuda" (the default) launches
 the hand-written kernels, "cpu" runs their plain PyTorch versions. Asking
-for CUDA on a host without it raises; nothing falls back.
+for CUDA on a host without it raises; nothing falls back on its own.
+``SolverConfig(backend="native")`` asks for the C++ host core instead
+(native/solve_core.cc, the JAX package's native backend).
 
 A guard rejection of a solve that ran on a warm (reused or row-delta)
 encoding sheds the warm state and re-solves once from a full re-encode,
-on the same device (``_delta_fallback``); a second rejection propagates.
+on the same device (``_delta_fallback``). What happens next is the
+caller's choice, as in the JAX package: with ``SolverConfig.health``
+unset (the default) a kernel fault, a second rejection or a decode crash
+propagates; with a ``faults.breaker.SolverHealth`` the degradation
+ladder absorbs them, each decision marked: a rejected solve quarantines
+the kernel rung and the batch re-solves on the host oracle (audit
+``rung="oracle"``), a crashed decode drops the batch (``rung="dropped"``),
+a dispatch failure counts toward the kernel breaker and the batch goes to
+the oracle, and an open breaker sends whole batches there until its
+cool-down re-probes. A ``_build.KernelBuildError`` (nvcc missing or
+failing) always propagates: it is a broken install, not a fault. On the
+card the ladder takes work off it (to the oracle, or to per-probe
+replays) only for an injected fault (``faults``): a launch error, a CUDA
+runtime error or a guard rejection of the card's own outputs propagates,
+health or not, so no caller is served the host oracle after a real
+kernel fault. The native backend and the plain versions on the CPU keep
+the JAX package's ladder whole.
 
 Batches of many small groups that share few feasibility classes (the
 reference's diverse mix) take the class-batched scan (B5 in place of B4),
@@ -64,6 +82,7 @@ import numpy as np
 import torch
 
 from .. import faults, obs
+from .._build import KernelBuildError, KernelLaunchError
 from ..api import labels as labels_mod
 from ..api import resources as res
 from ..api.objects import NodePool, Pod
@@ -317,6 +336,16 @@ class SolverConfig:
     # it on, False off, as in the JAX package (without its KTPU_RELAX
     # environment switch). The scenario axis never plans a bulk.
     relax: Optional[bool] = None
+    # "kernels": the port's kernels on ``device``. "native": the C++ host
+    # core (native/solve_core.cc) on the exact shapes, no device involved
+    # (the caller's explicit request for the host path). Any other value
+    # raises ValueError at solve time, as in the JAX package.
+    backend: str = "kernels"
+    # shared degradation ladder (faults/breaker.py:SolverHealth): gates the
+    # batched/kernel rungs, absorbs dispatch failures and invariant-guard
+    # quarantines into oracle fallbacks. None (the default) keeps the
+    # contract that kernel errors propagate to the caller.
+    health: Optional[object] = None
     # not in this slice: set, it raises NotImplementedError
     mesh: Optional[object] = None
 
@@ -324,7 +353,8 @@ class SolverConfig:
         if self.mesh is not None:
             raise _not_in_slice("the multi-GPU mesh (B10)", "A13")
         dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
+        if (dev.type == "cuda" and self.backend != "native"
+                and not torch.cuda.is_available()):
             raise RuntimeError(
                 f"SolverConfig(device={self.device!r}): CUDA is not available"
                 " on this host; pass device='cpu' for the plain versions"
@@ -411,10 +441,15 @@ class TorchSolver:
         # probe set of a search should cost <= 2 dispatches)
         self.last_scenario_dispatches = 0
         # per-solve audit state (obs/audit.py): which rung produced the
-        # committed answer and what the invariant guard said
+        # committed answer, what the invariant guard said, and any crash
+        # that made the scenario batch decline
         self.last_dispatches = 0
         self._audit_rung = "kernel"
         self._audit_guard = "ok"
+        self._audit_error = ""
+        # the fault log's length when the current solve began
+        # (_card_fault)
+        self._fault_mark = 0
         self.last_encode_reused = False
         self.last_delta_rows = 0
         # whether the last staged solve ran on reused / row-delta buffers
@@ -454,6 +489,7 @@ class TorchSolver:
         self.last_delta_rows = 0
         self._last_incremental = False
         fault_mark = self._fault_log_mark()
+        self._fault_mark = fault_mark
         # one duration clock captured per solve: the tracer's injected
         # clock under tracing (replay-deterministic), the monotonic
         # PerfClock seam otherwise — never a raw wall-clock read in the
@@ -485,6 +521,18 @@ class TorchSolver:
         inj = faults.active()
         return len(inj.log) if inj is not None else 0
 
+    def _card_fault(self, exc: BaseException, fault_mark: int) -> bool:
+        """Whether ``exc`` is a fault of the card itself, which the ladder
+        never moves to the host: a launch error, or on the kernel backend
+        on CUDA any failure with no injected fault fired since
+        ``fault_mark`` (a CUDA runtime error, a guard rejection of the
+        card's outputs)."""
+        if isinstance(exc, KernelLaunchError):
+            return True
+        if self.config.backend != "kernels" or self.device.type != "cuda":
+            return False
+        return self._fault_log_mark() == fault_mark
+
     def _drain_host(self, out) -> List[np.ndarray]:
         """The single device->host readback of the solve: the kernel's
         outputs cross here (``.cpu()`` waits for the stream), immediately
@@ -513,7 +561,10 @@ class TorchSolver:
         pods, strict-mode reservations, topology shapes the prior deltas
         cannot express, force_oracle. The caller then falls back to
         per-scenario solve()s, and the decline is counted in
-        ``fallback_solves``. A kernel fault raises at the drain.
+        ``fallback_solves``. The batch also declines, not counted there,
+        on the native backend and, with ``SolverConfig.health``, when the
+        batched rung is open or the dispatch fails or is quarantined;
+        without ``health`` a kernel fault raises at the drain.
         ``last_scenario_dispatches`` records the dispatch count of the
         last successful call.
 
@@ -531,7 +582,12 @@ class TorchSolver:
         self.last_scenario_dispatches = 0
         if not scenarios:
             return {"empty": True}
-        if self.config.force_oracle:
+        if self.config.force_oracle or self.config.backend != "kernels":
+            return None
+        health = self.config.health
+        if health is not None and not health.allow_batched():
+            # batched rung is open: callers fall back to per-probe solves
+            # (themselves ladder-gated), rung 2 of the degradation ladder
             return None
         if (
             self.oracle.reserved_capacity_enabled
@@ -686,7 +742,18 @@ class TorchSolver:
             "t0": t0,
             "fault_mark": fault_mark,
         }
-        token["out"] = self._submit_scenario_dispatch(token)
+        try:
+            token["out"] = self._submit_scenario_dispatch(token)
+        except KernelBuildError:
+            raise
+        except Exception as exc:
+            # submit-time crash (an injected fault): nothing decoded,
+            # nothing committed; collect_scenarios turns the token into
+            # the audited decline
+            if health is None or self._card_fault(exc, fault_mark):
+                raise
+            health.record_batched(False, reason=f"{type(exc).__name__}: {exc}")
+            token["error"] = f"{type(exc).__name__}: {exc}"
         return token
 
     def _submit_scenario_dispatch(self, token):
@@ -904,9 +971,11 @@ class TorchSolver:
     def collect_scenarios(self, token) -> Optional[List[Results]]:
         """Drain, guard, decode, and audit a batch submitted by
         submit_scenarios. Returns per-scenario Results aligned with the
-        submitted scenarios, or None on a representability decline (same
-        contract as solve_scenarios). A kernel fault raises here, at the
-        drain; a guard rejection raises SolverIntegrityError."""
+        submitted scenarios, or None on a decline (same contract as
+        solve_scenarios). Without ``SolverConfig.health`` a kernel fault
+        raises here, at the drain, and a guard rejection raises
+        SolverIntegrityError; with it both are recorded on the batched
+        rung and the batch declines (None), as in the JAX package."""
         if token is None:
             return None
         if token.get("empty"):
@@ -922,29 +991,48 @@ class TorchSolver:
             ]
         self._audit_rung = "batched"
         self._audit_guard = "ok"
+        self._audit_error = ""
         self.last_encode_reused = token["delta"].reused
         self.last_delta_rows = token["delta"].delta_rows
         self._last_incremental = token["incremental"]
         scenarios = token["scenarios"]
         with obs.span("scenarios", scenarios=len(scenarios)) as sp:
-            results = self._collect_scenarios_impl(token)
-        self._emit_audit(
-            "scenarios", sp, token["dclk"], token["t0"],
-            token["fault_mark"],
-            pods=sum(len(s.pods) for s in scenarios),
-            claims=sum(len(r.new_node_claims) for r in results),
-            errors=sum(len(r.pod_errors) for r in results),
-            scenario_count=len(scenarios),
-            dispatches=self.last_scenario_dispatches,
-            cost=(
-                sum(r.total_price() for r in results)
-                if obs.active() is not None
-                else None
-            ),
-        )
+            if token.get("error"):
+                self._audit_error = token["error"]
+                results = None
+            else:
+                results = self._collect_scenarios_impl(token)
+        if (
+            results is not None
+            or self._audit_guard != "ok"
+            or self._audit_error
+        ):
+            # completed batched decisions, quarantined ones, and crashed
+            # dispatch/decode attempts: the audit trail shows why the
+            # caller replayed per-probe in every failure shape
+            self._emit_audit(
+                "scenarios", sp, token["dclk"], token["t0"],
+                token["fault_mark"],
+                pods=sum(len(s.pods) for s in scenarios),
+                claims=sum(len(r.new_node_claims) for r in (results or [])),
+                errors=sum(len(r.pod_errors) for r in (results or [])),
+                scenario_count=len(scenarios),
+                dispatches=self.last_scenario_dispatches,
+                cost=(
+                    sum(r.total_price() for r in (results or []))
+                    if obs.active() is not None
+                    else None
+                ),
+                attrs=(
+                    {"error": self._audit_error}
+                    if self._audit_error
+                    else {}
+                ),
+            )
         return results
 
-    def _collect_scenarios_impl(self, token) -> List[Results]:
+    def _collect_scenarios_impl(self, token) -> Optional[List[Results]]:
+        health = self.config.health
         snap, snap_run = token["snap"], token["snap_run"]
         g_count_s = token["g_count_s"]
         scen_group_pods = token["scen_group_pods"]
@@ -952,20 +1040,30 @@ class TorchSolver:
         nmax = token["nmax"]
         out = token["out"]
         dispatches = 0
-        # a kernel fault raises out of the drain, a guard rejection out of
-        # the guard: nothing is decoded or committed, nothing re-solves
-        while True:
-            with obs.span("solve.dispatch", nmax=nmax, scenarios=S_real):
-                (c_pool, packed, n_open, overflow,
-                 exist_fills, claim_fills, unplaced, c_dzone, c_dct,
-                 c_resv) = self._drain_host(out)
-            dispatches += 1
-            if not overflow.any():
-                break
-            # any scenario overflowed: the whole batch goes again
-            nmax *= 2
-            token["nmax"] = nmax
-            out = self._submit_scenario_dispatch(token)
+        try:
+            while True:
+                with obs.span("solve.dispatch", nmax=nmax, scenarios=S_real):
+                    (c_pool, packed, n_open, overflow,
+                     exist_fills, claim_fills, unplaced, c_dzone, c_dct,
+                     c_resv) = self._drain_host(out)
+                dispatches += 1
+                if not overflow.any():
+                    break
+                # any scenario overflowed: the whole batch goes again
+                nmax *= 2
+                token["nmax"] = nmax
+                out = self._submit_scenario_dispatch(token)
+        except KernelBuildError:
+            raise
+        except Exception as exc:
+            # batched dispatch failed: nothing decoded, nothing committed;
+            # with a ladder the rung failure is recorded and the batch
+            # declines, so the caller replays per-probe
+            self._audit_error = f"{type(exc).__name__}: {exc}"
+            if health is None or self._card_fault(exc, token["fault_mark"]):
+                raise
+            health.record_batched(False, reason=f"{type(exc).__name__}: {exc}")
+            return None
         self.last_scenario_dispatches = dispatches
         # invariant guard per scenario, still pre-decode: one corrupt
         # scenario poisons the whole batch (they share one dispatch)
@@ -980,22 +1078,28 @@ class TorchSolver:
                         c_dzone=c_dzone[si], c_dct=c_dct[si],
                     )
         except SolverIntegrityError as exc:
-            if not (token["retry_ok"] and self._last_incremental):
+            if token["retry_ok"] and self._last_incremental:
+                # the violating batch ran on an incremental encoding: shed
+                # the warm state and run the whole batch once more from a
+                # full re-encode, on the same device
+                self._delta_fallback(str(exc))
+                retry = self.submit_scenarios(token["scenarios"])
+                if retry is not None and "out" in retry:
+                    retry["retry_ok"] = False
+                    self._last_incremental = retry["incremental"]
+                    # the audit provenance describes the encode that
+                    # produced the committed answer, not the discarded
+                    # incremental attempt
+                    self.last_encode_reused = retry["delta"].reused
+                    self.last_delta_rows = retry["delta"].delta_rows
+                    return self._collect_scenarios_impl(retry)
+            self._audit_guard = f"quarantined: {exc}"
+            if health is None or self._card_fault(exc, token["fault_mark"]):
                 raise
-            # the violating batch ran on an incremental encoding: shed the
-            # warm state and run the whole batch once more from a full
-            # re-encode, on the same device
-            self._delta_fallback(str(exc))
-            retry = self.submit_scenarios(token["scenarios"])
-            if retry is None or "out" not in retry:
-                raise
-            retry["retry_ok"] = False
-            self._last_incremental = retry["incremental"]
-            # the audit provenance describes the encode that produced the
-            # committed answer, not the discarded incremental attempt
-            self.last_encode_reused = retry["delta"].reused
-            self.last_delta_rows = retry["delta"].delta_rows
-            return self._collect_scenarios_impl(retry)
+            health.quarantine("batched", str(exc))
+            return None
+        if health is not None:
+            health.record_batched(True)
         if self.config.max_claims is None and S_real:
             lease_cache = token["lease_cache"]
             with self._shared_cache.lock:
@@ -1005,43 +1109,54 @@ class TorchSolver:
                 )
 
         results: List[Results] = []
-        with obs.span("solve.decode", scenarios=S_real):
-            for si in range(S_real):
-                # fills commit onto per-scenario node clones so scenarios
-                # never observe each other's placements (only touched nodes
-                # clone; the rest share the untouched oracle models)
-                nodes = list(self.oracle.existing_nodes)
-                for ni in np.nonzero(exist_fills[si].any(axis=0))[0]:
-                    if ni < len(nodes):
-                        nodes[ni] = _clone_existing_node(nodes[ni])
-                claims, errors = self._decode(
-                    snap,
-                    c_pool[si].astype(np.int32),
-                    packed[si],
-                    int(n_open[si]),
-                    exist_fills[si].astype(np.int32),
-                    claim_fills[si].astype(np.int32),
-                    unplaced[si],
-                    c_dzone[si].astype(np.int32),
-                    c_dct[si].astype(np.int32),
-                    c_resv[si].astype(bool),
-                    group_pods=scen_group_pods[si],
-                    existing_nodes=nodes,
-                )
-                results.append(
-                    Results(
-                        new_node_claims=claims,
+        try:
+            with obs.span("solve.decode", scenarios=S_real):
+                for si in range(S_real):
+                    # fills commit onto per-scenario node clones so
+                    # scenarios never observe each other's placements (only
+                    # touched nodes clone; the rest share the untouched
+                    # oracle models)
+                    nodes = list(self.oracle.existing_nodes)
+                    for ni in np.nonzero(exist_fills[si].any(axis=0))[0]:
+                        if ni < len(nodes):
+                            nodes[ni] = _clone_existing_node(nodes[ni])
+                    claims, errors = self._decode(
+                        snap,
+                        c_pool[si].astype(np.int32),
+                        packed[si],
+                        int(n_open[si]),
+                        exist_fills[si].astype(np.int32),
+                        claim_fills[si].astype(np.int32),
+                        unplaced[si],
+                        c_dzone[si].astype(np.int32),
+                        c_dct[si].astype(np.int32),
+                        c_resv[si].astype(bool),
+                        group_pods=scen_group_pods[si],
                         existing_nodes=nodes,
-                        pod_errors=errors,
-                    ).truncate_instance_types()
-                )
+                    )
+                    results.append(
+                        Results(
+                            new_node_claims=claims,
+                            existing_nodes=nodes,
+                            pod_errors=errors,
+                        ).truncate_instance_types()
+                    )
+        except Exception as exc:
+            # scenario decode commits onto clones, so a crash pollutes
+            # nothing shared: with a ladder the batch declines and the
+            # caller replays per-probe
+            self._audit_error = f"{type(exc).__name__}: {exc}"
+            if health is None or self._card_fault(exc, token["fault_mark"]):
+                raise
+            health.record_batched(False, reason=f"{type(exc).__name__}: {exc}")
+            return None
         return results
 
     def _delta_fallback(self, reason: str) -> None:
         """Corrupt-delta half-step: invalidate the warm cluster encodings
         and the device-resident buffers so the retry re-encodes and
-        re-transfers from scratch. With no degradation ladder in the port,
-        the ``solver.delta_fallback`` event is its whole record."""
+        re-transfers from scratch. Half a rung: the kernel breaker is NOT
+        tripped, only the incremental state is shed."""
         self._shared_cache.cluster.invalidate(reason)
         self._shared_cache.scenario_cluster.invalidate(reason)
         for store in (
@@ -1050,7 +1165,11 @@ class TorchSolver:
         ):
             if store is not None:
                 store.reset()
-        obs.event("solver.delta_fallback", reason=reason[:200])
+        health = self.config.health
+        if health is not None:
+            health.delta_fallback(reason)  # counts + publishes the event
+        else:
+            obs.event("solver.delta_fallback", reason=reason[:200])
 
     def _sync_if_traced(self) -> None:
         """Traced runs wait for the staging's copies and row applies, so
@@ -1094,6 +1213,12 @@ class TorchSolver:
         if self.config.force_oracle:
             self._audit_rung = "oracle"
             return self.oracle.solve(pods)
+        health = self.config.health
+        if health is not None and not health.allow_kernel():
+            # kernel rung is open (tripped breaker / quarantine cool-down):
+            # the oracle rung is always available and exact
+            self._audit_rung = "oracle"
+            return self.oracle.solve(pods)
         if (
             self.oracle.reserved_capacity_enabled
             and self.oracle.reserved_offering_mode
@@ -1128,21 +1253,70 @@ class TorchSolver:
         dev_claims: List[DecodedClaim] = []
         dev_errors: Dict[str, object] = {}
         if groups:
-            # a SolverIntegrityError (the invariant guard rejected the raw
-            # kernel outputs) or a DecodeCommitError propagates: no host
-            # re-solve hides a wrong kernel
             try:
-                dev_claims, dev_errors = self._solve_fast(groups)
+                try:
+                    dev_claims, dev_errors = self._solve_fast(groups)
+                except SolverIntegrityError as exc:
+                    if not self._last_incremental:
+                        raise
+                    # the violating solve ran on a reused / row-delta
+                    # encoding: drop the warm state (banks, prior snapshot,
+                    # device buffers) and solve ONCE more, on the card,
+                    # from a full re-encode; a corrupt delta never commits
+                    # (the guard ran before decode)
+                    self._delta_fallback(str(exc))
+                    dev_claims, dev_errors = self._solve_fast(groups)
+            except KernelBuildError:
+                # nvcc missing or failing: a broken install, which no rung
+                # of the ladder hides
+                raise
             except SolverIntegrityError as exc:
-                if not self._last_incremental:
+                # the invariant guard runs on the RAW kernel outputs, before
+                # any decode: nothing was committed, so the whole batch
+                # re-solves host-side while the kernel rung sits quarantined
+                self._audit_guard = f"quarantined: {exc}"
+                self._audit_rung = "oracle"
+                if health is None or self._card_fault(exc, self._fault_mark):
                     raise
-                # the violating solve ran on a reused / row-delta encoding:
-                # drop the warm state (banks, prior snapshot, device
-                # buffers) and solve ONCE more, on the card, from a full
-                # re-encode; a corrupt delta never commits (the guard ran
-                # before decode)
-                self._delta_fallback(str(exc))
-                dev_claims, dev_errors = self._solve_fast(groups)
+                health.quarantine("kernel", str(exc))
+                return self.oracle.solve(pods)
+            except DecodeCommitError as exc:
+                # decode crashed AFTER fills landed on the live node
+                # models: an oracle re-solve here would double-count them,
+                # so drop the whole batch; pods stay pending and the next
+                # cycle re-solves on a fresh solver with clean models
+                self._audit_guard = f"quarantined: {exc}"
+                self._audit_rung = "dropped"
+                if health is None:
+                    raise
+                health.quarantine("kernel", str(exc))
+                return Results(
+                    new_node_claims=[],
+                    existing_nodes=[],
+                    pod_errors={
+                        p.uid: "solver decode aborted mid-commit; "
+                        "batch re-queued" for p in pods
+                    },
+                )
+            except Exception as exc:
+                # dispatch/backend failure (a native load failure, an
+                # injected fault): count toward the breaker and degrade
+                self._audit_rung = "oracle"
+                if health is None or self._card_fault(exc, self._fault_mark):
+                    raise
+                health.record_kernel(
+                    False, reason=f"{type(exc).__name__}: {exc}"
+                )
+                return self.oracle.solve(pods)
+            if health is not None:
+                health.record_kernel(True)
+            # the oracle's ReservationManager must see the device path's
+            # holdings before it solves the remainder, or a mixed batch
+            # double-books reservation capacity
+            rm = self.oracle.reservation_manager
+            for i, claim in enumerate(dev_claims):
+                for o in claim.reserved_offerings:
+                    rm.reserve(f"device-claim-{i}", o)
         else:
             # nothing rode the kernel: the oracle rung made this decision
             self._audit_rung = "oracle"
@@ -1246,81 +1420,101 @@ class TorchSolver:
         G = enc._next_pow2(len(snap.groups), floor=8)
         N = enc._next_pow2(len(snap.existing_names), floor=1) if snap.existing_names else 0
         statics = self._kernel_statics(snap, G)
-        snap_run = snap.padded(G, N)
-        # device residency: the encoded cluster stays on the device between
-        # solves (buffers keyed by the encode delta's class versions,
-        # solver/residency.py), so this stage moves only the changed rows,
-        # or nothing on the content-hash fast path
-        store = self._shared_cache.lease_device_store()
-        with obs.span(
-            "solve.transfer",
-            reused=bool(delta.reused),
-            delta_rows=int(delta.delta_rows),
-        ):
-            args = store.stage(
-                enc.SOLVE_ARG_NAMES,
-                list(snap_run.solve_args(a_tzc, res_cap0, a_res)),
-                delta, self.device,
+        relax_plan = None  # planned on the kernels backend only
+        if self.config.backend == "native":
+            # the C++ host core on the exact, unpadded shapes (nothing to
+            # bucket without a compiled program): no staging, no relax
+            # bulk; it returns host arrays with a raw bool c_tmask, which
+            # _decode takes as it takes B6's packed rows
+            from .. import native
+
+            snap_run = snap
+            args = snap.solve_args(a_tzc, res_cap0, a_res)
+
+            def call(nmax):
+                return native.solve_core_native(*args, nmax=nmax, **statics)
+
+        elif self.config.backend == "kernels":
+            snap_run = snap.padded(G, N)
+            # device residency: the encoded cluster stays on the device
+            # between solves (buffers keyed by the encode delta's class
+            # versions, solver/residency.py), so this stage moves only the
+            # changed rows, or nothing on the content-hash fast path
+            store = self._shared_cache.lease_device_store()
+            with obs.span(
+                "solve.transfer",
+                reused=bool(delta.reused),
+                delta_rows=int(delta.delta_rows),
+            ):
+                args = store.stage(
+                    enc.SOLVE_ARG_NAMES,
+                    list(snap_run.solve_args(a_tzc, res_cap0, a_res)),
+                    delta, self.device,
+                )
+                self._sync_if_traced()
+            self._last_incremental = store.last_incremental or delta.reused
+            # fill entries are capped at n_fit = capacity/request per claim
+            # (packing.py), so this host-side bound proves int16 safety
+            fills_dtype = (
+                torch.int16 if self._fill_bound(snap, fit) < 2**15 else torch.int32
             )
-            self._sync_if_traced()
-        self._last_incremental = store.last_incremental or delta.reused
-        # fill entries are capped at n_fit = capacity/request per claim
-        # (packing.py), so this host-side bound proves int16 safety
-        fills_dtype = (
-            torch.int16 if self._fill_bound(snap, fit) < 2**15 else torch.int32
-        )
-        from ..ops.solve import dispatch_classed_packed, dispatch_packed
+            from ..ops.solve import dispatch_classed_packed, dispatch_packed
 
-        # the class-batched scan where the JAX router takes it; its class
-        # arrays are per solve, staged beside the resident args
-        classed_args = self._classed_partition(snap_run, res_cap0)
-        if classed_args is not None:
-            cls_host, lmax = classed_args
-            cls_arrays = [
-                put(name, arr, self.device)
-                for name, arr in zip(_CLASS_ARG_NAMES, cls_host)
-            ]
-
-        # relaxation bulk pre-solver (ops/relax.py): when the planner
-        # proves part of the batch is separable easy mass, its counts are
-        # zeroed for the exact dispatch and the bulk is placed by the
-        # closed-form relaxed solve, merged before guard/decode. Only the
-        # dispatch's g_count ARG is replaced, by a fresh tensor: the
-        # resident buffers keep the true encode, so warm REUSE/row-delta
-        # staging is untouched.
-        relax_plan = None
-        if self.config.relax is not False:
-            relax_plan = relax_mod.plan_bulk(
-                snap_run, res_cap0=res_cap0, n_exist=len(snap.existing_names),
-            )
-        args = list(args)
-        true_g_count = args[0]
-        if relax_plan is not None:
-            g_count_res = np.asarray(snap_run.g_count).copy()
-            g_count_res[relax_plan.easy_gids] = 0
-            args[0] = put("g_count", g_count_res, self.device)
-
-        def call(nmax):
+            # the class-batched scan where the JAX router takes it; its
+            # class arrays are per solve, staged beside the resident args
+            classed_args = self._classed_partition(snap_run, res_cap0)
             if classed_args is not None:
-                out = dispatch_classed_packed(
-                    *args, *cls_arrays, nmax=nmax, lmax=lmax,
-                    fills_dtype=fills_dtype, **statics,
+                cls_host, lmax = classed_args
+                cls_arrays = [
+                    put(name, arr, self.device)
+                    for name, arr in zip(_CLASS_ARG_NAMES, cls_host)
+                ]
+
+            # relaxation bulk pre-solver (ops/relax.py): when the planner
+            # proves part of the batch is separable easy mass, its counts
+            # are zeroed for the exact dispatch and the bulk is placed by
+            # the closed-form relaxed solve, merged before guard/decode.
+            # Only the dispatch's g_count ARG is replaced, by a fresh
+            # tensor: the resident buffers keep the true encode, so warm
+            # REUSE/row-delta staging is untouched.
+            if self.config.relax is not False:
+                relax_plan = relax_mod.plan_bulk(
+                    snap_run, res_cap0=res_cap0, n_exist=len(snap.existing_names),
                 )
-            else:
-                out = dispatch_packed(
-                    *args, nmax=nmax, fills_dtype=fills_dtype, **statics
+            args = list(args)
+            true_g_count = args[0]
+            if relax_plan is not None:
+                g_count_res = np.asarray(snap_run.g_count).copy()
+                g_count_res[relax_plan.easy_gids] = 0
+                args[0] = put("g_count", g_count_res, self.device)
+
+            def call(nmax):
+                if classed_args is not None:
+                    out = dispatch_classed_packed(
+                        *args, *cls_arrays, nmax=nmax, lmax=lmax,
+                        fills_dtype=fills_dtype, **statics,
+                    )
+                else:
+                    out = dispatch_packed(
+                        *args, nmax=nmax, fills_dtype=fills_dtype, **statics
+                    )
+                (c_pool, packed, n_open, overflow,
+                 exist_fills, claim_fills, unplaced, c_dzone, c_dct,
+                 c_resv) = self._drain_host(out)
+                # the type mask stays bit-packed: _decode unpacks only the
+                # distinct rows it actually touches
+                return (
+                    c_pool.astype(np.int32), packed, n_open, overflow,
+                    exist_fills.astype(np.int32),
+                    claim_fills.astype(np.int32), unplaced,
+                    c_dzone.astype(np.int32), c_dct.astype(np.int32),
+                    c_resv.astype(bool),
                 )
-            (c_pool, packed, n_open, overflow,
-             exist_fills, claim_fills, unplaced, c_dzone, c_dct,
-             c_resv) = self._drain_host(out)
-            # the type mask stays bit-packed: _decode unpacks only the
-            # distinct rows it actually touches
-            return (
-                c_pool.astype(np.int32), packed, n_open, overflow,
-                exist_fills.astype(np.int32),
-                claim_fills.astype(np.int32), unplaced,
-                c_dzone.astype(np.int32), c_dct.astype(np.int32),
-                c_resv.astype(bool),
+
+        else:
+            raise ValueError(
+                f"unknown solver backend {self.config.backend!r}"
+                " (expected 'kernels' or 'native')"
             )
 
         def run_dispatch():
@@ -1418,8 +1612,8 @@ class TorchSolver:
             ) from exc
 
     # Copied from karpenter_tpu/solver/driver.py:TpuSolver._merge_relax,
-    # with its comment on the packed layout reworded for the port's one
-    # solve path.
+    # with its comment on the packed layout reworded for the port's
+    # backends.
     @staticmethod
     def _merge_relax(outs, plan, bulk, nmax):
         """Append the relaxed bulk's claims after the exact residual's.
@@ -1440,8 +1634,9 @@ class TorchSolver:
         G = claim_fills.shape[0]
         # bit-pack the bulk's type masks exactly like ops/solve._wire_pack
         # (MSB-first uint8 rows) so decode's lazy unpack sees one layout.
-        # The port's solve path always drains wire-packed outputs, so no
-        # raw-bool layout can reach this merge.
+        # Relax only routes on the kernels backend, whose outputs are
+        # always wire-packed (the native backend sets relax_plan to None),
+        # so no raw-bool layout can reach this merge.
         assert packed.dtype == np.uint8, "relax merge requires packed masks"
         r_tmask = np.asarray(r_tmask)
         T = r_tmask.shape[1]

@@ -105,6 +105,18 @@ its wrapper and on the device alone, as B1 and B2 are, its outputs equal
 to its plain version's; these use only the public wrappers, so the script
 runs in a checkout of the parent tree as well.
 
+``relax``: B9 at the relax path's shape (identical 50k x 400: GE 1, NR
+1024, T 400), its inputs built as the checkout's ops/relax.py:solve_bulk
+builds them (from B3's head tables on the card, or, where the checkout's
+B9 takes the earlier nine inputs, rows gathered on the host and copied to the
+card): the wrapper (CUDA events), the device alone with its activities a
+call (torch.profiler), the host microseconds a wrapper call (a sync after
+HOST_REPS calls), and ``solve_bulk`` whole, the relax span's work (B3,
+its readback, the claim sizes, B9's inputs to the card, B9, its
+readback), on the host clock over RELAX_REPS calls, each ending in a
+readback; the kernel's outputs equal its plain version's. It uses only
+entry points both entries share, so it runs in a parent checkout too.
+
 ``wide``: each of chip_smoke.py's wide value vocabularies (ROADMAP §C1)
 through one cold ``TorchSolver(device="cuda").solve``, its claims and
 seconds or what it raised and where (in a parent checkout with this
@@ -136,8 +148,9 @@ CONS_SHAPES = ("cons", "cons_minvalues")
 FEAS_SHAPES = ("feas_mixed", "feas_diverse", "feas_constrained", "feas_nodes", "feas_cons")
 DENSE_SHAPES = ("dense_relax", "dense_route", "dense_nodes")
 WIRE_SHAPES = ("wire_mixed", "wire_cons")
+RELAX_REPS = 50
 SHAPES = (SCAN_SHAPES + CLASSED_SHAPES + CONS_SHAPES + FEAS_SHAPES + DENSE_SHAPES + WIRE_SHAPES
-          + ("wide",))
+          + ("relax", "wide"))
 FEAS_REPS = 200
 HOST_REPS = 2000
 FEAS_PHASES = ("stage", "words", "base", "pairs", "compat", "cells")
@@ -652,6 +665,56 @@ def run_wire(shape):
     return row
 
 
+def run_relax():
+    """B9 and solve_bulk at the identical 50k x 400 batch's relax plan
+    (the module docstring's ``relax``)."""
+    import torch
+
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import relax as relax_mod
+    from karpenter_tpu_torch.solver.args import put
+    from karpenter_tpu_torch.solver.driver import SolverConfig, TorchSolver
+    from karpenter_tpu_torch.solver.workloads import identical_pods
+
+    pods = identical_pods(cs.N_IDENT)
+    run, plan = cs.relax_plan(cs.build_batch(TorchSolver, SolverConfig, pods, cs.N_TYPES), pods)
+    head = [put(n, x, "cuda") for n, x in
+            zip(relax_mod.HEAD_ARG_NAMES, relax_mod.head_args(plan, run))]
+    _, type_ok, n_fit = feas.fresh_claim_feasibility(
+        *head, zone_kid=run.zone_kid, ct_kid=run.ct_kid)
+    host_tables = (type_ok.cpu().numpy(), n_fit.cpu().numpy())
+    if hasattr(relax_mod, "fill_inputs"):  # one launch over B3's tables
+        n_r, ge, cl = relax_mod.fill_args(plan, *host_tables)
+        b9_in = (*relax_mod.fill_inputs(ge, cl, "cuda"), type_ok, n_fit, n_r)
+        entry = "rows gathered on the card"
+    else:  # the earlier two-kernel entry: rows gathered on the host
+        n_r, host_in = relax_mod.fill_args(plan, *host_tables)
+        b9_in = [put(n, x, "cuda") for n, x in zip(relax_mod.FILL_ARG_NAMES, host_in)]
+        entry = "rows gathered on the host"
+    row = feas_time(lambda: relax_mod.relax_fill(*b9_in),
+                    lambda: relax_mod.relax_fill_reference(*b9_in))
+    if row["err"]:
+        raise RuntimeError(f"relax: B9 disagrees with its plain version: {row}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_REPS):
+        relax_mod.relax_fill(*b9_in)
+    row["wrapper_host_us"] = (time.perf_counter() - t0) / HOST_REPS * 1e6
+    torch.cuda.synchronize()
+    bulk_ms = []
+    for _ in range(RELAX_REPS):
+        t0 = time.perf_counter()
+        bulk = relax_mod.solve_bulk(plan, run, torch.device("cuda"))
+        bulk_ms.append((time.perf_counter() - t0) * 1e3)
+    if bulk[0] != n_r:
+        raise RuntimeError(f"relax: solve_bulk opened {bulk[0]} claims, want {n_r}")
+    row.update(entry=entry, claims=n_r, solve_bulk_p50_ms=statistics.median(bulk_ms),
+               shape=f"GE={plan.easy_gids.size} runs={len(plan.run_head)} NR="
+                     f"{b9_in[1].shape[-1] if entry.endswith('card') else b9_in[6].shape[0]}"
+                     f" T={type_ok.shape[2]}")
+    return row
+
+
 def run_wide():
     """Each of chip_smoke.py's wide value vocabularies (wide_inputs) through
     one cold TorchSolver(device="cuda").solve: its claims, pod errors and
@@ -702,8 +765,10 @@ def main():
     classed = any(s in CLASSED_SHAPES for s in opts.shapes)
     clock_libs = opts.classed_clocks if clocks else []
     widths = [f"pack_classed_c{c}" for c in opts.clusters]
-    feas_only = all(s in FEAS_SHAPES + DENSE_SHAPES + WIRE_SHAPES for s in opts.shapes)
+    feas_only = all(s in FEAS_SHAPES + DENSE_SHAPES + WIRE_SHAPES + ("relax",)
+                    for s in opts.shapes)
     names = ("fresh_feasibility", "existing_feasibility", "dense_feasibility", "wire_pack", "pack",
+             "relax_fill",
              *(("fresh_feasibility_clocks",)
                if clocks and any(s in FEAS_SHAPES for s in opts.shapes) else ()),
              *(("pack_clocks",) if clocks and not feas_only else ()),
@@ -720,6 +785,8 @@ def main():
                 rows[shape] = run_wire(shape)
             elif shape == "wide":
                 rows[shape] = run_wide()
+            elif shape == "relax":
+                rows[shape] = run_relax()
             elif shape in CONS_SHAPES:
                 rows[shape] = run_consolidation(shape)
             elif shape in CLASSED_SHAPES:

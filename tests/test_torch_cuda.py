@@ -49,7 +49,14 @@ malformed input raising through the wrappers. The wide-vocabulary section
 layouts by width), B4 with domains and B5 at V1 = 2,048 (their per-step
 arrays spilled), the minValues scans at MW = 2,048, two wide solves
 against device="cpu", and B3 and B6, one launch a call, at their paths'
-shapes and at wide masks.
+shapes and at wide masks. The ladder section runs the degradation ladder
+(``SolverConfig.health``) on the card: a dispatch fault to the oracle
+rung and back on the kernel rung past the cool-down, a corrupted output
+of card tensors quarantined before decode, a scenario-dispatch fault
+declining a consolidation search to per-probe solves with the same
+command (raising without a ladder), a fault of the card's own (a launch
+error, a guard rejection; not injected) propagating with a ladder set,
+and the native host backend equal to the card's exact route.
 
 Marked ``cuda``: they skip where there is no card. On the card, from the
 repo root: ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
@@ -829,44 +836,47 @@ def test_dense_route_solve_core(cuda):
         np.testing.assert_array_equal(d.numpy(), s.numpy(), err_msg=f"output {i}")
 
 
-def _fill_inputs(seed, GE, NR, T):
-    """Seeded relax_fill inputs: infeasible rows (n_per 0), padding groups
-    and slots, n_per = 2**30 and a window past int32."""
+def _fill_inputs(seed, GE, NR, T, P=3, CRp=4):
+    """Seeded relax_fill inputs (ge, cl, type_ok, n_fit, n_r): infeasible
+    rows (n_per 0), padding groups and slots (slots past n_r), n_per =
+    2**30 and a window past int32, slots reading every table row."""
     rng = np.random.default_rng(seed)
     i32 = np.int32
-    ge_count = rng.integers(0, 60, GE).astype(i32)
-    ge_a = rng.integers(0, 200, GE).astype(i32)
-    ge_off = rng.integers(0, max(NR, 1), GE).astype(i32)
-    ge_nper = rng.integers(1, 40, GE).astype(i32)
-    ge_kc = rng.integers(0, 6, GE).astype(i32)
+    ge = np.stack([
+        rng.integers(0, 60, GE), rng.integers(0, 200, GE),
+        rng.integers(0, max(NR, 1), GE), rng.integers(1, 40, GE), rng.integers(0, 6, GE),
+    ]).astype(i32)
     if GE >= 8:
-        ge_count[-2:] = 0
-        ge_a[3] = 2**31 - 20
-        ge_nper[[1, 5]] = 0
-        ge_nper[[2, 6, 7]] = 2**30
-        ge_kc[6] = 3
-    cl_run_pool = rng.integers(0, 3, NR).astype(i32)
-    cl_fill = rng.integers(0, 50, NR).astype(i32)
-    cl_avail = rng.random((NR, T)) < 0.7
-    cl_nfit = rng.integers(0, 60, (NR, T)).astype(i32)
+        ge[0, -2:] = 0
+        ge[1, 3] = 2**31 - 20
+        ge[3, [1, 5]] = 0
+        ge[3, [2, 6, 7]] = 2**30
+        ge[4, 6] = 3
+    cl = np.stack([rng.integers(0, P, NR), rng.integers(0, 50, NR),
+                   rng.integers(0, CRp, NR)]).astype(i32)
+    n_r = NR
     if NR >= 8:
-        cl_fill[-5:] = 0
-        cl_avail[-5:] = False
-    return (ge_count, ge_a, ge_off, ge_nper, ge_kc, cl_run_pool, cl_fill, cl_avail, cl_nfit)
+        cl[1, -5:] = 0
+        n_r = NR - 5
+    type_ok = rng.random((P, CRp, T)) < 0.7
+    n_fit = rng.integers(0, 60, (P, CRp, T)).astype(i32)
+    return ge, cl, type_ok, n_fit, n_r
 
 
-@pytest.mark.parametrize("GE,NR,T", [(12, 64, 20), (1, 1024, 400), (1, 1, 1), (16, 8, 0)])
+@pytest.mark.parametrize("GE,NR,T", [(12, 64, 20), (1, 1024, 400), (1, 1, 1), (16, 8, 0),
+                                     (3, 5, 7)])
 def test_relax_fill(cuda, GE, NR, T):
-    """B9 against its plain version on every lane, edge rows included."""
+    """B9 against its plain version on every lane, edge rows included, in
+    one launch."""
     from karpenter_tpu_torch import _build
     from karpenter_tpu_torch.ops.relax import relax_fill, relax_fill_reference
 
-    host = _fill_inputs(GE + NR, GE, NR, T)
+    *host, n_r = _fill_inputs(GE + NR, GE, NR, T)
     _build.reset_launches()
-    kern = relax_fill(*(torch.from_numpy(x).to(cuda) for x in host))
+    kern = relax_fill(*(torch.from_numpy(x).to(cuda) for x in host), n_r)
     torch.cuda.synchronize()
     assert _build.launches["relax_fill"] == 1
-    plain = relax_fill_reference(*(torch.from_numpy(x) for x in host))
+    plain = relax_fill_reference(*(torch.from_numpy(x) for x in host), n_r)
     for i, (k, p) in enumerate(zip(kern, plain)):
         assert k.dtype == p.dtype and k.shape == p.shape, i
         np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=f"output {i}")
@@ -1946,3 +1956,151 @@ def test_wire_pack_one_launch(cuda, case):
             np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=f"wire {i}")
     names = _device_kernels(lambda: wire_pack(kern, torch.int16))
     assert len(names) == 1 and "wire_pack" in names[0], names
+
+
+# -- the degradation ladder on the card ----------------------------------------------
+
+
+def _ladder_solve(device, pods, **config):
+    """Slot-order claims and pod errors of one solve of ``pods`` over the
+    example NodePool and 40 types, and the audit record's (rung, guard)."""
+    from karpenter_tpu_torch import obs
+
+    pools = [example_nodepool()]
+    its = {pools[0].name: corpus.generate(40)}
+    topo = Topology(Client(TestClock()), [], pools, its, pods)
+    s = TorchSolver(pools, its, topo, config=SolverConfig(device=device, **config))
+    r = s.solve(pods)
+    rec = obs.AUDIT.last()
+    return ([(tuple(sorted(p.metadata.name for p in c.pods)),
+              tuple(it.name for it in c.instance_type_options)) for c in r.new_node_claims],
+            sorted(r.pod_errors)), (rec.rung, rec.guard.split(":")[0])
+
+
+def _fault(site, **rule):
+    from karpenter_tpu_torch import faults
+
+    faults.install(faults.FaultInjector([faults.FaultRule(getattr(faults, site), **rule)]))
+
+
+@pytest.fixture
+def no_faults():
+    from karpenter_tpu_torch import faults
+
+    yield
+    faults.uninstall()
+
+
+def test_ladder_dispatch_fault_and_recovery(cuda, no_faults):
+    """A dispatch fault on the card: the oracle's Results with the breaker
+    open; past the cool-down the kernel rung again, equal to the plain
+    card solve."""
+    from karpenter_tpu_torch import faults
+    from karpenter_tpu_torch.faults.breaker import SolverHealth
+
+    pods = mixed_pods(300)
+    plain, _ = _ladder_solve(cuda, pods)
+    oracle, _ = _ladder_solve(cuda, pods, force_oracle=True)
+    clock = TestClock()
+    health = SolverHealth(clock, failure_threshold=1, cooldown=60.0)
+    _fault("SOLVER_DISPATCH")
+    got, rung = _ladder_solve(cuda, pods, health=health)
+    faults.uninstall()
+    assert got == oracle and rung == ("oracle", "ok") and not health.allow_kernel()
+    clock.step(60.0)
+    got, rung = _ladder_solve(cuda, pods, health=health)
+    assert got == plain and rung == ("kernel", "ok") and health.level() == 0
+
+
+def test_ladder_corrupt_card_outputs_quarantined(cuda, no_faults):
+    """A SOLVER_OUTPUT mutation of the card's tensors (claim fills
+    negative) is rejected by the guard before decode: the oracle's Results,
+    the kernel rung quarantined; without a ladder the error surfaces."""
+    from karpenter_tpu_torch.faults.breaker import SolverHealth
+    from karpenter_tpu_torch.faults.guard import SolverIntegrityError
+
+    def corrupt(outs):
+        assert outs[5].is_cuda  # mutated on the card, before the drain
+        outs = list(outs)
+        outs[5] = outs[5] - 7
+        return tuple(outs)
+
+    pods = mixed_pods(200)
+    oracle, _ = _ladder_solve(cuda, pods, force_oracle=True)
+    _fault("SOLVER_OUTPUT", mutate=corrupt)
+    with pytest.raises(SolverIntegrityError):
+        _ladder_solve(cuda, pods, relax=False)
+    health = SolverHealth(TestClock(), cooldown=60.0)
+    got, rung = _ladder_solve(cuda, pods, health=health, relax=False)
+    assert got == oracle and rung == ("oracle", "quarantined")
+    assert health.quarantines == 1 and not health.allow_kernel()
+
+
+def test_ladder_scenario_fault_declines_to_per_probe(cuda, no_faults):
+    """A scenario-dispatch fault in a consolidation search on the card:
+    with a ladder the batch declines, the per-probe replay gives the
+    batched search's command, the batched rung down and the kernel rung
+    up; without one the fault raises."""
+    from karpenter_tpu_torch import faults
+    from karpenter_tpu_torch.faults.breaker import SolverHealth
+    from karpenter_tpu_torch.solver.workloads import build_consolidation_env
+
+    def search(health=None):
+        ctx, method, candidates, budgets = build_consolidation_env(40, "cuda")
+        ctx.solver_config = SolverConfig(device="cuda", health=health)
+        cmd = method.compute_command(candidates, budgets)
+        return cmd.decision, sorted(c.name for c in cmd.candidates), \
+            [[it.name for it in r.instance_type_options] for r in cmd.replacements]
+
+    batched = search(SolverHealth(TestClock(), failure_threshold=1))
+    health = SolverHealth(TestClock(), failure_threshold=1)
+    _fault("SOLVER_SCENARIOS")
+    assert search(health) == batched
+    assert not health.allow_batched() and health.allow_kernel()
+    with pytest.raises(faults.InjectedFault):
+        search()
+
+
+@pytest.mark.parametrize("kind", ["launch", "guard"])
+def test_ladder_card_fault_propagates(cuda, no_faults, monkeypatch, kind):
+    """A fault of the card's own, not injected, propagates with a ladder
+    set and leaves it untouched: a launch error (each launch check raising
+    after its kernel ran, so the context stays sound) or a guard rejection
+    of the card's outputs; the search's batched rung likewise."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.faults.breaker import SolverHealth
+    from karpenter_tpu_torch.faults.guard import SolverIntegrityError
+    from karpenter_tpu_torch.solver.workloads import build_consolidation_env
+
+    real = _build.launched
+
+    def launched(name, rc, *a, **k):
+        real(name, rc, *a, **k)
+        raise _build.KernelLaunchError(f"{name}: launch error (not injected)")
+
+    def verify(self, *a, **k):
+        raise SolverIntegrityError(["claim fills negative (not injected)"])
+
+    if kind == "launch":
+        monkeypatch.setattr(_build, "launched", launched)
+    else:
+        monkeypatch.setattr(TorchSolver, "_verify_solution", verify)
+    want = _build.KernelLaunchError if kind == "launch" else SolverIntegrityError
+    health = SolverHealth(TestClock(), failure_threshold=1)
+    with pytest.raises(want):
+        _ladder_solve(cuda, mixed_pods(200), health=health, relax=False)
+    ctx, method, candidates, budgets = build_consolidation_env(40, "cuda")
+    ctx.solver_config = SolverConfig(device="cuda", health=health)
+    with pytest.raises(want):
+        method.compute_command(candidates, budgets)
+    assert (health.allow_kernel(), health.allow_batched(), health.quarantines,
+            health.level()) == (True, True, 0, 0)
+
+
+def test_native_backend_equals_card(cuda):
+    """backend="native" (the C++ host core) equals the card's exact route
+    in slot order on the mixed batch."""
+    pods = mixed_pods(500)
+    card, _ = _ladder_solve(cuda, pods, relax=False)
+    native, rung = _ladder_solve(cuda, pods, backend="native")
+    assert native == card and rung == ("kernel", "ok")

@@ -40,25 +40,30 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+# the first-line comment marker of each kind of copied source
+COMMENT = {".py": "# ", ".cc": "// "}
+
+
 def _copies():
-    for path in sorted(PORT.rglob("*.py")):
+    for path in sorted(p for ext in COMMENT for p in PORT.rglob(f"*{ext}")):
         first = path.read_text().split("\n", 1)[0]
-        if first.startswith("# Copied from karpenter_tpu/"):
-            yield path, first
+        if first.startswith(COMMENT[path.suffix] + "Copied from karpenter_tpu/"):
+            yield path, first[len(COMMENT[path.suffix]):]
 
 
 @pytest.mark.parametrize("path,first", list(_copies()),
                          ids=lambda x: x.name if isinstance(x, pathlib.Path) else "")
 def test_copies_name_their_source(path, first):
     """Each copy's first line names an existing source at the same relative
-    path. A verbatim copy (no qualifier) equals it byte for byte; one with
-    "N comment line(s) reworded" differs from it in at most N lines."""
-    src_rel = first[len("# Copied from "):].rstrip(".").split(",")[0]
+    path (a ``#`` comment in Python, ``//`` in C++). A verbatim copy (no
+    qualifier) equals it byte for byte; one with "N comment line(s)
+    reworded" differs from it in at most N lines."""
+    src_rel = first[len("Copied from "):].rstrip(".").split(",")[0]
     src = ROOT / src_rel
     assert src.is_file(), first
     assert path.relative_to(PORT) == src.relative_to(ROOT / "karpenter_tpu")
     body = path.read_text().split("\n", 1)[1]
-    if first == f"# Copied from {src_rel}.":
+    if first == f"Copied from {src_rel}.":
         assert body == src.read_text()
     elif first.endswith("reworded."):
         n = int(first.split(", ")[1].split()[0])

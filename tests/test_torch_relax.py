@@ -354,44 +354,168 @@ def test_plan_and_solve_bulk_match_jax(case):
         np.testing.assert_array_equal(t, j, err_msg=name)
 
 
-def _fill_inputs(seed, GE=12, NR=64, T=20):
-    """Seeded relax_fill inputs with infeasible rows (n_per 0), padding
-    slots (count and fill 0), n_per = 2**30 (fits_count's unbounded) and
-    offsets whose windows leave int32."""
+def _fill_inputs(seed, GE=12, NR=64, T=20, P=3, CRp=4):
+    """Seeded relax_fill inputs (ge, cl, type_ok, n_fit, n_r) with
+    infeasible rows (n_per 0), padding groups and slots (count and fill
+    0, slots past n_r), n_per = 2**30 (fits_count's unbounded), offsets
+    whose windows leave int32, and slots reading every row of the head
+    tables."""
     rng = np.random.default_rng(seed)
     i32 = np.int32
-    ge_count = rng.integers(0, 60, GE).astype(i32)
-    ge_count[-2:] = 0  # padding groups
-    ge_a = rng.integers(0, 200, GE).astype(i32)
-    ge_a[3] = 2**31 - 20  # hi = a + count wraps
-    ge_off = rng.integers(0, NR, GE).astype(i32)
-    ge_nper = rng.integers(1, 40, GE).astype(i32)
-    ge_nper[[1, 5]] = 0  # no feasible template
-    ge_nper[[2, 6, 7]] = 2**30  # rel * n_per leaves int32 on most slots
-    ge_kc = rng.integers(0, 6, GE).astype(i32)
-    ge_kc[6] = 3  # kept lanes past the first window wrap in JAX too
-    cl_run_pool = rng.integers(0, 3, NR).astype(i32)
-    cl_fill = rng.integers(0, 50, NR).astype(i32)
-    cl_fill[-5:] = 0  # padding slots
-    cl_avail = rng.random((NR, T)) < 0.7
-    cl_avail[-5:] = False
-    cl_nfit = rng.integers(0, 60, (NR, T)).astype(i32)
-    cl_nfit[0, :3] = 2**30
-    return (ge_count, ge_a, ge_off, ge_nper, ge_kc, cl_run_pool, cl_fill, cl_avail, cl_nfit)
+    ge = np.stack([
+        rng.integers(0, 60, GE),  # count
+        rng.integers(0, 200, GE),  # a
+        rng.integers(0, NR, GE),  # off
+        rng.integers(1, 40, GE),  # n_per
+        rng.integers(0, 6, GE),  # kc
+    ]).astype(i32)
+    ge[0, -2:] = 0  # padding groups
+    ge[1, 3] = 2**31 - 20  # hi = a + count wraps
+    ge[3, [1, 5]] = 0  # no feasible template
+    ge[3, [2, 6, 7]] = 2**30  # rel * n_per leaves int32 on most slots
+    ge[4, 6] = 3  # kept lanes past the first window wrap in JAX too
+    cl = np.stack([
+        rng.integers(0, P, NR),  # pool
+        rng.integers(0, 50, NR),  # fill
+        rng.integers(0, CRp, NR),  # run
+    ]).astype(i32)
+    cl[1, -5:] = 0  # padding slots
+    type_ok = rng.random((P, CRp, T)) < 0.7
+    n_fit = rng.integers(0, 60, (P, CRp, T)).astype(i32)
+    n_fit[0, 0, :3] = 2**30
+    return ge, cl, type_ok, n_fit, NR - 5
+
+
+def _gathered(ge, cl, type_ok, n_fit, n_r):
+    """JAX relax_fill's nine inputs from B9's: the [NR, T] rows gathered
+    on the host, as karpenter_tpu/ops/relax.py:solve_bulk gathers them
+    (cl_avail False past n_r)."""
+    pool, fill, run = cl
+    cl_avail = type_ok[pool, run]
+    cl_avail[n_r:] = False
+    return (*ge, pool, fill, cl_avail, n_fit[pool, run])
+
+
+def _assert_fill_equal(want, got):
+    for name, w, g in zip(("claim_fills", "c_tmask", "c_pool", "unplaced"), want, got):
+        g = g.numpy()
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
 
 
 @pytest.mark.parametrize("seed", range(4))
 def test_relax_fill_reference_matches_jax(seed):
+    """B9's plain version (its gather included) against JAX's relax_fill
+    fed the host-gathered rows."""
     from karpenter_tpu.ops.relax import _jit_relax_fill
     from karpenter_tpu_torch.ops.relax import relax_fill, relax_fill_reference
 
-    inputs = _fill_inputs(seed)
-    want = [np.asarray(x) for x in _jit_relax_fill()(*inputs)]
-    tin = [torch.from_numpy(x) for x in inputs]
+    ge, cl, type_ok, n_fit, n_r = _fill_inputs(seed)
+    want = [np.asarray(x) for x in _jit_relax_fill()(*_gathered(ge, cl, type_ok, n_fit, n_r))]
+    tin = [torch.from_numpy(x) for x in (ge, cl, type_ok, n_fit)]
     for fn in (relax_fill_reference, relax_fill):  # the wrapper on CPU tensors
-        got = fn(*tin)
-        for name, w, g in zip(("claim_fills", "c_tmask", "c_pool", "unplaced"), want, got):
-            g = g.numpy()
-            assert g.dtype == w.dtype and g.shape == w.shape, name
-            np.testing.assert_array_equal(g, w, err_msg=name)
+        _assert_fill_equal(want, fn(*tin, n_r))
     assert (want[0] > 0).any() and (want[3] > 0).any()  # not vacuous
+
+
+def _bulk_plan(run_sizes, GE_pad):
+    """A BulkPlan over runs of ``run_sizes`` group counts (pods per group
+    1 + its index), as plan_bulk lays them out; the group ids run to
+    GE_pad so the easy axis pads to a power of two."""
+    from karpenter_tpu_torch.ops.relax import BulkPlan
+
+    ge_run = np.repeat(np.arange(len(run_sizes)), run_sizes).astype(np.int32)
+    ge_count = (1 + np.arange(len(ge_run))).astype(np.int64)
+    cum = np.cumsum(ge_count) - ge_count
+    first = np.unique(ge_run, return_index=True)[1]
+    ge_a = cum - cum[first][ge_run]
+    return BulkPlan(
+        easy_gids=np.arange(len(ge_run), dtype=np.int32) * (GE_pad // max(len(ge_run), 1)),
+        ge_run=ge_run, run_head=first.astype(np.int32), ge_count=ge_count, ge_a=ge_a,
+        run_total=np.bincount(ge_run, weights=ge_count).astype(np.int64),
+        easy_pods=int(ge_count.sum()))
+
+
+def _jax_fill_inputs(plan, type_ok, n_fit):
+    """(n_r, JAX relax_fill's nine inputs) from the head tables, the host
+    steps of karpenter_tpu/ops/relax.py:solve_bulk line for line."""
+    from karpenter_tpu.solver import encode as jenc
+
+    CRr = len(plan.run_head)
+    type_ok, n_fit = type_ok[:, :CRr], n_fit[:, :CRr]
+    feas_p = type_ok.any(axis=2)
+    any_feas = feas_p.any(axis=0)
+    p_star = np.argmax(feas_p, axis=0)
+    avail = type_ok[p_star, np.arange(CRr)]
+    nf = n_fit[p_star, np.arange(CRr)]
+    n_per = np.where(any_feas, np.where(avail, nf, 0).max(axis=1), 0).astype(np.int64)
+    kc = np.zeros((CRr,), np.int64)
+    live = n_per > 0
+    kc[live] = -(-plan.run_total[live] // n_per[live])
+    off = np.cumsum(kc) - kc
+    n_r = int(kc.sum())
+    GE = jenc._next_pow2(len(plan.easy_gids), floor=1)
+    NR = jenc._next_pow2(max(n_r, 1), floor=1)
+
+    def padg(a):
+        out = np.zeros((GE,), a.dtype)
+        out[: len(a)] = a
+        return out
+
+    cl_run = np.zeros((NR,), np.int64)
+    if n_r:
+        cl_run[:n_r] = np.repeat(np.arange(CRr), kc)
+    last = np.arange(NR) - off[cl_run] == kc[cl_run] - 1
+    cl_fill = np.where(last, plan.run_total[cl_run] - (kc[cl_run] - 1) * n_per[cl_run],
+                       n_per[cl_run])
+    cl_fill[n_r:] = 0
+    cl_avail = avail[cl_run]
+    cl_avail[n_r:] = False
+    return n_r, (
+        padg(plan.ge_count.astype(np.int32)), padg(plan.ge_a.astype(np.int32)),
+        padg(off[plan.ge_run].astype(np.int32)), padg(n_per[plan.ge_run].astype(np.int32)),
+        padg(kc[plan.ge_run].astype(np.int32)), p_star[cl_run].astype(np.int32),
+        cl_fill.astype(np.int32), cl_avail, nf[cl_run].astype(np.int32))
+
+
+# (runs' group counts, P, T): the padded easy axis of tests/test_relax.py's
+# shapes, a run per template, and one run of groups with no request
+FILL_CASES = {
+    "one-run": ((3,), 1, 24),
+    "three-runs": ((2, 1, 4), 2, 24),
+    "padded-heads": ((1, 2, 1, 1, 2), 3, 30),
+}
+
+
+@pytest.mark.parametrize("unbounded", [False, True])
+@pytest.mark.parametrize("case", sorted(FILL_CASES))
+def test_fill_args_and_relax_fill_match_jax(case, unbounded):
+    """fill_args then B9's plain version on seeded head tables (CRp past
+    the runs, one run without a feasible template, padding slots) against
+    JAX's host steps then relax_fill; ``unbounded`` gives one run
+    fits_count's 2**30 pods per claim (groups without requests), where
+    rel * n_per wraps int32 on every slot outside the run."""
+    from karpenter_tpu.ops.relax import _jit_relax_fill
+    from karpenter_tpu_torch.ops.relax import fill_args, fill_inputs, relax_fill_reference
+    from karpenter_tpu_torch.solver import encode as tenc
+
+    runs, P, T = FILL_CASES[case]
+    plan = _bulk_plan(runs, tenc._next_pow2(sum(runs) + 1, floor=1))
+    CRp = tenc._next_pow2(len(runs) + 1, floor=1)
+    rng = np.random.default_rng(len(runs) * 10 + P + unbounded)
+    type_ok = rng.random((P, CRp, T)) < 0.5
+    n_fit = rng.integers(1, 5, (P, CRp, T)).astype(np.int32)
+    dead = len(runs) > 1  # the last run has no feasible template
+    if dead:
+        type_ok[:, len(runs) - 1] = False
+    if unbounded:
+        n_fit[:, 0] = 2**30
+    n_r, want_in = _jax_fill_inputs(plan, type_ok, n_fit)
+    want = [np.asarray(x) for x in _jit_relax_fill()(*want_in)]
+    got_nr, ge, cl = fill_args(plan, type_ok, n_fit)
+    assert got_nr == n_r > 0
+    _assert_fill_equal(want, relax_fill_reference(
+        *fill_inputs(ge, cl, "cpu"), torch.from_numpy(type_ok), torch.from_numpy(n_fit), n_r))
+    ge_n = len(plan.easy_gids)
+    assert want[3][ge_n - runs[-1]:ge_n].all() == dead  # the dead run is unplaced
+    assert want[0].sum() == plan.run_total[:len(runs) - dead].sum()  # every other pod placed

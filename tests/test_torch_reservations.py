@@ -204,6 +204,21 @@ def test_solver_equals_tpu_solver(case):
     assert solvers["karpenter_tpu_torch"].fallback_solves == 0
 
 
+@pytest.mark.parametrize("capacity", [1, 2])
+def test_mixed_batch_hands_reservations_to_oracle(capacity):
+    """A batch split between the kernel path and the host oracle (host-port
+    pods route to the oracle) books each reservation once: the oracle's
+    ReservationManager is handed the kernel claims' holdings before it
+    solves the rest, so the port holds the same reservations on the same
+    claim slots as TpuSolver."""
+    pods = make_pods(8, cpu="1") + make_pods(4, cpu="1", host_ports=[8080])
+    out, solvers = solve_both(pods, n_types=4, every=4, capacity=capacity)
+    assert out["karpenter_tpu_torch"] == out["karpenter_tpu"]
+    held_ids = [r for claim in out["karpenter_tpu"][1] for r in claim]
+    assert held_ids and len(held_ids) <= capacity  # never booked past capacity
+    assert solvers["karpenter_tpu_torch"].fallback_solves == 1  # the oracle-routed pods
+
+
 # -- (c) TestScenarioReservations, on the port ----------------------------------------
 
 
