@@ -151,6 +151,25 @@ no result:
    memory; B3's where relax ran; each scan's shared memory and spilled
    bytes).
 
+11. the degradation ladder (SolverConfig.health on an injected clock;
+   phase_ladder's docstring).
+
+12. the solver sidecar (solver/service.py): the port's serve() on the card
+   behind the port's RemoteSolver over gRPC, (a) the solo lane at mixed
+   3,000 x 400 (a request under gRPC's default 4 MiB receive limit, its
+   response bytes equal to the in-process card and CPU solves'), (b) the
+   cross-tenant batch lane, four tenants of 750 pods sent at once, one
+   union solve (one scenario dispatch, B7), each tenant's decisions equal
+   to its solo card solve and the CPU union's, (c) the error contract:
+   backpressure, a deadline overrun falling back in process on the card,
+   and a launch error of the batch lane, not injected, reaching all four
+   callers as INTERNAL (phase_sidecar's docstring).
+
+13. the operator (operator.py): the port's Operator over the kwok provider
+   with 2,000 mixed pods pending over one NodePool and 400 types, stepped
+   until no pod is pending (at most 5 steps), on the card, on the CPU and
+   through phase 12's sidecar: the same NodeClaims by content.
+
 Phase 2 holds B1 and B2 also at the other shapes of their paths:
 B1 at diverse-ref (G=2048) and constrained 50k x 800 (G=256, the only
 cell with live pairs), B2 at the consolidation chunk (S=16, N=2048);
@@ -255,6 +274,18 @@ WIDE_CPU_WAIT_S = 900
 # nodes; the breaker trips at the first failure and cools down in 60 s of
 # an injected clock
 LADDER_PODS, LADDER_NODES, LADDER_COOLDOWN = 2_000, 200, 60.0
+# phase 12, the solver sidecar: the solo lane at BASELINE config[1]'s mix
+# (3,000 x 400, under gRPC's default 4 MiB receive limit), the batch lane
+# of four tenants of 750 pods each; the batch window outlasts the spread
+# of four such requests' arrivals at the batcher (each decoded and keyed
+# first, on the sidecar's worker threads), and max_batch closes the batch
+# as soon as the four are in
+SIDECAR_PODS, SIDECAR_TENANTS, SIDECAR_TENANT_PODS = 3_000, 4, 750
+SIDECAR_WORKERS, SIDECAR_WINDOW, GRPC_RECEIVE_LIMIT = 4, 2.0, 4 * 1024 * 1024
+SIDECAR_SMALL_PODS = 200  # the error legs' solves
+# phase 13, the operator: mixed 2,000 pending over one NodePool and 400
+# types, stepped until no pod is pending or 5 steps have run
+OPERATOR_PODS, OPERATOR_STEPS = 2_000, 5
 REPLACES = {
     "fresh_feasibility": "karpenter_tpu/ops/feasibility.py:141",
     "fresh_feasibility_diverse": "karpenter_tpu/ops/feasibility.py:141",
@@ -355,6 +386,16 @@ PATH_KERNELS = {
     "tenant_scenarios": ("pack", "pack_tiled", "wire_pack"),
     # the ladder phase's kernel-rung solve after the cool-down
     "ladder": ("fresh_feasibility", "pack", "wire_pack"),
+    # the sidecar: tenant t0's solo solve, the four tenants' union solve
+    # (B1, the pack.cu grid and B6 over the scenarios; no B2: no state
+    # nodes), a deadline overrun (the sidecar's two solves past the
+    # deadline, then the client's in-process one)
+    "sidecar_solo": ("fresh_feasibility", "pack", "wire_pack"),
+    "sidecar_batch": ("fresh_feasibility", "pack", "wire_pack"),
+    "sidecar_fallback": ("fresh_feasibility", "pack", "wire_pack"),
+    # the operator's reconcile loop, in process and through the sidecar
+    "operator": ("fresh_feasibility", "pack", "wire_pack"),
+    "operator_remote": ("fresh_feasibility", "pack", "wire_pack"),
 }
 TABLE_KERNELS = ("fresh_feasibility", "existing_feasibility", "dense_feasibility")
 # ... and those it must not launch: the classed route replaces B4, the
@@ -3179,6 +3220,435 @@ def wide_timings(solver_for, pods, encode_cache_cls):
     return dict(ms=times, p50_ms=statistics.median(times), spans=spans)
 
 
+def tenant_pods(wl, i, n):
+    """Tenant ``i``'s pods: ``mixed_pods(n, seed=i)`` renamed
+    ``t<i>-mixed-<j>`` (uid the same), so no pod is shared between
+    tenants (the union solve declines on a shared uid)."""
+    pods = wl.mixed_pods(n, seed=i)
+    for j, p in enumerate(pods):
+        p.metadata.name = p.metadata.uid = f"t{i}-mixed-{j}"
+    return pods
+
+
+def capturing(remote):
+    """``remote`` (a RemoteSolver) keeping the raw response bytes of each
+    answered call in ``remote.responses``."""
+    call = remote._solve
+    remote.responses = []
+
+    def solve(request, **kw):
+        raw = call(request, **kw)
+        remote.responses.append(raw)
+        return raw
+
+    remote._solve = solve
+    return remote
+
+
+def response_content(raw):
+    """A solve response's decisions: claims in slot order (pool, type
+    names in order, pod uids as a set, requirements), existing-node
+    placements and pod errors. A union solve orders the pods inside a
+    claim by the union's order (the tenants' arrival order), which the
+    bytes carry and the decision does not."""
+    from karpenter_tpu_torch.solver import wire
+
+    got = wire.decode_solve_response(raw)
+    return ([(c["pool"], tuple(c["instance_types"]), tuple(sorted(c["pod_uids"])),
+              repr(sorted(map(repr, c["requirements"])))) for c in got["claims"]],
+            sorted((e["name"], tuple(sorted(e["pod_uids"]))) for e in got["existing"]),
+            sorted(got["pod_errors"].items()), got["state_nodes_packed"])
+
+
+def diff_responses(got, want):
+    """The first difference of two solve responses, for the log."""
+    from karpenter_tpu_torch.solver import wire
+
+    got, want = wire.decode_solve_response(got), wire.decode_solve_response(want)
+    for key in ("claims", "existing", "pod_errors", "state_nodes_packed"):
+        if got[key] != want[key]:
+            if key == "claims":
+                for i, (a, b) in enumerate(zip(got[key], want[key])):
+                    if a != b:
+                        return f"claim {i}: {a} != {b}"
+                return f"{len(got[key])} claims != {len(want[key])}"
+            return f"{key}: {got[key]} != {want[key]}"
+    return "none"
+
+
+def phase_sidecar(device="cuda"):
+    """Phase 12: the port's solver sidecar, ``serve("127.0.0.1:0",
+    max_workers=4)`` for the solo lane and with ``batch_window=
+    SIDECAR_WINDOW`` for the batch lane (where every batchable solve, a
+    lone one too, rides the union solve), solving on the card (its
+    default SolverConfig), reached through the port's ``RemoteSolver``. (a)
+    The solo lane: tenant t0 sends mixed 3,000 x 400, a request under
+    gRPC's 4 MiB receive limit; the response bytes equal the encoded
+    in-process solve on the card and the device="cpu" solve's. (b) The
+    batch lane: four tenants of 750 pods each send at once (their
+    dispatches released together by a barrier); the batcher forms one
+    batch (1 batched, 0 declined) and the union solver makes one scenario
+    dispatch (B1, the pack.cu grid over 4 scenarios, B6 over them; no B2:
+    no state nodes); each tenant's decisions (claims in slot order, their
+    pods, options in order; the union orders the pods inside a claim by
+    arrival) equal its own solo solve on the card and the device="cpu"
+    union's. (c) The error contract, on an
+    injected clock: a tenant past its token bucket gets SolverBackpressure
+    with no in-process solve; a solve past its tenant's deadline gets
+    DEADLINE_EXCEEDED and the client solves in process on the card
+    (fallback_solves 1, equal to the sidecar's answer); a launch error
+    that was not injected, raised in the batch lane as phase 11 raises
+    its own, reaches all four callers as INTERNAL, and no participant is
+    solved solo. Launch counts: the solo lane, the batch lane and the
+    in-process fallback, each from 0. Returns the running solo-lane
+    sidecar for phase 13 beside the results."""
+    import threading
+
+    import torch
+
+    from karpenter_tpu_torch import _build, faults
+    from karpenter_tpu_torch.cloudprovider import corpus
+    from karpenter_tpu_torch.kube import TestClock
+    from karpenter_tpu_torch.solver import wire
+    from karpenter_tpu_torch.solver import workloads as wl
+    from karpenter_tpu_torch.solver.driver import SolverConfig
+    from karpenter_tpu_torch.solver.example import example_nodepool
+    from karpenter_tpu_torch.solver.service import (
+        RemoteSolver,
+        SolverBackpressure,
+        TenantService,
+        serve,
+    )
+    from karpenter_tpu_torch.solver.tenancy import TenantQoS, TenantRegistry
+
+    cuda = device == "cuda"
+    pools = [example_nodepool()]
+    its = {pools[0].name: corpus.generate(N_TYPES)}
+    options = {"reserved_capacity_enabled": False}
+
+    def check(label, ok, detail):
+        if not ok:
+            raise SmokeFailure(f"sidecar ({label}): {detail}")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def remote(target, tenant, config=None):
+        return capturing(RemoteSolver(target, pools, its, tenant=tenant,
+                                      config=config or SolverConfig(device=device)))
+
+    def encoded(tenant, pods, **service_kw):
+        """The response bytes of ``pods`` solved in process by a fresh
+        TenantService."""
+        svc = TenantService(**service_kw)
+        snap = wire.decode_solve_request(wire.encode_solve_request(
+            pods, pools, its, solver_options=options, volume_objects=[]))
+        out = svc.solve_encoded(tenant, snap)
+        sync()
+        return out
+
+    def at_once(target, reqs, config=None):
+        """Each tenant's RemoteSolver solve from its own thread, the
+        dispatches released together: {tenant: (Results or the exception,
+        response bytes)}."""
+        barrier = threading.Barrier(len(reqs))
+        out = {}
+
+        def run(tid, pods):
+            r = remote(target, tid, config)
+            dispatch = r._dispatch
+
+            def together(request):
+                barrier.wait()
+                return dispatch(request)
+
+            r._dispatch = together
+            try:
+                out[tid] = (r.solve(pods), r.responses)
+            except Exception as exc:
+                out[tid] = (exc, r.responses)
+            finally:
+                r.close()
+
+        threads = [threading.Thread(target=run, args=item) for item in reqs.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        sync()
+        return out
+
+    out = {"launches": {}, "scenario_launches": {}}
+    config = None if cuda else SolverConfig(device=device)  # None: the card
+    solo_server = serve("127.0.0.1:0", max_workers=SIDECAR_WORKERS, config=config)
+    out["server"] = solo_server
+    server = serve("127.0.0.1:0", max_workers=SIDECAR_WORKERS, batch_window=SIDECAR_WINDOW,
+                   config=config)
+    svc = server._tenant_service
+    svc.batcher.max_batch = SIDECAR_TENANTS
+    target = f"127.0.0.1:{server._bound_port}"
+    arrivals = []
+    batcher_solve = svc.batcher.solve
+
+    def arrive(*a, **k):
+        arrivals.append(time.perf_counter())
+        return batcher_solve(*a, **k)
+
+    svc.batcher.solve = arrive
+
+    # (a) the solo lane
+    pods = wl.mixed_pods(SIDECAR_PODS)
+    request = wire.encode_solve_request(pods, pools, its, solver_options=options,
+                                        volume_objects=[])
+    check("a size", len(request) < GRPC_RECEIVE_LIMIT,
+          f"{len(request)} B of request, past {GRPC_RECEIVE_LIMIT}")
+    out["request_bytes"] = len(request)
+    t0 = remote(f"127.0.0.1:{solo_server._bound_port}", "t0")
+    _build.reset_launches()
+    w0 = time.perf_counter()
+    got = t0.solve(pods)
+    sync()
+    out["solo_ms"] = (time.perf_counter() - w0) * 1e3
+    out["launches"]["sidecar_solo"] = dict(_build.launches)
+    t0.close()
+    w0 = time.perf_counter()
+    in_process = encoded("t0", pods, config=SolverConfig(device=device))
+    out["in_process_ms"] = (time.perf_counter() - w0) * 1e3
+    on_cpu = encoded("t0", pods, config=SolverConfig(device="cpu"))
+    check("a", t0.responses == [in_process] and in_process == on_cpu
+          and t0.fallback_solves == 0 and not got.pod_errors,
+          f"hop == in process {t0.responses == [in_process]}, == cpu {in_process == on_cpu}, "
+          f"fallbacks {t0.fallback_solves}, errors {len(got.pod_errors)}")
+    out["response_bytes"] = len(in_process)
+    out["solo_claims"] = len(got.new_node_claims)
+
+    # (b) the batch lane
+    reqs = {f"t{i}": tenant_pods(wl, i, SIDECAR_TENANT_PODS)
+            for i in range(1, SIDECAR_TENANTS + 1)}
+    arrivals.clear()
+    _build.reset_launches()
+    w0 = time.perf_counter()
+    got = at_once(target, reqs)
+    out["batch_ms"] = (time.perf_counter() - w0) * 1e3
+    out["launches"]["sidecar_batch"] = dict(_build.launches)
+    out["scenario_launches"]["sidecar_batch"] = dict(_build.scenario_launches)
+    out["arrival_spread_ms"] = (max(arrivals) - min(arrivals)) * 1e3
+    counts = svc.batcher.counts()
+    check("b batch", counts == {"batched": 1, "declined": 0}
+          and (not cuda or out["scenario_launches"]["sidecar_batch"]["pack"] == 1
+               and out["launches"]["sidecar_batch"]["pack"] == 1),
+          f"batcher {counts}, launches {out['launches']['sidecar_batch']}, arrivals spread "
+          f"{out['arrival_spread_ms']:.1f} ms")
+    cpu_union = {}
+
+    def cpu_solve(tid, svc_cpu):
+        snap = wire.decode_solve_request(wire.encode_solve_request(
+            reqs[tid], pools, its, solver_options=options, volume_objects=[]))
+        cpu_union[tid] = svc_cpu.solve_encoded(tid, snap)
+
+    svc_cpu = TenantService(config=SolverConfig(device="cpu"), batch_window=60.0,
+                            batch_max=SIDECAR_TENANTS)
+    threads = [threading.Thread(target=cpu_solve, args=(tid, svc_cpu)) for tid in reqs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check("b cpu union", svc_cpu.batcher.counts() == {"batched": 1, "declined": 0},
+          f"the CPU batcher {svc_cpu.batcher.counts()}")
+    claims = {}
+    for tid, tpods in reqs.items():
+        res, raw = got[tid]
+        solo = encoded(tid, tpods, config=SolverConfig(device=device))
+        hop = response_content(raw[0]) if len(raw) == 1 else None
+        check(f"b {tid}", not isinstance(res, Exception) and hop == response_content(solo)
+              and hop == response_content(cpu_union[tid]),
+              f"{res!r}" if isinstance(res, Exception) else
+              f"hop == solo {hop == response_content(solo)}, == cpu union "
+              f"{hop == response_content(cpu_union[tid])}"
+              + (f": {diff_responses(raw[0], solo)}" if len(raw) == 1 else ""))
+        claims[tid] = len(res.new_node_claims)
+    out["batch_claims"] = claims
+
+    # (c) the error contract
+    clock = TestClock()
+    greedy_server = serve("127.0.0.1:0", config=config, registry=TenantRegistry(clock=clock, qos={
+                              "standard": TenantQoS(rate=0.0, burst=1.0)}))
+    small = wl.mixed_pods(SIDECAR_SMALL_PODS, seed=21)
+    try:
+        greedy = remote(f"127.0.0.1:{greedy_server._bound_port}", "greedy")
+        first = greedy.solve(small)
+        raised = None
+        try:
+            greedy.solve(small)
+        except SolverBackpressure as exc:
+            raised = type(exc).__name__
+        greedy.close()
+    finally:
+        greedy_server.stop(0)
+    check("c backpressure", raised == "SolverBackpressure" and greedy.fallback_solves == 0
+          and len(greedy.responses) == 1 and not first.pod_errors,
+          f"raised {raised}, fallbacks {greedy.fallback_solves}")
+    out["backpressure"] = raised
+
+    faults.install(faults.FaultInjector(
+        [faults.FaultRule(faults.TENANT_SOLVE, latency=10.0,
+                          match=lambda ctx: ctx.get("tenant") == "slow")], clock=clock))
+    slow_server = serve("127.0.0.1:0", config=config, registry=TenantRegistry(clock=clock, qos={
+                            "standard": TenantQoS(solve_deadline=1.0)}))
+    try:
+        slow = remote(f"127.0.0.1:{slow_server._bound_port}", "slow")
+        _build.reset_launches()
+        fell_back = slow.solve(small)
+        sync()
+        out["launches"]["sidecar_fallback"] = dict(_build.launches)
+        slow.close()
+        overruns = slow_server._tenant_service.registry.get("slow").stats()["deadline_overruns"]
+    finally:
+        slow_server.stop(0)
+        faults.uninstall()
+    want = encoded("slow", small, config=SolverConfig(device=device))
+    got_bytes = wire.encode_solve_response(fell_back)
+    check("c deadline", slow.fallback_solves == 1 and overruns == 2 and got_bytes == want,
+          f"fallbacks {slow.fallback_solves}, overruns {overruns}, == the in-process solve "
+          f"{got_bytes == want}")
+    out["deadline"] = dict(fallback_solves=slow.fallback_solves, overruns=overruns)
+
+    card = {}
+    if cuda:
+        real_launched = _build.launched
+        solo_lane = []
+        solve_solo = svc._solve_solo
+
+        def launched(name, rc, *a, **k):
+            real_launched(name, rc, *a, **k)
+            raise _build.KernelLaunchError(f"{name}: launch error (not injected)")
+
+        def solo_spy(tenant, snap):
+            solo_lane.append(tenant.tenant_id)
+            return solve_solo(tenant, snap)
+
+        svc._solve_solo = solo_spy
+        _build.launched = launched
+        try:
+            failed = at_once(target, reqs)
+        finally:
+            _build.launched = real_launched
+            svc._solve_solo = solve_solo
+        codes = {}
+        for tid, (res, raw) in failed.items():
+            code = getattr(res, "code", None)
+            codes[tid] = code().name if callable(code) else type(res).__name__
+        check("c launch", set(codes.values()) == {"INTERNAL"} and len(codes) == SIDECAR_TENANTS
+              and not solo_lane and svc.batcher.counts() == counts
+              and all("KernelLaunchError" in res.details() for res, _ in failed.values()),
+              f"codes {codes}, solo solves {solo_lane}, batcher {svc.batcher.counts()}")
+        card = codes
+    server.stop(0)
+    out["card_fault"] = card
+    if cuda:
+        need = {"sidecar_solo": PATH_KERNELS["sidecar_solo"],
+                "sidecar_batch": PATH_KERNELS["sidecar_batch"],
+                "sidecar_fallback": PATH_KERNELS["sidecar_fallback"]}
+        for path, kernels in need.items():
+            missing = [k for k in kernels if out["launches"][path][k] < 1]
+            check(path, not missing, f"never launched {missing}")
+    return out
+
+
+def operator_claims(pods, n_types, steps, device="cuda", solver_address=""):
+    """The port's Operator over the kwok provider with a TestClock, one
+    NodePool over ``n_types`` types and ``pods`` pending, stepped (binding
+    what landed) until no pod is pending or ``steps`` steps have run.
+    Returns each NodeClaim it created as (pool, instance-type options in
+    order, pod uids), the steps and the pods left pending."""
+    import copy
+
+    import torch
+
+    from karpenter_tpu_torch.api.objects import Pod
+    from karpenter_tpu_torch.cloudprovider import corpus
+    from karpenter_tpu_torch.cloudprovider.kwok import KwokCloudProvider
+    from karpenter_tpu_torch.kube import Client, TestClock
+    from karpenter_tpu_torch.operator import Operator, OperatorOptions
+    from karpenter_tpu_torch.sim import Binder
+    from karpenter_tpu_torch.solver.driver import SolverConfig
+    from karpenter_tpu_torch.solver.example import example_nodepool
+
+    clock = TestClock()
+    client = Client(clock)
+    provider = KwokCloudProvider(client, corpus.generate(n_types))
+    op = Operator(client, provider, OperatorOptions(
+        solver_config=SolverConfig(device=device), solver_address=solver_address))
+    created = []
+    create = op.provisioner.create_node_claims
+
+    def record(results):
+        claims = create(results)
+        created.extend(
+            (c.template.node_pool_name, tuple(it.name for it in c.instance_type_options),
+             tuple(sorted(p.uid for p in c.pods)))
+            for c in results.new_node_claims)
+        return claims
+
+    op.provisioner.create_node_claims = record
+    binder = Binder(client)
+    client.create(example_nodepool())
+    for p in copy.deepcopy(pods):
+        client.create(p)
+    pending = []
+    for step in range(1, steps + 1):
+        op.step(force_provision=True)
+        binder.bind_all()
+        clock.step(1)
+        pending = [p.uid for p in client.list(Pod) if not p.spec.node_name]
+        if not pending:
+            break
+    if device == "cuda":
+        torch.cuda.synchronize()
+    op.shutdown()
+    return created, step, len(pending)
+
+
+def phase_operator(sidecar, device="cuda"):
+    """Phase 13: the port's Operator over kwok (a Client on a TestClock,
+    corpus.generate(400), one NodePool, mixed_pods(2,000) pending), stepped
+    with force_provision until no pod is pending or 5 steps have run: on
+    the card in process, counted; the same with SolverConfig(device="cpu");
+    and on the card with ``solver_address`` at phase 12's sidecar,
+    counted. The NodeClaims created must be the same in the three, by
+    pool, instance-type options in order and pod uids."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.solver import workloads as wl
+
+    pods = wl.mixed_pods(OPERATOR_PODS)
+    target = f"127.0.0.1:{sidecar._bound_port}"
+    out = {"launches": {}}
+    runs = {}
+    for label, kw in (("operator", dict(device=device)), ("cpu", dict(device="cpu")),
+                      ("operator_remote", dict(device=device, solver_address=target))):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        runs[label] = operator_claims(pods, N_TYPES, OPERATOR_STEPS, **kw)
+        out[f"{label}_s"] = time.perf_counter() - t0
+        if label != "cpu":
+            out["launches"][label] = dict(_build.launches)
+    claims, steps, pending = runs["operator"]
+    if not claims or runs["cpu"] != runs["operator"] or runs["operator_remote"] != runs["operator"]:
+        raise SmokeFailure(
+            f"operator: {len(claims)} claims in {steps} steps ({pending} pending); == cpu "
+            f"{runs['cpu'] == runs['operator']}, == through the sidecar "
+            f"{runs['operator_remote'] == runs['operator']}")
+    out.update(claims=len(claims), steps=steps, pending=pending,
+               pods_on_claims=sum(len(c[2]) for c in claims))
+    if device == "cuda":
+        for path in ("operator", "operator_remote"):
+            missing = [k for k in PATH_KERNELS[path] if out["launches"][path][k] < 1]
+            if missing:
+                raise SmokeFailure(f"operator ({path}): never launched {missing}")
+    return out
+
+
 def cluster_text(cluster):
     """A scan launch's cluster as csrc/pack_common.cuh:pick_cluster reports
     it: (blocks, such clusters the card holds at once, clusters of the
@@ -3415,8 +3885,41 @@ def main():
             f"{p}: " + " ".join(f"{k}={v}" for k, v in c.items() if v)
             for p, c in lad["launches"].items()))
 
+    side, secs = timed_phase(lambda: phase_sidecar())
+    log(f"phase 12 solver sidecar ({secs:.0f} s; serve(max_workers={SIDECAR_WORKERS}), the "
+        f"batch lane with batch_window={SIDECAR_WINDOW} s, max_batch={SIDECAR_TENANTS}): (a) solo "
+        f"lane, t0 mixed {SIDECAR_PODS} x {N_TYPES}: request {side['request_bytes']} B "
+        f"(< {GRPC_RECEIVE_LIMIT}), response {side['response_bytes']} B == the in-process card "
+        f"solve's == the device=\"cpu\" solve's, {side['solo_claims']} claims, "
+        f"{side['solo_ms']:.1f} ms through the hop vs {side['in_process_ms']:.1f} ms in process; "
+        f"(b) batch lane, {SIDECAR_TENANTS} tenants x {SIDECAR_TENANT_PODS} pods at once: arrivals "
+        f"at the batcher spread over {side['arrival_spread_ms']:.1f} ms, 1 batched, 0 declined, "
+        "one scenario dispatch (scenario launches " + " ".join(
+            f"{k}={v}" for k, v in side["scenario_launches"]["sidecar_batch"].items() if v)
+        + "), each tenant == its solo card solve == the device=\"cpu\" union (claims "
+        + " ".join(f"{k}={v}" for k, v in side["batch_claims"].items())
+        + f"), {side['batch_ms']:.1f} ms; (c) over its token bucket -> {side['backpressure']}, "
+        f"no in-process solve; past its deadline -> DEADLINE_EXCEEDED x "
+        f"{side['deadline']['overruns']}, fallback_solves {side['deadline']['fallback_solves']}"
+        f" on the card, == the in-process solve; a launch error in the batch lane, not "
+        f"injected -> " + " ".join(f"{k}={v}" for k, v in side["card_fault"].items())
+        + ", no participant solved solo; launches " + "; ".join(
+            f"{p}: " + " ".join(f"{k}={v}" for k, v in c.items() if v)
+            for p, c in side["launches"].items()))
+
+    oper, secs = timed_phase(lambda: phase_operator(side["server"]))
+    side["server"].stop(0)
+    log(f"phase 13 operator ({secs:.0f} s): kwok, corpus.generate({N_TYPES}), mixed "
+        f"{OPERATOR_PODS} pending -> {oper['claims']} NodeClaims holding "
+        f"{oper['pods_on_claims']} pods in {oper['steps']} steps ({oper['pending']} pending), "
+        f"== the device=\"cpu\" run, == through phase 12's sidecar; {oper['operator_s']:.1f} s "
+        f"on the card, {oper['cpu_s']:.1f} s on the CPU, {oper['operator_remote_s']:.1f} s "
+        "through the sidecar; launches " + "; ".join(
+            f"{p}: " + " ".join(f"{k}={v}" for k, v in c.items() if v)
+            for p, c in oper["launches"].items()))
+
     # every path's own counts: the solves, the searches, the five loops,
-    # the ladder
+    # the ladder, the sidecar, the operator
     paths = dict(e2e["launches"])
     paths.update({label: c["launches"] for label, c in cons.items()})
     paths.update(con["launches"])
@@ -3427,8 +3930,11 @@ def main():
     paths.update(ten["launches"])
     paths.update({label: w["launches"] for label, w in wide.items()})
     paths.update(lad["launches"])
+    paths.update(side["launches"])
+    paths.update(oper["launches"])
     scen_paths = {label: c["scenario_launches"] for label, c in cons.items()}
     scen_paths["ladder_scenarios"] = lad["scenario_launches"]
+    scen_paths["sidecar_batch"] = side["scenario_launches"]["sidecar_batch"]
     kernels = []
     for name, row in rows.items():
         bms, by = row["bound"]

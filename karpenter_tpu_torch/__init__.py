@@ -10,11 +10,16 @@ source on its first line.
 
 Layout (each module at the relative path of its JAX counterpart):
   api/ cloudprovider/ kube/ events/ scheduling/ faults/ obs/ metrics/
-  utils/ controllers/
-                  copied host modules (controllers/: the cluster state and
-                  the disruption methods)
+  utils/ controllers/ sim/
+                  copied host modules (controllers/: the cluster state,
+                  provisioning, lifecycle, termination, housekeeping,
+                  metrics and the disruption methods; sim/: the pod binder)
+  operator.py options.py __main__.py
+                  the control plane: ``python -m karpenter_tpu_torch``
   solver/         encode + vocab (copied), args (numpy -> device tensors),
-                  driver (TorchSolver), example + workloads builders
+                  driver (TorchSolver), example + workloads builders, and
+                  the sidecar: wire (copied), tenancy, service
+                  (``python -m karpenter_tpu_torch.solver.service``)
   ops/            feasibility, packing, solve: plain PyTorch versions and
                   the wrappers that launch the kernels on CUDA tensors
   csrc/           the CUDA kernels; _build.py compiles them with nvcc

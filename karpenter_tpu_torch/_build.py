@@ -78,6 +78,9 @@ launches: Dict[str, int] = {name: 0 for name in SOURCES + VARIANTS}
 scenario_launches: Dict[str, int] = {name: 0 for name in SOURCES + VARIANTS}
 
 _lock = threading.Lock()
+# the counts are read-modify-writes, and the solver sidecar launches from
+# several threads at once
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -90,9 +93,10 @@ class KernelLaunchError(RuntimeError):
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
-        scenario_launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+            scenario_launches[name] = 0
 
 
 def nvcc_path() -> str:
@@ -186,9 +190,13 @@ def bind(name: str, entry: str, argtypes):
     ctypes objects."""
     fn = _bound.get((name, entry))
     if fn is None:
-        fn = getattr(library(name), entry)
-        fn.argtypes = tuple(argtypes)
-        _bound[(name, entry)] = fn
+        lib = library(name)
+        with _lock:
+            fn = _bound.get((name, entry))
+            if fn is None:
+                fn = getattr(lib, entry)
+                fn.argtypes = tuple(argtypes)
+                _bound[(name, entry)] = fn
     return fn
 
 
@@ -255,7 +263,8 @@ def launched(name: str, rc: int, scenarios: int = 1, variants=()) -> None:
             "(cudaOccupancyMaxActiveClusters is 0 with the kernel's shared memory)")
     if rc != 0:
         raise KernelLaunchError(f"{name}: CUDA error {rc} at launch")
-    for key in (name,) + tuple(variants):
-        launches[key] += 1
-        if scenarios > 1:
-            scenario_launches[key] += 1
+    with _count_lock:
+        for key in (name,) + tuple(variants):
+            launches[key] += 1
+            if scenarios > 1:
+                scenario_launches[key] += 1

@@ -1,4 +1,4 @@
-# Copied from karpenter_tpu/controllers/disruption/helpers.py, 14 lines changed: TpuSolver renamed TorchSolver, the backend check dropped (SolverConfig has no backend), 3 comment lines reworded.
+# Copied from karpenter_tpu/controllers/disruption/helpers.py, 11 lines changed: TpuSolver renamed TorchSolver, the backend check against the port's "kernels", 3 comment lines reworded.
 """Shared disruption machinery: candidates, budgets, scheduling simulation.
 
 Mirror of the reference's disruption/helpers.go (SimulateScheduling:49-117,
@@ -311,7 +311,9 @@ class ScenarioSimulator:
         self.dispatches = 0
         self.env_reused = False
         self._prefetched = None  # (subset key, submit token) — see prefetch()
-        if solver_config is not None and solver_config.force_oracle:
+        if solver_config is not None and (
+            solver_config.force_oracle or solver_config.backend != "kernels"
+        ):
             # unconditionally unrepresentable: don't pay the Topology +
             # solver construction just for solve_scenarios to decline
             # (mesh configs are left to solve_scenarios — "auto" on a

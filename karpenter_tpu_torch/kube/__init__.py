@@ -1,5 +1,6 @@
-# Copied from karpenter_tpu/kube/__init__.py, without FileClient.
+# Copied from karpenter_tpu/kube/__init__.py.
 from .clock import Clock, RealClock, TestClock
+from .filestore import FileClient
 from .store import Client, Event, NotFoundError, ConflictError, AlreadyExistsError
 
 __all__ = [
@@ -7,6 +8,7 @@ __all__ = [
     "RealClock",
     "TestClock",
     "Client",
+    "FileClient",
     "Event",
     "NotFoundError",
     "ConflictError",

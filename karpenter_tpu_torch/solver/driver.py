@@ -346,6 +346,8 @@ class SolverConfig:
     # quarantines into oracle fallbacks. None (the default) keeps the
     # contract that kernel errors propagate to the caller.
     health: Optional[object] = None
+    # per-call gRPC deadline for RemoteSolver dispatches (seconds)
+    solve_deadline: float = 30.0
     # not in this slice: set, it raises NotImplementedError
     mesh: Optional[object] = None
 

@@ -56,7 +56,12 @@ of card tensors quarantined before decode, a scenario-dispatch fault
 declining a consolidation search to per-probe solves with the same
 command (raising without a ladder), a fault of the card's own (a launch
 error, a guard rejection; not injected) propagating with a ladder set,
-and the native host backend equal to the card's exact route.
+and the native host backend equal to the card's exact route. The
+sidecar section runs the cross-tenant batch lane on the card (four
+tenants in one scenario dispatch, equal to their solo card solves and
+the CPU union; a launch error of the union, not injected, reaching all
+four) and four tenants solving from four threads at once, equal to their
+serial answers with the launch counters equal to the serial run's.
 
 Marked ``cuda``: they skip where there is no card. On the card, from the
 repo root: ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
@@ -2104,3 +2109,136 @@ def test_native_backend_equals_card(cuda):
     card, _ = _ladder_solve(cuda, pods, relax=False)
     native, rung = _ladder_solve(cuda, pods, backend="native")
     assert native == card and rung == ("kernel", "ok")
+
+
+# -- the solver sidecar on the card: the batch lane, concurrent tenants ------------
+
+
+def _tenant_snaps(n_pods, n_types, tenants=4):
+    """Each tenant's decoded solve request: ``mixed_pods(n_pods, seed=i)``
+    renamed ``t<i>-mixed-<j>`` (no pod shared) over one NodePool object and
+    ``n_types`` types, with no state nodes."""
+    from karpenter_tpu_torch.solver import wire
+
+    pools = [example_nodepool()]
+    its = {pools[0].name: corpus.generate(n_types)}
+    out = {}
+    for i in range(1, tenants + 1):
+        pods = mixed_pods(n_pods, seed=i)
+        for j, p in enumerate(pods):
+            p.metadata.name = f"t{i}-mixed-{j}"
+            p.metadata.uid = f"uid-t{i}-mixed-{j}"
+        out[f"t{i}"] = wire.encode_solve_request(
+            pods, pools, its, solver_options={"reserved_capacity_enabled": False})
+    return out
+
+
+def _at_once(svc, requests):
+    """Every tenant's solve from its own thread at once: each tenant's
+    claims in slot order with its pod errors, or the exception it
+    raised."""
+    import threading
+
+    from karpenter_tpu_torch.solver import wire
+
+    out = {}
+
+    def run(tid, req):
+        try:
+            r = svc.solve_for(tid, wire.decode_solve_request(req))
+            out[tid] = (slots(r), sorted(r.pod_errors))
+        except Exception as exc:
+            out[tid] = exc
+
+    threads = [threading.Thread(target=run, args=item) for item in requests.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    return out
+
+
+def _serially(svc, requests):
+    from karpenter_tpu_torch.solver import wire
+
+    out = {}
+    for tid, req in requests.items():
+        r = svc.solve_for(tid, wire.decode_solve_request(req))
+        out[tid] = (slots(r), sorted(r.pod_errors))
+    return out
+
+
+def _tenant_service(device, window=0.0, tenants=4):
+    from karpenter_tpu_torch.solver.service import TenantService
+    from karpenter_tpu_torch.solver.tenancy import TenantRegistry
+
+    return TenantService(registry=TenantRegistry(clock=TestClock()),
+                         config=SolverConfig(device=device), batch_window=window,
+                         batch_max=tenants)
+
+
+def test_tenant_batch_lane_one_scenario_dispatch(cuda):
+    """Four tenants' same-shape solves batched into one union solve: one
+    scenario dispatch of the kernels for all four (B1, the pack.cu grid,
+    B6 over the scenarios), each tenant's answer its own solo card solve
+    and the CPU union's."""
+    from karpenter_tpu_torch import _build
+
+    requests = _tenant_snaps(300, 40)
+    svc = _tenant_service("cuda", window=2.0)
+    _build.reset_launches()
+    got = _at_once(svc, requests)
+    launches, scen = dict(_build.launches), dict(_build.scenario_launches)
+    assert svc.batcher.counts() == {"batched": 1, "declined": 0}
+    assert scen["pack"] == 1 and launches["pack"] == 1
+    assert launches["fresh_feasibility"] == 1 and scen["wire_pack"] == 1
+    cpu_svc = _tenant_service("cpu", window=2.0)
+    assert _at_once(cpu_svc, requests) == got
+    assert cpu_svc.batcher.counts() == {"batched": 1, "declined": 0}
+    assert _serially(_tenant_service("cuda"), requests) == got
+    assert all(claims for claims, _ in got.values())
+
+
+def test_tenant_batch_lane_launch_error_reaches_everyone(cuda, monkeypatch):
+    """A launch error of the union solve, not injected, reaches all four
+    participants; none is solved solo, the batch neither batched nor
+    declined."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.solver.service import TenantService
+
+    real = _build.launched
+
+    def launched(name, rc, *a, **k):
+        real(name, rc, *a, **k)
+        raise _build.KernelLaunchError(f"{name}: launch error (not injected)")
+
+    solo = []
+    real_solo = TenantService._solve_solo
+    monkeypatch.setattr(TenantService, "_solve_solo",
+                        lambda self, t, s: solo.append(t.tenant_id) or real_solo(self, t, s))
+    requests = _tenant_snaps(300, 40)
+    svc = _tenant_service("cuda", window=2.0)
+    monkeypatch.setattr(_build, "launched", launched)
+    got = _at_once(svc, requests)
+    monkeypatch.setattr(_build, "launched", real)
+    assert sorted(got) == sorted(requests)
+    assert all(isinstance(r, _build.KernelLaunchError) for r in got.values()), got
+    assert solo == []
+    assert svc.batcher.counts() == {"batched": 0, "declined": 0}
+
+
+def test_concurrent_tenants_match_serial(cuda):
+    """Four tenants solving on the card from four threads at once (the
+    sidecar's worker pool) each get their serial answer, and the launch
+    counters count every launch of the four (no update lost)."""
+    from karpenter_tpu_torch import _build
+
+    requests = _tenant_snaps(1000, 100)
+    _build.reset_launches()
+    serial = _serially(_tenant_service("cuda"), requests)
+    serial_launches = dict(_build.launches)
+    for _ in range(3):
+        _build.reset_launches()
+        assert _at_once(_tenant_service("cuda"), requests) == serial
+        assert dict(_build.launches) == serial_launches
+    assert serial_launches["pack"] >= 4
