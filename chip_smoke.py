@@ -170,6 +170,16 @@ no result:
    until no pod is pending (at most 5 steps), on the card, on the CPU and
    through phase 12's sidecar: the same NodeClaims by content.
 
+14. the digital twin (sim/twin.py): the JAX package's tier-1 wall, 2,000
+   fabricated nodes and 20,000 pods replayed for 20 simulated minutes of
+   churn (a spot-reclaim wave, an ICE wave, the store/provider fault plan)
+   through the whole operator roster on the card, every minute's SLO wall
+   asserted; the first 6 minutes equal to the device="cpu" replay in a
+   child process (canonical audit, fault log, minute reports); a
+   checkpoint at minute 6 resumed on the card equal to the uninterrupted
+   replay; no device memory held across a closed twin; the launches by
+   kernel, and bench.py run_twin's numbers (phase_twin's docstring).
+
 Phase 2 holds B1 and B2 also at the other shapes of their paths:
 B1 at diverse-ref (G=2048) and constrained 50k x 800 (G=256, the only
 cell with live pairs), B2 at the consolidation chunk (S=16, N=2048);
@@ -286,6 +296,20 @@ SIDECAR_SMALL_PODS = 200  # the error legs' solves
 # phase 13, the operator: mixed 2,000 pending over one NodePool and 400
 # types, stepped until no pod is pending or 5 steps have run
 OPERATOR_PODS, OPERATOR_STEPS = 2_000, 5
+# phase 14, the digital twin: the JAX package's tier-1 wall
+# (tests/e2e/test_twin.py:404-436): 2,000 fabricated nodes x 10 pods over
+# corpus.generate(24), trace seed 7 (20 minutes of churn, a reclaim wave
+# of 4 at minute 2, 6 ICE cells at minute 4), twin seed 7, 2 roster passes
+# a minute, a p99 decision-latency wall of 10 s. (a) replays TWIN_MINUTES
+# on the card (bench.py's run_twin: 10); (b) the device="cpu" replay in a
+# child to TWIN_CPU_MINUTES (past both waves); (c) a checkpoint at
+# TWIN_CHECKPOINT (past the ICE wave), resumed on the card to
+# TWIN_RESUMED_TO
+TWIN_NODES, TWIN_PODS_PER_NODE, TWIN_TYPES, TWIN_SEED = 2_000, 10, 24, 7
+TWIN_TRACE_MINUTES, TWIN_P99_MS = 20, 10_000.0
+TWIN_MINUTES, TWIN_CPU_MINUTES = 20, 6
+TWIN_CHECKPOINT, TWIN_RESUMED_TO = 6, 20
+TWIN_CPU_WAIT_S = 600
 REPLACES = {
     "fresh_feasibility": "karpenter_tpu/ops/feasibility.py:141",
     "fresh_feasibility_diverse": "karpenter_tpu/ops/feasibility.py:141",
@@ -396,6 +420,13 @@ PATH_KERNELS = {
     # the operator's reconcile loop, in process and through the sidecar
     "operator": ("fresh_feasibility", "pack", "wire_pack"),
     "operator_remote": ("fresh_feasibility", "pack", "wire_pack"),
+    # the digital twin's replay and its resumed run: provisioning over the
+    # fleet's nodes (B1, B2, B4, B6), the residency store's row deltas
+    # (B8), the consolidation probes' scenario batches (B7: B2[S], the
+    # pack.cu grid, B6[S]; counted apart as scenario launches)
+    "twin": ("fresh_feasibility", "existing_feasibility", "pack", "wire_pack", "apply_rows"),
+    "twin_resumed": ("fresh_feasibility", "existing_feasibility", "pack", "wire_pack",
+                     "apply_rows"),
 }
 TABLE_KERNELS = ("fresh_feasibility", "existing_feasibility", "dense_feasibility")
 # ... and those it must not launch: the classed route replaces B4, the
@@ -3649,6 +3680,291 @@ def phase_operator(sidecar, device="cuda"):
     return out
 
 
+def twin_chaos_plan(clock):
+    """The twin's fault plan (tests/e2e/test_twin.py:53-78), from the
+    port's faults: store conflicts on NodeClaims and Nodes, provider ICE
+    and registration stalls for the first 150 simulated seconds; no
+    solver-crash rule (the wall holds fallback_solves at 0)."""
+    from karpenter_tpu_torch import faults
+    from karpenter_tpu_torch.cloudprovider.types import InsufficientCapacityError
+    from karpenter_tpu_torch.kube.store import ConflictError
+
+    def operator_kinds(ctx):
+        return ctx.get("kind") in ("NodeClaim", "Node")
+
+    until = clock.now() + 150.0
+    return [
+        faults.FaultRule(faults.STORE_CREATE, probability=0.1, until=until,
+                         error=lambda: ConflictError("injected conflict"),
+                         match=operator_kinds),
+        faults.FaultRule(faults.STORE_UPDATE, probability=0.05, until=until,
+                         error=lambda: ConflictError("injected conflict"),
+                         match=operator_kinds),
+        faults.FaultRule(faults.PROVIDER_CREATE, probability=0.15, until=until,
+                         error=lambda: InsufficientCapacityError("injected ICE")),
+        faults.FaultRule(faults.PROVIDER_REGISTER, probability=0.2, until=until),
+    ]
+
+
+def twin_inputs(device, p99_ms=TWIN_P99_MS):
+    """Phase 14's trace, fleet profile and TwinConfig on ``device``."""
+    from karpenter_tpu_torch.sim import slo, trace, twin
+    from karpenter_tpu_torch.solver.driver import SolverConfig
+
+    events = trace.generate(TWIN_SEED, trace.ChurnProfile(
+        minutes=TWIN_TRACE_MINUTES, pods_per_minute=8, reclaim_minutes=(2,), reclaim_count=4,
+        ice_minutes=(4,), ice_cells=6))
+    profile = twin.ClusterProfile(nodes=TWIN_NODES, pods_per_node=TWIN_PODS_PER_NODE,
+                                  n_types=TWIN_TYPES)
+    config = twin.TwinConfig(seed=TWIN_SEED, minutes=TWIN_MINUTES, steps_per_minute=2,
+                             slo=slo.SLOConfig(p99_decision_latency_ms=p99_ms),
+                             solver_config=SolverConfig(device=device))
+    return events, profile, config
+
+
+def twin_artifacts(tw, minutes):
+    """The replay's determinism artifacts over its first ``minutes``: the
+    canonical audit of the records before the minute's end (bytes), and
+    the minute reports less their wall-clock fields."""
+    from karpenter_tpu_torch.sim.twin import canonical_audit
+
+    end = tw._t0 + 60.0 * minutes
+    reports = []
+    for r in tw.reports[:minutes]:
+        d = r.as_dict()
+        del d["p99_latency_ms"], d["max_latency_ms"]
+        reports.append(d)
+    return canonical_audit([r for r in tw.audit.query() if r.timestamp < end]), reports
+
+
+def twin_cpu_worker(conn):
+    """A child process's work: the device="cpu" replay of phase 14 to
+    TWIN_CPU_MINUTES (no wall-clock bound: it holds decisions), its
+    canonical audit, fault log and reports sent on ``conn``."""
+    import math
+
+    from karpenter_tpu_torch.sim.twin import ClusterTwin
+
+    events, profile, config = twin_inputs("cpu", p99_ms=math.inf)
+    with ClusterTwin(events, profile=profile, config=config,
+                     fault_rules=twin_chaos_plan) as tw:
+        for _ in range(TWIN_CPU_MINUTES):
+            tw.run_minute()
+        audit, reports = twin_artifacts(tw, TWIN_CPU_MINUTES)
+        conn.send((audit, tuple(tw.fault_log()), reports))
+    conn.close()
+
+
+def no_cuda_tensor(obj):
+    """``obj`` pickled; raises if it holds a CUDA tensor."""
+    import io
+    import pickle
+
+    import torch
+
+    found = []
+
+    class Pickler(pickle.Pickler):
+        def reducer_override(self, o):
+            if isinstance(o, torch.Tensor) and o.is_cuda:
+                found.append(tuple(o.shape))
+            return NotImplemented
+
+    buf = io.BytesIO()
+    Pickler(buf).dump(obj)
+    if found:
+        raise SmokeFailure(f"twin checkpoint: holds {len(found)} CUDA tensors {found[:4]}")
+    return buf.getvalue()
+
+
+def watch_controllers(tw, crashes):
+    """Record in ``crashes`` every exception a roster pass of ``tw``'s
+    operator raises but the fault plan's (a store conflict, the provider's
+    ICE): Operator._guarded requeues a crashed controller and goes on, so
+    a fault of the card there (TorchSolver._card_fault) would pass
+    unseen."""
+    from karpenter_tpu_torch.cloudprovider.types import InsufficientCapacityError
+    from karpenter_tpu_torch.kube.store import ConflictError
+
+    guarded = tw.operator._guarded
+
+    def watched(name, fn, *args, **kwargs):
+        def run(*a, **k):
+            try:
+                return fn(*a, **k)
+            except (ConflictError, InsufficientCapacityError):
+                raise
+            except Exception as exc:
+                crashes.append(f"{name}: {type(exc).__name__}: {exc}")
+                raise
+        return guarded(name, run, *args, **kwargs)
+
+    tw.operator._guarded = watched
+
+
+def cuda_allocated():
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def phase_twin():
+    """Phase 14: the digital twin (sim/twin.py) on the card, the JAX
+    package's tier-1 wall (TWIN_* above). (a) the replay on the card,
+    TWIN_MINUTES simulated minutes of the whole operator roster over kwok
+    under the trace and the fault plan, counted: every minute's SLO wall
+    asserted (ClusterTwin raises at a failing minute), fallback_solves,
+    overcommitted and guard_bad 0 in every minute, every audit record on
+    the "kernel" or "batched" rung, no controller crash but the fault
+    plan's, the reclaim and ICE waves and the plan bitten; (b) the same
+    replay on device="cpu" in a child process beside (a), to
+    TWIN_CPU_MINUTES: the card's canonical audit over those minutes, its
+    fault log and its minute reports (less their wall-clock fields) equal
+    to the child's; (c) (a)'s checkpoint at TWIN_CHECKPOINT pickled (no
+    CUDA tensor in it), the twin closed, ClusterTwin.resume on the card
+    with the same inputs run to TWIN_RESUMED_TO, counted: its canonical
+    audit and fault log equal to (a)'s over the same minutes;
+    torch.cuda.memory_allocated() before (a) and after each twin closes,
+    which must not grow. Reports bench.py run_twin's fields."""
+    import multiprocessing
+    import pickle
+
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.sim.twin import ClusterTwin
+
+    events, profile, config = twin_inputs("cuda")
+    out = {"launches": {}, "scenario_launches": {}}
+    mem = [cuda_allocated()]
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=twin_cpu_worker, args=(send,), daemon=True)
+    proc.start()
+    send.close()
+    try:
+        t0 = time.perf_counter()
+        tw = ClusterTwin(events, profile=profile, config=config, fault_rules=twin_chaos_plan)
+        out["bootstrap_s"] = time.perf_counter() - t0
+        crashes = []
+        watch_controllers(tw, crashes)
+        logs, ckpt = {}, None
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with tw:
+            for m in range(1, TWIN_MINUTES + 1):
+                tw.run_minute()  # raises SLOViolationError at a failing minute
+                if m in (TWIN_CPU_MINUTES, TWIN_RESUMED_TO):
+                    logs[m] = tuple(tw.fault_log())
+                if m == TWIN_CHECKPOINT:
+                    ckpt = no_cuda_tensor(tw.checkpoint())
+            out["replay_s"] = time.perf_counter() - t0
+            out["launches"]["twin"] = dict(_build.launches)
+            out["scenario_launches"]["twin"] = dict(_build.scenario_launches)
+            reports, records = tw.reports, tw.audit.query()
+            bad = [(r.minute, r.fallback_solves, r.overcommitted, r.guard_bad)
+                   for r in reports if r.fallback_solves or r.overcommitted or r.guard_bad]
+            rungs = sorted({r.rung for r in records})
+            if (len(reports) != TWIN_MINUTES or bad or crashes
+                    or not set(rungs) <= {"kernel", "batched"} or tw.reclaimed < 1
+                    or tw.iced_cells < 1 or tw.injector.fired() < 1):
+                raise SmokeFailure(
+                    f"twin: {len(reports)} minutes, (minute, fallbacks, overcommitted, guard) "
+                    f"{bad}, crashes {crashes[:3]}, rungs {rungs}, reclaimed {tw.reclaimed}, "
+                    f"iced {tw.iced_cells}, faults fired {tw.injector.fired()}")
+            worst = tw.worst_minute()
+            out.update(
+                minutes=TWIN_MINUTES, decisions=len(records),
+                roster_s_per_minute=tw.roster_wall_s() / TWIN_MINUTES,
+                solves_per_s=tw.solves_per_sec(), worst_p99_ms=worst.p99_latency_ms,
+                worst_minute=worst.minute, reclaimed=tw.reclaimed, iced=tw.iced_cells,
+                faults_fired=tw.injector.fired(), rungs=rungs,
+                kinds={k: sum(r.kind == k for r in records)
+                       for k in sorted({r.kind for r in records})},
+                worst_cost_ratio=max(r.fleet_price / r.cost_lower_bound
+                                     for r in reports if r.cost_lower_bound > 0),
+                p99_ms=[r.p99_latency_ms for r in reports])
+            resumed_want = twin_artifacts(tw, TWIN_RESUMED_TO)[0], logs[TWIN_RESUMED_TO]
+            card_cpu = twin_artifacts(tw, TWIN_CPU_MINUTES) + (logs[TWIN_CPU_MINUTES],)
+        mem.append(cuda_allocated())
+
+        # (b) the device="cpu" replay, the child's
+        if not recv.poll(TWIN_CPU_WAIT_S):
+            raise SmokeFailure(f"twin: no device='cpu' replay in {TWIN_CPU_WAIT_S} s")
+        try:
+            cpu_audit, cpu_log, cpu_reports = recv.recv()
+        except EOFError:
+            raise SmokeFailure(f"twin: the device='cpu' replay failed (exit code "
+                               f"{proc.exitcode})") from None
+        same = dict(audit=card_cpu[0] == cpu_audit, fault_log=card_cpu[2] == cpu_log,
+                    reports=card_cpu[1] == cpu_reports)
+        if not all(same.values()):
+            raise SmokeFailure(f"twin: the card's first {TWIN_CPU_MINUTES} minutes differ "
+                               f"from the device='cpu' replay's: equal {same}")
+        out["cpu_records"] = cpu_audit.count(b"\n")
+
+        # (c) resume the checkpoint on the card
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        resumed = ClusterTwin.resume(pickle.loads(ckpt), events, profile=profile,
+                                     config=config, fault_rules=twin_chaos_plan)
+        crashes = []
+        watch_controllers(resumed, crashes)
+        with resumed:
+            while resumed._minute < TWIN_RESUMED_TO:
+                resumed.run_minute()
+            out["resumed_s"] = time.perf_counter() - t0
+            out["launches"]["twin_resumed"] = dict(_build.launches)
+            out["scenario_launches"]["twin_resumed"] = dict(_build.scenario_launches)
+            same = dict(audit=twin_artifacts(resumed, TWIN_RESUMED_TO)[0] == resumed_want[0],
+                        fault_log=tuple(resumed.fault_log()) == resumed_want[1])
+        mem.append(cuda_allocated())
+        if not all(same.values()) or crashes:
+            raise SmokeFailure(f"twin resume at minute {TWIN_CHECKPOINT}: equal to the "
+                               f"uninterrupted run {same}, crashes {crashes[:3]}")
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+        proc.join(30)
+    out.update(checkpoint_bytes=len(ckpt), memory_allocated=mem)
+    for path in ("twin", "twin_resumed"):
+        missing = [k for k in PATH_KERNELS[path] if out["launches"][path][k] < 1]
+        if missing or out["scenario_launches"][path]["pack"] < 1:
+            raise SmokeFailure(f"{path}: never launched {missing}, scenario launches "
+                               f"{out['scenario_launches'][path]}")
+    if mem[1] > mem[0] or mem[2] > mem[0]:
+        raise SmokeFailure(f"twin: memory_allocated grew across a closed twin: {mem} B")
+    return out
+
+
+def twin_line(twin, secs, smi):
+    """Phase 14's log line."""
+    return (f"phase 14 digital twin ({secs:.0f} s; {smi}): {TWIN_NODES} nodes x "
+        f"{TWIN_PODS_PER_NODE} pods over corpus.generate({TWIN_TYPES}), trace seed {TWIN_SEED}, "
+        f"the chaos plan; bootstrap {twin['bootstrap_s']:.1f} s; (a) {twin['minutes']} simulated "
+        f"minutes on the card in {twin['replay_s']:.1f} s, every minute's SLO wall passed "
+        f"(p99 <= {TWIN_P99_MS:.0f} ms), fallback_solves, overcommitted and guard_bad 0, rungs "
+        f"{twin['rungs']}, no controller crash but the plan's; reclaimed {twin['reclaimed']}, "
+        f"iced {twin['iced']}, faults fired {twin['faults_fired']}; records "
+        + " ".join(f"{k}={v}" for k, v in twin["kinds"].items())
+        + f"; run_twin: roster wall {twin['roster_s_per_minute'] * 1e3:.1f} ms per simulated "
+        f"minute, {twin['solves_per_s']:.2f} solves/s, {twin['decisions']} decisions, worst "
+        f"minute {twin['worst_minute']} p99 {twin['worst_p99_ms']:.1f} ms, worst fleet price / "
+        f"lower bound {twin['worst_cost_ratio']:.3f}, reclaimed {twin['reclaimed']}, iced "
+        f"{twin['iced']}; p99 by minute " + "/".join(f"{t:.0f}" for t in twin["p99_ms"])
+        + f" ms; (b) == the device=\"cpu\" replay over minutes 0-{TWIN_CPU_MINUTES - 1} "
+        f"({twin['cpu_records']} records): canonical audit, fault log, reports; (c) checkpoint "
+        f"at minute {TWIN_CHECKPOINT} ({twin['checkpoint_bytes']} B pickled, no CUDA tensor), "
+        f"resumed on the card to minute {TWIN_RESUMED_TO} in {twin['resumed_s']:.1f} s == the "
+        f"uninterrupted run; memory_allocated before (a) / after (a) closed / after the resumed "
+        f"closed " + " / ".join(str(b) for b in twin["memory_allocated"])
+        + " B; launches " + "; ".join(
+            f"{p}: " + " ".join(f"{k}={v}" for k, v in c.items() if v)
+            + " (scenario " + " ".join(
+                f"{k}={v}" for k, v in twin["scenario_launches"][p].items() if v) + ")"
+            for p, c in twin["launches"].items()))
+
+
 def cluster_text(cluster):
     """A scan launch's cluster as csrc/pack_common.cuh:pick_cluster reports
     it: (blocks, such clusters the card holds at once, clusters of the
@@ -3918,8 +4234,11 @@ def main():
             f"{p}: " + " ".join(f"{k}={v}" for k, v in c.items() if v)
             for p, c in oper["launches"].items()))
 
+    twin, secs = timed_phase(phase_twin)
+    log(twin_line(twin, secs, smi))
+
     # every path's own counts: the solves, the searches, the five loops,
-    # the ladder, the sidecar, the operator
+    # the ladder, the sidecar, the operator, the twin
     paths = dict(e2e["launches"])
     paths.update({label: c["launches"] for label, c in cons.items()})
     paths.update(con["launches"])
@@ -3932,9 +4251,11 @@ def main():
     paths.update(lad["launches"])
     paths.update(side["launches"])
     paths.update(oper["launches"])
+    paths.update(twin["launches"])
     scen_paths = {label: c["scenario_launches"] for label, c in cons.items()}
     scen_paths["ladder_scenarios"] = lad["scenario_launches"]
     scen_paths["sidecar_batch"] = side["scenario_launches"]["sidecar_batch"]
+    scen_paths.update(twin["scenario_launches"])
     kernels = []
     for name, row in rows.items():
         bms, by = row["bound"]

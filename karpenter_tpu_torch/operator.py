@@ -1,4 +1,4 @@
-# Copied from karpenter_tpu/operator.py, the port's solver backends, and the profiler hook records torch.profiler.
+# Copied from karpenter_tpu/operator.py, the port's solver backends, the profiler hook records torch.profiler, and shutdown releases the device-resident solve state.
 """Operator: wires the controller roster over one store + provider.
 
 Plays the role of pkg/operator + pkg/controllers/controllers.go:62-113: one
@@ -322,6 +322,12 @@ class Operator:
         release the process-global tracer installation."""
         from .metrics import REGISTRY
 
+        # the card's memory goes with the operator's run, not with its last
+        # reference: the residency stores of both encode caches and the
+        # scenario simulators' cached solvers
+        for cache in (self.provisioner._encode_cache, self.disruption.ctx.encode_cache):
+            cache.release_device()
+        self.disruption.ctx.scenario_envs.clear()
         if self.profiler is not None:
             self.profiler.stop()
             self.profiler.export_chrome_trace(

@@ -241,6 +241,26 @@ def bulk_takes(rem_d, k, n_per, slots, slot, is_any, has_domains: bool):
     return torch.where(in_bulk, takes, torch.zeros_like(takes)), in_bulk
 
 
+def offer_columns(a_any):
+    """The zone and capacity-type value columns (oz, oc) that carry an
+    offering in ``a_any`` [T, V1, V1]: outside them every offering table
+    of the scan is zero."""
+    return a_any.any(2).any(0).nonzero()[:, 0], a_any.any(1).any(0).nonzero()[:, 0]
+
+
+def offering_any(zm, a_f, cm, cols):
+    """``einsum("nz,tzc,nc->nt", zm, a_f, cm) > 0``, an entity's offering
+    test under its zone and capacity-type masks, contracted over the
+    columns ``cols`` (offer_columns) alone, a few of V1's. The dropped
+    terms are exact zeros, and the sums of 0/1 products stay integers
+    below 2**24, exact in float32 in any order, so ``> 0`` is the same
+    exact OR of ANDs as over all of V1."""
+    f32 = torch.float32
+    oz, oc = cols
+    return torch.einsum("nz,tzc,nc->nt", zm[:, oz].to(f32), a_f[:, oz][:, :, oc],
+                        cm[:, oc].to(f32)) > 0
+
+
 def _domain_avail(dkey, cz, cc, pzm, pcm, a_f, held=None):
     """Per-domain offering availability on the constrained axis
     (packing.py:_domain_avail): toff_nt [NMAX, T, V1] for the claims and
@@ -449,6 +469,7 @@ def pack_reference(
     MV = p_mvmin.shape[1]
     NRES = res_cap0.shape[0]
     a_tzc_f = a_tzc.to(f32)
+    cols = offer_columns(a_tzc | a_res.any(0) if NRES else a_tzc)
     if NRES:
         # reserved offerings are available while their reservation has
         # capacity left; claims holding reservations keep seeing them
@@ -558,9 +579,9 @@ def pack_reference(
         merged_mask = c_mask & gmask[None]
         tm = c_tmask & type_ok_row[cp]
         add_fit = fits_count(t_alloc[None], c_used[:, None, :], req[None, None, :])
-        off = torch.einsum("nz,tzc,nc->nt", cz.to(f32), a_step_f, cc.to(f32)) > 0
+        off = offering_any(cz, a_step_f, cc, cols)
         if NRES:
-            off_held = torch.einsum("nz,tzc,nc->nt", cz.to(f32), a_held_f, cc.to(f32)) > 0
+            off_held = offering_any(cz, a_held_f, cc, cols)
             off = torch.where(c_resv[:, None], off_held, off)
         tm = tm & off & (add_fit >= 1)
         cap_any = torch.where(
@@ -1043,6 +1064,7 @@ def pack_classed_reference(
     if res_cap0.shape[0]:
         raise ValueError("the class-batched scan takes no reservation ledger (NRES > 0)")
     a_tzc_f = a_tzc.to(f32)
+    cols = offer_columns(a_tzc)
 
     exist_used = n_base.clone()
     c_used = torch.zeros((nmax, R), dtype=f32, device=dev)
@@ -1097,7 +1119,7 @@ def pack_classed_reference(
         cc0 = c_mask[:, ct_kid] & gc[None, :]
         pzm = p_mask[:, zone_kid, :] & gz[None, :]  # [P, V1]
         pcm = p_mask[:, ct_kid, :] & gc[None, :]
-        off0 = torch.einsum("nz,tzc,nc->nt", cz0.to(f32), a_tzc_f, cc0.to(f32)) > 0
+        off0 = offering_any(cz0, a_tzc_f, cc0, cols)
         # the row every claim opened in this class carries (its mask is gmask)
         off_grp = torch.einsum("z,tzc,c->t", gz.to(f32), a_tzc_f, gc.to(f32)) > 0
         if has_domains:

@@ -159,6 +159,13 @@ class EncodeCache:
         # (the gRPC sidecar) serialize the host-side encode on this lock
         self.lock = threading.RLock()
 
+    def release_device(self) -> None:
+        """Drop the device-resident stores: the card's buffers go with the
+        last reference to them, and a later solve restages in full."""
+        with self.lock:
+            self.device_store = None
+            self.scenario_device_store = None
+
     @staticmethod
     def _type_static_fp(it) -> tuple:
         """The immutable per-type fingerprint part (name, capacity,

@@ -61,7 +61,9 @@ sidecar section runs the cross-tenant batch lane on the card (four
 tenants in one scenario dispatch, equal to their solo card solves and
 the CPU union; a launch error of the union, not injected, reaching all
 four) and four tenants solving from four threads at once, equal to their
-serial answers with the launch counters equal to the serial run's.
+serial answers with the launch counters equal to the serial run's. The
+twin section replays the digital twin's small chaos replay on the card:
+its canonical audit and fault log equal to the device="cpu" replay's.
 
 Marked ``cuda``: they skip where there is no card. On the card, from the
 repo root: ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
@@ -2242,3 +2244,46 @@ def test_concurrent_tenants_match_serial(cuda):
         assert _at_once(_tenant_service("cuda"), requests) == serial
         assert dict(_build.launches) == serial_launches
     assert serial_launches["pack"] >= 4
+
+
+# -- the digital twin ----------------------------------------------------------
+
+
+def test_twin_small_replay_matches_cpu(cuda):
+    """The small chaos replay (tests/e2e/test_twin.py's shapes, run to
+    minute 8 so that consolidation searches fire) on the card: the same
+    canonical audit and fault log as the device="cpu" replay, every
+    record on a kernel rung, the card's kernels launched (B7's grid
+    among them), and no device memory held once the twin is closed."""
+    import gc
+
+    from karpenter_tpu_torch import _build
+
+    import twin_cases as tc
+
+    def replay(device):
+        twin = tc.mod("karpenter_tpu_torch", "sim.twin").ClusterTwin(
+            tc.small_trace("karpenter_tpu_torch"),
+            profile=tc.small_profile("karpenter_tpu_torch"),
+            config=tc.small_config("karpenter_tpu_torch", device=device, minutes=8),
+            fault_rules=tc.chaos_plan("karpenter_tpu_torch"))
+        with twin:
+            twin.run()
+            out = (twin.canonical_audit(), tuple(twin.fault_log()),
+                   {r.rung for r in twin.audit.query()})
+        tc.release_seams("karpenter_tpu_torch")
+        return out
+
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    card = replay("cuda")
+    torch.cuda.synchronize()
+    counts, scen = dict(_build.launches), dict(_build.scenario_launches)
+    gc.collect()
+    assert torch.cuda.memory_allocated() <= before
+    assert card[:2] == replay("cpu")[:2]
+    assert card[1] and card[2] <= {"kernel", "batched"}
+    for kernel in ("fresh_feasibility", "existing_feasibility", "pack", "wire_pack"):
+        assert counts[kernel] > 0, counts
+    assert scen["pack"] > 0, scen
