@@ -180,6 +180,16 @@ no result:
    replay; no device memory held across a closed twin; the launches by
    kernel, and bench.py run_twin's numbers (phase_twin's docstring).
 
+15. the sync audit: one warm mixed 50,000 x 400 TorchSolver.solve and one
+   warm consolidation scenario batch (16 single-node scenarios over the
+   2,000-node cluster, B7) under torch.cuda.set_sync_debug_mode("warn");
+   every sync the card reports, attributed to its innermost frame in
+   karpenter_tpu_torch/, must lie at a site the host-sync rule
+   (karpenter_tpu_torch/analysis/device.py) sanctions: a DTX906
+   sanction, or one of its IMPLICIT_SYNCS. The syncs per solve and per
+   batch, by site, and the phase's wall time (phase_sync_audit's
+   docstring).
+
 Phase 2 holds B1 and B2 also at the other shapes of their paths:
 B1 at diverse-ref (G=2048) and constrained 50k x 800 (G=256, the only
 cell with live pairs), B2 at the consolidation chunk (S=16, N=2048);
@@ -3965,6 +3975,157 @@ def twin_line(twin, secs, smi):
             for p, c in twin["launches"].items()))
 
 
+def port_frame():
+    """The innermost frame of the running stack in karpenter_tpu_torch/
+    as (path from the repo root, line, qualified function name), or
+    None when no frame of the port is on it."""
+    port = os.path.join(os.path.dirname(os.path.abspath(__file__)), "karpenter_tpu_torch")
+    frame = sys._getframe(1)
+    while frame is not None:
+        path = os.path.abspath(frame.f_code.co_filename)
+        if path.startswith(port + os.sep):
+            rel = os.path.relpath(path, os.path.dirname(port))
+            return rel, frame.f_lineno, frame.f_code.co_qualname
+        frame = frame.f_back
+    return None
+
+
+def card_syncs(fn):
+    """``fn()``'s result and every host sync the card reports while it
+    runs, under torch.cuda.set_sync_debug_mode("warn"): one (path, line,
+    function) per sync, at the innermost frame in karpenter_tpu_torch/
+    (("<outside the port>", 0, file:line) where none is on the stack).
+    Other warnings pass on as they would."""
+    import warnings
+
+    import torch
+
+    syncs = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return shown(message, category, filename, lineno, file, line)
+        syncs.append(port_frame() or ("<outside the port>", 0, f"{filename}:{lineno}"))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, syncs
+
+
+def sanctioned_syncs():
+    """The host-sync rule's sanctioned sites (karpenter_tpu_torch/analysis/
+    device.py): each ``sanctioned[DTX906]`` site the pass finds over its
+    targets, as (path, first line, last line) of the statement it marks,
+    and the implicit syncs the rule lists, as (path, function)."""
+    import ast
+
+    from karpenter_tpu_torch.analysis import cli, device
+    from karpenter_tpu_torch.analysis.findings import partition_findings
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    findings, sources = device.check_paths(
+        [os.path.join(root, t) for t in cli.PASS_TARGETS["device"]])
+    _, _, sanctioned = partition_findings(findings, sources)
+    spans = []
+    for f in sanctioned:
+        if f.rule != "DTX906":
+            continue
+        stmts = [n for n in ast.walk(ast.parse(sources[f.path].text))
+                 if isinstance(n, ast.stmt) and not isinstance(
+                     n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+                 and n.lineno <= f.line <= n.end_lineno]
+        stmt = min(stmts, key=lambda n: n.end_lineno - n.lineno)
+        spans.append((os.path.relpath(f.path, root), stmt.lineno, stmt.end_lineno))
+    return spans, {(path, fn) for path, fn, _ in device.IMPLICIT_SYNCS}
+
+
+def unsanctioned(syncs, spans, implicit):
+    """The syncs of ``syncs`` at no sanctioned site."""
+    def ok(path, line, fn):
+        return (path, fn) in implicit or any(
+            path == p and lo <= line <= hi for p, lo, hi in spans)
+    return [s for s in syncs if not ok(*s)]
+
+
+def phase_sync_audit(torch_solver_cls, config_cls, encode_cache_cls):
+    """Phase 15: the syncs the card reports against the host-sync rule's
+    sanctioned sites. One warm mixed N_PODS x N_TYPES TorchSolver.solve
+    (a solve on the same EncodeCache before it) and one warm consolidation
+    scenario batch (CONS_SCENARIOS single-node scenarios over the
+    CONS_NODES cluster, B7; the same batch once before it), each under
+    torch.cuda.set_sync_debug_mode("warn"); every sync is attributed to
+    its innermost frame in karpenter_tpu_torch/ and must lie at a site the
+    rule sanctions."""
+    from karpenter_tpu_torch.controllers.disruption.helpers import ScenarioSimulator
+    from karpenter_tpu_torch.solver.workloads import build_consolidation_env, mixed_pods
+
+    spans, implicit = sanctioned_syncs()
+    cache = encode_cache_cls()
+
+    def solve():
+        solver = build_batch(torch_solver_cls, config_cls, pods, N_TYPES, device="cuda",
+                             cache=cache)
+        return solver.solve(pods)
+
+    pods = mixed_pods(N_PODS)
+    solve()
+    res, solve_syncs = card_syncs(solve)
+    if res.pod_errors or not res.new_node_claims:
+        raise SmokeFailure(f"phase 15: the audited solve has {len(res.pod_errors)} errors")
+
+    ctx, _, candidates, _ = build_consolidation_env(CONS_NODES, "cuda")
+    sim = ScenarioSimulator(
+        ctx.client, ctx.cluster, ctx.cloud_provider, candidates,
+        encode_cache=ctx.encode_cache, solver_config=ctx.solver_config,
+    )
+    chunk = [[c] for c in candidates[:CONS_SCENARIOS]]
+
+    def batch():
+        return sim._solver.solve_scenarios(sim._scenarios_of(chunk))
+
+    batch()
+    out, batch_syncs = card_syncs(batch)
+    if out is None or len(out) != CONS_SCENARIOS:
+        raise SmokeFailure("phase 15: the audited scenario batch declined")
+    drain = [s for s in solve_syncs if s[2].endswith("_drain_host")]
+    if not drain:
+        raise SmokeFailure("phase 15: the card reported no sync at the solve's drain, so the "
+                           f"audit saw nothing ({solve_syncs})")
+    bad = unsanctioned(solve_syncs + batch_syncs, spans, implicit)
+    if bad:
+        raise SmokeFailure(f"phase 15: syncs at sites the host-sync rule does not sanction: "
+                           f"{sorted(set(bad))}")
+
+    def by_site(syncs):
+        counts = {}
+        for path, line, fn in syncs:
+            key = f"{path}:{line} {fn}"
+            counts[key] = counts.get(key, 0) + 1
+        return counts
+
+    return dict(solve_syncs=len(solve_syncs), batch_syncs=len(batch_syncs),
+                solve_sites=by_site(solve_syncs), batch_sites=by_site(batch_syncs),
+                statements=len(spans), implicit=len(implicit))
+
+
+def sync_line(audit, secs, smi):
+    return (f"phase 15 sync audit ({secs:.0f} s; {smi}): warm mixed {N_PODS} x {N_TYPES} solve "
+            f"{audit['solve_syncs']} syncs (" + ", ".join(
+                f"{k} x{v}" for k, v in sorted(audit["solve_sites"].items()))
+            + f"); scenario batch S={CONS_SCENARIOS} over {CONS_NODES} nodes "
+            f"{audit['batch_syncs']} syncs (" + ", ".join(
+                f"{k} x{v}" for k, v in sorted(audit["batch_sites"].items()))
+            + f"); every one at a site the host-sync rule sanctions ({audit['statements']} "
+            f"DTX906 statements, {audit['implicit']} implicit site(s))")
+
+
 def cluster_text(cluster):
     """A scan launch's cluster as csrc/pack_common.cuh:pick_cluster reports
     it: (blocks, such clusters the card holds at once, clusters of the
@@ -4237,6 +4398,9 @@ def main():
     twin, secs = timed_phase(phase_twin)
     log(twin_line(twin, secs, smi))
 
+    audit, secs = timed_phase(lambda: phase_sync_audit(TorchSolver, SolverConfig, EncodeCache))
+    log(sync_line(audit, secs, smi))
+
     # every path's own counts: the solves, the searches, the five loops,
     # the ladder, the sidecar, the operator, the twin
     paths = dict(e2e["launches"])
@@ -4319,5 +4483,18 @@ def main():
     return 0
 
 
+def stop_resource_tracker():
+    """Stop and reap multiprocessing's resource tracker, which the spawned
+    children of phases 10 and 14 start: left to exit after this process,
+    it outlives it as a zombie that nothing reaps on the card's machine."""
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_resource_tracker()
+    sys.exit(rc)

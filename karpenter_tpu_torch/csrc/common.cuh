@@ -14,7 +14,9 @@
 
 namespace kt {
 
+// parity: const kBigFit = 2**30
 constexpr int32_t kBigFit = 1 << 30;  // fits_count's "unbounded"
+// parity: const kBigDom = 2**28
 constexpr int32_t kBigDom = 1 << 28;  // _BIGI: "unbounded" slot capacity
 constexpr unsigned kFull = 0xffffffffu;
 // an entry point's return when its shapes are empty and nothing launched
@@ -28,6 +30,7 @@ constexpr int kClusterUnplaced = -2;
 // floor(headroom / max(req, 1e-9)) per positive request, min over R, +inf
 // (no positive request) -> 2**30, 0 when a zero-request dimension is
 // already over; float -> int32 truncates and saturates like XLA's convert.
+// parity: const 1e-9
 __device__ __forceinline__ int32_t fits_count(const float* alloc, const float* base,
                                               const float* req, int R) {
   bool ok_zero = true;

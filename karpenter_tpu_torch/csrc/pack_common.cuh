@@ -405,6 +405,9 @@ __global__ void tile_words(Dims d, In in, Rows rw) {
   kt::mask_words(in.n_mask, static_cast<long long>(d.N) * d.K, d.V1, d.W, rw.nw, i0, step);
 }
 
+// parity: dtype float32
+// parity: dtype int32
+// parity: dtype bool
 struct State {  // PackState in device memory (plus per-step scratch)
   float* exist_used; float* c_used; int32_t* c_npods; uint8_t* c_def;
   uint8_t* c_neg; uint8_t* c_mask; int32_t* ch_cnt; int32_t* nhc;
@@ -796,7 +799,7 @@ __device__ int32_t warp_minvalues(const Dims& d, const State& st, const Smem& m,
 // ---- pack state init (PackState, packing.py:357) ----
 // parity: state exist_used, c_used, c_npods, c_active, c_pool, c_tmask
 // parity: state c_def, c_neg, c_mask, c_dzone, c_dct, ch_cnt, nhc
-// parity: state ddc, c_resv, pool_rem, n_open, overflow
+// parity: state ddc, res_rem, c_resv, pool_rem, n_open, overflow
 // Ends in a block barrier.
 __device__ void init_state(const Dims& d, const In& in, const State& st, const Out& out) {
   const int tid = threadIdx.x;

@@ -479,6 +479,9 @@ def pack_reference(
     def ledger_avail(rem):
         return (a_tzc | (a_res & (rem > 0)[:, None, None, None]).any(0)).to(f32)
 
+    # parity: state exist_used, c_used, c_npods, c_active, c_pool, c_tmask
+    # parity: state c_def, c_neg, c_mask, c_dzone, c_dct, ch_cnt, nhc
+    # parity: state ddc, pool_rem, res_rem, c_resv, n_open, overflow
     exist_used = n_base.clone()
     c_used = torch.zeros((nmax, R), dtype=f32, device=dev)
     c_npods = torch.zeros((nmax,), dtype=i32, device=dev)
@@ -513,6 +516,7 @@ def pack_reference(
             continue  # padded / empty groups place nothing, mutate nothing
         req = g_req[gi]
         gdef, gneg, gmask = g_def[gi], g_neg[gi], g_mask[gi]
+        # parity: phase tile-rows
         if tile_feasibility:
             compat_row, type_ok_row, n_fit_row, cap_row = _tile_rows_reference(
                 gi, tiles, g_def, g_neg, g_mask, g_req, p_mask, p_daemon, p_tol,
@@ -587,6 +591,7 @@ def pack_reference(
         cap_any = torch.where(
             claim_live, torch.where(tm, add_fit, 0).amax(-1), zero_c
         )
+        # parity: phase min-values
         if MV:
             # a join narrows the claim's options by still-fits: cap it so
             # every floored key keeps its distinct values
@@ -598,6 +603,7 @@ def pack_reference(
                 tm[:, :, None] & toff_nt, add_fit[:, :, None], 0
             ).amax(1)  # [NMAX, V1]
 
+        # parity: phase existing-nodes
         # ---- 1. existing nodes, fixed priority order ----
         exist_cap = torch.where(
             cap_row > 0, fits_count(n_avail, exist_used, req[None, :]), zero_n
@@ -643,6 +649,7 @@ def pack_reference(
         if counted:
             nhc[:, jhc] += exist_fill
 
+        # parity: phase open-claims
         # ---- 2. open claims, least-loaded first ----
         def clamp(cap):
             cap = torch.minimum(cap, hcap)  # open claims carry no prior
@@ -721,6 +728,7 @@ def pack_reference(
         c_def = c_def | (got[:, None] & gdef[None, :])
         c_neg = torch.where(got[:, None], c_neg & gneg[None, :], c_neg)
 
+        # parity: phase fresh-claims
         # ---- 3. new claims from the highest-weight feasible template ----
         # Each trip serves the domain slot with the largest remaining quota
         # and opens one BULK of identical claims of one template there.
@@ -861,6 +869,7 @@ def pack_reference(
             if int(placed) == 0 or haff:
                 ddead[d_sel] = True
 
+        # parity: phase spread-counters
         # shared domain carry: a SELF owner's per-domain placements feed
         # the next sharing group's counts (gate modes never count)
         if dyn and has_d and mode < DMODE_GATE_SPREAD:
@@ -1102,6 +1111,7 @@ def pack_classed_reference(
         gih = cs
         req = g_req[gih]
         gdef, gneg, gmask = g_def[gih], g_neg[gih], g_mask[gih]
+        # parity: phase tile-rows
         if tile_feasibility:
             # one row computation per class, not per group
             compat_row, type_ok_row, n_fit_row, cap_row = _tile_rows_reference(
@@ -1156,6 +1166,7 @@ def pack_classed_reference(
             percapv = torch.where(
                 tm0[:, :, None] & toff_nt0, add_fit0[:, :, None], 0
             ).amax(1)  # [NMAX, V1]
+        # parity: phase min-values
         # minValues headroom, maintained like capv: a uniform fill of k
         # lowers every per-value fit by k, so the k-th largest drops by k
         if MV:
@@ -1188,6 +1199,7 @@ def pack_classed_reference(
             jd = int(g_dtg[gi])
             has_d = jd >= 0
 
+            # parity: phase existing-nodes
             # ---- 1. existing nodes ----
             e_cap = torch.minimum(exist_cap, torch.clamp_min(hcap - n_hcnt[:, gi], 0))
             haff_exist_served = False
@@ -1227,6 +1239,7 @@ def pack_classed_reference(
                 nhc[:, jhc] += exist_fill
             exist_cap = exist_cap - exist_fill  # same-request decrement: exact
 
+            # parity: phase open-claims
             # ---- 2. open claims, from the maintained summaries ----
             def clamp(cap):
                 cap = torch.minimum(cap, hcap)
@@ -1316,6 +1329,7 @@ def pack_classed_reference(
                 mvcapv = torch.clamp_min(mvcapv - claim_fill, 0)
             cfills = cfills + claim_fill
 
+            # parity: phase fresh-claims
             # ---- 3. fresh claims ----
             ddead = torch.zeros((NSLOT,), dtype=b, device=dev)
             ddead[DEAD] = True
@@ -1423,6 +1437,7 @@ def pack_classed_reference(
                 if int(placed) == 0 or haff:
                     ddead[d_sel] = True
 
+            # parity: phase spread-counters
             # shared domain carry, then contributor counting
             if dyn and has_d and mode < DMODE_GATE_SPREAD:
                 ddc[jd] += qd[:V1] - qrem[:V1]

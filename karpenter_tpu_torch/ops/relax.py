@@ -425,8 +425,10 @@ def solve_bulk(plan: BulkPlan, snap_run, device):
         *(put(n, x, device) for n, x in zip(HEAD_ARG_NAMES, head_args(plan, snap_run))),
         zone_kid=snap_run.zone_kid, ct_kid=snap_run.ct_kid,
     )
+    # analysis: sanctioned[DTX906] relax readback 1 of 2: B3's tables for the claim sizes
     n_r, ge, cl = fill_args(plan, type_ok.cpu().numpy(), n_fit.cpu().numpy())
     claim_fills, c_tmask, c_pool, unplaced = (
+        # analysis: sanctioned[DTX906] relax readback 2 of 2: B9's outputs
         x.cpu().numpy() for x in relax_fill(
             *fill_inputs(ge, cl, device), type_ok, n_fit, n_r)
     )

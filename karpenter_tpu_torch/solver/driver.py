@@ -294,23 +294,28 @@ class EncodeCache:
             # changed catalog invalidates both (next encode is full)
             self.cluster.invalidate("catalog changed")
             self.scenario_cluster.invalidate("catalog changed")
-            for store in (self.device_store, self.scenario_device_store):
-                if store is not None:
-                    store.reset()
+            # the caller holds ``lock`` (an RLock); the stores are read
+            # under it here as everywhere
+            with self.lock:
+                for store in (self.device_store, self.scenario_device_store):
+                    if store is not None:
+                        store.reset()
         return self.vocab, self.cache
 
     def lease_device_store(self, scenario: bool = False):
         """The device-resident argument store; ``scenario`` selects the
         scenario-side store (paired with ``scenario_cluster``) so
         consolidation searches don't evict the provisioning path's buffers
-        and vice versa."""
-        if scenario:
-            if self.scenario_device_store is None:
-                self.scenario_device_store = DeviceResidentArgs(owner=self.owner)
-            return self.scenario_device_store
-        if self.device_store is None:
-            self.device_store = DeviceResidentArgs(owner=self.owner)
-        return self.device_store
+        and vice versa. Under ``lock``: two solves leasing at once get the
+        same store (release_device clears it under the lock too)."""
+        with self.lock:
+            if scenario:
+                if self.scenario_device_store is None:
+                    self.scenario_device_store = DeviceResidentArgs(owner=self.owner)
+                return self.scenario_device_store
+            if self.device_store is None:
+                self.device_store = DeviceResidentArgs(owner=self.owner)
+            return self.device_store
 
 
 # the class partition's arrays, in dispatch_classed_packed's order
@@ -546,6 +551,7 @@ class TorchSolver:
         """The single device->host readback of the solve: the kernel's
         outputs cross here (``.cpu()`` waits for the stream), immediately
         ahead of the pre-decode invariant guard."""
+        # analysis: sanctioned[DTX906] the solve's drain: one readback of the kernels' outputs
         return [x.cpu().numpy() for x in out]
 
     # -- scenario axis ----------------------------------------------------
@@ -849,10 +855,11 @@ class TorchSolver:
                 if pid in cand_pids
             }
             # the loop only ever returns None; which key trips it first is
-            # immaterial
+            # analysis: sanctioned[DET1101] any-mismatch early-return
             for key in dyn_keys:
                 catalog = topo.domain_groups.get(key)
                 universe = catalog.domains() if catalog is not None else set()
+                # analysis: sanctioned[DET1101] same any-mismatch shape
                 for ni in cand_rows:
                     en = self.oracle.existing_nodes[ni]
                     dom = enc._node_single_value(en, key)
@@ -1185,6 +1192,7 @@ class TorchSolver:
         the transfer span holds their time apart from the kernels';
         untraced runs let them overlap with host work."""
         if obs.active() is not None and self.device.type == "cuda":
+            # analysis: sanctioned[DTX906] traced runs only: the transfer span's staging wait
             torch.cuda.synchronize(self.device)
 
     def _emit_audit(self, kind, sp, dclk, t0, fault_mark, **fields) -> None:

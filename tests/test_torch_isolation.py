@@ -41,7 +41,7 @@ def test_no_jax_or_reference_imports(path):
 
 
 # the first-line comment marker of each kind of copied source
-COMMENT = {".py": "# ", ".cc": "// "}
+COMMENT = {".py": "# ", ".cc": "// ", ".yaml": "# "}
 
 
 def _copies():
@@ -55,7 +55,7 @@ def _copies():
                          ids=lambda x: x.name if isinstance(x, pathlib.Path) else "")
 def test_copies_name_their_source(path, first):
     """Each copy's first line names an existing source at the same relative
-    path (a ``#`` comment in Python, ``//`` in C++). A verbatim copy (no
+    path (a ``#`` comment in Python and YAML, ``//`` in C++). A verbatim copy (no
     qualifier) equals it byte for byte; one with "N comment line(s)
     reworded" differs from it in at most N lines."""
     src_rel = first[len("Copied from "):].rstrip(".").split(",")[0]
