@@ -43,7 +43,7 @@ no result:
    dispatch a scenario batch (the S > 1 ``pack`` launches equal the
    method's dispatches, no single-scenario ``pack`` launch), no sequential
    fallback, and the same command, probes and dispatches as the
-   device="cpu" run; p50 over 5 warm passes on fresh envs and the phase
+   device="cpu" run; p50 over 3 warm passes on fresh envs and the phase
    split of one traced pass;
 5. the constrained loop (BASELINE config[2], 50k x 800): a cold solve on
    the card, counted (a domain ``pack`` launch), with the decisions and
@@ -107,7 +107,7 @@ no result:
    classed=True (B5 with floors), then once on the auto route (B4 with
    contributors and floors); (e) MultiNodeConsolidation at 2,000 nodes
    with the env's NodePool carrying the same floor (B7 with floors), its
-   command equal to the device="cpu" run's, p50 over 5 warm passes on
+   command equal to the device="cpu" run's, p50 over 3 warm passes on
    fresh envs as phase 4. The diverse cells' comparisons
    with device="cpu" run at 1,000 pods (a card solve and a CPU solve of
    diverse_reference_mix(1,000)); their counted and timed card solves at
@@ -188,6 +188,15 @@ no result:
    (karpenter_tpu_torch/analysis/device.py) sanctions: a DTX906
    sanction, or one of its IMPLICIT_SYNCS. The syncs per solve and per
    batch, by site, and the phase's wall time (phase_sync_audit's
+   docstring);
+16. the solver mesh (A13, B10) on the one card: mesh="auto" resolving to
+   no mesh; B1's and B2's partial modes and the fold (csrc/mesh_fold.cu)
+   against their plain versions on every shard; TorchSolver over
+   make_mesh(devices=[cuda:0] * 8) at mixed 50k, constrained 50k x 800
+   (data 8, and data 2 x model 4), mixed 2,000 over 32 nodes and the
+   dense route, a consolidation batch over the scenario mesh and
+   constrained churn ticks, each equal to one device's; the launches of
+   each solve; a warm mesh solve under the sync audit (phase_mesh's
    docstring).
 
 Phase 2 holds B1 and B2 also at the other shapes of their paths:
@@ -221,7 +230,8 @@ constrained and at V1 2048, B2, B2 at the consolidation chunk, B3 fresh
 (also at the relax shape) and existing, B4 at V1 2048,
 B4, B4 over domains, B4 with contributor counting, B4 with minValues
 floors, B4 with the reservation ledger, B5, B5 with floors, B6, B7, B7
-with floors, B8, B9, and B4, B5 and B7 in the tiled mode; every row
+with floors, B8, B9, and B4, B5 and B7 in the tiled mode, and phase 16's
+B1 and B2 partial modes and the mesh fold; every row
 carries its device-only time, torch.profiler over repeated calls of the
 wrapper, beside the wrapper's CUDA-event time; B8's row also the
 library call's and the tenant tick's delta, B7's its scan on the device
@@ -314,12 +324,15 @@ OPERATOR_PODS, OPERATOR_STEPS = 2_000, 5
 # on the card (bench.py's run_twin: 10); (b) the device="cpu" replay in a
 # child to TWIN_CPU_MINUTES (past both waves); (c) a checkpoint at
 # TWIN_CHECKPOINT (past the ICE wave), resumed on the card to
-# TWIN_RESUMED_TO
+# TWIN_RESUMED_TO (past minutes 5-7, where consolidation starts)
 TWIN_NODES, TWIN_PODS_PER_NODE, TWIN_TYPES, TWIN_SEED = 2_000, 10, 24, 7
 TWIN_TRACE_MINUTES, TWIN_P99_MS = 20, 10_000.0
 TWIN_MINUTES, TWIN_CPU_MINUTES = 20, 6
-TWIN_CHECKPOINT, TWIN_RESUMED_TO = 6, 20
+TWIN_CHECKPOINT, TWIN_RESUMED_TO = 6, 12
 TWIN_CPU_WAIT_S = 600
+# phase 16, the solver mesh: 8 positions of the one card (make_mesh's
+# devices), and the constrained churn ticks it rides
+MESH_SHARDS, MESH_TICKS = 8, 3
 REPLACES = {
     "fresh_feasibility": "karpenter_tpu/ops/feasibility.py:141",
     "fresh_feasibility_diverse": "karpenter_tpu/ops/feasibility.py:141",
@@ -346,6 +359,11 @@ REPLACES = {
     "pack_tiled": "karpenter_tpu/ops/packing.py:382",
     "pack_classed_tiled": "karpenter_tpu/ops/packing.py:1347",
     "scenarios_tiled": "karpenter_tpu/ops/solve.py:357",
+    # B10's stage over the mesh: the shards' partials (GSPMD's partition of
+    # the feasibility stage) and the fold at the scan boundary
+    "fresh_partial": "karpenter_tpu/parallel/mesh.py:233",
+    "existing_partial": "karpenter_tpu/parallel/mesh.py:233",
+    "mesh_fold": "karpenter_tpu/ops/solve.py:166",
 }
 # the source of each kernel row (B4 with domains and with contributor
 # counting are pack.cu's domain and contributor paths; B3's two entries
@@ -354,7 +372,8 @@ SOURCES = {"pack_domains": "pack", "pack_contrib": "pack", "solve_scenarios": "p
            "dense_fresh": "dense_feasibility", "dense_existing": "dense_feasibility",
            "pack_minvalues": "pack", "pack_resv": "pack", "scenarios_minvalues": "pack",
            "pack_classed_minvalues": "pack_classed", "pack_tiled": "pack",
-           "pack_classed_tiled": "pack_classed", "scenarios_tiled": "pack"}
+           "pack_classed_tiled": "pack_classed", "scenarios_tiled": "pack",
+           "fresh_partial": "fresh_feasibility", "existing_partial": "existing_feasibility"}
 # B1's and B2's rows at the other shapes of their paths: (the kernel, the
 # paths whose launches run at that shape; a part of the kernel's own row)
 SHAPE_ROWS = {
@@ -373,7 +392,7 @@ SHAPE_ROWS = {
     "pack_wide": ("pack", ("team_exists", "team_in", "mv_types")),
 }
 # the one PyTorch call that computes a kernel's function, timed beside it
-LIBRARY = {"apply_rows": "Tensor.index_copy"}
+LIBRARY = {"apply_rows": "Tensor.index_copy", "mesh_fold": "torch.stack(partials).sum(0)"}
 # B7 is the scenario-batched dispatch of these kernels; pack.cu holds its
 # scenario grid
 B7_SOURCES = ("pack", "existing_feasibility", "wire_pack", "fresh_feasibility")
@@ -2048,9 +2067,9 @@ def phase_consolidation():
                                f"({got[1]} probes, {got[2]} dispatches) differs from "
                                f"the device='cpu' run's {want[0][:2]} ({want[1]}, {want[2]})")
 
-        # p50 over 5 warm passes, each on a fresh env (the first pass warms)
+        # p50 over 3 warm passes, each on a fresh env (the first pass warms)
         times = []
-        for _ in range(6):
+        for _ in range(4):
             ctx, method, candidates, budgets = build(CONS_NODES, "cuda")
             gc.collect()
             t0 = time.perf_counter()
@@ -2636,9 +2655,9 @@ def phase_floors(torch_solver_cls, config_cls, encode_cache_cls):
         raise SmokeFailure(f"cons_minvalues: the CUDA command {got[0][:2]} ({got[1]} probes, "
                            f"{got[2]} dispatches) differs from the device='cpu' run's "
                            f"{want[0][:2]} ({want[1]}, {want[2]})")
-    # p50 over 5 warm passes, each on a fresh env, as phase 4's
+    # p50 over 3 warm passes, each on a fresh env, as phase 4's
     times = []
-    for _ in range(6):
+    for _ in range(4):
         ctx, method, candidates, budgets = minvalues_consolidation_env(CONS_NODES, "cuda")
         gc.collect()
         t0 = time.perf_counter()
@@ -2689,8 +2708,8 @@ def phase_tenant(torch_solver_cls, config_cls, encode_cache_cls):
     tainted NodePools capped at 4,000 CPUs over 800 types and 6,000
     VPA-sized Deployments (50,816 pods): the driver's gate picks the tiled
     mode by itself. (a) a cold TorchSolver.solve: B4 tiled, no table
-    kernel, no relax routing, no fallback; cold p50 over 3 or 5 fresh
-    EncodeCaches (3 when a solve passes 10 s) and one traced solve; (b)
+    kernel, no relax routing, no fallback; cold p50 over 3 fresh
+    EncodeCaches and one traced solve; (b)
     the same device args through dispatch_packed tiled and untiled (B1
     and the untiled B4): the ten outputs identical, and the solve's
     Results equal to those of a solve forced onto the untiled dispatch,
@@ -2758,9 +2777,8 @@ def phase_tenant(torch_solver_cls, config_cls, encode_cache_cls):
                claims=len(res.new_node_claims), errors=len(res.pod_errors),
                placed=sum(sum(p.uid in uids for p in c.pods) for c in res.new_node_claims),
                relax_pods=s.last_relax_pods, dispatches=s.last_dispatches)
-    reps = 3 if first_ms > 10_000 else 5
     cold = []
-    for _ in range(reps):
+    for _ in range(3):
         sv = solver_for(pods)
         gc.collect()
         t0 = time.perf_counter()
@@ -4126,6 +4144,413 @@ def sync_line(audit, secs, smi):
             f"DTX906 statements, {audit['implicit']} implicit site(s))")
 
 
+def mesh_counts_ok(label, counts, dispatches, dims, nodes, blocks=1):
+    """Raise unless a mesh solve of ``dispatches`` dispatches over a mesh
+    of ``dims`` launched, per dispatch and scenario block, D x M B1
+    partials, D B2 partials (with nodes), one fold, B4 and B6 once, and
+    no single-device table kernel; with D x M = 1 the block's stage is the
+    single-device one (B1, and B2 with nodes), unfolded."""
+    D, M = dims["data"], dims["model"]
+    n = dispatches * blocks
+    if D * M == 1:
+        want = dict(fresh_feasibility=n, existing_feasibility=n if nodes else 0,
+                    fresh_partial=0, existing_partial=0, mesh_fold=0)
+    else:
+        want = dict(fresh_partial=D * M * n, existing_partial=D * n if nodes else 0,
+                    mesh_fold=n, fresh_feasibility=0, existing_feasibility=0)
+    want.update(pack=n, wire_pack=n, pack_classed=0, relax_fill=0)
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise SmokeFailure(f"{label}: launches {got}, want {want}")
+
+
+def mesh_rows(torch_solver_cls, config_cls, m8, m24, device="cuda"):
+    """Phase 16(b): B1's partial mode and the fold against their plain
+    versions on the card, on every shard, at the shapes of (c): B1's
+    partials at constrained 50k x 800 over data 2 x model 4 (shard (0, 0)
+    timed: the base, its type slice, its half of the live pairs), the fold
+    at constrained 50k x 800 over data 8 (8 partials a cell). Tolerance:
+    exact equality. B2's partial mode: existing_partial_row."""
+    import torch
+
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.parallel import mesh as pm
+    from karpenter_tpu_torch.solver.example import example_state_nodes
+    from karpenter_tpu_torch.solver.workloads import constrained_mix, mixed_pods
+
+    rows = {}
+    cpods = constrained_mix(N_PODS)
+    host, _, statics, _ = host_snapshot(
+        build_batch(torch_solver_cls, config_cls, cpods, N_TYPES_C, device=device), cpods)
+    zk, ck = statics["zone_kid"], statics["ct_kid"]
+
+    def fresh_shards(mesh):
+        """Every shard's B1 partial (kernel, plain) over the placed args."""
+        margs = pm.place_args(pm.pad_args_for_mesh(host, mesh), mesh)
+        D, M = mesh.shape["data"], mesh.shape["model"]
+        out, err = [], 0.0
+        for d in range(D):
+            for m in range(M):
+                ins = [margs.at(n, 0, d, m) for n in B1_NAMES]
+                k = feas.fresh_claim_feasibility_partial(*ins, zone_kid=zk, ct_kid=ck,
+                                                         with_base=d == 0)
+                r = feas.fresh_claim_feasibility_partial_reference(
+                    *ins, zone_kid=zk, ct_kid=ck, with_base=d == 0)
+                err = max(err, max_abs_err([x for x in k if x is not None],
+                                           [x for x in r if x is not None]))
+                out.append((d, m, ins, k))
+        return margs, out, err
+
+    margs, shards, err24 = fresh_shards(m24)
+    ins = shards[0][2]
+    a = dict(zip(B1_NAMES, ins))
+
+    def part():
+        return feas.fresh_claim_feasibility_partial(*ins, zone_kid=zk, ct_kid=ck, with_base=True)
+
+    def plain():
+        return feas.fresh_claim_feasibility_partial_reference(*ins, zone_kid=zk, ct_kid=ck,
+                                                              with_base=True)
+
+    out = part()
+    P, G, Tm = out[0].shape
+    rows["fresh_partial"] = with_device(dict(
+        max_abs_err=err24, ms=cuda_ms(part, 50), plain_ms=cuda_ms(plain, 10),
+        bound=bound_ms(sum(b1_reads(a, zk, ck).values()) + nbytes(out), b1_ops(a)),
+        shape=(f"constrained 50k x {N_TYPES_C} over data 2 x model 4, shard (0, 0): P={P} "
+               f"G={G} T={Tm} of {Tm * 4} L={a['gk_g'].shape[0]} "
+               f"({int((a['gk_w'] != 0).sum())} live); all 8 shards == plain"),
+    ), part, 100)
+    one_kernel("B1 partial", rows["fresh_partial"]["device_per_call"])
+
+    # the fold at constrained 50k x 800 over data 8: 8 partials a cell
+    margs8, shards8, err_8 = fresh_shards(m8)
+    fail_t = [s[3][0] for s in shards8]
+    fail_c = [s[3][1] for s in shards8]
+    tonly, n_fit = [shards8[0][3][2]], [shards8[0][3][3]]
+    p_tol = margs8.whole("p_tol")
+    fold_in = (fail_t, fail_c, tonly, n_fit, p_tol)
+
+    def fold():
+        return feas.mesh_fold(*fold_in)[:3]
+
+    def fplain():
+        return feas.mesh_fold_reference(*fold_in)[:3]
+
+    def library():
+        return torch.stack(fail_t).sum(0, dtype=torch.int32)
+
+    fout, fref = fold(), fplain()
+    whole = feas.fresh_claim_feasibility_sparse(
+        *(margs8.whole(n) for n in B1_NAMES), zone_kid=zk, ct_kid=ck)
+    D = len(fail_c)
+    P, G, T = fout[1].shape
+    rows["mesh_fold"] = with_device(dict(
+        max_abs_err=max(max_abs_err(fout, fref), max_abs_err(fout, whole), err_8),
+        ms=cuda_ms(fold, 50), plain_ms=cuda_ms(fplain, 10), library_ms=cuda_ms(library, 50),
+        bound=bound_ms(nbytes(fail_t + fail_c + tonly + n_fit + [p_tol]) + nbytes(fout),
+                       P * G * T * D + P * G * D),
+        shape=(f"constrained 50k x {N_TYPES_C} over data 8: D={D} P={P} G={G} T={T}; "
+               "== plain == B1's tables on the whole input"),
+    ), fold, 100)
+    one_kernel("mesh fold", rows["mesh_fold"]["device_per_call"])
+    return rows
+
+
+def existing_partial_row(torch_solver_cls, config_cls, m8, cons_args, device="cuda"):
+    """Phase 16(b): B2's partial mode against its plain version on the
+    card: on each of data 8's shards at mixed 2,000 over 32 nodes (each
+    shard's slice of the live pairs), and timed at the consolidation chunk
+    (``cons_args``: the shared encoding of (d)'s batch, N = 2048), as each
+    scenario block of (d) on data 2 x model 4 runs it (one data shard,
+    every pair, the base). Tolerance: exact equality."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.parallel import mesh as pm
+    from karpenter_tpu_torch.solver.example import example_state_nodes
+    from karpenter_tpu_torch.solver.workloads import mixed_pods
+
+    names = tuple(n for n in B2_NAMES if n != "n_tol")
+    npods = mixed_pods(NODE_PODS)
+    nhost, _, _, _ = host_snapshot(build_batch(
+        torch_solver_cls, config_cls, npods, N_TYPES, device=device,
+        state_nodes=example_state_nodes(N_NODES)), npods)
+    nmargs = pm.place_args(pm.pad_args_for_mesh(nhost, m8), m8)
+    err = 0.0
+    for d in range(m8.shape["data"]):
+        e_in = [nmargs.at(n, 0, d, 0) for n in names]
+        k = feas.existing_node_feasibility_partial(*e_in, with_base=d == 0)
+        r = feas.existing_node_feasibility_partial_reference(*e_in, with_base=d == 0)
+        err = max(err, max_abs_err([x for x in k if x is not None],
+                                   [x for x in r if x is not None]))
+    e_in = [cons_args[n] for n in names]
+    ea = dict(cons_args)
+
+    def epart():
+        return feas.existing_node_feasibility_partial(*e_in, with_base=True)
+
+    def eplain():
+        return feas.existing_node_feasibility_partial_reference(*e_in, with_base=True)
+
+    eout = epart()
+    err = max(err, max_abs_err(eout, eplain()))
+    row = with_device(dict(
+        max_abs_err=err, ms=cuda_ms(epart, 50), plain_ms=cuda_ms(eplain, 20),
+        bound=bound_ms(sum(b2_reads(ea).values()) - nbytes([ea["n_tol"]]) + nbytes(eout),
+                       b2_ops(ea) - ea["n_tol"].numel()),
+        shape=(f"the consolidation chunk: N={ea['n_avail'].shape[0]} "
+               f"G={ea['g_mask'].shape[0]} L={ea['gk_g'].shape[0]} "
+               f"({int((ea['gk_w'] != 0).sum())} live), every pair and the base; all 8 shards "
+               f"of mixed {NODE_PODS} over {N_NODES} nodes at data 8 == plain"),
+    ), epart, 100)
+    one_kernel("B2 partial", row["device_per_call"])
+    return row
+
+
+def phase_mesh(torch_solver_cls, config_cls, encode_cache_cls, device="cuda"):
+    """Phase 16: the solver mesh (A13, B10) on the one card. (a)
+    SolverConfig(mesh="auto") resolves to no mesh on one card and decides
+    as mesh=None at mixed 50k x 400 through B1, not the partials; (b) B1's
+    and B2's partial modes and the fold against their plain versions
+    (mesh_rows); (c) TorchSolver over make_mesh(devices=[cuda:0] * 8):
+    mixed 50k x 400 at data 8, constrained 50k x 800 at data 8 and at data
+    2 x model 4, mixed 2,000 over 32 nodes at data 8, each == mesh=None in
+    slot order, and the dense route on dense_mesh (B3 on each model
+    shard's types, gathered by the fold) == the single-device dense
+    dispatch; (d) a consolidation batch at S = 16 over the 2,000-node
+    cluster on the data-8 mesh (scenario_mesh: 8 blocks of 2, each B1 +
+    B2[2] + B4 + B6) and on data 2 x model 4 (2 blocks of 8, each 4 B1
+    partials, a B2 partial and a fold), == the unsharded batch, <= 2
+    dispatches, 0 fallbacks; (e) MESH_TICKS constrained churn ticks on the
+    data-8 mesh, each == the single-device tick, riding row deltas through
+    B8 (replicated buffers: one copy on the one card, one launch), REUSE
+    and row-delta outcomes as the single device's, then a REUSE repeat;
+    (f) the launch counts of every solve (mesh_counts_ok); (g) one warm
+    mesh solve under phase 15's sync audit. (b)'s B2 row is timed at (d)'s
+    chunk (existing_partial_row)."""
+    import dataclasses
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.controllers.disruption.helpers import ScenarioSimulator
+    from karpenter_tpu_torch.ops import solve as solve_mod
+    from karpenter_tpu_torch.parallel import mesh as pm
+    from karpenter_tpu_torch.solver.args import to_device_args
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+    from karpenter_tpu_torch.solver.example import example_state_nodes
+    from karpenter_tpu_torch.solver.workloads import (
+        CHURN_SEED, build_consolidation_env, churn_tick, constrained_mix, mixed_pods,
+    )
+
+    card = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    m8 = pm.make_mesh(devices=[card] * MESH_SHARDS)
+    m24 = pm.make_mesh(MESH_SHARDS, data=2, devices=[card] * MESH_SHARDS)
+    out = {"launches": {}, "ms": {}}
+
+    def solver(pods, n_types, mesh=None, nodes=0, cache=None):
+        return build_batch(torch_solver_cls, config_cls, pods, n_types, cache=cache,
+                           device=device,
+                           state_nodes=example_state_nodes(nodes) if nodes else (),
+                           config_kw={"mesh": mesh})
+
+    def counted(label, s, pods):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = s.solve(pods)
+        torch.cuda.synchronize()
+        out["ms"][label] = (time.perf_counter() - t0) * 1e3
+        counts = dict(_build.launches)
+        out["launches"][label] = counts
+        if s.fallback_solves or s.last_relax_pods or res.pod_errors:
+            raise SmokeFailure(f"{label}: fallbacks {s.last_fallback_reasons}, relax "
+                               f"{s.last_relax_pods}, {len(res.pod_errors)} errors")
+        return res, counts
+
+    # (a) "auto" on one card
+    pods = mixed_pods(N_PODS)
+    auto = solver(pods, N_TYPES, "auto")
+    if (device == "cuda" and torch.cuda.device_count() != 1) or auto._resolve_mesh() is not None:
+        raise SmokeFailure(f"auto: {torch.cuda.device_count()} cards, mesh "
+                           f"{auto._resolve_mesh()}")
+    res, counts = counted("mesh_auto", auto, pods)
+    one = solver(pods, N_TYPES).solve(pods)
+    if decisions(res, pods) != decisions(one, pods):
+        raise SmokeFailure("auto: decisions differ from mesh=None")
+    mesh_counts_ok("mesh_auto", counts, auto.last_dispatches, {"data": 1, "model": 1}, False)
+    out["auto_claims"] = len(res.new_node_claims)
+
+    # (b) the kernel rows
+    out["rows"] = mesh_rows(torch_solver_cls, config_cls, m8, m24, device)
+
+    # (c) sharded solves on 8 positions of the card
+    def mesh_solve(label, pods, n_types, mesh, ref, nodes=0):
+        s = solver(pods, n_types, mesh, nodes)
+        res, counts = counted(label, s, pods)
+        if decisions(res, pods) != decisions(ref, pods):
+            raise SmokeFailure(f"{label}: decisions differ from mesh=None")
+        mesh_counts_ok(label, counts, s.last_dispatches, mesh.shape, bool(nodes))
+        return len(res.new_node_claims)
+
+    out["claims"] = {"mesh_mixed": mesh_solve("mesh_mixed", pods, N_TYPES, m8, one)}
+    cpods = constrained_mix(N_PODS)
+    cref = solver(cpods, N_TYPES_C).solve(cpods)
+    out["claims"]["mesh_constrained"] = mesh_solve("mesh_constrained", cpods, N_TYPES_C, m8,
+                                                   cref)
+    out["claims"]["mesh_constrained_d2m4"] = mesh_solve("mesh_constrained_d2m4", cpods,
+                                                        N_TYPES_C, m24, cref)
+    npods = mixed_pods(NODE_PODS)
+    nref = solver(npods, N_TYPES, nodes=N_NODES).solve(npods)
+    out["claims"]["mesh_nodes"] = mesh_solve("mesh_nodes", npods, N_TYPES, m8, nref,
+                                             nodes=N_NODES)
+    # the dense route on dense_mesh: B3 on each model shard's type slice
+    dm = pm.dense_mesh(m8)
+    s0 = solver(pods, N_TYPES)
+    host, snap, statics, _ = host_snapshot(s0, pods)
+    fit = s0._fit_matrix(snap)
+    fills = torch.int16 if s0._fill_bound(snap, fit) < 2**15 else torch.int32
+    st = dict(statics, sparse_groups=False, nmax=s0._select_nmax(snap, fit, None))
+    padded = pm.pad_args_for_mesh(host, dm)
+    margs = pm.place_args(padded, dm)
+    _build.reset_launches()
+    got = pm.sharded_solve_packed_fn(dm, fills, **st)(margs)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    out["launches"]["mesh_dense"] = counts
+    want = solve_mod.dispatch_packed(*to_device_args(padded, card), fills_dtype=fills, **st)
+    if max_abs_err(got, want):
+        raise SmokeFailure("mesh_dense: the dense mesh dispatch differs from one device's")
+    if (counts["dense_fresh"], counts["mesh_fold"], counts["pack"], counts["fresh_partial"]) != (
+            dm.shape["model"], 1, 1, 0):
+        raise SmokeFailure(f"mesh_dense: launches {counts}")
+
+    # (d) the scenario mesh at the consolidation chunk
+    ctx, _, candidates, _ = build_consolidation_env(CONS_NODES, device)
+    chunk = [[c] for c in candidates[:CONS_SCENARIOS]]
+
+    def batch(mesh, label=None):
+        cfg = dataclasses.replace(ctx.solver_config, mesh=mesh)
+        sim = ScenarioSimulator(ctx.client, ctx.cluster, ctx.cloud_provider, candidates,
+                                encode_cache=ctx.encode_cache, solver_config=cfg)
+        scen = sim._scenarios_of(chunk)
+        union = list({p.uid: p for sc in scen for p in sc.pods}.values())
+        _build.reset_launches()
+        res = sim._solver.solve_scenarios(scen)
+        torch.cuda.synchronize()
+        if res is None:
+            raise SmokeFailure(f"{label or 'batch'}: the scenario batch declined")
+        if label:
+            counts = dict(_build.launches)
+            out["launches"][label] = counts
+            s = sim._solver
+            if s.fallback_solves or s.last_scenario_dispatches > 2:
+                raise SmokeFailure(f"{label}: {s.fallback_solves} fallbacks, "
+                                   f"{s.last_scenario_dispatches} dispatches")
+            sm = pm.scenario_mesh(mesh, 16)
+            mesh_counts_ok(label, counts, s.last_scenario_dispatches, sm.shape, True,
+                           blocks=sm.shape["scenario"])
+            out.setdefault("scenarios", {})[label] = dict(
+                dispatches=s.last_scenario_dispatches, blocks=sm.shape)
+        return [decisions(r, union) for r in res]
+
+    sref = batch(None)
+    for label, mesh in (("mesh_scenarios", m8), ("mesh_scenarios_d2m4", m24)):
+        if batch(mesh, label) != sref:
+            raise SmokeFailure(f"{label}: the batch differs from the unsharded batch")
+    # B2's partial mode, timed at the chunk's shared encoding
+    sim = ScenarioSimulator(ctx.client, ctx.cluster, ctx.cloud_provider, candidates,
+                            encode_cache=ctx.encode_cache, solver_config=ctx.solver_config)
+    token = sim._solver.submit_scenarios(sim._scenarios_of(chunk))
+    if token is None or not isinstance(token.get("args"), list):
+        raise SmokeFailure("the consolidation chunk declined the scenario batch")
+    out["rows"]["existing_partial"] = existing_partial_row(
+        torch_solver_cls, config_cls, m8, dict(zip(SOLVE_ARG_NAMES, token["args"])), device)
+
+    # (e) constrained churn ticks on the data-8 mesh
+    cache_m, cache_1 = encode_cache_cls(), encode_cache_cls()
+    tpods = cpods
+    for _ in range(2):  # a-priori, then adaptive NMAX, on both
+        solver(tpods, N_TYPES_C, m8, cache=cache_m).solve(tpods)
+        solver(tpods, N_TYPES_C, cache=cache_1).solve(tpods)
+    rng = random.Random(CHURN_SEED)
+    ticks, tick_counts = [], {}
+    for i in range(MESH_TICKS):
+        tpods = churn_tick(tpods, constrained_mix, rng)
+        s = solver(tpods, N_TYPES_C, m8, cache=cache_m)
+        res, counts = counted(f"mesh_tick{i}", s, tpods)
+        del out["launches"][f"mesh_tick{i}"]
+        s1 = solver(tpods, N_TYPES_C, cache=cache_1)
+        _build.reset_launches()
+        ref = s1.solve(tpods)
+        torch.cuda.synchronize()
+        b8_single = _build.launches["apply_rows"]
+        if decisions(res, tpods) != decisions(ref, tpods):
+            raise SmokeFailure(f"mesh tick {i + 1}: decisions differ from the single device's")
+        store, store1 = cache_m.device_store, cache_1.device_store
+        outcome = (s.last_encode_reused, s.last_delta_rows, store.last_delta_rows)
+        if outcome != (s1.last_encode_reused, s1.last_delta_rows, store1.last_delta_rows):
+            raise SmokeFailure(f"mesh tick {i + 1}: warm outcome {outcome} vs single")
+        full = not s.last_encode_reused and s.last_delta_rows == 0
+        if full or store.last_delta_rows < 1 or counts["apply_rows"] < 1:
+            raise SmokeFailure(f"mesh tick {i + 1}: full re-encode {full}, device delta rows "
+                               f"{store.last_delta_rows}, B8 {counts['apply_rows']}")
+        mesh_counts_ok(f"mesh tick {i + 1}", counts, s.last_dispatches, m8.shape, False)
+        for k, v in counts.items():
+            tick_counts[k] = tick_counts.get(k, 0) + v
+        ticks.append(dict(ms=out["ms"].pop(f"mesh_tick{i}"), encode_delta_rows=s.last_delta_rows,
+                          device_delta_rows=store.last_delta_rows, full_puts=store.last_full_puts,
+                          b8=counts["apply_rows"], b8_single=b8_single))
+    out["launches"]["mesh_ticks"] = tick_counts
+    out["ticks"] = ticks
+    s = solver(tpods, N_TYPES_C, m8, cache=cache_m)
+    s.solve(tpods)
+    if not s.last_encode_reused or cache_m.device_store.last_full_puts or s.fallback_solves:
+        raise SmokeFailure(f"mesh repeat: reused {s.last_encode_reused}, full puts "
+                           f"{cache_m.device_store.last_full_puts}")
+
+    # (g) a warm mesh solve under the sync audit
+    spans, implicit = sanctioned_syncs()
+    cache = encode_cache_cls()
+    solver(pods, N_TYPES, m8, cache=cache).solve(pods)
+    _, syncs = card_syncs(lambda: solver(pods, N_TYPES, m8, cache=cache).solve(pods))
+    if not [x for x in syncs if x[2].endswith("_drain_host")]:
+        raise SmokeFailure(f"mesh sync audit: no sync at the drain ({syncs})")
+    bad = unsanctioned(syncs, spans, implicit)
+    if bad:
+        raise SmokeFailure(f"mesh sync audit: unsanctioned syncs {sorted(set(bad))}")
+    out["syncs"] = len(syncs)
+    return out
+
+
+def mesh_line(mesh, secs, total_s, smi):
+    rows = mesh["rows"]
+    return (
+        f"phase 16 solver mesh ({secs:.0f} s, smoke so far {total_s:.0f} s; {smi}): (a) "
+        f"mesh=\"auto\" on 1 card -> no mesh, mixed {N_PODS} x {N_TYPES} == mesh=None "
+        f"({mesh['auto_claims']} claims, B1 not the partials); (b) " + "; ".join(
+            f"{k} [{r['shape']}] {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms "
+            f"({r['device_timing']}), plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.6f} ms ({r['bound'][1]})"
+            + (f", {LIBRARY[k]} {r['library_ms']:.4f} ms" if k in LIBRARY else "")
+            + f", max |diff| {r['max_abs_err']}" for k, r in rows.items())
+        + f"; (c) on make_mesh(devices=[cuda:0] x {MESH_SHARDS}), each == mesh=None in slot "
+        "order: " + ", ".join(f"{k} {v} claims {mesh['ms'][k]:.1f} ms"
+                              for k, v in mesh["claims"].items())
+        + ", dense route on dense_mesh == one device's dispatch; (d) S="
+        f"{CONS_SCENARIOS} over {CONS_NODES} nodes == unsharded: " + ", ".join(
+            f"{k} {v['dispatches']} dispatch(es) over {v['blocks']}"
+            for k, v in mesh["scenarios"].items())
+        + f", 0 fallbacks; (e) {MESH_TICKS} constrained ticks on data 8, each == one device's "
+        "(warm outcome too): " + "; ".join(
+            f"{t['ms']:.1f} ms (encode delta rows {t['encode_delta_rows']}, device delta rows "
+            f"{t['device_delta_rows']}, full puts {t['full_puts']}, B8 {t['b8']} vs "
+            f"{t['b8_single']} on one device)" for t in mesh["ticks"])
+        + "; REUSE repeat; (f) launches " + "; ".join(
+            f"{p}: " + " ".join(f"{k}={v}" for k, v in c.items() if v)
+            for p, c in mesh["launches"].items())
+        + f"; (g) a warm mesh solve {mesh['syncs']} syncs, all sanctioned")
+
+
 def cluster_text(cluster):
     """A scan launch's cluster as csrc/pack_common.cuh:pick_cluster reports
     it: (blocks, such clusters the card holds at once, clusters of the
@@ -4401,6 +4826,10 @@ def main():
     audit, secs = timed_phase(lambda: phase_sync_audit(TorchSolver, SolverConfig, EncodeCache))
     log(sync_line(audit, secs, smi))
 
+    mesh, secs = timed_phase(lambda: phase_mesh(TorchSolver, SolverConfig, EncodeCache))
+    log(mesh_line(mesh, secs, time.perf_counter() - t0, smi))
+    rows.update(mesh["rows"])
+
     # every path's own counts: the solves, the searches, the five loops,
     # the ladder, the sidecar, the operator, the twin
     paths = dict(e2e["launches"])
@@ -4416,6 +4845,7 @@ def main():
     paths.update(side["launches"])
     paths.update(oper["launches"])
     paths.update(twin["launches"])
+    paths.update(mesh["launches"])
     scen_paths = {label: c["scenario_launches"] for label, c in cons.items()}
     scen_paths["ladder_scenarios"] = lad["scenario_launches"]
     scen_paths["sidecar_batch"] = side["scenario_launches"]["sidecar_batch"]
@@ -4473,6 +4903,7 @@ def main():
     log("B4/B7 clusters: " + ", ".join(
         f"S={n}: {cluster_text(c)}" for n, c in sorted(packing_mod.clusters.items()))
         + "; B5: " + cluster_text(packing_mod.classed_clusters["pack_classed"]))
+    log(f"smoke: {time.perf_counter() - t0:.0f} s, the build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ Layout (each module at the relative path of its JAX counterpart):
                   (``python -m karpenter_tpu_torch.solver.service``)
   ops/            feasibility, packing, solve: plain PyTorch versions and
                   the wrappers that launch the kernels on CUDA tensors
+  parallel/       the solver mesh: one solve over several devices
   csrc/           the CUDA kernels; _build.py compiles them with nvcc
 """
 

@@ -17,7 +17,8 @@ one scenario batch or as a loop of single solves. A kernel's variant
 contributor rows, minValues floors, a reservation ledger or in the tiled
 mode; the class-batched scan over minValues floors or in the tiled mode;
 B3's fresh or existing entry) counts in its own entry as well as in the
-kernel's.
+kernel's. B1's and B2's partial modes count only under their own names
+(``ENTRIES``).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("fresh_feasibility", "existing_feasibility", "dense_feasibility",
-           "pack", "pack_classed", "wire_pack", "apply_rows", "relax_fill")
+           "pack", "pack_classed", "wire_pack", "apply_rows", "relax_fill", "mesh_fold")
 # launches of a kernel's variant, counted besides the kernel's own: pack
 # over a domain batch (has_domains) runs its domain machinery, over a
 # batch with contributor rows (has_contrib) its contributor counting, over
@@ -48,6 +49,9 @@ SOURCES = ("fresh_feasibility", "existing_feasibility", "dense_feasibility",
 VARIANTS = ("pack_domains", "pack_contrib", "pack_minvalues", "pack_resv", "pack_tiled",
             "pack_classed_minvalues", "pack_classed_tiled", "dense_fresh",
             "dense_existing")
+# entry points counted under their own name, not their source's: B1's and
+# B2's partial modes (a mesh shard's failure counts, folded by mesh_fold)
+ENTRIES = ("fresh_partial", "existing_partial")
 # measurement-only libraries, never in SOURCES (the solver and
 # chip_smoke.py never build or load them; tenant_scan.py does): name ->
 # (the source they compile, extra nvcc flags). pack_clocks and
@@ -65,7 +69,10 @@ MEASURE_BUILDS = {
 }
 # a source's C entry points, where they are not the one kt_<source>; a
 # phase-clock build adds kt_<source>_phase_clocks
-ENTRY_POINTS = {"dense_feasibility": ("kt_dense_fresh", "kt_dense_existing")}
+ENTRY_POINTS = {"dense_feasibility": ("kt_dense_fresh", "kt_dense_existing"),
+                "fresh_feasibility": ("kt_fresh_feasibility", "kt_fresh_feasibility_partial"),
+                "existing_feasibility": ("kt_existing_feasibility",
+                                         "kt_existing_feasibility_partial")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -74,8 +81,8 @@ NVCC_FLAGS = (
     "-fmad=false",
 )
 
-launches: Dict[str, int] = {name: 0 for name in SOURCES + VARIANTS}
-scenario_launches: Dict[str, int] = {name: 0 for name in SOURCES + VARIANTS}
+launches: Dict[str, int] = {name: 0 for name in SOURCES + VARIANTS + ENTRIES}
+scenario_launches: Dict[str, int] = {name: 0 for name in SOURCES + VARIANTS + ENTRIES}
 
 _lock = threading.Lock()
 # the counts are read-modify-writes, and the solver sidecar launches from

@@ -35,11 +35,11 @@ Left out, by design:
   tracing, and the port runs eagerly; its host-sync half is the torch
   host-sync rule above.
 - shapes (SHP6xx): its walker binds axes only at ``jax.numpy``
-  constructors, so over the port it would check nothing. SHP604 (shard
-  divisibility) concerns the solver mesh, which the port does not have
-  yet.
-- ARG1204 (mesh padding): the port has no ``parallel/mesh.py`` yet, so
-  the ``args`` pass has no mesh surface to read and never emits it.
+  constructors, so over the port it would check nothing (a torch walker
+  is ROADMAP item A12b; SHP604, shard divisibility, comes with it).
+
+The ``args`` pass reads the solver mesh's surface too
+(``parallel/mesh.py``: ARG_SPECS against ``pad_args_for_mesh``, ARG1204).
 
 Run ``python -m karpenter_tpu_torch.analysis`` from the repo root; it
 exits nonzero on any new finding. Suppress with an inline
@@ -80,9 +80,9 @@ def all_rules() -> Dict[str, str]:
     return out
 
 
-# rules of a copied module that never run over the port: ARG1204 reads
-# the mesh surface (parallel/mesh.py), which the port does not have yet
-NOT_SHIPPED = ("ARG1204",)
+# rules of a copied module that never run over the port: none since the
+# mesh surface (parallel/mesh.py) is there for ARG1204
+NOT_SHIPPED = ()
 
 
 __all__ = [

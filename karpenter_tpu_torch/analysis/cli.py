@@ -135,6 +135,7 @@ PASS_TARGETS = {
     # convention), and guarded (faults/guard.py)
     "device": [
         "karpenter_tpu_torch/ops",
+        "karpenter_tpu_torch/parallel",
         "karpenter_tpu_torch/solver/driver.py",
         "karpenter_tpu_torch/solver/residency.py",
         "karpenter_tpu_torch/faults/guard.py",
@@ -158,12 +159,13 @@ PASS_TARGETS = {
         "karpenter_tpu_torch/obs",
     ],
     # the kernel-arg registry's hand-aligned surfaces, diffed against
-    # SOLVE_ARG_NAMES (ARG12xx); the port has no mesh surface yet
+    # SOLVE_ARG_NAMES (ARG12xx), the mesh's specs and pads among them
     "args": [
         "karpenter_tpu_torch/solver/encode.py",
         "karpenter_tpu_torch/solver/residency.py",
         "karpenter_tpu_torch/native/__init__.py",
         "karpenter_tpu_torch/ops/solve.py",
+        "karpenter_tpu_torch/parallel/mesh.py",
     ],
     # guarded-by inference (GRD13xx) and atomicity/lock-order (ATM14xx)
     # over the same threaded tree the generalized locks pass scans

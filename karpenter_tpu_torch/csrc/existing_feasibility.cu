@@ -31,7 +31,16 @@
 // pair chunk, to 1; past even that (at K = 16, V1 = 131,072) the block
 // keeps no words and reads each from the byte rows in device memory where
 // it needs it. Every layout computes the same table.
+//
+// Partial mode (kt_existing_feasibility_partial, the solver mesh's data
+// shards; the existing-node half of karpenter_tpu/parallel/mesh.py's
+// GSPMD partition): the same kernel over one data shard's live pairs,
+// unfinished: each cell's int32 failure count nfail and, on the shard
+// that adds the base (data shard 0), the node's fits cap. The fold
+// (mesh_fold.cu) sums the shards' counts and gates each scenario with the
+// same device function as this kernel's finish (tables_finish.cuh).
 #include "dense_feasibility.cuh"
+#include "tables_finish.cuh"
 
 namespace {
 
@@ -55,17 +64,20 @@ __host__ __device__ inline size_t smem_bytes(int K, int W, int TN, int TG, int P
 // ``kRows``: the block keeps no mask words (a value vocabulary too wide
 // for even one node's and one pair's words), every word read from the
 // byte rows in device memory where it is needed; ``PC`` live pairs a
-// gathering pass.
-template <bool kRows>
+// gathering pass. ``kPart``: the partial mode (nfail, and the fits cap
+// where ``with_base``, written in place of cap_ng).
+template <bool kRows, bool kPart>
 __global__ void __launch_bounds__(kBlock) node_caps(
     int S, int N, int G, int K, int V1, int R, int L, int TN, int TG, int PC, bool x4,
+    bool with_base,
     const uint8_t* __restrict__ g_def, const uint8_t* __restrict__ g_neg,
     const uint8_t* __restrict__ g_mask, const float* __restrict__ g_req,
     const uint8_t* __restrict__ n_def, const uint8_t* __restrict__ n_mask,
     const float* __restrict__ n_avail, const float* __restrict__ n_base,
     const uint8_t* __restrict__ n_tol,
     const int32_t* __restrict__ gk_g, const int32_t* __restrict__ gk_k,
-    const int32_t* __restrict__ gk_w, int32_t* __restrict__ cap_ng) {
+    const int32_t* __restrict__ gk_w, int32_t* __restrict__ cap_ng,
+    int32_t* __restrict__ nfail_out, int32_t* __restrict__ cap_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int n_pairs;
   const int W = (V1 + 31) / 32, Ws = kRows ? 0 : W;
@@ -143,27 +155,34 @@ __global__ void __launch_bounds__(kBlock) node_caps(
     const int nl = i / TG, gl = i % TG;
     if (gl >= ng) continue;
     const int n = n0 + nl, g = g0 + gl;
-    const int32_t cap =
-        nfail[i] == 0 ? kt::fits_count(n_avail + static_cast<size_t>(n) * R,
-                                       n_base + static_cast<size_t>(n) * R,
-                                       g_req + static_cast<size_t>(g) * R, R)
-                      : 0;
     const long long at = static_cast<long long>(n) * G + g;
+    auto fits = [&] {
+      return kt::fits_count(n_avail + static_cast<size_t>(n) * R,
+                            n_base + static_cast<size_t>(n) * R,
+                            g_req + static_cast<size_t>(g) * R, R);
+    };
+    if constexpr (kPart) {
+      nfail_out[at] = nfail[i];
+      if (with_base) cap_out[at] = fits();
+      continue;
+    }
+    // compatibility and room do not depend on the scenario: the fits only
+    // where no pair failed, each scenario gated on its n_tol
+    const int32_t cap = nfail[i] == 0 ? fits() : 0;
 #pragma unroll 4
-    for (int s = 0; s < S; ++s) cap_ng[s * cells + at] = n_tol[s * cells + at] ? cap : 0;
+    for (int s = 0; s < S; ++s)
+      cap_ng[s * cells + at] = kt::node_cap(nfail[i], n_tol[s * cells + at], cap);
   }
 }
 
-}  // namespace
-
-extern "C" int kt_existing_feasibility(
-    int S, int N, int G, int K, int V1, int R, int L,
-    const uint8_t* g_def, const uint8_t* g_neg, const uint8_t* g_mask,
-    const float* g_req,
-    const uint8_t* n_def, const uint8_t* n_mask, const float* n_avail,
-    const float* n_base, const uint8_t* n_tol,
-    const int32_t* gk_g, const int32_t* gk_k, const int32_t* gk_w,
-    int32_t* cap_ng, void* stream_ptr) {
+// One launch of node_caps, whole (kPart false) or partial.
+template <bool kPart>
+int launch_existing(int S, int N, int G, int K, int V1, int R, int L, bool with_base,
+                    const uint8_t* g_def, const uint8_t* g_neg, const uint8_t* g_mask,
+                    const float* g_req, const uint8_t* n_def, const uint8_t* n_mask,
+                    const float* n_avail, const float* n_base, const uint8_t* n_tol,
+                    const int32_t* gk_g, const int32_t* gk_k, const int32_t* gk_w,
+                    int32_t* cap_ng, int32_t* nfail, int32_t* cap, void* stream_ptr) {
   if (static_cast<long long>(N) * G == 0 || S == 0) return kt::kNothingLaunched;
   const int W = (V1 + 31) / 32;
   int TG = 1;
@@ -185,14 +204,45 @@ extern "C" int kt_existing_feasibility(
   const bool rows = smem_bytes(K, W, TN, TG, PC) > kSmemMax;
   if (rows) PC = kBlock;
   const size_t smem = smem_bytes(K, rows ? 0 : W, TN, TG, PC);
-  auto kernel = rows ? node_caps<true> : node_caps<false>;
+  auto kernel = rows ? node_caps<true, kPart> : node_caps<false, kPart>;
   const int rc = kt::allow_dynamic_smem(kernel, smem);  // very wide masks: past 48 KB
   if (rc) return rc;
   const bool x4 = V1 % 4 == 0 && reinterpret_cast<uintptr_t>(n_mask) % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(g_mask) % 4 == 0;
   const dim3 grid((N + TN - 1) / TN, (G + TG - 1) / TG);
   kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
-      S, N, G, K, V1, R, L, TN, TG, PC, x4, g_def, g_neg, g_mask, g_req, n_def, n_mask,
-      n_avail, n_base, n_tol, gk_g, gk_k, gk_w, cap_ng);
+      S, N, G, K, V1, R, L, TN, TG, PC, x4, with_base, g_def, g_neg, g_mask, g_req, n_def,
+      n_mask, n_avail, n_base, n_tol, gk_g, gk_k, gk_w, cap_ng, nfail, cap);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int kt_existing_feasibility(
+    int S, int N, int G, int K, int V1, int R, int L,
+    const uint8_t* g_def, const uint8_t* g_neg, const uint8_t* g_mask,
+    const float* g_req,
+    const uint8_t* n_def, const uint8_t* n_mask, const float* n_avail,
+    const float* n_base, const uint8_t* n_tol,
+    const int32_t* gk_g, const int32_t* gk_k, const int32_t* gk_w,
+    int32_t* cap_ng, void* stream_ptr) {
+  return launch_existing<false>(S, N, G, K, V1, R, L, true, g_def, g_neg, g_mask, g_req, n_def,
+                                n_mask, n_avail, n_base, n_tol, gk_g, gk_k, gk_w, cap_ng,
+                                nullptr, nullptr, stream_ptr);
+}
+
+// The partial mode over one data shard's live pairs (L, gk_*): nfail
+// [N, G] and, with ``with_base``, cap [N, G] (else it may be null). No
+// n_tol: the fold gates the scenarios.
+extern "C" int kt_existing_feasibility_partial(
+    int N, int G, int K, int V1, int R, int L, int with_base,
+    const uint8_t* g_def, const uint8_t* g_neg, const uint8_t* g_mask,
+    const float* g_req,
+    const uint8_t* n_def, const uint8_t* n_mask, const float* n_avail,
+    const float* n_base,
+    const int32_t* gk_g, const int32_t* gk_k, const int32_t* gk_w,
+    int32_t* nfail, int32_t* cap, void* stream_ptr) {
+  return launch_existing<true>(1, N, G, K, V1, R, L, with_base != 0, g_def, g_neg, g_mask, g_req,
+                               n_def, n_mask, n_avail, n_base, nullptr, gk_g, gk_k, gk_w, nullptr,
+                               nfail, cap, stream_ptr);
 }

@@ -64,7 +64,21 @@
 // (at K = 16: V1 = 32,768 fits, V1 = 65,536 does not), the block keeps
 // no words at all and reads every word from the byte rows in device memory
 // where it needs it (Mode::kRows). Every mode computes the same tables.
+//
+// Partial mode (kt_fresh_feasibility_partial, the solver mesh's shard
+// stage; replaces the feasibility half of
+// karpenter_tpu/parallel/mesh.py:sharded_solve_fn's GSPMD partition):
+// the same kernel over one shard's slices, the types of its model shard
+// and the live pairs of its data shard, with nothing finished. It writes
+// each cell's int32 key failures fail_t (the pairs' corrections, plus the
+// base where ``with_base``) and each (p, g)'s compatibility failures
+// fail_c; with the base (data shard 0) also the type-only parts (a fit,
+// the template admits the type, an offering) and n_fit. The fold
+// (mesh_fold.cu) sums the data shards' counts and finishes them with the
+// same device functions as phase 4 here (tables_finish.cuh). Bound as
+// above: a shard writes 9 bytes a cell where the full kernel writes 5.
 #include "dense_feasibility.cuh"
+#include "tables_finish.cuh"
 
 namespace {
 
@@ -199,11 +213,13 @@ void fresh_tiling(int P, int G, int T, int K, int V1, int R, int O, int& TT, int
 // at most 64 registers, so that four blocks share an SM: diverse-ref's
 // 416 blocks are one wave on the 132 SMs. ``M`` is how the block holds
 // its mask rows (Mode); ``x4``: the mask rows in device memory take 4-byte
-// loads (V1 % 4 == 0 and 4-byte aligned bases).
-template <Mode M>
+// loads (V1 % 4 == 0 and 4-byte aligned bases). ``kPart``: the partial
+// mode (fail_t, fail_c and, ``with_base``, tonly and n_fit written in
+// place of compat_pg, type_ok and n_fit).
+template <Mode M, bool kPart>
 __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
     int G, int T, int K, int V1, int R, int O, int L, int LZ, int TG, int TT, int PC,
-    int zone_kid, int ct_kid, bool wide, bool x4,
+    int zone_kid, int ct_kid, bool wide, bool x4, bool with_base,
     const uint8_t* __restrict__ g_def, const uint8_t* __restrict__ g_neg,
     const uint8_t* __restrict__ g_mask, const float* __restrict__ g_req,
     const uint8_t* __restrict__ p_def, const uint8_t* __restrict__ p_neg,
@@ -216,7 +232,8 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
     const int32_t* __restrict__ gk_g, const int32_t* __restrict__ gk_k,
     const int32_t* __restrict__ gk_w, const int32_t* __restrict__ goff_idx,
     uint8_t* __restrict__ compat_pg, uint8_t* __restrict__ type_ok,
-    int32_t* __restrict__ n_fit) {
+    int32_t* __restrict__ n_fit, int32_t* __restrict__ fail_t, int32_t* __restrict__ fail_c,
+    uint8_t* __restrict__ tonly) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int n_pairs;
   const Smem s(smem_raw, K, V1, R, O, TG, TT, PC, M);
@@ -378,15 +395,17 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
     const int32_t z = s.oz[t * O + o], c = s.oc[t * O + o];
     return (z < 0 || (bit(pz, z) && bit(gz, z))) && (c < 0 || (bit(pc, c) && bit(gc, c)));
   };
+  // (a partial without the base counts only its pairs' corrections)
+  const int base_n = !kPart || with_base ? nt : 0;
 #pragma unroll 1
-  for (int i = tid; i < nt * K; i += kBlock) {
+  for (int i = tid; i < base_n * K; i += kBlock) {
     const int t = i / K, k = i % K;
     if (!(words_meet(t_words(t, k), p_words(k), W) ||
           !(bit(s.tdw + t * KD, k) && bit(s.pdw, k))))
       atomicAdd(&s.base[t], 1);
   }
 #pragma unroll 1
-  for (int i = tid; i < nt * O; i += kBlock)
+  for (int i = tid; i < base_n * O; i += kBlock)
     if (offer(i / O, i % O, pz, pc)) s.toff[i / O] = 1;
   PHASE_MARK(kPhBase);
 
@@ -447,11 +466,45 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
   PHASE_MARK(kPhPairs);
 #pragma unroll 1
   for (int gl = tid; gl < ng; gl += kBlock) {
-    s.compat[gl] = s.ptol[gl] && s.cfail[gl] == 0;
-    if (blockIdx.x == 0) compat_pg[static_cast<size_t>(p) * G + g0 + gl] = s.compat[gl];
+    if constexpr (kPart) {
+      if (blockIdx.x == 0) fail_c[static_cast<size_t>(p) * G + g0 + gl] = s.cfail[gl];
+    } else {
+      s.compat[gl] = kt::compat_of(s.ptol[gl], s.cfail[gl]);
+      if (blockIdx.x == 0) compat_pg[static_cast<size_t>(p) * G + g0 + gl] = s.compat[gl];
+    }
   }
   __syncthreads();
   PHASE_MARK(kPhCompat);
+
+  if constexpr (kPart) {
+    // 4'. the partial cells, one a thread: the key failures, and with the
+    //     base the type-only part (offering merged with the group's rows
+    //     for listed groups) and the fit
+#pragma unroll 1
+    for (int i = tid; i < ng * TT; i += kBlock) {
+      const int gl = i / TT, t = i % TT;
+      if (t >= nt) continue;
+      const size_t at = (static_cast<size_t>(p) * G + g0 + gl) * T + t0 + t;
+      fail_t[at] = kt::wrap_add(s.base[t], s.adj[gl * TT + t]);
+      if (with_base) {
+        const int32_t nf = cell_fits(s.alloc + t * R, s.daemon, s.req + gl * R, R);
+        bool off = false;
+        if (kt::type_only(nf, s.tok[t], true)) {
+          if (!s.listed[gl]) {
+            off = s.toff[t];
+          } else {
+            const auto gz = gz_words(gl);
+            const auto gc = gc_words(gl);
+            for (int o = 0; o < O && !off; ++o) off = offer(t, o, gz, gc);
+          }
+        }
+        tonly[at] = kt::type_only(nf, s.tok[t], off);
+        n_fit[at] = nf;
+      }
+    }
+    PHASE_MARK(kPhCells);
+    return;
+  }
 
   // 4. the cells, one a thread: base + correction, the offering row
   //    (merged with the group's rows for listed groups), fits_count, the
@@ -466,8 +519,8 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
     uint32_t ok = 0;
     if (live) {
       nf = cell_fits(s.alloc + t * R, s.daemon, s.req + gl * R, R);
-      if (nf >= 1 && s.tok[t] && s.compat[gl] &&
-          kt::wrap_add(s.base[t], s.adj[gl * TT + t]) == 0) {
+      if (kt::type_only(nf, s.tok[t], true) && s.compat[gl] &&
+          kt::keys_pass(kt::wrap_add(s.base[t], s.adj[gl * TT + t]))) {
         if (!s.listed[gl]) {
           ok = s.toff[t];
         } else {
@@ -497,6 +550,43 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
   PHASE_MARK(kPhCells);
 }
 
+// One launch of fresh_tables, whole (kPart false) or partial.
+template <bool kPart>
+int launch_fresh(int P, int G, int T, int K, int V1, int R, int O, int L, int LZ, int zone_kid,
+                 int ct_kid, bool with_base, const uint8_t* g_def, const uint8_t* g_neg,
+                 const uint8_t* g_mask, const float* g_req, const uint8_t* p_def,
+                 const uint8_t* p_neg, const uint8_t* p_mask, const float* p_daemon,
+                 const uint8_t* p_tol, const uint8_t* p_titype_ok, const uint8_t* t_def,
+                 const uint8_t* t_mask, const float* t_alloc, const uint8_t* o_avail,
+                 const int32_t* o_zone, const int32_t* o_ct, const uint8_t* well_known,
+                 const int32_t* gk_g, const int32_t* gk_k, const int32_t* gk_w,
+                 const int32_t* goff_idx, uint8_t* compat_pg, uint8_t* type_ok, int32_t* n_fit,
+                 int32_t* fail_t, int32_t* fail_c, uint8_t* tonly, void* stream_ptr) {
+  if (static_cast<long long>(P) * G == 0) return kt::kNothingLaunched;
+  int TT, TG, PC;
+  Mode mode;
+  fresh_tiling(P, G, T, K, V1, R, O, TT, TG, PC, mode);
+  const size_t smem = Smem(nullptr, K, V1, R, O, TG, TT, PC, mode).bytes;
+  auto kernel = mode == kStaged   ? fresh_tables<kStaged, kPart>
+                : mode == kDirect ? fresh_tables<kDirect, kPart>
+                                  : fresh_tables<kRows, kPart>;
+  const int rc = kt::allow_dynamic_smem(kernel, smem);  // wide masks: past 48 KB
+  if (rc) return rc;
+  const bool wide = !kPart && TT % 4 == 0 && T % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(type_ok) % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(n_fit) % 16 == 0;
+  const bool x4 = V1 % 4 == 0 && (reinterpret_cast<uintptr_t>(g_mask) |
+                                  reinterpret_cast<uintptr_t>(p_mask) |
+                                  reinterpret_cast<uintptr_t>(t_mask)) % 4 == 0;
+  const dim3 grid(T > 0 ? (T + TT - 1) / TT : 1, (G + TG - 1) / TG, P);
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
+      G, T, K, V1, R, O, L, LZ, TG, TT, PC, zone_kid, ct_kid, wide, x4, with_base, g_def,
+      g_neg, g_mask, g_req, p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok, t_def, t_mask,
+      t_alloc, o_avail, o_zone, o_ct, well_known, gk_g, gk_k, gk_w, goff_idx, compat_pg,
+      type_ok, n_fit, fail_t, fail_c, tonly);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int kt_fresh_feasibility(
@@ -513,26 +603,36 @@ extern "C" int kt_fresh_feasibility(
     const int32_t* goff_idx,
     uint8_t* compat_pg, uint8_t* type_ok, int32_t* n_fit,
     void* stream_ptr) {
-  if (static_cast<long long>(P) * G == 0) return kt::kNothingLaunched;
-  int TT, TG, PC;
-  Mode mode;
-  fresh_tiling(P, G, T, K, V1, R, O, TT, TG, PC, mode);
-  const size_t smem = Smem(nullptr, K, V1, R, O, TG, TT, PC, mode).bytes;
-  auto kernel = mode == kStaged ? fresh_tables<kStaged>
-                                : mode == kDirect ? fresh_tables<kDirect> : fresh_tables<kRows>;
-  const int rc = kt::allow_dynamic_smem(kernel, smem);  // wide masks: past 48 KB
-  if (rc) return rc;
-  const bool wide = TT % 4 == 0 && T % 4 == 0 && reinterpret_cast<uintptr_t>(type_ok) % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(n_fit) % 16 == 0;
-  const bool x4 = V1 % 4 == 0 && (reinterpret_cast<uintptr_t>(g_mask) |
-                                  reinterpret_cast<uintptr_t>(p_mask) |
-                                  reinterpret_cast<uintptr_t>(t_mask)) % 4 == 0;
-  const dim3 grid(T > 0 ? (T + TT - 1) / TT : 1, (G + TG - 1) / TG, P);
-  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
-      G, T, K, V1, R, O, L, LZ, TG, TT, PC, zone_kid, ct_kid, wide, x4, g_def, g_neg, g_mask,
-      g_req, p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok, t_def, t_mask, t_alloc,
-      o_avail, o_zone, o_ct, well_known, gk_g, gk_k, gk_w, goff_idx, compat_pg, type_ok, n_fit);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fresh<false>(P, G, T, K, V1, R, O, L, LZ, zone_kid, ct_kid, true, g_def, g_neg,
+                             g_mask, g_req, p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
+                             t_def, t_mask, t_alloc, o_avail, o_zone, o_ct, well_known, gk_g,
+                             gk_k, gk_w, goff_idx, compat_pg, type_ok, n_fit, nullptr, nullptr,
+                             nullptr, stream_ptr);
+}
+
+// The partial mode over one mesh shard's slices (the types of its model
+// shard: T, t_*, o_*, p_titype_ok [P, T]; the live pairs of its data
+// shard: L, gk_*): fail_t [P, G, T], fail_c [P, G] and, with ``with_base``,
+// tonly [P, G, T] and n_fit [P, G, T] (else both may be null).
+extern "C" int kt_fresh_feasibility_partial(
+    int P, int G, int T, int K, int V1, int R, int O, int L, int LZ,
+    int zone_kid, int ct_kid, int with_base,
+    const uint8_t* g_def, const uint8_t* g_neg, const uint8_t* g_mask,
+    const float* g_req,
+    const uint8_t* p_def, const uint8_t* p_neg, const uint8_t* p_mask,
+    const float* p_daemon, const uint8_t* p_tol, const uint8_t* p_titype_ok,
+    const uint8_t* t_def, const uint8_t* t_mask, const float* t_alloc,
+    const uint8_t* o_avail, const int32_t* o_zone, const int32_t* o_ct,
+    const uint8_t* well_known,
+    const int32_t* gk_g, const int32_t* gk_k, const int32_t* gk_w,
+    const int32_t* goff_idx,
+    int32_t* fail_t, int32_t* fail_c, uint8_t* tonly, int32_t* n_fit,
+    void* stream_ptr) {
+  return launch_fresh<true>(P, G, T, K, V1, R, O, L, LZ, zone_kid, ct_kid, with_base != 0, g_def,
+                            g_neg, g_mask, g_req, p_def, p_neg, p_mask, p_daemon, p_tol,
+                            p_titype_ok, t_def, t_mask, t_alloc, o_avail, o_zone, o_ct,
+                            well_known, gk_g, gk_k, gk_w, goff_idx, nullptr, nullptr, n_fit,
+                            fail_t, fail_c, tonly, stream_ptr);
 }
 
 // The tiling and mode kt_fresh_feasibility takes at these shapes, for the

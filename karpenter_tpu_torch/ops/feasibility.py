@@ -7,7 +7,8 @@ the per-instance-type scan in filterInstanceTypesByRequirements
 (entities x keys x value-slots) boolean tensors.
 
 Four device kernels live here, each as a public wrapper beside its plain
-PyTorch version (``*_reference``):
+PyTorch version (``*_reference``), and the solver mesh's stage
+(parallel/mesh.py) beside them:
 
 - ``fresh_claim_feasibility_sparse`` (kernel B1, ``csrc/fresh_feasibility.cu``)
 - ``existing_node_feasibility_sparse`` (kernel B2, ``csrc/existing_feasibility.cu``)
@@ -16,6 +17,13 @@ PyTorch version (``*_reference``):
   full requirement join, with no live-pair index. The relaxation
   pre-solver (ops/relax.py) runs the fresh one over its run heads, and
   ``ops/solve.py`` takes both when ``sparse_groups`` is False.
+- ``fresh_claim_feasibility_partial`` and ``existing_node_feasibility_partial``
+  (B1's and B2's partial modes): one mesh shard's int32 failure counts over
+  its slice of the live pairs (and of the types), with the type-only parts
+  from the data shard that adds the base;
+- ``mesh_fold`` (``csrc/mesh_fold.cu``): the shards' partials summed and
+  finished, once, into the replicated tables (``fresh_finish`` and
+  ``existing_finish``, which B1's and B2's plain versions end with too).
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the hand-written kernel, or raises. The plain versions mirror
@@ -117,10 +125,56 @@ def fresh_claim_feasibility_sparse_reference(
     fresh_claim_feasibility_sparse — the group-independent [P, T, K] base,
     corrected only on the L live (group, key) pairs by a segment sum onto
     the group axis, with offering rows recomputed for the non-neutral
-    groups of ``goff_idx``.
+    groups of ``goff_idx``: ``fresh_finish`` of the whole input's
+    ``fresh_claim_feasibility_partial_reference``.
 
     Returns compat_pg [P, G] bool, type_ok [P, G, T] bool,
     n_fit [P, G, T] int32."""
+    fail_t, fail_c, tonly, n_fit = fresh_claim_feasibility_partial_reference(
+        g_def, g_neg, g_mask, g_req,
+        p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
+        t_def, t_mask, t_alloc,
+        o_avail, o_zone, o_ct,
+        well_known,
+        gk_g, gk_k, gk_w, goff_idx,
+        zone_kid=zone_kid, ct_kid=ct_kid, with_base=True,
+    )
+    return fresh_finish(p_tol, fail_t, fail_c, tonly, n_fit)
+
+
+def fresh_finish(p_tol, fail_t, fail_c, tonly, n_fit):
+    """The fresh tables from their parts (shared by B1's plain version and
+    the mesh fold's): a (template, group) pair is compatible when the
+    template tolerates the group and no live pair failed; a type admits
+    it when, besides, every key passed and its type-only part holds."""
+    compat_pg = p_tol & (fail_c == 0)
+    type_ok = (fail_t == 0) & tonly & compat_pg[:, :, None]
+    return compat_pg, type_ok, n_fit
+
+
+def fresh_claim_feasibility_partial_reference(
+    g_def, g_neg, g_mask, g_req,
+    p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
+    t_def, t_mask, t_alloc,
+    o_avail, o_zone, o_ct,
+    well_known,
+    gk_g, gk_k, gk_w, goff_idx,
+    zone_kid: int,
+    ct_kid: int,
+    with_base: bool,
+):
+    """Plain version of B1's partial mode: the int32 failure counts of a
+    slice of the live pairs over a slice of the types (the inputs are the
+    slices: ``t_*``, ``o_*`` and ``p_titype_ok`` over the types, ``gk_*``
+    over the pairs).
+
+    Returns fail_t [P, G, T] (each (group, type) cell's key failures: the
+    pairs' corrections, plus the group-independent base when
+    ``with_base``), fail_c [P, G] (the pairs' compatibility failures) and,
+    with ``with_base``, the type-only parts tonly [P, G, T] bool (an
+    offering, a fit, the template admits the type) and n_fit [P, G, T]
+    int32; else None for both. Integer sums wrap as int32, so the parts of
+    any split sum to the whole input's (``mesh_fold``)."""
     P, K, V1 = p_mask.shape
     G = g_mask.shape[0]
     T = t_mask.shape[0]
@@ -131,7 +185,6 @@ def fresh_claim_feasibility_sparse_reference(
     ov_base = (t_mask[None, :, :, :] & p_mask[:, None, :, :]).any(-1)  # [P,T,K]
     base_ok = ov_base | ~(t_def[None, :, :] & p_def[:, None, :])
     base_fail = (~base_ok).to(i32)
-    base_total = base_fail.sum(-1, dtype=i32)  # [P, T]
 
     # live-pair corrections (type axis)
     gm_l = g_mask[gg, kk]  # [L, V1]
@@ -143,7 +196,9 @@ def fresh_claim_feasibility_sparse_reference(
     delta = ((~pair_ok).to(i32) - base_fail[:, :, kk]) * gk_w[None, None, :]
     adj = torch.zeros((G, P, T), dtype=i32, device=g_mask.device)
     adj.index_add_(0, gg, delta.permute(2, 0, 1))
-    type_compat = (base_total[:, None, :] + adj.permute(1, 0, 2)) == 0
+    fail_t = adj.permute(1, 0, 2)
+    if with_base:
+        fail_t = base_fail.sum(-1, dtype=i32)[:, None, :] + fail_t  # [P, G, T]
 
     # pod-vs-template compatibility over live pairs only
     pneg_l = p_neg[:, kk]
@@ -156,7 +211,8 @@ def fresh_claim_feasibility_sparse_reference(
     fail_c = (~(term_c & custom_c)).to(i32) * gk_w[None, :]
     cfail = torch.zeros((G, P), dtype=i32, device=g_mask.device)
     cfail.index_add_(0, gg, fail_c.t())
-    compat_pg = p_tol & (cfail.t() == 0)
+    if not with_base:
+        return fail_t.contiguous(), cfail.t().contiguous(), None, None
 
     # offerings: template-only base + non-neutral-group rows
     off_base = offering_ok(
@@ -175,12 +231,8 @@ def fresh_claim_feasibility_sparse_reference(
         t_alloc[None, None, :, :], p_daemon[:, None, None, :],
         g_req[None, :, None, :],
     )  # [P, G, T]
-
-    type_ok = (
-        type_compat & off & (n_fit >= 1) & p_titype_ok[:, None, :]
-        & compat_pg[:, :, None]
-    )
-    return compat_pg, type_ok, n_fit
+    tonly = off & (n_fit >= 1) & p_titype_ok[:, None, :]
+    return fail_t.contiguous(), cfail.t().contiguous(), tonly, n_fit
 
 
 def existing_node_feasibility_sparse_reference(
@@ -194,6 +246,30 @@ def existing_node_feasibility_sparse_reference(
     on n_tol. Returns cap_ng [N, G] int32, or [S, N, G] for a scenario
     batch's n_tol [S, N, G] (only the gate is per scenario, as under JAX's
     vmap: the final where broadcasts)."""
+    nfail, cap = existing_node_feasibility_partial_reference(
+        g_def, g_neg, g_mask, g_req, n_def, n_mask, n_avail, n_base,
+        gk_g, gk_k, gk_w, with_base=True,
+    )
+    return existing_finish(nfail, cap, n_tol)
+
+
+def existing_finish(nfail, cap, n_tol):
+    """cap_ng from its parts (shared by B2's plain version and the mesh
+    fold's): a node takes a group's pods where no live pair failed and the
+    node tolerates the group."""
+    return torch.where((nfail == 0) & n_tol, cap, torch.zeros_like(cap))
+
+
+def existing_node_feasibility_partial_reference(
+    g_def, g_neg, g_mask, g_req,
+    n_def, n_mask, n_avail, n_base,
+    gk_g, gk_k, gk_w,
+    with_base: bool,
+):
+    """Plain version of B2's partial mode over a slice of the live pairs:
+    nfail [N, G] int32, the pairs' strict-compatibility failures, and with
+    ``with_base`` cap [N, G] int32, fits_count against n_avail - n_base
+    (else None)."""
     G = g_mask.shape[0]
     i32 = torch.int32
     gg, kk = gk_g.long(), gk_k.long()
@@ -208,9 +284,49 @@ def existing_node_feasibility_sparse_reference(
     fail = (~(term & custom)).to(i32) * gk_w[None, :]
     nfail = torch.zeros((G, n_mask.shape[0]), dtype=i32, device=g_mask.device)
     nfail.index_add_(0, gg, fail.t())
-    compat = nfail.t() == 0  # [N, G]
+    if not with_base:
+        return nfail.t().contiguous(), None
     cap = fits_count(n_avail[:, None, :], n_base[:, None, :], g_req[None, :, :])
-    return torch.where(compat & n_tol, cap, torch.zeros_like(cap))
+    return nfail.t().contiguous(), cap
+
+
+def mesh_fold_reference(fail_t, fail_c, tonly, n_fit, p_tol,
+                        nfail=(), cap=None, n_tol=None):
+    """Plain version of the mesh fold (csrc/mesh_fold.cu): the partials of
+    D data shards x M model shards summed and finished into the replicated
+    tables.
+
+    ``fail_t``: D x M tensors [P, G, T/M] in (data, model) order (data
+    major); ``fail_c``: D tensors [P, G]; ``tonly`` and ``n_fit``: M
+    tensors [P, G, T/M], model shard m's types at offset m * T/M; ``p_tol``
+    [P, G]. D may be 0: the parts are then final (the dense route's type
+    slices, with its compat_pg as ``p_tol``). ``nfail``: D tensors [N, G],
+    ``cap`` [N, G] and ``n_tol`` [(S,) N, G] for the existing-node table, or
+    ``cap`` None for none. Returns compat_pg [P, G], type_ok [P, G, T],
+    n_fit [P, G, T] and cap_ng [(S,) N, G] (or None)."""
+    M = len(tonly)
+    D = len(fail_c)
+    if len(fail_t) != D * M or len(n_fit) != M:
+        raise ValueError(f"fold: {len(fail_t)} fail_t, {D} fail_c, {M} tonly, {len(n_fit)} n_fit")
+    cols = []
+    for m in range(M):
+        acc = torch.zeros_like(n_fit[m])
+        for d in range(D):
+            acc = acc + fail_t[d * M + m]
+        cols.append(acc)
+    cfail = torch.zeros(p_tol.shape, dtype=torch.int32, device=p_tol.device)
+    for part in fail_c:
+        cfail = cfail + part
+    compat_pg, type_ok, nf = fresh_finish(
+        p_tol, torch.cat(cols, -1), cfail, torch.cat(list(tonly), -1),
+        torch.cat(list(n_fit), -1))
+    cap_ng = None
+    if cap is not None:
+        nsum = torch.zeros_like(cap)
+        for part in nfail:
+            nsum = nsum + part
+        cap_ng = existing_finish(nsum, cap, n_tol)
+    return compat_pg, type_ok, nf, cap_ng
 
 
 def fresh_claim_feasibility_reference(
@@ -376,6 +492,63 @@ def existing_node_feasibility(
     return _launch_dense_existing(*args)
 
 
+def fresh_claim_feasibility_partial(
+    g_def, g_neg, g_mask, g_req,
+    p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
+    t_def, t_mask, t_alloc,
+    o_avail, o_zone, o_ct,
+    well_known,
+    gk_g, gk_k, gk_w, goff_idx,
+    zone_kid: int,
+    ct_kid: int,
+    with_base: bool,
+):
+    """One mesh shard's fresh partials (fail_t, fail_c, tonly, n_fit; the
+    last two None without ``with_base``) over its slices: the plain version
+    for CPU tensors, B1's partial mode (csrc/fresh_feasibility.cu:
+    kt_fresh_feasibility_partial) for CUDA tensors."""
+    args = (
+        g_def, g_neg, g_mask, g_req,
+        p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
+        t_def, t_mask, t_alloc,
+        o_avail, o_zone, o_ct,
+        well_known,
+        gk_g, gk_k, gk_w, goff_idx,
+    )
+    if g_mask.device.type == "cpu":
+        return fresh_claim_feasibility_partial_reference(
+            *args, zone_kid=zone_kid, ct_kid=ct_kid, with_base=with_base
+        )
+    return _launch_fresh(*args, zone_kid=zone_kid, ct_kid=ct_kid, partial=True,
+                         with_base=with_base)
+
+
+def existing_node_feasibility_partial(
+    g_def, g_neg, g_mask, g_req,
+    n_def, n_mask, n_avail, n_base,
+    gk_g, gk_k, gk_w,
+    with_base: bool,
+):
+    """One data shard's existing-node partials (nfail, and cap with
+    ``with_base``, else None) over its live-pair slice: the plain version
+    for CPU tensors, B2's partial mode (csrc/existing_feasibility.cu:
+    kt_existing_feasibility_partial) for CUDA tensors."""
+    args = (g_def, g_neg, g_mask, g_req, n_def, n_mask, n_avail, n_base, gk_g, gk_k, gk_w)
+    if g_mask.device.type == "cpu":
+        return existing_node_feasibility_partial_reference(*args, with_base=with_base)
+    return _launch_existing_partial(*args, with_base=with_base)
+
+
+def mesh_fold(fail_t, fail_c, tonly, n_fit, p_tol, nfail=(), cap=None, n_tol=None):
+    """The mesh's partials folded into the replicated tables
+    (``mesh_fold_reference``'s contract): the plain version for CPU
+    tensors, one launch of csrc/mesh_fold.cu for CUDA tensors, all on
+    ``p_tol``'s device."""
+    if p_tol.device.type == "cpu":
+        return mesh_fold_reference(fail_t, fail_c, tonly, n_fit, p_tol, nfail, cap, n_tol)
+    return _launch_mesh_fold(fail_t, fail_c, tonly, n_fit, p_tol, nfail, cap, n_tol)
+
+
 def _fresh_entry():
     """kt_fresh_feasibility with its argument types: 11 ints, then the 21
     inputs, the 3 outputs and the stream as pointers."""
@@ -390,6 +563,13 @@ def _existing_entry():
                        (ctypes.c_int,) * 7 + (ctypes.c_void_p,) * 14)
 
 
+def _fresh_partial_entry():
+    """kt_fresh_feasibility_partial with its argument types: 12 ints,
+    then the 21 inputs, the 4 outputs and the stream as pointers."""
+    return _build.bind("fresh_feasibility", "kt_fresh_feasibility_partial",
+                       (ctypes.c_int,) * 12 + (ctypes.c_void_p,) * 26)
+
+
 def _launch_fresh(
     g_def, g_neg, g_mask, g_req,
     p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
@@ -399,6 +579,8 @@ def _launch_fresh(
     gk_g, gk_k, gk_w, goff_idx,
     zone_kid: int,
     ct_kid: int,
+    partial: bool = False,
+    with_base: bool = True,
 ):
     G, K, V1 = g_mask.shape
     P, R = p_daemon.shape
@@ -415,6 +597,25 @@ def _launch_fresh(
         _build.check(t, name, dtype, shape, dev)
     if not (0 <= zone_kid < K and 0 <= ct_kid < K):
         raise ValueError(f"zone_kid {zone_kid} / ct_kid {ct_kid} outside K={K}")
+    if partial:
+        # B1's partial mode: the failure counts, and with the base the
+        # type-only parts; nothing finished
+        i32 = torch.int32
+        fail_t = torch.empty((P, G, T), dtype=i32, device=dev)
+        fail_c = torch.empty((P, G), dtype=i32, device=dev)
+        tonly = torch.empty((P, G, T), dtype=torch.bool, device=dev) if with_base else None
+        n_fit = torch.empty((P, G, T), dtype=i32, device=dev) if with_base else None
+        with _build.device_scope(dev):
+            rc = _fresh_partial_entry()(
+                P, G, T, K, V1, R, O, L, LZ, zone_kid, ct_kid, int(with_base),
+                *(t.data_ptr() for t in ins),
+                fail_t.data_ptr(), fail_c.data_ptr(),
+                0 if tonly is None else tonly.data_ptr(),
+                0 if n_fit is None else n_fit.data_ptr(),
+                _build.raw_stream(dev),
+            )
+        _build.launched("fresh_partial", rc)
+        return fail_t, fail_c, tonly, n_fit
     compat_pg = torch.empty((P, G), dtype=torch.bool, device=dev)
     type_ok = torch.empty((P, G, T), dtype=torch.bool, device=dev)
     n_fit = torch.empty((P, G, T), dtype=torch.int32, device=dev)
@@ -469,6 +670,104 @@ def _launch_existing(
         )
     _build.launched("existing_feasibility", rc, scenarios=S)
     return cap_ng
+
+
+def _existing_partial_entry():
+    """kt_existing_feasibility_partial with its argument types: 7 ints,
+    then the 11 inputs, the 2 outputs and the stream as pointers."""
+    return _build.bind("existing_feasibility", "kt_existing_feasibility_partial",
+                       (ctypes.c_int,) * 7 + (ctypes.c_void_p,) * 14)
+
+
+def _launch_existing_partial(
+    g_def, g_neg, g_mask, g_req,
+    n_def, n_mask, n_avail, n_base,
+    gk_g, gk_k, gk_w,
+    with_base: bool,
+):
+    G, K, V1 = g_mask.shape
+    N, R = n_avail.shape
+    L = gk_g.shape[0]
+    dev = g_mask.device
+    ins = (g_def, g_neg, g_mask, g_req, n_def, n_mask, n_avail, n_base, gk_g, gk_k, gk_w)
+    names = _EXIST_NAMES[:8] + _EXIST_NAMES[9:]
+    dtypes = _EXIST_DTYPES[:8] + _EXIST_DTYPES[9:]
+    for t, name, dtype, shape in zip(ins, names, dtypes, (
+            (G, K), (G, K), (G, K, V1), (G, R), (N, K), (N, K, V1), (N, R), (N, R),
+            (L,), (L,), (L,))):
+        _build.check(t, name, dtype, shape, dev)
+    nfail = torch.empty((N, G), dtype=torch.int32, device=dev)
+    cap = torch.empty((N, G), dtype=torch.int32, device=dev) if with_base else None
+    with _build.device_scope(dev):
+        rc = _existing_partial_entry()(
+            N, G, K, V1, R, L, int(with_base),
+            *(t.data_ptr() for t in ins),
+            nfail.data_ptr(), 0 if cap is None else cap.data_ptr(),
+            _build.raw_stream(dev),
+        )
+    _build.launched("existing_partial", rc)
+    return nfail, cap
+
+
+def _mesh_fold_entry():
+    """kt_mesh_fold with its argument types: 7 ints, the 5 host arrays of
+    shard pointers, then p_tol, cap, n_tol, the 4 outputs and the stream."""
+    return _build.bind("mesh_fold", "kt_mesh_fold",
+                       (ctypes.c_int,) * 7 + (ctypes.c_void_p,) * 13)
+
+
+def _pointers(name, tensors, dtype, shape, dev):
+    """A host array of the tensors' device pointers, each checked."""
+    for i, t in enumerate(tensors):
+        _build.check(t, f"{name}[{i}]", dtype, shape, dev)
+    return (ctypes.c_void_p * max(1, len(tensors)))(*(t.data_ptr() for t in tensors))
+
+
+def _launch_mesh_fold(fail_t, fail_c, tonly, n_fit, p_tol, nfail, cap, n_tol):
+    from ..parallel.mesh import MAX_SHARDS
+
+    M, D = len(tonly), len(fail_c)
+    if not 1 <= M <= MAX_SHARDS or D > MAX_SHARDS or D * M > MAX_SHARDS:
+        raise ValueError(f"mesh_fold: {D} x {M} shards (at most {MAX_SHARDS})")
+    if len(fail_t) != D * M or len(n_fit) != M:
+        raise ValueError(f"fold: {len(fail_t)} fail_t, {D} fail_c, {M} tonly, {len(n_fit)} n_fit")
+    dev = p_tol.device
+    P, G = p_tol.shape
+    Tm = tonly[0].shape[-1]
+    T = Tm * M
+    i32 = torch.int32
+    ft = _pointers("fail_t", fail_t, i32, (P, G, Tm), dev)
+    fc = _pointers("fail_c", fail_c, i32, (P, G), dev)
+    to = _pointers("tonly", tonly, torch.bool, (P, G, Tm), dev)
+    nf = _pointers("n_fit", n_fit, i32, (P, G, Tm), dev)
+    _build.check(p_tol, "p_tol", torch.bool, (P, G), dev)
+    N, S, lead = 0, 1, ()
+    if cap is not None:
+        N = cap.shape[0]
+        lead = tuple(n_tol.shape[:-2])
+        S = n_tol.shape[0] if lead else 1
+        if len(nfail) != D:
+            raise ValueError(f"fold: {len(nfail)} nfail for {D} data shards")
+        _build.check(cap, "cap", i32, (N, G), dev)
+        _build.check(n_tol, "n_tol", torch.bool, lead + (N, G), dev)
+    nfl = _pointers("nfail", list(nfail) if cap is not None else [], i32, (N, G), dev)
+    compat_pg = torch.empty((P, G), dtype=torch.bool, device=dev)
+    type_ok = torch.empty((P, G, T), dtype=torch.bool, device=dev)
+    n_fit_out = torch.empty((P, G, T), dtype=i32, device=dev)
+    cap_ng = torch.empty(lead + (N, G), dtype=i32, device=dev) if cap is not None else None
+    with _build.device_scope(dev):
+        rc = _mesh_fold_entry()(
+            D, M, P, G, T, N, S,
+            ctypes.addressof(ft), ctypes.addressof(fc), ctypes.addressof(to),
+            ctypes.addressof(nf), ctypes.addressof(nfl),
+            p_tol.data_ptr(), 0 if cap is None else cap.data_ptr(),
+            0 if cap is None else n_tol.data_ptr(),
+            compat_pg.data_ptr(), type_ok.data_ptr(), n_fit_out.data_ptr(),
+            0 if cap_ng is None else cap_ng.data_ptr(),
+            _build.raw_stream(dev),
+        )
+    _build.launched("mesh_fold", rc)
+    return compat_pg, type_ok, n_fit_out, cap_ng
 
 
 def _dense_fresh_entry():

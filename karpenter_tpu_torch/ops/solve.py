@@ -24,6 +24,15 @@ The class-batched variant (``solve_core_classed``, B5 in place of B4)
 runs the same dispatch over the driver's class partition: batches of many
 small groups sharing few feasibility classes.
 
+Over the solver mesh (B10, parallel/mesh.py: ``solve_core_mesh``,
+``solve_scenarios_core_mesh_packed``) each of the D x M shards of a
+scenario block launches B1's partial mode over its live-pair and type
+slices (and D of them B2's), one fold (csrc/mesh_fold.cu) finishes the
+tables on the block's lead device, and B4 and B6 run there once. A row
+update of a buffer sharded on its leading axis applies shard-locally
+(``delta_apply_rows_sharded``): each shard's B8 launch gets only its own
+rows.
+
 minValues floors and the reservation ledger ride the same dispatch
 (B4, and B5 for minValues). So does the tiled mode
 (``tile_feasibility``, the HBM-scaling route the driver takes when the
@@ -42,9 +51,12 @@ from .. import _build, faults, obs
 from ..solver.encode import SOLVE_ARG_NAMES
 from .feasibility import (
     existing_node_feasibility,
+    existing_node_feasibility_partial,
     existing_node_feasibility_sparse,
     fresh_claim_feasibility,
+    fresh_claim_feasibility_partial,
     fresh_claim_feasibility_sparse,
+    mesh_fold,
 )
 from .packing import PACK_HEAD, PACK_TAIL, TileInputs, classed_results, pack, pack_classed
 
@@ -407,6 +419,199 @@ def _launch_apply_rows(arr, idx, rows):
     return out
 
 
+def _decompose_rows_by_shard(idx, rows, block: int, n_shards: int):
+    """Global row index -> (shard, local row): per-shard local indices,
+    values, and live masks, padded to a shared pow2 bucket so nearby
+    delta sizes share one compiled program. A non-empty shard pads with
+    REPEATS of its own first (index, row) pair — idempotent duplicates,
+    exactly like the plain path's bucket padding — because padding with
+    masked writes of the CURRENT row-0 value would race a real update to
+    local row 0 under duplicate-index scatter semantics (the old value
+    could win and silently revert the delta). Only fully-empty shards
+    carry live=False slots (their row-0 rewrite of the current value is
+    conflict-free by construction)."""
+    import numpy as _np
+
+    per = [
+        _np.flatnonzero((idx >= j * block) & (idx < (j + 1) * block))
+        for j in range(n_shards)
+    ]
+    m = max((len(p) for p in per), default=0)
+    bucket = 1
+    while bucket < m:
+        bucket *= 2
+    lidx = _np.zeros((n_shards, bucket), _np.int32)
+    live = _np.zeros((n_shards, bucket), bool)
+    lrows = _np.zeros((n_shards, bucket) + rows.shape[1:], rows.dtype)
+    for j, p in enumerate(per):
+        k = len(p)
+        if not k:
+            continue
+        lidx[j, :k] = idx[p] - j * block
+        lrows[j, :k] = rows[p]
+        lidx[j, k:] = lidx[j, 0]
+        lrows[j, k:] = lrows[j, 0]
+        live[j, :] = True
+    return lidx, lrows, live
+
+
+def delta_apply_rows_sharded(pieces, idx, rows):
+    """``delta_apply_rows`` on a buffer sharded on its leading axis: the
+    shards' blocks ``pieces`` (equal row counts, each on its shard's
+    device), updated at the global rows ``idx`` (numpy int32) with
+    ``rows`` (numpy). The global index decomposes on the host into (shard,
+    local row) (``_decompose_rows_by_shard``); each shard with a row to
+    change gets one B8 launch over its own (local row, value) pairs, the
+    bucket's idempotent repeats included, and no other work; a shard with
+    none keeps its buffer. Returns the new list of blocks."""
+    import numpy as np
+
+    idx = np.asarray(idx)
+    if not len(idx):
+        return list(pieces)
+    rows = np.asarray(rows)
+    block = pieces[0].shape[0]
+    lidx, lrows, live = _decompose_rows_by_shard(idx, rows, block, len(pieces))
+    return [
+        delta_apply_rows(piece, lidx[j], lrows[j]) if live[j].any() else piece
+        for j, piece in enumerate(pieces)
+    ]
+
+
+# -- the solver mesh (B10) ----------------------------------------------------
+#
+# parallel/mesh.py places the padded args (``MeshArgs``); these run one
+# solve over them. Scenario block s's feasibility stage: with one shard,
+# the single-device launches on its device; else each shard (s, d, m) its
+# partials over its slices (B1's partial mode on every shard, B2's on the
+# model-0 shard of each data slice; the dense route B3 on the types of the
+# model shards of data slice 0, whose tables are final), copied onto the
+# block's lead device and folded there by one mesh_fold launch. The scan
+# and the wire pack then run once, on the block's lead device.
+
+_EXIST_PARTIAL_ARGS = ("g_def", "g_neg", "g_mask", "g_req", "n_def", "n_mask", "n_avail",
+                       "n_base")
+
+
+def _mesh_tables(margs, s: int, a, zone_kid, ct_kid, sparse_groups, tile_feasibility):
+    """Scenario block ``s``'s tables on its lead device; ``a`` is the
+    block's whole args there."""
+    mesh = margs.mesh
+    _, D, M = mesh.devices.shape
+    if tile_feasibility or D * M == 1:
+        return _feasibility_tables(a, zone_kid, ct_kid, sparse_groups, tile_feasibility)
+    lead = mesh.devices[s, 0, 0]
+    if not sparse_groups:
+        # the dense route: B3 over each model shard's types; final tables
+        # gathered by the fold (no partial sums: D = 0)
+        parts = [
+            fresh_claim_feasibility(*(margs.at(n, s, 0, m) for n in _FRESH_ARGS),
+                                    zone_kid=zone_kid, ct_kid=ct_kid)
+            for m in range(M)
+        ]
+        compat_pg, type_ok, n_fit, _ = mesh_fold(
+            [], [], [p[1].to(lead) for p in parts], [p[2].to(lead) for p in parts],
+            parts[0][0].to(lead),
+        )
+        if a["n_avail"].shape[0]:
+            cap_ng = existing_node_feasibility(*(a[n] for n in _EXIST_ARGS), a["well_known"])
+        else:
+            cap_ng = _no_nodes(a)
+        return compat_pg, type_ok, n_fit, cap_ng
+    fail_t, fail_c, tonly, n_fit = [], [], [], []
+    for d in range(D):
+        for m in range(M):
+            ft, fc, to, nf = fresh_claim_feasibility_partial(
+                *(margs.at(n, s, d, m) for n in _FRESH_ARGS + _SPARSE_INDEX + ("goff_idx",)),
+                zone_kid=zone_kid, ct_kid=ct_kid, with_base=d == 0,
+            )
+            fail_t.append(ft.to(lead))
+            if m == 0:
+                fail_c.append(fc.to(lead))
+            if d == 0:
+                tonly.append(to.to(lead))
+                n_fit.append(nf.to(lead))
+    nfail, cap = [], None
+    if a["n_avail"].shape[0]:
+        for d in range(D):
+            nf_d, cap_d = existing_node_feasibility_partial(
+                *(margs.at(n, s, d, 0) for n in _EXIST_PARTIAL_ARGS + _SPARSE_INDEX),
+                with_base=d == 0,
+            )
+            nfail.append(nf_d.to(lead))
+            if d == 0:
+                cap = cap_d.to(lead)
+    compat_pg, type_ok, n_fit, cap_ng = mesh_fold(
+        fail_t, fail_c, tonly, n_fit, a["p_tol"], nfail, cap, a["n_tol"])
+    return compat_pg, type_ok, n_fit, cap_ng if cap is not None else _no_nodes(a)
+
+
+def _no_nodes(a):
+    """The empty existing-node table, with n_tol's scenario axis."""
+    return torch.zeros(
+        tuple(a["n_tol"].shape[:-2]) + (0, a["g_mask"].shape[0]),
+        dtype=torch.int32, device=a["g_mask"].device,
+    )
+
+
+def _block_solve(margs, s, nmax, zone_kid, ct_kid, has_domains=True, has_contrib=False,
+                 tile_feasibility=False, wf_iters=32, sparse_groups=False):
+    a = {n: margs.whole(n, s) for n in SOLVE_ARG_NAMES}
+    tables = _mesh_tables(margs, s, a, zone_kid, ct_kid, sparse_groups, tile_feasibility)
+    return pack(
+        *pack_args(a, *tables),
+        nmax=nmax, zone_kid=zone_kid, ct_kid=ct_kid, has_domains=has_domains,
+        has_contrib=has_contrib, tile_feasibility=tile_feasibility, wf_iters=wf_iters,
+    )
+
+
+def solve_core_mesh(
+    margs,
+    mesh,
+    nmax: int,
+    zone_kid: int,
+    ct_kid: int,
+    has_domains: bool = True,
+    has_contrib: bool = False,
+    tile_feasibility: bool = False,
+    wf_iters: int = 32,
+    sparse_groups: bool = False,
+):
+    """``solve_core`` over ``mesh`` (parallel/mesh.py:sharded_solve_fn):
+    the args placed on it (``margs``), the 10 outputs on its lead device,
+    equal to the single-device solve's on the padded args."""
+    if margs.mesh != mesh:
+        raise ValueError(f"arguments placed on {margs.mesh}, solve over {mesh}")
+    return _block_solve(margs, 0, nmax, zone_kid, ct_kid, has_domains, has_contrib,
+                        tile_feasibility, wf_iters, sparse_groups)
+
+
+def solve_core_mesh_packed(margs, mesh, fills_dtype=torch.int32, **statics):
+    return wire_pack(solve_core_mesh(margs, mesh, **statics), fills_dtype)
+
+
+def solve_scenarios_core_mesh_packed(
+    margs, mesh, fills_dtype=torch.int32, batch_topo: bool = False, **statics
+):
+    """``solve_scenarios_core_packed`` over ``mesh``: scenario block s of
+    the 'scenario' axis solved by its own devices (its stacked args are
+    the block's scenarios), the blocks' outputs gathered on the lead
+    device in scenario order."""
+    if margs.mesh != mesh:
+        raise ValueError(f"arguments placed on {margs.mesh}, solve over {mesh}")
+    batched = SCENARIO_TOPO_BATCHED_ARGS if batch_topo else SCENARIO_BATCHED_ARGS
+    if set(batched) != set(margs.stacked):
+        raise ValueError(f"stacked args {sorted(margs.stacked)}, expected {sorted(batched)}")
+    outs = [
+        wire_pack(_block_solve(margs, s, **statics), fills_dtype)
+        for s in range(mesh.devices.shape[0])
+    ]
+    if len(outs) == 1:
+        return outs[0]
+    lead = mesh.lead
+    return tuple(torch.cat([o[i].to(lead) for o in outs]) for i in range(len(outs[0])))
+
+
 # -- fault seam -------------------------------------------------------------
 #
 # The kernels stay pure; chaos testing (faults/) hooks the HOST side of the
@@ -434,3 +639,24 @@ def dispatch_scenarios_packed(*args, **kw):
     with obs.span("kernel.dispatch", kernel="scenarios"):
         out = solve_scenarios_core_packed(*args, **kw)
     return faults.mutate(faults.SOLVER_OUTPUT, out, kernel="scenarios")
+
+
+def dispatch_mesh_packed(fn, args, mesh):
+    """The sharded solve (parallel/mesh.py:sharded_solve_packed_fn over
+    ``mesh``; ``args`` the padded args or a one-element sequence of their
+    MeshArgs) behind the same fault and trace seams as its single-device
+    twin."""
+    faults.hit(faults.SOLVER_DISPATCH, kernel="mesh")
+    with obs.span("kernel.dispatch", kernel="mesh"):
+        out = fn(*args)
+    return faults.mutate(faults.SOLVER_OUTPUT, out, kernel="mesh")
+
+
+def dispatch_scenarios_mesh_packed(fn, args, mesh):
+    """The scenario-sharded dispatch (sharded_scenarios_fn over ``mesh``):
+    the probe set of a consolidation search over the mesh's leading
+    'scenario' axis in one submit."""
+    faults.hit(faults.SOLVER_SCENARIOS, kernel="scenarios-mesh")
+    with obs.span("kernel.dispatch", kernel="scenarios-mesh"):
+        out = fn(*args)
+    return faults.mutate(faults.SOLVER_OUTPUT, out, kernel="scenarios-mesh")

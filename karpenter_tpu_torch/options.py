@@ -1,4 +1,4 @@
-# Copied from karpenter_tpu/options.py, --solver-backend takes the port's backends ("kernels", "native") and --solver-mesh raises NotImplementedError.
+# Copied from karpenter_tpu/options.py, --solver-backend takes the port's backends ("kernels", "native").
 """Operator configuration: CLI flags with environment-variable fallback.
 
 Plays the role of pkg/operator/options (options.go:50-161): every knob is a
@@ -136,8 +136,8 @@ class Options:
     # kwok-style extension (kwok/options/options.go)
     instance_types_file_path: str = ""
     # solver: "kernels" (the hand-written CUDA kernels) or "native" (C++
-    # host core); solver-mesh "auto", the multi-GPU mesh, is not ported
-    # (ROADMAP.md item A13) and raises, "" = single device
+    # host core); solver-mesh "auto" shards solves over every CUDA card
+    # when more than one is present (SolverConfig.mesh), "" = single device
     solver_backend: str = "kernels"
     solver_mesh: str = ""
     # gRPC solver-sidecar target (host:port); "" = solve in-process
@@ -169,11 +169,6 @@ class Options:
             raise ValueError(
                 f"invalid solver mesh {self.solver_mesh!r},"
                 " must be '' or 'auto'"
-            )
-        if self.solver_mesh:
-            raise NotImplementedError(
-                "--solver-mesh: the multi-GPU mesh (B10) is not ported to"
-                " PyTorch yet (ROADMAP.md item A13)"
             )
 
 

@@ -68,8 +68,17 @@ A batch whose feasibility tables would pass 1.5 GiB (``P * G * T * 5``
 bytes, the JAX package's gate) takes the tiled mode on either path: no
 table launch, and the scan builds each step's rows itself.
 
-Not in this slice, raising NotImplementedError: the multi-GPU mesh
-(ROADMAP.md item A13).
+``SolverConfig(mesh=...)`` shards the solve over a solver mesh
+(parallel/mesh.py, kernel B10), as the JAX package's mesh does: the args
+padded for the mesh and placed on it by the residency store, the
+feasibility stage split over the shards (B1's and B2's partial modes over
+live-pair and type slices) and folded once on the lead device
+(csrc/mesh_fold.cu), the scan and the wire pack there; no class-batched
+scan and no relaxation bulk under a mesh, as in the JAX package.
+Consolidation's batches cut the scenario axis over the mesh's devices
+(``scenario_mesh``). ``mesh="auto"`` builds a mesh over every CUDA card
+when there are two or more, and is no mesh on one card or on the CPU
+(``_resolve_mesh``).
 """
 
 from __future__ import annotations
@@ -322,12 +331,6 @@ class EncodeCache:
 _CLASS_ARG_NAMES = ("class_start", "class_len", "class_dyn", "class_dkey", "inv_idx")
 
 
-def _not_in_slice(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md item {item})"
-    )
-
-
 @dataclass
 class SolverConfig:
     # "cuda": the hand-written kernels on the current CUDA device (or
@@ -360,12 +363,20 @@ class SolverConfig:
     health: Optional[object] = None
     # per-call gRPC deadline for RemoteSolver dispatches (seconds)
     solve_deadline: float = 30.0
-    # not in this slice: set, it raises NotImplementedError
+    # the solver mesh (parallel/mesh.py:make_mesh) to shard the solve
+    # over, or "auto" to build one over every CUDA card when there are two
+    # or more; None (and "auto" on one card or on the CPU) is one device.
+    # Its devices are of ``device``'s kind. Only read on the kernels
+    # backend.
     mesh: Optional[object] = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise _not_in_slice("the multi-GPU mesh (B10)", "A13")
+        from ..parallel.mesh import Mesh
+
+        if not (self.mesh is None or isinstance(self.mesh, Mesh) or self.mesh == "auto"):
+            raise ValueError(
+                f"SolverConfig(mesh={self.mesh!r}): None, 'auto' or a parallel.mesh.Mesh"
+            )
         dev = torch.device(self.device)
         if (dev.type == "cuda" and self.backend != "native"
                 and not torch.cuda.is_available()):
@@ -375,6 +386,10 @@ class SolverConfig:
             )
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported solver device {self.device!r}")
+        if isinstance(self.mesh, Mesh) and self.mesh.kind != dev.type:
+            raise ValueError(
+                f"a mesh of {self.mesh.kind} devices under device={self.device!r}"
+            )
 
 
 def _clone_existing_node(en):
@@ -668,6 +683,20 @@ class TorchSolver:
         snap_run = snap.padded(G, N)
         args = list(snap_run.solve_args(a_tzc, res_cap0, a_res))
 
+        # scenario-major mesh: the configured mesh's devices re-factorize
+        # onto the leading 'scenario' axis (parallel/mesh.py:scenario_mesh),
+        # each block of scenarios solved by its own devices; the shared
+        # args pad for it, the per-scenario stacks are cut on 'scenario'
+        mesh = self._resolve_mesh()
+        smesh = None
+        if mesh is not None:
+            from ..parallel.mesh import pad_args_for_mesh, scenario_mesh
+
+            smesh = scenario_mesh(mesh, enc._next_pow2(
+                len(scenarios), floor=self._SCENARIO_FLOOR
+            ))
+            args = list(pad_args_for_mesh(tuple(args), smesh))
+
         # per-scenario arrays over the shared encoding
         uid_to_group: Dict[str, int] = {}
         for gi, g in enumerate(snap.groups):
@@ -730,15 +759,24 @@ class TorchSolver:
         ):
             args = store.stage(
                 enc.SOLVE_ARG_NAMES, args, delta, self.device,
-                skip=frozenset(skip),
+                skip=frozenset(skip), mesh=smesh,
             )
-            for i, name in enumerate(enc.SOLVE_ARG_NAMES):
-                if name in skip:
-                    args[i] = put(name, args[i], self.device)
+            if smesh is None:
+                for i, name in enumerate(enc.SOLVE_ARG_NAMES):
+                    if name in skip:
+                        args[i] = put(name, args[i], self.device)
+            else:
+                from ..parallel.mesh import MeshArgs, place
+
+                placed = dict(zip(enc.SOLVE_ARG_NAMES, args))
+                for name in sorted(skip):
+                    placed[name] = place(name, placed[name], smesh, stacked=True)
+                args = MeshArgs(smesh, placed, stacked=frozenset(skip))
             self._sync_if_traced()
 
         token = {
             "batch_topo": batch_topo,
+            "mesh": smesh,
             "scenarios": list(scenarios),
             "snap": snap,
             "snap_run": snap_run,
@@ -774,8 +812,17 @@ class TorchSolver:
     def _submit_scenario_dispatch(self, token):
         """Launch one scenario dispatch; its outputs stay on the device
         (on CUDA the launches return before the card finishes)."""
-        from ..ops.solve import dispatch_scenarios_packed
+        from ..ops.solve import dispatch_scenarios_mesh_packed, dispatch_scenarios_packed
 
+        smesh = token.get("mesh")
+        if smesh is not None:
+            from ..parallel.mesh import sharded_scenarios_fn
+
+            fn = sharded_scenarios_fn(
+                smesh, token["fills_dtype"], token["batch_topo"],
+                nmax=token["nmax"], **token["statics"],
+            )
+            return dispatch_scenarios_mesh_packed(fn, (token["args"],), smesh)
         return dispatch_scenarios_packed(
             *token["args"], nmax=token["nmax"],
             fills_dtype=token["fills_dtype"],
@@ -1452,11 +1499,26 @@ class TorchSolver:
                 return native.solve_core_native(*args, nmax=nmax, **statics)
 
         elif self.config.backend == "kernels":
+            mesh = self._resolve_mesh()
+            if mesh is not None and not statics["sparse_groups"]:
+                # the tiled (dense) route never reads the 'data'-sharded
+                # live-pair index: the devices shard the type tables
+                from ..parallel.mesh import dense_mesh
+
+                mesh = dense_mesh(mesh)
             snap_run = snap.padded(G, N)
+            host_args = snap_run.solve_args(a_tzc, res_cap0, a_res)
+            if mesh is not None:
+                # shard-divisible axes before staging: T to 'model', the
+                # live-pair axis to 'data' (weight-0 pairs, infeasible types)
+                from ..parallel.mesh import pad_args_for_mesh
+
+                host_args = pad_args_for_mesh(host_args, mesh)
             # device residency: the encoded cluster stays on the device
             # between solves (buffers keyed by the encode delta's class
             # versions, solver/residency.py), so this stage moves only the
-            # changed rows, or nothing on the content-hash fast path
+            # changed rows, or nothing on the content-hash fast path; under
+            # a mesh each buffer is held where the mesh's devices read it
             store = self._shared_cache.lease_device_store()
             with obs.span(
                 "solve.transfer",
@@ -1464,9 +1526,8 @@ class TorchSolver:
                 delta_rows=int(delta.delta_rows),
             ):
                 args = store.stage(
-                    enc.SOLVE_ARG_NAMES,
-                    list(snap_run.solve_args(a_tzc, res_cap0, a_res)),
-                    delta, self.device,
+                    enc.SOLVE_ARG_NAMES, list(host_args), delta, self.device,
+                    mesh=mesh,
                 )
                 self._sync_if_traced()
             self._last_incremental = store.last_incremental or delta.reused
@@ -1477,9 +1538,12 @@ class TorchSolver:
             )
             from ..ops.solve import dispatch_classed_packed, dispatch_packed
 
-            # the class-batched scan where the JAX router takes it; its
-            # class arrays are per solve, staged beside the resident args
-            classed_args = self._classed_partition(snap_run, res_cap0)
+            # the class-batched scan where the JAX router takes it (never
+            # under a mesh); its class arrays are per solve, staged beside
+            # the resident args
+            classed_args = (
+                self._classed_partition(snap_run, res_cap0) if mesh is None else None
+            )
             if classed_args is not None:
                 cls_host, lmax = classed_args
                 cls_arrays = [
@@ -1494,7 +1558,7 @@ class TorchSolver:
             # Only the dispatch's g_count ARG is replaced, by a fresh
             # tensor: the resident buffers keep the true encode, so warm
             # REUSE/row-delta staging is untouched.
-            if self.config.relax is not False:
+            if self.config.relax is not False and mesh is None:
                 relax_plan = relax_mod.plan_bulk(
                     snap_run, res_cap0=res_cap0, n_exist=len(snap.existing_names),
                 )
@@ -1505,8 +1569,21 @@ class TorchSolver:
                 g_count_res[relax_plan.easy_gids] = 0
                 args[0] = put("g_count", g_count_res, self.device)
 
+            if mesh is not None:
+                from ..ops.solve import dispatch_mesh_packed
+                from ..parallel.mesh import MeshArgs, sharded_solve_packed_fn
+
+                margs = MeshArgs(mesh, dict(zip(enc.SOLVE_ARG_NAMES, args)))
+
             def call(nmax):
-                if classed_args is not None:
+                if mesh is not None:
+                    # the sharded solve (B10): one mesh dispatch, its
+                    # outputs on the lead device, the same single drain
+                    out = dispatch_mesh_packed(
+                        sharded_solve_packed_fn(mesh, fills_dtype, nmax=nmax, **statics),
+                        (margs,), mesh,
+                    )
+                elif classed_args is not None:
                     out = dispatch_classed_packed(
                         *args, *cls_arrays, nmax=nmax, lmax=lmax,
                         fills_dtype=fills_dtype, **statics,
@@ -1515,18 +1592,7 @@ class TorchSolver:
                     out = dispatch_packed(
                         *args, nmax=nmax, fills_dtype=fills_dtype, **statics
                     )
-                (c_pool, packed, n_open, overflow,
-                 exist_fills, claim_fills, unplaced, c_dzone, c_dct,
-                 c_resv) = self._drain_host(out)
-                # the type mask stays bit-packed: _decode unpacks only the
-                # distinct rows it actually touches
-                return (
-                    c_pool.astype(np.int32), packed, n_open, overflow,
-                    exist_fills.astype(np.int32),
-                    claim_fills.astype(np.int32), unplaced,
-                    c_dzone.astype(np.int32), c_dct.astype(np.int32),
-                    c_resv.astype(bool),
-                )
+                return self._widen(self._drain_host(out))
 
         else:
             raise ValueError(
@@ -1856,6 +1922,42 @@ class TorchSolver:
             ):
                 return None
         return (cs, cl, cdyn, cdk, inv), lmax
+
+    def _resolve_mesh(self):
+        """The mesh to shard the solve over, or None for one device
+        (karpenter_tpu/solver/driver.py:_resolve_mesh). "auto" builds a
+        ('scenario', 'data', 'model') mesh over every CUDA card once there
+        are two or more, cached on the solver; on one card, and on the
+        CPU, it is None: the plain single-device path."""
+        m = self.config.mesh
+        if m is None:
+            return None
+        if m == "auto":
+            cached = getattr(self, "_auto_mesh", None)
+            if cached is not None:
+                return cached
+            if self.device.type != "cuda" or torch.cuda.device_count() < 2:
+                return None
+            from ..parallel.mesh import make_mesh
+
+            self._auto_mesh = make_mesh()
+            return self._auto_mesh
+        return m
+
+    @staticmethod
+    def _widen(drained):
+        """The drained wire-packed outputs widened for the guard and decode;
+        the type mask stays bit-packed (``_decode`` unpacks only the rows
+        it touches)."""
+        (c_pool, packed, n_open, overflow,
+         exist_fills, claim_fills, unplaced, c_dzone, c_dct, c_resv) = drained
+        return (
+            c_pool.astype(np.int32), packed, n_open, overflow,
+            exist_fills.astype(np.int32),
+            claim_fills.astype(np.int32), unplaced,
+            c_dzone.astype(np.int32), c_dct.astype(np.int32),
+            c_resv.astype(bool),
+        )
 
     def _fit_matrix(self, snap: enc.EncodedSnapshot) -> np.ndarray:
         """[G, T] unconstrained pods-per-node fit (inf where a group has no

@@ -1,4 +1,4 @@
-# Copied from karpenter_tpu/solver/residency.py, without DispatchQueue or the mesh; buffers are torch tensors.
+# Copied from karpenter_tpu/solver/residency.py, without DispatchQueue; buffers are torch tensors, placed on a mesh by parallel/mesh.py:place.
 """Device-resident solve arguments.
 
 The delta-encode layer (solver/encode.py:ClusterEncoding) makes the HOST
@@ -13,6 +13,14 @@ snapshot:
   only the changed rows and applies them on device
   (``ops/solve.py:delta_apply_rows``, kernel B8 on CUDA, always out of
   place); everything else is a full copy onto the device.
+- Under a solver mesh (parallel/mesh.py) the same store keeps each
+  argument as its placement on the mesh: a replicated argument once per
+  distinct device, a sharded one as one tensor per (device, slice), and
+  the whole type tables on the lead device for the scan. REUSE and row
+  deltas come out as on one device: a row delta patches each copy of a
+  replicated argument (one B8 launch per distinct device); a sharded
+  argument (whose class never carries row deltas: static, or
+  NO_ROW_DELTA) restages whole.
 
 The store never reads device values back: the single readback stays in
 solver/driver.py.
@@ -86,9 +94,11 @@ class DeviceResidentArgs:
         # are out of place (ops/solve.py) so a launched dispatch's
         # reference to a replaced buffer stays valid.
         self._lock = threading.Lock()
-        # the device of the resident buffers: staging for another device
-        # sheds every buffer first
+        # the device and the mesh signature of the resident buffers:
+        # staging for another device or mesh (or switching mesh <->
+        # single device) sheds every buffer first
         self._device: Optional[torch.device] = None
+        self._mesh_key: object = None
         self.last_incremental = False
         self.last_delta_rows = 0
         self.last_full_puts = 0
@@ -127,6 +137,7 @@ class DeviceResidentArgs:
         delta,
         device,
         skip: frozenset = frozenset(),
+        mesh=None,
     ) -> List:
         """Device-resident argument list aligned with ``names``.
 
@@ -134,23 +145,41 @@ class DeviceResidentArgs:
         g_count/n_tol with per-scenario stacks that are staged by the
         caller). Emits one ``solve.delta_apply`` span covering the
         row-level updates (delta_rows/reused attrs ride it for the trace
-        smoke and the churn bench). A ``device`` other than the resident
-        buffers' sheds every buffer first.
+        smoke and the churn bench). A ``device`` or ``mesh`` other than the
+        resident buffers' sheds every buffer first.
+
+        With ``mesh`` (parallel/mesh.py:Mesh; the host args already padded
+        for it) each entry is the argument's placement on the mesh, a dict
+        {(device, slice key): tensor} (parallel/mesh.py:MeshArgs reads it).
         """
         from ..ops.solve import delta_apply_rows
 
         device = torch.device(device)
         with self._lock:
-            if device != self._device:
+            if device != self._device or mesh != self._mesh_key:
                 self._dev_buffers.clear()
                 self._meta.clear()
                 self._device = device
+                self._mesh_key = mesh
+            if mesh is None:
+                return self._stage_locked(
+                    names, host_args, delta, skip,
+                    lambda name, host: put(name, host, device), delta_apply_rows,
+                )
+            from ..parallel.mesh import place, sliced
+
+            def apply_each(placed, rows, vals):
+                return {k: delta_apply_rows(t, rows, vals) for k, t in placed.items()}
+
             return self._stage_locked(
-                names, host_args, delta, skip, device, delta_apply_rows
+                names, host_args, delta, skip,
+                lambda name, host: place(name, host, mesh), apply_each,
+                row_ok=lambda name: not sliced(name, mesh),
             )
 
     def _stage_locked(
-        self, names, host_args, delta, skip, device, delta_apply_rows
+        self, names, host_args, delta, skip, put_fn, delta_apply_rows,
+        row_ok=lambda name: True,
     ) -> List:
         out: List = []
         applies: List[Tuple[str, int, np.ndarray, np.ndarray]] = []
@@ -161,6 +190,8 @@ class DeviceResidentArgs:
                 out.append(host)
                 continue
             version, rows = self._class_of(name, delta)
+            if not row_ok(name):
+                rows = None
             meta = self._meta.get(name)
             sig = (version, host.shape, host.dtype)
             if meta is not None and meta == sig:
@@ -190,7 +221,7 @@ class DeviceResidentArgs:
                 applies.append((name, version, host, rows))
                 out.append(None)  # patched below, order preserved
                 continue
-            buf = put(name, host, device)
+            buf = put_fn(name, host)
             self._dev_buffers[name] = buf
             self._meta[name] = sig
             out.append(buf)

@@ -1,6 +1,6 @@
-"""Mini twin of the port's kernel-arg registry without a mesh surface,
-seeded with one drift per ARG12xx rule the port runs (the other surfaces
-live in the sibling files, mirroring encode/native/residency/ops.solve)."""
+"""Mini twin of the port's kernel-arg registry, seeded with one drift per
+ARG12xx rule the port runs (the other surfaces live in the sibling files,
+mirroring encode/native/residency/ops.solve/parallel.mesh)."""
 
 SOLVE_ARG_NAMES = ("g_count", "g_req", "t_def", "gk_w")
 

@@ -103,7 +103,7 @@ SEEDED_BAD = {
     "det": (lambda: det.check_paths(jax_fixture("bad_det.py")),
             {"DET1101", "DET1102", "DET1103", "DET1104"}),
     "args": (lambda: args_registry.check_paths([fixture("argreg_bad")]),
-             {"ARG1201", "ARG1202", "ARG1203"}),
+             {"ARG1201", "ARG1202", "ARG1203", "ARG1204"}),
     "guarded": (lambda: guarded.check_paths(jax_fixture("bad_guarded.py")),
                 {"GRD1301", "GRD1302", "GRD1303"}),
     "atomicity": (lambda: atomicity.check_paths(
@@ -262,7 +262,7 @@ class TestRuleRegistry:
         assert not set(NOT_SHIPPED) & set(rules)
         assert set(cli.PASS_MODULES) == set(cli.PASS_TARGETS)
         assert "tracer" not in cli.PASS_TARGETS and "shapes" not in cli.PASS_TARGETS
-        assert not any("parallel" in t for t in cli.PASS_TARGETS["args"])
+        assert "karpenter_tpu_torch/parallel/mesh.py" in cli.PASS_TARGETS["args"]
 
 
 def _copy(tmp_path, rel, edit=None, name=None):
@@ -342,6 +342,13 @@ def _mutations():
             "            self.g_hcap, self.g_haff,\n", "            self.g_hcap,\n")))
         return args_registry.check_paths(paths)
 
+    def args_mesh(t):
+        paths = [_copy(t, rel) for rel in ("solver/encode.py", "solver/residency.py",
+                                           "native/__init__.py", "ops/solve.py")]
+        paths.append(_copy(t, "parallel/mesh.py", (
+            '    byname["a_res"] = pad_axis(byname["a_res"], 1, model)\n', "")))
+        return args_registry.check_paths(paths)
+
     def plain_phase(t):
         path = _copy(t, "ops/packing.py")
         text = open(path).read()
@@ -398,6 +405,7 @@ def _mutations():
         ("det", unmarked(det.check_paths, "solver/driver.py",
                          "sanctioned[DET1101] any-mismatch early-return"), "DET1101"),
         ("args", args, "ARG1201"),
+        ("args_mesh", args_mesh, "ARG1204"),
         ("guarded", one(guarded.check_paths, "solver/driver.py", (
             _STORE_LEASE, _STORE_LEASE.replace("        with self.lock:\n", "        if True:\n"))),
          "GRD1301"),

@@ -2287,3 +2287,160 @@ def test_twin_small_replay_matches_cpu(cuda):
     for kernel in ("fresh_feasibility", "existing_feasibility", "pack", "wire_pack"):
         assert counts[kernel] > 0, counts
     assert scen["pack"] > 0, scen
+
+
+# -- the solver mesh (B10): B1's and B2's partial modes, the fold --------------
+#
+# mesh_partials makes one sparse_index_case's partials as the mesh cuts it
+# (T padded to the model shards, the live pairs to the data shards); on the
+# CPU tests/test_torch_mesh.py holds them, folded, against JAX's tables.
+
+
+def mesh_partials(a, D, M, zk, ck, device):
+    """Every (data, model) shard's partials of the case ``a`` over its
+    slices on ``device`` — fresh (fail_t, fail_c, tonly, n_fit) in (data,
+    model) order and existing (nfail, cap) per data shard — and the fold's
+    inputs: (shards, fold args)."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.parallel import mesh as pm
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+
+    m = pm.make_mesh(D * M, data=D, devices=["cpu"] * (D * M))
+    # the scan's arguments are not read: empty stand-ins
+    args = [a[n] if n in a else np.zeros((1, 0) if n == "a_res" else (0,), np.int32)
+            for n in SOLVE_ARG_NAMES]
+    pieces = pm.shard_args(pm.pad_args_for_mesh(args, m), m)
+    t = {k: {n: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+             for n, x in zip(SOLVE_ARG_NAMES, v)} for k, v in pieces.items()}
+    shards, fail_t, fail_c, tonly, n_fit, nfail, cap = [], [], [], [], [], [], None
+    for d in range(D):
+        for mi in range(M):
+            out = feas.fresh_claim_feasibility_partial(
+                *(t[0, d, mi][n] for n in B1_NAMES), zone_kid=zk, ct_kid=ck, with_base=d == 0)
+            shards.append(("fresh", d, mi, out))
+            fail_t.append(out[0])
+            if mi == 0:
+                fail_c.append(out[1])
+            if d == 0:
+                tonly.append(out[2])
+                n_fit.append(out[3])
+        out = feas.existing_node_feasibility_partial(
+            *(t[0, d, 0][n] for n in B2_NAMES if n != "n_tol"), with_base=d == 0)
+        shards.append(("existing", d, 0, out))
+        nfail.append(out[0])
+        cap = out[1] if d == 0 else cap
+    whole = t[0, 0, 0]
+    return shards, (fail_t, fail_c, tonly, n_fit, whole["p_tol"], nfail, cap, whole["n_tol"])
+
+
+@pytest.mark.parametrize("case", ["padding-interleaved", "two-templates", "scenario-axis",
+                                  "vocab-2048"])
+@pytest.mark.parametrize("data", [1, 2, 8])
+def test_mesh_partials_and_fold(cuda, case, data, monkeypatch):
+    """B1's and B2's partial modes on every shard, and one fold launch
+    over them, equal their plain versions exactly (junk-filled outputs
+    underneath); the fold equals B1's and B2's own tables on the whole
+    input."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    _junk_empty(monkeypatch)
+    a, zk, ck = sparse_index_case(case)
+    D, M = data, 8 // data
+    _build.reset_launches()
+    got_shards, fold_args = mesh_partials(a, D, M, zk, ck, cuda)
+    assert _build.launches["fresh_partial"] == D * M
+    assert _build.launches["existing_partial"] == D
+    want_shards, want_args = mesh_partials(a, D, M, zk, ck, "cpu")
+    for (kind, d, mi, got), (_, _, _, want) in zip(got_shards, want_shards):
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert (g is None) == (w is None), (kind, d, mi, i)
+            if g is not None:
+                np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                              err_msg=f"{kind}[{d},{mi}] output {i}")
+    folded = feas.mesh_fold(*fold_args)
+    assert _build.launches["mesh_fold"] == 1
+    want = feas.mesh_fold_reference(*want_args)
+    for name, g, w in zip(("compat_pg", "type_ok", "n_fit", "cap_ng"), folded, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=name)
+    T = a["t_alloc"].shape[0]
+    whole = feas.fresh_claim_feasibility_sparse(*_on(a, B1_NAMES, cuda), zone_kid=zk, ct_kid=ck)
+    for name, g, w in zip(("compat_pg", "type_ok", "n_fit"), folded, whole):
+        g = g[:, :, :T] if g.dim() == 3 else g
+        assert torch.equal(g, w), name
+    assert torch.equal(folded[3], feas.existing_node_feasibility_sparse(*_on(a, B2_NAMES, cuda)))
+
+
+def test_mesh_fold_gathers_final_parts(cuda):
+    """With no data shard (D = 0: the dense route's B3 type slices) the
+    fold gathers the model shards' final tables at their type offsets."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    rng = np.random.default_rng(4)
+    P, G, Tm, M = 2, 5, 7, 3
+    tonly = [torch.from_numpy(rng.random((P, G, Tm)) < 0.5) for _ in range(M)]
+    n_fit = [torch.from_numpy(rng.integers(0, 9, (P, G, Tm)).astype(np.int32)) for _ in range(M)]
+    compat = torch.from_numpy(rng.random((P, G)) < 0.7)
+    want = feas.mesh_fold_reference([], [], tonly, n_fit, compat)
+    got = feas.mesh_fold([], [], [x.to(cuda) for x in tonly], [x.to(cuda) for x in n_fit],
+                         compat.to(cuda))
+    assert got[3] is None and want[3] is None
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def test_mesh_fold_refuses_too_many_shards(cuda):
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    one = torch.zeros((1, 1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shards"):
+        feas.mesh_fold([one] * 65, [one[0]] * 65, [one.bool()], [one],
+                       torch.ones((1, 1), dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.parametrize("data", [8, 2])
+def test_mesh_solve_on_one_card(cuda, data):
+    """The sharded solve over 8 positions of one card: the outputs of the
+    packed mesh solve equal the single-device dispatch's on the same
+    padded args, D x M fresh partials, D existing ones, one fold, B4 and
+    B6 once."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops.solve import solve_core_packed
+    from karpenter_tpu_torch.parallel import mesh as pm
+    from karpenter_tpu_torch.solver.args import to_device_args
+
+    args, statics = _snapshot(mixed_pods(300), n_types=40, n_nodes=6)
+    statics = dict(statics, sparse_groups=True)
+    m = pm.make_mesh(8, data=data, devices=[cuda] * 8)
+    padded = pm.pad_args_for_mesh(args, m)
+    fn = pm.sharded_solve_packed_fn(m, torch.int32, **statics)
+    margs = pm.place_args(padded, m)
+    _build.reset_launches()
+    got = fn(margs)
+    counts = dict(_build.launches)
+    want = solve_core_packed(*to_device_args(padded, cuda), fills_dtype=torch.int32, **statics)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), i
+    D, M = data, 8 // data
+    assert counts["fresh_partial"] == D * M and counts["existing_partial"] == D
+    assert counts["mesh_fold"] == 1 and counts["pack"] == 1 and counts["wire_pack"] == 1
+    assert counts["fresh_feasibility"] == 0 and counts["existing_feasibility"] == 0
+
+
+def test_mesh_row_apply_on_one_card(cuda):
+    """The shard-local row apply on 8 blocks of one card: one B8 launch
+    per shard with a row to change, the blocks equal the full update."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops.solve import delta_apply_rows_sharded
+
+    rng = np.random.default_rng(5)
+    host = rng.standard_normal((64, 4)).astype(np.float32)
+    idx = np.asarray([0, 5, 9, 17, 33, 34, 63], np.int32)
+    rows = rng.standard_normal((len(idx), 4)).astype(np.float32)
+    pieces = [torch.from_numpy(host[j * 8:(j + 1) * 8].copy()).to(cuda) for j in range(8)]
+    _build.reset_launches()
+    out = delta_apply_rows_sharded(pieces, idx, rows)
+    assert _build.launches["apply_rows"] == len({int(i) // 8 for i in idx})
+    want = host.copy()
+    want[idx] = rows
+    np.testing.assert_array_equal(torch.cat(out).cpu().numpy(), want)

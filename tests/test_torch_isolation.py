@@ -2,8 +2,9 @@
 
 Nothing under karpenter_tpu_torch/, chip_smoke.py nor tenant_scan.py
 imports jax or the JAX package (the card's machine has no JAX); every
-verbatim copy of a host module, and each function copied into a module
-that is not one, still equals its source; and chip_smoke.py refuses to
+verbatim copy of a host module, and each function or assignment copied
+into a module that is not one (parallel/mesh.py's specs and pads among
+them), still equals its source; and chip_smoke.py refuses to
 report a result where there is no card, or no repo around it.
 """
 
@@ -78,6 +79,18 @@ COPIED_FUNCTIONS = (
     ("solver/workloads.py", "mixed_pods"),
     ("solver/workloads.py", "constrained_mix"),
     ("solver/workloads.py", "diverse_reference_mix"),
+    ("parallel/mesh.py", "pad_axis"),
+    ("parallel/mesh.py", "pad_args_for_mesh"),
+    ("ops/solve.py", "_decompose_rows_by_shard"),
+)
+# module-level assignments copied verbatim into a module that is not a
+# verbatim copy
+COPIED_ASSIGNMENTS = (
+    ("parallel/mesh.py", "AXIS_SCENARIO"),
+    ("parallel/mesh.py", "AXIS_DATA"),
+    ("parallel/mesh.py", "AXIS_MODEL"),
+    ("parallel/mesh.py", "MESH_AXES"),
+    ("parallel/mesh.py", "ARG_SPECS"),
 )
 
 
@@ -92,6 +105,22 @@ def _function_source(path, name):
 @pytest.mark.parametrize("rel,name", COPIED_FUNCTIONS, ids=lambda x: x)
 def test_copied_functions_equal_their_source(rel, name):
     assert _function_source(PORT / rel, name) == _function_source(
+        ROOT / "karpenter_tpu" / rel, name)
+
+
+def _assignment_source(path, name):
+    text = path.read_text()
+    for node in ast.parse(text).body:
+        targets = (node.targets if isinstance(node, ast.Assign)
+                   else [node.target] if isinstance(node, ast.AnnAssign) else [])
+        if any(isinstance(t, ast.Name) and t.id == name for t in targets):
+            return ast.get_source_segment(text, node)
+    raise AssertionError(f"{path.relative_to(ROOT)} assigns no {name}")
+
+
+@pytest.mark.parametrize("rel,name", COPIED_ASSIGNMENTS, ids=lambda x: x)
+def test_copied_assignments_equal_their_source(rel, name):
+    assert _assignment_source(PORT / rel, name) == _assignment_source(
         ROOT / "karpenter_tpu" / rel, name)
 
 

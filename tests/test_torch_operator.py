@@ -166,11 +166,22 @@ def test_invalid_solver_flags(argv, error):
         parse_options(argv)
 
 
-def test_solver_mesh_raises_naming_a13():
+def test_solver_mesh_raises_naming_a13(monkeypatch):
+    """--solver-mesh auto no longer raises: A13 is ported. The flag parses
+    and the operator's SolverConfig carries "auto" on the kernels backend
+    (which resolves to one device on a host with fewer than two cards;
+    tests/test_torch_mesh.py). Building the config needs CUDA, patched in
+    here."""
+    import torch
+
+    from karpenter_tpu_torch.operator import OperatorOptions
     from karpenter_tpu_torch.options import parse_options
 
-    with pytest.raises(NotImplementedError, match="A13"):
-        parse_options(["--solver-mesh", "auto"])
+    opts = parse_options(["--solver-mesh", "auto"])
+    assert opts.solver_mesh == "auto"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cfg = OperatorOptions.from_options(opts).solver_config
+    assert cfg.mesh == "auto" and cfg.backend == "kernels" and cfg.device == "cuda"
 
 
 def test_from_options_maps_the_backend():

@@ -196,13 +196,33 @@ class TestConfig:
         ({"mesh": "auto"}, "A13"), ({"classed": True}, "A8"), ({"relax": True}, "A9"),
     ])
     def test_unported_options_raise(self, kw, item):
-        """The mesh option (A13) raises. The class-batched scan (A8) and
-        the relaxation pre-solver (A9) are ported: classed=True and
-        relax=True solve, deciding as TpuSolver does with the same option
-        (tests/test_torch_classed.py and tests/test_torch_relax.py hold
-        them case by case); relax=True routes identical pods to the bulk
-        and keeps the claims' slot order."""
+        """Every option once left out is ported now, and none raises. The
+        mesh (A13): mesh="auto" solves and decides as TpuSolver's "auto"
+        does, which JAX's 8 virtual CPU devices resolve to a mesh and the
+        port's CPU to one device (relaxation off on both, as under JAX's
+        mesh; tests/test_torch_mesh.py holds the mesh case by case). The
+        class-batched scan (A8) and the relaxation pre-solver (A9):
+        classed=True and relax=True solve, deciding as TpuSolver does with
+        the same option (tests/test_torch_classed.py and
+        tests/test_torch_relax.py hold them case by case); relax=True
+        routes identical pods to the bulk and keeps the claims' slot
+        order."""
         from karpenter_tpu_torch.solver.driver import SolverConfig
+
+        if item == "A13":
+            got = []
+            for pkg in PKGS:
+                solver, pods = _build(pkg, "mixed_pods", 150, 20)
+                solver.config.mesh = "auto"
+                solver.config.relax = False
+                got.append(decisions(solver.solve(pods), pods))
+                if pkg == "karpenter_tpu_torch":
+                    assert solver._resolve_mesh() is None
+                else:
+                    assert solver._resolve_mesh() is not None
+            assert SolverConfig(device="cpu", **kw).mesh == "auto"
+            assert got[0] == got[1] and got[1][0]
+            return
 
         if item in ("A8", "A9"):
             workload = "diverse_reference_mix" if item == "A8" else "identical_pods"
@@ -221,9 +241,6 @@ class TestConfig:
             assert got[0] == got[1] and got[1][0]
             if item == "A9":
                 assert got[1][-1] == 150
-            return
-        with pytest.raises(NotImplementedError, match=item):
-            SolverConfig(device="cpu", **kw)
 
     def test_scenarios_raise(self):
         """The scenario axis is ported (tests/test_torch_scenarios.py), and
