@@ -392,7 +392,10 @@ SHAPE_ROWS = {
     "pack_wide": ("pack", ("team_exists", "team_in", "mv_types")),
 }
 # the one PyTorch call that computes a kernel's function, timed beside it
-LIBRARY = {"apply_rows": "Tensor.index_copy", "mesh_fold": "torch.stack(partials).sum(0)"}
+LIBRARY = {"apply_rows": "Tensor.index_copy",
+           "mesh_fold": "Tensor.sum(0) of the stacked fail_t (no finish)"}
+# the fold's earlier yardstick, over the D x M partials as a list
+LIBRARY_STACK = "torch.stack(partials).sum(0)"
 # B7 is the scenario-batched dispatch of these kernels; pack.cu holds its
 # scenario grid
 B7_SOURCES = ("pack", "existing_feasibility", "wire_pack", "fresh_feasibility")
@@ -4223,13 +4226,33 @@ def mesh_rows(torch_solver_cls, config_cls, m8, m24, device="cuda"):
     ), part, 100)
     one_kernel("B1 partial", rows["fresh_partial"]["device_per_call"])
 
-    # the fold at constrained 50k x 800 over data 8: 8 partials a cell
-    margs8, shards8, err_8 = fresh_shards(m8)
-    fail_t = [s[3][0] for s in shards8]
-    fail_c = [s[3][1] for s in shards8]
-    tonly, n_fit = [shards8[0][3][2]], [shards8[0][3][3]]
+    # the fold at constrained 50k x 800 over data 8: 8 partials a cell,
+    # each shard's written into its slice of the stacked buffers (out=),
+    # as ops/solve.py:_mesh_tables writes them
+    margs8 = pm.place_args(pm.pad_args_for_mesh(host, m8), m8)
+    D, M = m8.shape["data"], m8.shape["model"]
     p_tol = margs8.whole("p_tol")
+    P, G = p_tol.shape
+    slab = (M, P, G, margs8.at("t_alloc", 0, 0, 0).shape[0])
+    fail_t = torch.empty((D,) + slab, dtype=torch.int32, device=p_tol.device)
+    fail_c = torch.empty((D, P, G), dtype=torch.int32, device=p_tol.device)
+    tonly = torch.empty(slab, dtype=torch.bool, device=p_tol.device)
+    n_fit = torch.empty(slab, dtype=torch.int32, device=p_tol.device)
+    err_8 = 0.0
+    for d in range(D):
+        for m in range(M):
+            ins8 = [margs8.at(n, 0, d, m) for n in B1_NAMES]
+            base = d == 0
+            k = feas.fresh_claim_feasibility_partial(
+                *ins8, zone_kid=zk, ct_kid=ck, with_base=base,
+                out=(fail_t[d, m], fail_c[d], tonly[m] if base else None,
+                     n_fit[m] if base else None))
+            r = feas.fresh_claim_feasibility_partial_reference(
+                *ins8, zone_kid=zk, ct_kid=ck, with_base=base)
+            err_8 = max(err_8, max_abs_err([x for x in k if x is not None],
+                                           [x for x in r if x is not None]))
     fold_in = (fail_t, fail_c, tonly, n_fit, p_tol)
+    partials = list(fail_t.view((D * M,) + slab[1:]).unbind(0))
 
     def fold():
         return feas.mesh_fold(*fold_in)[:3]
@@ -4238,17 +4261,20 @@ def mesh_rows(torch_solver_cls, config_cls, m8, m24, device="cuda"):
         return feas.mesh_fold_reference(*fold_in)[:3]
 
     def library():
-        return torch.stack(fail_t).sum(0, dtype=torch.int32)
+        return fail_t.sum(0, dtype=torch.int32)
+
+    def library_stack():
+        return torch.stack(partials).sum(0, dtype=torch.int32)
 
     fout, fref = fold(), fplain()
     whole = feas.fresh_claim_feasibility_sparse(
         *(margs8.whole(n) for n in B1_NAMES), zone_kid=zk, ct_kid=ck)
-    D = len(fail_c)
-    P, G, T = fout[1].shape
+    T = fout[1].shape[2]
     rows["mesh_fold"] = with_device(dict(
         max_abs_err=max(max_abs_err(fout, fref), max_abs_err(fout, whole), err_8),
         ms=cuda_ms(fold, 50), plain_ms=cuda_ms(fplain, 10), library_ms=cuda_ms(library, 50),
-        bound=bound_ms(nbytes(fail_t + fail_c + tonly + n_fit + [p_tol]) + nbytes(fout),
+        library_stack_ms=cuda_ms(library_stack, 50),
+        bound=bound_ms(nbytes([fail_t, fail_c, tonly, n_fit, p_tol]) + nbytes(fout),
                        P * G * T * D + P * G * D),
         shape=(f"constrained 50k x {N_TYPES_C} over data 8: D={D} P={P} G={G} T={T}; "
                "== plain == B1's tables on the whole input"),
@@ -4532,6 +4558,8 @@ def mesh_line(mesh, secs, total_s, smi):
             f"({r['device_timing']}), plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound'][0]:.6f} ms ({r['bound'][1]})"
             + (f", {LIBRARY[k]} {r['library_ms']:.4f} ms" if k in LIBRARY else "")
+            + (f", {LIBRARY_STACK} {r['library_stack_ms']:.4f} ms"
+               if "library_stack_ms" in r else "")
             + f", max |diff| {r['max_abs_err']}" for k, r in rows.items())
         + f"; (c) on make_mesh(devices=[cuda:0] x {MESH_SHARDS}), each == mesh=None in slot "
         "order: " + ", ".join(f"{k} {v} claims {mesh['ms'][k]:.1f} ms"
@@ -4884,6 +4912,8 @@ def main():
                          tenant_tick={k: v for k, v in ten["b8_tick"].items() if k != "bound"})
         if name == "pack_tiled":  # the scan alone at the tenant cell's full depth
             extra["tenant_cell_ms"] = ten["scan_tiled_ms"]
+        if name == "mesh_fold":  # the earlier yardstick, over the partials as a list
+            extra.update(library_stack=LIBRARY_STACK, library_stack_ms=row["library_stack_ms"])
         if name == "relax_fill":  # the bound by the earlier entry's formula
             extra["bound_ms_old_formula"] = row["bound_old_formula"]
         kernels.append(dict(

@@ -3,7 +3,8 @@ hazards the runtime cannot see, pointed at ``karpenter_tpu_torch/``.
 
 The JAX package's analyzer (``karpenter_tpu/analysis``), carried over:
 most families are verbatim copies (each file names its source on its
-first line) run over the port's tree, and three are the port's own:
+first line) run over the port's tree, one is retargeted, and three are
+the port's own:
 
 - parity.py (PAR50x): the three bit-exact twins of the packing scan —
   the plain versions ``pack_reference`` / ``pack_classed_reference``
@@ -23,20 +24,24 @@ first line) run over the port's tree, and three are the port's own:
 - cli.py: the port's targets and its own, empty baseline
   (``karpenter_tpu_torch/analysis/baseline.txt``).
 
+The retargeted family: shapes (SHP6xx), JAX's axis/dtype walker over
+torch: axes bound at the ``torch`` constructors, ``*_like``, ``new_*``
+and ``.shape`` unpacking, propagated through torch's operators, views
+and reductions; explicit 64-bit dtypes (the int64 index tensors torch
+requires are sanctioned at their lines); literal non-pow2 dims; and
+SHP604 at the mesh's sinks ``place`` and ``cut`` (parallel/mesh.py's
+specs), over ops/, solver/ and parallel/.
+
 The verbatim families: locks (LCK2xx), blocking (BLK3xx), schema drift
 (SCH4xx, api/schema.py against the copied api/crds/), retry (RTY7xx),
 obs (OBS8xx), clock (CLK10xx), det (DET11xx), args (ARG12xx: the kernel
 registry's surfaces), guarded (GRD13xx), atomicity (ATM14xx) and the
 stale-suppression audit (STALE001).
 
-Left out, by design:
-
-- tracer (TRC1xx): it concerns Python control flow under ``jit``
-  tracing, and the port runs eagerly; its host-sync half is the torch
-  host-sync rule above.
-- shapes (SHP6xx): its walker binds axes only at ``jax.numpy``
-  constructors, so over the port it would check nothing (a torch walker
-  is ROADMAP item A12b; SHP604, shard divisibility, comes with it).
+Left out, by design: tracer (TRC1xx). It concerns Python control flow
+under ``jit`` tracing (a branch on a traced value, a Python loop unrolled
+into the program), and the port runs eagerly, with no tracing; its
+host-sync half is the torch host-sync rule above (device.py).
 
 The ``args`` pass reads the solver mesh's surface too
 (``parallel/mesh.py``: ARG_SPECS against ``pad_args_for_mesh``, ARG1204).
@@ -66,13 +71,13 @@ def all_rules() -> Dict[str, str]:
     a seeded-bad fixture."""
     from . import (
         args_registry, atomicity, blocking, clock, det, device, guarded,
-        locks, obs, parity, retry, schema_drift, stale,
+        locks, obs, parity, retry, schema_drift, shapes, stale,
     )
 
     out: Dict[str, str] = {}
     for mod in (
-        locks, blocking, schema_drift, parity, retry, obs, device, clock,
-        det, args_registry, guarded, atomicity, stale,
+        locks, blocking, schema_drift, parity, shapes, retry, obs, device,
+        clock, det, args_registry, guarded, atomicity, stale,
     ):
         out.update(getattr(mod, "RULES", {}))
     for rule in NOT_SHIPPED:

@@ -11,6 +11,8 @@ Default targets, relative to the root (the JAX package's sets, over
 - parity:   ops/packing.py's plain scans vs native/solve_core.cc and the
             CUDA scans (csrc/common.cuh, pack_common.cuh, pack.cu,
             pack_classed.cu; kernel-twin skeletons)
+- shapes:   ops/, solver/, parallel/ (SHP6xx: the torch axis/dtype
+            walker and the mesh's shard divisibility)
 - retry:    controllers/, solver/, operator.py (swallowed exceptions,
             unbounded retry loops)
 - obs:      the whole package (span leaks, per-call metric construction)
@@ -70,6 +72,7 @@ from . import (
     parity,
     retry,
     schema_drift,
+    shapes,
     stale,
 )
 from .astutil import iter_py_files
@@ -118,6 +121,14 @@ PASS_TARGETS = {
         "karpenter_tpu_torch/csrc/pack_common.cuh",
         "karpenter_tpu_torch/csrc/pack.cu",
         "karpenter_tpu_torch/csrc/pack_classed.cu",
+    ],
+    # the axis/dtype walker over the device code: the plain versions and
+    # the wrappers (ops/), the driver's staging (solver/) and the mesh
+    # (parallel/: its specs meet the arrays at place and cut)
+    "shapes": [
+        "karpenter_tpu_torch/ops",
+        "karpenter_tpu_torch/solver",
+        "karpenter_tpu_torch/parallel",
     ],
     # retry/except hygiene where the degradation ladder lives: the
     # reconcile roster, the solver path, and the operator's requeue loop
@@ -198,6 +209,8 @@ def _run_pass(name: str, targets: List[str]):
             "native", "solve_core.cc",
         )
         return parity.check_parity(py_path, cc_path, targets[2:])
+    if name == "shapes":
+        return shapes.check_paths(targets)
     if name == "retry":
         return retry.check_paths(targets)
     if name == "obs":
@@ -221,7 +234,7 @@ def _run_pass(name: str, targets: List[str]):
 # the single place a new pass registers itself besides PASS_TARGETS
 PASS_MODULES = {
     "locks": locks, "blocking": blocking,
-    "schema": schema_drift, "parity": parity,
+    "schema": schema_drift, "parity": parity, "shapes": shapes,
     "retry": retry, "obs": obs, "device": device, "clock": clock,
     "det": det, "args": args_registry, "guarded": guarded,
     "atomicity": atomicity,
@@ -346,7 +359,8 @@ def main(argv=None) -> int:
         prog="python -m karpenter_tpu_torch.analysis",
         description="Static analysis of the PyTorch/CUDA port on the "
         "shared dataflow core: lock ordering, blocking calls, schema "
-        "drift, kernel-twin parity, retry hygiene, observability "
+        "drift, kernel-twin parity, axis/dtype shapes (SHP6xx), retry "
+        "hygiene, observability "
         "hygiene, host syncs (DTX9xx), clock "
         "discipline (CLK10xx), order discipline (DET11xx), kernel-arg "
         "registry consistency (ARG12xx), guarded-by inference "

@@ -38,6 +38,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..parallel.mesh import MAX_SHARDS
 
 _BIG_FIT = 2**30  # fits_count's "unbounded" (no positive request)
 _I32_MAX = 2**31 - 1
@@ -77,7 +78,9 @@ def offering_ok(zone_mask, ct_mask, o_avail, o_zone, o_ct):
     zone_mask/ct_mask: [..., V1]; o_avail/o_zone/o_ct: [T, O]. Returns
     [..., T]: any available offering whose zone and capacity-type values
     the masks admit (a negative id admits any value)."""
+    # analysis: sanctioned[SHP602] an int64 index, as torch indexes (kernel: int32)
     z_ok = zone_mask[..., o_zone.clamp(min=0).long()] | (o_zone < 0)  # [..., T, O]
+    # analysis: sanctioned[SHP602] an int64 index, as torch indexes (kernel: int32)
     c_ok = ct_mask[..., o_ct.clamp(min=0).long()] | (o_ct < 0)
     return (o_avail & z_ok & c_ok).any(-1)
 
@@ -179,6 +182,7 @@ def fresh_claim_feasibility_partial_reference(
     G = g_mask.shape[0]
     T = t_mask.shape[0]
     i32 = torch.int32
+    # analysis: sanctioned[SHP602] int64 segment index for index_add_ (kernel: int32)
     gg, kk = gk_g.long(), gk_k.long()
 
     # group-independent per-key base: template ∪ neutral-group vs type
@@ -218,6 +222,7 @@ def fresh_claim_feasibility_partial_reference(
     off_base = offering_ok(
         p_mask[:, zone_kid, :], p_mask[:, ct_kid, :], o_avail, o_zone, o_ct
     )  # [P, T]
+    # analysis: sanctioned[SHP602] an int64 index, as torch indexes (kernel: int32)
     go = goff_idx.long()
     off_corr = offering_ok(
         p_mask[:, None, zone_kid, :] & g_mask[go, zone_kid][None],
@@ -272,6 +277,7 @@ def existing_node_feasibility_partial_reference(
     (else None)."""
     G = g_mask.shape[0]
     i32 = torch.int32
+    # analysis: sanctioned[SHP602] int64 segment index for index_add_ (kernel: int32)
     gg, kk = gk_g.long(), gk_k.long()
     gm_l = g_mask[gg, kk]  # [L, V1]
     nm_l = n_mask[:, kk]  # [N, L, V1]
@@ -291,41 +297,37 @@ def existing_node_feasibility_partial_reference(
 
 
 def mesh_fold_reference(fail_t, fail_c, tonly, n_fit, p_tol,
-                        nfail=(), cap=None, n_tol=None):
+                        nfail=None, cap=None, n_tol=None):
     """Plain version of the mesh fold (csrc/mesh_fold.cu): the partials of
-    D data shards x M model shards summed and finished into the replicated
-    tables.
+    D data shards x M model shards, stacked one buffer per input, summed
+    and finished into the replicated tables.
 
-    ``fail_t``: D x M tensors [P, G, T/M] in (data, model) order (data
-    major); ``fail_c``: D tensors [P, G]; ``tonly`` and ``n_fit``: M
-    tensors [P, G, T/M], model shard m's types at offset m * T/M; ``p_tol``
-    [P, G]. D may be 0: the parts are then final (the dense route's type
-    slices, with its compat_pg as ``p_tol``). ``nfail``: D tensors [N, G],
-    ``cap`` [N, G] and ``n_tol`` [(S,) N, G] for the existing-node table, or
-    ``cap`` None for none. Returns compat_pg [P, G], type_ok [P, G, T],
-    n_fit [P, G, T] and cap_ng [(S,) N, G] (or None)."""
-    M = len(tonly)
-    D = len(fail_c)
-    if len(fail_t) != D * M or len(n_fit) != M:
-        raise ValueError(f"fold: {len(fail_t)} fail_t, {D} fail_c, {M} tonly, {len(n_fit)} n_fit")
-    cols = []
-    for m in range(M):
-        acc = torch.zeros_like(n_fit[m])
-        for d in range(D):
-            acc = acc + fail_t[d * M + m]
-        cols.append(acc)
-    cfail = torch.zeros(p_tol.shape, dtype=torch.int32, device=p_tol.device)
-    for part in fail_c:
-        cfail = cfail + part
-    compat_pg, type_ok, nf = fresh_finish(
-        p_tol, torch.cat(cols, -1), cfail, torch.cat(list(tonly), -1),
-        torch.cat(list(n_fit), -1))
+    ``fail_t`` [D, M, P, G, Tm] int32 and ``fail_c`` [D, P, G] int32, the
+    data shards' failure counts (None for D = 0: the parts are then final,
+    the dense route's type slices, with its compat_pg as ``p_tol``);
+    ``tonly`` [M, P, G, Tm] bool and ``n_fit`` [M, P, G, Tm] int32, model
+    shard m's types at offset m * Tm; ``p_tol`` [P, G]. ``nfail`` [D, N, G]
+    int32, ``cap`` [N, G] and ``n_tol`` [(S,) N, G] for the existing-node
+    table, or ``cap`` None for none. Returns compat_pg [P, G], type_ok
+    [P, G, M * Tm], n_fit [P, G, M * Tm] and cap_ng [(S,) N, G] (or None).
+    The int32 sums wrap, so any order of the shards gives the same tables."""
+    M, P, G, Tm = tonly.shape
+
+    def cells(parts):  # [M, P, G, Tm] -> [P, G, M * Tm]
+        return parts.permute(1, 2, 0, 3).reshape(P, G, M * Tm)
+
+    def total(parts, zero):  # the wrapping int32 sum over the data shards
+        for part in (() if parts is None else parts):
+            zero = zero + part
+        return zero
+
+    i32 = torch.int32
+    fails = total(fail_t, torch.zeros((M, P, G, Tm), dtype=i32, device=p_tol.device))
+    cfail = total(fail_c, torch.zeros((P, G), dtype=i32, device=p_tol.device))
+    compat_pg, type_ok, nf = fresh_finish(p_tol, cells(fails), cfail, cells(tonly), cells(n_fit))
     cap_ng = None
     if cap is not None:
-        nsum = torch.zeros_like(cap)
-        for part in nfail:
-            nsum = nsum + part
-        cap_ng = existing_finish(nsum, cap, n_tol)
+        cap_ng = existing_finish(total(nfail, torch.zeros_like(cap)), cap, n_tol)
     return compat_pg, type_ok, nf, cap_ng
 
 
@@ -458,10 +460,13 @@ def fresh_claim_feasibility(
     well_known,
     zone_kid: int,
     ct_kid: int,
+    out=None,
 ):
     """compat_pg [P, G], type_ok [P, G, T], n_fit [P, G, T] by the dense
     join: the plain version for CPU tensors, kernel B3's fresh entry
-    (csrc/dense_feasibility.cu) for CUDA tensors."""
+    (csrc/dense_feasibility.cu) for CUDA tensors; written into ``out``'s
+    three tensors (contiguous, e.g. slices of a mesh block's stacked
+    buffers) where it is given."""
     args = (
         g_def, g_neg, g_mask, g_req,
         p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
@@ -470,8 +475,9 @@ def fresh_claim_feasibility(
         well_known,
     )
     if g_mask.device.type == "cpu":
-        return fresh_claim_feasibility_reference(*args, zone_kid=zone_kid, ct_kid=ct_kid)
-    return _launch_dense_fresh(*args, zone_kid=zone_kid, ct_kid=ct_kid)
+        return _into(out, fresh_claim_feasibility_reference(
+            *args, zone_kid=zone_kid, ct_kid=ct_kid))
+    return _launch_dense_fresh(*args, zone_kid=zone_kid, ct_kid=ct_kid, out=out)
 
 
 def existing_node_feasibility(
@@ -502,11 +508,14 @@ def fresh_claim_feasibility_partial(
     zone_kid: int,
     ct_kid: int,
     with_base: bool,
+    out=None,
 ):
     """One mesh shard's fresh partials (fail_t, fail_c, tonly, n_fit; the
     last two None without ``with_base``) over its slices: the plain version
     for CPU tensors, B1's partial mode (csrc/fresh_feasibility.cu:
-    kt_fresh_feasibility_partial) for CUDA tensors."""
+    kt_fresh_feasibility_partial) for CUDA tensors. With ``out`` (four
+    contiguous tensors, the last two None without ``with_base``: a shard's
+    slices of its block's stacked buffers) the partials are written there."""
     args = (
         g_def, g_neg, g_mask, g_req,
         p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
@@ -516,11 +525,10 @@ def fresh_claim_feasibility_partial(
         gk_g, gk_k, gk_w, goff_idx,
     )
     if g_mask.device.type == "cpu":
-        return fresh_claim_feasibility_partial_reference(
-            *args, zone_kid=zone_kid, ct_kid=ct_kid, with_base=with_base
-        )
+        return _into(out, fresh_claim_feasibility_partial_reference(
+            *args, zone_kid=zone_kid, ct_kid=ct_kid, with_base=with_base))
     return _launch_fresh(*args, zone_kid=zone_kid, ct_kid=ct_kid, partial=True,
-                         with_base=with_base)
+                         with_base=with_base, out=out)
 
 
 def existing_node_feasibility_partial(
@@ -528,25 +536,50 @@ def existing_node_feasibility_partial(
     n_def, n_mask, n_avail, n_base,
     gk_g, gk_k, gk_w,
     with_base: bool,
+    out=None,
 ):
     """One data shard's existing-node partials (nfail, and cap with
     ``with_base``, else None) over its live-pair slice: the plain version
     for CPU tensors, B2's partial mode (csrc/existing_feasibility.cu:
-    kt_existing_feasibility_partial) for CUDA tensors."""
+    kt_existing_feasibility_partial) for CUDA tensors; written into
+    ``out`` (nfail, cap or None) where it is given."""
     args = (g_def, g_neg, g_mask, g_req, n_def, n_mask, n_avail, n_base, gk_g, gk_k, gk_w)
     if g_mask.device.type == "cpu":
-        return existing_node_feasibility_partial_reference(*args, with_base=with_base)
-    return _launch_existing_partial(*args, with_base=with_base)
+        return _into(out, existing_node_feasibility_partial_reference(
+            *args, with_base=with_base))
+    return _launch_existing_partial(*args, with_base=with_base, out=out)
 
 
-def mesh_fold(fail_t, fail_c, tonly, n_fit, p_tol, nfail=(), cap=None, n_tol=None):
-    """The mesh's partials folded into the replicated tables
+def mesh_fold(fail_t, fail_c, tonly, n_fit, p_tol, nfail=None, cap=None, n_tol=None):
+    """The mesh's stacked partials folded into the replicated tables
     (``mesh_fold_reference``'s contract): the plain version for CPU
     tensors, one launch of csrc/mesh_fold.cu for CUDA tensors, all on
     ``p_tol``'s device."""
     if p_tol.device.type == "cpu":
         return mesh_fold_reference(fail_t, fail_c, tonly, n_fit, p_tol, nfail, cap, n_tol)
     return _launch_mesh_fold(fail_t, fail_c, tonly, n_fit, p_tol, nfail, cap, n_tol)
+
+
+def _into(out, result):
+    """``result`` written into ``out``'s tensors where ``out`` is given
+    (None entries skipped), as the kernels write into it; the tensors
+    returned."""
+    if out is None:
+        return result
+    for o, r in zip(out, result):
+        if o is not None and r is not None:
+            o.copy_(r)
+    return tuple(r if o is None else o for o, r in zip(out, result))
+
+
+def _outputs(out, names, dtypes, shapes, dev):
+    """A launch's outputs: ``out``'s first len(names) tensors, each
+    checked, or new ones."""
+    if out is None:
+        return [torch.empty(s, dtype=d, device=dev) for d, s in zip(dtypes, shapes)]
+    for t, name, dtype, shape in zip(out, names, dtypes, shapes):
+        _build.check(t, name, dtype, shape, dev)
+    return list(out[:len(names)])
 
 
 def _fresh_entry():
@@ -581,6 +614,7 @@ def _launch_fresh(
     ct_kid: int,
     partial: bool = False,
     with_base: bool = True,
+    out=None,
 ):
     G, K, V1 = g_mask.shape
     P, R = p_daemon.shape
@@ -601,10 +635,10 @@ def _launch_fresh(
         # B1's partial mode: the failure counts, and with the base the
         # type-only parts; nothing finished
         i32 = torch.int32
-        fail_t = torch.empty((P, G, T), dtype=i32, device=dev)
-        fail_c = torch.empty((P, G), dtype=i32, device=dev)
-        tonly = torch.empty((P, G, T), dtype=torch.bool, device=dev) if with_base else None
-        n_fit = torch.empty((P, G, T), dtype=i32, device=dev) if with_base else None
+        parts = _outputs(out, ("fail_t", "fail_c", "tonly", "n_fit")[:4 if with_base else 2],
+                         (i32, i32, torch.bool, i32), ((P, G, T), (P, G), (P, G, T), (P, G, T)),
+                         dev)
+        fail_t, fail_c, tonly, n_fit = parts + [None] * (4 - len(parts))
         with _build.device_scope(dev):
             rc = _fresh_partial_entry()(
                 P, G, T, K, V1, R, O, L, LZ, zone_kid, ct_kid, int(with_base),
@@ -684,6 +718,7 @@ def _launch_existing_partial(
     n_def, n_mask, n_avail, n_base,
     gk_g, gk_k, gk_w,
     with_base: bool,
+    out=None,
 ):
     G, K, V1 = g_mask.shape
     N, R = n_avail.shape
@@ -696,8 +731,9 @@ def _launch_existing_partial(
             (G, K), (G, K), (G, K, V1), (G, R), (N, K), (N, K, V1), (N, R), (N, R),
             (L,), (L,), (L,))):
         _build.check(t, name, dtype, shape, dev)
-    nfail = torch.empty((N, G), dtype=torch.int32, device=dev)
-    cap = torch.empty((N, G), dtype=torch.int32, device=dev) if with_base else None
+    parts = _outputs(out, ("nfail", "cap")[:2 if with_base else 1], (torch.int32,) * 2,
+                     ((N, G),) * 2, dev)
+    nfail, cap = parts + [None] * (2 - len(parts))
     with _build.device_scope(dev):
         rc = _existing_partial_entry()(
             N, G, K, V1, R, L, int(with_base),
@@ -710,60 +746,48 @@ def _launch_existing_partial(
 
 
 def _mesh_fold_entry():
-    """kt_mesh_fold with its argument types: 7 ints, the 5 host arrays of
-    shard pointers, then p_tol, cap, n_tol, the 4 outputs and the stream."""
+    """kt_mesh_fold with its argument types: 7 ints, then the 8 inputs, the
+    4 outputs and the stream as pointers."""
     return _build.bind("mesh_fold", "kt_mesh_fold",
                        (ctypes.c_int,) * 7 + (ctypes.c_void_p,) * 13)
 
 
-def _pointers(name, tensors, dtype, shape, dev):
-    """A host array of the tensors' device pointers, each checked."""
-    for i, t in enumerate(tensors):
-        _build.check(t, f"{name}[{i}]", dtype, shape, dev)
-    return (ctypes.c_void_p * max(1, len(tensors)))(*(t.data_ptr() for t in tensors))
-
-
 def _launch_mesh_fold(fail_t, fail_c, tonly, n_fit, p_tol, nfail, cap, n_tol):
-    from ..parallel.mesh import MAX_SHARDS
-
-    M, D = len(tonly), len(fail_c)
-    if not 1 <= M <= MAX_SHARDS or D > MAX_SHARDS or D * M > MAX_SHARDS:
+    M, P, G, Tm = tonly.shape
+    D = 0 if fail_t is None else fail_t.shape[0]
+    if not 1 <= max(D, 1) * M <= MAX_SHARDS:
         raise ValueError(f"mesh_fold: {D} x {M} shards (at most {MAX_SHARDS})")
-    if len(fail_t) != D * M or len(n_fit) != M:
-        raise ValueError(f"fold: {len(fail_t)} fail_t, {D} fail_c, {M} tonly, {len(n_fit)} n_fit")
     dev = p_tol.device
-    P, G = p_tol.shape
-    Tm = tonly[0].shape[-1]
-    T = Tm * M
     i32 = torch.int32
-    ft = _pointers("fail_t", fail_t, i32, (P, G, Tm), dev)
-    fc = _pointers("fail_c", fail_c, i32, (P, G), dev)
-    to = _pointers("tonly", tonly, torch.bool, (P, G, Tm), dev)
-    nf = _pointers("n_fit", n_fit, i32, (P, G, Tm), dev)
     _build.check(p_tol, "p_tol", torch.bool, (P, G), dev)
+    _build.check(tonly, "tonly", torch.bool, (M, P, G, Tm), dev)
+    _build.check(n_fit, "n_fit", i32, (M, P, G, Tm), dev)
+    if D:
+        _build.check(fail_t, "fail_t", i32, (D, M, P, G, Tm), dev)
+        _build.check(fail_c, "fail_c", i32, (D, P, G), dev)
     N, S, lead = 0, 1, ()
     if cap is not None:
         N = cap.shape[0]
         lead = tuple(n_tol.shape[:-2])
         S = n_tol.shape[0] if lead else 1
-        if len(nfail) != D:
-            raise ValueError(f"fold: {len(nfail)} nfail for {D} data shards")
         _build.check(cap, "cap", i32, (N, G), dev)
         _build.check(n_tol, "n_tol", torch.bool, lead + (N, G), dev)
-    nfl = _pointers("nfail", list(nfail) if cap is not None else [], i32, (N, G), dev)
+        if D:
+            _build.check(nfail, "nfail", i32, (D, N, G), dev)
+    T = M * Tm
     compat_pg = torch.empty((P, G), dtype=torch.bool, device=dev)
     type_ok = torch.empty((P, G, T), dtype=torch.bool, device=dev)
     n_fit_out = torch.empty((P, G, T), dtype=i32, device=dev)
     cap_ng = torch.empty(lead + (N, G), dtype=i32, device=dev) if cap is not None else None
     with _build.device_scope(dev):
         rc = _mesh_fold_entry()(
-            D, M, P, G, T, N, S,
-            ctypes.addressof(ft), ctypes.addressof(fc), ctypes.addressof(to),
-            ctypes.addressof(nf), ctypes.addressof(nfl),
-            p_tol.data_ptr(), 0 if cap is None else cap.data_ptr(),
-            0 if cap is None else n_tol.data_ptr(),
+            D, M, P, G, Tm, N, S,
+            fail_t.data_ptr() if D else 0, fail_c.data_ptr() if D else 0,
+            tonly.data_ptr(), n_fit.data_ptr(),
+            nfail.data_ptr() if D and N else 0,
+            p_tol.data_ptr(), cap.data_ptr() if N else 0, n_tol.data_ptr() if N else 0,
             compat_pg.data_ptr(), type_ok.data_ptr(), n_fit_out.data_ptr(),
-            0 if cap_ng is None else cap_ng.data_ptr(),
+            cap_ng.data_ptr() if N else 0,
             _build.raw_stream(dev),
         )
     _build.launched("mesh_fold", rc)
@@ -796,6 +820,7 @@ def _launch_dense_fresh(
     well_known,
     zone_kid: int,
     ct_kid: int,
+    out=None,
 ):
     G, K, V1 = g_mask.shape
     P, R = p_daemon.shape
@@ -809,9 +834,9 @@ def _launch_dense_fresh(
         _build.check(t, name, dtype, shape, dev)
     if not (0 <= zone_kid < K and 0 <= ct_kid < K):
         raise ValueError(f"zone_kid {zone_kid} / ct_kid {ct_kid} outside K={K}")
-    compat_pg = torch.empty((P, G), dtype=torch.bool, device=dev)
-    type_ok = torch.empty((P, G, T), dtype=torch.bool, device=dev)
-    n_fit = torch.empty((P, G, T), dtype=torch.int32, device=dev)
+    compat_pg, type_ok, n_fit = _outputs(
+        out, ("compat_pg", "type_ok", "n_fit"), (torch.bool, torch.bool, torch.int32),
+        ((P, G), (P, G, T), (P, G, T)), dev)
     with _build.device_scope(dev):
         rc = _dense_fresh_entry()(
             P, G, T, K, V1, R, O, zone_kid, ct_kid,

@@ -179,6 +179,7 @@ def minvalues_cap(tmask, fit, floors, t_mvoh):
     fs = torch.sort(f, dim=-1, descending=True).values
     W = fs.shape[-1]
     idx = torch.clamp(floors - 1, 0, W - 1)
+    # analysis: sanctioned[SHP602] gather's index is int64 in torch
     kth = fs.gather(-1, idx.long()[..., None])[..., 0]
     kth = torch.where(floors > W, torch.zeros_like(kth), kth)
     return torch.where(floors > 0, kth, torch.full_like(kth, _BIGI)).amin(-1)
@@ -217,6 +218,7 @@ def spread_domain_choice(adm, qrem_v, mode: int, V1: int, DEAD: int):
     x = (rank.to(f32) + 0.5) / n_adm.to(f32)
     cum = _cumsum32(qv).to(f32) / torch.clamp_min(total_q, 1).to(f32)
     d_prop = torch.clamp(torch.searchsorted(cum, x), 0, V1 - 1).to(i32)
+    # analysis: sanctioned[SHP602] gather's index is int64 in torch
     prop_ok = adm.gather(1, d_prop.long()[:, None])[:, 0]
     d_star = torch.where(prop_ok & (mode == DMODE_SPREAD), d_prop, d_greedy)
     return torch.where(any_adm, d_star, torch.full_like(d_star, DEAD)), any_adm
@@ -317,6 +319,7 @@ def _domain_sums(fill, dom, V1):
     count nowhere, as jax.nn.one_hot drops them)."""
     ok = (dom >= 0) & (dom < V1)
     out = torch.zeros((V1 + 1,), dtype=torch.int32, device=fill.device)
+    # analysis: sanctioned[SHP602] int64 segment index for index_add_ (kernel: int32)
     out.index_add_(0, torch.where(ok, dom, torch.full_like(dom, V1)).long(), fill)
     return out[:V1]
 
@@ -573,6 +576,7 @@ def pack_reference(
         custom_ok = (
             ~gdef[None, :] | well_known[None, :] | c_def | gneg[None, :]
         ).all(-1)
+        # analysis: sanctioned[SHP602] an int64 index, as torch indexes (kernel: int32)
         cp = c_pool.long()
         claim_compat = key_ok.all(-1) & custom_ok
         claim_compat = claim_compat & p_tol[cp, gi] & compat_row[cp]
@@ -621,8 +625,10 @@ def pack_reference(
         if dyn:
             # node domain slot on the constrained axis (DEAD: unregistered)
             nd_raw = n_dzone if dkey == 0 else n_dct  # [N]
+            # analysis: sanctioned[SHP602] an int64 index, as torch indexes (kernel: int32)
             nd_ok = (nd_raw >= 0) & reg[nd_raw.clamp(0, V1 - 1).long()]
             nd_slot = torch.where(nd_ok, nd_raw, torch.full_like(nd_raw, DEAD))
+            # analysis: sanctioned[SHP602] one_hot takes an int64 index only
             nd_oh = torch.nn.functional.one_hot(nd_slot.long(), NSLOT).to(i32)
             qd[:V1] = _domain_quota(
                 mode, count, D0, reg, drank, skew, min0, exist_cap, nd_raw,
@@ -634,6 +640,7 @@ def pack_reference(
             # each slot keeps node priority
             slot_cap = exist_cap[:, None] * nd_oh  # [N, NSLOT]
             pre_own = ((_cumsum32(slot_cap) - slot_cap) * nd_oh).sum(1, dtype=i32)
+            # analysis: sanctioned[SHP602] an int64 index, as torch indexes (kernel: int32)
             budget = qd[nd_slot.long()]
             exist_fill = _clip(budget - pre_own, zero_n, exist_cap)
             qrem = qd - (exist_fill[:, None] * nd_oh).sum(0, dtype=i32)
@@ -662,6 +669,7 @@ def pack_reference(
             # one domain per claim, then one waterfill per domain slot
             adm = claim_live[:, None] & (percap >= 1) & (qrem[:V1] > 0)[None, :]
             c_slot, _ = spread_domain_choice(adm, qrem[:V1], mode, V1, DEAD)
+            # analysis: sanctioned[SHP602] gather's index is int64 in torch
             cap_dom = percap.gather(1, c_slot.clamp(0, V1 - 1).long()[:, None])[:, 0]
             claim_cap = clamp(torch.where(c_slot < V1, cap_dom, zero_c))
             claim_fill = zero_c
@@ -705,9 +713,11 @@ def pack_reference(
             tighten = got & (c_slot < V1)
             pin = c_slot.clamp(0, V1 - 1)
             toff_at = toff_nt.gather(
+                # analysis: sanctioned[SHP602] gather's index is int64 in torch
                 2, pin.long()[:, None, None].expand(nmax, T, 1)
             )[..., 0]
             surv = surv & (toff_at | ~tighten[:, None])
+            # analysis: sanctioned[SHP602] one_hot takes an int64 index only
             d_oh = torch.nn.functional.one_hot(pin.long(), V1).bool()
             krow = torch.zeros((K,), dtype=torch.bool, device=dev)
             krow[kid_sel] = True
@@ -1152,6 +1162,7 @@ def pack_classed_reference(
         exempt = c_neg & gneg[None, :]
         key_ok = overlap | exempt | ~(c_def & gdef[None, :])
         custom_ok = (~gdef[None, :] | well_known[None, :] | c_def | gneg[None, :]).all(-1)
+        # analysis: sanctioned[SHP602] an int64 index, as torch indexes (kernel: int32)
         cp = c_pool.long()
         # c_active is applied per member (opens flip it mid-class)
         live = key_ok.all(-1) & custom_ok & p_tol[cp, gih] & compat_row[cp]
@@ -1213,8 +1224,10 @@ def pack_classed_reference(
                 D0 = g_dprior[gi] + (ddc[min(jd, JD - 1)] if has_d else 0)
                 reg = g_dreg[gi]
                 nd_raw = n_dzone if cdk == 0 else n_dct
+                # analysis: sanctioned[SHP602] an int64 index, as torch indexes (kernel: int32)
                 nd_ok = (nd_raw >= 0) & reg[nd_raw.clamp(0, V1 - 1).long()]
                 nd_slot = torch.where(nd_ok, nd_raw, torch.full_like(nd_raw, DEAD))
+                # analysis: sanctioned[SHP602] one_hot takes an int64 index only
                 nd_oh = torch.nn.functional.one_hot(nd_slot.long(), NSLOT).to(i32)
                 qd[:V1] = _domain_quota(
                     mode, count, D0, reg, g_drank[gi], g_dskew[gi], bool(g_dmin0[gi]),
@@ -1225,6 +1238,7 @@ def pack_classed_reference(
                 )
                 slot_cap = e_cap[:, None] * nd_oh
                 pre_own = ((_cumsum32(slot_cap) - slot_cap) * nd_oh).sum(1, dtype=i32)
+                # analysis: sanctioned[SHP602] an int64 index, as torch indexes (kernel: int32)
                 exist_fill = _clip(qd[nd_slot.long()] - pre_own, zero_n, e_cap)
                 qrem = qd - (exist_fill[:, None] * nd_oh).sum(0, dtype=i32)
             else:
@@ -1253,6 +1267,7 @@ def pack_classed_reference(
                 percap = torch.where(claim_live[:, None], percapv, 0)
                 adm = claim_live[:, None] & (percap >= 1) & (qrem[:V1] > 0)[None, :]
                 c_slot, _ = spread_domain_choice(adm, qrem[:V1], mode, V1, DEAD)
+                # analysis: sanctioned[SHP602] gather's index is int64 in torch
                 cap_dom = percap.gather(1, c_slot.clamp(0, V1 - 1).long()[:, None])[:, 0]
                 claim_cap = clamp(torch.where(c_slot < V1, cap_dom, zero_c))
                 if int(count) <= 1:
@@ -1306,6 +1321,7 @@ def pack_classed_reference(
             if has_domains:
                 tighten = got & (c_slot < V1) if dyn else torch.zeros_like(got)
                 pin = c_slot.clamp(0, V1 - 1)
+                # analysis: sanctioned[SHP602] one_hot takes an int64 index only
                 d_oh = torch.nn.functional.one_hot(pin.long(), V1).bool()
                 krow = torch.zeros((K,), dtype=b, device=dev)
                 krow[kid_sel] = True
@@ -1320,6 +1336,7 @@ def pack_classed_reference(
                 percapv = torch.clamp_min(percapv - claim_fill[:, None], 0)
                 percapv = torch.where(tighten[:, None], percapv * d_oh, percapv)
                 capv = torch.where(
+                    # analysis: sanctioned[SHP602] gather's index is int64 in torch
                     tighten, percapv.gather(1, pin.long()[:, None])[:, 0], capv - claim_fill
                 )
             else:
@@ -1456,6 +1473,7 @@ def pack_classed_reference(
         is_new = slots >= n_open0
         pin_rel = c_dzone if cdk == 0 else c_dct
         if has_domains:
+            # analysis: sanctioned[SHP602] gather's index is int64 in torch
             pinc = pin_rel.clamp(0, V1 - 1).long()
             newpin = (pin_rel >= 0) & (pin_rel != pin0_rel) & ~is_new
             toff_at_pin = toff_nt0.gather(2, pinc[:, None, None].expand(nmax, T, 1))[..., 0]
@@ -1479,6 +1497,7 @@ def pack_classed_reference(
         n_open=torch.tensor(n_open, dtype=i32, device=dev),
         overflow=torch.tensor(overflow, dtype=b, device=dev),
     )
+    # analysis: sanctioned[SHP602] an int64 index, as torch indexes (kernel: int32)
     inv = inv_idx.long()
     return (
         state,

@@ -261,9 +261,12 @@ def relax_fill_reference(ge, cl, type_ok, n_fit, n_r: int):
     Returns claim_fills [GE, NR] int32, c_tmask [NR, T] bool, c_pool [NR]
     int32 (the slots' templates) and unplaced [GE] int32."""
     i64, i32 = torch.int64, torch.int32
+    # analysis: sanctioned[SHP602] int64 window math, wrapped to int32 as XLA's
     ge_count, ge_a, ge_off, ge_nper, ge_kc = ge.to(i64)
+    # analysis: sanctioned[SHP602] head-table indices; fills meet the int64 math
     cl_pool, cl_fill, cl_run = cl.long()
     NR = cl.shape[1]
+    # analysis: sanctioned[SHP602] int64 window math, wrapped to int32 as XLA's
     slots = torch.arange(NR, dtype=i64, device=cl.device)
     rel = _wrap32(slots[None, :] - ge_off[:, None])  # [GE, NR]
     nper = ge_nper.clamp(min=1)[:, None]

@@ -379,6 +379,7 @@ def delta_apply_rows_reference(arr, idx, rows):
     ``arr[idx] = rows`` as a new tensor (``index_copy`` on a clone). A
     negative index counts from the end; one outside the rows is dropped."""
     n = arr.shape[0]
+    # analysis: sanctioned[SHP602] index_copy_ takes an int64 index only
     idx = idx.long()
     idx = torch.where(idx < 0, idx + n, idx)
     keep = (idx >= 0) & (idx < n)
@@ -485,12 +486,27 @@ def delta_apply_rows_sharded(pieces, idx, rows):
 # the single-device launches on its device; else each shard (s, d, m) its
 # partials over its slices (B1's partial mode on every shard, B2's on the
 # model-0 shard of each data slice; the dense route B3 on the types of the
-# model shards of data slice 0, whose tables are final), copied onto the
-# block's lead device and folded there by one mesh_fold launch. The scan
-# and the wire pack then run once, on the block's lead device.
+# model shards of data slice 0, whose tables are final), written into one
+# stacked buffer per input on the block's lead device (a shard on another
+# device computes there and is copied in) and folded there by one
+# mesh_fold launch. The scan and the wire pack then run once, on the
+# block's lead device.
 
 _EXIST_PARTIAL_ARGS = ("g_def", "g_neg", "g_mask", "g_req", "n_def", "n_mask", "n_avail",
                        "n_base")
+
+
+def _shard_into(dev, lead, views, launch, wanted):
+    """A shard's outputs in ``views``, slices of its block's stacked
+    buffers on ``lead``: a shard on the lead device launches into them
+    (``launch(views)``); another computes on its own device and each of
+    its ``wanted`` outputs is copied in."""
+    if dev == lead:
+        launch(views)
+        return
+    for view, part, want in zip(views, launch(None), wanted):
+        if want:
+            view.copy_(part)
 
 
 def _mesh_tables(margs, s: int, a, zone_kid, ct_kid, sparse_groups, tile_feasibility):
@@ -501,46 +517,55 @@ def _mesh_tables(margs, s: int, a, zone_kid, ct_kid, sparse_groups, tile_feasibi
     if tile_feasibility or D * M == 1:
         return _feasibility_tables(a, zone_kid, ct_kid, sparse_groups, tile_feasibility)
     lead = mesh.devices[s, 0, 0]
+    P, G = a["p_tol"].shape
+    slab = (M, P, G, a["t_alloc"].shape[0] // M)
+    i32 = torch.int32
+    tonly = torch.empty(slab, dtype=torch.bool, device=lead)
+    n_fit = torch.empty(slab, dtype=i32, device=lead)
     if not sparse_groups:
         # the dense route: B3 over each model shard's types; final tables
-        # gathered by the fold (no partial sums: D = 0)
-        parts = [
-            fresh_claim_feasibility(*(margs.at(n, s, 0, m) for n in _FRESH_ARGS),
-                                    zone_kid=zone_kid, ct_kid=ct_kid)
-            for m in range(M)
-        ]
-        compat_pg, type_ok, n_fit, _ = mesh_fold(
-            [], [], [p[1].to(lead) for p in parts], [p[2].to(lead) for p in parts],
-            parts[0][0].to(lead),
-        )
+        # gathered by the fold (no partial sums: D = 0). Every shard's
+        # compat_pg is the same (it reads no type): shard 0's is kept
+        compat = torch.empty((P, G), dtype=torch.bool, device=lead)
+        for m in range(M):
+            _shard_into(
+                mesh.devices[s, 0, m], lead, (compat, tonly[m], n_fit[m]),
+                lambda out: fresh_claim_feasibility(
+                    *(margs.at(n, s, 0, m) for n in _FRESH_ARGS),
+                    zone_kid=zone_kid, ct_kid=ct_kid, out=out),
+                (m == 0, True, True))
+        compat_pg, type_ok, n_fit, _ = mesh_fold(None, None, tonly, n_fit, compat)
         if a["n_avail"].shape[0]:
             cap_ng = existing_node_feasibility(*(a[n] for n in _EXIST_ARGS), a["well_known"])
         else:
             cap_ng = _no_nodes(a)
         return compat_pg, type_ok, n_fit, cap_ng
-    fail_t, fail_c, tonly, n_fit = [], [], [], []
+    fail_t = torch.empty((D,) + slab, dtype=i32, device=lead)
+    fail_c = torch.empty((D, P, G), dtype=i32, device=lead)
     for d in range(D):
+        base = d == 0
         for m in range(M):
-            ft, fc, to, nf = fresh_claim_feasibility_partial(
-                *(margs.at(n, s, d, m) for n in _FRESH_ARGS + _SPARSE_INDEX + ("goff_idx",)),
-                zone_kid=zone_kid, ct_kid=ct_kid, with_base=d == 0,
-            )
-            fail_t.append(ft.to(lead))
-            if m == 0:
-                fail_c.append(fc.to(lead))
-            if d == 0:
-                tonly.append(to.to(lead))
-                n_fit.append(nf.to(lead))
-    nfail, cap = [], None
-    if a["n_avail"].shape[0]:
+            # fail_c reads no type: the M shards of a data slice write the
+            # same counts into its one slot, and shard (d, 0)'s is kept
+            _shard_into(
+                mesh.devices[s, d, m], lead,
+                (fail_t[d, m], fail_c[d], tonly[m] if base else None, n_fit[m] if base else None),
+                lambda out: fresh_claim_feasibility_partial(
+                    *(margs.at(n, s, d, m) for n in _FRESH_ARGS + _SPARSE_INDEX + ("goff_idx",)),
+                    zone_kid=zone_kid, ct_kid=ct_kid, with_base=base, out=out),
+                (True, m == 0, base, base))
+    nfail = cap = None
+    N = a["n_avail"].shape[0]
+    if N:
+        nfail = torch.empty((D, N, G), dtype=i32, device=lead)
+        cap = torch.empty((N, G), dtype=i32, device=lead)
         for d in range(D):
-            nf_d, cap_d = existing_node_feasibility_partial(
-                *(margs.at(n, s, d, 0) for n in _EXIST_PARTIAL_ARGS + _SPARSE_INDEX),
-                with_base=d == 0,
-            )
-            nfail.append(nf_d.to(lead))
-            if d == 0:
-                cap = cap_d.to(lead)
+            _shard_into(
+                mesh.devices[s, d, 0], lead, (nfail[d], cap if d == 0 else None),
+                lambda out: existing_node_feasibility_partial(
+                    *(margs.at(n, s, d, 0) for n in _EXIST_PARTIAL_ARGS + _SPARSE_INDEX),
+                    with_base=d == 0, out=out),
+                (True, d == 0))
     compat_pg, type_ok, n_fit, cap_ng = mesh_fold(
         fail_t, fail_c, tonly, n_fit, a["p_tol"], nfail, cap, a["n_tol"])
     return compat_pg, type_ok, n_fit, cap_ng if cap is not None else _no_nodes(a)

@@ -24,8 +24,9 @@ What differs from the JAX mesh, by design: the scan runs once, on the lead
 device, where GSPMD replicates it on every device (the outputs are the
 same, and JAX replicates them too); 'model' shards only the feasibility
 stage, where JAX also shards the scan's type state; and the cross-device
-movement is a copy of each shard's partials onto the lead device (none
-when they share a card) plus the fold kernel, not NCCL: one process drives
+movement is a copy of each shard's partials into the block's stacked
+buffers on the lead device (none when they share a card: the shard's
+kernel writes its slice there) plus the fold kernel, not NCCL: one process drives
 every device, and a list of devices may name one card many times (the
 port's counterpart of JAX's virtual CPU devices).
 
@@ -81,7 +82,8 @@ ARG_SPECS: Dict[str, Tuple[Optional[str], ...]] = {
     "goff_idx": (),
 }
 
-# the most shards one fold reads (csrc/mesh_fold.cu:kMaxShards)
+# the most shards (data x model) a mesh's fold takes, checked once by its
+# wrapper (ops/feasibility.py:mesh_fold)
 MAX_SHARDS = 64
 
 

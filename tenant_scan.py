@@ -117,6 +117,18 @@ readback), on the host clock over RELAX_REPS calls, each ending in a
 readback; the kernel's outputs equal its plain version's. It uses only
 entry points both entries share, so it runs in a parent checkout too.
 
+``fold`` and ``fold_d2m4``: the solver mesh's fold (B10,
+csrc/mesh_fold.cu) at phase 16(b)'s shape (D 8 data shards x M 1, P 1,
+G 256, T 800: constrained 50k x 800 over data 8) and over data 2 x model
+4 (T/M 200), on seeded partials (mostly zero counts; the fold's work does
+not depend on them): the wrapper (CUDA events), the device alone
+(torch.profiler), the host microseconds a wrapper call (a sync after
+HOST_REPS calls), and the library's two yardsticks, ``Tensor.sum(0)`` of
+the stacked fail_t and ``torch.stack(partials).sum(0)`` of the D x M
+partials as a list; the fold's outputs equal its plain version's. A
+checkout whose fold takes the partials as lists (``nfail=()``) is given
+them so, so it runs in a parent checkout too.
+
 ``wide``: each of chip_smoke.py's wide value vocabularies (ROADMAP §C1)
 through one cold ``TorchSolver(device="cuda").solve``, its claims and
 seconds or what it raised and where (in a parent checkout with this
@@ -148,9 +160,11 @@ CONS_SHAPES = ("cons", "cons_minvalues")
 FEAS_SHAPES = ("feas_mixed", "feas_diverse", "feas_constrained", "feas_nodes", "feas_cons")
 DENSE_SHAPES = ("dense_relax", "dense_route", "dense_nodes")
 WIRE_SHAPES = ("wire_mixed", "wire_cons")
+# the fold's shapes: (D, M, P, G, T)
+FOLD_SHAPES = {"fold": (8, 1, 1, 256, 800), "fold_d2m4": (2, 4, 1, 256, 800)}
 RELAX_REPS = 50
 SHAPES = (SCAN_SHAPES + CLASSED_SHAPES + CONS_SHAPES + FEAS_SHAPES + DENSE_SHAPES + WIRE_SHAPES
-          + ("relax", "wide"))
+          + tuple(FOLD_SHAPES) + ("relax", "wide"))
 FEAS_REPS = 200
 HOST_REPS = 2000
 FEAS_PHASES = ("stage", "words", "base", "pairs", "compat", "cells")
@@ -715,6 +729,55 @@ def run_relax():
     return row
 
 
+def run_fold(shape):
+    """The fold at one of FOLD_SHAPES (the module docstring's ``fold``)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    D, M, P, G, T = FOLD_SHAPES[shape]
+    Tm = T // M
+    rng = np.random.default_rng(18)
+
+    def counts(shape):
+        return torch.from_numpy((rng.random(shape) < 0.05).astype(np.int32)).to("cuda")
+
+    fail_t, fail_c = counts((D, M, P, G, Tm)), counts((D, P, G))
+    tonly = torch.from_numpy(rng.random((M, P, G, Tm)) < 0.8).to("cuda")
+    n_fit = torch.from_numpy(rng.integers(0, 50, (M, P, G, Tm)).astype(np.int32)).to("cuda")
+    p_tol = torch.ones((P, G), dtype=torch.bool, device="cuda")
+    partials = list(fail_t.view(D * M, P, G, Tm).unbind(0))
+    if inspect.signature(feas.mesh_fold).parameters["nfail"].default == ():
+        ins = (partials, list(fail_c.unbind(0)), list(tonly.unbind(0)), list(n_fit.unbind(0)),
+               p_tol)
+        contract = "lists of partials"
+    else:
+        ins = (fail_t, fail_c, tonly, n_fit, p_tol)
+        contract = "stacked partials"
+    row = feas_time(lambda: feas.mesh_fold(*ins)[:3],
+                    lambda: feas.mesh_fold_reference(*ins)[:3])
+    if row["err"]:
+        raise RuntimeError(f"{shape}: the fold disagrees with its plain version: {row}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_REPS):
+        feas.mesh_fold(*ins)
+    row["wrapper_host_us"] = (time.perf_counter() - t0) / HOST_REPS * 1e6
+    torch.cuda.synchronize()
+    row.update(
+        contract=contract,
+        library_sum_ms=cs.cuda_ms(lambda: fail_t.sum(0, dtype=torch.int32), FEAS_REPS),
+        library_stack_ms=cs.cuda_ms(lambda: torch.stack(partials).sum(0, dtype=torch.int32),
+                                    FEAS_REPS),
+        bytes=cs.nbytes([fail_t, fail_c, tonly, n_fit, p_tol]) + P * G * (1 + 5 * T),
+        shape=f"D={D} M={M} P={P} G={G} T={T}")
+    row["bound_ms"] = row["bytes"] / cs.HBM_BYTES_PER_S * 1e3
+    return row
+
+
 def run_wide():
     """Each of chip_smoke.py's wide value vocabularies (wide_inputs) through
     one cold TorchSolver(device="cuda").solve: its claims, pod errors and
@@ -765,14 +828,16 @@ def main():
     classed = any(s in CLASSED_SHAPES for s in opts.shapes)
     clock_libs = opts.classed_clocks if clocks else []
     widths = [f"pack_classed_c{c}" for c in opts.clusters]
-    feas_only = all(s in FEAS_SHAPES + DENSE_SHAPES + WIRE_SHAPES + ("relax",)
-                    for s in opts.shapes)
+    feas_only = all(s in FEAS_SHAPES + DENSE_SHAPES + WIRE_SHAPES + tuple(FOLD_SHAPES)
+                    + ("relax",) for s in opts.shapes)
     names = ("fresh_feasibility", "existing_feasibility", "dense_feasibility", "wire_pack", "pack",
-             "relax_fill",
+             "relax_fill", *(("mesh_fold",) if any(s in FOLD_SHAPES for s in opts.shapes) else ()),
              *(("fresh_feasibility_clocks",)
                if clocks and any(s in FEAS_SHAPES for s in opts.shapes) else ()),
              *(("pack_clocks",) if clocks and not feas_only else ()),
              *(("pack_classed", *clock_libs, *widths) if classed else ()))
+    if all(s in FOLD_SHAPES for s in opts.shapes):
+        names = ("mesh_fold",)
     logs = _build.build(names=names, force=True, verbose=True)
     rows = {"ptxas": {name: cs.ptxas_summary(text) for name, text in logs.items()}}
     for shape in opts.shapes:
@@ -787,6 +852,8 @@ def main():
                 rows[shape] = run_wide()
             elif shape == "relax":
                 rows[shape] = run_relax()
+            elif shape in FOLD_SHAPES:
+                rows[shape] = run_fold(shape)
             elif shape in CONS_SHAPES:
                 rows[shape] = run_consolidation(shape)
             elif shape in CLASSED_SHAPES:

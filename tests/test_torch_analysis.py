@@ -2,8 +2,10 @@
 
 Each rule the port ships fires on a seeded-bad fixture and stays silent on
 a clean one (the copied families read the JAX package's fixtures under
-tests/analysis_fixtures/ as data; the torch host-sync rule and the
-three-way parity have their own under tests/analysis_fixtures_torch/).
+tests/analysis_fixtures/ as data; the torch host-sync rule, the
+three-way parity and the torch shape walker have their own under
+tests/analysis_fixtures_torch/, the walker's held against JAX's pass on
+JAX's fixture).
 Each family fires on a mutated copy of a real port file, so no rule is
 blind to the port's tree. The tree itself is clean: one in-process run of
 the whole analyzer finds nothing, and the host-sync rule's sanctions are
@@ -37,6 +39,7 @@ from karpenter_tpu_torch.analysis import (
     parity,
     retry,
     schema_drift,
+    shapes,
     stale,
 )
 from karpenter_tpu_torch.analysis.findings import (
@@ -89,6 +92,8 @@ SEEDED_BAD = {
     "parity": (lambda: parity.check_parity(
         PARITY_TWIN, fixture("parity_bad.cc"), PARITY_CUDA),
         {"PAR501", "PAR502", "PAR503", "PAR504", "PAR505", "PAR506"}),
+    "shapes": (lambda: shapes.check_paths([fixture("bad_shapes.py")]),
+               {"SHP601", "SHP602", "SHP603", "SHP604"}),
     "retry": (lambda: retry.check_paths(jax_fixture("bad_retry.py")),
               {"RTY701", "RTY702"}),
     "obs": (lambda: obs.check_paths(jax_fixture("bad_obs.py")),
@@ -119,6 +124,7 @@ CLEAN = {
         port("api/schema.py"), port("api/crds")),
     "parity": lambda: parity.check_parity(
         PARITY_TWIN, fixture("parity_good.cc"), PARITY_CUDA),
+    "shapes": lambda: shapes.check_paths([fixture("good_shapes.py")]),
     "retry": lambda: retry.check_paths(jax_fixture("good_retry.py")),
     "obs": lambda: obs.check_paths(jax_fixture("good_obs.py")),
     "device": lambda: device.check_paths([fixture("good_device_sync.py")]),
@@ -217,6 +223,7 @@ UNPARSABLE = {
     "BLK300": lambda b: blocking.check_paths([b]),
     "SCH400": lambda b: schema_drift.check_schema(b, jax_fixture("drift_crds")[0]),
     "PAR500": lambda b: parity.check_parity(b, fixture("parity_good.cc"), PARITY_CUDA),
+    "SHP600": lambda b: shapes.check_paths([b]),
     "RTY700": lambda b: retry.check_paths([b]),
     "OBS800": lambda b: obs.check_paths([b]),
     "DTX900": lambda b: device.check_paths([b]),
@@ -255,13 +262,16 @@ class TestRuleRegistry:
 
     def test_registry_lists_the_shipped_families_only(self):
         rules = all_rules()
-        for prefix in ("LCK2", "BLK3", "SCH4", "PAR5", "RTY7", "OBS8", "DTX9",
+        for prefix in ("LCK2", "BLK3", "SCH4", "PAR5", "SHP6", "RTY7", "OBS8", "DTX9",
                        "CLK10", "DET11", "ARG12", "GRD13", "ATM14", "STALE"):
             assert any(r.startswith(prefix) for r in rules), prefix
-        assert not any(r.startswith(("TRC", "SHP")) for r in rules)
+        assert not any(r.startswith("TRC") for r in rules)
         assert not set(NOT_SHIPPED) & set(rules)
         assert set(cli.PASS_MODULES) == set(cli.PASS_TARGETS)
-        assert "tracer" not in cli.PASS_TARGETS and "shapes" not in cli.PASS_TARGETS
+        assert "tracer" not in cli.PASS_TARGETS
+        assert cli.PASS_TARGETS["shapes"] == [
+            "karpenter_tpu_torch/ops", "karpenter_tpu_torch/solver",
+            "karpenter_tpu_torch/parallel"]
         assert "karpenter_tpu_torch/parallel/mesh.py" in cli.PASS_TARGETS["args"]
 
 
@@ -383,6 +393,12 @@ def _mutations():
         ("parity_native_const", lambda t: parity.check_parity(
             port("ops/packing.py"),
             _copy(t, "native/solve_core.cc", ("// parity: const 1e-9\n", ""))), "PAR502"),
+        ("shapes", unmarked(shapes.check_paths, "ops/solve.py",
+                            "sanctioned[SHP602] index_copy_ takes"), "SHP602"),
+        ("shapes_join", one(shapes.check_paths, "ops/feasibility.py", (
+            "    off = off_base[:, None, :].expand(P, G, T).clone()\n",
+            "    off = off_base[:, None, :].expand(P, G, T).clone()\n"
+            "    off = off & torch.zeros((P, T, G), dtype=torch.bool)\n")), "SHP601"),
         ("retry", unmarked(retry.check_paths, "controllers/state.py", "ignore[RTY701]"),
          "RTY701"),
         ("obs", one(obs.check_paths, "solver/driver.py", (
@@ -539,6 +555,185 @@ class TestPortTree:
         with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
             rc = cli.main(["--pass", "device", fixture("bad_device_sync.py")])
         assert rc == 1 and "finding(s)" in err.getvalue()
+
+
+def _pairs(findings, path):
+    """Each finding's (enclosing function, rule), counted."""
+    from collections import Counter
+
+    return Counter((_enclosing(path, f.line), f.rule) for f in findings)
+
+
+class TestShapesPass:
+    """The torch axis/dtype walker (analysis/shapes.py), mirroring
+    tests/test_analysis.py's TestShapesPass and its CLI cases."""
+
+    def test_bad_fixture_flags_every_rule(self):
+        findings, _ = shapes.check_paths([fixture("bad_shapes.py")])
+        by_rule = {r: len([f for f in findings if f.rule == r]) for r in rules_of(findings)}
+        # operator join, where join, einsum, transposed matmul, misaligned
+        # index_add_ index, an index_add_ result joined against the
+        # pre-segment axis; widening via constructor, .to, join and a
+        # positional as_tensor dtype; the constructor dim and the reshape
+        # literal; place with ARG_SPECS' spec and cut with spec_of's
+        assert by_rule == {"SHP601": 6, "SHP602": 4, "SHP603": 2, "SHP604": 2}
+        messages = "\n".join(f.message for f in findings)
+        for text in ("index_add_", "einsum", "matmul contracts", "1000", "power of two"):
+            assert text in messages, text
+
+    def test_same_pairs_as_jax(self):
+        """JAX's pass on JAX's fixture and the port's on its torch
+        rendering flag the same (function, rule) pairs, as often."""
+        from karpenter_tpu.analysis import shapes as jax_shapes
+
+        jax_path = jax_fixture("bad_shapes.py")[0]
+        want = _pairs(jax_shapes.check_paths([jax_path])[0], jax_path)
+        got = _pairs(shapes.check_paths([fixture("bad_shapes.py")])[0],
+                     fixture("bad_shapes.py"))
+        assert got == want
+        assert sum(want.values()) == 14
+
+    def test_real_tree_clean(self):
+        """ops/, solver/ and parallel/: nothing kept; the 28 sanctioned
+        sites are the int64 index tensors torch's ops require."""
+        targets = [os.path.join(REPO, t) for t in cli.PASS_TARGETS["shapes"]]
+        kept_fs, suppressed, sanctioned = partition_findings(*shapes.check_paths(targets))
+        assert kept_fs == [] and suppressed == []
+        assert {f.rule for f in sanctioned} == {"SHP602"} and len(sanctioned) == 28
+
+    @staticmethod
+    def _run_on(tmp_path, src, name="case.py"):
+        p = tmp_path / name
+        p.write_text(src)
+        return shapes.check_paths([str(p)])[0]
+
+    def test_unknown_rank_never_false_positives(self, tmp_path):
+        # joining a tracked tensor against a value the interpreter lost
+        # track of must stay silent (the poison-to-unknown rule)
+        assert self._run_on(tmp_path, (
+            "import torch\n"
+            "def f(n, r, blob, idx):\n"
+            "    a = torch.zeros((n, r), dtype=torch.float32)\n"
+            "    b = blob.some_method()\n"
+            "    c = a[idx]\n"
+            "    return a + b, c + torch.zeros((r, n))\n")) == []
+
+    def test_spec_rebind_through_tuple_poisons(self, tmp_path):
+        # a tuple-unpacking reassignment of a name that held a spec must
+        # clear it — checking a spec the name no longer holds would
+        # false-positive SHP604
+        assert self._run_on(tmp_path, (
+            "import torch\n"
+            "from karpenter_tpu_torch.parallel.mesh import cut, spec_of\n"
+            "def f(mesh, m, build):\n"
+            "    spec = spec_of('gk_g')\n"
+            "    spec, other = build()\n"
+            "    x = torch.zeros((m,))[None, :].expand(48, m)\n"
+            "    return cut(x, ((0, 0),), spec, mesh.shape)\n")) == []
+
+    def test_stacked_spec_gains_the_scenario_axis(self, tmp_path):
+        findings = self._run_on(tmp_path, (
+            "import torch\n"
+            "from karpenter_tpu_torch.parallel import mesh as pm\n"
+            "def f(mesh, n, g):\n"
+            "    x = torch.zeros((n, g))[None].expand(12, n, g)\n"
+            "    return pm.place('n_tol', x, mesh, True), pm.place('n_tol', x, mesh)\n"))
+        assert [(f.rule, f.line) for f in findings] == [("SHP604", 5)]
+        assert "'scenario'" in findings[0].message
+
+    def test_host_numpy_out_of_scope(self, tmp_path):
+        # encode-time np.int64 index math is intentional host code
+        assert self._run_on(tmp_path, (
+            "import numpy as np\n"
+            "def g(spans):\n"
+            "    arr = np.asarray(spans, np.int64)\n"
+            "    return arr.astype(np.float64), arr.sum(dtype=np.int64)\n")) == []
+
+    def test_host_numpy_reshape_out_of_scope(self, tmp_path):
+        # .reshape literal-dim checks gate on a tracked receiver
+        assert self._run_on(tmp_path, (
+            "import numpy as np\n"
+            "def g(spans):\n"
+            "    return np.asarray(spans, np.int64).reshape(5, 1000)\n")) == []
+
+    def test_branch_rebinding_never_false_positives(self, tmp_path):
+        # a rebinding inside one branch is not a fact on the fall-through
+        # path: `a` is still [n, r] when flag is False
+        assert self._run_on(tmp_path, (
+            "import torch\n"
+            "def f(n, r, flag):\n"
+            "    a = torch.zeros((n, r), dtype=torch.float32)\n"
+            "    if flag:\n"
+            "        a = a.t()\n"
+            "        return a.sum()\n"
+            "    return a + torch.zeros(n, r)\n")) == []
+
+    def test_shape_unpacking_names_axes(self, tmp_path):
+        """``P, G = x.shape`` names x's axes (a parameter the walker knew
+        nothing of), or aliases axes it had; views, reductions and casts
+        carry them to the join."""
+        findings = self._run_on(tmp_path, (
+            "import torch\n"
+            "def f(p_tol, type_ok, n):\n"
+            "    P, G = p_tol.shape\n"
+            "    T = type_ok.shape[-1]\n"
+            "    a = torch.zeros((n, 4))\n"
+            "    N, R = a.shape\n"
+            "    ok = a + torch.ones(N, R)\n"
+            "    rows = p_tol.int().unsqueeze(-1).expand(P, G, T)\n"
+            "    bad = rows.sum(1) + p_tol\n"
+            "    worse = p_tol.t() & p_tol\n"
+            "    fine = p_tol.permute(1, 0).transpose(0, 1) | p_tol\n"
+            "    return ok, bad, worse, fine\n"))
+        assert [(f.rule, f.line) for f in findings] == [("SHP601", 9), ("SHP601", 10)]
+
+    def test_dtype_names_and_casts(self, tmp_path):
+        findings = self._run_on(tmp_path, (
+            "import torch\n"
+            "def f(x, n):\n"
+            "    i64, i32 = torch.int64, torch.int32\n"
+            "    a = x.to(i64)\n"
+            "    b = x.to(i32)\n"
+            "    c = x.long()\n"
+            "    d = torch.arange(n, dtype=torch.long)\n"
+            "    e = x.sum(-1, dtype=torch.int32)\n"
+            "    return a, b, c, d, e\n"))
+        assert [(f.rule, f.line) for f in findings] == [
+            ("SHP602", 4), ("SHP602", 6), ("SHP602", 7)]
+
+    def test_cli_nonzero_on_shape_violations(self):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["--pass", "shapes", fixture("bad_shapes.py")])
+        assert rc == 1 and "SHP6" in out.getvalue()
+
+    def test_sarif_output_on_seeded_violation(self):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["--format", "sarif", "--pass", "shapes", fixture("bad_shapes.py")])
+        assert rc == 1
+        doc = json.loads(out.getvalue())
+        results = doc["runs"][0]["results"]
+        rules = {"SHP601", "SHP602", "SHP603", "SHP604"}
+        assert {r["ruleId"] for r in results} == rules
+        assert all(r["level"] == "error" for r in results)
+        assert {r["id"] for r in doc["runs"][0]["tool"]["driver"]["rules"]} == rules
+        loc = results[0]["locations"][0]["physicalLocation"]
+        assert loc["artifactLocation"]["uri"].endswith("bad_shapes.py")
+        assert loc["region"]["startLine"] >= 1
+
+    def test_write_baseline_workflow(self, tmp_path):
+        """--write-baseline then --baseline: the seeded violations land in
+        the file and a rerun against it is clean."""
+        baseline = str(tmp_path / "baseline.txt")
+        args = ["--pass", "shapes", fixture("bad_shapes.py"), "--baseline", baseline]
+        err = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+            assert cli.main(args + ["--write-baseline"]) == 0
+            text = open(baseline).read()
+            assert "SHP601\t" in text and "SHP603\t" in text
+            assert cli.main(args) == 0
+        assert "suppressed" in err.getvalue()
 
 
 class TestSmokeAudit:

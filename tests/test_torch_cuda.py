@@ -2298,9 +2298,10 @@ def test_twin_small_replay_matches_cpu(cuda):
 
 def mesh_partials(a, D, M, zk, ck, device):
     """Every (data, model) shard's partials of the case ``a`` over its
-    slices on ``device`` — fresh (fail_t, fail_c, tonly, n_fit) in (data,
-    model) order and existing (nfail, cap) per data shard — and the fold's
-    inputs: (shards, fold args)."""
+    slices on ``device``, written as the mesh writes them into one stacked
+    buffer per input (``out=`` slices) — fresh (fail_t, fail_c, tonly,
+    n_fit) in (data, model) order and existing (nfail, cap) per data shard
+    — and the fold's stacked inputs: (shards, fold args)."""
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.parallel import mesh as pm
     from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
@@ -2312,24 +2313,30 @@ def mesh_partials(a, D, M, zk, ck, device):
     pieces = pm.shard_args(pm.pad_args_for_mesh(args, m), m)
     t = {k: {n: torch.from_numpy(np.ascontiguousarray(x)).to(device)
              for n, x in zip(SOLVE_ARG_NAMES, v)} for k, v in pieces.items()}
-    shards, fail_t, fail_c, tonly, n_fit, nfail, cap = [], [], [], [], [], [], None
+    whole = t[0, 0, 0]
+    P, G = whole["p_tol"].shape
+    N = whole["n_avail"].shape[0]
+    slab = (M, P, G, t[0, 0, 0]["t_alloc"].shape[0])
+    i32 = torch.int32
+    fail_t = torch.empty((D,) + slab, dtype=i32, device=device)
+    fail_c = torch.empty((D, P, G), dtype=i32, device=device)
+    tonly = torch.empty(slab, dtype=torch.bool, device=device)
+    n_fit = torch.empty(slab, dtype=i32, device=device)
+    nfail = torch.empty((D, N, G), dtype=i32, device=device)
+    cap = torch.empty((N, G), dtype=i32, device=device)
+    shards = []
     for d in range(D):
+        base = d == 0
         for mi in range(M):
             out = feas.fresh_claim_feasibility_partial(
-                *(t[0, d, mi][n] for n in B1_NAMES), zone_kid=zk, ct_kid=ck, with_base=d == 0)
+                *(t[0, d, mi][n] for n in B1_NAMES), zone_kid=zk, ct_kid=ck, with_base=base,
+                out=(fail_t[d, mi], fail_c[d], tonly[mi] if base else None,
+                     n_fit[mi] if base else None))
             shards.append(("fresh", d, mi, out))
-            fail_t.append(out[0])
-            if mi == 0:
-                fail_c.append(out[1])
-            if d == 0:
-                tonly.append(out[2])
-                n_fit.append(out[3])
         out = feas.existing_node_feasibility_partial(
-            *(t[0, d, 0][n] for n in B2_NAMES if n != "n_tol"), with_base=d == 0)
+            *(t[0, d, 0][n] for n in B2_NAMES if n != "n_tol"), with_base=base,
+            out=(nfail[d], cap if base else None))
         shards.append(("existing", d, 0, out))
-        nfail.append(out[0])
-        cap = out[1] if d == 0 else cap
-    whole = t[0, 0, 0]
     return shards, (fail_t, fail_c, tonly, n_fit, whole["p_tol"], nfail, cap, whole["n_tol"])
 
 
@@ -2378,13 +2385,81 @@ def test_mesh_fold_gathers_final_parts(cuda):
 
     rng = np.random.default_rng(4)
     P, G, Tm, M = 2, 5, 7, 3
-    tonly = [torch.from_numpy(rng.random((P, G, Tm)) < 0.5) for _ in range(M)]
-    n_fit = [torch.from_numpy(rng.integers(0, 9, (P, G, Tm)).astype(np.int32)) for _ in range(M)]
+    tonly = torch.from_numpy(rng.random((M, P, G, Tm)) < 0.5)
+    n_fit = torch.from_numpy(rng.integers(0, 9, (M, P, G, Tm)).astype(np.int32))
     compat = torch.from_numpy(rng.random((P, G)) < 0.7)
-    want = feas.mesh_fold_reference([], [], tonly, n_fit, compat)
-    got = feas.mesh_fold([], [], [x.to(cuda) for x in tonly], [x.to(cuda) for x in n_fit],
-                         compat.to(cuda))
+    want = feas.mesh_fold_reference(None, None, tonly, n_fit, compat)
+    got = feas.mesh_fold(None, None, tonly.to(cuda), n_fit.to(cuda), compat.to(cuda))
     assert got[3] is None and want[3] is None
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def _fold_inputs(rng, D, M, P, G, Tm, N=0, S=0, wide=False):
+    """Random stacked fold inputs: int32 counts (full-range, so the sums
+    wrap, with ``wide``; else mostly zero, so cells pass) and gates."""
+    def counts(shape):
+        if wide:
+            return torch.from_numpy(rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+                                    .astype(np.int32))
+        return torch.from_numpy((rng.random(shape) < 0.1).astype(np.int32)
+                                * rng.integers(-2, 3, shape).astype(np.int32))
+
+    fold = [counts((D, M, P, G, Tm)), counts((D, P, G)),
+            torch.from_numpy(rng.random((M, P, G, Tm)) < 0.8),
+            torch.from_numpy(rng.integers(0, 50, (M, P, G, Tm)).astype(np.int32)),
+            torch.from_numpy(rng.random((P, G)) < 0.9)]
+    if not N:
+        return fold
+    n_tol = torch.from_numpy(rng.random((S, N, G) if S > 1 else (N, G)) < 0.8)
+    return fold + [counts((D, N, G)),
+                   torch.from_numpy(rng.integers(0, 9, (N, G)).astype(np.int32)), n_tol]
+
+
+@pytest.mark.parametrize("case", [
+    # (D, M, P, G, Tm, N, S, wide): T/M a multiple of 4 (the vector path)
+    # or not (a cell a thread), D = 3 and past one chunk of 8 partials,
+    # sums that wrap, a node region with S > 1 and N * G not a multiple of 4
+    (8, 1, 1, 256, 800, 0, 0, False),
+    (3, 2, 2, 9, 13, 5, 1, False),
+    (3, 4, 1, 16, 100, 16, 4, True),
+    (11, 2, 2, 7, 6, 3, 3, True),
+    (2, 4, 3, 33, 8, 7, 2, False),
+])
+def test_mesh_fold_stacked_shapes(cuda, case):
+    """The fold over random stacked partials equals its plain version
+    exactly, on both of its paths (4 cells a thread and a cell a thread),
+    with wrapping sums and a scenario-gated node region, one launch."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    D, M, P, G, Tm, N, S, wide = case
+    ins = _fold_inputs(np.random.default_rng(sum(case[:7])), D, M, P, G, Tm, N, S, wide)
+    want = feas.mesh_fold_reference(*ins)
+    _build.reset_launches()
+    got = feas.mesh_fold(*(x.to(cuda) for x in ins))
+    assert _build.launches["mesh_fold"] == 1
+    assert (got[3] is None) == (N == 0)
+    for name, g, w in zip(("compat_pg", "type_ok", "n_fit", "cap_ng"), got, want):
+        if w is not None:
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=name)
+
+
+def test_mesh_fold_unaligned_views(cuda):
+    """Stacked inputs that are contiguous views at an offset no vector
+    divides take the cell-a-thread path and fold the same."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    D, M, P, G, Tm = 3, 2, 1, 8, 16
+    ins = _fold_inputs(np.random.default_rng(6), D, M, P, G, Tm)
+    want = feas.mesh_fold_reference(*ins)
+    shifted = []
+    for x in ins:
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        view = flat[1:].view(x.shape)
+        view.copy_(x.to(cuda))
+        shifted.append(view)
+    got = feas.mesh_fold(*shifted)
     for g, w in zip(got[:3], want[:3]):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
@@ -2392,10 +2467,26 @@ def test_mesh_fold_gathers_final_parts(cuda):
 def test_mesh_fold_refuses_too_many_shards(cuda):
     from karpenter_tpu_torch.ops import feasibility as feas
 
-    one = torch.zeros((1, 1, 1), dtype=torch.int32, device=cuda)
+    one = torch.zeros((65, 1, 1, 1, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shards"):
-        feas.mesh_fold([one] * 65, [one[0]] * 65, [one.bool()], [one],
+        feas.mesh_fold(one, one[:, 0, 0], one[0].bool(), one[0],
                        torch.ones((1, 1), dtype=torch.bool, device=cuda))
+
+
+def test_mesh_fold_checks_each_stacked_input(cuda):
+    """A stacked input of the wrong shape, dtype or layout is refused by
+    name before the launch."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    ins = [x.to(cuda) for x in _fold_inputs(np.random.default_rng(7), 2, 2, 1, 4, 8)]
+    bad = list(ins)
+    bad[0] = ins[0][:, :1].contiguous()
+    with pytest.raises(ValueError, match="fail_t"):
+        feas.mesh_fold(*bad)
+    bad = list(ins)
+    bad[3] = ins[3].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="n_fit"):
+        feas.mesh_fold(*bad)
 
 
 @pytest.mark.parametrize("data", [8, 2])

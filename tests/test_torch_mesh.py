@@ -184,15 +184,36 @@ def test_fold_reference_is_the_library_sum():
     """The fold's int32 sums wrap, in any order, as the library's int32
     sum of the stacked partials does."""
     rng = np.random.default_rng(9)
-    parts = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (2, 3, 4), dtype=np.int64)
-                              .astype(np.int32)) for _ in range(4)]
-    tonly = [torch.ones((2, 3, 4), dtype=torch.bool)]
-    n_fit = [torch.zeros((2, 3, 4), dtype=torch.int32)]
-    fc = [torch.zeros((2, 3), dtype=torch.int32)] * 4
+    parts = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (4, 1, 2, 3, 4), dtype=np.int64)
+                             .astype(np.int32))
+    tonly = torch.ones((1, 2, 3, 4), dtype=torch.bool)
+    n_fit = torch.zeros((1, 2, 3, 4), dtype=torch.int32)
+    fc = torch.zeros((4, 2, 3), dtype=torch.int32)
     _, type_ok, _, _ = tf.mesh_fold_reference(parts, fc, tonly, n_fit,
                                               torch.ones((2, 3), dtype=torch.bool))
-    lib = torch.stack(parts).sum(0, dtype=torch.int32)
+    lib = parts.sum(0, dtype=torch.int32)[0]
     np.testing.assert_array_equal(type_ok.numpy(), (lib == 0).numpy())
+
+
+def test_shard_into_writes_or_copies():
+    """A shard on the lead device launches into its slices of the stacked
+    buffers; one on another device computes there and only its wanted
+    outputs are copied in."""
+    views = (torch.zeros(3, dtype=torch.int32), torch.zeros(2, dtype=torch.int32))
+    seen = []
+
+    def launch(out):
+        seen.append(out)
+        if out is not None:
+            out[0].fill_(7)
+            return out
+        return torch.ones(3, dtype=torch.int32), torch.full((2,), 5, dtype=torch.int32)
+
+    tsolve._shard_into("cuda:1", "cuda:1", views, launch, (True, True))
+    assert seen == [views] and views[0].tolist() == [7, 7, 7]
+    tsolve._shard_into("cuda:2", "cuda:1", views, launch, (True, False))
+    assert seen[1] is None
+    assert views[0].tolist() == [1, 1, 1] and views[1].tolist() == [0, 0]
 
 
 # -- the sharded programs against JAX's ---------------------------------------
