@@ -324,15 +324,20 @@ OPERATOR_PODS, OPERATOR_STEPS = 2_000, 5
 # on the card (bench.py's run_twin: 10); (b) the device="cpu" replay in a
 # child to TWIN_CPU_MINUTES (past both waves); (c) a checkpoint at
 # TWIN_CHECKPOINT (past the ICE wave), resumed on the card to
-# TWIN_RESUMED_TO (past minutes 5-7, where consolidation starts)
+# TWIN_RESUMED_TO (minutes 7-9, where consolidation runs; 12 before phase
+# 17 came, cut to keep the smoke's length)
 TWIN_NODES, TWIN_PODS_PER_NODE, TWIN_TYPES, TWIN_SEED = 2_000, 10, 24, 7
 TWIN_TRACE_MINUTES, TWIN_P99_MS = 20, 10_000.0
 TWIN_MINUTES, TWIN_CPU_MINUTES = 20, 6
-TWIN_CHECKPOINT, TWIN_RESUMED_TO = 6, 12
+TWIN_CHECKPOINT, TWIN_RESUMED_TO = 6, 9
 TWIN_CPU_WAIT_S = 600
 # phase 16, the solver mesh: 8 positions of the one card (make_mesh's
 # devices), and the constrained churn ticks it rides
 MESH_SHARDS, MESH_TICKS = 8, 3
+# phase 17: the pending pods of its provisioning solve (the gauge), the
+# Deployments of its stale-token check, and the constrained batch of its
+# donating mesh tick (a tenth of phase 16's, to keep the phase near 60 s)
+QUEUE_OPERATOR_PODS, QUEUE_STALE_DEPLOYS, QUEUE_MESH_PODS = 500, 200, 5_000
 REPLACES = {
     "fresh_feasibility": "karpenter_tpu/ops/feasibility.py:141",
     "fresh_feasibility_diverse": "karpenter_tpu/ops/feasibility.py:141",
@@ -346,6 +351,7 @@ REPLACES = {
     "pack_contrib": "karpenter_tpu/ops/packing.py:1153",
     "pack_classed": "karpenter_tpu/ops/packing.py:1230",
     "apply_rows": "karpenter_tpu/ops/solve.py:400",
+    "apply_rows_inplace": "karpenter_tpu/ops/solve.py:404",
     "dense_fresh": "karpenter_tpu/ops/feasibility.py:84",
     "dense_existing": "karpenter_tpu/ops/feasibility.py:298",
     "dense_fresh_relax": "karpenter_tpu/ops/feasibility.py:84",
@@ -373,7 +379,8 @@ SOURCES = {"pack_domains": "pack", "pack_contrib": "pack", "solve_scenarios": "p
            "pack_minvalues": "pack", "pack_resv": "pack", "scenarios_minvalues": "pack",
            "pack_classed_minvalues": "pack_classed", "pack_tiled": "pack",
            "pack_classed_tiled": "pack_classed", "scenarios_tiled": "pack",
-           "fresh_partial": "fresh_feasibility", "existing_partial": "existing_feasibility"}
+           "fresh_partial": "fresh_feasibility", "existing_partial": "existing_feasibility",
+           "apply_rows_inplace": "apply_rows"}
 # B1's and B2's rows at the other shapes of their paths: (the kernel, the
 # paths whose launches run at that shape; a part of the kernel's own row)
 SHAPE_ROWS = {
@@ -392,7 +399,7 @@ SHAPE_ROWS = {
     "pack_wide": ("pack", ("team_exists", "team_in", "mv_types")),
 }
 # the one PyTorch call that computes a kernel's function, timed beside it
-LIBRARY = {"apply_rows": "Tensor.index_copy",
+LIBRARY = {"apply_rows": "Tensor.index_copy", "apply_rows_inplace": "Tensor.index_copy_",
            "mesh_fold": "Tensor.sum(0) of the stacked fail_t (no finish)"}
 # the fold's earlier yardstick, over the D x M partials as a list
 LIBRARY_STACK = "torch.stack(partials).sum(0)"
@@ -1382,7 +1389,9 @@ def constrained_rows(torch_solver_cls, config_cls, encode_cache_cls):
     tick_pods = churn_tick(pods, constrained_mix, random.Random(CHURN_SEED))
     solver_b = build_batch(torch_solver_cls, config_cls, tick_pods, N_TYPES_C, device="cuda",
                            cache=cache)
-    rows["apply_rows"] = b8_row(host_a, *host_snapshot(solver_b, tick_pods)[::3])
+    inputs = largest_delta(host_a, *host_snapshot(solver_b, tick_pods)[::3])
+    # the inputs ride along for phase 17 (main pops them before the JSON line)
+    rows["apply_rows"] = dict(b8_row(inputs), inputs=inputs)
     return rows
 
 
@@ -1433,18 +1442,10 @@ def with_device(row, fn, reps):
     return dict(row, device_ms=ms, device_per_call=per_call, device_timing=how)
 
 
-def b8_row(host_a, host_b, delta):
-    """B8's row at the largest row delta (bytes) of a churn tick whose
-    encode ``host_b`` (and ``delta``) follows ``host_a``'s on one cache:
-    the kernel against its plain version, the tick's encode and
-    ``Tensor.index_copy``, timed through the wrapper (CUDA events) and on
-    the device alone (device_ms); one device kernel a call, no copy of the
-    buffer beside it."""
-    import numpy as np
-    import torch
-
-    from karpenter_tpu_torch.ops import solve as solve_mod
-    from karpenter_tpu_torch.solver.args import put
+def largest_delta(host_a, host_b, delta):
+    """(name, host before, host after, row indices) of the argument with
+    the largest row delta (bytes) of a churn tick whose encode ``host_b``
+    (and ``delta``) follows ``host_a``'s on one cache."""
     from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
     from karpenter_tpu_torch.solver.residency import DeviceResidentArgs
 
@@ -1458,7 +1459,23 @@ def b8_row(host_a, host_b, delta):
             best = (size, name, ha, hb, idx)
     if best is None:
         raise SmokeFailure("the churn tick carried no row delta")
-    _, name, ha, hb, idx_np = best
+    return best[1:]
+
+
+
+def b8_row(inputs):
+    """B8's row at a churn tick's largest row delta (``largest_delta``):
+    the kernel against its plain version, the tick's encode and
+    ``Tensor.index_copy``, timed through the wrapper (CUDA events) and on
+    the device alone (device_ms); one device kernel a call, no copy of the
+    buffer beside it."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.ops import solve as solve_mod
+    from karpenter_tpu_torch.solver.args import put
+
+    name, ha, hb, idx_np = inputs
     arr = put(name, ha, "cuda")
     idx = torch.from_numpy(idx_np.astype(np.int32)).to("cuda")
     vals = torch.from_numpy(np.ascontiguousarray(hb[idx_np])).to("cuda")
@@ -1951,11 +1968,12 @@ def phase_end_to_end(torch_solver_cls, config_cls, encode_cache_cls):
         if missing:
             raise SmokeFailure(f"{label} path never launched {missing} (counts {counts})")
         relax_pods[label] = solver.last_relax_pods
+        dispatches[label] = solver.last_dispatches
         if solver.last_relax_pods:  # the JAX package routes none of these
             raise SmokeFailure(f"{label}: {solver.last_relax_pods} pods relax-routed")
         return res, pods, counts
 
-    relax_pods = {}
+    relax_pods, dispatches = {}, {}
     res_a, pods_a, launches_a = counted("50k", N_PODS)
     res_b, pods_b, launches_b = counted("nodes", NODE_PODS, N_NODES)
     launches = {"50k": launches_a, "nodes": launches_b, "dense_route": dense_route()}
@@ -1994,6 +2012,7 @@ def phase_end_to_end(torch_solver_cls, config_cls, encode_cache_cls):
     phases["other"] = totals.get("solve", 0.0) * 1e3 - sum(phases.values())
     return dict(
         launches=launches,
+        dispatches=dispatches,
         relax_pods=relax_pods,
         claims_50k=len(res_a.new_node_claims),
         claims_nodes=len(res_b.new_node_claims),
@@ -2854,7 +2873,9 @@ def phase_tenant(torch_solver_cls, config_cls, encode_cache_cls):
     bcache = encode_cache_cls()
     host_a = host_snapshot(solver_for(pods, bcache), pods)[0]
     first = tenant_tick(pods, 1, random.Random(TENANT_TICK_SEED))
-    out["b8_tick"] = b8_row(host_a, *host_snapshot(solver_for(first, bcache), first)[::3])
+    out["b8_inputs"] = largest_delta(host_a,
+                                     *host_snapshot(solver_for(first, bcache), first)[::3])
+    out["b8_tick"] = b8_row(out["b8_inputs"])
     if out["b8_tick"]["max_abs_err"]:
         raise SmokeFailure(f"tenant tick: B8 differs from its plain version "
                            f"({out['b8_tick']['max_abs_err']})")
@@ -4579,6 +4600,667 @@ def mesh_line(mesh, secs, total_s, smi):
         + f"; (g) a warm mesh solve {mesh['syncs']} syncs, all sanctioned")
 
 
+# -- phase 17: the dispatch queue and the donated row apply ----------------------
+
+
+def queue_events(tracer):
+    """The queue's instant events of every finished span, in time order:
+    (name, attrs)."""
+    events = sorted((ts, name, attrs) for s in tracer.finished() for ts, name, attrs in s.events
+                    if name.startswith("queue."))
+    return [(name, attrs) for _, name, attrs in events]
+
+
+def queue_pairs_ok(label, events, kind, dispatches):
+    """Raise unless ``events`` are ``dispatches`` submit/drain pairs of
+    ``kind``: depth 1 at each submit, 0 at each drain, no eviction."""
+    want = [("queue.depth", {"depth": d, "op": op, "label": kind})
+            for _ in range(dispatches) for d, op in ((1, "submit"), (0, "drain"))]
+    if events != want:
+        raise SmokeFailure(f"{label}: queue events {events}, want {dispatches} x submit/drain "
+                           f"of {kind!r}")
+
+
+def per_dispatch(counts, dispatches, kernels):
+    return {k: counts[k] / dispatches for k in kernels}
+
+
+class donating:
+    """KTPU_DONATE_DELTA set to ``flag`` ("1" or "0") inside, restored after."""
+
+    def __init__(self, flag):
+        self.flag = flag
+
+    def __enter__(self):
+        self.old = os.environ.get("KTPU_DONATE_DELTA")
+        os.environ["KTPU_DONATE_DELTA"] = self.flag
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("KTPU_DONATE_DELTA", None)
+        else:
+            os.environ["KTPU_DONATE_DELTA"] = self.old
+
+
+def cold_device_ms(fn, kernel, reps=50):
+    """Device milliseconds of the kernel named ``kernel`` per call of
+    ``fn``, with the L2 cache cold: a 128 MB write between calls evicts
+    the H100's 50 MB L2, as a churn tick's apply finds its buffer (the
+    back-to-back calls of device_ms find the rows they just wrote in L2).
+    torch.profiler's self device time of that kernel's records alone;
+    None where it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.fill_(1)
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA") or not ev.count:
+            continue
+        name = ev.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+        if name.split()[-1] == kernel:
+            t = getattr(ev, "self_device_time_total", None)
+            us += getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
+            n += ev.count
+    return us / 1e3 / n if n else None
+
+
+def peak_rise(fn):
+    """Bytes by which max_memory_allocated rises over what was allocated
+    before ``fn()``."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - start
+
+
+def b8_inplace_row(inputs, reps=100):
+    """B8's in-place entry (KTPU_DONATE_DELTA=1) at a churn tick's largest
+    row delta: exact against its plain in-place version on the same CUDA
+    tensors and against the tick's encode, counted under its own name (and
+    never as the out-of-place B8), one device kernel a call under
+    torch.profiler, its result in the buffer's own memory and the old
+    tensor emptied. Timed through the wrapper (CUDA events) and on the
+    device alone, beside the out-of-place B8 and Tensor.index_copy_ (in
+    place) on the same inputs. Bound: the delta rows read and written and
+    their indices read once."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops import solve as solve_mod
+    from karpenter_tpu_torch.solver.args import put
+
+    name, ha, hb, idx_np = inputs
+    idx = torch.from_numpy(idx_np.astype(np.int32)).to("cuda")
+    vals = torch.from_numpy(np.ascontiguousarray(hb[idx_np])).to("cuda")
+    idx64 = idx.long()
+    want = torch.from_numpy(np.ascontiguousarray(hb))
+    ref = solve_mod.delta_apply_rows_inplace_reference(put(name, ha, "cuda"), idx, vals)
+    arr = put(name, ha, "cuda")
+    ptr = arr.data_ptr()
+    with donating("1"):
+        _build.reset_launches()
+        out = solve_mod.delta_apply_rows(arr, idx, vals)
+        torch.cuda.synchronize()
+        counts = (_build.launches["apply_rows_inplace"], _build.launches["apply_rows"])
+        if counts != (1, 0) or out.data_ptr() != ptr or arr.numel():
+            raise SmokeFailure(f"B8 in place: launches (in place, out of place) {counts}, "
+                               f"same memory {out.data_ptr() == ptr}, old tensor emptied "
+                               f"{not arr.numel()}")
+        if not torch.equal(out, ref) or not torch.equal(out.cpu(), want):
+            raise SmokeFailure(f"B8 in place: {name} differs from its plain in-place version "
+                               "or from the tick's encode")
+        err = max_abs_err([out], [ref])
+        box = [out]
+
+        def inplace():
+            box[0] = solve_mod.delta_apply_rows(box[0], idx, vals)
+
+        dev_ms, dev_acts, how = device_ms(inplace, reps)
+        one_kernel("B8 in place", dev_acts)
+        ms = cuda_ms(inplace, 50)
+        cold_ms = cold_device_ms(inplace, "apply_rows_inplace")
+        inplace_rise = peak_rise(inplace)
+    plain_buf = put(name, ha, "cuda")
+    lib_buf = put(name, ha, "cuda")
+    with donating("0"):
+        def out_of_place():
+            solve_mod.delta_apply_rows(plain_buf, idx, vals)
+
+        oop_dev_ms, oop_acts, _ = device_ms(out_of_place, reps)
+        oop_cold_ms = cold_device_ms(out_of_place, "apply_rows")
+        oop_rise = peak_rise(out_of_place)
+    lib_dev_ms, lib_acts, _ = device_ms(lambda: lib_buf.index_copy_(0, idx64, vals), reps)
+    return dict(
+        max_abs_err=err,
+        ms=ms,
+        plain_ms=cuda_ms(
+            lambda: solve_mod.delta_apply_rows_inplace_reference(plain_buf, idx, vals), 20),
+        library_ms=cuda_ms(lambda: lib_buf.index_copy_(0, idx64, vals), 50),
+        device_ms=dev_ms, device_timing=how, device_per_call=dev_acts,
+        out_of_place_device_ms=oop_dev_ms, out_of_place_per_call=oop_acts,
+        cold_device_ms=cold_ms, out_of_place_cold_device_ms=oop_cold_ms,
+        peak_rise=inplace_rise, out_of_place_peak_rise=oop_rise,
+        library_device_ms=lib_dev_ms, library_device_per_call=lib_acts,
+        bound=bound_ms(2 * nbytes([vals]) + nbytes([idx]), 0),
+        buffer_bytes=nbytes([ref]),
+        shape=f"{name} {tuple(ref.shape)} {ref.dtype}, {len(idx_np)} rows",
+    )
+
+
+def tick_b8_inputs(torch_solver_cls, config_cls, encode_cache_cls):
+    """largest_delta of phase 5's first constrained churn tick (phase 2's
+    B8 row's inputs), for a run of phase 17 alone."""
+    import random
+
+    from karpenter_tpu_torch.solver.workloads import CHURN_SEED, churn_tick, constrained_mix
+
+    cache = encode_cache_cls()
+    pods = constrained_mix(N_PODS)
+    host_a = host_snapshot(build_batch(torch_solver_cls, config_cls, pods, N_TYPES_C,
+                                       cache=cache), pods)[0]
+    tick = churn_tick(pods, constrained_mix, random.Random(CHURN_SEED))
+    return largest_delta(host_a, *host_snapshot(build_batch(
+        torch_solver_cls, config_cls, tick, N_TYPES_C, cache=cache), tick)[::3])
+
+
+def tenant_b8_inputs(torch_solver_cls, config_cls, encode_cache_cls):
+    """largest_delta of phase 9's first tenant tick, for a run of phase 17
+    alone."""
+    import random
+
+    from karpenter_tpu_torch.cloudprovider import corpus
+    from karpenter_tpu_torch.solver.example import tenant_pods, tenant_pools
+
+    pools = tenant_pools(N_TENANTS)
+    catalog = corpus.generate(TENANT_TYPES)
+    its = {p.name: list(catalog) for p in pools}
+    cache = encode_cache_cls()
+    pods = tenant_pods(N_DEPLOY, N_TENANTS)
+
+    def snap(batch):
+        return host_snapshot(build_batch(torch_solver_cls, config_cls, batch, 0, cache=cache,
+                                         pools=pools, its=catalog), batch)
+
+    host_a = snap(pods)[0]
+    first = tenant_tick(pods, 1, random.Random(TENANT_TICK_SEED))
+    return largest_delta(host_a, *snap(first)[::3])
+
+
+def staging_peaks(store_cls, solve_mod):
+    """Wrap the residency store's ``stage`` and the row apply: each stage
+    call records (memory allocated at its start, its peak
+    max_memory_allocated, the bytes of the largest buffer it row-applied),
+    appended to the returned list. Returns (records, undo)."""
+    import torch
+
+    records = []
+    stage, apply = store_cls.stage, solve_mod.delta_apply_rows
+    largest = [0]
+
+    def apply_rows(arr, idx, rows):
+        largest[0] = max(largest[0], arr.numel() * arr.element_size())
+        return apply(arr, idx, rows)
+
+    def staged(self, *a, **k):
+        torch.cuda.synchronize()
+        largest[0] = 0
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = stage(self, *a, **k)
+        torch.cuda.synchronize()
+        records.append((start, torch.cuda.max_memory_allocated(), largest[0]))
+        return out
+
+    store_cls.stage, solve_mod.delta_apply_rows = staged, apply_rows
+
+    def undo():
+        store_cls.stage, solve_mod.delta_apply_rows = stage, apply
+
+    return records, undo
+
+
+def swapped_deployments():
+    """(pods, the pods a tick later, pools, catalog) of a small tenant
+    batch: QUEUE_STALE_DEPLOYS Deployments over 4 tainted pools and 60
+    types, then 10 of them swapped for new ones. The swap changes group
+    rows, which a consolidation batch's shared encoding stages as row
+    deltas (its per-scenario g_count and n_tol are staged apart)."""
+    from karpenter_tpu_torch.cloudprovider import corpus
+    from karpenter_tpu_torch.solver.example import tenant_pods, tenant_pools
+
+    pods = tenant_pods(QUEUE_STALE_DEPLOYS, 4)
+    gone = {f"d{i}" for i in range(10)}
+    tick = [p for p in pods if p.metadata.labels["app"] not in gone] + tenant_pods(
+        10, 4, seed=99, first=QUEUE_STALE_DEPLOYS)
+    return pods, tick, tenant_pools(4), corpus.generate(60)
+
+
+def phase_queue(torch_solver_cls, config_cls, encode_cache_cls, e2e=None, cons=None,
+                b8_inputs=None):
+    """Phase 17: the dispatch queue (A15) and B8's donated row apply. (a)
+    a warm mixed N_PODS x N_TYPES solve and a warm CONS_SCENARIOS
+    consolidation batch (phase 15's inputs) under a tracer: each dispatch
+    one queue.depth 1 at its submit and 0 at its drain, labelled "pack" /
+    "scenarios", no eviction; launches per dispatch those of phase 3's
+    solve and phase 4's multi-node search (``e2e``, ``cons``; without
+    them, each path kernel once a dispatch); whether the card was still
+    busy when submit returned, logged; solver_dispatch_queue_depth 0 after
+    a provisioning solve. (b) a DISPATCH_QUEUE fault at submit and at
+    drain: the batch declines, the breaker records it on the batched rung
+    (not a card fault), compute_command over LADDER_NODES gives the
+    fault-free command, and without a ladder the fault raises. (c) three
+    submit_scenarios without a collect: depth 2 and one queue.evict;
+    collecting the three gives what collecting each alone gives;
+    memory_allocated back to its baseline once the tokens are dropped.
+    (d) KTPU_DONATE_DELTA=1: phase 5's protocol (warm-ups and N_TICKS
+    constrained churn ticks) decides as the plain loop, every tick through
+    the in-place entry and never the out-of-place B8, each tick's staging
+    peak (over the staging's start) lower than the plain tick's by at least
+    the largest buffer it row-applied; the in-place entry's rows at the
+    constrained tick's and the tenant tick's largest delta
+    (b8_inplace_row; ``b8_inputs``: phase 2's and phase 9's largest_delta
+    as "tick" and "tenant", made here where not given); a tensor donated
+    away raising at the row apply and
+    at a stale queue token's resubmit; one constrained churn tick on phase
+    16's mesh of 8 positions of the card under donation == the
+    single-device tick."""
+    import gc
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch import _build, faults, obs
+    from karpenter_tpu_torch.controllers import provisioning
+    from karpenter_tpu_torch.controllers.disruption.helpers import ScenarioSimulator
+    from karpenter_tpu_torch.faults.breaker import SolverHealth
+    from karpenter_tpu_torch.kube import TestClock
+    from karpenter_tpu_torch.ops import solve as solve_mod
+    from karpenter_tpu_torch.parallel import mesh as pm
+    from karpenter_tpu_torch.solver import workloads as wl
+    from karpenter_tpu_torch.solver.driver import Scenario
+    from karpenter_tpu_torch.solver.residency import DeviceResidentArgs
+
+    out = {"launches": {}, "secs": {}}
+    t0 = time.perf_counter()
+
+    def part(label):
+        nonlocal t0
+        now = time.perf_counter()
+        out["secs"][label] = now - t0
+        t0 = now
+
+    # (a) the queue on the main path
+    def busy_on_submit(solver):
+        seen = []
+        submit = solver._queue.submit
+
+        def traced_submit(label, fn):
+            slot = submit(label, fn)
+            ev = torch.cuda.Event()
+            ev.record()
+            seen.append(not ev.query())
+            return slot
+
+        solver._queue.submit = traced_submit
+        return seen
+
+    def traced(fn):
+        """fn() under a tracer, inside a span of its own: the queue's
+        events attach to the open span, and the scenario submit runs
+        outside the solver's spans."""
+        tracer = obs.install(obs.Tracer(obs.PerfClock()))
+        try:
+            with obs.span("queue.check"):
+                res = fn()
+            torch.cuda.synchronize()
+        finally:
+            obs.uninstall()
+        return res, queue_events(tracer)
+
+    cache = encode_cache_cls()
+    pods = wl.mixed_pods(N_PODS)
+    build_batch(torch_solver_cls, config_cls, pods, N_TYPES, cache=cache).solve(pods)
+    solver = build_batch(torch_solver_cls, config_cls, pods, N_TYPES, cache=cache)
+    busy = busy_on_submit(solver)
+    _build.reset_launches()
+    res, events = traced(lambda: solver.solve(pods))
+    counts = dict(_build.launches)
+    out["launches"]["queue_solve"] = counts
+    n = solver.last_dispatches
+    if res.pod_errors or solver.fallback_solves:
+        raise SmokeFailure(f"queue solve: {len(res.pod_errors)} errors, fallbacks "
+                           f"{solver.last_fallback_reasons}")
+    queue_pairs_ok("queue solve", events, "pack", n)
+    kernels = PATH_KERNELS["50k"]
+    want = ({k: 1.0 for k in kernels} if e2e is None else
+            per_dispatch(e2e["launches"]["50k"], e2e["dispatches"]["50k"], kernels))
+    if per_dispatch(counts, n, kernels) != want:
+        raise SmokeFailure(f"queue solve: launches {counts} over {n} dispatches, phase 3 {want}")
+    out["solve"] = dict(dispatches=n, busy=busy, depth=solver._queue.depth())
+
+    ctx, _, candidates, _ = wl.build_consolidation_env(CONS_NODES, "cuda")
+    sim = ScenarioSimulator(ctx.client, ctx.cluster, ctx.cloud_provider, candidates,
+                            encode_cache=ctx.encode_cache, solver_config=ctx.solver_config)
+    bsolver = sim._solver
+    chunks = [[[c] for c in candidates[i * CONS_SCENARIOS:(i + 1) * CONS_SCENARIOS]]
+              for i in range(3)]
+
+    def batch(chunk):
+        return bsolver.solve_scenarios(sim._scenarios_of(chunk))
+
+    batch(chunks[0])
+    busy = busy_on_submit(bsolver)
+    _build.reset_launches()
+    bres, events = traced(lambda: batch(chunks[0]))
+    counts = dict(_build.launches)
+    out["launches"]["queue_batch"] = counts
+    n = bsolver.last_scenario_dispatches
+    if bres is None or len(bres) != CONS_SCENARIOS:
+        raise SmokeFailure("queue batch: the consolidation batch declined")
+    queue_pairs_ok("queue batch", events, "scenarios", n)
+    kernels = ("fresh_feasibility",) + CONS_KERNELS
+    want = ({k: 1.0 for k in kernels} if cons is None else
+            per_dispatch(cons["multi"]["launches"], cons["multi"]["dispatches"], kernels))
+    if per_dispatch(counts, n, kernels) != want:
+        raise SmokeFailure(f"queue batch: launches {counts} over {n} dispatches, phase 4 {want}")
+    out["batch"] = dict(dispatches=n, busy=busy, depth=bsolver._queue.depth())
+    del bsolver._queue.submit
+
+    gauge = provisioning.DISPATCH_QUEUE_DEPTH
+    gauge.clear()
+    _build.reset_launches()
+    operator_claims(wl.mixed_pods(QUEUE_OPERATOR_PODS), N_TYPES, 1)
+    out["launches"]["queue_operator"] = dict(_build.launches)
+    if gauge.collect() != [("gauge", gauge.name, {}, 0.0)]:
+        raise SmokeFailure(f"solver_dispatch_queue_depth after a provisioning solve: "
+                           f"{gauge.collect()}")
+
+    part("a")
+
+    # (b) DISPATCH_QUEUE faults on the card
+    def search(health=None):
+        ctx, method, cands, budgets = wl.build_consolidation_env(LADDER_NODES, "cuda")
+        ctx.solver_config = config_cls(device="cuda", health=health)
+        cmd = method.compute_command(cands, budgets)
+        torch.cuda.synchronize()
+        return command_signature(cmd)
+
+    def rule(op):
+        return faults.install(faults.FaultInjector([faults.FaultRule(
+            faults.DISPATCH_QUEUE, match=lambda ctx: ctx.get("op") == op, times=1)]))
+
+    clean = search()
+    out["faults"] = {}
+    for op in ("submit", "drain"):
+        health = SolverHealth(TestClock())
+        sim_h = ScenarioSimulator(ctx.client, ctx.cluster, ctx.cloud_provider, candidates,
+                                  encode_cache=ctx.encode_cache,
+                                  solver_config=config_cls(device="cuda", health=health))
+        inj = rule(op)
+        try:
+            declined = sim_h._solver.solve_scenarios(sim_h._scenarios_of(chunks[0])) is None
+        finally:
+            faults.uninstall()
+        rec = health.export_state()["breakers"]
+        inj_cmd = rule(op)
+        try:
+            cmd = search(SolverHealth(TestClock()))
+        finally:
+            faults.uninstall()
+        raised = None
+        sim_n = ScenarioSimulator(ctx.client, ctx.cluster, ctx.cloud_provider, candidates,
+                                  encode_cache=ctx.encode_cache, solver_config=ctx.solver_config)
+        rule(op)
+        try:
+            sim_n.solve([[c] for c in candidates[:2]])
+        except faults.InjectedFault as exc:
+            raised = type(exc).__name__
+        finally:
+            faults.uninstall()
+        ok = (declined and inj.fired(faults.DISPATCH_QUEUE) == 1
+              and rec["batched"]["failures"] == 1 and rec["kernel"]["failures"] == 0
+              and cmd == clean and inj_cmd.fired(faults.DISPATCH_QUEUE) == 1
+              and raised == "InjectedFault")
+        if not ok:
+            raise SmokeFailure(f"queue fault at {op}: declined {declined}, fired "
+                               f"{inj.fired(faults.DISPATCH_QUEUE)}, breakers {rec}, command "
+                               f"== fault-free {cmd == clean}, without a ladder {raised}")
+        out["faults"][op] = dict(batched_failures=rec["batched"]["failures"],
+                                 command=cmd[0], raised=raised)
+
+    part("b")
+
+    # (c) eviction
+    alone = []
+    for chunk in chunks:
+        tok = bsolver.submit_scenarios(sim._scenarios_of(chunk))
+        alone.append([decisions(r, [p for s in tok["scenarios"] for p in s.pods])
+                      for r in bsolver.collect_scenarios(tok)])
+        del tok
+    gc.collect()
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
+    tracer = obs.install(obs.Tracer(obs.PerfClock()))
+    try:
+        with obs.span("queue.evict_check"):
+            tokens = [bsolver.submit_scenarios(sim._scenarios_of(chunk)) for chunk in chunks]
+            depth = bsolver._queue.depth()
+            together = [[decisions(r, [p for s in tok["scenarios"] for p in s.pods])
+                         for r in bsolver.collect_scenarios(tok)] for tok in tokens]
+        torch.cuda.synchronize()
+    finally:
+        obs.uninstall()
+    evicts = [e for e in queue_events(tracer) if e[0] == "queue.evict"]
+    del tokens
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if depth != 2 or evicts != [("queue.evict", {"label": "scenarios"})]:
+        raise SmokeFailure(f"eviction: depth {depth} after three submits, evictions {evicts}")
+    if together != alone:
+        raise SmokeFailure("eviction: the three tokens collected together decide otherwise "
+                           "than each collected alone")
+    if after > baseline:
+        raise SmokeFailure(f"eviction: memory_allocated {after} B after the tokens were "
+                           f"dropped, baseline {baseline} B")
+    out["evict"] = dict(depth=depth, evictions=len(evicts), baseline=baseline, after=after)
+    del ctx, sim, bsolver, bres
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    part("c")
+
+    # (d) donation: phase 5's churn protocol on two caches in lockstep, one
+    # plain and one donating, over the same tick pods
+    records, undo = staging_peaks(DeviceResidentArgs, solve_mod)
+    caches = {"0": encode_cache_cls(), "1": encode_cache_cls()}
+    labels = {"0": "queue_plain_ticks", "1": "donated_ticks"}
+    tick_counts = {flag: {} for flag in caches}
+    tpods = wl.constrained_mix(N_PODS)
+    rng = random.Random(wl.CHURN_SEED)
+    out["ticks"] = []
+    try:
+        for flag, cache in caches.items():
+            with donating(flag):
+                build_batch(torch_solver_cls, config_cls, tpods, N_TYPES_C,
+                            cache=cache).solve(tpods)
+        for i in range(N_TICKS):
+            tpods = wl.churn_tick(tpods, wl.constrained_mix, rng)
+            tick = {}
+            gc.collect()
+            for flag, cache in caches.items():
+                s = build_batch(torch_solver_cls, config_cls, tpods, N_TYPES_C, cache=cache)
+                del records[:]
+                _build.reset_launches()
+                with donating(flag):
+                    res = s.solve(tpods)
+                torch.cuda.synchronize()
+                counts = dict(_build.launches)
+                for k, v in counts.items():
+                    tick_counts[flag][k] = tick_counts[flag].get(k, 0) + v
+                if s.fallback_solves or cache.device_store.last_delta_rows < 1:
+                    raise SmokeFailure(f"{labels[flag]}: fallbacks {s.last_fallback_reasons}, "
+                                       f"device delta rows {cache.device_store.last_delta_rows}")
+                start, peak, largest = max(records, key=lambda r: r[2])
+                tick[flag] = dict(decisions=decisions(res, tpods), start=start, peak=peak,
+                                  largest=largest, inplace=counts["apply_rows_inplace"],
+                                  out_of_place=counts["apply_rows"])
+            p, d = tick["0"], tick["1"]
+            if d["decisions"] != p["decisions"]:
+                raise SmokeFailure(f"donated tick {i + 1}: decisions differ from the plain "
+                                   "tick's")
+            if d["inplace"] < 1 or d["out_of_place"] or p["inplace"] or p["out_of_place"] < 1:
+                raise SmokeFailure(f"donated tick {i + 1}: in-place/out-of-place launches "
+                                   f"{d['inplace']}/{d['out_of_place']}, plain {p['inplace']}/"
+                                   f"{p['out_of_place']}")
+            plain_rise, donated_rise = p["peak"] - p["start"], d["peak"] - d["start"]
+            if plain_rise - donated_rise < p["largest"]:
+                raise SmokeFailure(f"donated tick {i + 1}: staging peak {d['peak']} B "
+                                   f"({donated_rise} B over its start) vs plain {p['peak']} B "
+                                   f"({plain_rise} B), largest updated buffer {p['largest']} B")
+            out["ticks"].append(dict(plain_peak=p["peak"], donated_peak=d["peak"],
+                                     plain_rise=plain_rise, donated_rise=donated_rise,
+                                     largest=p["largest"], inplace=d["inplace"]))
+    finally:
+        undo()
+    for flag, label in labels.items():
+        out["launches"][label] = tick_counts[flag]
+    del caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    part("d ticks")
+    b8_inputs = dict(b8_inputs or {})
+    for key, make in (("tick", tick_b8_inputs), ("tenant", tenant_b8_inputs)):
+        if key not in b8_inputs:
+            b8_inputs[key] = make(torch_solver_cls, config_cls, encode_cache_cls)
+    part("d inputs")
+    out["rows"] = {"apply_rows_inplace": b8_inplace_row(b8_inputs["tick"])}
+    out["tenant_row"] = b8_inplace_row(b8_inputs["tenant"])
+    for label, row in (("tick", out["rows"]["apply_rows_inplace"]),
+                       ("tenant tick", out["tenant_row"])):
+        if row["max_abs_err"]:
+            raise SmokeFailure(f"B8 in place at the {label}'s delta: error {row['max_abs_err']}")
+
+    # a tensor donated away raises: at the row apply, and at a stale
+    # queue token's resubmit after a donating tick on the same cache
+    stale = torch.arange(12, dtype=torch.int32, device="cuda").reshape(4, 3)
+    with donating("1"):
+        solve_mod.delta_apply_rows(stale, torch.ones(1, dtype=torch.int32, device="cuda"),
+                                   torch.zeros((1, 3), dtype=torch.int32, device="cuda"))
+        raised = {}
+        try:
+            solve_mod.delta_apply_rows(stale, torch.ones(1, dtype=torch.int32, device="cuda"),
+                                       torch.zeros((1, 3), dtype=torch.int32, device="cuda"))
+        except ValueError as exc:
+            raised["apply"] = str(exc)
+        cache = encode_cache_cls()
+        spods, tick, pools, catalog = swapped_deployments()
+
+        def sbatch(batch):
+            return build_batch(torch_solver_cls, config_cls, batch, 0, cache=cache,
+                               pools=pools, its=catalog)
+
+        warm = sbatch(spods)
+        first = warm.solve_scenarios([Scenario(pods=spods)])
+        token = warm.submit_scenarios([Scenario(pods=spods)])
+        _build.reset_launches()
+        sbatch(tick).solve_scenarios([Scenario(pods=tick)])
+        donated_n = _build.launches["apply_rows_inplace"]
+        kept = decisions(warm.collect_scenarios(token)[0], spods) == decisions(first[0], spods)
+        try:
+            warm._submit_scenario_dispatch(token)
+        except Exception as exc:  # noqa: BLE001 - any raise is the contract
+            raised["token"] = f"{type(exc).__name__}: {exc}"
+        torch.cuda.synchronize()
+    if set(raised) != {"apply", "token"} or not donated_n or not kept:
+        raise SmokeFailure(f"donated away: raised {raised}, in-place launches {donated_n}, "
+                           f"the token's own outputs kept {kept}")
+    out["stale"] = raised
+    part("d rows and stale")
+
+    # one constrained churn tick on the mesh of 8 positions of the card
+    m8 = pm.make_mesh(devices=[torch.device("cuda", 0)] * MESH_SHARDS)
+    cache_m, cache_1 = encode_cache_cls(), encode_cache_cls()
+    mpods = wl.constrained_mix(QUEUE_MESH_PODS)
+
+    def msolver(batch, mesh, cache):
+        return build_batch(torch_solver_cls, config_cls, batch, N_TYPES_C, cache=cache,
+                           config_kw={"mesh": mesh})
+
+    with donating("1"):
+        msolver(mpods, m8, cache_m).solve(mpods)
+        msolver(mpods, None, cache_1).solve(mpods)
+        mpods = wl.churn_tick(mpods, wl.constrained_mix, random.Random(wl.CHURN_SEED))
+        _build.reset_launches()
+        sm = msolver(mpods, m8, cache_m)
+        res_m = sm.solve(mpods)
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        res_1 = msolver(mpods, None, cache_1).solve(mpods)
+    out["launches"]["donated_mesh_tick"] = counts
+    if decisions(res_m, mpods) != decisions(res_1, mpods):
+        raise SmokeFailure("donated mesh tick: decisions differ from the single device's")
+    if counts["apply_rows_inplace"] < 1 or counts["apply_rows"] or sm.fallback_solves:
+        raise SmokeFailure(f"donated mesh tick: launches {counts}, fallbacks "
+                           f"{sm.last_fallback_reasons}")
+    mesh_counts_ok("donated mesh tick", counts, sm.last_dispatches, m8.shape, False)
+    out["mesh_tick_inplace"] = counts["apply_rows_inplace"]
+    part("d mesh")
+    return out
+
+
+def queue_line(q, secs, total_s, smi):
+    row, ten = q["rows"]["apply_rows_inplace"], q["tenant_row"]
+
+    def b8(r):
+        return (f"[{r['shape']}] {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms "
+                f"({r['device_timing']}, {r['device_per_call']}), L2 cold {r['cold_device_ms']} "
+                f"ms vs out-of-place B8 {r['out_of_place_device_ms']:.4f} ms (L2 cold "
+                f"{r['out_of_place_cold_device_ms']} ms) and Tensor.index_copy_ "
+                f"{r['library_device_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound'][0]:.6f} ms, buffer {r['buffer_bytes']} B, peak rise "
+                f"{r['peak_rise']} B vs out of place {r['out_of_place_peak_rise']} B")
+
+    return (
+        f"phase 17 dispatch queue and donated row apply ({secs:.0f} s, smoke so far "
+        f"{total_s:.0f} s; {smi}): (a) warm mixed {N_PODS} x {N_TYPES} solve "
+        f"{q['solve']['dispatches']} dispatch(es), warm S={CONS_SCENARIOS} batch "
+        f"{q['batch']['dispatches']}, each queue.depth 1 at submit / 0 at drain, launches per "
+        f"dispatch == phases 3 and 4; card still busy when submit returned: solve "
+        f"{q['solve']['busy']}, batch {q['batch']['busy']}; solver_dispatch_queue_depth 0 after "
+        f"a provisioning solve; (b) DISPATCH_QUEUE fault at " + ", ".join(
+            f"{op}: batch declined, batched failures {f['batched_failures']}, command "
+            f"{f['command']} == fault-free, without a ladder {f['raised']}"
+            for op, f in q["faults"].items())
+        + f"; (c) three submits: depth {q['evict']['depth']}, {q['evict']['evictions']} "
+        f"eviction, collected == alone, memory_allocated {q['evict']['after']} B <= baseline "
+        f"{q['evict']['baseline']} B; (d) KTPU_DONATE_DELTA=1: {N_TICKS} constrained ticks == "
+        "the plain ticks, staging peaks (plain/donated, rise over the staging's start, largest "
+        "updated buffer) " + "; ".join(
+            f"{t['plain_peak']}/{t['donated_peak']} B ({t['plain_rise']}/{t['donated_rise']} B, "
+            f"{t['largest']} B, {t['inplace']} in-place launches)" for t in q["ticks"])
+        + f"; in place at the tick's largest delta {b8(row)}; at the tenant tick's {b8(ten)}; "
+        f"donated away raises: apply ({q['stale']['apply']}), stale token "
+        f"({q['stale']['token']}); mesh tick (8 positions) == single device, "
+        f"{q['mesh_tick_inplace']} in-place launches; seconds by part "
+        + " ".join(f"{k}={v:.1f}" for k, v in q["secs"].items())
+    )
+
+
 def cluster_text(cluster):
     """A scan launch's cluster as csrc/pack_common.cuh:pick_cluster reports
     it: (blocks, such clusters the card holds at once, clusters of the
@@ -4858,6 +5540,12 @@ def main():
     log(mesh_line(mesh, secs, time.perf_counter() - t0, smi))
     rows.update(mesh["rows"])
 
+    b8_inputs = {"tick": rows["apply_rows"].pop("inputs"), "tenant": ten.pop("b8_inputs")}
+    queue, secs = timed_phase(lambda: phase_queue(TorchSolver, SolverConfig, EncodeCache,
+                                                  e2e=e2e, cons=cons, b8_inputs=b8_inputs))
+    log(queue_line(queue, secs, time.perf_counter() - t0, smi))
+    rows.update(queue["rows"])
+
     # every path's own counts: the solves, the searches, the five loops,
     # the ladder, the sidecar, the operator, the twin
     paths = dict(e2e["launches"])
@@ -4874,6 +5562,7 @@ def main():
     paths.update(oper["launches"])
     paths.update(twin["launches"])
     paths.update(mesh["launches"])
+    paths.update(queue["launches"])
     scen_paths = {label: c["scenario_launches"] for label, c in cons.items()}
     scen_paths["ladder_scenarios"] = lad["scenario_launches"]
     scen_paths["sidecar_batch"] = side["scenario_launches"]["sidecar_batch"]
@@ -4910,6 +5599,13 @@ def main():
         if name == "apply_rows":  # the library's device-only time; the tenant tick's delta
             extra.update({k: row[k] for k in ("library_device_ms", "library_device_per_call")},
                          tenant_tick={k: v for k, v in ten["b8_tick"].items() if k != "bound"})
+        if name == "apply_rows_inplace":  # beside B8 out of place; the tenant tick's delta
+            extra.update({k: row[k] for k in (
+                "library_device_ms", "library_device_per_call", "out_of_place_device_ms",
+                "out_of_place_per_call", "cold_device_ms", "out_of_place_cold_device_ms",
+                "peak_rise", "out_of_place_peak_rise", "buffer_bytes")},
+                tenant_tick={k: v for k, v in queue["tenant_row"].items() if k != "bound"},
+                staging_peaks=queue["ticks"])
         if name == "pack_tiled":  # the scan alone at the tenant cell's full depth
             extra["tenant_cell_ms"] = ten["scan_tiled_ms"]
         if name == "mesh_fold":  # the earlier yardstick, over the partials as a list

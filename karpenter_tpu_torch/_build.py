@@ -17,8 +17,8 @@ one scenario batch or as a loop of single solves. A kernel's variant
 contributor rows, minValues floors, a reservation ledger or in the tiled
 mode; the class-batched scan over minValues floors or in the tiled mode;
 B3's fresh or existing entry) counts in its own entry as well as in the
-kernel's. B1's and B2's partial modes count only under their own names
-(``ENTRIES``).
+kernel's. B1's and B2's partial modes and B8's in-place entry count only
+under their own names (``ENTRIES``).
 """
 
 from __future__ import annotations
@@ -51,7 +51,8 @@ VARIANTS = ("pack_domains", "pack_contrib", "pack_minvalues", "pack_resv", "pack
             "dense_existing")
 # entry points counted under their own name, not their source's: B1's and
 # B2's partial modes (a mesh shard's failure counts, folded by mesh_fold)
-ENTRIES = ("fresh_partial", "existing_partial")
+# and B8's in-place entry (KTPU_DONATE_DELTA=1)
+ENTRIES = ("fresh_partial", "existing_partial", "apply_rows_inplace")
 # measurement-only libraries, never in SOURCES (the solver and
 # chip_smoke.py never build or load them; tenant_scan.py does): name ->
 # (the source they compile, extra nvcc flags). pack_clocks and
@@ -72,7 +73,8 @@ MEASURE_BUILDS = {
 ENTRY_POINTS = {"dense_feasibility": ("kt_dense_fresh", "kt_dense_existing"),
                 "fresh_feasibility": ("kt_fresh_feasibility", "kt_fresh_feasibility_partial"),
                 "existing_feasibility": ("kt_existing_feasibility",
-                                         "kt_existing_feasibility_partial")}
+                                         "kt_existing_feasibility_partial"),
+                "apply_rows": ("kt_apply_rows", "kt_apply_rows_inplace")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -244,6 +246,7 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
         return
     if device.type != "cuda":
         raise ValueError(f"{name}: kernels take CUDA tensors, got {device}")
+    live(t, name)
     if not isinstance(t, torch.Tensor) or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}")
     if t.dtype != dtype:
@@ -252,6 +255,24 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def donate(t: torch.Tensor) -> torch.Tensor:
+    """A new tensor over ``t``'s memory, which an in-place launch has just
+    rewritten; ``t`` itself is emptied (no storage, shape [0]) and marked,
+    so that a launch that still reads it fails its checks and raises, as
+    JAX's deleted donated buffer does, rather than reading the new rows."""
+    new = t.detach()
+    t.set_()
+    t._kt_donated = True
+    return new
+
+
+def live(t, name: str) -> None:
+    """Raise if ``t`` was donated away (``donate``)."""
+    if getattr(t, "_kt_donated", False):
+        raise ValueError(f"{name}: the tensor was donated away by an in-place row apply "
+                         "(KTPU_DONATE_DELTA=1)")
 
 
 NOTHING_LAUNCHED = -1  # csrc/common.cuh:kNothingLaunched (empty shapes)

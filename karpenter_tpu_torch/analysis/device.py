@@ -15,7 +15,9 @@ origins —
   value), and torch operations on a DEVICE operand;
 - the kernel launchers' returns, by the naming convention of ops/
   (``dispatch_*`` in ops/solve.py, the ``_launch_*`` wrappers of the
-  csrc bindings);
+  csrc bindings), and the two-slot dispatch queue that carries them
+  (``_queue.submit``'s slot and ``_queue.drain``'s outputs,
+  solver/residency.py:DispatchQueue);
 - the residency store's buffers: attributes named by the resident
   convention ``dev_*`` / ``_dev_*`` (solver/residency.py's
   ``_dev_buffers``) hold device tensors ACROSS solves, so loads from them
@@ -109,6 +111,11 @@ _SYNC_METHODS = {"cpu", "synchronize"}
 # kernel-launch naming convention (ops/): these return device tensors by
 # contract even through the fault-seam wrappers
 _DISPATCH_PREFIXES = ("dispatch_", "_launch_")
+# the dispatch queue (solver/residency.py:DispatchQueue) that the solver
+# holds as ``_queue``: a submitted slot holds a launcher's outputs, and
+# draining it hands them back
+_QUEUE_ATTR = "_queue"
+_QUEUE_METHODS = {"submit", "drain"}
 # device-resident attribute naming convention (solver/residency.py):
 # attributes holding device buffers BETWEEN solves — loads are
 # DEVICE-born, so host sinks on them flag even though the carrying
@@ -278,6 +285,10 @@ class _DeviceAnalysis:
             meth = node.func.attr
             if meth == "cpu":
                 return HOST  # the readback itself is checked as DTX906
+            recv = node.func.value
+            if (meth in _QUEUE_METHODS and isinstance(recv, ast.Attribute)
+                    and recv.attr == _QUEUE_ATTR):
+                return DEVICE
             if meth == "cuda":
                 return DEVICE
             if meth == "to":

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
@@ -345,9 +346,17 @@ def solve_scenarios_core_packed(
 # -- device-resident delta apply (B8) ----------------------------------------
 #
 # The residency store (solver/residency.py) keeps the encoded cluster on the
-# device between solves; churn arrives as row deltas. The apply returns a
-# fresh buffer and leaves the old one valid: a launched dispatch (a
-# consolidation prefetch, an overflow resubmit) may still read it.
+# device between solves; churn arrives as row deltas. Two twins, as in the
+# JAX package: the plain apply (the default) returns a fresh buffer and
+# leaves the old one valid, since a queue token (a consolidation prefetch,
+# an overflow resubmit, a sidecar solve sharing the store) may still read
+# it. The donated apply (KTPU_DONATE_DELTA=1, on a CUDA tensor; a CPU
+# tensor takes the plain apply, as JAX's CPU backend does) writes the rows
+# into the buffer itself, so a 50k-pod encoding is never held twice on the
+# card, and hands back a new tensor over the same memory: the old tensor
+# object is emptied, so a token still holding it raises at its next launch
+# (JAX deletes a donated buffer) instead of computing on rows its host
+# snapshot never had.
 
 def _rows_on(arr, idx, rows):
     """``idx`` (int32) and ``rows`` (arr's dtype) as tensors on arr's
@@ -374,28 +383,41 @@ def _rows_on(arr, idx, rows):
     return idx, rows
 
 
-def delta_apply_rows_reference(arr, idx, rows):
-    """Plain version of ops/solve.py:_apply_rows_core: ``arr`` with
-    ``arr[idx] = rows`` as a new tensor (``index_copy`` on a clone). A
-    negative index counts from the end; one outside the rows is dropped."""
+def delta_apply_rows_inplace_reference(arr, idx, rows):
+    """Plain version of the donated twin (ops/solve.py:_apply_rows_donated):
+    ``arr[idx] = rows`` written into ``arr`` itself (``index_copy_``), which
+    it returns. A negative index counts from the end; one outside the rows
+    is dropped."""
     n = arr.shape[0]
     # analysis: sanctioned[SHP602] index_copy_ takes an int64 index only
     idx = idx.long()
     idx = torch.where(idx < 0, idx + n, idx)
     keep = (idx >= 0) & (idx < n)
-    return arr.clone().index_copy_(0, idx[keep], rows[keep])
+    return arr.index_copy_(0, idx[keep], rows[keep])
+
+
+def delta_apply_rows_reference(arr, idx, rows):
+    """Plain version of ops/solve.py:_apply_rows_core: ``arr`` with
+    ``arr[idx] = rows`` as a new tensor (the in-place version on a clone)."""
+    return delta_apply_rows_inplace_reference(arr.clone(), idx, rows)
 
 
 def delta_apply_rows(arr, idx, rows):
-    """Row update of a device-resident buffer: ``arr[idx] = rows``, as a new
-    tensor; ``arr`` itself is left as it was. ``arr`` has any dtype and
-    trailing shape (the kernel moves rows as bytes); ``idx`` [n] int32 and
-    ``rows`` [n, ...] may be numpy arrays. The plain version for a CPU
-    ``arr``, kernel B8 (csrc/apply_rows.cu, one launch) for a CUDA one."""
+    """Row update of a device-resident buffer: ``arr[idx] = rows``. ``arr``
+    has any dtype and trailing shape (the kernel moves rows as bytes);
+    ``idx`` [n] int32 and ``rows`` [n, ...] may be numpy arrays. The plain
+    version for a CPU ``arr``: a new tensor, ``arr`` left as it was. For a
+    CUDA one kernel B8 (csrc/apply_rows.cu, one launch): out of place by
+    default; under KTPU_DONATE_DELTA=1 in place, and then ``arr`` must not
+    be used after the call: it is emptied, and the residency store replaces
+    its reference with the return value (see the module note)."""
     if not len(idx):
         return arr
     if arr.device.type == "cpu":
         return delta_apply_rows_reference(arr, *_rows_on(arr, idx, rows))
+    _build.live(arr, "delta_apply_rows")
+    if os.environ.get("KTPU_DONATE_DELTA") == "1":
+        return _launch_apply_rows_inplace(arr, *_rows_on(arr, idx, rows))
     return _launch_apply_rows(arr, *_rows_on(arr, idx, rows))
 
 
@@ -403,6 +425,28 @@ def _apply_rows_fn():
     """kt_apply_rows with its argument types, set once."""
     return _build.bind("apply_rows", "kt_apply_rows",
                        (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int) + (ctypes.c_void_p,) * 5)
+
+
+def _apply_rows_inplace_fn():
+    """kt_apply_rows_inplace with its argument types, set once."""
+    return _build.bind("apply_rows", "kt_apply_rows_inplace",
+                       (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int) + (ctypes.c_void_p,) * 4)
+
+
+def _launch_apply_rows_inplace(arr, idx, rows):
+    """The donated apply: the delta rows written into ``arr``'s memory (one
+    launch, nothing else of the buffer touched); returns a new tensor over
+    that memory and empties ``arr`` (``_build.donate``)."""
+    if not arr.is_contiguous():
+        raise ValueError("delta_apply_rows: the resident buffer is not contiguous")
+    dev = arr.device
+    with _build.device_scope(dev):
+        rc = _apply_rows_inplace_fn()(
+            arr.shape[0], math.prod(arr.shape[1:]) * arr.element_size(), idx.shape[0],
+            arr.data_ptr(), idx.data_ptr(), rows.data_ptr(), _build.raw_stream(dev),
+        )
+    _build.launched("apply_rows_inplace", rc)
+    return _build.donate(arr)
 
 
 def _launch_apply_rows(arr, idx, rows):

@@ -110,7 +110,7 @@ from ..scheduling.topology import Topology
 from ..utils.pretty import ChangeMonitor
 from . import encode as enc
 from .args import put
-from .residency import DeviceResidentArgs
+from .residency import DeviceResidentArgs, DispatchQueue
 
 _LOG = logging.getLogger("karpenter_tpu_torch.solver")
 # once per pod (24h TTL), not once per batch walk: long-pending pods are
@@ -498,6 +498,10 @@ class TorchSolver:
         self.relax_rejects = 0
         # per-solve volume routing state (prepare_volume_routing)
         self._vol_resolved: Dict[str, list] = {}
+        # two-slot async dispatch window: a submitted kernel computes
+        # while the host encodes the next batch or decodes the previous
+        # one (solver/residency.py)
+        self._queue = DispatchQueue()
 
     def _note_fallback(self, reason: str) -> None:
         self.fallback_solves += 1
@@ -796,7 +800,7 @@ class TorchSolver:
             "fault_mark": fault_mark,
         }
         try:
-            token["out"] = self._submit_scenario_dispatch(token)
+            token["slot"] = self._submit_scenario_dispatch(token)
         except KernelBuildError:
             raise
         except Exception as exc:
@@ -810,24 +814,31 @@ class TorchSolver:
         return token
 
     def _submit_scenario_dispatch(self, token):
-        """Launch one scenario dispatch; its outputs stay on the device
-        (on CUDA the launches return before the card finishes)."""
+        """Submit one scenario dispatch into the two-slot queue; returns
+        its slot. The outputs stay on the device (on CUDA the launches
+        return before the card finishes)."""
         from ..ops.solve import dispatch_scenarios_mesh_packed, dispatch_scenarios_packed
 
+        args = token["args"]
+        nmax = token["nmax"]
         smesh = token.get("mesh")
         if smesh is not None:
             from ..parallel.mesh import sharded_scenarios_fn
 
             fn = sharded_scenarios_fn(
                 smesh, token["fills_dtype"], token["batch_topo"],
-                nmax=token["nmax"], **token["statics"],
+                nmax=nmax, **token["statics"],
             )
-            return dispatch_scenarios_mesh_packed(fn, (token["args"],), smesh)
-        return dispatch_scenarios_packed(
-            *token["args"], nmax=token["nmax"],
-            fills_dtype=token["fills_dtype"],
-            batch_topo=token["batch_topo"],
-            **token["statics"],
+            return self._queue.submit(
+                "scenarios-mesh",
+                lambda: dispatch_scenarios_mesh_packed(fn, (args,), smesh),
+            )
+        return self._queue.submit(
+            "scenarios",
+            lambda: dispatch_scenarios_packed(
+                *args, nmax=nmax, fills_dtype=token["fills_dtype"],
+                batch_topo=token["batch_topo"], **token["statics"],
+            ),
         )
 
     def _plan_scenario_topology(self, scenarios, groups, topo):
@@ -1101,21 +1112,21 @@ class TorchSolver:
         scen_group_pods = token["scen_group_pods"]
         S_real = token["S_real"]
         nmax = token["nmax"]
-        out = token["out"]
+        slot = token["slot"]
         dispatches = 0
         try:
             while True:
                 with obs.span("solve.dispatch", nmax=nmax, scenarios=S_real):
                     (c_pool, packed, n_open, overflow,
                      exist_fills, claim_fills, unplaced, c_dzone, c_dct,
-                     c_resv) = self._drain_host(out)
+                     c_resv) = self._drain_host(self._queue.drain(slot))
                 dispatches += 1
                 if not overflow.any():
                     break
                 # any scenario overflowed: the whole batch goes again
                 nmax *= 2
                 token["nmax"] = nmax
-                out = self._submit_scenario_dispatch(token)
+                slot = self._submit_scenario_dispatch(token)
         except KernelBuildError:
             raise
         except Exception as exc:
@@ -1147,7 +1158,7 @@ class TorchSolver:
                 # full re-encode, on the same device
                 self._delta_fallback(str(exc))
                 retry = self.submit_scenarios(token["scenarios"])
-                if retry is not None and "out" in retry:
+                if retry is not None and "slot" in retry:
                     retry["retry_ok"] = False
                     self._last_incremental = retry["incremental"]
                     # the audit provenance describes the encode that
@@ -1576,23 +1587,32 @@ class TorchSolver:
                 margs = MeshArgs(mesh, dict(zip(enc.SOLVE_ARG_NAMES, args)))
 
             def call(nmax):
+                # the dispatch rides the two-slot queue: submit returns
+                # once the launches are enqueued, and the outputs cross
+                # back at the single drain
                 if mesh is not None:
                     # the sharded solve (B10): one mesh dispatch, its
-                    # outputs on the lead device, the same single drain
-                    out = dispatch_mesh_packed(
-                        sharded_solve_packed_fn(mesh, fills_dtype, nmax=nmax, **statics),
-                        (margs,), mesh,
+                    # outputs on the lead device
+                    fn = sharded_solve_packed_fn(mesh, fills_dtype, nmax=nmax, **statics)
+                    slot = self._queue.submit(
+                        "mesh", lambda: dispatch_mesh_packed(fn, (margs,), mesh)
                     )
                 elif classed_args is not None:
-                    out = dispatch_classed_packed(
-                        *args, *cls_arrays, nmax=nmax, lmax=lmax,
-                        fills_dtype=fills_dtype, **statics,
+                    slot = self._queue.submit(
+                        "pack_classed",
+                        lambda: dispatch_classed_packed(
+                            *args, *cls_arrays, nmax=nmax, lmax=lmax,
+                            fills_dtype=fills_dtype, **statics,
+                        ),
                     )
                 else:
-                    out = dispatch_packed(
-                        *args, nmax=nmax, fills_dtype=fills_dtype, **statics
+                    slot = self._queue.submit(
+                        "pack",
+                        lambda: dispatch_packed(
+                            *args, nmax=nmax, fills_dtype=fills_dtype, **statics
+                        ),
                     )
-                return self._widen(self._drain_host(out))
+                return self._widen(self._drain_host(self._queue.drain(slot)))
 
         else:
             raise ValueError(

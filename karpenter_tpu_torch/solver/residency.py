@@ -1,5 +1,5 @@
-# Copied from karpenter_tpu/solver/residency.py, without DispatchQueue; buffers are torch tensors, placed on a mesh by parallel/mesh.py:place.
-"""Device-resident solve arguments.
+# Copied from karpenter_tpu/solver/residency.py, with torch tensors as buffers, placed on a mesh by parallel/mesh.py:place.
+"""Device-resident solve arguments + the two-slot async dispatch queue.
 
 The delta-encode layer (solver/encode.py:ClusterEncoding) makes the HOST
 side of a reconcile marginal-cost; this module does the same for the
@@ -11,8 +11,9 @@ snapshot:
   version counters: an unchanged class reuses its device buffer with zero
   transfer; a class whose buffer is exactly one encode behind re-transfers
   only the changed rows and applies them on device
-  (``ops/solve.py:delta_apply_rows``, kernel B8 on CUDA, always out of
-  place); everything else is a full copy onto the device.
+  (``ops/solve.py:delta_apply_rows``, kernel B8 on CUDA; donation, the
+  in-place write, is opt-in with KTPU_DONATE_DELTA=1, see its module
+  note); everything else is a full copy onto the device.
 - Under a solver mesh (parallel/mesh.py) the same store keeps each
   argument as its placement on the mesh: a replicated argument once per
   distinct device, a sharded one as one tensor per (device, slice), and
@@ -21,13 +22,21 @@ snapshot:
   replicated argument (one B8 launch per distinct device); a sharded
   argument (whose class never carries row deltas: static, or
   NO_ROW_DELTA) restages whole.
+- ``DispatchQueue`` is the explicit two-slot dispatch window: a CUDA
+  launch returns before the card finishes, so a submitted kernel computes
+  while the host encodes the next batch (or decodes the previous one).
+  The queue makes the overlap an auditable object: depth instant events
+  on the open span, a named fault site (faults.DISPATCH_QUEUE) for chaos
+  coverage, and a hard two-slot bound so a runaway caller cannot pile
+  uncollected work onto the card.
 
-The store never reads device values back: the single readback stays in
-solver/driver.py.
+Neither object reads device values back: draining a slot returns the
+device tensors, and the single readback stays in solver/driver.py.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -91,8 +100,10 @@ class DeviceResidentArgs:
         # concurrent solves serialize staging here: the host-side encode
         # already serializes on EncodeCache.lock, and the buffer map +
         # version bookkeeping need the same discipline. Buffer updates
-        # are out of place (ops/solve.py) so a launched dispatch's
-        # reference to a replaced buffer stays valid.
+        # are out of place by default (ops/solve.py) so a launched
+        # dispatch's reference to a replaced buffer stays valid; under
+        # KTPU_DONATE_DELTA=1 the replaced tensor is emptied instead, and
+        # a queue token still holding it raises at its next launch.
         self._lock = threading.Lock()
         # the device and the mesh signature of the resident buffers:
         # staging for another device or mesh (or switching mesh <->
@@ -254,8 +265,65 @@ class DeviceResidentArgs:
         return out
 
 
+class DispatchQueue:
+    """Explicit two-slot window over async kernel dispatches.
+
+    ``submit(label, fn)`` runs ``fn`` immediately — a CUDA launch
+    returns before the card finishes, so the call does not block on the
+    device — and tracks the slot; a third in-flight submit evicts the
+    oldest slot (its device work completes and its tensors are dropped:
+    the caching allocator reuses their memory in stream order; the
+    two-slot bound keeps device memory and speculation bounded).
+    ``drain(slot)`` hands back the submitted call's outputs and frees the
+    slot. Both edges emit
+    ``queue.depth`` instant events on the open span and consult the
+    ``faults.DISPATCH_QUEUE`` site, so chaos plans can crash either edge
+    and traces show the overlap window.
+    """
+
+    DEPTH = 2
+
+    def __init__(self):
+        self._slots: deque = deque()
+        self._seq = 0
+
+    def depth(self) -> int:
+        return len(self._slots)
+
+    def submit(self, label: str, fn):
+        faults.hit(
+            faults.DISPATCH_QUEUE, op="submit", label=label,
+            depth=len(self._slots),
+        )
+        while len(self._slots) >= self.DEPTH:
+            # evict the oldest uncollected slot: its device computation
+            # finishes on its own; the caller that abandoned it never
+            # drains (speculative prefetch that lost the race)
+            stale = self._slots.popleft()
+            obs.event("queue.evict", label=stale["label"])
+        self._seq += 1
+        slot = {"label": label, "seq": self._seq, "out": fn()}
+        self._slots.append(slot)
+        obs.event("queue.depth", depth=len(self._slots), op="submit",
+                  label=label)
+        return slot
+
+    def drain(self, slot):
+        faults.hit(
+            faults.DISPATCH_QUEUE, op="drain", label=slot["label"],
+            depth=len(self._slots),
+        )
+        try:
+            self._slots.remove(slot)
+        except ValueError:
+            pass  # already evicted; its outputs are still valid futures
+        obs.event("queue.depth", depth=len(self._slots), op="drain",
+                  label=slot["label"])
+        return slot["out"]
+
+
 __all__ = [
-    "DeviceResidentArgs",
+    "DeviceResidentArgs", "DispatchQueue",
     "NODE_ROW_ARGS", "CROSS_ARGS", "GROUP_ARGS", "GCOUNT_ARGS",
     "NO_ROW_DELTA",
 ]

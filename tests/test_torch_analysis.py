@@ -410,11 +410,14 @@ def _mutations():
         ("device_drain", unmarked(device.check_paths, "solver/driver.py",
                                   "sanctioned[DTX906] the solve's drain"), "DTX906"),
         ("device_sink", one(device.check_paths, "solver/driver.py", (
-            "                        *args, nmax=nmax, fills_dtype=fills_dtype, **statics\n"
+            "                            *args, nmax=nmax, fills_dtype=fills_dtype, **statics\n"
+            "                        ),\n"
             "                    )\n",
-            "                        *args, nmax=nmax, fills_dtype=fills_dtype, **statics\n"
+            "                            *args, nmax=nmax, fills_dtype=fills_dtype, **statics\n"
+            "                        ),\n"
             "                    )\n"
-            "                n_peek = int(out[2])  # the claim count ahead of the drain\n")),
+            "                    n_peek = int(slot[\"out\"][2])  # the claim count ahead of the "
+            "drain\n")),
          "DTX902"),
         ("clock", lambda t: clock.check_paths([_unmark(
             t, "controllers/provisioning.py", "wall-time boundary: gauge")]), "CLK1001"),

@@ -38,7 +38,11 @@ can take, by pool or by a zone clash; overflow and doubling; launches
 back to back, and over junk-filled scratch) and B8 in one launch on its
 edge cases (rows of 15 bytes,
 rows the blocks' share does not divide, every row, aliased and dropped
-indices, an empty delta). The last section holds B1 and B2 over any
+indices, an empty delta), and B8's in-place entry (KTPU_DONATE_DELTA=1)
+on the same cases, on mask and count rows and from an unaligned base,
+against its plain in-place version, with a tensor donated away raising
+at its next launch (a queue token resubmitted after a donating churn
+tick). The last section holds B1 and B2 over any
 order of the live-pair index (shuffled, weight-0 padding interleaved, a
 pair repeated, goff_idx repeated, P = 2, two mask words a key, the
 scenario axis) with junk-filled outputs, at the main path's shapes
@@ -1447,6 +1451,105 @@ def test_apply_rows_empty_delta(cuda):
     _build.reset_launches()
     assert delta_apply_rows(buf, np.zeros(0, np.int32), np.zeros((0, 3), np.int32)) is buf
     assert _build.launches["apply_rows"] == 0
+
+
+# -- B8's donated entry: the rows written in place ----------------------------------
+
+
+def b8_inplace_case(case, rng):
+    """(arr, idx, rows) of b8_case, or of the in-place entry's own cases:
+    mask rows of 2,048 bytes (16-byte moves, the tenant tick's g_mask
+    width) and int32 counts (4-byte rows)."""
+    if case == "mask-rows":
+        arr, rows = rng.random((3000, 16, 128)) < 0.5, rng.random((700, 16, 128)) < 0.5
+        return arr, rng.choice(3000, 700, replace=False).astype(np.int32), rows
+    if case == "counts":
+        arr = rng.integers(0, 99, 4096).astype(np.int32)
+        return arr, rng.choice(4096, 900, replace=False).astype(np.int32), \
+            rng.integers(0, 99, 900).astype(np.int32)
+    return b8_case(case, rng)
+
+
+@pytest.mark.parametrize("case", ["ragged-rows", "uneven-blocks", "every-row", "edge-indices",
+                                  "mask-rows", "counts", "unaligned-base"])
+def test_apply_rows_inplace(cuda, case, monkeypatch):
+    """KTPU_DONATE_DELTA=1: one launch of the in-place entry (counted
+    under its own name, no out-of-place B8), equal to the plain in-place
+    version on the same CUDA tensors and to the CPU's; the result lies in
+    the buffer's own memory and the old tensor object is emptied."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops.solve import (
+        delta_apply_rows,
+        delta_apply_rows_inplace_reference,
+    )
+
+    rng = np.random.default_rng(len(case))
+    if case == "unaligned-base":  # rows of 16 bytes from a base 1 byte off
+        arr, idx, rows = b8_inplace_case("mask-rows", rng)
+        arr, rows = arr[:, 0, :16], np.ascontiguousarray(rows[:, 0, :16])
+        flat = torch.zeros(arr.size + 1, dtype=torch.bool, device=cuda)
+        buf = flat[1:].view(arr.shape)
+        buf.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+    else:
+        arr, idx, rows = b8_inplace_case(case, rng)
+        buf = torch.from_numpy(arr).to(cuda)
+    idx_d, rows_d = torch.from_numpy(idx).to(cuda), torch.from_numpy(rows).to(cuda)
+    want = delta_apply_rows_inplace_reference(buf.clone(), idx_d, rows_d)
+    cpu = delta_apply_rows_inplace_reference(torch.from_numpy(np.array(arr)),
+                                             torch.from_numpy(idx), torch.from_numpy(rows))
+    ptr = buf.data_ptr()
+    monkeypatch.setenv("KTPU_DONATE_DELTA", "1")
+    _build.reset_launches()
+    out = delta_apply_rows(buf, idx_d, rows_d)
+    torch.cuda.synchronize()
+    assert (_build.launches["apply_rows_inplace"], _build.launches["apply_rows"]) == (1, 0)
+    assert out.data_ptr() == ptr and buf.numel() == 0
+    assert torch.equal(out, want)
+    np.testing.assert_array_equal(out.cpu().numpy(), cpu.numpy())
+
+
+def test_donated_tensor_raises(cuda, monkeypatch):
+    """A launch that reads a tensor donated away raises, never computing on
+    the rows written in its place: the row apply itself, and a queue token
+    staged before a donating batch on the same EncodeCache (10 of 200
+    Deployments swapped: group-row deltas on the batch's shared encoding)
+    when it is resubmitted (an overflow resubmit, a late prefetch). The
+    token's own launched outputs, enqueued before the in-place write, stay
+    valid."""
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops.solve import delta_apply_rows
+    from karpenter_tpu_torch.solver.driver import EncodeCache, Scenario
+    from karpenter_tpu_torch.solver.example import tenant_pods, tenant_pools
+
+    monkeypatch.setenv("KTPU_DONATE_DELTA", "1")
+    buf = torch.arange(12, dtype=torch.int32, device=cuda).reshape(4, 3)
+    new = delta_apply_rows(buf, np.array([1], np.int32), np.full((1, 3), 7, np.int32))
+    with pytest.raises(ValueError, match="donated"):
+        delta_apply_rows(buf, np.array([2], np.int32), np.full((1, 3), 8, np.int32))
+    assert new[1].tolist() == [7, 7, 7]
+
+    pools = tenant_pools(4)
+    catalog = corpus.generate(60)
+    its = {p.name: list(catalog) for p in pools}
+
+    def solver(pods, cache):
+        topo = Topology(Client(TestClock()), [], pools, its, pods)
+        return TorchSolver(pools, its, topo, config=SolverConfig(device="cuda"),
+                           encode_cache=cache)
+
+    cache = EncodeCache()
+    pods = tenant_pods(200, 4)
+    tick = [p for p in pods if p.metadata.labels["app"] not in {f"d{i}" for i in range(10)}]
+    tick += tenant_pods(10, 4, seed=99, first=200)
+    warm = solver(pods, cache)
+    first = warm.solve_scenarios([Scenario(pods=pods)])
+    token = warm.submit_scenarios([Scenario(pods=pods)])
+    _build.reset_launches()
+    solver(tick, cache).solve_scenarios([Scenario(pods=tick)])
+    assert _build.launches["apply_rows_inplace"] >= 1
+    assert slots(warm.collect_scenarios(token)[0]) == slots(first[0])
+    with pytest.raises(Exception):
+        warm._submit_scenario_dispatch(token)
 
 
 # -- B1 and B2 over any order of the live-pair index ---------------------------------

@@ -380,7 +380,7 @@ def test_topology_scenario_batch_equals_jax():
     from karpenter_tpu_torch.ops.solve import solve_scenarios_core_packed
 
     *_, fallbacks, tokens = _consolidate("karpenter_tpu_torch", "multi", 60)
-    tok = next(t for t in tokens if t is not None and "out" in t)
+    tok = next(t for t in tokens if t is not None and "slot" in t)
     assert fallbacks == 0 and tok["batch_topo"] and tok["statics"]["has_domains"]
     args = tok["args"]
     names = _mod("karpenter_tpu_torch", "solver.encode").SOLVE_ARG_NAMES

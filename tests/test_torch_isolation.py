@@ -83,6 +83,16 @@ COPIED_FUNCTIONS = (
     ("parallel/mesh.py", "pad_args_for_mesh"),
     ("ops/solve.py", "_decompose_rows_by_shard"),
 )
+# methods (and class attributes) of a class copied into a module that is
+# not a verbatim copy: the class's docstring speaks of the card, its code
+# is JAX's
+COPIED_METHODS = (
+    ("solver/residency.py", "DispatchQueue", "DEPTH"),
+    ("solver/residency.py", "DispatchQueue", "__init__"),
+    ("solver/residency.py", "DispatchQueue", "depth"),
+    ("solver/residency.py", "DispatchQueue", "submit"),
+    ("solver/residency.py", "DispatchQueue", "drain"),
+)
 # module-level assignments copied verbatim into a module that is not a
 # verbatim copy
 COPIED_ASSIGNMENTS = (
@@ -106,6 +116,24 @@ def _function_source(path, name):
 def test_copied_functions_equal_their_source(rel, name):
     assert _function_source(PORT / rel, name) == _function_source(
         ROOT / "karpenter_tpu" / rel, name)
+
+
+def _member_source(path, cls, name):
+    text = path.read_text()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.ClassDef) and node.name == cls:
+            for member in node.body:
+                targets = member.targets if isinstance(member, ast.Assign) else []
+                if (getattr(member, "name", None) == name
+                        or any(getattr(t, "id", None) == name for t in targets)):
+                    return ast.get_source_segment(text, member)
+    raise AssertionError(f"{path.relative_to(ROOT)} has no {cls}.{name}")
+
+
+@pytest.mark.parametrize("rel,cls,name", COPIED_METHODS, ids=lambda x: x)
+def test_copied_methods_equal_their_source(rel, cls, name):
+    assert _member_source(PORT / rel, cls, name) == _member_source(
+        ROOT / "karpenter_tpu" / rel, cls, name)
 
 
 def _assignment_source(path, name):
