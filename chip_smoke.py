@@ -171,7 +171,7 @@ no result:
    through phase 12's sidecar: the same NodeClaims by content.
 
 14. the digital twin (sim/twin.py): the JAX package's tier-1 wall, 2,000
-   fabricated nodes and 20,000 pods replayed for 20 simulated minutes of
+   fabricated nodes and 20,000 pods replayed for 10 simulated minutes of
    churn (a spot-reclaim wave, an ICE wave, the store/provider fault plan)
    through the whole operator roster on the card, every minute's SLO wall
    asserted; the first 6 minutes equal to the device="cpu" replay in a
@@ -217,7 +217,9 @@ B5 with floors (diverse-minvalues) and B7 with floors (the consolidation
 chunk over the minValues pool); B3's fresh entry also at the relax
 path's shape (the identical batch's run heads, 1 x 400); B1 and B4 at
 phase 10's team-In input (K 16, V1 2048: B1's words built straight from
-device memory, B4's per-step arrays spilled to device memory); and the
+device memory; B4's row ``pack_wide``) and B4 at its listed-types input
+(600 of 800 types at mixed 50k, V1 1024; ``pack_listed``), each B4 row
+with the shared memory and spill scratch the scan took; and the
 tiled mode forced at the ops
 level (tiled_rows): B4 tiled on B2's snapshot, constrained 50k x 800,
 reserved-50k and the tenant shape at 600 Deployments, B5 tiled on
@@ -321,14 +323,16 @@ OPERATOR_PODS, OPERATOR_STEPS = 2_000, 5
 # corpus.generate(24), trace seed 7 (20 minutes of churn, a reclaim wave
 # of 4 at minute 2, 6 ICE cells at minute 4), twin seed 7, 2 roster passes
 # a minute, a p99 decision-latency wall of 10 s. (a) replays TWIN_MINUTES
-# on the card (bench.py's run_twin: 10); (b) the device="cpu" replay in a
+# on the card (bench.py's run_twin's 10, past both waves, the fault plan's
+# first 150 s and the consolidation of minutes 7-9; the wall's 20 before
+# the smoke neared its time limit); (b) the device="cpu" replay in a
 # child to TWIN_CPU_MINUTES (past both waves); (c) a checkpoint at
 # TWIN_CHECKPOINT (past the ICE wave), resumed on the card to
 # TWIN_RESUMED_TO (minutes 7-9, where consolidation runs; 12 before phase
 # 17 came, cut to keep the smoke's length)
 TWIN_NODES, TWIN_PODS_PER_NODE, TWIN_TYPES, TWIN_SEED = 2_000, 10, 24, 7
 TWIN_TRACE_MINUTES, TWIN_P99_MS = 20, 10_000.0
-TWIN_MINUTES, TWIN_CPU_MINUTES = 20, 6
+TWIN_MINUTES, TWIN_CPU_MINUTES = 10, 6
 TWIN_CHECKPOINT, TWIN_RESUMED_TO = 6, 9
 TWIN_CPU_WAIT_S = 600
 # phase 16, the solver mesh: 8 positions of the one card (make_mesh's
@@ -357,6 +361,7 @@ REPLACES = {
     "dense_fresh_relax": "karpenter_tpu/ops/feasibility.py:84",
     "fresh_feasibility_wide": "karpenter_tpu/ops/feasibility.py:141",
     "pack_wide": "karpenter_tpu/ops/packing.py:277",
+    "pack_listed": "karpenter_tpu/ops/packing.py:277",
     "relax_fill": "karpenter_tpu/ops/relax.py:244",
     "pack_minvalues": "karpenter_tpu/ops/packing.py:601",
     "pack_resv": "karpenter_tpu/ops/packing.py:485",
@@ -397,6 +402,7 @@ SHAPE_ROWS = {
                                           "zonal_reject")),
     "fresh_feasibility_wide": ("fresh_feasibility", ("team_exists", "team_in", "mv_types")),
     "pack_wide": ("pack", ("team_exists", "team_in", "mv_types")),
+    "pack_listed": ("pack", ("listed_types",)),
 }
 # the one PyTorch call that computes a kernel's function, timed beside it
 LIBRARY = {"apply_rows": "Tensor.index_copy", "apply_rows_inplace": "Tensor.index_copy_",
@@ -910,7 +916,7 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
     b4_ref = packing_mod.pack_reference(*pack_in, **st)
     torch.cuda.synchronize()
     n_open = int(b4[2].item())
-    ops = pack_ops(a["g_count"], b4[5], b4[2], T, R, V1)
+    ops = pack_ops(a["g_count"], b4[5], b4[2], T, R, V1, offered=offered_words(a))
     rows["pack"] = with_device(dict(
         max_abs_err=max_abs_err(b4, b4_ref),
         ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 20),
@@ -972,33 +978,53 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
 
 
 def wide_rows(torch_solver_cls, config_cls):
-    """Phase 2's rows at a wide value vocabulary (phase 10's team-In input:
-    40 pods over a pool listing 1,100 teams, K 16, V1 2048): B1 (its mask
-    words built straight from device memory) and B4 (its per-step arrays
-    spilled to device memory), each against its plain version. Tolerance:
-    exact equality."""
+    """Phase 2's rows at a wide value vocabulary: at phase 10's team-In
+    input (40 pods over a pool listing 1,100 teams, K 16, V1 2048), B1 (its
+    mask words built straight from device memory) and B4; at its
+    listed-types input (a pool listing 600 of 800 types at mixed 50k, V1
+    1024, T 600), B4 (``pack_listed``). Each against its plain version,
+    B4's rows with the shared memory and spill scratch the scan took.
+    Tolerance: exact equality."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
+
+    rows = {}
+    for label, want, row in (("team_in", (16, 2048), "pack_wide"),
+                             ("listed_types", (16, 1024), "pack_listed")):
+        _, pools, catalog, pods = [w for w in wide_inputs(full=False) if w[0] == label][0]
+        solver = build_batch(torch_solver_cls, config_cls, pods, 0, pools=pools(),
+                             its=catalog())
+        args, statics, nmax, _ = device_snapshot(solver, pods)
+        a = dict(zip(SOLVE_ARG_NAMES, args))
+        zk, ck = statics["zone_kid"], statics["ct_kid"]
+        P, G, T = a["p_titype_ok"].shape[0], a["g_count"].shape[0], a["t_alloc"].shape[0]
+        K, V1 = a["g_mask"].shape[1:]
+        R, O = a["t_alloc"].shape[1], a["o_avail"].shape[1]
+        if (K, V1) != want:
+            raise SmokeFailure(f"wide rows, {label}: K, V1 = {K}, {V1} (want {want})")
+        if label == "team_in":
+            lay = feas.fresh_layout(P, G, T, K, V1, R, O)
+            rows["fresh_feasibility_wide"] = b1_row(
+                a, zk, ck, f"team-in V1 2048, {lay['mode']}, tiles {lay['TT']} x {lay['TG']}, "
+                f"pair chunk {lay['PC']}, {lay['smem']} B")
+        rows[row] = wide_pack_row(a, statics, nmax, f"{label} V1 {V1}")
+    return rows
+
+
+def wide_pack_row(a, statics, nmax, label):
+    """B4 on the named solve args ``a`` (on the card) over B1's tables,
+    NMAX doubled while it overflows, against pack_reference: its wrapper
+    and device times, the plain version's, the bound (pack_ops), and the
+    shared memory and spill scratch the launch took (packing.layouts)."""
     import torch
 
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.ops import packing as packing_mod
     from karpenter_tpu_torch.ops import solve as solve_mod
-    from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
 
-    label, pools, catalog, pods = [w for w in wide_inputs(full=False) if w[0] == "team_in"][0]
-    solver = build_batch(torch_solver_cls, config_cls, pods, 0, pools=pools(), its=catalog())
-    args, statics, nmax, _ = device_snapshot(solver, pods)
-    a = dict(zip(SOLVE_ARG_NAMES, args))
     zk, ck = statics["zone_kid"], statics["ct_kid"]
-    P, G, T = a["p_titype_ok"].shape[0], a["g_count"].shape[0], a["t_alloc"].shape[0]
-    K, V1 = a["g_mask"].shape[1:]
-    R, O = a["t_alloc"].shape[1], a["o_avail"].shape[1]
-    if (K, V1) != (16, 2048):
-        raise SmokeFailure(f"wide rows: K, V1 = {K}, {V1} (want 16, 2048)")
-    rows = {}
-    lay = feas.fresh_layout(P, G, T, K, V1, R, O)
-    rows["fresh_feasibility_wide"] = b1_row(
-        a, zk, ck, f"team-in V1 2048, {lay['mode']}, tiles {lay['TT']} x {lay['TG']}, "
-        f"pair chunk {lay['PC']}, {lay['smem']} B")
+    G, T = a["g_count"].shape[0], a["t_alloc"].shape[0]
+    V1, R = a["g_mask"].shape[2], a["t_alloc"].shape[1]
     b1 = feas.fresh_claim_feasibility_sparse(*(a[n] for n in B1_NAMES), zone_kid=zk, ct_kid=ck)
     cap_ng = torch.zeros((0, G), dtype=torch.int32, device="cuda")
     pack_in = solve_mod.pack_args(a, *b1, cap_ng)
@@ -1013,16 +1039,17 @@ def wide_rows(torch_solver_cls, config_cls):
     b4_ref, ref_ms = timed(lambda: packing_mod.pack_reference(*pack_in, **st))
     torch.cuda.synchronize()
     smem, spill = next(iter(packing_mod.layouts.values()))
-    rows["pack_wide"] = with_device(dict(
+    return with_device(dict(
         max_abs_err=max_abs_err(b4, b4_ref),
         ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 10),
         plain_ms=ref_ms,
         bound=bound_ms(nbytes(pack_in) + nbytes(b4),
-                       pack_ops(a["g_count"], b4[5], b4[2], T, R, V1)),
-        shape=(f"team-in V1 2048: G={G} T={T} NMAX={st['nmax']} claims={int(b4[2])}; "
+                       pack_ops(a["g_count"], b4[5], b4[2], T, R, V1,
+                                offered=offered_words(a))),
+        shape=(f"{label}: G={G} T={T} NMAX={st['nmax']} claims={int(b4[2])}; "
                f"{smem} B shared, {spill} B spilled"),
+        smem_bytes=smem, spill_bytes=spill,
     ), lambda: packing_mod.pack(*pack_in, **st), 10)
-    return rows
 
 
 def dense_fresh_row(b3_in, zk, ck, label):
@@ -1126,33 +1153,52 @@ def relax_row(torch_solver_cls, config_cls):
     return dense_fresh_row(head, run.zone_kid, run.ct_kid, "relax heads"), row
 
 
-def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None, mv=0,
-             nres=0):
+def offered_words(a):
+    """The words one type's offering test reads in the scans
+    (csrc/pack_common.cuh:Offered), from the run's a_tzc and a_res: the
+    zone rows that some type or reservation offers at all, times the span
+    of capacity-type words that holds an offered bit; and, for a per-domain
+    test over capacity types, the offered capacity-type rows times the
+    zone words' span. A value that no offering names is never walked."""
+    held = a["a_tzc"].any(0)  # [V1 zones, V1 capacity types]
+    if a["a_res"].numel():
+        held = held | a["a_res"].any(0).any(0)
+    zones, cts = held.any(1).nonzero().flatten(), held.any(0).nonzero().flatten()
+
+    def span(ids):
+        return int(ids[-1]) // 32 - int(ids[0]) // 32 + 1 if ids.numel() else 0
+
+    return zones.numel() * span(cts), cts.numel() * span(zones)
+
+
+def pack_ops(g_count, claim_fills, n_open, T, R, V1, offered, dyn=None, P=1, classes=None,
+             mv=0, nres=0):
     """Operations the scan's inputs need: per group step, each claim
     opened at an earlier step is checked against every type (2R fits
-    compares, and the offering test: the type's [V1, V1] zone x
-    capacity-type table as V1 x W bit words, W = ceil(V1 / 32), each
-    ANDed with the claim's words), plus a few per claim open at the step
-    (the scans walk the open claims, never NMAX). A dynamic group's step
-    (``dyn`` [G] bool: g_dmode > 0) adds the per-domain offering words of
-    each claim and template type (V1 x W each, every domain at once) and a
-    per-domain pass over the open claims. ``mv`` floored minValues
-    keys add, per step, each claim's per-value pass over its types for
-    each key and one pass over each template's types (its bulk cap);
-    ``nres`` reservations add, per step, the compatible-reservation words
-    of one bulk (V1 x W per reservation and type) and the ledger re-gate
-    of each template's types. Over a leading scenario axis, the sum over scenarios. With
-    ``classes`` (class_start, class_len, class_dyn: the class-batched
-    scan) the per-type work runs once per class head, over the claims
-    opened before the class, and each member step costs only its
-    per-claim summaries (and, with ``mv``, one template pass)."""
+    compares, and the offering test: the type's words over the offered
+    zones, ``offered[0]`` words (offered_words), each ANDed with the
+    claim's words), plus a few per claim open at the step (the scans walk
+    the open claims, never NMAX). A dynamic group's step (``dyn`` [G]
+    bool: g_dmode > 0) adds the per-domain offering words of each claim
+    and template type (the fewer of ``offered``'s two, every domain at
+    once) and a per-domain pass over the open claims. ``mv`` floored
+    minValues keys add, per step, each claim's per-value pass over its
+    types for each key and one pass over each template's types (its bulk
+    cap); ``nres`` reservations add, per step, the compatible-reservation
+    words of one bulk (``offered[0]`` per reservation and type) and the
+    ledger re-gate of each template's types. Over a leading scenario axis,
+    the sum over scenarios. With ``classes`` (class_start, class_len,
+    class_dyn: the class-batched scan) the per-type work runs once per
+    class head, over the claims opened before the class, and each member
+    step costs only its per-claim summaries (and, with ``mv``, one
+    template pass)."""
     import torch
 
     g_count, claim_fills, n_open = g_count.cpu(), claim_fills.cpu(), n_open.cpu()
     if g_count.dim() == 1:
         g_count, claim_fills, n_open = g_count[None], claim_fills[None], n_open[None]
     G = claim_fills.shape[1]
-    VW = V1 * ((V1 + 31) // 32)  # one type's offering table in words
+    VW, VWD = offered[0], min(offered)
     dyn = [False] * G if dyn is None else [bool(x) for x in dyn.cpu()]
     ops = 0
     for counts, fills, opened in zip(g_count, claim_fills, n_open):
@@ -1164,7 +1210,7 @@ def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None
                 live = sum(1 for f in first if f < cs)
                 ops += live * T * (2 * R + VW) * (1 + mv)
                 if cdyn:
-                    ops += (live + P) * T * VW
+                    ops += (live + P) * T * VWD
                 for g in range(cs, cs + cl):
                     if int(counts[g]) > 0:
                         open_g = sum(1 for f in first if f < g)
@@ -1177,7 +1223,7 @@ def pack_ops(g_count, claim_fills, n_open, T, R, V1, dyn=None, P=1, classes=None
             ops += live * T * (2 * R + VW) * (1 + mv) + live * 8
             ops += P * T * mv + (nres + P) * T * VW * bool(nres)
             if dyn[g]:
-                ops += (live + P) * T * VW + live * V1 * 8
+                ops += (live + P) * T * VWD + live * V1 * 8
     return ops
 
 
@@ -1309,7 +1355,8 @@ def scenario_row(build=None, with_b2=True):
         "g_count", "g_hcap", "g_haff", "g_hstg", "g_hscap", "g_hself", "t_cap",
         "a_tzc", "p_limit", "p_has_limit", "n_hcnt", "nh_cnt0", "p_mvmin", "t_mvoh"))
     ops = (b1_ops(a) + b2_ops(a)
-           + pack_ops(a["g_count"], b4[5], b4[2], T, R, V1, P=P, mv=MV)  # B4
+           + pack_ops(a["g_count"], b4[5], b4[2], T, R, V1, P=P, mv=MV,
+                      offered=offered_words(a))  # B4
            + full[1].numel() * 8 + sum(x.numel() for x in full))  # B6
     row = with_device(dict(
         max_abs_err=max(parts.values()),
@@ -1373,7 +1420,8 @@ def constrained_rows(torch_solver_cls, config_cls, encode_cache_cls):
         st["nmax"] *= 2
     b4_ref, ref_ms = timed(lambda: packing_mod.pack_reference(*pack_in, **st))
     dyn = a["g_dmode"] > 0
-    ops = pack_ops(a["g_count"], b4[5], b4[2], T, R, V1, dyn=dyn, P=P)
+    ops = pack_ops(a["g_count"], b4[5], b4[2], T, R, V1, dyn=dyn, P=P,
+                   offered=offered_words(a))
     rows["pack_domains"] = with_device(dict(
         max_abs_err=max_abs_err(b4, b4_ref),
         ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 5),
@@ -1576,7 +1624,7 @@ def diverse_rows(torch_solver_cls, config_cls):
             ms=cuda_ms(b5, 5), plain_ms=ref5_ms,
             bound=bound_ms(nbytes(pack_in) + nbytes(cls) + nbytes(state + fills),
                            pack_ops(a["g_count"], fills[1], n_open, T, R, V1, dyn=dyn,
-                                    P=P, classes=classes)),
+                                    P=P, classes=classes, offered=offered_words(a))),
             shape=shape,
         ), b5, 5),
         "pack_contrib": with_device(dict(
@@ -1584,7 +1632,8 @@ def diverse_rows(torch_solver_cls, config_cls):
             ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 3),
             plain_ms=ref4_ms,
             bound=bound_ms(nbytes(pack_in) + nbytes(out4),
-                           pack_ops(a["g_count"], out4[5], out4[2], T, R, V1, dyn=dyn, P=P)),
+                           pack_ops(a["g_count"], out4[5], out4[2], T, R, V1, dyn=dyn, P=P,
+                                    offered=offered_words(a))),
             shape=shape + ", classed route off",
         ), lambda: packing_mod.pack(*pack_in, **st), 3),
     }
@@ -1641,7 +1690,7 @@ def floors_rows(torch_solver_cls, config_cls):
             plain_ms=ref_ms,
             bound=bound_ms(nbytes(pack_in) + nbytes(out),
                            pack_ops(a["g_count"], out[5], out[2], T, R, V1, P=P, mv=MV,
-                                    nres=NRES)),
+                                    nres=NRES, offered=offered_words(a))),
             shape=(f"{label}: G={G} T={T} P={P} MV={MV} NRES={NRES} NMAX={st['nmax']} "
                    f"claims={int(out[2])} reserved={int(out[9].sum())}"),
         ), lambda: packing_mod.pack(*pack_in, **st), 10)
@@ -1690,7 +1739,8 @@ def floors_rows(torch_solver_cls, config_cls):
         plain_ms=ref5_ms,
         bound=bound_ms(nbytes(pack_in) + nbytes(cls) + nbytes(list(out5[0]) + fills),
                        pack_ops(a["g_count"], fills[1], out5[0].n_open, T, R, V1,
-                                dyn=a["g_dmode"] > 0, P=P, classes=tuple(cls[:3]), mv=MV)),
+                                dyn=a["g_dmode"] > 0, P=P, classes=tuple(cls[:3]), mv=MV,
+                                offered=offered_words(a))),
         shape=(f"diverse-minvalues: G={a['g_count'].shape[0]} "
                f"classes={int((cls_host[1] > 0).sum())} lmax={lmax} T={T} MV={MV} "
                f"NMAX={st['nmax']} claims={int(out5[0].n_open)}"),
@@ -1776,7 +1826,8 @@ def tiled_rows(torch_solver_cls, config_cls):
         steps = int((a["g_count"] > 0).sum())
         ops = pack_ops(a["g_count"], out[5], out[2], T, R, V1,
                        dyn=(a["g_dmode"] > 0) if st["has_domains"] else None, P=P,
-                       mv=a["p_mvmin"].shape[1], nres=a["res_cap0"].shape[0])
+                       mv=a["p_mvmin"].shape[1], nres=a["res_cap0"].shape[0],
+                       offered=offered_words(a))
         return with_device(dict(
             max_abs_err=err,
             ms=cuda_ms(lambda: packing_mod.pack(*tiled, **st, tile_feasibility=True), reps),
@@ -1839,7 +1890,8 @@ def tiled_rows(torch_solver_cls, config_cls):
         P, T, R, K, V1, N, O = dims(a)
         heads = int((cls_host[1] > 0).sum())
         ops = pack_ops(a["g_count"], out[2], out[0].n_open, T, R, V1, dyn=a["g_dmode"] > 0,
-                       P=P, classes=tuple(cls[:3]), mv=a["p_mvmin"].shape[1])
+                       P=P, classes=tuple(cls[:3]), mv=a["p_mvmin"].shape[1],
+                       offered=offered_words(a))
         return with_device(dict(
             max_abs_err=err, ms=cuda_ms(lambda: b5(tiled, True), reps), plain_ms=ref_ms,
             bound=bound_ms(nbytes(tiled) + nbytes(cls) + nbytes(flat),
@@ -1889,7 +1941,8 @@ def tiled_rows(torch_solver_cls, config_cls):
     O = a["o_avail"].shape[1]
     scan = packing_mod.pack(*tiled_in, **st, tile_feasibility=True)
     steps = int((a["g_count"] > 0).sum())  # real steps over every scenario
-    ops = tiled_ops(pack_ops(a["g_count"], scan[5], scan[2], T, R, V1, P=P), steps, P, T, K,
+    ops = tiled_ops(pack_ops(a["g_count"], scan[5], scan[2], T, R, V1, P=P,
+                             offered=offered_words(a)), steps, P, T, K,
                     V1, N, O, R) + full[1].numel() * 8 + sum(x.numel() for x in full)
     rows["scenarios_tiled"] = with_device(dict(
         max_abs_err=max(max_abs_err(full, ref), max_abs_err(full, untiled)),
@@ -5606,6 +5659,8 @@ def main():
                 "peak_rise", "out_of_place_peak_rise", "buffer_bytes")},
                 tenant_tick={k: v for k, v in queue["tenant_row"].items() if k != "bound"},
                 staging_peaks=queue["ticks"])
+        if name in ("pack_wide", "pack_listed"):  # the scan's layout at the wide shape
+            extra.update({k: row[k] for k in ("shape", "smem_bytes", "spill_bytes")})
         if name == "pack_tiled":  # the scan alone at the tenant cell's full depth
             extra["tenant_cell_ms"] = ten["scan_tiled_ms"]
         if name == "mesh_fold":  # the earlier yardstick, over the partials as a list

@@ -37,6 +37,23 @@
 // break ties at the lowest index; float32 ledgers use two IEEE roundings
 // per a*b+c (built with -fmad=false), as XLA computes them.
 //
+// The offering words (pack_common.cuh:offer_words): the scan's offering
+// tests are ORs over bit words of a_tzc, [T, V1(z), W] over capacity types
+// (and, with domains, [T, V1(c), W] over zones). One grid-stride pass
+// over the whole card builds them before the scan, a thread a word from
+// 32 consecutive bytes (T x V1 x V1 bytes: 1.68 GB at V1 2,048, T 400,
+// ~220 ms on an H100 through the scan's own block), once a launch and
+// shared by every scenario, or once a scenario under a reservation
+// ledger, whose drains rebuild that scenario's words in the scan. The same
+// pass ORs together each zone and capacity type that any offering names
+// (the offered sets, Offered): every test walks only those zones and
+// capacity-type words, and a dynamic group's per-domain claim caps only
+// those domains. A domain-free batch carves no per-domain array (Smem's
+// wide part is then its V1 + 2 quota slots and its words: 63,973 B at V1
+// 2,048), and a domain batch sizes fewer claims a claim-caps chunk before
+// its per-domain rows would leave shared memory (scan_layout), so at V1
+// 2,048 nothing spills.
+//
 // Domains (has_domains; packing.py:496-1152): a dynamic group (g_dmode >
 // 0) gets a quota qd over its V1 domain slots plus ANY and DEAD. Per step
 // the kernel computes the templates' per-domain offering table toff_pt
@@ -44,7 +61,8 @@
 // is never stored (megabytes per step at NMAX ~ 1k, T = 800): each use
 // re-derives its cell from the claim's zone/capacity-type words and the
 // offering bit table, inside the per-claim max (percap [NMAX, V1], kept
-// with shared-memory atomicMax per warp) and inside the survival check.
+// with shared-memory atomicMax, one row a claim of the chunk) and inside
+// the survival check.
 // The quota itself (the spread level cap, the gate caps, the affinity
 // bootstrap, one water-fill over at most V1 domains) is a handful of V1
 // values: thread 0 computes it serially. Tier 1 runs one prefix scan per
@@ -71,8 +89,10 @@
 // The reservation ledger (NRES > 0; packing.py:352, :485-517, :583-591,
 // :940-1036, :1100-1104): st.atz / st.atc hold the current ledger's
 // offering words (a_tzc plus the reserved offerings whose reservation has
-// capacity left), rebuilt only when a reservation drains; claims holding
-// reservations read the held words instead. A bulk re-gates its avail set
+// capacity left), the scenario's own, rebuilt by rank 0 only when a
+// reservation drains (atz as word ORs of a_tzc's and the live
+// reservations' words); claims holding reservations read the held words
+// instead. A bulk re-gates its avail set
 // on the current words, counts the compatible reservations over each
 // reservation's words (an OR over zone and capacity-type bits, no float
 // sums), is bounded by the smallest remaining one, marks its claims
@@ -161,8 +181,11 @@ __device__ void own_slice(const Dims& d, const Strides& sc, long long s,
   st.claim_cap += s * NMAX;
   st.claim_fill += s * NMAX;
   st.avail += s * P * T;
-  st.atz += s * T * V1 * W;
-  st.atc += s * dom * T * V1 * W;
+  // the offering words: a ledger's scenarios each rebuild their own, the
+  // others share the launch's one slice (offer_words)
+  const long long res = d.NRES ? 1 : 0;
+  st.atz += s * res * T * V1 * W;
+  st.atc += s * res * dom * T * V1 * W;
   st.toff_pt += s * dom * P * T * V1;
   st.percap += s * dom * NMAX * V1;
   st.c_slot += s * dom * NMAX;
@@ -198,12 +221,13 @@ __device__ __forceinline__ void settle_caps(const Dims& d, const State& st, cons
 // (c_active, packing.py's claim caps), a window of 1024 slots at a time:
 // one thread per slot settles the claims whose template cannot take the
 // group, one warp per remaining slot checks the group's keys, and the
-// compatible claims are sized kWarps at a time, warp j working out claim
-// j's words, the block's threads sharing the chunk's (claim, type) cells
-// (the best fit by shared atomicMax into m.cbest, per domain into m.pcap),
-// warp j then taking its minValues cap and writing the claim's caps. The
-// maxima do not depend on the gathering order. Call after a barrier; ends
-// in one.
+// compatible claims are sized kWarps at a time (a domain group's d.cw, the
+// rows of m.pcap; scan_layout), warp j working out claim j's words, the
+// block's threads sharing the chunk's (claim, type) cells (the best fit by
+// shared atomicMax into m.cbest, per domain into m.pcap over the domains
+// some offering names), warp j then taking its minValues cap and writing
+// the claim's caps. The maxima do not depend on the gathering order or the
+// chunking. Call after a barrier; ends in one.
 __device__ void claim_caps(const Dims& d, const In& in, const State& st, const Out& out,
                            const Smem& m, const Grp& g, int gi, int lo, int hi) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
@@ -237,8 +261,9 @@ __device__ void claim_caps(const Dims& d, const In& in, const State& st, const O
     }
     __syncthreads();
     const int n = m.nlist[0];
-    for (int c0 = 0; c0 < n; c0 += kWarps) {
-      const int nc = min(kWarps, n - c0);
+    const int cw = g.dyn ? d.cw : kWarps;
+    for (int c0 = 0; c0 < n; c0 += cw) {
+      const int nc = min(cw, n - c0);
       const int32_t* cl = m.list + c0;
       if (wid < nc) {
         warp_claim_words(d, st, m, cl[wid]);
@@ -257,12 +282,19 @@ __device__ void claim_caps(const Dims& d, const In& in, const State& st, const O
         const uint32_t* wcz = m.cz + j * 2 * W;
         const uint32_t* wcc = wcz + W;
         const uint32_t* az = claim_atz(d, st, out, s);
-        if (af < 1 || !offer(az, t, V1, W, wcz, wcc)) continue;
+        if (af < 1 || !offer(m.off, az, t, V1, W, wcz, wcc)) continue;
         atomicMax(&m.cbest[j], af);
         if (g.dyn) {
+          // a domain no offering names has no offering of any type
           const uint32_t* ac = claim_atc(d, st, out, s);
-          for (int v = 0; v < V1; ++v)
-            if (offer_in(az, ac, g.dkey, t, v, V1, W, wcz, wcc)) atomicMax(&m.pcap[j * V1 + v], af);
+          const uint32_t* dom = g.dkey == 0 ? m.off.z : m.off.c;
+          const int hi = g.dkey == 0 ? m.off.zhi : m.off.chi;
+          for (int wv = g.dkey == 0 ? m.off.zlo : m.off.clo; wv < hi; ++wv)
+            for (uint32_t b = dom[wv]; b; b &= b - 1) {
+              const int v = wv * 32 + __ffs(b) - 1;
+              if (offer_in(m.off, az, ac, g.dkey, t, v, V1, W, wcz, wcc))
+                atomicMax(&m.pcap[j * V1 + v], af);
+            }
         }
       }
       __syncthreads();
@@ -284,7 +316,7 @@ __device__ void claim_caps(const Dims& d, const In& in, const State& st, const O
                                     if (!tms[t] || !tok[t]) return false;
                                     fit = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
                                                      used, m.req, R);
-                                    return fit >= 1 && offer(az, t, V1, W, wcz, wcc);
+                                    return fit >= 1 && offer(m.off, az, t, V1, W, wcz, wcc);
                                   });
         }
         if (g.dyn)
@@ -326,6 +358,7 @@ pack_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Strides sc, int ranks) 
     carve(dyn, d, m, st0.spill);
   }
   __syncthreads();
+  load_offered(d, st, m);
   Shared sh{&red, 0};
   const int G = d.G, N = d.N, R = d.R, V1 = d.V1, JH = d.JH;
   const int tid = threadIdx.x;
@@ -469,8 +502,10 @@ extern "C" int kt_pack(
     int32_t* claim_fill, uint8_t* avail, uint32_t* atz,
     uint32_t* atc, uint8_t* toff_pt, int32_t* percap, int32_t* c_slot,
     int32_t* ddc, int32_t* res_rem, int32_t* mvcap,
-    // word tables shared by the scenarios
+    // word tables shared by the scenarios; the offered zones and
+    // capacity types [2, W] (offer_words; zeroed by the caller)
     uint32_t* mvw, uint32_t* ares_z, uint32_t* aheld_z, uint32_t* aheld_c,
+    uint32_t* offered,
     // the tiled rows, S slices, and the shared mask words
     // (empty untiled)
     uint8_t* r_compat, uint8_t* r_tok, int32_t* r_nfit, int32_t* r_cap,
@@ -507,7 +542,7 @@ extern "C" int kt_pack(
   State st{exist_used, c_used, c_npods, c_def, c_neg, c_mask, ch_cnt, nhc,
            pool_rem, exist_cap, claim_cap, claim_fill, avail, atz,
            atc, toff_pt, percap, c_slot, ddc, res_rem, mvcap,
-           mvw, ares_z, aheld_z, aheld_c};
+           mvw, ares_z, aheld_z, aheld_c, offered, offered + W};
   Out out{c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills,
           unplaced, c_dzone, c_dct, c_resv};
   Strides sc{s_g_count, s_cap_ng, s_n_hcnt, s_nh_cnt0, s_g_dprior, s_dd0, s_n_tol};
@@ -515,6 +550,14 @@ extern "C" int kt_pack(
   size_t smem = 0;
   const int rc = scan_smem(pack_scan, d, st, S, kMaxCluster, spill, spill_n, smem);
   if (rc) return rc;
+  {
+    // the starting ledger's offering words across the card: a slice per
+    // scenario under a ledger, else one for all
+    const long long cells = static_cast<long long>(T) * V1 * W;
+    offer_words<<<offer_blocks(cells), 256, 0, stream>>>(d, in, st, NRES ? S : 1);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (MV || NRES) {
     static_words<<<132, 256, 0, stream>>>(d, in, st);
     const cudaError_t e = cudaGetLastError();
@@ -533,10 +576,10 @@ extern "C" int kt_pack(
 // kt_pack's layout at these shapes (pack_common.cuh:layout_info): its
 // dynamic shared memory and spill scratch bytes into ``out`` [2].
 extern "C" int kt_pack_layout(int S, int P, int R, int K, int V1, int MV, int MW, int NRES,
-                              long long* out) {
+                              int has_domains, int has_contrib, long long* out) {
   Dims d{};
   d.P = P, d.R = R, d.K = K, d.V1 = V1, d.W = (V1 + 31) / 32, d.MV = MV, d.MW = MW;
-  d.NRES = NRES;
+  d.NRES = NRES, d.has_domains = has_domains != 0, d.has_contrib = has_contrib != 0;
   return layout_info(pack_scan, d, S, kMaxCluster, out);
 }
 

@@ -108,11 +108,18 @@ struct ClassedBulkHook {
   int32_t* pmax;  // [V1] shared: the bulk template's best fit per domain
   int32_t* percap;  // [NMAX, V1] the maintained per-domain summaries
   int32_t* mvcap;  // [NMAX] the maintained minValues headroom
+  const uint32_t* offered;  // [W] the class axis's offered values (Offered)
   int T, V1;
   bool has_domains, cdyn, mv;
   __device__ void trip(const uint8_t* av, const int32_t* nf, int, Shared& sh) const {
     if (!has_domains) return;
     for (int v = 0; v < V1; ++v) {
+      // toff_grp has no offering in a domain no offering names: its best
+      // is 0 without a reduction (the branch is the same on every thread)
+      if (!bit(offered, v)) {
+        if (threadIdx.x == 0) pmax[v] = 0;
+        continue;
+      }
       int32_t best = 0;
       if (cdyn)
         for (int t = threadIdx.x; t < T; t += kThreads)
@@ -162,7 +169,8 @@ struct ClassedBulkHook {
 // A window of 1024 slots at a time: one thread per slot settles the
 // claims whose template cannot take the class (under a tenant taint,
 // every claim of another tenant), one warp per remaining slot checks the
-// class's keys, and the live claims are sized kWarps at a time, warp j
+// class's keys, and the live claims are sized kWarps at a time (a domain
+// class's d.cw, the rows of m.pcap; scan_layout), warp j
 // working out claim j's words, the block's threads sharing the chunk's
 // (claim, type) cells (the best fit by shared atomicMax into m.cbest, per
 // domain into m.pcap), warp j then taking its minValues headroom and
@@ -207,8 +215,9 @@ __device__ void head_claims(const Dims& d, const In& in, const State& st, const 
     }
     __syncthreads();
     const int n = m.nlist[0];
-    for (int c0 = 0; c0 < n; c0 += kWarps) {
-      const int nc = min(kWarps, n - c0);
+    const int cw = cdyn ? d.cw : kWarps;
+    for (int c0 = 0; c0 < n; c0 += cw) {
+      const int nc = min(cw, n - c0);
       const int32_t* cl = m.list + c0;
       if (wid < nc) {
         warp_claim_words(d, st, m, cl[wid]);
@@ -224,14 +233,14 @@ __device__ void head_claims(const Dims& d, const In& in, const State& st, const 
         const uint32_t* wcc = wcz + W;
         const int32_t af = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
                                       st.c_used + static_cast<size_t>(s) * R, m.req, R);
-        const bool o = offer(st.atz, t, V1, W, wcz, wcc);
+        const bool o = offer(m.off, st.atz, t, V1, W, wcz, wcc);
         hd.af0[st_i] = af;
         hd.off0[st_i] = o;
         const bool tm = out.c_tmask[st_i] && in.type_ok[trow(d, out.c_pool[s], cs) * T + t] && o;
         if (tm) atomicMax(&m.cbest[j], af);
         if (cdyn)
           for (int v = 0; v < V1; ++v) {
-            const bool od = offer_in(st.atz, st.atc, cdk, t, v, V1, W, wcz, wcc);
+            const bool od = offer_in(m.off, st.atz, st.atc, cdk, t, v, V1, W, wcz, wcc);
             hd.toff_nt0[st_i * V1 + v] = od;
             if (tm && od) atomicMax(&m.pcap[j * V1 + v], af);
           }
@@ -343,6 +352,7 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
     carve(dyn, d, m, st0.spill);
   }
   __syncthreads();
+  load_offered(d, st, m);
   Shared sh{&red, 0};
   const int G = d.G, T = d.T, N = d.N, R = d.R, V1 = d.V1, JH = d.JH, W = d.W;
   const int tid = threadIdx.x;
@@ -372,11 +382,11 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
     int lo, hi;
     rank_share(T, rank, ranks, lo, hi);
     for (int t = lo + tid; t < hi; t += kThreads) {
-      hd.off_grp[t] = offer(st.atz, t, V1, W, m.gz, m.gc);
+      hd.off_grp[t] = offer(m.off, st.atz, t, V1, W, m.gz, m.gc);
       if (cdyn)
         for (int v = 0; v < V1; ++v)
           hd.toff_grp[static_cast<size_t>(t) * V1 + v] =
-              offer_in(st.atz, st.atc, cdk, t, v, V1, W, m.gz, m.gc);
+              offer_in(m.off, st.atz, st.atc, cdk, t, v, V1, W, m.gz, m.gc);
     }
     // rank 0's own tables: the templates' per-domain offerings (the bulks
     // and the quota), the existing nodes' caps
@@ -484,7 +494,8 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
       if (lead) {
         __syncthreads();
         fresh_claims(d, in, st, out, m, g, n_open, overflow,
-                     ClassedBulkHook{&hd, m.pmax, st.percap, st.mvcap, T, V1, d.has_domains,
+                     ClassedBulkHook{&hd, m.pmax, st.percap, st.mvcap,
+                                     cdk == 0 ? m.off.z : m.off.c, T, V1, d.has_domains,
                                      cdyn, d.MV > 0},
                      sh, s_debit);
         spread_carry(d, st, m, g);
@@ -566,8 +577,9 @@ extern "C" int kt_pack_classed(
     int32_t* claim_fill, uint8_t* avail, uint32_t* atz,
     uint32_t* atc, uint8_t* toff_pt, int32_t* percap, int32_t* c_slot,
     int32_t* ddc, int32_t* res_rem, int32_t* mvcap,
-    // each type's minValues values per key, as words
-    uint32_t* mvw,
+    // each type's minValues values per key, as words; the offered zones
+    // and capacity types [2, W] (offer_words; zeroed by the caller)
+    uint32_t* mvw, uint32_t* offered,
     // the tiled rows and the shared mask words (empty untiled)
     uint8_t* r_compat, uint8_t* r_tok, int32_t* r_nfit, int32_t* r_cap,
     uint32_t* tw, uint32_t* pw, uint32_t* nw,
@@ -606,7 +618,7 @@ extern "C" int kt_pack_classed(
   State st{exist_used, c_used, c_npods, c_def, c_neg, c_mask, ch_cnt, nhc,
            pool_rem, exist_cap, claim_cap, claim_fill, avail, atz,
            atc, toff_pt, percap, c_slot, ddc, res_rem, mvcap,
-           mvw, nullptr, nullptr, nullptr};
+           mvw, nullptr, nullptr, nullptr, offered, offered + W};
   Out out{c_pool, c_tmask, n_open, overflow, exist_fills, claim_fills,
           unplaced, c_dzone, c_dct, c_resv};
   Classes cls{class_start, class_len, class_dyn, class_dkey, C};
@@ -615,6 +627,13 @@ extern "C" int kt_pack_classed(
   size_t smem = 0;
   const int rc = scan_smem(pack_classed_scan, d, st, 1, kMaxCluster, spill, spill_n, smem);
   if (rc) return rc;
+  {
+    // the offering words across the card (no ledger: one set)
+    const long long cells = static_cast<long long>(T) * V1 * W;
+    offer_words<<<offer_blocks(cells), 256, 0, stream>>>(d, in, st, 1);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (MV) {
     static_words<<<132, 256, 0, stream>>>(d, in, st);
     const cudaError_t e = cudaGetLastError();
@@ -634,9 +653,10 @@ extern "C" int kt_pack_classed(
 // layout_info): its dynamic shared memory and spill scratch bytes into
 // ``out`` [2].
 extern "C" int kt_pack_classed_layout(int P, int R, int K, int V1, int MV, int MW,
-                                      long long* out) {
+                                      int has_domains, int has_contrib, long long* out) {
   Dims d{};
   d.P = P, d.R = R, d.K = K, d.V1 = V1, d.W = (V1 + 31) / 32, d.MV = MV, d.MW = MW;
+  d.has_domains = has_domains != 0, d.has_contrib = has_contrib != 0;
   return layout_info(pack_classed_scan, d, 1, kMaxCluster, out);
 }
 

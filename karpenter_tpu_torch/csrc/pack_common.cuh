@@ -288,15 +288,30 @@ __device__ __forceinline__ int32_t floordiv(int32_t a, int32_t b) {
   return q;
 }
 
+// The launch's offered sets (offer_words: each zone and capacity type
+// that a_tzc or any reservation offers at all) as bit words [W], and the
+// word ranges [zlo, zhi) and [clo, chi) that hold their bits. Every
+// offering word the scan reads (st.atz, st.atc, the held and the
+// reservations' words) is 0 at a zone outside z and has no bit outside c
+// (atz's capacity-type bits), so an offering test walks only these; a
+// value no offering names satisfies no test.
+struct Offered {
+  const uint32_t* z; const uint32_t* c;
+  int zlo, zhi, clo, chi;
+};
+
 // any (z, c) with zone bit z, capacity-type bit c and a_tzc[t, z, c]: an
-// OR over the set zone bits only (mask_word sets none past V1)
-__device__ __forceinline__ bool offer(const uint32_t* atz, int t, int V1, int W,
-                                      const uint32_t* cz, const uint32_t* cc) {
-  for (int wz = 0; wz < W; ++wz)
-    for (uint32_t b = cz[wz]; b; b &= b - 1) {
+// OR over the set zone bits that some offering names, and over the
+// capacity-type words that can hold an offered bit (mask_word sets none
+// past V1)
+__device__ __forceinline__ bool offer(const Offered& of, const uint32_t* atz, int t, int V1,
+                                      int W, const uint32_t* cz, const uint32_t* cc) {
+  const int clo = of.clo, chi = of.chi;
+  for (int wz = of.zlo; wz < of.zhi; ++wz)
+    for (uint32_t b = cz[wz] & of.z[wz]; b; b &= b - 1) {
       const int z = wz * 32 + __ffs(b) - 1;
       const uint32_t* row = atz + (static_cast<size_t>(t) * V1 + z) * W;
-      for (int w = 0; w < W; ++w)
+      for (int w = clo; w < chi; ++w)
         if (row[w] & cc[w]) return true;
     }
   return false;
@@ -305,17 +320,38 @@ __device__ __forceinline__ bool offer(const uint32_t* atz, int t, int V1, int W,
 // an offering of type t in domain v of the constrained axis (dkey 0: zone,
 // 1: capacity type) under the entity's words on both axes — one cell of
 // packing.py's toff_nt / toff_pt. atz[t, z] holds capacity-type bits,
-// atc[t, c] zone bits.
-__device__ __forceinline__ bool offer_in(const uint32_t* atz, const uint32_t* atc,
-                                         int dkey, int t, int v, int V1, int W,
-                                         const uint32_t* cz, const uint32_t* cc) {
+// atc[t, c] zone bits: only the other axis's offered words can hold one.
+__device__ __forceinline__ bool offer_in(const Offered& of, const uint32_t* atz,
+                                         const uint32_t* atc, int dkey, int t, int v, int V1,
+                                         int W, const uint32_t* cz, const uint32_t* cc) {
   const uint32_t* con = dkey == 0 ? cz : cc;
   const uint32_t* oth = dkey == 0 ? cc : cz;
   if (!bit(con, v)) return false;
   const uint32_t* row = (dkey == 0 ? atz : atc) + (static_cast<size_t>(t) * V1 + v) * W;
-  for (int w = 0; w < W; ++w)
+  const int lo = dkey == 0 ? of.clo : of.zlo, hi = dkey == 0 ? of.chi : of.zhi;
+  for (int w = lo; w < hi; ++w)
     if (row[w] & oth[w]) return true;
   return false;
+}
+
+// 16 bytes of a byte mask as 16 bits (bit i: byte i nonzero)
+__device__ __forceinline__ uint32_t bits16(uint4 q) {
+  auto nib = [](uint32_t x) { return ((__vcmpne4(x, 0u) & 0x01010101u) * 0x01020408u) >> 24; };
+  return nib(q.x) | nib(q.y) << 4 | nib(q.z) << 8 | nib(q.w) << 12;
+}
+
+// word w of a [V1] byte mask row (kt::mask_word), as two 16-byte loads
+// where ``x16`` says it may: the row 16-byte aligned and V1 % 32 == 0
+__device__ __forceinline__ uint32_t row_word16(const uint8_t* row, int V1, int w, bool x16) {
+  if (!x16) return mask_word(row, V1, w);
+  const uint4* p = reinterpret_cast<const uint4*>(row + 32 * static_cast<size_t>(w));
+  const uint4 a = p[0], b = p[1];
+  return bits16(a) | bits16(b) << 16;
+}
+
+// may rows of ``base`` [., V1] take row_word16's 16-byte loads
+__device__ __forceinline__ bool rows_x16(const void* base, int V1) {
+  return (V1 & 31) == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
 }
 
 struct Dims {
@@ -328,6 +364,10 @@ struct Dims {
   bool tiled;
   // the launch's wide part of Smem lies in device memory (scan_layout)
   bool spill;
+  // the claims a chunk of the claim caps sizes at once, each with its
+  // own [V1] row of per-domain capacities in Smem (scan_layout: kWarps,
+  // fewer where those rows would not fit shared memory)
+  int cw;
 };
 
 struct In {
@@ -426,6 +466,8 @@ struct State {  // PackState in device memory (plus per-step scratch)
   // a_res[r, t, z, :] over capacity types [NRES, T, V1, W]; the held
   // availability (a_tzc or any reservation) on both axes [T, V1, W]
   uint32_t* mvw; uint32_t* ares_z; uint32_t* aheld_z; uint32_t* aheld_c;
+  // the launch's offered zone and capacity-type sets [W] (offer_words)
+  uint32_t* offz; uint32_t* offc;
   // the wide part of Smem where the launch spills it: one slice of
   // spill_stride bytes per block of the grid (scan_layout)
   unsigned char* spill;
@@ -441,7 +483,8 @@ struct Out {
 // part from device memory where the launch spills: carve)
 struct Smem {
   // the wide part: grows with the value axis (V1, its words W) and the
-  // minValues axis (MW)
+  // minValues axis (MW); the arrays of a path the launch never takes are
+  // empty (wide_layout)
   uint32_t* cz;     // [kWarps][2][W] per-warp claim zone / capacity-type words
   uint32_t* gw;     // [K][W] the group's requirement mask words
   uint32_t* gz;     // the zone key's row of gw
@@ -453,17 +496,22 @@ struct Smem {
   int32_t* qrem;    // [NSLOT] what is left of it
   int32_t* ddead;   // [NSLOT] retired slots of the fresh-claim loop
   int32_t* sflag;   // [NSLOT] slots with a claim of positive cap
+  // has_domains only (else empty):
   int32_t* D0;      // [V1] domain counts: priors + the shared carry
   int32_t* czcap;   // [V1] existing-node capacity per domain
   int32_t* wcap;    // [V1] water-fill caps of the quota
   int32_t* wnp;     // [V1] water-fill levels of the quota
   float* cumf;      // [V1] cumulative quota shares
-  int32_t* pcap;    // [kWarps][V1] per-warp per-domain claim capacity
+  int32_t* pcap;    // [cw][V1] per-claim per-domain capacity of a claim-caps chunk
+  int32_t* pmax;    // [V1] per-domain best fit of a bulk's template (B5)
+  // has_contrib only:
   int32_t* dsum;    // [4][V1] contributor sums: node zone, node ct, claim zone, claim ct
-  int32_t* pmax;    // [V1] per-domain best fit of a bulk's template
+  // MV > 0 only:
   int32_t* mvf;     // [kWarps][MW] per-warp per-value fits (minValues)
   uint32_t* pze;    // [W] a bulk template's zone words (in the pinned domain)
   uint32_t* pce;    // [W] ... capacity-type words
+  uint32_t* oz;     // [W] the launch's offered zones (offer_words)
+  uint32_t* oc;     // [W] ... capacity types
   // the core part: bounded by the templates, the reservations, the
   // resources and the keys
   int32_t* mvp;     // [P] each template's minValues cap for a bulk
@@ -477,19 +525,59 @@ struct Smem {
   uint8_t* gdef;    // [K]
   uint8_t* gneg;    // [K]
   uint8_t* pcompat; // [P] the step's compat_row (tile_rows; fresh_claims)
+  Offered off;      // the offered sets over oz, oc (load_offered)
 };
 
+// Where each array of Smem's wide part starts, in 4-byte words from its
+// head, and where the part ends. The arrays only a domain batch reads are
+// empty without has_domains, the contributor sums without has_contrib,
+// the minValues fits without floors: a domain-free batch at V1 2,048 needs
+// its [V1 + 2] quota slots and its words only.
+struct WideLay {
+  size_t cz, gw, pz, pc, fresh, qd, qrem, ddead, sflag, D0, czcap, wcap, wnp, cumf, pcap, pmax,
+      dsum, mvf, pze, pce, oz, oc, end;
+};
+
+__host__ __device__ inline WideLay wide_layout(const Dims& d) {
+  const size_t W = d.W, V1 = d.V1, NSLOT = V1 + 2, P = d.P;
+  const size_t DV = d.has_domains ? V1 : 0;
+  WideLay l;
+  size_t at = 0;
+  l.cz = at, at += kWarps * 2 * W;
+  l.gw = at, at += static_cast<size_t>(d.K) * W;
+  l.pz = at, at += P * W;
+  l.pc = at, at += P * W;
+  l.fresh = at, at += W;
+  l.qd = at, at += NSLOT;
+  l.qrem = at, at += NSLOT;
+  l.ddead = at, at += NSLOT;
+  l.sflag = at, at += NSLOT;
+  l.D0 = at, at += DV;
+  l.czcap = at, at += DV;
+  l.wcap = at, at += DV;
+  l.wnp = at, at += DV;
+  l.cumf = at, at += DV;
+  l.pcap = at, at += static_cast<size_t>(d.cw) * DV;
+  l.pmax = at, at += DV;
+  l.dsum = at, at += d.has_contrib ? 4 * V1 : 0;
+  l.mvf = at, at += d.MV ? static_cast<size_t>(kWarps) * d.MW : 0;
+  l.pze = at, at += W;
+  l.pce = at, at += W;
+  l.oz = at, at += W;
+  l.oc = at, at += W;
+  l.end = at;
+  return l;
+}
+
 // Bytes of Smem's wide and core parts. Where both fit a block's shared
-// memory the launch carves both from it; past that (a value vocabulary of
-// about a thousand values a key, or a wide minValues catalog) the wide
-// part moves to the launch's spill scratch in device memory and only the
-// core part stays shared: the same arrays at the same indices, so the
-// scan decides the same at any width, only slower there.
+// memory the launch carves both from it; past that (a domain batch's
+// per-domain arrays at a vocabulary of a few thousand values a key, or a
+// wide minValues catalog) the wide part moves to the launch's spill
+// scratch in device memory and only the core part stays shared: the same
+// arrays at the same indices, so the scan decides the same at any width,
+// only slower there.
 __host__ __device__ inline size_t wide_bytes(const Dims& d) {
-  const size_t NSLOT = d.V1 + 2, W = d.W, V1 = d.V1;
-  return sizeof(uint32_t) * (kWarps * 2 * W + d.K * W + 2 * static_cast<size_t>(d.P) * W + W +
-                             4 * NSLOT + 5 * V1 + kWarps * V1 + 5 * V1 +
-                             (d.MV ? static_cast<size_t>(kWarps) * d.MW : 0) + 2 * W);
+  return sizeof(uint32_t) * wide_layout(d).end;
 }
 
 __host__ __device__ inline size_t core_bytes(const Dims& d) {
@@ -530,7 +618,13 @@ int scan_layout(Kernel kernel, Dims& d, size_t& smem) {
       cap = caps[key] = static_cast<size_t>(optin) - fa.sharedSizeBytes;
     }
   }
+  // a domain batch's claim caps size fewer claims a chunk before the
+  // whole wide part leaves shared memory (each claim's maxima are its own,
+  // so the chunking changes no result)
+  d.cw = kWarps;
+  while (d.has_domains && d.cw > 1 && wide_bytes(d) + core_bytes(d) > cap) d.cw /= 2;
   d.spill = wide_bytes(d) + core_bytes(d) > cap;
+  if (d.spill) d.cw = kWarps;
   smem = d.spill ? core_bytes(d) : wide_bytes(d) + core_bytes(d);
   return 0;
 }
@@ -570,31 +664,36 @@ int scan_smem(Kernel kernel, Dims& d, State& st, int S, int max_c, unsigned char
 // scratch ``spill`` where the launch spills, else from the head of
 // ``dyn``; the core part from ``dyn`` after it.
 __device__ void carve(unsigned char* dyn, const Dims& d, Smem& m, unsigned char* spill) {
-  const int W = d.W, P = d.P, V1 = d.V1, NSLOT = d.V1 + 2;
-  m.cz = reinterpret_cast<uint32_t*>(d.spill ? spill + blockIdx.x * spill_stride(d) : dyn);
-  m.gw = m.cz + kWarps * 2 * W;
+  const int W = d.W;
+  const WideLay l = wide_layout(d);
+  uint32_t* w0 = reinterpret_cast<uint32_t*>(d.spill ? spill + blockIdx.x * spill_stride(d) : dyn);
+  int32_t* i0 = reinterpret_cast<int32_t*>(w0);
+  m.cz = w0 + l.cz;
+  m.gw = w0 + l.gw;
   m.gz = m.gw + d.zone_kid * W;
   m.gc = m.gw + d.ct_kid * W;
-  m.pz = m.gw + d.K * W;
-  m.pc = m.pz + P * W;
-  m.fresh = m.pc + P * W;
-  m.qd = reinterpret_cast<int32_t*>(m.fresh + W);
-  m.qrem = m.qd + NSLOT;
-  m.ddead = m.qrem + NSLOT;
-  m.sflag = m.ddead + NSLOT;
-  m.D0 = m.sflag + NSLOT;
-  m.czcap = m.D0 + V1;
-  m.wcap = m.czcap + V1;
-  m.wnp = m.wcap + V1;
-  m.cumf = reinterpret_cast<float*>(m.wnp + V1);
-  m.pcap = reinterpret_cast<int32_t*>(m.cumf + V1);
-  m.dsum = m.pcap + kWarps * V1;
-  m.pmax = m.dsum + 4 * V1;
-  m.mvf = m.pmax + V1;
-  m.pze = reinterpret_cast<uint32_t*>(m.mvf + (d.MV ? kWarps * d.MW : 0));
-  m.pce = m.pze + W;
-  m.mvp = reinterpret_cast<int32_t*>(d.spill ? dyn : reinterpret_cast<unsigned char*>(m.pce + W));
-  m.rflag = m.mvp + P;
+  m.pz = w0 + l.pz;
+  m.pc = w0 + l.pc;
+  m.fresh = w0 + l.fresh;
+  m.qd = i0 + l.qd;
+  m.qrem = i0 + l.qrem;
+  m.ddead = i0 + l.ddead;
+  m.sflag = i0 + l.sflag;
+  m.D0 = i0 + l.D0;
+  m.czcap = i0 + l.czcap;
+  m.wcap = i0 + l.wcap;
+  m.wnp = i0 + l.wnp;
+  m.cumf = reinterpret_cast<float*>(w0 + l.cumf);
+  m.pcap = i0 + l.pcap;
+  m.pmax = i0 + l.pmax;
+  m.dsum = i0 + l.dsum;
+  m.mvf = i0 + l.mvf;
+  m.pze = w0 + l.pze;
+  m.pce = w0 + l.pce;
+  m.oz = w0 + l.oz;
+  m.oc = w0 + l.oc;
+  m.mvp = reinterpret_cast<int32_t*>(d.spill ? dyn : reinterpret_cast<unsigned char*>(w0 + l.end));
+  m.rflag = m.mvp + d.P;
   m.flags = m.rflag + d.NRES;
   m.list = m.flags + 1;
   m.cand = m.list + kThreads;
@@ -604,6 +703,28 @@ __device__ void carve(unsigned char* dyn, const Dims& d, Smem& m, unsigned char*
   m.gdef = reinterpret_cast<uint8_t*>(m.req + d.R);
   m.gneg = m.gdef + d.K;
   m.pcompat = m.gneg + d.K;
+  m.off = Offered{m.oz, m.oc, 0, 0, 0, 0};
+}
+
+// The launch's offered sets into the block's Smem (m.oz, m.oc) and the
+// word ranges that hold their bits (m.off; empty ranges where nothing is
+// offered). Call after carve's barrier (thread 0 owns m); ends in a
+// barrier.
+__device__ void load_offered(const Dims& d, const State& st, Smem& m) {
+  for (int w = threadIdx.x; w < d.W; w += kThreads) {
+    m.oz[w] = st.offz[w];
+    m.oc[w] = st.offc[w];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int zlo = d.W, zhi = 0, clo = d.W, chi = 0;
+    for (int w = 0; w < d.W; ++w) {
+      if (m.oz[w]) zlo = min(zlo, w), zhi = w + 1;
+      if (m.oc[w]) clo = min(clo, w), chi = w + 1;
+    }
+    m.off.zlo = zlo, m.off.zhi = zhi, m.off.clo = clo, m.off.chi = chi;
+  }
+  __syncthreads();
 }
 
 // The group being placed: thread 0 fills it in shared memory, every
@@ -670,17 +791,21 @@ __device__ __forceinline__ bool step_avail(const Dims& d, const In& in, const St
 }
 
 // The offering bit words of the current ledger: st.atz [T, V1(z), W] over
-// capacity types and, with domains, st.atc [T, V1(c), W] over zones. Built
-// at init and again whenever a reservation's remaining capacity reaches
-// zero (it never rises). Call after a barrier that published st.res_rem;
-// ends in one.
+// capacity types and, with domains, st.atc [T, V1(c), W] over zones.
+// offer_words builds them for the starting ledger before the scan; a
+// ledger's scan rebuilds its scenario's here whenever a reservation's
+// remaining capacity reaches zero (it never rises): atz as a_tzc's words
+// ORed with the words (static_words' ares_z) of each reservation with
+// capacity left. Call after a barrier that published st.res_rem; ends in
+// one.
 __device__ void step_words(const Dims& d, const In& in, const State& st) {
   const int tid = threadIdx.x, T = d.T, V1 = d.V1, W = d.W;
-  for (int i = tid; i < T * V1 * W; i += kThreads) {
-    const int t = i / (V1 * W), z = (i / W) % V1, w = i % W;
-    uint32_t bits = 0;
-    for (int c = w * 32; c < V1 && c < w * 32 + 32; ++c)
-      bits |= static_cast<uint32_t>(step_avail(d, in, st, t, z, c)) << (c - w * 32);
+  const long long cells = static_cast<long long>(T) * V1 * W;
+  const bool x16 = rows_x16(in.a_tzc, V1);
+  for (long long i = tid; i < cells; i += kThreads) {
+    uint32_t bits = row_word16(in.a_tzc + (i / W) * V1, V1, static_cast<int>(i % W), x16);
+    for (int r = 0; r < d.NRES; ++r)
+      if (st.res_rem[r] > 0) bits |= st.ares_z[r * cells + i];
     st.atz[i] = bits;
   }
   if (d.has_domains)
@@ -692,6 +817,65 @@ __device__ void step_words(const Dims& d, const In& in, const State& st) {
       st.atc[i] = bits;
     }
   __syncthreads();
+}
+
+// The offering words of the starting ledger (res_rem = res_cap0) and the
+// launch's offered sets, one grid-stride pass over the whole card before
+// the scan (the scan's own block would read T x V1 x V1 bytes alone):
+// st.atz [T, V1(z), W] over capacity types, a thread a word from 32
+// consecutive bytes of a_tzc (two 16-byte loads, issued before any is
+// combined) ORed with those of each reservation with capacity, and, with
+// domains, st.atc [T, V1(c), W] over zones; each ``copies`` times, one
+// slice apart (a ledger's scenarios rebuild their own words as
+// reservations drain; without a ledger the words never change and every
+// scenario reads the one slice). st.offz / st.offc [W] (zeroed by the
+// caller) get each zone and capacity type that a_tzc or any reservation
+// offers at all (packing.py's a_held): every offering word the scan reads
+// lies inside them (Offered).
+__global__ void offer_words(Dims d, In in, State st, int copies) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long i0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int T = d.T, V1 = d.V1, W = d.W, NRES = d.NRES;
+  const long long cells = static_cast<long long>(T) * V1 * W;
+  const size_t plane = static_cast<size_t>(T) * V1 * V1;
+  const bool x16 = rows_x16(in.a_tzc, V1) && (NRES == 0 || rows_x16(in.a_res, V1));
+  for (long long i = i0; i < cells; i += step) {
+    const size_t tz = static_cast<size_t>(i / W);
+    const int w = static_cast<int>(i % W);
+    uint32_t cur = row_word16(in.a_tzc + tz * V1, V1, w, x16), held = cur;
+    for (int r = 0; r < NRES; ++r) {
+      const uint32_t b = row_word16(in.a_res + r * plane + tz * V1, V1, w, x16);
+      held |= b;
+      if (in.res_cap0[r] > 0) cur |= b;
+    }
+    for (int c = 0; c < copies; ++c) st.atz[c * cells + i] = cur;
+    if (held) {
+      const int z = static_cast<int>(tz % V1);
+      atomicOr(&st.offc[w], held);
+      atomicOr(&st.offz[z >> 5], 1u << (z & 31));
+    }
+  }
+  if (!d.has_domains) return;
+  for (long long i = i0; i < cells; i += step) {
+    const int t = static_cast<int>(i / (static_cast<long long>(V1) * W));
+    const int c = static_cast<int>((i / W) % V1), wz = static_cast<int>(i % W);
+    uint32_t bits = 0;
+    for (int z = wz * 32; z < V1 && z < wz * 32 + 32; ++z) {
+      const size_t cell = (static_cast<size_t>(t) * V1 + z) * V1 + c;
+      bool on = in.a_tzc[cell];
+      for (int r = 0; r < NRES && !on; ++r) on = in.res_cap0[r] > 0 && in.a_res[r * plane + cell];
+      bits |= static_cast<uint32_t>(on) << (z - wz * 32);
+    }
+    for (int k = 0; k < copies; ++k) st.atc[k * cells + i] = bits;
+  }
+}
+
+// offer_words' grid over ``cells`` words: 256 threads a block, at most
+// the 2,048 threads each of the card's 132 SMs holds at once (a
+// grid-stride loop past that)
+inline int offer_blocks(long long cells) {
+  const int g = kt::grid_for(cells, 256);
+  return g < 132 * 8 ? g : 132 * 8;
 }
 
 // The word tables every scenario shares (State::mvw, ares_z, aheld_z,
@@ -827,15 +1011,17 @@ __device__ void init_state(const Dims& d, const In& in, const State& st, const O
     st.c_def[i] = 0;
     st.c_neg[i] = 0;
   }
-  for (long long i = tid; i < static_cast<long long>(NMAX) * K * V1; i += kThreads)
-    st.c_mask[i] = 1;
+  // four values a store (V1 % 4 == 0: ops/packing.py:_check_scan_inputs)
+  uint32_t* cm = reinterpret_cast<uint32_t*>(st.c_mask);
+  for (long long i = tid; i < static_cast<long long>(NMAX) * K * V1 / 4; i += kThreads)
+    cm[i] = 0x01010101u;
   for (int i = tid; i < NMAX * d.JH; i += kThreads) st.ch_cnt[i] = 0;
   for (int i = tid; i < N * d.JH; i += kThreads) st.nhc[i] = in.nh_cnt0[i];
   for (int i = tid; i < d.JD * V1; i += kThreads) st.ddc[i] = in.dd0[i];
   for (int i = tid; i < d.P * R; i += kThreads) st.pool_rem[i] = in.p_limit[i];
   for (int r = tid; r < d.NRES; r += kThreads) st.res_rem[r] = in.res_cap0[r];
+  // the starting ledger's offering words: offer_words, before the scan
   __syncthreads();
-  step_words(d, in, st);
 }
 
 // The group's request and requirement rows (row ``gi`` of the group
@@ -962,7 +1148,7 @@ __device__ void template_domains(const Dims& d, const In& in, const State& st, c
   for (long long i = tid; i < static_cast<long long>(P) * T * V1; i += kThreads) {
     const int p = static_cast<int>(i / (static_cast<long long>(T) * V1));
     const int t = static_cast<int>((i / V1) % T), v = static_cast<int>(i % V1);
-    const bool ok = offer_in(st.atz, st.atc, dkey, t, v, V1, W, m.pz + p * W, m.pc + p * W);
+    const bool ok = offer_in(m.off, st.atz, st.atc, dkey, t, v, V1, W, m.pz + p * W, m.pc + p * W);
     st.toff_pt[i] = ok;
     if (ok && in.type_ok[trow(d, p, ti) * T + t])
       atomicOr(&m.fresh[v >> 5], 1u << (v & 31));
@@ -975,33 +1161,64 @@ __device__ void template_domains(const Dims& d, const In& in, const State& st, c
 // column ``ti``)? Called by one whole warp; every lane gets the answer.
 __device__ bool warp_claim_compat(const Dims& d, const In& in, const State& st, const Out& out,
                                   const Smem& m, int s, int ti) {
-  const int lane = threadIdx.x & 31, K = d.K, V1 = d.V1;
+  const int lane = threadIdx.x & 31, K = d.K, V1 = d.V1, W = d.W;
   // the claim's template first: one read answers for most claims of a
   // batch over several pools (the same on every lane)
   const int pp = out.c_pool[s];
   if (!(in.p_tol[pp * d.G + ti] && in.compat_pg[trow(d, pp, ti)])) return false;
+  // a lane a key: key_ok = overlap || (sn && gneg) || !(sd && gdef), the
+  // overlap of the claim's and the group's values only where the rest does
+  // not settle it; a lane walks its key's words itself up to kLaneWords,
+  // and past that the warp walks each such key's words together (the
+  // lanes' 16-byte loads where the rows allow)
+  constexpr int kLaneWords = 4;
+  const uint8_t* row = st.c_mask + static_cast<size_t>(s) * K * V1;
+  const bool x16 = rows_x16(row, V1);
   bool ok = true;
-  for (int k = lane; k < K; k += 32) {
-    const uint8_t* sm = st.c_mask + (static_cast<size_t>(s) * K + k) * V1;
-    bool ov = false;
-    for (int v = 0; v < V1 && !ov; ++v) ov = sm[v] && bit(m.gw + k * d.W, v);
-    const bool sd = st.c_def[s * K + k], sn = st.c_neg[s * K + k];
-    const bool key_ok = ov || (sn && m.gneg[k]) || !(sd && m.gdef[k]);
-    const bool custom = !m.gdef[k] || in.well_known[k] || sd || m.gneg[k];
-    ok = ok && key_ok && custom;
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const int k = k0 + lane;
+    bool need = false;
+    if (k < K) {
+      const bool sd = st.c_def[s * K + k], sn = st.c_neg[s * K + k];
+      const bool custom = !m.gdef[k] || in.well_known[k] || sd || m.gneg[k];
+      if (!custom) {
+        ok = false;
+      } else if (!((sn && m.gneg[k]) || !(sd && m.gdef[k]))) {
+        need = W > kLaneWords;
+        if (!need) {
+          bool ov = false;
+          for (int w = 0; w < W && !ov; ++w)
+            ov = (row_word16(row + static_cast<size_t>(k) * V1, V1, w, x16) & m.gw[k * W + w]) != 0;
+          ok = ok && ov;
+        }
+      }
+    }
+    if (!__all_sync(kFull, ok)) return false;
+    for (unsigned b = __ballot_sync(kFull, need); b; b &= b - 1) {
+      const int kk = k0 + __ffs(b) - 1;
+      const uint8_t* sm = row + static_cast<size_t>(kk) * V1;
+      bool ov = false;
+      for (int w = lane; w < W && !ov; w += 32)
+        ov = (row_word16(sm, V1, w, x16) & m.gw[kk * W + w]) != 0;
+      if (!__any_sync(kFull, ov)) return false;
+    }
   }
-  return __all_sync(kFull, ok);
+  return true;
 }
 
-// The warp's claim zone / capacity-type words, merged with the group's.
-// Called by one whole warp; ends in __syncwarp.
+// The warp's claim zone / capacity-type words, merged with the group's:
+// every word, W past 32 too (lane l takes words l, l + 32, ...). Called by
+// one whole warp; ends in __syncwarp.
 __device__ uint32_t* warp_claim_words(const Dims& d, const State& st, const Smem& m, int s) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, W = d.W;
   uint32_t* wcz = m.cz + wid * 2 * W;
-  if (lane < W) {
-    const uint8_t* row = st.c_mask + static_cast<size_t>(s) * d.K * d.V1;
-    wcz[lane] = mask_word(row + d.zone_kid * d.V1, d.V1, lane) & m.gz[lane];
-    wcz[W + lane] = mask_word(row + d.ct_kid * d.V1, d.V1, lane) & m.gc[lane];
+  const uint8_t* row = st.c_mask + static_cast<size_t>(s) * d.K * d.V1;
+  const uint8_t* rz = row + static_cast<size_t>(d.zone_kid) * d.V1;
+  const uint8_t* rc = row + static_cast<size_t>(d.ct_kid) * d.V1;
+  const bool x16 = rows_x16(rz, d.V1) && rows_x16(rc, d.V1);
+  for (int w = lane; w < W; w += 32) {
+    wcz[w] = row_word16(rz, d.V1, w, x16) & m.gz[w];
+    wcz[W + w] = row_word16(rc, d.V1, w, x16) & m.gc[w];
   }
   __syncwarp();
   return wcz;
@@ -1318,8 +1535,7 @@ __device__ void domain_quota(const Dims& d, const In& in, const State& st, const
 
 // the domain-free quota: every pod in ANY. Ends in a barrier.
 __device__ void any_quota(const Dims& d, const Smem& m, int32_t count) {
-  if (threadIdx.x == 0)
-    for (int sl = 0; sl < d.V1 + 2; ++sl) m.qd[sl] = sl == d.V1 ? count : 0;
+  for (int sl = threadIdx.x; sl < d.V1 + 2; sl += kThreads) m.qd[sl] = sl == d.V1 ? count : 0;
   __syncthreads();
 }
 
@@ -1577,19 +1793,23 @@ __device__ void commit_claims(const Dims& d, const In& in, const State& st, cons
           const int32_t af = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
                                         st.c_used + static_cast<size_t>(s) * R, m.req, R);
           bool keep = in.type_ok[trow(d, out.c_pool[s], g.ti) * T + t] &&
-                      offer(az, t, V1, W, wcz, wcc) && af >= fill;
+                      offer(m.off, az, t, V1, W, wcz, wcc) && af >= fill;
           const int cs = pin(s);
           if (keep && cs >= 0)
-            keep = offer_in(az, claim_atc(d, st, out, s), g.dkey, t, cs, V1, W, wcz, wcc);
+            keep = offer_in(m.off, az, claim_atc(d, st, out, s), g.dkey, t, cs, V1, W, wcz, wcc);
           if (!keep) *cell = 0;
         }
-      for (long long i = tid; i < static_cast<long long>(nc) * KV; i += kThreads) {
-        const int j = static_cast<int>(i / KV), c = static_cast<int>(i % KV), s = cl[j];
+      // four values a thread, one 4-byte read and write (V1 % 4 == 0)
+      const int KV4 = KV / 4;
+      for (long long i = tid; i < static_cast<long long>(nc) * KV4; i += kThreads) {
+        const int j = static_cast<int>(i / KV4), c = 4 * static_cast<int>(i % KV4), s = cl[j];
         if (st.claim_fill[s] <= 0) continue;
-        const int cs = pin(s);
-        uint8_t* row = st.c_mask + static_cast<size_t>(s) * KV;
-        row[c] = row[c] && bit(m.gw + (c / V1) * W, c % V1) &&
-                 !(cs >= 0 && c / V1 == g.kid_sel && c % V1 != cs);
+        const int cs = pin(s), key = c / V1, v = c % V1;
+        uint32_t nib = (m.gw[key * W + (v >> 5)] >> (v & 31)) & 0xfu;
+        if (cs >= 0 && key == g.kid_sel) nib &= (cs >= v && cs < v + 4) ? 1u << (cs - v) : 0u;
+        uint32_t* cell = reinterpret_cast<uint32_t*>(st.c_mask + static_cast<size_t>(s) * KV + c);
+        const uint32_t keep = (nib & 1u) | (nib & 2u) << 7 | (nib & 4u) << 14 | (nib & 8u) << 21;
+        *cell = (__vcmpne4(*cell, 0u) & 0x01010101u) & keep;
       }
       for (int i = tid; i < nc * K; i += kThreads) {
         const int s = cl[i / K], k = i % K;
@@ -1648,23 +1868,31 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const int T = d.T, P = d.P, R = d.R, K = d.K, V1 = d.V1, W = d.W, NRES = d.NRES;
   const int NMAX = d.NMAX, JH = d.JH, NSLOT = V1 + 2, ANY = V1, DEAD = V1 + 1;
-  if (tid == 0)
-    for (int sl = 0; sl < NSLOT; ++sl) m.ddead[sl] = sl == DEAD;
+  for (int sl = tid; sl < NSLOT; sl += kThreads) m.ddead[sl] = sl == DEAD;
   // the templates compatible with the group: type_ok holds only where
   // compat_pg does (B1's and B3's tables and tile_rows fold it in), so the
   // avail cells of the others are false without a read of type_ok
   for (int p = tid; p < P; p += kThreads) m.pcompat[p] = in.compat_pg[trow(d, p, g.ti)];
   __syncthreads();
   while (!overflow) {
-    int d_sel = 0;
-    int32_t bq = 0;
-    bool any = false;
-    for (int sl = 0; sl < NSLOT; ++sl) {
+    // the slot with the largest remaining quota, the first of equals: the
+    // least (inverted order-preserving quota, slot) key, every warp over
+    // every slot (the same answer in each, no barrier)
+    unsigned long long key = ~0ull;
+    for (int sl = lane; sl < NSLOT; sl += 32) {
       const int32_t q = m.ddead[sl] ? -1 : m.qrem[sl];
-      any = any || q > 0;
-      if (sl == 0 || q > bq) { bq = q; d_sel = sl; }
+      const uint32_t inv = ~(static_cast<uint32_t>(q) ^ 0x80000000u);
+      const unsigned long long k2 =
+          (static_cast<unsigned long long>(inv) << 32) | static_cast<uint32_t>(sl);
+      key = k2 < key ? k2 : key;
     }
-    if (!any) break;
+    for (int o = 16; o; o >>= 1) {
+      const unsigned long long u = __shfl_xor_sync(kFull, key, o);
+      key = u < key ? u : key;
+    }
+    const int d_sel = static_cast<int>(key & 0xffffffffu);
+    const int32_t bq = static_cast<int32_t>(~static_cast<uint32_t>(key >> 32) ^ 0x80000000u);
+    if (bq <= 0) break;
     const int32_t rem_d = m.qrem[d_sel];
     const bool pinned = g.dyn && d_sel != ANY;  // a domain-pinned bulk
     int32_t p_min = P;
@@ -1678,8 +1906,9 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
       // the ledger re-gate: what the current ledger still offers, overall
       // or in the selected domain
       if (ok && NRES)
-        ok = pinned ? offer_in(st.atz, st.atc, g.dkey, t, d_sel, V1, W, m.pz + p * W, m.pc + p * W)
-                    : offer(st.atz, t, V1, W, m.pz + p * W, m.pc + p * W);
+        ok = pinned ? offer_in(m.off, st.atz, st.atc, g.dkey, t, d_sel, V1, W, m.pz + p * W,
+                               m.pc + p * W)
+                    : offer(m.off, st.atz, t, V1, W, m.pz + p * W, m.pc + p * W);
       st.avail[i] = ok;
       if (ok && !d.MV) p_min = min(p_min, p);
     }
@@ -1752,7 +1981,8 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
       const size_t rstride = static_cast<size_t>(T) * V1 * W;
       for (long long i = tid; i < static_cast<long long>(NRES) * T; i += kThreads) {
         const int r = static_cast<int>(i / T), t = static_cast<int>(i % T);
-        if (av[t] && st.res_rem[r] > 0 && offer(st.ares_z + r * rstride, t, V1, W, m.pze, m.pce))
+        if (av[t] && st.res_rem[r] > 0 &&
+            offer(m.off, st.ares_z + r * rstride, t, V1, W, m.pze, m.pce))
           m.rflag[r] = 1;
       }
       __syncthreads();
@@ -1802,11 +2032,15 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
     // over the block; claims opened for a dynamic group are domain-pinned
     // from birth
     const int KV = K * V1;
-    for (long long i = tid; i < static_cast<long long>(k) * KV; i += kThreads) {
-      const int c = static_cast<int>(i % KV);
-      st.c_mask[static_cast<size_t>(slot) * KV + i] =
-          bit(m.gw + (c / V1) * W, c % V1) &&
-          !(pinned && c / V1 == g.kid_sel && c % V1 != d_sel);
+    // four values a thread, one 4-byte store (V1 % 4 == 0: a key's row
+    // holds whole groups of four)
+    uint32_t* cm = reinterpret_cast<uint32_t*>(st.c_mask + static_cast<size_t>(slot) * KV);
+    for (long long i = tid; i < static_cast<long long>(k) * KV / 4; i += kThreads) {
+      const int c = static_cast<int>((4 * i) % KV), key = c / V1, v = c % V1;
+      uint32_t nib = (m.gw[key * W + (v >> 5)] >> (v & 31)) & 0xfu;
+      if (pinned && key == g.kid_sel)
+        nib &= (d_sel >= v && d_sel < v + 4) ? 1u << (d_sel - v) : 0u;
+      cm[i] = (nib & 1u) | (nib & 2u) << 7 | (nib & 4u) << 14 | (nib & 8u) << 21;
     }
     for (int i = tid; i < k * K; i += kThreads) {
       st.c_def[slot * K + i] = m.gdef[i % K];

@@ -70,6 +70,7 @@ launch.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -1609,6 +1610,10 @@ def _check_scan_inputs(args, tiled):
     if JH < 1 or JD < 1 or R > 32:
         raise ValueError(
             f"the scan kernels need JH >= 1, JD >= 1 and R <= 32 (JH={JH}, JD={JD}, R={R})")
+    if V1 % 4:
+        # the claims' masks are written four values a store; the encoder's
+        # V1 is a power of two of at least 4 (solver/vocab.py:padded_shape)
+        raise ValueError(f"the scan kernels need V1 % 4 == 0 (V1={V1})")
     dev = g_mask.device
     b, i32, f32 = torch.bool, torch.int32, torch.float32
     for t, name, dt, shape in (
@@ -1663,7 +1668,10 @@ def _check_scan_inputs(args, tiled):
 def _scan_buffers(dims, S, nmax, has_domains, tiled, dev, lead=()):
     """The scan's PackState and per-step scratch, one slice per scenario
     (the kernels initialize all of it; the domain scratch is empty
-    without domains), the word tables every scenario shares, the tiled
+    without domains; the offering words atz / atc one slice that every
+    scenario reads, but for a reservation ledger, whose drains rebuild
+    each scenario's own), the word tables every scenario shares with the
+    offered sets (csrc/pack_common.cuh:offer_words), the tiled
     mode's row scratch (one set of rows per scenario, empty untiled) and
     its 10 outputs with ``lead`` (the fills and unplaced zeroed)."""
     G, T, P, N, R, K, V1, JH, JD = (dims[k] for k in "G T P N R K V1 JH JD".split())
@@ -1675,18 +1683,20 @@ def _scan_buffers(dims, S, nmax, has_domains, tiled, dev, lead=()):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     dom = (lambda n: n) if has_domains else (lambda n: 0)
-    state = tuple(empty((S,) + shape, dt) for shape, dt in (
-        ((N, R), f32), ((nmax, R), f32), ((nmax,), i32),
-        ((nmax, K), b), ((nmax, K), b), ((nmax, K, V1), b),
-        ((nmax, JH), i32), ((N, JH), i32), ((P, R), f32),
-        ((N,), i32), ((nmax,), i32), ((nmax,), i32),
-        ((P, T), b), ((T, V1, W), i32),
+    # the slices of the offering words: one per scenario under a ledger
+    SW = S if NRES else 1
+    state = tuple(empty((SW if words else S,) + shape, dt) for shape, dt, words in (
+        ((N, R), f32, 0), ((nmax, R), f32, 0), ((nmax,), i32, 0),
+        ((nmax, K), b, 0), ((nmax, K), b, 0), ((nmax, K, V1), b, 0),
+        ((nmax, JH), i32, 0), ((N, JH), i32, 0), ((P, R), f32, 0),
+        ((N,), i32, 0), ((nmax,), i32, 0), ((nmax,), i32, 0),
+        ((P, T), b, 0), ((T, V1, W), i32, 1),
         # domains: a_tzc transposed words, toff_pt, per-domain claim
         # capacity, claim domain slot, the ddc carry
-        ((dom(T), V1, W), i32), ((dom(P), T, V1), b),
-        ((dom(nmax), V1), i32), ((dom(nmax),), i32), ((JD, V1), i32),
+        ((dom(T), V1, W), i32, 1), ((dom(P), T, V1), b, 0),
+        ((dom(nmax), V1), i32, 0), ((dom(nmax),), i32, 0), ((JD, V1), i32, 0),
         # the reservation ledger res_rem; per-claim minValues caps
-        ((NRES,), i32), ((nmax if MV else 0,), i32),
+        ((NRES,), i32, 0), ((nmax if MV else 0,), i32, 0),
     ))
     # shared word tables: each type's minValues values per key, each
     # reservation's a_res[r, t, z, :] words, the held availability (a_tzc
@@ -1696,6 +1706,17 @@ def _scan_buffers(dims, S, nmax, has_domains, tiled, dev, lead=()):
         (T, MV, (MW + 31) // 32), (NRES, T, V1, W),
         (T if res else 0, V1, W), (T if res and has_domains else 0, V1, W),
     ))
+    # what starts at zero: the fills and unplaced (an empty group writes
+    # nothing, and a step writes only the claim columns below its n_open)
+    # and the offered zones and capacity types [2, W] (offer_words ORs
+    # into them); one buffer and one fill, each part on a 256-byte boundary
+    zshapes = (lead + (G, N), lead + (G, nmax), lead + (G,), (2, W))
+    sizes = [math.prod(shape) for shape in zshapes]
+    starts = [sum(-(-k // 64) * 64 for k in sizes[:i]) for i in range(len(sizes) + 1)]
+    zeroed = torch.zeros((starts[-1],), dtype=i32, device=dev)
+    exist_fills, claim_fills, unplaced, offered = (
+        zeroed[o:o + k].view(shape) for o, k, shape in zip(starts, sizes, zshapes))
+    words += (offered,)
     # the tiled rows: compat_row [P], type_ok_row and n_fit_row [P, T] and
     # cap_row [N], written and read only by the scenario's own block; then
     # the mask words of types, templates and nodes [., K, W], shared
@@ -1705,32 +1726,32 @@ def _scan_buffers(dims, S, nmax, has_domains, tiled, dev, lead=()):
     )) + tuple(empty((n if tiled else 0, K, W), i32) for n in (T, P, N))
     outs = tuple(empty(lead + shape, dt) for shape, dt in (
         ((nmax,), i32), ((nmax, T), b), ((), i32), ((), b),
-        ((G, N), i32), ((G, nmax), i32), ((G,), i32),
+    )) + (exist_fills, claim_fills, unplaced) + tuple(empty(lead + shape, dt) for shape, dt in (
         ((nmax,), i32), ((nmax,), i32), ((nmax,), b),
     ))
-    # the fills and unplaced start at zero: an empty group writes nothing,
-    # and a step writes only the claim columns below its n_open
-    for zeroed in outs[4:7]:
-        zeroed.zero_()
     return state, words, rows, outs
 
 
 # each scan library's layout at its launches' shapes, by (library,
-# device, S, P, R, K, V1, MV, MW, NRES): (the dynamic shared memory a
+# device, [S,] P, R, K, V1, MV, MW, [NRES,] has_domains, has_contrib):
+# (the dynamic shared memory a
 # block asks for, the spill scratch bytes: 0 where the scan's per-step
 # arrays fit a block's shared memory; csrc/pack_common.cuh:layout_info)
 layouts: Dict[tuple, Tuple[int, int]] = {}
 
 
-def _spill(library: str, entry: str, dev, dims, S: int = None) -> torch.Tensor:
+def _spill(library: str, entry: str, dev, dims, has_domains: bool, has_contrib: bool,
+           S: int = None) -> torch.Tensor:
     """The scratch in device memory that ``library``'s scan takes for its
-    per-step arrays where they pass a block's shared memory (a wide value
-    vocabulary or minValues catalog); empty where they fit."""
+    per-step arrays where they pass a block's shared memory (a domain
+    batch at a vocabulary of a few thousand values, or a wide minValues
+    catalog); empty where they fit."""
     import ctypes
 
     shape = tuple(dims[k] for k in ("P", "R", "K", "V1", "MV", "MW"))
     if S is not None:
         shape = (S,) + shape + (dims["NRES"],)
+    shape += (int(bool(has_domains)), int(bool(has_contrib)))
     key = (library, dev.index) + shape
     got = layouts.get(key)
     if got is None:
@@ -1768,7 +1789,7 @@ def _launch_pack(*args, nmax: int, zone_kid: int, ct_kid: int, has_domains: bool
     dyn = bool(has_domains)
     state, words, rows, outs = _scan_buffers(dims, S, nmax, dyn, tiled, dev,
                                              lead=tuple(args[0].shape[:-1]))
-    spill = _spill(library, "kt_pack_layout", dev, dims, S)
+    spill = _spill(library, "kt_pack_layout", dev, dims, dyn, has_contrib, S)
     fn = _build.library(library).kt_pack
     p = _build.ptr
     cluster = (ctypes.c_int * 3)()
@@ -1847,7 +1868,7 @@ def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int
         ((nmax,), i32), ((nmax, T), i32), ((nmax, T), b), ((dom(nmax), T, V1), b),
         ((nmax,), i32), ((nmax,), i32), ((T,), b), ((dom(T), V1), b), ((N,), i32),
     ))
-    spill = _spill(library, "kt_pack_classed_layout", dev, dims)
+    spill = _spill(library, "kt_pack_classed_layout", dev, dims, dyn, has_contrib)
     fn = _build.library(library).kt_pack_classed
     p = _build.ptr
     cluster = (ctypes.c_int * 3)()
@@ -1862,7 +1883,8 @@ def _launch_pack_classed(*args, nmax: int, lmax: int, zone_kid: int, ct_kid: int
             # inv_idx is not passed: fills go straight to the group rows
             *(p(x) for x in classes[:4]),
             *(p(x) for x in state),
-            *(p(x) for x in words[:1]),
+            # no ledger: the minValues words and the offered sets
+            *(p(x) for x in (words[0], *words[4:])),
             *(p(x) for x in rows),
             *(p(x) for x in head),
             *(p(x) for x in outs),

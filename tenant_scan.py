@@ -129,6 +129,31 @@ partials as a list; the fold's outputs equal its plain version's. A
 checkout whose fold takes the partials as lists (``nfail=()``) is given
 them so, so it runs in a parent checkout too.
 
+Three shapes of B4 at a wide value vocabulary (``--shapes wide_team_in
+wide_listed wide_mv_types``), each built as chip_smoke.py's phase 10 builds
+it (``wide_inputs``, ``device_snapshot``) and timed and split as the solve
+shapes above are:
+
+- ``wide_team_in``: a NodePool listing 1,100 teams with 40 pods, pod i
+  selecting team-i (K 16, V1 2048, T 400, domain-free);
+- ``wide_listed``: a NodePool listing 600 of 800 instance types at
+  mixed_pods(50,000) (V1 1024, T 600);
+- ``wide_mv_types``: minValues 2 on the instance type over 1,100 types at
+  mixed_pods(2,000) (V1 4, MW 2048).
+
+Each also reports the scan's layout (the dynamic shared memory a block
+asks for and the spill scratch, ops/packing.py:layouts) and its device
+time (torch.profiler: the scan kernel's, and every device activity's a
+call: the wrapper's zeroing and word passes too).
+
+``listed_solve``: the solve that chip_smoke.py's phase 10 times at the
+listed pool (600 of 800 types listed, mixed_pods(50,000), V1 1024): the
+p50 of 5 cold card solves on a warm catalog cache and one traced solve's
+span split (partition, encode, transfer, dispatch, guard, decode, other),
+as ``wide_timings`` measures it. Copied into a parent checkout, it times
+that checkout's solver, so the end-to-end change of a kernel is read A,
+B, B, A.
+
 ``wide``: each of chip_smoke.py's wide value vocabularies (ROADMAP §C1)
 through one cold ``TorchSolver(device="cuda").solve``, its claims and
 seconds or what it raised and where (in a parent checkout with this
@@ -155,6 +180,9 @@ import chip_smoke as cs
 REPS = 3
 CONS_PASSES = 6  # the first warms, as chip_smoke.py's phase 4
 SCAN_SHAPES = ("tenant", "mixed", "constrained", "diverse_contrib")
+# the wide shapes: chip_smoke.py's wide_inputs label of each
+WIDE_SHAPES = {"wide_team_in": "team_in", "wide_listed": "listed_types",
+               "wide_mv_types": "mv_types"}
 CLASSED_SHAPES = ("diverse_classed", "diverse_minvalues", "tenant_classed")
 CONS_SHAPES = ("cons", "cons_minvalues")
 FEAS_SHAPES = ("feas_mixed", "feas_diverse", "feas_constrained", "feas_nodes", "feas_cons")
@@ -163,8 +191,8 @@ WIRE_SHAPES = ("wire_mixed", "wire_cons")
 # the fold's shapes: (D, M, P, G, T)
 FOLD_SHAPES = {"fold": (8, 1, 1, 256, 800), "fold_d2m4": (2, 4, 1, 256, 800)}
 RELAX_REPS = 50
-SHAPES = (SCAN_SHAPES + CLASSED_SHAPES + CONS_SHAPES + FEAS_SHAPES + DENSE_SHAPES + WIRE_SHAPES
-          + tuple(FOLD_SHAPES) + ("relax", "wide"))
+SHAPES = (SCAN_SHAPES + tuple(WIDE_SHAPES) + CLASSED_SHAPES + CONS_SHAPES + FEAS_SHAPES
+          + DENSE_SHAPES + WIRE_SHAPES + tuple(FOLD_SHAPES) + ("relax", "wide", "listed_solve"))
 FEAS_REPS = 200
 HOST_REPS = 2000
 FEAS_PHASES = ("stage", "words", "base", "pairs", "compat", "cells")
@@ -175,17 +203,21 @@ CLASSED_PHASES = ("init", "head", "exist", "quota", "tier1", "tier2", "commit", 
 
 
 def shape_inputs(shape):
-    """(pods, n_types, pools) of one shape."""
+    """(pods, n_types, pools, catalog or None) of one shape."""
     from karpenter_tpu_torch.solver import example, workloads
 
+    if shape in WIDE_SHAPES:
+        _, pools, catalog, pods = [w for w in cs.wide_inputs(full=False)
+                                   if w[0] == WIDE_SHAPES[shape]][0]
+        return pods, 0, pools(), catalog()
     if shape == "tenant":
         return (example.tenant_pods(cs.N_DEPLOY, cs.N_TENANTS), cs.TENANT_TYPES,
-                example.tenant_pools(cs.N_TENANTS))
+                example.tenant_pools(cs.N_TENANTS), None)
     if shape == "mixed":
-        return workloads.mixed_pods(cs.N_PODS), cs.N_TYPES, None
+        return workloads.mixed_pods(cs.N_PODS), cs.N_TYPES, None, None
     if shape == "constrained":
-        return workloads.constrained_mix(cs.N_PODS), cs.N_TYPES_C, None
-    return workloads.diverse_reference_mix(cs.N_DIVERSE), cs.N_TYPES, None
+        return workloads.constrained_mix(cs.N_PODS), cs.N_TYPES_C, None, None
+    return workloads.diverse_reference_mix(cs.N_DIVERSE), cs.N_TYPES, None, None
 
 
 def phase_clocks(fn, library, n_phases):
@@ -214,8 +246,8 @@ def run_shape(shape, clocks):
     from karpenter_tpu_torch.solver.driver import SolverConfig, TorchSolver
     from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
 
-    pods, n_types, pools = shape_inputs(shape)
-    solver = cs.build_batch(TorchSolver, SolverConfig, pods, n_types, pools=pools)
+    pods, n_types, pools, catalog = shape_inputs(shape)
+    solver = cs.build_batch(TorchSolver, SolverConfig, pods, n_types, pools=pools, its=catalog)
     args, statics, nmax, _ = cs.device_snapshot(solver, pods)
     tiled = bool(statics["tile_feasibility"])
     if tiled != (shape == "tenant"):
@@ -252,6 +284,14 @@ def run_shape(shape, clocks):
                has_domains=bool(st["has_domains"]), has_contrib=bool(st["has_contrib"]))
     if tiled:
         row["row_build_ms"] = p50["tiled"] - p50["untiled"]
+    if shape in WIDE_SHAPES:
+        x, kw = modes[main]
+        packing.layouts.clear()
+        row["device_ms"] = scan_device_ms(lambda: packing.pack(*x, **st, **kw), reps=5)
+        row["layout"] = {"smem": [v[0] for v in packing.layouts.values()],
+                         "spill": [v[1] for v in packing.layouts.values()]}
+        row["dims"].update(V1=int(a["g_mask"].shape[2]), K=int(a["g_mask"].shape[1]),
+                           MW=int(a["t_mvoh"].shape[-1]) if a["t_mvoh"].dim() == 3 else 0)
     if clocks:
         x, kw = modes[main]
         out, split = phase_clocks(
@@ -279,7 +319,7 @@ def classed_inputs(shape):
     from karpenter_tpu_torch.solver.example import minvalues_nodepool
 
     tenant = shape == "tenant_classed"
-    pods, n_types, pools = shape_inputs("tenant" if tenant else "diverse_contrib")
+    pods, n_types, pools, _ = shape_inputs("tenant" if tenant else "diverse_contrib")
     if shape == "diverse_minvalues":
         pools = [minvalues_nodepool()]
     solver = cs.build_batch(TorchSolver, SolverConfig, pods, n_types, pools=pools, classed=True)
@@ -805,10 +845,33 @@ def run_wide():
     return out
 
 
+def run_listed_solve():
+    """chip_smoke.py phase 10's timing of the listed pool (``wide_timings``):
+    600 of 800 types listed at mixed_pods(50,000), the p50 of 5 cold
+    ``TorchSolver(device="cuda").solve`` calls on a warm catalog cache and
+    one traced solve's span split (ms)."""
+    from karpenter_tpu_torch.solver.driver import EncodeCache, SolverConfig, TorchSolver
+
+    _, pools, catalog, pods = [w for w in cs.wide_inputs(full=False)
+                               if w[0] == "listed_types"][0]
+
+    def solver_for(device, cache=None):
+        return cs.build_batch(TorchSolver, SolverConfig, pods, 0, device=device,
+                              cache=cache or EncodeCache(), pools=pools(), its=catalog())
+
+    return cs.wide_timings(solver_for, pods, EncodeCache)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-clocks", action="store_true", help="times only")
-    ap.add_argument("--shapes", nargs="+", choices=SHAPES, default=list(SHAPES))
+    ap.add_argument("--shapes", nargs="+", choices=SHAPES, default=list(SHAPES),
+                    help="B4's solve shapes (tenant, mixed, constrained, diverse_contrib) and "
+                    "wide vocabularies (wide_team_in: V1 2048, K 16; wide_listed: 600 listed "
+                    "types at mixed 50k, V1 1024; wide_mv_types: minValues over 1,100 types, "
+                    "MW 2048), B5's, B7's, B1/B2's, B3's, B6's, the fold's, B9's, the "
+                    "wide solves, and listed_solve: the listed pool's solve p50 and span "
+                    "split, as chip_smoke.py's phase 10 (default: all)")
     ap.add_argument("--clusters", nargs="+", type=int, default=[], choices=(1, 2, 4),
                     help="B5 also from its build with clusters of at most C blocks (the "
                     "solver's library takes 8)")
@@ -852,6 +915,8 @@ def main():
                 rows[shape] = run_wide()
             elif shape == "relax":
                 rows[shape] = run_relax()
+            elif shape == "listed_solve":
+                rows[shape] = run_listed_solve()
             elif shape in FOLD_SHAPES:
                 rows[shape] = run_fold(shape)
             elif shape in CONS_SHAPES:

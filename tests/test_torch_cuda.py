@@ -1908,10 +1908,10 @@ def test_sparse_tables_wide_vocab(cuda, case, mode):
 
 
 def test_pack_domains_and_classed_wide_vocab(cuda):
-    """B4 over the domain batch at V1 = 2,048 (its per-step arrays spilled
-    to device memory) against pack_reference, and B5 on the same batch
-    against pack_classed_reference: every output, the claims' domains
-    included."""
+    """B4 over the domain batch at V1 = 2,048 (its per-step arrays in shared
+    memory: the claim caps size fewer claims a chunk) against
+    pack_reference, and B5 on the same batch against
+    pack_classed_reference: every output, the claims' domains included."""
     from karpenter_tpu_torch import _build
 
     pods, pools, nodes = _wide_domain_batch()
@@ -1921,9 +1921,9 @@ def test_pack_domains_and_classed_wide_vocab(cuda):
     _build.reset_launches()
     out = _kernels_equal_plain(args, statics, cuda)
     assert _build.launches["pack_domains"] == 1 and int(out[2]) > 0
-    assert _spilled("pack", 2048) > 0
+    assert _spilled("pack", 2048) == 0
     _classed_equal_plain(args, statics, classes, cuda)
-    assert _spilled("pack_classed", 2048) > 0
+    assert _spilled("pack_classed", 2048) == 0
 
 
 def test_pack_minvalues_wide_catalog(cuda):
@@ -1939,6 +1939,112 @@ def test_pack_minvalues_wide_catalog(cuda):
     _build.reset_launches()
     out = _kernels_equal_plain(args, statics, cuda)
     assert _build.launches["pack_minvalues"] == 1 and int(out[2]) > 0
+    _classed_equal_plain(args, statics, classes, cuda)
+
+
+def _wide_ledger_batch(capacity=1):
+    """The wide domain batch (V1 2048) over a reserved catalog: a
+    reservation of ``capacity`` in test-zone-a on every fourth type, so
+    the first bulk that holds one drains it and the scan rebuilds its
+    offering words mid-scan."""
+    pods, pools, nodes = _wide_domain_batch()
+    its = _reserved(20, 4, capacity)
+    return _scan_snapshot(pods, pools, its, nodes=nodes, reserved_capacity_enabled=True)
+
+
+def _high_zone_catalog(n_zones=1_100):
+    """A batch whose zone key carries ``n_zones`` values (V1 2048), with the
+    launch's offered zones at both ends of the vocabulary: pods requiring
+    one of zone-0000 .. zone-<n_zones - 1> (the In list registers them in
+    order, first), pods pinned to zone-1090 (a zone id near the top),
+    zonal self-spread pods and a pod excluded from every named zone, over
+    corpus.generate(20) where types 3 and 11 also offer zone-1090; then
+    a_tzc edited so that types 5 and 17 offer the overflow slot V1 - 1 on
+    demand (the encoder interns every offered zone, so no catalog reaches
+    it, but the scans take any a_tzc)."""
+    from karpenter_tpu_torch.api.objects import NodeAffinity, NodeSelectorRequirement
+    from karpenter_tpu_torch.solver.workloads import _pod
+
+    zones = [f"zone-{i:04d}" for i in range(n_zones)]
+
+    def zone_req(op, values):
+        return NodeAffinity(required=[(NodeSelectorRequirement(labels.TOPOLOGY_ZONE, op,
+                                                               tuple(values)),)])
+
+    its = corpus.generate(20)
+    wide = corpus.generate(20, zones=("test-zone-a", "test-zone-b", "test-zone-c", "zone-1090"))
+    its[3], its[11] = wide[3], wide[11]
+    sel = LabelSelector(match_labels={"app": "zs"})
+    pods = [_pod(f"any-{i}", 1500, 512, node_affinity=zone_req("In", zones)) for i in range(4)]
+    pods += [_pod(f"zs-{i}", 500, 512, labels={"app": "zs"},
+                  topology_spread_constraints=[TopologySpreadConstraint(
+                      max_skew=1, topology_key=labels.TOPOLOGY_ZONE,
+                      when_unsatisfiable="DoNotSchedule", label_selector=sel)])
+             for i in range(6)]
+    pods += [_pod(f"high-{i}", 250, 1024, node_affinity=zone_req("In", ("zone-1090",)))
+             for i in range(3)]
+    pods.append(_pod("unlisted", 250, 1024, node_affinity=zone_req(
+        "NotIn", ("test-zone-a", "test-zone-b", "test-zone-c", *zones))))
+    args, statics, classes = _scan_snapshot(pods, [example_nodepool()], its)
+    i = enc.SOLVE_ARG_NAMES.index("a_tzc")
+    a_tzc = np.array(args[i])
+    for t in (5, 17):  # the first capacity type the type offers at all
+        a_tzc[t, -1, np.nonzero(a_tzc[t].any(axis=0))[0][0]] = True
+    args = list(args)
+    args[i] = a_tzc
+    return args, statics, classes
+
+
+def test_pack_ledger_drains_at_v1_2048(cuda):
+    """B4 at V1 2048 with domains and a reservation ledger whose
+    reservations (capacity 1) drain mid-scan, so the scan rebuilds its
+    offering words from the reservations' word tables: every output
+    against pack_reference; no per-step array spilled."""
+    from karpenter_tpu_torch import _build
+
+    args, statics, _ = _wide_ledger_batch()
+    a = dict(zip(enc.SOLVE_ARG_NAMES, args))
+    assert np.asarray(a["g_mask"]).shape[2] == 2048 and statics["has_domains"]
+    assert np.asarray(a["res_cap0"]).shape[0] > 0 and (np.asarray(a["res_cap0"]) == 1).all()
+    _build.reset_launches()
+    out = _kernels_equal_plain(args, statics, cuda)
+    assert _build.launches["pack_resv"] == 1 and _build.launches["pack_domains"] == 1
+    # a claim holds a reservation (c_resv): its bulk drained it (capacity 1)
+    assert out[9].any() and int(out[2]) > 0
+    assert _spilled("pack", 2048) == 0
+
+
+@pytest.mark.parametrize("ledger", [False, True], ids=["shared-words", "per-scenario-words"])
+def test_scenario_grid_wide_vocab(cuda, ledger):
+    """B7's grid over 6 scenarios (4 real) at V1 2048 with domains: without
+    a ledger every scenario reads the launch's one set of offering words,
+    with one (capacity 1, drained mid-scan) each scenario rebuilds its own;
+    every scenario against pack_reference on its slice."""
+    if ledger:
+        args, statics, _ = _wide_ledger_batch()
+    else:
+        pods, pools, nodes = _wide_domain_batch()
+        args, statics, _ = _scan_snapshot(pods, pools, corpus.generate(20), nodes=nodes)
+    assert np.asarray(args[enc.SOLVE_ARG_NAMES.index("g_mask")]).shape[2] == 2048
+    out = _scenarios_equal_plain(_scenario_args(args, 6, 4, seed=20 + ledger), statics, cuda)
+    assert int(out[2].max()) > 0 and (out[2][4:] == 0).all()
+
+
+def test_pack_offers_top_zone_and_overflow(cuda):
+    """B4 and B5 over a zone key of 1,100 values (V1 2048) whose offerings
+    name zone-1090 (a zone id near the top) and the overflow slot V1 - 1:
+    the offered sets reach both ends of the vocabulary's words, and the
+    pods pinned to zone-1090 land there, exact against the plain
+    versions."""
+    args, statics, classes = _high_zone_catalog()
+    a = dict(zip(enc.SOLVE_ARG_NAMES, (np.asarray(x) for x in args)))
+    V1 = a["g_mask"].shape[2]
+    offered = np.nonzero(a["a_tzc"].any(axis=(0, 2)))[0]
+    assert V1 == 2048 and statics["has_domains"]
+    assert offered.max() == V1 - 1 and (offered >= 1024).sum() >= 2, offered
+    out = _kernels_equal_plain(args, statics, cuda)
+    # every pod placed but the one no named zone admits, a claim in zone-1090
+    assert int(out[6].sum()) == 1 and (out[7][: int(out[2])] >= 1024).any()
     _classed_equal_plain(args, statics, classes, cuda)
 
 

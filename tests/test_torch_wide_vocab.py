@@ -267,3 +267,205 @@ def test_solver_instance_type_minvalues_1100_types():
             assert _snapshot(s, pods).t_mvoh.shape[-1] == 2048
     assert got["karpenter_tpu_torch"] == got["karpenter_tpu"]
     assert got["karpenter_tpu"][0] and not got["karpenter_tpu"][2]
+
+
+# -- the scans against JAX pack on the inputs of B4's Hopper redesign -------------
+#
+# csrc/pack_common.cuh builds the offering words across the card (one set a
+# launch without a ledger, one a scenario with one, rebuilt from the
+# reservations' words as they drain), walks only the zones and capacity
+# types some offering names, and sizes a domain batch's claim-caps chunk to
+# fit shared memory. tests/test_torch_cuda.py holds the kernels to
+# pack_reference and pack_scenarios_reference on these inputs; here those
+# plain versions are held to JAX pack on them. Tolerance: exact equality.
+
+
+def _wide_ledger_args():
+    """The domain batch at V1 2,048 (JAX objects) over a reserved catalog:
+    capacity 1 in test-zone-a on every fourth of 20 types, so the first
+    bulk that holds a reservation drains it mid-scan."""
+    from test_torch_minvalues import snapshot
+    from test_torch_reservations import reserved_types
+
+    pkg = "karpenter_tpu"
+    pools = [_team_pool(pkg, [f"team-{i}" for i in range(N_TEAMS)])]
+    return snapshot(_domain_batch(pkg), pools, its=reserved_types(pkg, 20, 4, 1),
+                    state_nodes=_nodes(pkg), reserved_capacity_enabled=True)
+
+
+def _high_zone_args(n_zones=N_TEAMS):
+    """A zone key of ``n_zones`` values (V1 2,048; JAX objects): pods
+    requiring one of zone-0000 .. (registered first, in order), pods pinned
+    to zone-1090, zonal self-spread pods and one pod excluded from every
+    named zone, over corpus.generate(20) with types 3 and 11 also offering
+    zone-1090 (a zone id near the top); then a_tzc with types 5 and 17
+    offering the overflow slot V1 - 1 (tests/test_torch_cuda.py's
+    _high_zone_catalog, in the JAX package's objects)."""
+    from test_torch_minvalues import snapshot
+
+    pkg = "karpenter_tpu"
+    objs, labels = _mod(pkg, "api.objects"), _mod(pkg, "api.labels")
+    corpus, wl = _mod(pkg, "cloudprovider.corpus"), _mod(pkg, "solver.workloads")
+    zones = [f"zone-{i:04d}" for i in range(n_zones)]
+
+    def zone_req(op, values):
+        return objs.NodeAffinity(required=[(
+            objs.NodeSelectorRequirement(labels.TOPOLOGY_ZONE, op, tuple(values)),)])
+
+    its = corpus.generate(20)
+    wide = corpus.generate(20, zones=(*ZONES, "zone-1090"))
+    its[3], its[11] = wide[3], wide[11]
+    sel = objs.LabelSelector(match_labels={"app": "zs"})
+    pods = [wl._pod(f"any-{i}", 1500, 512, node_affinity=zone_req("In", zones))
+            for i in range(4)]
+    pods += [wl._pod(f"zs-{i}", 500, 512, labels={"app": "zs"},
+                     topology_spread_constraints=[objs.TopologySpreadConstraint(
+                         max_skew=1, topology_key=labels.TOPOLOGY_ZONE,
+                         when_unsatisfiable="DoNotSchedule", label_selector=sel)])
+             for i in range(6)]
+    pods += [wl._pod(f"high-{i}", 250, 1024, node_affinity=zone_req("In", ("zone-1090",)))
+             for i in range(3)]
+    pods.append(wl._pod("unlisted", 250, 1024,
+                        node_affinity=zone_req("NotIn", (*ZONES, *zones))))
+    pool = objs.NodePool(metadata=objs.ObjectMeta(name="default"), spec=objs.NodePoolSpec())
+    a, statics, classes = snapshot(pods, [pool], its=its)
+    a = dict(a, a_tzc=np.array(a["a_tzc"]))
+    for t in (5, 17):  # the first capacity type the type offers at all
+        a["a_tzc"][t, -1, np.nonzero(a["a_tzc"][t].any(axis=0))[0][0]] = True
+    return a, statics, classes
+
+
+def test_pack_reference_ledger_drains_at_v1_2048():
+    """pack_reference against JAX pack at V1 2,048 with domains and a
+    reservation ledger whose reservations (capacity 1) drain mid-scan: the
+    10 outputs, c_resv among them."""
+    from test_torch_classed import _both_scans
+    from test_torch_minvalues import assert_pack_equal
+
+    a, statics, _ = _wide_ledger_args()
+    assert a["g_mask"].shape[2] == 2048 and statics["has_domains"]
+    assert a["res_cap0"].shape[0] > 0 and (a["res_cap0"] == 1).all()
+    j, t = _both_scans(a, statics, nmax=64)
+    assert_pack_equal(j, t)
+    assert t[9].any() and int(t[2]) > 0
+
+
+def test_pack_reference_top_zone_and_overflow():
+    """pack_reference against JAX pack where the offerings name zone-1090
+    (id near the top of 2,048) and the overflow slot V1 - 1: the 10
+    outputs; a claim lands in zone-1090."""
+    from test_torch_classed import _both_scans
+    from test_torch_minvalues import assert_pack_equal
+
+    a, statics, _ = _high_zone_args()
+    V1 = a["g_mask"].shape[2]
+    offered = np.nonzero(a["a_tzc"].any(axis=(0, 2)))[0]
+    assert V1 == 2048 and statics["has_domains"]
+    assert offered.max() == V1 - 1 and (offered >= 1024).sum() >= 2, offered
+    j, t = _both_scans(a, statics, nmax=64)
+    assert_pack_equal(j, t)
+    assert (t[7][: int(t[2])] >= 1024).any()
+
+
+@pytest.mark.parametrize("ledger", [False, True], ids=["shared-words", "per-scenario-words"])
+def test_pack_scenarios_reference_at_v1_2048(ledger):
+    """pack_scenarios_reference over 4 scenarios (3 real, group counts
+    seeded with numpy) at V1 2,048 with domains, with and without a
+    draining ledger, against JAX pack on each scenario's slice: every
+    scenario replays the ledger from res_cap0."""
+    import jax
+    from karpenter_tpu.ops import packing as jpack
+    from karpenter_tpu_torch.ops import packing as tp
+    from karpenter_tpu_torch.ops.solve import pack_args
+    from test_torch_classed import JAX_PACK_NAMES, TABLE_NAMES, _tables
+    from test_torch_minvalues import assert_pack_equal, snapshot
+
+    if ledger:
+        a, statics, _ = _wide_ledger_args()
+    else:
+        pkg = "karpenter_tpu"
+        pools = [_team_pool(pkg, [f"team-{i}" for i in range(N_TEAMS)])]
+        a, statics, _ = snapshot(_domain_batch(pkg), pools,
+                                 its=_mod(pkg, "cloudprovider.corpus").generate(20),
+                                 state_nodes=_nodes(pkg))
+    assert a["g_mask"].shape[2] == 2048 and statics["has_domains"]
+    a = dict(a, **dict(zip(TABLE_NAMES, _tables(a, statics))))
+    S, real = 4, 3
+    rng = np.random.default_rng(20 + ledger)
+    g_count = np.zeros((S,) + a["g_count"].shape, np.int32)
+    for si in range(real):
+        g_count[si] = rng.integers(0, a["g_count"] + 1)
+    st = dict(nmax=64, zone_kid=statics["zone_kid"], ct_kid=statics["ct_kid"],
+              has_domains=statics["has_domains"], has_contrib=statics["has_contrib"],
+              wf_iters=statics["wf_iters"])
+    ta = {k: torch.from_numpy(np.array(v)) for k, v in a.items()}
+    ta["g_count"] = torch.from_numpy(g_count)
+    ta["cap_ng"] = ta["cap_ng"].expand(S, *ta["cap_ng"].shape).contiguous()
+    port = tp.pack_scenarios_reference(*pack_args(ta, *(ta[n] for n in TABLE_NAMES)), **st)
+    for si in range(S):
+        j = jax.device_get(jpack.pack(*(g_count[si] if n == "g_count" else a[n]
+                                        for n in JAX_PACK_NAMES), **st))
+        assert_pack_equal(j, [x[si] for x in port])
+    assert int(port[2][:real].max()) > 0 and (port[2][real:] == 0).all()
+    if ledger:
+        assert port[9][:real].any()
+
+
+def test_scan_kernels_refuse_v1_not_a_multiple_of_4():
+    """The scan kernels' input check (ops/packing.py:_check_scan_inputs)
+    takes the encoder's V1 (a power of two of at least 4) and refuses one
+    that is not a multiple of 4 before any launch: the kernels write the
+    claims' masks four values a store."""
+    from karpenter_tpu_torch.ops import packing as tp
+    from karpenter_tpu_torch.ops.solve import pack_args
+    from test_torch_classed import TABLE_NAMES, _tables
+    from test_torch_minvalues import snapshot
+
+    pkg = "karpenter_tpu"
+    pool = _mod(pkg, "api.objects").NodePool(
+        metadata=_mod(pkg, "api.objects").ObjectMeta(name="default"),
+        spec=_mod(pkg, "api.objects").NodePoolSpec())
+    a, statics, _ = snapshot(_mod(pkg, "solver.workloads").mixed_pods(20), [pool])
+    a = dict(a, **dict(zip(TABLE_NAMES, _tables(a, statics))))
+    ta = {k: torch.from_numpy(np.array(v)) for k, v in a.items()}
+    args = list(pack_args(ta, *(ta[n] for n in TABLE_NAMES)))
+    g_mask = args[4]
+    assert g_mask.shape[2] == 4
+    # V1 4 passes the check and reaches the device's (CPU tensors launch nothing)
+    with pytest.raises(ValueError, match="kernels take CUDA tensors"):
+        tp._check_scan_inputs(args, False)
+    for V1 in (3, 6, 10):
+        args[4] = torch.ones(g_mask.shape[:2] + (V1,), dtype=torch.bool)
+        with pytest.raises(ValueError, match=r"V1 % 4 == 0"):
+            tp._check_scan_inputs(args, False)
+
+
+@pytest.mark.parametrize("lead", [(), (4,)], ids=["one", "scenarios"])
+def test_scan_buffers_zero_fills_and_offered_sets(lead):
+    """The scan's buffers (ops/packing.py:_scan_buffers): the fills,
+    unplaced and the offered sets [2, W] that offer_words ORs into start
+    at zero, share one buffer on 256-byte boundaries without overlapping,
+    and have their shapes; the offering words are one slice without a
+    ledger and one a scenario with one."""
+    from karpenter_tpu_torch.ops import packing as tp
+
+    S = lead[0] if lead else 1
+    for NRES in (0, 2):
+        dims = dict(G=8, T=5, P=2, N=3, R=4, K=2, V1=2048, JH=1, JD=1, MV=0, MW=0, NRES=NRES,
+                    O=2)
+        state, words, _, outs = tp._scan_buffers(dims, S, 16, True, False, "cpu", lead=lead)
+        W = 2048 // 32
+        parts = outs[4:7] + (words[-1],)
+        want = (lead + (8, 3), lead + (8, 16), lead + (8,), (2, W))
+        assert [tuple(x.shape) for x in parts] == list(want)
+        base = parts[0].untyped_storage().data_ptr()
+        spans = []
+        for x in parts:
+            assert x.untyped_storage().data_ptr() == base and x.is_contiguous()
+            assert x.dtype == torch.int32 and not x.any()
+            off = x.data_ptr() - base
+            assert off % 256 == 0
+            spans.append((off, off + 4 * x.numel()))
+        spans.sort()
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+        assert state[13].shape == ((S if NRES else 1), 5, 2048, W)
