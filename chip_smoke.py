@@ -216,9 +216,11 @@ cells: B4 with floors (minvalues-50k), B4 with the ledger (reserved-50k),
 B5 with floors (diverse-minvalues) and B7 with floors (the consolidation
 chunk over the minValues pool); B3's fresh entry also at the relax
 path's shape (the identical batch's run heads, 1 x 400); B1 and B4 at
-phase 10's team-In input (K 16, V1 2048: B1's words built straight from
-device memory; B4's row ``pack_wide``) and B4 at its listed-types input
-(600 of 800 types at mixed 50k, V1 1024; ``pack_listed``), each B4 row
+phase 10's team-In input (K 16, V1 2048: B1's direct mode, a word pass
+across the card then the tables; B4's row ``pack_wide``), B4 at its
+listed-types input (600 of 800 types at mixed 50k, V1 1024;
+``pack_listed``) and at its minValues input (minValues 2 on the instance
+type over 1,100 types, MW 2048; ``pack_mv_wide``), each B4 row
 with the shared memory and spill scratch the scan took; and the
 tiled mode forced at the ops
 level (tiled_rows): B4 tiled on B2's snapshot, constrained 50k x 800,
@@ -229,9 +231,10 @@ on the card.
 
 Then one JSON line of per-kernel numbers (B1, B1 at diverse-ref, at
 constrained and at V1 2048, B2, B2 at the consolidation chunk, B3 fresh
-(also at the relax shape) and existing, B4 at V1 2048,
-B4, B4 over domains, B4 with contributor counting, B4 with minValues
-floors, B4 with the reservation ledger, B5, B5 with floors, B6, B7, B7
+(also at the relax shape) and existing, B4 at V1 2048, at the listed
+types and at MW 2048, B4, B4 over domains, B4 with contributor counting,
+B4 with minValues floors, B4 with the reservation ledger, B5, B5 with
+floors, B6, B7, B7
 with floors, B8, B9, and B4, B5 and B7 in the tiled mode, and phase 16's
 B1 and B2 partial modes and the mesh fold; every row
 carries its device-only time, torch.profiler over repeated calls of the
@@ -293,7 +296,7 @@ N_DEPLOY_PLAIN = 600
 # of 800 types at mixed 50k (V1 1024)
 TEAM_KEY = "example.com/team"
 N_TEAMS, N_TEAM_IN_PODS = 1_100, 40
-MV_TYPES, MV_PODS = 1_100, 2_000
+MV_TYPES, MV_PODS, MV_TYPES_MW = 1_100, 2_000, 2048
 N_LISTED, LISTED_TYPES = 600, 800
 # ... whose 50k batch is held to device="cpu" at this depth (the CPU's
 # plain scans of the 50k batch at V1 1024 take minutes); the per-team
@@ -362,6 +365,7 @@ REPLACES = {
     "fresh_feasibility_wide": "karpenter_tpu/ops/feasibility.py:141",
     "pack_wide": "karpenter_tpu/ops/packing.py:277",
     "pack_listed": "karpenter_tpu/ops/packing.py:277",
+    "pack_mv_wide": "karpenter_tpu/ops/packing.py:153",
     "relax_fill": "karpenter_tpu/ops/relax.py:244",
     "pack_minvalues": "karpenter_tpu/ops/packing.py:601",
     "pack_resv": "karpenter_tpu/ops/packing.py:485",
@@ -400,9 +404,11 @@ SHAPE_ROWS = {
     # value vocabularies of phase 10
     "dense_fresh_relax": ("dense_fresh", ("config0", "ident", "ident_ticks", "zonal",
                                           "zonal_reject")),
-    "fresh_feasibility_wide": ("fresh_feasibility", ("team_exists", "team_in", "mv_types")),
-    "pack_wide": ("pack", ("team_exists", "team_in", "mv_types")),
+    "fresh_feasibility_wide": ("fresh_feasibility", ("team_exists", "team_in")),
+    "pack_wide": ("pack", ("team_exists", "team_in")),
     "pack_listed": ("pack", ("listed_types",)),
+    # B4's minValues phases at an instance-type floor over 1,100 types
+    "pack_mv_wide": ("pack", ("mv_types",)),
 }
 # the one PyTorch call that computes a kernel's function, timed beside it
 LIBRARY = {"apply_rows": "Tensor.index_copy", "apply_rows_inplace": "Tensor.index_copy_",
@@ -654,11 +660,11 @@ def b2_reads(a):
     return reads
 
 
-def one_kernel(name, per_call):
-    """Raise unless torch.profiler saw one device activity a call of the
-    wrapper (the kernel: no memset, no copy beside it)."""
-    if per_call is not None and list(per_call.values()) != [1]:
-        raise SmokeFailure(f"{name}: {per_call} on the device per call, want its one kernel")
+def one_kernel(name, per_call, n=1):
+    """Raise unless torch.profiler saw ``n`` device activities a call of
+    the wrapper, one each (its kernels: no memset, no copy beside them)."""
+    if per_call is not None and list(per_call.values()) != [1] * n:
+        raise SmokeFailure(f"{name}: {per_call} on the device per call, want its {n} kernel(s)")
 
 
 def shuffled_index(a, seed):
@@ -682,11 +688,12 @@ def shuffled_index(a, seed):
     return out
 
 
-def b1_row(a, zk, ck, label, reps=50):
+def b1_row(a, zk, ck, label, reps=50, kernels=1):
     """B1's row at solve args ``a`` (by name, on the card): the kernel
     against its plain version, also over shuffled_index(a) (max |diff| over
-    both), wrapper ms (CUDA events), device ms (one kernel a call) and the
-    bound from b1_reads and b1_ops."""
+    both), wrapper ms (CUDA events), device ms (``kernels`` a call: the
+    direct mode's word pass and the tables) and the bound from b1_reads and
+    b1_ops."""
     import torch
 
     from karpenter_tpu_torch.ops import feasibility as feas
@@ -714,7 +721,7 @@ def b1_row(a, zk, ck, label, reps=50):
                f"({int((a['gk_w'] != 0).sum())} live) LZ={a['goff_idx'].shape[0]}; "
                "== plain over a shuffled index"),
     ), b1, 100)
-    one_kernel(f"B1 {label}", row["device_per_call"])
+    one_kernel(f"B1 {label}", row["device_per_call"], kernels)
     return row
 
 
@@ -980,17 +987,19 @@ def phase_kernels(torch_solver_cls, config_cls, encode_cache_cls):
 def wide_rows(torch_solver_cls, config_cls):
     """Phase 2's rows at a wide value vocabulary: at phase 10's team-In
     input (40 pods over a pool listing 1,100 teams, K 16, V1 2048), B1 (its
-    mask words built straight from device memory) and B4; at its
-    listed-types input (a pool listing 600 of 800 types at mixed 50k, V1
-    1024, T 600), B4 (``pack_listed``). Each against its plain version,
-    B4's rows with the shared memory and spill scratch the scan took.
-    Tolerance: exact equality."""
+    direct mode: a word pass across the card, then the tables) and B4; at
+    its listed-types input (a pool listing 600 of 800 types at mixed 50k,
+    V1 1024, T 600), B4 (``pack_listed``); at its minValues input (minValues
+    2 on the instance type over 1,100 types, MW 2048), B4 (``pack_mv_wide``).
+    Each against its plain version, B4's rows with the shared memory and
+    spill scratch the scan took. Tolerance: exact equality."""
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.solver.encode import SOLVE_ARG_NAMES
 
     rows = {}
     for label, want, row in (("team_in", (16, 2048), "pack_wide"),
-                             ("listed_types", (16, 1024), "pack_listed")):
+                             ("listed_types", (16, 1024), "pack_listed"),
+                             ("mv_types", MV_TYPES_MW, "pack_mv_wide")):
         _, pools, catalog, pods = [w for w in wide_inputs(full=False) if w[0] == label][0]
         solver = build_batch(torch_solver_cls, config_cls, pods, 0, pools=pools(),
                              its=catalog())
@@ -1000,14 +1009,17 @@ def wide_rows(torch_solver_cls, config_cls):
         P, G, T = a["p_titype_ok"].shape[0], a["g_count"].shape[0], a["t_alloc"].shape[0]
         K, V1 = a["g_mask"].shape[1:]
         R, O = a["t_alloc"].shape[1], a["o_avail"].shape[1]
-        if (K, V1) != want:
-            raise SmokeFailure(f"wide rows, {label}: K, V1 = {K}, {V1} (want {want})")
+        got = a["t_mvoh"].shape[-1] if label == "mv_types" else (K, V1)
+        if got != want:
+            raise SmokeFailure(f"wide rows, {label}: {got} (want {want}: K, V1 or MW)")
         if label == "team_in":
-            lay = feas.fresh_layout(P, G, T, K, V1, R, O)
+            lay = feas.fresh_layout(P, G, T, K, V1, R, O, a["gk_g"].shape[0])
             rows["fresh_feasibility_wide"] = b1_row(
                 a, zk, ck, f"team-in V1 2048, {lay['mode']}, tiles {lay['TT']} x {lay['TG']}, "
-                f"pair chunk {lay['PC']}, {lay['smem']} B")
-        rows[row] = wide_pack_row(a, statics, nmax, f"{label} V1 {V1}")
+                f"pair chunk {lay['PC']}, {lay['smem']} B, {lay['words']} words",
+                kernels=2 if lay["mode"] == "direct" else 1)
+        rows[row] = wide_pack_row(a, statics, nmax, f"{label} V1 {V1}"
+                                  + (f" MW {want}" if label == "mv_types" else ""))
     return rows
 
 
@@ -1025,6 +1037,7 @@ def wide_pack_row(a, statics, nmax, label):
     zk, ck = statics["zone_kid"], statics["ct_kid"]
     G, T = a["g_count"].shape[0], a["t_alloc"].shape[0]
     V1, R = a["g_mask"].shape[2], a["t_alloc"].shape[1]
+    P, MV = a["p_mvmin"].shape
     b1 = feas.fresh_claim_feasibility_sparse(*(a[n] for n in B1_NAMES), zone_kid=zk, ct_kid=ck)
     cap_ng = torch.zeros((0, G), dtype=torch.int32, device="cuda")
     pack_in = solve_mod.pack_args(a, *b1, cap_ng)
@@ -1044,7 +1057,7 @@ def wide_pack_row(a, statics, nmax, label):
         ms=cuda_ms(lambda: packing_mod.pack(*pack_in, **st), 10),
         plain_ms=ref_ms,
         bound=bound_ms(nbytes(pack_in) + nbytes(b4),
-                       pack_ops(a["g_count"], b4[5], b4[2], T, R, V1,
+                       pack_ops(a["g_count"], b4[5], b4[2], T, R, V1, P=P, mv=MV,
                                 offered=offered_words(a))),
         shape=(f"{label}: G={G} T={T} NMAX={st['nmax']} claims={int(b4[2])}; "
                f"{smem} B shared, {spill} B spilled"),
@@ -3305,7 +3318,8 @@ def wide_card_solve(label, solver_for, pods):
     MW = snap.t_mvoh.shape[-1] if snap.p_mvmin.any() else 0  # the floors' catalog width
     P, T = len(snap.templates), len(snap.instance_types)
     R, O = snap.g_req.shape[1], snap.o_avail.shape[1]
-    lay = dict(b1=feas.fresh_layout(P, G, T, K, V1, R, O),
+    L = snap.padded(G, 0).gk_g.shape[0]  # the live-pair index's length
+    lay = dict(b1=feas.fresh_layout(P, G, T, K, V1, R, O, L),
                scans={k[0]: dict(smem=v[0], spill=v[1]) for k, v in packing_mod.layouts.items()})
     if counts["dense_fresh"]:
         lay["b3"] = feas.dense_layout(1, -1, 1, T, K, V1, R, O)
@@ -5659,7 +5673,7 @@ def main():
                 "peak_rise", "out_of_place_peak_rise", "buffer_bytes")},
                 tenant_tick={k: v for k, v in queue["tenant_row"].items() if k != "bound"},
                 staging_peaks=queue["ticks"])
-        if name in ("pack_wide", "pack_listed"):  # the scan's layout at the wide shape
+        if name in ("pack_wide", "pack_listed", "pack_mv_wide"):  # the scan's layout there
             extra.update({k: row[k] for k in ("shape", "smem_bytes", "spill_bytes")})
         if name == "pack_tiled":  # the scan alone at the tenant cell's full depth
             extra["tenant_cell_ms"] = ten["scan_tiled_ms"]

@@ -74,6 +74,15 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
                : "memory");
 }
 
+// 16-byte asynchronous copy (cp.async.cg: through L2 only), both
+// addresses 16-byte aligned; as cp_async4 otherwise
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }

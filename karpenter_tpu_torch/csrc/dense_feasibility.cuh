@@ -49,6 +49,26 @@ __device__ __forceinline__ uint32_t row_word(const uint8_t* row, int V1, int w, 
   return x4 ? mask_word_x4(row, V1, w) : mask_word(row, V1, w);
 }
 
+// 16 bytes of a byte mask as 16 bits (bit i: byte i nonzero)
+__device__ __forceinline__ uint32_t bits16(uint4 q) {
+  auto nib = [](uint32_t x) { return ((__vcmpne4(x, 0u) & 0x01010101u) * 0x01020408u) >> 24; };
+  return nib(q.x) | nib(q.y) << 4 | nib(q.z) << 8 | nib(q.w) << 12;
+}
+
+// word w of a [V1] byte mask row (mask_word), as two 16-byte loads
+// where ``x16`` says it may: the row 16-byte aligned and V1 % 32 == 0
+__device__ __forceinline__ uint32_t row_word16(const uint8_t* row, int V1, int w, bool x16) {
+  if (!x16) return mask_word(row, V1, w);
+  const uint4* p = reinterpret_cast<const uint4*>(row + 32 * static_cast<size_t>(w));
+  const uint4 a = p[0], b = p[1];
+  return bits16(a) | bits16(b) << 16;
+}
+
+// may rows of ``base`` [., V1] take row_word16's 16-byte loads
+__device__ __forceinline__ bool rows_x16(const void* base, int V1) {
+  return (V1 & 31) == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
+}
+
 // The W words of one [V1] byte mask row read straight from memory, for a
 // caller with no room to keep them: word w is row_word(row, V1, w, x4),
 // and it indexes, offsets and tests bits like a word array.

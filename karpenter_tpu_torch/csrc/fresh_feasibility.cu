@@ -55,11 +55,24 @@
 // Wide value vocabularies: the staged byte rows grow with V1 (a block
 // stages [TT, K, V1] + [K, V1] + 2 [TG, V1] bytes), so where they do not
 // fit the card's 227 KB with the types narrowed to 4 (at K = 16 from V1 =
-// 1024 with 64-group tiles, V1 = 2048 at any tile) the block stages no
-// mask bytes and builds its words straight from device memory (Mode::
-// kDirect): shared memory then grows with V1 only through the bit words,
-// [TT, K, W] + [K, W] + 2 [TG, W] + [PC, W] (W = V1 / 32), and the types,
-// then the groups, then the gathered-pair chunk PC narrow until they fit.
+// 1024 with 64-group tiles, V1 = 2048 at any tile) the block stages bit
+// words in place of mask bytes (Mode::kDirect). One grid-wide pass before
+// the tables (fresh_words) packs every row the tables read into words
+// once a launch, across the card: the types' and templates' [K, V1]
+// masks, each group's zone and capacity-type rows and the live pairs'
+// group rows, a thread a word from two 16-byte loads. At phase 10's
+// team-In input (K 16, V1 2048, T 400, G 64) it reads t_mask's 13.1 MB
+// once, where blocks that each built their own words from the byte rows
+// read each type's rows once per group tile (~150 MB). The tables kernel
+// then stages its tile's words with 16-byte cp.async like any other row
+// and walks them a quad of words at a time, each lane of a warp from
+// another quad (quads_meet: its rows lie a multiple of the 32 banks
+// apart); a gathered pair's words arrive by one thread's cp.async, all in
+// flight at once. Shared memory grows with V1 only through the bit
+// words, [TT, K, W] + [K, W] + 2 [TG, W] + [PC, W] (W = V1 / 32), the
+// pair chunk PC only as wide as the index, the types narrowed to 16 past
+// 48 KB, and then the types, the groups and the chunk narrow until they
+// fit.
 // Past the widest V1 at which even one type, one group and one pair fit
 // (at K = 16: V1 = 32,768 fits, V1 = 65,536 does not), the block keeps
 // no words at all and reads every word from the byte rows in device memory
@@ -100,8 +113,8 @@ enum Phase { kPhStage, kPhWords, kPhBase, kPhPairs, kPhCompat, kPhCells, kPhases
 static_assert(kPhases <= kMaxPhases, "one clock slot per phase");
 
 // How a block holds its mask rows: staged as bytes and turned into bit
-// words in shared memory (kStaged); bit words built straight from device
-// memory (kDirect); or none, every word read from the byte rows in device
+// words in shared memory (kStaged); bit words staged from fresh_words'
+// pass (kDirect); or none, every word read from the byte rows in device
 // memory where it is needed (kRows).
 enum Mode { kStaged, kDirect, kRows };
 
@@ -110,7 +123,7 @@ enum Mode { kStaged, kDirect, kRows };
 // built from them, and the block's sums and flags. Every array starts
 // 4-byte aligned; the host sizes it with the same constructor. The mask
 // rows' bytes are staged only in kStaged, their words kept only outside
-// kRows.
+// kRows; in kDirect every array starts 16-byte aligned (stage_words).
 struct Smem {
   uint32_t *pw, *pdw, *tw, *tdw, *aw, *gzw, *gcw, *pair_w;
   int32_t *oz, *oc, *adj, *base, *cfail, *pair_g, *pair_k, *pair_wt;
@@ -122,7 +135,8 @@ struct Smem {
   __host__ __device__ Smem(void* at, int K, int V1, int R, int O, int TG, int TT, int PC,
                            Mode mode) {
     char* c = static_cast<char*>(at);
-    auto take = [&c](size_t n) { char* p = c; c += (n + 3) & ~size_t{3}; return p; };
+    const size_t al = mode == kDirect ? 15 : 3;
+    auto take = [&c, al](size_t n) { char* p = c; c += (n + al) & ~al; return p; };
     const size_t W = mode == kRows ? 0 : words_of(V1), KD = words_of(K), OW = words_of(O);
     const size_t V1s = mode == kStaged ? V1 : 0, V1r = mode == kStaged ? (V1 + 3) & ~3 : 0;
     pw = reinterpret_cast<uint32_t*>(take(4 * K * W));           // [K, W] p's masks
@@ -168,6 +182,118 @@ __device__ __noinline__ void stage(void* dst, const void* src, int n) {
                   kBlock);
 }
 
+// ``n`` words from global ``src`` to shared ``dst`` by the block's
+// threads: 16-byte cp.async where both start 16-byte aligned, 4-byte
+// otherwise (and for the tail); out of line, as stage
+__device__ __noinline__ void stage_words(uint32_t* dst, const uint32_t* src, int n) {
+  const int q = ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) ? 0
+                                                                                            : n / 4;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < q; i += kBlock) kt::cp_async16(dst + 4 * i, src + 4 * i);
+#pragma unroll 1
+  for (int i = 4 * q + threadIdx.x; i < n; i += kBlock) kt::cp_async4(dst + i, src + i);
+}
+
+// The words fresh_words packs for kDirect, in one buffer: each type's [K]
+// mask rows, each template's, each group's zone row then its
+// capacity-type row, and the live pairs' group rows in index order, W
+// words a row (a weight-0 pad's row left unwritten: no block reads it).
+struct DirectWords {
+  const uint32_t* at;
+  size_t op, og, ol;  // where the templates', the groups' and the pairs' rows start
+  __host__ __device__ DirectWords(const uint32_t* words, int T, int P, int G, int K, int W)
+      : at(words),
+        op(static_cast<size_t>(T) * K * W),
+        og(op + static_cast<size_t>(P) * K * W),
+        ol(og + static_cast<size_t>(2) * G * W) {}
+  __device__ const uint32_t* t() const { return at; }
+  __device__ const uint32_t* p() const { return at + op; }
+  __device__ const uint32_t* g() const { return at + og; }
+  __device__ const uint32_t* l() const { return at + ol; }
+  __host__ __device__ static long long rows(int T, int P, int G, int K, int L) {
+    return static_cast<long long>(T + P) * K + 2LL * G + L;
+  }
+};
+
+// kDirect's word pass over the whole card, before the tables: word w of
+// row r of DirectWords' rows is words[r * W + w], a thread a word
+// (grid-stride), two 16-byte loads where ``x16`` (V1 % 32 == 0 and the
+// three masks 16-byte aligned).
+__global__ void __launch_bounds__(256) fresh_words(
+    int T, int P, int G, int K, int V1, int L, int zone_kid, int ct_kid, bool x16,
+    const uint8_t* __restrict__ t_mask, const uint8_t* __restrict__ p_mask,
+    const uint8_t* __restrict__ g_mask, const int32_t* __restrict__ gk_g,
+    const int32_t* __restrict__ gk_k, const int32_t* __restrict__ gk_w,
+    uint32_t* __restrict__ words) {
+  const int W = words_of(V1);
+  const long long n = DirectWords::rows(T, P, G, K, L) * W;
+  const long long TK = static_cast<long long>(T) * K, PK = static_cast<long long>(P) * K;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += step) {
+    long long r = i / W;
+    const int w = static_cast<int>(i - r * W);
+    const uint8_t* row;
+    if (r < TK) {
+      row = t_mask + r * V1;
+    } else if ((r -= TK) < PK) {
+      row = p_mask + r * V1;
+    } else if ((r -= PK) < 2LL * G) {
+      const long long g = r < G ? r : r - G;
+      row = g_mask + (g * K + (r < G ? zone_kid : ct_kid)) * V1;
+    } else {
+      r -= 2LL * G;
+      const int32_t g = gk_g[r], k = gk_k[r];
+      if (gk_w[r] == 0 || g < 0 || g >= G || k < 0 || k >= K) continue;
+      row = g_mask + (static_cast<size_t>(g) * K + k) * V1;
+    }
+    words[i] = kt::row_word16(row, V1, w, x16);
+  }
+}
+
+// words_meet / words_meet3 (dense_feasibility.cuh) over kDirect's word
+// rows in shared memory (16-byte aligned, W % 4 == 0: 16-byte loads), each
+// thread from the quad of its lane round to the quad before it: any order
+// gives the same answer, and the threads of a warp walk rows that lie a
+// multiple of 32 words apart (neighbouring (type, key) rows, W = 64 at V1
+// 2048), which in step would read one bank over and over.
+__device__ __forceinline__ bool quads_meet(const uint32_t* a, const uint32_t* b, int W) {
+  const uint4* a4 = reinterpret_cast<const uint4*>(a);
+  const uint4* b4 = reinterpret_cast<const uint4*>(b);
+  const int W4 = W / 4;
+  for (int v = 0, w = (threadIdx.x & 31) % W4; v < W4; ++v, w = w + 1 == W4 ? 0 : w + 1) {
+    const uint4 x = a4[w], y = b4[w];
+    if ((x.x & y.x) | (x.y & y.y) | (x.z & y.z) | (x.w & y.w)) return true;
+  }
+  return false;
+}
+
+__device__ __forceinline__ bool quads_meet3(const uint32_t* a, const uint32_t* b,
+                                            const uint32_t* c, int W) {
+  const uint4* a4 = reinterpret_cast<const uint4*>(a);
+  const uint4* b4 = reinterpret_cast<const uint4*>(b);
+  const uint4* c4 = reinterpret_cast<const uint4*>(c);
+  const int W4 = W / 4;
+  for (int v = 0, w = (threadIdx.x & 31) % W4; v < W4; ++v, w = w + 1 == W4 ? 0 : w + 1) {
+    const uint4 x = a4[w], y = b4[w], z = c4[w];
+    if ((x.x & y.x & z.x) | (x.y & y.y & z.y) | (x.z & y.z & z.z) | (x.w & y.w & z.w))
+      return true;
+  }
+  return false;
+}
+
+// ``n`` words from global ``src`` to shared ``dst`` by the calling thread
+// alone, every copy in flight at once (16-byte cp.async where both are
+// 16-byte aligned and n % 4 == 0), then waited for
+__device__ __forceinline__ void copy_words(uint32_t* dst, const uint32_t* src, int n) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src);
+  if (n % 4 == 0 && (at & 15) == 0)
+    for (int v = 0; v < n; v += 4) kt::cp_async16(dst + v, src + v);
+  else
+    for (int v = 0; v < n; ++v) kt::cp_async4(dst + v, src + v);
+  kt::cp_async_wait_all();
+}
+
 // fits_count of a cell, its R loop unrolled where R is 5 (the encoder's
 // cpu, memory, pods, ephemeral storage and one extended resource) so that
 // the R divisions overlap: one more copy of its code; any other R by the
@@ -180,11 +306,14 @@ __device__ __forceinline__ int32_t cell_fits(const float* alloc, const float* ba
 // The block's tiles and mode: 32 types x 8 groups (a cell a thread), the
 // groups doubled up to 64 while the grid has more than 4 x 132 blocks;
 // staged with the types narrowed to 16 while the block passes 48 KB and
-// to 4 while it passes the card's 227 KB; past that kDirect, narrowing the
-// types to 4, the groups to 1, the pair chunk to 32, then the types and
-// the chunk to 1; past that kRows.
-void fresh_tiling(int P, int G, int T, int K, int V1, int R, int O, int& TT, int& TG, int& PC,
-                  Mode& mode) {
+// to 4 while it passes the card's 227 KB; past that kDirect, from 32
+// types again with the pair chunk halved while it holds two index lengths
+// ``L`` (at least 32), the types narrowed to 16 while it passes 48 KB,
+// then to 4, the groups to 1, the pair chunk to 32, then the types and the
+// chunk to 1 while it passes 227 KB; past that kRows. The mode does not
+// depend on L.
+void fresh_tiling(int P, int G, int T, int K, int V1, int R, int O, int L, int& TT, int& TG,
+                  int& PC, Mode& mode) {
   TT = 32, TG = 8, PC = kBlock;
   auto blocks = [&] {
     return static_cast<long long>(P) * ((G + TG - 1) / TG) * (T > 0 ? (T + TT - 1) / TT : 1);
@@ -195,7 +324,9 @@ void fresh_tiling(int P, int G, int T, int K, int V1, int R, int O, int& TT, int
   while (TT > 16 && bytes(kStaged) > kSmemDefault) TT >>= 1;
   while (TT > 4 && bytes(kStaged) > kSmemMax) TT >>= 1;
   if (bytes(kStaged) <= kSmemMax) return;
-  mode = kDirect;
+  mode = kDirect, TT = 32;
+  while (PC > 32 && PC / 2 >= L) PC >>= 1;
+  while (TT > 16 && bytes(kDirect) > kSmemDefault) TT >>= 1;
   while (bytes(kDirect) > kSmemMax) {
     if (TT > 4) TT >>= 1;
     else if (TG > 1) TG >>= 1;
@@ -215,11 +346,13 @@ void fresh_tiling(int P, int G, int T, int K, int V1, int R, int O, int& TT, int
 // its mask rows (Mode); ``x4``: the mask rows in device memory take 4-byte
 // loads (V1 % 4 == 0 and 4-byte aligned bases). ``kPart``: the partial
 // mode (fail_t, fail_c and, ``with_base``, tonly and n_fit written in
-// place of compat_pg, type_ok and n_fit).
+// place of compat_pg, type_ok and n_fit). ``words``: fresh_words' pass
+// (kDirect only).
 template <Mode M, bool kPart>
 __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
     int G, int T, int K, int V1, int R, int O, int L, int LZ, int TG, int TT, int PC,
     int zone_kid, int ct_kid, bool wide, bool x4, bool with_base,
+    const uint32_t* __restrict__ words,
     const uint8_t* __restrict__ g_def, const uint8_t* __restrict__ g_neg,
     const uint8_t* __restrict__ g_mask, const float* __restrict__ g_req,
     const uint8_t* __restrict__ p_def, const uint8_t* __restrict__ p_neg,
@@ -242,6 +375,7 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * TT, g0 = blockIdx.y * TG, p = blockIdx.z;
   const int nt = max(0, min(TT, T - t0)), ng = min(TG, G - g0);
+  const DirectWords dw(words, T, gridDim.z, G, K, W);
   PHASE_START;
   // key k's words of the tile's type t, of p, and of the gathered pair j;
   // the tile's groups' zone and capacity-type words: in shared memory, or
@@ -273,10 +407,17 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
   //    flight at once (a block pays about one round trip to memory, not
   //    one a row); meanwhile the sums and flags go to zero and the first
   //    chunk of the pair index and of goff_idx load into registers. The
-  //    mask rows' bytes only in kStaged.
+  //    mask rows' bytes only in kStaged, their words from fresh_words'
+  //    pass in kDirect.
   if constexpr (M == kStaged) {
     stage(s.raw_t, t_mask + static_cast<size_t>(t0) * K * V1, nt * K * V1);
     stage(s.raw_p, p_mask + static_cast<size_t>(p) * K * V1, K * V1);
+  }
+  if constexpr (M == kDirect) {
+    stage_words(s.tw, dw.t() + static_cast<size_t>(t0) * KW, nt * KW);
+    stage_words(s.pw, dw.p() + static_cast<size_t>(p) * KW, KW);
+    stage_words(s.gzw, dw.g() + static_cast<size_t>(g0) * W, ng * W);
+    stage_words(s.gcw, dw.g() + (static_cast<size_t>(G) + g0) * W, ng * W);
   }
   stage(s.raw_td, t_def + static_cast<size_t>(t0) * K, nt * K);
   stage(s.raw_oa, o_avail + static_cast<size_t>(t0) * O, nt * O);
@@ -335,45 +476,35 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
   // the bit words of the rows, all from one call site (one copy of
   // row_word's code): types' masks, defined keys and offering
   // availability, p's masks and defined keys, groups' zone and
-  // capacity-type rows, from the staged rows (kStaged) or straight from
-  // device memory (kDirect; kRows keeps no mask words); goff_idx's groups
-  // of the tile flagged (repeats are idempotent)
+  // capacity-type rows, from the staged rows (the mask rows' only in
+  // kStaged: kDirect staged their words, kRows keeps none); goff_idx's
+  // groups of the tile flagged (repeats are idempotent)
   {
-    const int KWs = M == kRows ? 0 : KW, Ws = M == kRows ? 0 : W;
+    const int KWs = M == kStaged ? KW : 0, Ws = M == kStaged ? W : 0;
     const int e0 = nt * KWs, e1 = e0 + nt * KD, e2 = e1 + nt * OW, e3 = e2 + KWs, e4 = e3 + KD,
               e5 = e4 + ng * Ws, e6 = e5 + ng * Ws;
-    constexpr bool kSt = M == kStaged;
 #pragma unroll 1
     for (int i = tid; i < e6; i += kBlock) {
       const uint8_t* r;
       uint32_t* dst;
       int len, w;
-      bool rx4 = true;  // a staged row starts 4-byte aligned
       if (i < e0) {
-        r = kSt ? s.raw_t + static_cast<size_t>(i / W) * V1
-                : t_mask + (static_cast<size_t>(t0) * K + i / W) * V1;
-        len = V1, w = i % W, dst = s.tw + i, rx4 = kSt || x4;
+        r = s.raw_t + static_cast<size_t>(i / W) * V1, len = V1, w = i % W, dst = s.tw + i;
       } else if (i < e1) {
         r = s.raw_td + ((i - e0) / KD) * K, len = K, w = (i - e0) % KD, dst = s.tdw + i - e0;
       } else if (i < e2) {
         r = s.raw_oa + ((i - e1) / OW) * O, len = O, w = (i - e1) % OW, dst = s.aw + i - e1;
       } else if (i < e3) {
-        r = kSt ? s.raw_p + ((i - e2) / W) * V1
-                : p_mask + (static_cast<size_t>(p) * K + (i - e2) / W) * V1;
-        len = V1, w = (i - e2) % W, dst = s.pw + i - e2, rx4 = kSt || x4;
+        r = s.raw_p + ((i - e2) / W) * V1, len = V1, w = (i - e2) % W, dst = s.pw + i - e2;
       } else if (i < e4) {
         r = s.raw_pd, len = K, w = i - e3, dst = s.pdw + i - e3;
       } else if (i < e5) {
-        r = kSt ? s.raw_gz + ((i - e4) / W) * V1r
-                : g_mask + (static_cast<size_t>(g0 + (i - e4) / W) * K + zone_kid) * V1;
-        len = V1, w = (i - e4) % W, dst = s.gzw + i - e4, rx4 = kSt || x4;
+        r = s.raw_gz + ((i - e4) / W) * V1r, len = V1, w = (i - e4) % W, dst = s.gzw + i - e4;
       } else {
-        r = kSt ? s.raw_gc + ((i - e5) / W) * V1r
-                : g_mask + (static_cast<size_t>(g0 + (i - e5) / W) * K + ct_kid) * V1;
-        len = V1, w = (i - e5) % W, dst = s.gcw + i - e5, rx4 = kSt || x4;
+        r = s.raw_gc + ((i - e5) / W) * V1r, len = V1, w = (i - e5) % W, dst = s.gcw + i - e5;
       }
       // every staged row starts 4-byte aligned where its length is a multiple of 4
-      *dst = row_word(r, len, w, rx4 && len % 4 == 0);
+      *dst = row_word(r, len, w, len % 4 == 0);
     }
   }
   if (my_goff >= g0 && my_goff < g0 + ng) s.listed[my_goff - g0] = 1;
@@ -395,12 +526,22 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
     const int32_t z = s.oz[t * O + o], c = s.oc[t * O + o];
     return (z < 0 || (bit(pz, z) && bit(gz, z))) && (c < 0 || (bit(pc, c) && bit(gc, c)));
   };
-  // (a partial without the base counts only its pairs' corrections)
+  // (a partial without the base counts only its pairs' corrections);
+  // kDirect's word rows take quads_meet where W % 4 == 0
+  const bool quads = M == kDirect && W % 4 == 0;
+  auto meets = [&](const auto& a, const auto& b) {
+    if constexpr (M == kDirect) return quads ? quads_meet(a, b, W) : words_meet(a, b, W);
+    else return words_meet(a, b, W);
+  };
+  auto meets3 = [&](const auto& a, const auto& b, const auto& c) {
+    if constexpr (M == kDirect) return quads ? quads_meet3(a, b, c, W) : words_meet3(a, b, c, W);
+    else return words_meet3(a, b, c, W);
+  };
   const int base_n = !kPart || with_base ? nt : 0;
 #pragma unroll 1
   for (int i = tid; i < base_n * K; i += kBlock) {
     const int t = i / K, k = i % K;
-    if (!(words_meet(t_words(t, k), p_words(k), W) ||
+    if (!(meets(t_words(t, k), p_words(k)) ||
           !(bit(s.tdw + t * KD, k) && bit(s.pdw, k))))
       atomicAdd(&s.base[t], 1);
   }
@@ -430,9 +571,13 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
         meet = words_meet(p_words(k), gr, W);
       } else {
         uint32_t* gm = s.pair_w + j * W;
+        if constexpr (M == kDirect) {
+          copy_words(gm, dw.l() + static_cast<size_t>(l) * W, W);
+        } else {
 #pragma unroll 1
-        for (int v = 0; v < W; ++v) gm[v] = gr[v];
-        meet = words_meet(p_words(k), static_cast<const uint32_t*>(gm), W);
+          for (int v = 0; v < W; ++v) gm[v] = gr[v];
+        }
+        meet = meets(p_words(k), static_cast<const uint32_t*>(gm));
       }
       const bool gdef = g_def[gk], gneg = g_neg[gk];
       const bool pdef = bit(s.pdw, k), pneg = p_neg[static_cast<size_t>(p) * K + k];
@@ -454,9 +599,8 @@ __global__ void __launch_bounds__(kBlock, 4) fresh_tables(
       const auto tk = t_words(t, kj);
       const auto pk = p_words(kj);
       const bool tdef = bit(s.tdw + t * KD, kj), pdef = bit(s.pdw, kj);
-      const int pair_fail =
-          !(words_meet3(tk, pair_words(j), pk, W) || !(tdef && (pdef || gdef)));
-      const int base_fail = !(words_meet(tk, pk, W) || !(tdef && pdef));
+      const int pair_fail = !(meets3(tk, pair_words(j), pk) || !(tdef && (pdef || gdef)));
+      const int base_fail = !(meets(tk, pk) || !(tdef && pdef));
       const int32_t delta = kt::wrap_mul(pair_fail - base_fail, s.pair_wt[j]);
       if (delta != 0) atomicAdd(&s.adj[s.pair_g[j] * TT + t], delta);
     }
@@ -561,11 +705,13 @@ int launch_fresh(int P, int G, int T, int K, int V1, int R, int O, int L, int LZ
                  const int32_t* o_zone, const int32_t* o_ct, const uint8_t* well_known,
                  const int32_t* gk_g, const int32_t* gk_k, const int32_t* gk_w,
                  const int32_t* goff_idx, uint8_t* compat_pg, uint8_t* type_ok, int32_t* n_fit,
-                 int32_t* fail_t, int32_t* fail_c, uint8_t* tonly, void* stream_ptr) {
+                 int32_t* fail_t, int32_t* fail_c, uint8_t* tonly, uint32_t* words,
+                 long long words_n, void* stream_ptr) {
   if (static_cast<long long>(P) * G == 0) return kt::kNothingLaunched;
   int TT, TG, PC;
   Mode mode;
-  fresh_tiling(P, G, T, K, V1, R, O, TT, TG, PC, mode);
+  fresh_tiling(P, G, T, K, V1, R, O, L, TT, TG, PC, mode);
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const size_t smem = Smem(nullptr, K, V1, R, O, TG, TT, PC, mode).bytes;
   auto kernel = mode == kStaged   ? fresh_tables<kStaged, kPart>
                 : mode == kDirect ? fresh_tables<kDirect, kPart>
@@ -578,9 +724,23 @@ int launch_fresh(int P, int G, int T, int K, int V1, int R, int O, int L, int LZ
   const bool x4 = V1 % 4 == 0 && (reinterpret_cast<uintptr_t>(g_mask) |
                                   reinterpret_cast<uintptr_t>(p_mask) |
                                   reinterpret_cast<uintptr_t>(t_mask)) % 4 == 0;
+  if (mode == kDirect) {
+    // the rows' words across the card, once, before the tables
+    const long long n = DirectWords::rows(T, P, G, K, L) * words_of(V1);
+    if (words == nullptr || words_n < n) return static_cast<int>(cudaErrorInvalidValue);
+    const bool x16 = V1 % 32 == 0 && ((reinterpret_cast<uintptr_t>(g_mask) |
+                                       reinterpret_cast<uintptr_t>(p_mask) |
+                                       reinterpret_cast<uintptr_t>(t_mask)) & 15) == 0;
+    const int blocks = kt::grid_for(n, 256);  // at most 8 a SM, a grid-stride loop past that
+    fresh_words<<<blocks < 132 * 8 ? blocks : 132 * 8, 256, 0, stream>>>(
+        T, P, G, K, V1, L, zone_kid, ct_kid, x16, t_mask, p_mask, g_mask, gk_g, gk_k, gk_w,
+        words);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const dim3 grid(T > 0 ? (T + TT - 1) / TT : 1, (G + TG - 1) / TG, P);
-  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
-      G, T, K, V1, R, O, L, LZ, TG, TT, PC, zone_kid, ct_kid, wide, x4, with_base, g_def,
+  kernel<<<grid, kBlock, smem, stream>>>(
+      G, T, K, V1, R, O, L, LZ, TG, TT, PC, zone_kid, ct_kid, wide, x4, with_base, words, g_def,
       g_neg, g_mask, g_req, p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok, t_def, t_mask,
       t_alloc, o_avail, o_zone, o_ct, well_known, gk_g, gk_k, gk_w, goff_idx, compat_pg,
       type_ok, n_fit, fail_t, fail_c, tonly);
@@ -602,12 +762,15 @@ extern "C" int kt_fresh_feasibility(
     const int32_t* gk_g, const int32_t* gk_k, const int32_t* gk_w,
     const int32_t* goff_idx,
     uint8_t* compat_pg, uint8_t* type_ok, int32_t* n_fit,
+    // the direct mode's words (kt_fresh_feasibility_layout's words; may be
+    // null where it asks for none) and their count
+    uint32_t* words, long long words_n,
     void* stream_ptr) {
   return launch_fresh<false>(P, G, T, K, V1, R, O, L, LZ, zone_kid, ct_kid, true, g_def, g_neg,
                              g_mask, g_req, p_def, p_neg, p_mask, p_daemon, p_tol, p_titype_ok,
                              t_def, t_mask, t_alloc, o_avail, o_zone, o_ct, well_known, gk_g,
                              gk_k, gk_w, goff_idx, compat_pg, type_ok, n_fit, nullptr, nullptr,
-                             nullptr, stream_ptr);
+                             nullptr, words, words_n, stream_ptr);
 }
 
 // The partial mode over one mesh shard's slices (the types of its model
@@ -627,24 +790,27 @@ extern "C" int kt_fresh_feasibility_partial(
     const int32_t* gk_g, const int32_t* gk_k, const int32_t* gk_w,
     const int32_t* goff_idx,
     int32_t* fail_t, int32_t* fail_c, uint8_t* tonly, int32_t* n_fit,
+    uint32_t* words, long long words_n,
     void* stream_ptr) {
   return launch_fresh<true>(P, G, T, K, V1, R, O, L, LZ, zone_kid, ct_kid, with_base != 0, g_def,
                             g_neg, g_mask, g_req, p_def, p_neg, p_mask, p_daemon, p_tol,
                             p_titype_ok, t_def, t_mask, t_alloc, o_avail, o_zone, o_ct,
                             well_known, gk_g, gk_k, gk_w, goff_idx, nullptr, nullptr, n_fit,
-                            fail_t, fail_c, tonly, stream_ptr);
+                            fail_t, fail_c, tonly, words, words_n, stream_ptr);
 }
 
-// The tiling and mode kt_fresh_feasibility takes at these shapes, for the
-// wrapper's telemetry: writes TT, TG, PC, the mode (0 staged, 1 direct,
-// 2 rows) and the block's shared memory bytes to ``out`` [5].
+// The tiling and mode kt_fresh_feasibility takes at these shapes with an
+// index of ``L`` pairs: writes TT, TG, PC, the mode (0 staged, 1 direct,
+// 2 rows), the block's shared memory bytes and the words the direct mode
+// asks the caller for (0 in the others) to ``out`` [6].
 extern "C" int kt_fresh_feasibility_layout(int P, int G, int T, int K, int V1, int R, int O,
-                                           long long* out) {
+                                           int L, long long* out) {
   int TT, TG, PC;
   Mode mode;
-  fresh_tiling(P, G, T, K, V1, R, O, TT, TG, PC, mode);
+  fresh_tiling(P, G, T, K, V1, R, O, L, TT, TG, PC, mode);
   out[0] = TT, out[1] = TG, out[2] = PC, out[3] = mode;
   out[4] = static_cast<long long>(Smem(nullptr, K, V1, R, O, TG, TT, PC, mode).bytes);
+  out[5] = mode == kDirect ? DirectWords::rows(T, P, G, K, L) * words_of(V1) : 0;
   return 0;
 }
 

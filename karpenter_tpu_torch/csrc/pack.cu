@@ -80,11 +80,20 @@
 // shared-memory sums, exact in any order.
 //
 // minValues (MV > 0; packing.py:596, :805, :969-982): each step caps a
-// live claim's tier-2 join at its minValues cap, computed per claim by
-// one warp from the claim's masked types (warp_minvalues: per-value best
-// fits in shared memory, the floor-th largest selected by counting); a
-// bulk's templates each get their cap over their available types, and a
-// template below 1 opens nothing.
+// live claim's tier-2 join at its minValues cap, and a bulk's templates
+// each get their cap over their available types (a template below 1
+// opens nothing). Three builds of the scan (pack_common.cuh:MvPath, picked
+// per launch by mv_path): without floors, none of this code; at a narrow
+// catalog (an instance-family floor, MW in the tens), a warp an entity
+// (warp_minvalues: per-value best fits in shared memory, the floor-th
+// largest selected by counting); at a wide one (an instance-type floor
+// over 1,100 types, MW 2,048), teams of threads out of line
+// (team_minvalues: a walk of each type's value words over their span, then
+// the floor-th largest selected by one warp over the compacted fits, bit
+// by bit from the top bit of their maximum; one template takes as many
+// warps as its types need). There a warp a claim would need 256 KB of
+// fits a block, so the layout takes fewer, larger teams (scan_layout: 8
+// teams of 128 threads, 64 KB) and nothing spills.
 //
 // The reservation ledger (NRES > 0; packing.py:352, :485-517, :583-591,
 // :940-1036, :1100-1104): st.atz / st.atc hold the current ledger's
@@ -217,6 +226,34 @@ __device__ __forceinline__ void settle_caps(const Dims& d, const State& st, cons
   if (d.MV) st.mvcap[s] = cap_mv;
 }
 
+// The minValues caps of a claim-caps chunk's ``nc`` claims ``cl`` for
+// group gi into m.mvc, a team a claim (team_minvalues; out of line): over
+// each claim's masked types that its template admits, that fit at least
+// one pod and that an offering it can take offers (a claim with no
+// capacity, m.cbest < 1, takes nothing whatever its cap: none taken)
+__device__ __noinline__ void claim_minvalues(const Dims& d, const In& in, const State& st,
+                                             const Out& out, const Smem& m, const int32_t* cl,
+                                             int nc, int gi) {
+  const int T = d.T, R = d.R, V1 = d.V1, W = d.W;
+  team_minvalues(
+      d, st, m, nc,
+      [&](int j) {
+        return m.cbest[j] >= 1 ? in.p_mvmin + static_cast<size_t>(out.c_pool[cl[j]]) * d.MV
+                               : nullptr;
+      },
+      [&](int j, int t, int32_t& fit) {
+        const int s = cl[j];
+        if (!out.c_tmask[static_cast<size_t>(s) * T + t] ||
+            !in.type_ok[trow(d, out.c_pool[s], gi) * T + t])
+          return false;
+        fit = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
+                         st.c_used + static_cast<size_t>(s) * R, m.req, R);
+        const uint32_t* wcz = m.cz + j * 2 * W;
+        return fit >= 1 && offer(m.off, claim_atz(d, st, out, s), t, V1, W, wcz, wcz + W);
+      },
+      [&](int j, int32_t c) { m.mvc[j] = c; });
+}
+
 // The claim-side feasibility of the open claims [lo, hi) for group gi
 // (c_active, packing.py's claim caps), a window of 1024 slots at a time:
 // one thread per slot settles the claims whose template cannot take the
@@ -225,9 +262,12 @@ __device__ __forceinline__ void settle_caps(const Dims& d, const State& st, cons
 // rows of m.pcap; scan_layout), warp j working out claim j's words, the
 // block's threads sharing the chunk's (claim, type) cells (the best fit by
 // shared atomicMax into m.cbest, per domain into m.pcap over the domains
-// some offering names), warp j then taking its minValues cap and writing
-// the claim's caps. The maxima do not depend on the gathering order or the
-// chunking. Call after a barrier; ends in one.
+// some offering names), the chunk's minValues caps taken a team a claim
+// (team_minvalues), and warp j writing claim j's caps. The maxima do not
+// depend on the gathering order, the chunking or the teams. Call after a
+// barrier; ends in one. ``kMV``: as fresh_claims' (kMvWarp: warp j takes
+// claim j's minValues cap itself).
+template <int kMV>
 __device__ void claim_caps(const Dims& d, const In& in, const State& st, const Out& out,
                            const Smem& m, const Grp& g, int gi, int lo, int hi) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
@@ -298,26 +338,36 @@ __device__ void claim_caps(const Dims& d, const In& in, const State& st, const O
         }
       }
       __syncthreads();
+      if constexpr (kMV == kMvTeam) {
+        if (d.MV) {
+          claim_minvalues(d, in, st, out, m, cl, nc, gi);
+          __syncthreads();
+        }
+      }
       if (wid < nc) {
         const int s = cl[wid];
         const int32_t best = m.cbest[wid];
         int32_t cap_mv = kBigDom;
         // a claim with no capacity takes nothing whatever its cap
-        if (d.MV && best >= 1) {
-          const int pp = out.c_pool[s];
-          const uint8_t* tok = in.type_ok + trow(d, pp, gi) * T;
-          const uint8_t* tms = out.c_tmask + static_cast<size_t>(s) * T;
-          const float* used = st.c_used + static_cast<size_t>(s) * R;
-          const uint32_t* wcz = m.cz + wid * 2 * W;
-          const uint32_t* wcc = wcz + W;
-          const uint32_t* az = claim_atz(d, st, out, s);
-          cap_mv = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(pp) * d.MV,
-                                  [&](int t, int32_t& fit) {
-                                    if (!tms[t] || !tok[t]) return false;
-                                    fit = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
-                                                     used, m.req, R);
-                                    return fit >= 1 && offer(m.off, az, t, V1, W, wcz, wcc);
-                                  });
+        if constexpr (kMV == kMvTeam) {
+          if (d.MV && best >= 1) cap_mv = m.mvc[wid];
+        } else if constexpr (kMV == kMvWarp) {
+          if (d.MV && best >= 1) {
+            const int pp = out.c_pool[s];
+            const uint8_t* tok = in.type_ok + trow(d, pp, gi) * T;
+            const uint8_t* tms = out.c_tmask + static_cast<size_t>(s) * T;
+            const float* used = st.c_used + static_cast<size_t>(s) * R;
+            const uint32_t* wcz = m.cz + wid * 2 * W;
+            const uint32_t* wcc = wcz + W;
+            const uint32_t* az = claim_atz(d, st, out, s);
+            cap_mv = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(pp) * d.MV,
+                                    [&](int t, int32_t& fit) {
+                                      if (!tms[t] || !tok[t]) return false;
+                                      fit = fits_count(in.t_alloc + static_cast<size_t>(t) * R,
+                                                       used, m.req, R);
+                                      return fit >= 1 && offer(m.off, az, t, V1, W, wcz, wcc);
+                                    });
+          }
         }
         if (g.dyn)
           for (int v = lane; v < V1; v += 32)
@@ -329,6 +379,8 @@ __device__ void claim_caps(const Dims& d, const In& in, const State& st, const O
   }
 }
 
+// ``kMV``: the minValues path it is built with (MvPath; mv_path)
+template <int kMV>
 __global__ void __launch_bounds__(kThreads, 1)
 pack_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Strides sc, int ranks) {
   // this block's scenario slices, kept in shared memory rather than in
@@ -398,7 +450,7 @@ pack_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Strides sc, int ranks) 
     // claims (slots past n_open keep init_state's) ----
     int lo, hi;
     rank_share(n_open, rank, ranks, lo, hi);
-    claim_caps(d, in, st, out, m, g, gi, lo, hi);
+    claim_caps<kMV>(d, in, st, out, m, g, gi, lo, hi);
     cluster_sync(ranks);
     PHASE_MARK(kPhClaims);
 
@@ -435,7 +487,7 @@ pack_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Strides sc, int ranks) 
     cluster_sync(ranks);
     PHASE_MARK(kPhCommit);
     if (lead) {
-      fresh_claims(d, in, st, out, m, g, n_open, overflow, NoBulkHook{}, sh, s_debit);
+      fresh_claims<kMV>(d, in, st, out, m, g, n_open, overflow, NoBulkHook{}, sh, s_debit);
       spread_carry(d, st, m, g);
       __syncthreads();
       PHASE_MARK(kPhFresh);
@@ -523,7 +575,7 @@ extern "C" int kt_pack(
     int* cluster,
     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (R > 32 || JH < 1 || JD < 1 || (MV && MW < 1))
+  if (R > 32 || JH < 1 || JD < 1 || (MV && (MW < 1 || MW > 32 * 0xffff)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return kt::kNothingLaunched;
   const int W = (V1 + 31) / 32;
@@ -548,7 +600,8 @@ extern "C" int kt_pack(
   Strides sc{s_g_count, s_cap_ng, s_n_hcnt, s_nh_cnt0, s_g_dprior, s_dd0, s_n_tol};
   // Smem's layout, before anything launches
   size_t smem = 0;
-  const int rc = scan_smem(pack_scan, d, st, S, kMaxCluster, spill, spill_n, smem);
+  // (the instantiations differ in code only, not in their static shared memory)
+  const int rc = scan_smem(pack_scan<kMvNone>, d, st, S, kMaxCluster, spill, spill_n, smem);
   if (rc) return rc;
   {
     // the starting ledger's offering words across the card: a slice per
@@ -569,7 +622,11 @@ extern "C" int kt_pack(
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   // one cluster of c blocks per scenario (pick_cluster)
-  return launch_clusters(pack_scan, kMaxCluster, S, smem, stream, cluster, d, in, st, rw, out,
+  const int path = mv_path(d);
+  const auto kernel = path == kMvNone   ? pack_scan<kMvNone>
+                      : path == kMvWarp ? pack_scan<kMvWarp>
+                                        : pack_scan<kMvTeam>;
+  return launch_clusters(kernel, kMaxCluster, S, smem, stream, cluster, d, in, st, rw, out,
                          sc);
 }
 
@@ -580,7 +637,7 @@ extern "C" int kt_pack_layout(int S, int P, int R, int K, int V1, int MV, int MW
   Dims d{};
   d.P = P, d.R = R, d.K = K, d.V1 = V1, d.W = (V1 + 31) / 32, d.MV = MV, d.MW = MW;
   d.NRES = NRES, d.has_domains = has_domains != 0, d.has_contrib = has_contrib != 0;
-  return layout_info(pack_scan, d, S, kMaxCluster, out);
+  return layout_info(pack_scan<kMvNone>, d, S, kMaxCluster, out);
 }
 
 #ifdef KT_PHASE_CLOCKS

@@ -26,8 +26,9 @@
 // in the class take their summaries in closed form, pinned claims collapse
 // to their lane. minValues (MV > 0; packing.py:1526-1536, :1728, :1861,
 // :1891-1903, :2021-2026) rides the same discipline: the head computes each
-// live claim's minValues headroom (warp_minvalues over its masked types,
-// into st.mvcap), a member's fill lowers it by exactly the fill, and a
+// live claim's minValues headroom (warp_minvalues or team_minvalues, by
+// the launch's MvPath, over its masked types, into st.mvcap), a member's
+// fill lowers it by exactly the fill, and a
 // claim opened in the class starts at its bulk template's cap less its
 // take. The claims' type masks settle once per class against the final
 // pins and the class-total fills. Every phase a member runs (existing
@@ -144,6 +145,32 @@ struct ClassedBulkHook {
   }
 };
 
+// The minValues headroom mvcapv0 of a head chunk's ``nc`` claims ``cl``
+// into m.mvc, a team a claim (team_minvalues; out of line): over each
+// claim's masked types that class head ``cs``'s template row admits and
+// that it can take an offering of (hd.off0), at its fits hd.af0 (a claim
+// with no capacity, m.cbest < 1, never takes a pod this class, so its
+// headroom is never read: none taken)
+__device__ __noinline__ void head_minvalues(const Dims& d, const In& in, const State& st,
+                                            const Out& out, const Smem& m, const Head& hd,
+                                            const int32_t* cl, int nc, int cs) {
+  const int T = d.T;
+  team_minvalues(
+      d, st, m, nc,
+      [&](int j) {
+        return m.cbest[j] >= 1 ? in.p_mvmin + static_cast<size_t>(out.c_pool[cl[j]]) * d.MV
+                               : nullptr;
+      },
+      [&](int j, int t, int32_t& fit) {
+        const int s = cl[j];
+        const size_t at = static_cast<size_t>(s) * T + t;
+        fit = hd.af0[at];
+        return out.c_tmask[at] && in.type_ok[trow(d, out.c_pool[s], cs) * T + t] &&
+               hd.off0[at];
+      },
+      [&](int j, int32_t c) { m.mvc[j] = c; });
+}
+
 // The class head for the open claims [lo, hi) (packing.py:1343-1541),
 // class ``cs`` (the head's table column) on axis ``cdk``: each claim's
 // compatibility with the class and, for a compatible ("live") claim, its
@@ -173,8 +200,11 @@ struct ClassedBulkHook {
 // class's d.cw, the rows of m.pcap; scan_layout), warp j
 // working out claim j's words, the block's threads sharing the chunk's
 // (claim, type) cells (the best fit by shared atomicMax into m.cbest, per
-// domain into m.pcap), warp j then taking its minValues headroom and
-// writing the claim's summaries. Call after a barrier; ends in one.
+// domain into m.pcap), the chunk's minValues headroom taken a team a
+// claim (head_minvalues), and warp j writing claim j's summaries. Call
+// after a barrier; ends in one. ``kMV``: as fresh_claims' (kMvWarp: warp
+// j takes claim j's minValues headroom itself).
+template <int kMV>
 __device__ void head_claims(const Dims& d, const In& in, const State& st, const Out& out,
                             const Smem& m, const Head& hd, int cs, int cdk, bool cdyn, int lo,
                             int hi) {
@@ -246,21 +276,28 @@ __device__ void head_claims(const Dims& d, const In& in, const State& st, const 
           }
       }
       __syncthreads();
+      if constexpr (kMV == kMvTeam) {
+        if (d.MV) {
+          head_minvalues(d, in, st, out, m, hd, cl, nc, cs);
+          __syncthreads();
+        }
+      }
       if (wid < nc) {
         const int s = cl[wid];
         const int32_t best = m.cbest[wid];
-        // the minValues headroom mvcapv0 over the head's masked types (a
-        // claim with no capacity never takes a pod this class, so its
-        // headroom is never read)
         int32_t mvc = 0;
-        if (d.MV && best >= 1) {
-          const size_t row = static_cast<size_t>(s) * T;
-          const uint8_t* tok = in.type_ok + trow(d, out.c_pool[s], cs) * T;
-          mvc = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(out.c_pool[s]) * d.MV,
-                               [&](int t, int32_t& fit) {
-                                 fit = hd.af0[row + t];
-                                 return out.c_tmask[row + t] && tok[t] && hd.off0[row + t];
-                               });
+        if constexpr (kMV == kMvTeam) {
+          if (d.MV && best >= 1) mvc = m.mvc[wid];
+        } else if constexpr (kMV == kMvWarp) {
+          if (d.MV && best >= 1) {
+            const size_t row = static_cast<size_t>(s) * T;
+            const uint8_t* tok = in.type_ok + trow(d, out.c_pool[s], cs) * T;
+            mvc = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(out.c_pool[s]) * d.MV,
+                                 [&](int t, int32_t& fit) {
+                                   fit = hd.af0[row + t];
+                                   return out.c_tmask[row + t] && tok[t] && hd.off0[row + t];
+                                 });
+          }
         }
         if (d.has_domains)
           for (int v = lane; v < V1; v += 32)
@@ -321,6 +358,8 @@ __device__ void settle_class(const Dims& d, const In& in, const Out& out, const 
   }
 }
 
+// ``kMV``: the minValues path it is built with (MvPath; mv_path)
+template <int kMV>
 __global__ void __launch_bounds__(kThreads, 1)
 pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, Head hd0,
                   int ranks) {
@@ -404,7 +443,7 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
     // each rank's share of the open claims: compatibility, fit counts,
     // offering rows and capacity summaries
     rank_share(n_open, rank, ranks, lo, hi);
-    head_claims(d, in, st, out, m, hd, cs, cdk, cdyn, lo, hi);
+    head_claims<kMV>(d, in, st, out, m, hd, cs, cdk, cdyn, lo, hi);
     const int32_t n_open0 = n_open;
     cluster_sync(ranks);
     PHASE_MARK(kPhHead);
@@ -493,7 +532,7 @@ pack_classed_scan(Dims d, In in0, State st0, Rows rw0, Out out0, Classes cls0, H
       // ---- 3. fresh claims: rank 0 ----
       if (lead) {
         __syncthreads();
-        fresh_claims(d, in, st, out, m, g, n_open, overflow,
+        fresh_claims<kMV>(d, in, st, out, m, g, n_open, overflow,
                      ClassedBulkHook{&hd, m.pmax, st.percap, st.mvcap,
                                      cdk == 0 ? m.off.z : m.off.c, T, V1, d.has_domains,
                                      cdyn, d.MV > 0},
@@ -600,7 +639,7 @@ extern "C" int kt_pack_classed(
     int* cluster,
     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (R > 32 || JH < 1 || JD < 1 || (MV && MW < 1))
+  if (R > 32 || JH < 1 || JD < 1 || (MV && (MW < 1 || MW > 32 * 0xffff)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int W = (V1 + 31) / 32;
   // no reservation ledger here (NRES = 0)
@@ -625,7 +664,9 @@ extern "C" int kt_pack_classed(
   Head hd{capv, af0, off0, toff_nt0, cfills, pin0, off_grp, toff_grp, e_cap};
   // Smem's layout, before anything launches
   size_t smem = 0;
-  const int rc = scan_smem(pack_classed_scan, d, st, 1, kMaxCluster, spill, spill_n, smem);
+  // (the instantiations differ in code only, not in their static shared memory)
+  const int rc = scan_smem(pack_classed_scan<kMvNone>, d, st, 1, kMaxCluster, spill, spill_n,
+                           smem);
   if (rc) return rc;
   {
     // the offering words across the card (no ledger: one set)
@@ -645,7 +686,11 @@ extern "C" int kt_pack_classed(
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   // one cluster (pick_cluster with S = 1)
-  return launch_clusters(pack_classed_scan, kMaxCluster, 1, smem, stream, cluster, d, in, st, rw,
+  const int path = mv_path(d);
+  const auto kernel = path == kMvNone   ? pack_classed_scan<kMvNone>
+                      : path == kMvWarp ? pack_classed_scan<kMvWarp>
+                                        : pack_classed_scan<kMvTeam>;
+  return launch_clusters(kernel, kMaxCluster, 1, smem, stream, cluster, d, in, st, rw,
                          out, cls, hd);
 }
 
@@ -657,7 +702,7 @@ extern "C" int kt_pack_classed_layout(int P, int R, int K, int V1, int MV, int M
   Dims d{};
   d.P = P, d.R = R, d.K = K, d.V1 = V1, d.W = (V1 + 31) / 32, d.MV = MV, d.MW = MW;
   d.has_domains = has_domains != 0, d.has_contrib = has_contrib != 0;
-  return layout_info(pack_classed_scan, d, 1, kMaxCluster, out);
+  return layout_info(pack_classed_scan<kMvNone>, d, 1, kMaxCluster, out);
 }
 
 #ifdef KT_PHASE_CLOCKS

@@ -50,6 +50,8 @@ using kt::fits_count;
 using kt::kBigDom;
 using kt::kFull;
 using kt::mask_word;
+using kt::row_word16;
+using kt::rows_x16;
 using kt::wrap_add;
 using kt::wrap_mul;
 using kt::wrap_sub;
@@ -57,6 +59,19 @@ using kt::wrap_sub;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 static_assert(kWarps == 32, "the block reductions read one warp total per lane");
+// the most minValues teams of more than one warp (team_minvalues): each
+// syncs on its own named barrier, 1 .. kMaxMvTeams (0 is __syncthreads')
+constexpr int kMaxMvTeams = 8;
+// How a scan kernel takes the minValues caps, one instantiation each
+// (mv_path picks it per launch): no floors (no minValues code at all); a
+// warp an entity (warp_minvalues), at a narrow catalog whose fits every
+// warp keeps in shared memory (an instance-family floor: MW in the tens);
+// or teams of threads (team_minvalues), at a wide one (an instance-type
+// floor: MW in the thousands). Each path's code weighs only on its own
+// launches: the scans run at the 64 registers of their 1024-thread launch
+// bound, where a phase's registers spill in every other phase.
+enum MvPath { kMvNone, kMvWarp, kMvTeam };
+constexpr int kMvWarpMW = 256;  // the widest catalog the warp path takes
 // domain-constraint modes (solver/encode.py:DMODE_*)
 constexpr int kSpread = 1, kAffinity = 2, kGateSpread = 3, kGateAff = 4;
 
@@ -334,26 +349,6 @@ __device__ __forceinline__ bool offer_in(const Offered& of, const uint32_t* atz,
   return false;
 }
 
-// 16 bytes of a byte mask as 16 bits (bit i: byte i nonzero)
-__device__ __forceinline__ uint32_t bits16(uint4 q) {
-  auto nib = [](uint32_t x) { return ((__vcmpne4(x, 0u) & 0x01010101u) * 0x01020408u) >> 24; };
-  return nib(q.x) | nib(q.y) << 4 | nib(q.z) << 8 | nib(q.w) << 12;
-}
-
-// word w of a [V1] byte mask row (kt::mask_word), as two 16-byte loads
-// where ``x16`` says it may: the row 16-byte aligned and V1 % 32 == 0
-__device__ __forceinline__ uint32_t row_word16(const uint8_t* row, int V1, int w, bool x16) {
-  if (!x16) return mask_word(row, V1, w);
-  const uint4* p = reinterpret_cast<const uint4*>(row + 32 * static_cast<size_t>(w));
-  const uint4 a = p[0], b = p[1];
-  return bits16(a) | bits16(b) << 16;
-}
-
-// may rows of ``base`` [., V1] take row_word16's 16-byte loads
-__device__ __forceinline__ bool rows_x16(const void* base, int V1) {
-  return (V1 & 31) == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
-}
-
 struct Dims {
   int G, T, P, N, R, K, V1, NMAX, JH, JD, zone_kid, ct_kid, wf_iters, W;
   bool has_domains, has_contrib;
@@ -368,6 +363,10 @@ struct Dims {
   // own [V1] row of per-domain capacities in Smem (scan_layout: kWarps,
   // fewer where those rows would not fit shared memory)
   int cw;
+  // the teams that take minValues caps at once, each with its own [MW]
+  // row of fits in Smem (scan_layout: kWarps, a warp a team; else 8, 4, 2
+  // or 1 where those rows would not fit shared memory)
+  int mvt;
 };
 
 struct In {
@@ -462,7 +461,8 @@ struct State {  // PackState in device memory (plus per-step scratch)
   // [NMAX] (B4: this step's cap_mv; B5: the maintained headroom mvcapv)
   int32_t* res_rem; int32_t* mvcap;
   // word tables shared by every scenario (static_words): each type's
-  // minValues values per key [T, MV, MWW]; each reservation's
+  // minValues values per key [T, MV, MWW + 1] (the last word the span of
+  // words that hold a value, lo | hi << 16); each reservation's
   // a_res[r, t, z, :] over capacity types [NRES, T, V1, W]; the held
   // availability (a_tzc or any reservation) on both axes [T, V1, W]
   uint32_t* mvw; uint32_t* ares_z; uint32_t* aheld_z; uint32_t* aheld_c;
@@ -507,7 +507,7 @@ struct Smem {
   // has_contrib only:
   int32_t* dsum;    // [4][V1] contributor sums: node zone, node ct, claim zone, claim ct
   // MV > 0 only:
-  int32_t* mvf;     // [kWarps][MW] per-warp per-value fits (minValues)
+  int32_t* mvf;     // [mvt][MW] each minValues team's per-value fits, 0 between uses
   uint32_t* pze;    // [W] a bulk template's zone words (in the pinned domain)
   uint32_t* pce;    // [W] ... capacity-type words
   uint32_t* oz;     // [W] the launch's offered zones (offer_words)
@@ -521,6 +521,7 @@ struct Smem {
   int32_t* cand;    // [kThreads] ... and its candidates (B4's claim caps)
   int32_t* nlist;   // [2] the two lists' lengths
   int32_t* cbest;   // [kWarps] a chunk's claims' best fits (B4's claim caps)
+  int32_t* mvc;     // [kWarps] a chunk's claims' minValues caps
   float* req;       // [R]
   uint8_t* gdef;    // [K]
   uint8_t* gneg;    // [K]
@@ -560,7 +561,7 @@ __host__ __device__ inline WideLay wide_layout(const Dims& d) {
   l.pcap = at, at += static_cast<size_t>(d.cw) * DV;
   l.pmax = at, at += DV;
   l.dsum = at, at += d.has_contrib ? 4 * V1 : 0;
-  l.mvf = at, at += d.MV ? static_cast<size_t>(kWarps) * d.MW : 0;
+  l.mvf = at, at += d.MV ? static_cast<size_t>(d.mvt) * d.MW : 0;
   l.pze = at, at += W;
   l.pce = at, at += W;
   l.oz = at, at += W;
@@ -581,7 +582,7 @@ __host__ __device__ inline size_t wide_bytes(const Dims& d) {
 }
 
 __host__ __device__ inline size_t core_bytes(const Dims& d) {
-  return sizeof(uint32_t) * (d.P + d.NRES + 1 + 2 * kThreads + 2 + kWarps + d.R) +
+  return sizeof(uint32_t) * (d.P + d.NRES + 1 + 2 * kThreads + 2 + 2 * kWarps + d.R) +
          2 * static_cast<size_t>(d.K) + d.P;
 }
 
@@ -621,12 +622,24 @@ int scan_layout(Kernel kernel, Dims& d, size_t& smem) {
   // a domain batch's claim caps size fewer claims a chunk before the
   // whole wide part leaves shared memory (each claim's maxima are its own,
   // so the chunking changes no result)
-  d.cw = kWarps;
-  while (d.has_domains && d.cw > 1 && wide_bytes(d) + core_bytes(d) > cap) d.cw /= 2;
-  d.spill = wide_bytes(d) + core_bytes(d) > cap;
-  if (d.spill) d.cw = kWarps;
+  // and a wide minValues catalog's caps take fewer, larger teams (each
+  // team's fits are its own entity's, so the teams change no result)
+  auto over = [&] { return wide_bytes(d) + core_bytes(d) > cap; };
+  d.cw = d.mvt = kWarps;
+  while (d.has_domains && d.cw > 1 && over()) d.cw /= 2;
+  while (d.MV && d.mvt > 1 && over()) d.mvt = d.mvt == kWarps ? kMaxMvTeams : d.mvt / 2;
+  d.spill = over();
+  if (d.spill) d.cw = d.mvt = kWarps;
   smem = d.spill ? core_bytes(d) : wide_bytes(d) + core_bytes(d);
   return 0;
+}
+
+// The minValues path (MvPath) of a launch at its layout (scan_layout):
+// none without floors; a warp an entity where the catalog is narrow and
+// every warp has its own row of fits; else teams.
+__host__ __device__ inline int mv_path(const Dims& d) {
+  if (!d.MV) return kMvNone;
+  return d.MW <= kMvWarpMW && d.mvt == kWarps ? kMvWarp : kMvTeam;
 }
 
 // A launch of ``kernel`` over S scenarios, in clusters of at most max_c
@@ -699,7 +712,8 @@ __device__ void carve(unsigned char* dyn, const Dims& d, Smem& m, unsigned char*
   m.cand = m.list + kThreads;
   m.nlist = m.cand + kThreads;
   m.cbest = m.nlist + 2;
-  m.req = reinterpret_cast<float*>(m.cbest + kWarps);
+  m.mvc = m.cbest + kWarps;
+  m.req = reinterpret_cast<float*>(m.mvc + kWarps);
   m.gdef = reinterpret_cast<uint8_t*>(m.req + d.R);
   m.gneg = m.gdef + d.K;
   m.pcompat = m.gneg + d.K;
@@ -708,13 +722,15 @@ __device__ void carve(unsigned char* dyn, const Dims& d, Smem& m, unsigned char*
 
 // The launch's offered sets into the block's Smem (m.oz, m.oc) and the
 // word ranges that hold their bits (m.off; empty ranges where nothing is
-// offered). Call after carve's barrier (thread 0 owns m); ends in a
-// barrier.
+// offered); the minValues teams' fits to zero (team_minvalues keeps them
+// so). Call after carve's barrier (thread 0 owns m); ends in a barrier.
 __device__ void load_offered(const Dims& d, const State& st, Smem& m) {
   for (int w = threadIdx.x; w < d.W; w += kThreads) {
     m.oz[w] = st.offz[w];
     m.oc[w] = st.offc[w];
   }
+  if (d.MV)
+    for (int i = threadIdx.x; i < d.mvt * d.MW; i += kThreads) m.mvf[i] = 0;
   __syncthreads();
   if (threadIdx.x == 0) {
     int zlo = d.W, zhi = 0, clo = d.W, chi = 0;
@@ -880,19 +896,39 @@ inline int offer_blocks(long long cells) {
 
 // The word tables every scenario shares (State::mvw, ares_z, aheld_z,
 // aheld_c), one grid-stride pass before the scan kernel: t_mvoh's values
-// as words; each reservation's a_res[r, t, z, :]; the held availability
-// a_tzc | any_r a_res[r] (packing.py's a_held) on both axes.
+// as words (for the kMvTeam path a warp a (type, key) row, with the span
+// of words that hold a value: an instance type offers one value of its
+// own key, so its walk in team_minvalues reads one word, not MWW; for the
+// warp path, which walks every word of a narrow row, a thread a word);
+// each reservation's a_res[r, t, z, :]; the held availability a_tzc |
+// any_r a_res[r] (packing.py's a_held) on both axes. Launched with a
+// multiple of 32 threads a block, after scan_layout.
 __global__ void static_words(Dims d, In in, State st) {
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long i0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int T = d.T, V1 = d.V1, W = d.W, MW = d.MW, MWW = d.MWW, NRES = d.NRES;
-  for (long long i = i0; i < static_cast<long long>(T) * d.MV * MWW; i += step) {
-    const long long tj = i / MWW;
-    const int ww = static_cast<int>(i % MWW);
-    uint32_t bits = 0;
-    for (int c = 0; c < 32 && ww * 32 + c < MW; ++c)
-      bits |= static_cast<uint32_t>(in.t_mvoh[tj * MW + ww * 32 + c] != 0) << c;
-    st.mvw[i] = bits;
+  const int lane = threadIdx.x & 31;
+  const bool x16 = rows_x16(in.t_mvoh, MW);
+  if (mv_path(d) == kMvWarp) {
+    for (long long i = i0; i < static_cast<long long>(T) * d.MV * MWW; i += step) {
+      const long long tj = i / MWW;
+      const int ww = static_cast<int>(i % MWW);
+      st.mvw[tj * (MWW + 1) + ww] = mask_word(in.t_mvoh + tj * MW, MW, ww);
+    }
+  } else {
+    for (long long r = i0 >> 5; r < static_cast<long long>(T) * d.MV; r += step >> 5) {
+      const uint8_t* row = in.t_mvoh + r * MW;
+      uint32_t* words = st.mvw + r * (MWW + 1);
+      int lo = MWW, hi = 0;
+      for (int w0 = 0; w0 < MWW; w0 += 32) {
+        const int w = w0 + lane;
+        const uint32_t bits = w < MWW ? row_word16(row, MW, w, x16) : 0u;
+        if (w < MWW) words[w] = bits;
+        const unsigned on = __ballot_sync(kFull, bits != 0);
+        if (on) lo = min(lo, w0 + __ffs(on) - 1), hi = w0 + 32 - __clz(on);
+      }
+      if (lane == 0) words[MWW] = lo < hi ? static_cast<uint32_t>(lo | hi << 16) : 0u;
+    }
   }
   const long long cells = static_cast<long long>(T) * V1 * W;
   for (long long i = i0; i < NRES * cells; i += step)
@@ -934,16 +970,16 @@ __device__ __forceinline__ const uint32_t* claim_atc(const Dims& d, const State&
 }
 
 // parity: phase min-values
-// minvalues_cap (packing.py:153) for one entity, by one whole warp. For
-// each key j with a floor, f[w] is the largest fit over the entity's
-// masked types offering catalog value w (``cell(t, fit)`` says whether
-// type t is masked and gives its fit), and the key's cap is the floor-th
-// largest f[w]: the largest x with #{w : f[w] >= x} >= floor, selected by
-// counting, bit by bit from the top (int32 fits; only the k-th value
-// matters, so nothing is sorted). A floor of 0 imposes no cap (kBigDom),
-// one above MW gives 0; the cap is the min over keys. fits_count is never
-// negative, so f starting at 0 equals the reference's max over
-// where(mask, fit, 0). Ends in __syncwarp.
+// minvalues_cap (packing.py:153) for one entity, by one whole warp (the
+// kMvWarp path). For each key j with a floor, f[w] is the largest fit over
+// the entity's masked types offering catalog value w (``cell(t, fit)``
+// says whether type t is masked and gives its fit), and the key's cap is
+// the floor-th largest f[w]: the largest x with #{w : f[w] >= x} >=
+// floor, selected by counting, bit by bit from the top (int32 fits; only
+// the k-th value matters, so nothing is sorted). A floor of 0 imposes no
+// cap (kBigDom), one above MW gives 0; the cap is the min over keys.
+// fits_count is never negative, so f starting at 0 equals the reference's
+// max over where(mask, fit, 0). Ends in __syncwarp.
 template <class Cell>
 __device__ int32_t warp_minvalues(const Dims& d, const State& st, const Smem& m,
                                   const int32_t* floors, Cell cell) {
@@ -962,7 +998,7 @@ __device__ int32_t warp_minvalues(const Dims& d, const State& st, const Smem& m,
     for (int t = lane; t < d.T; t += 32) {
       int32_t fit;
       if (!cell(t, fit)) continue;
-      const uint32_t* words = st.mvw + (static_cast<size_t>(t) * d.MV + j) * d.MWW;
+      const uint32_t* words = st.mvw + (static_cast<size_t>(t) * d.MV + j) * (d.MWW + 1);
       for (int ww = 0; ww < d.MWW; ++ww)
         for (uint32_t b = words[ww]; b; b &= b - 1) atomicMax(&f[ww * 32 + __ffs(b) - 1], fit);
     }
@@ -978,6 +1014,142 @@ __device__ int32_t warp_minvalues(const Dims& d, const State& st, const Smem& m,
     __syncwarp();
   }
   return cap;
+}
+
+// The minValues teams for ``n`` entities: the power of two of at least n
+// up to the layout's d.mvt, teams of more than one warp at most kMaxMvTeams
+// (a named barrier each), or a warp a team where the layout affords
+// kWarps teams and n needs more than kMaxMvTeams.
+__device__ __forceinline__ int mv_teams(const Dims& d, int n) {
+  if (d.mvt == kWarps && n > kMaxMvTeams) return kWarps;
+  int t = 1;
+  while (t < n && t < d.mvt && t < kMaxMvTeams) t <<= 1;
+  return t;
+}
+
+// the barrier of team ``k`` of ``nt`` threads: a warp's, the block's, or
+// named barrier k + 1
+__device__ __forceinline__ void team_sync(int k, int nt) {
+  if (nt == 32)
+    __syncwarp();
+  else if (nt == kThreads)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(k + 1), "r"(nt) : "memory");
+}
+
+// The floor-th largest of the fits ``f`` [MW] (every entry >= 0; 0 at
+// every value no masked type offers), by one warp, exactly: the positive
+// entries compacted to the head of f in slot order (the rest zeroed), then
+// the largest x with #{f >= x} >= floor, bit by bit from the top bit of
+// their maximum (int32 fits), over the compacted entries only; f is all
+// zero again when it returns. Fewer positive entries than the floor give
+// 0 (the zeros are the rest); a floor of 1 is their maximum. 0 < floor <=
+// MW.
+__device__ int32_t warp_select(int32_t* f, int MW, int32_t floor) {
+  const int lane = threadIdx.x & 31;
+  int c = 0;
+  int32_t mx = 0;
+  for (int w0 = 0; w0 < MW; w0 += 32) {
+    const int w = w0 + lane;
+    const int32_t v = w < MW ? f[w] : 0;
+    const unsigned on = __ballot_sync(kFull, v > 0);
+    if (!on) continue;
+    // a moved entry lands at or below its own slot, in this chunk or in
+    // the zeroed tail of the compacted head
+    if (v > 0) f[w] = 0;
+    __syncwarp();
+    if (v > 0) f[c + __popc(on & ((1u << lane) - 1))] = v;
+    __syncwarp();
+    c += __popc(on);
+    mx = max(mx, v);
+  }
+  for (int o = 16; o; o >>= 1) mx = max(mx, __shfl_xor_sync(kFull, mx, o));
+  int32_t x = 0;
+  if (floor == 1) {
+    x = mx;
+  } else if (floor <= c) {
+    for (int b = 31 - __clz(mx); b >= 0; --b) {
+      const int32_t cand = x | (1 << b);
+      unsigned cnt = 0;
+      for (int i = lane; i < c; i += 32) cnt += f[i] >= cand ? 1u : 0u;
+      if (static_cast<int32_t>(__reduce_add_sync(kFull, cnt)) >= floor) x = cand;
+    }
+  }
+  for (int i = lane; i < c; i += 32) f[i] = 0;
+  __syncwarp();
+  return x;
+}
+
+// minvalues_cap (packing.py:153) for ``n`` entities (templates or claims),
+// by teams of threads (mv_teams), entity e by team e % teams (the kMvTeam
+// path). For each key
+// j with a floor, f[w] is the largest fit over the entity's masked types
+// offering catalog value w (``cell(e, t, fit)`` says whether type t is
+// masked for e and gives its fit): the team's threads walk the types, each
+// type's value words only over their span (static_words), into the team's
+// row of m.mvf by shared atomicMax; the team's first warp then takes the
+// key's cap, the floor-th largest f[w] (warp_select). A floor of 0 imposes
+// no cap (kBigDom), one above MW gives 0; the cap is the min over keys.
+// fits_count is never negative, so f starting at 0 equals the reference's
+// max over where(mask, fit, 0), and a fit of 0 leaves it as it is.
+// ``floors(e)`` gives e's [MV] floors, or null where e takes no cap;
+// ``put(e, cap)`` runs on the team's first thread. A team takes no more
+// warps than its walk needs at two types a thread (the rest of its share
+// of the block waits at the caller's next barrier). Call with every
+// thread of the block, after a barrier that publishes what ``floors`` and
+// ``cell`` read; m.mvf is zero before and after. Its callers call it from
+// out of line (template_minvalues, and the scans' claim-side callers), so
+// that its registers do not weigh on the phases around it.
+template <class Floors, class Cell, class Put>
+__device__ __forceinline__ void team_minvalues(const Dims& d, const State& st, const Smem& m,
+                                               int n, Floors floors, Cell cell, Put put) {
+  const int teams = mv_teams(d, n), share = kThreads / teams;
+  int nt = share;
+  while (nt > 32 && nt >= d.T) nt >>= 1;
+  const int k = threadIdx.x / share, r = threadIdx.x - k * share;
+  if (r >= nt) return;
+  int32_t* f = m.mvf + static_cast<size_t>(k) * d.MW;
+  const int MWW = d.MWW;
+  for (int e = k; e < n; e += teams) {
+    const int32_t* fl = floors(e);
+    int32_t cap = kBigDom;
+    for (int j = 0; fl != nullptr && j < d.MV; ++j) {
+      const int32_t floor = fl[j];
+      if (floor <= 0) continue;
+      if (floor > d.MW) {
+        cap = 0;
+        continue;
+      }
+      for (int t = r; t < d.T; t += nt) {
+        int32_t fit;
+        if (!cell(e, t, fit) || fit <= 0) continue;
+        const uint32_t* words = st.mvw + (static_cast<size_t>(t) * d.MV + j) * (MWW + 1);
+        const uint32_t span = words[MWW];
+        for (int ww = span & 0xffffu; ww < static_cast<int>(span >> 16); ++ww)
+          for (uint32_t b = words[ww]; b; b &= b - 1) atomicMax(&f[ww * 32 + __ffs(b) - 1], fit);
+      }
+      team_sync(k, nt);
+      if (r < 32) cap = min(cap, warp_select(f, d.MW, floor));
+      team_sync(k, nt);
+    }
+    if (r == 0) put(e, cap);
+  }
+}
+
+// each template's minValues cap for a bulk over its available types
+// (st.avail) and its fits for the group or class head ``ti``, into m.mvp
+// (team_minvalues, a team a template: one template takes as many warps
+// as its types need, up to the whole block)
+__device__ __noinline__ void template_minvalues(const Dims& d, const In& in, const State& st,
+                                                const Smem& m, int ti) {
+  team_minvalues(
+      d, st, m, d.P, [&](int p) { return in.p_mvmin + static_cast<size_t>(p) * d.MV; },
+      [&](int p, int t, int32_t& fit) {
+        fit = in.n_fit[trow(d, p, ti) * d.T + t];
+        return st.avail[static_cast<size_t>(p) * d.T + t] != 0;
+      },
+      [&](int p, int32_t c) { m.mvp[p] = c; });
 }
 
 // ---- pack state init (PackState, packing.py:357) ----
@@ -1859,13 +2031,14 @@ struct NoBulkHook {
 // (c_resv) and debit each compatible one a slot, and a reservation that
 // drains rebuilds the step words. Adds the takes to st.claim_fill. Needs
 // m.pz / m.pc (template_words) when a ledger is on. Call after a barrier;
-// ends in one.
+// ends in one. ``kMV``: the kernel's minValues path (MvPath).
 // parity: tiebreak argmax
-template <class Hook>
+template <int kMV, class Hook>
 __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const Out& out,
                              const Smem& m, const Grp& g, int32_t& n_open, bool& overflow,
                              const Hook& hook, Shared& sh, float* s_debit) {
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const bool mv = kMV != kMvNone && d.MV;
   const int T = d.T, P = d.P, R = d.R, K = d.K, V1 = d.V1, W = d.W, NRES = d.NRES;
   const int NMAX = d.NMAX, JH = d.JH, NSLOT = V1 + 2, ANY = V1, DEAD = V1 + 1;
   for (int sl = tid; sl < NSLOT; sl += kThreads) m.ddead[sl] = sl == DEAD;
@@ -1910,21 +2083,25 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
                                m.pc + p * W)
                     : offer(m.off, st.atz, t, V1, W, m.pz + p * W, m.pc + p * W);
       st.avail[i] = ok;
-      if (ok && !d.MV) p_min = min(p_min, p);
+      if (ok && !mv) p_min = min(p_min, p);
     }
-    if (d.MV) {
-      // each template's minValues cap over its available types (one warp
-      // per template); a template below 1 opens nothing
+    if (mv) {
+      // each template's minValues cap over its available types
+      // (template_minvalues); a template below 1 opens nothing
       __syncthreads();
-      for (int p = wid; p < P; p += kWarps) {
-        const uint8_t* avp = st.avail + static_cast<size_t>(p) * T;
-        const int32_t* nfp = in.n_fit + trow(d, p, g.ti) * T;
-        const int32_t c = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(p) * d.MV,
-                                         [&](int t, int32_t& fit) {
-                                           fit = nfp[t];
-                                           return avp[t] != 0;
-                                         });
-        if (lane == 0) m.mvp[p] = c;
+      if constexpr (kMV == kMvWarp) {
+        for (int p = tid >> 5; p < P; p += kWarps) {  // a warp a template
+          const uint8_t* avp = st.avail + static_cast<size_t>(p) * T;
+          const int32_t* nfp = in.n_fit + trow(d, p, g.ti) * T;
+          const int32_t c = warp_minvalues(d, st, m, in.p_mvmin + static_cast<size_t>(p) * d.MV,
+                                           [&](int t, int32_t& fit) {
+                                             fit = nfp[t];
+                                             return avp[t] != 0;
+                                           });
+          if (lane == 0) m.mvp[p] = c;
+        }
+      } else if constexpr (kMV == kMvTeam) {
+        template_minvalues(d, in, st, m, g.ti);
       }
       __syncthreads();
       for (int i = tid; i < P * T; i += kThreads)
@@ -1939,7 +2116,7 @@ __device__ void fresh_claims(const Dims& d, const In& in, const State& st, const
     for (int t = tid; t < T; t += kThreads) best = max(best, av[t] ? nf[t] : 0);
     const int32_t n_fit_max = block_max(best, sh);
     int32_t n_per = min(n_fit_max, g.hcap);
-    const int32_t mv_open = d.MV ? m.mvp[p_star] : kBigDom;
+    const int32_t mv_open = mv ? m.mvp[p_star] : kBigDom;
     n_per = min(n_per, mv_open);
     n_per = min(n_per, g.counted ? g.scap_h : kBigDom);
     // pessimistic limit debit: max capacity over the claim's options

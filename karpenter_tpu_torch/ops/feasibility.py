@@ -34,6 +34,7 @@ the JAX functions line for line and are bit-exact with them
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
@@ -574,9 +575,9 @@ def _into(out, result):
 
 def _outputs(out, names, dtypes, shapes, dev):
     """A launch's outputs: ``out``'s first len(names) tensors, each
-    checked, or new ones."""
+    checked, or len(names) new ones."""
     if out is None:
-        return [torch.empty(s, dtype=d, device=dev) for d, s in zip(dtypes, shapes)]
+        return [torch.empty(s, dtype=d, device=dev) for _, d, s in zip(names, dtypes, shapes)]
     for t, name, dtype, shape in zip(out, names, dtypes, shapes):
         _build.check(t, name, dtype, shape, dev)
     return list(out[:len(names)])
@@ -584,9 +585,11 @@ def _outputs(out, names, dtypes, shapes, dev):
 
 def _fresh_entry():
     """kt_fresh_feasibility with its argument types: 11 ints, then the 21
-    inputs, the 3 outputs and the stream as pointers."""
+    inputs, the 3 outputs and the direct mode's words as pointers, the
+    words' count and the stream."""
     return _build.bind("fresh_feasibility", "kt_fresh_feasibility",
-                       (ctypes.c_int,) * 11 + (ctypes.c_void_p,) * 25)
+                       (ctypes.c_int,) * 11 + (ctypes.c_void_p,) * 25
+                       + (ctypes.c_longlong, ctypes.c_void_p))
 
 
 def _existing_entry():
@@ -598,9 +601,29 @@ def _existing_entry():
 
 def _fresh_partial_entry():
     """kt_fresh_feasibility_partial with its argument types: 12 ints,
-    then the 21 inputs, the 4 outputs and the stream as pointers."""
+    then the 21 inputs, the 4 outputs and the direct mode's words as
+    pointers, the words' count and the stream."""
     return _build.bind("fresh_feasibility", "kt_fresh_feasibility_partial",
-                       (ctypes.c_int,) * 12 + (ctypes.c_void_p,) * 26)
+                       (ctypes.c_int,) * 12 + (ctypes.c_void_p,) * 26
+                       + (ctypes.c_longlong, ctypes.c_void_p))
+
+
+# the words B1's direct mode asks for at each launch shape (device, P, G,
+# T, K, V1, R, O, L), as fresh_layout reports them (0 in the other modes)
+_fresh_words: Dict[tuple, int] = {}
+
+
+def _direct_words(dev, P, G, T, K, V1, R, O, L) -> torch.Tensor:
+    """The scratch of B1's direct mode (its word pass's output,
+    csrc/fresh_feasibility.cu:DirectWords: the words of the types' and the
+    templates' [K] mask rows, each group's zone and capacity-type rows and
+    the index's L pair rows); empty where the launch takes another mode."""
+    key = (dev.index, P, G, T, K, V1, R, O, L)
+    n = _fresh_words.get(key)
+    if n is None:
+        with _build.device_scope(dev):
+            n = _fresh_words[key] = fresh_layout(P, G, T, K, V1, R, O, L)["words"]
+    return torch.empty((n,), dtype=torch.int32, device=dev)
 
 
 def _launch_fresh(
@@ -639,6 +662,7 @@ def _launch_fresh(
                          (i32, i32, torch.bool, i32), ((P, G, T), (P, G), (P, G, T), (P, G, T)),
                          dev)
         fail_t, fail_c, tonly, n_fit = parts + [None] * (4 - len(parts))
+        words = _direct_words(dev, P, G, T, K, V1, R, O, L)
         with _build.device_scope(dev):
             rc = _fresh_partial_entry()(
                 P, G, T, K, V1, R, O, L, LZ, zone_kid, ct_kid, int(with_base),
@@ -646,6 +670,7 @@ def _launch_fresh(
                 fail_t.data_ptr(), fail_c.data_ptr(),
                 0 if tonly is None else tonly.data_ptr(),
                 0 if n_fit is None else n_fit.data_ptr(),
+                words.data_ptr(), words.numel(),
                 _build.raw_stream(dev),
             )
         _build.launched("fresh_partial", rc)
@@ -653,11 +678,13 @@ def _launch_fresh(
     compat_pg = torch.empty((P, G), dtype=torch.bool, device=dev)
     type_ok = torch.empty((P, G, T), dtype=torch.bool, device=dev)
     n_fit = torch.empty((P, G, T), dtype=torch.int32, device=dev)
+    words = _direct_words(dev, P, G, T, K, V1, R, O, L)
     with _build.device_scope(dev):
         rc = _fresh_entry()(
             P, G, T, K, V1, R, O, L, LZ, zone_kid, ct_kid,
             *(t.data_ptr() for t in ins),
             compat_pg.data_ptr(), type_ok.data_ptr(), n_fit.data_ptr(),
+            words.data_ptr(), words.numel(),
             _build.raw_stream(dev),
         )
     _build.launched("fresh_feasibility", rc)
@@ -878,18 +905,20 @@ def _launch_dense_existing(
     return cap_ng
 
 
-def fresh_layout(P: int, G: int, T: int, K: int, V1: int, R: int, O: int) -> dict:
+def fresh_layout(P: int, G: int, T: int, K: int, V1: int, R: int, O: int, L: int) -> dict:
     """The tiles, mode and shared memory B1 (csrc/fresh_feasibility.cu)
-    takes at these shapes: TT, TG, the pair chunk PC, the mode ("staged":
-    mask bytes staged in shared memory; "direct": bit words built straight
-    from device memory; "rows": no words kept, each read from the byte
-    rows) and the block's bytes. Loads the library; no launch."""
-    out = (ctypes.c_longlong * 5)()
+    takes at these shapes with an index of L pairs: TT, TG, the pair chunk
+    PC, the mode ("staged": mask bytes staged in shared memory; "direct":
+    bit words from a word pass across the card, staged; "rows": no words
+    kept, each read from the byte rows), the block's bytes and the words
+    the direct mode's pass writes (0 in the others). Loads the library; no
+    launch."""
+    out = (ctypes.c_longlong * 6)()
     _build.bind("fresh_feasibility", "kt_fresh_feasibility_layout",
-                (ctypes.c_int,) * 7 + (ctypes.c_void_p,))(
-        P, G, T, K, V1, R, O, ctypes.addressof(out))
+                (ctypes.c_int,) * 8 + (ctypes.c_void_p,))(
+        P, G, T, K, V1, R, O, L, ctypes.addressof(out))
     return dict(TT=out[0], TG=out[1], PC=out[2], mode=("staged", "direct", "rows")[out[3]],
-                smem=out[4])
+                smem=out[4], words=out[5])
 
 
 def dense_layout(P: int, N: int, G: int, T: int, K: int, V1: int, R: int, O: int) -> dict:

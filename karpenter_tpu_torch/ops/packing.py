@@ -1698,12 +1698,12 @@ def _scan_buffers(dims, S, nmax, has_domains, tiled, dev, lead=()):
         # the reservation ledger res_rem; per-claim minValues caps
         ((NRES,), i32, 0), ((nmax if MV else 0,), i32, 0),
     ))
-    # shared word tables: each type's minValues values per key, each
-    # reservation's a_res[r, t, z, :] words, the held availability (a_tzc
-    # or any reservation) on both axes
+    # shared word tables: each type's minValues values per key (its words
+    # and their span), each reservation's a_res[r, t, z, :] words, the held
+    # availability (a_tzc or any reservation) on both axes
     res = NRES > 0
     words = tuple(empty(shape, i32) for shape in (
-        (T, MV, (MW + 31) // 32), (NRES, T, V1, W),
+        (T, MV, (MW + 31) // 32 + 1), (NRES, T, V1, W),
         (T if res else 0, V1, W), (T if res and has_domains else 0, V1, W),
     ))
     # what starts at zero: the fills and unplaced (an empty group writes

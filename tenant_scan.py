@@ -14,7 +14,7 @@ B1 and B2, the sparse feasibility tables; B3, the dense ones; and B6.
         feas_constrained feas_nodes feas_cons
                                             # B1, B2 and B7's dispatch
 
-Four solve shapes, each encoded and staged on the card once, as the
+Five solve shapes, each encoded and staged on the card once, as the
 driver stages it (chip_smoke.py's batches):
 
 - ``tenant``: the tenant cell of chip_smoke.py's phase 9 (64 tainted
@@ -27,7 +27,10 @@ driver stages it (chip_smoke.py's batches):
 - ``constrained``: constrained_mix(50,000) x 800 types (the domain
   machinery);
 - ``diverse_contrib``: diverse_reference_mix(5,000) x 400 types through B4
-  (the classed route off: contributor counting).
+  (the classed route off: contributor counting);
+- ``minvalues``: minvalues-50k, mixed_pods(50,000, no GPU) x 400 types
+  over the minValues NodePool (an instance-family floor: B4's minValues
+  phases at a narrow catalog).
 
 Each scan runs REPS times after a warm-up (NMAX doubled while it
 overflows, as the driver does), timed with CUDA events. With the clocks
@@ -84,7 +87,15 @@ phase 2 stages it, the kernel's outputs equal to its plain version's:
   only cell with live pairs);
 - ``feas_nodes``: B2 at mixed 2,000 x 400 over 32 StateNodes;
 - ``feas_cons``: B1 and B2[S] at the consolidation chunk (S=16, N=2048),
-  and the whole scenario dispatch (kernel B7) over them.
+  and the whole scenario dispatch (kernel B7) over them;
+- ``feas_partial``: B1's partial mode (the solver mesh's shard stage) at
+  chip_smoke.py's phase 16 shape, constrained 50k x 800 over data 2 x
+  model 4 on the card, shard (0, 0);
+- ``feas_team_in``: B1 at chip_smoke.py's phase 10 team-In input (a pool
+  listing 1,100 teams, 40 pods: K 16, V1 2048, G 64, T 400), whose masks
+  pass the staged mode's shared memory (the direct mode: a word pass
+  across the card, then the tables), with the layout the checkout's
+  ``fresh_layout`` reports.
 
 Each kernel is timed through its wrapper (CUDA events, the median of
 FEAS_REPS calls) and on the device alone (torch.profiler over repeated
@@ -129,22 +140,26 @@ partials as a list; the fold's outputs equal its plain version's. A
 checkout whose fold takes the partials as lists (``nfail=()``) is given
 them so, so it runs in a parent checkout too.
 
-Three shapes of B4 at a wide value vocabulary (``--shapes wide_team_in
-wide_listed wide_mv_types``), each built as chip_smoke.py's phase 10 builds
-it (``wide_inputs``, ``device_snapshot``) and timed and split as the solve
-shapes above are:
+Four shapes of B4 at a wide value vocabulary (``--shapes wide_team_in
+wide_listed wide_mv_types wide_mv_types_800``), each built as
+chip_smoke.py's phase 10 builds it (``wide_inputs``, ``device_snapshot``)
+and timed and split as the solve shapes above are:
 
 - ``wide_team_in``: a NodePool listing 1,100 teams with 40 pods, pod i
   selecting team-i (K 16, V1 2048, T 400, domain-free);
 - ``wide_listed``: a NodePool listing 600 of 800 instance types at
   mixed_pods(50,000) (V1 1024, T 600);
 - ``wide_mv_types``: minValues 2 on the instance type over 1,100 types at
-  mixed_pods(2,000) (V1 4, MW 2048).
+  mixed_pods(2,000) (V1 4, MW 2048);
+- ``wide_mv_types_800``: the same floor over corpus.generate(800), the
+  catalog width of BASELINE's constrained cell (MW 1024).
 
 Each also reports the scan's layout (the dynamic shared memory a block
-asks for and the spill scratch, ops/packing.py:layouts) and its device
+asks for and the spill scratch, ops/packing.py:layouts), its device
 time (torch.profiler: the scan kernel's, and every device activity's a
-call: the wrapper's zeroing and word passes too).
+call: the wrapper's zeroing and word passes too), the plain version's
+time (its outputs equal to the kernel's) and the bound, as chip_smoke.py's
+``wide_pack_row`` reckons them.
 
 ``listed_solve``: the solve that chip_smoke.py's phase 10 times at the
 listed pool (600 of 800 types listed, mixed_pods(50,000), V1 1024): the
@@ -179,13 +194,15 @@ import chip_smoke as cs
 
 REPS = 3
 CONS_PASSES = 6  # the first warms, as chip_smoke.py's phase 4
-SCAN_SHAPES = ("tenant", "mixed", "constrained", "diverse_contrib")
-# the wide shapes: chip_smoke.py's wide_inputs label of each
+SCAN_SHAPES = ("tenant", "mixed", "constrained", "diverse_contrib", "minvalues")
+# the wide shapes: chip_smoke.py's wide_inputs label of each, or (for
+# the minValues floor at BASELINE's catalog width) the catalog's types
 WIDE_SHAPES = {"wide_team_in": "team_in", "wide_listed": "listed_types",
-               "wide_mv_types": "mv_types"}
+               "wide_mv_types": "mv_types", "wide_mv_types_800": 800}
 CLASSED_SHAPES = ("diverse_classed", "diverse_minvalues", "tenant_classed")
 CONS_SHAPES = ("cons", "cons_minvalues")
-FEAS_SHAPES = ("feas_mixed", "feas_diverse", "feas_constrained", "feas_nodes", "feas_cons")
+FEAS_SHAPES = ("feas_mixed", "feas_diverse", "feas_constrained", "feas_nodes", "feas_cons",
+               "feas_team_in", "feas_partial")
 DENSE_SHAPES = ("dense_relax", "dense_route", "dense_nodes")
 WIRE_SHAPES = ("wire_mixed", "wire_cons")
 # the fold's shapes: (D, M, P, G, T)
@@ -206,6 +223,11 @@ def shape_inputs(shape):
     """(pods, n_types, pools, catalog or None) of one shape."""
     from karpenter_tpu_torch.solver import example, workloads
 
+    if shape in WIDE_SHAPES and isinstance(WIDE_SHAPES[shape], int):
+        from karpenter_tpu_torch.cloudprovider import corpus
+
+        return (workloads.mixed_pods(cs.MV_PODS), 0, [cs.type_pool(min_values=2)],
+                corpus.generate(WIDE_SHAPES[shape]))
     if shape in WIDE_SHAPES:
         _, pools, catalog, pods = [w for w in cs.wide_inputs(full=False)
                                    if w[0] == WIDE_SHAPES[shape]][0]
@@ -215,6 +237,9 @@ def shape_inputs(shape):
                 example.tenant_pools(cs.N_TENANTS), None)
     if shape == "mixed":
         return workloads.mixed_pods(cs.N_PODS), cs.N_TYPES, None, None
+    if shape == "minvalues":
+        return (workloads.mixed_pods(cs.N_PODS, gpu_fraction=0.0), cs.N_TYPES,
+                [example.minvalues_nodepool()], None)
     if shape == "constrained":
         return workloads.constrained_mix(cs.N_PODS), cs.N_TYPES_C, None, None
     return workloads.diverse_reference_mix(cs.N_DIVERSE), cs.N_TYPES, None, None
@@ -292,6 +317,17 @@ def run_shape(shape, clocks):
                          "spill": [v[1] for v in packing.layouts.values()]}
         row["dims"].update(V1=int(a["g_mask"].shape[2]), K=int(a["g_mask"].shape[1]),
                            MW=int(a["t_mvoh"].shape[-1]) if a["t_mvoh"].dim() == 3 else 0)
+        # the plain version's time and the bound, as chip_smoke.py's
+        # wide_pack_row reckons them
+        ref, row["plain_ms"] = cs.timed(lambda: packing.pack_reference(*x, **st, **kw))
+        if cs.max_abs_err(outs[main], ref):
+            raise RuntimeError(f"{shape}: B4 differs from its plain version")
+        P, MV = a["p_mvmin"].shape
+        row["bound_ms"], row["bound_by"] = cs.bound_ms(
+            cs.nbytes(x) + cs.nbytes(outs[main]),
+            cs.pack_ops(a["g_count"], outs[main][5], outs[main][2], row["dims"]["T"],
+                        int(a["t_alloc"].shape[1]), row["dims"]["V1"], P=P, mv=MV,
+                        offered=cs.offered_words(a)))
     if clocks:
         x, kw = modes[main]
         out, split = phase_clocks(
@@ -480,6 +516,13 @@ def feas_inputs(shape):
         token = cs.scenario_snapshot()
         return (dict(zip(SOLVE_ARG_NAMES, token["args"])), dict(token["statics"]),
                 token["nmax"], token["fills_dtype"])
+    if shape == "feas_partial":
+        return partial_inputs()
+    if shape == "feas_team_in":
+        pods, _, pools, catalog = shape_inputs("wide_team_in")
+        solver = cs.build_batch(TorchSolver, SolverConfig, pods, 0, pools=pools, its=catalog)
+        args, statics, _, _ = cs.device_snapshot(solver, pods)
+        return dict(zip(SOLVE_ARG_NAMES, args)), statics, None, None
     nodes = ()
     if shape == "feas_mixed":
         pods, n_types = workloads.mixed_pods(cs.N_PODS), cs.N_TYPES
@@ -493,6 +536,28 @@ def feas_inputs(shape):
     solver = cs.build_batch(TorchSolver, SolverConfig, pods, n_types, state_nodes=nodes)
     args, statics, _, _ = cs.device_snapshot(solver, pods)
     return dict(zip(SOLVE_ARG_NAMES, args)), statics, None, None
+
+
+def partial_inputs():
+    """B1's partial mode at chip_smoke.py's phase 16 shape: constrained 50k
+    x 800 over a data 2 x model 4 mesh on the card, shard (0, 0) (the base,
+    its 200 types, its half of the live pairs): its solve args by name and
+    the statics."""
+    import torch
+
+    from karpenter_tpu_torch.parallel import mesh as pm
+    from karpenter_tpu_torch.solver import workloads
+    from karpenter_tpu_torch.solver.driver import SolverConfig, TorchSolver
+
+    pods = workloads.constrained_mix(cs.N_PODS)
+    host, _, statics, _ = cs.host_snapshot(
+        cs.build_batch(TorchSolver, SolverConfig, pods, cs.N_TYPES_C), pods)
+    card = torch.device("cuda", 0)
+    mesh = pm.make_mesh(cs.MESH_SHARDS, data=2, devices=[card] * cs.MESH_SHARDS)
+    margs = pm.place_args(pm.pad_args_for_mesh(host, mesh), mesh)
+    a = {n: margs.at(n, 0, 0, 0) for n in cs.B1_NAMES}
+    a["n_avail"] = a["g_mask"].new_zeros((0, 1))  # no nodes: no B2
+    return a, statics, None, None
 
 
 def feas_time(fn, plain):
@@ -529,13 +594,23 @@ def host_split(wrapper, entry, args, outs):
 
 def b1_entry_args(a, b1_in, out, zk, ck):
     """kt_fresh_feasibility's arguments for the inputs ``b1_in`` (solve args
-    ``a``) and the outputs ``out``, on the current stream."""
+    ``a``) and the outputs ``out``, on the current stream; where the
+    checkout's entry takes the direct mode's words (after the outputs),
+    the scratch its wrapper allocates, held until the arguments go."""
     import torch
 
+    from karpenter_tpu_torch.ops import feasibility as feas
+
     P, G, T = out[1].shape
-    return (P, G, T, a["g_mask"].shape[1], a["g_mask"].shape[2], a["t_alloc"].shape[1],
-            a["o_avail"].shape[1], a["gk_g"].shape[0], a["goff_idx"].shape[0], zk, ck,
-            *(t.data_ptr() for t in b1_in), *(t.data_ptr() for t in out),
+    dims = (P, G, T, a["g_mask"].shape[1], a["g_mask"].shape[2], a["t_alloc"].shape[1],
+            a["o_avail"].shape[1], a["gk_g"].shape[0])
+    words = ()
+    if hasattr(feas, "_direct_words"):
+        scratch = feas._direct_words(a["g_mask"].device, *dims)
+        words = (scratch.data_ptr(), scratch.numel())
+        b1_entry_args.held = scratch
+    return (*dims, a["goff_idx"].shape[0], zk, ck,
+            *(t.data_ptr() for t in b1_in), *(t.data_ptr() for t in out), *words,
             torch.cuda.current_stream().cuda_stream)
 
 
@@ -572,11 +647,25 @@ def run_feasibility(shape, clocks=False):
     a, statics, nmax, fills = feas_inputs(shape)
     zk, ck = statics["zone_kid"], statics["ct_kid"]
     b1_in = [a[n] for n in cs.B1_NAMES]
-    b2_in = [a[n] for n in cs.B2_NAMES]
+    b2_in = [a[n] for n in cs.B2_NAMES] if shape != "feas_partial" else []
     row = dict(P=a["p_def"].shape[0], G=a["g_mask"].shape[0], T=a["t_alloc"].shape[0],
                N=a["n_avail"].shape[0], L=a["gk_g"].shape[0],
-               live=int((a["gk_w"] != 0).sum()), LZ=a["goff_idx"].shape[0])
-    if shape != "feas_nodes":
+               live=int((a["gk_w"] != 0).sum()), LZ=a["goff_idx"].shape[0],
+               K=a["g_mask"].shape[1], V1=a["g_mask"].shape[2])
+    if shape == "feas_team_in":  # B1's layout there (the checkout's fresh_layout)
+        dims = (row["P"], row["G"], row["T"], row["K"], row["V1"], a["t_alloc"].shape[1],
+                a["o_avail"].shape[1])
+        try:
+            row["layout"] = feas.fresh_layout(*dims, L=row["L"])
+        except TypeError:  # a checkout whose fresh_layout takes no index length
+            row["layout"] = feas.fresh_layout(*dims)
+    if shape == "feas_partial":
+        row["b1_partial"] = feas_time(
+            lambda: feas.fresh_claim_feasibility_partial(*b1_in, zone_kid=zk, ct_kid=ck,
+                                                         with_base=True),
+            lambda: feas.fresh_claim_feasibility_partial_reference(*b1_in, zone_kid=zk,
+                                                                   ct_kid=ck, with_base=True))
+    elif shape != "feas_nodes":
         row["b1"] = feas_time(
             lambda: feas.fresh_claim_feasibility_sparse(*b1_in, zone_kid=zk, ct_kid=ck),
             lambda: feas.fresh_claim_feasibility_sparse_reference(*b1_in, zone_kid=zk,
@@ -624,7 +713,7 @@ def run_feasibility(shape, clocks=False):
             lambda: torch.empty((N, G), dtype=torch.int32, device="cuda"))
     if clocks and "b1" in row:
         row["b1"]["phases_ms"] = b1_phases(a, b1_in, zk, ck)
-    if max(row[k]["err"] for k in ("b1", "b2") if k in row):
+    if max(row[k]["err"] for k in ("b1", "b2", "b1_partial") if k in row):
         raise RuntimeError(f"{shape}: a kernel disagrees with its plain version: {row}")
     return row
 
@@ -869,7 +958,8 @@ def main():
                     help="B4's solve shapes (tenant, mixed, constrained, diverse_contrib) and "
                     "wide vocabularies (wide_team_in: V1 2048, K 16; wide_listed: 600 listed "
                     "types at mixed 50k, V1 1024; wide_mv_types: minValues over 1,100 types, "
-                    "MW 2048), B5's, B7's, B1/B2's, B3's, B6's, the fold's, B9's, the "
+                    "MW 2048; wide_mv_types_800: over 800, MW 1024), B5's, B7's, B1/B2's "
+                    "(feas_team_in: B1 at V1 2048), B3's, B6's, the fold's, B9's, the "
                     "wide solves, and listed_solve: the listed pool's solve p50 and span "
                     "split, as chip_smoke.py's phase 10 (default: all)")
     ap.add_argument("--clusters", nargs="+", type=int, default=[], choices=(1, 2, 4),

@@ -1901,10 +1901,71 @@ def test_sparse_tables_wide_vocab(cuda, case, mode):
     a, zk, ck = sparse_index_case(case)
     P, G, T = a["p_tol"].shape + a["p_titype_ok"].shape[1:]
     K, V1 = a["g_mask"].shape[1:]
-    lay = fresh_layout(P, G, T, K, V1, a["g_req"].shape[1], a["o_avail"].shape[1])
+    lay = fresh_layout(P, G, T, K, V1, a["g_req"].shape[1], a["o_avail"].shape[1],
+                       a["gk_g"].shape[0])
     assert lay["mode"] == mode and lay["smem"] <= 227 * 1024, lay
     _, type_ok, _ = _tables_equal_plain(a, zk, ck, cuda)
     assert type_ok.any() and not type_ok.all()
+
+
+def _team_ops_args():
+    """Solve args (numpy, by name), zone_kid and ct_kid of pods over a pool
+    listing 1,100 teams x corpus.generate(400) (K 16, V1 2048) whose team
+    key meets every operator: In one team, NotIn three teams, NotIn every
+    team, Exists and DoesNotExist."""
+    from chip_smoke import N_TEAMS, TEAM_KEY, team_pods, team_pool
+    from karpenter_tpu_torch.api.objects import NodeAffinity, NodeSelectorRequirement
+    from karpenter_tpu_torch.solver.workloads import _pod
+
+    teams = [f"team-{i}" for i in range(N_TEAMS)]
+
+    def team_req(op, values=()):
+        return NodeAffinity(required=[(NodeSelectorRequirement(TEAM_KEY, op, tuple(values)),)])
+
+    pods = team_pods(24)
+    pods += [_pod(f"notin-{i}", 500 + 250 * i, 1024,
+                  node_affinity=team_req("NotIn", teams[90 * i:90 * i + 3])) for i in range(6)]
+    pods.append(_pod("notin-all", 500, 1024, node_affinity=team_req("NotIn", teams)))
+    pods += [_pod(f"exists-{i}", 750, 2048, node_affinity=team_req("Exists")) for i in range(2)]
+    pods += [_pod(f"dne-{i}", 750, 2048, node_affinity=team_req("DoesNotExist"))
+             for i in range(2)]
+    args, statics, _ = _scan_snapshot(pods, [team_pool(teams)], corpus.generate(400))
+    a = dict(zip(enc.SOLVE_ARG_NAMES, (np.asarray(x) for x in args)))
+    return a, statics["zone_kid"], statics["ct_kid"]
+
+
+def test_sparse_tables_team_operators_v1_2048(cuda):
+    """B1 in its direct mode (the word pass across the card, then the
+    tables) at V1 2048 over NotIn, DoesNotExist, Exists and In on the wide
+    key, whole and in its partial mode with and without the base, exact
+    against the plain versions; the wrapper's words are the layout's."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    a, zk, ck = _team_ops_args()
+    P, G, T = a["p_tol"].shape + a["p_titype_ok"].shape[1:]
+    K, V1 = a["g_mask"].shape[1:]
+    R, O, L = a["g_req"].shape[1], a["o_avail"].shape[1], a["gk_g"].shape[0]
+    assert (K, V1) == (16, 2048)
+    lay = feas.fresh_layout(P, G, T, K, V1, R, O, L)
+    assert lay["mode"] == "direct" and lay["smem"] <= 227 * 1024, lay
+    assert lay["words"] == feas._direct_words(cuda, P, G, T, K, V1, R, O, L).numel() > 0
+    compat_pg, type_ok, _ = _tables_equal_plain(a, zk, ck, cuda)
+    assert type_ok.any() and not compat_pg.all()
+    for base in (True, False):
+        got = feas.fresh_claim_feasibility_partial(*_on(a, B1_NAMES, cuda), zone_kid=zk,
+                                                   ct_kid=ck, with_base=base)
+        want = feas.fresh_claim_feasibility_partial_reference(
+            *_on(a, B1_NAMES, "cpu"), zone_kid=zk, ct_kid=ck, with_base=base)
+        for name, k, p in zip(("fail_t", "fail_c", "tonly", "n_fit"), got, want):
+            if p is None:
+                assert k is None, name
+                continue
+            np.testing.assert_array_equal(k.cpu().numpy(), p.numpy(), err_msg=name)
+    # B2's partial mode without the base returns no cap, as its plain version
+    b, _, _ = sparse_index_case("shuffled")
+    nfail, cap = feas.existing_node_feasibility_partial(
+        *_on(b, [n for n in B2_NAMES if n != "n_tol"], cuda), with_base=False)
+    assert cap is None and nfail.shape == (b["n_avail"].shape[0], b["g_mask"].shape[0])
 
 
 def test_pack_domains_and_classed_wide_vocab(cuda):
@@ -1926,20 +1987,35 @@ def test_pack_domains_and_classed_wide_vocab(cuda):
     assert _spilled("pack_classed", 2048) == 0
 
 
-def test_pack_minvalues_wide_catalog(cuda):
-    """minValues 2 on the instance type over 1,100 types (MW 2048, past the
-    1,024 the scans took before): B4 with floors against pack_reference and
-    B5 with floors against pack_classed_reference."""
+@pytest.mark.parametrize("floor", [1, 2, 50, "above-MW"])
+def test_pack_minvalues_wide_catalog(cuda, floor):
+    """minValues on the instance type over 1,100 types (MW 2048, past the
+    1,024 the scans took before) at floors of 1, 2 (the pool's own),
+    50 and one past MW (every cap 0: no claim opens): B4 with floors
+    against pack_reference, B5 with floors against pack_classed_reference
+    and B7's scenario grid against its plain version, every scan's fits in
+    shared memory (no spill scratch)."""
     from chip_smoke import type_pool
     from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.ops import packing as tp
 
     args, statics, classes = _scan_snapshot(mixed_pods(600, gpu_fraction=0.0),
                                             [type_pool(min_values=2)], corpus.generate(1100))
-    assert np.asarray(args[enc.SOLVE_ARG_NAMES.index("t_mvoh")]).shape[-1] == 2048
+    i = enc.SOLVE_ARG_NAMES.index("p_mvmin")
+    MW = np.asarray(args[enc.SOLVE_ARG_NAMES.index("t_mvoh")]).shape[-1]
+    mvmin = np.array(args[i])
+    assert MW == 2048 and mvmin.any()
+    mvmin[mvmin > 0] = MW + 1 if floor == "above-MW" else floor
+    args = list(args)
+    args[i] = mvmin
+    tp.layouts.clear()
     _build.reset_launches()
     out = _kernels_equal_plain(args, statics, cuda)
-    assert _build.launches["pack_minvalues"] == 1 and int(out[2]) > 0
+    assert _build.launches["pack_minvalues"] == 1
+    assert (int(out[2]) == 0) == (floor == "above-MW")
     _classed_equal_plain(args, statics, classes, cuda)
+    _scenarios_equal_plain(_scenario_args(args, 4, 3, seed=21), statics, cuda)
+    assert tp.layouts and all(spill == 0 for _, spill in tp.layouts.values()), tp.layouts
 
 
 def _wide_ledger_batch(capacity=1):

@@ -469,3 +469,51 @@ def test_scan_buffers_zero_fills_and_offered_sets(lead):
         spans.sort()
         assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
         assert state[13].shape == ((S if NRES else 1), 5, 2048, W)
+
+
+# -- minValues at an instance-type floor over a wide catalog (MW 2048) -------------
+
+
+@pytest.mark.parametrize("floor", [1, 2, 50, "above-MW"])
+def test_minvalues_cap_at_mw_2048(floor):
+    """The port's plain minvalues_cap (the scans' kernels are held to it on
+    the card) against JAX's at MW 2,048 over 1,100 types: key 0 the
+    instance type (each type its own value), key 1 a family key (37 values,
+    ~30 types each); seeded masks and fits with ties; floors of 1, 2, 50
+    and one past MW on both keys, on one key only, and none."""
+    import jax.numpy as jnp
+    from karpenter_tpu.ops.packing import minvalues_cap as jax_cap
+    from karpenter_tpu_torch.ops.packing import minvalues_cap
+
+    rng = np.random.default_rng(2048)
+    T, MW = 1_100, 2_048
+    t_mvoh = np.zeros((T, 2, MW), bool)
+    t_mvoh[np.arange(T), 0, np.arange(T)] = True
+    t_mvoh[np.arange(T), 1, np.arange(T) % 37] = True
+    B = 6
+    tmask = rng.random((B, T)) < np.array([0.9, 0.5, 0.05, 0.01, 0.9, 1.0])[:, None]
+    fit = rng.choice([0, 1, 2, 3, 7, 40, 110, 2**20], size=(B, T)).astype(np.int32)
+    fl = MW + 1 if floor == "above-MW" else floor
+    floors = np.array([[fl, fl], [fl, 0], [0, fl], [fl, fl], [0, 0], [fl, 2]], np.int32)
+    want = np.asarray(jax_cap(jnp.asarray(tmask), jnp.asarray(fit), jnp.asarray(floors),
+                              jnp.asarray(t_mvoh)))
+    got = minvalues_cap(torch.from_numpy(tmask), torch.from_numpy(fit),
+                        torch.from_numpy(floors), torch.from_numpy(t_mvoh))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(want[4]) == 2**28  # no floor: no cap
+    assert (floor != "above-MW") or not want[[0, 1, 2, 3, 5]].any()
+
+
+def test_scan_buffers_minvalues_words_and_span():
+    """The scans' minValues word table (ops/packing.py:_scan_buffers, built
+    on the card by csrc/pack_common.cuh:static_words): [T, MV, MW / 32 + 1]
+    int32, each (type, key) row's MW / 32 value words and the span of words
+    that hold a value; empty without floors."""
+    from karpenter_tpu_torch.ops import packing as tp
+
+    for MV, MW in ((2, 2048), (1, 1024), (1, 24), (0, 0)):
+        dims = dict(G=8, T=5, P=2, N=3, R=4, K=2, V1=4, JH=1, JD=1, MV=MV, MW=MW, NRES=0, O=2)
+        _, words, _, _ = tp._scan_buffers(dims, 1, 16, False, False, "cpu")
+        assert tuple(words[0].shape) == (5, MV, (MW + 31) // 32 + 1)
+        assert words[0].dtype == torch.int32
